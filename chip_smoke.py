@@ -9,8 +9,9 @@ order, none of whose failures is caught:
 2. build: ``nvcc`` compiles ``torch_cgx_tpu_torch/csrc/codec.cu`` into
    ``torch_cgx_tpu_torch/_build/``;
 3. kernels against their plain PyTorch versions on the card, at the shapes
-   the GPT-2 124M train step gives them: words, meta and decoded values must
-   be bit-identical (tolerance 0);
+   the GPT-2 124M train step gives them (the multi-row reduce at the
+   two-level and the all-to-all shapes of phase 6): words, meta and decoded
+   values must be bit-identical (tolerance 0);
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -20,21 +21,40 @@ order, none of whose failures is caught:
 5. times: each kernel and its plain version (CUDA events, median after
    warm-up), a device-to-device copy as the yardstick, the train step with
    and without the codec, and a ``torch.profiler`` breakdown of one step of
-   each.
+   each;
+6. multi-rank: four spawned ranks share the card over a gloo group (NCCL
+   refuses two ranks on one device), as a cross 2 x intra 2 layout, each
+   with full-width GPT-2 124M and its own 2 x 512 token shard. The
+   reference's default two-level scheme (intra SRA, cross Ring, leader
+   scheme): one gradient sync through the kernels bit-identical to the
+   same sync through the plain versions on the CPU; three train steps with
+   the launch counters reset just before and read just after, held against
+   the counts derived from the layout; replicas bit-identical. Then one step
+   each of the flat Ring, the all-to-all and the two-level scheme with an
+   uncompressed intra level, the first two also held against the plain CPU
+   path on a 64 MB fusion slice. Gloo stages the wire through host memory:
+   its time is not a card number.
 
-The second-to-last line is the per-kernel JSON record, the last
-``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
+The third-to-last line is the per-kernel JSON record, the second-to-last
+the card's name and power limit, the last ``{"ok": true, "device": {...}}``.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import multiprocessing as mp
 import os
+import queue
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
+from datetime import timedelta
 
 import numpy as np
 
@@ -46,6 +66,10 @@ STEPS = 3
 FLAT_N = 16_777_216  # a full 64 MB fusion slice: whole 32-bucket chunks
 TAIL_N = 5_042_944  # the last wte slice: 307 chunks, 26 tail buckets, a partial bucket
 SRA_WS = 4  # the stage-1 row count of the multi-rank epilogue check
+MR_WS, MR_INTRA = 4, 2  # phase 6: 4 ranks, cross 2 x intra 2
+MR_BATCH = 2  # each rank's token shard: 2 x 512, 8 x 512 in all
+MR_STEPS = 3
+MR_TIMEOUT_S = 600
 
 # Published device-memory rates (NVIDIA data sheets), bytes/s, by the name
 # fragment nvidia-smi reports; the longest matching fragment wins.
@@ -62,6 +86,7 @@ TPU_KERNELS = {
     "codec_quantize": "torch_cgx_tpu/ops/codec_pallas.py:312,763",
     "codec_dequantize": "torch_cgx_tpu/ops/codec_pallas.py:389,815",
     "codec_sra_epilogue": "torch_cgx_tpu/ops/codec_pallas.py:1375",
+    "codec_reduce_rows": "torch_cgx_tpu/ops/codec_pallas.py:1303",
 }
 SOURCE = "torch_cgx_tpu_torch/csrc/codec.cu"
 
@@ -182,6 +207,33 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         label = f"ws={ws} own={own} n={chunk}"
         record("codec_sra_epilogue", label + " words", got.packed[0], w)
         record("codec_sra_epilogue", label + " meta", got.meta[0], m)
+    del qs, rows
+
+    # The multi-row reduce at phase 6's shapes: the two-level intra
+    # reduce-scatter (2 rows of half a 64 MB slice, the raw own row in each
+    # position) and the all-to-all (4 rows of a whole slice, no raw row);
+    # then other widths, recipes, and a bucket too large for the epilogue's
+    # shared-memory tile.
+    cases = [(MR_INTRA, flat_n // MR_INTRA, BITS, BUCKET, 0, [None, 0, 1])]
+    cases += [(MR_WS, flat_n, BITS, BUCKET, 0, [None])]
+    cases += [(4, flat_n // 4, b, BUCKET, 0, [2]) for b in (1, 8)]
+    cases += [(2, flat_n // 8, BITS, BUCKET, k, [1]) for k in (1, 2)]
+    cases += [(3, 4 * 32 * 2048, BITS, 2048, 0, [None, 1])]
+    for rows_n, n, bits, b, kind, owns in cases:
+        rows = torch.from_numpy(
+            np.stack([fuzz_operand(rng, n, kind) * np.float32(r + 1) for r in range(rows_n)])
+        ).to(dev)
+        q = codec_cuda.quantize_batch(rows, bits, b)
+        assert codec_cuda.supports_reduce(q, requantize=False)
+        for own in owns:
+            raw = None if own is None else rows[own]
+            got = codec_cuda.reduce_rows_batch(q, raw_row=raw, own_idx=own)
+            want = codec_cuda.reduce_rows_chunks_plain(
+                q.packed, q.meta, raw, -1 if own is None else own, bits, b
+            )
+            label = f"rows={rows_n} n={n} bits={bits} B={b} recipe={kind} own={own}"
+            record("codec_reduce_rows", label, got, want)
+        del rows, q
     return max_err
 
 
@@ -190,44 +242,148 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(named_grads) -> dict:
-    """Kernel launches one compressed gradient sync makes at world size 1
-    with ``CGX_DEBUG_FORCE_CODEC``, derived from the layout: per compressed
-    fusion slice one quantize when it has a whole 32-bucket chunk; then the
-    fused epilogue and one decode where the fused epilogue runs, else two
-    decodes (the staged proxy)."""
-    import torch
+class LaunchModel:
+    """Kernel launches one compressed gradient sync makes on one rank,
+    derived from the gradient layout and decided by the dispatcher's own
+    gates (``codec_cuda.supports``, ``dispatch.fused_epilogue_would_run``,
+    ``dispatch.fused_reduce_would_run``) on layout-only stand-ins for each
+    payload: each method mirrors one reducer of ``parallel/reducers.py``."""
 
-    from torch_cgx_tpu_torch.ops import codec, dispatch
+    def __init__(self, dev):
+        self.dev = dev
+        self.counts = {k: 0 for k in TPU_KERNELS}
+
+    def _stand_in(self, rows: int, n: int, cc):
+        import torch
+
+        from torch_cgx_tpu_torch.ops import codec
+
+        nb = codec.num_buckets(n, cc.bucket_size)
+        return codec.QTensor(
+            packed=torch.empty((rows, 0), dtype=torch.int32, device=self.dev),
+            meta=torch.empty((rows, nb, 2), device=self.dev),
+            residual=torch.empty((rows, 0), device=self.dev),
+            numel=n, bits=cc.bits, bucket_size=cc.bucket_size, dtype=torch.float32,
+        )
+
+    def codec(self, kernel: str, n: int, cc) -> None:
+        """A quantize or decode of rows of ``n`` values: one launch when the
+        chunk kernels cover the rows and they hold a whole chunk."""
+        from torch_cgx_tpu_torch.ops import codec, codec_cuda
+
+        b = cc.bucket_size
+        if codec_cuda.supports(n, cc.bits, b, False) and codec.num_buckets(n, b) >= codec.CHUNK_BUCKETS:
+            self.counts[kernel] += 1
+
+    def reduce(self, rows: int, n: int, cc) -> None:
+        """``dispatch.reduce_rows`` without an accumulator."""
+        from torch_cgx_tpu_torch.ops import dispatch
+
+        if dispatch.fused_reduce_would_run(self._stand_in(rows, n, cc)):
+            self.counts["codec_reduce_rows"] += 1
+        else:
+            self.codec("codec_dequantize", n, cc)
+
+    def proxy(self, m: int, cc) -> None:
+        """The world-size-1 ``CGX_DEBUG_FORCE_CODEC`` proxy."""
+        from torch_cgx_tpu_torch.ops import dispatch
+
+        self.codec("codec_quantize", m, cc)
+        if dispatch.fused_epilogue_would_run(self._stand_in(1, m, cc)):
+            self.counts["codec_sra_epilogue"] += 1
+            self.codec("codec_dequantize", m, cc)
+        else:
+            self.codec("codec_dequantize", m, cc)
+            self.codec("codec_dequantize", m, cc)
+
+    def sra(self, m: int, ws: int, cc) -> None:
+        from torch_cgx_tpu_torch.ops import dispatch
+        from torch_cgx_tpu_torch.parallel import chunk_layout
+
+        c = chunk_layout(m, ws)[0]
+        self.codec("codec_quantize", c, cc)
+        if dispatch.fused_epilogue_would_run(self._stand_in(ws, c, cc)):
+            self.counts["codec_sra_epilogue"] += 1
+        else:
+            self.reduce(ws, c, cc)
+            self.codec("codec_quantize", c, cc)
+        self.codec("codec_dequantize", c, cc)
+
+    def ring(self, m: int, ws: int, cc) -> None:
+        from torch_cgx_tpu_torch.parallel import chunk_layout
+
+        seg = chunk_layout(m, ws)[0]
+        for _ in range(ws - 1):  # scatter-reduce hops: requantize, decode-add
+            self.codec("codec_quantize", seg, cc)
+            self.codec("codec_dequantize", seg, cc)
+        self.codec("codec_quantize", seg, cc)  # the owned segment, once
+        for _ in range(ws):  # its own decode and ws-1 all-gather hops
+            self.codec("codec_dequantize", seg, cc)
+
+    def alltoall(self, m: int, ws: int, cc) -> None:
+        self.codec("codec_quantize", m, cc)
+        self.reduce(ws, m, cc)
+
+    def flat(self, m: int, ws: int, cc, reduction: str) -> None:
+        """``reducers.quantized_allreduce``."""
+        from torch_cgx_tpu_torch import config as cfg
+
+        if ws == 1:
+            if cc.enabled and cfg.force_codec():
+                self.proxy(m, cc)
+        elif cc.enabled and not cfg.dummy_compression() and reduction != cfg.REDUCTION_PSUM:
+            {cfg.REDUCTION_SRA: self.sra, cfg.REDUCTION_RING: self.ring,
+             cfg.REDUCTION_ALLTOALL: self.alltoall}[reduction](m, ws, cc)
+
+    def two_level(self, m: int, wi: int, wc: int, cc, topo) -> None:
+        """``reducers.hierarchical_allreduce``."""
+        from torch_cgx_tpu_torch import config as cfg
+        from torch_cgx_tpu_torch.config import CompressionConfig
+        from torch_cgx_tpu_torch.parallel import chunk_layout
+
+        intra_cc = cc if topo.intra_compress else CompressionConfig(bits=32)
+        cross_cc = cc if topo.cross_compress else CompressionConfig(bits=32)
+        if wi == 1 and wc == 1:
+            return
+        if wi == 1:
+            return self.flat(m, wc, cross_cc, topo.cross_reduction)
+        if wc == 1:
+            return self.flat(m, wi, intra_cc, topo.intra_reduction)
+        if not topo.intra_broadcast:
+            self.flat(m, wi, intra_cc, topo.intra_reduction)
+            return self.flat(m, wc, cross_cc, topo.cross_reduction)
+        c = chunk_layout(m, wi)[0]
+        compressed = intra_cc.enabled and not cfg.dummy_compression()
+        if compressed:
+            self.codec("codec_quantize", c, intra_cc)
+            self.reduce(wi, c, intra_cc)
+        self.flat(c, wc, cross_cc, topo.cross_reduction)
+        if compressed:
+            self.codec("codec_quantize", c, intra_cc)
+            self.codec("codec_dequantize", c, intra_cc)
+
+
+def expected_launches(named_grads, ws: int = 1, two_level=None) -> dict:
+    """Launches of one compressed gradient sync per rank, from the layout:
+    each compressed fusion slice through ``quantized_allreduce`` over a
+    group of ``ws`` ranks (the env's reduction type), or through the
+    two-level scheme of ``topology_from_env`` when ``two_level`` gives the
+    ``(intra, cross)`` sizes."""
+    from torch_cgx_tpu_torch import config as cfg
     from torch_cgx_tpu_torch.parallel import allreduce
 
-    counts = {k: 0 for k in TPU_KERNELS}
-    dev = next(iter(named_grads.values())).device
+    model = LaunchModel(next(iter(named_grads.values())).device)
     paths_leaves = allreduce.sorted_items(named_grads)
     for g in allreduce._group_leaves(paths_leaves, compress_small=False):
         if not g.cc.enabled:
             continue
         n = sum(paths_leaves[i][1].numel() for i in g.indices)
         for _, ln in allreduce._fusion_slices(n, 4):
-            nb = codec.num_buckets(ln, g.cc.bucket_size)
-            if nb < codec.CHUNK_BUCKETS:
-                continue
-            counts["codec_quantize"] += 1
-            # A layout-only stand-in for the slice's stage-1 payload: the
-            # fused-epilogue decision reads shapes and the device only.
-            q = codec.QTensor(
-                packed=torch.empty((1, 0), dtype=torch.int32, device=dev),
-                meta=torch.empty((1, nb, 2), device=dev),
-                residual=torch.empty((1, 0), device=dev),
-                numel=ln, bits=g.cc.bits, bucket_size=g.cc.bucket_size,
-                dtype=torch.float32,
-            )
-            if dispatch.fused_epilogue_would_run(q):
-                counts["codec_sra_epilogue"] += 1
-                counts["codec_dequantize"] += 1
+            if two_level is None:
+                model.flat(ln, ws, g.cc, cfg.intra_reduction())
             else:
-                counts["codec_dequantize"] += 2
-    return counts
+                model.two_level(ln, *two_level, g.cc, cfg.topology_from_env())
+    return model.counts
 
 
 def gpt2_slice(dev, cfg, batch: int, seq: int, steps: int, cpu_check: bool = True) -> dict:
@@ -317,41 +473,54 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def time_kernels(dev, n: int, name: str) -> list:
-    """Each kernel and its plain version at the main path's flat slice."""
+    """Each kernel and its plain version at the main path's flat slice; the
+    multi-row reduce at phase 6's two shapes, the two-level one first."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec_cuda
 
     rate = mem_rate(name)
-    x = torch.from_numpy(fuzz_operand(np.random.default_rng(SEED + 1), n, 0)).to(dev)
+    rng = np.random.default_rng(SEED + 1)
+    x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
     words, meta = codec_cuda.quantize_chunks(x, BITS, BUCKET)
-    acc = x.clone()
-    wire = n * BITS // 8 + 8 * n // BUCKET
-    # (bytes moved, f32 operations per value) of each kernel.
-    work = {
-        "codec_quantize": (4 * n + wire, 8),
-        "codec_dequantize": (wire + 4 * n, 4),
-        "codec_sra_epilogue": (2 * wire, 12),
-    }
-    runs = {
-        "codec_quantize": (
-            lambda: codec_cuda.quantize_chunks(x, BITS, BUCKET),
-            lambda: codec_cuda.quantize_chunks_plain(x, BITS, BUCKET),
-        ),
-        "codec_dequantize": (
-            lambda: codec_cuda.dequantize_chunks(words, meta, BITS, BUCKET),
-            lambda: codec_cuda.dequantize_chunks_plain(words, meta, BITS, BUCKET),
-        ),
-        "codec_sra_epilogue": (
-            lambda: codec_cuda.sra_epilogue_chunks(words[None], meta[None], None, -1, BITS, BUCKET),
-            lambda: codec_cuda.sra_epilogue_chunks_plain(
-                words[None], meta[None], None, -1, BITS, BUCKET
-            ),
-        ),
-    }
+
+    def wire(m: int) -> int:
+        return m * BITS // 8 + 8 * m // BUCKET
+
+    # (kernel, shape, kernel call, plain call, bytes moved, f32 operations).
+    runs = [
+        ("codec_quantize", f"n={n}",
+         lambda: codec_cuda.quantize_chunks(x, BITS, BUCKET),
+         lambda: codec_cuda.quantize_chunks_plain(x, BITS, BUCKET),
+         4 * n + wire(n), 8 * n),
+        ("codec_dequantize", f"n={n}",
+         lambda: codec_cuda.dequantize_chunks(words, meta, BITS, BUCKET),
+         lambda: codec_cuda.dequantize_chunks_plain(words, meta, BITS, BUCKET),
+         wire(n) + 4 * n, 4 * n),
+        ("codec_sra_epilogue", f"n={n}",
+         lambda: codec_cuda.sra_epilogue_chunks(words[None], meta[None], None, -1, BITS, BUCKET),
+         lambda: codec_cuda.sra_epilogue_chunks_plain(words[None], meta[None], None, -1, BITS, BUCKET),
+         2 * wire(n), 12 * n),
+    ]
+    # The multi-row reduce: decode (a multiply and an add) and fold (an add)
+    # per value and row. Two-level: 2 rows of half a slice with the raw own
+    # row; all-to-all: 4 rows of a whole slice.
+    for rows_n, m, own in ((MR_INTRA, n // MR_INTRA, 0), (MR_WS, n, None)):
+        rows = torch.from_numpy(
+            np.stack([fuzz_operand(rng, m, 0) for _ in range(rows_n)])
+        ).to(dev)
+        q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+        w, mt = q.packed.contiguous(), q.meta.contiguous()
+        raw = None if own is None else rows[own].contiguous()
+        o = -1 if own is None else own
+        runs.append((
+            "codec_reduce_rows", f"rows={rows_n} n={m} own={own}",
+            lambda w=w, mt=mt, raw=raw, o=o: codec_cuda.reduce_rows_chunks(w, mt, raw, o, BITS, BUCKET),
+            lambda w=w, mt=mt, raw=raw, o=o: codec_cuda.reduce_rows_chunks_plain(w, mt, raw, o, BITS, BUCKET),
+            rows_n * wire(m) + (0 if own is None else 4 * m) + 4 * m, 3 * rows_n * m,
+        ))
     out = []
-    for k, (kern, plain) in runs.items():
-        nbytes, ops = work[k]
+    for k, shape, kern, plain, nbytes, ops in runs:
         # Alternate kernel and plain version: kernel, plain, plain, kernel.
         k1 = time_cuda(kern)
         p1 = time_cuda(plain, iters=5)
@@ -359,13 +528,13 @@ def time_kernels(dev, n: int, name: str) -> list:
         k2 = time_cuda(kern)
         ms, plain_ms = min(k1, k2), min(p1, p2)
         t_bytes = nbytes / rate * 1e3
-        t_ops = ops * n / F32_RATE * 1e3
+        t_ops = ops / F32_RATE * 1e3
         bound = max(t_bytes, t_ops)
-        log(f"  {k:20s} n={n}: {ms:.4f} ms (plain {plain_ms:.3f} ms); {nbytes} bytes, "
+        log(f"  {k:20s} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms); {nbytes} bytes, "
             f"bound {bound:.4f} ms by {'bytes' if t_bytes >= t_ops else 'operations'} "
             f"= {100 * bound / ms:.1f}% of bound; {nbytes / ms / 1e6:.1f} GB/s")
-        out.append({"name": k, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        out.append({"name": k, "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes})
     src = torch.empty(n, device=dev)
     dst = torch.empty_like(src)
@@ -440,6 +609,196 @@ def profile_step(name: str, fn) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: four ranks on the card.
+# ---------------------------------------------------------------------------
+
+# The knobs of each multi-rank configuration; every other CGX_* knob is
+# unset. "group" is the two-level group or the flat world.
+MR_CONFIGS = {
+    "two_level": ({}, "two_level"),
+    "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, "world"),
+    "alltoall": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world"),
+    "uncompressed_intra": ({"CGX_INTRA_COMPRESS": "0"}, "two_level"),
+}
+
+
+def _configure(knobs: dict) -> None:
+    for k in [k for k in os.environ if k.startswith("CGX_")]:
+        del os.environ[k]
+    os.environ.update({
+        "CGX_COMPRESSION_QUANTIZATION_BITS": str(BITS),
+        "CGX_COMPRESSION_BUCKET_SIZE": str(BUCKET),
+        **knobs,
+    })
+
+
+def _digests(model) -> dict:
+    return {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+            for n, p in model.named_parameters()}
+
+
+def _plain_cpu(fn, *args, **kw):
+    """``fn`` on CPU tensors: the kernels' plain versions, in the fused
+    lowering the card takes for every batch that supports it."""
+    os.environ["CGX_SRA_EPILOGUE"] = "fused"
+    try:
+        return fn(*args, **kw)
+    finally:
+        del os.environ["CGX_SRA_EPILOGUE"]
+
+
+def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: int) -> None:
+    """One of phase 6's ranks: a gloo group over the FileStore ``store``,
+    the two-level layout, GPT-2 from the seed on ``dev_name`` and the
+    rank's own tokens. Puts its results (or its traceback) on ``result_q``
+    after the group is destroyed."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from torch_cgx_tpu_torch.config import default_compression_config
+        from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
+        from torch_cgx_tpu_torch.ops import codec_cuda
+        from torch_cgx_tpu_torch.parallel import (
+            allreduce_flat, gradient_sync, hierarchical_groups, make_train_step,
+        )
+
+        timeout = timedelta(seconds=MR_TIMEOUT_S // 2)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank, world_size=MR_WS, timeout=timeout,
+        )
+        tl = hierarchical_groups(intra_size=MR_INTRA, timeout=timeout)
+        layout = (tl.intra_size, tl.cross_size)
+        dev = torch.device(dev_name)
+        cfg = getattr(GPT2Config, size)()
+        model = GPT2(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        rng = np.random.default_rng(SEED + rank)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(MR_BATCH, seq))).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+
+        def loss_fn(m, t):
+            return lm_loss(m(t), t)
+
+        _configure({})
+        loss_fn(model, tokens).backward()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        synced = gradient_sync(grads, group=tl)
+        sync(dev)
+        plain = _plain_cpu(gradient_sync, {k: v.cpu() for k, v in grads.items()}, group=tl)
+        out["sync"] = {
+            "params": len(grads), "seconds": time.perf_counter() - t0,
+            "mismatched": [k for k in grads if not _same_bits(synced[k].cpu(), plain[k])],
+        }
+        del synced, plain
+        first = grads["wte.embedding"].reshape(-1)[:FLAT_N].contiguous()
+        cc = default_compression_config()
+        for name, (knobs, kind) in MR_CONFIGS.items():
+            _configure(knobs)
+            group = tl if kind == "two_level" else None
+            expected = (expected_launches(grads, two_level=layout) if kind == "two_level"
+                        else expected_launches(grads, ws=MR_WS))
+            res = {"expected": expected}
+            if name in ("ring", "alltoall"):
+                gpu = allreduce_flat(first, cc, group=group)
+                cpu = _plain_cpu(allreduce_flat, first.cpu(), cc, group=group)
+                res["slice_same"] = _same_bits(gpu.cpu(), cpu)
+                res["slice_n"] = first.numel()
+            steps = MR_STEPS if name == "two_level" else 1
+            step = make_train_step(model, loss_fn, opt, group=group, device=dev)
+            sync(dev)
+            codec_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            res["losses"] = [float(step(tokens)) for _ in range(steps)]
+            sync(dev)
+            res["step_s"] = (time.perf_counter() - t0) / steps
+            res["launches"] = dict(codec_cuda.LAUNCHES)
+            res["steps"] = steps
+            res["digests"] = _digests(model)
+            out[name] = res
+        dist.barrier()
+    except Exception:  # reported to the parent, which fails the phase
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    result_q.put((rank, out))
+
+
+def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SEQ) -> dict:
+    """Spawn the ranks, collect their results within ``MR_TIMEOUT_S``, stop
+    every process, and hold the results to the phase's checks."""
+    ctx = mp.get_context("spawn")
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        result_q = ctx.Queue()
+        procs = [
+            ctx.Process(target=_rank_main,
+                        args=(r, os.path.join(tmp, "store"), result_q, dev_name, size, seq))
+            for r in range(MR_WS)
+        ]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MR_TIMEOUT_S
+        try:
+            while len(results) < MR_WS and time.monotonic() < deadline:
+                try:
+                    r, out = result_q.get(timeout=2.0)
+                except queue.Empty:
+                    if any(p.exitcode not in (None, 0) for p in procs):
+                        break
+                    continue
+                results[r] = out
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if len(results) < MR_WS:
+        codes = [p.exitcode for p in procs]
+        raise AssertionError(f"phase 6: only ranks {sorted(results)} reported; exit codes {codes}")
+    errors = {r: o["error"] for r, o in results.items() if "error" in o}
+    if errors:
+        raise AssertionError("phase 6 failed:\n" + "\n".join(f"rank {r}:\n{e}" for r, e in errors.items()))
+    res = [results[r] for r in range(MR_WS)]
+
+    s0 = res[0]["sync"]
+    log(f"  two-level sync of one backward's gradients, kernels vs plain CPU: "
+        f"{s0['params'] - len(s0['mismatched'])}/{s0['params']} parameters bit-identical "
+        f"on rank 0 ({s0['seconds']:.1f} s)")
+    for r, o in enumerate(res):
+        assert not o["sync"]["mismatched"], (r, o["sync"]["mismatched"][:5])
+    for name in MR_CONFIGS:
+        c0 = res[0][name]
+        log(f"  {name}: launches per rank and step derived from the layout: {c0['expected']}")
+        log(f"    losses {c0['losses']}; launches on rank 0 over {c0['steps']} step(s): "
+            f"{c0['launches']}; host-clock step {c0['step_s']:.2f} s (gloo, wire through host memory)")
+        if "slice_same" in c0:
+            log(f"    kernels vs plain CPU on a {c0['slice_n']}-value fusion slice: "
+                f"{'bit-identical' if all(o[name]['slice_same'] for o in res) else 'DIFFERENT'} on every rank")
+        for r, o in enumerate(res):
+            c = o[name]
+            assert np.all(np.isfinite(c["losses"])), (name, r, c["losses"])
+            assert c["losses"] == c0["losses"], (name, r, c["losses"], c0["losses"])
+            want = {k: v * c["steps"] for k, v in c["expected"].items()}
+            assert c["launches"] == want, (name, r, c["launches"], want)
+            assert c.get("slice_same", True), (name, r)
+            diff = [k for k in c0["digests"] if c["digests"][k] != c0["digests"][k]]
+            assert not diff, (name, r, diff[:5])
+        log(f"    replicas: all {len(c0['digests'])} parameters bit-identical on the {MR_WS} ranks")
+    assert res[0]["two_level"]["launches"]["codec_reduce_rows"] > 0
+    assert res[0]["alltoall"]["launches"]["codec_reduce_rows"] > 0
+    return {"launches": res[0]["two_level"]["launches"], "results": res}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -500,13 +859,26 @@ def main() -> int:
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_step("step without the codec", plain_step)
     profile_step("step with the codec", lambda: sl["step"](sl["tokens"]))
+    launches = dict(sl["launches"])
+    del sl, plain_step
+    torch.cuda.empty_cache()
+
+    log(f"== 6. multi-rank: {MR_WS} ranks on the card (cross {MR_WS // MR_INTRA} x intra "
+        f"{MR_INTRA}), gloo, GPT-2 124M, {MR_BATCH}x{SEQ} tokens a rank")
+    mr = multirank_phase()
+    launches["codec_reduce_rows"] = mr["launches"]["codec_reduce_rows"]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
+    # One record a kernel: its launches on the path that runs it (phase 4
+    # for the three of the world-size-1 slice, phase 6's two-level steps for
+    # the reduce) and its time at that path's shape.
     records = []
     for r in kern:
+        if any(x["name"] == r["name"] for x in records):
+            continue
         records.append({
             "name": r["name"], "route": "cuda", "source": SOURCE,
-            "replaces": TPU_KERNELS[r["name"]], "launches": sl["launches"][r["name"]],
+            "replaces": TPU_KERNELS[r["name"]], "launches": launches[r["name"]],
             "max_abs_err": max_err[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         })

@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cgx_tpu_torch.config import CompressionConfig
 from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
-from torch_cgx_tpu_torch.ops import codec, codec_cuda
+from torch_cgx_tpu_torch.ops import codec, codec_cuda, dispatch
 from torch_cgx_tpu_torch.parallel import gradient_sync, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -83,6 +84,7 @@ def test_launch_counter_counts_only_kernel_launches(dev):
     torch.cuda.synchronize()
     assert codec_cuda.LAUNCHES == {
         "codec_quantize": 1, "codec_dequantize": 1, "codec_sra_epilogue": 0,
+        "codec_reduce_rows": 0,
     }
 
 
@@ -122,4 +124,52 @@ def test_tiny_train_step_runs_the_kernels(dev, monkeypatch):
     losses = [float(step(tokens)) for _ in range(3)]
     torch.cuda.synchronize()
     assert all(np.isfinite(losses)), losses
-    assert all(v > 0 for v in codec_cuda.LAUNCHES.values()), codec_cuda.LAUNCHES
+    # World size 1 reduces no rows: the multi-row reduce stays idle.
+    launched = {k: v > 0 for k, v in codec_cuda.LAUNCHES.items()}
+    assert launched == {
+        "codec_quantize": True, "codec_dequantize": True, "codec_sra_epilogue": True,
+        "codec_reduce_rows": False,
+    }, codec_cuda.LAUNCHES
+
+
+@pytest.mark.parametrize("rows,n,bits,bucket,owns", [
+    (2, 8_388_608, 4, 512, [None, 0, 1]),  # the two-level intra reduce-scatter
+    (4, 16_777_216, 4, 512, [None]),  # the all-to-all
+    (4, 4 * 32 * 128, 1, 128, [None, 0, 1, 2, 3]),
+    (3, 2 * 32 * 512, 8, 512, [2]),
+    (2, 3 * 32 * 2048, 4, 2048, [None, 1]),  # beyond the epilogue's tile
+])
+def test_reduce_rows_matches_plain(dev, rows, n, bits, bucket, owns):
+    x = torch.from_numpy(
+        np.random.default_rng(n + rows).standard_normal((rows, n)).astype(np.float32)
+        * np.arange(1, rows + 1, dtype=np.float32)[:, None]
+    ).to(dev)
+    q = codec_cuda.quantize_batch(x, bits, bucket)
+    assert codec_cuda.supports_reduce(q, requantize=False)
+    for own in owns:
+        raw = None if own is None else x[own]
+        got = codec_cuda.reduce_rows_batch(q, raw_row=raw, own_idx=own)
+        want = codec_cuda.reduce_rows_chunks_plain(
+            q.packed.cpu(), q.meta.cpu(), None if raw is None else raw.cpu(),
+            -1 if own is None else own, bits, bucket,
+        )
+        assert _bits_equal(got, want), own
+
+
+def test_reduce_rows_dispatch_tail_geometry(dev, monkeypatch):
+    """A chunk with a tail takes the staged decode and sum on the card (the
+    decode kernel); a whole-chunk one the fused reduce. Both agree with the
+    plain path on the CPU bit for bit."""
+    monkeypatch.setenv("CGX_SRA_EPILOGUE_MIN_ELEMS", "0")
+    cc = CompressionConfig(bits=4, bucket_size=512)
+    for n, fused in ((2 * 32 * 512, True), (32 * 512 + 26 * 512 + 100, False)):
+        x = torch.from_numpy(np.random.default_rng(n).standard_normal((2, n)).astype(np.float32))
+        q_cpu = dispatch.quantize_batch(x, cc)
+        q = dispatch.quantize_batch(x.to(dev), cc)
+        assert dispatch.fused_reduce_would_run(q) == fused
+        codec_cuda.reset_launch_counts()
+        got = dispatch.reduce_rows(q, raw_rows=x.to(dev), own_idx=1)
+        torch.cuda.synchronize()
+        assert codec_cuda.LAUNCHES["codec_reduce_rows"] == int(fused)
+        want = dispatch.reduce_rows(q_cpu, raw_rows=x, own_idx=1)
+        assert _bits_equal(got, want), n

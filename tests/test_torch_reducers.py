@@ -1,5 +1,6 @@
 """The port's quantized allreduce over spawned gloo ranks against the JAX
-package's ``sra_allreduce`` under ``shard_map`` on the CPU mesh.
+package's ``sra_allreduce``, ``ring_allreduce`` and ``alltoall_allreduce``
+under ``shard_map`` on the CPU mesh.
 
 Each world size spawns its ranks once (a ``FileStore`` in a temporary
 directory, every wait bounded) and runs every case there; the tests then
@@ -12,6 +13,9 @@ compare what the ranks returned:
   envelope on random data;
 * every rank holds the same bytes (error symmetry), in both epilogue
   lowerings, which also agree with each other;
+* the Ring and the all-to-all (in both lowerings of its reduce: the staged
+  decode-and-sum and the fused reduce's plain version) match JAX bit for
+  bit on decode-exact data and within the envelope on random data;
 * the uncompressed (PSUM), dummy-codec and tree paths sum exactly.
 
 The rank bodies import only torch and the port; JAX is imported in the
@@ -64,6 +68,7 @@ def _rank_main(rank, ws, init_file, inputs, result_q):
 
     from torch_cgx_tpu_torch.parallel import allreduce, reducers
 
+    torch.set_num_threads(1)  # ws ranks share the test machine's cores
     out = {}
     try:
         dist.init_process_group(
@@ -81,6 +86,10 @@ def _rank_main(rank, ws, init_file, inputs, result_q):
                     y.numpy(), q_sent.packed.numpy(), q_sent.meta.numpy(),
                     q_own.packed.numpy(), q_own.meta.numpy(),
                 )
+                x = torch.from_numpy(per_rank[rank])
+                out[("alltoall", mode, name)] = reducers.alltoall_allreduce(x, None, ws, cc).numpy()
+                if mode == "staged":
+                    out[("ring", name)] = reducers.ring_allreduce(x, None, ws, cc).numpy()
         del os.environ["CGX_SRA_EPILOGUE"]
         x = torch.from_numpy(inputs["random_tail"][rank])
         out["psum"] = reducers.quantized_allreduce(x, None, ws, CompressionConfig(bits=32)).numpy()
@@ -175,6 +184,32 @@ def _jax_sra(per_rank: np.ndarray, ws: int) -> np.ndarray:
     return np.asarray(jax.jit(fn)(jnp.asarray(per_rank)))
 
 
+def _jax_flat(per_rank: np.ndarray, ws: int, algo: str) -> np.ndarray:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from torch_cgx_tpu.config import CompressionConfig as JCC
+    from torch_cgx_tpu.parallel import reducers as jreducers
+    from torch_cgx_tpu.utils.compat import shard_map
+
+    fn = {"ring": jreducers.ring_allreduce, "alltoall": jreducers.alltoall_allreduce}[algo]
+    mesh = Mesh(np.asarray(jax.devices()[:ws]), ("dp",))
+    cc = JCC(bits=BITS, bucket_size=BUCKET)
+    body = shard_map(
+        lambda x: fn(x[0], "dp", ws, cc)[None],
+        mesh=mesh, in_specs=P("dp"), out_specs=P("dp"), check_vma=False,
+    )
+    return np.asarray(jax.jit(body)(jnp.asarray(per_rank)))
+
+
+def _port_flat(results, r: int, algo: str, name: str):
+    """(lowering, output) pairs of one rank's Ring or all-to-all run."""
+    if algo == "ring":
+        return [("ring", results[r][("ring", name)])]
+    return [(m, results[r][("alltoall", m, name)]) for m in ("staged", "fused")]
+
+
 NAMES = ["grid_chunks", "grid_tail", "random_chunks", "random_tail"]
 
 
@@ -238,3 +273,44 @@ def test_exact_paths_sum(world):
         avg = (ws + 1) / 2.0
         np.testing.assert_array_equal(results[r]["tree"]["w"], np.full((64, 32), avg, np.float32))
         np.testing.assert_allclose(results[r]["tree"]["b"], np.full((32,), avg, np.float32), rtol=1e-6)
+
+
+@pytest.mark.parametrize("algo", ["ring", "alltoall"])
+@pytest.mark.parametrize("name", ["grid_chunks", "grid_tail"])
+def test_ring_and_alltoall_match_jax_on_decode_exact_data(world, algo, name):
+    ws, inputs, results = world
+    ref = _jax_flat(inputs[name], ws, algo)
+    for r in range(ws):
+        for mode, got in _port_flat(results, r, algo, name):
+            np.testing.assert_array_equal(
+                got.view(np.uint32), ref[r].view(np.uint32), err_msg=f"rank {r} {mode}"
+            )
+
+
+@pytest.mark.parametrize("algo", ["ring", "alltoall"])
+@pytest.mark.parametrize("name", ["random_chunks", "random_tail"])
+def test_ring_and_alltoall_within_envelope_on_random_data(world, algo, name):
+    """The bound of the JAX package's own envelope test for these
+    reductions, against the exact sum and against JAX's output."""
+    ws, inputs, results = world
+    x = inputs[name]
+    ref = _jax_flat(x, ws, algo)
+    exact = x.astype(np.float64).sum(axis=0)
+    step = float((x.max() - x.min()) / BUCKET)
+    bound = codec.allreduce_error_bound(x.shape[1], BITS, BUCKET, ws, step)
+    for r in range(ws):
+        for _, got in _port_flat(results, r, algo, name):
+            assert np.abs(got - exact).max() <= bound
+            assert np.abs(got - ref[r]).max() <= bound
+
+
+@pytest.mark.parametrize("algo", ["ring", "alltoall"])
+@pytest.mark.parametrize("name", NAMES)
+def test_ring_and_alltoall_replicas_bit_identical(world, algo, name):
+    """Every rank decodes the same bytes; the all-to-all's two lowerings of
+    its reduce agree bit for bit."""
+    ws, _, results = world
+    y0 = _port_flat(results, 0, algo, name)[0][1].view(np.uint32)
+    for r in range(ws):
+        for _, got in _port_flat(results, r, algo, name):
+            np.testing.assert_array_equal(got.view(np.uint32), y0)

@@ -20,6 +20,9 @@ COMPRESSION_MINIMAL_SIZE = "CGX_COMPRESSION_MINIMAL_SIZE"
 COMPRESSION_SKIP_INCOMPLETE_BUCKETS = "CGX_COMPRESSION_SKIP_INCOMPLETE_BUCKETS"
 FUSION_BUFFER_SIZE_MB = "CGX_FUSION_BUFFER_SIZE_MB"
 INNER_REDUCTION_TYPE = "CGX_INNER_REDUCTION_TYPE"
+CROSS_REDUCTION_TYPE = "CGX_CROSS_REDUCTION_TYPE"
+INTRA_BROADCAST = "CGX_INTRA_BROADCAST"
+INTRA_COMPRESS = "CGX_INTRA_COMPRESS"
 DEBUG_DUMMY_COMPRESSION = "CGX_DEBUG_DUMMY_COMPRESSION"
 DEBUG_ALL_TO_ALL_REDUCTION = "CGX_DEBUG_ALL_TO_ALL_REDUCTION"
 DEBUG_FORCE_CODEC = "CGX_DEBUG_FORCE_CODEC"
@@ -123,10 +126,46 @@ def _reduction_from_env(name: str, default: str) -> str:
 
 def intra_reduction() -> str:
     """The reduction type of a single-level data-parallel group (the intra
-    level of ``topology_from_env`` in the JAX package)."""
+    level of :func:`topology_from_env`)."""
     if _env.get_bool_env_or_default(DEBUG_ALL_TO_ALL_REDUCTION, False):
         return REDUCTION_ALLTOALL
     return _reduction_from_env(INNER_REDUCTION_TYPE, REDUCTION_SRA)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyConfig:
+    """The two-level (cross x intra) reduction scheme: each level's
+    reduction type, the leader scheme (``intra_broadcast``: reduce-scatter
+    inside the node, cross-reduce one chunk per rank, all-gather inside the
+    node) and whether each level compresses."""
+
+    intra_reduction: str = REDUCTION_SRA
+    cross_reduction: str = REDUCTION_RING
+    intra_broadcast: bool = True
+    intra_compress: bool = True
+    cross_compress: bool = True
+
+    def __post_init__(self):
+        for r in (self.intra_reduction, self.cross_reduction):
+            if r not in _VALID_REDUCTIONS:
+                raise ValueError(f"unknown reduction {r!r}")
+
+
+def topology_from_env() -> TopologyConfig:
+    """The reference's defaults: intra SRA, cross RING, leader scheme on,
+    intra compression on; ``CGX_DEBUG_ALL_TO_ALL_REDUCTION`` sets both
+    levels to ALLTOALL."""
+    if _env.get_bool_env_or_default(DEBUG_ALL_TO_ALL_REDUCTION, False):
+        intra = cross = REDUCTION_ALLTOALL
+    else:
+        intra = _reduction_from_env(INNER_REDUCTION_TYPE, REDUCTION_SRA)
+        cross = _reduction_from_env(CROSS_REDUCTION_TYPE, REDUCTION_RING)
+    return TopologyConfig(
+        intra_reduction=intra,
+        cross_reduction=cross,
+        intra_broadcast=_env.get_bool_env_or_default(INTRA_BROADCAST, True),
+        intra_compress=_env.get_bool_env_or_default(INTRA_COMPRESS, True),
+    )
 
 
 def dummy_compression() -> bool:

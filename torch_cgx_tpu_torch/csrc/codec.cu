@@ -1,10 +1,11 @@
 // Max-min codec kernels for Hopper (sm_90a): quantize, dequantize (with an
-// optional fused add) and the fused SRA epilogue.
+// optional fused add), the fused SRA epilogue and the multi-row reduce.
 //
 // They replace the Pallas TPU kernels of torch_cgx_tpu/ops/codec_pallas.py:
 //   cgx_quantize      <- _quantize_flat_impl (B1) and _quantize_chunks_impl (B5)
 //   cgx_dequantize    <- _dequantize_flat_impl (B2) and _dequantize_chunks_impl (B6)
 //   cgx_sra_epilogue  <- _sra_epilogue_impl (B3)
+//   cgx_reduce_rows   <- _reduce_rows_impl (B4)
 // CUDA has no 128-lane tiling constraint, so one kernel serves both the flat
 // and the bucket-row geometry of each TPU pair: every kernel walks whole
 // chunks of 32 buckets, one thread block per chunk.
@@ -20,7 +21,8 @@
 //   quantize   reads 4n bytes, writes n*bits/8 + 8n/B;
 //   dequantize reads n*bits/8 + 8n/B (+ 4n with add), writes 4n;
 //   epilogue   reads ws*(n*bits/8 + 8n/B) (+ 4n of raw own row), writes
-//              n*bits/8 + 8n/B, n = the chunk's length.
+//              n*bits/8 + 8n/B, n = the chunk's length;
+//   reduce     reads the same, writes 4n.
 // The operations per value (a divide, a handful of adds, shifts and ors)
 // stay far below the card's rate for that traffic. These first versions
 // are simple: coalesced global loads, neighbouring threads on neighbouring
@@ -213,6 +215,51 @@ __global__ void __launch_bounds__(kThreads)
   chunk_encode<BITS>(tile, B, s_unit, s_min, out_words + c * BITS * B);
 }
 
+// codec_reduce_rows. Replaces codec_pallas.py _reduce_rows_impl (B4): the
+// epilogue's decode-accumulate without the requantize. Memory-bound: reads
+// ws*(n*bits/8 + 8n/B) (+4n of the raw own row), writes 4n bytes, n = the
+// chunk's length. One block per chunk, the ws rows' meta staged in dynamic
+// shared memory (ws*256 bytes); thread l keeps the 32 partial sums of
+// position l in registers across the rows, folded in ascending row order
+// (row 0's value, then + row 1, ...: dispatch.ordered_rowsum), and writes
+// each reduced value once. No (32, B) tile, so no bucket-size limit.
+template <int BITS>
+__global__ void __launch_bounds__(kThreads)
+    cgx_reduce_rows_kernel(const int32_t* __restrict__ words,
+                           const float* __restrict__ meta,
+                           const float* __restrict__ raw, int own, int ws,
+                           long long chunks, int B, float* __restrict__ out) {
+  extern __shared__ float s_meta[];  // [ws][32][2]: (unit, min)
+  const size_t c = blockIdx.x;
+  const size_t row_words = (size_t)chunks * BITS * B;
+  const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
+  for (int i = threadIdx.x; i < ws * 2 * kChunkBuckets; i += blockDim.x) {
+    const int r = i / (2 * kChunkBuckets);
+    const int j = i % (2 * kChunkBuckets);
+    s_meta[i] = meta[r * row_meta + c * 2 * kChunkBuckets + j];
+  }
+  __syncthreads();
+  const size_t base = c * kChunkBuckets * B;
+  for (int l = threadIdx.x; l < B; l += blockDim.x) {
+    float acc[kChunkBuckets];
+    for (int r = 0; r < ws; ++r) {
+      const int32_t* wsrc = words + r * row_words + c * BITS * B;
+      uint32_t w[BITS];
+#pragma unroll
+      for (int k = 0; k < BITS; ++k) w[k] = (uint32_t)wsrc[(size_t)k * B + l];
+      const float* m = s_meta + r * 2 * kChunkBuckets;
+#pragma unroll
+      for (int s = 0; s < kChunkBuckets; ++s) {
+        const float v = r == own ? raw[base + (size_t)s * B + l]
+                                 : decode_one<BITS>(w, s, m[2 * s], m[2 * s + 1]);
+        acc[s] = r == 0 ? v : __fadd_rn(acc[s], v);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kChunkBuckets; ++s) out[base + (size_t)s * B + l] = acc[s];
+  }
+}
+
 #define CGX_DISPATCH_BITS(bits, ...)        \
   switch (bits) {                           \
     case 1: { constexpr int BITS = 1; __VA_ARGS__; } break; \
@@ -273,6 +320,27 @@ int cgx_sra_epilogue(const int32_t* words, const float* meta, const float* raw,
     if (e != cudaSuccess) return (int)e;
     cgx_sra_epilogue_kernel<BITS><<<(unsigned)chunks, kThreads, smem, st>>>(
         words, meta, raw, own, ws, chunks, B, inv, out_words, out_meta);
+  });
+  return (int)cudaGetLastError();
+}
+
+// words: ws rows of chunks*bits*B int32, meta: ws rows of chunks*32*2 f32,
+// raw: the own row's chunks*32*B f32 (null with own == -1) -> out: the
+// reduced chunk, chunks*32*B f32.
+int cgx_reduce_rows(const int32_t* words, const float* meta, const float* raw,
+                    int own, int ws, long long chunks, int B, int bits,
+                    float* out, void* stream) {
+  if (chunks < 1 || ws < 1 || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
+  if ((raw == nullptr) != (own < 0) || own >= ws) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)ws * 2 * kChunkBuckets * sizeof(float);
+  CGX_DISPATCH_BITS(bits, {
+    cudaError_t e = cudaFuncSetAttribute(cgx_reduce_rows_kernel<BITS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cgx_reduce_rows_kernel<BITS><<<(unsigned)chunks, kThreads, smem, st>>>(
+        words, meta, raw, own, ws, chunks, B, out);
   });
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 """The codec's CUDA kernels, their wrappers and their plain versions.
 
-Counterpart of ``torch_cgx_tpu/ops/codec_pallas.py``. Three hand-written
+Counterpart of ``torch_cgx_tpu/ops/codec_pallas.py``. Four hand-written
 kernels in ``csrc/codec.cu`` (built for ``sm_90a`` with ``nvcc`` into a
 plain C shared library at first use, loaded with ``ctypes``) replace the
-five Pallas kernels on the gradient-sync path:
+six Pallas kernels on the gradient-sync path:
 
 =====================  =================================================
 wrapper                TPU kernels replaced (``codec_pallas.py``)
@@ -11,15 +11,17 @@ wrapper                TPU kernels replaced (``codec_pallas.py``)
 ``quantize_chunks``    ``_quantize_flat_impl``, ``_quantize_chunks_impl``
 ``dequantize_chunks``  ``_dequantize_flat_impl``, ``_dequantize_chunks_impl``
 ``sra_epilogue_chunks`` ``_sra_epilogue_impl``
+``reduce_rows_chunks``  ``_reduce_rows_impl``
 =====================  =================================================
 
 Each wrapper works on whole 32-bucket chunks. On a CUDA tensor it launches
 its kernel (and counts the launch in :data:`LAUNCHES`) or raises; on a CPU
 tensor it runs its plain version, written from ``ops/codec.py``'s
 arithmetic. Nothing else picks between the two. The batch functions below
-(``quantize_batch``, ``dequantize_batch``, ``sra_epilogue_batch``) add the
-glue both packages keep outside their kernels: edge padding, the dense tail
-of the last ``nb % 32`` buckets and the raw residual, all plain PyTorch.
+(``quantize_batch``, ``dequantize_batch``, ``sra_epilogue_batch``,
+``reduce_rows_batch``) add the glue both packages keep outside their
+kernels: edge padding, the dense tail of the last ``nb % 32`` buckets and
+the raw residual, all plain PyTorch.
 
 Not in the kernels yet (ROADMAP Queue B), and refused on every device:
 stochastic rounding, the ``CGX_CODEC_ENCODE=mul`` encode and the
@@ -58,6 +60,10 @@ NVCC_FLAGS = (
 # memory: a block may use 232,448 bytes on Hopper, less the 256 bytes of
 # static meta. Larger buckets take the staged path (supports_reduce).
 MAX_EPILOGUE_TILE_BYTES = 232448 - 256
+# The JAX package's fused-reduce gate (codec_pallas.MAX_BUCKET_ELEMS,
+# MAX_REDUCE_BLOCK_ELEMS), kept so both packages route the same batches.
+MAX_BUCKET_ELEMS = 16384
+MAX_REDUCE_BLOCK_ELEMS = 1 << 20
 
 # Kernel launches per wrapper, counted where the kernel is launched and
 # nowhere else.
@@ -65,6 +71,7 @@ LAUNCHES: Dict[str, int] = {
     "codec_quantize": 0,
     "codec_dequantize": 0,
     "codec_sra_epilogue": 0,
+    "codec_reduce_rows": 0,
 }
 
 
@@ -133,7 +140,9 @@ def _lib():
             lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, vp]
             lib.cgx_dequantize.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
             lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, vp, vp, vp]
-            for fn in (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue):
+            lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, vp, vp]
+            fns = (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue, lib.cgx_reduce_rows)
+            for fn in fns:
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -159,6 +168,19 @@ def _refuse_unported() -> None:
             "CGX_CODEC_ENCODE=mul is not ported: the codec kernels implement "
             "the div encode only"
         )
+
+
+def _refuse_unported_fold() -> None:
+    _refuse_unported()
+    if cfg_mod.sra_accum() != "exact":
+        raise NotImplementedError(
+            "CGX_SRA_ACCUM=int8 is not ported: the reduce kernels fold in f32"
+        )
+
+
+def _check_own(raw: Optional[torch.Tensor], own: int, ws: int) -> None:
+    if (raw is None) != (own < 0) or own >= ws:
+        raise ValueError(f"own={own} must name a row exactly when a raw row is given")
 
 
 def _device_kind(*ts: Optional[torch.Tensor]) -> str:
@@ -298,13 +320,7 @@ def sra_epilogue_chunks_plain(
     """Plain version of :func:`sra_epilogue_chunks`. ``cast_dtype`` rounds
     the reduced chunk through the wire dtype before the requantize, as the
     staged path quantizes ``reduced.to(dtype)``."""
-    acc = None
-    for r in range(words.shape[0]):
-        if r == own:
-            vals = raw.to(torch.float32).reshape(-1)
-        else:
-            vals = dequantize_chunks_plain(words[r], meta[r], bits, bucket_size)
-        acc = vals if acc is None else acc + vals
+    acc = reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size)
     if cast_dtype != torch.float32:
         acc = acc.to(cast_dtype).to(torch.float32)
     return quantize_chunks_plain(acc, bits, bucket_size)
@@ -326,16 +342,11 @@ def sra_epilogue_chunks(
     meta (C*32, 2))`` of the reduced chunk. Rows fold in ascending order.
     ``cast_dtype``: the wire dtype the reduced chunk rounds through before
     the requantize (float32 only in the kernel)."""
-    _refuse_unported()
-    if cfg_mod.sra_accum() != "exact":
-        raise NotImplementedError(
-            "CGX_SRA_ACCUM=int8 is not ported: the epilogue kernel folds in f32"
-        )
+    _refuse_unported_fold()
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
-    if (raw is None) != (own < 0) or own >= ws:
-        raise ValueError(f"own={own} must name a row exactly when a raw row is given")
+    _check_own(raw, own, ws)
     if _device_kind(words, meta, raw) == "cpu":
         return sra_epilogue_chunks_plain(
             words, meta, raw, own, bits, bucket_size, cast_dtype
@@ -363,6 +374,65 @@ def sra_epilogue_chunks(
 
 
 # ---------------------------------------------------------------------------
+# Fused multi-row reduce (B4).
+# ---------------------------------------------------------------------------
+
+
+def reduce_rows_chunks_plain(
+    words: torch.Tensor,
+    meta: torch.Tensor,
+    raw: Optional[torch.Tensor],
+    own: int,
+    bits: int,
+    bucket_size: int,
+) -> torch.Tensor:
+    """Plain version of :func:`reduce_rows_chunks`: decode each row (the
+    raw row in place of row ``own``) and fold ``v0 + v1 + ...``."""
+    acc = None
+    for r in range(words.shape[0]):
+        if r == own:
+            vals = raw.to(torch.float32).reshape(-1)
+        else:
+            vals = dequantize_chunks_plain(words[r], meta[r], bits, bucket_size)
+        acc = vals if acc is None else acc + vals
+    return acc
+
+
+def reduce_rows_chunks(
+    words: torch.Tensor,
+    meta: torch.Tensor,
+    raw: Optional[torch.Tensor],
+    own: int,
+    bits: int,
+    bucket_size: int,
+) -> torch.Tensor:
+    """Fused dequantize-accumulate: ``words`` int32 ``(ws, C*bits*B)`` and
+    ``meta`` f32 ``(ws, C*32, 2)`` of ws rows of whole chunks, the raw own
+    chunk ``raw`` f32 ``(C*32*B,)`` replacing row ``own`` (-1 and None: no
+    substitution) -> the reduced chunk f32 ``(C*32*B,)``, rows folded in
+    ascending order."""
+    _refuse_unported_fold()
+    ws = words.shape[0]
+    n = meta.shape[1] * bucket_size
+    chunks = _chunk_geometry(n, bits, bucket_size)
+    _check_own(raw, own, ws)
+    if _device_kind(words, meta, raw) == "cpu":
+        return reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size)
+    _require_cuda_operand("reduce words", words, torch.int32, ws * chunks * bits * bucket_size)
+    _require_cuda_operand("reduce meta", meta, torch.float32, ws * 2 * n // bucket_size)
+    if raw is not None:
+        _require_cuda_operand("reduce raw", raw, torch.float32, n)
+    out = torch.empty(n, dtype=torch.float32, device=words.device)
+    err = _lib().cgx_reduce_rows(
+        words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
+        own, ws, chunks, bucket_size, bits, out.data_ptr(), _stream(words),
+    )
+    LAUNCHES["codec_reduce_rows"] += 1
+    _check_launch("codec_reduce_rows", err)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Batch API (rows = independent flat buffers of equal length).
 # ---------------------------------------------------------------------------
 
@@ -378,26 +448,30 @@ def supports(n: int, bits: int, bucket_size: int, skip_incomplete: bool) -> bool
     )
 
 
-def supports_reduce(q: QTensor, ws: Optional[int] = None) -> bool:
-    """Fused-epilogue eligibility. The geometry is the JAX package's
+def supports_reduce(
+    q: QTensor, ws: Optional[int] = None, *, requantize: bool = True
+) -> bool:
+    """Fused-reduce eligibility. The geometry is the JAX package's
     (``codec_pallas.supports_reduce``: every row whole 32-bucket chunks of
     128-aligned buckets, no residual, ws x chunk tile within its budget) so
-    the world-size-1 proxy picks the same lowering as the reference; on top
-    of that, the reduced (32, B) f32 tile must fit the kernel's shared
-    memory."""
+    both packages route the same batches to the fused kernels. With
+    ``requantize`` (the epilogue) the reduced (32, B) f32 tile must also fit
+    the kernel's shared memory; the reduce alone keeps no tile."""
     rows = q.packed.shape[0] if q.packed.dim() == 2 else 0
     ws = rows if ws is None else ws
     b = q.bucket_size
     if not q.bits or not (1 <= q.bits <= 8) or rows < 1:
         return False
-    if not b or b % 128 or CHUNK_BUCKETS * b * 4 > MAX_EPILOGUE_TILE_BYTES:
+    if not b or b % 128 or b > MAX_BUCKET_ELEMS:
+        return False
+    if requantize and CHUNK_BUCKETS * b * 4 > MAX_EPILOGUE_TILE_BYTES:
         return False
     if q.residual.shape[-1]:
         return False
     nb_r = codec.num_buckets(q.numel_main, b)
     if nb_r == 0 or nb_r % CHUNK_BUCKETS or q.numel_main != nb_r * b:
         return False
-    return ws * CHUNK_BUCKETS * b <= (1 << 20)
+    return ws * CHUNK_BUCKETS * b <= MAX_REDUCE_BLOCK_ELEMS
 
 
 def _as_f32(t: torch.Tensor) -> torch.Tensor:
@@ -537,3 +611,22 @@ def sra_epilogue_batch(
         bucket_size=q.bucket_size,
         dtype=out_dtype,
     )
+
+
+def reduce_rows_batch(
+    q: QTensor,
+    *,
+    raw_row: Optional[torch.Tensor] = None,
+    own_idx: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused dequantize-accumulate of a row-batched QTensor -> flat f32
+    ``(numel,)``: ``raw_row`` (the flat raw own chunk) replaces row
+    ``own_idx``'s decode before the fold. The caller checks
+    :func:`supports_reduce` (``requantize=False``)."""
+    own = -1 if own_idx is None else int(own_idx)
+    raw = None if raw_row is None else _as_f32(raw_row).reshape(-1).contiguous()
+    out = reduce_rows_chunks(
+        q.packed.contiguous(), _as_f32(q.meta).contiguous(), raw, own,
+        q.bits, q.bucket_size,
+    )
+    return out[: q.numel]

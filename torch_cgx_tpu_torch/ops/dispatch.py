@@ -9,7 +9,10 @@ leaves them to XLA. Both give the same wire bytes.
 ``CGX_SRA_EPILOGUE`` picks the epilogue lowering: "auto" takes the fused
 kernel for CUDA payloads at or above ``CGX_SRA_EPILOGUE_MIN_ELEMS`` and the
 staged decode/sum/quantize otherwise, "fused" and "staged" force one. Both
-lowerings give the same bytes.
+lowerings give the same bytes. ``reduce_rows`` (the reduce without the
+requantize: the all-to-all reduction and the reduce-scatter half of SRA)
+takes the fused reduce kernel under the same rule, by the JAX package's
+eligibility gate with no shared-memory limit.
 """
 
 from __future__ import annotations
@@ -86,9 +89,9 @@ def dequantize_batch(
     ])
 
 
-def _use_fused_reduce(q: QTensor) -> bool:
+def _use_fused_reduce(q: QTensor, *, requantize: bool = True) -> bool:
     mode = cfg_mod.sra_epilogue()
-    if mode == "staged" or not codec_cuda.supports_reduce(q):
+    if mode == "staged" or not codec_cuda.supports_reduce(q, requantize=requantize):
         return False
     if mode == "fused":
         return True
@@ -101,6 +104,12 @@ def fused_epilogue_would_run(q: QTensor) -> bool:
     """True when :func:`reduce_rows_requantize` takes the fused kernel for
     this QTensor: the world-size-1 proxy keys its kernel sequence off it."""
     return _use_fused_reduce(q)
+
+
+def fused_reduce_would_run(q: QTensor) -> bool:
+    """True when :func:`reduce_rows` takes the fused reduce kernel for this
+    QTensor (rows > 1, no accumulator)."""
+    return q.batch_rows > 1 and _use_fused_reduce(q, requantize=False)
 
 
 def ordered_rowsum(vals: torch.Tensor) -> torch.Tensor:
@@ -116,16 +125,36 @@ def reduce_rows(
     q: QTensor,
     *,
     raw_rows: Optional[torch.Tensor] = None,
+    raw_row: Optional[torch.Tensor] = None,
     own_idx: Optional[int] = None,
+    add_to: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Staged dequantize-accumulate of a row-batched QTensor -> flat f32
-    ``(numel,)``: decode every row, substitute the raw own chunk
-    ``raw_rows[own_idx]`` for its decode, sum in ascending order."""
+    """Dequantize-accumulate a row-batched QTensor -> flat f32 ``(numel,)``:
+    decode every row, substitute the raw own chunk (``raw_rows[own_idx]``,
+    or the pre-sliced ``raw_row``) for its decode, sum in ascending order.
+    ``add_to`` (flat) is a pre-accumulator: the Ring hop's decode-add. The
+    fused reduce kernel where :func:`fused_reduce_would_run` and there is
+    no accumulator, the staged decode/select/sum otherwise; same values."""
+    if raw_rows is not None and raw_row is not None:
+        raise ValueError("pass raw_rows or raw_row, not both")
+    rows = q.batch_rows
+    have_raw = raw_rows is not None or raw_row is not None
+    if add_to is None and fused_reduce_would_run(q):
+        rr = raw_rows[own_idx] if raw_rows is not None else raw_row
+        return codec_cuda.reduce_rows_batch(q, raw_row=rr, own_idx=own_idx)
+    if rows == 1 and not have_raw:
+        return dequantize_batch(
+            q, add_to=None if add_to is None else add_to[None], out_dtype=torch.float32
+        )[0]
     vals = dequantize_batch(q, out_dtype=torch.float32)
-    if raw_rows is not None:
-        own = (torch.arange(q.batch_rows, device=vals.device) == own_idx)[:, None]
-        vals = torch.where(own, raw_rows.to(torch.float32), vals)
-    return ordered_rowsum(vals)
+    if have_raw:
+        own = (torch.arange(rows, device=vals.device) == own_idx)[:, None]
+        raw_b = raw_rows if raw_rows is not None else raw_row[None]
+        vals = torch.where(own, raw_b.to(torch.float32), vals)
+    red = ordered_rowsum(vals)
+    if add_to is not None:
+        red = add_to.to(torch.float32) + red
+    return red
 
 
 def reduce_rows_requantize(

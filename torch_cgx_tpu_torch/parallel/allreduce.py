@@ -1,12 +1,14 @@
 """Gradient allreduce over a mapping of named tensors: per-layer config,
 fusion grouping and slicing, dispatch to the reducers.
 
-Counterpart of ``torch_cgx_tpu/parallel/allreduce.py`` for one
-data-parallel group: leaves resolve to a per-layer config (name-pattern
+Counterpart of ``torch_cgx_tpu/parallel/allreduce.py`` over one
+data-parallel group or a :class:`~.mesh.TwoLevelGroup` (the JAX package's
+two mesh axes): leaves resolve to a per-layer config (name-pattern
 registry, else the ``CGX_*`` env default, re-read on every call), large
 leaves form standalone groups, the rest group by (config, dtype) and are
 concatenated, each group's flat buffer is cut into fusion slices (64 MB by
-default) and every slice is reduced. The schedule compiler, the step
+default) and every slice is reduced, over two levels by
+``hierarchical_allreduce``. The schedule compiler, the step
 planner, producer fusion and the staged-program routes of the JAX package
 stay out: off the TPU they are inert at their default settings.
 
@@ -18,7 +20,7 @@ order and carry the same wire bytes as the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Tuple, Union
 
 import torch
 
@@ -27,7 +29,10 @@ from ..config import CompressionConfig
 from ..utils.tree import sorted_items
 from . import group as group_mod
 from .group import ProcessGroup
-from .reducers import quantized_allreduce
+from .mesh import TwoLevelGroup
+from .reducers import hierarchical_allreduce, quantized_allreduce
+
+GroupLike = Union[ProcessGroup, TwoLevelGroup]
 
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -99,17 +104,35 @@ def _fusion_slices(n: int, elem_size: int) -> List[Tuple[int, int]]:
     return out
 
 
+def flat_world(group: GroupLike) -> Tuple[ProcessGroup, int]:
+    """The flat group ``group`` spans and its size."""
+    if isinstance(group, TwoLevelGroup):
+        return group.world, group.size
+    return group, group_mod.world_size(group)
+
+
 def allreduce_flat(
     flat: torch.Tensor,
     cc: CompressionConfig,
     *,
-    group: ProcessGroup = None,
+    group: GroupLike = None,
 ) -> torch.Tensor:
-    """Allreduce one flat buffer, fusion slice by fusion slice."""
-    ws = group_mod.world_size(group)
-    red = cfg_mod.intra_reduction()
+    """Allreduce one flat buffer, fusion slice by fusion slice: over a
+    :class:`TwoLevelGroup` with the env's two-level scheme
+    (``topology_from_env``), over a plain group with its reduction type
+    (``intra_reduction``)."""
+    if isinstance(group, TwoLevelGroup):
+        topo = cfg_mod.topology_from_env()
+
+        def reduce(piece):
+            return hierarchical_allreduce(piece, group, cc, topo)
+    else:
+        ws, red = group_mod.world_size(group), cfg_mod.intra_reduction()
+
+        def reduce(piece):
+            return quantized_allreduce(piece, group, ws, cc, red)
     pieces = [
-        quantized_allreduce(flat[off : off + ln], group, ws, cc, red)
+        reduce(flat[off : off + ln])
         for off, ln in _fusion_slices(flat.shape[0], flat.element_size())
     ]
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
@@ -118,15 +141,16 @@ def allreduce_flat(
 def allreduce_tree(
     tree: Mapping[str, torch.Tensor],
     *,
-    group: ProcessGroup = None,
+    group: GroupLike = None,
     average: bool = False,
     compress_small: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Quantized allreduce of named gradients -> a dict with the same keys.
 
     ``average=True`` divides by the world size before quantization, the
-    reference hook's order."""
-    ws = group_mod.world_size(group)
+    reference hook's order. Uncompressed groups sum exactly over the whole
+    world."""
+    world, ws = flat_world(group)
     paths_leaves = sorted_items(tree)
     leaves = [t for _, t in paths_leaves]
     if average and ws > 1:
@@ -142,7 +166,7 @@ def allreduce_tree(
         if g.cc.enabled:
             reduced = allreduce_flat(fused, g.cc, group=group)
         elif ws > 1:
-            reduced = group_mod.all_reduce_sum(fused, group)
+            reduced = group_mod.all_reduce_sum(fused, world)
         else:
             reduced = fused
         off = 0

@@ -12,24 +12,23 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Mapping
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from ..utils.device import DeviceLike, resolve_device
-from . import group as group_mod
-from .allreduce import allreduce_tree
-from .group import ProcessGroup
+from .allreduce import GroupLike, allreduce_tree, flat_world
+from .group import all_reduce_sum
 
 
 def gradient_sync(
     grads: Mapping[str, torch.Tensor],
     *,
-    group: ProcessGroup = None,
+    group: GroupLike = None,
     average: bool = True,
     compress_small: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Quantized allreduce of named gradients. Averaging divides before
-    quantization, the reference hook's order."""
+    """Quantized allreduce of named gradients over a group, or over two
+    levels with a ``TwoLevelGroup``. Averaging divides before quantization,
+    the reference hook's order."""
     return allreduce_tree(grads, group=group, average=average, compress_small=compress_small)
 
 
@@ -48,7 +47,7 @@ def make_train_step(
     loss_fn: Callable[[nn.Module, Any], torch.Tensor],
     optimizer: torch.optim.Optimizer,
     *,
-    group: ProcessGroup = None,
+    group: GroupLike = None,
     device: DeviceLike = None,
     average: bool = True,
 ) -> Callable[[Any], torch.Tensor]:
@@ -56,7 +55,8 @@ def make_train_step(
     ``loss_fn(model, batch)``, :func:`gradient_sync` over the named
     gradients, ``optimizer.step()``. The batch moves to ``device`` (the GPU
     unless the caller passes another device), where the model must already
-    live. The returned loss is averaged over the group."""
+    live. ``group`` may be a ``TwoLevelGroup``. The returned loss is averaged
+    over the whole world."""
     dev = resolve_device(device)
     params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     wrong = [n for n, p in params if p.device.type != dev.type]
@@ -76,10 +76,9 @@ def make_train_step(
                 p.grad = synced[n]
         optimizer.step()
         loss = loss.detach()
-        ws = group_mod.world_size(group)
+        world, ws = flat_world(group)
         if ws > 1:
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
-            loss = loss / ws
+            loss = all_reduce_sum(loss, world) / ws
         return loss
 
     return step

@@ -3,7 +3,14 @@
 Takes the place of the JAX package's mesh axis (``parallel/mesh.py``): a
 ``torch.distributed`` process group, or ``None`` for the default group. With
 no process group initialised the world is one rank and no collective runs.
-The wire moves over NCCL on the card and gloo on the CPU.
+Every position a JAX reducer takes from ``lax.axis_index`` is :func:`rank`,
+the rank within the group the collective runs over.
+
+The wire moves over NCCL on the card and gloo on the CPU. Gloo also serves
+several ranks that share one card (NCCL refuses two ranks on one device):
+it takes CUDA tensors for every collective used here
+(``tools/gloo_cuda_probe.py``) and stages them through host memory itself,
+while the codec kernels run on the card.
 """
 
 from __future__ import annotations
@@ -47,7 +54,33 @@ def all_gather_rows(t: torch.Tensor, ws: int, group: ProcessGroup = None) -> tor
     return out
 
 
+def shift_right(t: torch.Tensor, group: ProcessGroup = None) -> torch.Tensor:
+    """Send ``t`` to rank ``(i + 1) % ws`` and return what rank ``(i - 1) %
+    ws`` sent: the Ring hop, ``lax.ppermute`` to the right neighbour. Built
+    on ``all_to_all_single`` with one non-empty send and one non-empty
+    receive, which gloo and NCCL both take (gloo's ``send``/``recv`` are not
+    safe on CUDA tensors)."""
+    ws, me = world_size(group), rank(group)
+    if ws == 1 or not t.numel():
+        return t.clone()
+    send = [0] * ws
+    recv = [0] * ws
+    send[(me + 1) % ws] = recv[(me - 1) % ws] = t.numel()
+    src = t.contiguous().view(-1)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, recv, send, group=group)
+    return out.view(t.shape)
+
+
 def all_reduce_sum(t: torch.Tensor, group: ProcessGroup = None) -> torch.Tensor:
     out = t.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def reduce_scatter_sum(t: torch.Tensor, ws: int, group: ProcessGroup = None) -> torch.Tensor:
+    """This rank's chunk of the sum of flat ``t`` (length ``ws * chunk``)
+    over the group: ``lax.psum_scatter(tiled=True)``."""
+    out = torch.empty(t.shape[0] // ws, dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, t.contiguous(), op=dist.ReduceOp.SUM, group=group)
     return out

@@ -1,19 +1,30 @@
 """Quantized allreduce over a data-parallel group.
 
-Counterpart of ``torch_cgx_tpu/parallel/reducers.py``, cut to the SRA
-(Scatter-Reduce-AllGather) path the gradient sync runs, over
-``torch.distributed`` instead of ``shard_map``:
+Counterpart of ``torch_cgx_tpu/parallel/reducers.py`` over
+``torch.distributed`` instead of ``shard_map``; each ``lax.scan`` there is
+a Python loop here, and each ``lax.axis_index`` the rank within the group
+the collective runs over.
 
-* stage 1: edge-pad the buffer to ``(ws, chunk)`` rows, quantize every row
-  and exchange them with ``all_to_all_single`` (int32 words, meta);
-* the epilogue: decode the ws arriving rows of this rank's chunk, keep the
-  raw own row in place of its decode, fold in ascending order and
-  requantize (``dispatch.reduce_rows_requantize``, fused or staged);
-* stage 2: ``all_gather_into_tensor`` of the requantized chunks and decode
-  every row, one's own included, so every rank holds the same bytes.
+* SRA (Scatter-Reduce-AllGather). Stage 1: edge-pad the buffer to ``(ws,
+  chunk)`` rows, quantize every row and exchange them with
+  ``all_to_all_single`` (int32 words, meta). The epilogue: decode the ws
+  arriving rows of this rank's chunk, keep the raw own row in place of its
+  decode, fold in ascending order and requantize
+  (``dispatch.reduce_rows_requantize``, fused or staged). Stage 2:
+  ``all_gather_into_tensor`` of the requantized chunks and decode every
+  row, one's own included, so every rank holds the same bytes.
+* Ring: ws-1 scatter-reduce hops, each requantizing the outgoing segment
+  and decode-adding the arriving one, then ws-1 all-gather hops that pass
+  each owner's once-quantized segment on, so every rank decodes the same
+  bytes.
+* All-to-all: quantize once, all-gather every rank's payload, decode and
+  fold them in rank order (``dispatch.reduce_rows``).
+* Two-level (cross x intra, :func:`hierarchical_allreduce`): the leader
+  scheme reduce-scatters inside the node, cross-reduces each rank's chunk
+  and all-gathers inside the node again.
 
-Ring, all-to-all and the two-level (hierarchical) reductions wait
-(ROADMAP).
+Deterministic rounding only: stochastic rounding is refused at the
+quantize (ROADMAP).
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from ..ops.codec import QTensor
 from ..utils.tree import round_up
 from . import group as group_mod
 from .group import ProcessGroup
+from .mesh import TwoLevelGroup
 
 
 def _chunk_size(n: int, ws: int) -> int:
@@ -91,6 +103,31 @@ def _sra_gather_decode(q_own: QTensor, group: ProcessGroup, ws: int, n: int, dty
     return _dequantize_rows(gathered).reshape(-1)[:n].to(dtype)
 
 
+def reduce_scatter_quantized(
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
+) -> torch.Tensor:
+    """SRA round 1: quantize the peers' chunks, exchange them and
+    decode-accumulate into the RAW own chunk (``dispatch.reduce_rows``), so
+    only the ws-1 peer contributions carry quantization error. Returns this
+    rank's reduced chunk, f32 ``(chunk_layout(n, ws)[0],)``."""
+    _, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc)
+    return dispatch.reduce_rows(q_recv, raw_rows=xs, own_idx=own_idx)
+
+
+def allgather_quantized(
+    chunk_f32: torch.Tensor,
+    group: ProcessGroup,
+    ws: int,
+    cc: CompressionConfig,
+    n: int,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """SRA round 2: requantize the owned chunk, all-gather and decode every
+    row, one's own included (error symmetry)."""
+    q_own = _quantize_1d(chunk_f32.to(out_dtype), cc)
+    return _sra_gather_decode(q_own, group, ws, n, out_dtype)
+
+
 def sra_allreduce(
     x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
 ) -> torch.Tensor:
@@ -108,6 +145,50 @@ def sra_wire_frames(
     q, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc)
     q_own = _sra_epilogue_q(q_recv, xs, own_idx, cc, x.dtype)
     return _sra_gather_decode(q_own, group, ws, n, x.dtype), q, q_own
+
+
+def _shift_right(q: QTensor, group: ProcessGroup) -> QTensor:
+    return _map_q(q, lambda t: group_mod.shift_right(t, group))
+
+
+def ring_allreduce(
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
+) -> torch.Tensor:
+    """Quantized ring allreduce: 2*(ws-1) hops to the right neighbour.
+    Scatter-reduce: rank r sends segment (r - step) % ws, requantized every
+    hop, and decode-adds the arriving segment (r - step - 1) % ws. All-gather:
+    rank r owns segment (r + 1) % ws, quantizes it once and passes each
+    owner's payload on, so every rank decodes the same bytes."""
+    n = x.shape[0]
+    dtype = x.dtype
+    if ws == 1:
+        return x
+    seg = _chunk_size(n, ws)
+    me = group_mod.rank(group)
+    acc = _pad_rows(x.to(torch.float32), ws, seg).clone()
+    for step in range(ws - 1):
+        q = _quantize_1d(acc[(me - step) % ws].to(dtype), cc)
+        q_in = _shift_right(q, group)
+        recv_idx = (me - step - 1) % ws
+        acc[recv_idx] = dispatch.reduce_rows(q_in, add_to=acc[recv_idx])
+    own_idx = (me + 1) % ws
+    cur = _quantize_1d(acc[own_idx].to(dtype), cc)
+    out = torch.empty((ws, seg), dtype=torch.float32, device=x.device)
+    out[own_idx] = _dequantize_1d(cur)
+    for step in range(ws - 1):
+        cur = _shift_right(cur, group)
+        out[(me - step) % ws] = _dequantize_1d(cur)
+    return out.reshape(-1)[:n].to(dtype)
+
+
+def alltoall_allreduce(
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
+) -> torch.Tensor:
+    """Quantize once, all-gather every rank's payload, decode and fold the
+    rows in rank order. O(ws * n) traffic: the debug path."""
+    q = _quantize_1d(x, cc)
+    gathered = _map_q(q, lambda t: group_mod.all_gather_rows(t, ws, group))
+    return dispatch.reduce_rows(gathered).to(x.dtype)
 
 
 def _force_codec_proxy(x: torch.Tensor, cc: CompressionConfig) -> torch.Tensor:
@@ -146,6 +227,51 @@ def quantized_allreduce(
         return group_mod.all_reduce_sum(x, group)
     if reduction == cfg_mod.REDUCTION_SRA:
         return sra_allreduce(x, group, ws, cc)
-    raise NotImplementedError(
-        f"reduction {reduction!r} is not ported yet (SRA and PSUM are)"
-    )
+    if reduction == cfg_mod.REDUCTION_RING:
+        return ring_allreduce(x, group, ws, cc)
+    if reduction == cfg_mod.REDUCTION_ALLTOALL:
+        return alltoall_allreduce(x, group, ws, cc)
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def hierarchical_allreduce(
+    x: torch.Tensor,
+    groups: TwoLevelGroup,
+    cc: CompressionConfig,
+    topology: Optional[cfg_mod.TopologyConfig] = None,
+) -> torch.Tensor:
+    """Two-level allreduce over the ``(cross, intra)`` subgroups.
+
+    With ``intra_broadcast`` (the leader scheme): quantized reduce-scatter
+    inside the node, each rank cross-reduces only its own chunk, quantized
+    all-gather inside the node. Without it: a full intra allreduce, then a
+    full cross allreduce. An uncompressed intra level runs a plain
+    reduce-scatter and all-gather. A level of size 1 is skipped."""
+    topo = topology or cfg_mod.topology_from_env()
+    n = x.shape[0]
+    wi, wc = groups.intra_size, groups.cross_size
+    intra_cc = cc if topo.intra_compress else CompressionConfig(bits=32)
+    cross_cc = cc if topo.cross_compress else CompressionConfig(bits=32)
+    if wi == 1 and wc == 1:
+        return x
+    if wi == 1:
+        return quantized_allreduce(x, groups.cross, wc, cross_cc, topo.cross_reduction)
+    if wc == 1:
+        return quantized_allreduce(x, groups.intra, wi, intra_cc, topo.intra_reduction)
+    if not topo.intra_broadcast:
+        y = quantized_allreduce(x, groups.intra, wi, intra_cc, topo.intra_reduction)
+        return quantized_allreduce(y, groups.cross, wc, cross_cc, topo.cross_reduction)
+
+    compressed = intra_cc.enabled and not cfg_mod.dummy_compression()
+    if compressed:
+        chunk = reduce_scatter_quantized(x, groups.intra, wi, intra_cc)
+    else:
+        xp = _pad_rows(x.to(torch.float32), wi, _chunk_size(n, wi)).reshape(-1)
+        chunk = group_mod.reduce_scatter_sum(xp, wi, groups.intra)
+    chunk = quantized_allreduce(
+        chunk.to(x.dtype), groups.cross, wc, cross_cc, topo.cross_reduction
+    ).to(torch.float32)
+    if compressed:
+        return allgather_quantized(chunk, groups.intra, wi, intra_cc, n, x.dtype)
+    full = group_mod.all_gather_rows(chunk[None], wi, groups.intra).reshape(-1)
+    return full[:n].to(x.dtype)
