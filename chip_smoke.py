@@ -10,8 +10,12 @@ order, none of whose failures is caught:
    ``torch_cgx_tpu_torch/_build/``;
 3. kernels against their plain PyTorch versions on the card, at the shapes
    the GPT-2 124M train step gives them (the multi-row reduce at the
-   two-level and the all-to-all shapes of phase 6): words, meta and decoded
-   values must be bit-identical (tolerance 0);
+   two-level and the all-to-all shapes of phase 6, the matmul-quantize at
+   the three dense-layer shapes of phase 6's flat SRA step): words, meta and
+   decoded values must be bit-identical (tolerance 0), and the
+   matmul-quantize on normal operands, whose sums the kernel and cuBLAS
+   associate differently, within ``payload_close``'s tolerance (meta within
+   1e-5 relative, every decoded value within one level step);
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -19,9 +23,10 @@ order, none of whose failures is caught:
    through the kernels and, on the CPU, through the plain versions must agree
    bit for bit;
 5. times: each kernel and its plain version (CUDA events, median after
-   warm-up), a device-to-device copy as the yardstick, the train step with
-   and without the codec, and a ``torch.profiler`` breakdown of one step of
-   each;
+   warm-up), the matmul-quantize also against ``torch.matmul`` of the same
+   product (which lacks the quantize), a device-to-device copy as the
+   yardstick, the train step with and without the codec, and a
+   ``torch.profiler`` breakdown of one step of each;
 6. multi-rank: four spawned ranks share the card over a gloo group (NCCL
    refuses two ranks on one device), as a cross 2 x intra 2 layout, each
    with full-width GPT-2 124M and its own 2 x 512 token shard. The
@@ -32,8 +37,14 @@ order, none of whose failures is caught:
    the counts derived from the layout; replicas bit-identical. Then one step
    each of the flat Ring, the all-to-all and the two-level scheme with an
    uncompressed intra level, the first two also held against the plain CPU
-   path on a 64 MB fusion slice. Gloo stages the wire through host memory:
-   its time is not a card number.
+   path on a 64 MB fusion slice. Then the flat SRA on a float32 GPT-2 124M,
+   one step without producer fusion and one with it
+   (``CGX_PRODUCER_FUSE=on``): before the latter, rank 0 runs one backward
+   with the plane engaged and holds each of the 36 staged payloads (the
+   ``attn_qkv``, ``mlp_in`` and ``mlp_out`` kernels of the 12 blocks) to a
+   quantize of that layer's ``p.grad / 4`` within ``payload_close``'s
+   tolerance. Gloo stages the wire through host memory: its time is not a
+   card number.
 
 The third-to-last line is the per-kernel JSON record, the second-to-last
 the card's name and power limit, the last ``{"ok": true, "device": {...}}``.
@@ -42,6 +53,7 @@ Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import multiprocessing as mp
@@ -87,7 +99,15 @@ TPU_KERNELS = {
     "codec_dequantize": "torch_cgx_tpu/ops/codec_pallas.py:389,815",
     "codec_sra_epilogue": "torch_cgx_tpu/ops/codec_pallas.py:1375",
     "codec_reduce_rows": "torch_cgx_tpu/ops/codec_pallas.py:1303",
+    "codec_matmul_quantize": "torch_cgx_tpu/ops/fused_producer.py:537",
 }
+# The dense layers of GPT-2 124M whose weight gradients producer fusion
+# quantizes in phase 6 (weight shape (din, o)), with the contraction of a
+# rank's 2 x 512 tokens. attn_proj (768 x 768) is below
+# CGX_STANDALONE_LAYER_ELEMS and stays in the fused group.
+MM_SHAPES = {"mlp_in": (768, 3072), "attn_qkv": (768, 2304), "mlp_out": (3072, 768)}
+MM_K = MR_BATCH * SEQ
+META_RTOL = 1e-5
 SOURCE = "torch_cgx_tpu_torch/csrc/codec.cu"
 
 
@@ -144,6 +164,41 @@ def _max_abs(a, b) -> float:
     if a.dtype == torch.int32:
         return float((a != b).sum())
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def payload_close(words, meta, want_words, want_meta, bits: int, bucket: int) -> tuple:
+    """Two quantized payloads of nearly equal values (one product summed in
+    two orders) against the tolerance: every meta value within ``META_RTOL``
+    relative to the larger of its magnitude and its bucket's level step, and
+    every decoded value within one level step of the other's, plus what the
+    meta's own difference moves it. Returns ``(ok, largest meta relative
+    error, largest decoded difference, largest decoded difference in level
+    steps)``."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    m = meta.reshape(-1, 2).double()
+    wm = want_meta.reshape(-1, 2).double()
+    unit = wm[:, 0]
+    dm = (m - wm).abs()
+    scale = torch.maximum(wm.abs(), unit[:, None]).clamp_min(1e-30)
+    meta_rel = float((dm / scale).max())
+
+    def decode(w, mt):
+        return codec_cuda.dequantize_chunks(
+            w.reshape(-1).contiguous(), mt.reshape(-1, 2).contiguous(), bits, bucket
+        ).double().view(-1, bucket)
+
+    a, b = decode(words, meta), decode(want_words, want_meta)
+    err = (a - b).abs()
+    # One level step, the meta's difference, and a float32 rounding of each
+    # decoded value.
+    tol = (unit + dm[:, 1] + ((1 << bits) - 1) * dm[:, 0])[:, None]
+    tol = tol + 2 * np.finfo(np.float32).eps * torch.maximum(a.abs(), b.abs())
+    ok = meta_rel <= META_RTOL and bool((err <= tol).all())
+    steps = float((err / unit.clamp_min(1e-30)[:, None]).max())
+    return ok, meta_rel, float(err.max()), steps
 
 
 def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
@@ -234,6 +289,29 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
             label = f"rows={rows_n} n={n} bits={bits} B={b} recipe={kind} own={own}"
             record("codec_reduce_rows", label, got, want)
         del rows, q
+
+    # The matmul-quantize at the dense-layer shapes of phase 6's flat SRA
+    # step, divisor 4. Small-integer operands make every sum exact in f32, so
+    # the kernel's and cuBLAS's orders agree and the bytes must too; normal
+    # operands are held to payload_close's tolerance.
+    for layer, (din, o) in MM_SHAPES.items():
+        label = f"{layer} K={MM_K} {din}x{o} div={MR_WS}"
+        xi = torch.from_numpy(rng.integers(-3, 4, (MM_K, din)).astype(np.float32)).to(dev)
+        gi = torch.from_numpy(rng.integers(-3, 4, (MM_K, o)).astype(np.float32)).to(dev)
+        w, m = codec_cuda.matmul_quantize_chunks(xi, gi, MR_WS, BITS, BUCKET)
+        pw, pm = codec_cuda.matmul_quantize_chunks_plain(xi, gi, MR_WS, BITS, BUCKET)
+        record("codec_matmul_quantize", label + " integer words", w, pw)
+        record("codec_matmul_quantize", label + " integer meta", m, pm)
+        xn = torch.from_numpy(rng.standard_normal((MM_K, din)).astype(np.float32)).to(dev)
+        gn = torch.from_numpy(rng.standard_normal((MM_K, o)).astype(np.float32)).to(dev)
+        w, m = codec_cuda.matmul_quantize_chunks(xn, gn, MR_WS, BITS, BUCKET)
+        pw, pm = codec_cuda.matmul_quantize_chunks_plain(xn, gn, MR_WS, BITS, BUCKET)
+        ok, meta_rel, abs_err, steps = payload_close(w, m, pw, pm, BITS, BUCKET)
+        max_err["codec_matmul_quantize"] = max(max_err["codec_matmul_quantize"], abs_err)
+        log(f"  {'codec_matmul_quantize':20s} {label + ' normal':44s} meta {meta_rel:.2e} rel, "
+            f"decoded within {steps:.3f} level steps ({abs_err:.3e})")
+        if not ok:
+            raise AssertionError(f"codec_matmul_quantize {label}: outside the tolerance")
     return max_err
 
 
@@ -296,12 +374,17 @@ class LaunchModel:
             self.codec("codec_dequantize", m, cc)
             self.codec("codec_dequantize", m, cc)
 
-    def sra(self, m: int, ws: int, cc) -> None:
+    def sra(self, m: int, ws: int, cc, produced: bool = False) -> None:
+        """``produced``: the backward's matmul-quantize made the stage-1
+        payload, in place of the quantize."""
         from torch_cgx_tpu_torch.ops import dispatch
         from torch_cgx_tpu_torch.parallel import chunk_layout
 
         c = chunk_layout(m, ws)[0]
-        self.codec("codec_quantize", c, cc)
+        if produced:
+            self.counts["codec_matmul_quantize"] += 1
+        else:
+            self.codec("codec_quantize", c, cc)
         if dispatch.fused_epilogue_would_run(self._stand_in(ws, c, cc)):
             self.counts["codec_sra_epilogue"] += 1
         else:
@@ -363,13 +446,17 @@ class LaunchModel:
             self.codec("codec_dequantize", c, intra_cc)
 
 
-def expected_launches(named_grads, ws: int = 1, two_level=None) -> dict:
+def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None) -> dict:
     """Launches of one compressed gradient sync per rank, from the layout:
     each compressed fusion slice through ``quantized_allreduce`` over a
     group of ``ws`` ranks (the env's reduction type), or through the
     two-level scheme of ``topology_from_env`` when ``two_level`` gives the
-    ``(intra, cross)`` sizes."""
+    ``(intra, cross)`` sizes. ``dense_k`` maps each dense kernel's path to
+    its contraction length: with producer fusion engaged, a standalone group
+    whose layer ``fused_producer.decide`` sends to the kernel gets its
+    stage-1 payload from the backward's matmul-quantize."""
     from torch_cgx_tpu_torch import config as cfg
+    from torch_cgx_tpu_torch.ops import fused_producer
     from torch_cgx_tpu_torch.parallel import allreduce
 
     model = LaunchModel(next(iter(named_grads.values())).device)
@@ -377,9 +464,17 @@ def expected_launches(named_grads, ws: int = 1, two_level=None) -> dict:
     for g in allreduce._group_leaves(paths_leaves, compress_small=False):
         if not g.cc.enabled:
             continue
+        path, leaf = paths_leaves[g.indices[0]]
+        produced = (
+            two_level is None and dense_k is not None and len(g.indices) == 1
+            and path in dense_k and fused_producer.engaged()
+            and fused_producer.decide(path, tuple(leaf.shape), dense_k[path], ws)[0] is not None
+        )
         n = sum(paths_leaves[i][1].numel() for i in g.indices)
         for _, ln in allreduce._fusion_slices(n, 4):
-            if two_level is None:
+            if produced:
+                model.sra(ln, ws, g.cc, produced=True)
+            elif two_level is None:
                 model.flat(ln, ws, g.cc, cfg.intra_reduction())
             else:
                 model.two_level(ln, *two_level, g.cc, cfg.topology_from_env())
@@ -487,20 +582,21 @@ def time_kernels(dev, n: int, name: str) -> list:
     def wire(m: int) -> int:
         return m * BITS // 8 + 8 * m // BUCKET
 
-    # (kernel, shape, kernel call, plain call, bytes moved, f32 operations).
+    # (kernel, shape, kernel call, plain call, bytes moved, f32 operations,
+    # the library call computing the same function or None).
     runs = [
         ("codec_quantize", f"n={n}",
          lambda: codec_cuda.quantize_chunks(x, BITS, BUCKET),
          lambda: codec_cuda.quantize_chunks_plain(x, BITS, BUCKET),
-         4 * n + wire(n), 8 * n),
+         4 * n + wire(n), 8 * n, None),
         ("codec_dequantize", f"n={n}",
          lambda: codec_cuda.dequantize_chunks(words, meta, BITS, BUCKET),
          lambda: codec_cuda.dequantize_chunks_plain(words, meta, BITS, BUCKET),
-         wire(n) + 4 * n, 4 * n),
+         wire(n) + 4 * n, 4 * n, None),
         ("codec_sra_epilogue", f"n={n}",
          lambda: codec_cuda.sra_epilogue_chunks(words[None], meta[None], None, -1, BITS, BUCKET),
          lambda: codec_cuda.sra_epilogue_chunks_plain(words[None], meta[None], None, -1, BITS, BUCKET),
-         2 * wire(n), 12 * n),
+         2 * wire(n), 12 * n, None),
     ]
     # The multi-row reduce: decode (a multiply and an add) and fold (an add)
     # per value and row. Two-level: 2 rows of half a slice with the raw own
@@ -517,24 +613,44 @@ def time_kernels(dev, n: int, name: str) -> list:
             "codec_reduce_rows", f"rows={rows_n} n={m} own={own}",
             lambda w=w, mt=mt, raw=raw, o=o: codec_cuda.reduce_rows_chunks(w, mt, raw, o, BITS, BUCKET),
             lambda w=w, mt=mt, raw=raw, o=o: codec_cuda.reduce_rows_chunks_plain(w, mt, raw, o, BITS, BUCKET),
-            rows_n * wire(m) + (0 if own is None else 4 * m) + 4 * m, 3 * rows_n * m,
+            rows_n * wire(m) + (0 if own is None else 4 * m) + 4 * m, 3 * rows_n * m, None,
+        ))
+    # The matmul-quantize at phase 6's three dense-layer shapes, mlp_in first
+    # (its record goes into the JSON line): a multiply and an add per product.
+    # The library call is torch.matmul of the same product in float32 (TF32
+    # off), which lacks the divide and the quantize.
+    for layer, (din, o) in MM_SHAPES.items():
+        x2 = torch.from_numpy(rng.standard_normal((MM_K, din)).astype(np.float32)).to(dev)
+        g2 = torch.from_numpy(rng.standard_normal((MM_K, o)).astype(np.float32)).to(dev)
+        runs.append((
+            "codec_matmul_quantize", f"{layer} K={MM_K} {din}x{o}",
+            lambda x2=x2, g2=g2: codec_cuda.matmul_quantize_chunks(x2, g2, MR_WS, BITS, BUCKET),
+            lambda x2=x2, g2=g2: codec_cuda.matmul_quantize_chunks_plain(x2, g2, MR_WS, BITS, BUCKET),
+            4 * MM_K * (din + o) + wire(din * o), 2 * MM_K * din * o,
+            lambda x2=x2, g2=g2: torch.matmul(x2.t(), g2),
         ))
     out = []
-    for k, shape, kern, plain, nbytes, ops in runs:
-        # Alternate kernel and plain version: kernel, plain, plain, kernel.
+    for k, shape, kern, plain, nbytes, ops, library in runs:
+        # Alternate kernel and plain version (and the library call):
+        # kernel, plain, library, library, plain, kernel.
         k1 = time_cuda(kern)
         p1 = time_cuda(plain, iters=5)
+        l1 = time_cuda(library) if library else None
+        l2 = time_cuda(library) if library else None
         p2 = time_cuda(plain, iters=5)
         k2 = time_cuda(kern)
         ms, plain_ms = min(k1, k2), min(p1, p2)
+        library_ms = min(l1, l2) if library else None
         t_bytes = nbytes / rate * 1e3
         t_ops = ops / F32_RATE * 1e3
         bound = max(t_bytes, t_ops)
-        log(f"  {k:20s} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms); {nbytes} bytes, "
-            f"bound {bound:.4f} ms by {'bytes' if t_bytes >= t_ops else 'operations'} "
-            f"= {100 * bound / ms:.1f}% of bound; {nbytes / ms / 1e6:.1f} GB/s")
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        log(f"  {k:20s} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}); {nbytes} bytes, "
+            f"{ops} operations, bound {bound:.4f} ms by "
+            f"{'bytes' if t_bytes >= t_ops else 'operations'} = {100 * bound / ms:.1f}% of bound")
         out.append({"name": k, "shape": shape, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": library_ms, "bound_ms": bound,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes})
     src = torch.empty(n, device=dev)
     dst = torch.empty_like(src)
@@ -613,13 +729,56 @@ def profile_step(name: str, fn) -> None:
 # ---------------------------------------------------------------------------
 
 # The knobs of each multi-rank configuration; every other CGX_* knob is
-# unset. "group" is the two-level group or the flat world.
+# unset. "group" is the two-level group or the flat world; "model" the
+# GPT-2 124M the steps train: the default one (bfloat16 activations) or a
+# float32 one. The producer's payload is an f32 product, so the flat SRA
+# pair trains the float32 model, whose p.grad is that product too.
 MR_CONFIGS = {
-    "two_level": ({}, "two_level"),
-    "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, "world"),
-    "alltoall": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world"),
-    "uncompressed_intra": ({"CGX_INTRA_COMPRESS": "0"}, "two_level"),
+    "two_level": ({}, "two_level", "bf16"),
+    "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, "world", "bf16"),
+    "alltoall": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world", "bf16"),
+    "uncompressed_intra": ({"CGX_INTRA_COMPRESS": "0"}, "two_level", "bf16"),
+    "sra": ({}, "world", "f32"),
+    "sra_producer": ({"CGX_PRODUCER_FUSE": "on"}, "world", "f32"),
 }
+PRODUCED_LAYERS = 12 * len(MM_SHAPES)  # 36 payloads a rank and step
+PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused group
+
+
+def producer_check(model, loss_fn, tokens) -> dict:
+    """One backward of ``model`` with producer fusion engaged over the flat
+    world: each staged payload against the dispatcher's quantize of its
+    layer's ``p.grad / MR_WS`` (the rows the allreduce would otherwise
+    quantize), held to ``payload_close``'s tolerance. Both come from the
+    same backward."""
+    from torch_cgx_tpu_torch.config import default_compression_config
+    from torch_cgx_tpu_torch.ops import dispatch, fused_producer
+
+    fused_producer.configure(None, divisor=MR_WS, active=True)
+    fused_producer.begin_step()
+    fused_producer.reset_counts()
+    model.zero_grad(set_to_none=True)
+    loss_fn(model, tokens).backward()
+    counts = dict(fused_producer.COUNTS)
+    cc = default_compression_config()
+    checked, worst_meta, worst_steps, failed = 0, 0.0, 0.0, []
+    for n, p in model.named_parameters():
+        ent = fused_producer.lookup(n, p.grad)
+        if ent is None:
+            continue
+        want = dispatch.quantize_batch((p.grad.reshape(-1) / MR_WS).view(MR_WS, -1), cc)
+        ok, meta_rel, _, steps = payload_close(
+            ent.q.packed, ent.q.meta, want.packed, want.meta, cc.bits, cc.bucket_size
+        )
+        checked += 1
+        worst_meta, worst_steps = max(worst_meta, meta_rel), max(worst_steps, steps)
+        if not ok:
+            failed.append(n)
+    fused_producer.deconfigure()
+    model.zero_grad(set_to_none=True)
+    return {"counts": counts, "checked": checked, "failed": failed,
+            "meta_rel": worst_meta, "steps": worst_steps,
+            "identity_misses": fused_producer.COUNTS["producer_fallback_identity"]}
 
 
 def _configure(knobs: dict) -> None:
@@ -662,8 +821,8 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         from torch_cgx_tpu_torch.config import default_compression_config
-        from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
-        from torch_cgx_tpu_torch.ops import codec_cuda
+        from torch_cgx_tpu_torch.models import GPT2, Dense, GPT2Config, lm_loss
+        from torch_cgx_tpu_torch.ops import codec_cuda, fused_producer
         from torch_cgx_tpu_torch.parallel import (
             allreduce_flat, gradient_sync, hierarchical_groups, make_train_step,
         )
@@ -699,28 +858,39 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         del synced, plain
         first = grads["wte.embedding"].reshape(-1)[:FLAT_N].contiguous()
         cc = default_compression_config()
-        for name, (knobs, kind) in MR_CONFIGS.items():
+        models = {"bf16": (model, opt)}
+        for name, (knobs, kind, model_kind) in MR_CONFIGS.items():
             _configure(knobs)
+            if model_kind not in models:
+                m32 = GPT2(dataclasses.replace(cfg, dtype=torch.float32), device=dev,
+                           generator=torch.Generator().manual_seed(SEED))
+                models[model_kind] = (m32, torch.optim.Adam(m32.parameters(), lr=1e-4, eps=1e-8))
+            mdl, optim = models[model_kind]
+            dense_k = {m.kernel_path: MR_BATCH * seq for m in mdl.modules() if isinstance(m, Dense)}
             group = tl if kind == "two_level" else None
             expected = (expected_launches(grads, two_level=layout) if kind == "two_level"
-                        else expected_launches(grads, ws=MR_WS))
+                        else expected_launches(grads, ws=MR_WS, dense_k=dense_k))
             res = {"expected": expected}
             if name in ("ring", "alltoall"):
                 gpu = allreduce_flat(first, cc, group=group)
                 cpu = _plain_cpu(allreduce_flat, first.cpu(), cc, group=group)
                 res["slice_same"] = _same_bits(gpu.cpu(), cpu)
                 res["slice_n"] = first.numel()
+            if name == "sra_producer" and rank == 0:
+                res["check"] = producer_check(mdl, loss_fn, tokens)
             steps = MR_STEPS if name == "two_level" else 1
-            step = make_train_step(model, loss_fn, opt, group=group, device=dev)
+            step = make_train_step(mdl, loss_fn, optim, group=group, device=dev)
             sync(dev)
             codec_cuda.reset_launch_counts()
+            fused_producer.reset_counts()
             t0 = time.perf_counter()
             res["losses"] = [float(step(tokens)) for _ in range(steps)]
             sync(dev)
             res["step_s"] = (time.perf_counter() - t0) / steps
             res["launches"] = dict(codec_cuda.LAUNCHES)
+            res["producer"] = dict(fused_producer.COUNTS)
             res["steps"] = steps
-            res["digests"] = _digests(model)
+            res["digests"] = _digests(mdl)
             out[name] = res
         dist.barrier()
     except Exception:  # reported to the parent, which fails the phase
@@ -795,7 +965,32 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         log(f"    replicas: all {len(c0['digests'])} parameters bit-identical on the {MR_WS} ranks")
     assert res[0]["two_level"]["launches"]["codec_reduce_rows"] > 0
     assert res[0]["alltoall"]["launches"]["codec_reduce_rows"] > 0
-    return {"launches": res[0]["two_level"]["launches"], "results": res}
+
+    # Producer fusion: the layout-derived counts trade 36 stage-1 quantizes
+    # for 36 matmul-quantizes, every rank consumed the 36 payloads, and the
+    # only fallbacks are the attn_proj layers, which stay in the fused group
+    # (as in the JAX package).
+    plain_sra, prod = res[0]["sra"]["expected"], res[0]["sra_producer"]["expected"]
+    assert plain_sra["codec_matmul_quantize"] == 0, plain_sra
+    assert prod["codec_matmul_quantize"] == PRODUCED_LAYERS, prod
+    assert plain_sra["codec_quantize"] - prod["codec_quantize"] == PRODUCED_LAYERS, (plain_sra, prod)
+    for r, o in enumerate(res):
+        pc = o["sra_producer"]["producer"]
+        assert pc["producer_consumed_slices"] == PRODUCED_LAYERS, (r, pc)
+        assert pc["producer_kernel_slices"] == PRODUCED_LAYERS, (r, pc)
+        assert pc["producer_fallbacks"] == pc["producer_fallback_fused_group"] == PROJ_LAYERS, (r, pc)
+    chk = res[0]["sra_producer"]["check"]
+    log(f"  sra_producer, rank 0: {chk['checked']} staged payloads against a quantize of "
+        f"p.grad / {MR_WS}: meta within {chk['meta_rel']:.2e} relative, decoded within "
+        f"{chk['steps']:.3f} level steps; {len(chk['failed'])} outside the tolerance; "
+        f"backward counters {({k: v for k, v in chk['counts'].items() if v})}")
+    assert chk["checked"] == PRODUCED_LAYERS and not chk["failed"], chk
+    assert chk["identity_misses"] == 0, chk
+    assert chk["counts"]["producer_kernel_slices"] == PRODUCED_LAYERS, chk
+    assert chk["counts"]["producer_fallbacks"] == chk["counts"]["producer_fallback_fused_group"], chk
+    launches = dict(res[0]["two_level"]["launches"])
+    launches["codec_matmul_quantize"] = res[0]["sra_producer"]["launches"]["codec_matmul_quantize"]
+    return {"launches": launches, "results": res}
 
 
 # ---------------------------------------------------------------------------
@@ -867,11 +1062,13 @@ def main() -> int:
         f"{MR_INTRA}), gloo, GPT-2 124M, {MR_BATCH}x{SEQ} tokens a rank")
     mr = multirank_phase()
     launches["codec_reduce_rows"] = mr["launches"]["codec_reduce_rows"]
+    launches["codec_matmul_quantize"] = mr["launches"]["codec_matmul_quantize"]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     # One record a kernel: its launches on the path that runs it (phase 4
     # for the three of the world-size-1 slice, phase 6's two-level steps for
-    # the reduce) and its time at that path's shape.
+    # the reduce, its producer-fused flat SRA step for the matmul-quantize)
+    # and its time at that path's (first) shape.
     records = []
     for r in kern:
         if any(x["name"] == r["name"] for x in records):
@@ -880,7 +1077,7 @@ def main() -> int:
             "name": r["name"], "route": "cuda", "source": SOURCE,
             "replaces": TPU_KERNELS[r["name"]], "launches": launches[r["name"]],
             "max_abs_err": max_err[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -82,9 +82,15 @@ def test_launch_counter_counts_only_kernel_launches(dev):
     q = codec_cuda.quantize_batch(x.to(dev)[None], 4, 512)
     codec_cuda.dequantize_batch(q)
     torch.cuda.synchronize()
+    x2 = torch.randint(-3, 4, (64, 128)).float()
+    g2 = torch.randint(-3, 4, (64, 256)).float()
+    codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 512)  # CPU: the plain version
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 0
+    codec_cuda.matmul_quantize_chunks(x2.to(dev), g2.to(dev), 2, 4, 512)
+    torch.cuda.synchronize()
     assert codec_cuda.LAUNCHES == {
         "codec_quantize": 1, "codec_dequantize": 1, "codec_sra_epilogue": 0,
-        "codec_reduce_rows": 0,
+        "codec_reduce_rows": 0, "codec_matmul_quantize": 1,
     }
 
 
@@ -128,7 +134,7 @@ def test_tiny_train_step_runs_the_kernels(dev, monkeypatch):
     launched = {k: v > 0 for k, v in codec_cuda.LAUNCHES.items()}
     assert launched == {
         "codec_quantize": True, "codec_dequantize": True, "codec_sra_epilogue": True,
-        "codec_reduce_rows": False,
+        "codec_reduce_rows": False, "codec_matmul_quantize": False,
     }, codec_cuda.LAUNCHES
 
 
@@ -173,3 +179,57 @@ def test_reduce_rows_dispatch_tail_geometry(dev, monkeypatch):
         assert codec_cuda.LAUNCHES["codec_reduce_rows"] == int(fused)
         want = dispatch.reduce_rows(q_cpu, raw_rows=x, own_idx=1)
         assert _bits_equal(got, want), n
+
+
+@pytest.mark.parametrize("k,din,o,div,bits,bucket", [
+    (64, 256, 512, 2, 4, 512),  # small
+    (1024, 768, 3072, 4, 4, 512),  # GPT-2 124M mlp_in, 2 x 512 tokens
+    (96, 128, 384, 3, 2, 128),  # chunks that cross rows of dw
+    (40, 64, 1792, 2, 8, 1792),  # a tile that leaves no room to stage operands
+])
+def test_matmul_quantize_matches_plain_on_integers(dev, k, din, o, div, bits, bucket):
+    """Small-integer operands make every sum exact in float32, so the
+    kernel's and cuBLAS's summation orders agree: bytes bit-identical."""
+    rng = np.random.default_rng(k + din + o)
+    x2 = torch.from_numpy(rng.integers(-3, 4, (k, din)).astype(np.float32)).to(dev)
+    g2 = torch.from_numpy(rng.integers(-3, 4, (k, o)).astype(np.float32)).to(dev)
+    w, m = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket)
+    pw, pm = codec_cuda.matmul_quantize_chunks_plain(x2.cpu(), g2.cpu(), div, bits, bucket)
+    assert _bits_equal(w, pw)
+    assert _bits_equal(m, pm)
+
+
+def test_produce_q_on_cuda_launches_the_kernel(dev, monkeypatch):
+    """An engaged dense backward on the card with aligned geometry takes the
+    matmul-quantize kernel, and its payload decodes
+    within one level step of a quantize of the returned gradient."""
+    from torch_cgx_tpu_torch.models import Dense
+    from torch_cgx_tpu_torch.ops import fused_producer as fp
+
+    for k, v in {"CGX_PRODUCER_FUSE": "on", "CGX_COMPRESSION_QUANTIZATION_BITS": "4",
+                 "CGX_COMPRESSION_BUCKET_SIZE": "128", "CGX_STANDALONE_LAYER_ELEMS": "32768"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(fp, "_CFG", dict(fp._CFG))
+    fp.configure(None, divisor=2, active=True)
+    fp._CFG.update(ws=2, rank=1)  # one process standing in for rank 1 of 2
+    fp.begin_step()
+    fp.reset_counts()
+    layer = Dense(256, 512, dtype=torch.float32, generator=torch.Generator().manual_seed(0)).to(dev)
+    layer.kernel_path = "big.kernel"
+    x = torch.randn(4, 32, 256, device=dev)
+    codec_cuda.reset_launch_counts()
+    layer(x).square().sum().backward()
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 1
+    assert fp.COUNTS["producer_kernel_slices"] == 1
+    assert fp.COUNTS["producer_fallbacks"] == 0
+    ent = fp.lookup("big.kernel", layer.kernel.grad)
+    assert ent is not None
+    want = dispatch.quantize_batch((layer.kernel.grad.reshape(-1) / 2).view(2, -1),
+                                   CompressionConfig(bits=4, bucket_size=128))
+    unit = want.meta[..., 0].reshape(-1, 1)
+    got_v = codec_cuda.dequantize_batch(ent.q).reshape(-1, 128)
+    want_v = codec_cuda.dequantize_batch(want).reshape(-1, 128)
+    assert bool(((got_v - want_v).abs() <= 1.001 * unit + 1e-6).all())
+    assert _bits_equal(ent.raw_row, (layer.kernel.grad.reshape(2, -1)[1] / 2))
+    fp.deconfigure()

@@ -1,0 +1,719 @@
+"""Producer fusion in the port (``ops/fused_producer.py``) against the JAX
+package's, on the CPU.
+
+* ``_kernel_geometry`` equals the JAX function over the GPT-2 124M dense
+  layers, world sizes, buckets and contraction lengths; the port's one extra
+  condition (the kernel's (32, B) tile must fit shared memory) is the only
+  difference allowed.
+* The matmul-quantize kernel's plain version against the JAX kernel in
+  interpret mode (``_matmul_quantize_q(interpret=True)``, as
+  ``tests/test_fused_producer.py`` runs it) and against the JAX
+  ``quantize_batch`` of the same product: bytes equal on small-integer
+  operands (every sum exact), meta within 1e-5 relative and decoded values
+  within one level step on normal operands.
+* ``Dense`` outputs and gradients bit-identical to the plain expression with
+  the knob off, on but unconfigured, and engaged; engaged, one payload for
+  each eligible layer.
+* The stash: epoch, claim and drain; every fallback reason counted; an
+  in-place or out-of-place rewrite of ``p.grad`` and a second backward in
+  one step leave the entry unclaimable and are counted.
+* Two spawned gloo ranks train a tiny float32 GPT-2 through
+  ``make_train_step``: with ``CGX_PRODUCER_FUSE=on`` the parameters are
+  bit-identical to the run with it off and every eligible payload is
+  consumed; against the JAX ``make_train_step`` with the producer on over a
+  2-device CPU mesh from the same weights, the consumed-slice counts are
+  equal and the parameters agree within ``3 * LR``, the tolerance of
+  ``test_torch_gpt2_step.py::test_train_steps_match_jax_float32``. On the
+  same ranks, one producer-on ``gradient_sync`` of a dense layer's exact
+  integer gradients is bit-identical to the JAX ``gradient_sync`` with the
+  producer on, and to the port's own run with it off.
+
+The single-process tests stand one process in for a rank of a 2-rank group
+by setting the producer's recorded world size; the rank bodies import only
+torch and the port.
+"""
+
+import multiprocessing as mp
+import os
+import queue
+import time
+from datetime import timedelta
+
+import numpy as np
+import pytest
+import torch
+
+from torch_cgx_tpu_torch.config import CompressionConfig
+from torch_cgx_tpu_torch.models import Dense, GPT2, GPT2Config, lm_loss
+from torch_cgx_tpu_torch.ops import codec_cuda, dispatch
+from torch_cgx_tpu_torch.ops import fused_producer as fp
+from torch_cgx_tpu_torch.parallel import allreduce
+
+WS = 2
+BITS, BUCKET = 4, 128
+LR = 1e-4
+STEPS = 2
+SPAWN_TIMEOUT_S = 300.0
+META_RTOL = 1e-5
+# GPT-2 124M's dense layers (din, o).
+GPT2_LAYERS = {"attn_qkv": (768, 2304), "attn_proj": (768, 768),
+               "mlp_in": (768, 3072), "mlp_out": (3072, 768)}
+PRODUCER_ENV = {
+    "CGX_COMPRESSION_QUANTIZATION_BITS": str(BITS),
+    "CGX_COMPRESSION_BUCKET_SIZE": str(BUCKET),
+    "CGX_STANDALONE_LAYER_ELEMS": "32768",
+}
+# The one-layer sync case: a (256, 512) dense layer whose input is the
+# identity, so its weight gradient is the loss's cotangent, an integer grid.
+SYNC_DIN, SYNC_O, SYNC_BITS = 256, 512, 2
+
+
+def _sync_cotangent(rank):
+    """Rank ``rank``'s cotangent: each run of 16 values is a permutation of
+    0..15 that starts with 0 (a seeded odd stride per run), so every bucket
+    holds 0 and 15 and its minimum sits at the same places on every rank,
+    while the wire rows differ. Divided by the world size and quantized at
+    2 bits, each level decodes exactly (0 + 2.5 * lvl), and the stage-2
+    minimum is 0 too: the port and the JAX package must agree bit for bit."""
+    runs = SYNC_DIN * SYNC_O // 16
+    stride = 2 * np.random.default_rng(rank).integers(0, 8, runs) + 1
+    return np.float32((np.arange(16)[None, :] * stride[:, None]) % 16).reshape(SYNC_DIN, SYNC_O)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_producer():
+    fp.deconfigure()
+    fp.reset_counts()
+    yield
+    fp.deconfigure()
+    fp.reset_counts()
+
+
+@pytest.fixture
+def engaged(monkeypatch):
+    """The plane on and configured, this process standing in for rank 0 of
+    a 2-rank group."""
+    for k, v in PRODUCER_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("CGX_PRODUCER_FUSE", "on")
+    fp.configure(None, divisor=WS, active=True)
+    fp._CFG.update(ws=WS, rank=0)
+    fp.begin_step()
+    return monkeypatch
+
+
+def _operands(seed, k, din, o, integer):
+    rng = np.random.default_rng(seed)
+    if integer:
+        return (rng.integers(-3, 4, (k, din)).astype(np.float32),
+                rng.integers(-3, 4, (k, o)).astype(np.float32))
+    return (rng.standard_normal((k, din)).astype(np.float32),
+            rng.standard_normal((k, o)).astype(np.float32))
+
+
+def _close(words, meta, want_words, want_meta, bits, bucket):
+    """Meta within META_RTOL relative (to the larger of the value and its
+    bucket's level step); decoded values within one level step plus what
+    the meta's difference moves them."""
+    m = torch.as_tensor(np.array(meta)).reshape(-1, 2).double()
+    wm = torch.as_tensor(np.array(want_meta)).reshape(-1, 2).double()
+    unit = wm[:, 0]
+    dm = (m - wm).abs()
+    assert bool((dm <= META_RTOL * torch.maximum(wm.abs(), unit[:, None])).all())
+
+    def decode(w, mt):
+        w = torch.as_tensor(np.array(w).view(np.int32)).reshape(-1)
+        mt = torch.as_tensor(np.array(mt)).reshape(-1, 2).float()
+        return codec_cuda.dequantize_chunks_plain(w, mt, bits, bucket).double().view(-1, bucket)
+
+    a, b = decode(words, meta), decode(want_words, want_meta)
+    tol = (unit + dm[:, 1] + ((1 << bits) - 1) * dm[:, 0])[:, None]
+    tol = tol + 2 * np.finfo(np.float32).eps * torch.maximum(a.abs(), b.abs())
+    assert bool(((a - b).abs() <= tol).all())
+
+
+# ---------------------------------------------------------------------------
+# Geometry.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ws", [2, 4, 8])
+@pytest.mark.parametrize("bucket", [96, 128, 512, 1024, 2048])
+def test_kernel_geometry_matches_jax(ws, bucket):
+    from torch_cgx_tpu.config import CompressionConfig as JCC
+    from torch_cgx_tpu.ops import fused_producer as jfp
+
+    cc, jcc = CompressionConfig(bits=4, bucket_size=bucket), JCC(bits=4, bucket_size=bucket)
+    tile_fits = 32 * bucket * 4 <= codec_cuda.MAX_EPILOGUE_TILE_BYTES
+    for din, o in GPT2_LAYERS.values():
+        chunk = din * o // ws
+        for k in (64, 1000, 1024):
+            want = jfp._kernel_geometry(k, din, o, ws, chunk, jcc)
+            assert fp._kernel_geometry(k, din, o, ws, chunk, cc, check_tile=False) == want
+            assert fp._kernel_geometry(k, din, o, ws, chunk, cc) == (want if tile_fits else None)
+
+
+# ---------------------------------------------------------------------------
+# The matmul-quantize's plain version against the JAX package.
+# ---------------------------------------------------------------------------
+
+
+def _jax_kernel_q(x2, g2, bits, bucket, div, ws=WS):
+    import jax.numpy as jnp
+
+    from torch_cgx_tpu.config import CompressionConfig as JCC
+    from torch_cgx_tpu.ops import fused_producer as jfp
+
+    cc = JCC(bits=bits, bucket_size=bucket)
+    k, din = x2.shape
+    o = g2.shape[1]
+    chunk = din * o // ws
+    tm, tk = jfp._kernel_geometry(k, din, o, ws, chunk, cc)
+    q = jfp._matmul_quantize_q(
+        jnp.asarray(x2), jnp.asarray(g2), cc, ws=ws, chunk=chunk, div=div,
+        tm=tm, tk=tk, interpret=True,
+    )
+    return np.asarray(q.packed).reshape(-1), np.asarray(q.meta).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("div", [1, 2])
+@pytest.mark.parametrize("bucket", [128, 512])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_plain_matches_jax_kernel_on_integers(bits, bucket, div):
+    x2, g2 = _operands(bits * bucket + div, 64, 256, 512, integer=True)
+    jw, jm = _jax_kernel_q(x2, g2, bits, bucket, div)
+    w, m = codec_cuda.matmul_quantize_chunks_plain(
+        torch.from_numpy(x2), torch.from_numpy(g2), div, bits, bucket
+    )
+    np.testing.assert_array_equal(w.numpy().view(np.uint32), jw.view(np.uint32))
+    np.testing.assert_array_equal(m.numpy().view(np.uint32), jm.view(np.uint32))
+
+
+@pytest.mark.parametrize("bucket", [128, 512])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_plain_matches_jax_kernel_divisor_3(bits, bucket):
+    """At a divisor of 3 the JAX kernel divides as XLA on the CPU lowers a
+    division by a constant: a multiply by the rounded reciprocal, which is
+    not the IEEE quotient the port computes (``__fdiv_rn``, and ``t / ws``
+    in the unfused path). Its bytes are held to the normal-operand
+    tolerance, and the lowering itself is pinned here."""
+    import jax
+    import jax.numpy as jnp
+
+    x2, g2 = _operands(bits * bucket + 3, 64, 256, 512, integer=True)
+    jw, jm = _jax_kernel_q(x2, g2, bits, bucket, 3)
+    w, m = codec_cuda.matmul_quantize_chunks_plain(
+        torch.from_numpy(x2), torch.from_numpy(g2), 3, bits, bucket
+    )
+    _close(w.numpy(), m.numpy(), jw, jm, bits, bucket)
+    dw = (torch.from_numpy(x2).t() @ torch.from_numpy(g2)).numpy()
+    xla = np.asarray(jax.jit(lambda a: a / 3)(jnp.asarray(dw)))
+    np.testing.assert_array_equal(xla, dw * (np.float32(1) / np.float32(3)))
+    assert not np.array_equal(xla, dw / np.float32(3))
+
+
+@pytest.mark.parametrize("bucket", [128, 512])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_plain_matches_jax_kernel_on_normal_operands(bits, bucket):
+    x2, g2 = _operands(7 * bits + bucket, 64, 256, 512, integer=False)
+    jw, jm = _jax_kernel_q(x2, g2, bits, bucket, WS)
+    w, m = codec_cuda.matmul_quantize_chunks_plain(
+        torch.from_numpy(x2), torch.from_numpy(g2), WS, bits, bucket
+    )
+    _close(w.numpy(), m.numpy(), jw, jm, bits, bucket)
+
+
+@pytest.mark.parametrize("div", [1, 2, 3])
+@pytest.mark.parametrize("bits,bucket", [(1, 128), (4, 512), (8, 128)])
+def test_plain_matches_jax_quantize_batch(bits, bucket, div):
+    """The plain version equals the JAX ``quantize_batch`` of the (ws,
+    chunk) rows of ``x2^T g2 / div`` (the division done in IEEE f32)."""
+    import jax.numpy as jnp
+
+    from torch_cgx_tpu.config import CompressionConfig as JCC
+    from torch_cgx_tpu.ops import dispatch as jdispatch
+
+    x2, g2 = _operands(bits + bucket + div, 64, 256, 512, integer=True)
+    rows = (torch.from_numpy(x2).t() @ torch.from_numpy(g2) / div).numpy().reshape(WS, -1)
+    q = jdispatch.quantize_batch(jnp.asarray(rows), JCC(bits=bits, bucket_size=bucket))
+    w, m = codec_cuda.matmul_quantize_chunks_plain(
+        torch.from_numpy(x2), torch.from_numpy(g2), div, bits, bucket
+    )
+    np.testing.assert_array_equal(
+        w.numpy().view(np.uint32), np.asarray(q.packed).reshape(-1).view(np.uint32)
+    )
+    np.testing.assert_array_equal(m.numpy(), np.asarray(q.meta).reshape(-1, 2))
+
+
+def test_kernel_wrapper_refuses_unported_modes(monkeypatch):
+    x2, g2 = (torch.from_numpy(t) for t in _operands(0, 64, 128, 256, integer=True))
+    monkeypatch.setenv("CGX_CODEC_ENCODE", "mul")
+    with pytest.raises(NotImplementedError, match="CGX_CODEC_ENCODE"):
+        codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 512)
+    monkeypatch.delenv("CGX_CODEC_ENCODE")
+    monkeypatch.setenv("CGX_STOCHASTIC_ROUNDING", "1")
+    with pytest.raises(NotImplementedError, match="stochastic"):
+        codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 512)
+
+
+# ---------------------------------------------------------------------------
+# Dense.
+# ---------------------------------------------------------------------------
+
+
+def _dense_run(dtype, seed=0):
+    torch.manual_seed(seed)
+    layer = Dense(256, 512, dtype=dtype, generator=torch.Generator().manual_seed(seed))
+    layer.kernel_path = "big.kernel"
+    x = torch.randn(4, 16, 256, requires_grad=True)
+    y = layer(x)
+    (y.float() * torch.linspace(-1, 1, y.numel()).view(y.shape)).sum().backward()
+    return y.detach(), x.grad, layer.kernel.grad, layer.bias.grad, layer
+
+
+def _plain_expression(dtype, seed=0):
+    """Today's expression, written out: cast, product, bias."""
+    torch.manual_seed(seed)
+    ref = Dense(256, 512, dtype=dtype, generator=torch.Generator().manual_seed(seed))
+    x = torch.randn(4, 16, 256, requires_grad=True)
+    xc = x.to(dtype)
+    y = torch.matmul(xc, ref.kernel.to(dtype)) + ref.bias.to(dtype)
+    (y.float() * torch.linspace(-1, 1, y.numel()).view(y.shape)).sum().backward()
+    return y.detach(), x.grad, ref.kernel.grad, ref.bias.grad
+
+
+def _same(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("mode", ["off", "on_unconfigured", "engaged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_bit_identical_to_plain_expression(monkeypatch, mode, dtype):
+    for k, v in PRODUCER_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("CGX_PRODUCER_FUSE", "off" if mode == "off" else "on")
+    if mode == "engaged":
+        fp.configure(None, divisor=WS, active=True)
+        fp._CFG.update(ws=WS, rank=1)
+        fp.begin_step()
+    *got, layer = _dense_run(dtype)
+    want = _plain_expression(dtype)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert fp.stash_size() == (1 if mode == "engaged" else 0)
+    if mode == "engaged":
+        ent = fp.lookup("big.kernel", layer.kernel.grad)
+        assert ent is not None and ent.q.packed.shape[0] == WS
+        assert _same(ent.raw_row, (layer.kernel.grad.reshape(WS, -1)[1] / WS))
+
+
+def test_knob_reads_and_validates(monkeypatch):
+    from torch_cgx_tpu import config as jcfg
+    from torch_cgx_tpu_torch import config as tcfg
+
+    assert tcfg.producer_fuse() == jcfg.producer_fuse() == "auto"
+    assert not fp.engaged()  # auto resolves to off in the port
+    fp.configure(None, divisor=WS, active=True)
+    assert not fp.active()  # the knob is read when the step configures
+    monkeypatch.setenv("CGX_PRODUCER_FUSE", "ON")
+    assert tcfg.producer_fuse() == "on"
+    assert not fp.active()
+    fp.configure(None, divisor=WS, active=True)
+    assert fp.active()
+    monkeypatch.setenv("CGX_PRODUCER_FUSE", "bogus")
+    with pytest.raises(ValueError, match="CGX_PRODUCER_FUSE must be auto|on|off"):
+        tcfg.producer_fuse()
+    with pytest.raises(ValueError, match="CGX_PRODUCER_FUSE must be auto|on|off"):
+        fp.configure(None, divisor=WS, active=True)
+    with pytest.raises(ValueError, match="CGX_PRODUCER_FUSE must be auto|on|off"):
+        jcfg.producer_fuse()
+
+
+def test_engaged_gpt2_stages_one_payload_per_eligible_layer(engaged):
+    model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 512, size=(2, 32)))
+    lm_loss(model(tokens), tokens).backward()
+    n_layer = model.cfg.n_layer
+    assert fp.stash_size() == 3 * n_layer  # qkv, mlp_in, mlp_out of each block
+    assert fp.COUNTS["producer_staged"] == 3 * n_layer
+    assert fp.COUNTS["producer_kernel_slices"] == 3 * n_layer
+    assert fp.COUNTS["producer_fallback_fused_group"] == n_layer  # attn_proj
+    assert fp.COUNTS["producer_fallbacks"] == n_layer
+    for n, p in model.named_parameters():
+        ent = fp.lookup(n, p.grad)
+        assert (ent is not None) == (n.endswith(("attn_qkv.kernel", "mlp_in.kernel", "mlp_out.kernel")))
+        if ent is not None:  # the kernel's plain version: the bytes the allreduce would send
+            want = dispatch.quantize_batch((p.grad.reshape(-1) / WS).view(WS, -1), ent.cc)
+            assert torch.equal(ent.q.packed, want.packed) and torch.equal(ent.q.meta, want.meta)
+
+
+def test_kernel_mode_on_takes_the_plain_kernel_on_cpu(engaged):
+    """CPU operands take the kernel wrapper's plain version, which equals the
+    quantize the unfused allreduce would make of the returned gradient."""
+    *_, layer = _dense_run(torch.float32)
+    assert fp.COUNTS["producer_kernel_slices"] == 1
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 0  # no card, no launch
+    ent = fp.lookup("big.kernel", layer.kernel.grad)
+    want = dispatch.quantize_batch((layer.kernel.grad.reshape(-1) / WS).view(WS, -1), ent.cc)
+    assert torch.equal(ent.q.packed, want.packed) and torch.equal(ent.q.meta, want.meta)
+
+
+# ---------------------------------------------------------------------------
+# The stash and the fallbacks.
+# ---------------------------------------------------------------------------
+
+
+def test_stash_epoch_and_claim(engaged):
+    *_, layer = _dense_run(torch.float32)
+    grad = layer.kernel.grad
+    ent = fp.lookup("big.kernel", grad)
+    assert ent is not None and ent.epoch == fp._CFG["epoch"]
+    assert fp.lookup("other.kernel", grad) is None
+    fp.claim("big.kernel")
+    assert fp.lookup("big.kernel", grad) is None
+    fp._STASH["big.kernel"] = ent
+    fp.begin_step()  # a new step: entries of the last one are gone
+    assert fp.stash_size() == 0 and fp.lookup("big.kernel", grad) is None
+    fp._STASH["big.kernel"] = ent  # a stale epoch is dropped on sight
+    assert fp.lookup("big.kernel", grad) is None and fp.stash_size() == 0
+    fp._STASH["big.kernel"] = ent
+    fp.drain()
+    assert fp.stash_size() == 0
+    assert fp.COUNTS["producer_fallbacks"] == 0
+
+
+@pytest.mark.parametrize("reason", [
+    "ws1", "config", "debug_mode", "fused_group", "multi_slice", "layout", "reduction", "tile",
+    "geometry",
+])
+def test_each_fallback_reason_is_counted(engaged, reason):
+    shape = (256, 512)
+    counted = "layout" if reason == "geometry" else reason
+    if reason == "ws1":
+        fp._CFG.update(ws=1)
+    elif reason == "config":
+        engaged.delenv("CGX_COMPRESSION_QUANTIZATION_BITS")
+    elif reason == "debug_mode":
+        engaged.setenv("CGX_DEBUG_DUMMY_COMPRESSION", "1")
+    elif reason == "fused_group":
+        shape = (128, 128)
+    elif reason == "multi_slice":
+        engaged.setenv("CGX_FUSION_BUFFER_SIZE_MB", "1")  # 262,144 values a slice
+        shape = (512, 1024)
+    elif reason == "layout":
+        shape = (255, 512)  # an odd row count cannot split into 2 wire rows
+    elif reason == "reduction":
+        engaged.setenv("CGX_INNER_REDUCTION_TYPE", "RING")
+    elif reason == "tile":
+        # The JAX geometry aligns at B = 2048, but the (32, 2048) f32 tile
+        # exceeds the kernel's shared memory.
+        engaged.setenv("CGX_COMPRESSION_BUCKET_SIZE", "2048")
+        shape = (256, 2048)
+    elif reason == "geometry":
+        shape = (256, 448)  # rows split evenly, but o % 128 != 0: no kernel tiling
+    layer = Dense(*shape, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    layer.kernel_path = "big.kernel"
+    layer(torch.randn(4, 16, shape[0])).sum().backward()
+    assert fp.COUNTS["producer_fallbacks"] == 1
+    assert fp.COUNTS[f"producer_fallback_{counted}"] == 1
+    assert fp.stash_size() == 0 and fp.COUNTS["producer_staged"] == 0
+
+
+@pytest.mark.parametrize("rewrite", ["in_place", "out_of_place", "second_backward", "none"])
+def test_gradient_rewrites_make_the_entry_unclaimable(engaged, rewrite):
+    layer = Dense(256, 512, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    layer.kernel_path = "big.kernel"
+    x = torch.randn(4, 16, 256)
+    layer(x).sum().backward()
+    if rewrite == "in_place":
+        layer.kernel.grad.mul_(1.0)
+    elif rewrite == "out_of_place":
+        layer.kernel.grad = layer.kernel.grad * 1.0
+    elif rewrite == "second_backward":  # gradient accumulation
+        layer(x).sum().backward()
+    # Through the allreduce's own lookup (a one-rank world: nothing else
+    # would consume it).
+    grads = {"big.kernel": layer.kernel.grad}
+    allreduce.allreduce_tree(grads)
+    identity = fp.COUNTS["producer_fallback_identity"]
+    assert identity == (0 if rewrite == "none" else 1)
+    if rewrite == "none":  # matched, then refused: the world here has one rank
+        assert fp.COUNTS["producer_fallback_group"] == 1
+    assert fp.stash_size() == 0  # drained
+
+
+@pytest.mark.parametrize("reason", ["plan", "routing"])
+def test_allreduce_flat_counts_an_unusable_payload(engaged, reason):
+    """A payload the buffer cannot take is ignored and counted: ``plan``
+    when the slice's reduction is not the multi-rank SRA (a one-rank world
+    here), ``routing`` when the buffer spans several fusion slices."""
+    *_, layer = _dense_run(torch.float32)
+    ent = fp.lookup("big.kernel", layer.kernel.grad)
+    flat = (layer.kernel.grad / WS).reshape(-1)
+    if reason == "routing":
+        engaged.setenv("CGX_FUSION_BUFFER_SIZE_MB", "0")  # 2,048-value slices
+    out = allreduce.allreduce_flat(flat, ent.cc, pre=ent)
+    assert not ent.consumed
+    assert fp.COUNTS[f"producer_fallback_{reason}"] == 1
+    assert torch.equal(out, flat)  # one rank: the sum is the buffer
+
+
+def test_quantized_allreduce_refuses_a_misrouted_payload():
+    from torch_cgx_tpu_torch.parallel import quantized_allreduce
+
+    cc = CompressionConfig(bits=4, bucket_size=128)
+    with pytest.raises(ValueError, match="multi-rank SRA"):
+        quantized_allreduce(torch.zeros(4096), None, 1, cc, pre=object())
+    with pytest.raises(ValueError, match="multi-rank SRA"):
+        quantized_allreduce(torch.zeros(4096), None, 2, cc, "RING", pre=object())
+
+
+def test_reduce_rows_requantize_raw_row_equals_raw_rows(monkeypatch):
+    """The pre-sliced own row stands in for ``raw_rows[own_idx]`` in both
+    lowerings."""
+    cc = CompressionConfig(bits=4, bucket_size=128)
+    rows = torch.from_numpy(np.random.default_rng(3).standard_normal((WS, 2 * 32 * 128)).astype(np.float32))
+    q = dispatch.quantize_batch(rows, cc)
+    for mode in ("staged", "fused"):
+        monkeypatch.setenv("CGX_SRA_EPILOGUE", mode)
+        a = dispatch.reduce_rows_requantize(q, cc, raw_rows=rows, own_idx=1)
+        b = dispatch.reduce_rows_requantize(q, cc, raw_row=rows[1].clone(), own_idx=1)
+        assert torch.equal(a.packed, b.packed) and torch.equal(a.meta, b.meta), mode
+    with pytest.raises(ValueError, match="not both"):
+        dispatch.reduce_rows_requantize(q, cc, raw_rows=rows, raw_row=rows[1], own_idx=1)
+
+
+# ---------------------------------------------------------------------------
+# Two spawned ranks: the train step.
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(rank, init_file, params, tokens, result_q):
+    for k in [k for k in os.environ if k.startswith("CGX_")]:
+        del os.environ[k]
+    os.environ.update(PRODUCER_ENV)
+    import torch.distributed as dist
+
+    from torch_cgx_tpu_torch.models import GPT2, Dense, GPT2Config, lm_loss
+    from torch_cgx_tpu_torch.ops import fused_producer
+    from torch_cgx_tpu_torch.parallel import gradient_sync, make_train_step
+
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", rank=rank, world_size=WS,
+            timeout=timedelta(seconds=120),
+        )
+        t = torch.from_numpy(tokens[rank * (len(tokens) // WS):(rank + 1) * (len(tokens) // WS)])
+        for fuse in ("off", "on"):
+            os.environ["CGX_PRODUCER_FUSE"] = fuse
+            model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu")
+            model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in params.items()})
+            opt = torch.optim.Adam(model.parameters(), lr=LR, eps=1e-8)
+            step = make_train_step(model, lambda m, b: lm_loss(m(b), b), opt, device="cpu")
+            consumed = []
+            losses = []
+            for _ in range(STEPS):
+                fused_producer.reset_counts()
+                losses.append(float(step(t)))
+                consumed.append(fused_producer.COUNTS["producer_consumed_slices"])
+            out[fuse] = {
+                "losses": losses, "consumed": consumed,
+                "counts": dict(fused_producer.COUNTS),
+                "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()},
+            }
+        # One backward of a single layer and one gradient_sync, fed exact
+        # integer gradients (see _sync_cotangent).
+        os.environ["CGX_COMPRESSION_QUANTIZATION_BITS"] = str(SYNC_BITS)
+        layer = Dense(SYNC_DIN, SYNC_O, dtype=torch.float32)
+        layer.kernel_path = "big.kernel"
+        x = torch.eye(SYNC_DIN)
+        c = torch.from_numpy(_sync_cotangent(rank))
+        for fuse in ("off", "on"):
+            os.environ["CGX_PRODUCER_FUSE"] = fuse
+            fused_producer.configure(None, divisor=WS, active=True)
+            fused_producer.begin_step()
+            fused_producer.reset_counts()
+            layer.zero_grad(set_to_none=True)
+            (layer(x) * c).sum().backward()
+            synced = gradient_sync({"big.kernel": layer.kernel.grad, "big.bias": layer.bias.grad})
+            out[f"sync_{fuse}"] = {
+                "synced": {k: v.numpy().copy() for k, v in synced.items()},
+                "consumed": fused_producer.COUNTS["producer_consumed_slices"],
+                "kernel_slices": fused_producer.COUNTS["producer_kernel_slices"],
+            }
+        fused_producer.deconfigure()
+        dist.barrier()
+    except Exception as e:  # reported to the parent, which fails the test
+        out = {"error": repr(e)}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    result_q.put((rank, out))
+
+
+def _jax_setup():
+    import jax
+
+    from torch_cgx_tpu.models import GPT2 as JGPT2
+    from torch_cgx_tpu.models import GPT2Config as JGPT2Config
+
+    import jax.numpy as jnp
+
+    model = JGPT2(JGPT2Config.tiny(dtype=jnp.float32))
+    tokens = np.random.default_rng(5).integers(0, 512, size=(2 * WS, 32)).astype(np.int32)
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(tokens[:1]))["params"]
+    return model, jax.tree.map(np.asarray, params), tokens
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    from torch_cgx_tpu_torch.models import gpt2_params_from_jax
+
+    jmodel, jparams, tokens = _jax_setup()
+    params = {k: v.numpy() for k, v in gpt2_params_from_jax(jparams).items()}
+    init_file = str(tmp_path_factory.mktemp("gloo_producer") / "store")
+    ctx = mp.get_context("spawn")
+    result_q = ctx.Queue()
+    procs = [
+        ctx.Process(target=_rank_main, args=(r, init_file, params, tokens, result_q), daemon=True)
+        for r in range(WS)
+    ]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    try:
+        while len(results) < WS and time.monotonic() < deadline:
+            try:
+                rank, out = result_q.get(timeout=2.0)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    assert len(results) == WS, f"only ranks {sorted(results)} reported"
+    errors = {r: o["error"] for r, o in results.items() if "error" in o}
+    assert not errors, errors
+    return (jmodel, jparams, tokens), [results[r] for r in range(WS)]
+
+
+def test_two_ranks_producer_on_is_bit_identical_to_off(world):
+    _, results = world
+    n_layer = GPT2Config.tiny().n_layer
+    for r, res in enumerate(results):
+        assert res["on"]["losses"] == res["off"]["losses"]
+        assert res["on"]["consumed"] == [3 * n_layer] * STEPS
+        assert res["off"]["consumed"] == [0] * STEPS
+        counts = res["on"]["counts"]
+        assert counts["producer_fallbacks"] == counts["producer_fallback_fused_group"] == n_layer
+        for p, v in res["off"]["params"].items():
+            np.testing.assert_array_equal(res["on"]["params"][p].view(np.uint32), v.view(np.uint32),
+                                          err_msg=f"rank {r} {p}")
+            np.testing.assert_array_equal(results[0]["on"]["params"][p].view(np.uint32),
+                                          res["on"]["params"][p].view(np.uint32))
+
+
+def test_two_ranks_match_jax_producer_on(world, monkeypatch):
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jax.sharding import Mesh
+
+    from torch_cgx_tpu.models import lm_loss as jlm_loss
+    from torch_cgx_tpu.parallel import make_train_step as jmake_train_step
+    from torch_cgx_tpu.parallel import replicate, shard_batch
+    from torch_cgx_tpu.utils.logging import metrics
+    from torch_cgx_tpu.utils.tree import leaf_paths
+
+    (jmodel, jparams, tokens), results = world
+    for k, v in PRODUCER_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("CGX_PRODUCER_FUSE", "on")
+    mesh = Mesh(np.asarray(jax.devices()[:WS]), ("dp",))
+    opt = optax.adam(LR)
+    p = replicate(jax.tree.map(jnp.asarray, jparams), mesh)
+    s = replicate(opt.init(p), mesh)
+    step = jmake_train_step(
+        lambda pp, t: jlm_loss(jmodel.apply({"params": pp}, t), t), opt, mesh, donate=False
+    )
+    before = metrics.get("cgx.codec.producer_consumed_slices") or 0.0
+    losses = []
+    for i in range(STEPS):
+        p, s, loss = step(p, s, shard_batch(jnp.asarray(tokens), mesh), jnp.int32(i))
+        losses.append(float(loss))
+    # The JAX counter counts at trace time: one traced step consumed this many.
+    consumed = (metrics.get("cgx.codec.producer_consumed_slices") or 0.0) - before
+    assert consumed == results[0]["on"]["consumed"][0]
+    np.testing.assert_allclose(results[0]["on"]["losses"], losses, rtol=1e-4)
+    got = results[0]["on"]["params"]
+    for path, v in leaf_paths(jax.tree.map(np.asarray, p)):
+        np.testing.assert_allclose(got[path], v, rtol=0, atol=3 * LR, err_msg=path)
+
+
+def test_two_ranks_sync_matches_jax_producer_on(world, monkeypatch):
+    """One producer-on ``gradient_sync`` on the two gloo ranks against the JAX
+    ``gradient_sync`` with the producer on (its matmul-quantize kernel in
+    interpret mode) over a 2-device mesh, on exact integer gradients: the
+    synced gradients are bit-identical, one payload is consumed on each
+    side, and the codec really ran (2 bits cannot carry the exact mean)."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from torch_cgx_tpu.models.layers import CgxDense
+    from torch_cgx_tpu.ops import fused_producer as jfp
+    from torch_cgx_tpu.parallel import gradient_sync as jgradient_sync
+    from torch_cgx_tpu.utils.compat import shard_map
+    from torch_cgx_tpu.utils.logging import metrics
+    from torch_cgx_tpu.utils.tree import leaf_paths
+
+    class _One(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            return CgxDense(SYNC_O, dtype=jnp.float32, name="big")(x)
+
+    _, results = world
+    for k, v in PRODUCER_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("CGX_COMPRESSION_QUANTIZATION_BITS", str(SYNC_BITS))
+    monkeypatch.setenv("CGX_PRODUCER_FUSE", "on")
+    monkeypatch.setenv("CGX_PRODUCER_KERNEL", "on")
+    mesh = Mesh(np.asarray(jax.devices()[:WS]), ("dp",))
+    model = _One()
+    x = np.tile(np.eye(SYNC_DIN, dtype=np.float32), (WS, 1))
+    c = np.concatenate([_sync_cotangent(r) for r in range(WS)])
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]))["params"]
+
+    def body(p, xb, cb):
+        jfp.begin_step()
+        g = jax.grad(lambda pp: jnp.sum(model.apply({"params": pp}, xb) * cb))(p)
+        return jgradient_sync(g, mesh=mesh, axes=("dp",))
+
+    fn = shard_map(body, mesh=mesh, in_specs=(P(), P("dp"), P("dp")), out_specs=P(),
+                   check_vma=False)
+    before = metrics.get("cgx.codec.producer_consumed_slices") or 0.0
+    jfp.configure(mesh, ("dp",), divisor=WS, active=True)
+    try:
+        want = dict(leaf_paths(jax.tree.map(np.asarray, jax.jit(fn)(params, x, c))))
+    finally:
+        jfp.deconfigure()
+    assert (metrics.get("cgx.codec.producer_consumed_slices") or 0.0) - before == 1
+    mean = (_sync_cotangent(0) + _sync_cotangent(1)) / WS
+    assert want.keys() == results[0]["sync_on"]["synced"].keys()
+    for r, res in enumerate(results):
+        assert res["sync_on"]["consumed"] == res["sync_on"]["kernel_slices"] == 1
+        assert res["sync_off"]["consumed"] == 0
+        for p, v in want.items():
+            for fuse in ("on", "off"):
+                np.testing.assert_array_equal(res[f"sync_{fuse}"]["synced"][p].view(np.uint32),
+                                              v.view(np.uint32), err_msg=f"rank {r} {fuse} {p}")
+    assert np.abs(want["big.kernel"] - mean).max() > 0

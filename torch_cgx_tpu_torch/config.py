@@ -30,6 +30,7 @@ STANDALONE_LAYER_ELEMS = "CGX_STANDALONE_LAYER_ELEMS"
 STOCHASTIC_ROUNDING = "CGX_STOCHASTIC_ROUNDING"
 SRA_EPILOGUE = "CGX_SRA_EPILOGUE"
 SRA_EPILOGUE_MIN_ELEMS = "CGX_SRA_EPILOGUE_MIN_ELEMS"
+PRODUCER_FUSE = "CGX_PRODUCER_FUSE"
 # Read only to refuse them: the CUDA kernels implement the default
 # ``div`` encode and the exact f32 fold (ROADMAP Queue B).
 CODEC_ENCODE = "CGX_CODEC_ENCODE"
@@ -203,6 +204,27 @@ def sra_epilogue_min_elems() -> int:
         SRA_EPILOGUE_MIN_ELEMS, DEFAULT_SRA_EPILOGUE_MIN_ELEMS
     )
     return max(v, 0)
+
+
+def producer_fuse() -> str:
+    """CGX_PRODUCER_FUSE: producer-fused gradient quantization
+    (``ops/fused_producer.py``): the backward of a wrapped dense layer
+    emits the layer's SRA stage-1 wire payload, which the allreduce then
+    consumes in place of quantizing the f32 gradient itself.
+
+    * "auto" (default): off in this package for now. Eager PyTorch cannot
+      drop the plain weight gradient the way XLA's dead-code elimination
+      does in the JAX package (the backward must return it for
+      ``p.grad``, and consumption is decided later), so an engaged layer
+      costs a second matmul over the weight-gradient FLOPs; "auto" stays
+      off until the plain ``dw`` can be skipped.
+    * "on": engage on any device (on the CPU the payload comes from the
+      plain PyTorch versions).
+    * "off": never engage."""
+    mode = _env.get_str_env_or_default(PRODUCER_FUSE, "auto").lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"{PRODUCER_FUSE} must be auto|on|off, got {mode!r}")
+    return mode
 
 
 def codec_encode() -> str:

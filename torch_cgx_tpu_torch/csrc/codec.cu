@@ -1,11 +1,14 @@
 // Max-min codec kernels for Hopper (sm_90a): quantize, dequantize (with an
-// optional fused add), the fused SRA epilogue and the multi-row reduce.
+// optional fused add), the fused SRA epilogue, the multi-row reduce and the
+// producer's matmul with a quantize epilogue.
 //
-// They replace the Pallas TPU kernels of torch_cgx_tpu/ops/codec_pallas.py:
-//   cgx_quantize      <- _quantize_flat_impl (B1) and _quantize_chunks_impl (B5)
-//   cgx_dequantize    <- _dequantize_flat_impl (B2) and _dequantize_chunks_impl (B6)
-//   cgx_sra_epilogue  <- _sra_epilogue_impl (B3)
-//   cgx_reduce_rows   <- _reduce_rows_impl (B4)
+// They replace the Pallas TPU kernels of torch_cgx_tpu/ops/codec_pallas.py
+// and torch_cgx_tpu/ops/fused_producer.py:
+//   cgx_quantize         <- _quantize_flat_impl (B1) and _quantize_chunks_impl (B5)
+//   cgx_dequantize       <- _dequantize_flat_impl (B2) and _dequantize_chunks_impl (B6)
+//   cgx_sra_epilogue     <- _sra_epilogue_impl (B3)
+//   cgx_reduce_rows      <- _reduce_rows_impl (B4)
+//   cgx_matmul_quantize  <- fused_producer.py _matmul_quantize_impl (B8)
 // CUDA has no 128-lane tiling constraint, so one kernel serves both the flat
 // and the bucket-row geometry of each TPU pair: every kernel walks whole
 // chunks of 32 buckets, one thread block per chunk.
@@ -16,17 +19,20 @@
 // chunk's 32 buckets, bucket s in bit s; meta (c, s) is the pair
 // (unit, min) at (c*32 + s)*2.
 //
-// Bound on an H100: all three are memory-bound. For n values at `bits` bits
-// and bucket B:
+// Bound on an H100: the four codec kernels are memory-bound. For n values
+// at `bits` bits and bucket B:
 //   quantize   reads 4n bytes, writes n*bits/8 + 8n/B;
 //   dequantize reads n*bits/8 + 8n/B (+ 4n with add), writes 4n;
 //   epilogue   reads ws*(n*bits/8 + 8n/B) (+ 4n of raw own row), writes
 //              n*bits/8 + 8n/B, n = the chunk's length;
 //   reduce     reads the same, writes 4n.
 // The operations per value (a divide, a handful of adds, shifts and ors)
-// stay far below the card's rate for that traffic. These first versions
-// are simple: coalesced global loads, neighbouring threads on neighbouring
-// positions l of one bucket; no TMA, no pipelining.
+// stay far below the card's rate for that traffic. The matmul-quantize is
+// operation-bound: 2*K*din*o f32 operations for n = din*o values against
+// 4*K*(din + o) bytes read and n*bits/8 + 8n/B written. These first
+// versions are simple: coalesced global loads, neighbouring threads on
+// neighbouring positions l of one bucket; no TMA, no pipelining, no tensor
+// cores.
 //
 // Arithmetic is fixed to the plain PyTorch version in
 // torch_cgx_tpu_torch/ops/codec.py, bit for bit: the meta multiplies by
@@ -260,6 +266,168 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kMmRows = 8;  // rows of dw one work item of the matmul covers
+constexpr int kMmCols = 4;  // columns of dw one work item covers (a float4)
+constexpr int kMmPanel = kThreads * kMmCols;  // columns of g2 one wave stages
+constexpr int kMmMaxSteps = 8;  // contraction steps in one stage
+
+// Asynchronous global -> shared copies (Ampere and later): the stage after
+// the one being summed is in flight while the block computes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// One work item's 8 x 4 sums: acc[rr][q] += x[rr] * g[q], k ascending.
+__device__ __forceinline__ void mm_step(float (&acc)[kMmRows][kMmCols], const float* x,
+                                        const float4 g) {
+#pragma unroll
+  for (int rr = 0; rr < kMmRows; ++rr) {
+    const float xv = x[rr];
+    acc[rr][0] = __fmaf_rn(xv, g.x, acc[rr][0]);
+    acc[rr][1] = __fmaf_rn(xv, g.y, acc[rr][1]);
+    acc[rr][2] = __fmaf_rn(xv, g.z, acc[rr][2]);
+    acc[rr][3] = __fmaf_rn(xv, g.w, acc[rr][3]);
+  }
+}
+
+// codec_matmul_quantize. Replaces fused_producer.py _matmul_quantize_impl
+// (B8): dw = x2^T g2 (x2 f32 (K, din), g2 f32 (K, o), row-major), divided by
+// div and quantized into the wire layout of the flat dw (din*o values, row
+// major); the f32 dw is never written to global memory. Operation-bound:
+// 2*K*din*o f32 operations; reads 4*K*(din + o) bytes at least once, writes
+// n*bits/8 + 8n/B (n = din*o).
+// One block per chunk of the flat dw (32 buckets, 32*B values, which may
+// start and end inside a row). The block walks the rows the chunk touches
+// in blocks of 8, and each row block in waves of 256 four-column groups:
+// thread t owns the 8 x 4 values at column group t of the wave and keeps
+// their sums in registers over the whole contraction, k ascending, one
+// __fmaf_rn per product. With `steps` > 0 the block stages `steps` rows of
+// g2 (the wave's columns) and of x2 (the row block's 8 values) in shared
+// memory at a time, all threads copying, in two buffers: the next stage's
+// copies (cp.async) are in flight while the block sums the current one.
+// With `steps` == 0 (a bucket whose tile leaves no room) each thread reads
+// its operands through the read-only cache. Either way the sums are the
+// same. The values that fall inside the
+// chunk, divided by div, go to a (32, B) f32 tile in shared memory, on
+// which chunk_meta and chunk_encode run as in the epilogue, so the bytes
+// equal the quantize kernel's for equal values.
+template <int BITS>
+__global__ void __launch_bounds__(kThreads)
+    cgx_matmul_quantize_kernel(const float* __restrict__ x2,
+                               const float* __restrict__ g2, long long k_total,
+                               int din, int o, float div, int B, float inv, int steps,
+                               int32_t* __restrict__ words,
+                               float* __restrict__ meta) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float s_unit[kChunkBuckets];
+  __shared__ float s_min[kChunkBuckets];
+  const long long c = blockIdx.x;
+  const long long chunk_n = (long long)kChunkBuckets * B;
+  const long long base = c * chunk_n;
+  float* tile = smem;
+  float* g_s = smem + chunk_n;                      // 2 x steps x kMmPanel
+  float* x_s = g_s + (size_t)2 * steps * kMmPanel;  // 2 x steps x kMmRows
+  const int r_lo = (int)(base / o);
+  const int r_hi = (int)((base + chunk_n - 1) / o);
+  const int n_cg = o / kMmCols;
+  for (int first = r_lo; first <= r_hi; first += kMmRows) {
+    const int last = min(first + kMmRows - 1, r_hi);
+    for (int cg0 = 0; cg0 < n_cg; cg0 += kThreads) {
+      const int width = min(kThreads, n_cg - cg0);  // column groups in this wave
+      const int col0 = cg0 * kMmCols;
+      if ((long long)last * o + col0 + width * kMmCols <= base ||
+          (long long)first * o + col0 >= base + chunk_n) {
+        continue;  // none of the wave's values lies in this chunk
+      }
+      const int col = col0 + threadIdx.x * kMmCols;
+      const bool mine = (int)threadIdx.x < width &&
+                        (long long)last * o + col >= base &&
+                        (long long)first * o + col < base + chunk_n;
+      float acc[kMmRows][kMmCols];
+#pragma unroll
+      for (int rr = 0; rr < kMmRows; ++rr) {
+#pragma unroll
+        for (int q = 0; q < kMmCols; ++q) acc[rr][q] = 0.f;
+      }
+      if (steps > 0) {
+        const long long n_stages = (k_total + steps - 1) / steps;
+        // Copy stage s into buffer s % 2 (rows past `last` repeat row
+        // `last`: their sums are never written).
+        auto fetch = [&](long long st) {
+          const long long k0 = st * steps;
+          const int n_steps = (int)min((long long)steps, k_total - k0);
+          float* gb = g_s + (size_t)(st & 1) * steps * kMmPanel;
+          float* xb = x_s + (size_t)(st & 1) * steps * kMmRows;
+          for (int i = threadIdx.x; i < n_steps * width; i += blockDim.x) {
+            const int u = i / width, j = i % width;
+            cp_async16(gb + (size_t)u * kMmPanel + j * kMmCols, g2 + (k0 + u) * o + col0 + j * kMmCols);
+          }
+          for (int i = threadIdx.x; i < n_steps * kMmRows; i += blockDim.x) {
+            const int u = i / kMmRows, rr = i % kMmRows;
+            cp_async4(xb + i, x2 + (k0 + u) * din + min(first + rr, last));
+          }
+          cp_async_commit();
+        };
+        __syncthreads();  // the previous wave is done with both buffers
+        fetch(0);
+        for (long long st = 0; st < n_stages; ++st) {
+          if (st + 1 < n_stages) {
+            fetch(st + 1);
+          } else {
+            cp_async_commit();  // an empty group keeps the wait below uniform
+          }
+          cp_async_wait_prior();  // this thread's copies of stage st landed
+          __syncthreads();        // and everyone else's
+          if (mine) {
+            const int n_steps = (int)min((long long)steps, k_total - st * steps);
+            const float* gb = g_s + (size_t)(st & 1) * steps * kMmPanel;
+            const float* xb = x_s + (size_t)(st & 1) * steps * kMmRows;
+#pragma unroll 4
+            for (int u = 0; u < n_steps; ++u) {
+              mm_step(acc, xb + u * kMmRows,
+                      reinterpret_cast<const float4*>(gb + (size_t)u * kMmPanel)[threadIdx.x]);
+            }
+          }
+          __syncthreads();  // buffer st % 2 is free for stage st + 2
+        }
+      } else if (mine) {
+        for (long long k = 0; k < k_total; ++k) {
+          float x[kMmRows];
+#pragma unroll
+          for (int rr = 0; rr < kMmRows; ++rr) {
+            x[rr] = first + rr <= last ? __ldg(x2 + k * din + first + rr) : 0.f;
+          }
+          mm_step(acc, x, __ldg(reinterpret_cast<const float4*>(g2 + k * o + col)));
+        }
+      }
+      if (mine) {
+#pragma unroll
+        for (int rr = 0; rr < kMmRows; ++rr) {
+          const long long flat = (long long)(first + rr) * o + col;
+          if (first + rr <= last && flat >= base && flat < base + chunk_n) {
+            float* t = tile + (flat - base);
+#pragma unroll
+            for (int q = 0; q < kMmCols; ++q) t[q] = __fdiv_rn(acc[rr][q], div);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  chunk_meta(tile, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
+  __syncthreads();
+  chunk_encode<BITS>(tile, B, s_unit, s_min, words + c * BITS * B);
+}
+
 #define CGX_DISPATCH_BITS(bits, ...)        \
   switch (bits) {                           \
     case 1: { constexpr int BITS = 1; __VA_ARGS__; } break; \
@@ -341,6 +509,46 @@ int cgx_reduce_rows(const int32_t* words, const float* meta, const float* raw,
     if (e != cudaSuccess) return (int)e;
     cgx_reduce_rows_kernel<BITS><<<(unsigned)chunks, kThreads, smem, st>>>(
         words, meta, raw, own, ws, chunks, B, out);
+  });
+  return (int)cudaGetLastError();
+}
+
+// x2: k_total*din f32, g2: k_total*o f32 (row-major; g2 16-byte aligned) ->
+// the flat dw = x2^T g2 / div quantized: words (din*o/(32*B))*bits*B int32,
+// meta (din*o/B)*2 f32. din*o must be whole 32-bucket chunks, o % 4 == 0.
+// The (32, B) tile takes 128*B bytes of shared memory; what the block may
+// use beyond it stages up to 8 contraction steps of the operands, twice.
+int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total,
+                        int din, int o, float div, int32_t* words, float* meta,
+                        int B, int bits, float inv, void* stream) {
+  const long long n = (long long)din * o;
+  const long long chunk_n = (long long)kChunkBuckets * B;
+  if (k_total < 1 || din < 1 || o < kMmCols || o % kMmCols || B < 32 || B % 32 ||
+      n % chunk_n || ((uintptr_t)g2 & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  // Shared memory: the tile, the meta, and two stages of staged operands.
+  // Prefer stages small enough that two blocks share an SM; else the most
+  // the block's own limit leaves (none: the operands go through the cache).
+  const long long fixed = 2 * kChunkBuckets * (long long)sizeof(float) + chunk_n * (long long)sizeof(float);
+  const long long stage = 2LL * (kMmPanel + kMmRows) * (long long)sizeof(float);  // per step, both buffers
+  if (fixed > optin) return (int)cudaErrorInvalidValue;
+  long long fit = (optin / 2 - 1024 - fixed) / stage;
+  if (fit < kMmMaxSteps / 2) fit = (optin - fixed) / stage;
+  const int steps = (int)(fit < kMmMaxSteps ? fit : kMmMaxSteps);
+  const long long chunks = n / chunk_n;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)(chunk_n + 2LL * steps * (kMmPanel + kMmRows)) * sizeof(float);
+  CGX_DISPATCH_BITS(bits, {
+    e = cudaFuncSetAttribute(cgx_matmul_quantize_kernel<BITS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cgx_matmul_quantize_kernel<BITS><<<(unsigned)chunks, kThreads, smem, st>>>(
+        x2, g2, k_total, din, o, div, B, inv, steps, words, meta);
   });
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 from .attention import Mlp, MultiHeadAttention, dense_attention
 from .convert import gpt2_params_from_jax, gpt2_params_to_numpy
 from .gpt2 import GPT2, Block, GPT2Config, lm_loss
-from .layers import Dense, Embed, LayerNorm
+from .layers import Dense, Embed, LayerNorm, name_dense_layers
 
 __all__ = [
     "GPT2",
@@ -18,4 +18,5 @@ __all__ = [
     "gpt2_params_from_jax",
     "gpt2_params_to_numpy",
     "lm_loss",
+    "name_dense_layers",
 ]

@@ -7,7 +7,9 @@ probabilities cast back to the activation dtype before the value product.
 The attention is written out as einsums, like the JAX code: the JAX
 package has no attention kernel, so nothing here is a kernel to port.
 Parameter names (``attn_qkv``, ``attn_proj``, ``mlp_in``, ``mlp_out``)
-match the flax modules.
+match the flax modules; these four are ``Dense`` layers, which take part in
+producer fusion once the enclosing model names them
+(``layers.name_dense_layers``), as the JAX blocks' ``CgxDense`` do.
 """
 
 from __future__ import annotations

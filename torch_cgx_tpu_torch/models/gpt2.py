@@ -6,7 +6,8 @@ bf16 activations with float32 parameters, LayerNorm in float32 then cast
 to the activation dtype, a tied embedding head with float32 logits, and the
 shifted next-token loss. Module attribute names reproduce the flax tree,
 so ``named_parameters()`` yields ``wte.embedding``, ``h_0.ln_1.scale``,
-``h_0.attn.attn_qkv.kernel`` and so on.
+``h_0.attn.attn_qkv.kernel`` and so on; each dense layer learns its
+kernel's path (the name producer fusion stages its gradient under).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from torch import nn
 
 from ..utils.device import DeviceLike, resolve_device
 from .attention import Mlp, MultiHeadAttention
-from .layers import Embed, LayerNorm
+from .layers import Embed, LayerNorm, name_dense_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +83,7 @@ class GPT2(nn.Module):
         for i in range(cfg.n_layer):
             self.add_module(f"h_{i}", Block(cfg, generator=generator))
         self.ln_f = LayerNorm(cfg.d_model)
+        name_dense_layers(self)
         self.to(dev)
 
     def forward(

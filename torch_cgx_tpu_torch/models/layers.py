@@ -8,8 +8,10 @@ weights one to one (``models/convert.py``):
 
 * :class:`Dense`: ``kernel`` stored ``(in, out)`` and a separate ``bias``;
   the input and both parameters are cast to the compute ``dtype`` before the
-  product, as flax promotes them. Producer fusion (the quantize in the
-  weight-gradient epilogue) waits for its kernel.
+  product, as flax promotes them. The counterpart of ``CgxDense``: once its
+  model names it (:func:`name_dense_layers`) and producer fusion is active,
+  the product goes through ``ops.fused_producer.matmul``, whose backward
+  also emits the kernel gradient's quantized wire payload.
 * :class:`Embed`: ``embedding (num, features)``, looked up then cast.
 * :class:`LayerNorm`: ``scale``/``bias``, epsilon 1e-6 (flax's default),
   computed in float32.
@@ -28,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import fused_producer
+
 # Standard deviation of a unit normal truncated to (-2, 2), which flax's
 # truncated-normal initialisers divide by.
 _TRUNC_STD = 0.87962566103423978
@@ -39,7 +43,12 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
 
 
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` in ``dtype`` (flax ``nn.Dense`` semantics)."""
+    """``y = x @ kernel + bias`` in ``dtype`` (flax ``nn.Dense`` semantics).
+
+    ``kernel_path`` is the kernel's dotted parameter path in its model
+    (``h_0.attn.attn_qkv.kernel``), the name producer fusion stages the
+    gradient's payload under; ``None`` (an unnamed layer) keeps the plain
+    product."""
 
     def __init__(
         self,
@@ -51,13 +60,25 @@ class Dense(nn.Module):
     ):
         super().__init__()
         self.dtype = dtype
+        self.kernel_path: Optional[str] = None
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
         lecun_normal_(self.kernel.data, in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.kernel_path is not None and fused_producer.active():
+            y = fused_producer.matmul(x, self.kernel, name=self.kernel_path, dtype=self.dtype)
+            return y + self.bias.to(self.dtype)
         return torch.matmul(x, self.kernel.to(self.dtype)) + self.bias.to(self.dtype)
+
+
+def name_dense_layers(model: nn.Module) -> None:
+    """Give every :class:`Dense` of ``model`` its kernel's dotted path, as
+    ``named_parameters()`` spells it."""
+    for name, m in model.named_modules():
+        if isinstance(m, Dense):
+            m.kernel_path = f"{name}.kernel" if name else "kernel"
 
 
 class Embed(nn.Module):

@@ -1,18 +1,20 @@
 """The codec's CUDA kernels, their wrappers and their plain versions.
 
-Counterpart of ``torch_cgx_tpu/ops/codec_pallas.py``. Four hand-written
-kernels in ``csrc/codec.cu`` (built for ``sm_90a`` with ``nvcc`` into a
-plain C shared library at first use, loaded with ``ctypes``) replace the
-six Pallas kernels on the gradient-sync path:
+Counterpart of ``torch_cgx_tpu/ops/codec_pallas.py`` and of the kernel of
+``torch_cgx_tpu/ops/fused_producer.py``. Five hand-written kernels in
+``csrc/codec.cu`` (built for ``sm_90a`` with ``nvcc`` into a plain C shared
+library at first use, loaded with ``ctypes``) replace the seven Pallas
+kernels on the gradient-sync path:
 
-=====================  =================================================
-wrapper                TPU kernels replaced (``codec_pallas.py``)
-=====================  =================================================
-``quantize_chunks``    ``_quantize_flat_impl``, ``_quantize_chunks_impl``
-``dequantize_chunks``  ``_dequantize_flat_impl``, ``_dequantize_chunks_impl``
-``sra_epilogue_chunks`` ``_sra_epilogue_impl``
-``reduce_rows_chunks``  ``_reduce_rows_impl``
-=====================  =================================================
+=========================  ====================================================
+wrapper                    TPU kernels replaced
+=========================  ====================================================
+``quantize_chunks``        ``codec_pallas._quantize_flat_impl``, ``_quantize_chunks_impl``
+``dequantize_chunks``      ``codec_pallas._dequantize_flat_impl``, ``_dequantize_chunks_impl``
+``sra_epilogue_chunks``    ``codec_pallas._sra_epilogue_impl``
+``reduce_rows_chunks``     ``codec_pallas._reduce_rows_impl``
+``matmul_quantize_chunks`` ``fused_producer._matmul_quantize_impl``
+=========================  ====================================================
 
 Each wrapper works on whole 32-bucket chunks. On a CUDA tensor it launches
 its kernel (and counts the launch in :data:`LAUNCHES`) or raises; on a CPU
@@ -72,6 +74,7 @@ LAUNCHES: Dict[str, int] = {
     "codec_dequantize": 0,
     "codec_sra_epilogue": 0,
     "codec_reduce_rows": 0,
+    "codec_matmul_quantize": 0,
 }
 
 
@@ -141,7 +144,9 @@ def _lib():
             lib.cgx_dequantize.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
             lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, vp, vp, vp]
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, vp, vp]
-            fns = (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue, lib.cgx_reduce_rows)
+            lib.cgx_matmul_quantize.argtypes = [vp, vp, ll, i, i, f, vp, vp, i, i, f, vp]
+            fns = (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue,
+                   lib.cgx_reduce_rows, lib.cgx_matmul_quantize)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _LIB = lib
@@ -430,6 +435,61 @@ def reduce_rows_chunks(
     LAUNCHES["codec_reduce_rows"] += 1
     _check_launch("codec_reduce_rows", err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Matmul with a quantize epilogue (B8).
+# ---------------------------------------------------------------------------
+
+
+def matmul_quantize_chunks_plain(
+    x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`matmul_quantize_chunks`: the product, the
+    divide, then :func:`quantize_chunks_plain` of the flat result."""
+    dw = torch.matmul(x2.t(), g2) / div
+    return quantize_chunks_plain(dw.reshape(-1), bits, bucket_size)
+
+
+def matmul_quantize_chunks(
+    x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight gradient of a dense layer, divided and quantized:
+    ``x2`` f32 ``(K, din)`` and ``g2`` f32 ``(K, o)`` -> ``(words int32
+    (C*bits*B,), meta f32 (C*32, 2))`` of the flat ``x2^T g2 / div``
+    (``din*o`` values, row-major, ``C = din*o / (32*B)`` chunks) in the
+    wire layout. On the card the f32 product never reaches global memory."""
+    _refuse_unported()
+    if cfg_mod.stochastic_rounding():
+        raise NotImplementedError(
+            "stochastic rounding is not ported into the matmul-quantize kernel; "
+            "unset CGX_STOCHASTIC_ROUNDING"
+        )
+    if x2.dim() != 2 or g2.dim() != 2 or x2.shape[0] != g2.shape[0]:
+        raise ValueError(f"expected x2 (K, din) and g2 (K, o), got {tuple(x2.shape)}, {tuple(g2.shape)}")
+    k_total, din = x2.shape
+    o = g2.shape[1]
+    chunks = _chunk_geometry(din * o, bits, bucket_size)
+    if _device_kind(x2, g2) == "cpu":
+        return matmul_quantize_chunks_plain(x2, g2, div, bits, bucket_size)
+    if o % 4:
+        raise ValueError(f"the matmul-quantize kernel needs o % 4 == 0, got o={o}")
+    if CHUNK_BUCKETS * bucket_size * 4 > MAX_EPILOGUE_TILE_BYTES:
+        raise ValueError(f"bucket_size {bucket_size} exceeds the kernel's shared-memory tile")
+    _require_cuda_operand("matmul x2", x2, torch.float32, x2.numel())
+    _require_cuda_operand("matmul g2", g2, torch.float32, g2.numel())
+    if g2.data_ptr() % 16:  # the kernel reads g2 four floats at a time
+        g2 = g2.clone()
+    words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x2.device)
+    meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x2.device)
+    err = _lib().cgx_matmul_quantize(
+        x2.data_ptr(), g2.data_ptr(), k_total, din, o, float(div),
+        words.data_ptr(), meta.data_ptr(), bucket_size, bits,
+        codec.unit_scale(bits), _stream(x2),
+    )
+    LAUNCHES["codec_matmul_quantize"] += 1
+    _check_launch("codec_matmul_quantize", err)
+    return words, meta
 
 
 # ---------------------------------------------------------------------------

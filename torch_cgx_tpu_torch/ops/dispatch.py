@@ -162,16 +162,21 @@ def reduce_rows_requantize(
     cc: CompressionConfig,
     *,
     raw_rows: Optional[torch.Tensor] = None,
+    raw_row: Optional[torch.Tensor] = None,
     own_idx: Optional[int] = None,
     out_dtype: torch.dtype = torch.float32,
 ) -> QTensor:
     """The SRA epilogue: :func:`reduce_rows` + requantize of the reduced
     chunk into a rows=1 QTensor (the stage-2 payload). One fused kernel
-    where :func:`fused_epilogue_would_run`, the staged ops otherwise."""
+    where :func:`fused_epilogue_would_run`, the staged ops otherwise.
+    ``raw_row`` is the pre-sliced own chunk of a producer-staged caller,
+    in place of ``raw_rows[own_idx]``."""
+    if raw_rows is not None and raw_row is not None:
+        raise ValueError("pass raw_rows or raw_row, not both")
     if _use_fused_reduce(q):
         return codec_cuda.sra_epilogue_batch(
-            q, raw_row=None if raw_rows is None else raw_rows[own_idx],
+            q, raw_row=raw_rows[own_idx] if raw_rows is not None else raw_row,
             own_idx=own_idx, out_dtype=out_dtype,
         )
-    reduced = reduce_rows(q, raw_rows=raw_rows, own_idx=own_idx)
+    reduced = reduce_rows(q, raw_rows=raw_rows, raw_row=raw_row, own_idx=own_idx)
     return quantize_batch(reduced.to(out_dtype)[None], cc)

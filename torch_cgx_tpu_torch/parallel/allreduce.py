@@ -8,9 +8,11 @@ registry, else the ``CGX_*`` env default, re-read on every call), large
 leaves form standalone groups, the rest group by (config, dtype) and are
 concatenated, each group's flat buffer is cut into fusion slices (64 MB by
 default) and every slice is reduced, over two levels by
-``hierarchical_allreduce``. The schedule compiler, the step
-planner, producer fusion and the staged-program routes of the JAX package
-stay out: off the TPU they are inert at their default settings.
+``hierarchical_allreduce``. A standalone group whose gradient the
+backward already quantized (``ops/fused_producer.py``, producer fusion)
+hands that payload to the multi-rank SRA in place of its own quantize. The
+schedule compiler, the step planner and the staged-program routes of the
+JAX package stay out: off the TPU they are inert at their default settings.
 
 Leaves are taken in the order JAX flattens a nested dict (keys sorted level
 by level: ``h_10`` before ``h_2``), so fused groups concatenate in the same
@@ -26,6 +28,7 @@ import torch
 
 from .. import config as cfg_mod
 from ..config import CompressionConfig
+from ..ops import fused_producer
 from ..utils.tree import sorted_items
 from . import group as group_mod
 from .group import ProcessGroup
@@ -116,25 +119,48 @@ def allreduce_flat(
     cc: CompressionConfig,
     *,
     group: GroupLike = None,
+    pre=None,
 ) -> torch.Tensor:
     """Allreduce one flat buffer, fusion slice by fusion slice: over a
     :class:`TwoLevelGroup` with the env's two-level scheme
     (``topology_from_env``), over a plain group with its reduction type
-    (``intra_reduction``)."""
+    (``intra_reduction``). ``pre``: the producer-staged stage-1 payload of
+    ``flat`` (``fused_producer.Produced``), consumed when the buffer is one
+    slice through the multi-rank SRA at the payload's config and marked
+    ``consumed``; otherwise ignored and the fallback counted."""
+    slices = _fusion_slices(flat.shape[0], flat.element_size())
     if isinstance(group, TwoLevelGroup):
+        if pre is not None:  # the two-level scheme never consumes a payload
+            fused_producer.fallback("routing")
         topo = cfg_mod.topology_from_env()
-
-        def reduce(piece):
-            return hierarchical_allreduce(piece, group, cc, topo)
+        pieces = [
+            hierarchical_allreduce(flat[off : off + ln], group, cc, topo) for off, ln in slices
+        ]
     else:
         ws, red = group_mod.world_size(group), cfg_mod.intra_reduction()
-
-        def reduce(piece):
-            return quantized_allreduce(piece, group, ws, cc, red)
-    pieces = [
-        reduce(flat[off : off + ln])
-        for off, ln in _fusion_slices(flat.shape[0], flat.element_size())
-    ]
+        if pre is not None and len(slices) != 1:
+            fused_producer.fallback("routing")
+            pre = None
+        elif pre is not None:
+            # The payload must have been quantized for this very slice, at
+            # this config, for the multi-rank SRA.
+            if (
+                ws > 1
+                and red == cfg_mod.REDUCTION_SRA
+                and not cfg_mod.dummy_compression()
+                and pre.cc == cc
+                and pre.ws == ws
+                and pre.n == slices[0][1]
+            ):
+                pre.consumed = True
+                fused_producer.count("producer_consumed_slices")
+            else:
+                fused_producer.fallback("plan")
+                pre = None
+        pieces = [
+            quantized_allreduce(flat[off : off + ln], group, ws, cc, red, pre)
+            for off, ln in slices
+        ]
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
 
@@ -149,14 +175,40 @@ def allreduce_tree(
 
     ``average=True`` divides by the world size before quantization, the
     reference hook's order. Uncompressed groups sum exactly over the whole
-    world."""
+    world. A standalone compressed gradient that the backward already
+    quantized (producer fusion) is matched in the stash by its original
+    tensor, before the division, and handed to :func:`allreduce_flat` as
+    ``pre``; the stash is drained after the sweep."""
     world, ws = flat_world(group)
     paths_leaves = sorted_items(tree)
     leaves = [t for _, t in paths_leaves]
-    if average and ws > 1:
+    div = ws if average and ws > 1 else 1
+    if div > 1:
         leaves = [t / ws if _is_float(t) else t for t in leaves]
+    fp = None
+    if (
+        not isinstance(group, TwoLevelGroup)
+        and fused_producer.engaged()
+        and fused_producer.stash_size()
+    ):
+        fp = fused_producer
     out: Dict[str, torch.Tensor] = {}
     for g in _group_leaves(paths_leaves, compress_small):
+        pre = None
+        if fp is not None and len(g.indices) == 1 and g.cc.enabled:
+            path, leaf = paths_leaves[g.indices[0]]
+            ent = fp.lookup(path, leaf)
+            if ent is not None:
+                if (
+                    ent.cc == g.cc
+                    and ent.ws == ws
+                    and ent.divisor == div
+                    and ent.n == leaf.numel()
+                    and len(_fusion_slices(leaf.numel(), leaf.element_size())) == 1
+                ):
+                    pre = ent
+                else:
+                    fp.fallback("group")
         members = [leaves[i] for i in g.indices]
         fused = (
             torch.cat([t.reshape(-1) for t in members])
@@ -164,7 +216,9 @@ def allreduce_tree(
             else members[0].reshape(-1)
         )
         if g.cc.enabled:
-            reduced = allreduce_flat(fused, g.cc, group=group)
+            reduced = allreduce_flat(fused, g.cc, group=group, pre=pre)
+            if pre is not None and pre.consumed:
+                fp.claim(pre.name)
         elif ws > 1:
             reduced = group_mod.all_reduce_sum(fused, world)
         else:
@@ -174,4 +228,6 @@ def allreduce_tree(
             n = t.numel()
             out[paths_leaves[i][0]] = reduced[off : off + n].view(t.shape)
             off += n
+    if fp is not None:
+        fp.drain()
     return out

@@ -14,9 +14,11 @@ from typing import Any, Callable, Dict, Mapping
 import torch
 from torch import nn
 
+from ..ops import fused_producer
 from ..utils.device import DeviceLike, resolve_device
 from .allreduce import GroupLike, allreduce_tree, flat_world
 from .group import all_reduce_sum
+from .mesh import TwoLevelGroup
 
 
 def gradient_sync(
@@ -64,8 +66,21 @@ def make_train_step(
         raise ValueError(
             f"make_train_step: parameters {wrong[:3]} are not on {dev}; move the model first"
         )
+    world, ws = flat_world(group)
+    fused_producer.deconfigure()  # a rebuilt step drops the previous context
 
     def step(batch: Any) -> torch.Tensor:
+        # Producer fusion: the backward of a wrapped dense layer stages its
+        # payload for this group. Only a plain group of more than one rank
+        # consumes payloads (the two-level scheme never does). Error
+        # feedback and the nonfinite guard, once ported, rewrite gradients
+        # before the sync and must deactivate the plane here, as the JAX
+        # package's active=(guard == "off" and not error_feedback ...) does.
+        fused_producer.configure(
+            group, divisor=ws if average else 1,
+            active=not isinstance(group, TwoLevelGroup) and ws > 1,
+        )
+        fused_producer.begin_step()
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, _to_device(batch, dev))
         loss.backward()
@@ -76,7 +91,6 @@ def make_train_step(
                 p.grad = synced[n]
         optimizer.step()
         loss = loss.detach()
-        world, ws = flat_world(group)
         if ws > 1:
             loss = all_reduce_sum(loss, world) / ws
         return loss

@@ -82,19 +82,29 @@ def _map_q(q: QTensor, fn) -> QTensor:
     )
 
 
-def _sra_exchange(x, group: ProcessGroup, ws: int, cc: CompressionConfig):
+def _sra_exchange(x, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None):
     """Stage 1: ``(q, q_recv, xs, own_idx)`` — the sent ``(ws, chunk)``
     payload, the received one (row j = this rank's chunk as peer j
-    quantized it), the raw padded rows and this rank's position."""
-    xs = _pad_rows(x, ws, _chunk_size(x.shape[0], ws))
-    q = dispatch.quantize_batch(xs, cc)
+    quantized it), the raw padded rows and this rank's position.
+
+    ``pre``: a producer-staged stage-1 payload
+    (``ops.fused_producer.Produced``: ``pre.q`` the quantized ``(ws,
+    chunk)`` rows, ``pre.raw_row`` the raw own chunk). The quantize is
+    skipped, ``x`` is never read and ``xs`` is None; callers take
+    ``pre.raw_row`` for the own row."""
+    if pre is not None:
+        q = pre.q
+        xs = None
+    else:
+        xs = _pad_rows(x, ws, _chunk_size(x.shape[0], ws))
+        q = dispatch.quantize_batch(xs, cc)
     q_recv = _map_q(q, lambda t: group_mod.all_to_all_rows(t, group))
     return q, q_recv, xs, group_mod.rank(group)
 
 
-def _sra_epilogue_q(q_recv, xs, own_idx, cc, out_dtype) -> QTensor:
+def _sra_epilogue_q(q_recv, xs, own_idx, cc, out_dtype, raw_row=None) -> QTensor:
     return dispatch.reduce_rows_requantize(
-        q_recv, cc, raw_rows=xs, own_idx=own_idx, out_dtype=out_dtype
+        q_recv, cc, raw_rows=xs, raw_row=raw_row, own_idx=own_idx, out_dtype=out_dtype
     )
 
 
@@ -129,21 +139,25 @@ def allgather_quantized(
 
 
 def sra_allreduce(
-    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None
 ) -> torch.Tensor:
-    """Quantized Scatter-Reduce-AllGather allreduce of a flat buffer."""
-    return sra_wire_frames(x, group, ws, cc)[0]
+    """Quantized Scatter-Reduce-AllGather allreduce of a flat buffer.
+    ``pre``: a producer-staged stage-1 payload (see :func:`_sra_exchange`);
+    ``x`` then gives only its length and dtype."""
+    return sra_wire_frames(x, group, ws, cc, pre)[0]
 
 
 def sra_wire_frames(
-    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None
 ) -> Tuple[torch.Tensor, QTensor, QTensor]:
     """:func:`sra_allreduce` with both wire payloads: ``(out, q_sent,
     q_own)`` — the reduced buffer, the stage-1 ``(ws, chunk)`` QTensor this
     rank sent and the stage-2 requantized chunk it all-gathered."""
     n = x.shape[0]
-    q, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc)
-    q_own = _sra_epilogue_q(q_recv, xs, own_idx, cc, x.dtype)
+    q, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc, pre)
+    q_own = _sra_epilogue_q(
+        q_recv, xs, own_idx, cc, x.dtype, raw_row=None if pre is None else pre.raw_row
+    )
     return _sra_gather_decode(q_own, group, ws, n, x.dtype), q, q_own
 
 
@@ -212,8 +226,21 @@ def quantized_allreduce(
     ws: int,
     cc: CompressionConfig,
     reduction: str = cfg_mod.REDUCTION_SRA,
+    pre=None,
 ) -> torch.Tensor:
-    """Allreduce (sum) of a flat buffer, dispatched on the reduction type."""
+    """Allreduce (sum) of a flat buffer, dispatched on the reduction type.
+    ``pre`` (a producer-staged stage-1 payload) is for the multi-rank SRA
+    only."""
+    if pre is not None and (
+        reduction != cfg_mod.REDUCTION_SRA
+        or ws == 1
+        or not cc.enabled
+        or cfg_mod.dummy_compression()
+    ):
+        raise ValueError(
+            "producer-staged payloads route only to the multi-rank SRA "
+            f"transport (got reduction={reduction!r}, ws={ws})"
+        )
     if ws == 1:
         if cc.enabled and cfg_mod.force_codec():
             return _force_codec_proxy(x, cc)
@@ -226,7 +253,7 @@ def quantized_allreduce(
     if not cc.enabled or reduction == cfg_mod.REDUCTION_PSUM:
         return group_mod.all_reduce_sum(x, group)
     if reduction == cfg_mod.REDUCTION_SRA:
-        return sra_allreduce(x, group, ws, cc)
+        return sra_allreduce(x, group, ws, cc, pre)
     if reduction == cfg_mod.REDUCTION_RING:
         return ring_allreduce(x, group, ws, cc)
     if reduction == cfg_mod.REDUCTION_ALLTOALL:
