@@ -7,9 +7,12 @@ order, none of whose failures is caught:
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions;
 2. build: ``nvcc`` compiles ``torch_cgx_tpu_torch/csrc/codec.cu`` into
-   ``torch_cgx_tpu_torch/_build/``;
+   ``torch_cgx_tpu_torch/_build/``; the registers and shared memory of the
+   pipelined kernels;
 3. kernels against their plain PyTorch versions on the card, at the shapes
-   the GPT-2 124M train step gives them (the multi-row reduce at the
+   the GPT-2 124M train step gives them, the pipelined ones (B7a-c) also
+   against the single-stage ones, at 1, 131, 133 and 2053 chunks too, and
+   at phase 6's flat-SRA epilogue (the multi-row reduce at the
    two-level and the all-to-all shapes of phase 6, the matmul-quantize at
    the three dense-layer shapes of phase 6's flat SRA step): words, meta and
    decoded values must be bit-identical (tolerance 0), and the
@@ -21,12 +24,18 @@ order, none of whose failures is caught:
    the launch counters reset just before and read just after, held against
    the counts derived from the gradient layout; one step's gradients synced
    through the kernels and, on the CPU, through the plain versions must agree
-   bit for bit;
+   bit for bit. All under ``CGX_PALLAS_DB=off``; then the pipelined path
+   (:func:`db_phase`): the same steps from the seed under ``on``, held
+   against the layout and bit for bit against ``off``; an autotune sweep of
+   the step's shapes into a temporary cache directory; one step under
+   ``auto`` over it, which must hit the cache and launch the pipelined
+   kernels exactly where the winners say;
 5. times: each kernel and its plain version (CUDA events, median after
-   warm-up), the matmul-quantize also against ``torch.matmul`` of the same
-   product (which lacks the quantize), a device-to-device copy as the
-   yardstick, the train step with and without the codec, and a
-   ``torch.profiler`` breakdown of one step of each;
+   warm-up), each pipelined kernel beside its single-stage sibling, the
+   matmul-quantize also against ``torch.matmul`` of the same product (which
+   lacks the quantize), a device-to-device copy as the yardstick, the train
+   step without the codec and with it under ``CGX_PALLAS_DB`` off and on,
+   and a ``torch.profiler`` breakdown of one step of each;
 6. multi-rank: four spawned ranks share the card over a gloo group (NCCL
    refuses two ranks on one device), as a cross 2 x intra 2 layout, each
    with full-width GPT-2 124M and its own 2 x 512 token shard. The
@@ -43,8 +52,9 @@ order, none of whose failures is caught:
    with the plane engaged and holds each of the 36 staged payloads (the
    ``attn_qkv``, ``mlp_in`` and ``mlp_out`` kernels of the 12 blocks) to a
    quantize of that layer's ``p.grad / 4`` within ``payload_close``'s
-   tolerance. Gloo stages the wire through host memory: its time is not a
-   card number.
+   tolerance. Then the flat SRA under ``CGX_PALLAS_DB=on``: the pipelined
+   epilogue folds the four ranks' rows. Gloo stages the wire through host
+   memory: its time is not a card number.
 
 The third-to-last line is the per-kernel JSON record, the second-to-last
 the card's name and power limit, the last ``{"ok": true, "device": {...}}``.
@@ -100,7 +110,15 @@ TPU_KERNELS = {
     "codec_sra_epilogue": "torch_cgx_tpu/ops/codec_pallas.py:1375",
     "codec_reduce_rows": "torch_cgx_tpu/ops/codec_pallas.py:1303",
     "codec_matmul_quantize": "torch_cgx_tpu/ops/fused_producer.py:537",
+    "codec_quantize_db": "torch_cgx_tpu/ops/codec_pallas.py:505",
+    "codec_dequantize_db": "torch_cgx_tpu/ops/codec_pallas.py:618",
+    "codec_sra_epilogue_db": "torch_cgx_tpu/ops/codec_pallas.py:1473",
 }
+# The pipelined kernel of each single-stage one, by the batch functions'
+# kernel names (``dispatch.db_would_run``).
+DB_OF = {"codec_quantize": "quantize", "codec_dequantize": "dequantize",
+         "codec_sra_epilogue": "epilogue"}
+DB_CHUNKS = (1, 131, 133, 2053)  # around the persistent grid (132 SMs) and far above it
 # The dense layers of GPT-2 124M whose weight gradients producer fusion
 # quantizes in phase 6 (weight shape (din, o)), with the contraction of a
 # rank's 2 x 512 tokens. attn_proj (768 x 768) is below
@@ -213,19 +231,61 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     rng = np.random.default_rng(SEED)
     max_err = {k: 0.0 for k in TPU_KERNELS}
 
-    def record(kernel: str, label: str, got, want) -> None:
+    def record(kernel: str, label: str, got, want, single=None) -> None:
+        """``got`` against the plain version's ``want`` and, for a
+        pipelined kernel, against its single-stage sibling's ``single``."""
         err = _max_abs(got, want) if got.shape == want.shape else float("inf")
         max_err[kernel] = max(max_err[kernel], err)
         if not _same_bits(got, want):
             raise AssertionError(
                 f"{kernel} {label}: kernel disagrees with its plain version (max error {err})"
             )
-        log(f"  {kernel:20s} {label:44s} bit-identical")
+        if single is not None and not _same_bits(got, single):
+            raise AssertionError(f"{kernel} {label}: kernel disagrees with the single-stage kernel")
+        also = " (and the single-stage kernel)" if single is not None else ""
+        log(f"  {kernel:21s} {label:44s} bit-identical{also}")
+
+    def db_tc(kernel: str, chunks: int, bits: int, b: int, add: bool = False) -> int:
+        """The tile the batch functions give the pipelined kernel (no
+        tuned entry), 0 where its ring does not fit (ROADMAP C7)."""
+        cap = codec_cuda.db_tc_cap(DB_OF[kernel], bits, b, with_add=add)
+        return codec_cuda._pipe_tc(chunks, cap) if cap >= 1 else 0
+
+    def check_db(label: str, x, bits: int, b: int, acc, want, q, q_acc, ep) -> None:
+        """The pipelined kernels on one flat buffer ``x`` of whole chunks:
+        ``want`` its plain quantize, ``q`` and ``q_acc`` the single-stage
+        payload and decode (with ``acc`` added), ``ep`` the single-stage
+        rows=1 epilogue."""
+        chunks = x.numel() // (32 * b)
+        tc = db_tc("codec_quantize", chunks, bits, b)
+        if tc:
+            w, m = codec_cuda.quantize_chunks_db(x, bits, b, tc)
+            record("codec_quantize_db", f"{label} tc={tc} words", w, want.packed, q.packed[0])
+            record("codec_quantize_db", f"{label} tc={tc} meta", m, want.meta, q.meta[0])
+        else:
+            log(f"  {'codec_quantize_db':21s} {label:44s} gated (C7): single-stage kernel")
+        w, m = q.packed[0], q.meta[0]
+        for add, single in ((None, codec_cuda.dequantize_batch(q)[0]), (acc, q_acc)):
+            tc = db_tc("codec_dequantize", chunks, bits, b, add is not None)
+            lab = label + (" add_to" if add is not None else "")
+            if tc:
+                got = codec_cuda.dequantize_chunks_db(w, m, bits, b, tc, add_to=add)
+                record("codec_dequantize_db", f"{lab} tc={tc}", got,
+                       codec.dequantize(want, add_to=add), single)
+            else:
+                log(f"  {'codec_dequantize_db':21s} {lab:44s} gated (C7): single-stage kernel")
+        tc = db_tc("codec_sra_epilogue", chunks, bits, b)
+        if ep is not None and tc:
+            got_w, got_m = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, None, -1, bits, b, tc)
+            pw, pm = codec_cuda.sra_epilogue_chunks_db_plain(q.packed, q.meta, None, -1, bits, b)
+            record("codec_sra_epilogue_db", f"{label} rows=1 tc={tc} words", got_w, pw, ep.packed[0])
+            record("codec_sra_epilogue_db", f"{label} rows=1 tc={tc} meta", got_m, pm, ep.meta[0])
 
     cases = [(flat_n, b, BUCKET, 0) for b in (1, 2, 4, 8)]
     cases += [(flat_n, BITS, BUCKET, 1), (flat_n, BITS, BUCKET, 2)]
     cases += [(tail_n, BITS, BUCKET, k) for k in (0, 1, 2)]
     cases += [(flat_n // 4, BITS, 1024, 0), (tail_n // 4, 3, 96, 0)]
+    cases += [(c * 32 * BUCKET, BITS, BUCKET, 0) for c in DB_CHUNKS]
     for n, bits, b, kind in cases:
         x = torch.from_numpy(fuzz_operand(rng, n, kind)).to(dev)
         label = f"n={n} bits={bits} B={b} recipe={kind}"
@@ -235,25 +295,26 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         record("codec_quantize", label + " meta", q.meta[0], want.meta)
         acc = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
         record("codec_dequantize", label, codec_cuda.dequantize_batch(q)[0], codec.dequantize(want))
-        record(
-            "codec_dequantize", label + " add_to",
-            codec_cuda.dequantize_batch(q, add_to=acc[None])[0],
-            codec.dequantize(want, add_to=acc),
-        )
-        if not codec_cuda.supports_reduce(q):
-            continue
-        got = codec_cuda.sra_epilogue_batch(q)
-        w, m = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, None, -1, bits, b)
-        record("codec_sra_epilogue", label + " rows=1 words", got.packed[0], w)
-        record("codec_sra_epilogue", label + " rows=1 meta", got.meta[0], m)
+        q_acc = codec_cuda.dequantize_batch(q, add_to=acc[None])[0]
+        record("codec_dequantize", label + " add_to", q_acc, codec.dequantize(want, add_to=acc))
+        ep = None
+        if codec_cuda.supports_reduce(q):
+            ep = codec_cuda.sra_epilogue_batch(q)
+            w, m = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, None, -1, bits, b)
+            record("codec_sra_epilogue", label + " rows=1 words", ep.packed[0], w)
+            record("codec_sra_epilogue", label + " rows=1 meta", ep.meta[0], m)
+        if n % (32 * b) == 0 and b % 128 == 0:
+            check_db(label, x, bits, b, acc, want, q, q_acc, ep)
 
     # The multi-rank epilogue: ws stage-1 rows of one rank's chunk, the raw
-    # own row swapped in for each position it can take.
+    # own row swapped in for each position it can take; the pipelined one
+    # at phase 6's flat-SRA shape.
     chunk = flat_n // ws
     rows = torch.from_numpy(
         np.stack([fuzz_operand(rng, chunk, 0) * (r + 1) for r in range(ws)])
     ).to(dev)
     qs = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+    tc = db_tc("codec_sra_epilogue", chunk // (32 * BUCKET), BITS, BUCKET)
     for own in range(ws):
         got = codec_cuda.sra_epilogue_batch(qs, raw_row=rows[own], own_idx=own)
         w, m = codec_cuda.sra_epilogue_chunks_plain(
@@ -262,6 +323,9 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         label = f"ws={ws} own={own} n={chunk}"
         record("codec_sra_epilogue", label + " words", got.packed[0], w)
         record("codec_sra_epilogue", label + " meta", got.meta[0], m)
+        dw, dm = codec_cuda.sra_epilogue_chunks_db(qs.packed, qs.meta, rows[own], own, BITS, BUCKET, tc)
+        record("codec_sra_epilogue_db", f"{label} tc={tc} words", dw, w, got.packed[0])
+        record("codec_sra_epilogue_db", f"{label} tc={tc} meta", dm, m, got.meta[0])
     del qs, rows
 
     # The multi-row reduce at phase 6's shapes: the two-level intra
@@ -324,8 +388,11 @@ class LaunchModel:
     """Kernel launches one compressed gradient sync makes on one rank,
     derived from the gradient layout and decided by the dispatcher's own
     gates (``codec_cuda.supports``, ``dispatch.fused_epilogue_would_run``,
-    ``dispatch.fused_reduce_would_run``) on layout-only stand-ins for each
-    payload: each method mirrors one reducer of ``parallel/reducers.py``."""
+    ``dispatch.fused_reduce_would_run``, ``dispatch.db_would_run``) on
+    layout-only stand-ins for each payload: each method mirrors one reducer
+    of ``parallel/reducers.py``. A quantize, decode or epilogue counts as
+    its pipelined kernel where ``db_would_run`` says the batch function
+    takes it (``CGX_PALLAS_DB`` and the autotune cache as they stand)."""
 
     def __init__(self, dev):
         self.dev = dev
@@ -344,14 +411,21 @@ class LaunchModel:
             numel=n, bits=cc.bits, bucket_size=cc.bucket_size, dtype=torch.float32,
         )
 
-    def codec(self, kernel: str, n: int, cc) -> None:
-        """A quantize or decode of rows of ``n`` values: one launch when the
-        chunk kernels cover the rows and they hold a whole chunk."""
+    def _launch(self, kernel: str, rows: int, n: int, cc, add: bool = False) -> None:
+        from torch_cgx_tpu_torch.ops import dispatch
+
+        db = dispatch.db_would_run(self._stand_in(rows, n, cc), DB_OF[kernel], with_add=add)
+        self.counts[kernel + "_db" if db else kernel] += 1
+
+    def codec(self, kernel: str, n: int, cc, rows: int = 1, add: bool = False) -> None:
+        """A quantize or decode (``add``: with an accumulator) of ``rows``
+        rows of ``n`` values: one launch when the chunk kernels cover the
+        rows and they hold a whole chunk."""
         from torch_cgx_tpu_torch.ops import codec, codec_cuda
 
         b = cc.bucket_size
         if codec_cuda.supports(n, cc.bits, b, False) and codec.num_buckets(n, b) >= codec.CHUNK_BUCKETS:
-            self.counts[kernel] += 1
+            self._launch(kernel, rows, n, cc, add)
 
     def reduce(self, rows: int, n: int, cc) -> None:
         """``dispatch.reduce_rows`` without an accumulator."""
@@ -360,37 +434,40 @@ class LaunchModel:
         if dispatch.fused_reduce_would_run(self._stand_in(rows, n, cc)):
             self.counts["codec_reduce_rows"] += 1
         else:
-            self.codec("codec_dequantize", n, cc)
+            self.codec("codec_dequantize", n, cc, rows)
+
+    def epilogue(self, rows: int, n: int, cc) -> bool:
+        """``dispatch.reduce_rows_requantize``'s fused kernel, if it runs."""
+        from torch_cgx_tpu_torch.ops import dispatch
+
+        if not dispatch.fused_epilogue_would_run(self._stand_in(rows, n, cc)):
+            return False
+        self._launch("codec_sra_epilogue", rows, n, cc)
+        return True
 
     def proxy(self, m: int, cc) -> None:
         """The world-size-1 ``CGX_DEBUG_FORCE_CODEC`` proxy."""
-        from torch_cgx_tpu_torch.ops import dispatch
-
         self.codec("codec_quantize", m, cc)
-        if dispatch.fused_epilogue_would_run(self._stand_in(1, m, cc)):
-            self.counts["codec_sra_epilogue"] += 1
+        if self.epilogue(1, m, cc):
             self.codec("codec_dequantize", m, cc)
         else:
             self.codec("codec_dequantize", m, cc)
-            self.codec("codec_dequantize", m, cc)
+            self.codec("codec_dequantize", m, cc, add=True)
 
     def sra(self, m: int, ws: int, cc, produced: bool = False) -> None:
         """``produced``: the backward's matmul-quantize made the stage-1
         payload, in place of the quantize."""
-        from torch_cgx_tpu_torch.ops import dispatch
         from torch_cgx_tpu_torch.parallel import chunk_layout
 
         c = chunk_layout(m, ws)[0]
         if produced:
             self.counts["codec_matmul_quantize"] += 1
         else:
-            self.codec("codec_quantize", c, cc)
-        if dispatch.fused_epilogue_would_run(self._stand_in(ws, c, cc)):
-            self.counts["codec_sra_epilogue"] += 1
-        else:
+            self.codec("codec_quantize", c, cc, ws)
+        if not self.epilogue(ws, c, cc):
             self.reduce(ws, c, cc)
             self.codec("codec_quantize", c, cc)
-        self.codec("codec_dequantize", c, cc)
+        self.codec("codec_dequantize", c, cc, ws)
 
     def ring(self, m: int, ws: int, cc) -> None:
         from torch_cgx_tpu_torch.parallel import chunk_layout
@@ -398,7 +475,7 @@ class LaunchModel:
         seg = chunk_layout(m, ws)[0]
         for _ in range(ws - 1):  # scatter-reduce hops: requantize, decode-add
             self.codec("codec_quantize", seg, cc)
-            self.codec("codec_dequantize", seg, cc)
+            self.codec("codec_dequantize", seg, cc, add=True)
         self.codec("codec_quantize", seg, cc)  # the owned segment, once
         for _ in range(ws):  # its own decode and ws-1 all-gather hops
             self.codec("codec_dequantize", seg, cc)
@@ -438,12 +515,12 @@ class LaunchModel:
         c = chunk_layout(m, wi)[0]
         compressed = intra_cc.enabled and not cfg.dummy_compression()
         if compressed:
-            self.codec("codec_quantize", c, intra_cc)
+            self.codec("codec_quantize", c, intra_cc, wi)
             self.reduce(wi, c, intra_cc)
         self.flat(c, wc, cross_cc, topo.cross_reduction)
         if compressed:
             self.codec("codec_quantize", c, intra_cc)
-            self.codec("codec_dequantize", c, intra_cc)
+            self.codec("codec_dequantize", c, intra_cc, wi)
 
 
 def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None) -> dict:
@@ -540,7 +617,159 @@ def gpt2_slice(dev, cfg, batch: int, seq: int, steps: int, cpu_check: bool = Tru
     want = {k: v * steps for k, v in expected.items()}
     assert launches == want, (launches, want)
     return {"model": model, "tokens": tokens, "opt": opt, "step": step,
-            "launches": launches, "expected": expected, "losses": losses}
+            "launches": launches, "expected": expected, "losses": losses,
+            "params": {n: p.detach().clone() for n, p in model.named_parameters()}}
+
+
+def new_run(dev, cfg):
+    """GPT-2 from the seed with a fresh Adam and ``make_train_step``: the
+    same start as :func:`gpt2_slice`'s steps."""
+    import torch
+
+    from torch_cgx_tpu_torch.models import GPT2, lm_loss
+    from torch_cgx_tpu_torch.parallel import make_train_step
+
+    model = GPT2(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+    return model, make_train_step(model, lambda m, t: lm_loss(m(t), t), opt, device=dev)
+
+
+def step_shapes(named) -> list:
+    """The autotune keys the world-size-1 step looks up where it may take a
+    pipelined kernel: ``(kind, chunks)`` of every compressed fusion slice of
+    whole chunks ("flat": its quantize and decode) and of every one the
+    fused epilogue takes ("epilogue", rows=1)."""
+    from torch_cgx_tpu_torch.ops import autotune, codec, dispatch
+    from torch_cgx_tpu_torch.parallel import allreduce
+
+    model = LaunchModel(next(iter(named.values())).device)
+    paths_leaves = allreduce.sorted_items(named)
+    shapes = set()
+    for g in allreduce._group_leaves(paths_leaves, compress_small=False):
+        if not g.cc.enabled:
+            continue
+        n = sum(paths_leaves[i][1].numel() for i in g.indices)
+        for _, ln in allreduce._fusion_slices(n, 4):
+            c_r, t_r = divmod(codec.num_buckets(ln, BUCKET), codec.CHUNK_BUCKETS)
+            if c_r and not t_r:
+                shapes.add((autotune.KIND_FLAT, c_r))
+                if dispatch.fused_epilogue_would_run(model._stand_in(1, ln, g.cc)):
+                    shapes.add((autotune.KIND_EPILOGUE, c_r))
+    return sorted(shapes)
+
+
+def sweep(dev, shapes) -> dict:
+    """Phase 4 (a): ``autotune.tune`` over each shape, the candidates
+    ``TunedConfig(tc, db)`` for db in {False, True} and every ``tc`` that
+    ``snap_to_divisor`` keeps under the shared-memory cap; ``measure`` the
+    median CUDA-event time of the public batch function with the knobs set
+    (quantize then decode for "flat", whose entry both share; the rows=1
+    epilogue for "epilogue"). Every candidate must measure: a pipelined
+    kernel that fails here fails the phase."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import autotune, codec_cuda
+
+    rng = np.random.default_rng(SEED + 2)
+    winners = {}
+    for kind, chunks in shapes:
+        n = chunks * 32 * BUCKET
+        x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)[None]
+        if kind == autotune.KIND_FLAT:
+            cap = max(codec_cuda.db_tc_cap(k, BITS, BUCKET) for k in ("quantize", "dequantize"))
+
+            def fn():
+                return codec_cuda.dequantize_batch(codec_cuda.quantize_batch(x, BITS, BUCKET))
+        else:
+            cap = codec_cuda.db_tc_cap("epilogue", BITS, BUCKET)
+            q = codec_cuda.quantize_batch(x, BITS, BUCKET)
+
+            def fn():
+                return codec_cuda.sra_epilogue_batch(q)
+        tcs = sorted({autotune.snap_to_divisor(t, chunks, cap) for t in range(1, cap + 1)})
+        cands = [autotune.TunedConfig(tc=tc, db=db) for tc in tcs for db in (False, True)]
+        measured = {}
+
+        def measure(c):
+            os.environ["CGX_PALLAS_TILE_CHUNKS"] = str(c.tc)
+            os.environ["CGX_PALLAS_DB"] = "on" if c.db else "off"
+            ms = time_cuda(fn)
+            measured[c] = ms
+            return ms / 1e3
+
+        win = autotune.tune(kind, cands, measure, n_chunks=chunks, bucket_size=BUCKET, bits=BITS,
+                            ws=1 if kind == autotune.KIND_EPILOGUE else 0, input_bytes=4 * n)
+        del os.environ["CGX_PALLAS_TILE_CHUNKS"]
+        assert len(measured) == len(cands), (kind, chunks, cands, measured)
+        winners[(kind, chunks)] = win
+        log(f"  {kind}/c{chunks}: {len(cands)} candidates ("
+            + ", ".join(f"tc={c.tc}{' db' if c.db else ''} {v:.4f} ms" for c, v in measured.items())
+            + f"); winner tc={win.tc} db={win.db}")
+    log(f"  cache file {autotune.cache_path()}: {len(winners)} entries")
+    return winners
+
+
+DB_KEYS = ("codec_quantize_db", "codec_dequantize_db", "codec_sra_epilogue_db")
+
+
+def db_phase(dev, cfg, sl: dict, steps: int) -> dict:
+    """Phase 4's pipelined path, after :func:`gpt2_slice`'s steps under
+    ``CGX_PALLAS_DB=off``: (b) the same steps from the seed under ``on``,
+    launches held against the layout and parameters bit-identical to
+    ``off``; (a) the autotune sweep over the step's shapes into a fresh
+    cache directory; (c) one step under ``auto`` over that cache, which must
+    hit it and launch the pipelined kernels exactly where the winners say.
+    The cache directory is removed at the end."""
+    from torch_cgx_tpu_torch.ops import autotune, codec_cuda
+
+    tokens = sl["tokens"]
+    log("  (b) forced: CGX_PALLAS_DB=on, the same steps from the seed")
+    os.environ["CGX_PALLAS_DB"] = "on"
+    model, step = new_run(dev, cfg)
+    params = dict(model.named_parameters())
+    expected = expected_launches(params)
+    log(f"  launches per step derived from the layout: {expected}")
+    assert all(expected[k] > 0 for k in DB_KEYS), expected
+    codec_cuda.reset_launch_counts()
+    losses = [float(step(tokens)) for _ in range(steps)]
+    sync(dev)
+    launches = dict(codec_cuda.LAUNCHES)
+    log(f"  losses: {losses}; launches over {steps} steps: {launches}")
+    assert launches == {k: v * steps for k, v in expected.items()}, (launches, expected)
+    assert not any(codec_cuda.DB_GATED.values()), codec_cuda.DB_GATED
+    assert losses == sl["losses"], (losses, sl["losses"])
+    diff = [n for n, p in params.items() if not _same_bits(p.detach(), sl["params"][n])]
+    log(f"  parameters after {steps} steps: {len(params) - len(diff)}/{len(params)} "
+        f"bit-identical to the same steps under CGX_PALLAS_DB=off")
+    assert not diff, diff[:5]
+
+    home = os.environ["CGX_AUTOTUNE_DIR"]
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"  (a) sweep into a fresh cache directory {tmp}")
+        os.environ["CGX_AUTOTUNE_DIR"] = tmp
+        autotune.invalidate("sweep")
+        winners = sweep(dev, step_shapes(params))
+
+        log("  (c) tuned: CGX_PALLAS_DB=auto over the swept cache, one step")
+        os.environ["CGX_PALLAS_DB"] = "auto"
+        autotune.invalidate("reload the swept cache from disk")
+        tuned_expected = expected_launches(params)
+        before = autotune.stats()
+        codec_cuda.reset_launch_counts()
+        loss = float(step(tokens))
+        sync(dev)
+        tuned = dict(codec_cuda.LAUNCHES)
+        hits = autotune.stats()["hits"] - before["hits"]
+        on = sorted(f"{k}/c{c}" for (k, c), w in winners.items() if w.db)
+        log(f"  winners with db=True: {on or 'none'}; loss {loss}; cache hits in the step {hits}")
+        log(f"  launches derived from the layout and the cache: {tuned_expected}; counted: {tuned}")
+        assert np.isfinite(loss) and hits > 0, (loss, hits)
+        assert tuned == tuned_expected, (tuned, tuned_expected)
+        assert any(tuned[k] for k in DB_KEYS) == bool(on), (tuned, on)
+    os.environ["CGX_AUTOTUNE_DIR"] = home
+    os.environ["CGX_PALLAS_DB"] = "off"
+    autotune.invalidate("sweep done")
+    return {"launches": launches, "winners": winners}
 
 
 # ---------------------------------------------------------------------------
@@ -568,8 +797,11 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def time_kernels(dev, n: int, name: str) -> list:
-    """Each kernel and its plain version at the main path's flat slice; the
-    multi-row reduce at phase 6's two shapes, the two-level one first."""
+    """Each kernel and its plain version at the main path's flat slice, each
+    pipelined kernel right after its single-stage sibling at the tile the
+    forced run gives it (and the epilogues again at phase 6's flat-SRA
+    shape); the multi-row reduce at phase 6's two shapes, the two-level one
+    first."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec_cuda
@@ -578,6 +810,9 @@ def time_kernels(dev, n: int, name: str) -> list:
     rng = np.random.default_rng(SEED + 1)
     x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
     words, meta = codec_cuda.quantize_chunks(x, BITS, BUCKET)
+    chunks = n // (32 * BUCKET)
+    tq, td, te = (codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap(k, BITS, BUCKET))
+                  for k in ("quantize", "dequantize", "epilogue"))
 
     def wire(m: int) -> int:
         return m * BITS // 8 + 8 * m // BUCKET
@@ -589,14 +824,44 @@ def time_kernels(dev, n: int, name: str) -> list:
          lambda: codec_cuda.quantize_chunks(x, BITS, BUCKET),
          lambda: codec_cuda.quantize_chunks_plain(x, BITS, BUCKET),
          4 * n + wire(n), 8 * n, None),
+        ("codec_quantize_db", f"n={n} tc={tq}",
+         lambda: codec_cuda.quantize_chunks_db(x, BITS, BUCKET, tq),
+         lambda: codec_cuda.quantize_chunks_db_plain(x, BITS, BUCKET),
+         4 * n + wire(n), 8 * n, None),
         ("codec_dequantize", f"n={n}",
          lambda: codec_cuda.dequantize_chunks(words, meta, BITS, BUCKET),
          lambda: codec_cuda.dequantize_chunks_plain(words, meta, BITS, BUCKET),
+         wire(n) + 4 * n, 4 * n, None),
+        ("codec_dequantize_db", f"n={n} tc={td}",
+         lambda: codec_cuda.dequantize_chunks_db(words, meta, BITS, BUCKET, td),
+         lambda: codec_cuda.dequantize_chunks_db_plain(words, meta, BITS, BUCKET),
          wire(n) + 4 * n, 4 * n, None),
         ("codec_sra_epilogue", f"n={n}",
          lambda: codec_cuda.sra_epilogue_chunks(words[None], meta[None], None, -1, BITS, BUCKET),
          lambda: codec_cuda.sra_epilogue_chunks_plain(words[None], meta[None], None, -1, BITS, BUCKET),
          2 * wire(n), 12 * n, None),
+        ("codec_sra_epilogue_db", f"n={n} tc={te}",
+         lambda: codec_cuda.sra_epilogue_chunks_db(words[None], meta[None], None, -1, BITS, BUCKET, te),
+         lambda: codec_cuda.sra_epilogue_chunks_db_plain(words[None], meta[None], None, -1, BITS, BUCKET),
+         2 * wire(n), 12 * n, None),
+    ]
+    # Phase 6's flat-SRA epilogue: ws rows of a rank's chunk, the raw own
+    # row in place of row 1; the own row's words are not read.
+    c = n // SRA_WS
+    rows = torch.from_numpy(np.stack([fuzz_operand(rng, c, 0) for _ in range(SRA_WS)])).to(dev)
+    q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+    w4, m4, raw4 = q.packed.contiguous(), q.meta.contiguous(), rows[1].contiguous()
+    te4 = codec_cuda._pipe_tc(c // (32 * BUCKET), codec_cuda.db_tc_cap("epilogue", BITS, BUCKET))
+    ep_bytes = (SRA_WS - 1) * wire(c) + 4 * c + wire(c)
+    runs += [
+        ("codec_sra_epilogue", f"ws={SRA_WS} own=1 n={c}",
+         lambda: codec_cuda.sra_epilogue_chunks(w4, m4, raw4, 1, BITS, BUCKET),
+         lambda: codec_cuda.sra_epilogue_chunks_plain(w4, m4, raw4, 1, BITS, BUCKET),
+         ep_bytes, (3 * SRA_WS + 8) * c, None),
+        ("codec_sra_epilogue_db", f"ws={SRA_WS} own=1 n={c} tc={te4}",
+         lambda: codec_cuda.sra_epilogue_chunks_db(w4, m4, raw4, 1, BITS, BUCKET, te4),
+         lambda: codec_cuda.sra_epilogue_chunks_db_plain(w4, m4, raw4, 1, BITS, BUCKET),
+         ep_bytes, (3 * SRA_WS + 8) * c, None),
     ]
     # The multi-row reduce: decode (a multiply and an add) and fold (an add)
     # per value and row. Two-level: 2 rows of half a slice with the raw own
@@ -661,9 +926,11 @@ def time_kernels(dev, n: int, name: str) -> list:
 
 
 def time_steps(sl: dict, iters: int = 5) -> tuple:
-    """Train-step milliseconds with the codec (``make_train_step`` under
-    ``CGX_DEBUG_FORCE_CODEC``) and without it (forward, backward, Adam; no
-    sync), host clock around synchronised steps, alternating."""
+    """Train-step milliseconds without the codec (forward, backward, Adam;
+    no sync), with it (``make_train_step`` under ``CGX_DEBUG_FORCE_CODEC``)
+    on the single-stage kernels (``CGX_PALLAS_DB=off``) and on the pipelined
+    ones (``on``), host clock around synchronised steps, in turns: plain,
+    off, on, on, off, plain."""
     import torch
 
     from torch_cgx_tpu_torch.models import lm_loss
@@ -686,8 +953,16 @@ def time_steps(sl: dict, iters: int = 5) -> tuple:
             ts.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(ts)
 
-    p1, c1, c2, p2 = timed(plain_step), timed(lambda: step(tokens)), timed(lambda: step(tokens)), timed(plain_step)
-    return min(p1, p2), min(c1, c2), plain_step
+    def codec_step(db: str):
+        def run():
+            os.environ["CGX_PALLAS_DB"] = db
+            step(tokens)
+        return run
+
+    off, on = codec_step("off"), codec_step("on")
+    p1, c1, d1, d2, c2, p2 = (timed(f) for f in (plain_step, off, on, on, off, plain_step))
+    os.environ["CGX_PALLAS_DB"] = "off"
+    return min(p1, p2), min(c1, c2), min(d1, d2), plain_step
 
 
 def profile_step(name: str, fn) -> None:
@@ -722,6 +997,12 @@ def profile_step(name: str, fn) -> None:
         f"{100 * (1 - busy / wall_ms):.1f}%; codec kernels {codec_ms:.3f} ms")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {v:8.3f} ms  {k[:110]}")
+    codec = {}  # the codec kernels by kernel, over their bit-width instances
+    for k, v in by_name.items():
+        found = re.search(r"cgx_\w+_kernel", k)
+        if found:
+            codec[found.group(0)] = codec.get(found.group(0), 0.0) + v
+    log("    codec: " + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(codec.items())))
 
 
 # ---------------------------------------------------------------------------
@@ -740,6 +1021,7 @@ MR_CONFIGS = {
     "uncompressed_intra": ({"CGX_INTRA_COMPRESS": "0"}, "two_level", "bf16"),
     "sra": ({}, "world", "f32"),
     "sra_producer": ({"CGX_PRODUCER_FUSE": "on"}, "world", "f32"),
+    "sra_db": ({"CGX_PALLAS_DB": "on"}, "world", "f32"),
 }
 PRODUCED_LAYERS = 12 * len(MM_SHAPES)  # 36 payloads a rank and step
 PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused group
@@ -782,7 +1064,8 @@ def producer_check(model, loss_fn, tokens) -> dict:
 
 
 def _configure(knobs: dict) -> None:
-    for k in [k for k in os.environ if k.startswith("CGX_")]:
+    """Every CGX_* knob unset but the cache directory, then ``knobs``."""
+    for k in [k for k in os.environ if k.startswith("CGX_") and k != "CGX_AUTOTUNE_DIR"]:
         del os.environ[k]
     os.environ.update({
         "CGX_COMPRESSION_QUANTIZATION_BITS": str(BITS),
@@ -965,6 +1248,13 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         log(f"    replicas: all {len(c0['digests'])} parameters bit-identical on the {MR_WS} ranks")
     assert res[0]["two_level"]["launches"]["codec_reduce_rows"] > 0
     assert res[0]["alltoall"]["launches"]["codec_reduce_rows"] > 0
+    # The pipelined flat SRA: B7c folds the four ranks' rows with the raw own
+    # row, and only there do pipelined kernels run.
+    for name in MR_CONFIGS:
+        db = {k: v for k, v in res[0][name]["launches"].items() if k.endswith("_db") and v}
+        assert bool(db) == (name == "sra_db"), (name, db)
+    for k in ("codec_quantize_db", "codec_dequantize_db", "codec_sra_epilogue_db"):
+        assert res[0]["sra_db"]["launches"][k] > 0, res[0]["sra_db"]["launches"]
 
     # Producer fusion: the layout-derived counts trade 36 stage-1 quantizes
     # for 36 matmul-quantizes, every rank consumed the 36 payloads, and the
@@ -996,6 +1286,34 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
 # ---------------------------------------------------------------------------
 
 
+def ptxas_report(ptxas: str) -> None:
+    """Registers, spills and shared memory of the build, the pipelined
+    kernels' each (the dynamic shared memory at the slice's shapes)."""
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+    spills = [ln.strip() for ln in ptxas.splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    log(f"  ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers a thread; "
+        f"{len(spills)} with spills")
+    for ln in spills:
+        log("  " + ln)
+    chunks = FLAT_N // (32 * BUCKET)
+    blocks = ptxas.split("Compiling entry function")[1:]
+    for kernel, short in (("cgx_quantize_db_kernel", "quantize"),
+                          ("cgx_dequantize_db_kernel", "dequantize"),
+                          ("cgx_sra_epilogue_db_kernel", "epilogue")):
+        mine = [b for b in blocks if kernel in b.split("'")[1]]
+        r = [int(x) for b in mine for x in re.findall(r"Used (\d+) registers", b)]
+        static = max([int(x) for b in mine for x in re.findall(r"(\d+) bytes smem", b)] or [0])
+        tc = codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap(short, BITS, BUCKET))
+        dyn = codec_cuda.db_smem_bytes(short, tc, BITS, BUCKET)
+        log(f"  {kernel}: {len(mine)} instances, {min(r)}-{max(r)} registers a thread, "
+            f"{static} bytes static shared memory, {dyn} bytes dynamic at {BITS} bits, "
+            f"bucket {BUCKET}, tc {tc}; 512 threads a block")
+        assert len(mine) >= 8, kernel
+
+
 def main() -> int:
     import torch
 
@@ -1006,12 +1324,19 @@ def main() -> int:
     from torch_cgx_tpu_torch.ops import codec_cuda
 
     t_start = time.perf_counter()
+    # An empty autotune cache of the run's own: nothing is read or written
+    # under the home directory, and CGX_PALLAS_DB is "off" but where a phase
+    # sets it.
+    cache = tempfile.TemporaryDirectory()
     os.environ.update({
         "CGX_COMPRESSION_QUANTIZATION_BITS": str(BITS),
         "CGX_COMPRESSION_BUCKET_SIZE": str(BUCKET),
         "CGX_DEBUG_FORCE_CODEC": "1",
+        "CGX_PALLAS_DB": "off",
+        "CGX_AUTOTUNE_DIR": cache.name,
     })
-    for k in ("CGX_SRA_EPILOGUE", "CGX_FUSION_BUFFER_SIZE_MB", "CGX_STANDALONE_LAYER_ELEMS"):
+    for k in ("CGX_SRA_EPILOGUE", "CGX_FUSION_BUFFER_SIZE_MB", "CGX_STANDALONE_LAYER_ELEMS",
+              "CGX_AUTOTUNE", "CGX_PALLAS_TILE_CHUNKS", "CGX_PALLAS_PACK"):
         os.environ.pop(k, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1030,31 +1355,33 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = codec_cuda.build(force=True)
     log(f"  nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    ptxas = str(codec_cuda.BUILD_LOG.get("ptxas", ""))
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [ln.strip() for ln in ptxas.splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    log(f"  ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers a thread; "
-        f"{len(spills)} with spills")
-    for ln in spills:
-        log("  " + ln)
+    ptxas_report(str(codec_cuda.BUILD_LOG.get("ptxas", "")))
 
-    log("== 3. kernels against their plain versions")
+    log("== 3. kernels against their plain versions (pipelined ones also against the single-stage)")
     max_err = check_kernels(dev, FLAT_N, TAIL_N, SRA_WS)
     torch.cuda.synchronize()
 
-    log("== 4. GPT-2 124M slice")
-    sl = gpt2_slice(dev, GPT2Config.small(), BATCH, SEQ, STEPS)
+    log("== 4. GPT-2 124M slice (CGX_PALLAS_DB=off, then the pipelined path)")
+    cfg = GPT2Config.small()
+    sl = gpt2_slice(dev, cfg, BATCH, SEQ, STEPS)
+    db = db_phase(dev, cfg, sl, STEPS)
+    torch.cuda.empty_cache()
 
     log("== 5. times")
     kern = time_kernels(dev, FLAT_N, name)
-    plain_ms, codec_ms, plain_step = time_steps(sl)
+    plain_ms, codec_ms, db_ms, plain_step = time_steps(sl)
     log(f"  train step, GPT-2 124M {BATCH}x{SEQ}: {plain_ms:.2f} ms without the codec, "
-        f"{codec_ms:.2f} ms with it (+{100 * (codec_ms - plain_ms) / plain_ms:.1f}%); "
+        f"{codec_ms:.2f} ms with it (+{100 * (codec_ms - plain_ms) / plain_ms:.1f}%), "
+        f"{db_ms:.2f} ms with it under CGX_PALLAS_DB=on (+{100 * (db_ms - plain_ms) / plain_ms:.1f}%); "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_step("step without the codec", plain_step)
     profile_step("step with the codec", lambda: sl["step"](sl["tokens"]))
+    os.environ["CGX_PALLAS_DB"] = "on"
+    profile_step("step with the codec, CGX_PALLAS_DB=on", lambda: sl["step"](sl["tokens"]))
+    os.environ["CGX_PALLAS_DB"] = "off"
     launches = dict(sl["launches"])
+    for k in DB_KEYS:
+        launches[k] = db["launches"][k]
     del sl, plain_step
     torch.cuda.empty_cache()
 
@@ -1063,12 +1390,14 @@ def main() -> int:
     mr = multirank_phase()
     launches["codec_reduce_rows"] = mr["launches"]["codec_reduce_rows"]
     launches["codec_matmul_quantize"] = mr["launches"]["codec_matmul_quantize"]
+    cache.cleanup()
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     # One record a kernel: its launches on the path that runs it (phase 4
-    # for the three of the world-size-1 slice, phase 6's two-level steps for
-    # the reduce, its producer-fused flat SRA step for the matmul-quantize)
-    # and its time at that path's (first) shape.
+    # for the three of the world-size-1 slice and, from its forced run, the
+    # three pipelined ones; phase 6's two-level steps for the reduce, its
+    # producer-fused flat SRA step for the matmul-quantize) and its time at
+    # that path's (first) shape.
     records = []
     for r in kern:
         if any(x["name"] == r["name"] for x in records):
@@ -1079,6 +1408,7 @@ def main() -> int:
             "max_abs_err": max_err[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    assert len(records) == len(TPU_KERNELS), records
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,16 +17,20 @@ import torch
 
 from torch_cgx_tpu_torch.config import CompressionConfig
 from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
-from torch_cgx_tpu_torch.ops import codec, codec_cuda, dispatch
+from torch_cgx_tpu_torch.ops import autotune, codec, codec_cuda, dispatch
 from torch_cgx_tpu_torch.parallel import gradient_sync, make_train_step
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def dev():
+def dev(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
+    # An empty autotune cache: CGX_PALLAS_DB=auto runs the single-stage kernels.
+    monkeypatch.setenv("CGX_AUTOTUNE_DIR", str(tmp_path))
+    monkeypatch.delenv("CGX_PALLAS_DB", raising=False)
+    autotune.invalidate("card test")
     return torch.device("cuda", 0)
 
 
@@ -90,7 +94,8 @@ def test_launch_counter_counts_only_kernel_launches(dev):
     torch.cuda.synchronize()
     assert codec_cuda.LAUNCHES == {
         "codec_quantize": 1, "codec_dequantize": 1, "codec_sra_epilogue": 0,
-        "codec_reduce_rows": 0, "codec_matmul_quantize": 1,
+        "codec_reduce_rows": 0, "codec_matmul_quantize": 1, "codec_quantize_db": 0,
+        "codec_dequantize_db": 0, "codec_sra_epilogue_db": 0,
     }
 
 
@@ -135,6 +140,7 @@ def test_tiny_train_step_runs_the_kernels(dev, monkeypatch):
     assert launched == {
         "codec_quantize": True, "codec_dequantize": True, "codec_sra_epilogue": True,
         "codec_reduce_rows": False, "codec_matmul_quantize": False,
+        "codec_quantize_db": False, "codec_dequantize_db": False, "codec_sra_epilogue_db": False,
     }, codec_cuda.LAUNCHES
 
 
@@ -233,3 +239,135 @@ def test_produce_q_on_cuda_launches_the_kernel(dev, monkeypatch):
     assert bool(((got_v - want_v).abs() <= 1.001 * unit + 1e-6).all())
     assert _bits_equal(ent.raw_row, (layer.kernel.grad.reshape(2, -1)[1] / 2))
     fp.deconfigure()
+
+
+# ---------------------------------------------------------------------------
+# The pipelined kernels (B7a-c) against the single-stage kernels and the
+# plain versions.
+# ---------------------------------------------------------------------------
+
+# Chunk counts around the persistent grid (132 SMs, one or a few blocks
+# each) and far above it.
+DB_CHUNKS = (1, 131, 133, 1061)
+PLAIN_UP_TO = 133  # chunk counts also held against the plain version on the CPU
+
+
+def _db_tcs(kernel, chunks, bits, bucket, add=False):
+    """Tiles to try: one chunk a slot, and the most that fit and divide."""
+    cap = codec_cuda.db_tc_cap(kernel, bits, bucket, with_add=add)
+    return [] if cap < 1 else sorted({1, autotune.snap_to_divisor(cap, chunks, cap)})
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 896])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_db_quantize_dequantize_match(dev, bits, bucket):
+    rng = np.random.default_rng(bits * bucket)
+    for chunks in DB_CHUNKS:
+        n = chunks * 32 * bucket
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * (bits + 1)).to(dev)
+        w1, m1 = codec_cuda.quantize_chunks(x, bits, bucket)
+        for tc in _db_tcs("quantize", chunks, bits, bucket):
+            w, m = codec_cuda.quantize_chunks_db(x, bits, bucket, tc)
+            assert _bits_equal(w, w1) and _bits_equal(m, m1), (chunks, tc)
+        acc = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        for add in (None, acc):
+            y1 = codec_cuda.dequantize_chunks(w1, m1, bits, bucket, add_to=add)
+            tcs = _db_tcs("dequantize", chunks, bits, bucket, add is not None)
+            if not tcs:
+                with pytest.raises(ValueError, match="shared memory"):
+                    codec_cuda.dequantize_chunks_db(w1, m1, bits, bucket, 1, add_to=add)
+            for tc in tcs:
+                y = codec_cuda.dequantize_chunks_db(w1, m1, bits, bucket, tc, add_to=add)
+                assert _bits_equal(y, y1), (chunks, tc, add is None)
+            if chunks <= PLAIN_UP_TO:
+                want = codec_cuda.dequantize_chunks_db_plain(
+                    w1.cpu(), m1.cpu(), bits, bucket, None if add is None else add.cpu()
+                )
+                assert _bits_equal(y1, want)
+        if chunks <= PLAIN_UP_TO:
+            pw, pm = codec_cuda.quantize_chunks_db_plain(x.cpu(), bits, bucket)
+            assert _bits_equal(w1, pw) and _bits_equal(m1, pm)
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 896])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_db_epilogue_matches(dev, bits, bucket):
+    rng = np.random.default_rng(bits + bucket)
+    for ws, chunks in ((1, 133), (2, 131), (4, 67), (8, 17)):
+        n = chunks * 32 * bucket
+        rows = torch.from_numpy(
+            rng.standard_normal((ws, n)).astype(np.float32) * np.arange(1, ws + 1, dtype=np.float32)[:, None]
+        ).to(dev)
+        q = codec_cuda.quantize_batch(rows, bits, bucket)
+        for own in sorted({-1, 0, ws - 1}):
+            raw = None if own < 0 else rows[own]
+            w1, m1 = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, own, bits, bucket)
+            tcs = _db_tcs("epilogue", chunks, bits, bucket)
+            assert tcs, (bits, bucket)
+            for tc in tcs:
+                w, m = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, raw, own, bits, bucket, tc)
+                assert _bits_equal(w, w1) and _bits_equal(m, m1), (ws, own, tc)
+            if own == ws - 1 and ws <= 4:
+                pw, pm = codec_cuda.sra_epilogue_chunks_db_plain(
+                    q.packed.cpu(), q.meta.cpu(), None if raw is None else raw.cpu(), own,
+                    bits, bucket,
+                )
+                assert _bits_equal(w1, pw) and _bits_equal(m1, pm), (ws, own)
+
+
+def test_db_wrappers_refuse_misaligned_strided_and_oversized(dev, monkeypatch):
+    n = 2 * 32 * 128
+    buf = torch.randn(n + 4, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        codec_cuda.quantize_chunks_db(buf[1 : n + 1], 4, 128, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        codec_cuda.quantize_chunks_db(torch.randn(2 * n, device=dev)[::2], 4, 128, 1)
+    with pytest.raises(ValueError, match="divide"):
+        codec_cuda.quantize_chunks_db(buf[:n], 4, 128, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        codec_cuda.quantize_chunks_db(torch.randn(2 * 32 * 512, device=dev), 4, 512, 2)
+    w, m = codec_cuda.quantize_chunks(buf[:n], 4, 128)
+    wbuf = torch.empty(w.numel() + 1, dtype=torch.int32, device=dev)
+    wbuf[1:] = w
+    with pytest.raises(ValueError, match="aligned"):
+        codec_cuda.dequantize_chunks_db(wbuf[1:], m, 4, 128, 1)
+    with pytest.raises(ValueError, match="aligned"):
+        codec_cuda.sra_epilogue_chunks_db(w[None], m[None], buf[1 : n + 1], 0, 4, 128, 1)
+    # The batch functions copy a misaligned row before a pipelined launch.
+    monkeypatch.setenv("CGX_PALLAS_DB", "on")
+    codec_cuda.reset_launch_counts()
+    q = codec_cuda.quantize_batch(buf[1 : n + 1][None], 4, 128)
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_quantize_db"] == 1
+    want = codec.quantize(buf[1 : n + 1].cpu(), 4, 128)
+    assert _bits_equal(q.packed[0], want.packed) and _bits_equal(q.meta[0], want.meta)
+
+
+def test_tiny_train_step_db_on_matches_off(dev, monkeypatch):
+    """GPT-2 tiny on the card: CGX_PALLAS_DB=on launches the three pipelined
+    kernels and leaves the parameters bit-identical to off."""
+    for k, v in {
+        "CGX_DEBUG_FORCE_CODEC": "1", "CGX_COMPRESSION_QUANTIZATION_BITS": "4",
+        "CGX_COMPRESSION_BUCKET_SIZE": "128", "CGX_STANDALONE_LAYER_ELEMS": "16384",
+        "CGX_SRA_EPILOGUE_MIN_ELEMS": "0",
+    }.items():
+        monkeypatch.setenv(k, v)
+    cfg = GPT2Config.tiny()
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1)).to(dev)
+    params, launches = {}, {}
+    for db in ("on", "off"):
+        monkeypatch.setenv("CGX_PALLAS_DB", db)
+        model = GPT2(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+        step = make_train_step(model, lambda m, t: lm_loss(m(t), t), opt, device=dev)
+        codec_cuda.reset_launch_counts()
+        for _ in range(3):
+            step(tokens)
+        torch.cuda.synchronize()
+        launches[db] = dict(codec_cuda.LAUNCHES)
+        params[db] = {n: p.detach().clone() for n, p in model.named_parameters()}
+    db_keys = ("codec_quantize_db", "codec_dequantize_db", "codec_sra_epilogue_db")
+    assert all(launches["on"][k] > 0 for k in db_keys), launches["on"]
+    assert all(launches["off"][k] == 0 for k in db_keys), launches["off"]
+    for n in params["on"]:
+        assert _bits_equal(params["on"][n], params["off"][n]), n

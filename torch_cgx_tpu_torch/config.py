@@ -35,6 +35,11 @@ PRODUCER_FUSE = "CGX_PRODUCER_FUSE"
 # ``div`` encode and the exact f32 fold (ROADMAP Queue B).
 CODEC_ENCODE = "CGX_CODEC_ENCODE"
 SRA_ACCUM = "CGX_SRA_ACCUM"
+PALLAS_DB = "CGX_PALLAS_DB"  # auto | on | off: the pipelined (DB) codec kernels
+PALLAS_PACK = "CGX_PALLAS_PACK"  # sum | butterfly: the bit-plane pack lowering
+PALLAS_TILE_CHUNKS = "CGX_PALLAS_TILE_CHUNKS"  # explicit tile override
+AUTOTUNE = "CGX_AUTOTUNE"  # auto | on | off: the per-chip codec autotuner
+AUTOTUNE_DIR = "CGX_AUTOTUNE_DIR"  # where the autotune cache lives
 
 DEFAULT_BITS = 32  # 32 == compression off
 DEFAULT_BUCKET_SIZE = 512
@@ -239,6 +244,73 @@ def sra_accum() -> str:
     if raw not in ("exact", "int8"):
         raise ValueError(f"{SRA_ACCUM}={raw!r}: expected 'exact' or 'int8'")
     return raw
+
+
+def pallas_db() -> str:
+    """CGX_PALLAS_DB: the pipelined lowering of the flat codec kernels
+    (quantize, dequantize, the fused SRA epilogue): one persistent block
+    per SM streams its chunks through a ring of shared-memory slots filled
+    by bulk asynchronous copies (``csrc/codec.cu``, the ``*_db`` kernels).
+
+    * "auto" (default): pipelined only where a persisted autotune entry for
+      this card says it measured faster (``ops/autotune.py``); with no
+      entry the single-stage kernels run unchanged.
+    * "on": the pipelined kernels wherever their geometry applies (on the
+      CPU their plain versions, which are the single-stage ones).
+    * "off": never.
+
+    Both lowerings give the same wire bytes."""
+    mode = _env.get_str_env_or_default(PALLAS_DB, "auto").lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"{PALLAS_DB} must be auto|on|off, got {mode!r}")
+    return mode
+
+
+def pallas_pack() -> Optional[str]:
+    """CGX_PALLAS_PACK: the bit-plane pack lowering, "sum" or "butterfly"
+    (unset: the autotuned or default one). The kernels have one pack
+    lowering, "sum"; the wrappers refuse "butterfly"."""
+    raw = (_env.get_optional_str_env(PALLAS_PACK) or "").lower()
+    if raw and raw not in ("sum", "butterfly"):
+        raise ValueError(f"{PALLAS_PACK}={raw!r}: expected 'sum' or 'butterfly'")
+    return raw or None
+
+
+def pallas_tile_chunks() -> Optional[int]:
+    """CGX_PALLAS_TILE_CHUNKS: chunks a pipelined block stages per ring
+    slot, beating the autotuned entry and the heuristic (unset: None)."""
+    forced = _env.get_optional_str_env(PALLAS_TILE_CHUNKS)
+    if not forced:
+        return None
+    try:
+        tc = int(forced)
+    except ValueError:
+        tc = 0
+    if tc < 1:
+        raise ValueError(f"{PALLAS_TILE_CHUNKS} must be a positive integer, got {forced!r}")
+    return tc
+
+
+def autotune_mode() -> str:
+    """CGX_AUTOTUNE: the per-card codec autotuner (``ops/autotune.py``).
+
+    * "auto" (default): consult the persisted cache where it has an entry
+      for the (kernel, shape, bits, bucket, card); never measures.
+    * "on": the same. Only :func:`ops.autotune.tune` measures, and no
+      dispatch path calls it (the JAX package's docstring promises a
+      measurement at first dispatch that its code never makes; the port
+      follows the code).
+    * "off": never consult; the heuristics only."""
+    mode = _env.get_str_env_or_default(AUTOTUNE, "auto").lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"{AUTOTUNE} must be auto|on|off, got {mode!r}")
+    return mode
+
+
+def autotune_dir() -> Optional[str]:
+    """CGX_AUTOTUNE_DIR: directory of the persisted autotune cache
+    (``autotune-<card-slug>.json``). Unset: ``~/.cache/torch_cgx_tpu_torch``."""
+    return _env.get_optional_str_env(AUTOTUNE_DIR)
 
 
 # ---------------------------------------------------------------------------

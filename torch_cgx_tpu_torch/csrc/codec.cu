@@ -1,6 +1,7 @@
 // Max-min codec kernels for Hopper (sm_90a): quantize, dequantize (with an
-// optional fused add), the fused SRA epilogue, the multi-row reduce and the
-// producer's matmul with a quantize epilogue.
+// optional fused add), the fused SRA epilogue, the multi-row reduce, the
+// producer's matmul with a quantize epilogue, and pipelined versions of the
+// first three.
 //
 // They replace the Pallas TPU kernels of torch_cgx_tpu/ops/codec_pallas.py
 // and torch_cgx_tpu/ops/fused_producer.py:
@@ -9,6 +10,9 @@
 //   cgx_sra_epilogue     <- _sra_epilogue_impl (B3)
 //   cgx_reduce_rows      <- _reduce_rows_impl (B4)
 //   cgx_matmul_quantize  <- fused_producer.py _matmul_quantize_impl (B8)
+//   cgx_quantize_db      <- _quantize_flat_db_impl (B7a)
+//   cgx_dequantize_db    <- _dequantize_flat_db_impl (B7b)
+//   cgx_sra_epilogue_db  <- _sra_epilogue_db_impl (B7c)
 // CUDA has no 128-lane tiling constraint, so one kernel serves both the flat
 // and the bucket-row geometry of each TPU pair: every kernel walks whole
 // chunks of 32 buckets, one thread block per chunk.
@@ -29,10 +33,12 @@
 // The operations per value (a divide, a handful of adds, shifts and ors)
 // stay far below the card's rate for that traffic. The matmul-quantize is
 // operation-bound: 2*K*din*o f32 operations for n = din*o values against
-// 4*K*(din + o) bytes read and n*bits/8 + 8n/B written. These first
-// versions are simple: coalesced global loads, neighbouring threads on
-// neighbouring positions l of one bucket; no TMA, no pipelining, no tensor
-// cores.
+// 4*K*(din + o) bytes read and n*bits/8 + 8n/B written. The single-stage
+// kernels are simple: coalesced global loads, neighbouring threads on
+// neighbouring positions l of one bucket, one block per chunk. The
+// pipelined (*_db) kernels keep one persistent block per SM slot and
+// stream their inputs through a ring of shared-memory slots filled by bulk
+// asynchronous copies (see their section below). No tensor cores.
 //
 // Arithmetic is fixed to the plain PyTorch version in
 // torch_cgx_tpu_torch/ops/codec.py, bit for bit: the meta multiplies by
@@ -47,7 +53,6 @@ namespace {
 
 constexpr int kChunkBuckets = 32;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 // Per-bucket max/min of one chunk. src: 32 buckets of B floats (global or
 // shared memory). Writes (unit, min) to shared memory and to meta_out.
@@ -55,7 +60,7 @@ __device__ void chunk_meta(const float* src, int B, float inv, float* s_unit,
                            float* s_min, float* meta_out) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int s = warp; s < kChunkBuckets; s += kWarps) {
+  for (int s = warp; s < kChunkBuckets; s += (int)(blockDim.x >> 5)) {
     const float* row = src + (size_t)s * B;
     float mx = row[lane];
     float mn = mx;
@@ -428,6 +433,295 @@ __global__ void __launch_bounds__(kThreads)
   chunk_encode<BITS>(tile, B, s_unit, s_min, words + c * BITS * B);
 }
 
+// ---------------------------------------------------------------------------
+// Pipelined (DB) kernels. They replace the double-buffered manual-DMA
+// lowerings of codec_pallas.py, which walk the blocks in one kernel
+// invocation with a 2-slot VMEM scratch per stream:
+//   cgx_quantize_db         <- _quantize_flat_db_impl (B7a)
+//   cgx_dequantize_db       <- _dequantize_flat_db_impl (B7b)
+//   cgx_sra_epilogue_db     <- _sra_epilogue_db_impl (B7c)
+// Each computes what its single-stage sibling computes, with the same
+// chunk_meta / chunk_encode / decode_one, so the bytes are identical.
+//
+// The shape all three share: a persistent grid of (blocks an SM holds at
+// the kernel's shared memory) x (SMs) blocks; block b walks tiles b,
+// b + gridDim.x, ... A tile is `tc` consecutive chunks. The inputs stream
+// through a ring of slots in dynamic shared memory, each with one
+// mbarrier: thread 0 issues 1-D bulk asynchronous copies
+// (cp.async.bulk ... mbarrier::complete_tx::bytes) into a slot after
+// announcing the bytes (mbarrier.arrive.expect_tx), every thread waits on
+// the slot's phase, and the slot is refilled only after a __syncthreads()
+// says every thread is done with it. So the copy of the next tiles runs
+// while the block computes this one; outputs go from registers straight
+// to device memory (coalesced: neighbouring threads own neighbouring
+// positions l). Bulk copies need 16-byte aligned addresses and sizes in
+// multiples of 16: every per-chunk stride (32*B*4, bits*B*4, 256 bytes of
+// meta) is one for B % 32 == 0, and the wrapper checks the base pointers.
+// All three stay memory-bound, with the bounds of their siblings.
+// ---------------------------------------------------------------------------
+
+constexpr int kDbThreads = 512;
+constexpr int kRing = 2;      // slots of the quantize and dequantize rings
+constexpr int kEpiRing = 4;   // slots of the epilogue ring (one peer row's tile each)
+constexpr int kBarBytes = 128;  // the ring's mbarriers, padded so the slots stay aligned
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Announce `bytes` of bulk copies on the barrier and arrive (the phase
+// completes when they have landed).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Arrive with no copy: completes the phase of a slot that holds nothing.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Thread 0 initialises the ring's barriers; every thread sees them after.
+__device__ __forceinline__ void ring_init(uint64_t* bars, int n) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n; ++s) mbar_init(&bars[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Tiles of a block: blockIdx.x, blockIdx.x + gridDim.x, ... below `tiles`.
+__device__ __forceinline__ long long block_tiles(long long tiles) {
+  return (tiles - 1 - (long long)blockIdx.x) / gridDim.x + 1;
+}
+
+__device__ __forceinline__ long long tile_of(long long j) {
+  return (long long)blockIdx.x + j * gridDim.x;
+}
+
+// codec_quantize_db. Replaces codec_pallas.py _quantize_flat_db_impl (B7a).
+// A slot holds one tile: tc whole chunks of f32 (tc*32*B*4 bytes), since
+// the meta needs each bucket whole and the encode all 32 buckets at each
+// position. From the slot, chunk_meta then chunk_encode run, so the input
+// is read from device memory once (the single-stage kernel reads it
+// twice). Memory-bound: reads 4n bytes, writes n*bits/8 + 8n/B.
+template <int BITS>
+__global__ void __launch_bounds__(kDbThreads)
+    cgx_quantize_db_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
+                           float* __restrict__ meta, long long tiles, int tc, int B,
+                           float inv) {
+  extern __shared__ __align__(128) unsigned char db_smem[];
+  __shared__ float s_unit[kChunkBuckets];
+  __shared__ float s_min[kChunkBuckets];
+  uint64_t* full = reinterpret_cast<uint64_t*>(db_smem);
+  float* ring = reinterpret_cast<float*>(db_smem + kBarBytes);
+  const size_t chunk_n = (size_t)kChunkBuckets * B;
+  const size_t slot_n = (size_t)tc * chunk_n;
+  const uint32_t slot_bytes = (uint32_t)(slot_n * sizeof(float));
+  const long long mine = block_tiles(tiles);
+  auto fill = [&](long long j) {
+    const int s = (int)(j % kRing);
+    mbar_expect_tx(&full[s], slot_bytes);
+    bulk_load(ring + s * slot_n, x + tile_of(j) * slot_n, slot_bytes, &full[s]);
+  };
+  ring_init(full, kRing);
+  if (threadIdx.x == 0) {
+    for (long long j = 0; j < mine && j < kRing; ++j) fill(j);
+  }
+  for (long long j = 0; j < mine; ++j) {
+    const int s = (int)(j % kRing);
+    mbar_wait(&full[s], (uint32_t)((j / kRing) & 1));
+    const float* src = ring + s * slot_n;
+    for (int k = 0; k < tc; ++k) {
+      const long long c = tile_of(j) * tc + k;
+      chunk_meta(src + k * chunk_n, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
+      __syncthreads();
+      chunk_encode<BITS>(src + k * chunk_n, B, s_unit, s_min, words + c * BITS * B);
+      __syncthreads();  // every thread is done with the chunk and its meta
+    }
+    if (threadIdx.x == 0 && j + kRing < mine) fill(j + kRing);
+  }
+}
+
+// codec_dequantize_db. Replaces codec_pallas.py _dequantize_flat_db_impl
+// (B7b, with its with_add fusion). A slot holds one tile's words
+// (tc*bits*B*4 bytes), meta (tc*256) and, with ADD, the accumulator
+// (tc*32*B*4). Thread l decodes position l of the 32 buckets from the slot
+// and stores the values (plus the accumulator first with ADD) from
+// registers. Memory-bound: reads n*bits/8 + 8n/B (+4n with ADD), writes 4n.
+template <int BITS, bool ADD>
+__global__ void __launch_bounds__(kDbThreads)
+    cgx_dequantize_db_kernel(const int32_t* __restrict__ words,
+                             const float* __restrict__ meta, const float* __restrict__ add,
+                             float* __restrict__ out, long long tiles, int tc, int B) {
+  extern __shared__ __align__(128) unsigned char db_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(db_smem);
+  const size_t chunk_n = (size_t)kChunkBuckets * B;
+  const size_t w_n = (size_t)tc * BITS * B;         // int32 words of a tile
+  const size_t m_n = (size_t)tc * 2 * kChunkBuckets;  // f32 meta of a tile
+  const size_t a_n = ADD ? (size_t)tc * chunk_n : 0;  // f32 accumulator of a tile
+  const size_t slot_n = w_n + m_n + a_n;              // 4-byte words a slot
+  unsigned char* ring = db_smem + kBarBytes;
+  const long long mine = block_tiles(tiles);
+  auto slot = [&](int s) { return reinterpret_cast<uint32_t*>(ring) + s * slot_n; };
+  auto fill = [&](long long j) {
+    const int s = (int)(j % kRing);
+    const long long t = tile_of(j);
+    mbar_expect_tx(&full[s], (uint32_t)(slot_n * 4));
+    bulk_load(slot(s), words + t * w_n, (uint32_t)(w_n * 4), &full[s]);
+    bulk_load(slot(s) + w_n, meta + t * m_n, (uint32_t)(m_n * 4), &full[s]);
+    if (ADD) bulk_load(slot(s) + w_n + m_n, add + t * a_n, (uint32_t)(a_n * 4), &full[s]);
+  };
+  ring_init(full, kRing);
+  if (threadIdx.x == 0) {
+    for (long long j = 0; j < mine && j < kRing; ++j) fill(j);
+  }
+  for (long long j = 0; j < mine; ++j) {
+    const int s = (int)(j % kRing);
+    mbar_wait(&full[s], (uint32_t)((j / kRing) & 1));
+    const uint32_t* sw = slot(s);
+    const float* sm = reinterpret_cast<const float*>(sw + w_n);
+    const float* sa = reinterpret_cast<const float*>(sw + w_n + m_n);
+    for (int k = 0; k < tc; ++k) {
+      const size_t base = (size_t)(tile_of(j) * tc + k) * chunk_n;
+      const uint32_t* wk = sw + (size_t)k * BITS * B;
+      const float* mk = sm + k * 2 * kChunkBuckets;
+      for (int l = threadIdx.x; l < B; l += blockDim.x) {
+        uint32_t w[BITS];
+#pragma unroll
+        for (int b = 0; b < BITS; ++b) w[b] = wk[(size_t)b * B + l];
+#pragma unroll 4
+        for (int q = 0; q < kChunkBuckets; ++q) {
+          float v = decode_one<BITS>(w, q, mk[2 * q], mk[2 * q + 1]);
+          if (ADD) v = __fadd_rn(sa[(size_t)k * chunk_n + (size_t)q * B + l], v);
+          out[base + (size_t)q * B + l] = v;
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with the slot
+    if (threadIdx.x == 0 && j + kRing < mine) fill(j + kRing);
+  }
+}
+
+// codec_sra_epilogue_db. Replaces codec_pallas.py _sra_epilogue_db_impl
+// (B7c). The TPU kernel stages all ws peer rows of a block in VMEM; here a
+// ring slot holds ONE peer row's tile (tc*bits*B*4 bytes of words and
+// tc*256 of meta), so the shared memory it needs does not grow with ws.
+// The ring streams rows 0..ws-1 of tile t, then those of the block's next
+// tile; each row folds into a (tc, 32, B) f32 tile in shared memory in
+// ascending order, exactly as cgx_sra_epilogue_kernel folds. Row `own`
+// holds no copy (its barrier is arrived at without bytes): the raw own row
+// is read from device memory at its turn in the fold. After the last row,
+// chunk_meta and chunk_encode requantize each chunk of the tile.
+// Memory-bound: reads ws*(n*bits/8 + 8n/B) (+4n of the raw own row),
+// writes n*bits/8 + 8n/B; the reduced floats stay in shared memory.
+template <int BITS>
+__global__ void __launch_bounds__(kDbThreads)
+    cgx_sra_epilogue_db_kernel(const int32_t* __restrict__ words,
+                               const float* __restrict__ meta, const float* __restrict__ raw,
+                               int own, int ws, long long chunks, long long tiles, int tc,
+                               int B, float inv, int32_t* __restrict__ out_words,
+                               float* __restrict__ out_meta) {
+  extern __shared__ __align__(128) unsigned char db_smem[];
+  __shared__ float s_unit[kChunkBuckets];
+  __shared__ float s_min[kChunkBuckets];
+  uint64_t* full = reinterpret_cast<uint64_t*>(db_smem);
+  const size_t chunk_n = (size_t)kChunkBuckets * B;
+  const size_t w_n = (size_t)tc * BITS * B;
+  const size_t m_n = (size_t)tc * 2 * kChunkBuckets;
+  const size_t slot_n = w_n + m_n;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(db_smem + kBarBytes);
+  float* tile = reinterpret_cast<float*>(ring + kEpiRing * slot_n);
+  const size_t row_words = (size_t)chunks * BITS * B;
+  const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
+  const long long items = block_tiles(tiles) * ws;  // (tile, row) pairs
+  auto fill = [&](long long i) {
+    const int s = (int)(i % kEpiRing);
+    const int r = (int)(i % ws);
+    if (r == own) {
+      mbar_arrive(&full[s]);
+      return;
+    }
+    const long long t = tile_of(i / ws);
+    uint32_t* dst = ring + s * slot_n;
+    mbar_expect_tx(&full[s], (uint32_t)(slot_n * 4));
+    bulk_load(dst, words + r * row_words + t * w_n, (uint32_t)(w_n * 4), &full[s]);
+    bulk_load(dst + w_n, meta + r * row_meta + t * m_n, (uint32_t)(m_n * 4), &full[s]);
+  };
+  ring_init(full, kEpiRing);
+  if (threadIdx.x == 0) {
+    for (long long i = 0; i < items && i < kEpiRing; ++i) fill(i);
+  }
+  for (long long i = 0; i < items; ++i) {
+    const int s = (int)(i % kEpiRing);
+    const int r = (int)(i % ws);
+    const long long c0 = tile_of(i / ws) * tc;
+    mbar_wait(&full[s], (uint32_t)((i / kEpiRing) & 1));
+    const uint32_t* sw = ring + s * slot_n;
+    const float* sm = reinterpret_cast<const float*>(sw + w_n);
+    for (int k = 0; k < tc; ++k) {
+      const uint32_t* wk = sw + (size_t)k * BITS * B;
+      const float* mk = sm + k * 2 * kChunkBuckets;
+      const float* rk = r == own ? raw + (size_t)(c0 + k) * chunk_n : nullptr;
+      float* tk = tile + (size_t)k * chunk_n;
+      for (int l = threadIdx.x; l < B; l += blockDim.x) {
+        uint32_t w[BITS];
+        if (r != own) {
+#pragma unroll
+          for (int b = 0; b < BITS; ++b) w[b] = wk[(size_t)b * B + l];
+        }
+#pragma unroll 4
+        for (int q = 0; q < kChunkBuckets; ++q) {
+          const float v = r == own ? rk[(size_t)q * B + l]
+                                   : decode_one<BITS>(w, q, mk[2 * q], mk[2 * q + 1]);
+          float* t = tk + (size_t)q * B + l;
+          *t = r == 0 ? v : __fadd_rn(*t, v);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with the slot (and the tile's row)
+    if (threadIdx.x == 0 && i + kEpiRing < items) fill(i + kEpiRing);
+    if (r == ws - 1) {
+      for (int k = 0; k < tc; ++k) {
+        const size_t c = (size_t)(c0 + k);
+        chunk_meta(tile + (size_t)k * chunk_n, B, inv, s_unit, s_min,
+                   out_meta + c * 2 * kChunkBuckets);
+        __syncthreads();
+        chunk_encode<BITS>(tile + (size_t)k * chunk_n, B, s_unit, s_min,
+                           out_words + c * BITS * B);
+        __syncthreads();  // the tile and the meta are free for the next tile
+      }
+    }
+  }
+}
+
 #define CGX_DISPATCH_BITS(bits, ...)        \
   switch (bits) {                           \
     case 1: { constexpr int BITS = 1; __VA_ARGS__; } break; \
@@ -440,6 +734,32 @@ __global__ void __launch_bounds__(kThreads)
     case 8: { constexpr int BITS = 8; __VA_ARGS__; } break; \
     default: return (int)cudaErrorInvalidValue;             \
   }
+
+// The persistent grid of a pipelined kernel at `smem` bytes of dynamic
+// shared memory: as many blocks as the SMs hold at once, at most `tiles`.
+template <typename Kernel>
+cudaError_t db_grid(Kernel kernel, size_t smem, long long tiles, unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDbThreads, smem);
+  }
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long most = (long long)per_sm * sms;
+  *grid = (unsigned)(tiles < most ? tiles : most);
+  return cudaSuccess;
+}
+
+bool db_geometry_ok(long long chunks, int tc, int B) {
+  return chunks >= 1 && tc >= 1 && chunks % tc == 0 && B >= 32 && B % 32 == 0;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -549,6 +869,80 @@ int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total,
     if (e != cudaSuccess) return (int)e;
     cgx_matmul_quantize_kernel<BITS><<<(unsigned)chunks, kThreads, smem, st>>>(
         x2, g2, k_total, din, o, div, B, inv, steps, words, meta);
+  });
+  return (int)cudaGetLastError();
+}
+
+// The pipelined kernels take the arguments of their single-stage siblings
+// and `tc`, the chunks a tile (a ring slot) holds; tc divides the chunk
+// count, and every pointer is 16-byte aligned. Shared memory: a
+// quantize slot is tc*32*B*4 bytes, a dequantize slot tc*(bits*B*4 + 256)
+// (+ tc*32*B*4 with add), two slots each; the epilogue has four slots of
+// tc*(bits*B*4 + 256) and the tc*32*B*4-byte tile.
+
+int cgx_quantize_db(const float* x, int32_t* words, float* meta, long long chunks, int tc,
+                    int B, int bits, float inv, void* stream) {
+  if (!db_geometry_ok(chunks, tc, B) || !aligned16(x)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long tiles = chunks / tc;
+  const size_t smem = kBarBytes + (size_t)kRing * tc * kChunkBuckets * B * sizeof(float);
+  CGX_DISPATCH_BITS(bits, {
+    unsigned grid = 0;
+    cudaError_t e = db_grid(cgx_quantize_db_kernel<BITS>, smem, tiles, &grid);
+    if (e != cudaSuccess) return (int)e;
+    cgx_quantize_db_kernel<BITS><<<grid, kDbThreads, smem, st>>>(x, words, meta, tiles, tc, B, inv);
+  });
+  return (int)cudaGetLastError();
+}
+
+int cgx_dequantize_db(const int32_t* words, const float* meta, const float* add, float* out,
+                      long long chunks, int tc, int B, int bits, void* stream) {
+  if (!db_geometry_ok(chunks, tc, B) || !aligned16(words) || !aligned16(meta) ||
+      (add && !aligned16(add))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long tiles = chunks / tc;
+  const size_t add_n = add ? (size_t)kChunkBuckets * B : 0;
+  CGX_DISPATCH_BITS(bits, {
+    const size_t smem =
+        kBarBytes + (size_t)kRing * tc * ((size_t)BITS * B + 2 * kChunkBuckets + add_n) * 4;
+    unsigned grid = 0;
+    cudaError_t e;
+    if (add) {
+      e = db_grid(cgx_dequantize_db_kernel<BITS, true>, smem, tiles, &grid);
+      if (e != cudaSuccess) return (int)e;
+      cgx_dequantize_db_kernel<BITS, true><<<grid, kDbThreads, smem, st>>>(
+          words, meta, add, out, tiles, tc, B);
+    } else {
+      e = db_grid(cgx_dequantize_db_kernel<BITS, false>, smem, tiles, &grid);
+      if (e != cudaSuccess) return (int)e;
+      cgx_dequantize_db_kernel<BITS, false><<<grid, kDbThreads, smem, st>>>(
+          words, meta, add, out, tiles, tc, B);
+    }
+  });
+  return (int)cudaGetLastError();
+}
+
+int cgx_sra_epilogue_db(const int32_t* words, const float* meta, const float* raw, int own,
+                        int ws, long long chunks, int tc, int B, int bits, float inv,
+                        int32_t* out_words, float* out_meta, void* stream) {
+  if (!db_geometry_ok(chunks, tc, B) || ws < 1 || own >= ws) return (int)cudaErrorInvalidValue;
+  if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(words) || !aligned16(meta) || (raw && !aligned16(raw))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long tiles = chunks / tc;
+  CGX_DISPATCH_BITS(bits, {
+    const size_t smem = kBarBytes +
+                        (size_t)kEpiRing * tc * ((size_t)BITS * B + 2 * kChunkBuckets) * 4 +
+                        (size_t)tc * kChunkBuckets * B * sizeof(float);
+    unsigned grid = 0;
+    cudaError_t e = db_grid(cgx_sra_epilogue_db_kernel<BITS>, smem, tiles, &grid);
+    if (e != cudaSuccess) return (int)e;
+    cgx_sra_epilogue_db_kernel<BITS><<<grid, kDbThreads, smem, st>>>(
+        words, meta, raw, own, ws, chunks, tiles, tc, B, inv, out_words, out_meta);
   });
   return (int)cudaGetLastError();
 }

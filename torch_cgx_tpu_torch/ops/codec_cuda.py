@@ -1,20 +1,23 @@
 """The codec's CUDA kernels, their wrappers and their plain versions.
 
 Counterpart of ``torch_cgx_tpu/ops/codec_pallas.py`` and of the kernel of
-``torch_cgx_tpu/ops/fused_producer.py``. Five hand-written kernels in
+``torch_cgx_tpu/ops/fused_producer.py``. Eight hand-written kernels in
 ``csrc/codec.cu`` (built for ``sm_90a`` with ``nvcc`` into a plain C shared
-library at first use, loaded with ``ctypes``) replace the seven Pallas
+library at first use, loaded with ``ctypes``) replace the ten Pallas
 kernels on the gradient-sync path:
 
-=========================  ====================================================
-wrapper                    TPU kernels replaced
-=========================  ====================================================
-``quantize_chunks``        ``codec_pallas._quantize_flat_impl``, ``_quantize_chunks_impl``
-``dequantize_chunks``      ``codec_pallas._dequantize_flat_impl``, ``_dequantize_chunks_impl``
-``sra_epilogue_chunks``    ``codec_pallas._sra_epilogue_impl``
-``reduce_rows_chunks``     ``codec_pallas._reduce_rows_impl``
-``matmul_quantize_chunks`` ``fused_producer._matmul_quantize_impl``
-=========================  ====================================================
+============================  =================================================
+wrapper                       TPU kernels replaced
+============================  =================================================
+``quantize_chunks``           ``codec_pallas._quantize_flat_impl``, ``_quantize_chunks_impl``
+``dequantize_chunks``         ``codec_pallas._dequantize_flat_impl``, ``_dequantize_chunks_impl``
+``sra_epilogue_chunks``       ``codec_pallas._sra_epilogue_impl``
+``reduce_rows_chunks``        ``codec_pallas._reduce_rows_impl``
+``matmul_quantize_chunks``    ``fused_producer._matmul_quantize_impl``
+``quantize_chunks_db``        ``codec_pallas._quantize_flat_db_impl``
+``dequantize_chunks_db``      ``codec_pallas._dequantize_flat_db_impl``
+``sra_epilogue_chunks_db``    ``codec_pallas._sra_epilogue_db_impl``
+============================  =================================================
 
 Each wrapper works on whole 32-bucket chunks. On a CUDA tensor it launches
 its kernel (and counts the launch in :data:`LAUNCHES`) or raises; on a CPU
@@ -23,12 +26,16 @@ arithmetic. Nothing else picks between the two. The batch functions below
 (``quantize_batch``, ``dequantize_batch``, ``sra_epilogue_batch``,
 ``reduce_rows_batch``) add the glue both packages keep outside their
 kernels: edge padding, the dense tail of the last ``nb % 32`` buckets and
-the raw residual, all plain PyTorch.
+the raw residual, all plain PyTorch. They also route: at the JAX package's
+six call sites they look the shape up in the per-card autotune cache
+(``ops/autotune.py``) and take the pipelined (``*_db``) kernel where
+``CGX_PALLAS_DB`` says so and its geometry fits (:func:`db_would_run`).
 
 Not in the kernels yet (ROADMAP Queue B), and refused on every device:
-stochastic rounding, the ``CGX_CODEC_ENCODE=mul`` encode and the
-``CGX_SRA_ACCUM=int8`` fold. A CUDA tensor must be float32: bf16/f16 wire
-dtypes inside the kernels wait too.
+stochastic rounding, the ``CGX_CODEC_ENCODE=mul`` encode, the
+``CGX_PALLAS_PACK=butterfly`` pack and the ``CGX_SRA_ACCUM=int8`` fold. A
+CUDA tensor must be float32: bf16/f16 wire dtypes inside the kernels wait
+too.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import config as cfg_mod
-from . import codec
+from . import autotune, codec
 from .codec import CHUNK_BUCKETS, LANE_GROUP, QTensor
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -75,12 +82,20 @@ LAUNCHES: Dict[str, int] = {
     "codec_sra_epilogue": 0,
     "codec_reduce_rows": 0,
     "codec_matmul_quantize": 0,
+    "codec_quantize_db": 0,
+    "codec_dequantize_db": 0,
+    "codec_sra_epilogue_db": 0,
 }
+# Calls that CGX_PALLAS_DB sent to a pipelined kernel whose ring (or tile)
+# does not fit a block's shared memory at this geometry, so the
+# single-stage kernel ran instead (ROADMAP C7), counted by kernel.
+DB_GATED: Dict[str, int] = {"quantize": 0, "dequantize": 0, "epilogue": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DB_GATED):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +160,12 @@ def _lib():
             lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, vp, vp, vp]
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, vp, vp]
             lib.cgx_matmul_quantize.argtypes = [vp, vp, ll, i, i, f, vp, vp, i, i, f, vp]
+            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, vp]
+            lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
+            lib.cgx_sra_epilogue_db.argtypes = [vp, vp, vp, i, i, ll, i, i, i, f, vp, vp, vp]
             fns = (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue,
-                   lib.cgx_reduce_rows, lib.cgx_matmul_quantize)
+                   lib.cgx_reduce_rows, lib.cgx_matmul_quantize, lib.cgx_quantize_db,
+                   lib.cgx_dequantize_db, lib.cgx_sra_epilogue_db)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _LIB = lib
@@ -493,6 +512,273 @@ def matmul_quantize_chunks(
 
 
 # ---------------------------------------------------------------------------
+# Pipelined kernels (B7a-c): a persistent block per SM slot streams its
+# tiles of ``tc`` chunks through a ring of shared-memory slots filled by
+# bulk asynchronous copies. Same bytes as the single-stage kernels, so their
+# plain versions are the single-stage plain versions.
+# ---------------------------------------------------------------------------
+
+SMEM_BLOCK_BYTES = 232448  # shared memory a Hopper block may use
+DB_STATIC_BYTES = 256  # the pipelined kernels' static meta (s_unit, s_min)
+DB_BAR_BYTES = 128  # the ring's barriers, ahead of the slots (kBarBytes)
+
+
+def _db_bytes_per_tc(kernel: str, bits: int, bucket_size: int, with_add: bool) -> int:
+    chunk = CHUNK_BUCKETS * bucket_size * 4
+    wire = bits * bucket_size * 4 + 2 * CHUNK_BUCKETS * 4
+    return {
+        "quantize": 2 * chunk,
+        "dequantize": 2 * (wire + (chunk if with_add else 0)),
+        "epilogue": 4 * wire + chunk,
+    }[kernel]
+
+
+def db_smem_bytes(
+    kernel: str, tc: int, bits: int, bucket_size: int, *, with_add: bool = False
+) -> int:
+    """Dynamic shared memory the pipelined ``kernel`` launches with at tile
+    ``tc`` (``csrc/codec.cu``): the barriers, then for quantize two slots of
+    ``tc`` f32 chunks; for dequantize two slots of ``tc`` chunks of words
+    and meta (and of the accumulator ``with_add``); for the epilogue four
+    slots of one peer row's ``tc`` chunks of words and meta, and the
+    ``tc``-chunk f32 tile."""
+    return DB_BAR_BYTES + tc * _db_bytes_per_tc(kernel, bits, bucket_size, with_add)
+
+
+def db_tc_cap(kernel: str, bits: int, bucket_size: int, *, with_add: bool = False) -> int:
+    """The most chunks a ring slot of the pipelined ``kernel`` can hold at
+    this geometry within a block's shared memory; 0 where not even one fits
+    (the single-stage kernel runs then: ROADMAP C7)."""
+    room = SMEM_BLOCK_BYTES - DB_STATIC_BYTES - DB_BAR_BYTES
+    return room // _db_bytes_per_tc(kernel, bits, bucket_size, with_add)
+
+
+def _require_aligned(name: str, t: Optional[torch.Tensor]) -> None:
+    if t is not None and t.data_ptr() % 16:
+        raise ValueError(f"{name}: the pipelined kernel's bulk copies need a 16-byte aligned operand")
+
+
+def _db_tile(kernel: str, chunks: int, tc: int, bits: int, bucket_size: int,
+             with_add: bool = False) -> None:
+    if tc < 1 or chunks % tc:
+        raise ValueError(f"tc={tc} must divide the {chunks} chunks")
+    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add)
+    if tc > cap:
+        raise ValueError(
+            f"{kernel}: tc={tc} chunks of bucket {bucket_size} at {bits} bits exceed the "
+            f"pipelined kernel's shared memory (at most {cap})"
+        )
+
+
+# The plain versions: the single-stage ones (the kernels give the same bytes).
+quantize_chunks_db_plain = quantize_chunks_plain
+dequantize_chunks_db_plain = dequantize_chunks_plain
+sra_epilogue_chunks_db_plain = sra_epilogue_chunks_plain
+
+
+def quantize_chunks_db(
+    x: torch.Tensor, bits: int, bucket_size: int, tc: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_chunks` through the pipelined kernel (B7a), ``tc``
+    chunks a ring slot."""
+    _refuse_unported()
+    chunks = _chunk_geometry(x.numel(), bits, bucket_size)
+    if _device_kind(x) == "cpu":
+        return quantize_chunks_db_plain(x, bits, bucket_size)
+    _require_cuda_operand("quantize_db x", x, torch.float32, x.numel())
+    _require_aligned("quantize_db x", x)
+    _db_tile("quantize", chunks, tc, bits, bucket_size)
+    words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
+    meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
+    err = _lib().cgx_quantize_db(
+        x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, tc, bucket_size,
+        bits, codec.unit_scale(bits), _stream(x),
+    )
+    LAUNCHES["codec_quantize_db"] += 1
+    _check_launch("codec_quantize_db", err)
+    return words, meta
+
+
+def dequantize_chunks_db(
+    words: torch.Tensor,
+    meta: torch.Tensor,
+    bits: int,
+    bucket_size: int,
+    tc: int,
+    add_to: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`dequantize_chunks` through the pipelined kernel (B7b), ``tc``
+    chunks a ring slot, the accumulate of ``add_to`` fused."""
+    n = meta.shape[0] * bucket_size
+    chunks = _chunk_geometry(n, bits, bucket_size)
+    if _device_kind(words, meta, add_to) == "cpu":
+        return dequantize_chunks_db_plain(words, meta, bits, bucket_size, add_to)
+    _require_cuda_operand("dequantize_db words", words, torch.int32, chunks * bits * bucket_size)
+    _require_cuda_operand("dequantize_db meta", meta, torch.float32, 2 * n // bucket_size)
+    if add_to is not None:
+        _require_cuda_operand("dequantize_db add_to", add_to, torch.float32, n)
+    for name, t in (("words", words), ("meta", meta), ("add_to", add_to)):
+        _require_aligned(f"dequantize_db {name}", t)
+    _db_tile("dequantize", chunks, tc, bits, bucket_size, with_add=add_to is not None)
+    out = torch.empty(n, dtype=torch.float32, device=words.device)
+    err = _lib().cgx_dequantize_db(
+        words.data_ptr(), meta.data_ptr(),
+        None if add_to is None else add_to.data_ptr(),
+        out.data_ptr(), chunks, tc, bucket_size, bits, _stream(words),
+    )
+    LAUNCHES["codec_dequantize_db"] += 1
+    _check_launch("codec_dequantize_db", err)
+    return out
+
+
+def sra_epilogue_chunks_db(
+    words: torch.Tensor,
+    meta: torch.Tensor,
+    raw: Optional[torch.Tensor],
+    own: int,
+    bits: int,
+    bucket_size: int,
+    tc: int,
+    cast_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sra_epilogue_chunks` through the pipelined kernel (B7c): the
+    ring streams one peer row's ``tc`` chunks a slot, rows ascending, into
+    a ``tc``-chunk f32 tile that is then requantized."""
+    _refuse_unported_fold()
+    ws = words.shape[0]
+    n = meta.shape[1] * bucket_size
+    chunks = _chunk_geometry(n, bits, bucket_size)
+    _check_own(raw, own, ws)
+    if _device_kind(words, meta, raw) == "cpu":
+        return sra_epilogue_chunks_db_plain(words, meta, raw, own, bits, bucket_size, cast_dtype)
+    if cast_dtype != torch.float32:
+        raise NotImplementedError(
+            f"{cast_dtype} wire dtypes are not ported into the epilogue kernel yet"
+        )
+    _require_cuda_operand("epilogue_db words", words, torch.int32, ws * chunks * bits * bucket_size)
+    _require_cuda_operand("epilogue_db meta", meta, torch.float32, ws * 2 * n // bucket_size)
+    if raw is not None:
+        _require_cuda_operand("epilogue_db raw", raw, torch.float32, n)
+    for name, t in (("words", words), ("meta", meta), ("raw", raw)):
+        _require_aligned(f"epilogue_db {name}", t)
+    _db_tile("epilogue", chunks, tc, bits, bucket_size)
+    out_words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=words.device)
+    out_meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=words.device)
+    err = _lib().cgx_sra_epilogue_db(
+        words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
+        own, ws, chunks, tc, bucket_size, bits, codec.unit_scale(bits),
+        out_words.data_ptr(), out_meta.data_ptr(), _stream(words),
+    )
+    LAUNCHES["codec_sra_epilogue_db"] += 1
+    _check_launch("codec_sra_epilogue_db", err)
+    return out_words, out_meta
+
+
+# ---------------------------------------------------------------------------
+# Routing: the autotune lookups, CGX_PALLAS_DB and the tile
+# (codec_pallas.py:86-152, :288-302).
+# ---------------------------------------------------------------------------
+
+
+def _use_db(tuned: Optional[autotune.TunedConfig]) -> bool:
+    """Whether a pipelined kernel runs: ``CGX_PALLAS_DB=on`` forces it,
+    "auto" only where a persisted autotune entry measured it faster, "off"
+    never."""
+    mode = cfg_mod.pallas_db()
+    if mode == "off":
+        return False
+    if mode == "on":
+        return True
+    return bool(tuned is not None and tuned.db)
+
+
+def _tile_chunks(
+    n_chunks: int, cap: int, tuned: Optional[autotune.TunedConfig] = None
+) -> int:
+    """Chunks a pipelined block stages per ring slot (``tc``): the
+    ``CGX_PALLAS_TILE_CHUNKS`` override, else the tuned entry, else 1,
+    always within ``cap`` (the slots a block's shared memory holds,
+    :func:`db_tc_cap`; the TPU's cap is VMEM) and the chunk count. The
+    default differs from the JAX package's 16: there a tile is one step of
+    a sequential grid, here tiles are what the blocks share out, so a
+    slice of C chunks at tile tc keeps at most C / tc SMs busy. The
+    single-stage kernels keep one block per chunk and ignore ``tc``: it is
+    the CUDA counterpart of the TPU's grid-only tile. Read on every call,
+    so a bad override always raises."""
+    forced = cfg_mod.pallas_tile_chunks()
+    tc = forced if forced is not None else (tuned.tc if tuned is not None else 1)
+    return int(max(1, min(tc, cap, n_chunks)))
+
+
+def _pipe_tc(
+    n_chunks: int, cap: int, tuned: Optional[autotune.TunedConfig] = None
+) -> int:
+    """:func:`_tile_chunks` snapped to a divisor of the chunk count (a tile
+    never straddles the end)."""
+    return autotune.snap_to_divisor(_tile_chunks(n_chunks, cap, tuned), n_chunks, max(cap, 1))
+
+
+def _pack_strategy(tuned: Optional[autotune.TunedConfig] = None) -> str:
+    """The bit-plane pack lowering: ``CGX_PALLAS_PACK``, else the tuned
+    entry's, else "sum". The kernels have the "sum" lowering only."""
+    pack = cfg_mod.pallas_pack() or (tuned.pack if tuned is not None else None) or "sum"
+    if pack == "butterfly":
+        raise NotImplementedError(
+            "CGX_PALLAS_PACK=butterfly is not ported: the codec kernels have one pack lowering"
+        )
+    return pack
+
+
+def _db_route(
+    kernel: str, n_chunks: int, bits: int, bucket_size: int,
+    tuned: Optional[autotune.TunedConfig], *, with_add: bool = False, count: bool = False,
+) -> Optional[int]:
+    """``tc`` for the pipelined ``kernel``, or None where the single-stage
+    kernel runs. ``count``: count a call that CGX_PALLAS_DB sends to a
+    pipelined kernel whose geometry does not fit (:data:`DB_GATED`)."""
+    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add)
+    tc = _pipe_tc(n_chunks, cap, tuned)
+    if not _use_db(tuned):
+        return None
+    if cap < 1:
+        if count:
+            DB_GATED[kernel] += 1
+        return None
+    return tc
+
+
+def _flat(c_r: int, t_r: int, bucket_size: int) -> bool:
+    """The flat geometry (the JAX package's flat fast path): every row whole
+    chunks of 128-aligned buckets."""
+    return c_r > 0 and t_r == 0 and bucket_size % 128 == 0
+
+
+def db_would_run(kernel: str, q: QTensor, *, with_add: bool = False) -> bool:
+    """Whether the batch function of ``kernel`` ("quantize", "dequantize"
+    or "epilogue") takes the pipelined kernel for a payload of ``q``'s
+    layout (rows, length, bits, bucket; ``with_add``: a dequantize whose
+    accumulator fuses). Consults the autotune cache as the batch function
+    does; the caller checks the dispatcher's own gates."""
+    b = q.bucket_size
+    c_r, t_r = divmod(codec.num_buckets(q.numel_main, b), CHUNK_BUCKETS)
+    if kernel == "epilogue":
+        kind, n_chunks, ws = autotune.KIND_EPILOGUE, c_r, q.batch_rows
+    elif _flat(c_r, t_r, b):
+        kind, n_chunks, ws = autotune.KIND_FLAT, q.batch_rows * c_r, 0
+    else:
+        return False
+    # The accumulator fuses only into rows of whole buckets (dequantize_batch).
+    with_add = with_add and not q.residual.shape[-1] and q.numel_main == c_r * CHUNK_BUCKETS * b
+    tuned = autotune.lookup(kind, n_chunks=n_chunks, bucket_size=b, bits=q.bits, ws=ws)
+    return _db_route(kernel, n_chunks, q.bits, b, tuned, with_add=with_add) is not None
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where a bulk copy could not read it."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+# ---------------------------------------------------------------------------
 # Batch API (rows = independent flat buffers of equal length).
 # ---------------------------------------------------------------------------
 
@@ -554,7 +840,9 @@ def quantize_batch(
     """Quantize each row of ``xs (rows, m)``: the kernel covers each row's
     whole chunks, the dense tail of the last ``nb % 32`` buckets goes
     through ``ops/codec.py``. Same QTensor layout as the JAX package's
-    ``codec_pallas.quantize_batch``."""
+    ``codec_pallas.quantize_batch``. The flat geometry (every row whole
+    chunks, buckets a multiple of 128) consults the autotune cache as kind
+    "flat" and may take the pipelined kernel; the rest as kind "chunks"."""
     rows, m = xs.shape
     dtype = xs.dtype
     b = bucket_size
@@ -568,8 +856,19 @@ def quantize_batch(
     c_r, t_r = divmod(nb_r, CHUNK_BUCKETS)
     word_parts, meta_parts = [], []
     if c_r:
-        head = x[:, : c_r * CHUNK_BUCKETS * b].contiguous()
-        words, meta = quantize_chunks(head.reshape(-1), bits, b)
+        head = x[:, : c_r * CHUNK_BUCKETS * b].contiguous().reshape(-1)
+        tc = None
+        if _flat(c_r, t_r, b):
+            tuned = autotune.lookup(autotune.KIND_FLAT, n_chunks=rows * c_r, bucket_size=b, bits=bits)
+            tc = _db_route("quantize", rows * c_r, bits, b, tuned, count=True)
+        else:
+            tuned = autotune.lookup(autotune.KIND_CHUNKS, n_chunks=rows * c_r, bucket_size=b, bits=bits)
+            cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
+        _pack_strategy(tuned)
+        if tc is None:
+            words, meta = quantize_chunks(head, bits, b)
+        else:
+            words, meta = quantize_chunks_db(_aligned(head), bits, b, tc)
         word_parts.append(words.view(rows, c_r * bits * b))
         meta_parts.append(meta.view(rows, c_r * CHUNK_BUCKETS, 2))
     if t_r:
@@ -617,13 +916,24 @@ def dequantize_batch(
     parts = []
     head_words = c_r * q.bits * b
     if c_r:
-        vals = dequantize_chunks(
-            q.packed[:, :head_words].contiguous().view(-1),
-            meta[:, : c_r * CHUNK_BUCKETS].contiguous().view(-1, 2),
-            q.bits,
-            b,
-            add_to=_as_f32(add_to).contiguous().view(-1) if fuse_add else None,
-        ).view(rows, c_r * CHUNK_BUCKETS * b)
+        tc = None
+        if _flat(c_r, t_r, b):
+            tuned = autotune.lookup(autotune.KIND_FLAT, n_chunks=rows * c_r, bucket_size=b, bits=q.bits)
+            tc = _db_route("dequantize", rows * c_r, q.bits, b, tuned, with_add=fuse_add, count=True)
+        else:
+            autotune.lookup(autotune.KIND_CHUNKS, n_chunks=rows * c_r, bucket_size=b, bits=q.bits)
+            cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
+        w = q.packed[:, :head_words].contiguous().view(-1)
+        m = meta[:, : c_r * CHUNK_BUCKETS].contiguous().view(-1, 2)
+        acc = _as_f32(add_to).contiguous().view(-1) if fuse_add else None
+        if tc is None:
+            vals = dequantize_chunks(w, m, q.bits, b, add_to=acc)
+        else:
+            vals = dequantize_chunks_db(
+                _aligned(w), _aligned(m), q.bits, b, tc,
+                add_to=None if acc is None else _aligned(acc),
+            )
+        vals = vals.view(rows, c_r * CHUNK_BUCKETS * b)
         if fuse_add:
             return vals.to(out_dtype)
         parts.append(vals)
@@ -650,18 +960,40 @@ def sra_epilogue_batch(
     raw_row: Optional[torch.Tensor] = None,
     own_idx: Optional[int] = None,
     out_dtype: torch.dtype = torch.float32,
+    stochastic: bool = False,
 ) -> QTensor:
     """Fused dequantize-accumulate-requantize of a ws-row QTensor -> a
     rows=1 QTensor holding the stage-2 (all-gather) payload of the reduced
     chunk, the layout ``quantize_batch(reduced[None])`` would give. The
-    caller checks :func:`supports_reduce`."""
+    caller checks :func:`supports_reduce`. Consults the autotune cache as
+    kind "epilogue" and may take the pipelined kernel. A stochastic
+    requantize would keep the heuristic tile (no lookup), as the JAX
+    package does; it is not ported and raises."""
+    if stochastic:
+        raise NotImplementedError(
+            "stochastic rounding is not ported into the epilogue kernels; "
+            "unset CGX_STOCHASTIC_ROUNDING"
+        )
     own = -1 if own_idx is None else int(own_idx)
     raw = None if raw_row is None else _as_f32(raw_row).reshape(-1).contiguous()
-    words, meta = sra_epilogue_chunks(
-        q.packed.contiguous(), _as_f32(q.meta).contiguous(), raw, own,
-        q.bits, q.bucket_size, cast_dtype=out_dtype,
-    )
     nb_r = codec.num_buckets(q.numel_main, q.bucket_size)
+    c_r = nb_r // CHUNK_BUCKETS
+    tuned = autotune.lookup(
+        autotune.KIND_EPILOGUE, n_chunks=c_r, bucket_size=q.bucket_size, bits=q.bits,
+        ws=q.batch_rows,
+    )
+    _pack_strategy(tuned)
+    tc = _db_route("epilogue", c_r, q.bits, q.bucket_size, tuned, count=True)
+    words, meta = q.packed.contiguous(), _as_f32(q.meta).contiguous()
+    if tc is None:
+        words, meta = sra_epilogue_chunks(
+            words, meta, raw, own, q.bits, q.bucket_size, cast_dtype=out_dtype,
+        )
+    else:
+        words, meta = sra_epilogue_chunks_db(
+            _aligned(words), _aligned(meta), None if raw is None else _aligned(raw), own,
+            q.bits, q.bucket_size, tc, cast_dtype=out_dtype,
+        )
     return QTensor(
         packed=words.view(1, -1),
         meta=meta.view(1, nb_r, 2).to(out_dtype),
@@ -682,7 +1014,15 @@ def reduce_rows_batch(
     """Fused dequantize-accumulate of a row-batched QTensor -> flat f32
     ``(numel,)``: ``raw_row`` (the flat raw own chunk) replaces row
     ``own_idx``'s decode before the fold. The caller checks
-    :func:`supports_reduce` (``requantize=False``)."""
+    :func:`supports_reduce` (``requantize=False``). Looks the shape up as
+    kind "epilogue", as the JAX package does; the reduce has no pipelined
+    kernel, so the entry goes unused."""
+    nb_r = codec.num_buckets(q.numel_main, q.bucket_size)
+    autotune.lookup(
+        autotune.KIND_EPILOGUE, n_chunks=nb_r // CHUNK_BUCKETS, bucket_size=q.bucket_size,
+        bits=q.bits, ws=q.batch_rows,
+    )
+    cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
     own = -1 if own_idx is None else int(own_idx)
     raw = None if raw_row is None else _as_f32(raw_row).reshape(-1).contiguous()
     out = reduce_rows_chunks(

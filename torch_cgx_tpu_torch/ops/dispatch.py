@@ -13,6 +13,10 @@ lowerings give the same bytes. ``reduce_rows`` (the reduce without the
 requantize: the all-to-all reduction and the reduce-scatter half of SRA)
 takes the fused reduce kernel under the same rule, by the JAX package's
 eligibility gate with no shared-memory limit.
+
+Inside the batch functions ``CGX_PALLAS_DB`` and the autotune cache pick
+the single-stage or the pipelined kernel (same bytes);
+:func:`db_would_run` tells which without running it.
 """
 
 from __future__ import annotations
@@ -106,6 +110,23 @@ def fused_epilogue_would_run(q: QTensor) -> bool:
     return _use_fused_reduce(q)
 
 
+def db_would_run(q: QTensor, kernel: str, *, with_add: bool = False) -> bool:
+    """True when the dispatcher sends a payload of ``q``'s layout to the
+    pipelined kernel of ``kernel``: "quantize" (:func:`quantize_batch` of
+    rows of that length), "dequantize" (:func:`dequantize_batch`;
+    ``with_add``: with an accumulator that fuses) or "epilogue"
+    (:func:`reduce_rows_requantize`). On the card that is a launch of
+    ``codec_<kernel>_db`` in place of the single-stage kernel; the launch
+    model of ``chip_smoke.py`` and the CPU tests read the routing here."""
+    if kernel == "epilogue":
+        if not _use_fused_reduce(q):
+            return False
+    elif not (q.bits and codec_cuda.supports(
+            q.numel, q.bits, q.bucket_size, bool(q.residual.shape[-1]))):
+        return False
+    return codec_cuda.db_would_run(kernel, q, with_add=with_add)
+
+
 def fused_reduce_would_run(q: QTensor) -> bool:
     """True when :func:`reduce_rows` takes the fused reduce kernel for this
     QTensor (rows > 1, no accumulator)."""
@@ -176,7 +197,7 @@ def reduce_rows_requantize(
     if _use_fused_reduce(q):
         return codec_cuda.sra_epilogue_batch(
             q, raw_row=raw_rows[own_idx] if raw_rows is not None else raw_row,
-            own_idx=own_idx, out_dtype=out_dtype,
+            own_idx=own_idx, out_dtype=out_dtype, stochastic=cc.stochastic,
         )
     reduced = reduce_rows(q, raw_rows=raw_rows, raw_row=raw_row, own_idx=own_idx)
     return quantize_batch(reduced.to(out_dtype)[None], cc)
