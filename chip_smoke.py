@@ -12,13 +12,19 @@ order, none of whose failures is caught:
 3. kernels against their plain PyTorch versions on the card, at the shapes
    the GPT-2 124M train step gives them, the pipelined ones (B7a-c) also
    against the single-stage ones, at 1, 131, 133 and 2053 chunks too, and
-   at phase 6's flat-SRA epilogue (the multi-row reduce at the
-   two-level and the all-to-all shapes of phase 6, the matmul-quantize at
-   the three dense-layer shapes of phase 6's flat SRA step): words, meta and
+   at phase 7's flat-SRA epilogue (the multi-row reduce at the
+   two-level and the all-to-all shapes of phase 7, the matmul-quantize at
+   the three dense-layer shapes of phase 7's flat SRA step): words, meta and
    decoded values must be bit-identical (tolerance 0), and the
    matmul-quantize on normal operands, whose sums the kernel and cuBLAS
    associate differently, within ``payload_close``'s tolerance (meta within
-   1e-5 relative, every decoded value within one level step);
+   1e-5 relative, every decoded value within one level step). Then B9's
+   variant kernel (``nometa``, ``metalane``, ``read``) at bits 1, 2, 4 and 8
+   on the 64 MB slice and at 1, 131, 133 and 2053 chunks, and every
+   quantizing kernel (B1, B7a, B3, B7c, B8) in each (encode, pack) lowering:
+   bit-identical to the plain version of its encode, the butterfly pack's
+   bytes equal to the sum pack's, and on ``qbench.tie_operand`` the mul
+   encode's levels different from the div encode's by one level at most;
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -29,14 +35,24 @@ order, none of whose failures is caught:
    against the layout and bit for bit against ``off``; an autotune sweep of
    the step's shapes into a temporary cache directory; one step under
    ``auto`` over it, which must hit the cache and launch the pipelined
-   kernels exactly where the winners say;
+   kernels exactly where the winners say. Then (d) the same steps from the
+   seed under ``CGX_PALLAS_PACK=butterfly``, launches held against the
+   layout and parameters bit-identical to the sum pack's, and (e) one step
+   under ``CGX_CODEC_ENCODE=mul`` with its gradient sync through the kernels
+   bit-identical to the plain versions' on the CPU, under mul too;
 5. times: each kernel and its plain version (CUDA events, median after
    warm-up), each pipelined kernel beside its single-stage sibling, the
    matmul-quantize also against ``torch.matmul`` of the same product (which
    lacks the quantize), a device-to-device copy as the yardstick, the train
    step without the codec and with it under ``CGX_PALLAS_DB`` off and on,
-   and a ``torch.profiler`` breakdown of one step of each;
-6. multi-rank: four spawned ranks share the card over a gloo group (NCCL
+   and a ``torch.profiler`` breakdown of one step of each; B5 and B6 are
+   B1's and B2's kernels on the 307 chunks of the tail slice, B9 the
+   variant kernel at 128 MB;
+6. qbench: ``python -m torch_cgx_tpu_torch.tools.qbench`` at its defaults
+   (128 MB, 4 bits, bucket 512, k = 8, ``sra_epilogue`` at ws 8) for each
+   of its eight variants, in this process: each variant's bytes checked,
+   then its time, GB/s and share of the bytes bound;
+7. multi-rank: four spawned ranks share the card over a gloo group (NCCL
    refuses two ranks on one device), as a cross 2 x intra 2 layout, each
    with full-width GPT-2 124M and its own 2 x 512 token shard. The
    reference's default two-level scheme (intra SRA, cross Ring, leader
@@ -71,7 +87,6 @@ import os
 import queue
 import re
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -88,19 +103,11 @@ STEPS = 3
 FLAT_N = 16_777_216  # a full 64 MB fusion slice: whole 32-bucket chunks
 TAIL_N = 5_042_944  # the last wte slice: 307 chunks, 26 tail buckets, a partial bucket
 SRA_WS = 4  # the stage-1 row count of the multi-rank epilogue check
-MR_WS, MR_INTRA = 4, 2  # phase 6: 4 ranks, cross 2 x intra 2
+MR_WS, MR_INTRA = 4, 2  # phase 7: 4 ranks, cross 2 x intra 2
 MR_BATCH = 2  # each rank's token shard: 2 x 512, 8 x 512 in all
 MR_STEPS = 3
 MR_TIMEOUT_S = 600
 
-# Published device-memory rates (NVIDIA data sheets), bytes/s, by the name
-# fragment nvidia-smi reports; the longest matching fragment wins.
-MEM_RATE = {
-    "H100 PCIe": 2.0e12,
-    "H100 NVL": 3.9e12,
-    "H100": 3.35e12,
-    "H200": 4.8e12,
-}
 # float32 outside the tensor cores, operations/s (H100 SXM data sheet).
 F32_RATE = 67e12
 
@@ -113,6 +120,7 @@ TPU_KERNELS = {
     "codec_quantize_db": "torch_cgx_tpu/ops/codec_pallas.py:505",
     "codec_dequantize_db": "torch_cgx_tpu/ops/codec_pallas.py:618",
     "codec_sra_epilogue_db": "torch_cgx_tpu/ops/codec_pallas.py:1473",
+    "codec_quantize_variant": "tools/qbench.py:44,148",
 }
 # The pipelined kernel of each single-stage one, by the batch functions'
 # kernel names (``dispatch.db_would_run``).
@@ -120,7 +128,7 @@ DB_OF = {"codec_quantize": "quantize", "codec_dequantize": "dequantize",
          "codec_sra_epilogue": "epilogue"}
 DB_CHUNKS = (1, 131, 133, 2053)  # around the persistent grid (132 SMs) and far above it
 # The dense layers of GPT-2 124M whose weight gradients producer fusion
-# quantizes in phase 6 (weight shape (din, o)), with the contraction of a
+# quantizes in phase 7 (weight shape (din, o)), with the contraction of a
 # rank's 2 x 512 tokens. attn_proj (768 x 768) is below
 # CGX_STANDALONE_LAYER_ELEMS and stays in the fused group.
 MM_SHAPES = {"mlp_in": (768, 3072), "attn_qkv": (768, 2304), "mlp_out": (3072, 768)}
@@ -152,13 +160,6 @@ def sync(dev) -> None:
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def mem_rate(name: str) -> float:
-    best = max((k for k in MEM_RATE if k in name), key=len, default=None)
-    if best is None:
-        raise RuntimeError(f"no memory rate on record for {name!r}")
-    return MEM_RATE[best]
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +309,7 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
 
     # The multi-rank epilogue: ws stage-1 rows of one rank's chunk, the raw
     # own row swapped in for each position it can take; the pipelined one
-    # at phase 6's flat-SRA shape.
+    # at phase 7's flat-SRA shape.
     chunk = flat_n // ws
     rows = torch.from_numpy(
         np.stack([fuzz_operand(rng, chunk, 0) * (r + 1) for r in range(ws)])
@@ -328,7 +329,7 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         record("codec_sra_epilogue_db", f"{label} tc={tc} meta", dm, m, got.meta[0])
     del qs, rows
 
-    # The multi-row reduce at phase 6's shapes: the two-level intra
+    # The multi-row reduce at phase 7's shapes: the two-level intra
     # reduce-scatter (2 rows of half a 64 MB slice, the raw own row in each
     # position) and the all-to-all (4 rows of a whole slice, no raw row);
     # then other widths, recipes, and a bucket too large for the epilogue's
@@ -354,7 +355,7 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
             record("codec_reduce_rows", label, got, want)
         del rows, q
 
-    # The matmul-quantize at the dense-layer shapes of phase 6's flat SRA
+    # The matmul-quantize at the dense-layer shapes of phase 7's flat SRA
     # step, divisor 4. Small-integer operands make every sum exact in f32, so
     # the kernel's and cuBLAS's orders agree and the bytes must too; normal
     # operands are held to payload_close's tolerance.
@@ -376,7 +377,109 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
             f"decoded within {steps:.3f} level steps ({abs_err:.3e})")
         if not ok:
             raise AssertionError(f"codec_matmul_quantize {label}: outside the tolerance")
+    check_b9(dev, flat_n, record)
+    check_lowerings(dev, flat_n, ws, rng, record, db_tc)
     return max_err
+
+
+def check_b9(dev, flat_n: int, record) -> None:
+    """B9's three bodies against their plain versions on the card."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for n in [flat_n] + [c * 32 * BUCKET for c in DB_CHUNKS]:
+        x = torch.randn(n, generator=gen, device=dev) * 40
+        for bits in (1, 2, 4, 8):
+            for variant in codec_cuda.VARIANTS:
+                w, m = codec_cuda.quantize_variant_chunks(x, variant, bits, BUCKET)
+                pw, pm = codec_cuda.quantize_variant_chunks_plain(x, variant, bits, BUCKET)
+                label = f"{variant} n={n} bits={bits}"
+                record("codec_quantize_variant", label + " words", w, pw)
+                record("codec_quantize_variant", label + " meta", m, pm)
+        del x
+
+
+def check_lowerings(dev, flat_n: int, ws: int, rng, record, db_tc) -> None:
+    """Every quantizing kernel in each (encode, pack) lowering against the
+    plain version of that encode on the same inputs: B1 and B7a on the 64 MB
+    slice of normal data and of ``qbench.tie_operand``'s ties, B3 and B7c at
+    ws rows (the raw own row a tie row), B8 on integer operands. The
+    butterfly pack's bytes must equal the sum pack's, and on the ties the
+    mul encode's levels must differ from the div encode's, by one level at
+    most: the knob reached the kernel."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec, codec_cuda
+    from torch_cgx_tpu_torch.tools import qbench
+
+    lowerings = [(e, p) for e in codec_cuda.ENCODES for p in codec_cuda.PACKS]
+    chunks = flat_n // (32 * BUCKET)
+    tc = db_tc("codec_quantize", chunks, BITS, BUCKET)
+    operands = {
+        "normal": torch.from_numpy(fuzz_operand(rng, flat_n, 0)).to(dev),
+        "ties": torch.from_numpy(qbench.tie_operand(flat_n, BUCKET, BITS, seed=SEED)).to(dev),
+    }
+    for name, x in operands.items():
+        got = {}
+        for enc, pack in lowerings:
+            label = f"{name} n={flat_n} {enc}/{pack}"
+            pw, pm = codec_cuda.quantize_chunks_plain(x, BITS, BUCKET, encode=enc)
+            w, m = codec_cuda.quantize_chunks(x, BITS, BUCKET, encode=enc, pack=pack)
+            record("codec_quantize", label + " words", w, pw)
+            record("codec_quantize", label + " meta", m, pm)
+            dw, dm = codec_cuda.quantize_chunks_db(x, BITS, BUCKET, tc, encode=enc, pack=pack)
+            record("codec_quantize_db", f"{label} tc={tc} words", dw, pw, w)
+            record("codec_quantize_db", f"{label} tc={tc} meta", dm, pm, m)
+            got[enc, pack] = w
+        for enc in codec_cuda.ENCODES:
+            if not _same_bits(got[enc, "butterfly"], got[enc, "sum"]):
+                raise AssertionError(f"{name} {enc}: the butterfly pack's bytes differ from the sum pack's")
+        lv = {e: codec.unpack_levels_bucketed(got[e, "sum"], BITS, flat_n // BUCKET, BUCKET)
+              for e in codec_cuda.ENCODES}
+        diff = (lv["mul"] - lv["div"]).abs()
+        moved, most = int((diff > 0).sum()), int(diff.max())
+        log(f"  {'codec_quantize':21s} {name + ': levels mul vs div':44s} {moved} of {flat_n} differ, "
+            f"by at most {most}; butterfly bytes = sum bytes")
+        if name == "ties" and not (moved > 0 and most == 1):
+            raise AssertionError(f"the mul encode did not reach the kernel ({moved} levels moved, most {most})")
+        if most > 1:
+            raise AssertionError(f"{name}: mul and div levels differ by {most}")
+    del operands
+
+    chunk = flat_n // ws
+    rows = np.stack([fuzz_operand(rng, chunk, 0) * (r + 1) for r in range(ws)])
+    own = 1
+    rows[own] = qbench.tie_operand(chunk, BUCKET, BITS, seed=SEED + 1)
+    rows = torch.from_numpy(rows).to(dev)
+    q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+    te = db_tc("codec_sra_epilogue", chunk // (32 * BUCKET), BITS, BUCKET)
+    for enc in codec_cuda.ENCODES:
+        pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, rows[own], own, BITS, BUCKET,
+                                                      encode=enc)
+        for pack in codec_cuda.PACKS:
+            label = f"ws={ws} own={own} n={chunk} {enc}/{pack}"
+            w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, rows[own], own, BITS, BUCKET,
+                                                  encode=enc, pack=pack)
+            record("codec_sra_epilogue", label + " words", w, pw)
+            record("codec_sra_epilogue", label + " meta", m, pm)
+            dw, dm = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, rows[own], own, BITS, BUCKET,
+                                                       te, encode=enc, pack=pack)
+            record("codec_sra_epilogue_db", f"{label} tc={te} words", dw, pw, w)
+            record("codec_sra_epilogue_db", f"{label} tc={te} meta", dm, pm, m)
+    del rows, q
+
+    for layer, (din, o) in MM_SHAPES.items():
+        xi = torch.from_numpy(rng.integers(-3, 4, (MM_K, din)).astype(np.float32)).to(dev)
+        gi = torch.from_numpy(rng.integers(-3, 4, (MM_K, o)).astype(np.float32)).to(dev)
+        for enc in codec_cuda.ENCODES:
+            pw, pm = codec_cuda.matmul_quantize_chunks_plain(xi, gi, MR_WS, BITS, BUCKET, encode=enc)
+            for pack in codec_cuda.PACKS:
+                label = f"{layer} K={MM_K} {din}x{o} integer {enc}/{pack}"
+                w, m = codec_cuda.matmul_quantize_chunks(xi, gi, MR_WS, BITS, BUCKET, encode=enc, pack=pack)
+                record("codec_matmul_quantize", label + " words", w, pw)
+                record("codec_matmul_quantize", label + " meta", m, pm)
 
 
 # ---------------------------------------------------------------------------
@@ -772,6 +875,74 @@ def db_phase(dev, cfg, sl: dict, steps: int) -> dict:
     return {"launches": launches, "winners": winners}
 
 
+def lowering_phase(dev, cfg, sl: dict, steps: int) -> dict:
+    """Phase 4's two lowerings, after :func:`gpt2_slice`'s steps (div
+    encode, sum pack): (d) the same steps from the seed under
+    ``CGX_PALLAS_PACK=butterfly``, launches held against the layout, losses
+    and parameters bit-identical to the sum pack's; (e) one step under
+    ``CGX_CODEC_ENCODE=mul`` through :func:`gpt2_slice` (its launches held
+    against the layout, its loss finite, one gradient sync through the
+    kernels bit-identical to the plain versions' on the CPU)."""
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    log("  (d) CGX_PALLAS_PACK=butterfly: the same steps from the seed")
+    os.environ["CGX_PALLAS_PACK"] = "butterfly"
+    try:
+        model, step = new_run(dev, cfg)
+        params = dict(model.named_parameters())
+        expected = expected_launches(params)
+        codec_cuda.reset_launch_counts()
+        losses = [float(step(sl["tokens"])) for _ in range(steps)]
+        sync(dev)
+        launches = dict(codec_cuda.LAUNCHES)
+    finally:
+        del os.environ["CGX_PALLAS_PACK"]
+    log(f"  losses: {losses}; launches over {steps} steps: {launches}")
+    assert launches == {k: v * steps for k, v in expected.items()}, (launches, expected)
+    assert launches == sl["launches"], (launches, sl["launches"])
+    assert losses == sl["losses"], (losses, sl["losses"])
+    diff = [n for n, p in params.items() if not _same_bits(p.detach(), sl["params"][n])]
+    log(f"  parameters after {steps} steps: {len(params) - len(diff)}/{len(params)} "
+        f"bit-identical to the same steps under the sum pack")
+    assert not diff, diff[:5]
+    del model, step, params
+
+    log("  (e) CGX_CODEC_ENCODE=mul: one step from the seed")
+    os.environ["CGX_CODEC_ENCODE"] = "mul"
+    try:
+        mul = gpt2_slice(dev, cfg, BATCH, SEQ, 1)
+    finally:
+        del os.environ["CGX_CODEC_ENCODE"]
+    return {"butterfly": launches, "mul": mul["launches"]}
+
+
+def qbench_phase() -> dict:
+    """Phase 6: the port's qbench at its defaults, each of its eight
+    variants in this process, the launch counters reset just before and
+    read just after. Returns the records and the variant kernel's
+    launches."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import qbench
+
+    codec_cuda.reset_launch_counts()
+    records = {}
+    for variant in qbench.VARIANTS:
+        records[variant] = qbench.main([variant])
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = codec_cuda.LAUNCHES["codec_quantize_variant"]
+    log(f"  {'variant':12s} {'t_ms':>8s} {'GB/s in':>8s} {'bound_ms':>9s} {'% of bound':>10s}  bytes")
+    for variant, r in records.items():
+        assert r["t_ms"] is not None, r
+        log(f"  {variant:12s} {r['t_ms']:8.4f} {r['gbps_in']:8.1f} {r['bound_ms']:9.4f} "
+            f"{r['pct_of_bound']:10.1f}  {r['bytes']}")
+    log(f"  variant kernel launches in the phase: {launches}")
+    assert launches > 0
+    return {"records": records, "launches": launches}
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: times.
 # ---------------------------------------------------------------------------
@@ -799,12 +970,13 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
 def time_kernels(dev, n: int, name: str) -> list:
     """Each kernel and its plain version at the main path's flat slice, each
     pipelined kernel right after its single-stage sibling at the tile the
-    forced run gives it (and the epilogues again at phase 6's flat-SRA
-    shape); the multi-row reduce at phase 6's two shapes, the two-level one
+    forced run gives it (and the epilogues again at phase 7's flat-SRA
+    shape); the multi-row reduce at phase 7's two shapes, the two-level one
     first."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.utils.device import mem_rate
 
     rate = mem_rate(name)
     rng = np.random.default_rng(SEED + 1)
@@ -845,7 +1017,30 @@ def time_kernels(dev, n: int, name: str) -> list:
          lambda: codec_cuda.sra_epilogue_chunks_db_plain(words[None], meta[None], None, -1, BITS, BUCKET),
          2 * wire(n), 12 * n, None),
     ]
-    # Phase 6's flat-SRA epilogue: ws rows of a rank's chunk, the raw own
+    # B5 and B6: B1's and B2's kernels on the whole chunks of the tail
+    # slice (307 chunks; its 26 tail buckets go through the plain codec).
+    head = (TAIL_N // (32 * BUCKET)) * 32 * BUCKET
+    xt = torch.from_numpy(fuzz_operand(rng, head, 0)).to(dev)
+    wt, mtail = codec_cuda.quantize_chunks(xt, BITS, BUCKET)
+    runs += [
+        ("codec_quantize", f"B5: the tail slice's {head // (32 * BUCKET)} chunks, n={head}",
+         lambda: codec_cuda.quantize_chunks(xt, BITS, BUCKET),
+         lambda: codec_cuda.quantize_chunks_plain(xt, BITS, BUCKET),
+         4 * head + wire(head), 8 * head, None),
+        ("codec_dequantize", f"B6: the tail slice's {head // (32 * BUCKET)} chunks, n={head}",
+         lambda: codec_cuda.dequantize_chunks(wt, mtail, BITS, BUCKET),
+         lambda: codec_cuda.dequantize_chunks_plain(wt, mtail, BITS, BUCKET),
+         wire(head) + 4 * head, 4 * head, None),
+    ]
+    # B9: the variant kernel's nometa body at qbench's 128 MB (phase 6).
+    xv = torch.from_numpy(fuzz_operand(rng, 2 * n, 0)).to(dev)
+    runs.append((
+        "codec_quantize_variant", f"nometa n={2 * n}",
+        lambda: codec_cuda.quantize_variant_chunks(xv, "nometa", BITS, BUCKET),
+        lambda: codec_cuda.quantize_variant_chunks_plain(xv, "nometa", BITS, BUCKET),
+        8 * n + wire(2 * n), 16 * n, None,
+    ))
+    # Phase 7's flat-SRA epilogue: ws rows of a rank's chunk, the raw own
     # row in place of row 1; the own row's words are not read.
     c = n // SRA_WS
     rows = torch.from_numpy(np.stack([fuzz_operand(rng, c, 0) for _ in range(SRA_WS)])).to(dev)
@@ -880,7 +1075,7 @@ def time_kernels(dev, n: int, name: str) -> list:
             lambda w=w, mt=mt, raw=raw, o=o: codec_cuda.reduce_rows_chunks_plain(w, mt, raw, o, BITS, BUCKET),
             rows_n * wire(m) + (0 if own is None else 4 * m) + 4 * m, 3 * rows_n * m, None,
         ))
-    # The matmul-quantize at phase 6's three dense-layer shapes, mlp_in first
+    # The matmul-quantize at phase 7's three dense-layer shapes, mlp_in first
     # (its record goes into the JSON line): a multiply and an add per product.
     # The library call is torch.matmul of the same product in float32 (TF32
     # off), which lacks the divide and the quantize.
@@ -1006,7 +1201,7 @@ def profile_step(name: str, fn) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: four ranks on the card.
+# Phase 7: four ranks on the card.
 # ---------------------------------------------------------------------------
 
 # The knobs of each multi-rank configuration; every other CGX_* knob is
@@ -1090,7 +1285,7 @@ def _plain_cpu(fn, *args, **kw):
 
 
 def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: int) -> None:
-    """One of phase 6's ranks: a gloo group over the FileStore ``store``,
+    """One of phase 7's ranks: a gloo group over the FileStore ``store``,
     the two-level layout, GPT-2 from the seed on ``dev_name`` and the
     rank's own tokens. Puts its results (or its traceback) on ``result_q``
     after the group is destroyed."""
@@ -1216,10 +1411,10 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
                     p.join()
     if len(results) < MR_WS:
         codes = [p.exitcode for p in procs]
-        raise AssertionError(f"phase 6: only ranks {sorted(results)} reported; exit codes {codes}")
+        raise AssertionError(f"phase 7: only ranks {sorted(results)} reported; exit codes {codes}")
     errors = {r: o["error"] for r, o in results.items() if "error" in o}
     if errors:
-        raise AssertionError("phase 6 failed:\n" + "\n".join(f"rank {r}:\n{e}" for r, e in errors.items()))
+        raise AssertionError("phase 7 failed:\n" + "\n".join(f"rank {r}:\n{e}" for r, e in errors.items()))
     res = [results[r] for r in range(MR_WS)]
 
     s0 = res[0]["sync"]
@@ -1292,14 +1487,16 @@ def ptxas_report(ptxas: str) -> None:
     from torch_cgx_tpu_torch.ops import codec_cuda
 
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [ln.strip() for ln in ptxas.splitlines()
+    blocks = ptxas.split("Compiling entry function")[1:]
+    spills = [(b.split("'")[1], ln.strip()) for b in blocks for ln in b.splitlines()
               if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(f"  ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers a thread; "
         f"{len(spills)} with spills")
-    for ln in spills:
-        log("  " + ln)
+    for fn, ln in spills:
+        found = re.search(r"(cgx_\w+?_kernel)I(\w+?)EE", fn)
+        name = found.group(1) + "<" + ",".join(re.findall(r"L\w(\d+)E", found.group(2) + "E")) + ">" if found else fn
+        log(f"    {name}: {ln}")
     chunks = FLAT_N // (32 * BUCKET)
-    blocks = ptxas.split("Compiling entry function")[1:]
     for kernel, short in (("cgx_quantize_db_kernel", "quantize"),
                           ("cgx_dequantize_db_kernel", "dequantize"),
                           ("cgx_sra_epilogue_db_kernel", "epilogue")):
@@ -1312,6 +1509,31 @@ def ptxas_report(ptxas: str) -> None:
             f"{static} bytes static shared memory, {dyn} bytes dynamic at {BITS} bits, "
             f"bucket {BUCKET}, tc {tc}; 512 threads a block")
         assert len(mine) >= 8, kernel
+    # The quantizing kernels by (encode, pack) lowering: registers and
+    # static shared memory over their bit widths.
+    for kernel in ("cgx_quantize_kernel", "cgx_sra_epilogue_kernel", "cgx_matmul_quantize_kernel",
+                   "cgx_quantize_db_kernel", "cgx_sra_epilogue_db_kernel"):
+        by = {}
+        for b in blocks:
+            found = re.search(kernel + r"ILi\d+ELi(\d)ELi(\d)EE", b.split("'")[1])
+            if found:
+                key = ("div", "mul")[int(found.group(1))] + "/" + ("sum", "butterfly")[int(found.group(2))]
+                by.setdefault(key, []).extend(
+                    (int(x), int(y)) for x, y in zip(re.findall(r"Used (\d+) registers", b),
+                                                     re.findall(r"(\d+) bytes smem", b)))
+        log(f"  {kernel}: " + "; ".join(
+            f"{k} {min(v)[0]}-{max(v)[0]} registers, {max(s for _, s in v)} bytes static"
+            for k, v in sorted(by.items())))
+        assert len(by) == 4, (kernel, sorted(by))
+    by = {}
+    for b in blocks:
+        found = re.search(r"cgx_quantize_variant_kernelILi(\d)ELi(\d)EE", b.split("'")[1])
+        if found:
+            name = ("nometa", "metalane", "read")[int(found.group(2))]
+            by.setdefault(name, {})[int(found.group(1))] = int(re.findall(r"Used (\d+) registers", b)[0])
+    log("  cgx_quantize_variant_kernel registers by bits: " + "; ".join(
+        f"{k} " + " ".join(f"{bits}:{r}" for bits, r in sorted(v.items())) for k, v in sorted(by.items())))
+    assert sum(len(v) for v in by.values()) == 24, by
 
 
 def main() -> int:
@@ -1322,6 +1544,7 @@ def main() -> int:
         return 2
     from torch_cgx_tpu_torch.models import GPT2Config
     from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.utils.device import card_line
 
     t_start = time.perf_counter()
     # An empty autotune cache of the run's own: nothing is read or written
@@ -1336,17 +1559,14 @@ def main() -> int:
         "CGX_AUTOTUNE_DIR": cache.name,
     })
     for k in ("CGX_SRA_EPILOGUE", "CGX_FUSION_BUFFER_SIZE_MB", "CGX_STANDALONE_LAYER_ELEMS",
-              "CGX_AUTOTUNE", "CGX_PALLAS_TILE_CHUNKS", "CGX_PALLAS_PACK"):
+              "CGX_AUTOTUNE", "CGX_PALLAS_TILE_CHUNKS", "CGX_PALLAS_PACK", "CGX_CODEC_ENCODE"):
         os.environ.pop(k, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
     log("== 1. device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {name}; "
         f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
@@ -1361,10 +1581,11 @@ def main() -> int:
     max_err = check_kernels(dev, FLAT_N, TAIL_N, SRA_WS)
     torch.cuda.synchronize()
 
-    log("== 4. GPT-2 124M slice (CGX_PALLAS_DB=off, then the pipelined path)")
+    log("== 4. GPT-2 124M slice (CGX_PALLAS_DB=off, then the pipelined path, then the lowerings)")
     cfg = GPT2Config.small()
     sl = gpt2_slice(dev, cfg, BATCH, SEQ, STEPS)
     db = db_phase(dev, cfg, sl, STEPS)
+    lowering_phase(dev, cfg, sl, STEPS)
     torch.cuda.empty_cache()
 
     log("== 5. times")
@@ -1385,7 +1606,12 @@ def main() -> int:
     del sl, plain_step
     torch.cuda.empty_cache()
 
-    log(f"== 6. multi-rank: {MR_WS} ranks on the card (cross {MR_WS // MR_INTRA} x intra "
+    log("== 6. qbench: the quantize variants at 128 MB, 4 bits, bucket 512, k = 8 (sra_epilogue ws 8)")
+    qb = qbench_phase()
+    launches["codec_quantize_variant"] = qb["launches"]
+    torch.cuda.empty_cache()
+
+    log(f"== 7. multi-rank: {MR_WS} ranks on the card (cross {MR_WS // MR_INTRA} x intra "
         f"{MR_INTRA}), gloo, GPT-2 124M, {MR_BATCH}x{SEQ} tokens a rank")
     mr = multirank_phase()
     launches["codec_reduce_rows"] = mr["launches"]["codec_reduce_rows"]
@@ -1395,9 +1621,9 @@ def main() -> int:
 
     # One record a kernel: its launches on the path that runs it (phase 4
     # for the three of the world-size-1 slice and, from its forced run, the
-    # three pipelined ones; phase 6's two-level steps for the reduce, its
-    # producer-fused flat SRA step for the matmul-quantize) and its time at
-    # that path's (first) shape.
+    # three pipelined ones; phase 6 for the variant kernel; phase 7's
+    # two-level steps for the reduce, its producer-fused flat SRA step for
+    # the matmul-quantize) and its time at that path's (first) shape.
     records = []
     for r in kern:
         if any(x["name"] == r["name"] for x in records):

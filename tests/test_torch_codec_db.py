@@ -195,11 +195,24 @@ def test_bad_knobs_raise_naming_the_knob(knob, value, monkeypatch):
 
 
 def test_butterfly_pack_is_refused(monkeypatch):
-    monkeypatch.setenv("CGX_PALLAS_PACK", "butterfly")
-    with pytest.raises(NotImplementedError, match="CGX_PALLAS_PACK"):
-        codec_cuda.quantize_batch(torch.randn(1, 2 * 32 * 128), 4, 128)
-    monkeypatch.setenv("CGX_PALLAS_PACK", "sum")
-    codec_cuda.quantize_batch(torch.randn(1, 2 * 32 * 128), 4, 128)
+    """No longer refused: ``CGX_PALLAS_PACK=butterfly`` reaches the quantize
+    wrappers of both lowerings and gives the bytes of "sum"."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 4 * 32 * 128)).astype(np.float32))
+    seen = []
+    for name in ("quantize_chunks", "quantize_chunks_db"):
+        real = getattr(codec_cuda, name)
+        monkeypatch.setattr(codec_cuda, name,
+                            lambda *a, _real=real, **kw: seen.append(kw["pack"]) or _real(*a, **kw))
+    out = {}
+    for db in ("off", "on"):
+        monkeypatch.setenv("CGX_PALLAS_DB", db)
+        for pack in ("butterfly", "sum"):
+            monkeypatch.setenv("CGX_PALLAS_PACK", pack)
+            out[db, pack] = codec_cuda.quantize_batch(x, 4, 128)
+    assert seen == ["butterfly", "sum", "butterfly", "sum"]
+    for key, q in out.items():
+        assert torch.equal(q.packed, out["off", "sum"].packed), key
+        assert torch.equal(q.meta, out["off", "sum"].meta), key
 
 
 def test_stochastic_epilogue_is_refused_without_a_lookup():

@@ -19,6 +19,7 @@ from torch_cgx_tpu_torch.config import CompressionConfig
 from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
 from torch_cgx_tpu_torch.ops import autotune, codec, codec_cuda, dispatch
 from torch_cgx_tpu_torch.parallel import gradient_sync, make_train_step
+from torch_cgx_tpu_torch.tools import qbench
 
 pytestmark = pytest.mark.cuda
 
@@ -95,17 +96,20 @@ def test_launch_counter_counts_only_kernel_launches(dev):
     assert codec_cuda.LAUNCHES == {
         "codec_quantize": 1, "codec_dequantize": 1, "codec_sra_epilogue": 0,
         "codec_reduce_rows": 0, "codec_matmul_quantize": 1, "codec_quantize_db": 0,
-        "codec_dequantize_db": 0, "codec_sra_epilogue_db": 0,
+        "codec_dequantize_db": 0, "codec_sra_epilogue_db": 0, "codec_quantize_variant": 0,
     }
 
 
 def test_cuda_operands_refuse_unported_modes(dev, monkeypatch):
+    """bf16 buffers are still refused; the mul encode runs the kernel's mul
+    lowering, bit-identical to its plain version."""
     x = torch.randn(32 * 512, device=dev)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         codec_cuda.quantize_batch(x.to(torch.bfloat16)[None], 4, 512)
     monkeypatch.setenv("CGX_CODEC_ENCODE", "mul")
-    with pytest.raises(NotImplementedError, match="CGX_CODEC_ENCODE"):
-        codec_cuda.quantize_batch(x[None], 4, 512)
+    q = codec_cuda.quantize_batch(x[None], 4, 512)
+    w, m = codec_cuda.quantize_chunks_plain(x.cpu(), 4, 512, encode="mul")
+    assert _bits_equal(q.packed[0], w) and _bits_equal(q.meta[0], m)
 
 
 def test_tiny_train_step_runs_the_kernels(dev, monkeypatch):
@@ -141,6 +145,7 @@ def test_tiny_train_step_runs_the_kernels(dev, monkeypatch):
         "codec_quantize": True, "codec_dequantize": True, "codec_sra_epilogue": True,
         "codec_reduce_rows": False, "codec_matmul_quantize": False,
         "codec_quantize_db": False, "codec_dequantize_db": False, "codec_sra_epilogue_db": False,
+        "codec_quantize_variant": False,
     }, codec_cuda.LAUNCHES
 
 
@@ -371,3 +376,118 @@ def test_tiny_train_step_db_on_matches_off(dev, monkeypatch):
     assert all(launches["off"][k] == 0 for k in db_keys), launches["off"]
     for n in params["on"]:
         assert _bits_equal(params["on"][n], params["off"][n]), n
+
+
+# ---------------------------------------------------------------------------
+# B9's variant kernel, and the mul encode and butterfly pack of every
+# quantizing kernel (B1, B3, B7a, B7c, B8).
+# ---------------------------------------------------------------------------
+
+VARIANT_CHUNKS = (1, 131, 133)
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 896])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_quantize_variant_matches_plain(dev, bits, bucket):
+    rng = np.random.default_rng(100 * bits + bucket)
+    for chunks in VARIANT_CHUNKS:
+        x = torch.from_numpy(rng.standard_normal(chunks * 32 * bucket).astype(np.float32) * 40).to(dev)
+        for variant in codec_cuda.VARIANTS:
+            w, m = codec_cuda.quantize_variant_chunks(x, variant, bits, bucket)
+            pw, pm = codec_cuda.quantize_variant_chunks_plain(x.cpu(), variant, bits, bucket)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (chunks, variant)
+
+
+def _lowerings():
+    return [(e, p) for e in codec_cuda.ENCODES for p in codec_cuda.PACKS]
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 896])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_quantize_lowerings_match_plain(dev, bits, bucket):
+    """B1 and B7a in each (encode, pack) pair on the tie operand (every
+    value near a level boundary): bit-identical to the plain version of
+    that encode, butterfly equal to sum, and mul differing from div by at
+    most one level somewhere."""
+    for chunks in (1, 131):
+        n = chunks * 32 * bucket
+        x = torch.from_numpy(qbench.tie_operand(n, bucket, bits, seed=bits)).to(dev)
+        got = {}
+        for enc, pack in _lowerings():
+            w, m = codec_cuda.quantize_chunks(x, bits, bucket, encode=enc, pack=pack)
+            pw, pm = codec_cuda.quantize_chunks_plain(x.cpu(), bits, bucket, encode=enc)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (chunks, enc, pack)
+            for tc in _db_tcs("quantize", chunks, bits, bucket):
+                dw, dm = codec_cuda.quantize_chunks_db(x, bits, bucket, tc, encode=enc, pack=pack)
+                assert _bits_equal(dw, w) and _bits_equal(dm, m), (chunks, enc, pack, tc)
+            got[enc, pack] = w
+        for enc in codec_cuda.ENCODES:
+            assert _bits_equal(got[enc, "butterfly"], got[enc, "sum"]), enc
+        lv = {e: codec.unpack_levels_bucketed(got[e, "sum"].cpu(), bits, n // bucket, bucket)
+              for e in codec_cuda.ENCODES}
+        diff = (lv["mul"] - lv["div"]).abs()
+        if chunks > 1:
+            assert int(diff.max()) == 1, chunks
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 896])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_epilogue_lowerings_match_plain(dev, bits, bucket):
+    """B3 and B7c in each (encode, pack) pair at ws 4, the raw own row a
+    tie row: bit-identical to the plain version, butterfly equal to sum."""
+    ws, own, chunks = 4, 1, 33
+    n = chunks * 32 * bucket
+    rows = np.stack([np.random.default_rng(r).standard_normal(n).astype(np.float32) for r in range(ws)])
+    rows[own] = qbench.tie_operand(n, bucket, bits, seed=bits)
+    rows = torch.from_numpy(rows).to(dev)
+    q = codec_cuda.quantize_batch(rows, bits, bucket)
+    for enc in codec_cuda.ENCODES:
+        pw, pm = codec_cuda.sra_epilogue_chunks_plain(
+            q.packed.cpu(), q.meta.cpu(), rows[own].cpu(), own, bits, bucket, encode=enc)
+        for pack in codec_cuda.PACKS:
+            w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, rows[own], own, bits, bucket,
+                                                  encode=enc, pack=pack)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (enc, pack)
+            for tc in _db_tcs("epilogue", chunks, bits, bucket):
+                dw, dm = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, rows[own], own, bits,
+                                                           bucket, tc, encode=enc, pack=pack)
+                assert _bits_equal(dw, pw) and _bits_equal(dm, pm), (enc, pack, tc)
+
+
+@pytest.mark.parametrize("k,din,o,div,bits,bucket", [
+    (64, 256, 512, 2, 4, 512), (1024, 768, 3072, 4, 4, 512), (96, 128, 384, 3, 2, 128),
+    (40, 64, 1792, 2, 8, 1792),
+])
+def test_matmul_quantize_lowerings_match_plain(dev, k, din, o, div, bits, bucket):
+    """B8 in each (encode, pack) pair on small-integer operands."""
+    rng = np.random.default_rng(k + din + o + 1)
+    x2 = torch.from_numpy(rng.integers(-3, 4, (k, din)).astype(np.float32)).to(dev)
+    g2 = torch.from_numpy(rng.integers(-3, 4, (k, o)).astype(np.float32)).to(dev)
+    for enc, pack in _lowerings():
+        w, m = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, encode=enc, pack=pack)
+        pw, pm = codec_cuda.matmul_quantize_chunks_plain(x2.cpu(), g2.cpu(), div, bits, bucket, encode=enc)
+        assert _bits_equal(w, pw) and _bits_equal(m, pm), (enc, pack)
+
+
+def test_knobs_reach_the_kernels(dev, monkeypatch):
+    """The env knobs, through quantize_batch: mul differs from div on the
+    tie operand; butterfly equals sum; both counted as kernel launches."""
+    x = torch.from_numpy(qbench.tie_operand(64 * 32 * 512, 512, 4)).to(dev)[None]
+    out = {}
+    for enc, pack in _lowerings():
+        monkeypatch.setenv("CGX_CODEC_ENCODE", enc)
+        monkeypatch.setenv("CGX_PALLAS_PACK", pack)
+        codec_cuda.reset_launch_counts()
+        out[enc, pack] = codec_cuda.quantize_batch(x, 4, 512).packed
+        torch.cuda.synchronize()
+        assert codec_cuda.LAUNCHES["codec_quantize"] == 1
+    assert _bits_equal(out["div", "butterfly"], out["div", "sum"])
+    assert _bits_equal(out["mul", "butterfly"], out["mul", "sum"])
+    assert not _bits_equal(out["mul", "sum"], out["div", "sum"])
+
+
+def test_qbench_runs_each_variant_on_the_card(dev, capsys):
+    for variant in qbench.VARIANTS:
+        rec = qbench.main([variant, "--mb", "16", "--k", "3"])
+        assert rec["device"] == torch.cuda.get_device_name(0) and rec["bound_ms"] > 0, rec
+    assert "byte_check: ok" in capsys.readouterr().out

@@ -246,10 +246,16 @@ def test_plain_matches_jax_quantize_batch(bits, bucket, div):
 
 
 def test_kernel_wrapper_refuses_unported_modes(monkeypatch):
+    """Stochastic rounding is still refused; the mul encode is not: under
+    ``CGX_CODEC_ENCODE=mul`` the wrapper gives its plain version's mul
+    bytes, with the div encode's meta."""
     x2, g2 = (torch.from_numpy(t) for t in _operands(0, 64, 128, 256, integer=True))
     monkeypatch.setenv("CGX_CODEC_ENCODE", "mul")
-    with pytest.raises(NotImplementedError, match="CGX_CODEC_ENCODE"):
-        codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 512)
+    w, m = codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 512)
+    pw, pm = codec_cuda.matmul_quantize_chunks_plain(x2, g2, 2, 4, 512, encode="mul")
+    _, dm = codec_cuda.matmul_quantize_chunks_plain(x2, g2, 2, 4, 512, encode="div")
+    assert torch.equal(w, pw) and torch.equal(m, pm)
+    assert torch.equal(m, dm)
     monkeypatch.delenv("CGX_CODEC_ENCODE")
     monkeypatch.setenv("CGX_STOCHASTIC_ROUNDING", "1")
     with pytest.raises(NotImplementedError, match="stochastic"):

@@ -233,6 +233,11 @@ def producer_fuse() -> str:
 
 
 def codec_encode() -> str:
+    """CGX_CODEC_ENCODE: the level encode of the chunk kernels, "div" (the
+    default: an IEEE divide per value, the bytes of every other codec) or
+    "mul" (a multiply by the bucket's reciprocal, which may pick the
+    neighbouring level at a last-ulp tie). The dense tail outside the
+    kernels always divides."""
     raw = _env.get_str_env_or_default(CODEC_ENCODE, "div").lower()
     if raw not in ("div", "mul"):
         raise ValueError(f"{CODEC_ENCODE}={raw!r}: expected 'div' or 'mul'")
@@ -268,8 +273,9 @@ def pallas_db() -> str:
 
 def pallas_pack() -> Optional[str]:
     """CGX_PALLAS_PACK: the bit-plane pack lowering, "sum" or "butterfly"
-    (unset: the autotuned or default one). The kernels have one pack
-    lowering, "sum"; the wrappers refuse "butterfly"."""
+    (unset: the autotuned or default one). Both lowerings give the same
+    bytes: "sum" ORs each position's 32 bucket bits in one thread,
+    "butterfly" takes each plane word as one warp ballot over the buckets."""
     raw = (_env.get_optional_str_env(PALLAS_PACK) or "").lower()
     if raw and raw not in ("sum", "butterfly"):
         raise ValueError(f"{PALLAS_PACK}={raw!r}: expected 'sum' or 'butterfly'")

@@ -1,10 +1,10 @@
 // Max-min codec kernels for Hopper (sm_90a): quantize, dequantize (with an
 // optional fused add), the fused SRA epilogue, the multi-row reduce, the
-// producer's matmul with a quantize epilogue, and pipelined versions of the
-// first three.
+// producer's matmul with a quantize epilogue, pipelined versions of the
+// first three, and the quantize diagnostics of the kernel benchmark.
 //
-// They replace the Pallas TPU kernels of torch_cgx_tpu/ops/codec_pallas.py
-// and torch_cgx_tpu/ops/fused_producer.py:
+// They replace the Pallas TPU kernels of torch_cgx_tpu/ops/codec_pallas.py,
+// torch_cgx_tpu/ops/fused_producer.py and tools/qbench.py:
 //   cgx_quantize         <- _quantize_flat_impl (B1) and _quantize_chunks_impl (B5)
 //   cgx_dequantize       <- _dequantize_flat_impl (B2) and _dequantize_chunks_impl (B6)
 //   cgx_sra_epilogue     <- _sra_epilogue_impl (B3)
@@ -13,6 +13,9 @@
 //   cgx_quantize_db      <- _quantize_flat_db_impl (B7a)
 //   cgx_dequantize_db    <- _dequantize_flat_db_impl (B7b)
 //   cgx_sra_epilogue_db  <- _sra_epilogue_db_impl (B7c)
+//   cgx_quantize_variant <- tools/qbench.py make_variant_kernel (B9: the
+//                           nometa, metalane and read bodies; its mul and
+//                           butterfly variants are cgx_quantize's lowerings)
 // CUDA has no 128-lane tiling constraint, so one kernel serves both the flat
 // and the bucket-row geometry of each TPU pair: every kernel walks whole
 // chunks of 32 buckets, one thread block per chunk.
@@ -42,9 +45,21 @@
 //
 // Arithmetic is fixed to the plain PyTorch version in
 // torch_cgx_tpu_torch/ops/codec.py, bit for bit: the meta multiplies by
-// f32(1/(2^bits-1)) computed on the host; levels use an IEEE divide; decode
-// rounds the product before the add. Explicit __f*_rn intrinsics keep nvcc
-// from contracting a*b+c into an FMA (the build adds -fmad=false too).
+// f32(1/(2^bits-1)) computed on the host; levels use an IEEE divide (or,
+// under the mul encode, a multiply by the bucket's correctly rounded
+// reciprocal); decode rounds the product before the add. Explicit __f*_rn
+// intrinsics keep nvcc from contracting a*b+c into an FMA (the build adds
+// -fmad=false too).
+//
+// Two lowerings are template parameters of every quantizing kernel, so the
+// default pair compiles to its own code with no branch in the inner loop:
+//   ENCODE  kEncodeDiv: (x - min) / safe;  kEncodeMul: (x - min) * inv with
+//           inv = 1 / safe once per bucket (CGX_CODEC_ENCODE=mul);
+//   PACK    kPackSum: thread l ORs the 32 buckets' bits of position l into
+//           its words; kPackButterfly (CGX_PALLAS_PACK=butterfly): lane s of
+//           a warp holds bucket s, and each plane word is one __ballot_sync,
+//           since the bit-plane wire layout is exactly a warp ballot.
+// Both pairs give the same bytes for the same encode.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,8 +69,18 @@ namespace {
 constexpr int kChunkBuckets = 32;
 constexpr int kThreads = 256;
 
+constexpr int kEncodeDiv = 0;
+constexpr int kEncodeMul = 1;
+constexpr int kPackSum = 0;
+constexpr int kPackButterfly = 1;
+constexpr int kMetaPairs = 0;  // chunk_meta stores the (unit, min) pairs
+constexpr int kMetaNone = 1;   // chunk_meta leaves the meta store to its caller
+
 // Per-bucket max/min of one chunk. src: 32 buckets of B floats (global or
-// shared memory). Writes (unit, min) to shared memory and to meta_out.
+// shared memory). Writes (unit, min) to shared memory (under the mul
+// encode s_unit holds the reciprocal 1/safe instead, correctly rounded)
+// and, with META == kMetaPairs, the pairs to meta_out.
+template <int ENCODE = kEncodeDiv, int META = kMetaPairs>
 __device__ void chunk_meta(const float* src, int B, float inv, float* s_unit,
                            float* s_min, float* meta_out) {
   const int warp = threadIdx.x >> 5;
@@ -78,32 +103,94 @@ __device__ void chunk_meta(const float* src, int B, float inv, float* s_unit,
     }
     if (lane == 0) {
       const float unit = __fmul_rn(__fsub_rn(mx, mn), inv);
-      s_unit[s] = unit;
+      if (ENCODE == kEncodeMul) {
+        s_unit[s] = __fdiv_rn(1.f, unit > 0.f ? unit : 1.f);
+      } else {
+        s_unit[s] = unit;
+      }
       s_min[s] = mn;
-      meta_out[2 * s] = unit;
-      meta_out[2 * s + 1] = mn;
+      if (META == kMetaPairs) {
+        meta_out[2 * s] = unit;
+        meta_out[2 * s + 1] = mn;
+      }
     }
   }
 }
 
-// Levels of one chunk, packed as bit planes: thread l owns position l of
-// all 32 buckets and ORs bit k of bucket s's level into word k at bit s.
-template <int BITS>
-__device__ void chunk_encode(const float* src, int B, const float* s_unit,
-                             const float* s_min, int32_t* words_out) {
+// The level of value x of a bucket whose chunk_meta entries are `scale`
+// (the unit, or under the mul encode the reciprocal) and `bmin`.
+template <int BITS, int ENCODE>
+__device__ __forceinline__ uint32_t level_of(float x, float scale, float bmin) {
   const float maxlvl = (float)((1 << BITS) - 1);
+  float y;
+  if (ENCODE == kEncodeMul) {
+    y = __fadd_rn(__fmul_rn(__fsub_rn(x, bmin), scale), 0.5f);
+  } else {
+    const float safe = scale > 0.f ? scale : 1.f;
+    y = __fadd_rn(__fdiv_rn(__fsub_rn(x, bmin), safe), 0.5f);
+  }
+  return (uint32_t)fminf(fmaxf(floorf(y), 0.f), maxlvl);
+}
+
+// Levels of one chunk, packed as bit planes into words_out (BITS words of
+// B at each position).
+// kPackSum: thread l owns position l of all 32 buckets and ORs bit k of
+// bucket s's level into word k at bit s.
+// kPackButterfly: a warp takes 32 positions at a time. Lane j computes the
+// levels of position l0 + j in all 32 buckets (coalesced reads), the warp
+// transposes them through `stage`, then in turn for each position lane s
+// holds bucket s's level and bit k of word k is one __ballot_sync. The
+// stage is each warp's 32 x 32 words, rotated (level (s, j) at column
+// (j + s) % 32 of row s) so that both the row-wise writes and the
+// bucket-wise reads hit 32 distinct banks. STAGE_IN_TILE: the stage is the
+// warp's own 32 columns of the (32, B) tile it just read (src, row stride
+// B; nothing reads those columns again); otherwise a private buffer of
+// blockDim.x * 32 words, 32 words a row.
+template <int BITS, int ENCODE, int PACK, bool STAGE_IN_TILE = true>
+__device__ void chunk_encode(const float* src, int B, const float* s_unit,
+                             const float* s_min, int32_t* words_out,
+                             uint32_t* stage = nullptr) {
+  if (PACK == kPackButterfly) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    for (int l0 = warp * 32; l0 < B; l0 += blockDim.x) {
+      uint32_t* st = STAGE_IN_TILE ? reinterpret_cast<uint32_t*>(const_cast<float*>(src)) + l0
+                                   : stage + (size_t)warp * 32 * 32;
+      const int stride = STAGE_IN_TILE ? B : 32;
+      uint32_t q[kChunkBuckets];
+#pragma unroll
+      for (int s = 0; s < kChunkBuckets; ++s) {
+        q[s] = level_of<BITS, ENCODE>(src[(size_t)s * B + l0 + lane], s_unit[s], s_min[s]);
+      }
+      __syncwarp();  // every lane has read its column before the stage overwrites it
+#pragma unroll
+      for (int s = 0; s < kChunkBuckets; ++s) st[(size_t)s * stride + ((lane + s) & 31)] = q[s];
+      __syncwarp();
+      uint32_t w[BITS];
+#pragma unroll
+      for (int k = 0; k < BITS; ++k) w[k] = 0u;
+#pragma unroll 4
+      for (int j = 0; j < 32; ++j) {
+        const uint32_t v = st[(size_t)lane * stride + ((j + lane) & 31)];  // bucket lane, position l0 + j
+#pragma unroll
+        for (int k = 0; k < BITS; ++k) {
+          const uint32_t b = __ballot_sync(0xffffffffu, (v >> k) & 1u);
+          w[k] = lane == j ? b : w[k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < BITS; ++k) words_out[(size_t)k * B + l0 + lane] = (int32_t)w[k];
+      __syncwarp();  // the stage's reads are done before the next group writes it
+    }
+    return;
+  }
   for (int l = threadIdx.x; l < B; l += blockDim.x) {
     uint32_t w[BITS];
 #pragma unroll
     for (int k = 0; k < BITS; ++k) w[k] = 0u;
 #pragma unroll 4
     for (int s = 0; s < kChunkBuckets; ++s) {
-      const float unit = s_unit[s];
-      const float safe = unit > 0.f ? unit : 1.f;
-      const float y = __fadd_rn(
-          __fdiv_rn(__fsub_rn(src[(size_t)s * B + l], s_min[s]), safe), 0.5f);
-      const float lv = fminf(fmaxf(floorf(y), 0.f), maxlvl);
-      const uint32_t q = (uint32_t)lv;
+      const uint32_t q = level_of<BITS, ENCODE>(src[(size_t)s * B + l], s_unit[s], s_min[s]);
 #pragma unroll
       for (int k = 0; k < BITS; ++k) w[k] |= ((q >> k) & 1u) << s;
     }
@@ -132,20 +219,73 @@ __device__ __forceinline__ void load_chunk_meta(const float* meta, float* s_unit
 }
 
 // codec_quantize. Replaces codec_pallas.py _quantize_flat_impl (B1) and
-// _quantize_chunks_impl (B5). One block per chunk: warps reduce each bucket's
-// max/min, then thread l encodes position l of all 32 buckets. Memory-bound:
-// reads 4n bytes, writes n*bits/8 + 8n/B (n values, bucket B).
-template <int BITS>
+// _quantize_chunks_impl (B5), and B9's mul and butterfly variants
+// (tools/qbench.py). One block per chunk: warps reduce each bucket's
+// max/min, then thread l encodes position l of all 32 buckets (under the
+// butterfly pack, each warp 32 positions through a 32 KB private stage).
+// Memory-bound: reads 4n bytes, writes n*bits/8 + 8n/B (n values, bucket B).
+template <int BITS, int ENCODE, int PACK>
 __global__ void __launch_bounds__(kThreads)
     cgx_quantize_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
                         float* __restrict__ meta, int B, float inv) {
   __shared__ float s_unit[kChunkBuckets];
   __shared__ float s_min[kChunkBuckets];
+  __shared__ uint32_t s_stage[PACK == kPackButterfly ? kThreads * 32 : 1];
   const size_t c = blockIdx.x;
   const float* src = x + c * kChunkBuckets * B;
-  chunk_meta(src, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
+  chunk_meta<ENCODE>(src, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
   __syncthreads();
-  chunk_encode<BITS>(src, B, s_unit, s_min, words + c * BITS * B);
+  chunk_encode<BITS, ENCODE, PACK, false>(src, B, s_unit, s_min, words + c * BITS * B, s_stage);
+}
+
+// codec_quantize_variant. Replaces tools/qbench.py make_variant_kernel
+// (B9), the quantize diagnostics, on B1's geometry and chunk_meta:
+//   kVariantNoMeta   B1's words, the meta zero-filled (the pairs' store
+//                    dropped);
+//   kVariantMetaLane B1's words, per chunk one 128-float meta row
+//                    [32 units | 32 mins | 64 zeros] (a full-width store);
+//   kVariantRead     per chunk, the int32 (toward zero, saturating, NaN ->
+//                    0) of the largest unit of its 32 buckets in each of its
+//                    bits*B words, and the usual meta: the input read and
+//                    the output written with no encode and no pack.
+// Memory-bound like B1: reads 4n bytes, writes n*bits/8 + 8n/B (metalane
+// 16n/B of meta).
+constexpr int kVariantNoMeta = 0;
+constexpr int kVariantMetaLane = 1;
+constexpr int kVariantRead = 2;
+
+template <int BITS, int VARIANT>
+__global__ void __launch_bounds__(kThreads)
+    cgx_quantize_variant_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
+                                float* __restrict__ meta, int B, float inv) {
+  __shared__ float s_unit[kChunkBuckets];
+  __shared__ float s_min[kChunkBuckets];
+  const size_t c = blockIdx.x;
+  const float* src = x + c * kChunkBuckets * B;
+  int32_t* wout = words + c * BITS * B;
+  if (VARIANT == kVariantRead) {
+    chunk_meta<kEncodeDiv, kMetaPairs>(src, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
+    __syncthreads();
+    float m = s_unit[0];
+    bool nan = false;
+    for (int s = 0; s < kChunkBuckets; ++s) {
+      const float u = s_unit[s];
+      nan = nan || isnan(u);
+      m = u > m ? u : m;
+    }
+    const int32_t v = nan ? 0 : __float2int_rz(m);
+    for (int i = threadIdx.x; i < BITS * B; i += blockDim.x) wout[i] = v;
+    return;
+  }
+  chunk_meta<kEncodeDiv, kMetaNone>(src, B, inv, s_unit, s_min, nullptr);
+  __syncthreads();
+  chunk_encode<BITS, kEncodeDiv, kPackSum>(src, B, s_unit, s_min, wout);
+  const int t = threadIdx.x;
+  if (VARIANT == kVariantNoMeta) {
+    if (t < 2 * kChunkBuckets) meta[c * 2 * kChunkBuckets + t] = 0.f;
+  } else if (t < 128) {
+    meta[c * 128 + t] = t < kChunkBuckets ? s_unit[t] : t < 2 * kChunkBuckets ? s_min[t - kChunkBuckets] : 0.f;
+  }
 }
 
 // codec_dequantize. Replaces codec_pallas.py _dequantize_flat_impl (B2,
@@ -186,8 +326,9 @@ __global__ void __launch_bounds__(kThreads)
 // One block per chunk: decode the chunk of each of the ws rows (the raw own
 // row in place of row `own`), fold them in ascending row order into a
 // (32, B) f32 tile in shared memory, then requantize the tile with the same
-// chunk_meta/chunk_encode the quantize kernel runs.
-template <int BITS>
+// chunk_meta/chunk_encode the quantize kernel runs (the butterfly pack
+// stages its levels in the tile's own columns).
+template <int BITS, int ENCODE, int PACK>
 __global__ void __launch_bounds__(kThreads)
     cgx_sra_epilogue_kernel(const int32_t* __restrict__ words,
                             const float* __restrict__ meta,
@@ -221,9 +362,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  chunk_meta(tile, B, inv, s_unit, s_min, out_meta + c * 2 * kChunkBuckets);
+  chunk_meta<ENCODE>(tile, B, inv, s_unit, s_min, out_meta + c * 2 * kChunkBuckets);
   __syncthreads();
-  chunk_encode<BITS>(tile, B, s_unit, s_min, out_words + c * BITS * B);
+  chunk_encode<BITS, ENCODE, PACK>(tile, B, s_unit, s_min, out_words + c * BITS * B);
 }
 
 // codec_reduce_rows. Replaces codec_pallas.py _reduce_rows_impl (B4): the
@@ -325,7 +466,7 @@ __device__ __forceinline__ void mm_step(float (&acc)[kMmRows][kMmCols], const fl
 // chunk, divided by div, go to a (32, B) f32 tile in shared memory, on
 // which chunk_meta and chunk_encode run as in the epilogue, so the bytes
 // equal the quantize kernel's for equal values.
-template <int BITS>
+template <int BITS, int ENCODE, int PACK>
 __global__ void __launch_bounds__(kThreads)
     cgx_matmul_quantize_kernel(const float* __restrict__ x2,
                                const float* __restrict__ g2, long long k_total,
@@ -428,9 +569,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  chunk_meta(tile, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
+  chunk_meta<ENCODE>(tile, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
   __syncthreads();
-  chunk_encode<BITS>(tile, B, s_unit, s_min, words + c * BITS * B);
+  chunk_encode<BITS, ENCODE, PACK>(tile, B, s_unit, s_min, words + c * BITS * B);
 }
 
 // ---------------------------------------------------------------------------
@@ -531,8 +672,10 @@ __device__ __forceinline__ long long tile_of(long long j) {
 // the meta needs each bucket whole and the encode all 32 buckets at each
 // position. From the slot, chunk_meta then chunk_encode run, so the input
 // is read from device memory once (the single-stage kernel reads it
-// twice). Memory-bound: reads 4n bytes, writes n*bits/8 + 8n/B.
-template <int BITS>
+// twice). Memory-bound: reads 4n bytes, writes n*bits/8 + 8n/B. The
+// butterfly pack stages its levels in the slot's own chunk, which is not
+// read again before the slot is refilled.
+template <int BITS, int ENCODE, int PACK>
 __global__ void __launch_bounds__(kDbThreads)
     cgx_quantize_db_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
                            float* __restrict__ meta, long long tiles, int tc, int B,
@@ -561,9 +704,9 @@ __global__ void __launch_bounds__(kDbThreads)
     const float* src = ring + s * slot_n;
     for (int k = 0; k < tc; ++k) {
       const long long c = tile_of(j) * tc + k;
-      chunk_meta(src + k * chunk_n, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
+      chunk_meta<ENCODE>(src + k * chunk_n, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
       __syncthreads();
-      chunk_encode<BITS>(src + k * chunk_n, B, s_unit, s_min, words + c * BITS * B);
+      chunk_encode<BITS, ENCODE, PACK>(src + k * chunk_n, B, s_unit, s_min, words + c * BITS * B);
       __syncthreads();  // every thread is done with the chunk and its meta
     }
     if (threadIdx.x == 0 && j + kRing < mine) fill(j + kRing);
@@ -642,7 +785,7 @@ __global__ void __launch_bounds__(kDbThreads)
 // chunk_meta and chunk_encode requantize each chunk of the tile.
 // Memory-bound: reads ws*(n*bits/8 + 8n/B) (+4n of the raw own row),
 // writes n*bits/8 + 8n/B; the reduced floats stay in shared memory.
-template <int BITS>
+template <int BITS, int ENCODE, int PACK>
 __global__ void __launch_bounds__(kDbThreads)
     cgx_sra_epilogue_db_kernel(const int32_t* __restrict__ words,
                                const float* __restrict__ meta, const float* __restrict__ raw,
@@ -711,11 +854,11 @@ __global__ void __launch_bounds__(kDbThreads)
     if (r == ws - 1) {
       for (int k = 0; k < tc; ++k) {
         const size_t c = (size_t)(c0 + k);
-        chunk_meta(tile + (size_t)k * chunk_n, B, inv, s_unit, s_min,
-                   out_meta + c * 2 * kChunkBuckets);
+        chunk_meta<ENCODE>(tile + (size_t)k * chunk_n, B, inv, s_unit, s_min,
+                           out_meta + c * 2 * kChunkBuckets);
         __syncthreads();
-        chunk_encode<BITS>(tile + (size_t)k * chunk_n, B, s_unit, s_min,
-                           out_words + c * BITS * B);
+        chunk_encode<BITS, ENCODE, PACK>(tile + (size_t)k * chunk_n, B, s_unit, s_min,
+                                         out_words + c * BITS * B);
         __syncthreads();  // the tile and the meta are free for the next tile
       }
     }
@@ -733,6 +876,20 @@ __global__ void __launch_bounds__(kDbThreads)
     case 7: { constexpr int BITS = 7; __VA_ARGS__; } break; \
     case 8: { constexpr int BITS = 8; __VA_ARGS__; } break; \
     default: return (int)cudaErrorInvalidValue;             \
+  }
+
+// The (encode, pack) lowering pair as the constants ENCODE and PACK.
+#define CGX_DISPATCH_LOWERING(encode, pack, ...)                                              \
+  if (encode == kEncodeDiv && pack == kPackSum) {                                             \
+    constexpr int ENCODE = kEncodeDiv, PACK = kPackSum; __VA_ARGS__;                          \
+  } else if (encode == kEncodeMul && pack == kPackSum) {                                      \
+    constexpr int ENCODE = kEncodeMul, PACK = kPackSum; __VA_ARGS__;                          \
+  } else if (encode == kEncodeDiv && pack == kPackButterfly) {                                \
+    constexpr int ENCODE = kEncodeDiv, PACK = kPackButterfly; __VA_ARGS__;                    \
+  } else if (encode == kEncodeMul && pack == kPackButterfly) {                                \
+    constexpr int ENCODE = kEncodeMul, PACK = kPackButterfly; __VA_ARGS__;                    \
+  } else {                                                                                    \
+    return (int)cudaErrorInvalidValue;                                                        \
   }
 
 // The persistent grid of a pipelined kernel at `smem` bytes of dynamic
@@ -763,18 +920,61 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
+// The build compiles this file once per part (-DCGX_PART=0..5), the parts
+// in parallel, and links them into one library; without CGX_PART it
+// compiles every entry point.
+#ifdef CGX_PART
+#define CGX_IN_PART(k) (CGX_PART == (k))
+#else
+#define CGX_IN_PART(k) 1
+#endif
+
 extern "C" {
 
+// Every quantizing entry point takes `encode` (0 div, 1 mul) and `pack`
+// (0 sum, 1 butterfly).
+
+#if CGX_IN_PART(0)
 // x: chunks*32*B f32 -> words: chunks*bits*B int32, meta: chunks*32*2 f32.
 int cgx_quantize(const float* x, int32_t* words, float* meta, long long chunks,
-                 int B, int bits, float inv, void* stream) {
+                 int B, int bits, float inv, int encode, int pack, void* stream) {
   if (chunks < 1 || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  CGX_DISPATCH_BITS(bits, cgx_quantize_kernel<BITS><<<(unsigned)chunks, kThreads, 0, st>>>(
-                              x, words, meta, B, inv));
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack,
+      cgx_quantize_kernel<BITS, ENCODE, PACK><<<(unsigned)chunks, kThreads, 0, st>>>(
+          x, words, meta, B, inv)));
   return (int)cudaGetLastError();
 }
+#endif
 
+#if CGX_IN_PART(1)
+// B9's bodies. x: chunks*32*B f32 -> words: chunks*bits*B int32; meta:
+// chunks*32*2 f32 (variant 0 nometa, 2 read) or chunks*128 f32 (1 metalane).
+int cgx_quantize_variant(const float* x, int32_t* words, float* meta, long long chunks,
+                         int B, int bits, int variant, float inv, void* stream) {
+  if (chunks < 1 || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {
+    case kVariantNoMeta:
+      CGX_DISPATCH_BITS(bits, cgx_quantize_variant_kernel<BITS, kVariantNoMeta>
+                              <<<(unsigned)chunks, kThreads, 0, st>>>(x, words, meta, B, inv));
+      break;
+    case kVariantMetaLane:
+      CGX_DISPATCH_BITS(bits, cgx_quantize_variant_kernel<BITS, kVariantMetaLane>
+                              <<<(unsigned)chunks, kThreads, 0, st>>>(x, words, meta, B, inv));
+      break;
+    case kVariantRead:
+      CGX_DISPATCH_BITS(bits, cgx_quantize_variant_kernel<BITS, kVariantRead>
+                              <<<(unsigned)chunks, kThreads, 0, st>>>(x, words, meta, B, inv));
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+#endif
+
+#if CGX_IN_PART(1)
 // words + meta -> out (chunks*32*B f32); add (same shape) or null.
 int cgx_dequantize(const int32_t* words, const float* meta, const float* add,
                    float* out, long long chunks, int B, int bits, void* stream) {
@@ -789,29 +989,33 @@ int cgx_dequantize(const int32_t* words, const float* meta, const float* add,
   }
   return (int)cudaGetLastError();
 }
+#endif
 
+#if CGX_IN_PART(2)
 // words: ws rows of chunks*bits*B int32, meta: ws rows of chunks*32*2 f32,
 // raw: the own row's chunks*32*B f32 (null with own == -1) -> the
 // requantized reduced chunk: out_words chunks*bits*B, out_meta chunks*32*2.
 int cgx_sra_epilogue(const int32_t* words, const float* meta, const float* raw,
                      int own, int ws, long long chunks, int B, int bits,
-                     float inv, int32_t* out_words, float* out_meta,
+                     float inv, int encode, int pack, int32_t* out_words, float* out_meta,
                      void* stream) {
   if (chunks < 1 || ws < 1 || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
   if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)kChunkBuckets * B * sizeof(float);
-  CGX_DISPATCH_BITS(bits, {
-    cudaError_t e = cudaFuncSetAttribute(cgx_sra_epilogue_kernel<BITS>,
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    cudaError_t e = cudaFuncSetAttribute(cgx_sra_epilogue_kernel<BITS, ENCODE, PACK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
-    cgx_sra_epilogue_kernel<BITS><<<(unsigned)chunks, kThreads, smem, st>>>(
+    cgx_sra_epilogue_kernel<BITS, ENCODE, PACK><<<(unsigned)chunks, kThreads, smem, st>>>(
         words, meta, raw, own, ws, chunks, B, inv, out_words, out_meta);
-  });
+  }));
   return (int)cudaGetLastError();
 }
+#endif
 
+#if CGX_IN_PART(1)
 // words: ws rows of chunks*bits*B int32, meta: ws rows of chunks*32*2 f32,
 // raw: the own row's chunks*32*B f32 (null with own == -1) -> out: the
 // reduced chunk, chunks*32*B f32.
@@ -832,7 +1036,9 @@ int cgx_reduce_rows(const int32_t* words, const float* meta, const float* raw,
   });
   return (int)cudaGetLastError();
 }
+#endif
 
+#if CGX_IN_PART(3)
 // x2: k_total*din f32, g2: k_total*o f32 (row-major; g2 16-byte aligned) ->
 // the flat dw = x2^T g2 / div quantized: words (din*o/(32*B))*bits*B int32,
 // meta (din*o/B)*2 f32. din*o must be whole 32-bucket chunks, o % 4 == 0.
@@ -840,7 +1046,7 @@ int cgx_reduce_rows(const int32_t* words, const float* meta, const float* raw,
 // use beyond it stages up to 8 contraction steps of the operands, twice.
 int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total,
                         int din, int o, float div, int32_t* words, float* meta,
-                        int B, int bits, float inv, void* stream) {
+                        int B, int bits, float inv, int encode, int pack, void* stream) {
   const long long n = (long long)din * o;
   const long long chunk_n = (long long)kChunkBuckets * B;
   if (k_total < 1 || din < 1 || o < kMmCols || o % kMmCols || B < 32 || B % 32 ||
@@ -863,15 +1069,16 @@ int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total,
   const long long chunks = n / chunk_n;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)(chunk_n + 2LL * steps * (kMmPanel + kMmRows)) * sizeof(float);
-  CGX_DISPATCH_BITS(bits, {
-    e = cudaFuncSetAttribute(cgx_matmul_quantize_kernel<BITS>,
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    e = cudaFuncSetAttribute(cgx_matmul_quantize_kernel<BITS, ENCODE, PACK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    cgx_matmul_quantize_kernel<BITS><<<(unsigned)chunks, kThreads, smem, st>>>(
+    cgx_matmul_quantize_kernel<BITS, ENCODE, PACK><<<(unsigned)chunks, kThreads, smem, st>>>(
         x2, g2, k_total, din, o, div, B, inv, steps, words, meta);
-  });
+  }));
   return (int)cudaGetLastError();
 }
+#endif
 
 // The pipelined kernels take the arguments of their single-stage siblings
 // and `tc`, the chunks a tile (a ring slot) holds; tc divides the chunk
@@ -880,21 +1087,25 @@ int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total,
 // (+ tc*32*B*4 with add), two slots each; the epilogue has four slots of
 // tc*(bits*B*4 + 256) and the tc*32*B*4-byte tile.
 
+#if CGX_IN_PART(4)
 int cgx_quantize_db(const float* x, int32_t* words, float* meta, long long chunks, int tc,
-                    int B, int bits, float inv, void* stream) {
+                    int B, int bits, float inv, int encode, int pack, void* stream) {
   if (!db_geometry_ok(chunks, tc, B) || !aligned16(x)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long tiles = chunks / tc;
   const size_t smem = kBarBytes + (size_t)kRing * tc * kChunkBuckets * B * sizeof(float);
-  CGX_DISPATCH_BITS(bits, {
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     unsigned grid = 0;
-    cudaError_t e = db_grid(cgx_quantize_db_kernel<BITS>, smem, tiles, &grid);
+    cudaError_t e = db_grid(cgx_quantize_db_kernel<BITS, ENCODE, PACK>, smem, tiles, &grid);
     if (e != cudaSuccess) return (int)e;
-    cgx_quantize_db_kernel<BITS><<<grid, kDbThreads, smem, st>>>(x, words, meta, tiles, tc, B, inv);
-  });
+    cgx_quantize_db_kernel<BITS, ENCODE, PACK><<<grid, kDbThreads, smem, st>>>(
+        x, words, meta, tiles, tc, B, inv);
+  }));
   return (int)cudaGetLastError();
 }
+#endif
 
+#if CGX_IN_PART(1)
 int cgx_dequantize_db(const int32_t* words, const float* meta, const float* add, float* out,
                       long long chunks, int tc, int B, int bits, void* stream) {
   if (!db_geometry_ok(chunks, tc, B) || !aligned16(words) || !aligned16(meta) ||
@@ -923,10 +1134,13 @@ int cgx_dequantize_db(const int32_t* words, const float* meta, const float* add,
   });
   return (int)cudaGetLastError();
 }
+#endif
 
+#if CGX_IN_PART(5)
 int cgx_sra_epilogue_db(const int32_t* words, const float* meta, const float* raw, int own,
                         int ws, long long chunks, int tc, int B, int bits, float inv,
-                        int32_t* out_words, float* out_meta, void* stream) {
+                        int encode, int pack, int32_t* out_words, float* out_meta,
+                        void* stream) {
   if (!db_geometry_ok(chunks, tc, B) || ws < 1 || own >= ws) return (int)cudaErrorInvalidValue;
   if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
   if (!aligned16(words) || !aligned16(meta) || (raw && !aligned16(raw))) {
@@ -934,17 +1148,18 @@ int cgx_sra_epilogue_db(const int32_t* words, const float* meta, const float* ra
   }
   cudaStream_t st = (cudaStream_t)stream;
   const long long tiles = chunks / tc;
-  CGX_DISPATCH_BITS(bits, {
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     const size_t smem = kBarBytes +
                         (size_t)kEpiRing * tc * ((size_t)BITS * B + 2 * kChunkBuckets) * 4 +
                         (size_t)tc * kChunkBuckets * B * sizeof(float);
     unsigned grid = 0;
-    cudaError_t e = db_grid(cgx_sra_epilogue_db_kernel<BITS>, smem, tiles, &grid);
+    cudaError_t e = db_grid(cgx_sra_epilogue_db_kernel<BITS, ENCODE, PACK>, smem, tiles, &grid);
     if (e != cudaSuccess) return (int)e;
-    cgx_sra_epilogue_db_kernel<BITS><<<grid, kDbThreads, smem, st>>>(
+    cgx_sra_epilogue_db_kernel<BITS, ENCODE, PACK><<<grid, kDbThreads, smem, st>>>(
         words, meta, raw, own, ws, chunks, tiles, tc, B, inv, out_words, out_meta);
-  });
+  }));
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"

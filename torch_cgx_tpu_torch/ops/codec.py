@@ -6,7 +6,11 @@ same bytes on the wire:
 * per bucket of ``bucket_size`` values, ``unit = (max - min) *
   f32(1/(2^bits - 1))`` (a multiply by a constant rounded once to f32, never
   a divide) and ``level = clip(floor((x - min) / safe + 0.5), 0, 2^bits-1)``
-  with ``safe = unit if unit > 0 else 1`` (an IEEE divide);
+  with ``safe = unit if unit > 0 else 1`` (an IEEE divide). The ``mul``
+  encode (``CGX_CODEC_ENCODE=mul``, chunk kernels only) instead computes
+  ``inv = f32(1) / safe`` once per bucket and ``floor((x - min) * inv +
+  0.5)``, the product rounded before the add; it may pick the neighbouring
+  level where a value lies within an ulp of a level boundary;
 * meta is the ``(unit, min)`` pair of each bucket, in the tensor's dtype;
 * full chunks of 32 buckets are packed as bit planes: word ``(c, w, l)``
   (flat index ``c*bits*B + w*B + l``) holds bit ``w`` of the level at
@@ -83,20 +87,38 @@ def _u32_to_i32(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
 
 
-def pack_levels_bucketed(lvl: torch.Tensor, bits: int) -> torch.Tensor:
+def _butterfly_plane(a: torch.Tensor) -> torch.Tensor:
+    """One bit plane of ``(c, 32, B)`` bits folded over the bucket axis by
+    five shift-OR halvings: ``a[:sh] | a[sh:2sh] << sh`` for sh = 16 .. 1
+    (``codec_pallas._pack_planes``' butterfly) -> ``(c, B)``."""
+    sh = CHUNK_BUCKETS // 2
+    while sh >= 1:
+        a = a[:, :sh] | (a[:, sh : 2 * sh] << sh)
+        sh //= 2
+    return a[:, 0]
+
+
+def pack_levels_bucketed(lvl: torch.Tensor, bits: int, pack: str = "sum") -> torch.Tensor:
     """Pack levels ``(nb, B)`` (any integer dtype, values < 2^bits) into the
-    chunked wire layout -> flat int32 words."""
+    chunked wire layout -> flat int32 words. ``pack`` is the lowering of the
+    bit-plane fold over the 32 buckets: "sum" (shifted bits summed) or
+    "butterfly" (five shift-OR halvings); the bytes are the same."""
+    if pack not in ("sum", "butterfly"):
+        raise ValueError(f"pack must be 'sum' or 'butterfly', got {pack!r}")
     nb, b = lvl.shape
     c, r = divmod(nb, CHUNK_BUCKETS)
     parts = []
     if c:
         head = lvl[: c * CHUNK_BUCKETS].reshape(c, CHUNK_BUCKETS, b).to(torch.int64)
-        sub = torch.arange(CHUNK_BUCKETS, device=lvl.device, dtype=torch.int64)
-        sub = sub.view(1, CHUNK_BUCKETS, 1)
-        planes = [
-            ((head >> w) & 1).bitwise_left_shift(sub).sum(dim=1)
-            for w in range(bits)
-        ]
+        if pack == "butterfly":
+            planes = [_butterfly_plane((head >> w) & 1) for w in range(bits)]
+        else:
+            sub = torch.arange(CHUNK_BUCKETS, device=lvl.device, dtype=torch.int64)
+            sub = sub.view(1, CHUNK_BUCKETS, 1)
+            planes = [
+                ((head >> w) & 1).bitwise_left_shift(sub).sum(dim=1)
+                for w in range(bits)
+            ]
         parts.append(_u32_to_i32(torch.stack(planes, dim=1)).reshape(-1))
     if r:
         parts.append(pack_levels(lvl[c * CHUNK_BUCKETS :].reshape(-1), bits))
@@ -176,11 +198,21 @@ def compute_meta(xb: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tenso
 
 
 def encode_levels(
-    xb: torch.Tensor, unit: torch.Tensor, bmin: torch.Tensor, bits: int
+    xb: torch.Tensor, unit: torch.Tensor, bmin: torch.Tensor, bits: int,
+    encode: str = "div",
 ) -> torch.Tensor:
-    """int32 levels ``(nb, B)``: round to nearest (deterministic mode)."""
+    """int32 levels ``(nb, B)``: round to nearest (deterministic mode).
+    ``encode``: "div" divides each value by the bucket's unit; "mul"
+    multiplies by the bucket's reciprocal ``f32(1) / safe``, rounding the
+    product before the add (``codec_pallas._encode_lvl``)."""
     safe = torch.where(unit > 0, unit, torch.ones_like(unit))
-    lvl = torch.floor((xb - bmin[:, None]) / safe[:, None] + 0.5)
+    if encode == "mul":
+        inv = torch.ones_like(safe) / safe
+        lvl = torch.floor((xb - bmin[:, None]) * inv[:, None] + 0.5)
+    elif encode == "div":
+        lvl = torch.floor((xb - bmin[:, None]) / safe[:, None] + 0.5)
+    else:
+        raise ValueError(f"encode must be 'div' or 'mul', got {encode!r}")
     return torch.clamp(lvl, 0, (1 << bits) - 1).to(torch.int32)
 
 

@@ -1,10 +1,10 @@
 """The codec's CUDA kernels, their wrappers and their plain versions.
 
-Counterpart of ``torch_cgx_tpu/ops/codec_pallas.py`` and of the kernel of
-``torch_cgx_tpu/ops/fused_producer.py``. Eight hand-written kernels in
-``csrc/codec.cu`` (built for ``sm_90a`` with ``nvcc`` into a plain C shared
-library at first use, loaded with ``ctypes``) replace the ten Pallas
-kernels on the gradient-sync path:
+Counterpart of ``torch_cgx_tpu/ops/codec_pallas.py``, of the kernel of
+``torch_cgx_tpu/ops/fused_producer.py`` and of the quantize diagnostics of
+``tools/qbench.py``. Nine hand-written kernels in ``csrc/codec.cu`` (built
+for ``sm_90a`` with ``nvcc`` into a plain C shared library at first use,
+loaded with ``ctypes``) replace the eleven Pallas kernels:
 
 ============================  =================================================
 wrapper                       TPU kernels replaced
@@ -17,6 +17,7 @@ wrapper                       TPU kernels replaced
 ``quantize_chunks_db``        ``codec_pallas._quantize_flat_db_impl``
 ``dequantize_chunks_db``      ``codec_pallas._dequantize_flat_db_impl``
 ``sra_epilogue_chunks_db``    ``codec_pallas._sra_epilogue_db_impl``
+``quantize_variant_chunks``   ``tools/qbench.make_variant_kernel`` (nometa, metalane, read)
 ============================  =================================================
 
 Each wrapper works on whole 32-bucket chunks. On a CUDA tensor it launches
@@ -31,11 +32,17 @@ six call sites they look the shape up in the per-card autotune cache
 (``ops/autotune.py``) and take the pipelined (``*_db``) kernel where
 ``CGX_PALLAS_DB`` says so and its geometry fits (:func:`db_would_run`).
 
+Every quantizing wrapper takes the two lowerings the JAX package threads
+through its quantizing kernels: the level encode (``CGX_CODEC_ENCODE``,
+"div" or "mul", read on every call) and the bit-plane pack ("sum" or
+"butterfly": ``CGX_PALLAS_PACK``, else the autotuned entry's, else "sum").
+On the card they are template parameters of the kernel. The dense tail
+outside the kernels keeps the "div" encode whatever the knob says, as the
+JAX package's does.
+
 Not in the kernels yet (ROADMAP Queue B), and refused on every device:
-stochastic rounding, the ``CGX_CODEC_ENCODE=mul`` encode, the
-``CGX_PALLAS_PACK=butterfly`` pack and the ``CGX_SRA_ACCUM=int8`` fold. A
-CUDA tensor must be float32: bf16/f16 wire dtypes inside the kernels wait
-too.
+stochastic rounding and the ``CGX_SRA_ACCUM=int8`` fold. A CUDA tensor must
+be float32: bf16/f16 wire dtypes inside the kernels wait too.
 """
 
 from __future__ import annotations
@@ -62,8 +69,11 @@ BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libcgx_codec.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The source's entry points fall into this many parts (CGX_PART in
+# csrc/codec.cu), compiled by one nvcc each, all at once, then linked.
+BUILD_PARTS = 6
 
 # The epilogue stages the reduced (32, B) f32 tile in dynamic shared
 # memory: a block may use 232,448 bytes on Hopper, less the 256 bytes of
@@ -85,6 +95,7 @@ LAUNCHES: Dict[str, int] = {
     "codec_quantize_db": 0,
     "codec_dequantize_db": 0,
     "codec_sra_epilogue_db": 0,
+    "codec_quantize_variant": 0,
 }
 # Calls that CGX_PALLAS_DB sent to a pipelined kernel whose ring (or tile)
 # does not fit a block's shared memory at this geometry, so the
@@ -118,10 +129,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA codec kernels are built at first use")
 
 
+def _run_nvcc(procs) -> str:
+    """Wait for each started nvcc; raise on the first failure (after
+    stopping the rest). Returns their diagnostics, concatenated."""
+    out = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{stdout}{stderr}")
+            out.append(stderr)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return "".join(out)
+
+
 def build(force: bool = False) -> Path:
     """Compile ``csrc/codec.cu`` into ``_build/libcgx_codec.so`` unless an
-    up-to-date build exists. Returns the library path; the compiler's
-    output (registers, shared memory, spills) lands in ``BUILD_LOG``."""
+    up-to-date build exists: one nvcc for each of the source's
+    ``BUILD_PARTS`` parts, all started together, then one link. Returns the
+    library path; the compiler's output (registers, shared memory, spills)
+    lands in ``BUILD_LOG``."""
     if (
         not force
         and LIBRARY.exists()
@@ -129,23 +160,19 @@ def build(force: bool = False) -> Path:
     ):
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"part{k}.o") for k in range(BUILD_PARTS)]
+        ptxas = _run_nvcc([
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, f"-DCGX_PART={k}", "-c", "-o", obj, str(SOURCE)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k, obj in enumerate(objs)
+        ])
+        tmp = os.path.join(work, LIBRARY.name)
+        _run_nvcc([subprocess.Popen([_nvcc(), "-shared", "-o", tmp, *objs],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
         os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_LOG.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr)
+    BUILD_LOG.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
     return LIBRARY
 
 
@@ -155,17 +182,18 @@ def _lib():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-            lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, vp]
+            lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, i, i, vp]
             lib.cgx_dequantize.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
-            lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, vp, vp, vp]
+            lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, i, i, vp, vp, vp]
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, vp, vp]
-            lib.cgx_matmul_quantize.argtypes = [vp, vp, ll, i, i, f, vp, vp, i, i, f, vp]
-            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, vp]
+            lib.cgx_matmul_quantize.argtypes = [vp, vp, ll, i, i, f, vp, vp, i, i, f, i, i, vp]
+            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, vp]
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
-            lib.cgx_sra_epilogue_db.argtypes = [vp, vp, vp, i, i, ll, i, i, i, f, vp, vp, vp]
+            lib.cgx_sra_epilogue_db.argtypes = [vp, vp, vp, i, i, ll, i, i, i, f, i, i, vp, vp, vp]
+            lib.cgx_quantize_variant.argtypes = [vp, vp, vp, ll, i, i, i, f, vp]
             fns = (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue,
                    lib.cgx_reduce_rows, lib.cgx_matmul_quantize, lib.cgx_quantize_db,
-                   lib.cgx_dequantize_db, lib.cgx_sra_epilogue_db)
+                   lib.cgx_dequantize_db, lib.cgx_sra_epilogue_db, lib.cgx_quantize_variant)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _LIB = lib
@@ -186,16 +214,25 @@ def _check_launch(name: str, err: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported() -> None:
-    if cfg_mod.codec_encode() != "div":
-        raise NotImplementedError(
-            "CGX_CODEC_ENCODE=mul is not ported: the codec kernels implement "
-            "the div encode only"
-        )
+ENCODES = ("div", "mul")  # the kernels' ENCODE template argument, by index
+PACKS = ("sum", "butterfly")  # the kernels' PACK template argument, by index
+
+
+def _lowering(encode: Optional[str], pack: Optional[str]) -> Tuple[str, str]:
+    """The (encode, pack) pair a quantizing wrapper or plain version runs:
+    an explicit argument, else ``CGX_CODEC_ENCODE`` (read on every call) and
+    ``CGX_PALLAS_PACK`` (else "sum"). The batch functions pass the pack they
+    resolved with the autotune entry."""
+    encode = cfg_mod.codec_encode() if encode is None else encode
+    pack = (cfg_mod.pallas_pack() or "sum") if pack is None else pack
+    if encode not in ENCODES:
+        raise ValueError(f"encode must be one of {ENCODES}, got {encode!r}")
+    if pack not in PACKS:
+        raise ValueError(f"pack must be one of {PACKS}, got {pack!r}")
+    return encode, pack
 
 
 def _refuse_unported_fold() -> None:
-    _refuse_unported()
     if cfg_mod.sra_accum() != "exact":
         raise NotImplementedError(
             "CGX_SRA_ACCUM=int8 is not ported: the reduce kernels fold in f32"
@@ -246,30 +283,34 @@ def _chunk_geometry(n: int, bits: int, bucket_size: int) -> int:
 
 
 def quantize_chunks_plain(
-    x: torch.Tensor, bits: int, bucket_size: int
+    x: torch.Tensor, bits: int, bucket_size: int,
+    encode: Optional[str] = None, pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`quantize_chunks`."""
+    encode, pack = _lowering(encode, pack)
     xb = x.reshape(-1, bucket_size).to(torch.float32)
     unit, bmin = codec.compute_meta(xb, bits)
-    lvl = codec.encode_levels(xb, unit, bmin, bits)
-    return codec.pack_levels_bucketed(lvl, bits), torch.stack([unit, bmin], dim=1)
+    lvl = codec.encode_levels(xb, unit, bmin, bits, encode)
+    return codec.pack_levels_bucketed(lvl, bits, pack), torch.stack([unit, bmin], dim=1)
 
 
 def quantize_chunks(
-    x: torch.Tensor, bits: int, bucket_size: int
+    x: torch.Tensor, bits: int, bucket_size: int,
+    encode: Optional[str] = None, pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize a flat buffer of whole chunks: ``x`` f32 ``(C*32*B,)`` ->
-    ``(words int32 (C*bits*B,), meta f32 (C*32, 2))``."""
-    _refuse_unported()
+    ``(words int32 (C*bits*B,), meta f32 (C*32, 2))``, in the ``encode`` and
+    ``pack`` lowerings (:func:`_lowering`)."""
+    encode, pack = _lowering(encode, pack)
     chunks = _chunk_geometry(x.numel(), bits, bucket_size)
     if _device_kind(x) == "cpu":
-        return quantize_chunks_plain(x, bits, bucket_size)
+        return quantize_chunks_plain(x, bits, bucket_size, encode, pack)
     _require_cuda_operand("quantize x", x, torch.float32, x.numel())
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
     meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
     err = _lib().cgx_quantize(
         x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, bucket_size,
-        bits, codec.unit_scale(bits), _stream(x),
+        bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), _stream(x),
     )
     LAUNCHES["codec_quantize"] += 1
     _check_launch("codec_quantize", err)
@@ -340,6 +381,8 @@ def sra_epilogue_chunks_plain(
     bits: int,
     bucket_size: int,
     cast_dtype: torch.dtype = torch.float32,
+    encode: Optional[str] = None,
+    pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`sra_epilogue_chunks`. ``cast_dtype`` rounds
     the reduced chunk through the wire dtype before the requantize, as the
@@ -347,7 +390,7 @@ def sra_epilogue_chunks_plain(
     acc = reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size)
     if cast_dtype != torch.float32:
         acc = acc.to(cast_dtype).to(torch.float32)
-    return quantize_chunks_plain(acc, bits, bucket_size)
+    return quantize_chunks_plain(acc, bits, bucket_size, encode, pack)
 
 
 def sra_epilogue_chunks(
@@ -358,6 +401,8 @@ def sra_epilogue_chunks(
     bits: int,
     bucket_size: int,
     cast_dtype: torch.dtype = torch.float32,
+    encode: Optional[str] = None,
+    pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused dequantize-accumulate-requantize: ``words`` int32 ``(ws,
     C*bits*B)`` and ``meta`` f32 ``(ws, C*32, 2)`` of the ws peer rows, the
@@ -365,15 +410,17 @@ def sra_epilogue_chunks(
     None: no substitution) -> the stage-2 payload ``(words (C*bits*B,),
     meta (C*32, 2))`` of the reduced chunk. Rows fold in ascending order.
     ``cast_dtype``: the wire dtype the reduced chunk rounds through before
-    the requantize (float32 only in the kernel)."""
+    the requantize (float32 only in the kernel); ``encode`` and ``pack``:
+    the requantize's lowerings (:func:`_lowering`)."""
     _refuse_unported_fold()
+    encode, pack = _lowering(encode, pack)
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
     _check_own(raw, own, ws)
     if _device_kind(words, meta, raw) == "cpu":
         return sra_epilogue_chunks_plain(
-            words, meta, raw, own, bits, bucket_size, cast_dtype
+            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack
         )
     if cast_dtype != torch.float32:
         raise NotImplementedError(
@@ -390,6 +437,7 @@ def sra_epilogue_chunks(
     err = _lib().cgx_sra_epilogue(
         words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
         own, ws, chunks, bucket_size, bits, codec.unit_scale(bits),
+        ENCODES.index(encode), PACKS.index(pack),
         out_words.data_ptr(), out_meta.data_ptr(), _stream(words),
     )
     LAUNCHES["codec_sra_epilogue"] += 1
@@ -462,23 +510,27 @@ def reduce_rows_chunks(
 
 
 def matmul_quantize_chunks_plain(
-    x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int
+    x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int,
+    encode: Optional[str] = None, pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`matmul_quantize_chunks`: the product, the
     divide, then :func:`quantize_chunks_plain` of the flat result."""
     dw = torch.matmul(x2.t(), g2) / div
-    return quantize_chunks_plain(dw.reshape(-1), bits, bucket_size)
+    return quantize_chunks_plain(dw.reshape(-1), bits, bucket_size, encode, pack)
 
 
 def matmul_quantize_chunks(
-    x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int
+    x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int,
+    encode: Optional[str] = None, pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The weight gradient of a dense layer, divided and quantized:
     ``x2`` f32 ``(K, din)`` and ``g2`` f32 ``(K, o)`` -> ``(words int32
     (C*bits*B,), meta f32 (C*32, 2))`` of the flat ``x2^T g2 / div``
     (``din*o`` values, row-major, ``C = din*o / (32*B)`` chunks) in the
-    wire layout. On the card the f32 product never reaches global memory."""
-    _refuse_unported()
+    wire layout, in the ``encode`` and ``pack`` lowerings
+    (:func:`_lowering`). On the card the f32 product never reaches global
+    memory."""
+    encode, pack = _lowering(encode, pack)
     if cfg_mod.stochastic_rounding():
         raise NotImplementedError(
             "stochastic rounding is not ported into the matmul-quantize kernel; "
@@ -490,7 +542,7 @@ def matmul_quantize_chunks(
     o = g2.shape[1]
     chunks = _chunk_geometry(din * o, bits, bucket_size)
     if _device_kind(x2, g2) == "cpu":
-        return matmul_quantize_chunks_plain(x2, g2, div, bits, bucket_size)
+        return matmul_quantize_chunks_plain(x2, g2, div, bits, bucket_size, encode, pack)
     if o % 4:
         raise ValueError(f"the matmul-quantize kernel needs o % 4 == 0, got o={o}")
     if CHUNK_BUCKETS * bucket_size * 4 > MAX_EPILOGUE_TILE_BYTES:
@@ -504,10 +556,78 @@ def matmul_quantize_chunks(
     err = _lib().cgx_matmul_quantize(
         x2.data_ptr(), g2.data_ptr(), k_total, din, o, float(div),
         words.data_ptr(), meta.data_ptr(), bucket_size, bits,
-        codec.unit_scale(bits), _stream(x2),
+        codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), _stream(x2),
     )
     LAUNCHES["codec_matmul_quantize"] += 1
     _check_launch("codec_matmul_quantize", err)
+    return words, meta
+
+
+# ---------------------------------------------------------------------------
+# Quantize diagnostics (B9): the bodies of tools/qbench.py's variant kernel
+# that change what is stored. Its "mul" and "butterfly" variants are
+# quantize_chunks' lowerings (encode="mul", pack="butterfly").
+# ---------------------------------------------------------------------------
+
+VARIANTS = ("nometa", "metalane", "read")  # the kernel's VARIANT argument, by index
+
+
+def _trunc_i32(v: torch.Tensor) -> torch.Tensor:
+    """float -> int32 toward zero, saturating, NaN -> 0 (``__float2int_rz``)."""
+    d = torch.nan_to_num(v.to(torch.float64), nan=0.0)
+    return d.clamp(-(2.0**31), 2.0**31 - 1).trunc().to(torch.int32)
+
+
+def quantize_variant_chunks_plain(
+    x: torch.Tensor, variant: str, bits: int, bucket_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`quantize_variant_chunks`."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    xb = x.reshape(-1, bucket_size).to(torch.float32)
+    chunks = xb.shape[0] // CHUNK_BUCKETS
+    unit, bmin = codec.compute_meta(xb, bits)
+    if variant == "read":
+        top = unit.view(chunks, CHUNK_BUCKETS).amax(dim=1)
+        words = _trunc_i32(top)[:, None].expand(chunks, bits * bucket_size).reshape(-1)
+        return words.contiguous(), torch.stack([unit, bmin], dim=1)
+    lvl = codec.encode_levels(xb, unit, bmin, bits, "div")
+    words = codec.pack_levels_bucketed(lvl, bits, "sum")
+    if variant == "nometa":
+        return words, torch.zeros((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
+    pad = torch.zeros((chunks, 128 - 2 * CHUNK_BUCKETS), dtype=torch.float32, device=x.device)
+    return words, torch.cat([unit.view(chunks, -1), bmin.view(chunks, -1), pad], dim=1)
+
+
+def quantize_variant_chunks(
+    x: torch.Tensor, variant: str, bits: int, bucket_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B9's diagnostic bodies on a flat buffer of whole chunks: ``x`` f32
+    ``(C*32*B,)`` -> words int32 ``(C*bits*B,)`` and meta f32:
+
+    * "nometa": the quantize words, the meta ``(C*32, 2)`` zero-filled;
+    * "metalane": the quantize words, the meta as ``(C, 128)`` rows
+      ``[32 units | 32 mins | 64 zeros]``;
+    * "read": every word of chunk c the int32 (toward zero) of the largest
+      unit of its 32 buckets, the meta the usual ``(C*32, 2)`` pairs.
+
+    The div encode and the sum pack, whatever the knobs say, as the JAX
+    variant kernels."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    chunks = _chunk_geometry(x.numel(), bits, bucket_size)
+    if _device_kind(x) == "cpu":
+        return quantize_variant_chunks_plain(x, variant, bits, bucket_size)
+    _require_cuda_operand("quantize_variant x", x, torch.float32, x.numel())
+    words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
+    shape = (chunks, 128) if variant == "metalane" else (chunks * CHUNK_BUCKETS, 2)
+    meta = torch.empty(shape, dtype=torch.float32, device=x.device)
+    err = _lib().cgx_quantize_variant(
+        x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, bucket_size, bits,
+        VARIANTS.index(variant), codec.unit_scale(bits), _stream(x),
+    )
+    LAUNCHES["codec_quantize_variant"] += 1
+    _check_launch("codec_quantize_variant", err)
     return words, meta
 
 
@@ -577,14 +697,15 @@ sra_epilogue_chunks_db_plain = sra_epilogue_chunks_plain
 
 
 def quantize_chunks_db(
-    x: torch.Tensor, bits: int, bucket_size: int, tc: int
+    x: torch.Tensor, bits: int, bucket_size: int, tc: int,
+    encode: Optional[str] = None, pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`quantize_chunks` through the pipelined kernel (B7a), ``tc``
     chunks a ring slot."""
-    _refuse_unported()
+    encode, pack = _lowering(encode, pack)
     chunks = _chunk_geometry(x.numel(), bits, bucket_size)
     if _device_kind(x) == "cpu":
-        return quantize_chunks_db_plain(x, bits, bucket_size)
+        return quantize_chunks_db_plain(x, bits, bucket_size, encode, pack)
     _require_cuda_operand("quantize_db x", x, torch.float32, x.numel())
     _require_aligned("quantize_db x", x)
     _db_tile("quantize", chunks, tc, bits, bucket_size)
@@ -592,7 +713,7 @@ def quantize_chunks_db(
     meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
     err = _lib().cgx_quantize_db(
         x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, tc, bucket_size,
-        bits, codec.unit_scale(bits), _stream(x),
+        bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), _stream(x),
     )
     LAUNCHES["codec_quantize_db"] += 1
     _check_launch("codec_quantize_db", err)
@@ -640,17 +761,22 @@ def sra_epilogue_chunks_db(
     bucket_size: int,
     tc: int,
     cast_dtype: torch.dtype = torch.float32,
+    encode: Optional[str] = None,
+    pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`sra_epilogue_chunks` through the pipelined kernel (B7c): the
     ring streams one peer row's ``tc`` chunks a slot, rows ascending, into
     a ``tc``-chunk f32 tile that is then requantized."""
     _refuse_unported_fold()
+    encode, pack = _lowering(encode, pack)
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
     _check_own(raw, own, ws)
     if _device_kind(words, meta, raw) == "cpu":
-        return sra_epilogue_chunks_db_plain(words, meta, raw, own, bits, bucket_size, cast_dtype)
+        return sra_epilogue_chunks_db_plain(
+            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack
+        )
     if cast_dtype != torch.float32:
         raise NotImplementedError(
             f"{cast_dtype} wire dtypes are not ported into the epilogue kernel yet"
@@ -667,6 +793,7 @@ def sra_epilogue_chunks_db(
     err = _lib().cgx_sra_epilogue_db(
         words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
         own, ws, chunks, tc, bucket_size, bits, codec.unit_scale(bits),
+        ENCODES.index(encode), PACKS.index(pack),
         out_words.data_ptr(), out_meta.data_ptr(), _stream(words),
     )
     LAUNCHES["codec_sra_epilogue_db"] += 1
@@ -719,14 +846,15 @@ def _pipe_tc(
 
 
 def _pack_strategy(tuned: Optional[autotune.TunedConfig] = None) -> str:
-    """The bit-plane pack lowering: ``CGX_PALLAS_PACK``, else the tuned
-    entry's, else "sum". The kernels have the "sum" lowering only."""
-    pack = cfg_mod.pallas_pack() or (tuned.pack if tuned is not None else None) or "sum"
-    if pack == "butterfly":
-        raise NotImplementedError(
-            "CGX_PALLAS_PACK=butterfly is not ported: the codec kernels have one pack lowering"
-        )
-    return pack
+    """The bit-plane pack lowering (``codec_pallas._pack_strategy``): an
+    explicit ``CGX_PALLAS_PACK`` wins, then the tuned entry's, then
+    "sum"."""
+    forced = cfg_mod.pallas_pack()
+    if forced:
+        return forced
+    if tuned is not None and tuned.pack in PACKS:
+        return tuned.pack
+    return "sum"
 
 
 def _db_route(
@@ -864,14 +992,15 @@ def quantize_batch(
         else:
             tuned = autotune.lookup(autotune.KIND_CHUNKS, n_chunks=rows * c_r, bucket_size=b, bits=bits)
             cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
-        _pack_strategy(tuned)
+        pack = _pack_strategy(tuned)
         if tc is None:
-            words, meta = quantize_chunks(head, bits, b)
+            words, meta = quantize_chunks(head, bits, b, pack=pack)
         else:
-            words, meta = quantize_chunks_db(_aligned(head), bits, b, tc)
+            words, meta = quantize_chunks_db(_aligned(head), bits, b, tc, pack=pack)
         word_parts.append(words.view(rows, c_r * bits * b))
         meta_parts.append(meta.view(rows, c_r * CHUNK_BUCKETS, 2))
     if t_r:
+        # The dense tail keeps the div encode (codec_pallas.py:955-972).
         tail = x[:, c_r * CHUNK_BUCKETS * b :].reshape(rows * t_r, b)
         unit, bmin = codec.compute_meta(tail, bits)
         lvl = codec.encode_levels(tail, unit, bmin, bits).view(rows, t_r * b)
@@ -982,17 +1111,17 @@ def sra_epilogue_batch(
         autotune.KIND_EPILOGUE, n_chunks=c_r, bucket_size=q.bucket_size, bits=q.bits,
         ws=q.batch_rows,
     )
-    _pack_strategy(tuned)
+    pack = _pack_strategy(tuned)
     tc = _db_route("epilogue", c_r, q.bits, q.bucket_size, tuned, count=True)
     words, meta = q.packed.contiguous(), _as_f32(q.meta).contiguous()
     if tc is None:
         words, meta = sra_epilogue_chunks(
-            words, meta, raw, own, q.bits, q.bucket_size, cast_dtype=out_dtype,
+            words, meta, raw, own, q.bits, q.bucket_size, cast_dtype=out_dtype, pack=pack,
         )
     else:
         words, meta = sra_epilogue_chunks_db(
             _aligned(words), _aligned(meta), None if raw is None else _aligned(raw), own,
-            q.bits, q.bucket_size, tc, cast_dtype=out_dtype,
+            q.bits, q.bucket_size, tc, cast_dtype=out_dtype, pack=pack,
         )
     return QTensor(
         packed=words.view(1, -1),

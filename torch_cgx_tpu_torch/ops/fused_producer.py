@@ -414,7 +414,11 @@ def _matmul_quantize_q(x2, g2, cc, *, ws, chunk, div) -> QTensor:
     b, bits = cc.bucket_size, cc.bits
     x2f = x2.to(torch.float32).contiguous()
     g2f = g2.to(torch.float32).contiguous()
-    words, meta = codec_cuda.matmul_quantize_chunks(x2f, g2f, div, bits, b)
+    # The lowerings of fused_producer.py:512-513: the env's pack (no tuned
+    # entry) and the encode.
+    words, meta = codec_cuda.matmul_quantize_chunks(
+        x2f, g2f, div, bits, b, encode=cfg_mod.codec_encode(), pack=codec_cuda._pack_strategy()
+    )
     return QTensor(
         packed=words.view(ws, chunk * bits // 32),
         meta=meta.view(ws, chunk // b, 2),
