@@ -14,11 +14,14 @@ order, none of whose failures is caught:
    against the single-stage ones, at 1, 131, 133 and 2053 chunks too, and
    at phase 7's flat-SRA epilogue (the multi-row reduce at the
    two-level and the all-to-all shapes of phase 7, the matmul-quantize at
-   the three dense-layer shapes of phase 7's flat SRA step): words, meta and
-   decoded values must be bit-identical (tolerance 0), and the
+   the three dense-layer shapes of phase 7's flat SRA step and at edge
+   geometries where its 64 x 128 tiles and the 32-bucket chunks end at
+   different places): words, meta and decoded values must be bit-identical
+   (tolerance 0), the matmul-quantize's own raw row too, and the
    matmul-quantize on normal operands, whose sums the kernel and cuBLAS
    associate differently, within ``payload_close``'s tolerance (meta within
-   1e-5 relative, every decoded value within one level step). Then B9's
+   1e-5 relative, every decoded value within one level step; the raw row
+   within 1e-5 of the row's largest magnitude). Then B9's
    variant kernel (``nometa``, ``metalane``, ``read``) at bits 1, 2, 4 and 8
    on the 64 MB slice and at 1, 131, 133 and 2053 chunks, and every
    quantizing kernel (B1, B7a, B3, B7c, B8) in each (encode, pack) lowering:
@@ -43,8 +46,11 @@ order, none of whose failures is caught:
 5. times: each kernel and its plain version (CUDA events, median after
    warm-up), each pipelined kernel beside its single-stage sibling, the
    matmul-quantize also against ``torch.matmul`` of the same product (which
-   lacks the quantize), a device-to-device copy as the yardstick, the train
-   step without the codec and with it under ``CGX_PALLAS_DB`` off and on,
+   lacks the quantize) and against the unfused route for the same payload
+   (that product, the divide and the stage-1 quantize: what
+   ``CGX_PRODUCER_FUSE=auto`` is decided by), a device-to-device copy as
+   the yardstick, the train step without the codec and with it under
+   ``CGX_PALLAS_DB`` off and on,
    and a ``torch.profiler`` breakdown of one step of each; B5 and B6 are
    B1's and B2's kernels on the 307 chunks of the tail slice, B9 the
    variant kernel at 128 MB;
@@ -64,8 +70,10 @@ order, none of whose failures is caught:
    uncompressed intra level, the first two also held against the plain CPU
    path on a 64 MB fusion slice. Then the flat SRA on a float32 GPT-2 124M,
    one step without producer fusion and one with it
-   (``CGX_PRODUCER_FUSE=on``): before the latter, rank 0 runs one backward
-   with the plane engaged and holds each of the 36 staged payloads (the
+   (``CGX_PRODUCER_FUSE=on``), whose step skips the 36 plain weight
+   gradients (``producer_dw_skipped``): before it, rank 0 runs one backward
+   outside ``make_train_step`` with the plane engaged (``p.grad`` kept) and
+   holds each of the 36 staged payloads (the
    ``attn_qkv``, ``mlp_in`` and ``mlp_out`` kernels of the 12 blocks) to a
    quantize of that layer's ``p.grad / 4`` within ``payload_close``'s
    tolerance. Then the flat SRA under ``CGX_PALLAS_DB=on``: the pipelined
@@ -133,7 +141,16 @@ DB_CHUNKS = (1, 131, 133, 2053)  # around the persistent grid (132 SMs) and far 
 # CGX_STANDALONE_LAYER_ELEMS and stays in the fused group.
 MM_SHAPES = {"mlp_in": (768, 3072), "attn_qkv": (768, 2304), "mlp_out": (3072, 768)}
 MM_K = MR_BATCH * SEQ
+# (K, din, o, divisor, bits, bucket) of the matmul-quantize's edge cases:
+# o not a multiple of the 128-column tile (448, 1344, 672), din not a
+# multiple of the 64-row tile (100) or of 4 (13), K not a multiple of the
+# 16-step stage, buckets 128, 512 and 896, chunks that cross rows.
+MM_EDGE_CASES = [
+    (96, 64, 448, 2, 1, 128), (77, 256, 1344, 4, 8, 512), (130, 128, 672, 4, 4, 896),
+    (50, 100, 4096, 4, 1, 128), (33, 13, 4096, 2, 3, 128), (1024, 128, 896, 4, 8, 896),
+]
 META_RTOL = 1e-5
+RAW_RTOL = 1e-5
 SOURCE = "torch_cgx_tpu_torch/csrc/codec.cu"
 
 
@@ -356,27 +373,43 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         del rows, q
 
     # The matmul-quantize at the dense-layer shapes of phase 7's flat SRA
-    # step, divisor 4. Small-integer operands make every sum exact in f32, so
-    # the kernel's and cuBLAS's orders agree and the bytes must too; normal
-    # operands are held to payload_close's tolerance.
-    for layer, (din, o) in MM_SHAPES.items():
-        label = f"{layer} K={MM_K} {din}x{o} div={MR_WS}"
-        xi = torch.from_numpy(rng.integers(-3, 4, (MM_K, din)).astype(np.float32)).to(dev)
-        gi = torch.from_numpy(rng.integers(-3, 4, (MM_K, o)).astype(np.float32)).to(dev)
-        w, m = codec_cuda.matmul_quantize_chunks(xi, gi, MR_WS, BITS, BUCKET)
-        pw, pm = codec_cuda.matmul_quantize_chunks_plain(xi, gi, MR_WS, BITS, BUCKET)
-        record("codec_matmul_quantize", label + " integer words", w, pw)
-        record("codec_matmul_quantize", label + " integer meta", m, pm)
-        xn = torch.from_numpy(rng.standard_normal((MM_K, din)).astype(np.float32)).to(dev)
-        gn = torch.from_numpy(rng.standard_normal((MM_K, o)).astype(np.float32)).to(dev)
-        w, m = codec_cuda.matmul_quantize_chunks(xn, gn, MR_WS, BITS, BUCKET)
-        pw, pm = codec_cuda.matmul_quantize_chunks_plain(xn, gn, MR_WS, BITS, BUCKET)
-        ok, meta_rel, abs_err, steps = payload_close(w, m, pw, pm, BITS, BUCKET)
-        max_err["codec_matmul_quantize"] = max(max_err["codec_matmul_quantize"], abs_err)
-        log(f"  {'codec_matmul_quantize':20s} {label + ' normal':44s} meta {meta_rel:.2e} rel, "
-            f"decoded within {steps:.3f} level steps ({abs_err:.3e})")
-        if not ok:
-            raise AssertionError(f"codec_matmul_quantize {label}: outside the tolerance")
+    # step, divisor 4, then at geometries whose tiles (64 x 128 values of
+    # dw) and 32-bucket chunks end at different places: o not a multiple of
+    # 128, din not a multiple of 64 (or of 4: x2 moves in 4-byte copies), K
+    # not a multiple of the 16-step stage, chunks that cross rows. Small-
+    # integer operands make every sum exact in f32, so the kernel's and
+    # cuBLAS's orders agree and the bytes must too, the own raw row's
+    # values included; normal operands are held to payload_close's
+    # tolerance, their raw row to RAW_RTOL relative to the row's largest
+    # magnitude (one product summed in two orders).
+    mm_cases = [(layer, MM_K, din, o, MR_WS, BITS, BUCKET) for layer, (din, o) in MM_SHAPES.items()]
+    mm_cases += [("edge", *c) for c in MM_EDGE_CASES]
+    for layer, k, din, o, div, bits, b in mm_cases:
+        label = f"{layer} K={k} {din}x{o} div={div} bits={bits} B={b}"
+        ws = MR_WS if din % MR_WS == 0 else 1
+        for kind in ("integer", "normal"):
+            if kind == "integer":
+                xm = rng.integers(-3, 4, (k, din)).astype(np.float32)
+                gm = rng.integers(-3, 4, (k, o)).astype(np.float32)
+            else:
+                xm = rng.standard_normal((k, din)).astype(np.float32)
+                gm = rng.standard_normal((k, o)).astype(np.float32)
+            x2, g2 = torch.from_numpy(xm).to(dev), torch.from_numpy(gm).to(dev)
+            own = (din // 3) * ws // din if ws > 1 else 0  # a row inside the layer
+            w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, b, own_row=(own, ws))
+            pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(x2, g2, div, bits, b, own_row=(own, ws))
+            if kind == "integer":
+                record("codec_matmul_quantize", f"{label} integer words", w, pw)
+                record("codec_matmul_quantize", f"{label} integer meta", m, pm)
+                record("codec_matmul_quantize", f"{label} integer raw row {own}/{ws}", raw, praw)
+                continue
+            ok, meta_rel, abs_err, steps = payload_close(w, m, pw, pm, bits, b)
+            raw_rel = _max_abs(raw, praw) / max(float(praw.abs().max()), 1e-30)
+            max_err["codec_matmul_quantize"] = max(max_err["codec_matmul_quantize"], abs_err)
+            log(f"  {'codec_matmul_quantize':20s} {label + ' normal':44s} meta {meta_rel:.2e} rel, "
+                f"decoded within {steps:.3f} level steps ({abs_err:.3e}); raw row {raw_rel:.2e} rel")
+            if not ok or raw_rel > RAW_RTOL:
+                raise AssertionError(f"codec_matmul_quantize {label}: outside the tolerance")
     check_b9(dev, flat_n, record)
     check_lowerings(dev, flat_n, ws, rng, record, db_tc)
     return max_err
@@ -975,7 +1008,8 @@ def time_kernels(dev, n: int, name: str) -> list:
     first."""
     import torch
 
-    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.config import default_compression_config
+    from torch_cgx_tpu_torch.ops import codec_cuda, dispatch
     from torch_cgx_tpu_torch.utils.device import mem_rate
 
     rate = mem_rate(name)
@@ -1076,42 +1110,61 @@ def time_kernels(dev, n: int, name: str) -> list:
             rows_n * wire(m) + (0 if own is None else 4 * m) + 4 * m, 3 * rows_n * m, None,
         ))
     # The matmul-quantize at phase 7's three dense-layer shapes, mlp_in first
-    # (its record goes into the JSON line): a multiply and an add per product.
+    # (its record goes into the JSON line), as the producer calls it (with
+    # the own raw row of rank 1 of 4): a multiply and an add per product.
     # The library call is torch.matmul of the same product in float32 (TF32
-    # off), which lacks the divide and the quantize.
+    # off), which lacks the divide and the quantize. The unfused route is
+    # what the sync does for the same payload without producer fusion: that
+    # product, the divide, and the dispatcher's quantize of the (ws, chunk)
+    # rows (B1), as one timed call: the yardstick of CGX_PRODUCER_FUSE=auto.
+    cc = dataclasses.replace(default_compression_config(), bits=BITS, bucket_size=BUCKET)
     for layer, (din, o) in MM_SHAPES.items():
         x2 = torch.from_numpy(rng.standard_normal((MM_K, din)).astype(np.float32)).to(dev)
         g2 = torch.from_numpy(rng.standard_normal((MM_K, o)).astype(np.float32)).to(dev)
         runs.append((
             "codec_matmul_quantize", f"{layer} K={MM_K} {din}x{o}",
-            lambda x2=x2, g2=g2: codec_cuda.matmul_quantize_chunks(x2, g2, MR_WS, BITS, BUCKET),
-            lambda x2=x2, g2=g2: codec_cuda.matmul_quantize_chunks_plain(x2, g2, MR_WS, BITS, BUCKET),
-            4 * MM_K * (din + o) + wire(din * o), 2 * MM_K * din * o,
+            lambda x2=x2, g2=g2: codec_cuda.matmul_quantize_chunks(
+                x2, g2, MR_WS, BITS, BUCKET, own_row=(1, MR_WS)),
+            lambda x2=x2, g2=g2: codec_cuda.matmul_quantize_chunks_plain(
+                x2, g2, MR_WS, BITS, BUCKET, own_row=(1, MR_WS)),
+            4 * MM_K * (din + o) + wire(din * o) + 4 * din * o // MR_WS, 2 * MM_K * din * o,
             lambda x2=x2, g2=g2: torch.matmul(x2.t(), g2),
+            lambda x2=x2, g2=g2: dispatch.quantize_batch(
+                (torch.matmul(x2.t(), g2) / MR_WS).view(MR_WS, -1), cc),
         ))
     out = []
-    for k, shape, kern, plain, nbytes, ops, library in runs:
-        # Alternate kernel and plain version (and the library call):
-        # kernel, plain, library, library, plain, kernel.
+    for k, shape, kern, plain, nbytes, ops, library, *unfused in runs:
+        # Alternate kernel and plain version (and the library call, and the
+        # unfused route): kernel, plain, library, unfused, unfused, library,
+        # plain, kernel.
+        unf = unfused[0] if unfused else None
         k1 = time_cuda(kern)
         p1 = time_cuda(plain, iters=5)
         l1 = time_cuda(library) if library else None
+        u1 = time_cuda(unf) if unf else None
+        u2 = time_cuda(unf) if unf else None
         l2 = time_cuda(library) if library else None
         p2 = time_cuda(plain, iters=5)
         k2 = time_cuda(kern)
         ms, plain_ms = min(k1, k2), min(p1, p2)
         library_ms = min(l1, l2) if library else None
+        unfused_ms = min(u1, u2) if unf else None
         t_bytes = nbytes / rate * 1e3
         t_ops = ops / F32_RATE * 1e3
         bound = max(t_bytes, t_ops)
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        lib += "" if unfused_ms is None else f", unfused route {unfused_ms:.4f} ms"
         log(f"  {k:20s} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}); {nbytes} bytes, "
             f"{ops} operations, bound {bound:.4f} ms by "
             f"{'bytes' if t_bytes >= t_ops else 'operations'} = {100 * bound / ms:.1f}% of bound")
         out.append({"name": k, "shape": shape, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "bound_ms": bound,
+                    "library_ms": library_ms, "unfused_ms": unfused_ms, "bound_ms": bound,
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes})
+    mm = [r for r in out if r["unfused_ms"] is not None]
+    log(f"  matmul-quantize no slower than the unfused route at all {len(mm)} shapes: "
+        f"{all(r['ms'] <= r['unfused_ms'] for r in mm)} "
+        f"(kernel / unfused {[round(r['ms'] / r['unfused_ms'], 3) for r in mm]})")
     src = torch.empty(n, device=dev)
     dst = torch.empty_like(src)
     copy_ms = time_cuda(lambda: dst.copy_(src))
@@ -1463,6 +1516,9 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         pc = o["sra_producer"]["producer"]
         assert pc["producer_consumed_slices"] == PRODUCED_LAYERS, (r, pc)
         assert pc["producer_kernel_slices"] == PRODUCED_LAYERS, (r, pc)
+        # The step skipped the plain dw of every consumed layer (C4).
+        assert pc["producer_dw_skipped"] == PRODUCED_LAYERS, (r, pc)
+        assert o["sra_producer"]["launches"]["codec_matmul_quantize"] == PRODUCED_LAYERS, (r, o)
         assert pc["producer_fallbacks"] == pc["producer_fallback_fused_group"] == PROJ_LAYERS, (r, pc)
     chk = res[0]["sra_producer"]["check"]
     log(f"  sra_producer, rank 0: {chk['checked']} staged payloads against a quantize of "

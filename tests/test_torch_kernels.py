@@ -242,7 +242,98 @@ def test_produce_q_on_cuda_launches_the_kernel(dev, monkeypatch):
     got_v = codec_cuda.dequantize_batch(ent.q).reshape(-1, 128)
     want_v = codec_cuda.dequantize_batch(want).reshape(-1, 128)
     assert bool(((got_v - want_v).abs() <= 1.001 * unit + 1e-6).all())
-    assert _bits_equal(ent.raw_row, (layer.kernel.grad.reshape(2, -1)[1] / 2))
+    # The raw own row comes from the kernel's sums, as the quantized rows:
+    # equal to a second launch's, within f32 summation order of p.grad's row.
+    x2 = x.reshape(-1, 256)
+    g2 = (2 * layer(x)).detach().reshape(-1, 512)  # d(y^2)/dy
+    _, _, raw = codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 128, own_row=(1, 2))
+    assert _bits_equal(ent.raw_row, raw)
+    want_row = layer.kernel.grad.reshape(2, -1)[1] / 2
+    assert float((ent.raw_row - want_row).abs().max()) <= 1e-5 * float(want_row.abs().max())
+    fp.deconfigure()
+
+
+# (K, din, o, divisor, bits, bucket): the 64 x 128 tiles of dw and the
+# 32-bucket chunks end at different places (o not a multiple of 128, din
+# not a multiple of 64 or of 4, K not a multiple of the 16-step stage).
+MM_EDGES = [
+    (96, 64, 448, 2, 1, 128), (77, 256, 1344, 4, 8, 512), (130, 128, 672, 4, 4, 896),
+    (50, 100, 4096, 4, 1, 128), (33, 13, 4096, 2, 3, 128), (64, 256, 512, 2, 4, 512),
+    (40, 768, 2304, 4, 4, 512),  # attn_qkv's layer
+]
+
+
+@pytest.mark.parametrize("k,din,o,div,bits,bucket", MM_EDGES)
+def test_matmul_quantize_edges_and_own_row(dev, k, din, o, div, bits, bucket):
+    """Words, meta and the own raw row (each row position) bit-identical to
+    the plain version on small-integer operands, one launch a call."""
+    rng = np.random.default_rng(k * din + o)
+    x2 = torch.from_numpy(rng.integers(-3, 4, (k, din)).astype(np.float32)).to(dev)
+    g2 = torch.from_numpy(rng.integers(-3, 4, (k, o)).astype(np.float32)).to(dev)
+    ws = 4 if din % 4 == 0 else 1
+    codec_cuda.reset_launch_counts()
+    for own in range(ws):
+        w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(own, ws))
+        pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(
+            x2.cpu(), g2.cpu(), div, bits, bucket, own_row=(own, ws))
+        assert _bits_equal(w, pw) and _bits_equal(m, pm), own
+        assert raw.shape == (din * o // ws,) and _bits_equal(raw, praw), own
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == ws
+
+
+def test_matmul_quantize_back_to_back_launches_repeat_their_bytes(dev):
+    """Launches of several geometries, back to back on one stream, each on
+    arrival counters of its own: every repeat gives the first launch's
+    bytes, one launch a call."""
+    rng = np.random.default_rng(5)
+    ops = []
+    for k, din, o, div, bits, bucket in MM_EDGES[:3]:
+        x2 = torch.from_numpy(rng.standard_normal((k, din)).astype(np.float32)).to(dev)
+        g2 = torch.from_numpy(rng.standard_normal((k, o)).astype(np.float32)).to(dev)
+        ops.append((x2, g2, div, bits, bucket))
+    codec_cuda.reset_launch_counts()
+    first = [codec_cuda.matmul_quantize_chunks(*a) for a in ops]
+    for _ in range(3):
+        for a, (w0, m0) in zip(ops, first):
+            w, m = codec_cuda.matmul_quantize_chunks(*a)
+            assert _bits_equal(w, w0) and _bits_equal(m, m0)
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 4 * len(ops)
+
+
+def test_skipped_backward_on_cuda_launches_one_kernel(dev, monkeypatch):
+    """Configured as ``make_train_step`` does (``skip_dw``), an engaged CUDA
+    layer returns no weight gradient: one matmul-quantize launch makes its
+    payload and raw own row, and no plain product runs."""
+    from torch_cgx_tpu_torch.models import Dense
+    from torch_cgx_tpu_torch.ops import fused_producer as fp
+
+    for k, v in {"CGX_PRODUCER_FUSE": "on", "CGX_COMPRESSION_QUANTIZATION_BITS": "4",
+                 "CGX_COMPRESSION_BUCKET_SIZE": "128", "CGX_STANDALONE_LAYER_ELEMS": "32768"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(fp, "_CFG", dict(fp._CFG))
+    fp.configure(None, divisor=2, active=True, skip_dw=True)
+    fp._CFG.update(ws=2, rank=0)
+    fp.begin_step()
+    fp.reset_counts()
+    seen = []
+    real = fp._plain_dw
+    monkeypatch.setattr(fp, "_plain_dw", lambda name, *a: seen.append(name) or real(name, *a))
+    layer = Dense(256, 512, dtype=torch.float32, generator=torch.Generator().manual_seed(0)).to(dev)
+    layer.kernel_path = "big.kernel"
+    x = torch.randn(4, 32, 256, device=dev)
+    codec_cuda.reset_launch_counts()
+    layer(x).square().sum().backward()
+    torch.cuda.synchronize()
+    assert layer.kernel.grad is None and seen == []
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 1
+    assert fp.COUNTS["producer_dw_skipped"] == 1
+    ent = fp.skipped_entries()["big.kernel"]
+    g2 = (2 * layer(x)).detach().reshape(-1, 512)
+    w, m, raw = codec_cuda.matmul_quantize_chunks(x.reshape(-1, 256), g2, 2, 4, 128, own_row=(0, 2))
+    assert _bits_equal(ent.q.packed.reshape(-1), w) and _bits_equal(ent.q.meta.reshape(-1, 2), m)
+    assert _bits_equal(ent.raw_row, raw)
     fp.deconfigure()
 
 

@@ -1,0 +1,145 @@
+"""Reference knobs the port does not implement are refused, never ignored.
+
+``CGX_COMPRESSION_FAKE_RATIO`` (the reference's synthetic compression
+ratio) and ``CGX_NONFINITE_GUARD`` (the train step's NaN/Inf policy) change
+what the JAX package returns. The port has neither yet, so a value other
+than the default raises ``NotImplementedError`` naming the knob: the ratio
+in ``allreduce_flat`` (where the JAX package applies it; ``allreduce_tree``
+and ``gradient_sync`` reach it through that call), the guard in
+``gradient_sync`` and ``make_train_step``. At their defaults (the ratio unset, 0 or 1; the guard
+"off") everything runs as before. Both accessors parse as the JAX
+package's do, which the tests check value by value.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_cgx_tpu import config as jcfg
+from torch_cgx_tpu_torch import config as tcfg
+from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
+from torch_cgx_tpu_torch.config import CompressionConfig
+from torch_cgx_tpu_torch.parallel import allreduce_flat, allreduce_tree, gradient_sync, make_train_step
+
+ENV = {"CGX_COMPRESSION_QUANTIZATION_BITS": "4", "CGX_COMPRESSION_BUCKET_SIZE": "128"}
+
+
+@pytest.fixture(autouse=True)
+def _env(monkeypatch):
+    for k, v in ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("CGX_COMPRESSION_FAKE_RATIO", raising=False)
+    monkeypatch.delenv("CGX_NONFINITE_GUARD", raising=False)
+    return monkeypatch
+
+
+def _grads():
+    rng = np.random.default_rng(0)
+    return {"a.kernel": torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)),
+            "a.bias": torch.from_numpy(rng.standard_normal(128).astype(np.float32))}
+
+
+def _model_and_step():
+    model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    step = make_train_step(model, lambda m, b: lm_loss(m(b), b), opt, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 512, size=(2, 16)))
+    return model, step, tokens
+
+
+@pytest.mark.parametrize("raw", ["0.5", "0.01", "0.99"])
+def test_fake_ratio_is_refused_by_allreduce_tree(_env, raw):
+    _env.setenv("CGX_COMPRESSION_FAKE_RATIO", raw)
+    assert tcfg.fake_ratio() == jcfg.fake_ratio() == float(raw)
+    with pytest.raises(NotImplementedError, match="CGX_COMPRESSION_FAKE_RATIO"):
+        allreduce_tree(_grads())
+    with pytest.raises(NotImplementedError, match="CGX_COMPRESSION_FAKE_RATIO"):
+        gradient_sync(_grads())
+
+
+@pytest.mark.parametrize("raw", ["0.5", "0.25"])
+def test_fake_ratio_is_refused_by_allreduce_flat(_env, raw):
+    _env.setenv("CGX_COMPRESSION_FAKE_RATIO", raw)
+    flat = _grads()["a.kernel"].reshape(-1)
+    with pytest.raises(NotImplementedError, match="CGX_COMPRESSION_FAKE_RATIO"):
+        allreduce_flat(flat, CompressionConfig(bits=4, bucket_size=128))
+
+
+@pytest.mark.parametrize("raw", [None, "0", "1"])
+def test_fake_ratio_off_allreduce_flat_runs_as_before(_env, raw):
+    if raw is not None:
+        _env.setenv("CGX_COMPRESSION_FAKE_RATIO", raw)
+    flat = _grads()["a.kernel"].reshape(-1)
+    out = allreduce_flat(flat, CompressionConfig(bits=4, bucket_size=128))
+    assert torch.equal(out, flat)  # one rank: the sum is the buffer
+
+
+@pytest.mark.parametrize("raw", [None, "0", "1", "-0.5", "1.5"])
+def test_fake_ratio_off_runs_as_before(_env, raw):
+    if raw is not None:
+        _env.setenv("CGX_COMPRESSION_FAKE_RATIO", raw)
+    assert tcfg.fake_ratio() is None and jcfg.fake_ratio() is None
+    grads = _grads()
+    out = allreduce_tree(grads)  # one rank: the sum is the gradient
+    for k, v in grads.items():
+        assert torch.equal(out[k], v)
+
+
+def test_fake_ratio_garbage_names_the_knob(_env):
+    _env.setenv("CGX_COMPRESSION_FAKE_RATIO", "half")
+    with pytest.raises(ValueError, match="CGX_COMPRESSION_FAKE_RATIO"):
+        tcfg.fake_ratio()
+    with pytest.raises(ValueError, match="CGX_COMPRESSION_FAKE_RATIO"):
+        jcfg.fake_ratio()
+
+
+@pytest.mark.parametrize("guard", ["skip", "exact", "SKIP"])
+def test_nonfinite_guard_is_refused(_env, guard):
+    _env.setenv("CGX_NONFINITE_GUARD", guard)
+    assert tcfg.nonfinite_guard() == jcfg.nonfinite_guard() == guard.lower()
+    with pytest.raises(NotImplementedError, match="CGX_NONFINITE_GUARD"):
+        gradient_sync(_grads())
+    with pytest.raises(NotImplementedError, match="CGX_NONFINITE_GUARD"):
+        _model_and_step()
+
+
+@pytest.mark.parametrize("guard", ["skip", "exact"])
+def test_nonfinite_guard_set_after_the_step_is_built(_env, guard):
+    """The knob is re-read on every call: a step built under "off" raises
+    once the guard is set."""
+    _, step, tokens = _model_and_step()
+    assert np.isfinite(float(step(tokens)))
+    _env.setenv("CGX_NONFINITE_GUARD", guard)
+    with pytest.raises(NotImplementedError, match="CGX_NONFINITE_GUARD"):
+        step(tokens)
+
+
+@pytest.mark.parametrize("guard", [None, "off", "OFF"])
+def test_nonfinite_guard_off_runs_as_before(_env, guard):
+    if guard is not None:
+        _env.setenv("CGX_NONFINITE_GUARD", guard)
+    assert tcfg.nonfinite_guard() == jcfg.nonfinite_guard() == "off"
+    grads = _grads()
+    out = gradient_sync(grads)
+    for k, v in grads.items():
+        assert torch.equal(out[k], v)
+    model, step, tokens = _model_and_step()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    assert np.isfinite(float(step(tokens)))
+    assert any(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+
+
+@pytest.mark.parametrize("guard", ["bogus", "on", "1"])
+def test_invalid_nonfinite_guard_is_a_value_error_as_in_jax(_env, guard):
+    _env.setenv("CGX_NONFINITE_GUARD", guard)
+    with pytest.raises(ValueError) as port:
+        tcfg.nonfinite_guard()
+    with pytest.raises(ValueError) as ref:
+        jcfg.nonfinite_guard()
+    assert str(port.value) == str(ref.value)
+    assert "CGX_NONFINITE_GUARD" in str(port.value)
+    with pytest.raises(ValueError, match="CGX_NONFINITE_GUARD"):
+        gradient_sync(_grads())
+    with pytest.raises(ValueError, match="CGX_NONFINITE_GUARD"):
+        _model_and_step()

@@ -28,11 +28,23 @@ package's, on the CPU.
   integer gradients is bit-identical to the JAX ``gradient_sync`` with the
   producer on, and to the port's own run with it off.
 
+C4, the skipped weight gradient: inside ``make_train_step`` a wrapped
+layer whose payload the sync will consume returns no ``dw``. Spawned gloo
+ranks at ws 2 and 4 train a tiny float32 GPT-2 for three steps: the
+parameters are bit-identical to ``CGX_PRODUCER_FUSE=off``, every eligible
+layer skips (``producer_dw_skipped``) and only the fallen-back layers run
+the plain product; a layer applied twice in one forward does not skip and
+its gradient matches; a direct ``gradient_sync`` still gets ``p.grad``; the
+one-layer sync through ``make_train_step`` with the skip is bit-identical to
+the JAX producer-on sync. In one process: a forced allreduce-side mismatch
+on a skipped layer raises ``RuntimeError``.
+
 The single-process tests stand one process in for a rank of a 2-rank group
 by setting the producer's recorded world size; the rank bodies import only
 torch and the port.
 """
 
+import dataclasses
 import multiprocessing as mp
 import os
 import queue
@@ -451,17 +463,24 @@ def test_gradient_rewrites_make_the_entry_unclaimable(engaged, rewrite):
 
 @pytest.mark.parametrize("reason", ["plan", "routing"])
 def test_allreduce_flat_counts_an_unusable_payload(engaged, reason):
-    """A payload the buffer cannot take is ignored and counted: ``plan``
-    when the slice's reduction is not the multi-rank SRA (a one-rank world
-    here), ``routing`` when the buffer spans several fusion slices."""
+    """A payload the buffer cannot take is ignored and counted under the
+    verdict of ``fused_producer.consume_reason``, the predicate the tree
+    applies too: ``plan`` when the slice's reduction is not the multi-rank
+    SRA (a payload staged for this one-rank world), ``group`` (the JAX
+    package's tree counts it so) when the buffer spans several fusion
+    slices."""
     *_, layer = _dense_run(torch.float32)
     ent = fp.lookup("big.kernel", layer.kernel.grad)
     flat = (layer.kernel.grad / WS).reshape(-1)
-    if reason == "routing":
+    if reason == "plan":
+        ent = dataclasses.replace(ent, ws=1)
+    else:
         engaged.setenv("CGX_FUSION_BUFFER_SIZE_MB", "0")  # 2,048-value slices
     out = allreduce.allreduce_flat(flat, ent.cc, pre=ent)
     assert not ent.consumed
-    assert fp.COUNTS[f"producer_fallback_{reason}"] == 1
+    counted = {"plan": "plan", "routing": "group"}[reason]
+    assert fp.COUNTS[f"producer_fallback_{counted}"] == 1
+    assert fp.COUNTS["producer_fallbacks"] == 1
     assert torch.equal(out, flat)  # one rank: the sum is the buffer
 
 
@@ -491,8 +510,110 @@ def test_reduce_rows_requantize_raw_row_equals_raw_rows(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# C4: the skipped weight gradient, in one process.
+# ---------------------------------------------------------------------------
+
+
+def _skip_configure():
+    """The plane as ``make_train_step`` configures it (``skip_dw``), this
+    process standing in for rank 0 of a 2-rank group."""
+    fp.configure(None, divisor=WS, active=True, skip_dw=True)
+    fp._CFG.update(ws=WS, rank=0)
+    fp.begin_step()
+
+
+@pytest.mark.parametrize("dtype,skips", [(torch.float32, True), (torch.bfloat16, False)])
+def test_skip_returns_no_dw_and_stages_by_name(engaged, dtype, skips):
+    """A float32 layer whose payload the sync will consume returns no
+    ``dw``; ``dx`` stays exact, and the staged payload and raw own row are
+    the plain product's. A bf16 product never skips (the kernel sums in
+    float32)."""
+    _skip_configure()
+    seen = []
+    real = fp._plain_dw
+    engaged.setattr(fp, "_plain_dw", lambda name, *a: seen.append(name) or real(name, *a))
+    _, x_grad, w_grad, b_grad, layer = _dense_run(dtype)
+    _, want_x, want_w, want_b = _plain_expression(dtype)
+    assert _same(x_grad, want_x) and _same(b_grad, want_b)
+    assert fp.COUNTS["producer_dw_skipped"] == int(skips)
+    assert fp.COUNTS["producer_staged"] == 1
+    if not skips:
+        assert _same(w_grad, want_w) and seen == ["big.kernel"]
+        assert fp.skipped_entries() == {}
+        return
+    assert w_grad is None and seen == []
+    ent = fp.skipped_entries()["big.kernel"]
+    rows = (want_w.reshape(-1) / WS).view(WS, -1)
+    assert _same(ent.raw_row, rows[0])
+    want = dispatch.quantize_batch(rows, ent.cc)
+    assert torch.equal(ent.q.packed, want.packed) and torch.equal(ent.q.meta, want.meta)
+    assert ent.shape == (256, 512) and ent.dtype == torch.float32
+    ph = fp.placeholder(ent)
+    assert ph.shape == (256, 512) and ph.reshape(-1).stride() == (0,)
+
+
+def test_skip_needs_the_train_step(engaged):
+    """Configured as ``gradient_sync`` users do (no ``skip_dw``), an
+    engaged layer still returns its ``dw``."""
+    *_, layer = _dense_run(torch.float32)
+    assert layer.kernel.grad is not None
+    assert fp.COUNTS["producer_dw_skipped"] == 0 and fp.skipped_entries() == {}
+
+
+@pytest.mark.parametrize("mismatch", ["world", "given", "fusion_slices", "divisor"])
+def test_unconsumable_skipped_layer_raises(engaged, mismatch):
+    """A skipped layer that the allreduce then cannot consume is a bug: the
+    allreduce raises ``RuntimeError`` naming the layer, never drops or
+    zeroes the gradient. Forced here after the backward: a one-rank world
+    (the payload was made for two), a gradient given under the skipped
+    name, several fusion slices, another divisor (``average=False``)."""
+    _skip_configure()
+    *_, layer = _dense_run(torch.float32)
+    assert layer.kernel.grad is None
+    tree = {"big.bias": layer.bias.grad}
+    average = True
+    if mismatch == "given":
+        tree["big.kernel"] = torch.zeros(256, 512)
+    elif mismatch == "fusion_slices":
+        engaged.setenv("CGX_FUSION_BUFFER_SIZE_MB", "0")  # 2,048-value slices
+    elif mismatch == "divisor":
+        average = False
+    if mismatch != "given":
+        fp._CFG.update(ws=1)  # the world the allreduce sees has one rank
+    with pytest.raises(RuntimeError, match="big.kernel"):
+        allreduce.allreduce_tree(tree, average=average)
+
+
+def test_second_backward_after_a_skip_raises(engaged):
+    """A second backward of a skipped layer in one step would lose the
+    first gradient: it raises."""
+    _skip_configure()
+    layer = Dense(256, 512, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    layer.kernel_path = "big.kernel"
+    y = layer(torch.randn(4, 16, 256))
+    y.sum().backward(retain_graph=True)
+    assert layer.kernel.grad is None
+    with pytest.raises(RuntimeError, match="second backward"):
+        y.sum().backward()
+
+
+# ---------------------------------------------------------------------------
 # Two spawned ranks: the train step.
 # ---------------------------------------------------------------------------
+
+
+class _OneLayer(torch.nn.Module):
+    """One named dense layer, ``big`` (256 -> 512)."""
+
+    def __init__(self):
+        super().__init__()
+        from torch_cgx_tpu_torch.models.layers import name_dense_layers
+
+        self.big = Dense(SYNC_DIN, SYNC_O, dtype=torch.float32)
+        name_dense_layers(self)
+
+    def forward(self, x):
+        return self.big(x)
 
 
 def _rank_main(rank, init_file, params, tokens, result_q):
@@ -547,9 +668,25 @@ def _rank_main(rank, init_file, params, tokens, result_q):
             synced = gradient_sync({"big.kernel": layer.kernel.grad, "big.bias": layer.bias.grad})
             out[f"sync_{fuse}"] = {
                 "synced": {k: v.numpy().copy() for k, v in synced.items()},
+                "skipped": fused_producer.COUNTS["producer_dw_skipped"],
                 "consumed": fused_producer.COUNTS["producer_consumed_slices"],
                 "kernel_slices": fused_producer.COUNTS["producer_kernel_slices"],
             }
+        # The same gradients through make_train_step: the backward skips the
+        # kernel's dw and p.grad is written from the consumed payload.
+        os.environ["CGX_PRODUCER_FUSE"] = "on"
+        one = _OneLayer()
+        one.big.load_state_dict(layer.state_dict())
+        step = make_train_step(one, lambda m, b: (m(b[0]) * b[1]).sum(),
+                               torch.optim.SGD(one.parameters(), lr=0.0), device="cpu")
+        fused_producer.reset_counts()
+        step((x, c))
+        out["sync_step"] = {
+            "synced": {"big.kernel": one.big.kernel.grad.numpy().copy(),
+                       "big.bias": one.big.bias.grad.numpy().copy()},
+            "consumed": fused_producer.COUNTS["producer_consumed_slices"],
+            "skipped": fused_producer.COUNTS["producer_dw_skipped"],
+        }
         fused_producer.deconfigure()
         dist.barrier()
     except Exception as e:  # reported to the parent, which fails the test
@@ -718,8 +855,206 @@ def test_two_ranks_sync_matches_jax_producer_on(world, monkeypatch):
     for r, res in enumerate(results):
         assert res["sync_on"]["consumed"] == res["sync_on"]["kernel_slices"] == 1
         assert res["sync_off"]["consumed"] == 0
+        assert res["sync_on"]["skipped"] == 0  # a direct gradient_sync keeps p.grad
+        # Through make_train_step the kernel's dw is skipped and p.grad comes
+        # from the consumed payload: the same bytes.
+        assert res["sync_step"]["consumed"] == res["sync_step"]["skipped"] == 1
         for p, v in want.items():
-            for fuse in ("on", "off"):
+            for fuse in ("on", "off", "step"):
                 np.testing.assert_array_equal(res[f"sync_{fuse}"]["synced"][p].view(np.uint32),
                                               v.view(np.uint32), err_msg=f"rank {r} {fuse} {p}")
     assert np.abs(want["big.kernel"] - mean).max() > 0
+
+
+# ---------------------------------------------------------------------------
+# C4 on spawned ranks at ws 2 and 4: the train step with the skip.
+# ---------------------------------------------------------------------------
+
+SKIP_STEPS = 3
+TWICE_N = 256  # a (256, 256) layer applied twice in one forward
+
+
+class _Twice(torch.nn.Module):
+    """One named square layer applied twice: its dw is the sum of two
+    backward products, so it must never skip."""
+
+    def __init__(self):
+        super().__init__()
+        from torch_cgx_tpu_torch.models.layers import name_dense_layers
+
+        self.big = Dense(TWICE_N, TWICE_N, dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(3))
+        name_dense_layers(self)
+
+    def forward(self, x):
+        return self.big(self.big(x))
+
+
+def _skip_rank_main(rank, ws, init_file, tokens, result_q):
+    for k in [k for k in os.environ if k.startswith("CGX_")]:
+        del os.environ[k]
+    os.environ.update(PRODUCER_ENV)
+    import torch.distributed as dist
+
+    from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
+    from torch_cgx_tpu_torch.ops import fused_producer
+    from torch_cgx_tpu_torch.parallel import gradient_sync, make_train_step
+
+    torch.set_num_threads(1)
+    plain = []  # layers whose backward ran the plain dw product
+    real = fused_producer._plain_dw
+    fused_producer._plain_dw = lambda name, *a: plain.append(name) or real(name, *a)
+    out = {}
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", rank=rank, world_size=ws,
+            timeout=timedelta(seconds=120),
+        )
+        t = torch.from_numpy(tokens[2 * rank:2 * rank + 2])
+        cfg = GPT2Config.tiny(dtype=torch.float32)
+        for fuse in ("off", "on"):
+            os.environ["CGX_PRODUCER_FUSE"] = fuse
+            model = GPT2(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+            opt = torch.optim.Adam(model.parameters(), lr=LR, eps=1e-8)
+            step = make_train_step(model, lambda m, b: lm_loss(m(b), b), opt, device="cpu")
+            res = {"losses": [], "skipped": [], "consumed": [], "plain": [], "fallbacks": []}
+            for _ in range(SKIP_STEPS):
+                fused_producer.reset_counts()
+                plain.clear()
+                res["losses"].append(float(step(t)))
+                res["skipped"].append(fused_producer.COUNTS["producer_dw_skipped"])
+                res["consumed"].append(fused_producer.COUNTS["producer_consumed_slices"])
+                res["fallbacks"].append(fused_producer.COUNTS["producer_fallbacks"])
+                res["plain"].append(sorted(plain))
+            res["params"] = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+            out[fuse] = res
+        # A layer applied twice in one forward.
+        rng = np.random.default_rng(10 + rank)
+        x = torch.from_numpy(rng.standard_normal((32, TWICE_N)).astype(np.float32))
+        c = torch.from_numpy(rng.standard_normal((32, TWICE_N)).astype(np.float32))
+        for fuse in ("off", "on"):
+            os.environ["CGX_PRODUCER_FUSE"] = fuse
+            twice = _Twice()
+            step = make_train_step(twice, lambda m, b: (m(b[0]) * b[1]).sum(),
+                                   torch.optim.SGD(twice.parameters(), lr=0.1), device="cpu")
+            fused_producer.reset_counts()
+            step((x, c))
+            out[f"twice_{fuse}"] = {
+                "grad": twice.big.kernel.grad.numpy().copy(),
+                "kernel": twice.big.kernel.detach().numpy().copy(),
+                "counts": dict(fused_producer.COUNTS),
+            }
+        # A direct gradient_sync: configured without the skip, p.grad exists.
+        os.environ["CGX_PRODUCER_FUSE"] = "on"
+        model = GPT2(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        fused_producer.configure(None, divisor=ws, active=True)
+        fused_producer.begin_step()
+        fused_producer.reset_counts()
+        lm_loss(model(t), t).backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        out["direct"] = {
+            "missing": sorted(n for n, g in grads.items() if g is None),
+            "skipped": fused_producer.COUNTS["producer_dw_skipped"],
+        }
+        gradient_sync(grads)
+        out["direct"]["consumed"] = fused_producer.COUNTS["producer_consumed_slices"]
+        fused_producer.deconfigure()
+        dist.barrier()
+    except Exception:  # reported to the parent, which fails the test
+        import traceback
+
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    result_q.put((rank, out))
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["ws2", "ws4"])
+def skip_world(request, tmp_path_factory):
+    ws = request.param
+    tokens = np.random.default_rng(7).integers(0, 512, size=(2 * ws, 32)).astype(np.int64)
+    init_file = str(tmp_path_factory.mktemp(f"gloo_skip{ws}") / "store")
+    ctx = mp.get_context("spawn")
+    result_q = ctx.Queue()
+    procs = [
+        ctx.Process(target=_skip_rank_main, args=(r, ws, init_file, tokens, result_q), daemon=True)
+        for r in range(ws)
+    ]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    try:
+        while len(results) < ws and time.monotonic() < deadline:
+            try:
+                rank, out = result_q.get(timeout=2.0)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    assert len(results) == ws, f"only ranks {sorted(results)} reported"
+    errors = {r: o["error"] for r, o in results.items() if "error" in o}
+    assert not errors, errors
+    return ws, [results[r] for r in range(ws)]
+
+
+def test_skip_steps_bit_identical_to_off(skip_world):
+    """Three steps with the skip: losses and every parameter bit-identical
+    to producer fusion off, on every rank, and the replicas identical."""
+    ws, results = skip_world
+    for r, res in enumerate(results):
+        assert res["on"]["losses"] == res["off"]["losses"]
+        for p, v in res["off"]["params"].items():
+            np.testing.assert_array_equal(res["on"]["params"][p].view(np.uint32), v.view(np.uint32),
+                                          err_msg=f"ws {ws} rank {r} {p}")
+            np.testing.assert_array_equal(results[0]["on"]["params"][p].view(np.uint32),
+                                          res["on"]["params"][p].view(np.uint32))
+
+
+def test_skip_counts_every_eligible_layer_and_no_plain_product(skip_world):
+    """Each step skips the dw of every eligible layer (qkv, mlp_in, mlp_out
+    of each block), consumes their payloads, and runs the plain product
+    only in the layers that fall back (attn_proj, in the fused group)."""
+    ws, results = skip_world
+    n_layer = GPT2Config.tiny().n_layer
+    proj = sorted(f"h_{i}.attn.attn_proj.kernel" for i in range(n_layer))
+    for res in results:
+        on, off = res["on"], res["off"]
+        assert on["skipped"] == on["consumed"] == [3 * n_layer] * SKIP_STEPS
+        assert on["fallbacks"] == [n_layer] * SKIP_STEPS
+        assert on["plain"] == [proj] * SKIP_STEPS
+        assert off["skipped"] == off["consumed"] == [0] * SKIP_STEPS
+        assert off["plain"] == [[]] * SKIP_STEPS  # off: autograd's matmul, not the wrapper
+
+
+def test_layer_applied_twice_does_not_skip(skip_world):
+    """A layer applied twice in one forward returns its dw (the sum of its
+    two backward products); the second product makes the payload
+    unclaimable, and the synced gradient and the step equal fusion off."""
+    ws, results = skip_world
+    for r, res in enumerate(results):
+        on, off = res["twice_on"], res["twice_off"]
+        assert on["counts"]["producer_dw_skipped"] == 0
+        assert on["counts"]["producer_staged"] == 1
+        assert on["counts"]["producer_fallback_identity"] == 1
+        assert on["counts"]["producer_consumed_slices"] == 0
+        np.testing.assert_array_equal(on["grad"].view(np.uint32), off["grad"].view(np.uint32),
+                                      err_msg=f"ws {ws} rank {r}")
+        np.testing.assert_array_equal(on["kernel"].view(np.uint32), off["kernel"].view(np.uint32))
+
+
+def test_direct_gradient_sync_keeps_p_grad(skip_world):
+    """Outside ``make_train_step`` nothing skips: every parameter has its
+    ``p.grad`` and the sync still consumes the payloads."""
+    ws, results = skip_world
+    n_layer = GPT2Config.tiny().n_layer
+    for res in results:
+        assert res["direct"]["missing"] == [] and res["direct"]["skipped"] == 0
+        assert res["direct"]["consumed"] == 3 * n_layer

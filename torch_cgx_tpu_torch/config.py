@@ -31,10 +31,14 @@ STOCHASTIC_ROUNDING = "CGX_STOCHASTIC_ROUNDING"
 SRA_EPILOGUE = "CGX_SRA_EPILOGUE"
 SRA_EPILOGUE_MIN_ELEMS = "CGX_SRA_EPILOGUE_MIN_ELEMS"
 PRODUCER_FUSE = "CGX_PRODUCER_FUSE"
-# Read only to refuse them: the CUDA kernels implement the default
-# ``div`` encode and the exact f32 fold (ROADMAP Queue B).
-CODEC_ENCODE = "CGX_CODEC_ENCODE"
+CODEC_ENCODE = "CGX_CODEC_ENCODE"  # div | mul: the level encode of the quantizing kernels
+# exact | int8: the fold of the reduce kernels. Only "exact" is ported; the
+# wrappers refuse "int8" (ROADMAP Queue B).
 SRA_ACCUM = "CGX_SRA_ACCUM"
+# Read only to refuse a value other than the default: the synthetic
+# compression ratio and the nonfinite guard are not ported (ROADMAP Queue A).
+COMPRESSION_FAKE_RATIO = "CGX_COMPRESSION_FAKE_RATIO"
+NONFINITE_GUARD = "CGX_NONFINITE_GUARD"
 PALLAS_DB = "CGX_PALLAS_DB"  # auto | on | off: the pipelined (DB) codec kernels
 PALLAS_PACK = "CGX_PALLAS_PACK"  # sum | butterfly: the bit-plane pack lowering
 PALLAS_TILE_CHUNKS = "CGX_PALLAS_TILE_CHUNKS"  # explicit tile override
@@ -115,6 +119,49 @@ def fusion_threshold_elems(element_size: int = 4) -> int:
     """Fusion slice capacity in elements (64 MB slices by default)."""
     mb = _env.get_int_env_or_default(FUSION_BUFFER_SIZE_MB, DEFAULT_FUSION_MB)
     return max(MIN_FUSION_SIZE, (mb * 1024 * 1024) // element_size)
+
+
+def fake_ratio() -> Optional[float]:
+    """CGX_COMPRESSION_FAKE_RATIO: the reference's debug traffic shaping,
+    which reduces only the leading ``ratio`` fraction of each compressed
+    buffer. A value <= 0 or >= 1 is off (None), as in the JAX package. The
+    port does not implement it: ``allreduce_flat`` raises while a ratio is
+    active."""
+    v = _env.get_float_env_or_default(COMPRESSION_FAKE_RATIO, 0.0)
+    if v <= 0.0 or v >= 1.0:
+        return None
+    return v
+
+
+def refuse_fake_ratio() -> None:
+    if fake_ratio() is not None:
+        raise NotImplementedError(
+            f"{COMPRESSION_FAKE_RATIO} is not ported (the port reduces every value "
+            f"of a buffer); unset it or set it to 0"
+        )
+
+
+NONFINITE_POLICIES = ("off", "skip", "exact")
+
+
+def nonfinite_guard() -> str:
+    """CGX_NONFINITE_GUARD: what the JAX package's train step does when a
+    rank's gradients hold NaN or Inf: "off" (default), "skip" or "exact";
+    anything else is a ``ValueError``. The port implements only "off":
+    ``gradient_sync`` and ``make_train_step`` raise under the other two."""
+    v = _env.get_str_env_or_default(NONFINITE_GUARD, "off").lower()
+    if v not in NONFINITE_POLICIES:
+        raise ValueError(f"{NONFINITE_GUARD} must be one of {NONFINITE_POLICIES}, got {v!r}")
+    return v
+
+
+def refuse_nonfinite_guard() -> None:
+    guard = nonfinite_guard()
+    if guard != "off":
+        raise NotImplementedError(
+            f"{NONFINITE_GUARD}={guard} is not ported (the port quantizes NaN/Inf "
+            f"gradients as they are); unset it or set it to off"
+        )
 
 
 def _reduction_from_env(name: str, default: str) -> str:
@@ -217,12 +264,17 @@ def producer_fuse() -> str:
     emits the layer's SRA stage-1 wire payload, which the allreduce then
     consumes in place of quantizing the f32 gradient itself.
 
-    * "auto" (default): off in this package for now. Eager PyTorch cannot
-      drop the plain weight gradient the way XLA's dead-code elimination
-      does in the JAX package (the backward must return it for
-      ``p.grad``, and consumption is decided later), so an engaged layer
-      costs a second matmul over the weight-gradient FLOPs; "auto" stays
-      off until the plain ``dw`` can be skipped.
+    * "auto" (default): off in this package. Inside ``make_train_step`` an
+      engaged layer no longer computes the plain weight gradient (its
+      ``dw`` is skipped where the sync consumes the payload), so engaging
+      pays exactly when the matmul-quantize kernel is no slower than the
+      unfused route for the same payload: cuBLAS's product, the divide and
+      the stage-1 quantize. On an NVIDIA H100 80GB HBM3 at 700 W
+      (``chip_smoke.py`` phase 5, K = 1024, 4 bits, bucket 512, divisor 4)
+      it is slower at GPT-2 124M's three dense shapes: 0.2389 / 0.1901 /
+      0.2481 ms against 0.1721 / 0.1470 / 0.2403 ms at mlp_in / attn_qkv /
+      mlp_out (1.39x / 1.29x / 1.03x). So "auto" stays off until it wins
+      at all three.
     * "on": engage on any device (on the CPU the payload comes from the
       plain PyTorch versions).
     * "off": never engage."""

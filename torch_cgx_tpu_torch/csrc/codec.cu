@@ -17,8 +17,10 @@
 //                           nometa, metalane and read bodies; its mul and
 //                           butterfly variants are cgx_quantize's lowerings)
 // CUDA has no 128-lane tiling constraint, so one kernel serves both the flat
-// and the bucket-row geometry of each TPU pair: every kernel walks whole
-// chunks of 32 buckets, one thread block per chunk.
+// and the bucket-row geometry of each TPU pair: every codec kernel walks
+// whole chunks of 32 buckets, one thread block per chunk. The
+// matmul-quantize tiles its output instead, and its tiles complete the
+// chunks through the L2 (see its section).
 //
 // Wire layout (torch_cgx_tpu/ops/codec.py): chunk c holds buckets
 // 32c..32c+31; value (c, s, l) is x[c*32*B + s*B + l]; word (c, w, l) at
@@ -36,12 +38,13 @@
 // The operations per value (a divide, a handful of adds, shifts and ors)
 // stay far below the card's rate for that traffic. The matmul-quantize is
 // operation-bound: 2*K*din*o f32 operations for n = din*o values against
-// 4*K*(din + o) bytes read and n*bits/8 + 8n/B written. The single-stage
-// kernels are simple: coalesced global loads, neighbouring threads on
-// neighbouring positions l of one bucket, one block per chunk. The
-// pipelined (*_db) kernels keep one persistent block per SM slot and
-// stream their inputs through a ring of shared-memory slots filled by bulk
-// asynchronous copies (see their section below). No tensor cores.
+// 4*K*(din + o) bytes read and n*bits/8 + 8n/B (+ 4n/ws of the own raw
+// row) written. The single-stage codec kernels are simple: coalesced global
+// loads, neighbouring threads on neighbouring positions l of one bucket, one
+// block per chunk. The pipelined (*_db) kernels keep one persistent block
+// per SM slot and stream their inputs through a ring of shared-memory slots
+// filled by bulk asynchronous copies (see their section below). No tensor
+// cores.
 //
 // Arithmetic is fixed to the plain PyTorch version in
 // torch_cgx_tpu_torch/ops/codec.py, bit for bit: the meta multiplies by
@@ -412,166 +415,248 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kMmRows = 8;  // rows of dw one work item of the matmul covers
-constexpr int kMmCols = 4;  // columns of dw one work item covers (a float4)
-constexpr int kMmPanel = kThreads * kMmCols;  // columns of g2 one wave stages
-constexpr int kMmMaxSteps = 8;  // contraction steps in one stage
+// ---------------------------------------------------------------------------
+// The matmul-quantize (B8): a register-tiled f32 GEMM whose tiles complete
+// the quantize chunks through the L2.
+// ---------------------------------------------------------------------------
 
-// Asynchronous global -> shared copies (Ampere and later): the stage after
-// the one being summed is in flight while the block computes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+constexpr int kMmThreads = 128;  // 16 column groups x 8 row groups, 8 x 8 sums each
+constexpr int kMmBM = 64;        // rows of dw (columns of x2) a tile covers
+constexpr int kMmBN = 128;       // columns of dw (of g2) a tile covers
+constexpr int kMmBK = 16;        // contraction steps one ring stage holds
+constexpr int kMmStages = 4;     // stages of the shared-memory ring
+constexpr int kMmStageFloats = kMmBK * (kMmBM + kMmBN);
+
+// Asynchronous global -> shared copies (Ampere and later) with zero fill:
+// the src_bytes first bytes come from src, the rest of the copy is zeros
+// (src_bytes 0: nothing is read). The 16-byte form (.cg) reads through the
+// L2 only.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One work item's 8 x 4 sums: acc[rr][q] += x[rr] * g[q], k ascending.
-__device__ __forceinline__ void mm_step(float (&acc)[kMmRows][kMmCols], const float* x,
-                                        const float4 g) {
+// A load that acquires at device scope: the writes released before the
+// store or atomic it reads are visible after it.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Fill one ring stage: contraction rows k0 .. k0+15 of x2's columns
+// i0 .. i0+63 (xs, 16 x 64) and of g2's columns j0 .. j0+127 (gs, 16 x 128),
+// each a coalesced row segment. Rows past K and columns past din or o are
+// zero-filled and never summed. x_vec: x2's rows are 16-byte aligned
+// (din % 4 == 0), so x moves in 16-byte copies like g2 (o % 4 == 0).
+__device__ __forceinline__ void mm_fill(float* st, const float* x2, const float* g2,
+                                        long long k_total, int din, int o, long long k0,
+                                        int i0, int j0, bool x_vec) {
+  float* xs = st;
+  float* gs = st + kMmBK * kMmBM;
+  if (x_vec) {
+    for (int e = threadIdx.x; e < kMmBK * (kMmBM / 4); e += kMmThreads) {
+      const int u = e / (kMmBM / 4), q = 4 * (e % (kMmBM / 4));
+      const bool in = k0 + u < k_total && i0 + q < din;
+      cp_async16(xs + u * kMmBM + q, in ? x2 + (k0 + u) * din + i0 + q : x2, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kMmBK * kMmBM; e += kMmThreads) {
+      const int u = e / kMmBM, q = e % kMmBM;
+      const bool in = k0 + u < k_total && i0 + q < din;
+      cp_async4(xs + u * kMmBM + q, in ? x2 + (k0 + u) * din + i0 + q : x2, in ? 4 : 0);
+    }
+  }
+  for (int e = threadIdx.x; e < kMmBK * (kMmBN / 4); e += kMmThreads) {
+    const int u = e / (kMmBN / 4), q = 4 * (e % (kMmBN / 4));
+    const bool in = k0 + u < k_total && j0 + q < o;
+    cp_async16(gs + u * kMmBN + q, in ? g2 + (k0 + u) * o + j0 + q : g2, in ? 16 : 0);
+  }
+}
+
+// One contraction step of a thread's 8 x 8 sums. Thread (tx, ty) owns
+// tile rows 4ty + {0..3} and 32 + 4ty + {0..3} (sums row r < 4: 4ty + r,
+// else 28 + 4ty + r) and tile columns 4tx + {0..3} and 64 + 4tx + {0..3}:
+// four 16-byte shared loads feed 64 __fmaf_rn, x times g plus the sum,
+// the plain version's order with k ascending.
+__device__ __forceinline__ void mm_step(float (&acc)[8][8], const float* xs, const float* gs,
+                                        int tx, int ty) {
+  const float4 a0 = *reinterpret_cast<const float4*>(xs + 4 * ty);
+  const float4 a1 = *reinterpret_cast<const float4*>(xs + 32 + 4 * ty);
+  const float4 b0 = *reinterpret_cast<const float4*>(gs + 4 * tx);
+  const float4 b1 = *reinterpret_cast<const float4*>(gs + 64 + 4 * tx);
+  const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-  for (int rr = 0; rr < kMmRows; ++rr) {
-    const float xv = x[rr];
-    acc[rr][0] = __fmaf_rn(xv, g.x, acc[rr][0]);
-    acc[rr][1] = __fmaf_rn(xv, g.y, acc[rr][1]);
-    acc[rr][2] = __fmaf_rn(xv, g.z, acc[rr][2]);
-    acc[rr][3] = __fmaf_rn(xv, g.w, acc[rr][3]);
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = __fmaf_rn(a[r], b[c], acc[r][c]);
   }
 }
 
 // codec_matmul_quantize. Replaces fused_producer.py _matmul_quantize_impl
 // (B8): dw = x2^T g2 (x2 f32 (K, din), g2 f32 (K, o), row-major), divided by
 // div and quantized into the wire layout of the flat dw (din*o values, row
-// major); the f32 dw is never written to global memory. Operation-bound:
-// 2*K*din*o f32 operations; reads 4*K*(din + o) bytes at least once, writes
-// n*bits/8 + 8n/B (n = din*o).
-// One block per chunk of the flat dw (32 buckets, 32*B values, which may
-// start and end inside a row). The block walks the rows the chunk touches
-// in blocks of 8, and each row block in waves of 256 four-column groups:
-// thread t owns the 8 x 4 values at column group t of the wave and keeps
-// their sums in registers over the whole contraction, k ascending, one
-// __fmaf_rn per product. With `steps` > 0 the block stages `steps` rows of
-// g2 (the wave's columns) and of x2 (the row block's 8 values) in shared
-// memory at a time, all threads copying, in two buffers: the next stage's
-// copies (cp.async) are in flight while the block sums the current one.
-// With `steps` == 0 (a bucket whose tile leaves no room) each thread reads
-// its operands through the read-only cache. Either way the sums are the
-// same. The values that fall inside the
-// chunk, divided by div, go to a (32, B) f32 tile in shared memory, on
-// which chunk_meta and chunk_encode run as in the epilogue, so the bytes
-// equal the quantize kernel's for equal values.
+// major), plus the f32 values of dw / div at flat [raw_lo, raw_lo + raw_n)
+// (the own raw row of the SRA; raw_n 0: none).
+//
+// Bound: operations, 2*K*din*o f32 (a multiply and an add per product)
+// against 4*K*(din + o) bytes read once and n*bits/8 + 8n/B written. The
+// design: no tensor cores (TF32 would round the operands and break parity
+// with the plain version), so it is an FFMA GEMM like cuBLAS's f32 kernels:
+//  - the GEMM tiling is the output's, not the quantize chunk's: 64 x 128
+//    tiles of dw, every value computed exactly once (288 tiles at GPT-2
+//    124M's mlp_in), walked by a persistent grid of as many blocks as the
+//    SMs hold at once;
+//  - both operands are K-major, so each contraction step is an outer
+//    product of a coalesced row segment of x2 and of g2; a 4-stage ring of
+//    16-step stages in shared memory, filled by cp.async, keeps three
+//    stages in flight while the block sums the fourth;
+//  - a thread keeps 8 x 8 sums in registers over the whole contraction,
+//    one __fmaf_rn chain from 0 with k ascending, then __fdiv_rn(acc, div):
+//    the order of the one-block-per-chunk kernel this design replaced, so
+//    the bytes equal its bytes; no split-K.
+// The quantize needs each 32-bucket chunk whole, and a chunk spans the
+// tiles of several blocks. Chunk completion through the L2 (chosen over a
+// cluster holding whole chunks in distributed shared memory, whose group
+// of 3-9 chunks would tie the GEMM tiling to the chunk geometry again):
+// each tile writes its dw / div values into a workspace (4*din*o bytes,
+// L2-resident at these shapes), fences, and adds its value count to each
+// chunk's arrival counter. Chunk c belongs to block c % gridDim.x: once
+// the block's tiles are done it waits for the chunk's 32*B arrivals, copies
+// the chunk from the L2 into shared memory (the ring's space) and runs
+// chunk_meta and chunk_encode on it as the epilogue kernels do. The
+// counters are the launch's own, zeroed on its stream before it.
+// The launch is cooperative, so every block is resident and the waits
+// cannot block a tile that is not running. Each chunk has its own block
+// rather than the block whose arrival completes it: all tiles of a band of
+// rows finish together, so that block would quantize every chunk of its
+// band in turn (12 at mlp_in).
 template <int BITS, int ENCODE, int PACK>
-__global__ void __launch_bounds__(kThreads)
-    cgx_matmul_quantize_kernel(const float* __restrict__ x2,
-                               const float* __restrict__ g2, long long k_total,
-                               int din, int o, float div, int B, float inv, int steps,
-                               int32_t* __restrict__ words,
-                               float* __restrict__ meta) {
+__global__ void __launch_bounds__(kMmThreads, 3)
+    cgx_matmul_quantize_kernel(const float* __restrict__ x2, const float* __restrict__ g2,
+                               long long k_total, int din, int o, int tiles_n, long long tiles,
+                               float div, int B, float inv, int x_vec,
+                               float* __restrict__ work, int* __restrict__ arrivals,
+                               float* __restrict__ raw, long long raw_lo, long long raw_n,
+                               int32_t* __restrict__ words, float* __restrict__ meta) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_unit[kChunkBuckets];
   __shared__ float s_min[kChunkBuckets];
-  const long long c = blockIdx.x;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long chunk_n = (long long)kChunkBuckets * B;
-  const long long base = c * chunk_n;
-  float* tile = smem;
-  float* g_s = smem + chunk_n;                      // 2 x steps x kMmPanel
-  float* x_s = g_s + (size_t)2 * steps * kMmPanel;  // 2 x steps x kMmRows
-  const int r_lo = (int)(base / o);
-  const int r_hi = (int)((base + chunk_n - 1) / o);
-  const int n_cg = o / kMmCols;
-  for (int first = r_lo; first <= r_hi; first += kMmRows) {
-    const int last = min(first + kMmRows - 1, r_hi);
-    for (int cg0 = 0; cg0 < n_cg; cg0 += kThreads) {
-      const int width = min(kThreads, n_cg - cg0);  // column groups in this wave
-      const int col0 = cg0 * kMmCols;
-      if ((long long)last * o + col0 + width * kMmCols <= base ||
-          (long long)first * o + col0 >= base + chunk_n) {
-        continue;  // none of the wave's values lies in this chunk
+  const long long nk = (k_total + kMmBK - 1) / kMmBK;
+
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int i0 = (int)(t / tiles_n) * kMmBM;
+    const int j0 = (int)(t % tiles_n) * kMmBN;
+    float acc[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+    }
+#pragma unroll
+    for (int st = 0; st < kMmStages - 1; ++st) {
+      if (st < nk) {
+        mm_fill(smem + st * kMmStageFloats, x2, g2, k_total, din, o, (long long)st * kMmBK, i0, j0,
+                x_vec);
       }
-      const int col = col0 + threadIdx.x * kMmCols;
-      const bool mine = (int)threadIdx.x < width &&
-                        (long long)last * o + col >= base &&
-                        (long long)first * o + col < base + chunk_n;
-      float acc[kMmRows][kMmCols];
-#pragma unroll
-      for (int rr = 0; rr < kMmRows; ++rr) {
-#pragma unroll
-        for (int q = 0; q < kMmCols; ++q) acc[rr][q] = 0.f;
+      cp_async_commit();
+    }
+    for (long long kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kMmStages - 2>();  // this thread's copies of stage kt landed
+      __syncthreads();                  // and everyone's; stage kt - 1 is summed
+      const long long next = kt + kMmStages - 1;
+      if (next < nk) {
+        mm_fill(smem + (next % kMmStages) * kMmStageFloats, x2, g2, k_total, din, o,
+                next * kMmBK, i0, j0, x_vec);
       }
-      if (steps > 0) {
-        const long long n_stages = (k_total + steps - 1) / steps;
-        // Copy stage s into buffer s % 2 (rows past `last` repeat row
-        // `last`: their sums are never written).
-        auto fetch = [&](long long st) {
-          const long long k0 = st * steps;
-          const int n_steps = (int)min((long long)steps, k_total - k0);
-          float* gb = g_s + (size_t)(st & 1) * steps * kMmPanel;
-          float* xb = x_s + (size_t)(st & 1) * steps * kMmRows;
-          for (int i = threadIdx.x; i < n_steps * width; i += blockDim.x) {
-            const int u = i / width, j = i % width;
-            cp_async16(gb + (size_t)u * kMmPanel + j * kMmCols, g2 + (k0 + u) * o + col0 + j * kMmCols);
-          }
-          for (int i = threadIdx.x; i < n_steps * kMmRows; i += blockDim.x) {
-            const int u = i / kMmRows, rr = i % kMmRows;
-            cp_async4(xb + i, x2 + (k0 + u) * din + min(first + rr, last));
-          }
-          cp_async_commit();
-        };
-        __syncthreads();  // the previous wave is done with both buffers
-        fetch(0);
-        for (long long st = 0; st < n_stages; ++st) {
-          if (st + 1 < n_stages) {
-            fetch(st + 1);
-          } else {
-            cp_async_commit();  // an empty group keeps the wait below uniform
-          }
-          cp_async_wait_prior();  // this thread's copies of stage st landed
-          __syncthreads();        // and everyone else's
-          if (mine) {
-            const int n_steps = (int)min((long long)steps, k_total - st * steps);
-            const float* gb = g_s + (size_t)(st & 1) * steps * kMmPanel;
-            const float* xb = x_s + (size_t)(st & 1) * steps * kMmRows;
-#pragma unroll 4
-            for (int u = 0; u < n_steps; ++u) {
-              mm_step(acc, xb + u * kMmRows,
-                      reinterpret_cast<const float4*>(gb + (size_t)u * kMmPanel)[threadIdx.x]);
-            }
-          }
-          __syncthreads();  // buffer st % 2 is free for stage st + 2
-        }
-      } else if (mine) {
-        for (long long k = 0; k < k_total; ++k) {
-          float x[kMmRows];
+      cp_async_commit();  // possibly empty: keeps the group count uniform
+      const float* xs = smem + (kt % kMmStages) * kMmStageFloats;
+      const float* gs = xs + kMmBK * kMmBM;
+      const long long left = k_total - kt * kMmBK;
+      if (left >= kMmBK) {
 #pragma unroll
-          for (int rr = 0; rr < kMmRows; ++rr) {
-            x[rr] = first + rr <= last ? __ldg(x2 + k * din + first + rr) : 0.f;
-          }
-          mm_step(acc, x, __ldg(reinterpret_cast<const float4*>(g2 + k * o + col)));
-        }
+        for (int u = 0; u < kMmBK; ++u) mm_step(acc, xs + u * kMmBM, gs + u * kMmBN, tx, ty);
+      } else {  // the last stage of a K that is not a multiple of 16: exactly K sums
+        for (int u = 0; u < (int)left; ++u) mm_step(acc, xs + u * kMmBM, gs + u * kMmBN, tx, ty);
       }
-      if (mine) {
+    }
+    cp_async_wait<0>();
+
+    // The tile's values of dw / div into the workspace (and the raw row).
 #pragma unroll
-        for (int rr = 0; rr < kMmRows; ++rr) {
-          const long long flat = (long long)(first + rr) * o + col;
-          if (first + rr <= last && flat >= base && flat < base + chunk_n) {
-            float* t = tile + (flat - base);
+    for (int r = 0; r < 8; ++r) {
+      const int i = i0 + (r < 4 ? 4 * ty + r : 28 + 4 * ty + r);
 #pragma unroll
-            for (int q = 0; q < kMmCols; ++q) t[q] = __fdiv_rn(acc[rr][q], div);
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + 64 * h + 4 * tx;
+        if (i < din && j < o) {
+          float4 v;
+          v.x = __fdiv_rn(acc[r][4 * h], div);
+          v.y = __fdiv_rn(acc[r][4 * h + 1], div);
+          v.z = __fdiv_rn(acc[r][4 * h + 2], div);
+          v.w = __fdiv_rn(acc[r][4 * h + 3], div);
+          const long long flat = (long long)i * o + j;
+          __stcg(reinterpret_cast<float4*>(work + flat), v);
+          if (flat >= raw_lo && flat < raw_lo + raw_n) {
+            *reinterpret_cast<float4*>(raw + (flat - raw_lo)) = v;
           }
         }
       }
     }
+    __threadfence();  // the values are visible device-wide before any arrival counts them
+    __syncthreads();  // every thread's values (and the ring is free for the next tile)
+    // One arrival per row of the tile: its segment [i*o + j0, i*o + j1)
+    // adds its length to the chunk (or the two chunks) it lies in.
+    const int j1 = min(j0 + kMmBN, o);
+    for (int r = threadIdx.x; r < kMmBM; r += kMmThreads) {
+      const int i = i0 + r;
+      if (i >= din) continue;
+      long long lo = (long long)i * o + j0;
+      const long long hi = (long long)i * o + j1;
+      while (lo < hi) {
+        const long long c = lo / chunk_n;
+        const long long end = min(hi, (c + 1) * chunk_n);
+        atomicAdd(arrivals + c, (int)(end - lo));
+        lo = end;
+      }
+    }
   }
-  __syncthreads();
-  chunk_meta<ENCODE>(tile, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
-  __syncthreads();
-  chunk_encode<BITS, ENCODE, PACK>(tile, B, s_unit, s_min, words + c * BITS * B);
+
+  // This block's chunks: wait for all 32*B values, stage, quantize.
+  const long long chunks = (long long)din * o / chunk_n;
+  for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
+    if (threadIdx.x == 0) {
+      while (ld_acquire(arrivals + c) < chunk_n) __nanosleep(128);
+    }
+    __syncthreads();
+    const float* src = work + c * chunk_n;
+    for (long long e = threadIdx.x; e < chunk_n / 4; e += kMmThreads) {
+      cp_async16(smem + 4 * e, src + 4 * e, 16);  // from the L2, where the values are
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    chunk_meta<ENCODE>(smem, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
+    __syncthreads();
+    chunk_encode<BITS, ENCODE, PACK>(smem, B, s_unit, s_min, words + c * BITS * B);
+    __syncthreads();  // the tile and the meta are free for the next chunk
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1041,40 +1126,52 @@ int cgx_reduce_rows(const int32_t* words, const float* meta, const float* raw,
 #if CGX_IN_PART(3)
 // x2: k_total*din f32, g2: k_total*o f32 (row-major; g2 16-byte aligned) ->
 // the flat dw = x2^T g2 / div quantized: words (din*o/(32*B))*bits*B int32,
-// meta (din*o/B)*2 f32. din*o must be whole 32-bucket chunks, o % 4 == 0.
-// The (32, B) tile takes 128*B bytes of shared memory; what the block may
-// use beyond it stages up to 8 contraction steps of the operands, twice.
-int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total,
-                        int din, int o, float div, int32_t* words, float* meta,
-                        int B, int bits, float inv, int encode, int pack, void* stream) {
+// meta (din*o/B)*2 f32, and raw: the f32 dw / div at flat [raw_lo, raw_lo +
+// raw_n) (raw_n 0 and raw null: none; both multiples of 4, raw 16-byte
+// aligned). din*o must be whole 32-bucket chunks, o % 4 == 0. work: din*o
+// f32 of scratch (16-byte aligned); arrivals: one int32 a chunk, zero
+// before the launch.
+int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total, int din, int o,
+                        float div, float* work, int* arrivals, float* raw, long long raw_lo,
+                        long long raw_n, int32_t* words, float* meta, int B, int bits, float inv,
+                        int encode, int pack, void* stream) {
   const long long n = (long long)din * o;
   const long long chunk_n = (long long)kChunkBuckets * B;
-  if (k_total < 1 || din < 1 || o < kMmCols || o % kMmCols || B < 32 || B % 32 ||
-      n % chunk_n || ((uintptr_t)g2 & 15)) {
+  if (k_total < 1 || din < 1 || o < 4 || o % 4 || B < 32 || B % 32 || n % chunk_n ||
+      !aligned16(g2) || !aligned16(work) || arrivals == nullptr || raw_lo < 0 || raw_n < 0 ||
+      raw_lo % 4 || raw_n % 4 || raw_lo + raw_n > n ||
+      (raw_n > 0 && (raw == nullptr || !aligned16(raw)))) {
     return (int)cudaErrorInvalidValue;
   }
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return (int)e;
-  // Shared memory: the tile, the meta, and two stages of staged operands.
-  // Prefer stages small enough that two blocks share an SM; else the most
-  // the block's own limit leaves (none: the operands go through the cache).
-  const long long fixed = 2 * kChunkBuckets * (long long)sizeof(float) + chunk_n * (long long)sizeof(float);
-  const long long stage = 2LL * (kMmPanel + kMmRows) * (long long)sizeof(float);  // per step, both buffers
-  if (fixed > optin) return (int)cudaErrorInvalidValue;
-  long long fit = (optin / 2 - 1024 - fixed) / stage;
-  if (fit < kMmMaxSteps / 2) fit = (optin - fixed) / stage;
-  const int steps = (int)(fit < kMmMaxSteps ? fit : kMmMaxSteps);
-  const long long chunks = n / chunk_n;
+  int x_vec = din % 4 == 0 && aligned16(x2);
+  int tiles_n = (o + kMmBN - 1) / kMmBN;
+  long long tiles = (long long)((din + kMmBM - 1) / kMmBM) * tiles_n;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)(chunk_n + 2LL * steps * (kMmPanel + kMmRows)) * sizeof(float);
+  // The ring, or a whole chunk while the block quantizes it.
+  const size_t ring = (size_t)kMmStages * kMmStageFloats * sizeof(float);
+  const size_t tile = (size_t)chunk_n * sizeof(float);
+  const size_t smem = ring > tile ? ring : tile;
+  void* args[] = {&x2, &g2, &k_total, &din, &o, &tiles_n, &tiles, &div, &B, &inv, &x_vec,
+                  &work, &arrivals, &raw, &raw_lo, &raw_n, &words, &meta};
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
-    e = cudaFuncSetAttribute(cgx_matmul_quantize_kernel<BITS, ENCODE, PACK>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto kernel = cgx_matmul_quantize_kernel<BITS, ENCODE, PACK>;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    }
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmThreads, smem);
+    }
     if (e != cudaSuccess) return (int)e;
-    cgx_matmul_quantize_kernel<BITS, ENCODE, PACK><<<(unsigned)chunks, kThreads, smem, st>>>(
-        x2, g2, k_total, din, o, div, B, inv, steps, words, meta);
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long most = (long long)per_sm * sms;
+    const long long want = tiles > n / chunk_n ? tiles : n / chunk_n;
+    const unsigned grid = (unsigned)(want < most ? want : most);
+    e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kMmThreads), args, smem,
+                                    st);
+    if (e != cudaSuccess) return (int)e;
   }));
   return (int)cudaGetLastError();
 }

@@ -186,7 +186,8 @@ def _lib():
             lib.cgx_dequantize.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
             lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, i, i, vp, vp, vp]
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, vp, vp]
-            lib.cgx_matmul_quantize.argtypes = [vp, vp, ll, i, i, f, vp, vp, i, i, f, i, i, vp]
+            lib.cgx_matmul_quantize.argtypes = [
+                vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, vp]
             lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, vp]
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
             lib.cgx_sra_epilogue_db.argtypes = [vp, vp, vp, i, i, ll, i, i, i, f, i, i, vp, vp, vp]
@@ -509,27 +510,47 @@ def reduce_rows_chunks(
 # ---------------------------------------------------------------------------
 
 
+def _own_span(n: int, own_row: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """``(start, length)`` in the flat dw of row ``own`` of ``ws`` equal
+    rows, or ``(0, 0)`` without ``own_row``."""
+    if own_row is None:
+        return 0, 0
+    own, ws = own_row
+    if ws < 1 or n % ws or not 0 <= own < ws:
+        raise ValueError(f"own_row={own_row}: own must index one of ws equal rows of {n} values")
+    return own * (n // ws), n // ws
+
+
 def matmul_quantize_chunks_plain(
     x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int,
     encode: Optional[str] = None, pack: Optional[str] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    own_row: Optional[Tuple[int, int]] = None,
+):
     """Plain version of :func:`matmul_quantize_chunks`: the product, the
-    divide, then :func:`quantize_chunks_plain` of the flat result."""
-    dw = torch.matmul(x2.t(), g2) / div
-    return quantize_chunks_plain(dw.reshape(-1), bits, bucket_size, encode, pack)
+    divide, then :func:`quantize_chunks_plain` of the flat result (and the
+    own row's values of the same quotient)."""
+    dw = (torch.matmul(x2.t(), g2) / div).reshape(-1)
+    words, meta = quantize_chunks_plain(dw, bits, bucket_size, encode, pack)
+    if own_row is None:
+        return words, meta
+    lo, ln = _own_span(dw.numel(), own_row)
+    return words, meta, dw[lo : lo + ln].clone()
 
 
 def matmul_quantize_chunks(
     x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int,
     encode: Optional[str] = None, pack: Optional[str] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    own_row: Optional[Tuple[int, int]] = None,
+):
     """The weight gradient of a dense layer, divided and quantized:
     ``x2`` f32 ``(K, din)`` and ``g2`` f32 ``(K, o)`` -> ``(words int32
     (C*bits*B,), meta f32 (C*32, 2))`` of the flat ``x2^T g2 / div``
     (``din*o`` values, row-major, ``C = din*o / (32*B)`` chunks) in the
     wire layout, in the ``encode`` and ``pack`` lowerings
-    (:func:`_lowering`). On the card the f32 product never reaches global
-    memory."""
+    (:func:`_lowering`). With ``own_row=(own, ws)`` also the f32 values of
+    row ``own`` of the ``(ws, din*o/ws)`` view of the same quotient, from
+    the same sums. On the card the quotient goes only to an L2-sized
+    workspace the kernel quantizes from; one launch."""
     encode, pack = _lowering(encode, pack)
     if cfg_mod.stochastic_rounding():
         raise NotImplementedError(
@@ -541,8 +562,9 @@ def matmul_quantize_chunks(
     k_total, din = x2.shape
     o = g2.shape[1]
     chunks = _chunk_geometry(din * o, bits, bucket_size)
+    raw_lo, raw_n = _own_span(din * o, own_row)
     if _device_kind(x2, g2) == "cpu":
-        return matmul_quantize_chunks_plain(x2, g2, div, bits, bucket_size, encode, pack)
+        return matmul_quantize_chunks_plain(x2, g2, div, bits, bucket_size, encode, pack, own_row)
     if o % 4:
         raise ValueError(f"the matmul-quantize kernel needs o % 4 == 0, got o={o}")
     if CHUNK_BUCKETS * bucket_size * 4 > MAX_EPILOGUE_TILE_BYTES:
@@ -551,16 +573,22 @@ def matmul_quantize_chunks(
     _require_cuda_operand("matmul g2", g2, torch.float32, g2.numel())
     if g2.data_ptr() % 16:  # the kernel reads g2 four floats at a time
         g2 = g2.clone()
-    words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x2.device)
-    meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x2.device)
+    dev = x2.device
+    words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=dev)
+    meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=dev)
+    work = torch.empty(din * o, dtype=torch.float32, device=dev)
+    arrivals = torch.zeros(chunks, dtype=torch.int32, device=dev)  # the launch's own
+    raw = torch.empty(raw_n, dtype=torch.float32, device=dev) if own_row is not None else None
     err = _lib().cgx_matmul_quantize(
         x2.data_ptr(), g2.data_ptr(), k_total, din, o, float(div),
+        work.data_ptr(), arrivals.data_ptr(),
+        None if raw is None or raw_n == 0 else raw.data_ptr(), raw_lo, raw_n,
         words.data_ptr(), meta.data_ptr(), bucket_size, bits,
         codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), _stream(x2),
     )
     LAUNCHES["codec_matmul_quantize"] += 1
     _check_launch("codec_matmul_quantize", err)
-    return words, meta
+    return (words, meta) if raw is None else (words, meta, raw)
 
 
 # ---------------------------------------------------------------------------

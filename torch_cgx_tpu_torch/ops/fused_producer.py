@@ -4,21 +4,24 @@ the layer's SRA stage-1 wire payload.
 Counterpart of ``torch_cgx_tpu/ops/fused_producer.py``, in PyTorch's idiom:
 
 * :func:`matmul` is ``x @ w`` as a ``torch.autograd.Function``. Its backward
-  returns the exact ``dx`` and ``dw`` (the same PyTorch calls autograd makes
-  for ``torch.matmul``, so ``p.grad`` is bit-identical to the unwrapped
-  layer's), and it also stages the layer's wire payload: the quantized
-  ``(ws, chunk)`` SRA stage-1 rows of ``dw / divisor`` and the raw own-chunk
-  row, in a stash keyed by the parameter's dotted path.
+  returns the exact ``dx`` and stages the layer's wire payload: the
+  quantized ``(ws, chunk)`` SRA stage-1 rows of ``dw / divisor`` and the
+  raw own-chunk row, in a stash keyed by the parameter's dotted path. It
+  returns the exact ``dw`` too (the same PyTorch call autograd makes for
+  ``torch.matmul``), except where the sync of the same step will consume
+  the payload (below).
 * ``allreduce_tree`` (``parallel/allreduce.py``) looks each standalone
-  compressed group's gradient up in the stash. On a match the SRA consumes
-  the payload (``reducers._sra_exchange(pre=...)``) instead of quantizing
-  the f32 gradient itself; on any mismatch the plain path runs and the
-  fallback is counted in :data:`COUNTS`, never silent.
+  compressed group's gradient up in the stash. Where
+  :func:`consume_reason` allows, the SRA consumes the payload
+  (``reducers._sra_exchange(pre=...)``) instead of quantizing the f32
+  gradient itself; on any mismatch the plain path runs and the fallback is
+  counted in :data:`COUNTS`, never silent.
 
-The payload comes from the matmul-quantize kernel
-(``codec_cuda.matmul_quantize_chunks``, B8: the product accumulated in
-registers, divided and quantized in shared memory, only words and meta
-written), which takes its plain version for CPU operands.
+The payload and the raw own row come from one launch of the
+matmul-quantize kernel (``codec_cuda.matmul_quantize_chunks``, B8: a
+register-tiled f32 GEMM whose tiles complete the quantize chunks through
+the L2; only the words, the meta and the own row are returned), which
+takes its plain version for CPU operands.
 
 Where this differs from the JAX package:
 
@@ -27,25 +30,37 @@ Where this differs from the JAX package:
   (``layout``); the allreduce then quantizes its gradient as it would
   unfused. The JAX package composes a payload there, which in eager
   PyTorch is that same quantize of the same ``dw / divisor``.
-
-* Eager PyTorch has no dead-code elimination. The backward must return
-  ``dw`` for ``p.grad``, and whether the payload is consumed is decided
-  later, so an engaged layer runs the plain ``dw`` product and the kernel's
-  (a second pass over the weight-gradient FLOPs). ``CGX_PRODUCER_FUSE=auto``
-  therefore resolves to off for now; "on" engages on any device.
-* The raw own row is ``dw.view(ws, chunk)[own] / divisor``, taken from the
-  returned ``dw`` instead of a 1/ws-sized second matmul.
+* Eager PyTorch has no dead-code elimination, and XLA's is what lets the
+  JAX package drop the plain ``dw`` of an engaged layer. The port decides
+  it in the backward instead (C4): inside ``make_train_step``, which owns
+  the backward and the sync (``configure(skip_dw=True)``), a float32 layer
+  applied once in the step's forward whose payload the sync will consume
+  (:func:`consume_reason`, the predicate the allreduce applies too)
+  returns no ``dw``, counted as ``producer_dw_skipped``; the allreduce
+  takes it from the stash by name and ``make_train_step`` writes its
+  decoded average into ``p.grad``. A skipped layer the allreduce cannot
+  consume raises ``RuntimeError``. A ``gradient_sync`` called directly
+  keeps ``dw``. ``CGX_PRODUCER_FUSE=auto`` resolves to off (see
+  ``config.producer_fuse``); "on" engages on any device.
+* The raw own row is row ``own`` of the kernel's own ``dw / divisor``,
+  from the same sums as the quantized rows (as the unfused path takes both
+  from one ``dw``); the JAX package computes it with a separate 1/ws-sized
+  dot. A lower-precision product takes the returned ``dw``'s row, the JAX
+  package's own-row product in the compute dtype, and never skips (the
+  kernel sums in float32).
 * The stash cannot match on the identity of the gradient object:
   ``AccumulateGrad`` may steal the returned tensor or copy it. An entry
   holds no strong reference to ``dw``; it matches a gradient by the storage
   (a weak reference), ``data_ptr()``, ``_version``, shape and the step's
   epoch, so an in-place rewrite (``p.grad.mul_``), an out-of-place one
   (``p.grad = p.grad * 1``) or a second backward in one step (gradient
-  accumulation) leaves it unclaimable, and the miss is counted
-  (``producer_fallback_identity``; the JAX lookup misses silently).
-* The kernel keeps its (32, B) tile in shared memory, so buckets whose tile
-  does not fit (``codec_cuda.MAX_EPILOGUE_TILE_BYTES``) fall back with the
-  port-only reason ``tile`` where the JAX package would launch its kernel.
+  accumulation, or a layer applied twice) leaves it unclaimable, and the
+  miss is counted (``producer_fallback_identity``; the JAX lookup misses
+  silently).
+* The kernel quantizes each chunk from a (32, B) f32 tile in shared
+  memory, so buckets whose tile exceeds
+  ``codec_cuda.MAX_EPILOGUE_TILE_BYTES`` fall back with the port-only
+  reason ``tile`` where the JAX package would launch its kernel.
 * The JAX schedule, planner and topology-router lookups are inert off the
   TPU with their knobs unset; only the monolithic payload is ported (the
   per-block ``q_blocks`` waits for the schedule compiler).
@@ -84,7 +99,7 @@ COUNTS: Dict[str, int] = {}
 def reset_counts() -> None:
     COUNTS.clear()
     for k in ("producer_staged", "producer_fallbacks", "producer_kernel_slices",
-              "producer_consumed_slices", "producer_invalidations"):
+              "producer_consumed_slices", "producer_invalidations", "producer_dw_skipped"):
         COUNTS[k] = 0
     for r in FALLBACK_REASONS:
         COUNTS[f"producer_fallback_{r}"] = 0
@@ -104,7 +119,7 @@ def fallback(reason: str) -> None:
 
 def engaged() -> bool:
     """Whether the plane may engage: ``CGX_PRODUCER_FUSE=on`` (``auto``
-    resolves to off, see the module docstring)."""
+    resolves to off, see ``config.producer_fuse``)."""
     return cfg_mod.producer_fuse() == "on"
 
 
@@ -117,7 +132,9 @@ def engaged() -> bool:
 class Produced:
     """One layer's staged wire payload, waiting for the allreduce to claim
     it. It holds no reference to the gradient it was made from: it matches
-    a gradient by storage, address, version counter, shape and epoch."""
+    a gradient by storage, address, version counter, shape and epoch. A
+    ``skipped`` entry stands for a gradient the backward never made (no
+    ``p.grad``): the allreduce takes it by name and must consume it."""
 
     q: QTensor  # the (ws, chunk) stage-1 rows of dw / divisor
     raw_row: torch.Tensor  # this rank's raw own chunk, divided
@@ -127,15 +144,23 @@ class Produced:
     divisor: int
     epoch: int
     name: str
-    storage: StorageWeakRef
+    storage: Optional[StorageWeakRef]  # None for a skipped gradient
     data_ptr: int
     version: int
     shape: Tuple[int, ...]
+    dtype: torch.dtype
+    skipped: bool = False
     consumed: bool = False
+
+    @property
+    def key(self) -> Tuple[CompressionConfig, int, int, int]:
+        """What the allreduce must match: config, ranks, divisor, length."""
+        return self.cc, self.ws, self.divisor, self.n
 
     def matches(self, leaf: torch.Tensor) -> bool:
         return (
-            not self.storage.expired()
+            self.storage is not None
+            and not self.storage.expired()
             and StorageWeakRef(leaf.untyped_storage()) == self.storage
             and leaf.data_ptr() == self.data_ptr
             and leaf._version == self.version
@@ -146,20 +171,25 @@ class Produced:
 # The group's size and this rank's position in it, resolved by configure().
 _CFG: Dict[str, object] = {
     "ws": 1, "rank": 0, "divisor": 1, "active": False, "configured": False, "epoch": 0,
+    "skip_dw": False, "group": None,
 }
 # parameter path -> its entry of this epoch; None marks a layer whose
 # backward ran twice in the epoch (unclaimable).
 _STASH: Dict[str, Optional[Produced]] = {}
+# parameter path -> forward applications of its layer this epoch.
+_FORWARDS: Dict[str, int] = {}
 
 
-def configure(group=None, *, divisor: int = 1, active: bool = True) -> None:
+def configure(group=None, *, divisor: int = 1, active: bool = True, skip_dw: bool = False) -> None:
     """Install the sync context the backward needs (``make_train_step``
     calls this; ``gradient_sync`` users may too): the data-parallel group
     (``None``: the default group), the averaging divisor and whether the
     plane is active. A ``TwoLevelGroup`` never activates it: the two-level
     scheme keeps the unfused path, as the JAX two-axis sync does. The
     ``CGX_PRODUCER_FUSE`` knob is read here, once a step, so that the
-    forward of a wrapped layer reads one flag."""
+    forward of a wrapped layer reads one flag. ``skip_dw``: the caller owns
+    the backward and the sync that follows it (``make_train_step``), so a
+    layer whose payload that sync will consume returns no ``dw`` (C4)."""
     from ..parallel import group as group_mod
     from ..parallel.mesh import TwoLevelGroup
 
@@ -170,12 +200,14 @@ def configure(group=None, *, divisor: int = 1, active: bool = True) -> None:
     _CFG.update(
         ws=int(ws), rank=int(rank), divisor=int(divisor),
         active=bool(active) and engaged(), configured=True,
+        skip_dw=bool(skip_dw), group=group,
     )
 
 
 def deconfigure() -> None:
-    _CFG.update(ws=1, rank=0, divisor=1, active=False, configured=False)
+    _CFG.update(ws=1, rank=0, divisor=1, active=False, configured=False, skip_dw=False, group=None)
     _STASH.clear()
+    _FORWARDS.clear()
 
 
 def active() -> bool:
@@ -189,6 +221,7 @@ def begin_step() -> None:
     earlier step can never be claimed."""
     _CFG["epoch"] += 1
     _STASH.clear()
+    _FORWARDS.clear()
 
 
 def invalidate() -> None:
@@ -231,14 +264,70 @@ def drain() -> None:
     _STASH.clear()
 
 
+def skipped_entries() -> Dict[str, Produced]:
+    """This epoch's entries whose backward returned no ``dw``, by name."""
+    return {
+        n: e for n, e in _STASH.items()
+        if e is not None and e.skipped and e.epoch == _CFG["epoch"]
+    }
+
+
+def placeholder(ent: Produced) -> torch.Tensor:
+    """A stand-in leaf for a skipped gradient: its shape and dtype, one
+    value broadcast (no memory), read by the allreduce only for its length
+    and dtype."""
+    return torch.zeros((), dtype=ent.dtype, device=ent.raw_row.device).expand(ent.shape)
+
+
+def consume_reason(
+    key: Tuple[CompressionConfig, int, int, int],
+    *,
+    cc: CompressionConfig,
+    ws: int,
+    divisor: int,
+    n: int,
+    elem_size: int,
+    group,
+) -> str:
+    """The consumption predicate, one for both sides: "" when
+    ``allreduce_tree`` hands a payload staged at ``key`` (config, ranks,
+    divisor, length) to the multi-rank SRA of a standalone group of ``n``
+    values at ``cc`` over ``group`` (``ws`` ranks, averaging ``divisor``),
+    else the fallback reason. The allreduce consumes only where it holds;
+    the backward skips ``dw`` only where it holds for the arguments the
+    sync will pass."""
+    from ..parallel.mesh import TwoLevelGroup
+
+    if isinstance(group, TwoLevelGroup) or not engaged():
+        return "routing"  # the two-level scheme never consumes a payload
+    if key != (cc, ws, divisor, n) or n > cfg_mod.fusion_threshold_elems(elem_size):
+        return "group"  # another config, world, divisor or length; or several fusion slices
+    if (
+        ws <= 1
+        or not cc.enabled
+        or cfg_mod.intra_reduction() != cfg_mod.REDUCTION_SRA
+        or cfg_mod.dummy_compression()
+    ):
+        return "plan"  # only the multi-rank SRA consumes a payload
+    return ""
+
+
 # ---------------------------------------------------------------------------
 # The wrapped contraction.
 # ---------------------------------------------------------------------------
 
 
+def _plain_dw(name: str, x2: torch.Tensor, g2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Autograd's own product for matmul's weight (of the layer at
+    ``name``): the folded input transposed times the folded cotangent, then
+    the cast."""
+    return x2.t().mm(g2).to(dtype)
+
+
 class _ProducedMatmul(torch.autograd.Function):
-    """``x @ w.to(dtype)``; the backward returns the exact ``dx`` and ``dw``
-    and stages ``dw``'s payload."""
+    """``x @ w.to(dtype)``; the backward returns the exact ``dx`` and, unless
+    the sync will consume the payload in its place, the exact ``dw``, and
+    stages ``dw``'s payload."""
 
     @staticmethod
     def forward(ctx, x, w, name, dtype):
@@ -255,21 +344,25 @@ class _ProducedMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = torch.matmul(g, w_c.t())
         if ctx.needs_input_grad[1]:
-            # Autograd's own product for matmul's weight: the folded input
-            # transposed times the folded cotangent, then the cast back.
             x2 = x.reshape(-1, x.shape[-1])
             g2 = g.reshape(-1, g.shape[-1])
-            dw = x2.t().mm(g2).to(ctx.w_dtype)
-            _maybe_stash(ctx.name, dw, x2, g2)
+            w_shape = (x2.shape[1], g2.shape[1])
+            plan = _plan(ctx.name, w_shape, ctx.w_dtype, x2.shape[0], x2.dtype)
+            if plan is None or not plan[1]:
+                dw = _plain_dw(ctx.name, x2, g2, ctx.w_dtype)
+            if plan is not None:
+                _stash(ctx.name, plan[0], w_shape, ctx.w_dtype, x2, g2, dw)
         return dx, dw, None, None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, name: str, dtype: torch.dtype) -> torch.Tensor:
     """``x @ w.to(dtype)`` whose backward stages the wire payload of ``dw``
     for the parameter at ``name`` when the plane is active (else the plain
-    product)."""
+    product). Each application is counted: a layer applied more than once
+    in a step never skips its ``dw``."""
     if not active():
         return torch.matmul(x, w.to(dtype))
+    _FORWARDS[name] = _FORWARDS.get(name, 0) + 1
     return _ProducedMatmul.apply(x, w, name, dtype)
 
 
@@ -330,33 +423,70 @@ def decide(
     return cc, ""
 
 
-def _maybe_stash(name: str, dw: torch.Tensor, x2: torch.Tensor, g2: torch.Tensor) -> None:
-    """Stage the wire payload of this layer's gradient when every gate
-    passes; otherwise count the fallback and stage nothing."""
+def _plan(
+    name: str, w_shape, w_dtype, k_total: int, x_dtype: torch.dtype
+) -> Optional[Tuple[CompressionConfig, bool]]:
+    """Whether the backward of the layer at ``name`` stages its payload:
+    ``(cc, skip)`` when every gate passes, ``skip`` when the backward must
+    not return ``dw`` (the sync of this step, ``make_train_step``'s, will
+    consume the payload in its place); else None, the fallback counted.
+    Only a float32 product skips: the kernel sums in float32, which is the
+    layer's own product only when it computes in float32."""
     if not _CFG["active"]:
-        return
+        return None
     if not _CFG["configured"]:
-        return fallback("unconfigured")
+        fallback("unconfigured")
+        return None
     ws, div = int(_CFG["ws"]), int(_CFG["divisor"])
-    cc, reason = decide(name, tuple(dw.shape), x2.shape[0], ws, dtype=dw.dtype)
+    cc, reason = decide(name, w_shape, k_total, ws, dtype=w_dtype)
     if cc is None:
-        return fallback(reason)
+        fallback(reason)
+        return None
     if name in _STASH:  # a second backward this step: p.grad is a sum now
+        if _STASH[name] is not None and _STASH[name].skipped:
+            raise RuntimeError(
+                f"producer fusion: a second backward of {name!r} in one step after its "
+                f"weight gradient was skipped; that gradient would be lost"
+            )
         _STASH[name] = None
-        return
-    n = dw.numel()
-    chunk = n // ws
-    # The raw own row from the returned dw: the same values the unfused
-    # path's padded rows hold.
-    raw_row = dw.view(ws, chunk)[int(_CFG["rank"])] / div
-    q = _matmul_quantize_q(x2, g2, cc, ws=ws, chunk=chunk, div=div)
+        return None
+    n = math.prod(w_shape)
+    skip = (
+        bool(_CFG["skip_dw"])
+        and x_dtype == torch.float32
+        and _FORWARDS.get(name, 0) == 1
+        and consume_reason(
+            (cc, ws, div, n), cc=cc, ws=ws, divisor=div, n=n,
+            elem_size=torch.empty((), dtype=w_dtype).element_size(), group=_CFG["group"],
+        ) == ""
+    )
+    return cc, skip
+
+
+def _stash(name: str, cc: CompressionConfig, w_shape, w_dtype, x2, g2, dw) -> None:
+    """Stage the layer's payload: the kernel's quantized rows and raw own
+    row, matched later to ``dw`` (None: a skipped gradient, taken by name).
+    The raw own row comes from the kernel's sums, as the quantized rows,
+    for a float32 product; for a lower-precision one it is the returned
+    ``dw``'s row (the JAX package's own-row product in the compute dtype)."""
+    ws, div, own = int(_CFG["ws"]), int(_CFG["divisor"]), int(_CFG["rank"])
+    n = math.prod(w_shape)
+    if x2.dtype == torch.float32:
+        q, raw_row = _matmul_quantize_q(x2, g2, cc, ws=ws, chunk=n // ws, div=div, own=own)
+    else:
+        q = _matmul_quantize_q(x2, g2, cc, ws=ws, chunk=n // ws, div=div)
+        raw_row = dw.view(ws, n // ws)[own] / div
     count("producer_kernel_slices")
     count("producer_staged")
+    if dw is None:
+        count("producer_dw_skipped")
     _STASH[name] = Produced(
         q=q, raw_row=raw_row, cc=cc, ws=ws, n=n, divisor=div,
         epoch=int(_CFG["epoch"]), name=name,
-        storage=StorageWeakRef(dw.untyped_storage()), data_ptr=dw.data_ptr(),
-        version=dw._version, shape=tuple(dw.shape),
+        storage=None if dw is None else StorageWeakRef(dw.untyped_storage()),
+        data_ptr=0 if dw is None else dw.data_ptr(),
+        version=0 if dw is None else dw._version,
+        shape=tuple(w_shape), dtype=w_dtype, skipped=dw is None,
     )
 
 
@@ -406,20 +536,24 @@ def _kernel_geometry(
     return tm, tk
 
 
-def _matmul_quantize_q(x2, g2, cc, *, ws, chunk, div) -> QTensor:
+def _matmul_quantize_q(x2, g2, cc, *, ws, chunk, div, own=None):
     """Run the matmul-quantize kernel over the whole ``dw`` and lay its
     words and meta out as the ``(ws, chunk)`` row-batched QTensor
     ``dispatch.quantize_batch`` gives (each row is whole chunks, so the
-    flat wire layout splits into rows by a view)."""
+    flat wire layout splits into rows by a view). With ``own``, returns
+    ``(q, raw_row)``: also row ``own`` of ``dw / div``, from the same
+    launch's sums."""
     b, bits = cc.bucket_size, cc.bits
     x2f = x2.to(torch.float32).contiguous()
     g2f = g2.to(torch.float32).contiguous()
     # The lowerings of fused_producer.py:512-513: the env's pack (no tuned
     # entry) and the encode.
-    words, meta = codec_cuda.matmul_quantize_chunks(
-        x2f, g2f, div, bits, b, encode=cfg_mod.codec_encode(), pack=codec_cuda._pack_strategy()
+    out = codec_cuda.matmul_quantize_chunks(
+        x2f, g2f, div, bits, b, encode=cfg_mod.codec_encode(), pack=codec_cuda._pack_strategy(),
+        own_row=None if own is None else (own, ws),
     )
-    return QTensor(
+    words, meta = out[0], out[1]
+    q = QTensor(
         packed=words.view(ws, chunk * bits // 32),
         meta=meta.view(ws, chunk // b, 2),
         residual=torch.zeros((ws, 0), dtype=torch.float32, device=words.device),
@@ -428,3 +562,4 @@ def _matmul_quantize_q(x2, g2, cc, *, ws, chunk, div) -> QTensor:
         bucket_size=b,
         dtype=torch.float32,
     )
+    return q if own is None else (q, out[2])

@@ -125,38 +125,31 @@ def allreduce_flat(
     :class:`TwoLevelGroup` with the env's two-level scheme
     (``topology_from_env``), over a plain group with its reduction type
     (``intra_reduction``). ``pre``: the producer-staged stage-1 payload of
-    ``flat`` (``fused_producer.Produced``), consumed when the buffer is one
-    slice through the multi-rank SRA at the payload's config and marked
-    ``consumed``; otherwise ignored and the fallback counted."""
+    ``flat`` (``fused_producer.Produced``), consumed and marked ``consumed``
+    where ``fused_producer.consume_reason`` (the predicate ``allreduce_tree``
+    applies) holds for this buffer, else ignored and the fallback counted.
+    ``CGX_COMPRESSION_FAKE_RATIO``, which the JAX package applies here, is
+    refused."""
+    cfg_mod.refuse_fake_ratio()
     slices = _fusion_slices(flat.shape[0], flat.element_size())
+    if pre is not None:
+        reason = fused_producer.consume_reason(
+            pre.key, cc=cc, ws=flat_world(group)[1], divisor=pre.divisor, n=flat.shape[0],
+            elem_size=flat.element_size(), group=group,
+        )
+        if reason:
+            fused_producer.fallback(reason)
+            pre = None
+        else:
+            pre.consumed = True
+            fused_producer.count("producer_consumed_slices")
     if isinstance(group, TwoLevelGroup):
-        if pre is not None:  # the two-level scheme never consumes a payload
-            fused_producer.fallback("routing")
         topo = cfg_mod.topology_from_env()
         pieces = [
             hierarchical_allreduce(flat[off : off + ln], group, cc, topo) for off, ln in slices
         ]
     else:
         ws, red = group_mod.world_size(group), cfg_mod.intra_reduction()
-        if pre is not None and len(slices) != 1:
-            fused_producer.fallback("routing")
-            pre = None
-        elif pre is not None:
-            # The payload must have been quantized for this very slice, at
-            # this config, for the multi-rank SRA.
-            if (
-                ws > 1
-                and red == cfg_mod.REDUCTION_SRA
-                and not cfg_mod.dummy_compression()
-                and pre.cc == cc
-                and pre.ws == ws
-                and pre.n == slices[0][1]
-            ):
-                pre.consumed = True
-                fused_producer.count("producer_consumed_slices")
-            else:
-                fused_producer.fallback("plan")
-                pre = None
         pieces = [
             quantized_allreduce(flat[off : off + ln], group, ws, cc, red, pre)
             for off, ln in slices
@@ -178,13 +171,30 @@ def allreduce_tree(
     world. A standalone compressed gradient that the backward already
     quantized (producer fusion) is matched in the stash by its original
     tensor, before the division, and handed to :func:`allreduce_flat` as
-    ``pre``; the stash is drained after the sweep."""
+    ``pre`` where ``fused_producer.consume_reason`` allows. A layer whose
+    backward skipped its weight gradient (``make_train_step``) has no
+    tensor: it is taken from the stash by name, its payload (already
+    divided) must be consumed, and its averaged gradient is returned under
+    its name; that it cannot be is a ``RuntimeError``. The stash is drained
+    after the sweep."""
     world, ws = flat_world(group)
+    skipped = fused_producer.skipped_entries()
+    if skipped:
+        given = sorted(set(skipped) & set(tree))
+        if given:
+            raise RuntimeError(
+                f"producer fusion skipped the weight gradients of {given}, "
+                f"but the tree holds gradients under those names"
+            )
+        tree = {**tree, **{n: fused_producer.placeholder(e) for n, e in skipped.items()}}
     paths_leaves = sorted_items(tree)
     leaves = [t for _, t in paths_leaves]
     div = ws if average and ws > 1 else 1
     if div > 1:
-        leaves = [t / ws if _is_float(t) else t for t in leaves]
+        leaves = [
+            t / ws if _is_float(t) and path not in skipped else t
+            for (path, _), t in zip(paths_leaves, leaves)
+        ]
     fp = None
     if (
         not isinstance(group, TwoLevelGroup)
@@ -195,20 +205,29 @@ def allreduce_tree(
     out: Dict[str, torch.Tensor] = {}
     for g in _group_leaves(paths_leaves, compress_small):
         pre = None
-        if fp is not None and len(g.indices) == 1 and g.cc.enabled:
-            path, leaf = paths_leaves[g.indices[0]]
-            ent = fp.lookup(path, leaf)
+        path, leaf = paths_leaves[g.indices[0]]
+        if len(g.indices) == 1 and (path in skipped or (fp is not None and g.cc.enabled)):
+            ent = skipped[path] if path in skipped else fp.lookup(path, leaf)
             if ent is not None:
-                if (
-                    ent.cc == g.cc
-                    and ent.ws == ws
-                    and ent.divisor == div
-                    and ent.n == leaf.numel()
-                    and len(_fusion_slices(leaf.numel(), leaf.element_size())) == 1
-                ):
+                reason = fused_producer.consume_reason(
+                    ent.key, cc=g.cc, ws=ws, divisor=div, n=leaf.numel(),
+                    elem_size=leaf.element_size(), group=group,
+                )
+                if not reason:
                     pre = ent
+                elif ent.skipped:
+                    raise RuntimeError(
+                        f"producer fusion skipped the weight gradient of {path!r}, but the "
+                        f"allreduce cannot consume its payload ({reason})"
+                    )
                 else:
-                    fp.fallback("group")
+                    fused_producer.fallback(reason)
+        elif any(paths_leaves[i][0] in skipped for i in g.indices):
+            raise RuntimeError(
+                f"producer fusion skipped the weight gradient of "
+                f"{[paths_leaves[i][0] for i in g.indices if paths_leaves[i][0] in skipped]}, "
+                f"but it landed in a fused group"
+            )
         members = [leaves[i] for i in g.indices]
         fused = (
             torch.cat([t.reshape(-1) for t in members])
@@ -218,7 +237,7 @@ def allreduce_tree(
         if g.cc.enabled:
             reduced = allreduce_flat(fused, g.cc, group=group, pre=pre)
             if pre is not None and pre.consumed:
-                fp.claim(pre.name)
+                fused_producer.claim(pre.name)
         elif ws > 1:
             reduced = group_mod.all_reduce_sum(fused, world)
         else:
@@ -228,6 +247,6 @@ def allreduce_tree(
             n = t.numel()
             out[paths_leaves[i][0]] = reduced[off : off + n].view(t.shape)
             off += n
-    if fp is not None:
-        fp.drain()
+    if fp is not None or skipped:
+        fused_producer.drain()
     return out

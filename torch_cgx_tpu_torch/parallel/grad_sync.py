@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Mapping
 import torch
 from torch import nn
 
+from .. import config as cfg_mod
 from ..ops import fused_producer
 from ..utils.device import DeviceLike, resolve_device
 from .allreduce import GroupLike, allreduce_tree, flat_world
@@ -30,7 +31,9 @@ def gradient_sync(
 ) -> Dict[str, torch.Tensor]:
     """Quantized allreduce of named gradients over a group, or over two
     levels with a ``TwoLevelGroup``. Averaging divides before quantization,
-    the reference hook's order."""
+    the reference hook's order. ``CGX_NONFINITE_GUARD`` other than "off"
+    is refused (not ported)."""
+    cfg_mod.refuse_nonfinite_guard()
     return allreduce_tree(grads, group=group, average=average, compress_small=compress_small)
 
 
@@ -58,7 +61,15 @@ def make_train_step(
     gradients, ``optimizer.step()``. The batch moves to ``device`` (the GPU
     unless the caller passes another device), where the model must already
     live. ``group`` may be a ``TwoLevelGroup``. The returned loss is averaged
-    over the whole world."""
+    over the whole world.
+
+    Under producer fusion the step owns the backward and the sync, so a
+    wrapped layer whose payload the sync will consume returns no weight
+    gradient (``fused_producer.consume_reason``); ``p.grad`` of such a
+    layer is written from the decoded allreduce output, as every synced
+    gradient is. ``CGX_NONFINITE_GUARD`` other than "off" is refused (not
+    ported)."""
+    cfg_mod.refuse_nonfinite_guard()
     dev = resolve_device(device)
     params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     wrong = [n for n, p in params if p.device.type != dev.type]
@@ -72,13 +83,16 @@ def make_train_step(
     def step(batch: Any) -> torch.Tensor:
         # Producer fusion: the backward of a wrapped dense layer stages its
         # payload for this group. Only a plain group of more than one rank
-        # consumes payloads (the two-level scheme never does). Error
-        # feedback and the nonfinite guard, once ported, rewrite gradients
-        # before the sync and must deactivate the plane here, as the JAX
-        # package's active=(guard == "off" and not error_feedback ...) does.
+        # consumes payloads (the two-level scheme never does); a layer
+        # whose payload it will consume skips its dw. Error feedback and the
+        # nonfinite guard, once ported, rewrite gradients before the sync
+        # and must deactivate the plane here, as the JAX package's
+        # active=(guard == "off" and not error_feedback ...) does; until
+        # then both raise (error feedback is not in the port, the guard is
+        # refused above and in gradient_sync).
         fused_producer.configure(
             group, divisor=ws if average else 1,
-            active=not isinstance(group, TwoLevelGroup) and ws > 1,
+            active=not isinstance(group, TwoLevelGroup) and ws > 1, skip_dw=True,
         )
         fused_producer.begin_step()
         optimizer.zero_grad(set_to_none=True)
