@@ -27,7 +27,14 @@ order, none of whose failures is caught:
    quantizing kernel (B1, B7a, B3, B7c, B8) in each (encode, pack) lowering:
    bit-identical to the plain version of its encode, the butterfly pack's
    bytes equal to the sum pack's, and on ``qbench.tie_operand`` the mul
-   encode's levels different from the div encode's by one level at most;
+   encode's levels different from the div encode's by one level at most.
+   Then the cluster kernels (B1/B5, B3) against their plain versions on the
+   card's tensors, bit for bit: at each launch shape of the step
+   (``tools/shapebench.py``'s) in every lowering, at bits 1-8 and buckets
+   128-16384 on normal and ``qbench.adversarial_operand`` data (B3 at ws 1
+   and 4, with and without the raw row), and the div encode's reciprocal
+   quotient against the IEEE divide over every divisor significand
+   (``codec_cuda.reciprocal_sweep``): no level differs;
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -43,8 +50,11 @@ order, none of whose failures is caught:
    layout and parameters bit-identical to the sum pack's, and (e) one step
    under ``CGX_CODEC_ENCODE=mul`` with its gradient sync through the kernels
    bit-identical to the plain versions' on the CPU, under mul too;
-5. times: each kernel and its plain version (CUDA events, median after
-   warm-up), each pipelined kernel beside its single-stage sibling, the
+5. times: each kernel and its plain version (CUDA events around one call,
+   median after warm-up; each kernel also as a burst of back-to-back calls
+   queued behind a sleep kernel, ``burst_ms``, which leaves out the host's
+   time between launches), each pipelined kernel beside its
+   single-stage sibling, the
    matmul-quantize also against ``torch.matmul`` of the same product (which
    lacks the quantize) and against the unfused route for the same payload
    (that product, the divide and the stage-1 quantize: what
@@ -53,7 +63,9 @@ order, none of whose failures is caught:
    ``CGX_PALLAS_DB`` off and on,
    and a ``torch.profiler`` breakdown of one step of each; B5 and B6 are
    B1's and B2's kernels on the 307 chunks of the tail slice, B9 the
-   variant kernel at 128 MB;
+   variant kernel at 128 MB; B1/B5 and B3 also at each launch shape of the
+   step, alone (``tools/shapebench.py``: cold inputs, back-to-back launches
+   behind a sleep kernel, five groups in turns with the plain version);
 6. qbench: ``python -m torch_cgx_tpu_torch.tools.qbench`` at its defaults
    (128 MB, 4 bits, bucket 512, k = 8, ``sra_epilogue`` at ws 8) for each
    of its eight variants, in this process: each variant's bytes checked,
@@ -199,7 +211,10 @@ def _max_abs(a, b) -> float:
 
     if a.dtype == torch.int32:
         return float((a != b).sum())
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))  # equal infinities and NaNs: no error
+    return float(torch.where(same, 0.0, (a.double() - b.double()).abs()).max())
 
 
 def payload_close(words, meta, want_words, want_meta, bits: int, bucket: int) -> tuple:
@@ -249,9 +264,10 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     rng = np.random.default_rng(SEED)
     max_err = {k: 0.0 for k in TPU_KERNELS}
 
-    def record(kernel: str, label: str, got, want, single=None) -> None:
+    def record(kernel: str, label: str, got, want, single=None, quiet: bool = False) -> None:
         """``got`` against the plain version's ``want`` and, for a
-        pipelined kernel, against its single-stage sibling's ``single``."""
+        pipelined kernel, against its single-stage sibling's ``single``
+        (``quiet``: no line for an agreeing pair; the caller sums up)."""
         err = _max_abs(got, want) if got.shape == want.shape else float("inf")
         max_err[kernel] = max(max_err[kernel], err)
         if not _same_bits(got, want):
@@ -261,7 +277,8 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         if single is not None and not _same_bits(got, single):
             raise AssertionError(f"{kernel} {label}: kernel disagrees with the single-stage kernel")
         also = " (and the single-stage kernel)" if single is not None else ""
-        log(f"  {kernel:21s} {label:44s} bit-identical{also}")
+        if not quiet:
+            log(f"  {kernel:21s} {label:44s} bit-identical{also}")
 
     def db_tc(kernel: str, chunks: int, bits: int, b: int, add: bool = False) -> int:
         """The tile the batch functions give the pipelined kernel (no
@@ -412,7 +429,89 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
                 raise AssertionError(f"codec_matmul_quantize {label}: outside the tolerance")
     check_b9(dev, flat_n, record)
     check_lowerings(dev, flat_n, ws, rng, record, db_tc)
+    check_cluster(dev, rng, record)
     return max_err
+
+
+def check_cluster(dev, rng, record) -> None:
+    """The cluster kernels (B1/B5 and B3) against their plain versions run on
+    the card's tensors, bit for bit: at each launch shape of the step
+    (``shapebench.SHAPES``) in every (encode, pack) lowering; at every width
+    and at buckets whose geometry takes 1 to 8 CTAs a chunk (8 x 512
+    threads at 4096) or positions in rounds past the register budget (1760,
+    16384), on normal and ``qbench.adversarial_operand`` data; B3 at ws 1
+    and 4, with and without the raw row, row 0 adversarial. Then the
+    reciprocal quotient of the div encode against the IEEE divide
+    (``codec_cuda.reciprocal_sweep``): every divisor significand at
+    exponent 0, every 64th at the edges of its range: not one level and not
+    one quotient different."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import qbench, shapebench
+
+    lowerings = [(e, p) for e in codec_cuda.ENCODES for p in codec_cuda.PACKS]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def epilogue(q, raw, own, bits, b, label, quiet=False):
+        for enc, pack in lowerings:
+            w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, own, bits, b,
+                                                  encode=enc, pack=pack)
+            pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, raw, own, bits, b,
+                                                          encode=enc)
+            record("codec_sra_epilogue", f"{label} {enc}/{pack} words", w, pw, quiet=quiet)
+            record("codec_sra_epilogue", f"{label} {enc}/{pack} meta", m, pm, quiet=quiet)
+
+    for kernel, label, chunks, rows_n, own in shapebench.SHAPES:
+        n = chunks * 32 * BUCKET
+        g = codec_cuda.cluster_geometry(chunks, BUCKET, BITS, sms)
+        label = f"{label} (k={g.k}, {g.threads} threads)"
+        rows = torch.from_numpy(
+            np.stack([fuzz_operand(rng, n, 0) * np.float32(r + 1) for r in range(rows_n)])).to(dev)
+        if kernel == "quantize":
+            for enc, pack in lowerings:
+                w, m = codec_cuda.quantize_chunks(rows[0], BITS, BUCKET, encode=enc, pack=pack)
+                pw, pm = codec_cuda.quantize_chunks_plain(rows[0], BITS, BUCKET, encode=enc)
+                record("codec_quantize", f"{label} {enc}/{pack} words", w, pw)
+                record("codec_quantize", f"{label} {enc}/{pack} meta", m, pm)
+        else:
+            q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+            epilogue(q, rows[own] if own >= 0 else None, own, BITS, BUCKET, label)
+        del rows
+    for bits in range(1, 9):
+        checked = 0
+        for b in (128, 512, 896, 1760, 1792, 4096, 16384):
+            n = 3 * 32 * b
+            for name, x in (("normal", fuzz_operand(rng, n, 0)),
+                            ("adversarial", qbench.adversarial_operand(n, b, bits, seed=bits))):
+                x = torch.from_numpy(x).to(dev)
+                for enc, pack in lowerings:
+                    w, m = codec_cuda.quantize_chunks(x, bits, b, encode=enc, pack=pack)
+                    pw, pm = codec_cuda.quantize_chunks_plain(x, bits, b, encode=enc)
+                    label = f"c=3 bits={bits} B={b} {name} {enc}/{pack}"
+                    record("codec_quantize", label + " words", w, pw, quiet=True)
+                    record("codec_quantize", label + " meta", m, pm, quiet=True)
+                    checked += 1
+                if name == "adversarial":
+                    for ws, own in ((1, -1), (1, 0), (4, -1), (4, 2)):
+                        rows = torch.stack([x] + [torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
+                                                  for _ in range(ws - 1)])
+                        q = codec_cuda.quantize_batch(rows, bits, b)
+                        epilogue(q, rows[own] if own >= 0 else None, own, bits, b,
+                                 f"c=3 bits={bits} B={b} {name} ws={ws} own={own}", quiet=True)
+                        checked += 4
+        log(f"  {'codec_quantize/epilogue':21s} bits={bits}: {checked} calls at buckets 128-16384 "
+            f"(normal, adversarial; ws 1 and 4, raw row or not; 4 lowerings) bit-identical")
+    t0 = time.perf_counter()
+    sweeps = [(0, 1, 64)] + [(e2, 64, 16) for e2 in (-64, -63, 62, 63, -65, 64)]
+    for e2, step, extra in sweeps:
+        r = codec_cuda.reciprocal_sweep(dev, e2=e2, m_step=step, extra=extra)
+        log(f"  {'reciprocal quotient':21s} 2^{e2} x every {step} of 2^23 significands: "
+            f"{r['pairs']} pairs, {r['quotients_differ']} quotients and {r['levels_differ']} "
+            f"8-bit levels differ from __fdiv_rn" + (f"; first {r['first']}" if r["first"] else ""))
+        if r["quotients_differ"] or r["levels_differ"]:
+            raise AssertionError(f"the reciprocal quotient differs from the IEEE divide at 2^{e2}")
+    log(f"  the sweep took {time.perf_counter() - t0:.1f} s")
 
 
 def check_b9(dev, flat_n: int, record) -> None:
@@ -1000,6 +1099,16 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_burst(fn, iters: int = 20, groups: int = 3) -> float:
+    """Median over ``groups`` of the milliseconds a call of ``fn()`` takes
+    when ``iters`` calls run back to back, queued behind a sleep kernel
+    (``shapebench.burst_ms``): the kernel alone, without the host's time
+    between launches, which a single timed call of a short kernel counts."""
+    from torch_cgx_tpu_torch.tools import shapebench
+
+    return statistics.median(shapebench.burst_ms(lambda i: fn(), iters) for _ in range(groups))
+
+
 def time_kernels(dev, n: int, name: str) -> list:
     """Each kernel and its plain version at the main path's flat slice, each
     pipelined kernel right after its single-stage sibling at the tile the
@@ -1136,7 +1245,7 @@ def time_kernels(dev, n: int, name: str) -> list:
     for k, shape, kern, plain, nbytes, ops, library, *unfused in runs:
         # Alternate kernel and plain version (and the library call, and the
         # unfused route): kernel, plain, library, unfused, unfused, library,
-        # plain, kernel.
+        # plain, kernel; then the kernel's burst time.
         unf = unfused[0] if unfused else None
         k1 = time_cuda(kern)
         p1 = time_cuda(plain, iters=5)
@@ -1146,6 +1255,7 @@ def time_kernels(dev, n: int, name: str) -> list:
         l2 = time_cuda(library) if library else None
         p2 = time_cuda(plain, iters=5)
         k2 = time_cuda(kern)
+        burst_ms = time_burst(kern)
         ms, plain_ms = min(k1, k2), min(p1, p2)
         library_ms = min(l1, l2) if library else None
         unfused_ms = min(u1, u2) if unf else None
@@ -1154,10 +1264,10 @@ def time_kernels(dev, n: int, name: str) -> list:
         bound = max(t_bytes, t_ops)
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         lib += "" if unfused_ms is None else f", unfused route {unfused_ms:.4f} ms"
-        log(f"  {k:20s} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}); {nbytes} bytes, "
-            f"{ops} operations, bound {bound:.4f} ms by "
+        log(f"  {k:20s} {shape}: {ms:.4f} ms, burst {burst_ms:.4f} ms (plain {plain_ms:.3f} ms"
+            f"{lib}); {nbytes} bytes, {ops} operations, bound {bound:.4f} ms by "
             f"{'bytes' if t_bytes >= t_ops else 'operations'} = {100 * bound / ms:.1f}% of bound")
-        out.append({"name": k, "shape": shape, "ms": ms, "plain_ms": plain_ms,
+        out.append({"name": k, "shape": shape, "ms": ms, "burst_ms": burst_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "unfused_ms": unfused_ms, "bound_ms": bound,
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes})
@@ -1213,44 +1323,44 @@ def time_steps(sl: dict, iters: int = 5) -> tuple:
     return min(p1, p2), min(c1, c2), min(d1, d2), plain_step
 
 
-def profile_step(name: str, fn) -> None:
-    """Where one step's time goes: ``torch.profiler`` over a warm step,
-    device time by kernel, the codec kernels' share and the device's idle
-    share of the step's wall time (the profiler's own overhead included)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def profile_step(name: str, fn) -> dict:
+    """Where one step's time goes: ``torch.profiler`` over a warm step
+    (``shapebench.profile_codec``), device time by kernel, the codec
+    kernels' share and the device's idle share of the step's wall time (the
+    profiler's own overhead included)."""
+    from torch_cgx_tpu_torch.tools import shapebench
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        # Ranges such as "Optimizer.step#Adam.step" span kernels counted
-        # on their own: keep kernels and copies only.
-        if getattr(e, "is_user_annotation", False) or "#" in e.key:
-            continue
-        if us and e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
-    busy = sum(by_name.values())
-    if not busy:
+    p = shapebench.profile_codec(fn)
+    if not p["busy_ms"]:
         log(f"  profile {name}: the profiler saw no device time (not measured)")
-        return
-    codec_ms = sum(v for k, v in by_name.items() if "cgx_" in k)
-    log(f"  profile {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
-        f"{100 * (1 - busy / wall_ms):.1f}%; codec kernels {codec_ms:.3f} ms")
-    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        return p
+    log(f"  profile {name}: wall {p['wall_ms']:.2f} ms, device busy {p['busy_ms']:.2f} ms, idle share "
+        f"{100 * (1 - p['busy_ms'] / p['wall_ms']):.1f}%; codec kernels {p['codec_ms']:.3f} ms")
+    for k, v in p["top"]:
         log(f"    {v:8.3f} ms  {k[:110]}")
-    codec = {}  # the codec kernels by kernel, over their bit-width instances
-    for k, v in by_name.items():
-        found = re.search(r"cgx_\w+_kernel", k)
-        if found:
-            codec[found.group(0)] = codec.get(found.group(0), 0.0) + v
-    log("    codec: " + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(codec.items())))
+    log("    codec: " + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(p["codec_by_kernel"].items())))
+    return p
+
+
+def time_step_shapes(dev, name: str) -> list:
+    """B1/B5 and B3 alone at the step's launch shapes (``shapebench``: cold
+    inputs, back-to-back launches behind a sleep kernel, five groups in
+    turns with the plain version)."""
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import shapebench
+    from torch_cgx_tpu_torch.utils.device import mem_rate
+
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = shapebench.time_shapes(codec_cuda, dev, mem_rate(name))
+    for r in out:
+        g = codec_cuda.cluster_geometry(r["chunks"], BUCKET, BITS, sms)
+        log(f"  {r['shape']:22s} k={g.k} T={g.threads}: {r['ms']:.4f} ms (groups "
+            f"{', '.join(f'{t:.4f}' for t in r['groups_ms'])}; spread {100 * r['spread']:.1f}%), "
+            f"plain {r['plain_ms']:.3f} ms; {r['bytes']} bytes, bound {r['bound_ms']:.4f} ms "
+            f"= {r['pct_of_bound']:.1f}% of bound")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1567,11 +1677,12 @@ def ptxas_report(ptxas: str) -> None:
         assert len(mine) >= 8, kernel
     # The quantizing kernels by (encode, pack) lowering: registers and
     # static shared memory over their bit widths.
-    for kernel in ("cgx_quantize_kernel", "cgx_sra_epilogue_kernel", "cgx_matmul_quantize_kernel",
+    for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
+                   "cgx_matmul_quantize_kernel",
                    "cgx_quantize_db_kernel", "cgx_sra_epilogue_db_kernel"):
         by = {}
         for b in blocks:
-            found = re.search(kernel + r"ILi\d+ELi(\d)ELi(\d)EE", b.split("'")[1])
+            found = re.search(kernel + r"ILi\d+ELi(\d)ELi(\d)E", b.split("'")[1])
             if found:
                 key = ("div", "mul")[int(found.group(1))] + "/" + ("sum", "butterfly")[int(found.group(2))]
                 by.setdefault(key, []).extend(
@@ -1581,6 +1692,16 @@ def ptxas_report(ptxas: str) -> None:
             f"{k} {min(v)[0]}-{max(v)[0]} registers, {max(s for _, s in v)} bytes static"
             for k, v in sorted(by.items())))
         assert len(by) == 4, (kernel, sorted(by))
+    for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel"):
+        for reread, what in ((0, "one position (32 values) a thread"),
+                             (1, "REREAD, positions in rounds")):
+            mine = [b for b in blocks
+                    if re.search(kernel + rf"ILi\d+ELi\dELi\dELb{reread}E", b.split("'")[1])]
+            r = [int(x) for b in mine for x in re.findall(r"Used (\d+) registers", b)]
+            spill = sum(1 for b in mine if "0 bytes spill stores, 0 bytes spill loads" not in b)
+            log(f"  {kernel} ({what}): {len(mine)} instances, {min(r)}-{max(r)} registers a "
+                f"thread, {spill} with spills; at most 512 threads a CTA")
+            assert len(mine) == 32, (kernel, reread, len(mine))
     by = {}
     for b in blocks:
         found = re.search(r"cgx_quantize_variant_kernelILi(\d)ELi(\d)EE", b.split("'")[1])
@@ -1646,6 +1767,7 @@ def main() -> int:
 
     log("== 5. times")
     kern = time_kernels(dev, FLAT_N, name)
+    time_step_shapes(dev, name)
     plain_ms, codec_ms, db_ms, plain_step = time_steps(sl)
     log(f"  train step, GPT-2 124M {BATCH}x{SEQ}: {plain_ms:.2f} ms without the codec, "
         f"{codec_ms:.2f} ms with it (+{100 * (codec_ms - plain_ms) / plain_ms:.1f}%), "
@@ -1687,8 +1809,8 @@ def main() -> int:
         records.append({
             "name": r["name"], "route": "cuda", "source": SOURCE,
             "replaces": TPU_KERNELS[r["name"]], "launches": launches[r["name"]],
-            "max_abs_err": max_err[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "max_abs_err": max_err[r["name"]], "ms": r["ms"], "burst_ms": r["burst_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     assert len(records) == len(TPU_KERNELS), records
     print(json.dumps({"kernels": records}))

@@ -582,3 +582,170 @@ def test_qbench_runs_each_variant_on_the_card(dev, capsys):
         rec = qbench.main([variant, "--mb", "16", "--k", "3"])
         assert rec["device"] == torch.cuda.get_device_name(0) and rec["bound_ms"] > 0, rec
     assert "byte_check: ok" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The cluster kernels (B1/B5 and B3): bytes equal to the plain versions at
+# the step's launch shapes, every width, bucket, lowering and row count, and
+# on adversarial buckets; the reciprocal quotient equal to the IEEE divide.
+# ---------------------------------------------------------------------------
+
+# Chunks a launch of the GPT-2 124M step (bucket 512): one mlp layer's
+# ws-8 share, attn_qkv, mlp_in/mlp_out, the wte tail (B5), attn_proj + wpe,
+# a wte slice; and phase 7's ws-4 flat-SRA epilogue.
+STEP_CHUNKS = (18, 108, 144, 307, 480, 1024)
+
+
+def _plain_on(dev, fn, *args, **kw):
+    """A plain version run on the card's own tensors: NaN payloads and the
+    card's float rounding of NaN arithmetic match the kernel's there."""
+    return fn(*[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args], **kw)
+
+
+@pytest.mark.parametrize("chunks", STEP_CHUNKS)
+def test_cluster_quantize_step_shapes(dev, chunks):
+    """B1 (B5 at 307 chunks) at each launch shape of the step, in every
+    lowering: bytes equal the plain version's; one launch a call."""
+    n = chunks * 32 * 512
+    x = torch.from_numpy(np.random.default_rng(chunks).standard_normal(n).astype(np.float32)).to(dev)
+    assert codec_cuda.cluster_geometry(chunks, 512, 4).positions == 1
+    for enc, pack in _lowerings():
+        codec_cuda.reset_launch_counts()
+        w, m = codec_cuda.quantize_chunks(x, 4, 512, encode=enc, pack=pack)
+        torch.cuda.synchronize()
+        assert codec_cuda.LAUNCHES["codec_quantize"] == 1
+        pw, pm = codec_cuda.quantize_chunks_plain(x, 4, 512, encode=enc)
+        assert _bits_equal(w, pw) and _bits_equal(m, pm), (enc, pack)
+
+
+@pytest.mark.parametrize("bucket", [96, 128, 256, 512, 896, 1024, 1760, 1792, 2048, 4096, 6144,
+                                    16384])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_cluster_quantize_bits_buckets(dev, bits, bucket):
+    """B1 at every width and at buckets whose geometry takes 1, 2, 4 or 8
+    CTAs a chunk (up to 8 x 512 threads at 4096) and past the register
+    budget (1760, 6144, 16384: positions in rounds, re-read), in every
+    lowering, on normal and adversarial data."""
+    chunks = 3
+    n = chunks * 32 * bucket
+    rng = np.random.default_rng(bits * bucket)
+    for x in (rng.standard_normal(n).astype(np.float32),
+              qbench.adversarial_operand(n, bucket, bits, seed=bits)):
+        x = torch.from_numpy(x).to(dev)
+        for enc, pack in _lowerings():
+            w, m = codec_cuda.quantize_chunks(x, bits, bucket, encode=enc, pack=pack)
+            pw, pm = codec_cuda.quantize_chunks_plain(x, bits, bucket, encode=enc)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (enc, pack)
+
+
+@pytest.mark.parametrize("chunks,ws,owns", [
+    (108, 1, [None]), (144, 1, [None]), (307, 1, [None]), (480, 1, [None]), (1024, 1, [None]),
+    (256, 4, [None, 0, 3]), (18, 8, [None, 5]),
+])
+def test_cluster_epilogue_step_shapes(dev, chunks, ws, owns):
+    """B3 at the step's shapes with one row and no raw row, at phase 7's ws 4
+    x 256 chunks with the raw row, and at one mlp layer's ws-8 share, in
+    every lowering: bytes equal the plain version's."""
+    n = chunks * 32 * 512
+    rng = np.random.default_rng(chunks + ws)
+    rows = torch.from_numpy(
+        np.stack([rng.standard_normal(n).astype(np.float32) * (r + 1) for r in range(ws)])).to(dev)
+    q = codec_cuda.quantize_batch(rows, 4, 512)
+    for own in owns:
+        raw, o = (None, -1) if own is None else (rows[own], own)
+        for enc, pack in _lowerings():
+            codec_cuda.reset_launch_counts()
+            w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, o, 4, 512, encode=enc, pack=pack)
+            torch.cuda.synchronize()
+            assert codec_cuda.LAUNCHES["codec_sra_epilogue"] == 1
+            pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, raw, o, 4, 512, encode=enc)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (own, enc, pack)
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 896, 1760, 1792, 6144])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_cluster_epilogue_bits_buckets(dev, bits, bucket):
+    """B3 at every width, at buckets up to the batch path's gate and past
+    the register budget (1760, 6144: positions in rounds, each folded again
+    for the encode), ws 1 and 4, with and without the raw row, the rows and
+    the raw row adversarial."""
+    chunks, rng = 5, np.random.default_rng(bits + bucket)
+    n = chunks * 32 * bucket
+    for ws, owns in ((1, [None, 0]), (4, [None, 2])):
+        rows = np.stack([rng.standard_normal(n).astype(np.float32) for _ in range(ws)])
+        rows[0] = qbench.adversarial_operand(n, bucket, bits, seed=bits)
+        rows = torch.from_numpy(rows).to(dev)
+        q = codec_cuda.quantize_batch(rows, bits, bucket)
+        for own in owns:
+            raw, o = (None, -1) if own is None else (rows[own], own)
+            for enc, pack in _lowerings():
+                w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, o, bits, bucket,
+                                                      encode=enc, pack=pack)
+                pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, raw, o, bits, bucket,
+                                                              encode=enc)
+                assert _bits_equal(w, pw) and _bits_equal(m, pm), (ws, own, enc, pack)
+
+
+@pytest.mark.parametrize("bucket,chunks", [(1760, 144), (8192, 3), (16384, 2)])
+def test_cluster_past_the_register_budget(dev, bucket, chunks):
+    """Buckets no cluster holds one position a thread: 1760 (55 warps of
+    positions, no k splits them into at most 512 threads) and 8192, 16384
+    (beyond 8 x 512). B1 and B3 (ws 4, raw row) run the same kernels with
+    positions in rounds: one launch each, bytes equal the plain versions'."""
+    g = codec_cuda.cluster_geometry(chunks, bucket, 4)
+    assert g.positions > 1, g
+    n = chunks * 32 * bucket
+    rng = np.random.default_rng(bucket)
+    rows = torch.from_numpy(np.stack([rng.standard_normal(n).astype(np.float32) * (r + 1)
+                                      for r in range(4)])).to(dev)
+    for enc, pack in _lowerings():
+        codec_cuda.reset_launch_counts()
+        w, m = codec_cuda.quantize_chunks(rows[0], 4, bucket, encode=enc, pack=pack)
+        q = codec_cuda.quantize_batch(rows, 4, bucket)
+        codec_cuda.reset_launch_counts()
+        ew, em = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, rows[1], 1, 4, bucket,
+                                                encode=enc, pack=pack)
+        torch.cuda.synchronize()
+        assert codec_cuda.LAUNCHES["codec_sra_epilogue"] == 1
+        pw, pm = codec_cuda.quantize_chunks_plain(rows[0], 4, bucket, encode=enc)
+        assert _bits_equal(w, pw) and _bits_equal(m, pm), (enc, pack)
+        pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, rows[1], 1, 4, bucket,
+                                                      encode=enc)
+        assert _bits_equal(ew, pw) and _bits_equal(em, pm), (enc, pack)
+
+
+def test_reciprocal_quotient_equals_the_ieee_divide(dev):
+    """The div encode's reciprocal quotient on the card: every divisor
+    significand at exponent 0 against every level boundary and level of 8
+    bits (one ulp each side) and pseudo-random numerators; every 64th
+    significand at the range's edge exponents; and the special pairs. Not
+    one quotient differs from __fdiv_rn's, nor one level."""
+    full = codec_cuda.reciprocal_sweep(dev, e2=0)
+    assert full["pairs"] > 10**10, full
+    assert full["quotients_differ"] == 0 and full["levels_differ"] == 0, full
+    for e2 in (-64, -63, 62, 63, -65, 64):
+        edge = codec_cuda.reciprocal_sweep(dev, e2=e2, m_step=64, extra=16)
+        assert edge["quotients_differ"] == 0 and edge["levels_differ"] == 0, (e2, edge)
+    tiny, huge = np.float32(2.0**-64), np.float32(2.0**64)
+    ds = [1.0, 3.0, tiny, np.nextafter(tiny, np.float32(0)), np.nextafter(huge, np.float32(0)), huge,
+          np.float32(1e-40), np.float32(1.4e-45), np.inf, np.float32(3.4e38)]
+    as_ = [0.0, -0.0, np.float32(1e-45), np.float32(1e-38), 0.5, 255.5, np.float32(3e38), np.inf, np.nan]
+    a = torch.tensor([x for x in as_ for _ in ds], dtype=torch.float32, device=dev)
+    d = torch.tensor([y for _ in as_ for y in ds], dtype=torch.float32, device=dev)
+    fast, ref = codec_cuda.reciprocal_pairs(a, d)
+    same = ((fast.view(torch.int32) == ref.view(torch.int32))
+            | (torch.isnan(fast) & torch.isnan(ref)))
+    # The pairs the kernels can meet: a divisor outside the range (the IEEE
+    # divide runs), or a NaN numerator, or a finite one in the level domain
+    # a <= 257 d (a = x - min <= max - min = unit * (2^bits - 1), rounded).
+    # An infinite numerator never meets an in-range divisor: a bucket with
+    # an inf entry has an infinite unit. Quotients equal bit for bit (NaN
+    # any NaN), and levels (floor(q + 1/2) clamped to 8 bits, NaN -> 0).
+    in_range = torch.tensor([codec_cuda.rcp_in_range(float(y)) for _ in as_ for y in ds], device=dev)
+    checked = ~in_range | torch.isnan(a) | (torch.isfinite(a) & (a.abs() <= 257 * d))
+    assert bool(same[checked].all())
+
+    def level(q):
+        return torch.nan_to_num(torch.floor(q + 0.5), nan=0.0).clamp(0, 255)
+
+    assert bool((level(fast) == level(ref))[checked].all())

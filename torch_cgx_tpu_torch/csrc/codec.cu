@@ -17,10 +17,12 @@
 //                           nometa, metalane and read bodies; its mul and
 //                           butterfly variants are cgx_quantize's lowerings)
 // CUDA has no 128-lane tiling constraint, so one kernel serves both the flat
-// and the bucket-row geometry of each TPU pair: every codec kernel walks
-// whole chunks of 32 buckets, one thread block per chunk. The
-// matmul-quantize tiles its output instead, and its tiles complete the
-// chunks through the L2 (see its section).
+// and the bucket-row geometry of each TPU pair: every codec kernel works on
+// whole chunks of 32 buckets. B1/B5 and B3 give each chunk a thread-block
+// cluster whose threads hold the chunk's values in registers (see their
+// section); the others take one thread block per chunk (or, pipelined, a
+// tile of chunks). The matmul-quantize tiles its output instead, and its
+// tiles complete the chunks through the L2 (see its section).
 //
 // Wire layout (torch_cgx_tpu/ops/codec.py): chunk c holds buckets
 // 32c..32c+31; value (c, s, l) is x[c*32*B + s*B + l]; word (c, w, l) at
@@ -39,9 +41,9 @@
 // stay far below the card's rate for that traffic. The matmul-quantize is
 // operation-bound: 2*K*din*o f32 operations for n = din*o values against
 // 4*K*(din + o) bytes read and n*bits/8 + 8n/B (+ 4n/ws of the own raw
-// row) written. The single-stage codec kernels are simple: coalesced global
-// loads, neighbouring threads on neighbouring positions l of one bucket, one
-// block per chunk. The pipelined (*_db) kernels keep one persistent block
+// row) written. The other single-stage codec kernels are simple: coalesced
+// global loads, neighbouring threads on neighbouring positions l of one
+// bucket, one block per chunk. The pipelined (*_db) kernels keep one persistent block
 // per SM slot and stream their inputs through a ring of shared-memory slots
 // filled by bulk asynchronous copies (see their section below). No tensor
 // cores.
@@ -50,7 +52,9 @@
 // torch_cgx_tpu_torch/ops/codec.py, bit for bit: the meta multiplies by
 // f32(1/(2^bits-1)) computed on the host; levels use an IEEE divide (or,
 // under the mul encode, a multiply by the bucket's correctly rounded
-// reciprocal); decode rounds the product before the add. Explicit __f*_rn
+// reciprocal); decode rounds the product before the add. The cluster
+// kernels reach the IEEE quotient through a reciprocal and one FMA
+// correction where that is exact (div_quotient). Explicit __f*_rn
 // intrinsics keep nvcc from contracting a*b+c into an FMA (the build adds
 // -fmad=false too).
 //
@@ -79,6 +83,11 @@ constexpr int kPackButterfly = 1;
 constexpr int kMetaPairs = 0;  // chunk_meta stores the (unit, min) pairs
 constexpr int kMetaNone = 1;   // chunk_meta leaves the meta store to its caller
 
+// Max and min that propagate NaN, as torch.amax / amin (and jnp.max / min)
+// do: a bucket holding a NaN has a NaN max and min.
+__device__ __forceinline__ float nan_max(float a, float b) { return (b > a || isnan(b)) ? b : a; }
+__device__ __forceinline__ float nan_min(float a, float b) { return (b < a || isnan(b)) ? b : a; }
+
 // Per-bucket max/min of one chunk. src: 32 buckets of B floats (global or
 // shared memory). Writes (unit, min) to shared memory (under the mul
 // encode s_unit holds the reciprocal 1/safe instead, correctly rounded)
@@ -94,15 +103,13 @@ __device__ void chunk_meta(const float* src, int B, float inv, float* s_unit,
     float mn = mx;
     for (int l = lane + 32; l < B; l += 32) {
       const float v = row[l];
-      mx = v > mx ? v : mx;
-      mn = v < mn ? v : mn;
+      mx = nan_max(mx, v);
+      mn = nan_min(mn, v);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-      const float omx = __shfl_xor_sync(0xffffffffu, mx, o);
-      const float omn = __shfl_xor_sync(0xffffffffu, mn, o);
-      mx = omx > mx ? omx : mx;
-      mn = omn < mn ? omn : mn;
+      mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      mn = nan_min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
     }
     if (lane == 0) {
       const float unit = __fmul_rn(__fsub_rn(mx, mn), inv);
@@ -145,21 +152,18 @@ __device__ __forceinline__ uint32_t level_of(float x, float scale, float bmin) {
 // holds bucket s's level and bit k of word k is one __ballot_sync. The
 // stage is each warp's 32 x 32 words, rotated (level (s, j) at column
 // (j + s) % 32 of row s) so that both the row-wise writes and the
-// bucket-wise reads hit 32 distinct banks. STAGE_IN_TILE: the stage is the
-// warp's own 32 columns of the (32, B) tile it just read (src, row stride
-// B; nothing reads those columns again); otherwise a private buffer of
-// blockDim.x * 32 words, 32 words a row.
-template <int BITS, int ENCODE, int PACK, bool STAGE_IN_TILE = true>
+// bucket-wise reads hit 32 distinct banks. The stage is the warp's own 32
+// columns of the (32, B) shared-memory tile it just read (src, row stride
+// B; nothing reads those columns again).
+template <int BITS, int ENCODE, int PACK>
 __device__ void chunk_encode(const float* src, int B, const float* s_unit,
-                             const float* s_min, int32_t* words_out,
-                             uint32_t* stage = nullptr) {
+                             const float* s_min, int32_t* words_out) {
   if (PACK == kPackButterfly) {
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     for (int l0 = warp * 32; l0 < B; l0 += blockDim.x) {
-      uint32_t* st = STAGE_IN_TILE ? reinterpret_cast<uint32_t*>(const_cast<float*>(src)) + l0
-                                   : stage + (size_t)warp * 32 * 32;
-      const int stride = STAGE_IN_TILE ? B : 32;
+      uint32_t* st = reinterpret_cast<uint32_t*>(const_cast<float*>(src)) + l0;
+      const int stride = B;
       uint32_t q[kChunkBuckets];
 #pragma unroll
       for (int s = 0; s < kChunkBuckets; ++s) {
@@ -219,26 +223,6 @@ __device__ __forceinline__ void load_chunk_meta(const float* meta, float* s_unit
     s_unit[threadIdx.x] = meta[2 * threadIdx.x];
     s_min[threadIdx.x] = meta[2 * threadIdx.x + 1];
   }
-}
-
-// codec_quantize. Replaces codec_pallas.py _quantize_flat_impl (B1) and
-// _quantize_chunks_impl (B5), and B9's mul and butterfly variants
-// (tools/qbench.py). One block per chunk: warps reduce each bucket's
-// max/min, then thread l encodes position l of all 32 buckets (under the
-// butterfly pack, each warp 32 positions through a 32 KB private stage).
-// Memory-bound: reads 4n bytes, writes n*bits/8 + 8n/B (n values, bucket B).
-template <int BITS, int ENCODE, int PACK>
-__global__ void __launch_bounds__(kThreads)
-    cgx_quantize_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
-                        float* __restrict__ meta, int B, float inv) {
-  __shared__ float s_unit[kChunkBuckets];
-  __shared__ float s_min[kChunkBuckets];
-  __shared__ uint32_t s_stage[PACK == kPackButterfly ? kThreads * 32 : 1];
-  const size_t c = blockIdx.x;
-  const float* src = x + c * kChunkBuckets * B;
-  chunk_meta<ENCODE>(src, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
-  __syncthreads();
-  chunk_encode<BITS, ENCODE, PACK, false>(src, B, s_unit, s_min, words + c * BITS * B, s_stage);
 }
 
 // codec_quantize_variant. Replaces tools/qbench.py make_variant_kernel
@@ -321,53 +305,6 @@ __global__ void __launch_bounds__(kThreads)
       out[i] = v;
     }
   }
-}
-
-// codec_sra_epilogue. Replaces codec_pallas.py _sra_epilogue_impl (B3).
-// Memory-bound: reads ws*(n*bits/8 + 8n/B) (+4n of the raw own row), writes
-// n*bits/8 + 8n/B; the reduced floats stay in shared memory.
-// One block per chunk: decode the chunk of each of the ws rows (the raw own
-// row in place of row `own`), fold them in ascending row order into a
-// (32, B) f32 tile in shared memory, then requantize the tile with the same
-// chunk_meta/chunk_encode the quantize kernel runs (the butterfly pack
-// stages its levels in the tile's own columns).
-template <int BITS, int ENCODE, int PACK>
-__global__ void __launch_bounds__(kThreads)
-    cgx_sra_epilogue_kernel(const int32_t* __restrict__ words,
-                            const float* __restrict__ meta,
-                            const float* __restrict__ raw, int own, int ws,
-                            long long chunks, int B, float inv,
-                            int32_t* __restrict__ out_words,
-                            float* __restrict__ out_meta) {
-  extern __shared__ float tile[];
-  __shared__ float s_unit[kChunkBuckets];
-  __shared__ float s_min[kChunkBuckets];
-  const size_t c = blockIdx.x;
-  const size_t row_words = (size_t)chunks * BITS * B;
-  const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
-  for (int r = 0; r < ws; ++r) {
-    __syncthreads();  // every thread is done with the previous row's meta
-    load_chunk_meta(meta + r * row_meta + c * 2 * kChunkBuckets, s_unit, s_min);
-    __syncthreads();
-    const int32_t* wsrc = words + r * row_words + c * BITS * B;
-    for (int l = threadIdx.x; l < B; l += blockDim.x) {
-      uint32_t w[BITS];
-#pragma unroll
-      for (int k = 0; k < BITS; ++k) w[k] = (uint32_t)wsrc[(size_t)k * B + l];
-#pragma unroll 4
-      for (int s = 0; s < kChunkBuckets; ++s) {
-        const float v =
-            r == own ? raw[c * kChunkBuckets * B + (size_t)s * B + l]
-                     : decode_one<BITS>(w, s, s_unit[s], s_min[s]);
-        float* t = tile + (size_t)s * B + l;
-        *t = r == 0 ? v : __fadd_rn(*t, v);
-      }
-    }
-  }
-  __syncthreads();
-  chunk_meta<ENCODE>(tile, B, inv, s_unit, s_min, out_meta + c * 2 * kChunkBuckets);
-  __syncthreads();
-  chunk_encode<BITS, ENCODE, PACK>(tile, B, s_unit, s_min, out_words + c * BITS * B);
 }
 
 // codec_reduce_rows. Replaces codec_pallas.py _reduce_rows_impl (B4): the
@@ -864,7 +801,7 @@ __global__ void __launch_bounds__(kDbThreads)
 // tc*256 of meta), so the shared memory it needs does not grow with ws.
 // The ring streams rows 0..ws-1 of tile t, then those of the block's next
 // tile; each row folds into a (tc, 32, B) f32 tile in shared memory in
-// ascending order, exactly as cgx_sra_epilogue_kernel folds. Row `own`
+// ascending order, exactly as the plain fold (and B3) does. Row `own`
 // holds no copy (its barrier is arrived at without bytes): the raw own row
 // is read from device memory at its turn in the fold. After the last row,
 // chunk_meta and chunk_encode requantize each chunk of the tile.
@@ -950,6 +887,519 @@ __global__ void __launch_bounds__(kDbThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster kernels: B1/B5 (cgx_quantize_cluster_kernel) and B3
+// (cgx_sra_epilogue_cluster_kernel).
+//
+// What bounds them. By their bytes both are memory-bound (the bounds above),
+// but a GPT-2 124M step launches them mostly on 108-144 chunks (a layer's
+// payload: 7-10 MB read by B1, 2-3 MB by one-row B3), where the chunk's
+// dependency chain (loads, a reduce across warps and CTAs, the encode, the
+// stores) and the instructions each value needs bound a launch, not the
+// bytes; at a 64 MB slice B1 reaches about half its byte bound (PERF.md,
+// PR 7). The one-block-per-chunk design before this one left most SMs
+// with one 8-warp block or none at those counts, walked each bucket in a
+// dependent loop and read the chunk twice; its B3 staged a (32, B) f32
+// tile in 64 KB of shared memory and read or wrote each value there about
+// five times.
+//
+// The design:
+//  - a thread-block cluster of k CTAs (k in {1, 2, 4, 8}) takes one chunk;
+//    CTA `rank` owns the contiguous positions [rank*B/k, (rank+1)*B/k), its
+//    thread t position l = rank*B/k + t, for all 32 buckets.
+//    codec_cuda.cluster_geometry picks k from the chunk count, the card's
+//    SMs and B (see its rule: one CTA an SM up to one SM's worth of chunks,
+//    several up to 1.6 SMs' worth, k = 1 above); k = 1 is a plain launch;
+//  - a thread holds its 32 values in registers: B1 loads each value once,
+//    coalesced across the warp, 32 independent loads a thread; B3 decodes
+//    the ws rows (the raw own row in place of row `own`) and folds them into
+//    those registers in ascending row order. No shared-memory tile, no
+//    second read;
+//  - max and min per bucket: across the warp by a transpose-reduce (five
+//    shuffle stages halve the buckets a lane holds, leaving lane s with
+//    bucket s), across the CTA's warps in shared memory, then across the
+//    cluster through distributed shared memory (a cluster barrier, mapa +
+//    ld.shared::cluster). CTA rank 0 stores the chunk's meta;
+//  - each thread encodes and packs its position from registers: under the
+//    sum pack it ORs bucket s's level bits into bit s of its BITS words;
+//    under the butterfly pack its warp stages the levels of its 32
+//    positions in a private, bank-rotated 32 x 32 stage and makes each word
+//    one __ballot_sync (the ballot's axis is the bucket, the register
+//    layout's is the position, so the transpose stays);
+//  - the div encode multiplies by the bucket's correctly rounded reciprocal
+//    and corrects the quotient with one explicit FMA step (div_quotient),
+//    where the bucket's divisor and the value lie in the range on which
+//    that quotient is the IEEE divide's (checked on the card by
+//    cgx_div_sweep); other buckets, and values with 0 < a < 2^-62, take
+//    __fdiv_rn (one unsigned compare a value against a per-bucket bound).
+// The register budget is one position (32 values) a thread, so a chunk
+// fits 8 CTAs of 512 threads up to B = 4096. Past it (and at a B whose
+// warps of positions no k divides into at most 512 threads) the same
+// kernels run with REREAD: a thread takes several positions of its CTA's
+// range in rounds, each loaded (B3: folded) once for the extremes and
+// again, from the L2, for the encode.
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterMaxThreads = 512;
+constexpr int kClusterMaxWarps = kClusterMaxThreads / 32;
+// Two 512-thread CTAs an SM (at most 64 registers a thread): the 32 values
+// and the reduce's 16 fit, and smaller CTAs get four or eight an SM. With
+// REREAD one (at most 128 registers): the rounds' loop state spills at 64.
+constexpr int kClusterMinBlocks = 2;
+constexpr int kClusterMaxSize = 8;
+
+// The reciprocal quotient is the IEEE one where 2^-64 <= safe < 2^64 and
+// the numerator a = x - min is 0 or at least 2^-62 (div_quotient). (safe is
+// positive or +inf by construction.)
+constexpr int kRcpExpLo = 127 - 64;
+constexpr int kRcpExpHi = 127 + 64;
+// The least nonzero numerator the reciprocal divides, 2^-62, as float bits.
+constexpr uint32_t kRcpMinNumeratorBits = (uint32_t)(127 - 62) << 23;
+
+__device__ __forceinline__ bool rcp_in_range(float safe) {
+  const int e = (__float_as_int(safe) >> 23) & 0xff;
+  return e >= kRcpExpLo && e < kRcpExpHi;
+}
+
+// The bucket's reciprocal for the div encode: __frcp_rn(safe) in range, 0
+// (take the IEEE divide) outside it.
+__device__ __forceinline__ float div_reciprocal(float safe) {
+  return rcp_in_range(safe) ? __frcp_rn(safe) : 0.f;
+}
+
+// The bucket's bound for div_quotient's one per-value test: a numerator
+// whose bits less one are at most this takes the IEEE divide. In range,
+// the nonzero numerators below 2^-62; outside it, every numerator.
+__device__ __forceinline__ uint32_t div_slow_bits(float safe) {
+  return rcp_in_range(safe) ? kRcpMinNumeratorBits - 2u : 0xffffffffu;
+}
+
+// a / safe, correctly rounded, bit for bit __fdiv_rn(a, safe): q = a*r,
+// then one correction with the remainder a - safe*q (Markstein). The
+// correction rounds correctly where r = RN(1/safe), q is within an ulp of
+// a/safe, the remainder is exact and nothing leaves the normal range. With
+// safe in [2^-64, 2^64), a >= 2^-62 and a in the level domain (a = x - min
+// <= max - min, about 2^8 * safe at most) the reciprocal, a*r and the
+// quotient are normal (a/safe > 2^-126), and a's exponent lies far enough
+// above the subnormals (>= -102) that the remainder is a float. The
+// remainder is formed negated, -(safe*q - a), so that a = +-0 gives a zero
+// of a's sign, as the IEEE divide does. Numerators in (0, 2^-62) (per
+// value; rare: a nonzero a below 2^-62 needs x or the min within 2^-38 of
+// zero) and every value of a bucket outside the range take the IEEE
+// divide: one unsigned compare, `slow` from div_slow_bits (a = 0 wraps
+// past it; NaN, and -0, take the fast path, NaN either way). The card's
+// cgx_div_sweep finds no quotient different over every divisor
+// significand.
+__device__ __forceinline__ float div_quotient(float a, float safe, float rcp, uint32_t slow) {
+  if (__float_as_uint(a) - 1u > slow) {
+    const float q = __fmul_rn(a, rcp);
+    const float en = __fmaf_rn(safe, q, -a);
+    return __fmaf_rn(-en, rcp, q);
+  }
+  return __fdiv_rn(a, safe);
+}
+
+// The level of x in a bucket from its parameters p: div: (safe, its
+// div_reciprocal, min, its div_slow_bits as float bits); mul: (the
+// reciprocal 1/safe, -, min, -).
+template <int BITS, int ENCODE>
+__device__ __forceinline__ uint32_t level_cluster(float x, float4 p) {
+  const float maxlvl = (float)((1 << BITS) - 1);
+  const float a = __fsub_rn(x, p.z);
+  const float q = ENCODE == kEncodeMul ? __fmul_rn(a, p.x)
+                                       : div_quotient(a, p.x, p.y, __float_as_uint(p.w));
+  return (uint32_t)fminf(fmaxf(floorf(__fadd_rn(q, 0.5f)), 0.f), maxlvl);
+}
+
+// One transpose-reduce stage: t[0..2H) -> t[0..H). A lane with bit H set
+// keeps the upper half and sends the lower one to its partner, which
+// keeps the lower half: afterwards t[i] of a lane covers bucket
+// (lane's bits above H) + i.
+template <bool MAX, int H>
+__device__ __forceinline__ void bucket_reduce_stage(float (&t)[16], int lane) {
+  const bool hi = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = hi ? t[i] : t[i + H];
+    const float keep = hi ? t[i + H] : t[i];
+    const float got = __shfl_xor_sync(0xffffffffu, send, H);
+    t[i] = MAX ? nan_max(keep, got) : nan_min(keep, got);
+  }
+}
+
+// The warp's max (or min) of bucket `lane` over the warp's positions: five
+// shuffle stages transpose and reduce (31 shuffles for 32 buckets).
+template <bool MAX>
+__device__ __forceinline__ float warp_bucket_extreme(const float (&v)[kChunkBuckets], int lane) {
+  const bool hi = (lane & 16) != 0;
+  float t[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float lo = v[i], up = v[i + 16];
+    const float got = __shfl_xor_sync(0xffffffffu, hi ? lo : up, 16);
+    t[i] = MAX ? nan_max(hi ? up : lo, got) : nan_min(hi ? up : lo, got);
+  }
+  bucket_reduce_stage<MAX, 8>(t, lane);
+  bucket_reduce_stage<MAX, 4>(t, lane);
+  bucket_reduce_stage<MAX, 2>(t, lane);
+  bucket_reduce_stage<MAX, 1>(t, lane);
+  return t[0];
+}
+
+// Cluster barrier halves: every thread of every CTA of the cluster arrives;
+// the wait returns once all have. Release / acquire order the shared-memory
+// writes before the arrival against the reads after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A float of CTA `rank`'s shared memory at the address of `p` in this CTA's.
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// Each bucket's encode parameters from this warp's extremes (lane s: the
+// max and min of bucket s over the warp's positions): across the CTA's
+// warps in shared memory, then across the cluster through distributed
+// shared memory. CTA rank 0 stores the chunk's meta (mout). s_par[s] gets
+// bucket s's parameters for level_cluster. With k > 1 this CTA has arrived at
+// the cluster barrier's second phase on return; cluster_quantize waits.
+template <int ENCODE>
+__device__ __forceinline__ void cluster_bucket_params(float wmx, float wmn, int k, int rank,
+                                                      float inv, float* mout, float4* s_par) {
+  __shared__ float s_red[2][kClusterMaxWarps][kChunkBuckets];  // each warp's max, min
+  __shared__ float s_part[2][kChunkBuckets];                   // this CTA's, read by its peers
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  s_red[0][warp][lane] = wmx;
+  s_red[1][warp][lane] = wmn;
+  __syncthreads();
+  float mx = 0.f, mn = 0.f;
+  if (warp == 0) {
+    mx = s_red[0][0][lane];
+    mn = s_red[1][0][lane];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
+      mx = nan_max(mx, s_red[0][w][lane]);
+      mn = nan_min(mn, s_red[1][w][lane]);
+    }
+    s_part[0][lane] = mx;
+    s_part[1][lane] = mn;
+  }
+  if (k > 1) {
+    cluster_arrive();  // this CTA's partials are written
+    cluster_wait();    // and every peer's
+    if (warp == 0) {
+      mx = ld_cluster(&s_part[0][lane], 0);
+      mn = ld_cluster(&s_part[1][lane], 0);
+      for (int r = 1; r < k; ++r) {
+        mx = nan_max(mx, ld_cluster(&s_part[0][lane], r));
+        mn = nan_min(mn, ld_cluster(&s_part[1][lane], r));
+      }
+    }
+  }
+  if (warp == 0) {
+    const float unit = __fmul_rn(__fsub_rn(mx, mn), inv);
+    const float safe = unit > 0.f ? unit : 1.f;
+    s_par[lane] = ENCODE == kEncodeMul ? make_float4(__fdiv_rn(1.f, safe), 0.f, mn, 0.f)
+                                       : make_float4(safe, div_reciprocal(safe), mn,
+                                                     __uint_as_float(div_slow_bits(safe)));
+    if (rank == 0) reinterpret_cast<float2*>(mout)[lane] = make_float2(unit, mn);
+  }
+  if (k > 1) cluster_arrive();  // this CTA has read its peers' partials
+  __syncthreads();
+}
+
+// Encode and pack position l of the chunk from v (v[s]: bucket s) into its
+// BITS words at wout[b*B + l]. Sum pack: bucket s's level bits go to bit s
+// of the thread's words. Butterfly pack: the warp stages the levels of its
+// 32 positions in its private, bank-rotated 32 x 32 words of `stage` and
+// makes each word one __ballot_sync (the ballot's axis is the bucket, the
+// register layout's the position, so the transpose stays).
+template <int BITS, int ENCODE, int PACK>
+__device__ __forceinline__ void cluster_encode(const float (&v)[kChunkBuckets],
+                                               const float4* s_par, int B, int l, int32_t* wout,
+                                               uint32_t* stage) {
+  uint32_t w[BITS];
+#pragma unroll
+  for (int b = 0; b < BITS; ++b) w[b] = 0u;
+  if (PACK == kPackSum) {
+#pragma unroll
+    for (int s = 0; s < kChunkBuckets; ++s) {
+      const uint32_t q = level_cluster<BITS, ENCODE>(v[s], s_par[s]);
+#pragma unroll
+      for (int b = 0; b < BITS; ++b) w[b] |= ((q >> b) & 1u) << s;
+    }
+  } else {
+    const int lane = threadIdx.x & 31;
+    uint32_t* st = stage + (size_t)(threadIdx.x >> 5) * 32 * 32;
+#pragma unroll
+    for (int s = 0; s < kChunkBuckets; ++s) {
+      st[s * 32 + ((lane + s) & 31)] = level_cluster<BITS, ENCODE>(v[s], s_par[s]);
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int p = 0; p < 32; ++p) {
+      const uint32_t q = st[lane * 32 + ((p + lane) & 31)];  // bucket lane, the warp's position p
+#pragma unroll
+      for (int b = 0; b < BITS; ++b) {
+        const uint32_t bit = __ballot_sync(0xffffffffu, (q >> b) & 1u);
+        w[b] = lane == p ? bit : w[b];
+      }
+    }
+    __syncwarp();  // the stage's reads are done before a next position writes it
+  }
+#pragma unroll
+  for (int b = 0; b < BITS; ++b) wout[(size_t)b * B + l] = (int32_t)w[b];
+}
+
+// Meta, encode and pack of one chunk by its cluster. CTA `rank` owns the
+// positions [rank*B/k, (rank+1)*B/k), its thread t position l0 = rank*B/k +
+// t and, with REREAD, l0 + T, l0 + 2T, ... below the CTA's end (T threads;
+// B/k and T are whole warps, so a warp's positions of a round are all in
+// range or all out, and round 0 has every warp). On entry v holds position
+// l0's values (v[s]: bucket s). Without REREAD that is the thread's only
+// position and its values stay in registers from the reduce to the encode.
+// With REREAD, load(v, l) fills v with position l's values: each further
+// position is loaded for the extremes, and every position again (from the
+// L2) for the encode. wout, mout: the chunk's words and meta; stage
+// (butterfly pack only): 32 x 32 words a warp of dynamic shared memory.
+template <int BITS, int ENCODE, int PACK, bool REREAD, typename Load>
+__device__ __forceinline__ void cluster_quantize(float (&v)[kChunkBuckets], const Load& load, int k,
+                                                 int rank, int B, float inv, int32_t* wout,
+                                                 float* mout, uint32_t* stage) {
+  __shared__ float4 s_par[kChunkBuckets];
+  const int lane = threadIdx.x & 31;
+  const int T = blockDim.x;
+  const int l0 = rank * (B / k) + (int)threadIdx.x;
+  const int room = B / k - (int)(threadIdx.x & ~31u);  // this warp's positions: l0 + off, off < room
+  float wmx = warp_bucket_extreme<true>(v, lane);
+  float wmn = warp_bucket_extreme<false>(v, lane);
+  if constexpr (REREAD) {
+    for (int off = T; off < room; off += T) {
+      load(v, l0 + off);
+      wmx = nan_max(wmx, warp_bucket_extreme<true>(v, lane));
+      wmn = nan_min(wmn, warp_bucket_extreme<false>(v, lane));
+    }
+  }
+  cluster_bucket_params<ENCODE>(wmx, wmn, k, rank, inv, mout, s_par);
+  if constexpr (REREAD) {
+    for (int off = 0; off < room; off += T) {
+      if (room > T) load(v, l0 + off);  // else v still holds position l0
+      cluster_encode<BITS, ENCODE, PACK>(v, s_par, B, l0 + off, wout, stage);
+    }
+  } else {
+    cluster_encode<BITS, ENCODE, PACK>(v, s_par, B, l0, wout, stage);
+  }
+  if (k > 1) cluster_wait();  // no CTA leaves while a peer may still read its partials
+}
+
+// B1's values of one chunk: v[s] = src[s*B + l], one load a bucket,
+// coalesced across the warp.
+struct ChunkValues {
+  const float* src;
+  int B;
+  __device__ __forceinline__ void operator()(float (&v)[kChunkBuckets], int l) const {
+#pragma unroll
+    for (int s = 0; s < kChunkBuckets; ++s) v[s] = __ldg(src + (size_t)s * B + l);
+  }
+};
+
+// codec_quantize (B1, B5) on the cluster geometry: grid chunks*k CTAs in
+// clusters of k, T threads (B/k, or with REREAD fewer: B/k positions in
+// rounds of T); dynamic shared memory the butterfly stage (T/32 * 4096
+// bytes) or none.
+template <int BITS, int ENCODE, int PACK, bool REREAD>
+__global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
+    cgx_quantize_cluster_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
+                                float* __restrict__ meta, int B, int k, float inv) {
+  extern __shared__ __align__(16) uint32_t cl_smem[];
+  const int rank = (int)(blockIdx.x % (unsigned)k);
+  const size_t c = blockIdx.x / (unsigned)k;
+  const ChunkValues load{x + c * kChunkBuckets * B, B};
+  float v[kChunkBuckets];
+  load(v, rank * (B / k) + (int)threadIdx.x);
+  cluster_quantize<BITS, ENCODE, PACK, REREAD>(v, load, k, rank, B, inv, words + c * BITS * B,
+                                               meta + c * 2 * kChunkBuckets, cl_smem);
+}
+
+// The BITS words of one row at this thread's position.
+template <int BITS>
+__device__ __forceinline__ void load_words(uint32_t (&w)[BITS], const int32_t* __restrict__ wrow,
+                                           int B, int l) {
+#pragma unroll
+  for (int b = 0; b < BITS; ++b) w[b] = (uint32_t)__ldg(wrow + (size_t)b * B + l);
+}
+
+// Fold one row into acc: its decoded values (meta from shared memory), or
+// with `rawc` the raw own row's. FIRST: acc takes the row's values as they
+// are (the plain fold's v0 + v1 + ... starts from v0, not 0 + v0).
+template <int BITS, bool FIRST>
+__device__ __forceinline__ void fold_row(float (&acc)[kChunkBuckets], const uint32_t (&w)[BITS],
+                                         const float* s_meta, const float* __restrict__ rawc,
+                                         int B, int l) {
+  if (rawc != nullptr) {
+#pragma unroll
+    for (int s = 0; s < kChunkBuckets; ++s) {
+      const float v = __ldg(rawc + (size_t)s * B + l);
+      acc[s] = FIRST ? v : __fadd_rn(acc[s], v);
+    }
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < kChunkBuckets; ++s) {
+    const float2 m = reinterpret_cast<const float2*>(s_meta)[s];
+    const float v = decode_one<BITS>(w, s, m.x, m.y);
+    acc[s] = FIRST ? v : __fadd_rn(acc[s], v);
+  }
+}
+
+// B3's values of one chunk: the ws rows at a position, folded in ascending
+// row order, the raw own row (rawc, or null) in place of row `own`. wc:
+// row 0's words of the chunk, rows row_words apart; s_meta: the rows' meta
+// of the chunk, staged in shared memory.
+template <int BITS>
+struct ChunkRows {
+  const int32_t* wc;
+  size_t row_words;
+  const float* s_meta;
+  const float* rawc;
+  int own, ws, B;
+
+  // w holds row 0's words at l on entry (unless row 0 is the raw row).
+  __device__ __forceinline__ void fold(float (&acc)[kChunkBuckets], uint32_t (&w)[BITS],
+                                       int l) const {
+    fold_row<BITS, true>(acc, w, s_meta, own == 0 ? rawc : nullptr, B, l);
+    for (int r = 1; r < ws; ++r) {
+      if (r != own) load_words<BITS>(w, wc + r * row_words, B, l);
+      fold_row<BITS, false>(acc, w, s_meta + r * 2 * kChunkBuckets, r == own ? rawc : nullptr, B,
+                            l);
+    }
+  }
+
+  __device__ __forceinline__ void operator()(float (&acc)[kChunkBuckets], int l) const {
+    uint32_t w[BITS] = {};
+    if (own != 0) load_words<BITS>(w, wc, B, l);
+    fold(acc, w, l);
+  }
+};
+
+// codec_sra_epilogue (B3) on the cluster geometry: the ws rows' meta of the
+// chunk are staged in dynamic shared memory (ws * 256 bytes, ahead of the
+// butterfly stage) while row 0's words are in flight; each thread folds
+// its position of the ws rows into 32 registers in ascending row order,
+// then requantizes them as B1 does (with REREAD, each further position is
+// folded again for the encode).
+template <int BITS, int ENCODE, int PACK, bool REREAD>
+__global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
+    cgx_sra_epilogue_cluster_kernel(const int32_t* __restrict__ words,
+                                    const float* __restrict__ meta,
+                                    const float* __restrict__ raw, int own, int ws,
+                                    long long chunks, int B, int k, float inv,
+                                    int32_t* __restrict__ out_words,
+                                    float* __restrict__ out_meta) {
+  extern __shared__ __align__(16) uint32_t cl_smem[];
+  float* s_meta = reinterpret_cast<float*>(cl_smem);  // [ws][32][2]
+  uint32_t* stage = cl_smem + (size_t)ws * 2 * kChunkBuckets;
+  const int rank = (int)(blockIdx.x % (unsigned)k);
+  const size_t c = blockIdx.x / (unsigned)k;
+  const int l0 = rank * (B / k) + (int)threadIdx.x;
+  const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
+  const ChunkRows<BITS> rows{words + c * BITS * B, (size_t)chunks * BITS * B, s_meta,
+                             raw == nullptr ? nullptr : raw + c * kChunkBuckets * B, own, ws, B};
+  // Row 0's words are in flight while the meta is staged (a raw row 0 is
+  // read in the fold).
+  uint32_t w[BITS] = {};
+  if (own != 0) load_words<BITS>(w, rows.wc, B, l0);
+  for (int i = threadIdx.x; i < ws * 2 * kChunkBuckets; i += blockDim.x) {
+    const int r = i / (2 * kChunkBuckets);
+    s_meta[i] = meta[r * row_meta + c * 2 * kChunkBuckets + i % (2 * kChunkBuckets)];
+  }
+  __syncthreads();
+  float acc[kChunkBuckets];
+  rows.fold(acc, w, l0);
+  cluster_quantize<BITS, ENCODE, PACK, REREAD>(acc, rows, k, rank, B, inv,
+                                               out_words + c * BITS * B,
+                                               out_meta + c * 2 * kChunkBuckets, stage);
+}
+
+// The divide check (not a codec kernel): for divisors d = (1 + m/2^23) *
+// 2^e2 with m = m0, m0 + m_step, ... < 2^23, numerators around every
+// level boundary and level of the domain (RN((t/2) * d) and its `ulps`
+// neighbours on each side, t = 0 .. 2*2^8 + 1) and `extra` pseudo-random
+// ones in [0, 2^8 * d), and the numerator guard's edge (2^-62 and its
+// neighbours). counts: [0] the pairs tried; [1] those whose div_quotient
+// differs in any bit from __fdiv_rn; [2] those whose 8-bit level differs;
+// [3] nonzero once first[0..1] holds one pair (a, d) counted in [1] or [2].
+__global__ void cgx_div_sweep_kernel(int e2, int m0, int m_step, int ulps, int extra,
+                                     unsigned long long* counts, float* first) {
+  unsigned long long tried = 0, qdiff = 0, ldiff = 0;
+  const int n_m = ((1 << 23) - m0 + m_step - 1) / m_step;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_m; i += gridDim.x * blockDim.x) {
+    const int m = m0 + i * m_step;
+    const float d = __int_as_float(((127 + e2) << 23) | m);
+    const float rcp = div_reciprocal(d);
+    const uint32_t slow = div_slow_bits(d);
+    auto check = [&](float a) {
+      const float fast = div_quotient(a, d, rcp, slow);
+      const float ref = __fdiv_rn(a, d);
+      const uint32_t lf =
+          level_cluster<8, kEncodeDiv>(a, make_float4(d, rcp, 0.f, __uint_as_float(slow)));
+      const uint32_t lr = (uint32_t)fminf(fmaxf(floorf(__fadd_rn(ref, 0.5f)), 0.f), 255.f);
+      ++tried;
+      const bool qd = __float_as_int(fast) != __float_as_int(ref);
+      qdiff += qd;
+      ldiff += lf != lr;
+      if ((qd || lf != lr) && atomicCAS(&counts[3], 0ull, 1ull) == 0ull) {
+        first[0] = a;
+        first[1] = d;
+      }
+    };
+    for (int t = 0; t <= 2 * 256 + 1; ++t) {
+      const float a0 = __fmul_rn(0.5f * (float)t, d);
+      float up = a0, dn = a0;
+      check(a0);
+      for (int u = 0; u < ulps; ++u) {
+        up = nextafterf(up, __int_as_float(0x7f800000));
+        dn = nextafterf(dn, 0.f);
+        check(up);
+        check(dn);
+      }
+    }
+    const float lo = __uint_as_float(kRcpMinNumeratorBits);
+    check(lo);
+    check(nextafterf(lo, 0.f));
+    check(nextafterf(lo, 1.f));
+    uint32_t h = 0x9e3779b9u * (uint32_t)(m + 1) ^ (uint32_t)e2;
+    for (int t = 0; t < extra; ++t) {
+      h ^= h << 13;
+      h ^= h >> 17;
+      h ^= h << 5;
+      check(__fmul_rn(__fmul_rn((float)(h >> 8), 1.f / 16777216.f), __fmul_rn(256.f, d)));
+    }
+  }
+  atomicAdd(&counts[0], tried);
+  atomicAdd(&counts[1], qdiff);
+  atomicAdd(&counts[2], ldiff);
+}
+
+// The divide check on given pairs: q_fast[i] = div_quotient(a, d, rcp of
+// d), q_ref[i] = __fdiv_rn(a, d).
+__global__ void cgx_div_pairs_kernel(const float* __restrict__ a, const float* __restrict__ d, int n,
+                                     float* __restrict__ q_fast, float* __restrict__ q_ref) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    q_fast[i] = div_quotient(a[i], d[i], div_reciprocal(d[i]), div_slow_bits(d[i]));
+    q_ref[i] = __fdiv_rn(a[i], d[i]);
+  }
+}
+
 #define CGX_DISPATCH_BITS(bits, ...)        \
   switch (bits) {                           \
     case 1: { constexpr int BITS = 1; __VA_ARGS__; } break; \
@@ -1003,7 +1453,54 @@ bool db_geometry_ok(long long chunks, int tc, int B) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// Dynamic shared memory of a cluster kernel's butterfly stage: 32 x 32
+// words a warp.
+size_t stage_bytes(int pack, int threads) {
+  return pack == kPackButterfly ? (size_t)(threads / 32) * 32 * 32 * sizeof(uint32_t) : 0;
+}
+
+// The geometries the cluster kernels take (codec_cuda.cluster_geometry
+// picks one): k in {1, 2, 4, 8} CTAs a chunk, each B/k positions in whole
+// warps, `threads` threads a CTA in whole warps of at most 512 and at most
+// B/k (fewer than B/k: REREAD, the positions in rounds), so the chunk's B
+// positions are covered exactly once, and a grid of chunks*k CTAs.
+bool cluster_geometry_ok(long long chunks, int B, int k, int threads) {
+  return (k == 1 || k == 2 || k == 4 || k == kClusterMaxSize) && B % (32 * k) == 0 &&
+         threads >= 32 && threads <= kClusterMaxThreads && threads % 32 == 0 &&
+         threads <= B / k && chunks * k <= 0x7fffffffLL;
+}
+
+// Launch `kernel` on chunks*k CTAs of `threads` in clusters of k (k = 1: a
+// plain launch, no cluster). A refused launch is returned, and cleared from
+// the runtime's last error so that it does not surface at a later launch.
+template <typename... Params, typename... Args>
+cudaError_t cluster_launch(void (*kernel)(Params...), long long chunks, int k, int threads,
+                           size_t smem, cudaStream_t st, Args... args) {
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (e == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(chunks * k));
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = k > 1 ? 1 : 0;
+    e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  }
+  if (e != cudaSuccess) (void)cudaGetLastError();
+  return e;
+}
+
 }  // namespace
+
 
 // The build compiles this file once per part (-DCGX_PART=0..5), the parts
 // in parallel, and links them into one library; without CGX_PART it
@@ -1021,13 +1518,50 @@ extern "C" {
 
 #if CGX_IN_PART(0)
 // x: chunks*32*B f32 -> words: chunks*bits*B int32, meta: chunks*32*2 f32.
+// The cluster geometry (codec_cuda.cluster_geometry): clusters of k CTAs of
+// `threads` threads, each thread B/(k*threads) positions (rounded up).
 int cgx_quantize(const float* x, int32_t* words, float* meta, long long chunks,
-                 int B, int bits, float inv, int encode, int pack, void* stream) {
-  if (chunks < 1 || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
+                 int B, int bits, float inv, int encode, int pack, int k, int threads,
+                 void* stream) {
+  if (chunks < 1 || B < 32 || B % 32 || !cluster_geometry_ok(chunks, B, k, threads)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
-  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack,
-      cgx_quantize_kernel<BITS, ENCODE, PACK><<<(unsigned)chunks, kThreads, 0, st>>>(
-          x, words, meta, B, inv)));
+  const bool reread = B / k > threads;
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    cudaError_t e = reread
+        ? cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, true>, chunks, k, threads,
+                         stage_bytes(PACK, threads), st, x, words, meta, B, k, inv)
+        : cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, false>, chunks, k,
+                         threads, stage_bytes(PACK, threads), st, x, words, meta, B, k, inv);
+    if (e != cudaSuccess) return (int)e;
+  }));
+  return (int)cudaGetLastError();
+}
+#endif
+
+#if CGX_IN_PART(0)
+// The CUDA runtime's name of an error code the entry points return.
+const char* cgx_error_name(int err) { return cudaGetErrorName((cudaError_t)err); }
+#endif
+
+#if CGX_IN_PART(0)
+// The reciprocal quotient against the IEEE divide (cgx_div_sweep_kernel):
+// counts (4 uint64) and first (2 f32) zeroed by the caller.
+int cgx_div_sweep(int e2, int m0, int m_step, int ulps, int extra, unsigned long long* counts,
+                  float* first, void* stream) {
+  if (m0 < 0 || m_step < 1 || ulps < 0 || extra < 0 || e2 < -126 || e2 > 127) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cgx_div_sweep_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(e2, m0, m_step, ulps, extra, counts,
+                                                               first);
+  return (int)cudaGetLastError();
+}
+
+int cgx_div_pairs(const float* a, const float* d, int n, float* q_fast, float* q_ref,
+                  void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cgx_div_pairs_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a, d, n, q_fast, q_ref);
   return (int)cudaGetLastError();
 }
 #endif
@@ -1080,21 +1614,27 @@ int cgx_dequantize(const int32_t* words, const float* meta, const float* add,
 // words: ws rows of chunks*bits*B int32, meta: ws rows of chunks*32*2 f32,
 // raw: the own row's chunks*32*B f32 (null with own == -1) -> the
 // requantized reduced chunk: out_words chunks*bits*B, out_meta chunks*32*2.
+// The cluster geometry as cgx_quantize's.
 int cgx_sra_epilogue(const int32_t* words, const float* meta, const float* raw,
                      int own, int ws, long long chunks, int B, int bits,
-                     float inv, int encode, int pack, int32_t* out_words, float* out_meta,
-                     void* stream) {
-  if (chunks < 1 || ws < 1 || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
+                     float inv, int encode, int pack, int k, int threads,
+                     int32_t* out_words, float* out_meta, void* stream) {
+  if (chunks < 1 || ws < 1 || own >= ws || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
   if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
+  if (!cluster_geometry_ok(chunks, B, k, threads)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)kChunkBuckets * B * sizeof(float);
+  const size_t meta_bytes = (size_t)ws * 2 * kChunkBuckets * sizeof(float);
+  const bool reread = B / k > threads;
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
-    cudaError_t e = cudaFuncSetAttribute(cgx_sra_epilogue_kernel<BITS, ENCODE, PACK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+    const size_t smem = meta_bytes + stage_bytes(PACK, threads);
+    cudaError_t e = reread
+        ? cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, true>, chunks, k,
+                         threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
+                         out_words, out_meta)
+        : cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, false>, chunks, k,
+                         threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
+                         out_words, out_meta);
     if (e != cudaSuccess) return (int)e;
-    cgx_sra_epilogue_kernel<BITS, ENCODE, PACK><<<(unsigned)chunks, kThreads, smem, st>>>(
-        words, meta, raw, own, ws, chunks, B, inv, out_words, out_meta);
   }));
   return (int)cudaGetLastError();
 }

@@ -20,10 +20,13 @@ wrapper                       TPU kernels replaced
 ``quantize_variant_chunks``   ``tools/qbench.make_variant_kernel`` (nometa, metalane, read)
 ============================  =================================================
 
-Each wrapper works on whole 32-bucket chunks. On a CUDA tensor it launches
-its kernel (and counts the launch in :data:`LAUNCHES`) or raises; on a CPU
-tensor it runs its plain version, written from ``ops/codec.py``'s
-arithmetic. Nothing else picks between the two. The batch functions below
+Each wrapper works on whole 32-bucket chunks. ``quantize_chunks`` and
+``sra_epilogue_chunks`` launch on a thread-block cluster a chunk, the
+chunk's values in registers (:func:`cluster_geometry`; past the register
+budget a thread takes several positions, re-read from the L2). On a CUDA tensor a
+wrapper launches its kernel (and counts the launch in :data:`LAUNCHES`) or
+raises; on a CPU tensor it runs its plain version, written from
+``ops/codec.py``'s arithmetic. Nothing else picks between the two. The batch functions below
 (``quantize_batch``, ``dequantize_batch``, ``sra_epilogue_batch``,
 ``reduce_rows_batch``) add the glue both packages keep outside their
 kernels: edge padding, the dense tail of the last ``nb % 32`` buckets and
@@ -48,6 +51,8 @@ be float32: bf16/f16 wire dtypes inside the kernels wait too.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
 import shutil
 import subprocess
@@ -57,6 +62,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import config as cfg_mod
@@ -75,9 +81,12 @@ NVCC_FLAGS = (
 # csrc/codec.cu), compiled by one nvcc each, all at once, then linked.
 BUILD_PARTS = 6
 
-# The epilogue stages the reduced (32, B) f32 tile in dynamic shared
-# memory: a block may use 232,448 bytes on Hopper, less the 256 bytes of
-# static meta. Larger buckets take the staged path (supports_reduce).
+# The fused epilogue's bucket gate: a chunk's (32, B) f32 values within a
+# block's 232,448 bytes of shared memory, less 256 of static meta, where
+# the one-block-per-chunk epilogue staged them. The cluster kernel keeps
+# them in registers and takes any bucket; the gate stays so that the
+# routing (supports_reduce, the launch counts) does not move. Larger
+# buckets take the staged path.
 MAX_EPILOGUE_TILE_BYTES = 232448 - 256
 # The JAX package's fused-reduce gate (codec_pallas.MAX_BUCKET_ELEMS,
 # MAX_REDUCE_BLOCK_ELEMS), kept so both packages route the same batches.
@@ -182,9 +191,9 @@ def _lib():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-            lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, i, i, vp]
+            lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, i, i, i, i, vp]
             lib.cgx_dequantize.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
-            lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, i, i, vp, vp, vp]
+            lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, i, i, i, i, vp, vp, vp]
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, vp, vp]
             lib.cgx_matmul_quantize.argtypes = [
                 vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, vp]
@@ -192,9 +201,14 @@ def _lib():
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
             lib.cgx_sra_epilogue_db.argtypes = [vp, vp, vp, i, i, ll, i, i, i, f, i, i, vp, vp, vp]
             lib.cgx_quantize_variant.argtypes = [vp, vp, vp, ll, i, i, i, f, vp]
+            lib.cgx_div_sweep.argtypes = [i, i, i, i, i, vp, vp, vp]
+            lib.cgx_div_pairs.argtypes = [vp, vp, i, vp, vp, vp]
+            lib.cgx_error_name.argtypes = [i]
+            lib.cgx_error_name.restype = ctypes.c_char_p
             fns = (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue,
                    lib.cgx_reduce_rows, lib.cgx_matmul_quantize, lib.cgx_quantize_db,
-                   lib.cgx_dequantize_db, lib.cgx_sra_epilogue_db, lib.cgx_quantize_variant)
+                   lib.cgx_dequantize_db, lib.cgx_sra_epilogue_db, lib.cgx_quantize_variant,
+                   lib.cgx_div_sweep, lib.cgx_div_pairs)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _LIB = lib
@@ -207,7 +221,8 @@ def _stream(t: torch.Tensor) -> int:
 
 def _check_launch(name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        what = _lib().cgx_error_name(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({what}) at launch")
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +294,102 @@ def _chunk_geometry(n: int, bits: int, bucket_size: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The cluster geometry of B1/B5 and B3 (csrc/codec.cu, "The cluster
+# kernels"): a cluster of k CTAs takes one 32-bucket chunk, CTA ``rank``
+# the positions [rank*B/k, (rank+1)*B/k), its thread t the position
+# rank*B/k + t of all 32 buckets, whose values it holds in registers; past
+# the register budget also rank*B/k + t + T, + 2T, ... (T threads a CTA),
+# each re-read from the L2 for the encode.
+# ---------------------------------------------------------------------------
+
+CLUSTER_SIZES = (1, 2, 4, 8)
+CLUSTER_MAX_THREADS = 512
+# The register budget: the 32 values of one position a thread, so a chunk
+# fits the largest cluster up to B = 8 * 512.
+CLUSTER_VALUES_PER_THREAD = CHUNK_BUCKETS
+# The SMs the rule that picks k counts in where no card is named: an H100
+# SXM's.
+CLUSTER_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterGeometry:
+    k: int  # CTAs a chunk (the cluster size)
+    threads: int  # a CTA's threads
+    positions: int = 1  # positions a thread: 1 in registers, more re-read
+
+
+def cluster_geometries(bucket_size: int) -> list:
+    """Every geometry within the register budget for bucket ``bucket_size``,
+    by k: B/k threads a CTA, one position each, in whole warps, at most
+    :data:`CLUSTER_MAX_THREADS`."""
+    return [ClusterGeometry(k, bucket_size // k) for k in CLUSTER_SIZES
+            if bucket_size % (LANE_GROUP * k) == 0 and bucket_size // k <= CLUSTER_MAX_THREADS]
+
+
+def cluster_k(chunks: int, sms: int = CLUSTER_SMS) -> int:
+    """The cluster size the rule wants for ``chunks`` chunks on ``sms`` SMs,
+    before the bucket's own limits (measured on an H100's 132:
+    ``tools/shapebench.py --geometries``): up to one SM's worth of chunks,
+    the largest k that keeps one CTA an SM (a chunk's k CTAs run side by
+    side on otherwise idle SMs); up to 1.6 SMs' worth, where one CTA a chunk
+    would give a few SMs two and the rest one, the smallest k that puts at
+    least four CTAs on each SM; above it, k = 1: the chunks fill the card
+    evenly alone."""
+    if chunks <= sms:
+        return max([k for k in CLUSTER_SIZES if chunks * k <= sms] or [1])
+    if 5 * chunks < 8 * sms:
+        return next((k for k in CLUSTER_SIZES if chunks * k >= 4 * sms), CLUSTER_SIZES[-1])
+    return 1
+
+
+def cluster_geometry(chunks: int, bucket_size: int, bits: int,
+                     sms: int = CLUSTER_SMS) -> ClusterGeometry:
+    """The launch geometry of the cluster kernels for ``chunks`` chunks of
+    bucket ``bucket_size`` at ``bits`` bits on a card of ``sms`` SMs: of
+    :func:`cluster_geometries`, the smallest k at or above
+    :func:`cluster_k`'s, else the largest. Where none fits (B > 4096, or
+    B/32 warps of positions that no k splits into at most 512 threads), the
+    largest k that splits the warps, each CTA's B/k positions in the fewest
+    rounds of at most 512 threads, evenly: ``positions`` rounds, re-read.
+    ``bits`` adds only its ``bits`` words a thread, within the budget at
+    every width."""
+    if chunks < 1 or not 1 <= bits <= 8:
+        raise ValueError(f"chunks={chunks}, bits={bits}: need chunks >= 1 and bits in 1..8")
+    if bucket_size < LANE_GROUP or bucket_size % LANE_GROUP:
+        raise ValueError(f"bucket_size must be a positive multiple of 32, got {bucket_size}")
+    fits = cluster_geometries(bucket_size)
+    if fits:
+        want = cluster_k(chunks, sms)
+        return next((g for g in fits if g.k >= want), fits[-1])
+    warps = bucket_size // LANE_GROUP
+    k = max(k for k in CLUSTER_SIZES if warps % k == 0)
+    rounds = -(-(warps // k) // (CLUSTER_MAX_THREADS // LANE_GROUP))
+    return ClusterGeometry(k, LANE_GROUP * -(-(warps // k) // rounds), rounds)
+
+
+def cluster_positions(g: ClusterGeometry, bucket_size: int) -> torch.Tensor:
+    """The positions each thread of a chunk's cluster owns, as the kernels
+    compute them: int64 ``(k, positions, threads)``, entry ``[rank, p, t] =
+    rank*B/k + p*T + t`` where ``p*T + t < B/k``, else -1."""
+    span = bucket_size // g.k
+    off = (torch.arange(g.positions).view(1, -1, 1) * g.threads
+           + torch.arange(g.threads).view(1, 1, -1))
+    pos = torch.arange(g.k).view(-1, 1, 1) * span + off
+    return torch.where(off < span, pos, torch.full_like(pos, -1))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _geometry(t: torch.Tensor, chunks: int, bucket_size: int, bits: int) -> ClusterGeometry:
+    """:func:`cluster_geometry` on the card that holds ``t``."""
+    return cluster_geometry(chunks, bucket_size, bits, _sm_count(t.device.index))
+
+
+# ---------------------------------------------------------------------------
 # Quantize (B1 + B5).
 # ---------------------------------------------------------------------------
 
@@ -307,15 +418,86 @@ def quantize_chunks(
     if _device_kind(x) == "cpu":
         return quantize_chunks_plain(x, bits, bucket_size, encode, pack)
     _require_cuda_operand("quantize x", x, torch.float32, x.numel())
+    return _launch_quantize(x, bits, bucket_size, encode, pack)
+
+
+def _launch_quantize(
+    x: torch.Tensor, bits: int, bucket_size: int, encode: str, pack: str,
+    g: Optional[ClusterGeometry] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of B1 on a checked CUDA operand at geometry ``g`` (None:
+    :func:`cluster_geometry`'s on the operand's card)."""
+    lib = _lib()
+    chunks = x.numel() // (CHUNK_BUCKETS * bucket_size)
+    g = g or _geometry(x, chunks, bucket_size, bits)
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
     meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
-    err = _lib().cgx_quantize(
+    err = lib.cgx_quantize(
         x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, bucket_size,
-        bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), _stream(x),
+        bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack),
+        g.k, g.threads, _stream(x),
     )
     LAUNCHES["codec_quantize"] += 1
     _check_launch("codec_quantize", err)
     return words, meta
+
+
+# ---------------------------------------------------------------------------
+# The divide of the cluster kernels' div encode: where the bucket's divisor
+# ``safe`` lies in [2^-64, 2^64) and a = x - min is 0 or at least
+# :data:`RCP_MIN_NUMERATOR`, a is divided as q = a*r with r the correctly
+# rounded reciprocal of safe, then q + (a - safe*q)*r with both steps one
+# FMA (csrc/codec.cu div_quotient); elsewhere by the IEEE divide. The bytes
+# rest on that quotient being the IEEE one: the card checks it
+# (:func:`reciprocal_sweep`), the CPU tests an exact model of it.
+# ---------------------------------------------------------------------------
+
+RCP_EXP_RANGE = (-64, 64)  # safe's binary exponent e, 2^e <= safe < 2^(e+1)
+RCP_MIN_NUMERATOR = 2.0**-62  # the least nonzero a the reciprocal divides
+
+
+def rcp_in_range(safe: float) -> bool:
+    """Whether the cluster kernels divide by ``safe`` (a float32 value,
+    positive or +inf) through its reciprocal: exponent field within
+    :data:`RCP_EXP_RANGE`, so subnormal, infinite and NaN divisors (and
+    those whose reciprocal could leave the normal range) take the IEEE
+    divide."""
+    bits = int(np.array(safe, dtype=np.float32).view(np.uint32))
+    e = ((bits >> 23) & 0xFF) - 127
+    return RCP_EXP_RANGE[0] <= e < RCP_EXP_RANGE[1]
+
+
+def reciprocal_sweep(dev, e2: int = 0, m0: int = 0, m_step: int = 1, ulps: int = 1,
+                     extra: int = 64) -> Dict[str, object]:
+    """On the card: the kernels' reciprocal quotient against ``__fdiv_rn``
+    for every divisor significand ``m = m0, m0 + m_step, ... < 2^23`` at
+    binary exponent ``e2`` (d = (1 + m/2^23) * 2^e2), each with the
+    numerators RN(t/2 * d) (t = 0 .. 513, every level and level boundary
+    of 8 bits), ``ulps`` neighbours on each side, ``extra`` pseudo-random
+    ones in [0, 256 d), and :data:`RCP_MIN_NUMERATOR` with its neighbours.
+    Returns the pairs tried; those whose quotient differs in any bit from
+    the IEEE one (``quotients_differ``); those whose 8-bit level differs;
+    and one pair (a, d) of either kind, or None. A verification kernel, not
+    a codec one: no launch count."""
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    first = torch.zeros(2, dtype=torch.float32, device=dev)
+    err = _lib().cgx_div_sweep(e2, m0, m_step, ulps, extra, counts.data_ptr(), first.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch("cgx_div_sweep", err)
+    c = counts.tolist()
+    return {"pairs": c[0], "quotients_differ": c[1], "levels_differ": c[2],
+            "first": tuple(first.tolist()) if c[3] else None}
+
+
+def reciprocal_pairs(a: torch.Tensor, d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """On the card: ``(div_quotient(a, d), __fdiv_rn(a, d))`` elementwise for
+    f32 CUDA tensors of equal length (the guard included)."""
+    a, d = a.contiguous(), d.contiguous()
+    fast, ref = torch.empty_like(a), torch.empty_like(a)
+    err = _lib().cgx_div_pairs(a.data_ptr(), d.data_ptr(), a.numel(), fast.data_ptr(),
+                               ref.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    _check_launch("cgx_div_pairs", err)
+    return fast, ref
 
 
 # ---------------------------------------------------------------------------
@@ -427,18 +609,29 @@ def sra_epilogue_chunks(
         raise NotImplementedError(
             f"{cast_dtype} wire dtypes are not ported into the epilogue kernel yet"
         )
-    if CHUNK_BUCKETS * bucket_size * 4 > MAX_EPILOGUE_TILE_BYTES:
-        raise ValueError(f"bucket_size {bucket_size} exceeds the epilogue's shared-memory tile")
     _require_cuda_operand("epilogue words", words, torch.int32, ws * chunks * bits * bucket_size)
     _require_cuda_operand("epilogue meta", meta, torch.float32, ws * 2 * n // bucket_size)
     if raw is not None:
         _require_cuda_operand("epilogue raw", raw, torch.float32, n)
+    return _launch_epilogue(words, meta, raw, own, bits, bucket_size, encode, pack)
+
+
+def _launch_epilogue(
+    words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
+    bucket_size: int, encode: str, pack: str, g: Optional[ClusterGeometry] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of B3 on checked CUDA operands at geometry ``g`` (None:
+    :func:`cluster_geometry`'s on the operands' card)."""
+    lib = _lib()
+    ws = words.shape[0]
+    chunks = meta.shape[1] // CHUNK_BUCKETS
+    g = g or _geometry(words, chunks, bucket_size, bits)
     out_words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=words.device)
     out_meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=words.device)
-    err = _lib().cgx_sra_epilogue(
+    err = lib.cgx_sra_epilogue(
         words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
         own, ws, chunks, bucket_size, bits, codec.unit_scale(bits),
-        ENCODES.index(encode), PACKS.index(pack),
+        ENCODES.index(encode), PACKS.index(pack), g.k, g.threads,
         out_words.data_ptr(), out_meta.data_ptr(), _stream(words),
     )
     LAUNCHES["codec_sra_epilogue"] += 1

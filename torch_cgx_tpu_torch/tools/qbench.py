@@ -150,6 +150,59 @@ def tie_operand(n: int, bucket: int, bits: int, seed: int = 0,
     return x.reshape(-1)
 
 
+ADVERSARIAL_RECIPES = (
+    "normal", "constant", "range_overflows", "subnormal_unit", "nan_entry", "inf_entry",
+    "neg_inf_entry", "level_midpoints", "unit_below_rcp_range", "unit_above_rcp_range",
+    "unit_at_rcp_low_edge", "unit_at_rcp_high_edge", "ties",
+)
+
+
+def adversarial_operand(n: int, bucket: int, bits: int, seed: int = 0) -> np.ndarray:
+    """f32 ``(n,)`` whose buckets cycle through :data:`ADVERSARIAL_RECIPES`:
+    normal data; a constant bucket (unit 0); a range that overflows to inf
+    (unit inf); a subnormal range (subnormal unit); a NaN, a +inf and a
+    -inf entry among normal values; values on level midpoints ``k + 1/2``
+    of a unit-1 bucket; units below, above and at both edges of the range
+    in which the cluster kernels divide through a reciprocal (2^-64 <=
+    unit < 2^64); and :func:`tie_operand`'s last-ulp level boundaries."""
+    if n % bucket or bucket < 3:
+        raise ValueError(f"{n} values are not whole buckets of {bucket}")
+    rng = np.random.default_rng(seed)
+    nb = n // bucket
+    maxlvl = (1 << bits) - 1
+    x = rng.standard_normal((nb, bucket)).astype(np.float32)
+    ties = tie_operand(n, bucket, bits, seed=seed + 1).reshape(nb, bucket)
+    for b in range(nb):
+        kind = ADVERSARIAL_RECIPES[b % len(ADVERSARIAL_RECIPES)]
+        row = x[b]
+        if kind == "constant":
+            row[:] = np.float32(-7.25)
+        elif kind == "range_overflows":
+            row[:] = np.where(row > 0, np.float32(3e38), np.float32(-3e38))
+        elif kind == "subnormal_unit":
+            row[:] = (np.abs(row) * np.float32(1e-39)).astype(np.float32)
+        elif kind in ("nan_entry", "inf_entry", "neg_inf_entry"):
+            row[rng.integers(bucket)] = {"nan_entry": np.nan, "inf_entry": np.inf,
+                                         "neg_inf_entry": -np.inf}[kind]
+        elif kind == "level_midpoints":
+            row[:] = rng.integers(0, maxlvl, bucket).astype(np.float32) + np.float32(0.5)
+            row[0], row[1] = 0.0, maxlvl
+        elif kind == "unit_below_rcp_range":
+            row *= np.float32(2.0**-70)
+        elif kind == "unit_above_rcp_range":
+            row *= np.float32(2.0**70)
+        elif kind in ("unit_at_rcp_low_edge", "unit_at_rcp_high_edge"):
+            # A range from 0 to just above maxlvl * 2^-64 (unit just above
+            # 2^-64), or to just below maxlvl * 2^64 (unit just below 2^64).
+            top = maxlvl * (2.0**-64 * (1 + 2.0**-20) if kind.endswith("low_edge")
+                            else 2.0**64 * (1 - 2.0**-20))
+            row[:] = (np.abs(row) / np.abs(row).max() * top).astype(np.float32)
+            row[0] = 0.0
+        elif kind == "ties":
+            row[:] = ties[b]
+    return x.reshape(-1)
+
+
 def variant_bytes(name: str, n: int, bits: int, bucket: int, ws: int) -> int:
     """Bytes a variant must move over ``n`` f32 values, each input read once
     and each output written once: the quantizers read 4n and write the

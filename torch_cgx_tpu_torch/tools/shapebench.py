@@ -1,0 +1,382 @@
+"""Time the quantize (B1, B5) and the SRA epilogue (B3) kernels alone at the
+launch shapes of a GPT-2 124M step, and profile that step's codec kernels.
+
+    python3 torch_cgx_tpu_torch/tools/shapebench.py [--root DIR] [--groups 5] [--no-step]
+
+It times ``SHAPES`` and ``PAST_BUDGET`` (buckets past the cluster kernels'
+register budget).
+
+``--root`` names the checkout whose ``torch_cgx_tpu_torch`` is timed (by
+default the one this file belongs to). The wrappers it calls
+(``codec_cuda.quantize_chunks``, ``sra_epilogue_chunks`` and their plain
+versions, ``make_train_step``) take the same arguments in every version of
+the port since its quantize lowerings, so two checkouts can be timed in
+turns on one card, one process each. The script imports the package only
+from ``--root``; it prints one JSON record and writes no file.
+
+A kernel's time is a burst: the stream is held by a sleep kernel while the
+host enqueues an L2 flush and ``launches`` calls, each on its own input
+buffers (rotating through at least 400 MB of them, so every launch finds
+its inputs cold, as the step's sync does), between two CUDA events; the
+time is their difference over ``launches``. Groups alternate kernel and
+plain version (kernel, plain, plain, kernel, ...); the record keeps each
+group's time, the median and the spread (max - min over the median). The
+bound is the bytes the call must move at the card's published memory
+rate. The step (``--no-step`` skips it): GPT-2 124M (random weights from
+seed 0), 8 x 512 tokens, 4 bits, bucket 512, the world-size-1 codec
+(``CGX_DEBUG_FORCE_CODEC=1``), ``CGX_PALLAS_DB=off``: the host-clock step
+(median of 5 synchronised steps) and one profiled step's device time, the
+codec kernels' by kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+BITS = 4
+BUCKET = 512
+SEED = 0
+FLUSH_BYTES = 128 << 20  # twice the H100's 50 MB L2
+ROTATE_BYTES = 400 << 20  # inputs a burst rotates through
+
+# (kernel, label, chunks, rows, own): the launch shapes of the GPT-2 124M
+# step at bucket 512 (parallel/allreduce.py's grouping: attn_qkv 108
+# chunks, mlp_in / mlp_out 144, attn_proj + wpe 480, a 64 MB wte slice
+# 1,024, the wte tail's whole chunks 307 through B5), the epilogue at the
+# same shapes with one row and no raw row, at the four-rank flat SRA's 4 x
+# 256 chunks with the raw own row, and at one mlp layer's share of an
+# eight-rank SRA (18 chunks, 8 rows).
+SHAPES = (
+    [("quantize", f"B1 c={c}", c, 1, -1) for c in (108, 144, 480, 1024)]
+    + [("quantize", "B5 c=307", 307, 1, -1)]
+    + [("epilogue", f"B3 c={c} rows=1", c, 1, -1) for c in (108, 144, 307, 480, 1024)]
+    + [("epilogue", "B3 c=256 ws=4 own=1", 256, 4, 1), ("epilogue", "B3 c=18 ws=8 own=3", 18, 8, 3)]
+)
+# Buckets past the cluster kernels' register budget, where a thread takes
+# several positions (a sixth field: the bucket): B1 at 64 MB of bucket 8192,
+# B1 and B3 at 144 chunks of bucket 1760 (55 warps of positions, which no
+# cluster size splits into CTAs of at most 512 threads).
+PAST_BUDGET = [
+    ("quantize", "B1 c=64 B=8192", 64, 1, -1, 8192),
+    ("quantize", "B1 c=144 B=1760", 144, 1, -1, 1760),
+    ("epilogue", "B3 c=144 B=1760 rows=1", 144, 1, -1, 1760),
+]
+
+
+def wire_bytes(n: int, bits: int = BITS, bucket: int = BUCKET) -> int:
+    """Bytes of the quantized payload of n values: words and meta."""
+    return n * bits // 8 + 8 * n // bucket
+
+
+def shape_bytes(kernel: str, chunks: int, rows: int, own: int, bucket: int = BUCKET) -> int:
+    """Bytes a call must move, each input read once and each output written
+    once: the quantize reads 4n and writes the payload; the epilogue reads
+    the payload of every row but the own one, the raw own row (4n), and
+    writes one payload."""
+    n = chunks * 32 * bucket
+    wire = wire_bytes(n, BITS, bucket)
+    if kernel == "quantize":
+        return 4 * n + wire
+    peers = rows - (1 if own >= 0 else 0)
+    return peers * wire + (4 * n if own >= 0 else 0) + wire
+
+
+def step_slices() -> list:
+    """``(whole chunks, tail buckets)`` of each compressed fusion slice of
+    the GPT-2 124M step's gradients at bucket 512, from the port's own
+    grouping (``parallel/allreduce.py``) of a model on the meta device."""
+    from torch_cgx_tpu_torch.models import GPT2, GPT2Config
+    from torch_cgx_tpu_torch.ops import codec
+    from torch_cgx_tpu_torch.parallel import allreduce
+
+    pl = allreduce.sorted_items(dict(GPT2(GPT2Config.small(), device="meta").named_parameters()))
+    out = []
+    for g in allreduce._group_leaves(pl, compress_small=False):
+        if g.cc.enabled:
+            n = sum(pl[i][1].numel() for i in g.indices)
+            for _, ln in allreduce._fusion_slices(n, 4):
+                out.append(divmod(codec.num_buckets(ln, BUCKET), 32))
+    return out
+
+
+def step_bounds(rate: float) -> dict:
+    """Launches and the least device time a step of the world-size-1 codec
+    proxy (``CGX_PALLAS_DB=off``) could take in each kernel, summed over
+    its launch shapes (bytes at ``rate``): a quantize (B1; B5 on the tail
+    slice's whole chunks) of every slice; the fused epilogue (B3, one row)
+    of every slice of whole chunks, then a decode (B2); the tail slice
+    decoded twice, the second time with the add (B6)."""
+    out = {"quantize": [0, 0], "epilogue": [0, 0], "dequantize": [0, 0]}
+
+    def add(kernel, nbytes):
+        out[kernel][0] += 1
+        out[kernel][1] += nbytes
+
+    for c, tail in step_slices():
+        n = c * 32 * BUCKET
+        add("quantize", shape_bytes("quantize", c, 1, -1))
+        if tail:
+            add("dequantize", wire_bytes(n) + 4 * n)
+            add("dequantize", wire_bytes(n) + 8 * n)
+        else:
+            add("epilogue", shape_bytes("epilogue", c, 1, -1))
+            add("dequantize", wire_bytes(n) + 4 * n)
+    return {k: {"launches": v[0], "bytes": v[1], "bound_ms": v[1] / rate * 1e3} for k, v in out.items()}
+
+
+def import_port(root: str):
+    """The ``torch_cgx_tpu_torch`` of the checkout at ``root``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch_cgx_tpu_torch  # noqa: F401
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    found = Path(codec_cuda.__file__).resolve()
+    if Path(root).resolve() not in found.parents:
+        raise RuntimeError(f"imported {found}, not the checkout at {root}")
+    return codec_cuda
+
+
+def burst_ms(fn, launches: int, flush=None) -> float:
+    """Milliseconds a call of ``fn(i)`` (i = 0 .. launches-1) takes on the
+    card when the calls run back to back (after an L2 flush: ``flush``, a
+    tensor to zero)."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # tens of ms: the host enqueues everything behind it
+    if flush is not None:
+        flush.zero_()
+    a.record()
+    for i in range(launches):
+        fn(i)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches
+
+
+def plain_ms(fn, iters: int = 3) -> float:
+    """Median milliseconds of a synchronised call of ``fn``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def shape_calls(codec_cuda, dev, kernel: str, chunks: int, rows: int, own: int, launches: int,
+                geometry=None, bucket: int = BUCKET):
+    """``(kernel call of buffer i, plain call)`` of one shape on seeded normal
+    data, the inputs copied into enough buffers to rotate through. With a
+    ``geometry`` (``codec_cuda.ClusterGeometry``) the kernel launches at it
+    rather than at the wrappers' choice (div encode, sum pack)."""
+    import torch
+
+    n = chunks * 32 * bucket
+    gen = torch.Generator(device=dev).manual_seed(SEED + chunks + rows)
+    per = shape_bytes(kernel, chunks, rows, own, bucket)
+    copies = max(1, min(launches, -(-ROTATE_BYTES // per)))
+    if kernel == "quantize":
+        xs = [torch.randn(n, generator=gen, device=dev) for _ in range(copies)]
+        if geometry is not None:
+            return (lambda i: codec_cuda._launch_quantize(xs[i % copies], BITS, bucket, "div", "sum",
+                                                          geometry), None)
+        return (lambda i: codec_cuda.quantize_chunks(xs[i % copies], BITS, bucket),
+                lambda: codec_cuda.quantize_chunks_plain(xs[0], BITS, bucket))
+    data = torch.randn(rows, n, generator=gen, device=dev) * torch.arange(
+        1, rows + 1, device=dev, dtype=torch.float32)[:, None]
+    q = codec_cuda.quantize_batch(data, BITS, bucket)
+    w = [q.packed.contiguous().clone() for _ in range(copies)]
+    m = [q.meta.contiguous().clone() for _ in range(copies)]
+    raw = [data[own].clone() if own >= 0 else None for _ in range(copies)]
+    if geometry is not None:
+        return (lambda i: codec_cuda._launch_epilogue(w[i % copies], m[i % copies], raw[i % copies],
+                                                      own, BITS, bucket, "div", "sum", geometry), None)
+    return (lambda i: codec_cuda.sra_epilogue_chunks(w[i % copies], m[i % copies], raw[i % copies],
+                                                     own, BITS, bucket),
+            lambda: codec_cuda.sra_epilogue_chunks_plain(w[0], m[0], raw[0], own, BITS, bucket))
+
+
+def time_shapes(codec_cuda, dev, rate: float, groups: int = 5, launches: int = 32,
+                shapes=SHAPES) -> list:
+    """Each shape's kernel bursts and plain calls in alternating groups (a
+    shape's sixth field, if any, its bucket)."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    out = []
+    for kernel, label, chunks, rows, own, *rest in shapes:
+        bucket = rest[0] if rest else BUCKET
+        kern, plain = shape_calls(codec_cuda, dev, kernel, chunks, rows, own, launches,
+                                  bucket=bucket)
+        burst_ms(kern, launches, flush)  # warm-up
+        ks, ps = [], []
+        for g in range(groups):
+            if g % 2 == 0:
+                ks.append(burst_ms(kern, launches, flush))
+                ps.append(plain_ms(plain))
+            else:
+                ps.append(plain_ms(plain))
+                ks.append(burst_ms(kern, launches, flush))
+        ms = statistics.median(ks)
+        nbytes = shape_bytes(kernel, chunks, rows, own, bucket)
+        bound = nbytes / rate * 1e3
+        out.append({"kernel": kernel, "shape": label, "chunks": chunks, "rows": rows, "own": own,
+                    "bucket": bucket,
+                    "ms": ms, "groups_ms": ks, "spread": (max(ks) - min(ks)) / ms,
+                    "plain_ms": statistics.median(ps), "bytes": nbytes, "bound_ms": bound,
+                    "pct_of_bound": 100 * bound / ms})
+        del kern, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def geometry_sweep(codec_cuda, dev, rate: float, groups: int = 3, launches: int = 32,
+                   shapes=SHAPES) -> list:
+    """Each shape's kernel (div encode, sum pack) at every geometry the
+    cluster kernels take for bucket 512 (``codec_cuda.cluster_geometries``),
+    the wrappers' own choice marked: the median of ``groups`` bursts each,
+    or the launch's error."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    out = []
+    for kernel, label, chunks, rows, own in shapes:
+        chosen = codec_cuda.cluster_geometry(
+            chunks, BUCKET, BITS, torch.cuda.get_device_properties(dev).multi_processor_count)
+        bound = shape_bytes(kernel, chunks, rows, own) / rate * 1e3
+        for g in codec_cuda.cluster_geometries(BUCKET):
+            kern, _ = shape_calls(codec_cuda, dev, kernel, chunks, rows, own, launches, geometry=g)
+            rec = {"shape": label, "k": g.k, "threads": g.threads, "chosen": g == chosen,
+                   "bound_ms": bound}
+            try:
+                ks = [burst_ms(kern, launches, flush) for _ in range(groups + 1)][1:]
+                rec.update(ms=statistics.median(ks), groups_ms=ks)
+            except RuntimeError as e:  # a launch the card refuses, kept as the result
+                rec["error"] = str(e)
+            out.append(rec)
+            del kern
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_codec(fn) -> dict:
+    """``torch.profiler`` over one warm call of ``fn``: wall ms, device busy
+    ms, the codec kernels' device ms in all and by kernel (over their
+    template instances), and the eight largest kernels; ``busy_ms`` 0 where
+    the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        # Ranges such as "Optimizer.step#Adam.step" span kernels counted
+        # on their own: keep kernels and copies only.
+        if getattr(e, "is_user_annotation", False) or "#" in e.key:
+            continue
+        if us and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    codec = {}
+    for k, v in by_name.items():
+        found = re.search(r"cgx_\w+_kernel", k)
+        if found:
+            codec[found.group(0)] = codec.get(found.group(0), 0.0) + v
+    return {"wall_ms": wall_ms, "busy_ms": sum(by_name.values()),
+            "codec_ms": sum(codec.values()), "codec_by_kernel": codec,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def step_record(dev) -> dict:
+    """The world-size-1 GPT-2 124M step under ``CGX_PALLAS_DB=off``: host
+    clock and profile."""
+    import torch
+
+    from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
+    from torch_cgx_tpu_torch.parallel import make_train_step
+
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (8, 512))).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+    step = make_train_step(model, lambda m, t: lm_loss(m(t), t), opt, device=dev)
+    for _ in range(2):
+        step(tokens)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_codec(lambda: step(tokens))
+    return {"step_ms": statistics.median(ts), "steps_ms": ts, **prof}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--groups", type=int, default=5)
+    ap.add_argument("--launches", type=int, default=32)
+    ap.add_argument("--no-step", action="store_true")
+    ap.add_argument("--geometries", action="store_true",
+                    help="also time every cluster geometry at each shape (this tree's kernels only)")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("shapebench: no CUDA device; it times the kernels on the card")
+    cache = tempfile.TemporaryDirectory()
+    os.environ.update({
+        "CGX_COMPRESSION_QUANTIZATION_BITS": str(BITS), "CGX_COMPRESSION_BUCKET_SIZE": str(BUCKET),
+        "CGX_DEBUG_FORCE_CODEC": "1", "CGX_PALLAS_DB": "off", "CGX_AUTOTUNE_DIR": cache.name,
+    })
+    torch.backends.cuda.matmul.allow_tf32 = False
+    codec_cuda = import_port(args.root)
+    from torch_cgx_tpu_torch.utils.device import card_line, mem_rate
+
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    codec_cuda.build()
+    build_s = time.perf_counter() - t0
+    rec = {"root": str(Path(args.root).resolve()), "card": card_line(), "build_s": build_s,
+           "step_bounds": step_bounds(mem_rate(name)),
+           "shapes": time_shapes(codec_cuda, dev, mem_rate(name), args.groups, args.launches,
+                                 SHAPES + PAST_BUDGET)}
+    if args.geometries:
+        rec["geometries"] = geometry_sweep(codec_cuda, dev, mem_rate(name))
+    if not args.no_step:
+        rec["step"] = step_record(dev)
+    cache.cleanup()
+    print(json.dumps(rec))
+    return rec
+
+
+if __name__ == "__main__":
+    main()
