@@ -28,9 +28,11 @@ order, none of whose failures is caught:
    bit-identical to the plain version of its encode, the butterfly pack's
    bytes equal to the sum pack's, and on ``qbench.tie_operand`` the mul
    encode's levels different from the div encode's by one level at most.
-   Then the cluster kernels (B1/B5, B3) against their plain versions on the
-   card's tensors, bit for bit: at each launch shape of the step
-   (``tools/shapebench.py``'s) in every lowering, at bits 1-8 and buckets
+   Then the cluster kernels (B1/B5, B3, and the pipelined B7a, B7c on
+   the same body) against their plain versions on the card's tensors, bit
+   for bit: at each launch shape of the step (``tools/shapebench.py``'s) in
+   every lowering, B7a and B7c also at every cluster size the bucket takes
+   and at tiles of one and two chunks; at bits 1-8 and buckets
    128-16384 on normal and ``qbench.adversarial_operand`` data (B3 at ws 1
    and 4, with and without the raw row), and the div encode's reciprocal
    quotient against the IEEE divide over every divisor significand
@@ -43,8 +45,9 @@ order, none of whose failures is caught:
    bit for bit. All under ``CGX_PALLAS_DB=off``; then the pipelined path
    (:func:`db_phase`): the same steps from the seed under ``on``, held
    against the layout and bit for bit against ``off``; an autotune sweep of
-   the step's shapes into a temporary cache directory; one step under
-   ``auto`` over it, which must hit the cache and launch the pipelined
+   the step's shapes into a temporary cache directory (the kernels alone,
+   as bursts: the single-stage ones once, the pipelined ones at each tile
+   under the shape's cap); one step under ``auto`` over it, which must hit the cache and launch the pipelined
    kernels exactly where the winners say. Then (d) the same steps from the
    seed under ``CGX_PALLAS_PACK=butterfly``, launches held against the
    layout and parameters bit-identical to the sum pack's, and (e) one step
@@ -64,8 +67,10 @@ order, none of whose failures is caught:
    and a ``torch.profiler`` breakdown of one step of each; B5 and B6 are
    B1's and B2's kernels on the 307 chunks of the tail slice, B9 the
    variant kernel at 128 MB; B1/B5 and B3 also at each launch shape of the
-   step, alone (``tools/shapebench.py``: cold inputs, back-to-back launches
-   behind a sleep kernel, five groups in turns with the plain version);
+   step, alone, and B7a and B7c at the shapes the step gives them under
+   ``CGX_PALLAS_DB=on`` (``tools/shapebench.py``: cold inputs,
+   back-to-back launches behind a sleep kernel, five groups in turns with
+   the plain version);
 6. qbench: ``python -m torch_cgx_tpu_torch.tools.qbench`` at its defaults
    (128 MB, 4 bits, bucket 512, k = 8, ``sra_epilogue`` at ws 8) for each
    of its eight variants, in this process: each variant's bytes checked,
@@ -263,6 +268,7 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
 
     rng = np.random.default_rng(SEED)
     max_err = {k: 0.0 for k in TPU_KERNELS}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def record(kernel: str, label: str, got, want, single=None, quiet: bool = False) -> None:
         """``got`` against the plain version's ``want`` and, for a
@@ -283,7 +289,7 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     def db_tc(kernel: str, chunks: int, bits: int, b: int, add: bool = False) -> int:
         """The tile the batch functions give the pipelined kernel (no
         tuned entry), 0 where its ring does not fit (ROADMAP C7)."""
-        cap = codec_cuda.db_tc_cap(DB_OF[kernel], bits, b, with_add=add)
+        cap = codec_cuda.db_tc_cap(DB_OF[kernel], bits, b, with_add=add, chunks=chunks, sms=sms)
         return codec_cuda._pipe_tc(chunks, cap) if cap >= 1 else 0
 
     def check_db(label: str, x, bits: int, b: int, acc, want, q, q_acc, ep) -> None:
@@ -468,15 +474,18 @@ def check_cluster(dev, rng, record) -> None:
         label = f"{label} (k={g.k}, {g.threads} threads)"
         rows = torch.from_numpy(
             np.stack([fuzz_operand(rng, n, 0) * np.float32(r + 1) for r in range(rows_n)])).to(dev)
+        raw = rows[own] if own >= 0 else None
         if kernel == "quantize":
             for enc, pack in lowerings:
                 w, m = codec_cuda.quantize_chunks(rows[0], BITS, BUCKET, encode=enc, pack=pack)
                 pw, pm = codec_cuda.quantize_chunks_plain(rows[0], BITS, BUCKET, encode=enc)
                 record("codec_quantize", f"{label} {enc}/{pack} words", w, pw)
                 record("codec_quantize", f"{label} {enc}/{pack} meta", m, pm)
-        else:
+        elif kernel == "epilogue":
             q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
-            epilogue(q, rows[own] if own >= 0 else None, own, BITS, BUCKET, label)
+            epilogue(q, raw, own, BITS, BUCKET, label)
+        else:
+            check_db_cluster(dev, kernel, rows, raw, own, chunks, label, lowerings, record)
         del rows
     for bits in range(1, 9):
         checked = 0
@@ -512,6 +521,47 @@ def check_cluster(dev, rng, record) -> None:
         if r["quotients_differ"] or r["levels_differ"]:
             raise AssertionError(f"the reciprocal quotient differs from the IEEE divide at 2^{e2}")
     log(f"  the sweep took {time.perf_counter() - t0:.1f} s")
+
+
+def check_db_cluster(dev, kernel, rows, raw, own, chunks, label, lowerings, record) -> None:
+    """B7a ("quantize_db": of ``rows[0]``) or B7c ("epilogue_db": of the
+    rows' payload, ``raw`` in place of row ``own``) at one launch shape of
+    the step: at the wrappers' geometry in every (encode, pack) lowering,
+    then at every cluster size the bucket takes, forced, at tiles of one
+    and two chunks; bit for bit against the plain version on the card's
+    tensors."""
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    if kernel == "quantize_db":
+        name = "codec_quantize_db"
+        plain = lambda enc: codec_cuda.quantize_chunks_plain(rows[0], BITS, BUCKET, encode=enc)  # noqa: E731
+        run = lambda enc, pack: codec_cuda.quantize_chunks_db(rows[0], BITS, BUCKET, 1, encode=enc,  # noqa: E731
+                                                              pack=pack)
+        forced = lambda g, tc: codec_cuda._launch_quantize_db(rows[0], BITS, BUCKET, tc, "div", "sum", g)  # noqa: E731
+    else:
+        name = "codec_sra_epilogue_db"
+        q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+        w0, m0 = q.packed.contiguous(), q.meta.contiguous()
+        plain = lambda enc: codec_cuda.sra_epilogue_chunks_plain(w0, m0, raw, own, BITS, BUCKET,  # noqa: E731
+                                                                 encode=enc)
+        run = lambda enc, pack: codec_cuda.sra_epilogue_chunks_db(w0, m0, raw, own, BITS, BUCKET, 1,  # noqa: E731
+                                                                  encode=enc, pack=pack)
+        forced = lambda g, tc: codec_cuda._launch_epilogue_db(w0, m0, raw, own, BITS, BUCKET, tc,  # noqa: E731
+                                                              "div", "sum", g)
+    for enc, pack in lowerings:
+        pw, pm = plain(enc)
+        w, m = run(enc, pack)
+        record(name, f"{label} tc=1 {enc}/{pack} words", w, pw)
+        record(name, f"{label} tc=1 {enc}/{pack} meta", m, pm)
+    pw, pm = plain("div")
+    tried = []
+    for g in codec_cuda.cluster_geometries(BUCKET):
+        for tc in sorted({1, 2 - chunks % 2}):
+            w, m = forced(g, tc)
+            record(name, f"{label} k={g.k} tc={tc} words", w, pw, quiet=True)
+            record(name, f"{label} k={g.k} tc={tc} meta", m, pm, quiet=True)
+            tried.append(f"k={g.k} tc={tc}")
+    log(f"  {name:21s} {label}: {', '.join(tried)} bit-identical")
 
 
 def check_b9(dev, flat_n: int, record) -> None:
@@ -894,52 +944,65 @@ def step_shapes(named) -> list:
 
 
 def sweep(dev, shapes) -> dict:
-    """Phase 4 (a): ``autotune.tune`` over each shape, the candidates
-    ``TunedConfig(tc, db)`` for db in {False, True} and every ``tc`` that
-    ``snap_to_divisor`` keeps under the shared-memory cap; ``measure`` the
-    median CUDA-event time of the public batch function with the knobs set
-    (quantize then decode for "flat", whose entry both share; the rows=1
-    epilogue for "epilogue"). Every candidate must measure: a pipelined
-    kernel that fails here fails the phase."""
+    """Phase 4 (a): ``autotune.tune`` over each shape. The candidates: the
+    single-stage kernels once (``db=False``: they ignore ``tc``), and the
+    pipelined ones at every ``tc`` that ``snap_to_divisor`` keeps under the
+    shape's cap (``db_tc_cap`` at its chunk count on this card; "flat": the
+    larger of the quantize's and the decode's, each kernel capped to its
+    own as the batch functions do). ``measure``: the kernels alone, a burst
+    of back-to-back calls queued behind a sleep kernel (``time_burst``),
+    for "flat" a quantize then a decode (the entry both share), for
+    "epilogue" the rows=1 epilogue. Every candidate must measure: a
+    pipelined kernel that fails here fails the phase."""
     import torch
 
     from torch_cgx_tpu_torch.ops import autotune, codec_cuda
 
     rng = np.random.default_rng(SEED + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     winners = {}
     for kind, chunks in shapes:
         n = chunks * 32 * BUCKET
-        x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)[None]
+        x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
         if kind == autotune.KIND_FLAT:
-            cap = max(codec_cuda.db_tc_cap(k, BITS, BUCKET) for k in ("quantize", "dequantize"))
+            caps = {k: codec_cuda.db_tc_cap(k, BITS, BUCKET, chunks=chunks, sms=sms)
+                    for k in ("quantize", "dequantize")}
+            cap = max(caps.values())
 
-            def fn():
-                return codec_cuda.dequantize_batch(codec_cuda.quantize_batch(x, BITS, BUCKET))
+            def run(c, x=x, caps=caps):
+                if not c.db:
+                    return lambda: codec_cuda.dequantize_chunks(
+                        *codec_cuda.quantize_chunks(x, BITS, BUCKET), BITS, BUCKET)
+                tq, td = (codec_cuda._pipe_tc(chunks, caps[k], c) for k in ("quantize", "dequantize"))
+                return lambda: codec_cuda.dequantize_chunks_db(
+                    *codec_cuda.quantize_chunks_db(x, BITS, BUCKET, tq), BITS, BUCKET, td)
         else:
-            cap = codec_cuda.db_tc_cap("epilogue", BITS, BUCKET)
-            q = codec_cuda.quantize_batch(x, BITS, BUCKET)
+            cap = codec_cuda.db_tc_cap("epilogue", BITS, BUCKET, chunks=chunks, sms=sms)
+            w, m = codec_cuda.quantize_chunks(x, BITS, BUCKET)
 
-            def fn():
-                return codec_cuda.sra_epilogue_batch(q)
+            def run(c, w=w[None], m=m[None], cap=cap):
+                if not c.db:
+                    return lambda: codec_cuda.sra_epilogue_chunks(w, m, None, -1, BITS, BUCKET)
+                tc = codec_cuda._pipe_tc(chunks, cap, c)
+                return lambda: codec_cuda.sra_epilogue_chunks_db(w, m, None, -1, BITS, BUCKET, tc)
         tcs = sorted({autotune.snap_to_divisor(t, chunks, cap) for t in range(1, cap + 1)})
-        cands = [autotune.TunedConfig(tc=tc, db=db) for tc in tcs for db in (False, True)]
+        cands = [autotune.TunedConfig(tc=1, db=False)] + [autotune.TunedConfig(tc=tc, db=True)
+                                                          for tc in tcs]
         measured = {}
 
         def measure(c):
-            os.environ["CGX_PALLAS_TILE_CHUNKS"] = str(c.tc)
-            os.environ["CGX_PALLAS_DB"] = "on" if c.db else "off"
-            ms = time_cuda(fn)
+            ms = time_burst(run(c))
             measured[c] = ms
             return ms / 1e3
 
         win = autotune.tune(kind, cands, measure, n_chunks=chunks, bucket_size=BUCKET, bits=BITS,
                             ws=1 if kind == autotune.KIND_EPILOGUE else 0, input_bytes=4 * n)
-        del os.environ["CGX_PALLAS_TILE_CHUNKS"]
         assert len(measured) == len(cands), (kind, chunks, cands, measured)
         winners[(kind, chunks)] = win
-        log(f"  {kind}/c{chunks}: {len(cands)} candidates ("
-            + ", ".join(f"tc={c.tc}{' db' if c.db else ''} {v:.4f} ms" for c, v in measured.items())
-            + f"); winner tc={win.tc} db={win.db}")
+        log(f"  {kind}/c{chunks}: {len(cands)} candidates, kernels alone ("
+            + ", ".join(f"{'tc=' + str(c.tc) + ' db' if c.db else 'single-stage'} {v:.5f} ms"
+                        for c, v in measured.items())
+            + f"); winner {'db tc=' + str(win.tc) if win.db else 'single-stage'}")
     log(f"  cache file {autotune.cache_path()}: {len(winners)} entries")
     return winners
 
@@ -1126,7 +1189,9 @@ def time_kernels(dev, n: int, name: str) -> list:
     x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
     words, meta = codec_cuda.quantize_chunks(x, BITS, BUCKET)
     chunks = n // (32 * BUCKET)
-    tq, td, te = (codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap(k, BITS, BUCKET))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tq, td, te = (codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap(k, BITS, BUCKET, chunks=chunks,
+                                                                   sms=sms))
                   for k in ("quantize", "dequantize", "epilogue"))
 
     def wire(m: int) -> int:
@@ -1189,7 +1254,8 @@ def time_kernels(dev, n: int, name: str) -> list:
     rows = torch.from_numpy(np.stack([fuzz_operand(rng, c, 0) for _ in range(SRA_WS)])).to(dev)
     q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
     w4, m4, raw4 = q.packed.contiguous(), q.meta.contiguous(), rows[1].contiguous()
-    te4 = codec_cuda._pipe_tc(c // (32 * BUCKET), codec_cuda.db_tc_cap("epilogue", BITS, BUCKET))
+    te4 = codec_cuda._pipe_tc(c // (32 * BUCKET), codec_cuda.db_tc_cap(
+        "epilogue", BITS, BUCKET, chunks=c // (32 * BUCKET), sms=sms))
     ep_bytes = (SRA_WS - 1) * wire(c) + 4 * c + wire(c)
     runs += [
         ("codec_sra_epilogue", f"ws={SRA_WS} own=1 n={c}",
@@ -1649,7 +1715,9 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
 
 def ptxas_report(ptxas: str) -> None:
     """Registers, spills and shared memory of the build, the pipelined
-    kernels' each (the dynamic shared memory at the slice's shapes)."""
+    kernels' each (the dynamic shared memory at the slice's shapes); the
+    cluster kernels' (B1, B3, B7a, B7c) within and past the register
+    budget."""
     from torch_cgx_tpu_torch.ops import codec_cuda
 
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
@@ -1663,23 +1731,32 @@ def ptxas_report(ptxas: str) -> None:
         name = found.group(1) + "<" + ",".join(re.findall(r"L\w(\d+)E", found.group(2) + "E")) + ">" if found else fn
         log(f"    {name}: {ln}")
     chunks = FLAT_N // (32 * BUCKET)
-    for kernel, short in (("cgx_quantize_db_kernel", "quantize"),
-                          ("cgx_dequantize_db_kernel", "dequantize"),
-                          ("cgx_sra_epilogue_db_kernel", "epilogue")):
+    mine = [b for b in blocks if "cgx_dequantize_db_kernel" in b.split("'")[1]]
+    r = [int(x) for b in mine for x in re.findall(r"Used (\d+) registers", b)]
+    tc = codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap("dequantize", BITS, BUCKET))
+    log(f"  cgx_dequantize_db_kernel: {len(mine)} instances, {min(r)}-{max(r)} registers a thread, "
+        f"{codec_cuda.db_smem_bytes('dequantize', tc, BITS, BUCKET)} bytes dynamic shared memory "
+        f"at {BITS} bits, bucket {BUCKET}, tc {tc}; 512 threads a block")
+    assert len(mine) == 16, len(mine)
+    # B7a and B7c: their ring (and the butterfly stage) at the slice's
+    # shape, beside the static shared memory the Python geometry assumes.
+    for kernel, short in (("cgx_quantize_db_cluster_kernel", "quantize"),
+                          ("cgx_sra_epilogue_db_cluster_kernel", "epilogue")):
         mine = [b for b in blocks if kernel in b.split("'")[1]]
-        r = [int(x) for b in mine for x in re.findall(r"Used (\d+) registers", b)]
         static = max([int(x) for b in mine for x in re.findall(r"(\d+) bytes smem", b)] or [0])
-        tc = codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap(short, BITS, BUCKET))
-        dyn = codec_cuda.db_smem_bytes(short, tc, BITS, BUCKET)
-        log(f"  {kernel}: {len(mine)} instances, {min(r)}-{max(r)} registers a thread, "
-            f"{static} bytes static shared memory, {dyn} bytes dynamic at {BITS} bits, "
-            f"bucket {BUCKET}, tc {tc}; 512 threads a block")
-        assert len(mine) >= 8, kernel
+        ring = codec_cuda.db_ring(short, chunks, BITS, BUCKET)
+        dyn = {p: codec_cuda.db_smem_bytes(short, 1, BITS, BUCKET, chunks=chunks, pack=p)
+               for p in codec_cuda.PACKS}
+        log(f"  {kernel}: {len(mine)} instances, {static} bytes static shared memory "
+            f"(the geometry assumes {codec_cuda.DB_CLUSTER_STATIC_BYTES}); at {chunks} chunks of "
+            f"{BUCKET} at {BITS} bits {ring.slots} slot(s) of {ring.slot_bytes} bytes, {dyn['sum']} "
+            f"bytes dynamic ({dyn['butterfly']} butterfly), {ring.geometry}")
+        assert len(mine) == 64 and static <= codec_cuda.DB_CLUSTER_STATIC_BYTES, (kernel, len(mine), static)
     # The quantizing kernels by (encode, pack) lowering: registers and
     # static shared memory over their bit widths.
     for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
                    "cgx_matmul_quantize_kernel",
-                   "cgx_quantize_db_kernel", "cgx_sra_epilogue_db_kernel"):
+                   "cgx_quantize_db_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
         by = {}
         for b in blocks:
             found = re.search(kernel + r"ILi\d+ELi(\d)ELi(\d)E", b.split("'")[1])
@@ -1692,7 +1769,8 @@ def ptxas_report(ptxas: str) -> None:
             f"{k} {min(v)[0]}-{max(v)[0]} registers, {max(s for _, s in v)} bytes static"
             for k, v in sorted(by.items())))
         assert len(by) == 4, (kernel, sorted(by))
-    for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel"):
+    for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
+                   "cgx_quantize_db_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
         for reread, what in ((0, "one position (32 values) a thread"),
                              (1, "REREAD, positions in rounds")):
             mine = [b for b in blocks

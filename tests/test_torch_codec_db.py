@@ -10,9 +10,9 @@ fused add (on decode-exact data: in interpret mode XLA fuses the decode's
 multiply-add, which moves random data by up to one ulp); the epilogue at
 ws 4, own 1 byte for byte (decode-exact rows). Then the routing itself:
 ``db_would_run`` under on/off/auto and a recorded entry, the geometry
-gates where a pipelined kernel's ring does not fit (ROADMAP C7), the knobs'
-errors, and a tiny GPT-2 step under ``CGX_PALLAS_DB=on`` bit-identical to
-``off``.
+gate where B7b's ring does not fit (ROADMAP C7) and B7a's and B7c's old
+gates, which now run pipelined, the knobs' errors, and a tiny GPT-2 step
+under ``CGX_PALLAS_DB=on`` bit-identical to ``off``.
 
 The kernels themselves run only on the card: ``test_torch_kernels.py``
 (marker ``cuda``) and ``chip_smoke.py`` hold them to their plain versions
@@ -148,39 +148,55 @@ def test_db_would_run_follows_the_knob_and_the_cache(monkeypatch):
     monkeypatch.setattr(codec_cuda, "quantize_chunks_db",
                         lambda *a, **kw: calls.append(a[3]) or codec_cuda.quantize_chunks_plain(*a[:3]))
     codec_cuda.quantize_batch(x, 4, 128)
-    assert calls == [2]  # the tuned tile (B = 512 would cap it at one chunk)
+    # The tuned tile within the cap: 8 chunks over the clusters the card
+    # holds at once (hundreds) leave one chunk a tile; over four clusters,
+    # two.
+    monkeypatch.setattr(codec_cuda, "db_clusters", lambda *a, **kw: 4)
+    codec_cuda.quantize_batch(x, 4, 128)
+    assert calls == [1, 2]
     assert all(v == 0 for v in codec_cuda.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("kernel,bits,bucket,add", [
-    ("quantize", 4, 1024, False),  # two slots of one 128 KB chunk do not fit
-    ("dequantize", 8, 1024, True),  # nor two of words, meta and accumulator
-    ("epilogue", 4, 1536, False),  # the (32, B) tile and four slots do not fit
+@pytest.mark.parametrize("kernel,bits,bucket,add,gated", [
+    ("quantize", 4, 1024, False, False),  # B7a's old gate: a share slot holds it now
+    ("dequantize", 8, 1024, True, True),  # two slots of words, meta and accumulator do not fit
+    ("epilogue", 4, 1536, False, False),  # B7c's old gate: share slots hold it now
 ])
-def test_geometry_gate_runs_the_single_stage_kernel(kernel, bits, bucket, add, monkeypatch):
+def test_geometry_gate_runs_the_single_stage_kernel(kernel, bits, bucket, add, gated, monkeypatch):
     """Where a pipelined kernel's shared memory does not fit, CGX_PALLAS_DB=on
     still runs the single-stage kernel (same bytes) and the event is
-    counted: ROADMAP C7."""
+    counted: ROADMAP C7. B7a and B7c stream a CTA's share of a chunk, so
+    the shapes their whole-chunk rings could not hold (B7a at B >= 1024,
+    B7c at 4 bits and B >= 1280) now take the pipelined kernel, and nothing
+    is gated."""
     monkeypatch.setenv("CGX_PALLAS_DB", "on")
     monkeypatch.setenv("CGX_SRA_EPILOGUE", "fused")
-    assert codec_cuda.db_tc_cap(kernel, bits, bucket, with_add=add) == 0
     rows = 2
+    cap = codec_cuda.db_tc_cap(kernel, bits, bucket, with_add=add, chunks=rows)
+    assert (cap == 0) == gated
     x = torch.from_numpy(_exact_rows(rows, 32 * bucket, bits, bucket))
     cc = CompressionConfig(bits=bits, bucket_size=bucket)
     q = dispatch.quantize_batch(x, cc)
-    assert not dispatch.db_would_run(q, kernel, with_add=add)
+    assert dispatch.db_would_run(q, kernel, with_add=add) != gated
+    wrapper = {"quantize": "quantize_chunks_db", "dequantize": "dequantize_chunks_db",
+               "epilogue": "sra_epilogue_chunks_db"}[kernel]
+    calls = []
+    real = getattr(codec_cuda, wrapper)
+    monkeypatch.setattr(codec_cuda, wrapper, lambda *a, **kw: calls.append(a) or real(*a, **kw))
     codec_cuda.reset_launch_counts()
     if kernel == "quantize":
-        dispatch.quantize_batch(x, cc)
+        got = dispatch.quantize_batch(x, cc)
+        assert torch.equal(got.packed, q.packed) and torch.equal(got.meta, q.meta)
     elif kernel == "dequantize":
         y = dispatch.dequantize_batch(q, add_to=x)
         assert torch.equal(y, x + x)
     else:
         assert dispatch.fused_epilogue_would_run(q)
         dispatch.reduce_rows_requantize(q, cc, raw_rows=x, own_idx=0)
-    assert codec_cuda.DB_GATED == {k: int(k == kernel) for k in codec_cuda.DB_GATED}
-    # One size down, the ring fits and nothing is gated.
-    assert codec_cuda.db_tc_cap(kernel, bits, bucket // 2, with_add=add) >= 1
+    assert codec_cuda.DB_GATED == {k: int(gated and k == kernel) for k in codec_cuda.DB_GATED}
+    assert len(calls) == int(not gated)
+    if gated:  # one size down, the ring fits and nothing is gated
+        assert codec_cuda.db_tc_cap(kernel, bits, bucket // 2, with_add=add) >= 1
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -349,8 +349,10 @@ PLAIN_UP_TO = 133  # chunk counts also held against the plain version on the CPU
 
 
 def _db_tcs(kernel, chunks, bits, bucket, add=False):
-    """Tiles to try: one chunk a slot, and the most that fit and divide."""
-    cap = codec_cuda.db_tc_cap(kernel, bits, bucket, with_add=add)
+    """Tiles to try: one chunk a tile, and the most the cap allows that
+    divide the chunks (B7b: what its slots hold; B7a, B7c: a tile for
+    every cluster the card holds)."""
+    cap = codec_cuda.db_tc_cap(kernel, bits, bucket, with_add=add, chunks=chunks)
     return [] if cap < 1 else sorted({1, autotune.snap_to_divisor(cap, chunks, cap)})
 
 
@@ -420,9 +422,13 @@ def test_db_wrappers_refuse_misaligned_strided_and_oversized(dev, monkeypatch):
         codec_cuda.quantize_chunks_db(torch.randn(2 * n, device=dev)[::2], 4, 128, 1)
     with pytest.raises(ValueError, match="divide"):
         codec_cuda.quantize_chunks_db(buf[:n], 4, 128, 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        codec_cuda.quantize_chunks_db(torch.randn(2 * 32 * 512, device=dev), 4, 512, 2)
     w, m = codec_cuda.quantize_chunks(buf[:n], 4, 128)
+    # B7b's tile does not fit at 8 bits, bucket 1024, with the accumulator
+    # (B7a's and B7c's rings hold a CTA's share at every tile).
+    big = torch.randn(32 * 1024, device=dev)
+    bw, bm = codec_cuda.quantize_chunks(big, 8, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        codec_cuda.dequantize_chunks_db(bw, bm, 8, 1024, 1, add_to=big)
     wbuf = torch.empty(w.numel() + 1, dtype=torch.int32, device=dev)
     wbuf[1:] = w
     with pytest.raises(ValueError, match="aligned"):
@@ -467,6 +473,135 @@ def test_tiny_train_step_db_on_matches_off(dev, monkeypatch):
     assert all(launches["off"][k] == 0 for k in db_keys), launches["off"]
     for n in params["on"]:
         assert _bits_equal(params["on"][n], params["off"][n]), n
+
+
+# ---------------------------------------------------------------------------
+# B7a and B7c on the cluster body: a persistent grid of clusters, each CTA's
+# share of a chunk streamed through a bulk-copy ring. Bit for bit against
+# the plain versions run on the card's tensors (NaN payloads round there as
+# in the kernels), at every width, buckets 96 to 16,384 (past the register
+# budget at 1,760, 8,192 and 16,384), every cluster size, tiles of 1, 2 and
+# many chunks, walks shorter and far longer than the grid, ws 1, 4 and 8
+# with and without the raw own row.
+# ---------------------------------------------------------------------------
+
+DB_BUCKETS = [96, 128, 512, 544, 896, 1024, 1536, 1760, 2048, 4096, 8192, 16384]
+
+
+def _specials(n: int, bucket: int, seed: int) -> np.ndarray:
+    """Normal data with specials: in every third bucket NaN, +-inf, +-0 and
+    subnormals; every third bucket all -0; in the rest +-0 and subnormals
+    among the normal values. (A bucket whose extremes are zeros of both
+    signs has no defined max or min sign: torch.amax and the kernels take
+    either, so no bucket here has such extremes.)"""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    b = x.reshape(-1, bucket)
+    b[::3, :8] = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1e-45, -1e-40, 3e-39], dtype=np.float32)
+    b[1::3, :] = np.float32(-0.0)
+    b[2::3, 8:12] = np.array([0.0, -0.0, 1e-45, -1e-40], dtype=np.float32)
+    return x
+
+
+def _operands(n: int, bucket: int, bits: int):
+    return (np.random.default_rng(bits * bucket).standard_normal(n).astype(np.float32),
+            qbench.adversarial_operand(n, bucket, bits, seed=bits),
+            _specials(n, bucket, bits))
+
+
+@pytest.mark.parametrize("bucket", DB_BUCKETS)
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_db_cluster_quantize_matches_plain(dev, bits, bucket):
+    """B7a at every width and bucket, in every lowering, on normal,
+    adversarial and special data: one launch a call, bytes equal the plain
+    version's."""
+    chunks = 3
+    for x in _operands(chunks * 32 * bucket, bucket, bits):
+        x = torch.from_numpy(x).to(dev)
+        for enc, pack in _lowerings():
+            codec_cuda.reset_launch_counts()
+            w, m = codec_cuda.quantize_chunks_db(x, bits, bucket, 1, encode=enc, pack=pack)
+            torch.cuda.synchronize()
+            assert codec_cuda.LAUNCHES["codec_quantize_db"] == 1
+            pw, pm = codec_cuda.quantize_chunks_plain(x, bits, bucket, encode=enc)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (enc, pack)
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 1536, 1760, 4096, 8192])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_db_cluster_epilogue_matches_plain(dev, bits, bucket):
+    """B7c at every width, ws 1, 4 and 8, without the raw row and with it at
+    row 0 and in the middle, in every lowering; row 0 adversarial, row 1
+    special."""
+    chunks = 3
+    n = chunks * 32 * bucket
+    normal, adversarial, special = _operands(n, bucket, bits)
+    for ws, owns in ((1, [None, 0]), (4, [None, 0, 2]), (8, [None, 4])):
+        rows = np.stack([normal * np.float32(r + 1) for r in range(ws)])
+        rows[0] = adversarial
+        if ws > 1:
+            rows[1] = special
+        rows = torch.from_numpy(rows).to(dev)
+        q = codec_cuda.quantize_batch(rows, bits, bucket)
+        for own in owns:
+            raw, o = (None, -1) if own is None else (rows[own], own)
+            for enc, pack in _lowerings():
+                codec_cuda.reset_launch_counts()
+                w, m = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, raw, o, bits, bucket, 1,
+                                                         encode=enc, pack=pack)
+                torch.cuda.synchronize()
+                assert codec_cuda.LAUNCHES["codec_sra_epilogue_db"] == 1
+                pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, raw, o, bits, bucket,
+                                                              encode=enc)
+                assert _bits_equal(w, pw) and _bits_equal(m, pm), (ws, own, enc, pack)
+
+
+@pytest.mark.parametrize("chunks", [18, 108, 4096])
+def test_db_cluster_geometries_tiles_and_walks(dev, chunks):
+    """B7a and B7c (ws 2, the raw row at 1) at every cluster size bucket 512
+    takes, forced, and tiles of 1, 2 and chunks/2 (or /8): walks below the
+    grid's clusters (18, 108 chunks) and far above them (4,096)."""
+    b = 512
+    n = chunks * 32 * b
+    rng = np.random.default_rng(chunks)
+    rows = torch.from_numpy(np.stack([rng.standard_normal(n).astype(np.float32) * (r + 1)
+                                      for r in range(2)])).to(dev)
+    pw, pm = codec_cuda.quantize_chunks_plain(rows[0], 4, b)
+    q = codec_cuda.quantize_batch(rows, 4, b)
+    ew, em = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, rows[1], 1, 4, b)
+    big = chunks // 8 if chunks > 1000 else chunks // 2
+    for g in codec_cuda.cluster_geometries(b):
+        for tc in (1, 2, big):
+            w, m = codec_cuda._launch_quantize_db(rows[0], 4, b, tc, "div", "sum", g)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (g, tc)
+            w, m = codec_cuda._launch_epilogue_db(q.packed, q.meta, rows[1], 1, 4, b, tc, "div",
+                                                  "sum", g)
+            assert _bits_equal(w, ew) and _bits_equal(m, em), (g, tc)
+
+
+@pytest.mark.parametrize("bucket,chunks", [(544, 300), (1760, 144), (8192, 64), (16384, 5)])
+def test_db_cluster_ring_depths(dev, bucket, chunks):
+    """Past the register budget (rounds re-read through the ring; 544 is
+    17 warps, one round a warp), walks of several chunks a cluster, ring
+    depths other than the wrappers' (powers of two: B7a one or two slots of
+    up to 64 KB, B7c one to eight small ones), in both packs: the bytes do
+    not move."""
+    n = chunks * 32 * bucket
+    rng = np.random.default_rng(bucket)
+    rows = torch.from_numpy(np.stack([rng.standard_normal(n).astype(np.float32) * (r + 1)
+                                      for r in range(4)])).to(dev)
+    pw, pm = codec_cuda.quantize_chunks_plain(rows[0], 4, bucket)
+    q = codec_cuda.quantize_batch(rows, 4, bucket)
+    ew, em = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, rows[2], 2, 4, bucket)
+    assert codec_cuda.db_ring("quantize", chunks, 4, bucket).geometry.positions > 1
+    for slots in (1, 2, 4, 8):
+        for pack in codec_cuda.PACKS:
+            if slots <= 2:
+                w, m = codec_cuda._launch_quantize_db(rows[0], 4, bucket, 1, "div", pack, slots=slots)
+                assert _bits_equal(w, pw) and _bits_equal(m, pm), (slots, pack)
+            w, m = codec_cuda._launch_epilogue_db(q.packed, q.meta, rows[2], 2, 4, bucket, 1, "div",
+                                                  pack, slots=slots)
+            assert _bits_equal(w, ew) and _bits_equal(m, em), (slots, pack)
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@
 // and the bucket-row geometry of each TPU pair: every codec kernel works on
 // whole chunks of 32 buckets. B1/B5 and B3 give each chunk a thread-block
 // cluster whose threads hold the chunk's values in registers (see their
-// section); the others take one thread block per chunk (or, pipelined, a
+// section), and B7a and B7c walk the chunks with the same clusters on a
+// persistent grid; the others take one thread block per chunk (or, B7b, a
 // tile of chunks). The matmul-quantize tiles its output instead, and its
 // tiles complete the chunks through the L2 (see its section).
 //
@@ -43,8 +44,8 @@
 // 4*K*(din + o) bytes read and n*bits/8 + 8n/B (+ 4n/ws of the own raw
 // row) written. The other single-stage codec kernels are simple: coalesced
 // global loads, neighbouring threads on neighbouring positions l of one
-// bucket, one block per chunk. The pipelined (*_db) kernels keep one persistent block
-// per SM slot and stream their inputs through a ring of shared-memory slots
+// bucket, one block per chunk. The pipelined (*_db) kernels run persistent
+// grids that stream their inputs through a ring of shared-memory slots
 // filled by bulk asynchronous copies (see their section below). No tensor
 // cores.
 //
@@ -475,7 +476,7 @@ __device__ __forceinline__ void mm_step(float (&acc)[8][8], const float* xs, con
 // chunk's arrival counter. Chunk c belongs to block c % gridDim.x: once
 // the block's tiles are done it waits for the chunk's 32*B arrivals, copies
 // the chunk from the L2 into shared memory (the ring's space) and runs
-// chunk_meta and chunk_encode on it as the epilogue kernels do. The
+// chunk_meta and chunk_encode on it as B9's variant kernel does. The
 // counters are the launch's own, zeroed on its stream before it.
 // The launch is cooperative, so every block is resident and the waits
 // cannot block a tile that is not running. Each chunk has its own block
@@ -604,28 +605,32 @@ __global__ void __launch_bounds__(kMmThreads, 3)
 //   cgx_dequantize_db       <- _dequantize_flat_db_impl (B7b)
 //   cgx_sra_epilogue_db     <- _sra_epilogue_db_impl (B7c)
 // Each computes what its single-stage sibling computes, with the same
-// chunk_meta / chunk_encode / decode_one, so the bytes are identical.
+// per-value arithmetic, so the bytes are identical. All three stay
+// memory-bound, with the bounds of their siblings. Their inputs stream
+// through a ring of slots in dynamic shared memory filled by 1-D bulk
+// asynchronous copies (cp.async.bulk ... mbarrier::complete_tx::bytes),
+// each slot with an mbarrier whose phase completes when the announced
+// bytes (mbarrier.arrive.expect_tx) have landed. Bulk copies need 16-byte
+// aligned addresses and sizes in multiples of 16: every per-chunk stride
+// (32*B*4, bits*B*4, 256 bytes of meta, and a CTA's share of them, B/k
+// positions in whole warps) is one for B % 32 == 0, and the wrappers
+// check the base pointers.
 //
-// The shape all three share: a persistent grid of (blocks an SM holds at
-// the kernel's shared memory) x (SMs) blocks; block b walks tiles b,
-// b + gridDim.x, ... A tile is `tc` consecutive chunks. The inputs stream
-// through a ring of slots in dynamic shared memory, each with one
-// mbarrier: thread 0 issues 1-D bulk asynchronous copies
-// (cp.async.bulk ... mbarrier::complete_tx::bytes) into a slot after
-// announcing the bytes (mbarrier.arrive.expect_tx), every thread waits on
-// the slot's phase, and the slot is refilled only after a __syncthreads()
-// says every thread is done with it. So the copy of the next tiles runs
-// while the block computes this one; outputs go from registers straight
-// to device memory (coalesced: neighbouring threads own neighbouring
-// positions l). Bulk copies need 16-byte aligned addresses and sizes in
-// multiples of 16: every per-chunk stride (32*B*4, bits*B*4, 256 bytes of
-// meta) is one for B % 32 == 0, and the wrapper checks the base pointers.
-// All three stay memory-bound, with the bounds of their siblings.
+// B7b, here: a persistent grid of (blocks an SM holds at the kernel's
+// shared memory) x (SMs) blocks; block b walks tiles b, b + gridDim.x, ...
+// A tile is `tc` consecutive chunks, a slot one tile; thread 0 issues the
+// copies, every thread waits on the slot's phase, and the slot is refilled
+// only after a __syncthreads() says every thread is done with it. So the
+// copy of the next tiles runs while the block computes this one; outputs
+// go from registers straight to device memory (coalesced: neighbouring
+// threads own neighbouring positions l).
+//
+// B7a and B7c run on the cluster body of B1 and B3, fed by a ring of each
+// CTA's share of a chunk: see "The pipelined cluster kernels" below.
 // ---------------------------------------------------------------------------
 
 constexpr int kDbThreads = 512;
-constexpr int kRing = 2;      // slots of the quantize and dequantize rings
-constexpr int kEpiRing = 4;   // slots of the epilogue ring (one peer row's tile each)
+constexpr int kRing = 2;      // slots of the dequantize ring
 constexpr int kBarBytes = 128;  // the ring's mbarriers, padded so the slots stay aligned
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -644,9 +649,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
-// Arrive with no copy: completes the phase of a slot that holds nothing.
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+// A barrier that completes a phase once `count` arrivals have come.
+__device__ __forceinline__ void mbar_init_count(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// `count` arrivals at once (release: this thread's reads and writes before
+// it are ordered before the phase's completion).
+__device__ __forceinline__ void mbar_arrive_count(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -687,52 +700,6 @@ __device__ __forceinline__ long long block_tiles(long long tiles) {
 
 __device__ __forceinline__ long long tile_of(long long j) {
   return (long long)blockIdx.x + j * gridDim.x;
-}
-
-// codec_quantize_db. Replaces codec_pallas.py _quantize_flat_db_impl (B7a).
-// A slot holds one tile: tc whole chunks of f32 (tc*32*B*4 bytes), since
-// the meta needs each bucket whole and the encode all 32 buckets at each
-// position. From the slot, chunk_meta then chunk_encode run, so the input
-// is read from device memory once (the single-stage kernel reads it
-// twice). Memory-bound: reads 4n bytes, writes n*bits/8 + 8n/B. The
-// butterfly pack stages its levels in the slot's own chunk, which is not
-// read again before the slot is refilled.
-template <int BITS, int ENCODE, int PACK>
-__global__ void __launch_bounds__(kDbThreads)
-    cgx_quantize_db_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
-                           float* __restrict__ meta, long long tiles, int tc, int B,
-                           float inv) {
-  extern __shared__ __align__(128) unsigned char db_smem[];
-  __shared__ float s_unit[kChunkBuckets];
-  __shared__ float s_min[kChunkBuckets];
-  uint64_t* full = reinterpret_cast<uint64_t*>(db_smem);
-  float* ring = reinterpret_cast<float*>(db_smem + kBarBytes);
-  const size_t chunk_n = (size_t)kChunkBuckets * B;
-  const size_t slot_n = (size_t)tc * chunk_n;
-  const uint32_t slot_bytes = (uint32_t)(slot_n * sizeof(float));
-  const long long mine = block_tiles(tiles);
-  auto fill = [&](long long j) {
-    const int s = (int)(j % kRing);
-    mbar_expect_tx(&full[s], slot_bytes);
-    bulk_load(ring + s * slot_n, x + tile_of(j) * slot_n, slot_bytes, &full[s]);
-  };
-  ring_init(full, kRing);
-  if (threadIdx.x == 0) {
-    for (long long j = 0; j < mine && j < kRing; ++j) fill(j);
-  }
-  for (long long j = 0; j < mine; ++j) {
-    const int s = (int)(j % kRing);
-    mbar_wait(&full[s], (uint32_t)((j / kRing) & 1));
-    const float* src = ring + s * slot_n;
-    for (int k = 0; k < tc; ++k) {
-      const long long c = tile_of(j) * tc + k;
-      chunk_meta<ENCODE>(src + k * chunk_n, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
-      __syncthreads();
-      chunk_encode<BITS, ENCODE, PACK>(src + k * chunk_n, B, s_unit, s_min, words + c * BITS * B);
-      __syncthreads();  // every thread is done with the chunk and its meta
-    }
-    if (threadIdx.x == 0 && j + kRing < mine) fill(j + kRing);
-  }
 }
 
 // codec_dequantize_db. Replaces codec_pallas.py _dequantize_flat_db_impl
@@ -792,98 +759,6 @@ __global__ void __launch_bounds__(kDbThreads)
     }
     __syncthreads();  // every thread is done with the slot
     if (threadIdx.x == 0 && j + kRing < mine) fill(j + kRing);
-  }
-}
-
-// codec_sra_epilogue_db. Replaces codec_pallas.py _sra_epilogue_db_impl
-// (B7c). The TPU kernel stages all ws peer rows of a block in VMEM; here a
-// ring slot holds ONE peer row's tile (tc*bits*B*4 bytes of words and
-// tc*256 of meta), so the shared memory it needs does not grow with ws.
-// The ring streams rows 0..ws-1 of tile t, then those of the block's next
-// tile; each row folds into a (tc, 32, B) f32 tile in shared memory in
-// ascending order, exactly as the plain fold (and B3) does. Row `own`
-// holds no copy (its barrier is arrived at without bytes): the raw own row
-// is read from device memory at its turn in the fold. After the last row,
-// chunk_meta and chunk_encode requantize each chunk of the tile.
-// Memory-bound: reads ws*(n*bits/8 + 8n/B) (+4n of the raw own row),
-// writes n*bits/8 + 8n/B; the reduced floats stay in shared memory.
-template <int BITS, int ENCODE, int PACK>
-__global__ void __launch_bounds__(kDbThreads)
-    cgx_sra_epilogue_db_kernel(const int32_t* __restrict__ words,
-                               const float* __restrict__ meta, const float* __restrict__ raw,
-                               int own, int ws, long long chunks, long long tiles, int tc,
-                               int B, float inv, int32_t* __restrict__ out_words,
-                               float* __restrict__ out_meta) {
-  extern __shared__ __align__(128) unsigned char db_smem[];
-  __shared__ float s_unit[kChunkBuckets];
-  __shared__ float s_min[kChunkBuckets];
-  uint64_t* full = reinterpret_cast<uint64_t*>(db_smem);
-  const size_t chunk_n = (size_t)kChunkBuckets * B;
-  const size_t w_n = (size_t)tc * BITS * B;
-  const size_t m_n = (size_t)tc * 2 * kChunkBuckets;
-  const size_t slot_n = w_n + m_n;
-  uint32_t* ring = reinterpret_cast<uint32_t*>(db_smem + kBarBytes);
-  float* tile = reinterpret_cast<float*>(ring + kEpiRing * slot_n);
-  const size_t row_words = (size_t)chunks * BITS * B;
-  const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
-  const long long items = block_tiles(tiles) * ws;  // (tile, row) pairs
-  auto fill = [&](long long i) {
-    const int s = (int)(i % kEpiRing);
-    const int r = (int)(i % ws);
-    if (r == own) {
-      mbar_arrive(&full[s]);
-      return;
-    }
-    const long long t = tile_of(i / ws);
-    uint32_t* dst = ring + s * slot_n;
-    mbar_expect_tx(&full[s], (uint32_t)(slot_n * 4));
-    bulk_load(dst, words + r * row_words + t * w_n, (uint32_t)(w_n * 4), &full[s]);
-    bulk_load(dst + w_n, meta + r * row_meta + t * m_n, (uint32_t)(m_n * 4), &full[s]);
-  };
-  ring_init(full, kEpiRing);
-  if (threadIdx.x == 0) {
-    for (long long i = 0; i < items && i < kEpiRing; ++i) fill(i);
-  }
-  for (long long i = 0; i < items; ++i) {
-    const int s = (int)(i % kEpiRing);
-    const int r = (int)(i % ws);
-    const long long c0 = tile_of(i / ws) * tc;
-    mbar_wait(&full[s], (uint32_t)((i / kEpiRing) & 1));
-    const uint32_t* sw = ring + s * slot_n;
-    const float* sm = reinterpret_cast<const float*>(sw + w_n);
-    for (int k = 0; k < tc; ++k) {
-      const uint32_t* wk = sw + (size_t)k * BITS * B;
-      const float* mk = sm + k * 2 * kChunkBuckets;
-      const float* rk = r == own ? raw + (size_t)(c0 + k) * chunk_n : nullptr;
-      float* tk = tile + (size_t)k * chunk_n;
-      for (int l = threadIdx.x; l < B; l += blockDim.x) {
-        uint32_t w[BITS];
-        if (r != own) {
-#pragma unroll
-          for (int b = 0; b < BITS; ++b) w[b] = wk[(size_t)b * B + l];
-        }
-#pragma unroll 4
-        for (int q = 0; q < kChunkBuckets; ++q) {
-          const float v = r == own ? rk[(size_t)q * B + l]
-                                   : decode_one<BITS>(w, q, mk[2 * q], mk[2 * q + 1]);
-          float* t = tk + (size_t)q * B + l;
-          *t = r == 0 ? v : __fadd_rn(*t, v);
-        }
-      }
-    }
-    __syncthreads();  // every thread is done with the slot (and the tile's row)
-    if (threadIdx.x == 0 && i + kEpiRing < items) fill(i + kEpiRing);
-    if (r == ws - 1) {
-      for (int k = 0; k < tc; ++k) {
-        const size_t c = (size_t)(c0 + k);
-        chunk_meta<ENCODE>(tile + (size_t)k * chunk_n, B, inv, s_unit, s_min,
-                           out_meta + c * 2 * kChunkBuckets);
-        __syncthreads();
-        chunk_encode<BITS, ENCODE, PACK>(tile + (size_t)k * chunk_n, B, s_unit, s_min,
-                                         out_words + c * BITS * B);
-        __syncthreads();  // the tile and the meta are free for the next tile
-      }
-    }
   }
 }
 
@@ -1329,6 +1204,335 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
                                                out_meta + c * 2 * kChunkBuckets, stage);
 }
 
+// ---------------------------------------------------------------------------
+// The pipelined cluster kernels: B7a (cgx_quantize_db_cluster_kernel) and
+// B7c (cgx_sra_epilogue_db_cluster_kernel). They replace
+// codec_pallas.py _quantize_flat_db_impl and _sra_epilogue_db_impl.
+//
+// What bounds them: what bounds B1 and B3 (the cluster kernels above),
+// whose launch shapes they share. The one-block-a-chunk body behind a ring
+// of whole-chunk slots that they replace walked each bucket in a dependent
+// loop, read a (32, B) tile in shared memory several times, ran one
+// 512-thread block an SM (two whole-chunk slots of 64 KB at B = 512) and
+// could not stage B >= 1024 at all.
+//
+// The design: B1's and B3's body, cluster_quantize, on a persistent grid.
+//  - the cluster geometry is B1's and B3's (codec_cuda.db_geometry):
+//    clusters of k CTAs, CTA `rank` owning positions [rank*B/k,
+//    (rank+1)*B/k) of all 32 buckets, past the register budget (REREAD)
+//    in rounds of T positions, here rounds of equal width, so that every
+//    warp reads every item;
+//  - G clusters (the most the card holds at once, at most the tiles) walk
+//    the tiles: cluster g takes tiles g, g + G, ..., a tile `tc`
+//    consecutive chunks; the k CTAs of a cluster take the same chunks in
+//    lockstep (the cluster barrier that ends cluster_quantize ends each
+//    chunk; after it a CTA's partials and parameters may be overwritten);
+//  - each CTA streams only its own share through a ring of `slots` slots:
+//    B7a a round of 32 segments of T floats (one a bucket), B7c a round of
+//    one peer row's `bits` segments of T words and the row's 256 bytes of
+//    chunk meta; warp 0 issues a slot's copies (one a lane) against one
+//    expect_tx. Items go in the order the body reads them: without REREAD
+//    one a chunk (B7c one a peer row), with it one a round for the
+//    extremes and one a round again for the encode, the second read of a
+//    value from the L2 as in B1 and B3;
+//  - a thread copies its position of an item from the slot into registers
+//    (B7c: decodes it and folds it into the 32 sums in ascending row
+//    order, the raw own row read from device memory at its turn, as in
+//    B3) and its warp releases the slot on the slot's `empty` barrier; once
+//    every warp has, warp 0 refills it with item n + slots. So one B7a slot
+//    and the registers double-buffer: the next chunk's share lands while
+//    this one is reduced and encoded, and a 64 KB slot keeps two 512-thread
+//    CTAs an SM. B7c's items are small (8.25 KB at 4 bits, B = 512), so
+//    its ring holds several;
+//  - every warp waits on every item, each slot's phases in order, and
+//    releases it (one arrival a warp): an item cannot land in a slot until
+//    every warp is done with the slot's last one, so no warp's wait can
+//    mistake a phase two ahead for the one it waits on;
+//  - registers: the body fills 64 a thread (two 512-thread CTAs an SM), so
+//    the walk adds no division where values are live: the producer's
+//    place in the walk is a cursor in shared memory advanced by
+//    increments, the ring's depth a power of two (a mask and a shift), and
+//    indices are 32-bit (the entry points check that a walk's items fit).
+//    Even so the walk's loop keeps some registers live across the body,
+//    and at 64 a thread it spills part of a thread's 32 values between
+//    their loads from the slot and the reduce (PERF.md, section 6).
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxSlots = 8;  // kBarBytes holds a full and an empty barrier for each
+
+// One CTA's ring: 2^shift slots of `slot_bytes`, item n in slot n & mask
+// for the (n >> shift)-th time. `full`: one arrival (the producer's
+// expect_tx) and the bytes; `empty`: one arrival a warp of the CTA.
+struct ShareRing {
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned char* base;
+  uint32_t slot_bytes;
+  int shift;
+
+  __device__ __forceinline__ int slots() const { return 1 << shift; }
+  __device__ __forceinline__ unsigned char* slot(int n) const {
+    return base + (size_t)(n & (slots() - 1)) * slot_bytes;
+  }
+  __device__ __forceinline__ void wait(int n) const {
+    mbar_wait(&full[n & (slots() - 1)], (uint32_t)((n >> shift) & 1));
+  }
+  // This warp is done with item n.
+  __device__ __forceinline__ void release(int n) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive_count(&empty[n & (slots() - 1)], 1);
+  }
+  // Before item n (n >= slots) goes into its slot: every warp has released
+  // item n - slots.
+  __device__ __forceinline__ void wait_empty(int n) const {
+    mbar_wait(&empty[n & (slots() - 1)], (uint32_t)(((n >> shift) - 1) & 1));
+  }
+};
+
+// Thread 0 initialises the ring of `slots` (a power of two) slots:
+// barriers at the start of the dynamic shared memory, the slots after
+// kBarBytes; every thread sees it after.
+__device__ __forceinline__ ShareRing share_ring(unsigned char* smem, int slots,
+                                                uint32_t slot_bytes) {
+  ShareRing ring{reinterpret_cast<uint64_t*>(smem), reinterpret_cast<uint64_t*>(smem) + kMaxSlots,
+                 smem + kBarBytes, slot_bytes, __ffs(slots) - 1};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init_count(&ring.full[s], 1);
+      mbar_init_count(&ring.empty[s], blockDim.x >> 5);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return ring;
+}
+
+// A CTA's share of a chunk: positions [rank*span, (rank+1)*span), span =
+// B/k, in `rounds` rounds of T (blockDim.x) positions, span = rounds*T;
+// one round without REREAD. A chunk's round items: one, or with REREAD one
+// a round for the extremes and one a round again for the encode.
+template <bool REREAD>
+struct Share {
+  int span, T, rounds, rank;
+  __device__ __forceinline__ int round_items() const { return REREAD ? 2 * rounds : 1; }
+  // The round of round item ri.
+  __device__ __forceinline__ int round_of(int ri) const {
+    return REREAD ? (ri >= rounds ? ri - rounds : ri) : 0;
+  }
+};
+
+template <bool REREAD>
+__device__ __forceinline__ Share<REREAD> cta_share(int B, int k, int rank) {
+  const int span = B / k, T = (int)blockDim.x;
+  return Share<REREAD>{span, T, REREAD ? span / T : 1, rank};
+}
+
+// The producer's place in a persistent cluster's walk, kept in shared
+// memory by warp 0: the next item to issue (n), its tile t (the cluster's
+// tiles are g, g + G, ... below `tiles`), its chunk u of the tile (a tile
+// is `tc` consecutive chunks), its round item ri and its peer row pr (B7c).
+struct Cursor {
+  int n, t, u, ri, pr;
+};
+
+
+// Warp 0: issue the item the cursor names, if the walk has one, into its
+// slot once the slot is free, then advance the cursor. `copy(c, ri, pr,
+// dst, bar)` issues the item's bulk copies (expect_tx included) for chunk
+// c, round item ri, peer row pr.
+template <typename Copy>
+__device__ __forceinline__ void issue_next(Cursor* cur, const ShareRing& ring, int tiles, int tc,
+                                           int G, int round_items, int peers, const Copy& copy) {
+  Cursor c = *cur;
+  if (c.t >= tiles) return;
+  if (c.n >= ring.slots()) {
+    ring.wait_empty(c.n);
+    // The warps' reads of the slot (generic proxy) before the copy's
+    // writes (async proxy).
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  copy(c.t * tc + c.u, c.ri, c.pr, ring.slot(c.n), &ring.full[c.n & (ring.slots() - 1)]);
+  ++c.n;
+  if (++c.pr == peers) {
+    c.pr = 0;
+    if (++c.ri == round_items) {
+      c.ri = 0;
+      if (++c.u == tc) {
+        c.u = 0;
+        c.t += G;
+      }
+    }
+  }
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) *cur = c;
+  __syncwarp();
+}
+
+// B7a's loads: each call reads the chunk's next item, the round the body
+// loads (rounds 0, 1, ... for the extremes, then again for the encode),
+// position l's 32 values of it. `next`: the item; `issue()`: warp 0
+// issues the ring's next item.
+template <typename Issue>
+struct RingValues {
+  const ShareRing& ring;
+  const Issue& issue;
+  mutable int next;
+
+  __device__ __forceinline__ void operator()(float (&v)[kChunkBuckets], int) const {
+    const int n = next++;
+    ring.wait(n);
+    const float* src = reinterpret_cast<const float*>(ring.slot(n)) + threadIdx.x;
+#pragma unroll
+    for (int s = 0; s < kChunkBuckets; ++s) v[s] = src[s * (int)blockDim.x];
+    ring.release(n);
+    if ((threadIdx.x >> 5) == 0) issue();
+  }
+};
+
+// codec_quantize_db (B7a) on the cluster geometry: a persistent grid of G
+// clusters of k CTAs of T threads (see above); dynamic shared memory the
+// ring's barriers, `slots` slots of 32*T*4 bytes, then the butterfly stage
+// (T/32 * 4096 bytes) or nothing.
+template <int BITS, int ENCODE, int PACK, bool REREAD>
+__global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
+    cgx_quantize_db_cluster_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
+                                   float* __restrict__ meta, int tiles, int tc, int B, int k,
+                                   float inv, int slots) {
+  extern __shared__ __align__(128) unsigned char db_smem[];
+  __shared__ Cursor s_cur;
+  const int rank = (int)(blockIdx.x % (unsigned)k);
+  const int g = (int)(blockIdx.x / (unsigned)k), G = (int)(gridDim.x / (unsigned)k);
+  const Share<REREAD> sh = cta_share<REREAD>(B, k, rank);
+  const uint32_t slot_bytes = (uint32_t)(kChunkBuckets * sh.T * sizeof(float));
+  if (threadIdx.x == 0) s_cur = Cursor{0, g, 0, 0, 0};
+  const ShareRing ring = share_ring(db_smem, slots, slot_bytes);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(db_smem + kBarBytes + (size_t)slots * slot_bytes);
+  // An item: 32 segments (bucket s: lane s) of its round of chunk c.
+  auto copy = [&](int c, int ri, int, unsigned char* dst, uint64_t* bar) {
+    const int p = sh.round_of(ri);
+    const uint32_t seg = (uint32_t)(sh.T * sizeof(float));
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) mbar_expect_tx(bar, kChunkBuckets * seg);
+    __syncwarp();
+    bulk_load(dst + (size_t)lane * sh.T * sizeof(float),
+              x + ((size_t)c * kChunkBuckets + lane) * B + sh.rank * sh.span + p * sh.T, seg, bar);
+  };
+  auto issue = [&]() { issue_next(&s_cur, ring, tiles, tc, G, sh.round_items(), 1, copy); };
+  if (threadIdx.x < 32) {
+    for (int n = 0; n < slots; ++n) issue();
+  }
+  int j = 0;
+  for (int t = g; t < tiles; t += G) {
+    for (int u = 0; u < tc; ++u, ++j) {
+      const RingValues<decltype(issue)> load{ring, issue, j * sh.round_items()};
+      float v[kChunkBuckets];
+      load(v, sh.rank * sh.span + (int)threadIdx.x);
+      const size_t c = (size_t)t * tc + u;
+      cluster_quantize<BITS, ENCODE, PACK, REREAD>(v, load, k, rank, B, inv, words + c * BITS * B,
+                                                   meta + c * 2 * kChunkBuckets, stage);
+    }
+  }
+}
+
+// B7c's loads: each call folds position l of the ws rows in ascending row
+// order, the peer rows from the chunk's next items (one a peer row, rows
+// ascending, of the round the body loads), the raw own row (rawc, or
+// null) from device memory, as ChunkRows does for B3.
+template <int BITS, typename Issue>
+struct RingRows {
+  const ShareRing& ring;
+  const Issue& issue;
+  mutable int next;
+  const float* rawc;
+  int own, ws, B;
+
+  template <bool FIRST>
+  __device__ __forceinline__ void row(float (&acc)[kChunkBuckets], uint32_t (&w)[BITS], bool raw,
+                                      int l) const {
+    if (raw) {
+      fold_row<BITS, FIRST>(acc, w, nullptr, rawc, B, l);
+      return;
+    }
+    const int n = next++;
+    ring.wait(n);
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(ring.slot(n));
+    const int T = (int)blockDim.x;
+#pragma unroll
+    for (int b = 0; b < BITS; ++b) w[b] = sw[b * T + threadIdx.x];
+    fold_row<BITS, FIRST>(acc, w, reinterpret_cast<const float*>(sw + BITS * T), nullptr, B, l);
+    ring.release(n);
+    if ((threadIdx.x >> 5) == 0) issue();
+  }
+
+  __device__ __forceinline__ void operator()(float (&acc)[kChunkBuckets], int l) const {
+    uint32_t w[BITS];
+    row<true>(acc, w, own == 0, l);
+    for (int r = 1; r < ws; ++r) row<false>(acc, w, r == own, l);
+  }
+};
+
+// codec_sra_epilogue_db (B7c) on the cluster geometry: as B7a, the ring's
+// slots each one peer row's round (bits*T*4 bytes of words, then 256 of
+// meta).
+template <int BITS, int ENCODE, int PACK, bool REREAD>
+__global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
+    cgx_sra_epilogue_db_cluster_kernel(const int32_t* __restrict__ words,
+                                       const float* __restrict__ meta,
+                                       const float* __restrict__ raw, int own, int ws,
+                                       int chunks, int tiles, int tc, int B, int k, float inv,
+                                       int slots, int32_t* __restrict__ out_words,
+                                       float* __restrict__ out_meta) {
+  extern __shared__ __align__(128) unsigned char db_smem[];
+  __shared__ Cursor s_cur;
+  const int rank = (int)(blockIdx.x % (unsigned)k);
+  const int g = (int)(blockIdx.x / (unsigned)k), G = (int)(gridDim.x / (unsigned)k);
+  const Share<REREAD> sh = cta_share<REREAD>(B, k, rank);
+  const uint32_t slot_bytes = (uint32_t)((BITS * sh.T + 2 * kChunkBuckets) * sizeof(float));
+  const int peers = ws - (own >= 0 ? 1 : 0);
+  // With no peer row (one row, the raw own one) the walk has no items.
+  if (threadIdx.x == 0) s_cur = Cursor{0, peers > 0 ? g : tiles, 0, 0, 0};
+  const ShareRing ring = share_ring(db_smem, slots, slot_bytes);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(db_smem + kBarBytes + (size_t)slots * slot_bytes);
+  // An item: peer row pr (ascending, the own row skipped) of round item ri
+  // of chunk c, `bits` segments of its round (plane b: lane b) and the
+  // row's meta of the chunk (lane bits).
+  auto copy = [&](int c, int ri, int pr, unsigned char* dst, uint64_t* bar) {
+    const int r = pr + (own >= 0 && pr >= own ? 1 : 0);
+    const int p = sh.round_of(ri);
+    const uint32_t seg = (uint32_t)(sh.T * sizeof(int32_t));
+    const int lane = threadIdx.x & 31;
+    const size_t rc = (size_t)r * chunks + c;
+    if (lane == 0) mbar_expect_tx(bar, BITS * seg + 2 * kChunkBuckets * sizeof(float));
+    __syncwarp();
+    if (lane < BITS) {
+      bulk_load(dst + (size_t)lane * sh.T * sizeof(int32_t),
+                words + (rc * BITS + lane) * B + sh.rank * sh.span + p * sh.T, seg, bar);
+    } else if (lane == BITS) {
+      bulk_load(dst + (size_t)BITS * sh.T * sizeof(int32_t), meta + rc * 2 * kChunkBuckets,
+                2 * kChunkBuckets * sizeof(float), bar);
+    }
+  };
+  auto issue = [&]() { issue_next(&s_cur, ring, tiles, tc, G, sh.round_items(), peers, copy); };
+  if (threadIdx.x < 32) {
+    for (int n = 0; n < slots; ++n) issue();
+  }
+  const int chunk_items = sh.round_items() * peers;
+  int j = 0;
+  for (int t = g; t < tiles; t += G) {
+    for (int u = 0; u < tc; ++u, ++j) {
+      const size_t c = (size_t)t * tc + u;
+      const RingRows<BITS, decltype(issue)> rows{
+          ring, issue, j * chunk_items, raw == nullptr ? nullptr : raw + c * kChunkBuckets * B,
+          own, ws, B};
+      float acc[kChunkBuckets];
+      rows(acc, sh.rank * sh.span + (int)threadIdx.x);
+      cluster_quantize<BITS, ENCODE, PACK, REREAD>(acc, rows, k, rank, B, inv,
+                                                   out_words + c * BITS * B,
+                                                   out_meta + c * 2 * kChunkBuckets, stage);
+    }
+  }
+}
+
 // The divide check (not a codec kernel): for divisors d = (1 + m/2^23) *
 // 2^e2 with m = m0, m0 + m_step, ... < 2^23, numerators around every
 // level boundary and level of the domain (RN((t/2) * d) and its `ulps`
@@ -1497,6 +1701,67 @@ cudaError_t cluster_launch(void (*kernel)(Params...), long long chunks, int k, i
   }
   if (e != cudaSuccess) (void)cudaGetLastError();
   return e;
+}
+
+// Launch the pipelined cluster `kernel` (B7a, B7c) as a persistent grid:
+// G clusters of k CTAs of `threads` (k = 1: plain CTAs, no cluster), G the
+// clusters the card holds at once at `smem` bytes of dynamic shared memory
+// (the occupancy query for the cluster shape), at most `tiles`. A refused
+// query or launch is returned and cleared, as cluster_launch does.
+template <typename... Params, typename... Args>
+cudaError_t persistent_cluster_launch(void (*kernel)(Params...), long long tiles, int k,
+                                      int threads, size_t smem, cudaStream_t st, Args... args) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // Always: the default allowance is 48 KB less the kernel's static
+  // shared memory, which the ring and stage can pass below 48 KB.
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(k * sms));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = k > 1 ? 1 : 0;
+  long long resident = 0;
+  if (e == cudaSuccess) {
+    int n = 0;
+    if (k > 1) {
+      e = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+      resident = n;
+    } else {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+      resident = (long long)n * sms;
+    }
+  }
+  if (e == cudaSuccess && resident < 1) e = cudaErrorInvalidConfiguration;
+  if (e == cudaSuccess) {
+    cfg.gridDim = dim3((unsigned)((tiles < resident ? tiles : resident) * k));
+    e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  }
+  if (e != cudaSuccess) (void)cudaGetLastError();
+  return e;
+}
+
+// The pipelined cluster kernels' arguments: the cluster geometry as the
+// cluster kernels', with rounds of equal width (codec_cuda.db_geometry),
+// `tc` dividing the chunk count, 1..kMaxSlots slots (a power of two), and
+// a walk whose items (a chunk's rounds, twice past the register budget,
+// times `rows` rows) a 32-bit index counts.
+bool db_cluster_ok(long long chunks, int tc, int B, int k, int threads, int slots, int rows) {
+  const long long rounds = (B / k) / threads;
+  return db_geometry_ok(chunks, tc, B) && cluster_geometry_ok(chunks, B, k, threads) &&
+         (B / k) % threads == 0 &&
+         slots >= 1 && slots <= kMaxSlots && (slots & (slots - 1)) == 0 && rows >= 1 &&
+         chunks * 2 * rounds * rows + kMaxSlots <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -1718,25 +1983,34 @@ int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total, int
 #endif
 
 // The pipelined kernels take the arguments of their single-stage siblings
-// and `tc`, the chunks a tile (a ring slot) holds; tc divides the chunk
-// count, and every pointer is 16-byte aligned. Shared memory: a
-// quantize slot is tc*32*B*4 bytes, a dequantize slot tc*(bits*B*4 + 256)
-// (+ tc*32*B*4 with add), two slots each; the epilogue has four slots of
-// tc*(bits*B*4 + 256) and the tc*32*B*4-byte tile.
+// and `tc`, the chunks a tile holds, which divides the chunk count; every
+// pointer is 16-byte aligned. B7b's slots hold a tile: tc*(bits*B*4 + 256)
+// bytes (+ tc*32*B*4 with add), two of them. B7a and B7c also take their
+// cluster geometry (k, threads: codec_cuda.cluster_geometry) and `slots`,
+// the ring's depth; a B7a slot holds 32*threads*4 bytes, a B7c slot
+// bits*threads*4 + 256, whatever tc is.
 
 #if CGX_IN_PART(4)
 int cgx_quantize_db(const float* x, int32_t* words, float* meta, long long chunks, int tc,
-                    int B, int bits, float inv, int encode, int pack, void* stream) {
-  if (!db_geometry_ok(chunks, tc, B) || !aligned16(x)) return (int)cudaErrorInvalidValue;
+                    int B, int bits, float inv, int encode, int pack, int k, int threads,
+                    int slots, void* stream) {
+  if (!db_cluster_ok(chunks, tc, B, k, threads, slots, 1) || !aligned16(x)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
-  const long long tiles = chunks / tc;
-  const size_t smem = kBarBytes + (size_t)kRing * tc * kChunkBuckets * B * sizeof(float);
+  const int tiles = (int)(chunks / tc);
+  const bool reread = B / k > threads;
+  const size_t ring = kBarBytes + (size_t)slots * kChunkBuckets * threads * sizeof(float);
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
-    unsigned grid = 0;
-    cudaError_t e = db_grid(cgx_quantize_db_kernel<BITS, ENCODE, PACK>, smem, tiles, &grid);
+    const size_t smem = ring + stage_bytes(PACK, threads);
+    cudaError_t e =
+        reread ? persistent_cluster_launch(cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, true>,
+                                           tiles, k, threads, smem, st, x, words, meta, tiles, tc,
+                                           B, k, inv, slots)
+               : persistent_cluster_launch(cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, false>,
+                                           tiles, k, threads, smem, st, x, words, meta, tiles, tc,
+                                           B, k, inv, slots);
     if (e != cudaSuccess) return (int)e;
-    cgx_quantize_db_kernel<BITS, ENCODE, PACK><<<grid, kDbThreads, smem, st>>>(
-        x, words, meta, tiles, tc, B, inv);
   }));
   return (int)cudaGetLastError();
 }
@@ -1776,24 +2050,32 @@ int cgx_dequantize_db(const int32_t* words, const float* meta, const float* add,
 #if CGX_IN_PART(5)
 int cgx_sra_epilogue_db(const int32_t* words, const float* meta, const float* raw, int own,
                         int ws, long long chunks, int tc, int B, int bits, float inv,
-                        int encode, int pack, int32_t* out_words, float* out_meta,
-                        void* stream) {
-  if (!db_geometry_ok(chunks, tc, B) || ws < 1 || own >= ws) return (int)cudaErrorInvalidValue;
+                        int encode, int pack, int k, int threads, int slots,
+                        int32_t* out_words, float* out_meta, void* stream) {
+  if (!db_cluster_ok(chunks, tc, B, k, threads, slots, ws) || own >= ws) {
+    return (int)cudaErrorInvalidValue;
+  }
   if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
   if (!aligned16(words) || !aligned16(meta) || (raw && !aligned16(raw))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  const long long tiles = chunks / tc;
+  const int tiles = (int)(chunks / tc), n = (int)chunks;
+  const bool reread = B / k > threads;
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     const size_t smem = kBarBytes +
-                        (size_t)kEpiRing * tc * ((size_t)BITS * B + 2 * kChunkBuckets) * 4 +
-                        (size_t)tc * kChunkBuckets * B * sizeof(float);
-    unsigned grid = 0;
-    cudaError_t e = db_grid(cgx_sra_epilogue_db_kernel<BITS, ENCODE, PACK>, smem, tiles, &grid);
+                        (size_t)slots * ((size_t)BITS * threads + 2 * kChunkBuckets) * 4 +
+                        stage_bytes(PACK, threads);
+    cudaError_t e =
+        reread ? persistent_cluster_launch(
+                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, true>, tiles, k,
+                     threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv, slots,
+                     out_words, out_meta)
+               : persistent_cluster_launch(
+                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, false>, tiles, k,
+                     threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv, slots,
+                     out_words, out_meta);
     if (e != cudaSuccess) return (int)e;
-    cgx_sra_epilogue_db_kernel<BITS, ENCODE, PACK><<<grid, kDbThreads, smem, st>>>(
-        words, meta, raw, own, ws, chunks, tiles, tc, B, inv, out_words, out_meta);
   }));
   return (int)cudaGetLastError();
 }

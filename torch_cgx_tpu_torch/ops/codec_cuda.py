@@ -23,7 +23,10 @@ wrapper                       TPU kernels replaced
 Each wrapper works on whole 32-bucket chunks. ``quantize_chunks`` and
 ``sra_epilogue_chunks`` launch on a thread-block cluster a chunk, the
 chunk's values in registers (:func:`cluster_geometry`; past the register
-budget a thread takes several positions, re-read from the L2). On a CUDA tensor a
+budget a thread takes several positions, re-read from the L2);
+``quantize_chunks_db`` and ``sra_epilogue_chunks_db`` run the same body on a
+persistent grid of such clusters fed by a bulk-copy ring (:func:`db_ring`).
+On a CUDA tensor a
 wrapper launches its kernel (and counts the launch in :data:`LAUNCHES`) or
 raises; on a CPU tensor it runs its plain version, written from
 ``ops/codec.py``'s arithmetic. Nothing else picks between the two. The batch functions below
@@ -197,9 +200,10 @@ def _lib():
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, vp, vp]
             lib.cgx_matmul_quantize.argtypes = [
                 vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, vp]
-            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, vp]
+            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, vp]
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
-            lib.cgx_sra_epilogue_db.argtypes = [vp, vp, vp, i, i, ll, i, i, i, f, i, i, vp, vp, vp]
+            lib.cgx_sra_epilogue_db.argtypes = [
+                vp, vp, vp, i, i, ll, i, i, i, f, i, i, i, i, i, vp, vp, vp]
             lib.cgx_quantize_variant.argtypes = [vp, vp, vp, ll, i, i, i, f, vp]
             lib.cgx_div_sweep.argtypes = [i, i, i, i, i, vp, vp, vp]
             lib.cgx_div_pairs.argtypes = [vp, vp, i, vp, vp, vp]
@@ -382,6 +386,12 @@ def cluster_positions(g: ClusterGeometry, bucket_size: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(t: torch.Tensor) -> int:
+    """The SMs of the card that holds ``t`` (:data:`CLUSTER_SMS` for a CPU
+    tensor, whose plain version has no grid)."""
+    return _sm_count(t.device.index) if t.is_cuda else CLUSTER_SMS
 
 
 def _geometry(t: torch.Tensor, chunks: int, bucket_size: int, bits: int) -> ClusterGeometry:
@@ -853,45 +863,126 @@ def quantize_variant_chunks(
 
 
 # ---------------------------------------------------------------------------
-# Pipelined kernels (B7a-c): a persistent block per SM slot streams its
-# tiles of ``tc`` chunks through a ring of shared-memory slots filled by
-# bulk asynchronous copies. Same bytes as the single-stage kernels, so their
-# plain versions are the single-stage plain versions.
+# Pipelined kernels (B7a-c). Same bytes as the single-stage kernels, so
+# their plain versions are the single-stage plain versions. B7b: a
+# persistent block per SM slot streams its tiles of ``tc`` chunks through
+# two shared-memory slots. B7a and B7c: B1's and B3's cluster body on a
+# persistent grid of clusters (:func:`cluster_geometry`), each CTA
+# streaming its share of a chunk through a ring of share slots
+# (:func:`db_ring`), so their shared memory does not grow with ``tc``; a
+# tile of ``tc`` chunks is what the clusters share out.
 # ---------------------------------------------------------------------------
 
 SMEM_BLOCK_BYTES = 232448  # shared memory a Hopper block may use
-DB_STATIC_BYTES = 256  # the pipelined kernels' static meta (s_unit, s_min)
+SMEM_SM_BYTES = 233472  # shared memory an SM holds for its blocks
+SMEM_BLOCK_RESERVED = 1024  # the runtime's part of it a resident block
+SM_THREADS, SM_REGISTERS, SM_BLOCKS = 2048, 65536, 32  # an SM's other limits
+DB_STATIC_BYTES = 256  # B7b's bound for static shared memory
 DB_BAR_BYTES = 128  # the ring's barriers, ahead of the slots (kBarBytes)
+# The cluster body's static shared memory: each warp's extremes (16 warps
+# x 32 buckets x max, min), the CTA's partials and the buckets' encode
+# parameters (float4 each); B7a's and B7c's add the walk's cursor (five
+# ints), padded to the ring's 128-byte alignment.
+CLUSTER_STATIC_BYTES = (2 * 16 * 32 + 2 * 32 + 4 * 32) * 4
+DB_CLUSTER_STATIC_BYTES = -(-(CLUSTER_STATIC_BYTES + 5 * 4) // 128) * 128
+# Registers a thread of the cluster body at most: __launch_bounds__(512, 2)
+# within the register budget, (512, 1) with positions in rounds.
+CLUSTER_THREAD_REGISTERS = (64, 128)
+DB_MAX_SLOTS = 8  # the deepest ring kBarBytes has barriers for (kMaxSlots)
+# The depth of B7a's and B7c's rings (a power of two, at most kMaxSlots), by whether the
+# geometry takes positions in rounds: B7a one slot (the registers are the
+# second buffer) or, re-reading, two; B7c four of its small row items.
+DB_SLOTS = {"quantize": (1, 2), "epilogue": (4, 4)}
 
 
-def _db_bytes_per_tc(kernel: str, bits: int, bucket_size: int, with_add: bool) -> int:
-    chunk = CHUNK_BUCKETS * bucket_size * 4
-    wire = bits * bucket_size * 4 + 2 * CHUNK_BUCKETS * 4
-    return {
-        "quantize": 2 * chunk,
-        "dequantize": 2 * (wire + (chunk if with_add else 0)),
-        "epilogue": 4 * wire + chunk,
-    }[kernel]
+@dataclasses.dataclass(frozen=True)
+class DbRing:
+    geometry: ClusterGeometry  # the cluster geometry the kernel runs at
+    slots: int  # the ring's depth
+    slot_bytes: int  # one slot: a CTA's share of one round (B7c: of one peer row)
+
+
+def db_geometry(chunks: int, bucket_size: int, bits: int,
+                sms: int = CLUSTER_SMS) -> ClusterGeometry:
+    """B7a's and B7c's launch geometry: :func:`cluster_geometry`'s, except
+    that past the register budget a CTA's positions go in rounds of equal
+    width (whole warps: the fewest rounds, at least ``positions``, that
+    divide its warps), so that every warp of the CTA reads every item of
+    the ring."""
+    g = cluster_geometry(chunks, bucket_size, bits, sms)
+    if g.positions == 1:
+        return g
+    warps = bucket_size // (LANE_GROUP * g.k)
+    rounds = next(r for r in range(g.positions, warps + 1) if warps % r == 0)
+    return ClusterGeometry(g.k, LANE_GROUP * (warps // rounds), rounds)
+
+
+def db_ring(kernel: str, chunks: int, bits: int, bucket_size: int,
+            sms: int = CLUSTER_SMS) -> DbRing:
+    """The ring of the pipelined ``kernel`` ("quantize": B7a, "epilogue":
+    B7c) for ``chunks`` chunks on a card of ``sms`` SMs: at
+    :func:`db_geometry`, :data:`DB_SLOTS` slots, each holding a CTA's
+    ``threads`` positions of one round: B7a 32 buckets of f32, B7c one peer
+    row's ``bits`` words and its 256 bytes of chunk meta."""
+    g = db_geometry(chunks, bucket_size, bits, sms)
+    per = (CHUNK_BUCKETS * g.threads * 4 if kernel == "quantize"
+           else bits * g.threads * 4 + 2 * CHUNK_BUCKETS * 4)
+    return DbRing(g, DB_SLOTS[kernel][g.positions > 1], per)
+
+
+def _db_bytes_per_tc(bits: int, bucket_size: int, with_add: bool) -> int:
+    """B7b's two slots' bytes a chunk of the tile."""
+    return 2 * (bits * bucket_size * 4 + 2 * CHUNK_BUCKETS * 4
+                + (CHUNK_BUCKETS * bucket_size * 4 if with_add else 0))
 
 
 def db_smem_bytes(
-    kernel: str, tc: int, bits: int, bucket_size: int, *, with_add: bool = False
+    kernel: str, tc: int, bits: int, bucket_size: int, *, with_add: bool = False,
+    chunks: int = 1, pack: str = "sum", sms: int = CLUSTER_SMS,
 ) -> int:
-    """Dynamic shared memory the pipelined ``kernel`` launches with at tile
-    ``tc`` (``csrc/codec.cu``): the barriers, then for quantize two slots of
-    ``tc`` f32 chunks; for dequantize two slots of ``tc`` chunks of words
-    and meta (and of the accumulator ``with_add``); for the epilogue four
-    slots of one peer row's ``tc`` chunks of words and meta, and the
-    ``tc``-chunk f32 tile."""
-    return DB_BAR_BYTES + tc * _db_bytes_per_tc(kernel, bits, bucket_size, with_add)
+    """Dynamic shared memory the pipelined ``kernel`` launches with
+    (``csrc/codec.cu``): the barriers, then for dequantize two slots of
+    ``tc`` chunks of words and meta (and of the accumulator ``with_add``);
+    for quantize and the epilogue the :func:`db_ring` of ``chunks`` chunks,
+    whatever ``tc`` is, and the butterfly ``pack``'s stage."""
+    if kernel == "dequantize":
+        return DB_BAR_BYTES + tc * _db_bytes_per_tc(bits, bucket_size, with_add)
+    ring = db_ring(kernel, chunks, bits, bucket_size, sms)
+    stage = ring.geometry.threads // 32 * 32 * 32 * 4 if pack == "butterfly" else 0
+    return DB_BAR_BYTES + ring.slots * ring.slot_bytes + stage
 
 
-def db_tc_cap(kernel: str, bits: int, bucket_size: int, *, with_add: bool = False) -> int:
-    """The most chunks a ring slot of the pipelined ``kernel`` can hold at
-    this geometry within a block's shared memory; 0 where not even one fits
-    (the single-stage kernel runs then: ROADMAP C7)."""
-    room = SMEM_BLOCK_BYTES - DB_STATIC_BYTES - DB_BAR_BYTES
-    return room // _db_bytes_per_tc(kernel, bits, bucket_size, with_add)
+def db_clusters(kernel: str, chunks: int, bits: int, bucket_size: int,
+                sms: int = CLUSTER_SMS) -> int:
+    """The clusters of B7a or B7c that ``sms`` SMs hold at once under the
+    sum pack, from the per-SM limits of threads, registers (the launch
+    bounds' most), blocks and shared memory; the kernel's own grid comes
+    from the card's occupancy query."""
+    ring = db_ring(kernel, chunks, bits, bucket_size, sms)
+    g = ring.geometry
+    smem = (db_smem_bytes(kernel, 1, bits, bucket_size, chunks=chunks, sms=sms)
+            + DB_CLUSTER_STATIC_BYTES + SMEM_BLOCK_RESERVED)
+    per_sm = min(SM_THREADS // g.threads,
+                 SM_REGISTERS // (CLUSTER_THREAD_REGISTERS[g.positions > 1] * g.threads),
+                 SM_BLOCKS, SMEM_SM_BYTES // smem)
+    return max(1, sms * per_sm // g.k)
+
+
+def db_tc_cap(kernel: str, bits: int, bucket_size: int, *, with_add: bool = False,
+              chunks: int = 1, sms: int = CLUSTER_SMS) -> int:
+    """The most chunks a tile of the pipelined ``kernel`` takes; 0 where
+    its ring does not fit a block's shared memory (the single-stage kernel
+    runs then: ROADMAP C7). B7b: the chunks its two slots hold. B7a and
+    B7c, whose ring does not grow with the tile: ``chunks`` over the
+    clusters the card holds at once (:func:`db_clusters`), so that every
+    cluster has a tile; their ring fits at every geometry."""
+    if kernel == "dequantize":
+        room = SMEM_BLOCK_BYTES - DB_STATIC_BYTES - DB_BAR_BYTES
+        return room // _db_bytes_per_tc(bits, bucket_size, with_add)
+    most = db_smem_bytes(kernel, 1, bits, bucket_size, chunks=chunks, pack="butterfly", sms=sms)
+    if most + DB_CLUSTER_STATIC_BYTES > SMEM_BLOCK_BYTES:
+        return 0
+    return max(1, chunks // db_clusters(kernel, chunks, bits, bucket_size, sms))
 
 
 def _require_aligned(name: str, t: Optional[torch.Tensor]) -> None:
@@ -901,10 +992,13 @@ def _require_aligned(name: str, t: Optional[torch.Tensor]) -> None:
 
 def _db_tile(kernel: str, chunks: int, tc: int, bits: int, bucket_size: int,
              with_add: bool = False) -> None:
+    """``tc`` divides the chunks, and the pipelined ``kernel``'s ring holds
+    it: B7b's at most :func:`db_tc_cap` chunks a slot; B7a's and B7c's any
+    tile, where their ring fits at all."""
     if tc < 1 or chunks % tc:
         raise ValueError(f"tc={tc} must divide the {chunks} chunks")
-    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add)
-    if tc > cap:
+    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add, chunks=chunks)
+    if (tc > cap) if kernel == "dequantize" else cap < 1:
         raise ValueError(
             f"{kernel}: tc={tc} chunks of bucket {bucket_size} at {bits} bits exceed the "
             f"pipelined kernel's shared memory (at most {cap})"
@@ -921,8 +1015,8 @@ def quantize_chunks_db(
     x: torch.Tensor, bits: int, bucket_size: int, tc: int,
     encode: Optional[str] = None, pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`quantize_chunks` through the pipelined kernel (B7a), ``tc``
-    chunks a ring slot."""
+    """:func:`quantize_chunks` through the pipelined kernel (B7a), the
+    clusters sharing out tiles of ``tc`` chunks."""
     encode, pack = _lowering(encode, pack)
     chunks = _chunk_geometry(x.numel(), bits, bucket_size)
     if _device_kind(x) == "cpu":
@@ -930,11 +1024,24 @@ def quantize_chunks_db(
     _require_cuda_operand("quantize_db x", x, torch.float32, x.numel())
     _require_aligned("quantize_db x", x)
     _db_tile("quantize", chunks, tc, bits, bucket_size)
+    return _launch_quantize_db(x, bits, bucket_size, tc, encode, pack)
+
+
+def _launch_quantize_db(
+    x: torch.Tensor, bits: int, bucket_size: int, tc: int, encode: str, pack: str,
+    g: Optional[ClusterGeometry] = None, slots: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of B7a on a checked CUDA operand at geometry ``g`` with a
+    ring of ``slots`` (None: :func:`db_ring`'s on the operand's card)."""
+    chunks = x.numel() // (CHUNK_BUCKETS * bucket_size)
+    ring = db_ring("quantize", chunks, bits, bucket_size, _sm_count(x.device.index))
+    g = g or ring.geometry
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
     meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
     err = _lib().cgx_quantize_db(
         x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, tc, bucket_size,
-        bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), _stream(x),
+        bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack),
+        g.k, g.threads, slots or DB_SLOTS["quantize"][g.positions > 1], _stream(x),
     )
     LAUNCHES["codec_quantize_db"] += 1
     _check_launch("codec_quantize_db", err)
@@ -985,9 +1092,9 @@ def sra_epilogue_chunks_db(
     encode: Optional[str] = None,
     pack: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`sra_epilogue_chunks` through the pipelined kernel (B7c): the
-    ring streams one peer row's ``tc`` chunks a slot, rows ascending, into
-    a ``tc``-chunk f32 tile that is then requantized."""
+    """:func:`sra_epilogue_chunks` through the pipelined kernel (B7c): each
+    CTA's ring streams its share of one peer row at a time, rows ascending,
+    the clusters sharing out tiles of ``tc`` chunks."""
     _refuse_unported_fold()
     encode, pack = _lowering(encode, pack)
     ws = words.shape[0]
@@ -1009,12 +1116,27 @@ def sra_epilogue_chunks_db(
     for name, t in (("words", words), ("meta", meta), ("raw", raw)):
         _require_aligned(f"epilogue_db {name}", t)
     _db_tile("epilogue", chunks, tc, bits, bucket_size)
+    return _launch_epilogue_db(words, meta, raw, own, bits, bucket_size, tc, encode, pack)
+
+
+def _launch_epilogue_db(
+    words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
+    bucket_size: int, tc: int, encode: str, pack: str,
+    g: Optional[ClusterGeometry] = None, slots: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of B7c on checked CUDA operands at geometry ``g`` with a
+    ring of ``slots`` (None: :func:`db_ring`'s on the operands' card)."""
+    ws = words.shape[0]
+    chunks = meta.shape[1] // CHUNK_BUCKETS
+    ring = db_ring("epilogue", chunks, bits, bucket_size, _sm_count(words.device.index))
+    g = g or ring.geometry
     out_words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=words.device)
     out_meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=words.device)
     err = _lib().cgx_sra_epilogue_db(
         words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
         own, ws, chunks, tc, bucket_size, bits, codec.unit_scale(bits),
-        ENCODES.index(encode), PACKS.index(pack),
+        ENCODES.index(encode), PACKS.index(pack), g.k, g.threads,
+        slots or DB_SLOTS["epilogue"][g.positions > 1],
         out_words.data_ptr(), out_meta.data_ptr(), _stream(words),
     )
     LAUNCHES["codec_sra_epilogue_db"] += 1
@@ -1043,16 +1165,16 @@ def _use_db(tuned: Optional[autotune.TunedConfig]) -> bool:
 def _tile_chunks(
     n_chunks: int, cap: int, tuned: Optional[autotune.TunedConfig] = None
 ) -> int:
-    """Chunks a pipelined block stages per ring slot (``tc``): the
+    """Chunks a pipelined kernel's tile holds (``tc``): the
     ``CGX_PALLAS_TILE_CHUNKS`` override, else the tuned entry, else 1,
-    always within ``cap`` (the slots a block's shared memory holds,
-    :func:`db_tc_cap`; the TPU's cap is VMEM) and the chunk count. The
-    default differs from the JAX package's 16: there a tile is one step of
-    a sequential grid, here tiles are what the blocks share out, so a
-    slice of C chunks at tile tc keeps at most C / tc SMs busy. The
-    single-stage kernels keep one block per chunk and ignore ``tc``: it is
-    the CUDA counterpart of the TPU's grid-only tile. Read on every call,
-    so a bad override always raises."""
+    always within ``cap`` (:func:`db_tc_cap`: B7b's slots, B7a's and B7c's
+    busy clusters; the TPU's cap is VMEM) and the chunk count. The default
+    differs from the JAX package's 16: there a tile is one step of a
+    sequential grid, here tiles are what the blocks or clusters share out,
+    so a slice of C chunks at tile tc keeps at most C / tc of them busy.
+    The single-stage kernels ignore ``tc``: it is the CUDA counterpart of
+    the TPU's grid-only tile. Read on every call, so a bad override always
+    raises."""
     forced = cfg_mod.pallas_tile_chunks()
     tc = forced if forced is not None else (tuned.tc if tuned is not None else 1)
     return int(max(1, min(tc, cap, n_chunks)))
@@ -1081,11 +1203,12 @@ def _pack_strategy(tuned: Optional[autotune.TunedConfig] = None) -> str:
 def _db_route(
     kernel: str, n_chunks: int, bits: int, bucket_size: int,
     tuned: Optional[autotune.TunedConfig], *, with_add: bool = False, count: bool = False,
+    sms: int = CLUSTER_SMS,
 ) -> Optional[int]:
     """``tc`` for the pipelined ``kernel``, or None where the single-stage
     kernel runs. ``count``: count a call that CGX_PALLAS_DB sends to a
     pipelined kernel whose geometry does not fit (:data:`DB_GATED`)."""
-    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add)
+    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add, chunks=n_chunks, sms=sms)
     tc = _pipe_tc(n_chunks, cap, tuned)
     if not _use_db(tuned):
         return None
@@ -1209,7 +1332,7 @@ def quantize_batch(
         tc = None
         if _flat(c_r, t_r, b):
             tuned = autotune.lookup(autotune.KIND_FLAT, n_chunks=rows * c_r, bucket_size=b, bits=bits)
-            tc = _db_route("quantize", rows * c_r, bits, b, tuned, count=True)
+            tc = _db_route("quantize", rows * c_r, bits, b, tuned, count=True, sms=_sms(x))
         else:
             tuned = autotune.lookup(autotune.KIND_CHUNKS, n_chunks=rows * c_r, bucket_size=b, bits=bits)
             cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
@@ -1269,7 +1392,8 @@ def dequantize_batch(
         tc = None
         if _flat(c_r, t_r, b):
             tuned = autotune.lookup(autotune.KIND_FLAT, n_chunks=rows * c_r, bucket_size=b, bits=q.bits)
-            tc = _db_route("dequantize", rows * c_r, q.bits, b, tuned, with_add=fuse_add, count=True)
+            tc = _db_route("dequantize", rows * c_r, q.bits, b, tuned, with_add=fuse_add, count=True,
+                           sms=_sms(q.packed))
         else:
             autotune.lookup(autotune.KIND_CHUNKS, n_chunks=rows * c_r, bucket_size=b, bits=q.bits)
             cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
@@ -1333,7 +1457,7 @@ def sra_epilogue_batch(
         ws=q.batch_rows,
     )
     pack = _pack_strategy(tuned)
-    tc = _db_route("epilogue", c_r, q.bits, q.bucket_size, tuned, count=True)
+    tc = _db_route("epilogue", c_r, q.bits, q.bucket_size, tuned, count=True, sms=_sms(q.packed))
     words, meta = q.packed.contiguous(), _as_f32(q.meta).contiguous()
     if tc is None:
         words, meta = sra_epilogue_chunks(

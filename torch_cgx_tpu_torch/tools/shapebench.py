@@ -1,18 +1,20 @@
-"""Time the quantize (B1, B5) and the SRA epilogue (B3) kernels alone at the
-launch shapes of a GPT-2 124M step, and profile that step's codec kernels.
+"""Time the quantize (B1, B5), the SRA epilogue (B3), their pipelined
+versions (B7a, B7c) and the multi-row reduce (B4) alone at the launch
+shapes of a GPT-2 124M step, and profile that step's codec kernels.
 
     python3 torch_cgx_tpu_torch/tools/shapebench.py [--root DIR] [--groups 5] [--no-step]
 
-It times ``SHAPES`` and ``PAST_BUDGET`` (buckets past the cluster kernels'
-register budget).
+It times ``SHAPES``, ``PAST_BUDGET`` (buckets past the cluster kernels'
+register budget) and ``REDUCE_SHAPES`` (B4 in the four-rank steps).
 
 ``--root`` names the checkout whose ``torch_cgx_tpu_torch`` is timed (by
 default the one this file belongs to). The wrappers it calls
-(``codec_cuda.quantize_chunks``, ``sra_epilogue_chunks`` and their plain
-versions, ``make_train_step``) take the same arguments in every version of
-the port since its quantize lowerings, so two checkouts can be timed in
-turns on one card, one process each. The script imports the package only
-from ``--root``; it prints one JSON record and writes no file.
+(``codec_cuda.quantize_chunks``, ``sra_epilogue_chunks``, their pipelined
+versions at one chunk a tile, ``reduce_rows_chunks``, the plain versions,
+``make_train_step``) take the same arguments in every version of the port
+since its quantize lowerings, so two checkouts can be timed in turns on
+one card, one process each. The script imports the package only from
+``--root``; it prints one JSON record and writes no file.
 
 A kernel's time is a burst: the stream is held by a sleep kernel while the
 host enqueues an L2 flush and ``launches`` calls, each on its own input
@@ -24,9 +26,9 @@ group's time, the median and the spread (max - min over the median). The
 bound is the bytes the call must move at the card's published memory
 rate. The step (``--no-step`` skips it): GPT-2 124M (random weights from
 seed 0), 8 x 512 tokens, 4 bits, bucket 512, the world-size-1 codec
-(``CGX_DEBUG_FORCE_CODEC=1``), ``CGX_PALLAS_DB=off``: the host-clock step
-(median of 5 synchronised steps) and one profiled step's device time, the
-codec kernels' by kernel.
+(``CGX_DEBUG_FORCE_CODEC=1``), under ``CGX_PALLAS_DB=off`` and then
+``on``: the host-clock step (median of 5 synchronised steps) and one
+profiled step's device time, the codec kernels' by kernel.
 """
 
 from __future__ import annotations
@@ -56,11 +58,18 @@ ROTATE_BYTES = 400 << 20  # inputs a burst rotates through
 # same shapes with one row and no raw row, at the four-rank flat SRA's 4 x
 # 256 chunks with the raw own row, and at one mlp layer's share of an
 # eight-rank SRA (18 chunks, 8 rows).
+# B7a and B7c at the shapes the step gives them under CGX_PALLAS_DB=on (the
+# slices of whole chunks; the tail slice keeps B5 and the staged decode),
+# one chunk a tile as the batch functions give them without a tuned entry,
+# and B7c at the four-rank flat SRA's shape.
 SHAPES = (
     [("quantize", f"B1 c={c}", c, 1, -1) for c in (108, 144, 480, 1024)]
     + [("quantize", "B5 c=307", 307, 1, -1)]
     + [("epilogue", f"B3 c={c} rows=1", c, 1, -1) for c in (108, 144, 307, 480, 1024)]
     + [("epilogue", "B3 c=256 ws=4 own=1", 256, 4, 1), ("epilogue", "B3 c=18 ws=8 own=3", 18, 8, 3)]
+    + [("quantize_db", f"B7a c={c}", c, 1, -1) for c in (108, 144, 480, 1024)]
+    + [("epilogue_db", f"B7c c={c} rows=1", c, 1, -1) for c in (108, 144, 480, 1024)]
+    + [("epilogue_db", "B7c c=256 ws=4 own=1", 256, 4, 1)]
 )
 # Buckets past the cluster kernels' register budget, where a thread takes
 # several positions (a sixth field: the bucket): B1 at 64 MB of bucket 8192,
@@ -73,6 +82,16 @@ PAST_BUDGET = [
 ]
 
 
+# B4 in phase 7's four-rank steps (``chip_smoke.py``, bucket 512): the
+# two-level scheme's intra reduce (2 rows of half a slice, the raw own row
+# in row 0) and the all-to-all's (4 rows of a slice, no raw row); the
+# chunk counts and launches a rank-step are :func:`reduce_step_shapes`'.
+REDUCE_SHAPES = (
+    [("reduce", f"B4 two-level c={c} rows=2 own=0", c, 2, 0) for c in (54, 72, 240, 512)]
+    + [("reduce", f"B4 all-to-all c={c} rows=4", c, 4, -1) for c in (108, 144, 480, 1024)]
+)
+
+
 def wire_bytes(n: int, bits: int = BITS, bucket: int = BUCKET) -> int:
     """Bytes of the quantized payload of n values: words and meta."""
     return n * bits // 8 + 8 * n // bucket
@@ -80,23 +99,23 @@ def wire_bytes(n: int, bits: int = BITS, bucket: int = BUCKET) -> int:
 
 def shape_bytes(kernel: str, chunks: int, rows: int, own: int, bucket: int = BUCKET) -> int:
     """Bytes a call must move, each input read once and each output written
-    once: the quantize reads 4n and writes the payload; the epilogue reads
-    the payload of every row but the own one, the raw own row (4n), and
-    writes one payload."""
+    once: the quantize (B1, B7a) reads 4n and writes the payload; the
+    epilogue (B3, B7c) reads the payload of every row but the own one, the
+    raw own row (4n), and writes one payload; the reduce (B4) reads as the
+    epilogue does and writes 4n."""
     n = chunks * 32 * bucket
     wire = wire_bytes(n, BITS, bucket)
-    if kernel == "quantize":
+    if kernel.startswith("quantize"):
         return 4 * n + wire
     peers = rows - (1 if own >= 0 else 0)
-    return peers * wire + (4 * n if own >= 0 else 0) + wire
+    return peers * wire + (4 * n if own >= 0 else 0) + (4 * n if kernel == "reduce" else wire)
 
 
-def step_slices() -> list:
-    """``(whole chunks, tail buckets)`` of each compressed fusion slice of
-    the GPT-2 124M step's gradients at bucket 512, from the port's own
-    grouping (``parallel/allreduce.py``) of a model on the meta device."""
+def slice_lengths() -> list:
+    """``(length, compression config)`` of each compressed fusion slice of
+    the GPT-2 124M step's gradients, from the port's own grouping
+    (``parallel/allreduce.py``) of a model on the meta device."""
     from torch_cgx_tpu_torch.models import GPT2, GPT2Config
-    from torch_cgx_tpu_torch.ops import codec
     from torch_cgx_tpu_torch.parallel import allreduce
 
     pl = allreduce.sorted_items(dict(GPT2(GPT2Config.small(), device="meta").named_parameters()))
@@ -104,8 +123,55 @@ def step_slices() -> list:
     for g in allreduce._group_leaves(pl, compress_small=False):
         if g.cc.enabled:
             n = sum(pl[i][1].numel() for i in g.indices)
-            for _, ln in allreduce._fusion_slices(n, 4):
-                out.append(divmod(codec.num_buckets(ln, BUCKET), 32))
+            out += [(ln, g.cc) for _, ln in allreduce._fusion_slices(n, 4)]
+    return out
+
+
+def step_slices() -> list:
+    """``(whole chunks, tail buckets)`` of each compressed fusion slice of
+    the GPT-2 124M step's gradients at bucket 512."""
+    from torch_cgx_tpu_torch.ops import codec
+
+    return [divmod(codec.num_buckets(ln, BUCKET), 32) for ln, _ in slice_lengths()]
+
+
+def reduce_step_shapes(dev="cpu") -> dict:
+    """B4's launches a rank-step of phase 7's two-level scheme (cross 2 x
+    intra 2: each slice's intra reduce over ``chunk_layout(slice, 2)``, 2
+    rows, the raw own row) and all-to-all (4 ranks: each slice, 4 rows):
+    ``{scheme: {(chunks, rows, own): launches}}`` where the dispatcher's
+    own gate (``dispatch.fused_reduce_would_run``, on layout stand-ins on
+    ``dev``) takes the fused reduce."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec, dispatch
+    from torch_cgx_tpu_torch.parallel import chunk_layout
+
+    def stand_in(rows, n, cc):
+        nb = codec.num_buckets(n, cc.bucket_size)
+        return codec.QTensor(
+            packed=torch.empty((rows, 0), dtype=torch.int32, device=dev),
+            meta=torch.empty((rows, nb, 2), device=dev), residual=torch.empty((rows, 0), device=dev),
+            numel=n, bits=cc.bits, bucket_size=cc.bucket_size, dtype=torch.float32)
+
+    out = {"two_level": {}, "alltoall": {}}
+    for ln, cc in slice_lengths():
+        for scheme, rows, n, own in (("two_level", 2, chunk_layout(ln, 2)[0], 0),
+                                     ("alltoall", 4, ln, -1)):
+            if dispatch.fused_reduce_would_run(stand_in(rows, n, cc)):
+                key = (n // (32 * cc.bucket_size), rows, own)
+                out[scheme][key] = out[scheme].get(key, 0) + 1
+    return out
+
+
+def reduce_step_bounds(rate: float, dev="cpu") -> dict:
+    """B4's launches a rank-step of each four-rank scheme and the least
+    device time they could take (bytes at ``rate``, :func:`shape_bytes`)."""
+    out = {}
+    for scheme, shapes in reduce_step_shapes(dev).items():
+        nbytes = sum(k * shape_bytes("reduce", c, rows, own) for (c, rows, own), k in shapes.items())
+        out[scheme] = {"launches": sum(shapes.values()), "bytes": nbytes,
+                       "bound_ms": nbytes / rate * 1e3}
     return out
 
 
@@ -194,25 +260,41 @@ def shape_calls(codec_cuda, dev, kernel: str, chunks: int, rows: int, own: int, 
     gen = torch.Generator(device=dev).manual_seed(SEED + chunks + rows)
     per = shape_bytes(kernel, chunks, rows, own, bucket)
     copies = max(1, min(launches, -(-ROTATE_BYTES // per)))
-    if kernel == "quantize":
+    if kernel.startswith("quantize"):
         xs = [torch.randn(n, generator=gen, device=dev) for _ in range(copies)]
+        plain = lambda: codec_cuda.quantize_chunks_plain(xs[0], BITS, bucket)  # noqa: E731
+        if kernel == "quantize_db":
+            if geometry is not None:
+                return (lambda i: codec_cuda._launch_quantize_db(
+                    xs[i % copies], BITS, bucket, 1, "div", "sum", geometry), None)
+            return lambda i: codec_cuda.quantize_chunks_db(xs[i % copies], BITS, bucket, 1), plain
         if geometry is not None:
             return (lambda i: codec_cuda._launch_quantize(xs[i % copies], BITS, bucket, "div", "sum",
                                                           geometry), None)
-        return (lambda i: codec_cuda.quantize_chunks(xs[i % copies], BITS, bucket),
-                lambda: codec_cuda.quantize_chunks_plain(xs[0], BITS, bucket))
+        return lambda i: codec_cuda.quantize_chunks(xs[i % copies], BITS, bucket), plain
     data = torch.randn(rows, n, generator=gen, device=dev) * torch.arange(
         1, rows + 1, device=dev, dtype=torch.float32)[:, None]
     q = codec_cuda.quantize_batch(data, BITS, bucket)
     w = [q.packed.contiguous().clone() for _ in range(copies)]
     m = [q.meta.contiguous().clone() for _ in range(copies)]
     raw = [data[own].clone() if own >= 0 else None for _ in range(copies)]
+    if kernel == "reduce":
+        return (lambda i: codec_cuda.reduce_rows_chunks(w[i % copies], m[i % copies], raw[i % copies],
+                                                        own, BITS, bucket),
+                lambda: codec_cuda.reduce_rows_chunks_plain(w[0], m[0], raw[0], own, BITS, bucket))
+    plain = lambda: codec_cuda.sra_epilogue_chunks_plain(w[0], m[0], raw[0], own, BITS, bucket)  # noqa: E731
+    if kernel == "epilogue_db":
+        if geometry is not None:
+            return (lambda i: codec_cuda._launch_epilogue_db(
+                w[i % copies], m[i % copies], raw[i % copies], own, BITS, bucket, 1, "div", "sum",
+                geometry), None)
+        return (lambda i: codec_cuda.sra_epilogue_chunks_db(
+            w[i % copies], m[i % copies], raw[i % copies], own, BITS, bucket, 1), plain)
     if geometry is not None:
         return (lambda i: codec_cuda._launch_epilogue(w[i % copies], m[i % copies], raw[i % copies],
                                                       own, BITS, bucket, "div", "sum", geometry), None)
     return (lambda i: codec_cuda.sra_epilogue_chunks(w[i % copies], m[i % copies], raw[i % copies],
-                                                     own, BITS, bucket),
-            lambda: codec_cuda.sra_epilogue_chunks_plain(w[0], m[0], raw[0], own, BITS, bucket))
+                                                     own, BITS, bucket), plain)
 
 
 def time_shapes(codec_cuda, dev, rate: float, groups: int = 5, launches: int = 32,
@@ -260,6 +342,8 @@ def geometry_sweep(codec_cuda, dev, rate: float, groups: int = 3, launches: int 
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     out = []
     for kernel, label, chunks, rows, own in shapes:
+        if kernel == "reduce":
+            continue
         chosen = codec_cuda.cluster_geometry(
             chunks, BUCKET, BITS, torch.cuda.get_device_properties(dev).multi_processor_count)
         bound = shape_bytes(kernel, chunks, rows, own) / rate * 1e3
@@ -312,14 +396,15 @@ def profile_codec(fn) -> dict:
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
 
 
-def step_record(dev) -> dict:
-    """The world-size-1 GPT-2 124M step under ``CGX_PALLAS_DB=off``: host
+def step_record(dev, db: str = "off") -> dict:
+    """The world-size-1 GPT-2 124M step under ``CGX_PALLAS_DB=db``: host
     clock and profile."""
     import torch
 
     from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
     from torch_cgx_tpu_torch.parallel import make_train_step
 
+    os.environ["CGX_PALLAS_DB"] = db
     cfg = GPT2Config.small()
     model = GPT2(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (8, 512))).to(dev)
@@ -335,7 +420,8 @@ def step_record(dev) -> dict:
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     prof = profile_codec(lambda: step(tokens))
-    return {"step_ms": statistics.median(ts), "steps_ms": ts, **prof}
+    os.environ["CGX_PALLAS_DB"] = "off"
+    return {"db": db, "step_ms": statistics.median(ts), "steps_ms": ts, **prof}
 
 
 def main(argv=None) -> dict:
@@ -365,14 +451,26 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     codec_cuda.build()
     build_s = time.perf_counter() - t0
+    shapes = time_shapes(codec_cuda, dev, mem_rate(name), args.groups, args.launches,
+                         SHAPES + PAST_BUDGET + REDUCE_SHAPES)
+    reduce_counts = reduce_step_shapes(dev)
+    by_label = {r["shape"]: r for r in shapes}
     rec = {"root": str(Path(args.root).resolve()), "card": card_line(), "build_s": build_s,
            "step_bounds": step_bounds(mem_rate(name)),
-           "shapes": time_shapes(codec_cuda, dev, mem_rate(name), args.groups, args.launches,
-                                 SHAPES + PAST_BUDGET)}
+           "reduce_step_bounds": reduce_step_bounds(mem_rate(name), dev),
+           # B4's burst time a rank-step of each scheme: each launch shape's
+           # burst times its launches.
+           "reduce_step_ms": {
+               scheme: sum(k * next(r["ms"] for r in by_label.values() if r["kernel"] == "reduce"
+                                    and (r["chunks"], r["rows"], r["own"]) == key)
+                           for key, k in counts.items())
+               for scheme, counts in reduce_counts.items()},
+           "shapes": shapes}
     if args.geometries:
         rec["geometries"] = geometry_sweep(codec_cuda, dev, mem_rate(name))
     if not args.no_step:
-        rec["step"] = step_record(dev)
+        rec["step"] = step_record(dev, "off")
+        rec["step_on"] = step_record(dev, "on")
     cache.cleanup()
     print(json.dumps(rec))
     return rec
