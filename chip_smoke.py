@@ -36,7 +36,11 @@ order, none of whose failures is caught:
    128-16384 on normal and ``qbench.adversarial_operand`` data (B3 at ws 1
    and 4, with and without the raw row), and the div encode's reciprocal
    quotient against the IEEE divide over every divisor significand
-   (``codec_cuda.reciprocal_sweep``): no level differs;
+   (``codec_cuda.reciprocal_sweep``): no level differs. Last the multi-row
+   reduce (B4) at full and at scalar width, bit for bit: at each launch
+   shape of phase 7's four-rank steps (``shapebench.REDUCE_SHAPES``), at
+   rows 1-8 and 11 with the raw own row in every position and none, and
+   with a raw row view that is not 16-byte aligned (the scalar width);
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -67,10 +71,11 @@ order, none of whose failures is caught:
    and a ``torch.profiler`` breakdown of one step of each; B5 and B6 are
    B1's and B2's kernels on the 307 chunks of the tail slice, B9 the
    variant kernel at 128 MB; B1/B5 and B3 also at each launch shape of the
-   step, alone, and B7a and B7c at the shapes the step gives them under
-   ``CGX_PALLAS_DB=on`` (``tools/shapebench.py``: cold inputs,
-   back-to-back launches behind a sleep kernel, five groups in turns with
-   the plain version);
+   step, alone, B7a and B7c at the shapes the step gives them under
+   ``CGX_PALLAS_DB=on``, and B4 at phase 7's launch shapes, with its time
+   and bound a rank-step of the two-level and the all-to-all scheme
+   (``tools/shapebench.py``: cold inputs, back-to-back launches behind a
+   sleep kernel, five groups in turns with the plain version);
 6. qbench: ``python -m torch_cgx_tpu_torch.tools.qbench`` at its defaults
    (128 MB, 4 bits, bucket 512, k = 8, ``sra_epilogue`` at ws 8) for each
    of its eight variants, in this process: each variant's bytes checked,
@@ -82,7 +87,8 @@ order, none of whose failures is caught:
    scheme): one gradient sync through the kernels bit-identical to the
    same sync through the plain versions on the CPU; three train steps with
    the launch counters reset just before and read just after, held against
-   the counts derived from the layout; replicas bit-identical. Then one step
+   the counts derived from the layout (no B4 launch at scalar width in any
+   configuration); replicas bit-identical. Then one step
    each of the flat Ring, the all-to-all and the two-level scheme with an
    uncompressed intra level, the first two also held against the plain CPU
    path on a 64 MB fusion slice. Then the flat SRA on a float32 GPT-2 124M,
@@ -369,14 +375,9 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         record("codec_sra_epilogue_db", f"{label} tc={tc} meta", dm, m, got.meta[0])
     del qs, rows
 
-    # The multi-row reduce at phase 7's shapes: the two-level intra
-    # reduce-scatter (2 rows of half a 64 MB slice, the raw own row in each
-    # position) and the all-to-all (4 rows of a whole slice, no raw row);
-    # then other widths, recipes, and a bucket too large for the epilogue's
-    # shared-memory tile.
-    cases = [(MR_INTRA, flat_n // MR_INTRA, BITS, BUCKET, 0, [None, 0, 1])]
-    cases += [(MR_WS, flat_n, BITS, BUCKET, 0, [None])]
-    cases += [(4, flat_n // 4, b, BUCKET, 0, [2]) for b in (1, 8)]
+    # The multi-row reduce at other widths, recipes, and a bucket too large
+    # for the epilogue's shared-memory tile (phase 7's shapes: check_reduce).
+    cases = [(4, flat_n // 4, b, BUCKET, 0, [2]) for b in (1, 8)]
     cases += [(2, flat_n // 8, BITS, BUCKET, k, [1]) for k in (1, 2)]
     cases += [(3, 4 * 32 * 2048, BITS, 2048, 0, [None, 1])]
     for rows_n, n, bits, b, kind, owns in cases:
@@ -436,7 +437,56 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     check_b9(dev, flat_n, record)
     check_lowerings(dev, flat_n, ws, rng, record, db_tc)
     check_cluster(dev, rng, record)
+    check_reduce(dev, rng, record)
     return max_err
+
+
+def check_reduce(dev, rng, record) -> None:
+    """The multi-row reduce (B4) against its plain version run on the card's
+    tensors, bit for bit, at full width and forced to scalar width: at each
+    launch shape of phase 7's four-rank steps (``shapebench.REDUCE_SHAPES``),
+    then at every templated row count (1-8) and one above (11), with the
+    raw own row in every position and none; a raw row view that is not
+    16-byte aligned takes the scalar width (``codec_cuda.REDUCE_SCALAR``)."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import shapebench
+
+    def both(label, words, meta, raw, own, b):
+        want = codec_cuda.reduce_rows_chunks_plain(words, meta, raw, own, BITS, b)
+        record("codec_reduce_rows", label, codec_cuda.reduce_rows_chunks(words, meta, raw, own, BITS, b),
+               want, quiet=True)
+        out = torch.empty_like(want)
+        record("codec_reduce_rows", label + " scalar width",
+               codec_cuda._launch_reduce(words, meta, raw, own, BITS, b, out, 1), want, quiet=True)
+
+    cases = [(c, rows, [None, 0, 1] if own >= 0 else [None, rows - 1])
+             for _, _, c, rows, own in shapebench.REDUCE_SHAPES]
+    cases += [(3, rows, [None] + list(range(rows))) for rows in (1, 2, 3, 4, 5, 6, 7, 8, 11)]
+    for chunks, rows_n, owns in cases:
+        n = chunks * 32 * BUCKET
+        rows = torch.from_numpy(
+            np.stack([fuzz_operand(rng, n, 0) * np.float32(r + 1) for r in range(rows_n)])).to(dev)
+        q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+        w, m = q.packed.contiguous(), q.meta.contiguous()
+        for own in owns:
+            raw, o = (None, -1) if own is None else (rows[own], own)
+            both(f"rows={rows_n} chunks={chunks} own={own}", w, m, raw, o, BUCKET)
+        log(f"  {'codec_reduce_rows':21s} rows={rows_n} chunks={chunks}, owns {owns}: "
+            f"bit-identical at full and at scalar width")
+        del rows, q, w, m
+    n = 3 * 32 * BUCKET
+    rows = torch.from_numpy(np.stack([fuzz_operand(rng, n, k) for k in range(3)])).to(dev)
+    q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+    buf = torch.empty(n + 1, device=dev)
+    buf[1:] = rows[1]
+    codec_cuda.reset_launch_counts()
+    got = codec_cuda.reduce_rows_chunks(q.packed, q.meta, buf[1:], 1, BITS, BUCKET)
+    record("codec_reduce_rows", "raw row 4 bytes past a 16-byte boundary", got,
+           codec_cuda.reduce_rows_chunks_plain(q.packed, q.meta, rows[1], 1, BITS, BUCKET))
+    if codec_cuda.REDUCE_SCALAR["launches"] != 1:
+        raise AssertionError("an unaligned raw row did not take the scalar width")
 
 
 def check_cluster(dev, rng, record) -> None:
@@ -1182,6 +1232,7 @@ def time_kernels(dev, n: int, name: str) -> list:
 
     from torch_cgx_tpu_torch.config import default_compression_config
     from torch_cgx_tpu_torch.ops import codec_cuda, dispatch
+    from torch_cgx_tpu_torch.tools import shapebench
     from torch_cgx_tpu_torch.utils.device import mem_rate
 
     rate = mem_rate(name)
@@ -1267,9 +1318,11 @@ def time_kernels(dev, n: int, name: str) -> list:
          lambda: codec_cuda.sra_epilogue_chunks_db_plain(w4, m4, raw4, 1, BITS, BUCKET),
          ep_bytes, (3 * SRA_WS + 8) * c, None),
     ]
-    # The multi-row reduce: decode (a multiply and an add) and fold (an add)
-    # per value and row. Two-level: 2 rows of half a slice with the raw own
-    # row; all-to-all: 4 rows of a whole slice.
+    # The multi-row reduce: decode (a multiply and an add) per value of each
+    # row but the own one, fold (an add) per value of each row after the
+    # first; bytes as shapebench counts them (the own row's payload is not
+    # read). Two-level: 2 rows of half a slice with the raw own row;
+    # all-to-all: 4 rows of a whole slice.
     for rows_n, m, own in ((MR_INTRA, n // MR_INTRA, 0), (MR_WS, n, None)):
         rows = torch.from_numpy(
             np.stack([fuzz_operand(rng, m, 0) for _ in range(rows_n)])
@@ -1282,7 +1335,8 @@ def time_kernels(dev, n: int, name: str) -> list:
             "codec_reduce_rows", f"rows={rows_n} n={m} own={own}",
             lambda w=w, mt=mt, raw=raw, o=o: codec_cuda.reduce_rows_chunks(w, mt, raw, o, BITS, BUCKET),
             lambda w=w, mt=mt, raw=raw, o=o: codec_cuda.reduce_rows_chunks_plain(w, mt, raw, o, BITS, BUCKET),
-            rows_n * wire(m) + (0 if own is None else 4 * m) + 4 * m, 3 * rows_n * m, None,
+            shapebench.shape_bytes("reduce", m // (32 * BUCKET), rows_n, o, BUCKET),
+            (2 * (rows_n - (own is not None)) + rows_n - 1) * m, None,
         ))
     # The matmul-quantize at phase 7's three dense-layer shapes, mlp_in first
     # (its record goes into the JSON line), as the producer calls it (with
@@ -1409,9 +1463,10 @@ def profile_step(name: str, fn) -> dict:
 
 
 def time_step_shapes(dev, name: str) -> list:
-    """B1/B5 and B3 alone at the step's launch shapes (``shapebench``: cold
-    inputs, back-to-back launches behind a sleep kernel, five groups in
-    turns with the plain version)."""
+    """B1/B5 and B3 alone at the step's launch shapes, and B4 at phase 7's
+    (``shapebench``: cold inputs, back-to-back launches behind a sleep
+    kernel, five groups in turns with the plain version); B4's burst time
+    and bound a rank-step of each four-rank scheme."""
     from torch_cgx_tpu_torch.ops import codec_cuda
     from torch_cgx_tpu_torch.tools import shapebench
     from torch_cgx_tpu_torch.utils.device import mem_rate
@@ -1419,13 +1474,23 @@ def time_step_shapes(dev, name: str) -> list:
     import torch
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = shapebench.time_shapes(codec_cuda, dev, mem_rate(name))
+    out = shapebench.time_shapes(codec_cuda, dev, mem_rate(name),
+                                 shapes=shapebench.SHAPES + shapebench.REDUCE_SHAPES)
     for r in out:
-        g = codec_cuda.cluster_geometry(r["chunks"], BUCKET, BITS, sms)
-        log(f"  {r['shape']:22s} k={g.k} T={g.threads}: {r['ms']:.4f} ms (groups "
+        if r["kernel"] == "reduce":
+            geo = "grid over the values"
+        else:
+            g = codec_cuda.cluster_geometry(r["chunks"], BUCKET, BITS, sms)
+            geo = f"k={g.k} T={g.threads}"
+        log(f"  {r['shape']:31s} {geo}: {r['ms']:.4f} ms (groups "
             f"{', '.join(f'{t:.4f}' for t in r['groups_ms'])}; spread {100 * r['spread']:.1f}%), "
             f"plain {r['plain_ms']:.3f} ms; {r['bytes']} bytes, bound {r['bound_ms']:.4f} ms "
             f"= {r['pct_of_bound']:.1f}% of bound")
+    counts = shapebench.reduce_step_shapes(dev)
+    step_ms = shapebench.reduce_step_ms(out, counts)
+    for scheme, b in shapebench.reduce_step_bounds(mem_rate(name), dev).items():
+        log(f"  B4 a rank-step, {scheme}: {b['launches']} launches, {step_ms[scheme]:.4f} ms of bursts "
+            f"(reduce_step_ms), bound {b['bound_ms']:.4f} ms (reduce_step_bounds, {b['bytes']} bytes)")
     return out
 
 
@@ -1595,6 +1660,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             sync(dev)
             res["step_s"] = (time.perf_counter() - t0) / steps
             res["launches"] = dict(codec_cuda.LAUNCHES)
+            res["reduce_scalar"] = codec_cuda.REDUCE_SCALAR["launches"]
             res["producer"] = dict(fused_producer.COUNTS)
             res["steps"] = steps
             res["digests"] = _digests(mdl)
@@ -1672,6 +1738,11 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         log(f"    replicas: all {len(c0['digests'])} parameters bit-identical on the {MR_WS} ranks")
     assert res[0]["two_level"]["launches"]["codec_reduce_rows"] > 0
     assert res[0]["alltoall"]["launches"]["codec_reduce_rows"] > 0
+    # Every B4 launch of the steps took the full width: the rows the schemes
+    # hand it are whole aligned chunks.
+    scalar = {(r, name): o[name]["reduce_scalar"] for r, o in enumerate(res) for name in MR_CONFIGS}
+    log(f"  B4 launches at scalar width, every rank and configuration: {sum(scalar.values())}")
+    assert not any(scalar.values()), scalar
     # The pipelined flat SRA: B7c folds the four ranks' rows with the raw own
     # row, and only there do pipelined kernels run.
     for name in MR_CONFIGS:
@@ -1780,6 +1851,26 @@ def ptxas_report(ptxas: str) -> None:
             log(f"  {kernel} ({what}): {len(mine)} instances, {min(r)}-{max(r)} registers a "
                 f"thread, {spill} with spills; at most 512 threads a CTA")
             assert len(mine) == 32, (kernel, reread, len(mine))
+    # B4: registers and spills by width, raw row and row count (0: any).
+    by = {}
+    for b in blocks:
+        found = re.search(r"cgx_reduce_rows_kernelILi(\d)ELi(\d+)ELi(\d)ELb(\d)EE", b.split("'")[1])
+        if found:
+            by.setdefault((int(found.group(3)), int(found.group(4)), int(found.group(2))), []).append(
+                (int(re.findall(r"Used (\d+) registers", b)[0]),
+                 "0 bytes spill stores, 0 bytes spill loads" not in b))
+    for vec, raw in ((4, 1), (4, 0), (1, 1), (1, 0)):
+        log(f"  cgx_reduce_rows_kernel vec={vec} raw row {'yes' if raw else 'no'}, registers over "
+            f"bits 1-8, by row count: " + "; ".join(
+                f"{rows or 'any'}: {min(v)[0]}-{max(v)[0]}" + (f" ({sum(sp for _, sp in v)} spill)"
+                                                              if any(sp for _, sp in v) else "")
+                for (vv, rr, rows), v in sorted(by.items(), key=lambda kv: (kv[0][2] or 99))
+                if (vv, rr) == (vec, raw)))
+    # Full width: bits 1-8 x rows 1-8 and any x raw row or not; scalar
+    # width: the any-count instance alone.
+    assert sum(len(v) for k, v in by.items() if k[0] == 4) == 144, by
+    assert sorted(k for k in by if k[0] == 1) == [(1, 0, 0), (1, 1, 0)], sorted(by)
+    assert all(len(by[k]) == 8 for k in by if k[0] == 1), by
     by = {}
     for b in blocks:
         found = re.search(r"cgx_quantize_variant_kernelILi(\d)ELi(\d)EE", b.split("'")[1])

@@ -355,7 +355,7 @@ def _jax_reduce_rows(xs: np.ndarray, own, bits: int, bucket: int, monkeypatch):
     return q, np.asarray(jdispatch.reduce_rows(q, **kw))
 
 
-@pytest.mark.parametrize("ws", [1, 2, 4])
+@pytest.mark.parametrize("ws", [1, 2, 3, 4, 5, 6, 7, 8, 11])
 @pytest.mark.parametrize("bits,bucket", [(1, 128), (4, 128), (8, 128), (1, 512), (4, 512), (8, 512)])
 def test_reduce_rows_matches_jax(ws, bits, bucket, monkeypatch):
     """B4's plain version (directly and through ``dispatch.reduce_rows`` in

@@ -310,3 +310,23 @@ def test_shapebench_db_and_reduce_shapes_are_the_steps(monkeypatch):
     assert shapebench.shape_bytes("reduce", 54, 2, 0) == (n // 2 + n // 64) + 4 * n + 4 * n
     assert shapebench.shape_bytes("quantize_db", 144, 1, -1) == shapebench.shape_bytes(
         "quantize", 144, 1, -1)
+
+
+@pytest.mark.parametrize("timed,want", [
+    ("every shape", {"two_level": 12 * 0.005 + 24 * 0.006, "alltoall": 12 * 0.0075}),
+    ("two-level only", {"two_level": 12 * 0.005 + 24 * 0.006, "alltoall": None}),
+])
+def test_shapebench_reduce_step_ms(timed, want):
+    """B4's burst time a rank-step: each launch shape's burst times its
+    launches in the scheme, None for a scheme with a shape left untimed;
+    records of other kernels at the same chunk count are not B4's."""
+    counts = {"two_level": {(54, 2, 0): 12, (72, 2, 0): 24}, "alltoall": {(108, 4, -1): 12}}
+    shapes = [{"kernel": "reduce", "chunks": 54, "rows": 2, "own": 0, "ms": 0.005},
+              {"kernel": "reduce", "chunks": 72, "rows": 2, "own": 0, "ms": 0.006},
+              {"kernel": "epilogue", "chunks": 108, "rows": 4, "own": -1, "ms": 1.0}]
+    if timed == "every shape":
+        shapes.append({"kernel": "reduce", "chunks": 108, "rows": 4, "own": -1, "ms": 0.0075})
+    got = shapebench.reduce_step_ms(shapes, counts)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == (None if v is None else pytest.approx(v, rel=1e-12)), k

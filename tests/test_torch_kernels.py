@@ -19,7 +19,7 @@ from torch_cgx_tpu_torch.config import CompressionConfig
 from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
 from torch_cgx_tpu_torch.ops import autotune, codec, codec_cuda, dispatch
 from torch_cgx_tpu_torch.parallel import gradient_sync, make_train_step
-from torch_cgx_tpu_torch.tools import qbench
+from torch_cgx_tpu_torch.tools import qbench, shapebench
 
 pytestmark = pytest.mark.cuda
 
@@ -149,14 +149,22 @@ def test_tiny_train_step_runs_the_kernels(dev, monkeypatch):
     }, codec_cuda.LAUNCHES
 
 
+# B4 at phase 7's launch shapes (shapebench.REDUCE_SHAPES): the two-level
+# intra reduce (2 rows, the raw own row) and the all-to-all (4 rows).
+REDUCE_STEP_CASES = [(rows, c * 32 * 512, 4, 512, [None, 0, 1] if own >= 0 else [None, 2])
+                     for _, _, c, rows, own in shapebench.REDUCE_SHAPES]
+
+
 @pytest.mark.parametrize("rows,n,bits,bucket,owns", [
     (2, 8_388_608, 4, 512, [None, 0, 1]),  # the two-level intra reduce-scatter
     (4, 16_777_216, 4, 512, [None]),  # the all-to-all
     (4, 4 * 32 * 128, 1, 128, [None, 0, 1, 2, 3]),
     (3, 2 * 32 * 512, 8, 512, [2]),
     (2, 3 * 32 * 2048, 4, 2048, [None, 1]),  # beyond the epilogue's tile
-])
+] + REDUCE_STEP_CASES)
 def test_reduce_rows_matches_plain(dev, rows, n, bits, bucket, owns):
+    """B4 bit for bit against its plain version on the CPU, one launch a
+    call, at full width (every operand 16-byte aligned)."""
     x = torch.from_numpy(
         np.random.default_rng(n + rows).standard_normal((rows, n)).astype(np.float32)
         * np.arange(1, rows + 1, dtype=np.float32)[:, None]
@@ -165,12 +173,110 @@ def test_reduce_rows_matches_plain(dev, rows, n, bits, bucket, owns):
     assert codec_cuda.supports_reduce(q, requantize=False)
     for own in owns:
         raw = None if own is None else x[own]
+        codec_cuda.reset_launch_counts()
         got = codec_cuda.reduce_rows_batch(q, raw_row=raw, own_idx=own)
+        torch.cuda.synchronize()
+        assert codec_cuda.LAUNCHES["codec_reduce_rows"] == 1
+        assert codec_cuda.REDUCE_SCALAR["launches"] == 0
         want = codec_cuda.reduce_rows_chunks_plain(
             q.packed.cpu(), q.meta.cpu(), None if raw is None else raw.cpu(),
             -1 if own is None else own, bits, bucket,
         )
         assert _bits_equal(got, want), own
+
+
+def _reduce_operands(dev, rows: int, chunks: int, bits: int, bucket: int, seed: int):
+    """Stage-1 rows of whole chunks (normal data, each row scaled
+    differently) on the card and their payload."""
+    n = chunks * 32 * bucket
+    x = torch.from_numpy(
+        np.random.default_rng(seed).standard_normal((rows, n)).astype(np.float32)
+        * np.arange(1, rows + 1, dtype=np.float32)[:, None]
+    ).to(dev)
+    q = codec_cuda.quantize_batch(x, bits, bucket)
+    return x, q.packed.contiguous(), q.meta.contiguous()
+
+
+def _reduce_both_widths(words, meta, raw, own, bits, bucket):
+    """B4 at full width through the wrapper and forced to scalar width."""
+    got = codec_cuda.reduce_rows_chunks(words, meta, raw, own, bits, bucket)
+    out = torch.empty_like(got)
+    scalar = codec_cuda._launch_reduce(words, meta, raw, own, bits, bucket, out, 1)
+    return got, scalar
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8, 11])
+def test_reduce_rows_every_row_count_and_width(dev, rows, bits):
+    """B4 at each templated row count (1-8) and a generic one above (11: a
+    stage of 8 rows, then 3), at every width, the raw own row in every
+    position and none, at both widths: bit for bit the plain version's."""
+    x, words, meta = _reduce_operands(dev, rows, 3, bits, 128, 100 * rows + bits)
+    for own in [None] + list(range(rows)):
+        raw, o = (None, -1) if own is None else (x[own], own)
+        got, scalar = _reduce_both_widths(words, meta, raw, o, bits, 128)
+        want = codec_cuda.reduce_rows_chunks_plain(words, meta, raw, o, bits, 128)
+        assert _bits_equal(got, want) and _bits_equal(scalar, want), own
+
+
+@pytest.mark.parametrize("chunks", [1, 3, 54])
+@pytest.mark.parametrize("bucket", [128, 640, 2048, 16384])
+def test_reduce_rows_buckets_and_chunk_counts(dev, bucket, chunks):
+    """B4 at buckets 128 to 16,384 (blocks of one to 128 a chunk; 640: five)
+    and 1, 3 and 54 chunks, at both widths."""
+    x, words, meta = _reduce_operands(dev, 3, chunks, 4, bucket, bucket + chunks)
+    for own in (None, 0, 2):
+        raw, o = (None, -1) if own is None else (x[own], own)
+        got, scalar = _reduce_both_widths(words, meta, raw, o, 4, bucket)
+        want = codec_cuda.reduce_rows_chunks_plain(words, meta, raw, o, 4, bucket)
+        assert _bits_equal(got, want) and _bits_equal(scalar, want), own
+
+
+@pytest.mark.parametrize("rows,own", [(1, 0), (2, 0), (2, 1), (4, 3), (11, 9)])
+def test_reduce_rows_unaligned_operands_take_the_scalar_width(dev, rows, own):
+    """A raw row view 4 bytes past a 16-byte boundary, and words likewise,
+    launch the scalar-width kernel (counted in REDUCE_SCALAR), bit for bit
+    the plain version's; the full-width instantiation refuses them."""
+    x, words, meta = _reduce_operands(dev, rows, 3, 4, 512, rows + own)
+    buf = torch.empty(x.shape[1] + 1, device=dev)
+    buf[1:] = x[own]
+    raw = buf[1:]
+    assert raw.data_ptr() % 16 == 4
+    want = codec_cuda.reduce_rows_chunks_plain(words, meta, raw, own, 4, 512)
+    codec_cuda.reset_launch_counts()
+    got = codec_cuda.reduce_rows_batch(
+        codec.QTensor(packed=words, meta=meta, residual=torch.zeros((rows, 0), device=dev),
+                      numel=x.shape[1], bits=4, bucket_size=512, dtype=torch.float32),
+        raw_row=raw, own_idx=own)
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_reduce_rows"] == 1
+    assert codec_cuda.REDUCE_SCALAR["launches"] == 1
+    assert _bits_equal(got, want)
+    wbuf = torch.empty(words.numel() + 1, dtype=torch.int32, device=dev)
+    wbuf[1:] = words.reshape(-1)
+    odd_words = wbuf[1:].view(rows, -1)
+    codec_cuda.reset_launch_counts()
+    assert _bits_equal(codec_cuda.reduce_rows_chunks(odd_words, meta, x[own], own, 4, 512), want)
+    assert codec_cuda.REDUCE_SCALAR["launches"] == 1
+    out = torch.empty_like(want)
+    with pytest.raises(RuntimeError, match="codec_reduce_rows"):
+        codec_cuda._launch_reduce(words, meta, raw, own, 4, 512, out, 4)
+
+
+@pytest.mark.parametrize("rows,owns", [(1, [0]), (2, [None, 0, 1]), (4, [None, 1, 3]), (9, [None, 8])])
+def test_reduce_rows_special_values(dev, rows, owns):
+    """NaN, +-inf, +-0 and subnormals in the raw row and in the rows behind
+    the payloads (NaN and inf metas), at both widths: bit for bit the plain
+    version run on the card's tensors (NaN arithmetic as the card does it)."""
+    n = 3 * 32 * 512
+    x = torch.from_numpy(np.stack([_specials(n, 512, 7 * r + rows) * np.float32(r + 1)
+                                   for r in range(rows)])).to(dev)
+    q = codec_cuda.quantize_batch(x, 4, 512)
+    for own in owns:
+        raw, o = (None, -1) if own is None else (x[own], own)
+        got, scalar = _reduce_both_widths(q.packed, q.meta, raw, o, 4, 512)
+        want = codec_cuda.reduce_rows_chunks_plain(q.packed, q.meta, raw, o, 4, 512)
+        assert _bits_equal(got, want) and _bits_equal(scalar, want), own
 
 
 def test_reduce_rows_dispatch_tail_geometry(dev, monkeypatch):

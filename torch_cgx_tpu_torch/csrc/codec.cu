@@ -21,9 +21,11 @@
 // whole chunks of 32 buckets. B1/B5 and B3 give each chunk a thread-block
 // cluster whose threads hold the chunk's values in registers (see their
 // section), and B7a and B7c walk the chunks with the same clusters on a
-// persistent grid; the others take one thread block per chunk (or, B7b, a
-// tile of chunks). The matmul-quantize tiles its output instead, and its
-// tiles complete the chunks through the L2 (see its section).
+// persistent grid; the multi-row reduce (B4) spreads its grid over the
+// values, 8 buckets of 4 positions a thread; the others take one thread
+// block per chunk (or, B7b, a tile of chunks). The matmul-quantize tiles
+// its output instead, and its tiles complete the chunks through the L2
+// (see its section).
 //
 // Wire layout (torch_cgx_tpu/ops/codec.py): chunk c holds buckets
 // 32c..32c+31; value (c, s, l) is x[c*32*B + s*B + l]; word (c, w, l) at
@@ -308,63 +310,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// codec_reduce_rows. Replaces codec_pallas.py _reduce_rows_impl (B4): the
-// epilogue's decode-accumulate without the requantize. Memory-bound: reads
-// ws*(n*bits/8 + 8n/B) (+4n of the raw own row), writes 4n bytes, n = the
-// chunk's length. One block per chunk, the ws rows' meta staged in dynamic
-// shared memory (ws*256 bytes); thread l keeps the 32 partial sums of
-// position l in registers across the rows, folded in ascending row order
-// (row 0's value, then + row 1, ...: dispatch.ordered_rowsum), and writes
-// each reduced value once. No (32, B) tile, so no bucket-size limit.
-template <int BITS>
-__global__ void __launch_bounds__(kThreads)
-    cgx_reduce_rows_kernel(const int32_t* __restrict__ words,
-                           const float* __restrict__ meta,
-                           const float* __restrict__ raw, int own, int ws,
-                           long long chunks, int B, float* __restrict__ out) {
-  extern __shared__ float s_meta[];  // [ws][32][2]: (unit, min)
-  const size_t c = blockIdx.x;
-  const size_t row_words = (size_t)chunks * BITS * B;
-  const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
-  for (int i = threadIdx.x; i < ws * 2 * kChunkBuckets; i += blockDim.x) {
-    const int r = i / (2 * kChunkBuckets);
-    const int j = i % (2 * kChunkBuckets);
-    s_meta[i] = meta[r * row_meta + c * 2 * kChunkBuckets + j];
-  }
-  __syncthreads();
-  const size_t base = c * kChunkBuckets * B;
-  for (int l = threadIdx.x; l < B; l += blockDim.x) {
-    float acc[kChunkBuckets];
-    for (int r = 0; r < ws; ++r) {
-      const int32_t* wsrc = words + r * row_words + c * BITS * B;
-      uint32_t w[BITS];
-#pragma unroll
-      for (int k = 0; k < BITS; ++k) w[k] = (uint32_t)wsrc[(size_t)k * B + l];
-      const float* m = s_meta + r * 2 * kChunkBuckets;
-#pragma unroll
-      for (int s = 0; s < kChunkBuckets; ++s) {
-        const float v = r == own ? raw[base + (size_t)s * B + l]
-                                 : decode_one<BITS>(w, s, m[2 * s], m[2 * s + 1]);
-        acc[s] = r == 0 ? v : __fadd_rn(acc[s], v);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kChunkBuckets; ++s) out[base + (size_t)s * B + l] = acc[s];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The matmul-quantize (B8): a register-tiled f32 GEMM whose tiles complete
-// the quantize chunks through the L2.
-// ---------------------------------------------------------------------------
-
-constexpr int kMmThreads = 128;  // 16 column groups x 8 row groups, 8 x 8 sums each
-constexpr int kMmBM = 64;        // rows of dw (columns of x2) a tile covers
-constexpr int kMmBN = 128;       // columns of dw (of g2) a tile covers
-constexpr int kMmBK = 16;        // contraction steps one ring stage holds
-constexpr int kMmStages = 4;     // stages of the shared-memory ring
-constexpr int kMmStageFloats = kMmBK * (kMmBM + kMmBN);
-
 // Asynchronous global -> shared copies (Ampere and later) with zero fill:
 // the src_bytes first bytes come from src, the rest of the copy is zeros
 // (src_bytes 0: nothing is read). The 16-byte form (.cg) reads through the
@@ -386,6 +331,248 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// The multi-row reduce (B4).
+// ---------------------------------------------------------------------------
+//
+// codec_reduce_rows. Replaces codec_pallas.py _reduce_rows_impl (B4): the
+// epilogue's decode-accumulate without the requantize. Memory-bound: reads
+// the payload of every row but the own one (n*bits/8 + 8n/B each) and the
+// raw own row (4n), writes 4n bytes, n = the reduced chunk's length.
+//
+// The grid covers values, not chunks. A thread takes VEC consecutive
+// positions l..l+VEC-1 of a group of kReduceBuckets = 8 buckets 8g..8g+7 of
+// one chunk and keeps their 8*VEC partial sums in registers across the
+// rows; the four lanes 4p..4p+3 of a warp take the four groups of position
+// vector p. A block of 128 threads covers P = 32*VEC positions of one
+// chunk (4 blocks a chunk at B = 512 and VEC = 4). The meta is given, so
+// the buckets need no cooperation: no cluster, no bucket-size limit.
+//
+// The one-block-a-chunk kernel this replaces walked its positions and its
+// runtime-length row loop with the raw row's loads behind an r == own
+// select: a chain of dependent loads a thread. Here every load of a stage
+// is in flight before the first use. A thread loads its raw own row values
+// into registers (VEC-wide, streaming), then the block's warps issue the
+// stage's plane words of its positions and their meta as asynchronous
+// global -> shared copies (VEC*4 bytes each, no register held while they
+// fly, each word copied once though four lanes decode it); one wait and one
+// barrier later the threads fold from shared memory and write each reduced
+// value once (VEC-wide). The own row's words and meta are not read. The row
+// count (1..8; 0 = any count, in stages of 8 rows) and the raw row's
+// presence are template parameters, so a launch without the raw row keeps
+// no register for it. Static shared memory, at most 34,816 bytes (8 rows of
+// 8 planes), so no function attribute. VEC = 4 needs every operand 16-byte
+// aligned and B a multiple of 128; VEC = 1 is the same kernel at scalar
+// width, for a raw row view that is not aligned (or a bucket the fused
+// path's gate never admits), built at the any-count instance alone.
+//
+// Decode: a position's plane bytes of the thread's 8 buckets are gathered
+// into one word (byte k = plane k: three byte permutes) and transposed by
+// two delta swaps, so that bucket j's level sits in nibble reduce_nibble(j)
+// (a second word holds planes 4..7 when BITS > 4): about 1.4 integer
+// operations a value, where extracting each bit took 2 a bit. The level
+// becomes a float exactly through the magic 2^23 (no I2F, which the card
+// runs at a fraction of its float rate). Arithmetic as before, bit for
+// bit: min + unit*level with the product rounded before the add, the rows
+// folded in ascending order from row 0's value (acc = v0; acc += v1; ...:
+// dispatch.ordered_rowsum), the raw row in place of row own's decode.
+
+constexpr int kReduceBuckets = 8;                              // buckets a thread
+constexpr int kReduceGroups = kChunkBuckets / kReduceBuckets;  // lanes sharing positions
+constexpr int kReduceThreads = 128;
+constexpr int kReduceVectors = kReduceThreads / kReduceGroups;  // position vectors a block
+constexpr int kReduceWarps = kReduceThreads / 32;
+constexpr int kReduceStageRows = 8;  // rows staged at once (the templated counts' ceiling)
+
+// The nibble of level_nibbles' result that holds bucket j of the 8.
+__host__ __device__ constexpr int reduce_nibble(int j) {
+  return ((j >> 1) & 1) * 4 + (j & 1) * 2 + (j >> 2);
+}
+
+// Bucket j's level bits from byte `sel` picks of four plane words p0..p3
+// (the 8 buckets of one byte, bucket j in bit j), as nibble
+// reduce_nibble(j), bit k from plane k. The bytes are gathered into x (byte
+// k = plane k: bit 8k + j), then bits 0 <-> 3 and 1 <-> 4 of the 5-bit bit
+// index are swapped (two delta swaps), which moves bit (k, j) to 16*(j>>1&1)
+// + 8*(j&1) + 4*(j>>2) + k.
+__device__ __forceinline__ uint32_t level_nibbles(uint32_t p0, uint32_t p1, uint32_t p2,
+                                                  uint32_t p3, uint32_t sel) {
+  uint32_t x = __byte_perm(__byte_perm(p0, p1, sel), __byte_perm(p2, p3, sel), 0x5410);
+  uint32_t t = (x ^ (x >> 7)) & 0x00AA00AAu;
+  x ^= t ^ (t << 7);
+  t = (x ^ (x >> 14)) & 0x0000CCCCu;
+  return x ^ t ^ (t << 14);
+}
+
+// The level of bucket j (of the 8) as an exact float, from level_nibbles'
+// word of planes 0..3 (lo) and, for BITS > 4, of planes 4..7 (hi).
+template <int BITS>
+__device__ __forceinline__ float nibble_level(uint32_t lo, uint32_t hi, int j) {
+  const int n = reduce_nibble(j);
+  if (BITS <= 4) {
+    // Nibble m <= 4 of a mantissa under the exponent of 2^23: 2^23 +
+    // q*16^m exactly, less 2^23, times 16^-m, both exact. One integer
+    // operation a value (nibbles 5..7 from lo >> 12, shared by three).
+    const int m = n < 5 ? n : n - 3;
+    const uint32_t bits = ((n < 5 ? lo : lo >> 12) & (0xFu << (4 * m))) | 0x4B000000u;
+    const float level = __fsub_rn(__uint_as_float(bits), 8388608.f);
+    return m > 0 ? __fmul_rn(level, 1.f / (float)(1 << (4 * m))) : level;
+  }
+  const uint32_t q = ((lo >> (4 * n)) & 0xFu) | ((hi >> (4 * n)) & 0xFu) << 4;
+  return __fsub_rn(__uint_as_float(q | 0x4B000000u), 8388608.f);  // 2^23 + q, less 2^23
+}
+
+// VEC consecutive 4-byte values from global to shared memory, asynchronously
+// (16-byte aligned when VEC == 4).
+template <int VEC>
+__device__ __forceinline__ void cp_async_vec(void* dst, const void* src) {
+  if constexpr (VEC == 4) {
+    cp_async16(dst, src, 16);
+  } else {
+    cp_async4(dst, src, 4);
+  }
+}
+
+// VEC consecutive values (16-byte aligned when VEC == 4): from global memory,
+// read once (streaming), or from shared memory.
+template <int VEC>
+__device__ __forceinline__ void ld_stream(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void lds_vec(const uint32_t* p, uint32_t (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+template <int BITS, int ROWS, int VEC, bool RAW>
+__global__ void __launch_bounds__(kReduceThreads)
+    cgx_reduce_rows_kernel(const int32_t* __restrict__ words, const float* __restrict__ meta,
+                           const float* __restrict__ raw, int own, int ws, long long chunks,
+                           int B, float* __restrict__ out) {
+  constexpr int G = kReduceBuckets;
+  constexpr int STAGE = ROWS > 0 ? ROWS : kReduceStageRows;
+  constexpr int P = kReduceVectors * VEC;  // positions a block
+  __shared__ __align__(16) float s_meta[STAGE][2 * kChunkBuckets];
+  __shared__ __align__(16) uint32_t s_words[STAGE * BITS][P];
+  const int rows = ROWS > 0 ? ROWS : ws;
+  const int blocks_per_chunk = B / P;
+  const int part = (int)(blockIdx.x % (unsigned)blocks_per_chunk);
+  const size_t c = blockIdx.x / (unsigned)blocks_per_chunk;
+  const int warp = (int)threadIdx.x / 32, lane = (int)threadIdx.x % 32;
+  const int g = (int)threadIdx.x % kReduceGroups;
+  const int pv = (int)threadIdx.x / kReduceGroups;
+  const int l0 = part * P;  // the block's first position
+  const uint32_t sel = (uint32_t)g | (uint32_t)(g + 4) << 4;  // byte g of two words
+  const size_t row_words = (size_t)chunks * BITS * B;
+  const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
+  const size_t base = (c * kChunkBuckets + (size_t)G * g) * B + l0 + pv * VEC;  // value (c, 8g, l)
+
+  float raw_v[G][VEC];
+  if constexpr (RAW) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) ld_stream<VEC>(raw + base + (size_t)j * B, raw_v[j]);
+  }
+  float acc[G][VEC];
+#pragma unroll 1
+  for (int r0 = 0; r0 < rows; r0 += STAGE) {
+    if (r0 > 0) __syncthreads();  // the previous stage is folded
+    // Warp w copies plane rows w, w + 4, ... of the stage: lane q the q-th
+    // VEC positions of the block's run.
+#pragma unroll
+    for (int e = warp; e < STAGE * BITS; e += kReduceWarps) {
+      const int r = r0 + e / BITS;
+      if (r < rows && r != own) {
+        cp_async_vec<VEC>(&s_words[e][lane * VEC],
+                          words + r * row_words + (c * BITS + e % BITS) * B + l0 + lane * VEC);
+      }
+    }
+    for (int e = threadIdx.x; e < STAGE * 2 * kChunkBuckets / VEC; e += kReduceThreads) {
+      const int rr = e * VEC / (2 * kChunkBuckets), i = e * VEC % (2 * kChunkBuckets);
+      if (r0 + rr < rows && r0 + rr != own) {
+        cp_async_vec<VEC>(&s_meta[rr][i], meta + (r0 + rr) * row_meta + c * 2 * kChunkBuckets + i);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < STAGE; ++rr) {
+      const int r = r0 + rr;
+      if (r >= rows) break;
+      if (RAW && r == own) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            acc[j][v] = r == 0 ? raw_v[j][v] : __fadd_rn(acc[j][v], raw_v[j][v]);
+          }
+        }
+        continue;
+      }
+      float unit[G], bmin[G];
+      const float4* m4 = reinterpret_cast<const float4*>(&s_meta[rr][2 * G * g]);
+#pragma unroll
+      for (int h = 0; h < G / 2; ++h) {
+        const float4 t = m4[h];
+        unit[2 * h] = t.x; bmin[2 * h] = t.y; unit[2 * h + 1] = t.z; bmin[2 * h + 1] = t.w;
+      }
+      uint32_t w[8][VEC];  // planes past BITS are 0
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k < BITS) {
+          lds_vec<VEC>(&s_words[rr * BITS + (k < BITS ? k : 0)][pv * VEC], w[k]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) w[k][v] = 0u;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const uint32_t lo = level_nibbles(w[0][v], w[1][v], w[2][v], w[3][v], sel);
+        const uint32_t hi = BITS > 4 ? level_nibbles(w[4][v], w[5][v], w[6][v], w[7][v], sel) : 0u;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float val = __fadd_rn(bmin[j], __fmul_rn(unit[j], nibble_level<BITS>(lo, hi, j)));
+          acc[j][v] = r == 0 ? val : __fadd_rn(acc[j][v], val);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j) st_vec<VEC>(out + base + (size_t)j * B, acc[j]);
+}
+
+// ---------------------------------------------------------------------------
+// The matmul-quantize (B8): a register-tiled f32 GEMM whose tiles complete
+// the quantize chunks through the L2.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmThreads = 128;  // 16 column groups x 8 row groups, 8 x 8 sums each
+constexpr int kMmBM = 64;        // rows of dw (columns of x2) a tile covers
+constexpr int kMmBN = 128;       // columns of dw (of g2) a tile covers
+constexpr int kMmBK = 16;        // contraction steps one ring stage holds
+constexpr int kMmStages = 4;     // stages of the shared-memory ring
+constexpr int kMmStageFloats = kMmBK * (kMmBM + kMmBN);
 
 // A load that acquires at device scope: the writes released before the
 // store or atomic it reads are visible after it.
@@ -1617,6 +1804,20 @@ __global__ void cgx_div_pairs_kernel(const float* __restrict__ a, const float* _
     default: return (int)cudaErrorInvalidValue;             \
   }
 
+// The reduce's row count as the constant ROWS: 1..8, else 0 (any count).
+#define CGX_DISPATCH_ROWS(ws, ...)          \
+  switch (ws) {                             \
+    case 1: { constexpr int ROWS = 1; __VA_ARGS__; } break; \
+    case 2: { constexpr int ROWS = 2; __VA_ARGS__; } break; \
+    case 3: { constexpr int ROWS = 3; __VA_ARGS__; } break; \
+    case 4: { constexpr int ROWS = 4; __VA_ARGS__; } break; \
+    case 5: { constexpr int ROWS = 5; __VA_ARGS__; } break; \
+    case 6: { constexpr int ROWS = 6; __VA_ARGS__; } break; \
+    case 7: { constexpr int ROWS = 7; __VA_ARGS__; } break; \
+    case 8: { constexpr int ROWS = 8; __VA_ARGS__; } break; \
+    default: { constexpr int ROWS = 0; __VA_ARGS__; } break; \
+  }
+
 // The (encode, pack) lowering pair as the constants ENCODE and PACK.
 #define CGX_DISPATCH_LOWERING(encode, pack, ...)                                              \
   if (encode == kEncodeDiv && pack == kPackSum) {                                             \
@@ -1656,6 +1857,7 @@ bool db_geometry_ok(long long chunks, int tc, int B) {
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 
 // Dynamic shared memory of a cluster kernel's butterfly stage: 32 x 32
 // words a warp.
@@ -1764,10 +1966,23 @@ bool db_cluster_ok(long long chunks, int tc, int B, int k, int threads, int slot
          chunks * 2 * rounds * rows + kMaxSlots <= 0x7fffffffLL;
 }
 
+// One launch of B4 at row count ROWS (0: any) and width VEC.
+template <int BITS, int ROWS, int VEC>
+void reduce_rows_start(const int32_t* words, const float* meta, const float* raw, int own, int ws,
+                       long long chunks, int B, float* out, long long blocks, cudaStream_t st) {
+  if (raw != nullptr) {
+    cgx_reduce_rows_kernel<BITS, ROWS, VEC, true><<<(unsigned)blocks, kReduceThreads, 0, st>>>(
+        words, meta, raw, own, ws, chunks, B, out);
+  } else {
+    cgx_reduce_rows_kernel<BITS, ROWS, VEC, false><<<(unsigned)blocks, kReduceThreads, 0, st>>>(
+        words, meta, raw, own, ws, chunks, B, out);
+  }
+}
+
 }  // namespace
 
 
-// The build compiles this file once per part (-DCGX_PART=0..5), the parts
+// The build compiles this file once per part (-DCGX_PART=0..6), the parts
 // in parallel, and links them into one library; without CGX_PART it
 // compiles every entry point.
 #ifdef CGX_PART
@@ -1905,28 +2120,6 @@ int cgx_sra_epilogue(const int32_t* words, const float* meta, const float* raw,
 }
 #endif
 
-#if CGX_IN_PART(1)
-// words: ws rows of chunks*bits*B int32, meta: ws rows of chunks*32*2 f32,
-// raw: the own row's chunks*32*B f32 (null with own == -1) -> out: the
-// reduced chunk, chunks*32*B f32.
-int cgx_reduce_rows(const int32_t* words, const float* meta, const float* raw,
-                    int own, int ws, long long chunks, int B, int bits,
-                    float* out, void* stream) {
-  if (chunks < 1 || ws < 1 || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
-  if ((raw == nullptr) != (own < 0) || own >= ws) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)ws * 2 * kChunkBuckets * sizeof(float);
-  CGX_DISPATCH_BITS(bits, {
-    cudaError_t e = cudaFuncSetAttribute(cgx_reduce_rows_kernel<BITS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    cgx_reduce_rows_kernel<BITS><<<(unsigned)chunks, kThreads, smem, st>>>(
-        words, meta, raw, own, ws, chunks, B, out);
-  });
-  return (int)cudaGetLastError();
-}
-#endif
 
 #if CGX_IN_PART(3)
 // x2: k_total*din f32, g2: k_total*o f32 (row-major; g2 16-byte aligned) ->
@@ -2077,6 +2270,37 @@ int cgx_sra_epilogue_db(const int32_t* words, const float* meta, const float* ra
                      out_words, out_meta);
     if (e != cudaSuccess) return (int)e;
   }));
+  return (int)cudaGetLastError();
+}
+#endif
+
+#if CGX_IN_PART(6)
+// words: ws rows of chunks*bits*B int32, meta: ws rows of chunks*32*2 f32,
+// raw: the own row's chunks*32*B f32 (null with own == -1) -> out: the
+// reduced chunk, chunks*32*B f32: B4 at width vec (4: every pointer 16-byte
+// aligned, B a multiple of 128, each row count 1-8 an instance of its own;
+// 1: scalar width, the any-count instance alone), blocks of 128 threads,
+// B/(32*vec) a chunk. Static shared memory only, at most 34,816 bytes: no
+// attribute to set.
+int cgx_reduce_rows(const int32_t* words, const float* meta, const float* raw, int own, int ws,
+                    long long chunks, int B, int bits, int vec, float* out, void* stream) {
+  if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
+  if (chunks < 1 || ws < 1 || B < 32 || B % (kReduceVectors * vec)) return (int)cudaErrorInvalidValue;
+  if ((raw == nullptr) != (own < 0) || own >= ws) return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (!aligned16(words) || !aligned16(meta) || !aligned16(out) ||
+                   (raw != nullptr && !aligned16(raw)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long blocks = chunks * (B / (kReduceVectors * vec));
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec == 1) {
+    CGX_DISPATCH_BITS(bits, reduce_rows_start<BITS, 0, 1>(words, meta, raw, own, ws, chunks, B,
+                                                          out, blocks, st));
+  } else {
+    CGX_DISPATCH_BITS(bits, CGX_DISPATCH_ROWS(ws, reduce_rows_start<BITS, ROWS, 4>(
+        words, meta, raw, own, ws, chunks, B, out, blocks, st)));
+  }
   return (int)cudaGetLastError();
 }
 #endif

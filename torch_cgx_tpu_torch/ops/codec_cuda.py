@@ -25,8 +25,10 @@ Each wrapper works on whole 32-bucket chunks. ``quantize_chunks`` and
 chunk's values in registers (:func:`cluster_geometry`; past the register
 budget a thread takes several positions, re-read from the L2);
 ``quantize_chunks_db`` and ``sra_epilogue_chunks_db`` run the same body on a
-persistent grid of such clusters fed by a bulk-copy ring (:func:`db_ring`).
-On a CUDA tensor a
+persistent grid of such clusters fed by a bulk-copy ring (:func:`db_ring`);
+``reduce_rows_chunks`` spreads its grid over the values, 8 buckets of 4
+positions a thread, at scalar width where an operand is not 16-byte
+aligned (:data:`REDUCE_SCALAR`). On a CUDA tensor a
 wrapper launches its kernel (and counts the launch in :data:`LAUNCHES`) or
 raises; on a CPU tensor it runs its plain version, written from
 ``ops/codec.py``'s arithmetic. Nothing else picks between the two. The batch functions below
@@ -82,7 +84,7 @@ NVCC_FLAGS = (
 )
 # The source's entry points fall into this many parts (CGX_PART in
 # csrc/codec.cu), compiled by one nvcc each, all at once, then linked.
-BUILD_PARTS = 6
+BUILD_PARTS = 7
 
 # The fused epilogue's bucket gate: a chunk's (32, B) f32 values within a
 # block's 232,448 bytes of shared memory, less 256 of static meta, where
@@ -113,10 +115,14 @@ LAUNCHES: Dict[str, int] = {
 # does not fit a block's shared memory at this geometry, so the
 # single-stage kernel ran instead (ROADMAP C7), counted by kernel.
 DB_GATED: Dict[str, int] = {"quantize": 0, "dequantize": 0, "epilogue": 0}
+# Launches of the multi-row reduce (B4) at scalar width, for operands that
+# are not 16-byte aligned (a raw row view at an odd offset) or a bucket that
+# is not a multiple of 128; a share of LAUNCHES["codec_reduce_rows"].
+REDUCE_SCALAR: Dict[str, int] = {"launches": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DB_GATED):
+    for counts in (LAUNCHES, DB_GATED, REDUCE_SCALAR):
         for k in counts:
             counts[k] = 0
 
@@ -197,7 +203,7 @@ def _lib():
             lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, i, i, i, i, vp]
             lib.cgx_dequantize.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
             lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, i, i, i, i, vp, vp, vp]
-            lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, vp, vp]
+            lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp, vp]
             lib.cgx_matmul_quantize.argtypes = [
                 vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, vp]
             lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, vp]
@@ -699,11 +705,27 @@ def reduce_rows_chunks(
     if raw is not None:
         _require_cuda_operand("reduce raw", raw, torch.float32, n)
     out = torch.empty(n, dtype=torch.float32, device=words.device)
+    # Full width: 16-byte copies of 4 positions, 32 such vectors a block.
+    wide = bucket_size % 128 == 0 and all(
+        t is None or t.data_ptr() % 16 == 0 for t in (words, meta, raw, out))
+    return _launch_reduce(words, meta, raw, own, bits, bucket_size, out, 4 if wide else 1)
+
+
+def _launch_reduce(
+    words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
+    bucket_size: int, out: torch.Tensor, vec: int,
+) -> torch.Tensor:
+    """One launch of B4 on checked CUDA operands at width ``vec`` (4: every
+    operand 16-byte aligned, the bucket a multiple of 128; 1: scalar width,
+    counted in :data:`REDUCE_SCALAR`)."""
+    chunks = meta.shape[1] // CHUNK_BUCKETS
     err = _lib().cgx_reduce_rows(
         words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
-        own, ws, chunks, bucket_size, bits, out.data_ptr(), _stream(words),
+        own, words.shape[0], chunks, bucket_size, bits, vec, out.data_ptr(), _stream(words),
     )
     LAUNCHES["codec_reduce_rows"] += 1
+    if vec == 1:
+        REDUCE_SCALAR["launches"] += 1
     _check_launch("codec_reduce_rows", err)
     return out
 

@@ -3,9 +3,11 @@ versions (B7a, B7c) and the multi-row reduce (B4) alone at the launch
 shapes of a GPT-2 124M step, and profile that step's codec kernels.
 
     python3 torch_cgx_tpu_torch/tools/shapebench.py [--root DIR] [--groups 5] [--no-step]
+        [--only reduce]
 
 It times ``SHAPES``, ``PAST_BUDGET`` (buckets past the cluster kernels'
-register budget) and ``REDUCE_SHAPES`` (B4 in the four-rank steps).
+register budget) and ``REDUCE_SHAPES`` (B4 in the four-rank steps);
+``--only KERNEL`` keeps the shapes of one kernel (``reduce``: B4's alone).
 
 ``--root`` names the checkout whose ``torch_cgx_tpu_torch`` is timed (by
 default the one this file belongs to). The wrappers it calls
@@ -173,6 +175,15 @@ def reduce_step_bounds(rate: float, dev="cpu") -> dict:
         out[scheme] = {"launches": sum(shapes.values()), "bytes": nbytes,
                        "bound_ms": nbytes / rate * 1e3}
     return out
+
+
+def reduce_step_ms(shapes: list, counts: dict) -> dict:
+    """B4's burst time a rank-step of each scheme: each launch shape's
+    burst (a ``time_shapes`` record) times its launches
+    (:func:`reduce_step_shapes`); None where a shape was not timed."""
+    ms = {(r["chunks"], r["rows"], r["own"]): r["ms"] for r in shapes if r["kernel"] == "reduce"}
+    return {scheme: (sum(k * ms[key] for key, k in c.items()) if all(key in ms for key in c) else None)
+            for scheme, c in counts.items()}
 
 
 def step_bounds(rate: float) -> dict:
@@ -430,6 +441,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--groups", type=int, default=5)
     ap.add_argument("--launches", type=int, default=32)
     ap.add_argument("--no-step", action="store_true")
+    ap.add_argument("--only", choices=("quantize", "epilogue", "quantize_db", "epilogue_db", "reduce"),
+                    help="time one kernel's shapes only")
     ap.add_argument("--geometries", action="store_true",
                     help="also time every cluster geometry at each shape (this tree's kernels only)")
     args = ap.parse_args(argv)
@@ -452,19 +465,15 @@ def main(argv=None) -> dict:
     codec_cuda.build()
     build_s = time.perf_counter() - t0
     shapes = time_shapes(codec_cuda, dev, mem_rate(name), args.groups, args.launches,
-                         SHAPES + PAST_BUDGET + REDUCE_SHAPES)
+                         [s for s in SHAPES + PAST_BUDGET + REDUCE_SHAPES
+                          if args.only in (None, s[0])])
     reduce_counts = reduce_step_shapes(dev)
-    by_label = {r["shape"]: r for r in shapes}
     rec = {"root": str(Path(args.root).resolve()), "card": card_line(), "build_s": build_s,
            "step_bounds": step_bounds(mem_rate(name)),
            "reduce_step_bounds": reduce_step_bounds(mem_rate(name), dev),
            # B4's burst time a rank-step of each scheme: each launch shape's
            # burst times its launches.
-           "reduce_step_ms": {
-               scheme: sum(k * next(r["ms"] for r in by_label.values() if r["kernel"] == "reduce"
-                                    and (r["chunks"], r["rows"], r["own"]) == key)
-                           for key, k in counts.items())
-               for scheme, counts in reduce_counts.items()},
+           "reduce_step_ms": reduce_step_ms(shapes, reduce_counts),
            "shapes": shapes}
     if args.geometries:
         rec["geometries"] = geometry_sweep(codec_cuda, dev, mem_rate(name))
