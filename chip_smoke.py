@@ -100,7 +100,15 @@ order, none of whose failures is caught:
    ``attn_qkv``, ``mlp_in`` and ``mlp_out`` kernels of the 12 blocks) to a
    quantize of that layer's ``p.grad / 4`` within ``payload_close``'s
    tolerance. Then the flat SRA under ``CGX_PALLAS_DB=on``: the pipelined
-   epilogue folds the four ranks' rows. Gloo stages the wire through host
+   epilogue folds the four ranks' rows. Then ``ddp_hook``: the DDP comm
+   hook (``torch_backend``) under ``DistributedDataParallel`` on a float32
+   GPT-2 124M, four steps under SRA with the layers registered at step 2:
+   the registry against ``should_compress_``, replicas bit-identical after
+   every step, the hook's launches over steps 2-3 against
+   ``LaunchModel.hook``, and step 3's buckets (captured after the division)
+   reduced again through the kernels and through the plain versions on the
+   CPU over the same group, bit-identical under SRA with f32 and with bf16
+   buckets, the Ring and the all-to-all. Gloo stages the wire through host
    memory: its time is not a card number.
 
 The third-to-last line is the per-kernel JSON record, the second-to-last
@@ -829,6 +837,58 @@ class LaunchModel:
         elif cc.enabled and not cfg.dummy_compression() and reduction != cfg.REDUCTION_PSUM:
             {cfg.REDUCTION_SRA: self.sra, cfg.REDUCTION_RING: self.ring,
              cfg.REDUCTION_ALLTOALL: self.alltoall}[reduction](m, ws, cc)
+
+    def hook(self, layers, ws: int, me: int, reduction: str) -> None:
+        """``torch_backend.backend.allreduce`` of one DDP bucket on rank
+        ``me`` of ``ws``: ``layers`` its ``(offset, numel, config)``
+        (``backend._extract_layers``). Raw layers launch nothing; the
+        compressed ones go segment by segment, each segment its own rows."""
+        from torch_cgx_tpu_torch import config as cfg
+        from torch_cgx_tpu_torch.config import CompressionConfig
+        from torch_cgx_tpu_torch.torch_backend import backend
+
+        comp, _ = backend.split_layers(layers)
+        if ws == 1 or not comp or cfg.dummy_compression():
+            return
+        fl, total = [], 0
+        for _, n, c in comp:
+            fl.append((total, n, c))
+            total += n
+
+        def each(segs, *kernels, add=False):
+            for s in segs:
+                cc = CompressionConfig(bits=s.bits, bucket_size=s.bucket_size)
+                for k in kernels:
+                    self.codec(k, s.numel, cc, add=add)
+
+        if reduction == cfg.REDUCTION_ALLTOALL:
+            for s in backend._segments_in(fl, 0, total):
+                cc = CompressionConfig(bits=s.bits, bucket_size=s.bucket_size)
+                self.codec("codec_quantize", s.numel, cc)
+                self.reduce(ws, s.numel, cc)
+            return
+        sizes, offs = backend._chunk_split(total, ws, fl)
+        segs = [backend._segments_in(fl, offs[r], offs[r] + sizes[r]) for r in range(ws)]
+        if reduction == cfg.REDUCTION_RING:
+            for step in range(ws - 1):
+                each(segs[(me - step) % ws], "codec_quantize")
+                each(segs[(me - step - 1) % ws], "codec_dequantize", add=True)
+            each(segs[(me + 1) % ws], "codec_quantize", "codec_dequantize")
+            for step in range(ws - 1):
+                each(segs[(me - step) % ws], "codec_dequantize")
+            return
+        for j in range(ws):  # stage 1: every peer's chunk
+            if j != me:
+                each(segs[j], "codec_quantize")
+        for s in segs[me]:  # the fold and requantize, then the self-decode
+            cc = CompressionConfig(bits=s.bits, bucket_size=s.bucket_size)
+            if not self.epilogue(ws, s.numel, cc):
+                self.reduce(ws, s.numel, cc)
+                self.codec("codec_quantize", s.numel, cc)
+            self.codec("codec_dequantize", s.numel, cc)
+        for j in range(ws):  # stage 2: every peer's reduced chunk
+            if j != me:
+                each(segs[j], "codec_dequantize")
 
     def two_level(self, m: int, wi: int, wc: int, cc, topo) -> None:
         """``reducers.hierarchical_allreduce``."""
@@ -1578,6 +1638,118 @@ def _plain_cpu(fn, *args, **kw):
         del os.environ["CGX_SRA_EPILOGUE"]
 
 
+# Phase 7's DDP configuration: the comm hook (``torch_backend``) under
+# DistributedDataParallel on the float32 GPT-2 124M. Registration at step 2,
+# so steps 2 and 3 run the per-layer configs; step 3's buckets (after the
+# division) are captured and reduced again by the kernels and by the plain
+# versions on the CPU, under each (reduction, bucket dtype) of HOOK_RERUNS.
+HOOK_STEPS = 4
+HOOK_CAPTURE_STEP = 3
+HOOK_RERUNS = (("SRA", "float32"), ("SRA", "bfloat16"), ("RING", "float32"),
+               ("ALLTOALL", "float32"))
+
+
+def expected_hook_launches(calls, ws: int, me: int, dev) -> dict:
+    """Launches of the hook's bucket allreduces ``calls`` (bucket key,
+    values) on rank ``me``, from the registry's layers of each bucket
+    (``backend._extract_layers``) and the dispatcher's gates."""
+    from torch_cgx_tpu_torch import config as cfg
+    from torch_cgx_tpu_torch.torch_backend import backend
+
+    model = LaunchModel(dev)
+    for key, numel in calls:
+        model.hook(backend._extract_layers(numel, key), ws, me, cfg.intra_reduction())
+    return model.counts
+
+
+def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn) -> dict:
+    """One rank of the ``ddp_hook`` configuration: DDP with
+    ``CGXState(None, {"bits": 4, "bucket_size": 512})`` and ``cgx_hook``
+    over the flat gloo world, HOOK_STEPS steps of Adam under SRA. The
+    bucket allreduce is wrapped to record each call's bucket (and at the
+    capture step a copy of its divided buffer); the launch counters run
+    over the steps after registration. Then the captured buckets are
+    reduced again through the kernels and through the plain versions on
+    the CPU, each under HOOK_RERUNS."""
+    import torch
+    import torch.distributed as dist
+
+    from torch_cgx_tpu_torch import config as ccfg
+    from torch_cgx_tpu_torch.models import GPT2
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.torch_backend import CGXState, backend, cgx_hook
+    from torch_cgx_tpu_torch.torch_backend.hooks import REGISTRATION_STEP
+
+    t_cfg = time.perf_counter()
+    _configure({"CGX_INNER_REDUCTION_TYPE": "SRA"})
+    ccfg.clear_registry()
+    model = GPT2(dataclasses.replace(gcfg, dtype=torch.float32), device=dev,
+                 generator=torch.Generator().manual_seed(SEED))
+    ddp = torch.nn.parallel.DistributedDataParallel(model)
+    state = CGXState(None, {"bits": BITS, "bucket_size": BUCKET})
+    ddp.register_comm_hook(state, cgx_hook)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+    calls, captured, capture = [], [], [False]
+    inner = backend.allreduce
+
+    def recording(t, group=None, op=dist.ReduceOp.SUM):
+        key = ccfg.take_current_bucket()
+        ccfg.set_current_bucket(key)
+        calls.append((key, t.numel()))
+        if capture[0]:
+            captured.append((key, t.detach().clone()))
+        return inner(t, group, op)
+
+    backend.allreduce = recording
+    losses, digests = [], []
+    try:
+        for step in range(HOOK_STEPS):
+            if step == REGISTRATION_STEP:
+                sync(dev)
+                codec_cuda.reset_launch_counts()
+                calls.clear()
+                t0 = time.perf_counter()
+            capture[0] = step == HOOK_CAPTURE_STEP
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(ddp, tokens)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss))
+            digests.append(_digests(model))
+        sync(dev)
+        hook_s = (time.perf_counter() - t0) / (HOOK_STEPS - REGISTRATION_STEP)
+        launches = dict(codec_cuda.LAUNCHES)
+    finally:
+        backend.allreduce = inner
+    expected = expected_hook_launches(calls, MR_WS, rank, dev)
+    registered = sorted(
+        (n, ccfg.get_layer_config((b, i)).bits)
+        for b in ccfg.registered_buckets() for i, n in enumerate(ccfg.registered_layer_sizes(b)))
+    want = sorted((p.numel(), BITS if state.should_compress_(p) else 32) for p in model.parameters())
+    del ddp, opt, model
+    torch.cuda.empty_cache()
+    reruns = {}
+    for algo, dtype in HOOK_RERUNS:
+        os.environ["CGX_INNER_REDUCTION_TYPE"] = algo
+        t1 = time.perf_counter()
+        same = 0
+        for key, buf in captured:
+            x = buf.to(getattr(torch, dtype))
+            ccfg.set_current_bucket(key)
+            card = inner(x.clone())
+            sync(dev)
+            ccfg.set_current_bucket(key)
+            plain = _plain_cpu(inner, x.cpu())
+            same += _same_bits(card.cpu(), plain)
+        reruns[f"{algo} {dtype}"] = {"same": same, "buckets": len(captured),
+                                    "seconds": time.perf_counter() - t1}
+    return {"losses": losses, "digests": digests, "hook_s": hook_s, "launches": launches,
+            "expected": expected, "calls": len(calls) // (HOOK_STEPS - REGISTRATION_STEP),
+            "registered": registered, "want": want, "reruns": reruns,
+            "bucket_values": sum(b.numel() for _, b in captured),
+            "seconds": time.perf_counter() - t_cfg}
+
+
 def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: int) -> None:
     """One of phase 7's ranks: a gloo group over the FileStore ``store``,
     the two-level layout, GPT-2 from the seed on ``dev_name`` and the
@@ -1665,6 +1837,9 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             res["steps"] = steps
             res["digests"] = _digests(mdl)
             out[name] = res
+        models.clear()
+        torch.cuda.empty_cache()
+        out["ddp_hook"] = ddp_hook_rank(rank, dev, cfg, tokens, loss_fn)
         dist.barrier()
     except Exception:  # reported to the parent, which fails the phase
         out = {"error": traceback.format_exc()}
@@ -1674,9 +1849,11 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
     result_q.put((rank, out))
 
 
-def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SEQ) -> dict:
+def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SEQ,
+                    smi: str = "") -> dict:
     """Spawn the ranks, collect their results within ``MR_TIMEOUT_S``, stop
-    every process, and hold the results to the phase's checks."""
+    every process, and hold the results to the phase's checks. ``smi``: the
+    card's name and power limit, printed beside the ``ddp_hook`` times."""
     ctx = mp.get_context("spawn")
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1776,9 +1953,50 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
     assert chk["identity_misses"] == 0, chk
     assert chk["counts"]["producer_kernel_slices"] == PRODUCED_LAYERS, chk
     assert chk["counts"]["producer_fallbacks"] == chk["counts"]["producer_fallback_fused_group"], chk
+    hook_check(res, smi)
     launches = dict(res[0]["two_level"]["launches"])
     launches["codec_matmul_quantize"] = res[0]["sra_producer"]["launches"]["codec_matmul_quantize"]
     return {"launches": launches, "results": res}
+
+
+def hook_check(res, smi: str) -> None:
+    """Phase 7's checks of the ``ddp_hook`` configuration, each failing the
+    run: the registry against ``should_compress_``, replicas after every
+    step, the captured buckets' kernel-vs-plain reruns, the launches
+    against ``LaunchModel.hook``. Times are gloo's, through host memory."""
+    h0 = res[0]["ddp_hook"]
+    comp = sum(1 for _, b in h0["registered"] if b == BITS)
+    log(f"  ddp_hook: DistributedDataParallel + cgx_hook, float32 GPT-2 124M, {HOOK_STEPS} steps "
+        f"under SRA; {len(h0['registered'])} layers registered ({comp} compressed, "
+        f"{len(h0['registered']) - comp} raw) in {h0['calls']} buckets a step")
+    log(f"    losses on rank 0 {h0['losses']}")
+    log(f"    hook launches on rank 0 over steps 2-{HOOK_STEPS - 1}: {h0['launches']} "
+        f"(LaunchModel.hook: {h0['expected']})")
+    log(f"    host-clock step after registration {h0['hook_s']:.3f} s, the configuration "
+        f"{h0['seconds']:.1f} s on rank 0 (gloo, wire through host memory) [{smi}]")
+    for r, o in enumerate(res):
+        h = o["ddp_hook"]
+        assert h["registered"] == h["want"], (r, h["registered"][:5], h["want"][:5])
+        assert len(h["registered"]) == len(h0["digests"][0]), (r, len(h["registered"]))
+        assert np.all(np.isfinite(h["losses"])), (r, h["losses"])
+        assert h["launches"] == h["expected"], (r, h["launches"], h["expected"])
+        for step, d in enumerate(h["digests"]):
+            diff = [k for k in d if d[k] != h0["digests"][step][k]]
+            assert not diff, ("ddp_hook replicas", r, step, diff[:5])
+        for name, rr in h["reruns"].items():
+            assert rr["buckets"] == h0["calls"] and rr["same"] == rr["buckets"], (r, name, rr)
+    # The path's kernels each ran in the counted steps: the stage-1 quantize
+    # and requantize (B1), the decodes (B2), the fused epilogue (B3) on the
+    # segments of whole chunks. B4 runs only where the all-to-all (or a
+    # bucket past the epilogue's tile) folds.
+    for k in ("codec_quantize", "codec_dequantize", "codec_sra_epilogue"):
+        assert h0["launches"][k] > 0, (k, h0["launches"])
+    log(f"    replicas: all {len(h0['digests'][0])} parameters bit-identical on the {MR_WS} ranks "
+        f"after each of the {HOOK_STEPS} steps")
+    for name, rr in h0["reruns"].items():
+        log(f"    step {HOOK_CAPTURE_STEP}'s {rr['buckets']} buckets ({h0['bucket_values']} values) "
+            f"reduced again under {name}, kernels vs plain CPU: bit-identical on every rank "
+            f"({rr['seconds']:.1f} s on rank 0) [{smi}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1960,7 +2178,9 @@ def main() -> int:
 
     log(f"== 7. multi-rank: {MR_WS} ranks on the card (cross {MR_WS // MR_INTRA} x intra "
         f"{MR_INTRA}), gloo, GPT-2 124M, {MR_BATCH}x{SEQ} tokens a rank")
-    mr = multirank_phase()
+    t7 = time.perf_counter()
+    mr = multirank_phase(smi=smi)
+    log(f"  phase 7 took {time.perf_counter() - t7:.1f} s [{smi}]")
     launches["codec_reduce_rows"] = mr["launches"]["codec_reduce_rows"]
     launches["codec_matmul_quantize"] = mr["launches"]["codec_matmul_quantize"]
     cache.cleanup()

@@ -990,3 +990,70 @@ def test_reciprocal_quotient_equals_the_ieee_divide(dev):
         return torch.nan_to_num(torch.floor(q + 0.5), nan=0.0).clamp(0, 255)
 
     assert bool((level(fast) == level(ref))[checked].all())
+
+
+# The DDP hook's frame codec (``torch_backend/backend.py``): layers below 32
+# values, below one bucket, of whole 32-bucket chunks, with tails, at three
+# (bits, bucket) pairs, one of them a bucket the fused kernels do not take.
+HOOK_LAYERS = [(20, 4, 512), (300, 4, 512), (32 * 512, 4, 512), (3 * 512 + 5, 2, 128),
+               (2 * 32 * 512 + 3 * 512 + 7, 4, 512), (31, 8, 96), (3 * 32 * 96 + 50, 8, 96)]
+
+
+def _hook_layers():
+    out, off = [], 0
+    for n, bits, b in HOOK_LAYERS:
+        out.append((off, n, CompressionConfig(bits=bits, bucket_size=b)))
+        off += n
+    return out, off
+
+
+@pytest.mark.parametrize("epilogue", ["auto", "fused"])
+@pytest.mark.parametrize("aligned", [False, True], ids=["equal", "layer_aligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_hook_frames_match_plain(dev, monkeypatch, dtype, aligned, epilogue):
+    """Frame compress, decompress (with and without the add), requantize,
+    the SRA fold and the all-to-all reduce on the card against the plain
+    versions on the CPU, bit for bit: bytes and decoded values. The buffer
+    is a bucket of ``dtype`` upcast to f32; the meta travels in the
+    bucket's wire dtype."""
+    from torch_cgx_tpu_torch.torch_backend import backend as hb
+
+    monkeypatch.setenv("CGX_SRA_EPILOGUE", epilogue)
+    if aligned:
+        monkeypatch.setenv("CGX_LAYER_ALIGNED_SPLIT", "1")
+    layers, n = _hook_layers()
+    ws, me = 4, 1
+    wdt = hb._wire_dtype(dtype)
+    rng = np.random.default_rng(int(aligned) + 2 * (dtype == torch.bfloat16))
+    ranks = torch.from_numpy(rng.standard_normal((ws, n)).astype(np.float32)).to(dtype).float()
+    sizes, offs = hb._chunk_split(n, ws, layers)
+    segs = [hb._segments_in(layers, offs[r], offs[r] + sizes[r]) for r in range(ws)]
+    assert any(s.numel < 32 for sg in segs for s in sg)
+    frames = {}
+    for r in range(ws):
+        cpu = hb._compress_frames(ranks[r], segs[me], False, wdt)
+        card = hb._compress_frames(ranks[r].to(dev), segs[me], False, wdt)
+        assert _bits_equal(card, cpu), r
+        frames[r] = cpu
+    for add in (False, True):
+        cpu, card = ranks[0].clone(), ranks[0].to(dev)
+        hb._decompress_frames(frames[2], segs[me], cpu, False, add, wdt)
+        hb._decompress_frames(frames[2].to(dev), segs[me], card, False, add, wdt)
+        assert _bits_equal(card, cpu), add
+    cpu, card = ranks[me].clone(), ranks[me].to(dev)
+    peer = [None if r == me else frames[r] for r in range(ws)]
+    w_cpu = hb._sra_fold_chunk(cpu, segs[me], peer, me, ws, False, wdt)
+    w_card = hb._sra_fold_chunk(card, segs[me], [None if f is None else f.to(dev) for f in peer],
+                                me, ws, False, wdt)
+    assert _bits_equal(w_card, w_cpu) and _bits_equal(card, cpu)
+    cpu, card = ranks[3].clone(), ranks[3].to(dev)
+    w_cpu = hb._requantize_frames(cpu, segs[me], False, wdt)
+    w_card = hb._requantize_frames(card, segs[me], False, wdt)
+    assert _bits_equal(w_card, w_cpu) and _bits_equal(card, cpu)
+    off = 0
+    for s in segs[me]:
+        nb = hb.frame_bytes(s, wdt, False)
+        rows = [frames[r][off : off + nb] for r in range(ws)]
+        off += nb
+        got = dispatch.reduce_rows(hb._stack_frames([x.to(dev) for x in rows], s, wdt))
+        assert _bits_equal(got, dispatch.reduce_rows(hb._stack_frames(rows, s, wdt))), s

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List, Optional, Tuple
+import threading
+from typing import Dict, Hashable, List, Optional, Tuple
 
 from .utils import env as _env
 
@@ -44,6 +45,11 @@ PALLAS_PACK = "CGX_PALLAS_PACK"  # sum | butterfly: the bit-plane pack lowering
 PALLAS_TILE_CHUNKS = "CGX_PALLAS_TILE_CHUNKS"  # explicit tile override
 AUTOTUNE = "CGX_AUTOTUNE"  # auto | on | off: the per-chip codec autotuner
 AUTOTUNE_DIR = "CGX_AUTOTUNE_DIR"  # where the autotune cache lives
+LAYER_ALIGNED_SPLIT = "CGX_LAYER_ALIGNED_SPLIT"  # the DDP hook's greedy chunk split
+# Read only to refuse "on": the pipelined bucket SRA they select in the JAX
+# package's c10d backend is not ported (ROADMAP A9).
+SCHEDULE = "CGX_SCHEDULE"
+PLANNER = "CGX_PLANNER"
 
 DEFAULT_BITS = 32  # 32 == compression off
 DEFAULT_BUCKET_SIZE = 512
@@ -119,6 +125,36 @@ def fusion_threshold_elems(element_size: int = 4) -> int:
     """Fusion slice capacity in elements (64 MB slices by default)."""
     mb = _env.get_int_env_or_default(FUSION_BUFFER_SIZE_MB, DEFAULT_FUSION_MB)
     return max(MIN_FUSION_SIZE, (mb * 1024 * 1024) // element_size)
+
+
+def layer_aligned_split() -> bool:
+    """CGX_LAYER_ALIGNED_SPLIT: the DDP hook splits a bucket's compressed
+    values into rank chunks by the reference's greedy walk, which keeps
+    layers whole within a chunk where it can
+    (``torch_backend.backend._chunk_split_layer_aligned``), in place of the
+    equal 8-aligned split."""
+    return _env.get_bool_env_or_default(LAYER_ALIGNED_SPLIT, False)
+
+
+def _tri_state(name: str) -> str:
+    mode = _env.get_str_env_or_default(name, "auto").lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"{name} must be auto|on|off, got {mode!r}")
+    return mode
+
+
+def schedule_mode() -> str:
+    """CGX_SCHEDULE: auto | on | off. "on" selects the JAX package's
+    pipelined bucket SRA, which the port does not have: the DDP hook's SRA
+    raises under it. "auto" and "off" run the monolithic SRA, as the JAX
+    package's bucket side does off the TPU."""
+    return _tri_state(SCHEDULE)
+
+
+def planner_mode() -> str:
+    """CGX_PLANNER: auto | on | off. "on" also selects the pipelined
+    bucket SRA (refused, as under ``CGX_SCHEDULE=on``)."""
+    return _tri_state(PLANNER)
 
 
 def fake_ratio() -> Optional[float]:
@@ -375,15 +411,15 @@ def autotune_dir() -> Optional[str]:
 # Per-layer registries.
 # ---------------------------------------------------------------------------
 
-LayerId = Tuple[int, int]  # (bucket_idx, layer_idx)
+LayerId = Tuple[Hashable, int]  # (bucket key, layer_idx)
 
 _layer_configs: Dict[LayerId, CompressionConfig] = {}
-_layer_sizes: Dict[int, List[int]] = {}
+_layer_sizes: Dict[Hashable, List[int]] = {}
 _pattern_configs: Dict[str, CompressionConfig] = {}
 
 
 def register_layer(
-    bucket_idx: int,
+    bucket_idx: Hashable,
     layer_idx: int,
     numel: int,
     bits: int = 0,
@@ -406,10 +442,46 @@ def register_layer(
     )
 
 
+def set_quantization_bits(layer_id: LayerId, bits: int) -> None:
+    cfg = _layer_configs.get(layer_id, CompressionConfig(bits=0, bucket_size=0))
+    _layer_configs[layer_id] = dataclasses.replace(cfg, bits=bits)
+
+
+def set_quantization_bucket_size(layer_id: LayerId, bucket_size: int) -> None:
+    cfg = _layer_configs.get(layer_id, CompressionConfig(bits=0, bucket_size=0))
+    _layer_configs[layer_id] = dataclasses.replace(cfg, bucket_size=bucket_size)
+
+
 def get_layer_config(layer_id: LayerId) -> CompressionConfig:
     default = default_compression_config()
     cfg = _layer_configs.get(layer_id)
     return default if cfg is None else cfg.merged_with_default(default)
+
+
+def registered_layer_sizes(bucket_idx: Hashable) -> Optional[List[int]]:
+    return _layer_sizes.get(bucket_idx)
+
+
+def registered_buckets() -> list:
+    """Bucket keys with registered layer sizes."""
+    return list(_layer_sizes.keys())
+
+
+# The DDP hook tags the bucket it is about to allreduce, so the bucket
+# allreduce resolves that bucket's layers by identity rather than by its
+# element count. Thread-local: the tag is taken on the thread that set it,
+# inside the same call.
+_tls = threading.local()
+
+
+def set_current_bucket(bucket_key: Optional[Hashable]) -> None:
+    _tls.current_bucket = bucket_key
+
+
+def take_current_bucket() -> Optional[Hashable]:
+    key = getattr(_tls, "current_bucket", None)
+    _tls.current_bucket = None
+    return key
 
 
 def set_layer_pattern_config(pattern: str, config: CompressionConfig) -> None:

@@ -301,6 +301,64 @@ def dequantize(
 
 
 # ---------------------------------------------------------------------------
+# Byte frames: one flat QTensor as ``meta | packed | residual`` bytes.
+# ---------------------------------------------------------------------------
+
+
+def packed_words(n: int, bits: int) -> int:
+    """int32 words of ``n`` packed levels (32-value groups of ``bits`` words)."""
+    return -(-n // LANE_GROUP) * bits
+
+
+def wire_layout(
+    n: int, bits: int, bucket_size: int, dtype: torch.dtype, skip_incomplete: bool = False
+) -> Tuple[int, int, int, int]:
+    """``(meta_bytes, packed_bytes, residual_bytes, total)`` of the frame of
+    an ``n``-value buffer whose meta and residual travel in ``dtype``: a
+    pure function of the layout, so both ends know every frame's size. The
+    packed words cover the bucket-padded level array (``nb * bucket_size``
+    values), which is longer than ``n`` where the last bucket's padding
+    crosses a 32-value group."""
+    rem = n % bucket_size
+    res_n = rem if (skip_incomplete and rem) else 0
+    nb = num_buckets(n - res_n, bucket_size)
+    meta_b = 2 * nb * dtype.itemsize
+    packed_b = packed_words(nb * bucket_size, bits) * 4 if nb else 0
+    res_b = res_n * dtype.itemsize
+    return meta_b, packed_b, res_b, meta_b + packed_b + res_b
+
+
+def to_bytes(q: QTensor, dtype: torch.dtype) -> torch.Tensor:
+    """The frame of a flat QTensor: uint8 ``meta | packed | residual``, the
+    meta and residual cast to ``dtype`` (the words as little-endian int32)."""
+    return torch.cat([
+        q.meta.to(dtype).reshape(-1).view(torch.uint8),
+        q.packed.reshape(-1).view(torch.uint8),
+        q.residual.to(dtype).reshape(-1).view(torch.uint8),
+    ])
+
+
+def from_bytes(
+    buf: torch.Tensor, n: int, bits: int, bucket_size: int, dtype: torch.dtype,
+    skip_incomplete: bool = False,
+) -> QTensor:
+    """The flat QTensor of a frame (views into ``buf``; meta in ``dtype``)."""
+    meta_b, packed_b, res_b, total = wire_layout(n, bits, bucket_size, dtype, skip_incomplete)
+    if buf.numel() < total:
+        raise ValueError(f"frame of {buf.numel()} bytes, the layout needs {total}")
+    buf = buf.reshape(-1)
+    return QTensor(
+        packed=buf[meta_b : meta_b + packed_b].view(torch.int32),
+        meta=buf[:meta_b].view(dtype).view(-1, 2),
+        residual=buf[meta_b + packed_b : total].view(dtype),
+        numel=n,
+        bits=bits,
+        bucket_size=bucket_size,
+        dtype=dtype,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Dummy (pass-through) codec — CGX_DEBUG_DUMMY_COMPRESSION.
 # ---------------------------------------------------------------------------
 

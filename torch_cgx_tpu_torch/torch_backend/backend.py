@@ -1,0 +1,580 @@
+"""The bucket side of the DDP comm hook: a per-layer framed quantized
+allreduce of one DDP bucket.
+
+Counterpart of the bucket-side functions of the JAX package's c10d backend
+(``torch_cgx_tpu/torch_backend/backend.py``) with the same per-layer
+semantics and the same wire frames. The port registers no c10d backend and
+keeps no store: the frames move with ``all_to_all_single`` over the
+caller's ``torch.distributed`` group (gloo or NCCL), on the bucket's device.
+
+* :func:`allreduce` gates like the JAX backend's ``allreduce``: a float
+  bucket under SUM at world size > 1 takes :func:`_allreduce_quantized`,
+  anything else a plain ``dist.all_reduce``; at world size 1 the bucket is
+  returned untouched.
+* The bucket's layers come from the registry by the hook's bucket tag
+  (:func:`_extract_layers`). Enabled layers of at least
+  ``CGX_COMPRESSION_MINIMAL_SIZE`` values are concatenated into an f32
+  buffer and reduced by SRA, Ring or all-to-all
+  (``CGX_INNER_REDUCTION_TYPE``, ``CGX_DEBUG_ALL_TO_ALL_REDUCTION``); the
+  rest are summed uncompressed (:func:`_sum_alltoall`).
+* Each rank chunk of the buffer is cut at layer boundaries into segments;
+  each segment is quantized from its own start with its layer's bits and
+  bucket into a frame ``meta | packed`` (``ops/codec.py::wire_layout``),
+  bf16 buckets with bf16 meta, f16 and f32 buckets with f32 meta.
+
+The codec work runs through ``ops/dispatch.py``: the quantize (B1), the
+decode with or without the fused add (B2), and the fused epilogue (B3) or
+reduce (B4) where the dispatcher routes a segment to them. The sum of an
+SRA chunk and of the all-to-all is ``v0 + v1 + ...`` ascending by rank, the
+raw own chunk in its place for SRA. The JAX backend folds its own row
+first in the all-to-all and the uncompressed sum, which at world size 3
+and more gives ranks 2 and up other bits than ranks 0 and 1 (ROADMAP C12);
+the port folds ascending everywhere, so its replicas stay identical and
+equal the JAX result on ranks 0 and 1.
+
+Not ported, refused with ``NotImplementedError``: the pipelined SRA of
+``CGX_SCHEDULE=on`` / ``CGX_PLANNER=on`` (ROADMAP A9), the two-level
+scheme of a group that spans hosts with several ranks on one host
+(A6a part 2), stochastic rounding and ``CGX_COMPRESSION_FAKE_RATIO``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import socket
+from typing import Dict, Hashable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .. import config as cfg
+from ..config import CompressionConfig
+from ..ops import codec, codec_cuda, dispatch
+from ..ops.codec import QTensor
+from ..parallel import group as group_mod
+from ..parallel.group import ProcessGroup
+
+_ALIGN = 8  # element alignment of the equal chunk split
+_TORCH_FLOATS = (torch.float32, torch.float16, torch.bfloat16)
+
+Layer = Tuple[int, int, CompressionConfig]  # (offset, numel, resolved config)
+
+
+def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Meta dtype of a bucket's frames: bf16 for bf16 buckets (half the
+    meta bytes), f32 otherwise. f16 stays f32-framed: the f32 partial sums
+    of a reduction can leave the f16 range, bf16 shares f32's exponent."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Layout: chunk split and segments.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Segment:
+    """A ``[start, start + numel)`` slice of the fused buffer with its
+    layer's quantization parameters."""
+
+    start: int
+    numel: int
+    bits: int
+    bucket_size: int
+
+
+def _segments_in(layers: Sequence[Layer], lo: int, hi: int) -> List[_Segment]:
+    """Intersect fused-coordinate layers with the chunk ``[lo, hi)``."""
+    out = []
+    for start, numel, c in layers:
+        s, e = max(start, lo), min(start + numel, hi)
+        if s < e:
+            out.append(_Segment(s, e - s, c.bits, c.bucket_size))
+    return out
+
+
+def _chunk_split(
+    n: int, ws: int, layers: Optional[Sequence[Layer]] = None
+) -> Tuple[List[int], List[int]]:
+    """``(sizes, offsets)`` of the ws rank chunks of ``n`` fused values: an
+    equal split rounded up to 8 values (trailing chunks may be short or
+    empty), or with ``CGX_LAYER_ALIGNED_SPLIT`` and ``layers`` the greedy
+    layer-aligned split."""
+    if layers is not None and cfg.layer_aligned_split():
+        return _chunk_split_layer_aligned(n, ws, [numel for (_o, numel, _c) in layers])
+    per = -(-n // ws)
+    per = -(-per // _ALIGN) * _ALIGN
+    sizes, offs, used = [], [], 0
+    for _ in range(ws):
+        offs.append(used)
+        take = min(per, n - used)
+        sizes.append(take)
+        used += take
+    return sizes, offs
+
+
+def _chunk_split_layer_aligned(
+    n: int, ws: int, layer_sizes: List[int], align: int = 32
+) -> Tuple[List[int], List[int]]:
+    """The reference's greedy split (Quantizer::GetSizesAndOffsets): rank
+    r's chunk targets ``remaining // (ws - r)`` values and takes whole
+    layers while they fit; a layer larger than what is left of the target
+    is cut at an offset rounded up to ``align`` (the 32-value packing
+    group)."""
+    sizes_out: List[int] = []
+    offs_out: List[int] = []
+    li = 0
+    remaining = n
+    n_elem = min(layer_sizes[0], remaining) if layer_sizes else 0
+    offset = 0
+    for rank in range(ws):
+        per_node = remaining // (ws - rank)
+        cur = 0
+        while cur < per_node:
+            if n_elem <= per_node - cur:
+                cur += n_elem
+                li += 1
+                if li == len(layer_sizes):
+                    break
+                n_elem = min(layer_sizes[li], remaining)
+            else:
+                aligned = min(-(-(per_node - cur) // align) * align, n_elem)
+                cur += aligned
+                n_elem -= aligned
+        remaining -= cur
+        sizes_out.append(cur)
+        offs_out.append(offset)
+        offset += cur
+    return sizes_out, offs_out
+
+
+# ---------------------------------------------------------------------------
+# The frame codec.
+# ---------------------------------------------------------------------------
+
+
+def _cc(s: _Segment) -> CompressionConfig:
+    # Frames never carry a residual; stochastic rounding reaches the
+    # dispatcher, which refuses it.
+    return CompressionConfig(
+        bits=s.bits, bucket_size=s.bucket_size, stochastic=cfg.stochastic_rounding()
+    )
+
+
+def frame_bytes(s: _Segment, wdt: torch.dtype, dummy: bool) -> int:
+    """Bytes of a segment's frame (the raw f32 values under the dummy codec)."""
+    if dummy:
+        return 4 * s.numel
+    return codec.wire_layout(s.numel, s.bits, s.bucket_size, wdt)[3]
+
+
+def frames_bytes(segs: Sequence[_Segment], wdt: torch.dtype, dummy: bool) -> int:
+    return sum(frame_bytes(s, wdt, dummy) for s in segs)
+
+
+def _encode(x: torch.Tensor, s: _Segment, wdt: torch.dtype) -> torch.Tensor:
+    """The frame of one segment's f32 values."""
+    q = dispatch.quantize_batch(x[None], _cc(s))
+    return codec.to_bytes(dispatch._row(q, 0), wdt)
+
+
+def _parse(buf: torch.Tensor, s: _Segment, wdt: torch.dtype) -> QTensor:
+    """A frame as a rows=1 QTensor with f32 meta (the decode reads the meta
+    as it travelled, upcast)."""
+    q = codec.from_bytes(buf, s.numel, s.bits, s.bucket_size, wdt)
+    return QTensor(
+        packed=q.packed[None],
+        meta=q.meta.to(torch.float32)[None],
+        residual=q.residual.to(torch.float32)[None],
+        numel=s.numel, bits=s.bits, bucket_size=s.bucket_size, dtype=torch.float32,
+    )
+
+
+def _decode(buf: torch.Tensor, s: _Segment, wdt: torch.dtype, dummy: bool,
+            add_to: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 values of one segment's frame, ``add_to + decoded`` with an
+    accumulator (the decode's fused add)."""
+    if dummy:
+        vals = buf.view(torch.float32)
+        return vals if add_to is None else add_to + vals
+    return dispatch.dequantize_batch(
+        _parse(buf, s, wdt), add_to=None if add_to is None else add_to[None],
+        out_dtype=torch.float32,
+    )[0]
+
+
+def _compress_frames(fused: torch.Tensor, segs: Sequence[_Segment], dummy: bool,
+                     wdt: torch.dtype = torch.float32) -> torch.Tensor:
+    """Concatenated frames of ``segs`` (uint8, on the buffer's device)."""
+    parts = []
+    for s in segs:
+        x = fused[s.start : s.start + s.numel]
+        parts.append(x.contiguous().view(torch.uint8) if dummy else _encode(x, s, wdt))
+    return torch.cat(parts) if parts else fused.new_empty((0,), dtype=torch.uint8)
+
+
+def _decompress_frames(buf: torch.Tensor, segs: Sequence[_Segment], fused: torch.Tensor,
+                       dummy: bool, add: bool, wdt: torch.dtype = torch.float32) -> None:
+    """Decode frames into the fused buffer at their segments, accumulating
+    (``add``) or assigning."""
+    off = 0
+    for s in segs:
+        nb = frame_bytes(s, wdt, dummy)
+        sl = fused[s.start : s.start + s.numel]
+        sl.copy_(_decode(buf[off : off + nb], s, wdt, dummy, sl if add else None))
+        off += nb
+
+
+def _requantize_frames(fused: torch.Tensor, segs: Sequence[_Segment], dummy: bool,
+                       wdt: torch.dtype = torch.float32) -> torch.Tensor:
+    """Quantize the reduced segments and decode each frame back into the
+    buffer, so every replica holds the decode of the same bytes (the
+    error-symmetry rule). The decode reads the meta in the wire dtype."""
+    parts = []
+    for s in segs:
+        sl = fused[s.start : s.start + s.numel]
+        frame = _compress_frames(fused, [s], dummy, wdt)
+        sl.copy_(_decode(frame, s, wdt, dummy))
+        parts.append(frame)
+    return torch.cat(parts) if parts else fused.new_empty((0,), dtype=torch.uint8)
+
+
+def _stack_frames(bufs: Sequence[Optional[torch.Tensor]], s: _Segment, wdt: torch.dtype) -> QTensor:
+    """Rows of one segment's frames (``None``: a zero row in that place,
+    for the raw own row the fold substitutes) as one QTensor, f32 meta."""
+    qs = [None if b is None else _parse(b, s, wdt) for b in bufs]
+    like = next(q for q in qs if q is not None)
+    qs = [q if q is not None else QTensor(
+        packed=torch.zeros_like(like.packed), meta=torch.zeros_like(like.meta),
+        residual=like.residual, numel=like.numel, bits=like.bits,
+        bucket_size=like.bucket_size, dtype=like.dtype) for q in qs]
+    return QTensor(
+        packed=torch.cat([q.packed for q in qs]),
+        meta=torch.cat([q.meta for q in qs]),
+        residual=torch.cat([q.residual for q in qs]),
+        numel=like.numel, bits=like.bits, bucket_size=like.bucket_size, dtype=like.dtype,
+    )
+
+
+def _sra_fold_chunk(fused: torch.Tensor, segs_me: Sequence[_Segment],
+                    frames: Sequence[Optional[torch.Tensor]], me: int, ws: int,
+                    dummy: bool, wdt: torch.dtype = torch.float32) -> torch.Tensor:
+    """The SRA epilogue of this rank's chunk, segment by segment: fold the
+    peers' stage-1 frames ``v0 + v1 + ...`` ascending by rank with the raw
+    own values at position ``me``, requantize, decode the frame back into
+    the buffer. Returns the chunk's stage-2 frames. ``frames[j]``: peer
+    ``j``'s frames of this chunk (``frames[me]`` unused). The fold and the
+    requantize are ``dispatch.reduce_rows_requantize``: one fused kernel
+    where the dispatcher routes the segment to it."""
+    parts = []
+    off = 0
+    for s in segs_me:
+        nb = frame_bytes(s, wdt, dummy)
+        sl = fused[s.start : s.start + s.numel]
+        peer = [None if j == me else frames[j][off : off + nb] for j in range(ws)]
+        off += nb
+        if dummy:
+            rows = torch.stack([sl if j == me else peer[j].view(torch.float32) for j in range(ws)])
+            sl.copy_(dispatch.ordered_rowsum(rows))
+            parts.append(sl.contiguous().view(torch.uint8).clone())
+            continue
+        q = _stack_frames(peer, s, wdt)
+        # An aligned raw row keeps the reduce kernel at its full width.
+        qo = dispatch.reduce_rows_requantize(
+            q, _cc(s), raw_row=codec_cuda._aligned(sl), own_idx=me)
+        frame = codec.to_bytes(dispatch._row(qo, 0), wdt)
+        sl.copy_(_decode(frame, s, wdt, dummy))
+        parts.append(frame)
+    return torch.cat(parts) if parts else fused.new_empty((0,), dtype=torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Byte exchange over the group.
+# ---------------------------------------------------------------------------
+
+
+def _alltoallv(send: Sequence[Optional[torch.Tensor]], recv_sizes: Sequence[int],
+               moves: bool, group: ProcessGroup, device: torch.device) -> List[torch.Tensor]:
+    """``send[j]`` (uint8, or None) to rank ``j``; ``recv_sizes[j]`` bytes
+    from rank ``j`` -> the received parts. ``moves``: whether any rank of
+    the group sends anything in this exchange, which every rank knows from
+    the layout; without it no collective runs, on every rank alike."""
+    empty = torch.empty((0,), dtype=torch.uint8, device=device)
+    send = [empty if t is None else t for t in send]
+    if not moves:
+        return [empty] * len(recv_sizes)
+    inp = torch.cat(send)
+    out = torch.empty((sum(recv_sizes),), dtype=torch.uint8, device=device)
+    dist.all_to_all_single(out, inp, list(recv_sizes), [t.numel() for t in send], group=group)
+    return list(out.split(list(recv_sizes)))
+
+
+def _shift(frame: torch.Tensor, recv_n: int, me: int, ws: int, moves: bool,
+           group: ProcessGroup) -> torch.Tensor:
+    """Send ``frame`` to rank ``me + 1`` and receive ``recv_n`` bytes from
+    rank ``me - 1``: one Ring hop."""
+    send: List[Optional[torch.Tensor]] = [None] * ws
+    recv = [0] * ws
+    send[(me + 1) % ws] = frame
+    recv[(me - 1) % ws] = recv_n
+    return _alltoallv(send, recv, moves, group, frame.device)[(me - 1) % ws]
+
+
+# ---------------------------------------------------------------------------
+# Reducers over frames.
+# ---------------------------------------------------------------------------
+
+
+def _layout(n: int, ws: int, layers: Sequence[Layer], wdt: torch.dtype, dummy: bool):
+    sizes, offs = _chunk_split(n, ws, layers)
+    segs = [_segments_in(layers, offs[r], offs[r] + sizes[r]) for r in range(ws)]
+    return segs, [frames_bytes(sg, wdt, dummy) for sg in segs]
+
+
+def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
+                 group: ProcessGroup) -> None:
+    """Scatter-Reduce-AllGather: each rank posts each peer's chunk as
+    frames, folds the arrivals into its raw own chunk and requantizes it
+    (:func:`_sra_fold_chunk`), then every rank gathers and decodes every
+    other rank's reduced chunk."""
+    ws, me = group_mod.world_size(group), group_mod.rank(group)
+    dummy = cfg.dummy_compression()
+    segs, fsize = _layout(fused.shape[0], ws, layers, wdt, dummy)
+    moves = sum(fsize) > 0
+    sent = [None if j == me else _compress_frames(fused, segs[j], dummy, wdt) for j in range(ws)]
+    recv = [0 if j == me else fsize[me] for j in range(ws)]
+    frames = _alltoallv(sent, recv, moves, group, fused.device)
+    wire = _sra_fold_chunk(fused, segs[me], frames, me, ws, dummy, wdt)
+    recv = [0 if j == me else fsize[j] for j in range(ws)]
+    bufs = _alltoallv([None if j == me else wire for j in range(ws)], recv, moves, group,
+                      fused.device)
+    for j in range(ws):
+        if j != me:
+            _decompress_frames(bufs[j], segs[j], fused, dummy, add=False, wdt=wdt)
+
+
+def _qreduce_ring(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
+                  group: ProcessGroup) -> None:
+    """Ring: ws-1 scatter-reduce hops, each quantizing the outgoing chunk
+    and decode-adding the arriving one, then the reduced chunk
+    ``(me + 1) % ws`` is requantized once (and decoded back) and ws-1
+    all-gather hops pass each owner's frames on unchanged."""
+    ws, me = group_mod.world_size(group), group_mod.rank(group)
+    dummy = cfg.dummy_compression()
+    segs, fsize = _layout(fused.shape[0], ws, layers, wdt, dummy)
+    moves = sum(fsize) > 0
+    for step in range(ws - 1):
+        s_idx = (me - step) % ws  # chunk sent to the right
+        r_idx = (me - step - 1) % ws  # chunk received and reduced
+        frame = _compress_frames(fused, segs[s_idx], dummy, wdt)
+        buf = _shift(frame, fsize[r_idx], me, ws, moves, group)
+        _decompress_frames(buf, segs[r_idx], fused, dummy, add=True, wdt=wdt)
+    hold = _requantize_frames(fused, segs[(me + 1) % ws], dummy, wdt)
+    for step in range(ws - 1):
+        r_idx = (me - step) % ws  # chunk arriving at this hop
+        hold = _shift(hold, fsize[r_idx], me, ws, moves, group)
+        _decompress_frames(hold, segs[r_idx], fused, dummy, add=False, wdt=wdt)
+
+
+def _qreduce_alltoall(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
+                      group: ProcessGroup) -> None:
+    """All-to-all: every rank quantizes its whole buffer once, sends it to
+    every peer, and decodes and folds all ws frames, its own included, in
+    ascending rank order (``dispatch.reduce_rows``)."""
+    ws, me = group_mod.world_size(group), group_mod.rank(group)
+    dummy = cfg.dummy_compression()
+    segs = _segments_in(layers, 0, fused.shape[0])
+    wire = _compress_frames(fused, segs, dummy, wdt)
+    size = wire.numel()
+    bufs = _alltoallv([None if j == me else wire for j in range(ws)],
+                      [0 if j == me else size for j in range(ws)], size > 0, group, fused.device)
+    bufs[me] = wire
+    off = 0
+    for s in segs:
+        nb = frame_bytes(s, wdt, dummy)
+        rows = [b[off : off + nb] for b in bufs]
+        off += nb
+        sl = fused[s.start : s.start + s.numel]
+        if dummy:
+            sl.copy_(dispatch.ordered_rowsum(torch.stack([r.view(torch.float32) for r in rows])))
+        else:
+            sl.copy_(dispatch.reduce_rows(_stack_frames(rows, s, wdt)))
+
+
+def _qreduce_flat(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype, algo: str,
+                  group: ProcessGroup) -> None:
+    if algo == cfg.REDUCTION_ALLTOALL:
+        _qreduce_alltoall(fused, layers, wdt, group)
+    elif algo == cfg.REDUCTION_RING:
+        _qreduce_ring(fused, layers, wdt, group)
+    else:
+        _qreduce_sra(fused, layers, wdt, group)
+
+
+def _sum_alltoall(part: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    """Uncompressed sum of the raw layers: gather every rank's values and
+    fold them ascending by rank."""
+    ws = group_mod.world_size(group)
+    return dispatch.ordered_rowsum(group_mod.all_gather_rows(part[None], ws, group))
+
+
+# ---------------------------------------------------------------------------
+# Layers of a bucket.
+# ---------------------------------------------------------------------------
+
+
+def _resolve_layers(bucket_key: Hashable, sizes: Sequence[int]) -> List[Layer]:
+    out, off = [], 0
+    for li, n in enumerate(sizes):
+        out.append((off, n, cfg.get_layer_config((bucket_key, li))))
+        off += n
+    return out
+
+
+def _extract_layers(numel: int, bucket_key: Optional[Hashable] = None) -> List[Layer]:
+    """``(offset, numel, config)`` of each layer of a bucket. A tagged
+    bucket takes its registered sizes, which must sum to ``numel`` (a
+    ``RuntimeError`` names a stale registry); an unregistered one is one
+    layer of the env default. An untagged call resolves by element count:
+    one registered bucket of that total gives its layers, none gives one
+    default layer, several raise."""
+    if bucket_key is not None:
+        sizes = cfg.registered_layer_sizes(bucket_key)
+        if sizes is not None:
+            if sum(sizes) != numel:
+                raise RuntimeError(
+                    f"bucket {bucket_key!r}: registered layer sizes sum to {sum(sizes)} but "
+                    f"the buffer has {numel} elements (stale registry? call clear_registry() "
+                    f"after changing the model)"
+                )
+            return _resolve_layers(bucket_key, sizes)
+        return [(0, numel, cfg.default_compression_config())]
+    matches = [
+        (key, sizes)
+        for key in cfg.registered_buckets()
+        if (sizes := cfg.registered_layer_sizes(key)) and sum(sizes) == numel
+    ]
+    if not matches:
+        return [(0, numel, cfg.default_compression_config())]
+    if len(matches) > 1:
+        raise RuntimeError(
+            f"untagged allreduce of {numel} elements matches {len(matches)} registered "
+            f"buckets ({[m[0] for m in matches]!r}): cannot resolve per-layer configs; use "
+            f"the cgx_hook (which tags buckets) or clear_registry()"
+        )
+    return _resolve_layers(*matches[0])
+
+
+def split_layers(layers: Sequence[Layer]) -> Tuple[List[Layer], List[Layer]]:
+    """(compressed, raw) layers: enabled and at least
+    ``CGX_COMPRESSION_MINIMAL_SIZE`` values, or not."""
+    minimal = cfg.minimal_size()
+    comp = [(o, n, c) for (o, n, c) in layers if c.enabled and n >= minimal]
+    rest = [(o, n, c) for (o, n, c) in layers if not (c.enabled and n >= minimal)]
+    return comp, rest
+
+
+# ---------------------------------------------------------------------------
+# Refusals.
+# ---------------------------------------------------------------------------
+
+_HOSTS: Dict[object, List[str]] = {}
+
+
+def _hosts(group: ProcessGroup) -> List[str]:
+    """Every rank's hostname, gathered once per group (at its first
+    quantized allreduce; every rank calls it there)."""
+    key = group if group is not None else dist.group.WORLD
+    if key not in _HOSTS:
+        out: List[Optional[str]] = [None] * group_mod.world_size(group)
+        dist.all_gather_object(out, socket.gethostname(), group=group)
+        _HOSTS[key] = [str(h) for h in out]
+    return _HOSTS[key]
+
+
+def _spans_hosts_with_local_peers(hosts: Sequence[str]) -> bool:
+    """The group spans hosts and some host holds more than one rank."""
+    counts: Dict[str, int] = {}
+    for h in hosts:
+        counts[h] = counts.get(h, 0) + 1
+    return len(counts) > 1 and max(counts.values()) > 1
+
+
+def _refuse_unported(group: ProcessGroup, topo: cfg.TopologyConfig, dummy: bool) -> None:
+    """Raise, on every rank alike and before any collective of the bucket,
+    for what the JAX backend would run and the port does not have."""
+    hosts = _hosts(group)
+    if topo.intra_broadcast and _spans_hosts_with_local_peers(hosts):
+        raise NotImplementedError(
+            f"the two-level bucket reduction of a group that spans hosts with several ranks "
+            f"on a host ({sorted(set(hosts))}) is not ported; set CGX_INTRA_BROADCAST=0 for "
+            f"the flat reduction"
+        )
+    if topo.intra_reduction not in (cfg.REDUCTION_RING, cfg.REDUCTION_ALLTOALL) and (
+        cfg.schedule_mode() == "on" or cfg.planner_mode() == "on"
+    ):
+        raise NotImplementedError(
+            f"the pipelined bucket SRA ({cfg.SCHEDULE}=on or {cfg.PLANNER}=on) is not ported; "
+            f"unset both or set them to auto or off"
+        )
+    if cfg.stochastic_rounding() and not dummy:
+        raise NotImplementedError(
+            "stochastic rounding is not ported (it needs a Philox stream in the kernels); "
+            "unset CGX_STOCHASTIC_ROUNDING"
+        )
+
+
+# ---------------------------------------------------------------------------
+# The bucket allreduce.
+# ---------------------------------------------------------------------------
+
+
+def allreduce(t: torch.Tensor, group: ProcessGroup = None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Allreduce ``t`` in place over ``group`` and return it. Takes the
+    hook's bucket tag (``config.take_current_bucket``). A float tensor under
+    SUM is reduced per layer with compression; anything else by a plain
+    ``dist.all_reduce``. At world size 1 ``t`` is returned untouched."""
+    bucket_key = cfg.take_current_bucket()
+    if group_mod.world_size(group) == 1:
+        return t
+    if t.dtype in _TORCH_FLOATS and op == dist.ReduceOp.SUM:
+        _allreduce_quantized(t, group, bucket_key)
+    else:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _allreduce_quantized(t: torch.Tensor, group: ProcessGroup,
+                         bucket_key: Optional[Hashable] = None) -> None:
+    """The bucket's layers split into compressed and raw ones; the raw
+    ones summed exactly, the compressed ones concatenated into an f32
+    buffer and reduced by the inner reduction type; both written back in
+    the bucket's dtype."""
+    cfg.refuse_fake_ratio()
+    topo = cfg.topology_from_env()
+    dummy = cfg.dummy_compression()
+    layers = _extract_layers(t.numel(), bucket_key)
+    comp, rest = split_layers(layers)
+    if comp:
+        _refuse_unported(group, topo, dummy)
+    arr = t.detach().reshape(-1).to(torch.float32, copy=True)
+    if rest:
+        part = torch.cat([arr[o : o + n] for (o, n, _) in rest])
+        part = _sum_alltoall(part, group)
+        off = 0
+        for (o, n, _) in rest:
+            arr[o : o + n] = part[off : off + n]
+            off += n
+    if comp:
+        fused = torch.cat([arr[o : o + n] for (o, n, _) in comp])
+        fl, off = [], 0
+        for (_, n, c) in comp:
+            fl.append((off, n, c))
+            off += n
+        _qreduce_flat(fused, fl, _wire_dtype(t.dtype), topo.intra_reduction, group)
+        off = 0
+        for (o, n, _) in comp:
+            arr[o : o + n] = fused[off : off + n]
+            off += n
+    with torch.no_grad():
+        t.copy_(arr.view(t.shape))
