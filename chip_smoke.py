@@ -102,14 +102,22 @@ order, none of whose failures is caught:
    tolerance. Then the flat SRA under ``CGX_PALLAS_DB=on``: the pipelined
    epilogue folds the four ranks' rows. Then ``ddp_hook``: the DDP comm
    hook (``torch_backend``) under ``DistributedDataParallel`` on a float32
-   GPT-2 124M, four steps under SRA with the layers registered at step 2:
-   the registry against ``should_compress_``, replicas bit-identical after
-   every step, the hook's launches over steps 2-3 against
-   ``LaunchModel.hook``, and step 3's buckets (captured after the division)
-   reduced again through the kernels and through the plain versions on the
-   CPU over the same group, bit-identical under SRA with f32 and with bf16
-   buckets, the Ring and the all-to-all. Gloo stages the wire through host
-   memory: its time is not a card number.
+   GPT-2 124M, four steps under SRA with the layers registered at step 2,
+   every bucket reduced on the group's worker thread: the registry against
+   ``should_compress_``, replicas bit-identical after every step, the
+   hook's launches over steps 2-3 against ``LaunchModel.hook``, and step
+   3's buckets (captured after the division) reduced again through the
+   kernels and through the plain versions on the CPU over the same group,
+   bit-identical under SRA with f32 and with bf16 buckets, the Ring and the
+   all-to-all. Then ``ddp_hook_hier``: the same on two faked hosts of two
+   ranks (``CGX_SHM_HOST_ID=testhost{rank // 2}``) under the default
+   two-level scheme (intra SRA, cross Ring, leader scheme): every rank takes
+   the two-level path, the launches equal ``LaunchModel.hook`` on the
+   leaders and the non-leaders, and step 3's buckets are bit-identical
+   between the kernels and the plain CPU path under the default scheme
+   with f32 and with bf16 buckets.
+   Gloo stages the wire through host memory: its time is not a card
+   number.
 
 The third-to-last line is the per-kernel JSON record, the second-to-last
 the card's name and power limit, the last ``{"ok": true, "device": {...}}``.
@@ -838,13 +846,15 @@ class LaunchModel:
             {cfg.REDUCTION_SRA: self.sra, cfg.REDUCTION_RING: self.ring,
              cfg.REDUCTION_ALLTOALL: self.alltoall}[reduction](m, ws, cc)
 
-    def hook(self, layers, ws: int, me: int, reduction: str) -> None:
+    def hook(self, layers, ws: int, me: int, reduction: str, hosts=None) -> None:
         """``torch_backend.backend.allreduce`` of one DDP bucket on rank
         ``me`` of ``ws``: ``layers`` its ``(offset, numel, config)``
-        (``backend._extract_layers``). Raw layers launch nothing; the
-        compressed ones go segment by segment, each segment its own rows."""
+        (``backend._extract_layers``), ``hosts`` the group's host keys
+        (``backend._hosts(group).hosts``; None: one host). Raw layers launch
+        nothing; the compressed ones go segment by segment, each segment its
+        own rows, through the flat reduction or, on a MIXED host map, the
+        two-level scheme (:meth:`hook_hier`)."""
         from torch_cgx_tpu_torch import config as cfg
-        from torch_cgx_tpu_torch.config import CompressionConfig
         from torch_cgx_tpu_torch.torch_backend import backend
 
         comp, _ = backend.split_layers(layers)
@@ -854,13 +864,29 @@ class LaunchModel:
         for _, n, c in comp:
             fl.append((total, n, c))
             total += n
+        topo = cfg.topology_from_env()
+        if hosts is not None and topo.intra_broadcast and (
+            backend._host_topology(hosts) == backend.TOPO_MIXED
+        ):
+            self.hook_hier(fl, total, hosts, me, topo)
+        else:
+            self.hook_flat(fl, total, ws, me, reduction)
 
-        def each(segs, *kernels, add=False):
-            for s in segs:
-                cc = CompressionConfig(bits=s.bits, bucket_size=s.bucket_size)
-                for k in kernels:
-                    self.codec(k, s.numel, cc, add=add)
+    def _each(self, segs, *kernels, add=False) -> None:
+        from torch_cgx_tpu_torch.config import CompressionConfig
 
+        for s in segs:
+            cc = CompressionConfig(bits=s.bits, bucket_size=s.bucket_size)
+            for k in kernels:
+                self.codec(k, s.numel, cc, add=add)
+
+    def hook_flat(self, fl, total: int, ws: int, me: int, reduction: str) -> None:
+        """``backend._qreduce_flat`` of the fused layers ``fl``."""
+        from torch_cgx_tpu_torch import config as cfg
+        from torch_cgx_tpu_torch.config import CompressionConfig
+        from torch_cgx_tpu_torch.torch_backend import backend
+
+        each = self._each
         if reduction == cfg.REDUCTION_ALLTOALL:
             for s in backend._segments_in(fl, 0, total):
                 cc = CompressionConfig(bits=s.bits, bucket_size=s.bucket_size)
@@ -889,6 +915,31 @@ class LaunchModel:
         for j in range(ws):  # stage 2: every peer's reduced chunk
             if j != me:
                 each(segs[j], "codec_dequantize")
+
+    def hook_hier(self, fl, total: int, hosts, me: int, topo) -> None:
+        """``backend._qreduce_hier``: a non-leader quantizes its whole
+        buffer and decodes its leader's frame; a leader decode-adds each
+        local's frame, runs the leaders' flat reduction and requantizes and
+        decodes the result (under ``CGX_INTRA_COMPRESS=0`` the intra frames
+        are raw and launch nothing)."""
+        from torch_cgx_tpu_torch.torch_backend import backend
+
+        segs = backend._segments_in(fl, 0, total)
+        local = [r for r, h in enumerate(hosts) if h == hosts[me]]
+        leaders = backend._slice_leaders(hosts)
+        intra = topo.intra_compress
+        if me != local[0]:
+            if intra:
+                self._each(segs, "codec_quantize")
+                self._each(segs, "codec_dequantize")
+            return
+        if intra:
+            for _ in local[1:]:
+                self._each(segs, "codec_dequantize", add=True)
+        if topo.cross_compress:
+            self.hook_flat(fl, total, len(leaders), leaders.index(me), topo.cross_reduction)
+        if intra:
+            self._each(segs, "codec_quantize", "codec_dequantize")
 
     def two_level(self, m: int, wi: int, wc: int, cc, topo) -> None:
         """``reducers.hierarchical_allreduce``."""
@@ -1638,70 +1689,89 @@ def _plain_cpu(fn, *args, **kw):
         del os.environ["CGX_SRA_EPILOGUE"]
 
 
-# Phase 7's DDP configuration: the comm hook (``torch_backend``) under
+# Phase 7's DDP configurations: the comm hook (``torch_backend``) under
 # DistributedDataParallel on the float32 GPT-2 124M. Registration at step 2,
 # so steps 2 and 3 run the per-layer configs; step 3's buckets (after the
 # division) are captured and reduced again by the kernels and by the plain
-# versions on the CPU, under each (reduction, bucket dtype) of HOOK_RERUNS.
+# versions on the CPU, under each (name, knobs, bucket dtype) of the
+# configuration's reruns. ``ddp_hook`` runs the flat SRA over one host;
+# ``ddp_hook_hier`` fakes two hosts of two ranks (CGX_SHM_HOST_ID) under the
+# default two-level scheme (intra SRA, cross Ring, leader scheme on).
 HOOK_STEPS = 4
 HOOK_CAPTURE_STEP = 3
-HOOK_RERUNS = (("SRA", "float32"), ("SRA", "bfloat16"), ("RING", "float32"),
-               ("ALLTOALL", "float32"))
+HOOK_CONFIGS = {
+    "ddp_hook": (lambda rank: {"CGX_INNER_REDUCTION_TYPE": "SRA"}, (
+        ("SRA float32", {"CGX_INNER_REDUCTION_TYPE": "SRA"}, "float32"),
+        ("SRA bfloat16", {"CGX_INNER_REDUCTION_TYPE": "SRA"}, "bfloat16"),
+        ("RING float32", {"CGX_INNER_REDUCTION_TYPE": "RING"}, "float32"),
+        ("ALLTOALL float32", {"CGX_INNER_REDUCTION_TYPE": "ALLTOALL"}, "float32"),
+    )),
+    # The cross SRA and cross all-to-all reruns put B3 and B4 inside the
+    # leaders' stage, CGX_INTRA_COMPRESS=0 the raw intra frames.
+    "ddp_hook_hier": (lambda rank: {"CGX_SHM_HOST_ID": f"testhost{rank // MR_INTRA}"}, (
+        ("default scheme float32", {}, "float32"),
+        ("default scheme bfloat16", {}, "bfloat16"),
+        ("cross SRA float32", {"CGX_CROSS_REDUCTION_TYPE": "SRA"}, "float32"),
+        ("cross ALLTOALL float32", {"CGX_CROSS_REDUCTION_TYPE": "ALLTOALL"}, "float32"),
+        ("CGX_INTRA_COMPRESS=0 float32", {"CGX_INTRA_COMPRESS": "0"}, "float32"),
+    )),
+}
 
 
-def expected_hook_launches(calls, ws: int, me: int, dev) -> dict:
+def expected_hook_launches(calls, ws: int, me: int, dev, hosts=None) -> dict:
     """Launches of the hook's bucket allreduces ``calls`` (bucket key,
     values) on rank ``me``, from the registry's layers of each bucket
-    (``backend._extract_layers``) and the dispatcher's gates."""
+    (``backend._extract_layers``), the group's host keys and the
+    dispatcher's gates."""
     from torch_cgx_tpu_torch import config as cfg
     from torch_cgx_tpu_torch.torch_backend import backend
 
     model = LaunchModel(dev)
     for key, numel in calls:
-        model.hook(backend._extract_layers(numel, key), ws, me, cfg.intra_reduction())
+        model.hook(backend._extract_layers(numel, key), ws, me, cfg.intra_reduction(), hosts)
     return model.counts
 
 
-def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn) -> dict:
-    """One rank of the ``ddp_hook`` configuration: DDP with
+def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
+    """One rank of the DDP configuration ``name`` of HOOK_CONFIGS: DDP with
     ``CGXState(None, {"bits": 4, "bucket_size": 512})`` and ``cgx_hook``
-    over the flat gloo world, HOOK_STEPS steps of Adam under SRA. The
-    bucket allreduce is wrapped to record each call's bucket (and at the
-    capture step a copy of its divided buffer); the launch counters run
-    over the steps after registration. Then the captured buckets are
-    reduced again through the kernels and through the plain versions on
-    the CPU, each under HOOK_RERUNS."""
+    over the gloo world, HOOK_STEPS steps of Adam under the configuration's
+    knobs, the world's host map gathered anew. The bucket allreduce (run by
+    the group's worker thread) is wrapped to record each call's bucket, its
+    thread and at the capture step a copy of its divided buffer; the launch
+    counters run over the steps after registration. Then the captured
+    buckets are reduced again through the kernels and through the plain
+    versions on the CPU, under each of the configuration's reruns."""
+    import threading
+
     import torch
     import torch.distributed as dist
 
     from torch_cgx_tpu_torch import config as ccfg
-    from torch_cgx_tpu_torch.models import GPT2
     from torch_cgx_tpu_torch.ops import codec_cuda
-    from torch_cgx_tpu_torch.torch_backend import CGXState, backend, cgx_hook
+    from torch_cgx_tpu_torch.tools.hookprof import ddp_setup
+    from torch_cgx_tpu_torch.torch_backend import backend
     from torch_cgx_tpu_torch.torch_backend.hooks import REGISTRATION_STEP
 
     t_cfg = time.perf_counter()
-    _configure({"CGX_INNER_REDUCTION_TYPE": "SRA"})
+    knobs, reruns_of = HOOK_CONFIGS[name]
+    knobs = knobs(rank)
+    _configure(knobs)
+    backend.release(None)  # the host map is gathered under this configuration's knobs
     ccfg.clear_registry()
-    model = GPT2(dataclasses.replace(gcfg, dtype=torch.float32), device=dev,
-                 generator=torch.Generator().manual_seed(SEED))
-    ddp = torch.nn.parallel.DistributedDataParallel(model)
-    state = CGXState(None, {"bits": BITS, "bucket_size": BUCKET})
-    ddp.register_comm_hook(state, cgx_hook)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
-    calls, captured, capture = [], [], [False]
+    model, ddp, state, opt = ddp_setup(dev, gcfg, SEED)
+    calls, captured, capture, threads = [], [], [False], set()
     inner = backend.allreduce
 
-    def recording(t, group=None, op=dist.ReduceOp.SUM):
-        key = ccfg.take_current_bucket()
-        ccfg.set_current_bucket(key)
-        calls.append((key, t.numel()))
+    def recording(t, group=None, op=dist.ReduceOp.SUM, bucket_key=None):
+        calls.append((bucket_key, t.numel()))
+        threads.add(threading.current_thread().name)
         if capture[0]:
-            captured.append((key, t.detach().clone()))
-        return inner(t, group, op)
+            captured.append((bucket_key, t.detach().clone()))
+        return inner(t, group, op, bucket_key=bucket_key)
 
     backend.allreduce = recording
-    losses, digests = [], []
+    losses, digests, digest_s = [], [], 0.0
     try:
         for step in range(HOOK_STEPS):
             if step == REGISTRATION_STEP:
@@ -1709,19 +1779,25 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn) -> dict:
                 codec_cuda.reset_launch_counts()
                 calls.clear()
                 t0 = time.perf_counter()
+                digest_s = 0.0
             capture[0] = step == HOOK_CAPTURE_STEP
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(ddp, tokens)
             loss.backward()
             opt.step()
             losses.append(float(loss))
+            t_d = time.perf_counter()
             digests.append(_digests(model))
+            digest_s += time.perf_counter() - t_d
         sync(dev)
         hook_s = (time.perf_counter() - t0) / (HOOK_STEPS - REGISTRATION_STEP)
+        digest_s /= HOOK_STEPS - REGISTRATION_STEP
         launches = dict(codec_cuda.LAUNCHES)
     finally:
         backend.allreduce = inner
-    expected = expected_hook_launches(calls, MR_WS, rank, dev)
+    topo = ccfg.topology_from_env()
+    hosts = backend._hosts(None).hosts
+    expected = expected_hook_launches(calls, MR_WS, rank, dev, hosts)
     registered = sorted(
         (n, ccfg.get_layer_config((b, i)).bits)
         for b in ccfg.registered_buckets() for i, n in enumerate(ccfg.registered_layer_sizes(b)))
@@ -1729,24 +1805,30 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn) -> dict:
     del ddp, opt, model
     torch.cuda.empty_cache()
     reruns = {}
-    for algo, dtype in HOOK_RERUNS:
-        os.environ["CGX_INNER_REDUCTION_TYPE"] = algo
+    for label, rk, dtype in reruns_of:
+        _configure({**knobs, **rk})
+        rr_expected = expected_hook_launches(
+            [(key, buf.numel()) for key, buf in captured], MR_WS, rank, dev, hosts)
         t1 = time.perf_counter()
-        same = 0
+        same, rr_launches = 0, {k: 0 for k in codec_cuda.LAUNCHES}
         for key, buf in captured:
             x = buf.to(getattr(torch, dtype))
-            ccfg.set_current_bucket(key)
-            card = inner(x.clone())
+            codec_cuda.reset_launch_counts()
+            card = inner(x.clone(), bucket_key=key)
             sync(dev)
-            ccfg.set_current_bucket(key)
-            plain = _plain_cpu(inner, x.cpu())
+            for k, v in codec_cuda.LAUNCHES.items():
+                rr_launches[k] += v
+            plain = _plain_cpu(inner, x.cpu(), bucket_key=key)
             same += _same_bits(card.cpu(), plain)
-        reruns[f"{algo} {dtype}"] = {"same": same, "buckets": len(captured),
-                                    "seconds": time.perf_counter() - t1}
-    return {"losses": losses, "digests": digests, "hook_s": hook_s, "launches": launches,
+        reruns[label] = {"same": same, "buckets": len(captured), "launches": rr_launches,
+                         "expected": rr_expected, "seconds": time.perf_counter() - t1}
+    _configure(knobs)
+    return {"losses": losses, "digests": digests, "hook_s": hook_s, "digest_s": digest_s,
+            "launches": launches,
             "expected": expected, "calls": len(calls) // (HOOK_STEPS - REGISTRATION_STEP),
             "registered": registered, "want": want, "reruns": reruns,
-            "bucket_values": sum(b.numel() for _, b in captured),
+            "bucket_values": sum(b.numel() for _, b in captured), "hosts": list(hosts),
+            "hier": backend._use_hierarchy(None, topo), "threads": sorted(threads),
             "seconds": time.perf_counter() - t_cfg}
 
 
@@ -1770,6 +1852,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         from torch_cgx_tpu_torch.parallel import (
             allreduce_flat, gradient_sync, hierarchical_groups, make_train_step,
         )
+        from torch_cgx_tpu_torch.tools.hookprof import rank_tokens
 
         timeout = timedelta(seconds=MR_TIMEOUT_S // 2)
         dist.init_process_group(
@@ -1780,8 +1863,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         dev = torch.device(dev_name)
         cfg = getattr(GPT2Config, size)()
         model = GPT2(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
-        rng = np.random.default_rng(SEED + rank)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(MR_BATCH, seq))).to(dev)
+        tokens = torch.from_numpy(rank_tokens(cfg.vocab_size, rank, MR_BATCH, seq, SEED)).to(dev)
         opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
 
         def loss_fn(m, t):
@@ -1839,7 +1921,11 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             out[name] = res
         models.clear()
         torch.cuda.empty_cache()
-        out["ddp_hook"] = ddp_hook_rank(rank, dev, cfg, tokens, loss_fn)
+        for name in HOOK_CONFIGS:
+            out[name] = ddp_hook_rank(rank, dev, cfg, tokens, loss_fn, name)
+        from torch_cgx_tpu_torch.torch_backend import backend
+
+        backend.release(None)  # the worker stops within its bounded join
         dist.barrier()
     except Exception:  # reported to the parent, which fails the phase
         out = {"error": traceback.format_exc()}
@@ -1953,50 +2039,71 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
     assert chk["identity_misses"] == 0, chk
     assert chk["counts"]["producer_kernel_slices"] == PRODUCED_LAYERS, chk
     assert chk["counts"]["producer_fallbacks"] == chk["counts"]["producer_fallback_fused_group"], chk
-    hook_check(res, smi)
+    for name in HOOK_CONFIGS:
+        hook_check(res, name, smi)
     launches = dict(res[0]["two_level"]["launches"])
     launches["codec_matmul_quantize"] = res[0]["sra_producer"]["launches"]["codec_matmul_quantize"]
     return {"launches": launches, "results": res}
 
 
-def hook_check(res, smi: str) -> None:
-    """Phase 7's checks of the ``ddp_hook`` configuration, each failing the
-    run: the registry against ``should_compress_``, replicas after every
-    step, the captured buckets' kernel-vs-plain reruns, the launches
-    against ``LaunchModel.hook``. Times are gloo's, through host memory."""
-    h0 = res[0]["ddp_hook"]
+def hook_check(res, name: str, smi: str) -> None:
+    """Phase 7's checks of the DDP configuration ``name``, each failing the
+    run: the registry against ``should_compress_``, the bucket allreduces
+    on the worker thread, replicas after every step, the captured buckets'
+    kernel-vs-plain reruns, the launches against ``LaunchModel.hook`` on
+    every rank (leaders and non-leaders under the two-level scheme), and
+    whether the two-level scheme ran. Times are gloo's, through host
+    memory."""
+    h0 = res[0][name]
+    hier = name == "ddp_hook_hier"
     comp = sum(1 for _, b in h0["registered"] if b == BITS)
-    log(f"  ddp_hook: DistributedDataParallel + cgx_hook, float32 GPT-2 124M, {HOOK_STEPS} steps "
-        f"under SRA; {len(h0['registered'])} layers registered ({comp} compressed, "
-        f"{len(h0['registered']) - comp} raw) in {h0['calls']} buckets a step")
+    log(f"  {name}: DistributedDataParallel + cgx_hook, float32 GPT-2 124M, {HOOK_STEPS} steps "
+        f"over hosts {h0['hosts'] if hier else 'one host'}; {len(h0['registered'])} layers "
+        f"registered ({comp} compressed, {len(h0['registered']) - comp} raw) in {h0['calls']} "
+        f"buckets a step, reduced on {h0['threads']}")
     log(f"    losses on rank 0 {h0['losses']}")
-    log(f"    hook launches on rank 0 over steps 2-{HOOK_STEPS - 1}: {h0['launches']} "
-        f"(LaunchModel.hook: {h0['expected']})")
-    log(f"    host-clock step after registration {h0['hook_s']:.3f} s, the configuration "
-        f"{h0['seconds']:.1f} s on rank 0 (gloo, wire through host memory) [{smi}]")
     for r, o in enumerate(res):
-        h = o["ddp_hook"]
+        log(f"    hook launches on rank {r} over steps 2-{HOOK_STEPS - 1}: {o[name]['launches']} "
+            f"(LaunchModel.hook: {o[name]['expected']})")
+    log(f"    host-clock step after registration {h0['hook_s']:.3f} s, of which the replica "
+        f"digest {h0['digest_s']:.3f} s; the configuration {h0['seconds']:.1f} s on rank 0 (gloo, "
+        f"wire through host memory) [{smi}]")
+    for r, o in enumerate(res):
+        h = o[name]
+        assert h["hier"] == hier, (name, r, h["hier"], h["hosts"])
+        assert h["threads"] and all(t.startswith("cgx-bucket-worker") for t in h["threads"]), (
+            name, r, h["threads"])
         assert h["registered"] == h["want"], (r, h["registered"][:5], h["want"][:5])
         assert len(h["registered"]) == len(h0["digests"][0]), (r, len(h["registered"]))
         assert np.all(np.isfinite(h["losses"])), (r, h["losses"])
-        assert h["launches"] == h["expected"], (r, h["launches"], h["expected"])
+        assert h["launches"] == h["expected"], (name, r, h["launches"], h["expected"])
         for step, d in enumerate(h["digests"]):
             diff = [k for k in d if d[k] != h0["digests"][step][k]]
-            assert not diff, ("ddp_hook replicas", r, step, diff[:5])
-        for name, rr in h["reruns"].items():
-            assert rr["buckets"] == h0["calls"] and rr["same"] == rr["buckets"], (r, name, rr)
-    # The path's kernels each ran in the counted steps: the stage-1 quantize
-    # and requantize (B1), the decodes (B2), the fused epilogue (B3) on the
-    # segments of whole chunks. B4 runs only where the all-to-all (or a
-    # bucket past the epilogue's tile) folds.
-    for k in ("codec_quantize", "codec_dequantize", "codec_sra_epilogue"):
-        assert h0["launches"][k] > 0, (k, h0["launches"])
+            assert not diff, (name, "replicas", r, step, diff[:5])
+        for label, rr in h["reruns"].items():
+            assert rr["buckets"] == h0["calls"] and rr["same"] == rr["buckets"], (name, r, label, rr)
+            assert rr["launches"] == rr["expected"], (name, r, label, rr["launches"], rr["expected"])
+    # The path's kernels each ran in the counted steps: the quantizes and
+    # requantizes (B1), the decodes (B2), and in the flat SRA the fused
+    # epilogue (B3) on the segments of whole chunks. Under the two-level
+    # scheme a leader's counts differ from a non-leader's.
+    for k in ("codec_quantize", "codec_dequantize") + (() if hier else ("codec_sra_epilogue",)):
+        assert h0["launches"][k] > 0, (name, k, h0["launches"])
+    if hier:
+        assert res[0][name]["expected"] != res[1][name]["expected"], (res[0][name]["expected"],)
+        # Inside the leaders' cross stage: B3 under cross SRA, B4 under
+        # cross all-to-all, on each leader (ranks 0 and 2).
+        for r in range(0, MR_WS, MR_INTRA):
+            rr = res[r][name]["reruns"]
+            assert rr["cross SRA float32"]["launches"]["codec_sra_epilogue"] > 0, (r, rr)
+            assert rr["cross ALLTOALL float32"]["launches"]["codec_reduce_rows"] > 0, (r, rr)
     log(f"    replicas: all {len(h0['digests'][0])} parameters bit-identical on the {MR_WS} ranks "
         f"after each of the {HOOK_STEPS} steps")
-    for name, rr in h0["reruns"].items():
+    for label, rr in h0["reruns"].items():
         log(f"    step {HOOK_CAPTURE_STEP}'s {rr['buckets']} buckets ({h0['bucket_values']} values) "
-            f"reduced again under {name}, kernels vs plain CPU: bit-identical on every rank "
-            f"({rr['seconds']:.1f} s on rank 0) [{smi}]")
+            f"reduced again under {label}, kernels vs plain CPU: bit-identical on every rank "
+            f"({rr['seconds']:.1f} s on rank 0) [{smi}]; launches on each rank as LaunchModel.hook, "
+            f"rank 0's {({k: v for k, v in rr['launches'].items() if v})}")
 
 
 # ---------------------------------------------------------------------------

@@ -25,9 +25,12 @@ bit for bit:
 
 Also in the port's ranks: registration at step 2 and its compressed/raw
 split, the stale-registry and ambiguous-bucket errors, each refused knob
-(``NotImplementedError`` naming it), the refused two-level group, and
-``chip_smoke.LaunchModel.hook`` against the codec wrappers' calls counted
-on the CPU. The rank bodies import torch and one package each; JAX is
+(``NotImplementedError`` naming it), the two-level path of a group on two
+faked hosts, and ``chip_smoke.LaunchModel.hook`` against the codec
+wrappers' calls counted on the CPU. The hook runs every bucket on the
+group's worker thread (``backend.allreduce_async``); the two-level scheme
+against the JAX hook, the host key and the worker are
+``tests/test_torch_ddp_hier.py``'s. The rank bodies import torch and one package each; JAX is
 imported in the test functions and the JAX ranks only.
 """
 
@@ -212,17 +215,13 @@ def test_sra_fold_and_requantize_match_jax(jb, monkeypatch, ws, me, wd, epilogue
 
 def test_world_size_one_returns_bucket_untouched(monkeypatch):
     """With no process group the world is one rank: the bucket comes back
-    as it was, even under CGX_DEBUG_FORCE_CODEC, and the tag is taken."""
-    from torch_cgx_tpu_torch import config as cfg
-
+    as it was, even under CGX_DEBUG_FORCE_CODEC."""
     monkeypatch.setenv("CGX_COMPRESSION_QUANTIZATION_BITS", "4")
     monkeypatch.setenv("CGX_DEBUG_FORCE_CODEC", "1")
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
     want = x.clone()
-    cfg.set_current_bucket(("ws1", 0))
-    out = pb.allreduce(x)
+    out = pb.allreduce(x, bucket_key=("ws1", 0))
     assert out is x and torch.equal(x, want)
-    assert cfg.take_current_bucket() is None
 
 
 # ---------------------------------------------------------------------------
@@ -363,16 +362,14 @@ def _errors_scenario(rank, ws):
     os.environ["CGX_COMPRESSION_QUANTIZATION_BITS"] = "4"
     cfg.register_layer(("t", 0), 0, 10, 4, 512)
     cfg.register_layer(("t", 0), 1, 20, 4, 512)
-    cfg.set_current_bucket(("t", 0))
-    stale = _raises(lambda: pb.allreduce(torch.ones(31)), RuntimeError)
+    stale = _raises(lambda: pb.allreduce(torch.ones(31), bucket_key=("t", 0)), RuntimeError)
     cfg.register_layer(("t", 1), 0, 30, 4, 512)
     ambiguous = _raises(lambda: pb.allreduce(torch.ones(30)), RuntimeError)
     # A plain (non-float) tensor sums exactly; a tagged unregistered bucket
     # is one default layer.
     ints = pb.allreduce(torch.full((5,), rank + 1, dtype=torch.int64))
-    cfg.set_current_bucket(("t", 9))
     x = torch.full((4096,), float(rank + 1))
-    out = pb.allreduce(x)
+    out = pb.allreduce(x, bucket_key=("t", 9))
     return {"stale": stale, "ambiguous": ambiguous, "ints": ints.tolist(),
             "default": out[:3].tolist(), "same_tensor": out is x}
 
@@ -381,7 +378,6 @@ REFUSED = [
     ({"CGX_SCHEDULE": "on"}, NotImplementedError, "CGX_SCHEDULE"),
     ({"CGX_PLANNER": "on"}, NotImplementedError, "CGX_PLANNER"),
     ({"CGX_STOCHASTIC_ROUNDING": "1"}, NotImplementedError, "CGX_STOCHASTIC_ROUNDING"),
-    ({"CGX_COMPRESSION_FAKE_RATIO": "0.5"}, NotImplementedError, "CGX_COMPRESSION_FAKE_RATIO"),
     ({"CGX_SCHEDULE": "bogus"}, ValueError, "CGX_SCHEDULE"),
 ]
 
@@ -400,22 +396,28 @@ def _refusals_scenario(rank, ws):
 
 
 def _hierarchy_scenario(rank, ws):
-    """Ranks 0, 1 on one host and 2, 3 on another: refused, unless
-    CGX_INTRA_BROADCAST=0 asks for the flat reduction."""
-    import socket
-
+    """Ranks 0, 1 on one host and 2, 3 on another (``CGX_SHM_HOST_ID``, the
+    world's host map gathered anew): the two-level path runs, and
+    CGX_INTRA_BROADCAST=0 runs the flat reduction."""
     os.environ["CGX_COMPRESSION_QUANTIZATION_BITS"] = "4"
-    real = socket.gethostname
-    socket.gethostname = lambda: f"host{rank // 2}"
+    os.environ["CGX_SHM_HOST_ID"] = f"host{rank // 2}"
+    ran = []
+    real = pb._qreduce_hier
+
+    def counting(*a, **k):
+        ran.append(pb._hosts(None).topology)
+        return real(*a, **k)
+
+    pb._qreduce_hier = counting
     try:
-        pb._HOSTS.clear()
-        refused = _raises(lambda: pb.allreduce(torch.ones(4096)), NotImplementedError)
+        pb.release(None)
+        hier = pb.allreduce(torch.ones(4096))[:2].tolist()
         os.environ["CGX_INTRA_BROADCAST"] = "0"
         flat = pb.allreduce(torch.ones(4096))[:2].tolist()
     finally:
-        socket.gethostname = real
-        pb._HOSTS.clear()
-    return {"refused": refused, "flat": flat}
+        pb._qreduce_hier = real
+        pb.release(None)
+    return {"ran": ran, "hier": hier, "flat": flat}
 
 
 def _launches_scenario(rank, ws):
@@ -458,8 +460,8 @@ def _launches_scenario(rank, ws):
             model.hook(pb._extract_layers(n, key), ws, rank, cfg.intra_reduction())
             for k in counts:
                 counts[k] = 0
-            cfg.set_current_bucket(key)
-            pb.allreduce(torch.from_numpy(rng.standard_normal(n).astype(np.float32)))
+            pb.allreduce(torch.from_numpy(rng.standard_normal(n).astype(np.float32)),
+                         bucket_key=key)
             out[(algo, key)] = (dict(counts), dict(model.counts))
     return out
 
@@ -621,10 +623,13 @@ def test_unported_knobs_refused(worlds):
 
 
 def test_two_level_group_refused(worlds):
+    """Not refused: a group on two hosts of two ranks runs the
+    two-level scheme once (the flat one under CGX_INTRA_BROADCAST=0), and
+    both sum the constant buckets exactly."""
     for o in worlds[("port", 4)]:
         h = o["hierarchy"]
-        assert h["refused"] and "not ported" in h["refused"], h
-        assert h["flat"] == [4.0, 4.0]
+        assert h["ran"] == [pb.TOPO_MIXED], h
+        assert h["hier"] == [4.0, 4.0] and h["flat"] == [4.0, 4.0], h
 
 
 def test_launch_model_matches_counted_calls(worlds):

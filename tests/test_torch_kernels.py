@@ -1057,3 +1057,67 @@ def test_hook_frames_match_plain(dev, monkeypatch, dtype, aligned, epilogue):
         off += nb
         got = dispatch.reduce_rows(hb._stack_frames([x.to(dev) for x in rows], s, wdt))
         assert _bits_equal(got, dispatch.reduce_rows(hb._stack_frames(rows, s, wdt))), s
+
+
+@pytest.mark.parametrize("intra_compress", [True, False], ids=["intra_q", "intra_raw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hier_frames_match_plain(dev, dtype, intra_compress):
+    """The two-level scheme's frame work (``backend._qreduce_hier``) on the
+    card against the plain versions on the CPU, bit for bit: two
+    non-leaders' whole-buffer stage-1 frames, the leader's fold of them in
+    ascending local index (the decode's fused add), its stage-3 requantize
+    and self-decode, and a local's decode of that frame. Under
+    ``CGX_INTRA_COMPRESS=0`` the intra frames are raw values."""
+    from torch_cgx_tpu_torch.torch_backend import backend as hb
+
+    layers, n = _hook_layers()
+    wdt = hb._wire_dtype(dtype)
+    raw = not intra_compress
+    segs = hb._segments_in(layers, 0, n)
+    rng = np.random.default_rng(11 + int(raw))
+    ranks = torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32)).to(dtype).float()
+    frames = []
+    for r in (1, 2):
+        cpu = hb._compress_frames(ranks[r], segs, raw, wdt)
+        card = hb._compress_frames(ranks[r].to(dev), segs, raw, wdt)
+        assert _bits_equal(card, cpu), r
+        frames.append(cpu)
+    cpu, card = ranks[0].clone(), ranks[0].to(dev)
+    for f in frames:
+        hb._decompress_frames(f, segs, cpu, raw, True, wdt)
+        hb._decompress_frames(f.to(dev), segs, card, raw, True, wdt)
+        assert _bits_equal(card, cpu)
+    w_cpu = hb._requantize_frames(cpu, segs, raw, wdt)
+    w_card = hb._requantize_frames(card, segs, raw, wdt)
+    assert _bits_equal(w_card, w_cpu) and _bits_equal(card, cpu)
+    cpu, card = ranks[1].clone(), ranks[1].to(dev)
+    hb._decompress_frames(w_cpu, segs, cpu, raw, False, wdt)
+    hb._decompress_frames(w_card, segs, card, raw, False, wdt)
+    assert _bits_equal(card, cpu)
+
+
+def test_async_bucket_runs_on_the_workers_stream(dev, monkeypatch):
+    """``backend.allreduce_async`` on a card tensor: the job runs on the
+    group's worker thread on its own stream, after what the caller's stream
+    wrote to the tensor, and the CUDA-aware future orders the waiter's
+    stream after the job's writes."""
+    from torch_cgx_tpu_torch.torch_backend import backend as hb
+
+    seen = {}
+
+    def job(t, group=None, op=None, bucket_key=None):
+        seen["stream"] = torch.cuda.current_stream(t.device)
+        seen["key"] = bucket_key
+        t.mul_(2)
+        return t
+
+    monkeypatch.setattr(hb, "allreduce", job)
+    x = torch.zeros(1 << 24, device=dev)
+    torch.cuda._sleep(50_000_000)  # keep the caller's stream busy
+    x.add_(1)
+    fut = hb.allreduce_async(x, None, ("b", 0))
+    out = fut.wait()
+    assert out is x and seen["key"] == ("b", 0)
+    assert seen["stream"] != torch.cuda.current_stream(dev)
+    assert float(x.sum()) == 2.0 * x.numel()
+    hb.release(None)

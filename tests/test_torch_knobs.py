@@ -1,12 +1,16 @@
-"""Reference knobs the port does not implement are refused, never ignored.
+"""Reference knobs: applied as the JAX package applies them, or refused,
+never ignored.
 
-``CGX_COMPRESSION_FAKE_RATIO`` (the reference's synthetic compression
-ratio) and ``CGX_NONFINITE_GUARD`` (the train step's NaN/Inf policy) change
-what the JAX package returns. The port has neither yet, so a value other
-than the default raises ``NotImplementedError`` naming the knob: the ratio
-in ``allreduce_flat`` (where the JAX package applies it; ``allreduce_tree``
-and ``gradient_sync`` reach it through that call), the guard in
-``gradient_sync`` and ``make_train_step``. At their defaults (the ratio unset, 0 or 1; the guard
+``CGX_COMPRESSION_FAKE_RATIO`` (the reference's debug traffic shaping)
+reduces only the leading ``ceil(ratio * n)`` values of each compressed
+buffer in ``allreduce_flat`` (so also ``allreduce_tree`` and
+``gradient_sync``) and leaves the tail un-reduced: held bit for bit against
+the JAX package's ``allreduce_flat`` / ``allreduce_tree`` on a one-device
+mesh under ``CGX_DEBUG_FORCE_CODEC=1`` (the prefix quantized and decoded,
+the tail as it was), on decode-exact data. ``CGX_NONFINITE_GUARD`` (the
+train step's NaN/Inf policy) is not ported, so a value other than "off"
+raises ``NotImplementedError`` naming it in ``gradient_sync`` and
+``make_train_step``. At their defaults (the ratio unset, 0 or 1; the guard
 "off") everything runs as before. Both accessors parse as the JAX
 package's do, which the tests check value by value.
 """
@@ -48,22 +52,74 @@ def _model_and_step():
     return model, step, tokens
 
 
+def _grid(shape, k=3):
+    """Tenths of an integer grid whose every bucket of 128 holds 0 and 15:
+    the codec moves most values (a tenth is no multiple of the level step),
+    and the JAX package's decode gives the same bits as the port's."""
+    n = int(np.prod(shape))
+    return (np.float32((np.arange(n) * k) % 16) * np.float32(0.1)).reshape(shape)
+
+
+def _jax_on_one_device(fn, *args):
+    import jax
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from torch_cgx_tpu.utils.compat import shard_map
+
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("dp",))
+    body = shard_map(lambda *a: fn(mesh, *a), mesh=mesh, in_specs=P(), out_specs=P(),
+                     check_vma=False)
+    return jax.tree.map(np.asarray, jax.jit(body)(*args))
+
+
 @pytest.mark.parametrize("raw", ["0.5", "0.01", "0.99"])
 def test_fake_ratio_is_refused_by_allreduce_tree(_env, raw):
+    """Not refused: under the ratio ``allreduce_tree`` and
+    ``gradient_sync`` of one rank with the codec forced equal the JAX
+    package's ``allreduce_tree`` bit for bit, and differ from the run
+    without the ratio only where the tail skipped the codec."""
+    from torch_cgx_tpu.parallel import allreduce as jallreduce
+
+    _env.setenv("CGX_DEBUG_FORCE_CODEC", "1")
     _env.setenv("CGX_COMPRESSION_FAKE_RATIO", raw)
     assert tcfg.fake_ratio() == jcfg.fake_ratio() == float(raw)
-    with pytest.raises(NotImplementedError, match="CGX_COMPRESSION_FAKE_RATIO"):
-        allreduce_tree(_grads())
-    with pytest.raises(NotImplementedError, match="CGX_COMPRESSION_FAKE_RATIO"):
-        gradient_sync(_grads())
+    grads = {"a.kernel": _grid((64, 128)), "b.kernel": _grid((40, 128), k=5)}
+    want = _jax_on_one_device(
+        lambda mesh, t: jallreduce.allreduce_tree(t, mesh=mesh), {"a": {"kernel": grads["a.kernel"]},
+                                                                   "b": {"kernel": grads["b.kernel"]}})
+    for fn in (allreduce_tree, gradient_sync):
+        got = fn({k: torch.from_numpy(v.copy()) for k, v in grads.items()})
+        for k in grads:
+            a, b = k.split(".")
+            np.testing.assert_array_equal(got[k].numpy().view(np.int32), want[a][b].view(np.int32))
+    # The shaped tail is the input as it was; the prefix went through the
+    # codec.
+    n = sum(v.size for v in grads.values())
+    m = max(1, int(np.ceil(float(raw) * n)))
+    flat = np.concatenate([grads[k].reshape(-1) for k in sorted(grads)])
+    out = np.concatenate([want[k.split(".")[0]]["kernel"].reshape(-1) for k in sorted(grads)])
+    np.testing.assert_array_equal(out[m:], flat[m:])
+    assert not np.array_equal(out[:m], flat[:m])
 
 
 @pytest.mark.parametrize("raw", ["0.5", "0.25"])
 def test_fake_ratio_is_refused_by_allreduce_flat(_env, raw):
+    """Not refused: ``allreduce_flat`` sends the shaped prefix and
+    leaves the tail un-reduced, bit for bit as the JAX package's."""
+    from torch_cgx_tpu.config import CompressionConfig as JCC
+    from torch_cgx_tpu.parallel import allreduce as jallreduce
+
+    _env.setenv("CGX_DEBUG_FORCE_CODEC", "1")
     _env.setenv("CGX_COMPRESSION_FAKE_RATIO", raw)
-    flat = _grads()["a.kernel"].reshape(-1)
-    with pytest.raises(NotImplementedError, match="CGX_COMPRESSION_FAKE_RATIO"):
-        allreduce_flat(flat, CompressionConfig(bits=4, bucket_size=128))
+    flat = _grid(8192 + 77, k=7)
+    want = _jax_on_one_device(
+        lambda mesh, x: jallreduce.allreduce_flat(x, JCC(bits=4, bucket_size=128), mesh=mesh,
+                                                  axes=("dp",)), flat)
+    got = allreduce_flat(torch.from_numpy(flat.copy()), CompressionConfig(bits=4, bucket_size=128))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    m = int(np.ceil(float(raw) * flat.size))
+    np.testing.assert_array_equal(got.numpy()[m:], flat[m:])
+    assert not np.array_equal(got.numpy()[:m], flat[:m])
 
 
 @pytest.mark.parametrize("raw", [None, "0", "1"])

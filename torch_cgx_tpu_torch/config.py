@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import dataclasses
 import re
-import threading
 from typing import Dict, Hashable, List, Optional, Tuple
 
 from .utils import env as _env
@@ -36,9 +35,11 @@ CODEC_ENCODE = "CGX_CODEC_ENCODE"  # div | mul: the level encode of the quantizi
 # exact | int8: the fold of the reduce kernels. Only "exact" is ported; the
 # wrappers refuse "int8" (ROADMAP Queue B).
 SRA_ACCUM = "CGX_SRA_ACCUM"
-# Read only to refuse a value other than the default: the synthetic
-# compression ratio and the nonfinite guard are not ported (ROADMAP Queue A).
+# The reference's debug traffic shaping: reduce only the leading fraction of
+# each compressed buffer.
 COMPRESSION_FAKE_RATIO = "CGX_COMPRESSION_FAKE_RATIO"
+# Read only to refuse a value other than the default: the nonfinite guard is
+# not ported (ROADMAP Queue A).
 NONFINITE_GUARD = "CGX_NONFINITE_GUARD"
 PALLAS_DB = "CGX_PALLAS_DB"  # auto | on | off: the pipelined (DB) codec kernels
 PALLAS_PACK = "CGX_PALLAS_PACK"  # sum | butterfly: the bit-plane pack lowering
@@ -50,6 +51,12 @@ LAYER_ALIGNED_SPLIT = "CGX_LAYER_ALIGNED_SPLIT"  # the DDP hook's greedy chunk s
 # package's c10d backend is not ported (ROADMAP A9).
 SCHEDULE = "CGX_SCHEDULE"
 PLANNER = "CGX_PLANNER"
+# Read only to refuse "on": the JAX package's asynchronous cross-slice plane,
+# which skips the two-level scheme's cross stage, is not ported (ROADMAP A14).
+ASYNC = "CGX_ASYNC"
+# The host key of the DDP hook's host map (torch_backend.host_fingerprint):
+# ranks with one key share a host. Unset: "hostname:boot_id".
+SHM_HOST_ID = "CGX_SHM_HOST_ID"
 
 DEFAULT_BITS = 32  # 32 == compression off
 DEFAULT_BUCKET_SIZE = 512
@@ -157,24 +164,26 @@ def planner_mode() -> str:
     return _tri_state(PLANNER)
 
 
+def async_mode() -> str:
+    """CGX_ASYNC: off (default) | on | auto, parsed as the JAX package does.
+    "on" makes the JAX package's two-level bucket reduction skip its cross
+    stage for the asynchronous plane, which the port does not have: the DDP
+    hook's two-level path raises under it."""
+    mode = _env.get_str_env_or_default(ASYNC, "off").lower()
+    if mode not in ("off", "on", "auto"):
+        raise ValueError(f"{ASYNC} must be off|on|auto, got {mode!r}")
+    return mode
+
+
 def fake_ratio() -> Optional[float]:
     """CGX_COMPRESSION_FAKE_RATIO: the reference's debug traffic shaping,
-    which reduces only the leading ``ratio`` fraction of each compressed
-    buffer. A value <= 0 or >= 1 is off (None), as in the JAX package. The
-    port does not implement it: ``allreduce_flat`` raises while a ratio is
-    active."""
+    which reduces only the leading ``ceil(ratio * n)`` values of each
+    compressed buffer and leaves the rest un-reduced. A value <= 0 or >= 1
+    is off (None), as in the JAX package."""
     v = _env.get_float_env_or_default(COMPRESSION_FAKE_RATIO, 0.0)
     if v <= 0.0 or v >= 1.0:
         return None
     return v
-
-
-def refuse_fake_ratio() -> None:
-    if fake_ratio() is not None:
-        raise NotImplementedError(
-            f"{COMPRESSION_FAKE_RATIO} is not ported (the port reduces every value "
-            f"of a buffer); unset it or set it to 0"
-        )
 
 
 NONFINITE_POLICIES = ("off", "skip", "exact")
@@ -465,23 +474,6 @@ def registered_layer_sizes(bucket_idx: Hashable) -> Optional[List[int]]:
 def registered_buckets() -> list:
     """Bucket keys with registered layer sizes."""
     return list(_layer_sizes.keys())
-
-
-# The DDP hook tags the bucket it is about to allreduce, so the bucket
-# allreduce resolves that bucket's layers by identity rather than by its
-# element count. Thread-local: the tag is taken on the thread that set it,
-# inside the same call.
-_tls = threading.local()
-
-
-def set_current_bucket(bucket_key: Optional[Hashable]) -> None:
-    _tls.current_bucket = bucket_key
-
-
-def take_current_bucket() -> Optional[Hashable]:
-    key = getattr(_tls, "current_bucket", None)
-    _tls.current_bucket = None
-    return key
 
 
 def set_layer_pattern_config(pattern: str, config: CompressionConfig) -> None:

@@ -298,8 +298,8 @@ def consume_reason(
     sync will pass."""
     from ..parallel.mesh import TwoLevelGroup
 
-    if isinstance(group, TwoLevelGroup) or not engaged():
-        return "routing"  # the two-level scheme never consumes a payload
+    if isinstance(group, TwoLevelGroup) or not engaged() or cfg_mod.fake_ratio() is not None:
+        return "routing"  # the two-level scheme and a shaped buffer never consume a payload
     if key != (cc, ws, divisor, n) or n > cfg_mod.fusion_threshold_elems(elem_size):
         return "group"  # another config, world, divisor or length; or several fusion slices
     if (

@@ -22,6 +22,7 @@ order and carry the same wire bytes as the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Mapping, Tuple, Union
 
 import torch
@@ -128,10 +129,9 @@ def allreduce_flat(
     ``flat`` (``fused_producer.Produced``), consumed and marked ``consumed``
     where ``fused_producer.consume_reason`` (the predicate ``allreduce_tree``
     applies) holds for this buffer, else ignored and the fallback counted.
-    ``CGX_COMPRESSION_FAKE_RATIO``, which the JAX package applies here, is
-    refused."""
-    cfg_mod.refuse_fake_ratio()
-    slices = _fusion_slices(flat.shape[0], flat.element_size())
+    Under ``CGX_COMPRESSION_FAKE_RATIO`` a compressed buffer reduces only its
+    leading ``ceil(ratio * n)`` values; the tail comes back un-reduced, as
+    in the JAX package."""
     if pre is not None:
         reason = fused_producer.consume_reason(
             pre.key, cc=cc, ws=flat_world(group)[1], divisor=pre.divisor, n=flat.shape[0],
@@ -143,6 +143,12 @@ def allreduce_flat(
         else:
             pre.consumed = True
             fused_producer.count("producer_consumed_slices")
+    ratio = cfg_mod.fake_ratio()
+    tail = None
+    if ratio is not None and cc.enabled and flat.shape[0] > 1:
+        m = max(1, math.ceil(ratio * flat.shape[0]))
+        flat, tail = flat[:m], flat[m:]
+    slices = _fusion_slices(flat.shape[0], flat.element_size())
     if isinstance(group, TwoLevelGroup):
         topo = cfg_mod.topology_from_env()
         pieces = [
@@ -154,6 +160,8 @@ def allreduce_flat(
             quantized_allreduce(flat[off : off + ln], group, ws, cc, red, pre)
             for off, ln in slices
         ]
+    if tail is not None:
+        pieces.append(tail)
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
 

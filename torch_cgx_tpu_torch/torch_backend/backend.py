@@ -10,13 +10,17 @@ caller's ``torch.distributed`` group (gloo or NCCL), on the bucket's device.
 * :func:`allreduce` gates like the JAX backend's ``allreduce``: a float
   bucket under SUM at world size > 1 takes :func:`_allreduce_quantized`,
   anything else a plain ``dist.all_reduce``; at world size 1 the bucket is
-  returned untouched.
+  returned untouched. :func:`allreduce_async` runs it on the group's FIFO
+  worker thread and returns a future (the hook's path).
 * The bucket's layers come from the registry by the hook's bucket tag
   (:func:`_extract_layers`). Enabled layers of at least
   ``CGX_COMPRESSION_MINIMAL_SIZE`` values are concatenated into an f32
-  buffer and reduced by SRA, Ring or all-to-all
-  (``CGX_INNER_REDUCTION_TYPE``, ``CGX_DEBUG_ALL_TO_ALL_REDUCTION``); the
-  rest are summed uncompressed (:func:`_sum_alltoall`).
+  buffer (its leading ``ceil(ratio * n)`` values under
+  ``CGX_COMPRESSION_FAKE_RATIO``) and reduced by SRA, Ring or all-to-all
+  (``CGX_INNER_REDUCTION_TYPE``, ``CGX_DEBUG_ALL_TO_ALL_REDUCTION``), or by
+  the two-level scheme (:func:`_qreduce_hier`) where the group's host map
+  spans hosts with several ranks on one (:func:`_use_hierarchy`); the rest
+  are summed uncompressed over the whole group (:func:`_sum_alltoall`).
 * Each rank chunk of the buffer is cut at layer boundaries into segments;
   each segment is quantized from its own start with its layer's bits and
   bucket into a frame ``meta | packed`` (``ops/codec.py::wire_layout``),
@@ -34,15 +38,20 @@ equal the JAX result on ranks 0 and 1.
 
 Not ported, refused with ``NotImplementedError``: the pipelined SRA of
 ``CGX_SCHEDULE=on`` / ``CGX_PLANNER=on`` (ROADMAP A9), the two-level
-scheme of a group that spans hosts with several ranks on one host
-(A6a part 2), stochastic rounding and ``CGX_COMPRESSION_FAKE_RATIO``.
+scheme's asynchronous cross stage (``CGX_ASYNC=on``) and stochastic
+rounding.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import os
+import queue
 import socket
-from typing import Dict, Hashable, List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -332,13 +341,13 @@ def _layout(n: int, ws: int, layers: Sequence[Layer], wdt: torch.dtype, dummy: b
 
 
 def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
-                 group: ProcessGroup) -> None:
+                 group: ProcessGroup, force_raw: bool = False) -> None:
     """Scatter-Reduce-AllGather: each rank posts each peer's chunk as
     frames, folds the arrivals into its raw own chunk and requantizes it
     (:func:`_sra_fold_chunk`), then every rank gathers and decodes every
     other rank's reduced chunk."""
     ws, me = group_mod.world_size(group), group_mod.rank(group)
-    dummy = cfg.dummy_compression()
+    dummy = cfg.dummy_compression() or force_raw
     segs, fsize = _layout(fused.shape[0], ws, layers, wdt, dummy)
     moves = sum(fsize) > 0
     sent = [None if j == me else _compress_frames(fused, segs[j], dummy, wdt) for j in range(ws)]
@@ -354,13 +363,13 @@ def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
 
 
 def _qreduce_ring(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
-                  group: ProcessGroup) -> None:
+                  group: ProcessGroup, force_raw: bool = False) -> None:
     """Ring: ws-1 scatter-reduce hops, each quantizing the outgoing chunk
     and decode-adding the arriving one, then the reduced chunk
     ``(me + 1) % ws`` is requantized once (and decoded back) and ws-1
     all-gather hops pass each owner's frames on unchanged."""
     ws, me = group_mod.world_size(group), group_mod.rank(group)
-    dummy = cfg.dummy_compression()
+    dummy = cfg.dummy_compression() or force_raw
     segs, fsize = _layout(fused.shape[0], ws, layers, wdt, dummy)
     moves = sum(fsize) > 0
     for step in range(ws - 1):
@@ -377,12 +386,12 @@ def _qreduce_ring(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
 
 
 def _qreduce_alltoall(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
-                      group: ProcessGroup) -> None:
+                      group: ProcessGroup, force_raw: bool = False) -> None:
     """All-to-all: every rank quantizes its whole buffer once, sends it to
     every peer, and decodes and folds all ws frames, its own included, in
     ascending rank order (``dispatch.reduce_rows``)."""
     ws, me = group_mod.world_size(group), group_mod.rank(group)
-    dummy = cfg.dummy_compression()
+    dummy = cfg.dummy_compression() or force_raw
     segs = _segments_in(layers, 0, fused.shape[0])
     wire = _compress_frames(fused, segs, dummy, wdt)
     size = wire.numel()
@@ -402,13 +411,12 @@ def _qreduce_alltoall(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.d
 
 
 def _qreduce_flat(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype, algo: str,
-                  group: ProcessGroup) -> None:
-    if algo == cfg.REDUCTION_ALLTOALL:
-        _qreduce_alltoall(fused, layers, wdt, group)
-    elif algo == cfg.REDUCTION_RING:
-        _qreduce_ring(fused, layers, wdt, group)
-    else:
-        _qreduce_sra(fused, layers, wdt, group)
+                  group: ProcessGroup, force_raw: bool = False) -> None:
+    """One level's reduction over ``group``. ``force_raw``: pass-through
+    frames whatever the layers' configs (the two-level scheme's
+    uncompressed cross stage)."""
+    reduce = {cfg.REDUCTION_ALLTOALL: _qreduce_alltoall, cfg.REDUCTION_RING: _qreduce_ring}
+    reduce.get(algo, _qreduce_sra)(fused, layers, wdt, group, force_raw)
 
 
 def _sum_alltoall(part: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
@@ -475,47 +483,194 @@ def split_layers(layers: Sequence[Layer]) -> Tuple[List[Layer], List[Layer]]:
 
 
 # ---------------------------------------------------------------------------
-# Refusals.
+# The host map and the two-level scheme.
 # ---------------------------------------------------------------------------
 
-_HOSTS: Dict[object, List[str]] = {}
+# The classes of a host map, named as in the JAX backend.
+TOPO_SINGLE = "single"
+TOPO_INTRA = "intra_slice"
+TOPO_CROSS = "cross_slice"
+TOPO_MIXED = "mixed"
 
 
-def _hosts(group: ProcessGroup) -> List[str]:
-    """Every rank's hostname, gathered once per group (at its first
-    quantized allreduce; every rank calls it there)."""
-    key = group if group is not None else dist.group.WORLD
+def host_fingerprint() -> str:
+    """This process's host key: ``CGX_SHM_HOST_ID`` where it is set, else
+    ``"hostname:boot_id"`` (``"noboot"`` where the boot id cannot be read),
+    so that containers on two machines that share a hostname stay apart.
+    The JAX package's ``shm.host_fingerprint``, copied."""
+    override = os.environ.get(cfg.SHM_HOST_ID)
+    if override:
+        return override
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            boot = f.read().strip()
+    except OSError:
+        boot = "noboot"
+    return f"{socket.gethostname()}:{boot}"
+
+
+def _host_topology(hosts: Sequence[str]) -> str:
+    """The class of a group from its ranks' host keys: one rank, one host,
+    a host each, or MIXED (spanning hosts with several ranks on some host:
+    the two-level scheme's groups)."""
+    n_hosts = len(set(hosts))
+    if len(hosts) <= 1:
+        return TOPO_SINGLE
+    if n_hosts == 1:
+        return TOPO_INTRA
+    if n_hosts == len(hosts):
+        return TOPO_CROSS
+    return TOPO_MIXED
+
+
+def _slice_leaders(hosts: Sequence[str]) -> List[int]:
+    """The group ranks that lead their hosts: each host's first rank, hosts
+    in first-seen order (so ascending)."""
+    seen: Dict[str, int] = {}
+    for i, h in enumerate(hosts):
+        seen.setdefault(h, i)
+    return list(seen.values())
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMap:
+    """A group's host map as this rank sees it. ``leaders`` and ``local``
+    are group ranks: each host's leader, and the ranks on this rank's host
+    (ascending, its leader first). A MIXED map also holds the two-level
+    scheme's subgroups: ``intra`` this host's ranks, ``cross`` the ranks of
+    this rank's local index across hosts (on a leader: the leaders)."""
+
+    hosts: Tuple[str, ...]
+    topology: str
+    leaders: Tuple[int, ...]
+    local: Tuple[int, ...]
+    intra: ProcessGroup = None
+    cross: ProcessGroup = None
+
+
+_HOSTS: Dict[object, HostMap] = {}
+
+
+def _group_key(group: ProcessGroup):
+    return group if group is not None else dist.group.WORLD
+
+
+def _new_subgroup(group: ProcessGroup, members: Sequence[int]) -> "dist.ProcessGroup":
+    """The subgroup of ``group``'s ranks ``members``. ``dist.new_group``
+    takes global ranks, hence the mapping. Under
+    ``use_local_synchronization`` only the members call it, so a hook group
+    other than the default one needs nothing from the ranks outside it."""
+    base = _group_key(group)
+    ranks = [dist.get_global_rank(base, r) for r in members]
+    sub = dist.new_group(ranks, backend=dist.get_backend(group), use_local_synchronization=True)
+    if sub is None or sub == dist.GroupMember.NON_GROUP_MEMBER:
+        raise RuntimeError(f"forming the subgroup of global ranks {ranks} failed")
+    return sub
+
+
+def _host_map(group: ProcessGroup, hosts: Tuple[str, ...]) -> HostMap:
+    """Classify ``hosts``; for a MIXED map form this rank's two subgroups:
+    its host's ranks, then the ranks of its local index across hosts (the
+    reference's cross communicator; local index 0 is the leaders). A
+    subgroup formed under ``use_local_synchronization`` is named by its
+    members and the count of groups the process holds, so its members must
+    hold equally many: every rank forms exactly two, a leader or not, alone
+    on its host or not."""
+    me = group_mod.rank(group)
+    topology = _host_topology(hosts)
+    leaders = tuple(_slice_leaders(hosts))
+    local = tuple(r for r, h in enumerate(hosts) if h == hosts[me])
+    if topology != TOPO_MIXED:
+        return HostMap(hosts, topology, leaders, local)
+    li = local.index(me)
+    peers = [[r for r, h in enumerate(hosts) if h == hosts[lead]] for lead in leaders]
+    intra = _new_subgroup(group, local)
+    cross = _new_subgroup(group, sorted(p[li] for p in peers if len(p) > li))
+    # The exchanges address the subgroups' ranks by local and leader index.
+    if dist.get_rank(intra) != li or (li == 0 and dist.get_rank(cross) != leaders.index(me)):
+        raise RuntimeError(f"the two-level subgroups of rank {me} do not follow the group's rank order")
+    return HostMap(hosts, topology, leaders, local, intra, cross)
+
+
+def _hosts(group: ProcessGroup) -> HostMap:
+    """The group's host map: every rank's :func:`host_fingerprint`,
+    gathered once per group at its first quantized allreduce (every rank
+    calls it there), with the two-level subgroups of a MIXED map."""
+    key = _group_key(group)
     if key not in _HOSTS:
         out: List[Optional[str]] = [None] * group_mod.world_size(group)
-        dist.all_gather_object(out, socket.gethostname(), group=group)
-        _HOSTS[key] = [str(h) for h in out]
+        dist.all_gather_object(out, host_fingerprint(), group=group)
+        _HOSTS[key] = _host_map(group, tuple(str(h) for h in out))
     return _HOSTS[key]
 
 
-def _spans_hosts_with_local_peers(hosts: Sequence[str]) -> bool:
-    """The group spans hosts and some host holds more than one rank."""
-    counts: Dict[str, int] = {}
-    for h in hosts:
-        counts[h] = counts.get(h, 0) + 1
-    return len(counts) > 1 and max(counts.values()) > 1
+def _use_hierarchy(group: ProcessGroup, topo: cfg.TopologyConfig) -> bool:
+    """The JAX backend's predicate: the two-level scheme runs where the
+    group's host map is MIXED and ``CGX_INTRA_BROADCAST`` is on. It is
+    group-global, so every rank takes the same branch; a rank alone on its
+    host takes part as its own leader."""
+    return topo.intra_broadcast and _hosts(group).topology == TOPO_MIXED
 
 
-def _refuse_unported(group: ProcessGroup, topo: cfg.TopologyConfig, dummy: bool) -> None:
+def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
+                  topo: cfg.TopologyConfig, hm: HostMap) -> None:
+    """The two-level leader reduction:
+
+    1. each non-leader frames its whole buffer once (pass-through frames
+       under ``CGX_INTRA_COMPRESS=0``) and sends it to its host's leader,
+       which decode-adds the frames into its raw buffer in ascending local
+       index (B2 with the fused add);
+    2. the leaders run the flat cross reduction
+       (``CGX_CROSS_REDUCTION_TYPE``) over their own group;
+    3. every leader, alone on its host too, requantizes its buffer and
+       decodes the frame back (so every rank holds the decode of the same
+       bytes) and sends the frame to its locals, who decode it.
+
+    The leaders hold bit-identical values after stage 2, so all ranks agree
+    bit for bit."""
+    me = dist.get_rank(hm.intra)  # this rank's local index
+    nl = len(hm.local)
+    raw = cfg.dummy_compression() or not topo.intra_compress
+    segs = _segments_in(layers, 0, fused.shape[0])
+    size = frames_bytes(segs, wdt, raw)
+    dev = fused.device
+    if me != 0:
+        frame = _compress_frames(fused, segs, raw, wdt)
+        _alltoallv([frame] + [None] * (nl - 1), [0] * nl, size > 0, hm.intra, dev)
+        buf = _alltoallv([None] * nl, [size] + [0] * (nl - 1), size > 0, hm.intra, dev)[0]
+        _decompress_frames(buf, segs, fused, raw, add=False, wdt=wdt)
+        return
+    if nl > 1:
+        bufs = _alltoallv([None] * nl, [0] + [size] * (nl - 1), size > 0, hm.intra, dev)
+        for idx in range(1, nl):
+            _decompress_frames(bufs[idx], segs, fused, raw, add=True, wdt=wdt)
+    _qreduce_flat(fused, layers, wdt, topo.cross_reduction, hm.cross,
+                  force_raw=not topo.cross_compress)
+    wire = _requantize_frames(fused, segs, raw, wdt)
+    if nl > 1:
+        _alltoallv([None] + [wire] * (nl - 1), [0] * nl, size > 0, hm.intra, dev)
+
+
+# ---------------------------------------------------------------------------
+# Refusals.
+# ---------------------------------------------------------------------------
+
+
+def _refuse_unported(topo: cfg.TopologyConfig, dummy: bool, hier: bool) -> None:
     """Raise, on every rank alike and before any collective of the bucket,
     for what the JAX backend would run and the port does not have."""
-    hosts = _hosts(group)
-    if topo.intra_broadcast and _spans_hosts_with_local_peers(hosts):
-        raise NotImplementedError(
-            f"the two-level bucket reduction of a group that spans hosts with several ranks "
-            f"on a host ({sorted(set(hosts))}) is not ported; set CGX_INTRA_BROADCAST=0 for "
-            f"the flat reduction"
-        )
-    if topo.intra_reduction not in (cfg.REDUCTION_RING, cfg.REDUCTION_ALLTOALL) and (
+    algo = topo.cross_reduction if hier else topo.intra_reduction
+    if algo not in (cfg.REDUCTION_RING, cfg.REDUCTION_ALLTOALL) and (
         cfg.schedule_mode() == "on" or cfg.planner_mode() == "on"
     ):
         raise NotImplementedError(
             f"the pipelined bucket SRA ({cfg.SCHEDULE}=on or {cfg.PLANNER}=on) is not ported; "
             f"unset both or set them to auto or off"
+        )
+    if hier and cfg.async_mode() == "on":
+        raise NotImplementedError(
+            f"{cfg.ASYNC}=on (the two-level scheme without its cross stage, for the "
+            f"asynchronous plane) is not ported; unset it or set it to off"
         )
     if cfg.stochastic_rounding() and not dummy:
         raise NotImplementedError(
@@ -529,12 +684,13 @@ def _refuse_unported(group: ProcessGroup, topo: cfg.TopologyConfig, dummy: bool)
 # ---------------------------------------------------------------------------
 
 
-def allreduce(t: torch.Tensor, group: ProcessGroup = None, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """Allreduce ``t`` in place over ``group`` and return it. Takes the
-    hook's bucket tag (``config.take_current_bucket``). A float tensor under
-    SUM is reduced per layer with compression; anything else by a plain
-    ``dist.all_reduce``. At world size 1 ``t`` is returned untouched."""
-    bucket_key = cfg.take_current_bucket()
+def allreduce(t: torch.Tensor, group: ProcessGroup = None, op=dist.ReduceOp.SUM,
+              bucket_key: Optional[Hashable] = None) -> torch.Tensor:
+    """Allreduce ``t`` in place over ``group`` and return it. The bucket's
+    layers resolve by ``bucket_key`` (registered layer sizes), else by
+    the element count alone. A float tensor under SUM is reduced per layer with compression; anything else
+    by a plain ``dist.all_reduce``. At world size 1 ``t`` is returned
+    untouched."""
     if group_mod.world_size(group) == 1:
         return t
     if t.dtype in _TORCH_FLOATS and op == dist.ReduceOp.SUM:
@@ -544,19 +700,40 @@ def allreduce(t: torch.Tensor, group: ProcessGroup = None, op=dist.ReduceOp.SUM)
     return t
 
 
+def _shaped_spans(comp: Sequence[Layer]) -> List[Tuple[int, int]]:
+    """``(offset, numel)`` of the compressed layers' values that travel:
+    all of them, or under ``CGX_COMPRESSION_FAKE_RATIO`` the leading
+    ``ceil(ratio * total)``, cut at the layer where the budget ends."""
+    spans = [(o, n) for (o, n, _) in comp]
+    total = sum(n for _, n in spans)
+    ratio = cfg.fake_ratio()
+    if ratio is None or total <= 1:
+        return spans
+    budget = max(1, math.ceil(ratio * total))
+    cut, acc = [], 0
+    for o, n in spans:
+        take = min(n, budget - acc)
+        if take <= 0:
+            break
+        cut.append((o, take))
+        acc += take
+    return cut
+
+
 def _allreduce_quantized(t: torch.Tensor, group: ProcessGroup,
                          bucket_key: Optional[Hashable] = None) -> None:
     """The bucket's layers split into compressed and raw ones; the raw
-    ones summed exactly, the compressed ones concatenated into an f32
-    buffer and reduced by the inner reduction type; both written back in
-    the bucket's dtype."""
-    cfg.refuse_fake_ratio()
+    ones summed exactly over the whole group, the compressed ones (their
+    shaped prefix under the fake ratio) concatenated into an f32 buffer and
+    reduced by the two-level scheme or the inner reduction type; both
+    written back in the bucket's dtype."""
     topo = cfg.topology_from_env()
     dummy = cfg.dummy_compression()
     layers = _extract_layers(t.numel(), bucket_key)
     comp, rest = split_layers(layers)
+    hier = bool(comp) and _use_hierarchy(group, topo)
     if comp:
-        _refuse_unported(group, topo, dummy)
+        _refuse_unported(topo, dummy, hier)
     arr = t.detach().reshape(-1).to(torch.float32, copy=True)
     if rest:
         part = torch.cat([arr[o : o + n] for (o, n, _) in rest])
@@ -566,15 +743,133 @@ def _allreduce_quantized(t: torch.Tensor, group: ProcessGroup,
             arr[o : o + n] = part[off : off + n]
             off += n
     if comp:
-        fused = torch.cat([arr[o : o + n] for (o, n, _) in comp])
+        spans = _shaped_spans(comp)
+        fused = torch.cat([arr[o : o + n] for (o, n) in spans])
+        # Layer offsets in fused coordinates, clipped to the shaped length.
         fl, off = [], 0
         for (_, n, c) in comp:
-            fl.append((off, n, c))
+            if off >= fused.shape[0]:
+                break
+            fl.append((off, min(n, fused.shape[0] - off), c))
             off += n
-        _qreduce_flat(fused, fl, _wire_dtype(t.dtype), topo.intra_reduction, group)
+        wdt = _wire_dtype(t.dtype)
+        if hier:
+            _qreduce_hier(fused, fl, wdt, topo, _hosts(group))
+        else:
+            _qreduce_flat(fused, fl, wdt, topo.intra_reduction, group)
         off = 0
-        for (o, n, _) in comp:
+        for (o, n) in spans:
             arr[o : o + n] = fused[off : off + n]
             off += n
     with torch.no_grad():
         t.copy_(arr.view(t.shape))
+
+
+# ---------------------------------------------------------------------------
+# The group's worker thread.
+# ---------------------------------------------------------------------------
+
+
+class _Worker:
+    """A process group's FIFO thread: it runs the group's bucket
+    allreduces in the order they were submitted, so every rank issues the
+    same sequence of collectives, off the autograd thread. On the card a
+    job runs on the worker's own stream of the bucket's device."""
+
+    def __init__(self, name: str):
+        self._jobs: "queue.SimpleQueue[Optional[Callable[[], None]]]" = queue.SimpleQueue()
+        self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+        self.thread = threading.Thread(target=self._loop, name=name, daemon=True)
+        self.thread.start()
+
+    def _loop(self) -> None:
+        while (job := self._jobs.get()) is not None:
+            job()
+
+    def submit(self, job: Callable[[], None]) -> None:
+        self._jobs.put(job)
+
+    @contextlib.contextmanager
+    def side_stream(self, dev: torch.device, ready: "torch.cuda.Event"):
+        """Make the worker's stream of ``dev`` current, ordered after
+        ``ready``."""
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            yield
+
+    def close(self, timeout: float) -> bool:
+        """Stop after the jobs already queued; whether the thread ended
+        within ``timeout`` seconds."""
+        self._jobs.put(None)
+        self.thread.join(timeout)
+        return not self.thread.is_alive()
+
+
+_WORKERS: Dict[object, _Worker] = {}
+_WORKERS_LOCK = threading.Lock()
+
+
+def _worker(group: ProcessGroup) -> _Worker:
+    key = _group_key(group)
+    with _WORKERS_LOCK:
+        if key not in _WORKERS:
+            _WORKERS[key] = _Worker(f"cgx-bucket-worker-{len(_WORKERS)}")
+        return _WORKERS[key]
+
+
+def allreduce_async(t: torch.Tensor, group: ProcessGroup = None,
+                    bucket_key: Optional[Hashable] = None) -> torch.futures.Future:
+    """:func:`allreduce` of ``t`` (SUM) with the tag ``bucket_key`` on the
+    group's worker thread. Returns a future that holds ``t`` once it is
+    reduced, or the exception the reduction raised. On the card the worker's
+    stream waits for an event recorded here on the current stream, after
+    whatever wrote ``t``, and the future is CUDA-aware: a wait on it orders
+    the waiter's current stream after the reduction."""
+    worker = _worker(group)
+    if t.is_cuda:
+        fut = torch.futures.Future(devices=[t.device])
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(t.device))
+        where = lambda: worker.side_stream(t.device, ready)  # noqa: E731
+    else:
+        fut, where = torch.futures.Future(), contextlib.nullcontext
+
+    def job() -> None:
+        try:
+            with where():
+                allreduce(t, group, bucket_key=bucket_key)
+                fut.set_result(t)
+        except Exception as e:  # carried by the future to the waiter (DDP raises it)
+            fut.set_exception(e)
+
+    worker.submit(job)
+    return fut
+
+
+def release(group: ProcessGroup = None, timeout: float = 60.0) -> None:
+    """Drop the state kept for ``group``: stop its worker once the buckets
+    already queued have run (a bounded join; ``RuntimeError`` if the thread
+    is still running after ``timeout`` seconds), and forget its host map,
+    destroying the two-level subgroups. The next quantized allreduce over
+    the group gathers the map anew."""
+    key = _group_key(group)
+    with _WORKERS_LOCK:
+        worker = _WORKERS.pop(key, None)
+    if worker is not None and not worker.close(timeout):
+        raise RuntimeError(f"the bucket worker {worker.thread.name} did not stop within {timeout} s")
+    hm = _HOSTS.pop(key, None)
+    for sub in () if hm is None else (hm.intra, hm.cross):
+        if sub is not None:
+            dist.destroy_process_group(sub)
+
+
+def destroy_process_group(group: ProcessGroup = None, timeout: float = 60.0) -> None:
+    """:func:`release` ``group`` (the default group: every group), then
+    ``dist.destroy_process_group(group)``."""
+    keys = list(set(_WORKERS) | set(_HOSTS)) if group is None else [group]
+    for key in keys:
+        release(key, timeout)
+    dist.destroy_process_group(group)

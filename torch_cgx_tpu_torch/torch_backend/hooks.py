@@ -14,11 +14,16 @@ semantics:
   size in its own dtype first, then summed, so the quantization sees the
   divided gradients.
 
-The JAX hook hands the bucket to ``dist.all_reduce`` on its ``"cgx"``
-backend. The port has no backend: the hook calls the bucket allreduce
-(``backend.allreduce``) on ``bucket.buffer()`` itself, synchronously on the
-calling thread, and returns a completed future holding the buffer. DDP
-calls the hook in bucket order on every rank, so the collectives line up.
+The JAX hook hands the bucket to ``dist.all_reduce(..., async_op=True)`` on
+its ``"cgx"`` backend, whose worker thread runs it. The port has no
+backend: the hook hands ``bucket.buffer()`` and its tag to
+``backend.allreduce_async``, which runs the bucket allreduce on the
+group's FIFO worker thread (on the card on a side stream ordered after the
+bucket's gradients) and returns a future, so a bucket's sync overlaps the
+backward of the layers still to come. DDP calls the hook in bucket order on
+every rank and the worker keeps that order, so the collectives line up;
+DDP waits on every future before the backward returns, and raises the
+exception a bucket raised.
 """
 
 # NOTE: no `from __future__ import annotations` here: DDP's
@@ -67,16 +72,13 @@ class CGXState:
 
 
 def _allreduce_fut(
-    process_group: Optional[dist.ProcessGroup], tensor: torch.Tensor
+    process_group: Optional[dist.ProcessGroup], tensor: torch.Tensor, bucket_key
 ) -> torch.futures.Future:
-    """Average: divide in the bucket's dtype, then the summing bucket
-    allreduce; a completed future holding ``tensor``."""
+    """Average: divide in the bucket's dtype (on the calling thread), then
+    the summing bucket allreduce on the group's worker; its future."""
     group = process_group if process_group is not None else dist.group.WORLD
     tensor.div_(dist.get_world_size(group=group))
-    backend.allreduce(tensor, group=process_group)
-    fut = torch.futures.Future()
-    fut.set_result(tensor)
-    return fut
+    return backend.allreduce_async(tensor, process_group, bucket_key)
 
 
 def cgx_hook(
@@ -91,6 +93,6 @@ def cgx_hook(
             )
     if bucket.is_last():
         state.step += 1
-    # Tag the allreduce about to run so it resolves this bucket's layers.
-    cfg.set_current_bucket(bucket_key)
-    return _allreduce_fut(state.process_group, bucket.buffer())
+    # The tag goes with the bucket to the worker, which resolves this
+    # bucket's layers by it.
+    return _allreduce_fut(state.process_group, bucket.buffer(), bucket_key)
