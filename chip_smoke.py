@@ -40,7 +40,15 @@ order, none of whose failures is caught:
    reduce (B4) at full and at scalar width, bit for bit: at each launch
    shape of phase 7's four-rank steps (``shapebench.REDUCE_SHAPES``), at
    rows 1-8 and 11 with the raw own row in every position and none, and
-   with a raw row view that is not 16-byte aligned (the scalar width);
+   with a raw row view that is not 16-byte aligned (the scalar width).
+   Then stochastic rounding (:func:`check_stochastic`): B1, B7a, B3 and
+   B7c with a seed against their plain versions bit for bit on the 64 MB
+   slice and at ws 1, 4 and 8 (raw row or not) in every lowering, B7a's
+   bytes equal to B1's and B7c's to B3's, the fused epilogue's to the
+   staged one's, at the step's launch shapes, at bits 1-8 and buckets
+   128-16384, at every cluster size, tile of one or two chunks and ring
+   depth 1-8; every level floor(q) or floor(q) + 1 and the decode's mean
+   over 64 seeds unbiased within 4 sigma;
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -56,7 +64,11 @@ order, none of whose failures is caught:
    seed under ``CGX_PALLAS_PACK=butterfly``, launches held against the
    layout and parameters bit-identical to the sum pack's, and (e) one step
    under ``CGX_CODEC_ENCODE=mul`` with its gradient sync through the kernels
-   bit-identical to the plain versions' on the CPU, under mul too;
+   bit-identical to the plain versions' on the CPU, under mul too, and (f)
+   under ``CGX_STOCHASTIC_ROUNDING=1`` a step built with
+   ``make_train_step(stochastic_seed=SR_SEED)``: its first step's sync
+   through the kernels bit-identical to the plain versions' on the CPU
+   with the same key, its launches against the layout;
 5. times: each kernel and its plain version (CUDA events around one call,
    median after warm-up; each kernel also as a burst of back-to-back calls
    queued behind a sleep kernel, ``burst_ms``, which leaves out the host's
@@ -75,7 +87,10 @@ order, none of whose failures is caught:
    ``CGX_PALLAS_DB=on``, and B4 at phase 7's launch shapes, with its time
    and bound a rank-step of the two-level and the all-to-all scheme
    (``tools/shapebench.py``: cold inputs, back-to-back launches behind a
-   sleep kernel, five groups in turns with the plain version);
+   sleep kernel, five groups in turns with the plain version); the four
+   stochastic kernels beside their round-to-nearest selves
+   (:func:`time_stochastic`, bound also by the Philox's integer work) and
+   a profile of the stochastic step under ``CGX_PALLAS_DB`` off and on;
 6. qbench: ``python -m torch_cgx_tpu_torch.tools.qbench`` at its defaults
    (128 MB, 4 bits, bucket 512, k = 8, ``sra_epilogue`` at ws 8) for each
    of its eight variants, in this process: each variant's bytes checked,
@@ -115,7 +130,11 @@ order, none of whose failures is caught:
    the two-level path, the launches equal ``LaunchModel.hook`` on the
    leaders and the non-leaders, and step 3's buckets are bit-identical
    between the kernels and the plain CPU path under the default scheme
-   with f32 and with bf16 buckets.
+   with f32 and with bf16 buckets, and the leaders' stage-3 frames
+   identical. Then ``ddp_hook_sr`` and ``ddp_hook_hier_sr``: both again
+   under ``CGX_STOCHASTIC_ROUNDING=1``, with the same checks (the reruns
+   through the kernels and the plain versions drawing the same frame
+   keys).
    Gloo stages the wire through host memory: its time is not a card
    number.
 
@@ -157,6 +176,41 @@ MR_TIMEOUT_S = 600
 
 # float32 outside the tensor cores, operations/s (H100 SXM data sheet).
 F32_RATE = 67e12
+# Stochastic rounding (phases 3, 4, 5 and 7): the seed of the kernels'
+# checks and of the stochastic step.
+SR_SEED = 0x0123456789ABCDEF
+# The Philox's part of the stochastic kernels' bound (phase 5). Its
+# instructions a value are read from the SASS of the build, beside phases
+# 3 and 4 (:func:`philox_sass`): B1's stochastic instance at 4 bits, div,
+# sum, one position (32 values) a thread, less the deterministic instance,
+# over 32. From the code (csrc/codec.cu philox4x32_10) a call for four
+# values is ten rounds of two 32 x 32 -> 64-bit multiplies (IMAD.WIDE, or
+# IMAD.HI and IMAD) and two three-input XORs (LOP3), and nine key bumps of
+# two adds that depend on the seed alone (once a thread); each value adds
+# a shift, a convert and the scale's multiply. Each pipe's count is priced at its own rate, a
+# Hopper SM's per clock (CUDA C++ Programming Guide, arithmetic
+# throughput, compute capability 9.0): the integer ALU (logic, shifts,
+# adds, compares, selects) 64, the integer multiply-add (IMAD, on the FMA
+# pipe) 64, f32 add and multiply 128, the converts I2F, F2I, FRND 16;
+# every instruction counts against the four schedulers' issue, 128. The
+# bound takes the busiest pipe; an instruction of no listed pipe counts
+# only in the issue.
+SASS_PIPES = {
+    "alu": (64, ("LOP3", "LOP", "SHF", "SHL", "SHR", "IADD3", "IADD", "LEA", "SEL", "ISETP",
+                 "IMNMX", "PRMT", "FMNMX", "FSEL", "FSETP")),
+    "imad": (64, ("IMAD",)),
+    "fp32": (128, ("FADD", "FMUL", "FFMA")),
+    "cvt": (16, ("I2F", "F2I", "FRND")),
+    "issue": (128, None),
+}
+PHILOX_SASS_KERNEL = re.compile(r"cgx_quantize_cluster_kernelILi4ELi0ELi0ELb0ELb([01])E")
+# An H100 SXM: 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper
+# architecture white paper).
+SM_CLOCK_RATE = 132 * 1.98e9
+# Phase 3's stochastic buckets: at bits 1-8 (1760 and 16384 past the
+# register budget); and (bucket, chunks) of the forced geometries.
+SR_BUCKETS = (128, 512, 1760, 4096, 16384)
+SR_FORCED = ((512, 6), (1760, 4), (16384, 2))
 
 TPU_KERNELS = {
     "codec_quantize": "torch_cgx_tpu/ops/codec_pallas.py:312,763",
@@ -454,7 +508,227 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     check_lowerings(dev, flat_n, ws, rng, record, db_tc)
     check_cluster(dev, rng, record)
     check_reduce(dev, rng, record)
+    check_stochastic(dev, flat_n, rng, record, db_tc)
     return max_err
+
+
+def check_stochastic(dev, flat_n: int, rng, record, db_tc) -> None:
+    """The four quantizing kernels under stochastic rounding (a seed) against
+    their plain versions on the card's tensors, bit for bit: B1 and B7a on
+    the 64 MB slice in every (encode, pack) lowering, B7a's bytes equal to
+    B1's; B3 and B7c at ws 1, 4 and 8 rows of a slice's chunk, with and
+    without the raw own row, B7c's bytes equal to B3's; the fused epilogue
+    (``dispatch.reduce_rows_requantize``) equal to the staged one (decode,
+    sum, then B1); at each launch shape of the step (``shapebench.SHAPES``); at bits
+    1-8 and buckets 128-16384 (positions in rounds past the register
+    budget); at every cluster size forced, tiles of one and two chunks and
+    ring depths 1-8 of B7a and B7c. Then the distribution on the card: every
+    level is floor(q) or floor(q) + 1, and over 64 seeds the decode's mean
+    error, summed over the values, is within 4 sigma of zero."""
+    import torch
+
+    from torch_cgx_tpu_torch.config import CompressionConfig
+    from torch_cgx_tpu_torch.ops import codec, codec_cuda, dispatch
+    from torch_cgx_tpu_torch.tools import shapebench
+    from torch_cgx_tpu_torch.utils import prng
+
+    t0 = time.perf_counter()
+    lowerings = [(e, p) for e in codec_cuda.ENCODES for p in codec_cuda.PACKS]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sd = SR_SEED
+    chunks = flat_n // (32 * BUCKET)
+    x = torch.from_numpy(fuzz_operand(rng, flat_n, 0)).to(dev)
+    tc = db_tc("codec_quantize", chunks, BITS, BUCKET)
+    det = codec_cuda.quantize_chunks(x, BITS, BUCKET)[0]
+    for enc, pack in lowerings:
+        label = f"stochastic n={flat_n} {enc}/{pack}"
+        pw, pm = codec_cuda.quantize_chunks_plain(x, BITS, BUCKET, encode=enc, seed=sd)
+        w, m = codec_cuda.quantize_chunks(x, BITS, BUCKET, encode=enc, pack=pack, seed=sd)
+        record("codec_quantize", label + " words", w, pw)
+        record("codec_quantize", label + " meta", m, pm)
+        dw, dm = codec_cuda.quantize_chunks_db(x, BITS, BUCKET, tc, encode=enc, pack=pack, seed=sd)
+        record("codec_quantize_db", f"{label} tc={tc} words", dw, pw, w)
+        record("codec_quantize_db", f"{label} tc={tc} meta", dm, pm, m)
+    if _same_bits(w, det):
+        raise AssertionError("stochastic rounding left the 64 MB slice's bytes as round-to-nearest's")
+
+    # The epilogue at ws 1, 4 and 8 rows of one rank's chunk of the slice.
+    for ws in (1, SRA_WS, 8):
+        c = flat_n // ws
+        rows = torch.from_numpy(np.stack([fuzz_operand(rng, c, 0) * np.float32(r + 1)
+                                          for r in range(ws)])).to(dev)
+        q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+        te = db_tc("codec_sra_epilogue", c // (32 * BUCKET), BITS, BUCKET)
+        for own in (-1, ws // 2):
+            raw = rows[own] if own >= 0 else None
+            lows = lowerings if (ws, own) == (SRA_WS, SRA_WS // 2) else [("div", "sum")]
+            for enc, pack in lows:
+                label = f"stochastic ws={ws} own={own} n={c} {enc}/{pack}"
+                pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, raw, own, BITS,
+                                                              BUCKET, encode=enc, seed=sd)
+                w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, own, BITS, BUCKET,
+                                                      encode=enc, pack=pack, seed=sd)
+                record("codec_sra_epilogue", label + " words", w, pw)
+                record("codec_sra_epilogue", label + " meta", m, pm)
+                dw, dm = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, raw, own, BITS, BUCKET,
+                                                           te, encode=enc, pack=pack, seed=sd)
+                record("codec_sra_epilogue_db", f"{label} tc={te} words", dw, pw, w)
+                record("codec_sra_epilogue_db", f"{label} tc={te} meta", dm, pm, m)
+        if ws == SRA_WS:
+            # The fused epilogue against the staged one (decode, sum, then
+            # B1), as the dispatcher runs them, with a key.
+            cc = CompressionConfig(bits=BITS, bucket_size=BUCKET, stochastic=True)
+            key = prng.key(sd)
+            got = {}
+            for mode in ("fused", "staged"):
+                os.environ["CGX_SRA_EPILOGUE"] = mode
+                got[mode] = dispatch.reduce_rows_requantize(q, cc, raw_rows=rows, own_idx=1, key=key)
+            del os.environ["CGX_SRA_EPILOGUE"]
+            for part in ("packed", "meta"):
+                if not _same_bits(getattr(got["fused"], part), getattr(got["staged"], part)):
+                    raise AssertionError(f"stochastic fused epilogue's {part} differs from the staged one's")
+            log(f"  {'codec_sra_epilogue':21s} {'stochastic fused = staged (decode, sum, B1), ws=4':44s} "
+                f"bit-identical")
+        del rows, q
+
+    # The step's launch shapes, every lowering.
+    for kernel, label, ch, rows_n, own in shapebench.SHAPES:
+        n = ch * 32 * BUCKET
+        rows = torch.from_numpy(
+            np.stack([fuzz_operand(rng, n, 0) * np.float32(r + 1) for r in range(rows_n)])).to(dev)
+        raw = rows[own] if own >= 0 else None
+        q = codec_cuda.quantize_batch(rows, BITS, BUCKET) if "epilogue" in kernel else None
+        for enc, pack in lowerings:
+            lab = f"stochastic {label} {enc}/{pack}"
+            if kernel in ("quantize", "quantize_db"):
+                pw, pm = codec_cuda.quantize_chunks_plain(rows[0], BITS, BUCKET, encode=enc, seed=sd)
+                if kernel == "quantize":
+                    w, m = codec_cuda.quantize_chunks(rows[0], BITS, BUCKET, encode=enc, pack=pack, seed=sd)
+                else:
+                    w, m = codec_cuda.quantize_chunks_db(rows[0], BITS, BUCKET, 1, encode=enc,
+                                                         pack=pack, seed=sd)
+            else:
+                pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, raw, own, BITS, BUCKET,
+                                                              encode=enc, seed=sd)
+                if kernel == "epilogue":
+                    w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, own, BITS, BUCKET,
+                                                          encode=enc, pack=pack, seed=sd)
+                else:
+                    w, m = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, raw, own, BITS,
+                                                             BUCKET, 1, encode=enc, pack=pack, seed=sd)
+            name = "codec_" + {"quantize": "quantize", "quantize_db": "quantize_db",
+                               "epilogue": "sra_epilogue", "epilogue_db": "sra_epilogue_db"}[kernel]
+            record(name, lab + " words", w, pw, quiet=True)
+            record(name, lab + " meta", m, pm, quiet=True)
+        del rows, q
+    log(f"  {'stochastic':21s} {len(shapebench.SHAPES)} launch shapes of the step x 4 lowerings bit-identical")
+
+    # Widths 1-8 at buckets 128-16384 (1760 and 16384 past the register
+    # budget), B1 and B3 (ws 1 and 8, raw row or not) in every lowering.
+    checked = 0
+    for bits in range(1, 9):
+        for b in SR_BUCKETS:
+            n = 3 * 32 * b
+            xs = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
+            rows = torch.stack([xs] + [torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
+                                       for _ in range(7)])
+            q8 = codec_cuda.quantize_batch(rows, bits, b)
+            q1 = codec_cuda.quantize_batch(rows[:1], bits, b)
+            for enc, pack in lowerings:
+                lab = f"stochastic c=3 bits={bits} B={b} {enc}/{pack}"
+                pw, pm = codec_cuda.quantize_chunks_plain(xs, bits, b, encode=enc, seed=sd)
+                w, m = codec_cuda.quantize_chunks(xs, bits, b, encode=enc, pack=pack, seed=sd)
+                record("codec_quantize", lab + " words", w, pw, quiet=True)
+                record("codec_quantize", lab + " meta", m, pm, quiet=True)
+                for q, own in ((q1, -1), (q1, 0), (q8, -1), (q8, 5)):
+                    raw = rows[own] if own >= 0 else None
+                    pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, raw, own, bits, b,
+                                                                  encode=enc, seed=sd)
+                    w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, own, bits, b,
+                                                          encode=enc, pack=pack, seed=sd)
+                    record("codec_sra_epilogue", f"{lab} ws={q.batch_rows} own={own} words", w, pw,
+                           quiet=True)
+                    record("codec_sra_epilogue", f"{lab} ws={q.batch_rows} own={own} meta", m, pm,
+                           quiet=True)
+                checked += 5
+            del xs, rows, q1, q8
+    log(f"  {'stochastic B1/B3':21s} {checked} calls at bits 1-8, buckets 128-16384 (ws 1 and 8, "
+        f"raw row or not; 4 lowerings) bit-identical")
+
+    # Every cluster size forced, tiles of one and two chunks, ring depths
+    # 1-8 (B7a, B7c), positions in rounds (B = 1760, 16384).
+    tried = 0
+    for b, ch in SR_FORCED:
+        n = ch * 32 * b
+        rows = torch.from_numpy(np.stack([fuzz_operand(rng, n, 0) for _ in range(SRA_WS)])).to(dev)
+        q = codec_cuda.quantize_batch(rows, BITS, b)
+        w0, m0 = q.packed.contiguous(), q.meta.contiguous()
+        pq = codec_cuda.quantize_chunks_plain(rows[0], BITS, b, seed=sd)
+        pe = codec_cuda.sra_epilogue_chunks_plain(w0, m0, rows[1], 1, BITS, b, seed=sd)
+        geoms = set(codec_cuda.cluster_geometries(b)) | {
+            codec_cuda.cluster_geometry(ch, b, BITS, sms), codec_cuda.db_geometry(ch, b, BITS, sms)}
+        for g in sorted(geoms, key=lambda g: (g.k, g.threads)):
+            got = {"codec_quantize": codec_cuda._launch_quantize(rows[0], BITS, b, "div", "sum", g, seed=sd),
+                   "codec_sra_epilogue": codec_cuda._launch_epilogue(w0, m0, rows[1], 1, BITS, b, "div",
+                                                                     "sum", g, seed=sd)}
+            lab = f"stochastic B={b} k={g.k} T={g.threads} rounds={g.positions}"
+            for name, want in (("codec_quantize", pq), ("codec_sra_epilogue", pe)):
+                record(name, lab + " words", got[name][0], want[0], quiet=True)
+                record(name, lab + " meta", got[name][1], want[1], quiet=True)
+            if (b // g.k) % g.threads:
+                continue  # the pipelined kernels take rounds of equal width only
+            for tc in sorted({1, 2 - ch % 2}):
+                for slots in (1, 2, 4, 8):
+                    lab2 = f"{lab} tc={tc} slots={slots}"
+                    # B7a's slots hold 32 x T floats: as many as a block's shared memory takes.
+                    if (codec_cuda.DB_BAR_BYTES + slots * 128 * g.threads
+                            + codec_cuda.DB_CLUSTER_STATIC_BYTES <= codec_cuda.SMEM_BLOCK_BYTES):
+                        dq = codec_cuda._launch_quantize_db(rows[0], BITS, b, tc, "div", "sum", g,
+                                                            slots, seed=sd)
+                        record("codec_quantize_db", lab2 + " words", dq[0], pq[0],
+                               got["codec_quantize"][0], quiet=True)
+                        record("codec_quantize_db", lab2 + " meta", dq[1], pq[1],
+                               got["codec_quantize"][1], quiet=True)
+                    de = codec_cuda._launch_epilogue_db(w0, m0, rows[1], 1, BITS, b, tc, "div", "sum",
+                                                        g, slots, seed=sd)
+                    record("codec_sra_epilogue_db", lab2 + " words", de[0], pe[0],
+                           got["codec_sra_epilogue"][0], quiet=True)
+                    record("codec_sra_epilogue_db", lab2 + " meta", de[1], pe[1],
+                           got["codec_sra_epilogue"][1], quiet=True)
+                    tried += 1
+        del rows, q, w0, m0
+    log(f"  {'stochastic B7a/B7c':21s} {tried} forced (geometry, tile, ring depth) launches, "
+        f"bit-identical to the plain versions and to B1/B3")
+
+    # The distribution: every level floor(q) or floor(q) + 1 on the slice;
+    # over 64 seeds the mean decode error summed over 1M values within
+    # 4 sigma of zero (sigma from each value's Bernoulli variance).
+    w, m = codec_cuda.quantize_chunks(x, BITS, BUCKET, seed=sd)
+    lvl = codec.unpack_levels_bucketed(w, BITS, flat_n // BUCKET, BUCKET).double()
+    xb = x.view(-1, BUCKET).double()
+    unit, bmin = m[:, 0].double(), m[:, 1].double()
+    qv = ((x.view(-1, BUCKET) - m[:, 1:2]) / torch.where(m[:, 0:1] > 0, m[:, 0:1], 1.0)).double()
+    d = lvl - torch.floor(qv)
+    bad = int((~((d == 0) | (d == 1) | (lvl == (1 << BITS) - 1))).sum())
+    if bad:
+        raise AssertionError(f"stochastic levels: {bad} are neither floor(q) nor floor(q) + 1")
+    nd = min(32 * BUCKET * 64, flat_n)
+    xd = x[:nd]
+    acc = torch.zeros(nd, dtype=torch.float64, device=dev)
+    for s in range(64):
+        ws_, ms_ = codec_cuda.quantize_chunks(xd, BITS, BUCKET, seed=sd + s)
+        acc += codec_cuda.dequantize_chunks(ws_, ms_, BITS, BUCKET).double()
+    mq = codec_cuda.quantize_chunks(xd, BITS, BUCKET)[1].double()
+    frac = qv.reshape(-1)[:nd] - torch.floor(qv.reshape(-1)[:nd])
+    var = (mq[:, 0].repeat_interleave(BUCKET) ** 2) * frac * (1 - frac) / 64
+    bias = float((acc / 64 - xd.double()).sum())
+    sigma = float(var.sum().sqrt())
+    log(f"  {'stochastic rounding':21s} levels floor(q) or floor(q)+1: all {flat_n}; mean decode over 64 "
+        f"seeds, error summed over {nd} values {bias:.4e} = {bias / sigma:+.2f} sigma ({sigma:.4e}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if abs(bias) > 4 * sigma:
+        raise AssertionError(f"stochastic rounding biased: {bias / sigma:.2f} sigma")
+    del x, xb, lvl, qv, acc, unit, bmin
 
 
 def check_reduce(dev, rng, record) -> None:
@@ -743,10 +1017,12 @@ class LaunchModel:
     layout-only stand-ins for each payload: each method mirrors one reducer
     of ``parallel/reducers.py``. A quantize, decode or epilogue counts as
     its pipelined kernel where ``db_would_run`` says the batch function
-    takes it (``CGX_PALLAS_DB`` and the autotune cache as they stand)."""
+    takes it (``CGX_PALLAS_DB`` and the autotune cache as they stand;
+    ``stochastic``: a stochastic epilogue, which makes no lookup)."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, stochastic: bool = False):
         self.dev = dev
+        self.stochastic = stochastic
         self.counts = {k: 0 for k in TPU_KERNELS}
 
     def _stand_in(self, rows: int, n: int, cc):
@@ -765,7 +1041,8 @@ class LaunchModel:
     def _launch(self, kernel: str, rows: int, n: int, cc, add: bool = False) -> None:
         from torch_cgx_tpu_torch.ops import dispatch
 
-        db = dispatch.db_would_run(self._stand_in(rows, n, cc), DB_OF[kernel], with_add=add)
+        db = dispatch.db_would_run(self._stand_in(rows, n, cc), DB_OF[kernel], with_add=add,
+                                   stochastic=self.stochastic)
         self.counts[kernel + "_db" if db else kernel] += 1
 
     def codec(self, kernel: str, n: int, cc, rows: int = 1, add: bool = False) -> None:
@@ -969,7 +1246,8 @@ class LaunchModel:
             self.codec("codec_dequantize", c, intra_cc, wi)
 
 
-def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None) -> dict:
+def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
+                      stochastic: bool = False) -> dict:
     """Launches of one compressed gradient sync per rank, from the layout:
     each compressed fusion slice through ``quantized_allreduce`` over a
     group of ``ws`` ranks (the env's reduction type), or through the
@@ -977,12 +1255,13 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None) ->
     ``(intra, cross)`` sizes. ``dense_k`` maps each dense kernel's path to
     its contraction length: with producer fusion engaged, a standalone group
     whose layer ``fused_producer.decide`` sends to the kernel gets its
-    stage-1 payload from the backward's matmul-quantize."""
+    stage-1 payload from the backward's matmul-quantize. ``stochastic``: the
+    sync rounds stochastically (a key under ``CGX_STOCHASTIC_ROUNDING``)."""
     from torch_cgx_tpu_torch import config as cfg
     from torch_cgx_tpu_torch.ops import fused_producer
     from torch_cgx_tpu_torch.parallel import allreduce
 
-    model = LaunchModel(next(iter(named_grads.values())).device)
+    model = LaunchModel(next(iter(named_grads.values())).device, stochastic)
     paths_leaves = allreduce.sorted_items(named_grads)
     for g in allreduce._group_leaves(paths_leaves, compress_small=False):
         if not g.cc.enabled:
@@ -1067,7 +1346,7 @@ def gpt2_slice(dev, cfg, batch: int, seq: int, steps: int, cpu_check: bool = Tru
             "params": {n: p.detach().clone() for n, p in model.named_parameters()}}
 
 
-def new_run(dev, cfg):
+def new_run(dev, cfg, stochastic_seed=None):
     """GPT-2 from the seed with a fresh Adam and ``make_train_step``: the
     same start as :func:`gpt2_slice`'s steps."""
     import torch
@@ -1077,7 +1356,55 @@ def new_run(dev, cfg):
 
     model = GPT2(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
     opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
-    return model, make_train_step(model, lambda m, t: lm_loss(m(t), t), opt, device=dev)
+    return model, make_train_step(model, lambda m, t: lm_loss(m(t), t), opt, device=dev,
+                                  stochastic_seed=stochastic_seed)
+
+
+def stochastic_phase(dev, cfg, sl: dict) -> dict:
+    """Phase 4 (f): the slice under ``CGX_STOCHASTIC_ROUNDING=1``, built with
+    ``make_train_step(stochastic_seed=SR_SEED)`` through the world-size-1
+    proxy. One backward's gradients synced with the first step's key
+    (``fold_in(key(SR_SEED), 0)``) through the kernels and through the plain
+    versions on the CPU must agree bit for bit, and differ from the
+    round-to-nearest sync; then one step with the counters reset, its
+    launches against the layout's (``LaunchModel``, stochastic). Returns the
+    step for phase 5's profile. ``CGX_STOCHASTIC_ROUNDING`` stays set for
+    the caller to clear."""
+    import torch
+
+    from torch_cgx_tpu_torch.models import lm_loss
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.parallel import gradient_sync
+    from torch_cgx_tpu_torch.utils import prng
+
+    os.environ["CGX_STOCHASTIC_ROUNDING"] = "1"
+    tokens = sl["tokens"]
+    model, step = new_run(dev, cfg, stochastic_seed=SR_SEED)
+    lm_loss(model(tokens), tokens).backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    key = prng.fold_in(prng.key(SR_SEED), 0)
+    expected = expected_launches(grads, stochastic=True)
+    t0 = time.perf_counter()
+    synced = gradient_sync(grads, key=key)
+    det = gradient_sync(grads)
+    sync(dev)
+    moved = sum(not _same_bits(synced[k], det[k]) for k in grads)
+    plain = _plain_cpu(gradient_sync, {k: v.cpu() for k, v in grads.items()}, key=key)
+    mismatched = [k for k in grads if not _same_bits(synced[k].cpu(), plain[k])]
+    log(f"  (f) stochastic sync (key fold_in(key({SR_SEED:#x}), 0)), kernels vs plain CPU: "
+        f"{len(grads) - len(mismatched)}/{len(grads)} parameters bit-identical; {moved} differ from "
+        f"the round-to-nearest sync ({time.perf_counter() - t0:.1f} s)")
+    assert not mismatched, mismatched[:5]
+    assert moved, "stochastic rounding did not move the synced gradients"
+    del synced, det, plain, grads
+    codec_cuda.reset_launch_counts()
+    loss = float(step(tokens))
+    sync(dev)
+    launches = dict(codec_cuda.LAUNCHES)
+    log(f"  (f) one stochastic step: loss {loss:.4f}; launches {launches} (the layout's: {expected})")
+    assert np.isfinite(loss) and launches == expected, (loss, launches, expected)
+    return {"model": model, "step": step, "tokens": tokens, "launches": launches}
 
 
 def step_shapes(named) -> list:
@@ -1514,6 +1841,186 @@ def time_kernels(dev, n: int, name: str) -> list:
     return out
 
 
+def time_stochastic(dev, n: int, name: str, per: dict) -> dict:
+    """B1, B7a, B3 and B7c under stochastic rounding beside their
+    round-to-nearest selves, at the main path's flat slice (the epilogues
+    rows=1, then at phase 7's flat-SRA shape): per call in turns
+    (nearest, stochastic, plain, plain, stochastic, nearest), then each as a
+    burst. The bound is the largest of the bytes over the memory rate, the
+    float32 operations over the f32 rate and the Philox's instructions on
+    their busiest pipe (:func:`philox_bound_ms` of ``per``). Returns the
+    first record of each kernel by name: the times measured here."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.utils.device import mem_rate
+
+    rate = mem_rate(name)
+    rng = np.random.default_rng(SEED + 5)
+    sd = SR_SEED
+    x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dev)
+    words, meta = codec_cuda.quantize_chunks(x, BITS, BUCKET)
+    chunks = n // (32 * BUCKET)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tq, te = (codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap(k, BITS, BUCKET, chunks=chunks, sms=sms))
+              for k in ("quantize", "epilogue"))
+    c = n // SRA_WS
+    rows = torch.from_numpy(np.stack([fuzz_operand(rng, c, 0) for _ in range(SRA_WS)])).to(dev)
+    q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+    w4, m4, raw4 = q.packed.contiguous(), q.meta.contiguous(), rows[1].contiguous()
+    te4 = codec_cuda._pipe_tc(c // (32 * BUCKET), codec_cuda.db_tc_cap(
+        "epilogue", BITS, BUCKET, chunks=c // (32 * BUCKET), sms=sms))
+
+    def wire(m: int) -> int:
+        return m * BITS // 8 + 8 * m // BUCKET
+
+    ep4 = (SRA_WS - 1) * wire(c) + 4 * c + wire(c)
+    head = (TAIL_N // (32 * BUCKET)) * 32 * BUCKET
+    xt = torch.from_numpy(fuzz_operand(rng, head, 0)).to(dev)
+    # (kernel, shape, call with seed (None: round to nearest), plain
+    # stochastic call, bytes, f32 operations, values quantized).
+    runs = [
+        ("codec_quantize", f"n={n}", lambda s: codec_cuda.quantize_chunks(x, BITS, BUCKET, seed=s),
+         lambda: codec_cuda.quantize_chunks_plain(x, BITS, BUCKET, seed=sd), 4 * n + wire(n), 8 * n, n),
+        ("codec_quantize_db", f"n={n} tc={tq}",
+         lambda s: codec_cuda.quantize_chunks_db(x, BITS, BUCKET, tq, seed=s),
+         lambda: codec_cuda.quantize_chunks_db_plain(x, BITS, BUCKET, seed=sd), 4 * n + wire(n), 8 * n, n),
+        ("codec_sra_epilogue", f"n={n}",
+         lambda s: codec_cuda.sra_epilogue_chunks(words[None], meta[None], None, -1, BITS, BUCKET, seed=s),
+         lambda: codec_cuda.sra_epilogue_chunks_plain(words[None], meta[None], None, -1, BITS, BUCKET,
+                                                      seed=sd), 2 * wire(n), 12 * n, n),
+        ("codec_sra_epilogue_db", f"n={n} tc={te}",
+         lambda s: codec_cuda.sra_epilogue_chunks_db(words[None], meta[None], None, -1, BITS, BUCKET, te,
+                                                     seed=s),
+         lambda: codec_cuda.sra_epilogue_chunks_db_plain(words[None], meta[None], None, -1, BITS, BUCKET,
+                                                         seed=sd), 2 * wire(n), 12 * n, n),
+        ("codec_sra_epilogue", f"ws={SRA_WS} own=1 n={c}",
+         lambda s: codec_cuda.sra_epilogue_chunks(w4, m4, raw4, 1, BITS, BUCKET, seed=s),
+         lambda: codec_cuda.sra_epilogue_chunks_plain(w4, m4, raw4, 1, BITS, BUCKET, seed=sd),
+         ep4, (3 * SRA_WS + 8) * c, c),
+        ("codec_sra_epilogue_db", f"ws={SRA_WS} own=1 n={c} tc={te4}",
+         lambda s: codec_cuda.sra_epilogue_chunks_db(w4, m4, raw4, 1, BITS, BUCKET, te4, seed=s),
+         lambda: codec_cuda.sra_epilogue_chunks_db_plain(w4, m4, raw4, 1, BITS, BUCKET, seed=sd),
+         ep4, (3 * SRA_WS + 8) * c, c),
+        ("codec_quantize", f"B5: the tail slice's {head // (32 * BUCKET)} chunks, n={head}",
+         lambda s: codec_cuda.quantize_chunks(xt, BITS, BUCKET, seed=s),
+         lambda: codec_cuda.quantize_chunks_plain(xt, BITS, BUCKET, seed=sd),
+         4 * head + wire(head), 8 * head, head),
+    ]
+    out = {}
+    for k, shape, kern, plain, nbytes, ops, values in runs:
+        d1 = time_cuda(lambda: kern(None))
+        s1 = time_cuda(lambda: kern(sd))
+        p1 = time_cuda(plain, iters=5)
+        p2 = time_cuda(plain, iters=5)
+        s2 = time_cuda(lambda: kern(sd))
+        d2 = time_cuda(lambda: kern(None))
+        sb = time_burst(lambda: kern(sd))
+        db = time_burst(lambda: kern(None))
+        t_bytes, t_f32 = nbytes / rate * 1e3, ops / F32_RATE * 1e3
+        t_int, pipe = philox_bound_ms(values, per)
+        bound = max(t_bytes, t_f32, t_int)
+        by = "bytes" if t_bytes >= max(t_f32, t_int) else "operations"
+        ms, det_ms = min(s1, s2), min(d1, d2)
+        log(f"  {k:21s} stochastic {shape}: {ms:.4f} ms, burst {sb:.4f} ms (round to nearest "
+            f"{det_ms:.4f} ms, burst {db:.4f} ms; plain {min(p1, p2):.3f} ms); {nbytes} bytes "
+            f"({t_bytes:.4f} ms), Philox {t_int:.4f} ms on the {pipe} pipe; bound {bound:.4f} ms by "
+            f"{by} = {100 * bound / ms:.1f}% / {100 * bound / sb:.1f}% of bound (per call / burst)")
+        if k not in out:
+            out[k] = {"sr_ms": ms, "sr_burst_ms": sb, "sr_plain_ms": min(p1, p2), "det_burst_ms": db}
+    return out
+
+
+def start_philox_sass(lib):
+    """:func:`philox_sass` of the built library on a thread of its own
+    (cuobjdump reads every instance of the library), beside phases 3 and 4.
+    Returns a function that waits for it, logs and returns its result."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(philox_sass, lib)
+    pool.shutdown(wait=False)
+
+    def result() -> dict:
+        per, lines = fut.result()
+        for ln in lines:
+            log(ln)
+        return per
+
+    return result
+
+
+def philox_sass(lib) -> tuple:
+    """The Philox's instructions a stochastically rounded value by pipe of
+    :data:`SASS_PIPES`, from ``cuobjdump -sass`` of the built library: the
+    opcodes of B1's stochastic instance of :data:`PHILOX_SASS_KERNEL` less
+    the deterministic one's, over the 32 values a thread. Returns them and
+    the log lines (the opcodes that differ, the time); raises if either
+    instance is missing."""
+    import atexit
+    import subprocess
+    from collections import Counter
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    t0 = time.perf_counter()
+    tool = os.path.join(os.path.dirname(codec_cuda._nvcc()), "cuobjdump")
+    op = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+    counts, cur = {}, None
+    proc = subprocess.Popen([tool, "-sass", str(lib)], stdout=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)  # no dump outlives a run that failed
+    for line in proc.stdout:
+        if "Function :" in line:
+            found = PHILOX_SASS_KERNEL.search(line)
+            cur = counts.setdefault(found.group(1) == "1", Counter()) if found else None
+        elif cur is not None:
+            m = op.match(line)
+            if m and m.group(1) != "NOP":
+                cur[m.group(1)] += 1
+    if proc.wait() != 0 or set(counts) != {False, True}:
+        raise RuntimeError(f"cuobjdump found {len(counts)} of B1's two instances (rc {proc.returncode})")
+    diff = {k: counts[True][k] - counts[False][k] for k in set(counts[True]) | set(counts[False])}
+    diff = {k: v for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1])) if v}
+    per = {}
+    for pipe, (_, ops) in SASS_PIPES.items():
+        n = sum(v for k, v in diff.items() if ops is None or k.split(".")[0] in ops)
+        per[pipe] = max(n, 0) / 32
+    lines = [
+        f"  Philox in SASS (B1 <4, div, sum, one position, stochastic> less round to nearest, "
+        f"{sum(counts[True].values())} against {sum(counts[False].values())} instructions; "
+        f"cuobjdump {time.perf_counter() - t0:.1f} s): " + ", ".join(f"{k} {v:+d}" for k, v in diff.items()),
+        "  Philox a value by pipe: " + ", ".join(
+            f"{p} {v:.2f} ({v / SASS_PIPES[p][0]:.4f} SM-clocks)" for p, v in per.items()),
+    ]
+    return per, lines
+
+
+def philox_bound_ms(values: int, per: dict) -> tuple:
+    """The least time the Philox work of ``values`` stochastically rounded
+    values could take on the card: its busiest pipe's count (``per``, from
+    :func:`philox_sass`) at that pipe's rate. Returns (ms, pipe)."""
+    pipe = max(per, key=lambda p: per[p] / SASS_PIPES[p][0])
+    return values * per[pipe] / (SASS_PIPES[pipe][0] * SM_CLOCK_RATE) * 1e3, pipe
+
+
+def stochastic_step_bounds(rate: float, per: dict) -> dict:
+    """The least device time a stochastic step of the world-size-1 proxy
+    could take in B1 (with B5) and B3, summed over the step's launch shapes
+    (``shapebench.step_slices``): each launch the larger of its bytes at
+    ``rate`` and its Philox work (:func:`philox_bound_ms`). Computed from
+    shapes."""
+    from torch_cgx_tpu_torch.tools import shapebench
+
+    out = {"quantize": [0, 0.0], "epilogue": [0, 0.0]}
+    for c, tail in shapebench.step_slices():
+        t_int = philox_bound_ms(c * 32 * BUCKET, per)[0]
+        kernels = ("quantize",) if tail else ("quantize", "epilogue")
+        for k in kernels:
+            out[k][0] += 1
+            out[k][1] += max(shapebench.shape_bytes(k, c, 1, -1) / rate * 1e3, t_int)
+    return {k: {"launches": v[0], "bound_ms": v[1]} for k, v in out.items()}
+
+
 def time_steps(sl: dict, iters: int = 5) -> tuple:
     """Train-step milliseconds without the codec (forward, backward, Adam;
     no sync), with it (``make_train_step`` under ``CGX_DEBUG_FORCE_CODEC``)
@@ -1696,7 +2203,12 @@ def _plain_cpu(fn, *args, **kw):
 # versions on the CPU, under each (name, knobs, bucket dtype) of the
 # configuration's reruns. ``ddp_hook`` runs the flat SRA over one host;
 # ``ddp_hook_hier`` fakes two hosts of two ranks (CGX_SHM_HOST_ID) under the
-# default two-level scheme (intra SRA, cross Ring, leader scheme on).
+# default two-level scheme (intra SRA, cross Ring, leader scheme on). The
+# ``_sr`` configurations rerun each under CGX_STOCHASTIC_ROUNDING=1, the
+# kernel-vs-plain reruns drawing the same frame keys (:func:`_seed_state`).
+# Each configuration gathers its host map anew (``backend.release``), so
+# ``ddp_hook_hier_sr`` takes again, after the one-host ``ddp_hook_sr``, the
+# two-level subgroups that ``ddp_hook_hier`` formed.
 HOOK_STEPS = 4
 HOOK_CAPTURE_STEP = 3
 HOOK_CONFIGS = {
@@ -1715,7 +2227,27 @@ HOOK_CONFIGS = {
         ("cross ALLTOALL float32", {"CGX_CROSS_REDUCTION_TYPE": "ALLTOALL"}, "float32"),
         ("CGX_INTRA_COMPRESS=0 float32", {"CGX_INTRA_COMPRESS": "0"}, "float32"),
     )),
+    "ddp_hook_sr": (lambda rank: {"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_STOCHASTIC_ROUNDING": "1"}, (
+        ("SRA float32 stochastic", {}, "float32"),
+    )),
+    "ddp_hook_hier_sr": (lambda rank: {"CGX_SHM_HOST_ID": f"testhost{rank // MR_INTRA}",
+                                       "CGX_STOCHASTIC_ROUNDING": "1"}, (
+        ("default scheme float32 stochastic", {}, "float32"),
+    )),
 }
+
+
+def _seed_state(backend, state=None):
+    """The DDP hook's frame-seed generators and two-level collective counts
+    (``state`` None: returned), or put back as ``state`` holds them, so that
+    a bucket reduced through the kernels and again through the plain
+    versions draws the same frame keys."""
+    if state is None:
+        return {k: g.bit_generator.state for k, g in backend._RNGS.items()}, dict(backend._SEQ)
+    for k, st in state[0].items():
+        backend._RNGS[k].bit_generator.state = st
+    backend._SEQ.clear()
+    backend._SEQ.update(state[1])
 
 
 def expected_hook_launches(calls, ws: int, me: int, dev, hosts=None) -> dict:
@@ -1726,7 +2258,7 @@ def expected_hook_launches(calls, ws: int, me: int, dev, hosts=None) -> dict:
     from torch_cgx_tpu_torch import config as cfg
     from torch_cgx_tpu_torch.torch_backend import backend
 
-    model = LaunchModel(dev)
+    model = LaunchModel(dev, cfg.stochastic_rounding())
     for key, numel in calls:
         model.hook(backend._extract_layers(numel, key), ws, me, cfg.intra_reduction(), hosts)
     return model.counts
@@ -1739,9 +2271,11 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
     knobs, the world's host map gathered anew. The bucket allreduce (run by
     the group's worker thread) is wrapped to record each call's bucket, its
     thread and at the capture step a copy of its divided buffer; the launch
-    counters run over the steps after registration. Then the captured
-    buckets are reduced again through the kernels and through the plain
-    versions on the CPU, under each of the configuration's reruns."""
+    counters run over the steps after registration. Under the two-level
+    scheme a leader records the digest of each stage-3 frame it sends. Then
+    the captured buckets are reduced again through the kernels and through
+    the plain versions on the CPU, under each of the configuration's
+    reruns."""
     import threading
 
     import torch
@@ -1762,6 +2296,8 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
     model, ddp, state, opt = ddp_setup(dev, gcfg, SEED)
     calls, captured, capture, threads = [], [], [False], set()
     inner = backend.allreduce
+    inner_req, inner_hier = backend._requantize_frames, backend._qreduce_hier
+    stage3, last = [], [None]
 
     def recording(t, group=None, op=dist.ReduceOp.SUM, bucket_key=None):
         calls.append((bucket_key, t.numel()))
@@ -1770,7 +2306,18 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             captured.append((bucket_key, t.detach().clone()))
         return inner(t, group, op, bucket_key=bucket_key)
 
+    def requantize(*a, **kw):
+        last[0] = inner_req(*a, **kw)
+        return last[0]
+
+    def hier(fused, layers, wdt, topo, hm, *rest):
+        last[0] = None
+        inner_hier(fused, layers, wdt, topo, hm, *rest)
+        if dist.get_rank(hm.intra) == 0:  # the leader's stage-3 frame is its last requantize
+            stage3.append(hashlib.sha256(last[0].cpu().numpy().tobytes()).hexdigest())
+
     backend.allreduce = recording
+    backend._requantize_frames, backend._qreduce_hier = requantize, hier
     losses, digests, digest_s = [], [], 0.0
     try:
         for step in range(HOOK_STEPS):
@@ -1795,6 +2342,7 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
         launches = dict(codec_cuda.LAUNCHES)
     finally:
         backend.allreduce = inner
+        backend._requantize_frames, backend._qreduce_hier = inner_req, inner_hier
     topo = ccfg.topology_from_env()
     hosts = backend._hosts(None).hosts
     expected = expected_hook_launches(calls, MR_WS, rank, dev, hosts)
@@ -1813,11 +2361,13 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
         same, rr_launches = 0, {k: 0 for k in codec_cuda.LAUNCHES}
         for key, buf in captured:
             x = buf.to(getattr(torch, dtype))
+            seeds = _seed_state(backend)
             codec_cuda.reset_launch_counts()
             card = inner(x.clone(), bucket_key=key)
             sync(dev)
             for k, v in codec_cuda.LAUNCHES.items():
                 rr_launches[k] += v
+            _seed_state(backend, seeds)
             plain = _plain_cpu(inner, x.cpu(), bucket_key=key)
             same += _same_bits(card.cpu(), plain)
         reruns[label] = {"same": same, "buckets": len(captured), "launches": rr_launches,
@@ -1829,7 +2379,7 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             "registered": registered, "want": want, "reruns": reruns,
             "bucket_values": sum(b.numel() for _, b in captured), "hosts": list(hosts),
             "hier": backend._use_hierarchy(None, topo), "threads": sorted(threads),
-            "seconds": time.perf_counter() - t_cfg}
+            "stage3": stage3, "seconds": time.perf_counter() - t_cfg}
 
 
 def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: int) -> None:
@@ -2055,7 +2605,7 @@ def hook_check(res, name: str, smi: str) -> None:
     whether the two-level scheme ran. Times are gloo's, through host
     memory."""
     h0 = res[0][name]
-    hier = name == "ddp_hook_hier"
+    hier = name.startswith("ddp_hook_hier")
     comp = sum(1 for _, b in h0["registered"] if b == BITS)
     log(f"  {name}: DistributedDataParallel + cgx_hook, float32 GPT-2 124M, {HOOK_STEPS} steps "
         f"over hosts {h0['hosts'] if hier else 'one host'}; {len(h0['registered'])} layers "
@@ -2095,8 +2645,15 @@ def hook_check(res, name: str, smi: str) -> None:
         # cross all-to-all, on each leader (ranks 0 and 2).
         for r in range(0, MR_WS, MR_INTRA):
             rr = res[r][name]["reruns"]
-            assert rr["cross SRA float32"]["launches"]["codec_sra_epilogue"] > 0, (r, rr)
-            assert rr["cross ALLTOALL float32"]["launches"]["codec_reduce_rows"] > 0, (r, rr)
+            if "cross SRA float32" in rr:
+                assert rr["cross SRA float32"]["launches"]["codec_sra_epilogue"] > 0, (r, rr)
+                assert rr["cross ALLTOALL float32"]["launches"]["codec_reduce_rows"] > 0, (r, rr)
+        # Every leader sent the same stage-3 frames (under stochastic
+        # rounding: drawn from the generator the leaders seed alike).
+        frames = [res[r][name]["stage3"] for r in range(0, MR_WS, MR_INTRA)]
+        assert frames[0] and all(f == frames[0] for f in frames), (name, [len(f) for f in frames])
+        assert not any(res[r][name]["stage3"] for r in range(MR_WS) if r % MR_INTRA), name
+        log(f"    the leaders' {len(frames[0])} stage-3 frames over steps 0-{HOOK_STEPS - 1} identical")
     log(f"    replicas: all {len(h0['digests'][0])} parameters bit-identical on the {MR_WS} ranks "
         f"after each of the {HOOK_STEPS} steps")
     for label, rr in h0["reruns"].items():
@@ -2147,7 +2704,8 @@ def ptxas_report(ptxas: str) -> None:
             f"(the geometry assumes {codec_cuda.DB_CLUSTER_STATIC_BYTES}); at {chunks} chunks of "
             f"{BUCKET} at {BITS} bits {ring.slots} slot(s) of {ring.slot_bytes} bytes, {dyn['sum']} "
             f"bytes dynamic ({dyn['butterfly']} butterfly), {ring.geometry}")
-        assert len(mine) == 64 and static <= codec_cuda.DB_CLUSTER_STATIC_BYTES, (kernel, len(mine), static)
+        # 64 round-to-nearest instances and 64 stochastic ones.
+        assert len(mine) == 128 and static <= codec_cuda.DB_CLUSTER_STATIC_BYTES, (kernel, len(mine), static)
     # The quantizing kernels by (encode, pack) lowering: registers and
     # static shared memory over their bit widths.
     for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
@@ -2169,13 +2727,17 @@ def ptxas_report(ptxas: str) -> None:
                    "cgx_quantize_db_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
         for reread, what in ((0, "one position (32 values) a thread"),
                              (1, "REREAD, positions in rounds")):
-            mine = [b for b in blocks
-                    if re.search(kernel + rf"ILi\d+ELi\dELi\dELb{reread}E", b.split("'")[1])]
-            r = [int(x) for b in mine for x in re.findall(r"Used (\d+) registers", b)]
-            spill = sum(1 for b in mine if "0 bytes spill stores, 0 bytes spill loads" not in b)
-            log(f"  {kernel} ({what}): {len(mine)} instances, {min(r)}-{max(r)} registers a "
-                f"thread, {spill} with spills; at most 512 threads a CTA")
-            assert len(mine) == 32, (kernel, reread, len(mine))
+            for stoch, how in ((0, "round to nearest"), (1, "stochastic")):
+                mine = [b for b in blocks if re.search(
+                    kernel + rf"ILi\d+ELi\dELi\dELb{reread}ELb{stoch}E", b.split("'")[1])]
+                r = [int(x) for b in mine for x in re.findall(r"Used (\d+) registers", b)]
+                spill = [b for b in mine if "0 bytes spill stores, 0 bytes spill loads" not in b]
+                most = max([int(x) for b in spill for x in re.findall(r"(\d+) bytes spill stores", b)]
+                           or [0])
+                log(f"  {kernel} ({what}, {how}): {len(mine)} instances, {min(r)}-{max(r)} "
+                    f"registers a thread, {len(spill)} with spills (at most {most} bytes stored); "
+                    f"at most 512 threads a CTA")
+                assert len(mine) == 32, (kernel, reread, stoch, len(mine))
     # B4: registers and spills by width, raw row and row count (0: any).
     by = {}
     for b in blocks:
@@ -2247,20 +2809,26 @@ def main() -> int:
     lib = codec_cuda.build(force=True)
     log(f"  nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s")
     ptxas_report(str(codec_cuda.BUILD_LOG.get("ptxas", "")))
+    philox_result = start_philox_sass(lib)
 
     log("== 3. kernels against their plain versions (pipelined ones also against the single-stage)")
     max_err = check_kernels(dev, FLAT_N, TAIL_N, SRA_WS)
     torch.cuda.synchronize()
 
-    log("== 4. GPT-2 124M slice (CGX_PALLAS_DB=off, then the pipelined path, then the lowerings)")
+    log("== 4. GPT-2 124M slice (CGX_PALLAS_DB=off, then the pipelined path, then the lowerings, "
+        "then stochastic rounding)")
     cfg = GPT2Config.small()
     sl = gpt2_slice(dev, cfg, BATCH, SEQ, STEPS)
     db = db_phase(dev, cfg, sl, STEPS)
     lowering_phase(dev, cfg, sl, STEPS)
+    sr = stochastic_phase(dev, cfg, sl)
+    del os.environ["CGX_STOCHASTIC_ROUNDING"]
     torch.cuda.empty_cache()
 
     log("== 5. times")
+    philox = philox_result()
     kern = time_kernels(dev, FLAT_N, name)
+    sr_times = time_stochastic(dev, FLAT_N, name, philox)
     time_step_shapes(dev, name)
     plain_ms, codec_ms, db_ms, plain_step = time_steps(sl)
     log(f"  train step, GPT-2 124M {BATCH}x{SEQ}: {plain_ms:.2f} ms without the codec, "
@@ -2272,6 +2840,18 @@ def main() -> int:
     os.environ["CGX_PALLAS_DB"] = "on"
     profile_step("step with the codec, CGX_PALLAS_DB=on", lambda: sl["step"](sl["tokens"]))
     os.environ["CGX_PALLAS_DB"] = "off"
+    os.environ["CGX_STOCHASTIC_ROUNDING"] = "1"
+    from torch_cgx_tpu_torch.utils.device import mem_rate
+
+    for k, b in stochastic_step_bounds(mem_rate(name), philox).items():
+        log(f"  stochastic {k} a step: {b['launches']} launches, bound {b['bound_ms']:.4f} ms (bytes or "
+            f"the Philox's busiest pipe, whichever is larger a launch; computed)")
+    profile_step("step with the codec, CGX_STOCHASTIC_ROUNDING=1", lambda: sr["step"](sr["tokens"]))
+    os.environ["CGX_PALLAS_DB"] = "on"
+    profile_step("step with the codec, CGX_STOCHASTIC_ROUNDING=1, CGX_PALLAS_DB=on",
+                 lambda: sr["step"](sr["tokens"]))
+    os.environ["CGX_PALLAS_DB"] = "off"
+    del os.environ["CGX_STOCHASTIC_ROUNDING"], sr
     launches = dict(sl["launches"])
     for k in DB_KEYS:
         launches[k] = db["launches"][k]
@@ -2307,6 +2887,7 @@ def main() -> int:
             "replaces": TPU_KERNELS[r["name"]], "launches": launches[r["name"]],
             "max_abs_err": max_err[r["name"]], "ms": r["ms"], "burst_ms": r["burst_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **sr_times.get(r["name"], {}),
         })
     assert len(records) == len(TPU_KERNELS), records
     print(json.dumps({"kernels": records}))

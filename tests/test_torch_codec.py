@@ -38,6 +38,7 @@ from torch_cgx_tpu.config import CompressionConfig as JCompressionConfig
 from torch_cgx_tpu_torch import config as tcfg
 from torch_cgx_tpu_torch.config import CompressionConfig
 from torch_cgx_tpu_torch.ops import codec, codec_cuda, dispatch
+from torch_cgx_tpu_torch.utils import prng
 
 BUCKETS = (32, 96, 128, 512, 1024)
 GEOMETRIES = ("chunks", "tail", "sub")
@@ -302,9 +303,23 @@ def test_epilogue_refuses_unported_modes(monkeypatch):
     monkeypatch.setenv(tcfg.SRA_ACCUM, "int8")
     with pytest.raises(NotImplementedError, match="CGX_SRA_ACCUM"):
         codec_cuda.sra_epilogue_batch(q, raw_row=xs[0], own_idx=0)
+    monkeypatch.delenv(tcfg.SRA_ACCUM)
+    # Stochastic rounding is ported: with no key it rounds to nearest (the
+    # JAX package's rule), with one it runs, fused epilogue included.
     monkeypatch.setenv(tcfg.STOCHASTIC_ROUNDING, "1")
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        dispatch.quantize_batch(xs, tcfg.default_compression_config())
+    cc_s = tcfg.CompressionConfig(bits=4, bucket_size=128, stochastic=True)
+    xs = torch.from_numpy(np.random.default_rng(0).standard_normal(xs.shape, dtype=np.float32))
+    q = dispatch.quantize_batch(xs, cc)
+    nokey = dispatch.quantize_batch(xs, cc_s)
+    assert torch.equal(nokey.packed, q.packed) and torch.equal(nokey.meta, q.meta)
+    k = prng.key(7)
+    sq = dispatch.quantize_batch(xs, cc_s, k)
+    assert torch.equal(sq.meta, q.meta) and not torch.equal(sq.packed, q.packed)
+    seed = prng.seed_from_key(k)
+    fused = codec_cuda.sra_epilogue_batch(q, raw_row=xs[0], own_idx=0, seed=seed)
+    reduced = dispatch.reduce_rows(q, raw_rows=xs, own_idx=0)
+    staged = codec_cuda.quantize_batch(reduced[None], 4, 128, seed=seed)
+    assert torch.equal(fused.packed, staged.packed) and torch.equal(fused.meta, staged.meta)
 
 
 def test_supports_reduce_geometry():

@@ -171,8 +171,21 @@ def test_quantize_hands_its_geometry_to_the_kernel(fake_card, chunks, bucket, wa
     B/k (2 and 4 positions a thread at 8192 and 16384); one launch."""
     codec_cuda.quantize_chunks(torch.zeros(chunks * 32 * bucket), 4, bucket)
     (name, args), = fake_card.calls
-    assert name == "cgx_quantize" and tuple(args[-3:-1]) == want
+    assert name == "cgx_quantize" and tuple(args[9:11]) == want
+    assert tuple(args[11:14]) == (0, 0, 0)  # round to nearest: no seed
     assert codec_cuda.LAUNCHES["codec_quantize"] == 1
+
+
+def test_seed_reaches_the_kernels_as_its_key_words(fake_card):
+    """A seed reaches cgx_quantize and cgx_sra_epilogue as (1, its high
+    word, its low word), after the geometry; one launch each."""
+    seed = 0x0123456789ABCDEF
+    codec_cuda.quantize_chunks(torch.zeros(32 * 512), 4, 512, seed=seed)
+    words = torch.zeros(2, 4 * 512, dtype=torch.int32)
+    codec_cuda.sra_epilogue_chunks(words, torch.zeros(2, 32, 2), None, -1, 4, 512, seed=seed)
+    (q, qa), (e, ea) = fake_card.calls
+    assert (q, e) == ("cgx_quantize", "cgx_sra_epilogue")
+    assert tuple(qa[11:14]) == tuple(ea[13:16]) == (1, 0x01234567, 0x89ABCDEF)
 
 
 def test_epilogue_hands_its_geometry_or_refuses(fake_card):

@@ -232,11 +232,17 @@ def test_butterfly_pack_is_refused(monkeypatch):
 
 
 def test_stochastic_epilogue_is_refused_without_a_lookup():
+    """A stochastic epilogue (a seed) runs and makes no autotune lookup, as
+    the JAX package's keeps the heuristic tile; a deterministic one looks
+    the shape up."""
     q = codec_cuda.quantize_batch(torch.randn(2, 32 * 128), 4, 128)
     before = autotune.stats()
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        codec_cuda.sra_epilogue_batch(q, stochastic=True)
+    out = codec_cuda.sra_epilogue_batch(q, seed=12345)
     assert autotune.stats() == before
+    want = codec_cuda.quantize_batch(codec_cuda.reduce_rows_batch(q)[None], 4, 128, seed=12345)
+    assert torch.equal(out.packed, want.packed) and torch.equal(out.meta, want.meta)
+    codec_cuda.sra_epilogue_batch(q)
+    assert autotune.stats() != before
 
 
 def _tiny_steps(db: str, monkeypatch, steps: int = 2):

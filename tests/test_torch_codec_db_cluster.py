@@ -237,7 +237,8 @@ def test_quantize_db_hands_tile_geometry_and_ring_to_the_kernel(fake_card, chunk
     tile that divides the chunks; one launch."""
     codec_cuda.quantize_chunks_db(torch.zeros(chunks * 32 * bucket), 4, bucket, tc)
     (name, args), = fake_card.calls
-    assert name == "cgx_quantize_db" and args[4] == tc and tuple(args[-4:-1]) == want
+    assert name == "cgx_quantize_db" and args[4] == tc and tuple(args[10:13]) == want
+    assert tuple(args[13:16]) == (0, 0, 0)  # round to nearest: no seed
     assert codec_cuda.LAUNCHES["codec_quantize_db"] == 1
     with pytest.raises(ValueError, match="divide"):
         codec_cuda.quantize_chunks_db(torch.zeros(chunks * 32 * bucket), 4, bucket, chunks + 1)

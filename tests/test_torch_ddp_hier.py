@@ -20,7 +20,8 @@ subgroup of global ranks 1-3 of its four, so group ranks are not global
 ranks) against a JAX world of three; ``allreduce_flat`` at ratio 0.5
 against the JAX one on the four-device CPU mesh. In the port's ranks also:
 ``chip_smoke.LaunchModel.hook`` on a leader and a non-leader against the
-codec wrappers' calls counted on the CPU, every bucket reduced on the
+codec wrappers' calls counted on the CPU, a two-level allreduce again
+after ``release`` and a map on one host, every bucket reduced on the
 group's worker thread, ``cgx_hook``'s future
 still pending while the worker is held, and a bucket that raises (a stale
 registry) raising through ``loss.backward()`` within a bound.
@@ -139,12 +140,12 @@ def test_async_knob_parses_as_jax_and_is_refused_on_two_levels(monkeypatch, raw)
                 mode()
         return
     assert tcfg.async_mode() == jcfg.async_mode() == raw.lower()
-    pb._refuse_unported(topo, dummy=False, hier=False)
+    pb._refuse_unported(topo, hier=False)
     if raw.lower() == "on":
         with pytest.raises(NotImplementedError, match="CGX_ASYNC"):
-            pb._refuse_unported(topo, dummy=False, hier=True)
+            pb._refuse_unported(topo, hier=True)
     else:
-        pb._refuse_unported(topo, dummy=False, hier=True)
+        pb._refuse_unported(topo, hier=True)
 
 
 def test_release_joins_the_worker_within_its_bound():
@@ -236,7 +237,8 @@ COMMON = {
     "ratio_flat": ({"CGX_COMPRESSION_FAKE_RATIO": "0.5", "CGX_INTRA_BROADCAST": "0"}, torch.float32),
 }
 WORLDS = {
-    ("port", 4): list(COMMON) + ["launches", "ws3", "flat_ratio", "threads", "held", "raises"],
+    ("port", 4): list(COMMON) + ["launches", "release", "ws3", "flat_ratio", "threads", "held",
+                                 "raises"],
     ("jax", 4): list(COMMON),
     ("jax", 3): ["ws3"],
 }
@@ -405,7 +407,35 @@ def _launches(tb, rank):
     return out
 
 
-SCENARIOS = {"launches": _launches, "ws3": _ws3_port, "flat_ratio": _flat_ratio, "threads": _threads, "held": _held,
+def _release(tb, rank):
+    """A two-level bucket allreduce, ``release``, one on a single host (no
+    subgroups), ``release``, and the two-level one again over the same
+    hosts: it takes the subgroups set aside and gives the same bytes."""
+    from torch_cgx_tpu_torch import config as cfg
+
+    key, layers = ("r", 0), [(8192, 4, 128), (300, 4, 128)]
+    for i, (n, bits, b) in enumerate(layers):
+        cfg.register_layer(key, i, n, bits, b)
+    x = torch.from_numpy(np.random.default_rng(rank).standard_normal(8492).astype(np.float32))
+
+    def reduce():
+        return pb.allreduce(x.clone(), bucket_key=key).numpy()
+
+    _HIER_CALLS[0] = 0
+    first = reduce()
+    subs = (pb._hosts(None).intra, pb._hosts(None).cross)
+    pb.release(None)
+    os.environ["CGX_SHM_HOST_ID"] = "onehost"
+    one_host = (reduce(), pb._hosts(None).topology)
+    pb.release(None)
+    os.environ["CGX_SHM_HOST_ID"] = f"testhost{rank // 2}"
+    again = reduce()
+    hm = pb._hosts(None)
+    return {"first": first, "again": again, "one_host": one_host, "hier_calls": _HIER_CALLS[0],
+            "reused": hm.intra is subs[0] and hm.cross is subs[1]}
+
+
+SCENARIOS = {"launches": _launches, "release": _release, "ws3": _ws3_port, "flat_ratio": _flat_ratio, "threads": _threads, "held": _held,
              "raises": _raises}
 
 
@@ -584,6 +614,20 @@ def test_launch_model_matches_counted_calls_two_level(worlds):
                     "codec_reduce_rows"}, seen
     leader, local = worlds[("port", 4)][0]["launches"], worlds[("port", 4)][1]["launches"]
     assert leader[("default", ("l", 0))] != local[("default", ("l", 0))]
+
+
+def test_release_then_two_level_allreduce_again(worlds):
+    """After ``release`` and a map on one host, the two-level allreduce over
+    the same hosts runs again on the subgroups set aside, bit for bit as
+    before, the replicas equal."""
+    r0 = worlds[("port", 4)][0]["release"]
+    for r, o in enumerate(worlds[("port", 4)]):
+        got = o["release"]
+        assert got["one_host"][1] == pb.TOPO_INTRA, (r, got["one_host"][1])
+        assert got["hier_calls"] == 2 and got["reused"], (r, got["hier_calls"], got["reused"])
+        np.testing.assert_array_equal(got["again"].view(np.int32), got["first"].view(np.int32))
+        np.testing.assert_array_equal(got["first"], r0["first"])
+        np.testing.assert_array_equal(got["one_host"][0], r0["one_host"][0])
 
 
 def test_bucket_allreduce_runs_on_the_worker_thread(worlds):

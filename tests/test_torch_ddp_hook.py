@@ -377,7 +377,6 @@ def _errors_scenario(rank, ws):
 REFUSED = [
     ({"CGX_SCHEDULE": "on"}, NotImplementedError, "CGX_SCHEDULE"),
     ({"CGX_PLANNER": "on"}, NotImplementedError, "CGX_PLANNER"),
-    ({"CGX_STOCHASTIC_ROUNDING": "1"}, NotImplementedError, "CGX_STOCHASTIC_ROUNDING"),
     ({"CGX_SCHEDULE": "bogus"}, ValueError, "CGX_SCHEDULE"),
 ]
 
@@ -392,7 +391,12 @@ def _refusals_scenario(rank, ws):
     # The Ring has no pipelined variant: CGX_SCHEDULE=on runs it unchanged.
     os.environ.update({"CGX_INNER_REDUCTION_TYPE": "RING", "CGX_SCHEDULE": "on"})
     ring = pb.allreduce(torch.full((4096,), float(rank))).tolist()[:2]
-    return {"refused": out, "ring": ring}
+    # Stochastic rounding is ported: constant buckets still sum exactly.
+    del os.environ["CGX_SCHEDULE"], os.environ["CGX_INNER_REDUCTION_TYPE"]
+    os.environ["CGX_STOCHASTIC_ROUNDING"] = "1"
+    stochastic = pb.allreduce(torch.full((4096,), float(rank + 1))).tolist()[:2]
+    del os.environ["CGX_STOCHASTIC_ROUNDING"]
+    return {"refused": out, "ring": ring, "stochastic": stochastic}
 
 
 def _hierarchy_scenario(rank, ws):
@@ -620,6 +624,7 @@ def test_unported_knobs_refused(worlds):
         for (env, _, knob), msg in zip(REFUSED, got["refused"]):
             assert msg is not None and knob in msg, (env, msg)
         assert got["ring"] == [1.0, 1.0]
+        assert got["stochastic"] == [3.0, 3.0]
 
 
 def test_two_level_group_refused(worlds):

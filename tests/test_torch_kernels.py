@@ -1121,3 +1121,122 @@ def test_async_bucket_runs_on_the_workers_stream(dev, monkeypatch):
     assert seen["stream"] != torch.cuda.current_stream(dev)
     assert float(x.sum()) == 2.0 * x.numel()
     hb.release(None)
+
+
+# ---------------------------------------------------------------------------
+# Stochastic rounding in B1/B5, B3, B7a and B7c: the kernels' Philox stream
+# against the plain versions' (utils/prng.py), bit for bit.
+# ---------------------------------------------------------------------------
+
+SR_SEED = 0x0123456789ABCDEF
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 1760, 16384])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_stochastic_quantize_matches_plain(dev, bits, bucket):
+    """B1 and B7a under stochastic rounding at every width, buckets within
+    and past the register budget, in every lowering, on normal, adversarial
+    and special data: one launch a call, the bytes of the plain version,
+    B7a's equal to B1's; the meta equal to round-to-nearest's."""
+    for x in _operands(3 * 32 * bucket, bucket, bits):
+        x = torch.from_numpy(x).to(dev)
+        for enc, pack in _lowerings():
+            codec_cuda.reset_launch_counts()
+            w, m = codec_cuda.quantize_chunks(x, bits, bucket, encode=enc, pack=pack, seed=SR_SEED)
+            dw, dm = codec_cuda.quantize_chunks_db(x, bits, bucket, 1, encode=enc, pack=pack,
+                                                   seed=SR_SEED)
+            torch.cuda.synchronize()
+            assert codec_cuda.LAUNCHES["codec_quantize"] == codec_cuda.LAUNCHES["codec_quantize_db"] == 1
+            pw, pm = codec_cuda.quantize_chunks_plain(x, bits, bucket, encode=enc, seed=SR_SEED)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (enc, pack)
+            assert _bits_equal(dw, pw) and _bits_equal(dm, pm), (enc, pack)
+            assert _bits_equal(m, codec_cuda.quantize_chunks(x, bits, bucket, encode=enc)[1])
+
+
+@pytest.mark.parametrize("bucket", [512, 1760])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_stochastic_epilogue_matches_plain(dev, bits, bucket):
+    """B3 and B7c under stochastic rounding at ws 1, 4 and 8, with and
+    without the raw own row, in every lowering: the plain version's bytes,
+    B7c's equal to B3's."""
+    n = 3 * 32 * bucket
+    normal, adversarial, special = _operands(n, bucket, bits)
+    for ws, owns in ((1, [None, 0]), (4, [None, 2]), (8, [None, 5])):
+        rows = np.stack([normal * np.float32(r + 1) for r in range(ws)])
+        rows[0] = adversarial
+        if ws > 1:
+            rows[1] = special
+        rows = torch.from_numpy(rows).to(dev)
+        q = codec_cuda.quantize_batch(rows, bits, bucket)
+        for own in owns:
+            raw, o = (None, -1) if own is None else (rows[own], own)
+            for enc, pack in _lowerings():
+                w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, o, bits, bucket,
+                                                      encode=enc, pack=pack, seed=SR_SEED)
+                dw, dm = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, raw, o, bits, bucket, 1,
+                                                           encode=enc, pack=pack, seed=SR_SEED)
+                pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, raw, o, bits, bucket,
+                                                              encode=enc, seed=SR_SEED)
+                assert _bits_equal(w, pw) and _bits_equal(m, pm), (ws, own, enc, pack)
+                assert _bits_equal(dw, pw) and _bits_equal(dm, pm), (ws, own, enc, pack)
+
+
+@pytest.mark.parametrize("bucket,chunks", [(512, 18), (1760, 4), (16384, 2)])
+def test_stochastic_geometries_tiles_and_rings(dev, bucket, chunks):
+    """Every cluster size the bucket takes (and the wrappers' geometry past
+    the register budget), forced, tiles of one and two chunks, ring depths
+    1-8 of B7a and B7c: the stochastic bytes do not move."""
+    n = chunks * 32 * bucket
+    rng = np.random.default_rng(bucket)
+    rows = torch.from_numpy(np.stack([rng.standard_normal(n).astype(np.float32) * (r + 1)
+                                      for r in range(4)])).to(dev)
+    pw, pm = codec_cuda.quantize_chunks_plain(rows[0], 4, bucket, seed=SR_SEED)
+    q = codec_cuda.quantize_batch(rows, 4, bucket)
+    ew, em = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, rows[2], 2, 4, bucket, seed=SR_SEED)
+    geoms = set(codec_cuda.cluster_geometries(bucket)) | {
+        codec_cuda.cluster_geometry(chunks, bucket, 4), codec_cuda.db_geometry(chunks, bucket, 4)}
+    for g in geoms:
+        w, m = codec_cuda._launch_quantize(rows[0], 4, bucket, "div", "sum", g, seed=SR_SEED)
+        assert _bits_equal(w, pw) and _bits_equal(m, pm), g
+        w, m = codec_cuda._launch_epilogue(q.packed, q.meta, rows[2], 2, 4, bucket, "div", "sum", g,
+                                           seed=SR_SEED)
+        assert _bits_equal(w, ew) and _bits_equal(m, em), g
+        if (bucket // g.k) % g.threads:
+            continue
+        for tc in (1, 2):
+            for slots in (1, 2, 4, 8):
+                # B7a's slots hold 32 x T floats: as many as fit beside the butterfly stage.
+                if (codec_cuda.DB_BAR_BYTES + (slots + 1) * 128 * g.threads
+                        + codec_cuda.DB_CLUSTER_STATIC_BYTES <= codec_cuda.SMEM_BLOCK_BYTES):
+                    w, m = codec_cuda._launch_quantize_db(rows[0], 4, bucket, tc, "div", "butterfly",
+                                                          g, slots, seed=SR_SEED)
+                    assert _bits_equal(w, pw) and _bits_equal(m, pm), (g, tc, slots)
+                w, m = codec_cuda._launch_epilogue_db(q.packed, q.meta, rows[2], 2, 4, bucket, tc,
+                                                      "div", "sum", g, slots, seed=SR_SEED)
+                assert _bits_equal(w, ew) and _bits_equal(m, em), (g, tc, slots)
+
+
+def test_stochastic_fused_epilogue_equals_staged_and_refusals(dev, monkeypatch):
+    """The dispatcher's fused stochastic epilogue (B3) equals the staged one
+    (decode, sum, then B1) on the card; B8 under CGX_STOCHASTIC_ROUNDING
+    still raises."""
+    from torch_cgx_tpu_torch.utils import prng
+
+    monkeypatch.setenv("CGX_STOCHASTIC_ROUNDING", "1")
+    cc = CompressionConfig(bits=4, bucket_size=512, stochastic=True)
+    rows = torch.randn(4, 8 * 32 * 512, device=dev)
+    q = dispatch.quantize_batch(rows, cc, prng.key(3))
+    got = {}
+    for mode in ("fused", "staged"):
+        monkeypatch.setenv("CGX_SRA_EPILOGUE", mode)
+        codec_cuda.reset_launch_counts()
+        got[mode] = dispatch.reduce_rows_requantize(q, cc, raw_rows=rows, own_idx=1, key=prng.key(4))
+        torch.cuda.synchronize()
+        fused = mode == "fused"
+        assert codec_cuda.LAUNCHES["codec_sra_epilogue"] == int(fused), (mode, codec_cuda.LAUNCHES)
+        assert codec_cuda.LAUNCHES["codec_quantize"] == int(not fused), (mode, codec_cuda.LAUNCHES)
+    assert _bits_equal(got["fused"].packed, got["staged"].packed)
+    assert _bits_equal(got["fused"].meta, got["staged"].meta)
+    with pytest.raises(NotImplementedError, match="stochastic"):
+        codec_cuda.matmul_quantize_chunks(torch.randn(64, 128, device=dev),
+                                          torch.randn(64, 128, device=dev), 2, 4, 512)

@@ -28,6 +28,8 @@ DEBUG_ALL_TO_ALL_REDUCTION = "CGX_DEBUG_ALL_TO_ALL_REDUCTION"
 DEBUG_FORCE_CODEC = "CGX_DEBUG_FORCE_CODEC"
 STANDALONE_LAYER_ELEMS = "CGX_STANDALONE_LAYER_ELEMS"
 STOCHASTIC_ROUNDING = "CGX_STOCHASTIC_ROUNDING"
+# The seed of the DDP hook's per-rank stochastic-rounding generators.
+SEED = "CGX_SEED"
 SRA_EPILOGUE = "CGX_SRA_EPILOGUE"
 SRA_EPILOGUE_MIN_ELEMS = "CGX_SRA_EPILOGUE_MIN_ELEMS"
 PRODUCER_FUSE = "CGX_PRODUCER_FUSE"
@@ -109,6 +111,10 @@ class CompressionConfig:
 
 def stochastic_rounding() -> bool:
     return _env.get_bool_env_or_default(STOCHASTIC_ROUNDING, False)
+
+
+def global_seed() -> int:
+    return _env.get_int_env_or_default(SEED, 0)
 
 
 def default_compression_config() -> CompressionConfig:

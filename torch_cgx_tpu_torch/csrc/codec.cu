@@ -70,6 +70,38 @@
 //           a warp holds bucket s, and each plane word is one __ballot_sync,
 //           since the bit-plane wire layout is exactly a warp ballot.
 // Both pairs give the same bytes for the same encode.
+//
+// Stochastic rounding (a third template parameter of B1/B5, B3, B7a and
+// B7c, STOCH; their entry points take a flag and the seed, and the
+// stochastic instances build in parts of their own) replaces the encode's
+// 0.5 by an offset r in [0, 1): level = clamp(floor(__fadd_rn(q, r)), 0, 2^bits - 1),
+// q as in the deterministic encode, the meta unchanged. r comes from
+// Philox4x32-10 (Random123's philox4x32_R(10, ...)) in the counter layout
+// of torch_cgx_tpu_torch/utils/prng.py, whose plain version the CPU and the
+// card check these kernels against bit for bit:
+//   key     the 64-bit seed as two 32-bit words (high, low), a kernel
+//           argument;
+//   counter (l, c mod 2^32, (c >> 32) mod 2^16 | tag << 16, g): position l
+//           in the bucket, chunk index c (row-major over the launch's rows;
+//           for an epilogue its output row), tag 0 (the dense tail outside
+//           the kernels draws with tag 1), bucket group g = s / 4;
+//   output  word j rounds bucket 4g + j, as r = (word >> 8) * 2^-24, the
+//           TPU kernels' conversion.
+// So a value's offset depends only on the seed, the chunk, the bucket and
+// the position: the cluster size, REREAD, the tile, the ring depth, the
+// pack and which of B1/B7a or B3/B7c ran leave the bytes alone. A thread
+// draws where it encodes, one Philox call a group of four buckets (eight
+// calls for its position of the chunk's 32 buckets), so no array of 32
+// offsets is live beside the 32 values. What bounds it: Philox-10 is 10
+// rounds of two 32x32 -> 64-bit multiplies (on the FMA pipe; nvcc emits
+// most as IMAD.HI and IMAD) and two three-way XORs (LOP3, on the integer
+// ALU); the key bumps depend on the seed alone and run once a thread on
+// the uniform path. A value issues about 15 instructions (about 7 on the
+// FMA pipe, 6 on the ALU; chip_smoke.philox_sass reads them from the
+// build's SASS): at 4 bits and B = 512 less than B1's bytes, more than
+// the epilogue's, which are only the packed rows. The stochastic
+// instances keep the deterministic ones' registers (64 a thread in the
+// body) and spills (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1063,14 +1095,54 @@ __device__ __forceinline__ float div_quotient(float a, float safe, float rcp, ui
 
 // The level of x in a bucket from its parameters p: div: (safe, its
 // div_reciprocal, min, its div_slow_bits as float bits); mul: (the
-// reciprocal 1/safe, -, min, -).
-template <int BITS, int ENCODE>
-__device__ __forceinline__ uint32_t level_cluster(float x, float4 p) {
+// reciprocal 1/safe, -, min, -). STOCH: rounded with the offset r in
+// [0, 1) in place of 0.5.
+template <int BITS, int ENCODE, bool STOCH = false>
+__device__ __forceinline__ uint32_t level_cluster(float x, float4 p, float r = 0.5f) {
   const float maxlvl = (float)((1 << BITS) - 1);
   const float a = __fsub_rn(x, p.z);
   const float q = ENCODE == kEncodeMul ? __fmul_rn(a, p.x)
                                        : div_quotient(a, p.x, p.y, __float_as_uint(p.w));
-  return (uint32_t)fminf(fmaxf(floorf(__fadd_rn(q, 0.5f)), 0.f), maxlvl);
+  return (uint32_t)fminf(fmaxf(floorf(__fadd_rn(q, STOCH ? r : 0.5f)), 0.f), maxlvl);
+}
+
+// Philox4x32-10 of counter c under key (k0, k1) (Random123): ten rounds,
+// the key bumped by the Weyl constants between them.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// A word's rounding offset: (u >> 8) * 2^-24, exact.
+__device__ __forceinline__ float uniform24(uint32_t u) {
+  return __fmul_rn(__uint2float_rn(u >> 8), 5.9604644775390625e-08f);
+}
+
+// One chunk's stochastic-rounding stream (the counter layout above): the
+// seed's words and the chunk index's counter words, tag 0.
+struct ChunkStream {
+  uint32_t k0, k1, c_lo, c_hi;
+  // The four words of bucket group g (buckets 4g .. 4g + 3) at position l.
+  __device__ __forceinline__ uint4 draw(int l, int g) const {
+    return philox4x32_10(make_uint4((uint32_t)l, c_lo, c_hi, (uint32_t)g), k0, k1);
+  }
+};
+
+__device__ __forceinline__ ChunkStream chunk_stream(uint2 seed, size_t c) {
+  return ChunkStream{seed.x, seed.y, (uint32_t)c, (uint32_t)(c >> 32) & 0xffffu};
+}
+
+__device__ __forceinline__ uint32_t word_of(uint4 u, int j) {
+  return j == 0 ? u.x : j == 1 ? u.y : j == 2 ? u.z : u.w;
 }
 
 // One transpose-reduce stage: t[0..2H) -> t[0..H). A lane with bit H set
@@ -1183,18 +1255,25 @@ __device__ __forceinline__ void cluster_bucket_params(float wmx, float wmn, int 
 // of the thread's words. Butterfly pack: the warp stages the levels of its
 // 32 positions in its private, bank-rotated 32 x 32 words of `stage` and
 // makes each word one __ballot_sync (the ballot's axis is the bucket, the
-// register layout's the position, so the transpose stays).
-template <int BITS, int ENCODE, int PACK>
+// register layout's the position, so the transpose stays). STOCH: each
+// group of four buckets rounds with the offsets of one draw of `rs`, made
+// where the group is encoded.
+template <int BITS, int ENCODE, int PACK, bool STOCH>
 __device__ __forceinline__ void cluster_encode(const float (&v)[kChunkBuckets],
                                                const float4* s_par, int B, int l, int32_t* wout,
-                                               uint32_t* stage) {
+                                               uint32_t* stage, const ChunkStream& rs) {
   uint32_t w[BITS];
 #pragma unroll
   for (int b = 0; b < BITS; ++b) w[b] = 0u;
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
   if (PACK == kPackSum) {
 #pragma unroll
     for (int s = 0; s < kChunkBuckets; ++s) {
-      const uint32_t q = level_cluster<BITS, ENCODE>(v[s], s_par[s]);
+      if constexpr (STOCH) {
+        if (s % 4 == 0) u = rs.draw(l, s / 4);
+      }
+      const uint32_t q =
+          level_cluster<BITS, ENCODE, STOCH>(v[s], s_par[s], uniform24(word_of(u, s % 4)));
 #pragma unroll
       for (int b = 0; b < BITS; ++b) w[b] |= ((q >> b) & 1u) << s;
     }
@@ -1203,7 +1282,11 @@ __device__ __forceinline__ void cluster_encode(const float (&v)[kChunkBuckets],
     uint32_t* st = stage + (size_t)(threadIdx.x >> 5) * 32 * 32;
 #pragma unroll
     for (int s = 0; s < kChunkBuckets; ++s) {
-      st[s * 32 + ((lane + s) & 31)] = level_cluster<BITS, ENCODE>(v[s], s_par[s]);
+      if constexpr (STOCH) {
+        if (s % 4 == 0) u = rs.draw(l, s / 4);
+      }
+      st[s * 32 + ((lane + s) & 31)] =
+          level_cluster<BITS, ENCODE, STOCH>(v[s], s_par[s], uniform24(word_of(u, s % 4)));
     }
     __syncwarp();
 #pragma unroll 4
@@ -1231,11 +1314,13 @@ __device__ __forceinline__ void cluster_encode(const float (&v)[kChunkBuckets],
 // With REREAD, load(v, l) fills v with position l's values: each further
 // position is loaded for the extremes, and every position again (from the
 // L2) for the encode. wout, mout: the chunk's words and meta; stage
-// (butterfly pack only): 32 x 32 words a warp of dynamic shared memory.
-template <int BITS, int ENCODE, int PACK, bool REREAD, typename Load>
+// (butterfly pack only): 32 x 32 words a warp of dynamic shared memory;
+// rs: the chunk's stochastic-rounding stream (read with STOCH only).
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename Load>
 __device__ __forceinline__ void cluster_quantize(float (&v)[kChunkBuckets], const Load& load, int k,
                                                  int rank, int B, float inv, int32_t* wout,
-                                                 float* mout, uint32_t* stage) {
+                                                 float* mout, uint32_t* stage,
+                                                 const ChunkStream& rs) {
   __shared__ float4 s_par[kChunkBuckets];
   const int lane = threadIdx.x & 31;
   const int T = blockDim.x;
@@ -1254,10 +1339,10 @@ __device__ __forceinline__ void cluster_quantize(float (&v)[kChunkBuckets], cons
   if constexpr (REREAD) {
     for (int off = 0; off < room; off += T) {
       if (room > T) load(v, l0 + off);  // else v still holds position l0
-      cluster_encode<BITS, ENCODE, PACK>(v, s_par, B, l0 + off, wout, stage);
+      cluster_encode<BITS, ENCODE, PACK, STOCH>(v, s_par, B, l0 + off, wout, stage, rs);
     }
   } else {
-    cluster_encode<BITS, ENCODE, PACK>(v, s_par, B, l0, wout, stage);
+    cluster_encode<BITS, ENCODE, PACK, STOCH>(v, s_par, B, l0, wout, stage, rs);
   }
   if (k > 1) cluster_wait();  // no CTA leaves while a peer may still read its partials
 }
@@ -1276,19 +1361,21 @@ struct ChunkValues {
 // codec_quantize (B1, B5) on the cluster geometry: grid chunks*k CTAs in
 // clusters of k, T threads (B/k, or with REREAD fewer: B/k positions in
 // rounds of T); dynamic shared memory the butterfly stage (T/32 * 4096
-// bytes) or none.
-template <int BITS, int ENCODE, int PACK, bool REREAD>
+// bytes) or none. STOCH: rounded with the stream of `seed`.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
     cgx_quantize_cluster_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
-                                float* __restrict__ meta, int B, int k, float inv) {
+                                float* __restrict__ meta, int B, int k, float inv, uint2 seed) {
   extern __shared__ __align__(16) uint32_t cl_smem[];
   const int rank = (int)(blockIdx.x % (unsigned)k);
   const size_t c = blockIdx.x / (unsigned)k;
   const ChunkValues load{x + c * kChunkBuckets * B, B};
   float v[kChunkBuckets];
   load(v, rank * (B / k) + (int)threadIdx.x);
-  cluster_quantize<BITS, ENCODE, PACK, REREAD>(v, load, k, rank, B, inv, words + c * BITS * B,
-                                               meta + c * 2 * kChunkBuckets, cl_smem);
+  cluster_quantize<BITS, ENCODE, PACK, REREAD, STOCH>(v, load, k, rank, B, inv,
+                                                      words + c * BITS * B,
+                                                      meta + c * 2 * kChunkBuckets, cl_smem,
+                                                      chunk_stream(seed, c));
 }
 
 // The BITS words of one row at this thread's position.
@@ -1357,15 +1444,16 @@ struct ChunkRows {
 // butterfly stage) while row 0's words are in flight; each thread folds
 // its position of the ws rows into 32 registers in ascending row order,
 // then requantizes them as B1 does (with REREAD, each further position is
-// folded again for the encode).
-template <int BITS, int ENCODE, int PACK, bool REREAD>
+// folded again for the encode); STOCH: with the stream of `seed`, chunk
+// indices over the output row.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
     cgx_sra_epilogue_cluster_kernel(const int32_t* __restrict__ words,
                                     const float* __restrict__ meta,
                                     const float* __restrict__ raw, int own, int ws,
                                     long long chunks, int B, int k, float inv,
                                     int32_t* __restrict__ out_words,
-                                    float* __restrict__ out_meta) {
+                                    float* __restrict__ out_meta, uint2 seed) {
   extern __shared__ __align__(16) uint32_t cl_smem[];
   float* s_meta = reinterpret_cast<float*>(cl_smem);  // [ws][32][2]
   uint32_t* stage = cl_smem + (size_t)ws * 2 * kChunkBuckets;
@@ -1386,9 +1474,10 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
   __syncthreads();
   float acc[kChunkBuckets];
   rows.fold(acc, w, l0);
-  cluster_quantize<BITS, ENCODE, PACK, REREAD>(acc, rows, k, rank, B, inv,
-                                               out_words + c * BITS * B,
-                                               out_meta + c * 2 * kChunkBuckets, stage);
+  cluster_quantize<BITS, ENCODE, PACK, REREAD, STOCH>(acc, rows, k, rank, B, inv,
+                                                      out_words + c * BITS * B,
+                                                      out_meta + c * 2 * kChunkBuckets, stage,
+                                                      chunk_stream(seed, c));
 }
 
 // ---------------------------------------------------------------------------
@@ -1579,12 +1668,13 @@ struct RingValues {
 // codec_quantize_db (B7a) on the cluster geometry: a persistent grid of G
 // clusters of k CTAs of T threads (see above); dynamic shared memory the
 // ring's barriers, `slots` slots of 32*T*4 bytes, then the butterfly stage
-// (T/32 * 4096 bytes) or nothing.
-template <int BITS, int ENCODE, int PACK, bool REREAD>
+// (T/32 * 4096 bytes) or nothing. STOCH: rounded with the stream of `seed`
+// at the chunk's global index, as B1.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
     cgx_quantize_db_cluster_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
                                    float* __restrict__ meta, int tiles, int tc, int B, int k,
-                                   float inv, int slots) {
+                                   float inv, int slots, uint2 seed) {
   extern __shared__ __align__(128) unsigned char db_smem[];
   __shared__ Cursor s_cur;
   const int rank = (int)(blockIdx.x % (unsigned)k);
@@ -1615,8 +1705,10 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
       float v[kChunkBuckets];
       load(v, sh.rank * sh.span + (int)threadIdx.x);
       const size_t c = (size_t)t * tc + u;
-      cluster_quantize<BITS, ENCODE, PACK, REREAD>(v, load, k, rank, B, inv, words + c * BITS * B,
-                                                   meta + c * 2 * kChunkBuckets, stage);
+      cluster_quantize<BITS, ENCODE, PACK, REREAD, STOCH>(v, load, k, rank, B, inv,
+                                                          words + c * BITS * B,
+                                                          meta + c * 2 * kChunkBuckets, stage,
+                                                          chunk_stream(seed, c));
     }
   }
 }
@@ -1660,15 +1752,16 @@ struct RingRows {
 
 // codec_sra_epilogue_db (B7c) on the cluster geometry: as B7a, the ring's
 // slots each one peer row's round (bits*T*4 bytes of words, then 256 of
-// meta).
-template <int BITS, int ENCODE, int PACK, bool REREAD>
+// meta). STOCH: rounded with the stream of `seed` at the output chunk's
+// index, as B3.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
     cgx_sra_epilogue_db_cluster_kernel(const int32_t* __restrict__ words,
                                        const float* __restrict__ meta,
                                        const float* __restrict__ raw, int own, int ws,
                                        int chunks, int tiles, int tc, int B, int k, float inv,
                                        int slots, int32_t* __restrict__ out_words,
-                                       float* __restrict__ out_meta) {
+                                       float* __restrict__ out_meta, uint2 seed) {
   extern __shared__ __align__(128) unsigned char db_smem[];
   __shared__ Cursor s_cur;
   const int rank = (int)(blockIdx.x % (unsigned)k);
@@ -1713,9 +1806,10 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
           own, ws, B};
       float acc[kChunkBuckets];
       rows(acc, sh.rank * sh.span + (int)threadIdx.x);
-      cluster_quantize<BITS, ENCODE, PACK, REREAD>(acc, rows, k, rank, B, inv,
-                                                   out_words + c * BITS * B,
-                                                   out_meta + c * 2 * kChunkBuckets, stage);
+      cluster_quantize<BITS, ENCODE, PACK, REREAD, STOCH>(acc, rows, k, rank, B, inv,
+                                                          out_words + c * BITS * B,
+                                                          out_meta + c * 2 * kChunkBuckets, stage,
+                                                          chunk_stream(seed, c));
     }
   }
 }
@@ -1982,27 +2076,24 @@ void reduce_rows_start(const int32_t* words, const float* meta, const float* raw
 }  // namespace
 
 
-// The build compiles this file once per part (-DCGX_PART=0..6), the parts
+// The build compiles this file once per part (-DCGX_PART=0..10), the parts
 // in parallel, and links them into one library; without CGX_PART it
-// compiles every entry point.
+// compiles every entry point. Parts 7-10 hold the stochastic instances.
 #ifdef CGX_PART
 #define CGX_IN_PART(k) (CGX_PART == (k))
 #else
 #define CGX_IN_PART(k) 1
 #endif
 
-extern "C" {
+namespace cgx {
 
-// Every quantizing entry point takes `encode` (0 div, 1 mul) and `pack`
-// (0 sum, 1 butterfly).
-
-#if CGX_IN_PART(0)
-// x: chunks*32*B f32 -> words: chunks*bits*B int32, meta: chunks*32*2 f32.
-// The cluster geometry (codec_cuda.cluster_geometry): clusters of k CTAs of
-// `threads` threads, each thread B/(k*threads) positions (rounded up).
-int cgx_quantize(const float* x, int32_t* words, float* meta, long long chunks,
-                 int B, int bits, float inv, int encode, int pack, int k, int threads,
-                 void* stream) {
+// The bodies of the entry points of B1, B3, B7a and B7c, their
+// deterministic (STOCH false; parts 0, 2, 4, 5, with the entry points) and
+// stochastic (STOCH true, the seed's words; parts 7-10) instances.
+template <bool STOCH>
+int quantize_entry(const float* x, int32_t* words, float* meta, long long chunks, int B, int bits,
+                   float inv, int encode, int pack, int k, int threads, uint2 seed,
+                   void* stream) {
   if (chunks < 1 || B < 32 || B % 32 || !cluster_geometry_ok(chunks, B, k, threads)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -2010,13 +2101,150 @@ int cgx_quantize(const float* x, int32_t* words, float* meta, long long chunks,
   const bool reread = B / k > threads;
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     cudaError_t e = reread
-        ? cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, true>, chunks, k, threads,
-                         stage_bytes(PACK, threads), st, x, words, meta, B, k, inv)
-        : cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, false>, chunks, k,
-                         threads, stage_bytes(PACK, threads), st, x, words, meta, B, k, inv);
+        ? cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, true, STOCH>, chunks, k,
+                         threads, stage_bytes(PACK, threads), st, x, words, meta, B, k, inv, seed)
+        : cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, false, STOCH>, chunks, k,
+                         threads, stage_bytes(PACK, threads), st, x, words, meta, B, k, inv, seed);
     if (e != cudaSuccess) return (int)e;
   }));
   return (int)cudaGetLastError();
+}
+
+template <bool STOCH>
+int sra_epilogue_entry(const int32_t* words, const float* meta, const float* raw, int own, int ws,
+                       long long chunks, int B, int bits, float inv, int encode, int pack, int k,
+                       int threads, uint2 seed, int32_t* out_words, float* out_meta,
+                       void* stream) {
+  if (chunks < 1 || ws < 1 || own >= ws || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
+  if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
+  if (!cluster_geometry_ok(chunks, B, k, threads)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t meta_bytes = (size_t)ws * 2 * kChunkBuckets * sizeof(float);
+  const bool reread = B / k > threads;
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    const size_t smem = meta_bytes + stage_bytes(PACK, threads);
+    cudaError_t e = reread
+        ? cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, true, STOCH>, chunks,
+                         k, threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
+                         out_words, out_meta, seed)
+        : cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, false, STOCH>, chunks,
+                         k, threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
+                         out_words, out_meta, seed);
+    if (e != cudaSuccess) return (int)e;
+  }));
+  return (int)cudaGetLastError();
+}
+
+template <bool STOCH>
+int quantize_db_entry(const float* x, int32_t* words, float* meta, long long chunks, int tc, int B,
+                      int bits, float inv, int encode, int pack, int k, int threads, int slots,
+                      uint2 seed, void* stream) {
+  if (!db_cluster_ok(chunks, tc, B, k, threads, slots, 1) || !aligned16(x)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = (int)(chunks / tc);
+  const bool reread = B / k > threads;
+  const size_t ring = kBarBytes + (size_t)slots * kChunkBuckets * threads * sizeof(float);
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    const size_t smem = ring + stage_bytes(PACK, threads);
+    cudaError_t e =
+        reread ? persistent_cluster_launch(
+                     cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, true, STOCH>, tiles, k,
+                     threads, smem, st, x, words, meta, tiles, tc, B, k, inv, slots, seed)
+               : persistent_cluster_launch(
+                     cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, false, STOCH>, tiles, k,
+                     threads, smem, st, x, words, meta, tiles, tc, B, k, inv, slots, seed);
+    if (e != cudaSuccess) return (int)e;
+  }));
+  return (int)cudaGetLastError();
+}
+
+template <bool STOCH>
+int sra_epilogue_db_entry(const int32_t* words, const float* meta, const float* raw, int own,
+                          int ws, long long chunks, int tc, int B, int bits, float inv, int encode,
+                          int pack, int k, int threads, int slots, uint2 seed, int32_t* out_words,
+                          float* out_meta, void* stream) {
+  if (!db_cluster_ok(chunks, tc, B, k, threads, slots, ws) || own >= ws) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(words) || !aligned16(meta) || (raw && !aligned16(raw))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = (int)(chunks / tc), n = (int)chunks;
+  const bool reread = B / k > threads;
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    const size_t smem = kBarBytes +
+                        (size_t)slots * ((size_t)BITS * threads + 2 * kChunkBuckets) * 4 +
+                        stage_bytes(PACK, threads);
+    cudaError_t e =
+        reread ? persistent_cluster_launch(
+                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, true, STOCH>, tiles,
+                     k, threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv,
+                     slots, out_words, out_meta, seed)
+               : persistent_cluster_launch(
+                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, false, STOCH>, tiles,
+                     k, threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv,
+                     slots, out_words, out_meta, seed);
+    if (e != cudaSuccess) return (int)e;
+  }));
+  return (int)cudaGetLastError();
+}
+
+// Each stochastic instance is compiled in its part alone; the entry
+// point's part only declares it.
+#if CGX_IN_PART(7)
+template
+#else
+extern template
+#endif
+int quantize_entry<true>(const float*, int32_t*, float*, long long, int, int, float, int, int, int,
+                         int, uint2, void*);
+#if CGX_IN_PART(8)
+template
+#else
+extern template
+#endif
+int sra_epilogue_entry<true>(const int32_t*, const float*, const float*, int, int, long long, int,
+                             int, float, int, int, int, int, uint2, int32_t*, float*, void*);
+#if CGX_IN_PART(9)
+template
+#else
+extern template
+#endif
+int quantize_db_entry<true>(const float*, int32_t*, float*, long long, int, int, int, float, int,
+                            int, int, int, int, uint2, void*);
+#if CGX_IN_PART(10)
+template
+#else
+extern template
+#endif
+int sra_epilogue_db_entry<true>(const int32_t*, const float*, const float*, int, int, long long,
+                                int, int, int, float, int, int, int, int, int, uint2, int32_t*,
+                                float*, void*);
+
+}  // namespace cgx
+
+extern "C" {
+
+// Every quantizing entry point takes `encode` (0 div, 1 mul), `pack` (0
+// sum, 1 butterfly) and `stochastic` (0: round to nearest; else round
+// stochastically under the seed (k0, k1)).
+
+#if CGX_IN_PART(0)
+// x: chunks*32*B f32 -> words: chunks*bits*B int32, meta: chunks*32*2 f32.
+// The cluster geometry (codec_cuda.cluster_geometry): clusters of k CTAs of
+// `threads` threads, each thread B/(k*threads) positions (rounded up).
+int cgx_quantize(const float* x, int32_t* words, float* meta, long long chunks,
+                 int B, int bits, float inv, int encode, int pack, int k, int threads,
+                 int stochastic, unsigned k0, unsigned k1, void* stream) {
+  const uint2 seed = make_uint2(k0, k1);
+  return stochastic ? cgx::quantize_entry<true>(x, words, meta, chunks, B, bits, inv, encode, pack,
+                                                k, threads, seed, stream)
+                    : cgx::quantize_entry<false>(x, words, meta, chunks, B, bits, inv, encode,
+                                                 pack, k, threads, seed, stream);
 }
 #endif
 
@@ -2097,26 +2325,17 @@ int cgx_dequantize(const int32_t* words, const float* meta, const float* add,
 // The cluster geometry as cgx_quantize's.
 int cgx_sra_epilogue(const int32_t* words, const float* meta, const float* raw,
                      int own, int ws, long long chunks, int B, int bits,
-                     float inv, int encode, int pack, int k, int threads,
-                     int32_t* out_words, float* out_meta, void* stream) {
-  if (chunks < 1 || ws < 1 || own >= ws || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
-  if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
-  if (!cluster_geometry_ok(chunks, B, k, threads)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t meta_bytes = (size_t)ws * 2 * kChunkBuckets * sizeof(float);
-  const bool reread = B / k > threads;
-  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
-    const size_t smem = meta_bytes + stage_bytes(PACK, threads);
-    cudaError_t e = reread
-        ? cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, true>, chunks, k,
-                         threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
-                         out_words, out_meta)
-        : cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, false>, chunks, k,
-                         threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
-                         out_words, out_meta);
-    if (e != cudaSuccess) return (int)e;
-  }));
-  return (int)cudaGetLastError();
+                     float inv, int encode, int pack, int k, int threads, int stochastic,
+                     unsigned k0, unsigned k1, int32_t* out_words, float* out_meta,
+                     void* stream) {
+  const uint2 seed = make_uint2(k0, k1);
+  return stochastic
+             ? cgx::sra_epilogue_entry<true>(words, meta, raw, own, ws, chunks, B, bits, inv,
+                                             encode, pack, k, threads, seed, out_words, out_meta,
+                                             stream)
+             : cgx::sra_epilogue_entry<false>(words, meta, raw, own, ws, chunks, B, bits, inv,
+                                              encode, pack, k, threads, seed, out_words, out_meta,
+                                              stream);
 }
 #endif
 
@@ -2186,26 +2405,12 @@ int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total, int
 #if CGX_IN_PART(4)
 int cgx_quantize_db(const float* x, int32_t* words, float* meta, long long chunks, int tc,
                     int B, int bits, float inv, int encode, int pack, int k, int threads,
-                    int slots, void* stream) {
-  if (!db_cluster_ok(chunks, tc, B, k, threads, slots, 1) || !aligned16(x)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (int)(chunks / tc);
-  const bool reread = B / k > threads;
-  const size_t ring = kBarBytes + (size_t)slots * kChunkBuckets * threads * sizeof(float);
-  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
-    const size_t smem = ring + stage_bytes(PACK, threads);
-    cudaError_t e =
-        reread ? persistent_cluster_launch(cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, true>,
-                                           tiles, k, threads, smem, st, x, words, meta, tiles, tc,
-                                           B, k, inv, slots)
-               : persistent_cluster_launch(cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, false>,
-                                           tiles, k, threads, smem, st, x, words, meta, tiles, tc,
-                                           B, k, inv, slots);
-    if (e != cudaSuccess) return (int)e;
-  }));
-  return (int)cudaGetLastError();
+                    int slots, int stochastic, unsigned k0, unsigned k1, void* stream) {
+  const uint2 seed = make_uint2(k0, k1);
+  return stochastic ? cgx::quantize_db_entry<true>(x, words, meta, chunks, tc, B, bits, inv,
+                                                   encode, pack, k, threads, slots, seed, stream)
+                    : cgx::quantize_db_entry<false>(x, words, meta, chunks, tc, B, bits, inv,
+                                                    encode, pack, k, threads, slots, seed, stream);
 }
 #endif
 
@@ -2243,34 +2448,17 @@ int cgx_dequantize_db(const int32_t* words, const float* meta, const float* add,
 #if CGX_IN_PART(5)
 int cgx_sra_epilogue_db(const int32_t* words, const float* meta, const float* raw, int own,
                         int ws, long long chunks, int tc, int B, int bits, float inv,
-                        int encode, int pack, int k, int threads, int slots,
-                        int32_t* out_words, float* out_meta, void* stream) {
-  if (!db_cluster_ok(chunks, tc, B, k, threads, slots, ws) || own >= ws) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(words) || !aligned16(meta) || (raw && !aligned16(raw))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (int)(chunks / tc), n = (int)chunks;
-  const bool reread = B / k > threads;
-  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
-    const size_t smem = kBarBytes +
-                        (size_t)slots * ((size_t)BITS * threads + 2 * kChunkBuckets) * 4 +
-                        stage_bytes(PACK, threads);
-    cudaError_t e =
-        reread ? persistent_cluster_launch(
-                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, true>, tiles, k,
-                     threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv, slots,
-                     out_words, out_meta)
-               : persistent_cluster_launch(
-                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, false>, tiles, k,
-                     threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv, slots,
-                     out_words, out_meta);
-    if (e != cudaSuccess) return (int)e;
-  }));
-  return (int)cudaGetLastError();
+                        int encode, int pack, int k, int threads, int slots, int stochastic,
+                        unsigned k0, unsigned k1, int32_t* out_words, float* out_meta,
+                        void* stream) {
+  const uint2 seed = make_uint2(k0, k1);
+  return stochastic
+             ? cgx::sra_epilogue_db_entry<true>(words, meta, raw, own, ws, chunks, tc, B, bits,
+                                                inv, encode, pack, k, threads, slots, seed,
+                                                out_words, out_meta, stream)
+             : cgx::sra_epilogue_db_entry<false>(words, meta, raw, own, ws, chunks, tc, B, bits,
+                                                 inv, encode, pack, k, threads, slots, seed,
+                                                 out_words, out_meta, stream);
 }
 #endif
 

@@ -19,7 +19,12 @@ same bytes on the wire:
   values per group, ``bits`` words per group);
 * the final partial bucket is edge-padded, so constant buckets decode to
   exactly their value;
-* decode is ``min + unit * level`` with the product rounded before the add.
+* decode is ``min + unit * level`` with the product rounded before the add;
+* stochastic rounding (a key given) replaces the 0.5 of the encode by an
+  offset ``r`` in [0, 1): ``level = clip(floor(q + r), 0, 2^bits-1)``, the
+  meta unchanged. ``r`` comes from the Philox4x32-10 counter stream of
+  ``utils/prng.py`` (:func:`rounding_offsets`), which the kernels draw
+  from too.
 
 Words are stored as ``torch.int32``: PyTorch has no uint32 arithmetic, and
 every operation here (shift, and, or, disjoint sums) is exact in int32 with
@@ -36,6 +41,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import prng
 
 LANE_GROUP = 32  # values per packing group
 CHUNK_BUCKETS = 32  # buckets per bit-plane chunk
@@ -199,18 +206,20 @@ def compute_meta(xb: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tenso
 
 def encode_levels(
     xb: torch.Tensor, unit: torch.Tensor, bmin: torch.Tensor, bits: int,
-    encode: str = "div",
+    encode: str = "div", rand: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """int32 levels ``(nb, B)``: round to nearest (deterministic mode).
-    ``encode``: "div" divides each value by the bucket's unit; "mul"
-    multiplies by the bucket's reciprocal ``f32(1) / safe``, rounding the
-    product before the add (``codec_pallas._encode_lvl``)."""
+    """int32 levels ``(nb, B)``: round to nearest, or with ``rand`` (f32
+    offsets in [0, 1), shaped like ``xb``) stochastically, ``floor(q +
+    rand)``. ``encode``: "div" divides each value by the bucket's unit;
+    "mul" multiplies by the bucket's reciprocal ``f32(1) / safe``, rounding
+    the product before the add (``codec_pallas._encode_lvl``)."""
     safe = torch.where(unit > 0, unit, torch.ones_like(unit))
+    r = 0.5 if rand is None else rand
     if encode == "mul":
         inv = torch.ones_like(safe) / safe
-        lvl = torch.floor((xb - bmin[:, None]) * inv[:, None] + 0.5)
+        lvl = torch.floor((xb - bmin[:, None]) * inv[:, None] + r)
     elif encode == "div":
-        lvl = torch.floor((xb - bmin[:, None]) / safe[:, None] + 0.5)
+        lvl = torch.floor((xb - bmin[:, None]) / safe[:, None] + r)
     else:
         raise ValueError(f"encode must be 'div' or 'mul', got {encode!r}")
     return torch.clamp(lvl, 0, (1 << bits) - 1).to(torch.int32)
@@ -222,6 +231,25 @@ def decode_levels(
     """f32 ``(nb, B)`` decoded values: the product rounds before the add."""
     prod = unit[:, None] * lvl.to(torch.float32)
     return bmin[:, None] + prod
+
+
+def rounding_offsets(
+    seed: int, rows: int, nb_r: int, bucket_size: int, device=None
+) -> torch.Tensor:
+    """f32 stochastic-rounding offsets ``(rows, nb_r, B)`` of a quantize of
+    ``rows`` rows of ``nb_r`` buckets each: the whole chunks of every row
+    from the chunk stream, chunk index row-major over the rows; the last
+    ``nb_r % 32`` buckets of row ``r`` from the tail stream at chunk index
+    ``r`` (``utils/prng.py``)."""
+    c_r, t_r = divmod(nb_r, CHUNK_BUCKETS)
+    b = bucket_size
+    parts = []
+    if c_r:
+        parts.append(prng.chunk_offsets(seed, rows * c_r, b, device=device).view(rows, -1, b))
+    if t_r:
+        tail = prng.chunk_offsets(seed, rows, b, tag=prng.TAG_TAIL, device=device)
+        parts.append(tail.view(rows, CHUNK_BUCKETS, b)[:, :t_r])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def bucket_view(flat: torch.Tensor, bucket_size: int) -> torch.Tensor:
@@ -240,8 +268,10 @@ def quantize(
     bucket_size: int,
     *,
     skip_incomplete_buckets: bool = False,
+    key: Optional[prng.Key] = None,
 ) -> QTensor:
-    """Quantize a tensor into a flat :class:`QTensor`."""
+    """Quantize a tensor into a flat :class:`QTensor`; with ``key``
+    stochastically (:func:`rounding_offsets`, one row)."""
     if not (1 <= bits <= 8):
         raise ValueError(f"bits must be in 1..8, got {bits}")
     dtype = x.dtype
@@ -262,7 +292,10 @@ def quantize(
         )
     xb = bucket_view(flat[:main_n], bucket_size)
     unit, bmin = compute_meta(xb, bits)
-    lvl = encode_levels(xb, unit, bmin, bits)
+    rand = None
+    if key is not None:
+        rand = rounding_offsets(prng.seed_from_key(key), 1, nb, bucket_size, x.device)[0]
+    lvl = encode_levels(xb, unit, bmin, bits, rand=rand)
     return QTensor(
         packed=pack_levels_bucketed(lvl, bits),
         meta=torch.stack([unit, bmin], dim=1).to(dtype),

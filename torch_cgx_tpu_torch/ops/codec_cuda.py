@@ -48,9 +48,20 @@ On the card they are template parameters of the kernel. The dense tail
 outside the kernels keeps the "div" encode whatever the knob says, as the
 JAX package's does.
 
-Not in the kernels yet (ROADMAP Queue B), and refused on every device:
-stochastic rounding and the ``CGX_SRA_ACCUM=int8`` fold. A CUDA tensor must
-be float32: bf16/f16 wire dtypes inside the kernels wait too.
+Stochastic rounding: the quantizing wrappers (B1/B5, B3, B7a, B7c) take a
+64-bit ``seed`` (``utils/prng.seed_from_key``; None: round to nearest) and
+draw each value's offset from the Philox4x32-10 counter stream of
+``utils/prng.py``, the kernels in CUDA and the plain versions in PyTorch, so
+both give the same bytes whatever the cluster geometry, tile, ring or pack.
+On the card the entry points take a flag and the seed's words
+(:func:`_seed_args`) and pick the stochastic or the deterministic
+instance; the deterministic ones are unchanged. The matmul-quantize
+(B8) stays deterministic, as the JAX package's is, and refuses
+``CGX_STOCHASTIC_ROUNDING``.
+
+Not in the kernels yet (ROADMAP Queue B), and refused on every device: the
+``CGX_SRA_ACCUM=int8`` fold. A CUDA tensor must be float32: bf16/f16 wire
+dtypes inside the kernels wait too.
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ import numpy as np
 import torch
 
 from .. import config as cfg_mod
+from ..utils import prng
 from . import autotune, codec
 from .codec import CHUNK_BUCKETS, LANE_GROUP, QTensor
 
@@ -83,8 +95,9 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # The source's entry points fall into this many parts (CGX_PART in
-# csrc/codec.cu), compiled by one nvcc each, all at once, then linked.
-BUILD_PARTS = 7
+# csrc/codec.cu), compiled by one nvcc each, all at once, then linked:
+# parts 7-10 hold the stochastic instances of B1, B3, B7a and B7c.
+BUILD_PARTS = 11
 
 # The fused epilogue's bucket gate: a chunk's (32, B) f32 values within a
 # block's 232,448 bytes of shared memory, less 256 of static meta, where
@@ -200,16 +213,18 @@ def _lib():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-            lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, i, i, i, i, vp]
+            u = ctypes.c_uint
+            lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, i, i, i, i, i, u, u, vp]
             lib.cgx_dequantize.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
-            lib.cgx_sra_epilogue.argtypes = [vp, vp, vp, i, i, ll, i, i, f, i, i, i, i, vp, vp, vp]
+            lib.cgx_sra_epilogue.argtypes = [
+                vp, vp, vp, i, i, ll, i, i, f, i, i, i, i, i, u, u, vp, vp, vp]
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp, vp]
             lib.cgx_matmul_quantize.argtypes = [
                 vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, vp]
-            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, vp]
+            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, i, u, u, vp]
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
             lib.cgx_sra_epilogue_db.argtypes = [
-                vp, vp, vp, i, i, ll, i, i, i, f, i, i, i, i, i, vp, vp, vp]
+                vp, vp, vp, i, i, ll, i, i, i, f, i, i, i, i, i, i, u, u, vp, vp, vp]
             lib.cgx_quantize_variant.argtypes = [vp, vp, vp, ll, i, i, i, f, vp]
             lib.cgx_div_sweep.argtypes = [i, i, i, i, i, vp, vp, vp]
             lib.cgx_div_pairs.argtypes = [vp, vp, i, vp, vp, vp]
@@ -227,6 +242,12 @@ def _lib():
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _seed_args(seed: Optional[int]) -> Tuple[int, int, int]:
+    """A quantizing entry point's ``(stochastic, k0, k1)``: 0 (round to
+    nearest) with no seed, else 1 and the seed's Philox key words."""
+    return (0, 0, 0) if seed is None else (1, *prng.seed_words(seed))
 
 
 def _check_launch(name: str, err: int) -> None:
@@ -256,6 +277,11 @@ def _lowering(encode: Optional[str], pack: Optional[str]) -> Tuple[str, str]:
     if pack not in PACKS:
         raise ValueError(f"pack must be one of {PACKS}, got {pack!r}")
     return encode, pack
+
+
+def _check_seed(seed: Optional[int]) -> None:
+    if seed is not None and not 0 <= seed < 1 << 64:
+        raise ValueError(f"seed must be a 64-bit unsigned integer or None, got {seed!r}")
 
 
 def _refuse_unported_fold() -> None:
@@ -412,47 +438,51 @@ def _geometry(t: torch.Tensor, chunks: int, bucket_size: int, bits: int) -> Clus
 
 def quantize_chunks_plain(
     x: torch.Tensor, bits: int, bucket_size: int,
-    encode: Optional[str] = None, pack: Optional[str] = None,
+    encode: Optional[str] = None, pack: Optional[str] = None, seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`quantize_chunks`."""
     encode, pack = _lowering(encode, pack)
     xb = x.reshape(-1, bucket_size).to(torch.float32)
     unit, bmin = codec.compute_meta(xb, bits)
-    lvl = codec.encode_levels(xb, unit, bmin, bits, encode)
+    rand = None if seed is None else prng.chunk_offsets(
+        seed, xb.shape[0] // CHUNK_BUCKETS, bucket_size, device=x.device)
+    lvl = codec.encode_levels(xb, unit, bmin, bits, encode, rand)
     return codec.pack_levels_bucketed(lvl, bits, pack), torch.stack([unit, bmin], dim=1)
 
 
 def quantize_chunks(
     x: torch.Tensor, bits: int, bucket_size: int,
-    encode: Optional[str] = None, pack: Optional[str] = None,
+    encode: Optional[str] = None, pack: Optional[str] = None, seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize a flat buffer of whole chunks: ``x`` f32 ``(C*32*B,)`` ->
     ``(words int32 (C*bits*B,), meta f32 (C*32, 2))``, in the ``encode`` and
-    ``pack`` lowerings (:func:`_lowering`)."""
+    ``pack`` lowerings (:func:`_lowering`); with ``seed``, rounding
+    stochastically (chunk indices 0 .. C-1 of ``utils/prng.py``'s layout)."""
     encode, pack = _lowering(encode, pack)
+    _check_seed(seed)
     chunks = _chunk_geometry(x.numel(), bits, bucket_size)
     if _device_kind(x) == "cpu":
-        return quantize_chunks_plain(x, bits, bucket_size, encode, pack)
+        return quantize_chunks_plain(x, bits, bucket_size, encode, pack, seed)
     _require_cuda_operand("quantize x", x, torch.float32, x.numel())
-    return _launch_quantize(x, bits, bucket_size, encode, pack)
+    return _launch_quantize(x, bits, bucket_size, encode, pack, seed=seed)
 
 
 def _launch_quantize(
     x: torch.Tensor, bits: int, bucket_size: int, encode: str, pack: str,
-    g: Optional[ClusterGeometry] = None,
+    g: Optional[ClusterGeometry] = None, seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of B1 on a checked CUDA operand at geometry ``g`` (None:
-    :func:`cluster_geometry`'s on the operand's card)."""
+    :func:`cluster_geometry`'s on the operand's card), stochastic with
+    ``seed``."""
     lib = _lib()
     chunks = x.numel() // (CHUNK_BUCKETS * bucket_size)
     g = g or _geometry(x, chunks, bucket_size, bits)
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
     meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
-    err = lib.cgx_quantize(
-        x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, bucket_size,
-        bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack),
-        g.k, g.threads, _stream(x),
-    )
+    args = (x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, bucket_size,
+            bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack),
+            g.k, g.threads)
+    err = lib.cgx_quantize(*args, *_seed_args(seed), _stream(x))
     LAUNCHES["codec_quantize"] += 1
     _check_launch("codec_quantize", err)
     return words, meta
@@ -582,6 +612,7 @@ def sra_epilogue_chunks_plain(
     cast_dtype: torch.dtype = torch.float32,
     encode: Optional[str] = None,
     pack: Optional[str] = None,
+    seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`sra_epilogue_chunks`. ``cast_dtype`` rounds
     the reduced chunk through the wire dtype before the requantize, as the
@@ -589,7 +620,7 @@ def sra_epilogue_chunks_plain(
     acc = reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size)
     if cast_dtype != torch.float32:
         acc = acc.to(cast_dtype).to(torch.float32)
-    return quantize_chunks_plain(acc, bits, bucket_size, encode, pack)
+    return quantize_chunks_plain(acc, bits, bucket_size, encode, pack, seed)
 
 
 def sra_epilogue_chunks(
@@ -602,6 +633,7 @@ def sra_epilogue_chunks(
     cast_dtype: torch.dtype = torch.float32,
     encode: Optional[str] = None,
     pack: Optional[str] = None,
+    seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused dequantize-accumulate-requantize: ``words`` int32 ``(ws,
     C*bits*B)`` and ``meta`` f32 ``(ws, C*32, 2)`` of the ws peer rows, the
@@ -610,16 +642,18 @@ def sra_epilogue_chunks(
     meta (C*32, 2))`` of the reduced chunk. Rows fold in ascending order.
     ``cast_dtype``: the wire dtype the reduced chunk rounds through before
     the requantize (float32 only in the kernel); ``encode`` and ``pack``:
-    the requantize's lowerings (:func:`_lowering`)."""
+    the requantize's lowerings (:func:`_lowering`); ``seed``: a stochastic
+    requantize, the output row's chunk indices 0 .. C-1."""
     _refuse_unported_fold()
     encode, pack = _lowering(encode, pack)
+    _check_seed(seed)
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
     _check_own(raw, own, ws)
     if _device_kind(words, meta, raw) == "cpu":
         return sra_epilogue_chunks_plain(
-            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack
+            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack, seed
         )
     if cast_dtype != torch.float32:
         raise NotImplementedError(
@@ -629,27 +663,28 @@ def sra_epilogue_chunks(
     _require_cuda_operand("epilogue meta", meta, torch.float32, ws * 2 * n // bucket_size)
     if raw is not None:
         _require_cuda_operand("epilogue raw", raw, torch.float32, n)
-    return _launch_epilogue(words, meta, raw, own, bits, bucket_size, encode, pack)
+    return _launch_epilogue(words, meta, raw, own, bits, bucket_size, encode, pack, seed=seed)
 
 
 def _launch_epilogue(
     words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
     bucket_size: int, encode: str, pack: str, g: Optional[ClusterGeometry] = None,
+    seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of B3 on checked CUDA operands at geometry ``g`` (None:
-    :func:`cluster_geometry`'s on the operands' card)."""
+    :func:`cluster_geometry`'s on the operands' card), stochastic with
+    ``seed``."""
     lib = _lib()
     ws = words.shape[0]
     chunks = meta.shape[1] // CHUNK_BUCKETS
     g = g or _geometry(words, chunks, bucket_size, bits)
     out_words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=words.device)
     out_meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=words.device)
-    err = lib.cgx_sra_epilogue(
-        words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
-        own, ws, chunks, bucket_size, bits, codec.unit_scale(bits),
-        ENCODES.index(encode), PACKS.index(pack), g.k, g.threads,
-        out_words.data_ptr(), out_meta.data_ptr(), _stream(words),
-    )
+    args = (words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
+            own, ws, chunks, bucket_size, bits, codec.unit_scale(bits),
+            ENCODES.index(encode), PACKS.index(pack), g.k, g.threads)
+    outs = (out_words.data_ptr(), out_meta.data_ptr(), _stream(words))
+    err = lib.cgx_sra_epilogue(*args, *_seed_args(seed), *outs)
     LAUNCHES["codec_sra_epilogue"] += 1
     _check_launch("codec_sra_epilogue", err)
     return out_words, out_meta
@@ -1035,36 +1070,38 @@ sra_epilogue_chunks_db_plain = sra_epilogue_chunks_plain
 
 def quantize_chunks_db(
     x: torch.Tensor, bits: int, bucket_size: int, tc: int,
-    encode: Optional[str] = None, pack: Optional[str] = None,
+    encode: Optional[str] = None, pack: Optional[str] = None, seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`quantize_chunks` through the pipelined kernel (B7a), the
     clusters sharing out tiles of ``tc`` chunks."""
     encode, pack = _lowering(encode, pack)
+    _check_seed(seed)
     chunks = _chunk_geometry(x.numel(), bits, bucket_size)
     if _device_kind(x) == "cpu":
-        return quantize_chunks_db_plain(x, bits, bucket_size, encode, pack)
+        return quantize_chunks_db_plain(x, bits, bucket_size, encode, pack, seed)
     _require_cuda_operand("quantize_db x", x, torch.float32, x.numel())
     _require_aligned("quantize_db x", x)
     _db_tile("quantize", chunks, tc, bits, bucket_size)
-    return _launch_quantize_db(x, bits, bucket_size, tc, encode, pack)
+    return _launch_quantize_db(x, bits, bucket_size, tc, encode, pack, seed=seed)
 
 
 def _launch_quantize_db(
     x: torch.Tensor, bits: int, bucket_size: int, tc: int, encode: str, pack: str,
     g: Optional[ClusterGeometry] = None, slots: Optional[int] = None,
+    seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of B7a on a checked CUDA operand at geometry ``g`` with a
-    ring of ``slots`` (None: :func:`db_ring`'s on the operand's card)."""
+    ring of ``slots`` (None: :func:`db_ring`'s on the operand's card),
+    stochastic with ``seed``."""
     chunks = x.numel() // (CHUNK_BUCKETS * bucket_size)
     ring = db_ring("quantize", chunks, bits, bucket_size, _sm_count(x.device.index))
     g = g or ring.geometry
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
     meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
-    err = _lib().cgx_quantize_db(
-        x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, tc, bucket_size,
-        bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack),
-        g.k, g.threads, slots or DB_SLOTS["quantize"][g.positions > 1], _stream(x),
-    )
+    args = (x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, tc, bucket_size,
+            bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack),
+            g.k, g.threads, slots or DB_SLOTS["quantize"][g.positions > 1])
+    err = _lib().cgx_quantize_db(*args, *_seed_args(seed), _stream(x))
     LAUNCHES["codec_quantize_db"] += 1
     _check_launch("codec_quantize_db", err)
     return words, meta
@@ -1113,19 +1150,21 @@ def sra_epilogue_chunks_db(
     cast_dtype: torch.dtype = torch.float32,
     encode: Optional[str] = None,
     pack: Optional[str] = None,
+    seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`sra_epilogue_chunks` through the pipelined kernel (B7c): each
     CTA's ring streams its share of one peer row at a time, rows ascending,
     the clusters sharing out tiles of ``tc`` chunks."""
     _refuse_unported_fold()
     encode, pack = _lowering(encode, pack)
+    _check_seed(seed)
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
     _check_own(raw, own, ws)
     if _device_kind(words, meta, raw) == "cpu":
         return sra_epilogue_chunks_db_plain(
-            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack
+            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack, seed
         )
     if cast_dtype != torch.float32:
         raise NotImplementedError(
@@ -1138,29 +1177,31 @@ def sra_epilogue_chunks_db(
     for name, t in (("words", words), ("meta", meta), ("raw", raw)):
         _require_aligned(f"epilogue_db {name}", t)
     _db_tile("epilogue", chunks, tc, bits, bucket_size)
-    return _launch_epilogue_db(words, meta, raw, own, bits, bucket_size, tc, encode, pack)
+    return _launch_epilogue_db(words, meta, raw, own, bits, bucket_size, tc, encode, pack,
+                               seed=seed)
 
 
 def _launch_epilogue_db(
     words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
     bucket_size: int, tc: int, encode: str, pack: str,
     g: Optional[ClusterGeometry] = None, slots: Optional[int] = None,
+    seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of B7c on checked CUDA operands at geometry ``g`` with a
-    ring of ``slots`` (None: :func:`db_ring`'s on the operands' card)."""
+    ring of ``slots`` (None: :func:`db_ring`'s on the operands' card),
+    stochastic with ``seed``."""
     ws = words.shape[0]
     chunks = meta.shape[1] // CHUNK_BUCKETS
     ring = db_ring("epilogue", chunks, bits, bucket_size, _sm_count(words.device.index))
     g = g or ring.geometry
     out_words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=words.device)
     out_meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=words.device)
-    err = _lib().cgx_sra_epilogue_db(
-        words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
-        own, ws, chunks, tc, bucket_size, bits, codec.unit_scale(bits),
-        ENCODES.index(encode), PACKS.index(pack), g.k, g.threads,
-        slots or DB_SLOTS["epilogue"][g.positions > 1],
-        out_words.data_ptr(), out_meta.data_ptr(), _stream(words),
-    )
+    args = (words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
+            own, ws, chunks, tc, bucket_size, bits, codec.unit_scale(bits),
+            ENCODES.index(encode), PACKS.index(pack), g.k, g.threads,
+            slots or DB_SLOTS["epilogue"][g.positions > 1])
+    outs = (out_words.data_ptr(), out_meta.data_ptr(), _stream(words))
+    err = _lib().cgx_sra_epilogue_db(*args, *_seed_args(seed), *outs)
     LAUNCHES["codec_sra_epilogue_db"] += 1
     _check_launch("codec_sra_epilogue_db", err)
     return out_words, out_meta
@@ -1247,12 +1288,14 @@ def _flat(c_r: int, t_r: int, bucket_size: int) -> bool:
     return c_r > 0 and t_r == 0 and bucket_size % 128 == 0
 
 
-def db_would_run(kernel: str, q: QTensor, *, with_add: bool = False) -> bool:
+def db_would_run(kernel: str, q: QTensor, *, with_add: bool = False,
+                 stochastic: bool = False) -> bool:
     """Whether the batch function of ``kernel`` ("quantize", "dequantize"
     or "epilogue") takes the pipelined kernel for a payload of ``q``'s
     layout (rows, length, bits, bucket; ``with_add``: a dequantize whose
-    accumulator fuses). Consults the autotune cache as the batch function
-    does; the caller checks the dispatcher's own gates."""
+    accumulator fuses; ``stochastic``: an epilogue with a seed, which makes
+    no lookup). Consults the autotune cache as the batch function does; the
+    caller checks the dispatcher's own gates."""
     b = q.bucket_size
     c_r, t_r = divmod(codec.num_buckets(q.numel_main, b), CHUNK_BUCKETS)
     if kernel == "epilogue":
@@ -1263,7 +1306,8 @@ def db_would_run(kernel: str, q: QTensor, *, with_add: bool = False) -> bool:
         return False
     # The accumulator fuses only into rows of whole buckets (dequantize_batch).
     with_add = with_add and not q.residual.shape[-1] and q.numel_main == c_r * CHUNK_BUCKETS * b
-    tuned = autotune.lookup(kind, n_chunks=n_chunks, bucket_size=b, bits=q.bits, ws=ws)
+    tuned = None if stochastic and kernel == "epilogue" else autotune.lookup(
+        kind, n_chunks=n_chunks, bucket_size=b, bits=q.bits, ws=ws)
     return _db_route(kernel, n_chunks, q.bits, b, tuned, with_add=with_add) is not None
 
 
@@ -1330,13 +1374,18 @@ def quantize_batch(
     bucket_size: int,
     *,
     skip_incomplete_buckets: bool = False,
+    seed: Optional[int] = None,
 ) -> QTensor:
     """Quantize each row of ``xs (rows, m)``: the kernel covers each row's
     whole chunks, the dense tail of the last ``nb % 32`` buckets goes
     through ``ops/codec.py``. Same QTensor layout as the JAX package's
     ``codec_pallas.quantize_batch``. The flat geometry (every row whole
     chunks, buckets a multiple of 128) consults the autotune cache as kind
-    "flat" and may take the pipelined kernel; the rest as kind "chunks"."""
+    "flat" and may take the pipelined kernel; the rest as kind "chunks".
+    ``seed``: stochastic rounding, the offsets of
+    ``codec.rounding_offsets`` (the kernel's chunk indices row-major over
+    the rows, the tail's from its own stream)."""
+    _check_seed(seed)
     rows, m = xs.shape
     dtype = xs.dtype
     b = bucket_size
@@ -1360,16 +1409,19 @@ def quantize_batch(
             cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
         pack = _pack_strategy(tuned)
         if tc is None:
-            words, meta = quantize_chunks(head, bits, b, pack=pack)
+            words, meta = quantize_chunks(head, bits, b, pack=pack, seed=seed)
         else:
-            words, meta = quantize_chunks_db(_aligned(head), bits, b, tc, pack=pack)
+            words, meta = quantize_chunks_db(_aligned(head), bits, b, tc, pack=pack, seed=seed)
         word_parts.append(words.view(rows, c_r * bits * b))
         meta_parts.append(meta.view(rows, c_r * CHUNK_BUCKETS, 2))
     if t_r:
         # The dense tail keeps the div encode (codec_pallas.py:955-972).
         tail = x[:, c_r * CHUNK_BUCKETS * b :].reshape(rows * t_r, b)
         unit, bmin = codec.compute_meta(tail, bits)
-        lvl = codec.encode_levels(tail, unit, bmin, bits).view(rows, t_r * b)
+        rand = None
+        if seed is not None:
+            rand = codec.rounding_offsets(seed, rows, t_r, b, x.device).reshape(rows * t_r, b)
+        lvl = codec.encode_levels(tail, unit, bmin, bits, rand=rand).view(rows, t_r * b)
         word_parts.append(torch.stack([codec.pack_levels(r, bits) for r in lvl]))
         meta_parts.append(torch.stack([unit, bmin], dim=1).view(rows, t_r, 2))
     words = word_parts[0] if len(word_parts) == 1 else torch.cat(word_parts, dim=1)
@@ -1456,25 +1508,21 @@ def sra_epilogue_batch(
     raw_row: Optional[torch.Tensor] = None,
     own_idx: Optional[int] = None,
     out_dtype: torch.dtype = torch.float32,
-    stochastic: bool = False,
+    seed: Optional[int] = None,
 ) -> QTensor:
     """Fused dequantize-accumulate-requantize of a ws-row QTensor -> a
     rows=1 QTensor holding the stage-2 (all-gather) payload of the reduced
-    chunk, the layout ``quantize_batch(reduced[None])`` would give. The
-    caller checks :func:`supports_reduce`. Consults the autotune cache as
-    kind "epilogue" and may take the pipelined kernel. A stochastic
-    requantize would keep the heuristic tile (no lookup), as the JAX
-    package does; it is not ported and raises."""
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic rounding is not ported into the epilogue kernels; "
-            "unset CGX_STOCHASTIC_ROUNDING"
-        )
+    chunk, the layout ``quantize_batch(reduced[None], seed=seed)`` would
+    give. The caller checks :func:`supports_reduce`. Consults the autotune
+    cache as kind "epilogue" and may take the pipelined kernel. A
+    stochastic requantize (``seed``) keeps the heuristic tile and pack and
+    makes no lookup, as the JAX package does."""
+    _check_seed(seed)
     own = -1 if own_idx is None else int(own_idx)
     raw = None if raw_row is None else _as_f32(raw_row).reshape(-1).contiguous()
     nb_r = codec.num_buckets(q.numel_main, q.bucket_size)
     c_r = nb_r // CHUNK_BUCKETS
-    tuned = autotune.lookup(
+    tuned = None if seed is not None else autotune.lookup(
         autotune.KIND_EPILOGUE, n_chunks=c_r, bucket_size=q.bucket_size, bits=q.bits,
         ws=q.batch_rows,
     )
@@ -1484,11 +1532,12 @@ def sra_epilogue_batch(
     if tc is None:
         words, meta = sra_epilogue_chunks(
             words, meta, raw, own, q.bits, q.bucket_size, cast_dtype=out_dtype, pack=pack,
+            seed=seed,
         )
     else:
         words, meta = sra_epilogue_chunks_db(
             _aligned(words), _aligned(meta), None if raw is None else _aligned(raw), own,
-            q.bits, q.bucket_size, tc, cast_dtype=out_dtype, pack=pack,
+            q.bits, q.bucket_size, tc, cast_dtype=out_dtype, pack=pack, seed=seed,
         )
     return QTensor(
         packed=words.view(1, -1),

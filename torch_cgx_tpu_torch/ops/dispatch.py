@@ -17,6 +17,10 @@ eligibility gate with no shared-memory limit.
 Inside the batch functions ``CGX_PALLAS_DB`` and the autotune cache pick
 the single-stage or the pipelined kernel (same bytes);
 :func:`db_would_run` tells which without running it.
+
+Rounding is stochastic where the config says so (``cc.stochastic``) and a
+key (``utils/prng.Key``) is given, as in the JAX package; otherwise to
+nearest. The fused and the staged epilogue give the same stochastic bytes.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from .. import config as cfg_mod
 from ..config import CompressionConfig
+from ..utils import prng
 from . import codec, codec_cuda
 from .codec import QTensor
 
@@ -51,24 +56,31 @@ def _row(q: QTensor, r: int) -> QTensor:
     )
 
 
-def quantize_batch(xs: torch.Tensor, cc: CompressionConfig) -> QTensor:
-    """Quantize each row of ``xs (rows, m)`` (deterministic rounding)."""
-    if cc.stochastic:
-        raise NotImplementedError(
-            "stochastic rounding is not ported (it needs a Philox stream in "
-            "the kernels); unset CGX_STOCHASTIC_ROUNDING"
-        )
+def _seed(cc: CompressionConfig, key: Optional[prng.Key]) -> Optional[int]:
+    """The kernels' seed: stochastic iff ``cc.stochastic`` and a key."""
+    return prng.seed_from_key(key) if cc.stochastic and key is not None else None
+
+
+def quantize_batch(
+    xs: torch.Tensor, cc: CompressionConfig, key: Optional[prng.Key] = None
+) -> QTensor:
+    """Quantize each row of ``xs (rows, m)``; stochastic iff
+    ``cc.stochastic`` and a key is given. Rows the chunk kernels do not
+    cover round with ``fold_in(key, row)``, as the JAX package's XLA path
+    does."""
+    seed = _seed(cc, key)
     if codec_cuda.supports(xs.shape[1], cc.bits, cc.bucket_size, cc.skip_incomplete_buckets):
         return codec_cuda.quantize_batch(
             xs, cc.bits, cc.bucket_size,
-            skip_incomplete_buckets=cc.skip_incomplete_buckets,
+            skip_incomplete_buckets=cc.skip_incomplete_buckets, seed=seed,
         )
     return _stack_rows([
         codec.quantize(
             r, cc.bits, cc.bucket_size,
             skip_incomplete_buckets=cc.skip_incomplete_buckets,
+            key=None if seed is None else prng.fold_in(key, i),
         )
-        for r in xs
+        for i, r in enumerate(xs)
     ])
 
 
@@ -110,12 +122,14 @@ def fused_epilogue_would_run(q: QTensor) -> bool:
     return _use_fused_reduce(q)
 
 
-def db_would_run(q: QTensor, kernel: str, *, with_add: bool = False) -> bool:
+def db_would_run(q: QTensor, kernel: str, *, with_add: bool = False,
+                 stochastic: bool = False) -> bool:
     """True when the dispatcher sends a payload of ``q``'s layout to the
     pipelined kernel of ``kernel``: "quantize" (:func:`quantize_batch` of
     rows of that length), "dequantize" (:func:`dequantize_batch`;
     ``with_add``: with an accumulator that fuses) or "epilogue"
-    (:func:`reduce_rows_requantize`). On the card that is a launch of
+    (:func:`reduce_rows_requantize`; ``stochastic``: with a key, which
+    makes no autotune lookup). On the card that is a launch of
     ``codec_<kernel>_db`` in place of the single-stage kernel; the launch
     model of ``chip_smoke.py`` and the CPU tests read the routing here."""
     if kernel == "epilogue":
@@ -124,7 +138,7 @@ def db_would_run(q: QTensor, kernel: str, *, with_add: bool = False) -> bool:
     elif not (q.bits and codec_cuda.supports(
             q.numel, q.bits, q.bucket_size, bool(q.residual.shape[-1]))):
         return False
-    return codec_cuda.db_would_run(kernel, q, with_add=with_add)
+    return codec_cuda.db_would_run(kernel, q, with_add=with_add, stochastic=stochastic)
 
 
 def fused_reduce_would_run(q: QTensor) -> bool:
@@ -186,18 +200,20 @@ def reduce_rows_requantize(
     raw_row: Optional[torch.Tensor] = None,
     own_idx: Optional[int] = None,
     out_dtype: torch.dtype = torch.float32,
+    key: Optional[prng.Key] = None,
 ) -> QTensor:
     """The SRA epilogue: :func:`reduce_rows` + requantize of the reduced
-    chunk into a rows=1 QTensor (the stage-2 payload). One fused kernel
-    where :func:`fused_epilogue_would_run`, the staged ops otherwise.
-    ``raw_row`` is the pre-sliced own chunk of a producer-staged caller,
-    in place of ``raw_rows[own_idx]``."""
+    chunk into a rows=1 QTensor (the stage-2 payload), stochastic iff
+    ``cc.stochastic`` and a key is given. One fused kernel where
+    :func:`fused_epilogue_would_run`, the staged ops otherwise; the same
+    bytes either way. ``raw_row`` is the pre-sliced own chunk of a
+    producer-staged caller, in place of ``raw_rows[own_idx]``."""
     if raw_rows is not None and raw_row is not None:
         raise ValueError("pass raw_rows or raw_row, not both")
     if _use_fused_reduce(q):
         return codec_cuda.sra_epilogue_batch(
             q, raw_row=raw_rows[own_idx] if raw_rows is not None else raw_row,
-            own_idx=own_idx, out_dtype=out_dtype, stochastic=cc.stochastic,
+            own_idx=own_idx, out_dtype=out_dtype, seed=_seed(cc, key),
         )
     reduced = reduce_rows(q, raw_rows=raw_rows, raw_row=raw_row, own_idx=own_idx)
-    return quantize_batch(reduced.to(out_dtype)[None], cc)
+    return quantize_batch(reduced.to(out_dtype)[None], cc, key)

@@ -23,13 +23,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 
 from .. import config as cfg_mod
 from ..config import CompressionConfig
 from ..ops import fused_producer
+from ..utils import prng
 from ..utils.tree import sorted_items
 from . import group as group_mod
 from .group import ProcessGroup
@@ -121,6 +122,7 @@ def allreduce_flat(
     *,
     group: GroupLike = None,
     pre=None,
+    key: Optional[prng.Key] = None,
 ) -> torch.Tensor:
     """Allreduce one flat buffer, fusion slice by fusion slice: over a
     :class:`TwoLevelGroup` with the env's two-level scheme
@@ -131,7 +133,8 @@ def allreduce_flat(
     applies) holds for this buffer, else ignored and the fallback counted.
     Under ``CGX_COMPRESSION_FAKE_RATIO`` a compressed buffer reduces only its
     leading ``ceil(ratio * n)`` values; the tail comes back un-reduced, as
-    in the JAX package."""
+    in the JAX package. ``key``: stochastic rounding where ``cc.stochastic``,
+    the slice at offset ``off`` with ``fold_in(key, off)``."""
     if pre is not None:
         reason = fused_producer.consume_reason(
             pre.key, cc=cc, ws=flat_world(group)[1], divisor=pre.divisor, n=flat.shape[0],
@@ -149,15 +152,20 @@ def allreduce_flat(
         m = max(1, math.ceil(ratio * flat.shape[0]))
         flat, tail = flat[:m], flat[m:]
     slices = _fusion_slices(flat.shape[0], flat.element_size())
+
+    def slice_key(off: int) -> Optional[prng.Key]:
+        return None if key is None else prng.fold_in(key, off)
+
     if isinstance(group, TwoLevelGroup):
         topo = cfg_mod.topology_from_env()
         pieces = [
-            hierarchical_allreduce(flat[off : off + ln], group, cc, topo) for off, ln in slices
+            hierarchical_allreduce(flat[off : off + ln], group, cc, topo, key=slice_key(off))
+            for off, ln in slices
         ]
     else:
         ws, red = group_mod.world_size(group), cfg_mod.intra_reduction()
         pieces = [
-            quantized_allreduce(flat[off : off + ln], group, ws, cc, red, pre)
+            quantized_allreduce(flat[off : off + ln], group, ws, cc, red, pre, key=slice_key(off))
             for off, ln in slices
         ]
     if tail is not None:
@@ -171,8 +179,11 @@ def allreduce_tree(
     group: GroupLike = None,
     average: bool = False,
     compress_small: bool = False,
+    key: Optional[prng.Key] = None,
 ) -> Dict[str, torch.Tensor]:
     """Quantized allreduce of named gradients -> a dict with the same keys.
+    ``key``: stochastic rounding where a group's config says so, group
+    ``gi`` (in :func:`_group_leaves` order) with ``fold_in(key, gi)``.
 
     ``average=True`` divides by the world size before quantization, the
     reference hook's order. Uncompressed groups sum exactly over the whole
@@ -211,7 +222,7 @@ def allreduce_tree(
     ):
         fp = fused_producer
     out: Dict[str, torch.Tensor] = {}
-    for g in _group_leaves(paths_leaves, compress_small):
+    for gi, g in enumerate(_group_leaves(paths_leaves, compress_small)):
         pre = None
         path, leaf = paths_leaves[g.indices[0]]
         if len(g.indices) == 1 and (path in skipped or (fp is not None and g.cc.enabled)):
@@ -243,7 +254,10 @@ def allreduce_tree(
             else members[0].reshape(-1)
         )
         if g.cc.enabled:
-            reduced = allreduce_flat(fused, g.cc, group=group, pre=pre)
+            reduced = allreduce_flat(
+                fused, g.cc, group=group, pre=pre,
+                key=None if key is None else prng.fold_in(key, gi),
+            )
             if pre is not None and pre.consumed:
                 fused_producer.claim(pre.name)
         elif ws > 1:

@@ -23,8 +23,14 @@ the collective runs over.
   scheme reduce-scatters inside the node, cross-reduces each rank's chunk
   and all-gathers inside the node again.
 
-Deterministic rounding only: stochastic rounding is refused at the
-quantize (ROADMAP).
+Stochastic rounding (``cc.stochastic`` and a ``key``) decorrelates its
+streams per rank and per phase where the JAX package folds its key: SRA
+``fold_in(fold_in(key, 1 or 2), rank)`` for stages 1 and 2
+(:func:`_phase_key`), the Ring ``fold_in(fold_in(key, hop), rank)`` at
+each scatter hop and ``fold_in(fold_in(key, ws), rank)`` for the
+all-gather quantize, the all-to-all ``fold_in(key, rank)``, the two levels
+``fold_in(key, 3)`` intra and ``fold_in(key, 5)`` cross. Every rank
+decodes the same bytes, so the replicas stay identical.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from .. import config as cfg_mod
 from ..config import CompressionConfig
 from ..ops import codec, dispatch
 from ..ops.codec import QTensor
+from ..utils import prng
 from ..utils.tree import round_up
 from . import group as group_mod
 from .group import ProcessGroup
@@ -61,8 +68,16 @@ def _pad_rows(x: torch.Tensor, ws: int, chunk: int) -> torch.Tensor:
     return x.reshape(ws, chunk)
 
 
-def _quantize_1d(x: torch.Tensor, cc: CompressionConfig) -> QTensor:
-    return dispatch.quantize_batch(x[None], cc)
+def _quantize_1d(x: torch.Tensor, cc: CompressionConfig, key=None) -> QTensor:
+    return dispatch.quantize_batch(x[None], cc, key)
+
+
+def _phase_key(key: Optional[prng.Key], salt: int, rank: int) -> Optional[prng.Key]:
+    """The stream of one phase on one rank: ``fold_in(fold_in(key, salt),
+    rank)`` (salts 1 and 2: SRA stages 1 and 2)."""
+    if key is None:
+        return None
+    return prng.fold_in(prng.fold_in(key, salt), rank)
 
 
 def _dequantize_rows(q: QTensor) -> torch.Tensor:
@@ -82,10 +97,11 @@ def _map_q(q: QTensor, fn) -> QTensor:
     )
 
 
-def _sra_exchange(x, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None):
+def _sra_exchange(x, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None, key=None):
     """Stage 1: ``(q, q_recv, xs, own_idx)`` — the sent ``(ws, chunk)``
-    payload, the received one (row j = this rank's chunk as peer j
-    quantized it), the raw padded rows and this rank's position.
+    payload (quantized with the phase-1 key), the received one (row j =
+    this rank's chunk as peer j quantized it), the raw padded rows and this
+    rank's position.
 
     ``pre``: a producer-staged stage-1 payload
     (``ops.fused_producer.Produced``: ``pre.q`` the quantized ``(ws,
@@ -97,14 +113,15 @@ def _sra_exchange(x, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=No
         xs = None
     else:
         xs = _pad_rows(x, ws, _chunk_size(x.shape[0], ws))
-        q = dispatch.quantize_batch(xs, cc)
+        q = dispatch.quantize_batch(xs, cc, _phase_key(key, 1, group_mod.rank(group)))
     q_recv = _map_q(q, lambda t: group_mod.all_to_all_rows(t, group))
     return q, q_recv, xs, group_mod.rank(group)
 
 
-def _sra_epilogue_q(q_recv, xs, own_idx, cc, out_dtype, raw_row=None) -> QTensor:
+def _sra_epilogue_q(q_recv, xs, own_idx, cc, out_dtype, raw_row=None, key=None) -> QTensor:
     return dispatch.reduce_rows_requantize(
-        q_recv, cc, raw_rows=xs, raw_row=raw_row, own_idx=own_idx, out_dtype=out_dtype
+        q_recv, cc, raw_rows=xs, raw_row=raw_row, own_idx=own_idx, out_dtype=out_dtype,
+        key=_phase_key(key, 2, own_idx) if cc.stochastic else None,
     )
 
 
@@ -114,13 +131,13 @@ def _sra_gather_decode(q_own: QTensor, group: ProcessGroup, ws: int, n: int, dty
 
 
 def reduce_scatter_quantized(
-    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, key=None
 ) -> torch.Tensor:
     """SRA round 1: quantize the peers' chunks, exchange them and
     decode-accumulate into the RAW own chunk (``dispatch.reduce_rows``), so
     only the ws-1 peer contributions carry quantization error. Returns this
     rank's reduced chunk, f32 ``(chunk_layout(n, ws)[0],)``."""
-    _, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc)
+    _, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc, key=key)
     return dispatch.reduce_rows(q_recv, raw_rows=xs, own_idx=own_idx)
 
 
@@ -131,32 +148,34 @@ def allgather_quantized(
     cc: CompressionConfig,
     n: int,
     out_dtype: torch.dtype,
+    key=None,
 ) -> torch.Tensor:
-    """SRA round 2: requantize the owned chunk, all-gather and decode every
-    row, one's own included (error symmetry)."""
-    q_own = _quantize_1d(chunk_f32.to(out_dtype), cc)
+    """SRA round 2: requantize the owned chunk (phase-2 key), all-gather
+    and decode every row, one's own included (error symmetry)."""
+    key = _phase_key(key, 2, group_mod.rank(group)) if cc.stochastic else None
+    q_own = _quantize_1d(chunk_f32.to(out_dtype), cc, key)
     return _sra_gather_decode(q_own, group, ws, n, out_dtype)
 
 
 def sra_allreduce(
-    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None, key=None
 ) -> torch.Tensor:
     """Quantized Scatter-Reduce-AllGather allreduce of a flat buffer.
     ``pre``: a producer-staged stage-1 payload (see :func:`_sra_exchange`);
     ``x`` then gives only its length and dtype."""
-    return sra_wire_frames(x, group, ws, cc, pre)[0]
+    return sra_wire_frames(x, group, ws, cc, pre, key)[0]
 
 
 def sra_wire_frames(
-    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None, key=None
 ) -> Tuple[torch.Tensor, QTensor, QTensor]:
     """:func:`sra_allreduce` with both wire payloads: ``(out, q_sent,
     q_own)`` — the reduced buffer, the stage-1 ``(ws, chunk)`` QTensor this
     rank sent and the stage-2 requantized chunk it all-gathered."""
     n = x.shape[0]
-    q, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc, pre)
+    q, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc, pre, key)
     q_own = _sra_epilogue_q(
-        q_recv, xs, own_idx, cc, x.dtype, raw_row=None if pre is None else pre.raw_row
+        q_recv, xs, own_idx, cc, x.dtype, raw_row=None if pre is None else pre.raw_row, key=key
     )
     return _sra_gather_decode(q_own, group, ws, n, x.dtype), q, q_own
 
@@ -166,7 +185,7 @@ def _shift_right(q: QTensor, group: ProcessGroup) -> QTensor:
 
 
 def ring_allreduce(
-    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, key=None
 ) -> torch.Tensor:
     """Quantized ring allreduce: 2*(ws-1) hops to the right neighbour.
     Scatter-reduce: rank r sends segment (r - step) % ws, requantized every
@@ -180,13 +199,16 @@ def ring_allreduce(
     seg = _chunk_size(n, ws)
     me = group_mod.rank(group)
     acc = _pad_rows(x.to(torch.float32), ws, seg).clone()
+    use_key = key is not None and cc.stochastic
     for step in range(ws - 1):
-        q = _quantize_1d(acc[(me - step) % ws].to(dtype), cc)
+        k = prng.fold_in(prng.fold_in(key, step), me) if use_key else None
+        q = _quantize_1d(acc[(me - step) % ws].to(dtype), cc, k)
         q_in = _shift_right(q, group)
         recv_idx = (me - step - 1) % ws
         acc[recv_idx] = dispatch.reduce_rows(q_in, add_to=acc[recv_idx])
     own_idx = (me + 1) % ws
-    cur = _quantize_1d(acc[own_idx].to(dtype), cc)
+    k = prng.fold_in(prng.fold_in(key, ws), me) if use_key else None
+    cur = _quantize_1d(acc[own_idx].to(dtype), cc, k)
     out = torch.empty((ws, seg), dtype=torch.float32, device=x.device)
     out[own_idx] = _dequantize_1d(cur)
     for step in range(ws - 1):
@@ -196,24 +218,29 @@ def ring_allreduce(
 
 
 def alltoall_allreduce(
-    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, key=None
 ) -> torch.Tensor:
     """Quantize once, all-gather every rank's payload, decode and fold the
     rows in rank order. O(ws * n) traffic: the debug path."""
-    q = _quantize_1d(x, cc)
+    k = None
+    if key is not None and cc.stochastic:
+        k = prng.fold_in(key, group_mod.rank(group))
+    q = _quantize_1d(x, cc, k)
     gathered = _map_q(q, lambda t: group_mod.all_gather_rows(t, ws, group))
     return dispatch.reduce_rows(gathered).to(x.dtype)
 
 
-def _force_codec_proxy(x: torch.Tensor, cc: CompressionConfig) -> torch.Tensor:
+def _force_codec_proxy(x: torch.Tensor, cc: CompressionConfig, key=None) -> torch.Tensor:
     """CGX_DEBUG_FORCE_CODEC at world size 1: the per-rank kernel sequence
     of a real SRA step, so one card measures codec cost in a train step.
-    Fused era: quantize -> fused epilogue (rows=1) -> decode; the value is
-    decode(requant(decode)). Staged era: one quantize and two decodes, one
-    through the accumulate path, averaged so both stay live."""
-    q = _quantize_1d(x, cc)
+    Fused era: quantize -> fused epilogue (rows=1, the phase-2 key) ->
+    decode; the value is decode(requant(decode)). Staged era: one quantize
+    and two decodes, one through the accumulate path, averaged so both stay
+    live."""
+    q = _quantize_1d(x, cc, key)
     if dispatch.fused_epilogue_would_run(q):
-        q2 = dispatch.reduce_rows_requantize(q, cc, out_dtype=x.dtype)
+        k2 = _phase_key(key, 2, 0) if cc.stochastic else None
+        q2 = dispatch.reduce_rows_requantize(q, cc, out_dtype=x.dtype, key=k2)
         return _dequantize_1d(q2).to(x.dtype)
     dec_assign = _dequantize_1d(q)
     dec_acc = _dequantize_1d(q, add_to=x) - x.to(torch.float32)
@@ -227,10 +254,11 @@ def quantized_allreduce(
     cc: CompressionConfig,
     reduction: str = cfg_mod.REDUCTION_SRA,
     pre=None,
+    key: Optional[prng.Key] = None,
 ) -> torch.Tensor:
     """Allreduce (sum) of a flat buffer, dispatched on the reduction type.
     ``pre`` (a producer-staged stage-1 payload) is for the multi-rank SRA
-    only."""
+    only; ``key`` rounds stochastically where ``cc.stochastic``."""
     if pre is not None and (
         reduction != cfg_mod.REDUCTION_SRA
         or ws == 1
@@ -243,7 +271,7 @@ def quantized_allreduce(
         )
     if ws == 1:
         if cc.enabled and cfg_mod.force_codec():
-            return _force_codec_proxy(x, cc)
+            return _force_codec_proxy(x, cc, key)
         return x
     if cfg_mod.dummy_compression():
         # Pass-through codec: the raw f32 bits travel, to test the transport.
@@ -253,11 +281,11 @@ def quantized_allreduce(
     if not cc.enabled or reduction == cfg_mod.REDUCTION_PSUM:
         return group_mod.all_reduce_sum(x, group)
     if reduction == cfg_mod.REDUCTION_SRA:
-        return sra_allreduce(x, group, ws, cc, pre)
+        return sra_allreduce(x, group, ws, cc, pre, key)
     if reduction == cfg_mod.REDUCTION_RING:
-        return ring_allreduce(x, group, ws, cc)
+        return ring_allreduce(x, group, ws, cc, key)
     if reduction == cfg_mod.REDUCTION_ALLTOALL:
-        return alltoall_allreduce(x, group, ws, cc)
+        return alltoall_allreduce(x, group, ws, cc, key)
     raise ValueError(f"unknown reduction {reduction!r}")
 
 
@@ -266,6 +294,7 @@ def hierarchical_allreduce(
     groups: TwoLevelGroup,
     cc: CompressionConfig,
     topology: Optional[cfg_mod.TopologyConfig] = None,
+    key: Optional[prng.Key] = None,
 ) -> torch.Tensor:
     """Two-level allreduce over the ``(cross, intra)`` subgroups.
 
@@ -273,32 +302,37 @@ def hierarchical_allreduce(
     inside the node, each rank cross-reduces only its own chunk, quantized
     all-gather inside the node. Without it: a full intra allreduce, then a
     full cross allreduce. An uncompressed intra level runs a plain
-    reduce-scatter and all-gather. A level of size 1 is skipped."""
+    reduce-scatter and all-gather. A level of size 1 is skipped. The two
+    levels round with ``fold_in(key, 3)`` and ``fold_in(key, 5)``: a rank's
+    intra and cross ranks can coincide, so the phase salts alone would not
+    decorrelate them."""
     topo = topology or cfg_mod.topology_from_env()
     n = x.shape[0]
     wi, wc = groups.intra_size, groups.cross_size
     intra_cc = cc if topo.intra_compress else CompressionConfig(bits=32)
     cross_cc = cc if topo.cross_compress else CompressionConfig(bits=32)
+    ki = prng.fold_in(key, 3) if key is not None else None
+    kc = prng.fold_in(key, 5) if key is not None else None
     if wi == 1 and wc == 1:
         return x
     if wi == 1:
-        return quantized_allreduce(x, groups.cross, wc, cross_cc, topo.cross_reduction)
+        return quantized_allreduce(x, groups.cross, wc, cross_cc, topo.cross_reduction, key=kc)
     if wc == 1:
-        return quantized_allreduce(x, groups.intra, wi, intra_cc, topo.intra_reduction)
+        return quantized_allreduce(x, groups.intra, wi, intra_cc, topo.intra_reduction, key=ki)
     if not topo.intra_broadcast:
-        y = quantized_allreduce(x, groups.intra, wi, intra_cc, topo.intra_reduction)
-        return quantized_allreduce(y, groups.cross, wc, cross_cc, topo.cross_reduction)
+        y = quantized_allreduce(x, groups.intra, wi, intra_cc, topo.intra_reduction, key=ki)
+        return quantized_allreduce(y, groups.cross, wc, cross_cc, topo.cross_reduction, key=kc)
 
     compressed = intra_cc.enabled and not cfg_mod.dummy_compression()
     if compressed:
-        chunk = reduce_scatter_quantized(x, groups.intra, wi, intra_cc)
+        chunk = reduce_scatter_quantized(x, groups.intra, wi, intra_cc, ki)
     else:
         xp = _pad_rows(x.to(torch.float32), wi, _chunk_size(n, wi)).reshape(-1)
         chunk = group_mod.reduce_scatter_sum(xp, wi, groups.intra)
     chunk = quantized_allreduce(
-        chunk.to(x.dtype), groups.cross, wc, cross_cc, topo.cross_reduction
+        chunk.to(x.dtype), groups.cross, wc, cross_cc, topo.cross_reduction, key=kc
     ).to(torch.float32)
     if compressed:
-        return allgather_quantized(chunk, groups.intra, wi, intra_cc, n, x.dtype)
+        return allgather_quantized(chunk, groups.intra, wi, intra_cc, n, x.dtype, ki)
     full = group_mod.all_gather_rows(chunk[None], wi, groups.intra).reshape(-1)
     return full[:n].to(x.dtype)

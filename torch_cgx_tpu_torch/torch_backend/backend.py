@@ -36,10 +36,17 @@ and more gives ranks 2 and up other bits than ranks 0 and 1 (ROADMAP C12);
 the port folds ascending everywhere, so its replicas stay identical and
 equal the JAX result on ranks 0 and 1.
 
+Under ``CGX_STOCHASTIC_ROUNDING`` each frame rounds stochastically with a
+key of its own, ``prng.key(seed)`` for one ``int(rng.integers(2**31 -
+1))`` of the rank's generator ``np.random.default_rng((CGX_SEED << 16) ^
+(rank + 1))``, as the JAX backend draws its frame seeds; the two-level
+scheme's stage 3, which every leader requantizes from the same values,
+draws from a generator common to the leaders, seeded from the collective's
+name (:func:`_qreduce_hier`), so the hosts stay bit-identical.
+
 Not ported, refused with ``NotImplementedError``: the pipelined SRA of
-``CGX_SCHEDULE=on`` / ``CGX_PLANNER=on`` (ROADMAP A9), the two-level
-scheme's asynchronous cross stage (``CGX_ASYNC=on``) and stochastic
-rounding.
+``CGX_SCHEDULE=on`` / ``CGX_PLANNER=on`` (ROADMAP A9) and the two-level
+scheme's asynchronous cross stage (``CGX_ASYNC=on``).
 """
 
 from __future__ import annotations
@@ -51,8 +58,10 @@ import os
 import queue
 import socket
 import threading
+import zlib
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -62,6 +71,7 @@ from ..ops import codec, codec_cuda, dispatch
 from ..ops.codec import QTensor
 from ..parallel import group as group_mod
 from ..parallel.group import ProcessGroup
+from ..utils import prng
 
 _ALIGN = 8  # element alignment of the equal chunk split
 _TORCH_FLOATS = (torch.float32, torch.float16, torch.bfloat16)
@@ -162,12 +172,20 @@ def _chunk_split_layer_aligned(
 # ---------------------------------------------------------------------------
 
 
+Rng = Optional[np.random.Generator]  # a frame-seed generator; None: round to nearest
+
+
 def _cc(s: _Segment) -> CompressionConfig:
-    # Frames never carry a residual; stochastic rounding reaches the
-    # dispatcher, which refuses it.
+    # Frames never carry a residual.
     return CompressionConfig(
         bits=s.bits, bucket_size=s.bucket_size, stochastic=cfg.stochastic_rounding()
     )
+
+
+def _frame_key(rng: Rng) -> Optional[prng.Key]:
+    """The key of the next frame: one draw of ``rng`` (the JAX backend's
+    ``int(rng.integers(2**31 - 1))`` frame seed), or None."""
+    return None if rng is None else prng.key(int(rng.integers(2**31 - 1)))
 
 
 def frame_bytes(s: _Segment, wdt: torch.dtype, dummy: bool) -> int:
@@ -181,9 +199,10 @@ def frames_bytes(segs: Sequence[_Segment], wdt: torch.dtype, dummy: bool) -> int
     return sum(frame_bytes(s, wdt, dummy) for s in segs)
 
 
-def _encode(x: torch.Tensor, s: _Segment, wdt: torch.dtype) -> torch.Tensor:
-    """The frame of one segment's f32 values."""
-    q = dispatch.quantize_batch(x[None], _cc(s))
+def _encode(x: torch.Tensor, s: _Segment, wdt: torch.dtype, rng: Rng = None) -> torch.Tensor:
+    """The frame of one segment's f32 values (with ``rng``: rounded with the
+    next frame key)."""
+    q = dispatch.quantize_batch(x[None], _cc(s), _frame_key(rng))
     return codec.to_bytes(dispatch._row(q, 0), wdt)
 
 
@@ -213,12 +232,13 @@ def _decode(buf: torch.Tensor, s: _Segment, wdt: torch.dtype, dummy: bool,
 
 
 def _compress_frames(fused: torch.Tensor, segs: Sequence[_Segment], dummy: bool,
-                     wdt: torch.dtype = torch.float32) -> torch.Tensor:
-    """Concatenated frames of ``segs`` (uint8, on the buffer's device)."""
+                     wdt: torch.dtype = torch.float32, rng: Rng = None) -> torch.Tensor:
+    """Concatenated frames of ``segs`` (uint8, on the buffer's device), each
+    quantized frame with a key of ``rng`` where one is given."""
     parts = []
     for s in segs:
         x = fused[s.start : s.start + s.numel]
-        parts.append(x.contiguous().view(torch.uint8) if dummy else _encode(x, s, wdt))
+        parts.append(x.contiguous().view(torch.uint8) if dummy else _encode(x, s, wdt, rng))
     return torch.cat(parts) if parts else fused.new_empty((0,), dtype=torch.uint8)
 
 
@@ -235,14 +255,14 @@ def _decompress_frames(buf: torch.Tensor, segs: Sequence[_Segment], fused: torch
 
 
 def _requantize_frames(fused: torch.Tensor, segs: Sequence[_Segment], dummy: bool,
-                       wdt: torch.dtype = torch.float32) -> torch.Tensor:
+                       wdt: torch.dtype = torch.float32, rng: Rng = None) -> torch.Tensor:
     """Quantize the reduced segments and decode each frame back into the
     buffer, so every replica holds the decode of the same bytes (the
     error-symmetry rule). The decode reads the meta in the wire dtype."""
     parts = []
     for s in segs:
         sl = fused[s.start : s.start + s.numel]
-        frame = _compress_frames(fused, [s], dummy, wdt)
+        frame = _compress_frames(fused, [s], dummy, wdt, rng)
         sl.copy_(_decode(frame, s, wdt, dummy))
         parts.append(frame)
     return torch.cat(parts) if parts else fused.new_empty((0,), dtype=torch.uint8)
@@ -267,7 +287,7 @@ def _stack_frames(bufs: Sequence[Optional[torch.Tensor]], s: _Segment, wdt: torc
 
 def _sra_fold_chunk(fused: torch.Tensor, segs_me: Sequence[_Segment],
                     frames: Sequence[Optional[torch.Tensor]], me: int, ws: int,
-                    dummy: bool, wdt: torch.dtype = torch.float32) -> torch.Tensor:
+                    dummy: bool, wdt: torch.dtype = torch.float32, rng: Rng = None) -> torch.Tensor:
     """The SRA epilogue of this rank's chunk, segment by segment: fold the
     peers' stage-1 frames ``v0 + v1 + ...`` ascending by rank with the raw
     own values at position ``me``, requantize, decode the frame back into
@@ -290,7 +310,7 @@ def _sra_fold_chunk(fused: torch.Tensor, segs_me: Sequence[_Segment],
         q = _stack_frames(peer, s, wdt)
         # An aligned raw row keeps the reduce kernel at its full width.
         qo = dispatch.reduce_rows_requantize(
-            q, _cc(s), raw_row=codec_cuda._aligned(sl), own_idx=me)
+            q, _cc(s), raw_row=codec_cuda._aligned(sl), own_idx=me, key=_frame_key(rng))
         frame = codec.to_bytes(dispatch._row(qo, 0), wdt)
         sl.copy_(_decode(frame, s, wdt, dummy))
         parts.append(frame)
@@ -341,7 +361,7 @@ def _layout(n: int, ws: int, layers: Sequence[Layer], wdt: torch.dtype, dummy: b
 
 
 def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
-                 group: ProcessGroup, force_raw: bool = False) -> None:
+                 group: ProcessGroup, force_raw: bool = False, rng: Rng = None) -> None:
     """Scatter-Reduce-AllGather: each rank posts each peer's chunk as
     frames, folds the arrivals into its raw own chunk and requantizes it
     (:func:`_sra_fold_chunk`), then every rank gathers and decodes every
@@ -350,10 +370,11 @@ def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
     dummy = cfg.dummy_compression() or force_raw
     segs, fsize = _layout(fused.shape[0], ws, layers, wdt, dummy)
     moves = sum(fsize) > 0
-    sent = [None if j == me else _compress_frames(fused, segs[j], dummy, wdt) for j in range(ws)]
+    sent = [None if j == me else _compress_frames(fused, segs[j], dummy, wdt, rng)
+            for j in range(ws)]
     recv = [0 if j == me else fsize[me] for j in range(ws)]
     frames = _alltoallv(sent, recv, moves, group, fused.device)
-    wire = _sra_fold_chunk(fused, segs[me], frames, me, ws, dummy, wdt)
+    wire = _sra_fold_chunk(fused, segs[me], frames, me, ws, dummy, wdt, rng)
     recv = [0 if j == me else fsize[j] for j in range(ws)]
     bufs = _alltoallv([None if j == me else wire for j in range(ws)], recv, moves, group,
                       fused.device)
@@ -363,7 +384,7 @@ def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
 
 
 def _qreduce_ring(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
-                  group: ProcessGroup, force_raw: bool = False) -> None:
+                  group: ProcessGroup, force_raw: bool = False, rng: Rng = None) -> None:
     """Ring: ws-1 scatter-reduce hops, each quantizing the outgoing chunk
     and decode-adding the arriving one, then the reduced chunk
     ``(me + 1) % ws`` is requantized once (and decoded back) and ws-1
@@ -375,10 +396,10 @@ def _qreduce_ring(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
     for step in range(ws - 1):
         s_idx = (me - step) % ws  # chunk sent to the right
         r_idx = (me - step - 1) % ws  # chunk received and reduced
-        frame = _compress_frames(fused, segs[s_idx], dummy, wdt)
+        frame = _compress_frames(fused, segs[s_idx], dummy, wdt, rng)
         buf = _shift(frame, fsize[r_idx], me, ws, moves, group)
         _decompress_frames(buf, segs[r_idx], fused, dummy, add=True, wdt=wdt)
-    hold = _requantize_frames(fused, segs[(me + 1) % ws], dummy, wdt)
+    hold = _requantize_frames(fused, segs[(me + 1) % ws], dummy, wdt, rng)
     for step in range(ws - 1):
         r_idx = (me - step) % ws  # chunk arriving at this hop
         hold = _shift(hold, fsize[r_idx], me, ws, moves, group)
@@ -386,14 +407,14 @@ def _qreduce_ring(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
 
 
 def _qreduce_alltoall(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
-                      group: ProcessGroup, force_raw: bool = False) -> None:
+                      group: ProcessGroup, force_raw: bool = False, rng: Rng = None) -> None:
     """All-to-all: every rank quantizes its whole buffer once, sends it to
     every peer, and decodes and folds all ws frames, its own included, in
     ascending rank order (``dispatch.reduce_rows``)."""
     ws, me = group_mod.world_size(group), group_mod.rank(group)
     dummy = cfg.dummy_compression() or force_raw
     segs = _segments_in(layers, 0, fused.shape[0])
-    wire = _compress_frames(fused, segs, dummy, wdt)
+    wire = _compress_frames(fused, segs, dummy, wdt, rng)
     size = wire.numel()
     bufs = _alltoallv([None if j == me else wire for j in range(ws)],
                       [0 if j == me else size for j in range(ws)], size > 0, group, fused.device)
@@ -411,12 +432,13 @@ def _qreduce_alltoall(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.d
 
 
 def _qreduce_flat(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype, algo: str,
-                  group: ProcessGroup, force_raw: bool = False) -> None:
+                  group: ProcessGroup, force_raw: bool = False, rng: Rng = None) -> None:
     """One level's reduction over ``group``. ``force_raw``: pass-through
     frames whatever the layers' configs (the two-level scheme's
-    uncompressed cross stage)."""
+    uncompressed cross stage). ``rng``: the rank's frame-seed generator
+    under stochastic rounding."""
     reduce = {cfg.REDUCTION_ALLTOALL: _qreduce_alltoall, cfg.REDUCTION_RING: _qreduce_ring}
-    reduce.get(algo, _qreduce_sra)(fused, layers, wdt, group, force_raw)
+    reduce.get(algo, _qreduce_sra)(fused, layers, wdt, group, force_raw, rng)
 
 
 def _sum_alltoall(part: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
@@ -549,6 +571,10 @@ class HostMap:
 
 
 _HOSTS: Dict[object, HostMap] = {}
+# The two-level subgroups of released MIXED maps, by (backend, the group's
+# global ranks, its hosts): a later map of the same group over the same
+# hosts takes them again (see :func:`release`).
+_RETIRED: Dict[tuple, List[Tuple[ProcessGroup, ProcessGroup]]] = {}
 
 
 def _group_key(group: ProcessGroup):
@@ -575,7 +601,8 @@ def _host_map(group: ProcessGroup, hosts: Tuple[str, ...]) -> HostMap:
     subgroup formed under ``use_local_synchronization`` is named by its
     members and the count of groups the process holds, so its members must
     hold equally many: every rank forms exactly two, a leader or not, alone
-    on its host or not."""
+    on its host or not, or, where the group released a map over the same
+    hosts, every rank takes that map's two again."""
     me = group_mod.rank(group)
     topology = _host_topology(hosts)
     leaders = tuple(_slice_leaders(hosts))
@@ -583,13 +610,25 @@ def _host_map(group: ProcessGroup, hosts: Tuple[str, ...]) -> HostMap:
     if topology != TOPO_MIXED:
         return HostMap(hosts, topology, leaders, local)
     li = local.index(me)
-    peers = [[r for r, h in enumerate(hosts) if h == hosts[lead]] for lead in leaders]
-    intra = _new_subgroup(group, local)
-    cross = _new_subgroup(group, sorted(p[li] for p in peers if len(p) > li))
+    kept = _RETIRED.get(_retired_key(group, hosts))
+    if kept:
+        intra, cross = kept.pop()
+    else:
+        peers = [[r for r, h in enumerate(hosts) if h == hosts[lead]] for lead in leaders]
+        intra = _new_subgroup(group, local)
+        cross = _new_subgroup(group, sorted(p[li] for p in peers if len(p) > li))
     # The exchanges address the subgroups' ranks by local and leader index.
     if dist.get_rank(intra) != li or (li == 0 and dist.get_rank(cross) != leaders.index(me)):
         raise RuntimeError(f"the two-level subgroups of rank {me} do not follow the group's rank order")
     return HostMap(hosts, topology, leaders, local, intra, cross)
+
+
+def _retired_key(group: ProcessGroup, hosts: Tuple[str, ...]):
+    """The key of ``group``'s two-level subgroups over ``hosts`` in
+    :data:`_RETIRED`: the same on every rank of the group."""
+    base = _group_key(group)
+    ranks = tuple(dist.get_global_rank(base, r) for r in range(group_mod.world_size(group)))
+    return dist.get_backend(group), ranks, hosts
 
 
 def _hosts(group: ProcessGroup) -> HostMap:
@@ -613,7 +652,8 @@ def _use_hierarchy(group: ProcessGroup, topo: cfg.TopologyConfig) -> bool:
 
 
 def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
-                  topo: cfg.TopologyConfig, hm: HostMap) -> None:
+                  topo: cfg.TopologyConfig, hm: HostMap, rng: Rng = None,
+                  rng3: Rng = None) -> None:
     """The two-level leader reduction:
 
     1. each non-leader frames its whole buffer once (pass-through frames
@@ -627,7 +667,10 @@ def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
        bytes) and sends the frame to its locals, who decode it.
 
     The leaders hold bit-identical values after stage 2, so all ranks agree
-    bit for bit."""
+    bit for bit. Under stochastic rounding stages 1 and 2 draw their frame
+    keys from this rank's ``rng``, stage 3 from ``rng3``, a generator that
+    every leader seeds alike, so that the leaders' stage-3 frames stay
+    identical."""
     me = dist.get_rank(hm.intra)  # this rank's local index
     nl = len(hm.local)
     raw = cfg.dummy_compression() or not topo.intra_compress
@@ -635,7 +678,7 @@ def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
     size = frames_bytes(segs, wdt, raw)
     dev = fused.device
     if me != 0:
-        frame = _compress_frames(fused, segs, raw, wdt)
+        frame = _compress_frames(fused, segs, raw, wdt, rng)
         _alltoallv([frame] + [None] * (nl - 1), [0] * nl, size > 0, hm.intra, dev)
         buf = _alltoallv([None] * nl, [size] + [0] * (nl - 1), size > 0, hm.intra, dev)[0]
         _decompress_frames(buf, segs, fused, raw, add=False, wdt=wdt)
@@ -645,10 +688,45 @@ def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
         for idx in range(1, nl):
             _decompress_frames(bufs[idx], segs, fused, raw, add=True, wdt=wdt)
     _qreduce_flat(fused, layers, wdt, topo.cross_reduction, hm.cross,
-                  force_raw=not topo.cross_compress)
-    wire = _requantize_frames(fused, segs, raw, wdt)
+                  force_raw=not topo.cross_compress, rng=rng)
+    wire = _requantize_frames(fused, segs, raw, wdt, rng3)
     if nl > 1:
         _alltoallv([None] + [wire] * (nl - 1), [0] * nl, size > 0, hm.intra, dev)
+
+
+# ---------------------------------------------------------------------------
+# Stochastic rounding's frame seeds.
+# ---------------------------------------------------------------------------
+
+_RNGS: Dict[object, np.random.Generator] = {}
+_SEQ: Dict[object, int] = {}  # two-level allreduces a group has run
+
+
+def _stochastic_rng(group: ProcessGroup) -> Rng:
+    """This rank's frame-seed generator for ``group`` under
+    ``CGX_STOCHASTIC_ROUNDING`` (else None), made at first use and kept
+    until :func:`release`: ``np.random.default_rng((CGX_SEED << 16) ^
+    (rank + 1))``, the JAX backend's."""
+    if not cfg.stochastic_rounding():
+        return None
+    key = _group_key(group)
+    if key not in _RNGS:
+        _RNGS[key] = np.random.default_rng((cfg.global_seed() << 16) ^ (group_mod.rank(group) + 1))
+    return _RNGS[key]
+
+
+def _stage3_rng(group: ProcessGroup) -> Rng:
+    """The two-level stage-3 generator of this quantized allreduce of
+    ``group``, alike on every leader: seeded from ``CGX_SEED`` and the
+    collective's name ``cgx{seq}p`` (``seq`` counts the group's two-level
+    allreduces, which every rank runs in one order), as the JAX backend
+    seeds it from its collective key. None without stochastic rounding."""
+    key = _group_key(group)
+    _SEQ[key] = _SEQ.get(key, 0) + 1
+    if not cfg.stochastic_rounding():
+        return None
+    name = f"cgx{_SEQ[key]}p"
+    return np.random.default_rng((cfg.global_seed() << 16) ^ (zlib.crc32(name.encode()) & 0x7FFF))
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +734,7 @@ def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported(topo: cfg.TopologyConfig, dummy: bool, hier: bool) -> None:
+def _refuse_unported(topo: cfg.TopologyConfig, hier: bool) -> None:
     """Raise, on every rank alike and before any collective of the bucket,
     for what the JAX backend would run and the port does not have."""
     algo = topo.cross_reduction if hier else topo.intra_reduction
@@ -671,11 +749,6 @@ def _refuse_unported(topo: cfg.TopologyConfig, dummy: bool, hier: bool) -> None:
         raise NotImplementedError(
             f"{cfg.ASYNC}=on (the two-level scheme without its cross stage, for the "
             f"asynchronous plane) is not ported; unset it or set it to off"
-        )
-    if cfg.stochastic_rounding() and not dummy:
-        raise NotImplementedError(
-            "stochastic rounding is not ported (it needs a Philox stream in the kernels); "
-            "unset CGX_STOCHASTIC_ROUNDING"
         )
 
 
@@ -728,12 +801,11 @@ def _allreduce_quantized(t: torch.Tensor, group: ProcessGroup,
     reduced by the two-level scheme or the inner reduction type; both
     written back in the bucket's dtype."""
     topo = cfg.topology_from_env()
-    dummy = cfg.dummy_compression()
     layers = _extract_layers(t.numel(), bucket_key)
     comp, rest = split_layers(layers)
     hier = bool(comp) and _use_hierarchy(group, topo)
     if comp:
-        _refuse_unported(topo, dummy, hier)
+        _refuse_unported(topo, hier)
     arr = t.detach().reshape(-1).to(torch.float32, copy=True)
     if rest:
         part = torch.cat([arr[o : o + n] for (o, n, _) in rest])
@@ -753,10 +825,11 @@ def _allreduce_quantized(t: torch.Tensor, group: ProcessGroup,
             fl.append((off, min(n, fused.shape[0] - off), c))
             off += n
         wdt = _wire_dtype(t.dtype)
+        rng = _stochastic_rng(group)
         if hier:
-            _qreduce_hier(fused, fl, wdt, topo, _hosts(group))
+            _qreduce_hier(fused, fl, wdt, topo, _hosts(group), rng, _stage3_rng(group))
         else:
-            _qreduce_flat(fused, fl, wdt, topo.intra_reduction, group)
+            _qreduce_flat(fused, fl, wdt, topo.intra_reduction, group, rng=rng)
         off = 0
         for (o, n) in spans:
             arr[o : o + n] = fused[off : off + n]
@@ -852,24 +925,34 @@ def allreduce_async(t: torch.Tensor, group: ProcessGroup = None,
 def release(group: ProcessGroup = None, timeout: float = 60.0) -> None:
     """Drop the state kept for ``group``: stop its worker once the buckets
     already queued have run (a bounded join; ``RuntimeError`` if the thread
-    is still running after ``timeout`` seconds), and forget its host map,
-    destroying the two-level subgroups. The next quantized allreduce over
-    the group gathers the map anew."""
+    is still running after ``timeout`` seconds), forget its frame-seed
+    generator and collective count, and forget its host map, setting its
+    two-level subgroups aside. The next quantized allreduce over the
+    group gathers the map anew; over the same hosts it takes the subgroups
+    set aside. They live until the default group is destroyed
+    (:func:`destroy_process_group`): a subgroup destroyed and formed again
+    over the same ranks would take the destroyed one's name (its members
+    and the count of groups the process holds) and read its stale keys in
+    the store."""
     key = _group_key(group)
     with _WORKERS_LOCK:
         worker = _WORKERS.pop(key, None)
     if worker is not None and not worker.close(timeout):
         raise RuntimeError(f"the bucket worker {worker.thread.name} did not stop within {timeout} s")
+    _RNGS.pop(key, None)
+    _SEQ.pop(key, None)
     hm = _HOSTS.pop(key, None)
-    for sub in () if hm is None else (hm.intra, hm.cross):
-        if sub is not None:
-            dist.destroy_process_group(sub)
+    if hm is not None and hm.intra is not None:
+        _RETIRED.setdefault(_retired_key(group, hm.hosts), []).append((hm.intra, hm.cross))
 
 
 def destroy_process_group(group: ProcessGroup = None, timeout: float = 60.0) -> None:
-    """:func:`release` ``group`` (the default group: every group), then
+    """:func:`release` ``group`` (the default group: every group and the
+    two-level subgroups set aside), then
     ``dist.destroy_process_group(group)``."""
     keys = list(set(_WORKERS) | set(_HOSTS)) if group is None else [group]
     for key in keys:
         release(key, timeout)
+    if group is None:
+        _RETIRED.clear()
     dist.destroy_process_group(group)
