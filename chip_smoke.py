@@ -8,7 +8,10 @@ order, none of whose failures is caught:
    versions;
 2. build: ``nvcc`` compiles ``torch_cgx_tpu_torch/csrc/codec.cu`` into
    ``torch_cgx_tpu_torch/_build/``; the registers and shared memory of the
-   pipelined kernels;
+   pipelined kernels; every f32 instance's registers, spills and static
+   shared memory against ``csrc/ptxas_f32.json`` (the source before the
+   16-bit instances existed; differences logged, a card test holds them),
+   the 16-bit instances' beside them;
 3. kernels against their plain PyTorch versions on the card, at the shapes
    the GPT-2 124M train step gives them, the pipelined ones (B7a-c) also
    against the single-stage ones, at 1, 131, 133 and 2053 chunks too, and
@@ -48,7 +51,10 @@ order, none of whose failures is caught:
    staged one's, at the step's launch shapes, at bits 1-8 and buckets
    128-16384, at every cluster size, tile of one or two chunks and ring
    depth 1-8; every level floor(q) or floor(q) + 1 and the decode's mean
-   over 64 seeds unbiased within 4 sigma;
+   over 64 seeds unbiased within 4 sigma. Then the 16-bit wire dtypes
+   (:func:`check_subf32`): B1/B5, B7a, B3, B7c and B4 on bf16 and f16
+   operands at the bf16-parameter step's shapes, bit for bit, both
+   roundings, every lowering, and the decode glue;
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -68,7 +74,12 @@ order, none of whose failures is caught:
    under ``CGX_STOCHASTIC_ROUNDING=1`` a step built with
    ``make_train_step(stochastic_seed=SR_SEED)``: its first step's sync
    through the kernels bit-identical to the plain versions' on the CPU
-   with the same key, its launches against the layout;
+   with the same key, its launches against the layout; (g) the slice with
+   its parameters cast to bf16 (:func:`bf16_phase`): its bf16 gradient
+   sync through the kernels bit-identical to the plain versions' on the
+   CPU, every B1/B3 launch reading bf16, then the same steps under
+   ``CGX_PALLAS_DB`` off and on, launches held against the bf16 layout,
+   losses and parameters bit-identical between the two;
 5. times: each kernel and its plain version (CUDA events around one call,
    median after warm-up; each kernel also as a burst of back-to-back calls
    queued behind a sleep kernel, ``burst_ms``, which leaves out the host's
@@ -91,6 +102,9 @@ order, none of whose failures is caught:
    stochastic kernels beside their round-to-nearest selves
    (:func:`time_stochastic`, bound also by the Philox's integer work) and
    a profile of the stochastic step under ``CGX_PALLAS_DB`` off and on;
+   the 16-bit instances alone against their byte bound
+   (``shapebench.WIRE16_SHAPES``, :func:`time_wire16`) and the
+   bf16-parameter step's time and profile beside the float32 one's;
 6. qbench: ``python -m torch_cgx_tpu_torch.tools.qbench`` at its defaults
    (128 MB, 4 bits, bucket 512, k = 8, ``sra_epilogue`` at ws 8) for each
    of its eight variants, in this process: each variant's bytes checked,
@@ -123,18 +137,23 @@ order, none of whose failures is caught:
    hook's launches over steps 2-3 against ``LaunchModel.hook``, and step
    3's buckets (captured after the division) reduced again through the
    kernels and through the plain versions on the CPU over the same group,
-   bit-identical under SRA with f32 and with bf16 buckets, the Ring and the
-   all-to-all. Then ``ddp_hook_hier``: the same on two faked hosts of two
+   bit-identical under SRA with f32 buckets, and every other one (from the
+   first to the last) with bf16 buckets, the Ring and the all-to-all. Then ``ddp_hook_hier``: the same on two faked hosts of two
    ranks (``CGX_SHM_HOST_ID=testhost{rank // 2}``) under the default
    two-level scheme (intra SRA, cross Ring, leader scheme): every rank takes
    the two-level path, the launches equal ``LaunchModel.hook`` on the
    leaders and the non-leaders, and step 3's buckets are bit-identical
    between the kernels and the plain CPU path under the default scheme
-   with f32 and with bf16 buckets, and the leaders' stage-3 frames
-   identical. Then ``ddp_hook_sr`` and ``ddp_hook_hier_sr``: both again
+   with f32 buckets (every other one with bf16 buckets, under cross SRA,
+   cross all-to-all and ``CGX_INTRA_COMPRESS=0``), and the leaders'
+   stage-3 frames identical. Then ``ddp_hook_sr`` and ``ddp_hook_hier_sr``: both again
    under ``CGX_STOCHASTIC_ROUNDING=1``, with the same checks (the reruns
    through the kernels and the plain versions drawing the same frame
-   keys).
+   keys). (Before ``ddp_hook``, after ``sra_db``: ``two_level_bf16p`` and
+   ``alltoall_bf16p``, GPT-2 124M with its parameters in bf16, one step
+   each, launches against the bf16 layout, every quantize and every B4
+   launch with a raw own row reading bf16, a 64 MB bf16 slice through the
+   kernels bit-identical to the plain CPU path, replicas bit-identical.)
    Gloo stages the wire through host memory: its time is not a card
    number.
 
@@ -203,7 +222,7 @@ SASS_PIPES = {
     "cvt": (16, ("I2F", "F2I", "FRND")),
     "issue": (128, None),
 }
-PHILOX_SASS_KERNEL = re.compile(r"cgx_quantize_cluster_kernelILi4ELi0ELi0ELb0ELb([01])E")
+PHILOX_SASS_KERNEL = re.compile(r"cgx_quantize_cluster_kernelILi4ELi0ELi0ELb0ELb([01])EfE")
 # An H100 SXM: 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper
 # architecture white paper).
 SM_CLOCK_RATE = 132 * 1.98e9
@@ -211,6 +230,10 @@ SM_CLOCK_RATE = 132 * 1.98e9
 # register budget); and (bucket, chunks) of the forced geometries.
 SR_BUCKETS = (128, 512, 1760, 4096, 16384)
 SR_FORCED = ((512, 6), (1760, 4), (16384, 2))
+# The 16-bit wire dtypes (phases 3, 4 (g), 5, 7) and a 64 MB fusion slice
+# of 2-byte values: 33,554,432, 2,048 chunks of bucket 512.
+WIRE16 = ("bfloat16", "float16")
+FLAT16_N = 2 * FLAT_N
 
 TPU_KERNELS = {
     "codec_quantize": "torch_cgx_tpu/ops/codec_pallas.py:312,763",
@@ -245,6 +268,19 @@ MM_EDGE_CASES = [
 META_RTOL = 1e-5
 RAW_RTOL = 1e-5
 SOURCE = "torch_cgx_tpu_torch/csrc/codec.cu"
+
+
+_PHASE: dict = {}
+
+
+def phase(title: str) -> None:
+    """Log the seconds the previous phase took (host clock), then open
+    ``title`` (``"N. ..."``)."""
+    now = time.perf_counter()
+    if _PHASE:
+        log(f"  phase {_PHASE['n']} took {now - _PHASE['t']:.1f} s")
+    log(f"== {title}")
+    _PHASE.update(n=title.split(".")[0], t=now)
 
 
 def log(*args) -> None:
@@ -284,6 +320,8 @@ def _same_bits(a, b) -> bool:
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype in (torch.bfloat16, torch.float16):
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return bool(torch.equal(a, b))
 
 
@@ -509,6 +547,7 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     check_cluster(dev, rng, record)
     check_reduce(dev, rng, record)
     check_stochastic(dev, flat_n, rng, record, db_tc)
+    check_subf32(dev, flat_n, tail_n, rng, record)
     return max_err
 
 
@@ -729,6 +768,131 @@ def check_stochastic(dev, flat_n: int, rng, record, db_tc) -> None:
     if abs(bias) > 4 * sigma:
         raise AssertionError(f"stochastic rounding biased: {bias / sigma:.2f} sigma")
     del x, xb, lvl, qv, acc, unit, bmin
+
+
+def check_subf32(dev, flat_n: int, tail_n: int, rng, record) -> None:
+    """The 16-bit wire dtypes (bf16, f16) against the plain versions on the
+    card's tensors, bit for bit, at the bf16-parameter step's shapes: B1
+    and B7a (B7a's bytes equal to B1's) on a 64 MB slice of 2-byte values
+    (``2 * flat_n``) and B5 on the tail slice's 307 chunks, in every
+    (encode, pack) lowering, round to nearest and stochastic; B3 and B7c
+    (B7c's equal to B3's) rounding through the wire dtype at one row on the
+    64 MB slice and at the four-rank flat SRA's ws 4 x a quarter of it with
+    the raw own row in the wire dtype, in every lowering and both
+    roundings; B4 with a 16-bit raw own row at the two-level scheme's 2 x
+    half a slice, at both widths; the decode glue (``dequantize_batch``:
+    the meta and a 16-bit accumulator upcast outside B2/B7b) on the tail
+    slice against the batch function on the CPU, on the 64 MB slice
+    against the plain version on the card. Every launch of B1, B7a, B3, B7c
+    and B4 here reads its 16-bit operand itself (``WIRE16_LAUNCHES``)."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lowerings = [(e, p) for e in codec_cuda.ENCODES for p in codec_cuda.PACKS]
+    chunk_n = 32 * BUCKET
+    tail_chunks = tail_n // chunk_n
+    for name in WIRE16:
+        dtype = getattr(torch, name)
+        t0 = time.perf_counter()
+        codec_cuda.reset_launch_counts()
+        for n in (2 * flat_n, tail_chunks * chunk_n):
+            x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dtype).to(dev)
+            chunks = n // chunk_n
+            tc = codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap(
+                "quantize", BITS, BUCKET, chunks=chunks, sms=sms, elem_size=2))
+            for enc in codec_cuda.ENCODES:
+                for seed in (None, SR_SEED):
+                    pw, pm = codec_cuda.quantize_chunks_plain(x, BITS, BUCKET, encode=enc, seed=seed)
+                    for pack in codec_cuda.PACKS:
+                        lab = f"{name} c={chunks} {enc}/{pack} {'stoch.' if seed else 'nearest'}"
+                        w, m = codec_cuda.quantize_chunks(x, BITS, BUCKET, encode=enc, pack=pack, seed=seed)
+                        record("codec_quantize", lab + " words", w, pw, quiet=True)
+                        record("codec_quantize", lab + " meta", m, pm, quiet=True)
+                        dw, dm = codec_cuda.quantize_chunks_db(x, BITS, BUCKET, tc, encode=enc,
+                                                               pack=pack, seed=seed)
+                        record("codec_quantize_db", f"{lab} tc={tc} words", dw, pw, w, quiet=True)
+                        record("codec_quantize_db", f"{lab} tc={tc} meta", dm, pm, m, quiet=True)
+            log(f"  {'codec_quantize(_db)':21s} {name} at {chunks} chunks: B1 and B7a (tc={tc}) "
+                f"bit-identical to the plain version in 4 lowerings x 2 roundings, B7a = B1")
+            del x
+        # The epilogue at one row (the world-size-1 proxy) on the 64 MB
+        # slice, and at ws 4 of its quarter with the raw own row.
+        for ws, n, owns in ((1, 2 * flat_n, [None]), (SRA_WS, 2 * flat_n // SRA_WS, [0, SRA_WS - 1])):
+            rows = torch.from_numpy(
+                np.stack([fuzz_operand(rng, n, 0) * np.float32(r + 1) for r in range(ws)])
+            ).to(dtype).to(dev)
+            q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+            meta = q.meta.float()
+            chunks = n // chunk_n
+            tc = codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap(
+                "epilogue", BITS, BUCKET, chunks=chunks, sms=sms))
+            for own in owns:
+                raw, o = (None, -1) if own is None else (rows[own], own)
+                for enc in codec_cuda.ENCODES:
+                    for seed in (None, SR_SEED):
+                        pw, pm = codec_cuda.sra_epilogue_chunks_plain(
+                            q.packed, meta, raw, o, BITS, BUCKET, dtype, enc, seed=seed)
+                        for pack in codec_cuda.PACKS:
+                            kw = dict(cast_dtype=dtype, encode=enc, pack=pack, seed=seed)
+                            lab = (f"{name} ws={ws} own={own} c={chunks} {enc}/{pack} "
+                                   f"{'stoch.' if seed else 'nearest'}")
+                            w, m = codec_cuda.sra_epilogue_chunks(q.packed, meta, raw, o, BITS, BUCKET,
+                                                                  **kw)
+                            record("codec_sra_epilogue", lab + " words", w, pw, quiet=True)
+                            record("codec_sra_epilogue", lab + " meta", m, pm, quiet=True)
+                            dw, dm = codec_cuda.sra_epilogue_chunks_db(q.packed, meta, raw, o, BITS,
+                                                                       BUCKET, tc, **kw)
+                            record("codec_sra_epilogue_db", f"{lab} tc={tc} words", dw, pw, w, quiet=True)
+                            record("codec_sra_epilogue_db", f"{lab} tc={tc} meta", dm, pm, m, quiet=True)
+            log(f"  {'codec_sra_epilogue(_db)':21s} {name} ws={ws} owns={owns} at {chunks} chunks: "
+                f"B3 and B7c (tc={tc}) bit-identical to the plain version in 4 lowerings x 2 "
+                f"roundings, B7c = B3")
+            del rows, q, meta
+        # B4: the two-level scheme's intra reduce of the 64 MB slice (2 rows
+        # of half of it, the raw own row in each position), both widths.
+        rows = torch.from_numpy(
+            np.stack([fuzz_operand(rng, flat_n, 0) * np.float32(r + 1) for r in range(2)])
+        ).to(dtype).to(dev)
+        q = codec_cuda.quantize_batch(rows, BITS, BUCKET)
+        meta = q.meta.float()
+        for own in (0, 1):
+            want = codec_cuda.reduce_rows_chunks_plain(q.packed, meta, rows[own], own, BITS, BUCKET)
+            got = codec_cuda.reduce_rows_chunks(q.packed, meta, rows[own], own, BITS, BUCKET)
+            scalar = codec_cuda._launch_reduce(q.packed, meta, rows[own], own, BITS, BUCKET,
+                                               torch.empty_like(want), 1)
+            record("codec_reduce_rows", f"{name} two-level rows=2 own={own} c={flat_n // chunk_n}",
+                   got, want)
+            record("codec_reduce_rows", f"{name} two-level rows=2 own={own} scalar width", scalar, want)
+        del rows, q, meta
+        wire = dict(codec_cuda.WIRE16_LAUNCHES)
+        launched = {k: codec_cuda.LAUNCHES[k] for k in wire}
+        log(f"  {name}: launches reading a 16-bit operand {wire} of {launched} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        assert wire == launched, (wire, launched)
+        # The decode glue: sub-f32 meta and accumulator upcast outside the
+        # decode kernels, the output cast to the accumulator's dtype; under
+        # CGX_PALLAS_DB=on the pipelined decode (B7b).
+        for n in (tail_n, 2 * flat_n):
+            x = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dtype)
+            acc = torch.from_numpy(fuzz_operand(rng, n, 0)).to(dtype)
+            q = codec_cuda.quantize_batch(x.to(dev)[None], BITS, BUCKET)
+            for mode, kernel in (("off", "codec_dequantize"), ("on", "codec_dequantize_db")):
+                os.environ["CGX_PALLAS_DB"] = mode
+                codec_cuda.reset_launch_counts()
+                got = codec_cuda.dequantize_batch(q, add_to=acc.to(dev)[None])[0]
+                sync(dev)
+                if n == tail_n:
+                    want = codec_cuda.dequantize_batch(
+                        codec_cuda.quantize_batch(x[None], BITS, BUCKET), add_to=acc[None])[0]
+                else:
+                    want = codec_cuda.dequantize_chunks_plain(
+                        q.packed[0], q.meta[0], BITS, BUCKET, add_to=acc.to(dev)).to(dtype)
+                k = kernel if codec_cuda.LAUNCHES[kernel] else "codec_dequantize"
+                record(k, f"{name} n={n} add_to {name}, CGX_PALLAS_DB={mode}", got.cpu(), want.cpu())
+            os.environ["CGX_PALLAS_DB"] = "off"
+            del x, acc, q
 
 
 def check_reduce(dev, rng, record) -> None:
@@ -1018,11 +1182,16 @@ class LaunchModel:
     of ``parallel/reducers.py``. A quantize, decode or epilogue counts as
     its pipelined kernel where ``db_would_run`` says the batch function
     takes it (``CGX_PALLAS_DB`` and the autotune cache as they stand;
-    ``stochastic``: a stochastic epilogue, which makes no lookup)."""
+    ``stochastic``: a stochastic epilogue, which makes no lookup). ``dtype``:
+    the payloads' tensor dtype (a caller sets it group by group), whose
+    element size B7a's ring takes."""
 
-    def __init__(self, dev, stochastic: bool = False):
+    def __init__(self, dev, stochastic: bool = False, dtype=None):
+        import torch
+
         self.dev = dev
         self.stochastic = stochastic
+        self.dtype = dtype or torch.float32
         self.counts = {k: 0 for k in TPU_KERNELS}
 
     def _stand_in(self, rows: int, n: int, cc):
@@ -1033,9 +1202,9 @@ class LaunchModel:
         nb = codec.num_buckets(n, cc.bucket_size)
         return codec.QTensor(
             packed=torch.empty((rows, 0), dtype=torch.int32, device=self.dev),
-            meta=torch.empty((rows, nb, 2), device=self.dev),
-            residual=torch.empty((rows, 0), device=self.dev),
-            numel=n, bits=cc.bits, bucket_size=cc.bucket_size, dtype=torch.float32,
+            meta=torch.empty((rows, nb, 2), dtype=self.dtype, device=self.dev),
+            residual=torch.empty((rows, 0), dtype=self.dtype, device=self.dev),
+            numel=n, bits=cc.bits, bucket_size=cc.bucket_size, dtype=self.dtype,
         )
 
     def _launch(self, kernel: str, rows: int, n: int, cc, add: bool = False) -> None:
@@ -1256,7 +1425,8 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
     its contraction length: with producer fusion engaged, a standalone group
     whose layer ``fused_producer.decide`` sends to the kernel gets its
     stage-1 payload from the backward's matmul-quantize. ``stochastic``: the
-    sync rounds stochastically (a key under ``CGX_STOCHASTIC_ROUNDING``)."""
+    sync rounds stochastically (a key under ``CGX_STOCHASTIC_ROUNDING``).
+    Each group's fusion slices hold 64 MB of its dtype's values."""
     from torch_cgx_tpu_torch import config as cfg
     from torch_cgx_tpu_torch.ops import fused_producer
     from torch_cgx_tpu_torch.parallel import allreduce
@@ -1273,7 +1443,8 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
             and fused_producer.decide(path, tuple(leaf.shape), dense_k[path], ws)[0] is not None
         )
         n = sum(paths_leaves[i][1].numel() for i in g.indices)
-        for _, ln in allreduce._fusion_slices(n, 4):
+        model.dtype = g.dtype
+        for _, ln in allreduce._fusion_slices(n, leaf.element_size()):
             if produced:
                 model.sra(ln, ws, g.cc, produced=True)
             elif two_level is None:
@@ -1405,6 +1576,95 @@ def stochastic_phase(dev, cfg, sl: dict) -> dict:
     log(f"  (f) one stochastic step: loss {loss:.4f}; launches {launches} (the layout's: {expected})")
     assert np.isfinite(loss) and launches == expected, (loss, launches, expected)
     return {"model": model, "step": step, "tokens": tokens, "launches": launches}
+
+
+def bf16_phase(dev, cfg, tokens, steps: int) -> dict:
+    """Phase 4 (g): the GPT-2 124M slice with its parameters cast to bf16
+    (``model.to(torch.bfloat16)``; Adam on the bf16 parameters), whose
+    gradient tree syncs as bf16 groups. One backward's bf16 gradients
+    synced through the kernels and through the plain versions on the CPU
+    must agree bit for bit, every B1 and B3 launch of that sync reading its
+    bf16 operand itself (``WIRE16_LAUNCHES``); then ``steps`` steps under
+    ``CGX_PALLAS_DB=off`` and the same steps from the seed under ``on``,
+    each with its launches held against the layout (``expected_launches``
+    of the bf16 tree: 64 MB slices of 2-byte values), finite losses, and
+    under ``on`` losses and parameters bit-identical to ``off``'s. Returns
+    the ``off`` run for phase 5."""
+    import torch
+
+    from torch_cgx_tpu_torch.models import GPT2, lm_loss
+    from torch_cgx_tpu_torch.ops import codec, codec_cuda
+    from torch_cgx_tpu_torch.parallel import allreduce, gradient_sync, make_train_step
+
+    def run():
+        model = GPT2(cfg, device=dev, generator=torch.Generator().manual_seed(SEED)).to(torch.bfloat16)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+        return model, opt, make_train_step(model, lambda m, t: lm_loss(m(t), t), opt, device=dev)
+
+    model, opt, step = run()
+    lm_loss(model(tokens), tokens).backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    assert {g.dtype for g in grads.values()} == {torch.bfloat16}
+    pl = allreduce.sorted_items(grads)
+    chunks = []
+    for g in allreduce._group_leaves(pl, compress_small=False):
+        if g.cc.enabled:
+            n = sum(pl[i][1].numel() for i in g.indices)
+            chunks += [divmod(codec.num_buckets(ln, BUCKET), 32) for _, ln in allreduce._fusion_slices(n, 2)]
+    expected = expected_launches(grads)
+    log(f"  (g) bf16 parameters: {sum(g.numel() for g in grads.values())} values in bf16; compressed "
+        f"fusion slices (whole chunks, tail buckets): {sorted(chunks)}")
+    log(f"  (g) launches per step derived from the bf16 layout: {expected}")
+    t0 = time.perf_counter()
+    codec_cuda.reset_launch_counts()
+    synced = gradient_sync(grads)
+    sync(dev)
+    wire, launched = dict(codec_cuda.WIRE16_LAUNCHES), dict(codec_cuda.LAUNCHES)
+    plain = _plain_cpu(gradient_sync, {k: v.cpu() for k, v in grads.items()})
+    mismatched = [k for k in grads if not _same_bits(synced[k].cpu(), plain[k])]
+    worst_rel = max(float(codec.relative_l2_error(grads[k].float(), synced[k].float())) for k in grads)
+    log(f"  (g) bf16 sync, kernels vs plain CPU: {len(grads) - len(mismatched)}/{len(grads)} parameters "
+        f"bit-identical ({time.perf_counter() - t0:.1f} s); largest relative L2 error {worst_rel:.4f}; "
+        f"launches reading bf16 {wire} of {launched}")
+    assert not mismatched, mismatched[:5]
+    assert all(synced[k].dtype == torch.bfloat16 for k in synced)
+    assert launched == expected, (launched, expected)
+    for k in ("codec_quantize", "codec_sra_epilogue"):
+        assert wire[k] == launched[k] > 0, (k, wire, launched)
+    del synced, plain
+    out = {"expected": expected, "grads": grads}
+    for db in ("off", "on"):
+        os.environ["CGX_PALLAS_DB"] = db
+        if db == "on":
+            model, opt, step = run()
+            expected = expected_launches(grads)
+            log(f"  (g) CGX_PALLAS_DB=on: launches per step derived from the layout: {expected}")
+        codec_cuda.reset_launch_counts()
+        losses = [float(step(tokens)) for _ in range(steps)]
+        sync(dev)
+        launches, wire = dict(codec_cuda.LAUNCHES), dict(codec_cuda.WIRE16_LAUNCHES)
+        log(f"  (g) CGX_PALLAS_DB={db}: losses {losses}; launches over {steps} steps {launches}; "
+            f"reading bf16 {wire}")
+        assert np.all(np.isfinite(losses)), losses
+        assert launches == {k: v * steps for k, v in expected.items()}, (launches, expected)
+        assert all(wire[k] == launches[k] for k in wire if k != "codec_reduce_rows"), (wire, launches)
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        if db == "off":
+            out.update(model=model, opt=opt, step=step, tokens=tokens, losses=losses,
+                       launches=launches, params=params)
+            continue
+        assert any(launches[k] for k in DB_KEYS), launches
+        assert losses == out["losses"], (losses, out["losses"])
+        diff = [n for n in params if not _same_bits(params[n], out["params"][n])]
+        log(f"  (g) parameters after {steps} steps: {len(params) - len(diff)}/{len(params)} "
+            f"bit-identical to the same steps under CGX_PALLAS_DB=off")
+        assert not diff, diff[:5]
+        out["launches_on"] = launches
+        del model, opt, step, params
+    os.environ["CGX_PALLAS_DB"] = "off"
+    out.pop("params")
+    return out
 
 
 def step_shapes(named) -> list:
@@ -1932,9 +2192,9 @@ def time_stochastic(dev, n: int, name: str, per: dict) -> dict:
 
 
 def start_philox_sass(lib):
-    """:func:`philox_sass` of the built library on a thread of its own
-    (cuobjdump reads every instance of the library), beside phases 3 and 4.
-    Returns a function that waits for it, logs and returns its result."""
+    """:func:`philox_sass` of the built library on a thread of its own,
+    beside phases 3 and 4. Returns a function that waits for it, logs and
+    returns its result."""
     import concurrent.futures
 
     pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -1954,9 +2214,11 @@ def philox_sass(lib) -> tuple:
     """The Philox's instructions a stochastically rounded value by pipe of
     :data:`SASS_PIPES`, from ``cuobjdump -sass`` of the built library: the
     opcodes of B1's stochastic instance of :data:`PHILOX_SASS_KERNEL` less
-    the deterministic one's, over the 32 values a thread. Returns them and
-    the log lines (the opcodes that differ, the time); raises if either
-    instance is missing."""
+    the deterministic one's, over the 32 values a thread. cuobjdump
+    disassembles only those two functions (``-fun``, their mangled names
+    from the build's ptxas report); where that does not give both, the
+    whole library. Returns them and the log lines (the opcodes that differ,
+    the time); raises if either instance is missing."""
     import atexit
     import subprocess
     from collections import Counter
@@ -1966,19 +2228,34 @@ def philox_sass(lib) -> tuple:
     t0 = time.perf_counter()
     tool = os.path.join(os.path.dirname(codec_cuda._nvcc()), "cuobjdump")
     op = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
-    counts, cur = {}, None
-    proc = subprocess.Popen([tool, "-sass", str(lib)], stdout=subprocess.PIPE, text=True)
-    atexit.register(proc.kill)  # no dump outlives a run that failed
-    for line in proc.stdout:
-        if "Function :" in line:
-            found = PHILOX_SASS_KERNEL.search(line)
-            cur = counts.setdefault(found.group(1) == "1", Counter()) if found else None
-        elif cur is not None:
-            m = op.match(line)
-            if m and m.group(1) != "NOP":
-                cur[m.group(1)] += 1
-    if proc.wait() != 0 or set(counts) != {False, True}:
-        raise RuntimeError(f"cuobjdump found {len(counts)} of B1's two instances (rc {proc.returncode})")
+    names = sorted({m for m in re.findall(r"Compiling entry function '(\w+)'",
+                                          str(codec_cuda.BUILD_LOG.get("ptxas", "")))
+                    if PHILOX_SASS_KERNEL.search(m)})
+
+    def dump(args) -> tuple:
+        counts, cur = {}, None
+        proc = subprocess.Popen([tool, "-sass", *args, str(lib)], stdout=subprocess.PIPE,
+                                stderr=subprocess.DEVNULL, text=True)
+        atexit.register(proc.kill)  # no dump outlives a run that failed
+        for line in proc.stdout:
+            if "Function :" in line:
+                found = PHILOX_SASS_KERNEL.search(line)
+                cur = counts.setdefault(found.group(1) == "1", Counter()) if found else None
+            elif cur is not None:
+                m = op.match(line)
+                if m and m.group(1) != "NOP":
+                    cur[m.group(1)] += 1
+        return counts, proc.wait()
+
+    counts, rc, how = {}, None, "the whole library"
+    if len(names) == 2:
+        counts, rc = dump(["-fun", ",".join(names)])
+        how = "-fun, two functions"
+    if rc != 0 or set(counts) != {False, True}:
+        counts, rc = dump([])
+        how = "the whole library"
+    if rc != 0 or set(counts) != {False, True}:
+        raise RuntimeError(f"cuobjdump found {len(counts)} of B1's two instances (rc {rc})")
     diff = {k: counts[True][k] - counts[False][k] for k in set(counts[True]) | set(counts[False])}
     diff = {k: v for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1])) if v}
     per = {}
@@ -1988,7 +2265,7 @@ def philox_sass(lib) -> tuple:
     lines = [
         f"  Philox in SASS (B1 <4, div, sum, one position, stochastic> less round to nearest, "
         f"{sum(counts[True].values())} against {sum(counts[False].values())} instructions; "
-        f"cuobjdump {time.perf_counter() - t0:.1f} s): " + ", ".join(f"{k} {v:+d}" for k, v in diff.items()),
+        f"cuobjdump of {how} {time.perf_counter() - t0:.1f} s): " + ", ".join(f"{k} {v:+d}" for k, v in diff.items()),
         "  Philox a value by pipe: " + ", ".join(
             f"{p} {v:.2f} ({v / SASS_PIPES[p][0]:.4f} SM-clocks)" for p, v in per.items()),
     ]
@@ -2019,6 +2296,15 @@ def stochastic_step_bounds(rate: float, per: dict) -> dict:
             out[k][0] += 1
             out[k][1] += max(shapebench.shape_bytes(k, c, 1, -1) / rate * 1e3, t_int)
     return {k: {"launches": v[0], "bound_ms": v[1]} for k, v in out.items()}
+
+
+def shapebench_step_bounds(name: str, dtype_name: str) -> dict:
+    """``shapebench.step_bounds`` at the card's memory rate, the parameters
+    in ``dtype_name``."""
+    from torch_cgx_tpu_torch.tools import shapebench
+    from torch_cgx_tpu_torch.utils.device import mem_rate
+
+    return shapebench.step_bounds(mem_rate(name), dtype_name)
 
 
 def time_steps(sl: dict, iters: int = 5) -> tuple:
@@ -2080,6 +2366,68 @@ def profile_step(name: str, fn) -> dict:
     return p
 
 
+def host_split(runs: dict, iters: int = 5) -> dict:
+    """Where the codec's host-clock price in the step goes, for each run of
+    ``runs`` (a label -> a slice's run: its model and tokens): from an idle
+    card, the host's time to issue the forward and backward, the device's
+    backlog when it is done (host clock from there to a synchronise), the
+    host's time to issue ``gradient_sync`` (the step's sync) and the sync's
+    wall time to a synchronise, medians over ``iters`` after one warm-up;
+    then one sync under ``torch.profiler`` (CPU): the aten operations it
+    issues and their self CPU time, by operation. Logs each run and the
+    operations whose counts differ between the first two runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_cgx_tpu_torch.models import lm_loss
+    from torch_cgx_tpu_torch.parallel import gradient_sync
+
+    out = {}
+    for label, r in runs.items():
+        model, tokens = r["model"], r["tokens"]
+        ts = []
+        for _ in range(iters + 1):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_loss(model(tokens), tokens).backward()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            t3 = time.perf_counter()
+            gradient_sync(grads, average=True)
+            t4 = time.perf_counter()
+            torch.cuda.synchronize()
+            ts.append((t1 - t0, t2 - t1, t4 - t3, time.perf_counter() - t3))
+        fb, backlog, s_host, s_wall = (1e3 * statistics.median(col) for col in zip(*ts[1:]))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            gradient_sync(grads, average=True)
+            torch.cuda.synchronize()
+        ops = {e.key: (e.count, e.self_cpu_time_total / 1e3)
+               for e in prof.key_averages() if e.key.startswith("aten::")}
+        model.zero_grad(set_to_none=True)
+        del grads
+        n_ops, self_ms = sum(c for c, _ in ops.values()), sum(t for _, t in ops.values())
+        top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:6]
+        log(f"  host split, {label}: forward+backward issued in {fb:.2f} ms, device backlog then "
+            f"{backlog:.2f} ms; gradient_sync issued in {s_host:.2f} ms, {s_wall:.2f} ms to a "
+            f"synchronise from an idle card; under the profiler {n_ops} aten operations, "
+            f"{self_ms:.2f} ms self CPU time; largest " + ", ".join(
+                f"{k} {c} x {t:.2f} ms" for k, (c, t) in top))
+        out[label] = {"fb_ms": fb, "backlog_ms": backlog, "sync_host_ms": s_host,
+                      "sync_wall_ms": s_wall, "ops": ops}
+    a, b = list(out.values())[:2]
+    moved = {k: (a["ops"].get(k, (0, 0.0)), b["ops"].get(k, (0, 0.0)))
+             for k in set(a["ops"]) | set(b["ops"])
+             if a["ops"].get(k, (0,))[0] != b["ops"].get(k, (0,))[0]}
+    log(f"  host split, aten operations whose counts differ ({' vs '.join(list(out)[:2])}): " + (", ".join(
+        f"{k} {x[0]} ({x[1]:.2f} ms) vs {y[0]} ({y[1]:.2f} ms)"
+        for k, (x, y) in sorted(moved.items(), key=lambda kv: -abs(kv[1][1][1] - kv[1][0][1])))
+        or "none"))
+    return out
+
+
 def time_step_shapes(dev, name: str) -> list:
     """B1/B5 and B3 alone at the step's launch shapes, and B4 at phase 7's
     (``shapebench``: cold inputs, back-to-back launches behind a sleep
@@ -2112,14 +2460,48 @@ def time_step_shapes(dev, name: str) -> list:
     return out
 
 
+def time_wire16(dev, name: str) -> dict:
+    """The 16-bit instances alone (``shapebench.WIRE16_SHAPES``: cold
+    inputs, back-to-back launches behind a sleep kernel, two groups in
+    turns with the plain version) against their byte bound (2-byte inputs
+    and raw rows), and B4's burst time and bound a rank-step of the
+    bf16-parameter two-level scheme. Returns each kernel's measured burst
+    at the 64 MB bf16 slice (B4: the two-level 1,024 chunks) and that
+    shape's label, for the kernels line; its bytes and bound are in the
+    log."""
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import shapebench
+    from torch_cgx_tpu_torch.utils.device import mem_rate
+
+    rate = mem_rate(name)
+    out = shapebench.time_shapes(codec_cuda, dev, rate, groups=2, shapes=shapebench.WIRE16_SHAPES)
+    for r in out:
+        log(f"  {r['shape']:40s}: {r['ms']:.4f} ms (groups {', '.join(f'{t:.4f}' for t in r['groups_ms'])}), "
+            f"plain {r['plain_ms']:.3f} ms; {r['bytes']} bytes, bound {r['bound_ms']:.4f} ms "
+            f"= {r['pct_of_bound']:.1f}% of bound")
+    bf16 = [r for r in out if r["dtype"] == "bfloat16"]
+    step_ms = shapebench.reduce_step_ms(bf16, shapebench.reduce_step_shapes(dev, "bfloat16"))
+    b = shapebench.reduce_step_bounds(rate, dev, "bfloat16")["two_level"]
+    log(f"  B4 a rank-step, two-level, bf16 parameters: {b['launches']} launches, "
+        f"{step_ms['two_level']:.4f} ms of bursts, bound {b['bound_ms']:.4f} ms ({b['bytes']} bytes)")
+    pick = {"codec_quantize": "B1 bfloat16 c=2048", "codec_quantize_db": "B7a bfloat16 c=2048",
+            "codec_sra_epilogue": "B3 bfloat16 c=2048 rows=1",
+            "codec_sra_epilogue_db": "B7c bfloat16 c=2048 rows=1",
+            "codec_reduce_rows": "B4 bfloat16 two-level c=1024 rows=2 own=0"}
+    by_shape = {r["shape"]: r for r in out}
+    return {k: {"bf16_shape": lab, "bf16_burst_ms": by_shape[lab]["ms"]} for k, lab in pick.items()}
+
+
 # ---------------------------------------------------------------------------
 # Phase 7: four ranks on the card.
 # ---------------------------------------------------------------------------
 
 # The knobs of each multi-rank configuration; every other CGX_* knob is
 # unset. "group" is the two-level group or the flat world; "model" the
-# GPT-2 124M the steps train: the default one (bfloat16 activations) or a
-# float32 one. The producer's payload is an f32 product, so the flat SRA
+# GPT-2 124M the steps train: the default one (bfloat16 activations), a
+# float32 one, or one with its parameters cast to bf16 ("bf16p": bf16
+# gradients, synced as bf16 groups, B4 reading the two-level scheme's bf16
+# raw own rows). The producer's payload is an f32 product, so the flat SRA
 # pair trains the float32 model, whose p.grad is that product too.
 MR_CONFIGS = {
     "two_level": ({}, "two_level", "bf16"),
@@ -2129,6 +2511,8 @@ MR_CONFIGS = {
     "sra": ({}, "world", "f32"),
     "sra_producer": ({"CGX_PRODUCER_FUSE": "on"}, "world", "f32"),
     "sra_db": ({"CGX_PALLAS_DB": "on"}, "world", "f32"),
+    "two_level_bf16p": ({}, "two_level", "bf16p"),
+    "alltoall_bf16p": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world", "bf16p"),
 }
 PRODUCED_LAYERS = 12 * len(MM_SHAPES)  # 36 payloads a rank and step
 PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused group
@@ -2182,7 +2566,9 @@ def _configure(knobs: dict) -> None:
 
 
 def _digests(model) -> dict:
-    return {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+    import torch
+
+    return {n: hashlib.sha256(p.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
             for n, p in model.named_parameters()}
 
 
@@ -2201,7 +2587,8 @@ def _plain_cpu(fn, *args, **kw):
 # so steps 2 and 3 run the per-layer configs; step 3's buckets (after the
 # division) are captured and reduced again by the kernels and by the plain
 # versions on the CPU, under each (name, knobs, bucket dtype) of the
-# configuration's reruns. ``ddp_hook`` runs the flat SRA over one host;
+# configuration's reruns: every bucket under the first, every other one
+# under the rest. ``ddp_hook`` runs the flat SRA over one host;
 # ``ddp_hook_hier`` fakes two hosts of two ranks (CGX_SHM_HOST_ID) under the
 # default two-level scheme (intra SRA, cross Ring, leader scheme on). The
 # ``_sr`` configurations rerun each under CGX_STOCHASTIC_ROUNDING=1, the
@@ -2353,13 +2740,17 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
     del ddp, opt, model
     torch.cuda.empty_cache()
     reruns = {}
-    for label, rk, dtype in reruns_of:
+    for ri, (label, rk, dtype) in enumerate(reruns_of):
         _configure({**knobs, **rk})
+        # The configuration's own scheme reduces every captured bucket
+        # again, each other scheme every other one, from the first to the
+        # last (which holds wte and its partial bucket): the script's time.
+        mine = captured if ri == 0 else captured[::2]
         rr_expected = expected_hook_launches(
-            [(key, buf.numel()) for key, buf in captured], MR_WS, rank, dev, hosts)
+            [(key, buf.numel()) for key, buf in mine], MR_WS, rank, dev, hosts)
         t1 = time.perf_counter()
         same, rr_launches = 0, {k: 0 for k in codec_cuda.LAUNCHES}
-        for key, buf in captured:
+        for key, buf in mine:
             x = buf.to(getattr(torch, dtype))
             seeds = _seed_state(backend)
             codec_cuda.reset_launch_counts()
@@ -2370,14 +2761,15 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             _seed_state(backend, seeds)
             plain = _plain_cpu(inner, x.cpu(), bucket_key=key)
             same += _same_bits(card.cpu(), plain)
-        reruns[label] = {"same": same, "buckets": len(captured), "launches": rr_launches,
+        reruns[label] = {"same": same, "buckets": len(mine), "launches": rr_launches,
+                         "values": sum(b.numel() for _, b in mine),
                          "expected": rr_expected, "seconds": time.perf_counter() - t1}
     _configure(knobs)
     return {"losses": losses, "digests": digests, "hook_s": hook_s, "digest_s": digest_s,
             "launches": launches,
             "expected": expected, "calls": len(calls) // (HOOK_STEPS - REGISTRATION_STEP),
             "registered": registered, "want": want, "reruns": reruns,
-            "bucket_values": sum(b.numel() for _, b in captured), "hosts": list(hosts),
+            "hosts": list(hosts),
             "hier": backend._use_hierarchy(None, topo), "threads": sorted(threads),
             "stage3": stage3, "seconds": time.perf_counter() - t_cfg}
 
@@ -2435,23 +2827,41 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         first = grads["wte.embedding"].reshape(-1)[:FLAT_N].contiguous()
         cc = default_compression_config()
         models = {"bf16": (model, opt)}
+        # The bf16-parameter configurations' layout: the same gradients in
+        # bf16 (64 MB slices of 2-byte values), and a 64 MB bf16 slice of
+        # the wte gradient for the kernels-vs-plain check.
+        grads16 = {k: v.to(torch.bfloat16) for k, v in grads.items()}
+        first16 = grads16["wte.embedding"].reshape(-1)[:FLAT16_N].contiguous()
         for name, (knobs, kind, model_kind) in MR_CONFIGS.items():
             _configure(knobs)
             if model_kind not in models:
-                m32 = GPT2(dataclasses.replace(cfg, dtype=torch.float32), device=dev,
-                           generator=torch.Generator().manual_seed(SEED))
+                if model_kind == "bf16p":
+                    models.pop("f32", None)  # the float32 configurations are done
+                    torch.cuda.empty_cache()
+                    m32 = GPT2(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(SEED)).to(torch.bfloat16)
+                else:
+                    m32 = GPT2(dataclasses.replace(cfg, dtype=torch.float32), device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
                 models[model_kind] = (m32, torch.optim.Adam(m32.parameters(), lr=1e-4, eps=1e-8))
             mdl, optim = models[model_kind]
             dense_k = {m.kernel_path: MR_BATCH * seq for m in mdl.modules() if isinstance(m, Dense)}
             group = tl if kind == "two_level" else None
-            expected = (expected_launches(grads, two_level=layout) if kind == "two_level"
-                        else expected_launches(grads, ws=MR_WS, dense_k=dense_k))
+            layout_grads = grads16 if model_kind == "bf16p" else grads
+            expected = (expected_launches(layout_grads, two_level=layout) if kind == "two_level"
+                        else expected_launches(layout_grads, ws=MR_WS, dense_k=dense_k))
             res = {"expected": expected}
-            if name in ("ring", "alltoall"):
-                gpu = allreduce_flat(first, cc, group=group)
-                cpu = _plain_cpu(allreduce_flat, first.cpu(), cc, group=group)
+            check = {"ring": first, "alltoall": first, "two_level_bf16p": first16,
+                     "alltoall_bf16p": first16}.get(name)
+            if check is not None:
+                codec_cuda.reset_launch_counts()
+                gpu = allreduce_flat(check, cc, group=group)
+                res["slice_wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
+                res["slice_launches"] = dict(codec_cuda.LAUNCHES)
+                cpu = _plain_cpu(allreduce_flat, check.cpu(), cc, group=group)
                 res["slice_same"] = _same_bits(gpu.cpu(), cpu)
-                res["slice_n"] = first.numel()
+                res["slice_n"] = check.numel()
+                res["slice_dtype"] = str(check.dtype)
             if name == "sra_producer" and rank == 0:
                 res["check"] = producer_check(mdl, loss_fn, tokens)
             steps = MR_STEPS if name == "two_level" else 1
@@ -2464,6 +2874,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             sync(dev)
             res["step_s"] = (time.perf_counter() - t0) / steps
             res["launches"] = dict(codec_cuda.LAUNCHES)
+            res["wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
             res["reduce_scalar"] = codec_cuda.REDUCE_SCALAR["launches"]
             res["producer"] = dict(fused_producer.COUNTS)
             res["steps"] = steps
@@ -2537,8 +2948,13 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         log(f"    losses {c0['losses']}; launches on rank 0 over {c0['steps']} step(s): "
             f"{c0['launches']}; host-clock step {c0['step_s']:.2f} s (gloo, wire through host memory)")
         if "slice_same" in c0:
-            log(f"    kernels vs plain CPU on a {c0['slice_n']}-value fusion slice: "
-                f"{'bit-identical' if all(o[name]['slice_same'] for o in res) else 'DIFFERENT'} on every rank")
+            log(f"    kernels vs plain CPU on a {c0['slice_n']}-value {c0['slice_dtype']} fusion slice: "
+                f"{'bit-identical' if all(o[name]['slice_same'] for o in res) else 'DIFFERENT'} on every "
+                f"rank; rank 0's launches {({k: v for k, v in c0['slice_launches'].items() if v})}, "
+                f"reading a 16-bit operand {({k: v for k, v in c0['slice_wire16'].items() if v})}")
+        if name.endswith("_bf16p"):
+            log(f"    launches reading a bf16 operand over the step(s) on rank 0: "
+                f"{({k: v for k, v in c0['wire16'].items() if v})}")
         for r, o in enumerate(res):
             c = o[name]
             assert np.all(np.isfinite(c["losses"])), (name, r, c["losses"])
@@ -2551,6 +2967,16 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         log(f"    replicas: all {len(c0['digests'])} parameters bit-identical on the {MR_WS} ranks")
     assert res[0]["two_level"]["launches"]["codec_reduce_rows"] > 0
     assert res[0]["alltoall"]["launches"]["codec_reduce_rows"] > 0
+    # The bf16-parameter steps: every quantize and every B4 launch with a
+    # raw own row (the two-level scheme's intra reduce) reads bf16 itself;
+    # the all-to-all's B4 has no raw row. The same held on the 64 MB slice.
+    for r, o in enumerate(res):
+        tl16, a16 = o["two_level_bf16p"], o["alltoall_bf16p"]
+        assert tl16["wire16"]["codec_quantize"] == tl16["launches"]["codec_quantize"] > 0, (r, tl16)
+        assert tl16["wire16"]["codec_reduce_rows"] == tl16["launches"]["codec_reduce_rows"] > 0, (r, tl16)
+        assert tl16["slice_wire16"]["codec_reduce_rows"] > 0, (r, tl16)
+        assert a16["wire16"]["codec_quantize"] == a16["launches"]["codec_quantize"] > 0, (r, a16)
+        assert a16["wire16"]["codec_reduce_rows"] == 0 < a16["launches"]["codec_reduce_rows"], (r, a16)
     # Every B4 launch of the steps took the full width: the rows the schemes
     # hand it are whole aligned chunks.
     scalar = {(r, name): o[name]["reduce_scalar"] for r, o in enumerate(res) for name in MR_CONFIGS}
@@ -2630,8 +3056,9 @@ def hook_check(res, name: str, smi: str) -> None:
         for step, d in enumerate(h["digests"]):
             diff = [k for k in d if d[k] != h0["digests"][step][k]]
             assert not diff, (name, "replicas", r, step, diff[:5])
-        for label, rr in h["reruns"].items():
-            assert rr["buckets"] == h0["calls"] and rr["same"] == rr["buckets"], (name, r, label, rr)
+        for ri, (label, rr) in enumerate(h["reruns"].items()):
+            assert rr["buckets"] == (h0["calls"] if ri == 0 else (h0["calls"] + 1) // 2), (name, r, label, rr)
+            assert rr["same"] == rr["buckets"], (name, r, label, rr)
             assert rr["launches"] == rr["expected"], (name, r, label, rr["launches"], rr["expected"])
     # The path's kernels each ran in the counted steps: the quantizes and
     # requantizes (B1), the decodes (B2), and in the flat SRA the fused
@@ -2657,7 +3084,7 @@ def hook_check(res, name: str, smi: str) -> None:
     log(f"    replicas: all {len(h0['digests'][0])} parameters bit-identical on the {MR_WS} ranks "
         f"after each of the {HOOK_STEPS} steps")
     for label, rr in h0["reruns"].items():
-        log(f"    step {HOOK_CAPTURE_STEP}'s {rr['buckets']} buckets ({h0['bucket_values']} values) "
+        log(f"    step {HOOK_CAPTURE_STEP}'s {rr['buckets']} of {h0['calls']} buckets ({rr['values']} values) "
             f"reduced again under {label}, kernels vs plain CPU: bit-identical on every rank "
             f"({rr['seconds']:.1f} s on rank 0) [{smi}]; launches on each rank as LaunchModel.hook, "
             f"rank 0's {({k: v for k, v in rr['launches'].items() if v})}")
@@ -2667,25 +3094,42 @@ def hook_check(res, name: str, smi: str) -> None:
 
 
 def ptxas_report(ptxas: str) -> None:
-    """Registers, spills and shared memory of the build, the pipelined
-    kernels' each (the dynamic shared memory at the slice's shapes); the
-    cluster kernels' (B1, B3, B7a, B7c) within and past the register
-    budget."""
-    from torch_cgx_tpu_torch.ops import codec_cuda
+    """Registers, spills and shared memory of the build: the f32
+    instances against ``csrc/ptxas_f32.json`` (the source before the 16-bit
+    instances existed, ``tools/ptxas_table.py``), the differences logged
+    (``test_f32_instances_keep_their_registers`` holds them); the pipelined
+    kernels' shared memory at the slice's shapes; the cluster kernels' (B1,
+    B3, B7a, B7c) within and past the register budget, round to nearest and
+    stochastic, f32 and 16-bit; B4's by width, raw row and row count."""
+    from pathlib import Path
 
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    blocks = ptxas.split("Compiling entry function")[1:]
-    spills = [(b.split("'")[1], ln.strip()) for b in blocks for ln in b.splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    log(f"  ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers a thread; "
-        f"{len(spills)} with spills")
-    for fn, ln in spills:
-        found = re.search(r"(cgx_\w+?_kernel)I(\w+?)EE", fn)
-        name = found.group(1) + "<" + ",".join(re.findall(r"L\w(\d+)E", found.group(2) + "E")) + ">" if found else fn
-        log(f"    {name}: {ln}")
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import ptxas_table
+
+    table = codec_cuda.ptxas_instances(ptxas)
+    f32 = {k: v for k, v in table.items() if not k.endswith(":16")}
+    spilled = {k: v for k, v in f32.items() if v["spill_stores"] or v["spill_loads"]}
+    log(f"  ptxas: {len(table)} kernels ({len(table) - len(f32)} 16-bit), at most "
+        f"{max(v['registers'] for v in table.values())} registers a thread; {len(spilled)} f32 "
+        f"instances with spills")
+    for k, v in spilled.items():
+        log(f"    {k}: {v['spill_stores']} bytes spill stores, {v['spill_loads']} bytes spill loads")
+    baseline = json.loads((Path(codec_cuda.SOURCE).parent / "ptxas_f32.json").read_text())
+    diff = ptxas_table.compare(table, baseline)
+    log(f"  f32 instances against csrc/ptxas_f32.json: {len(baseline) - len(diff)}/{len(baseline)} "
+        f"with equal registers, spills and static shared memory"
+        + (f"; first differences {diff[:5]}" if diff else ""))
+
+    def of(kernel, wire16=False):
+        return {k: v for k, v in table.items()
+                if k.startswith(kernel + "<") and k.endswith(":16") == wire16}
+
+    def args(k):
+        return [int(a) for a in k.split("<")[1].split(">")[0].split(",")]
+
     chunks = FLAT_N // (32 * BUCKET)
-    mine = [b for b in blocks if "cgx_dequantize_db_kernel" in b.split("'")[1]]
-    r = [int(x) for b in mine for x in re.findall(r"Used (\d+) registers", b)]
+    mine = of("cgx_dequantize_db_kernel")
+    r = [v["registers"] for v in mine.values()]
     tc = codec_cuda._pipe_tc(chunks, codec_cuda.db_tc_cap("dequantize", BITS, BUCKET))
     log(f"  cgx_dequantize_db_kernel: {len(mine)} instances, {min(r)}-{max(r)} registers a thread, "
         f"{codec_cuda.db_smem_bytes('dequantize', tc, BITS, BUCKET)} bytes dynamic shared memory "
@@ -2695,75 +3139,72 @@ def ptxas_report(ptxas: str) -> None:
     # shape, beside the static shared memory the Python geometry assumes.
     for kernel, short in (("cgx_quantize_db_cluster_kernel", "quantize"),
                           ("cgx_sra_epilogue_db_cluster_kernel", "epilogue")):
-        mine = [b for b in blocks if kernel in b.split("'")[1]]
-        static = max([int(x) for b in mine for x in re.findall(r"(\d+) bytes smem", b)] or [0])
-        ring = codec_cuda.db_ring(short, chunks, BITS, BUCKET)
-        dyn = {p: codec_cuda.db_smem_bytes(short, 1, BITS, BUCKET, chunks=chunks, pack=p)
-               for p in codec_cuda.PACKS}
-        log(f"  {kernel}: {len(mine)} instances, {static} bytes static shared memory "
-            f"(the geometry assumes {codec_cuda.DB_CLUSTER_STATIC_BYTES}); at {chunks} chunks of "
-            f"{BUCKET} at {BITS} bits {ring.slots} slot(s) of {ring.slot_bytes} bytes, {dyn['sum']} "
-            f"bytes dynamic ({dyn['butterfly']} butterfly), {ring.geometry}")
-        # 64 round-to-nearest instances and 64 stochastic ones.
-        assert len(mine) == 128 and static <= codec_cuda.DB_CLUSTER_STATIC_BYTES, (kernel, len(mine), static)
+        for wire16, elem in ((False, 4), (True, 2)):
+            mine = of(kernel, wire16)
+            static = max(v["smem"] for v in mine.values())
+            ring = codec_cuda.db_ring(short, chunks, BITS, BUCKET, elem_size=elem)
+            dyn = {p: codec_cuda.db_smem_bytes(short, 1, BITS, BUCKET, chunks=chunks, pack=p,
+                                               elem_size=elem) for p in codec_cuda.PACKS}
+            log(f"  {kernel} ({'16-bit' if wire16 else 'f32'}): {len(mine)} instances, {static} "
+                f"bytes static shared memory (the geometry assumes "
+                f"{codec_cuda.DB_CLUSTER_STATIC_BYTES}); at {chunks} chunks of {BUCKET} at {BITS} bits "
+                f"{ring.slots} slot(s) of {ring.slot_bytes} bytes, {dyn['sum']} bytes dynamic "
+                f"({dyn['butterfly']} butterfly), {ring.geometry}")
+            # 64 round-to-nearest instances and 64 stochastic ones.
+            assert len(mine) == 128 and static <= codec_cuda.DB_CLUSTER_STATIC_BYTES, (kernel, len(mine))
     # The quantizing kernels by (encode, pack) lowering: registers and
     # static shared memory over their bit widths.
     for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
                    "cgx_matmul_quantize_kernel",
                    "cgx_quantize_db_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
         by = {}
-        for b in blocks:
-            found = re.search(kernel + r"ILi\d+ELi(\d)ELi(\d)E", b.split("'")[1])
-            if found:
-                key = ("div", "mul")[int(found.group(1))] + "/" + ("sum", "butterfly")[int(found.group(2))]
-                by.setdefault(key, []).extend(
-                    (int(x), int(y)) for x, y in zip(re.findall(r"Used (\d+) registers", b),
-                                                     re.findall(r"(\d+) bytes smem", b)))
+        for k, v in of(kernel).items():
+            a = args(k)
+            by.setdefault(("div", "mul")[a[1]] + "/" + ("sum", "butterfly")[a[2]], []).append(
+                (v["registers"], v["smem"]))
         log(f"  {kernel}: " + "; ".join(
             f"{k} {min(v)[0]}-{max(v)[0]} registers, {max(s for _, s in v)} bytes static"
             for k, v in sorted(by.items())))
         assert len(by) == 4, (kernel, sorted(by))
     for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
                    "cgx_quantize_db_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
-        for reread, what in ((0, "one position (32 values) a thread"),
-                             (1, "REREAD, positions in rounds")):
-            for stoch, how in ((0, "round to nearest"), (1, "stochastic")):
-                mine = [b for b in blocks if re.search(
-                    kernel + rf"ILi\d+ELi\dELi\dELb{reread}ELb{stoch}E", b.split("'")[1])]
-                r = [int(x) for b in mine for x in re.findall(r"Used (\d+) registers", b)]
-                spill = [b for b in mine if "0 bytes spill stores, 0 bytes spill loads" not in b]
-                most = max([int(x) for b in spill for x in re.findall(r"(\d+) bytes spill stores", b)]
-                           or [0])
-                log(f"  {kernel} ({what}, {how}): {len(mine)} instances, {min(r)}-{max(r)} "
-                    f"registers a thread, {len(spill)} with spills (at most {most} bytes stored); "
-                    f"at most 512 threads a CTA")
-                assert len(mine) == 32, (kernel, reread, stoch, len(mine))
-    # B4: registers and spills by width, raw row and row count (0: any).
+        for wire16 in (False, True):
+            for reread, what in ((0, "one position (32 values) a thread"),
+                                 (1, "REREAD, positions in rounds")):
+                for stoch, how in ((0, "round to nearest"), (1, "stochastic")):
+                    mine = [v for k, v in of(kernel, wire16).items() if args(k)[3:5] == [reread, stoch]]
+                    r = [v["registers"] for v in mine]
+                    spill = [v for v in mine if v["spill_stores"] or v["spill_loads"]]
+                    most = max([v["spill_stores"] for v in spill] or [0])
+                    log(f"  {kernel} ({'16-bit' if wire16 else 'f32'}, {what}, {how}): {len(mine)} "
+                        f"instances, {min(r)}-{max(r)} registers a thread, {len(spill)} with spills "
+                        f"(at most {most} bytes stored); at most 512 threads a CTA")
+                    assert len(mine) == 32, (kernel, wire16, reread, stoch, len(mine))
+    # B4: registers and spills by width, raw row (f32 or 16-bit) and row
+    # count (0: any).
     by = {}
-    for b in blocks:
-        found = re.search(r"cgx_reduce_rows_kernelILi(\d)ELi(\d+)ELi(\d)ELb(\d)EE", b.split("'")[1])
-        if found:
-            by.setdefault((int(found.group(3)), int(found.group(4)), int(found.group(2))), []).append(
-                (int(re.findall(r"Used (\d+) registers", b)[0]),
-                 "0 bytes spill stores, 0 bytes spill loads" not in b))
-    for vec, raw in ((4, 1), (4, 0), (1, 1), (1, 0)):
-        log(f"  cgx_reduce_rows_kernel vec={vec} raw row {'yes' if raw else 'no'}, registers over "
-            f"bits 1-8, by row count: " + "; ".join(
-                f"{rows or 'any'}: {min(v)[0]}-{max(v)[0]}" + (f" ({sum(sp for _, sp in v)} spill)"
-                                                              if any(sp for _, sp in v) else "")
-                for (vv, rr, rows), v in sorted(by.items(), key=lambda kv: (kv[0][2] or 99))
-                if (vv, rr) == (vec, raw)))
-    # Full width: bits 1-8 x rows 1-8 and any x raw row or not; scalar
-    # width: the any-count instance alone.
-    assert sum(len(v) for k, v in by.items() if k[0] == 4) == 144, by
-    assert sorted(k for k in by if k[0] == 1) == [(1, 0, 0), (1, 1, 0)], sorted(by)
+    for wire16 in (False, True):
+        for k, v in of("cgx_reduce_rows_kernel", wire16).items():
+            _, rows, vec, raw = args(k)
+            by.setdefault((vec, "16-bit" if wire16 else ("f32" if raw else "no"), rows), []).append(
+                (v["registers"], bool(v["spill_stores"] or v["spill_loads"])))
+    for vec in (4, 1):
+        for raw in ("f32", "16-bit", "no"):
+            log(f"  cgx_reduce_rows_kernel vec={vec} raw row {raw}, registers over bits 1-8, by row "
+                f"count: " + "; ".join(
+                    f"{rows or 'any'}: {min(v)[0]}-{max(v)[0]}"
+                    + (f" ({sum(sp for _, sp in v)} spill)" if any(sp for _, sp in v) else "")
+                    for (vv, rr, rows), v in sorted(by.items(), key=lambda kv: (kv[0][2] or 99))
+                    if (vv, rr) == (vec, raw)))
+    # Full width: bits 1-8 x rows 1-8 and any x raw row (f32, 16-bit) or
+    # not; scalar width: the any-count instance alone.
+    assert sum(len(v) for k, v in by.items() if k[0] == 4) == 216, by
+    assert sorted(k for k in by if k[0] == 1) == [(1, "16-bit", 0), (1, "f32", 0), (1, "no", 0)], sorted(by)
     assert all(len(by[k]) == 8 for k in by if k[0] == 1), by
     by = {}
-    for b in blocks:
-        found = re.search(r"cgx_quantize_variant_kernelILi(\d)ELi(\d)EE", b.split("'")[1])
-        if found:
-            name = ("nometa", "metalane", "read")[int(found.group(2))]
-            by.setdefault(name, {})[int(found.group(1))] = int(re.findall(r"Used (\d+) registers", b)[0])
+    for k, v in of("cgx_quantize_variant_kernel").items():
+        bits, variant = args(k)
+        by.setdefault(("nometa", "metalane", "read")[variant], {})[bits] = v["registers"]
     log("  cgx_quantize_variant_kernel registers by bits: " + "; ".join(
         f"{k} " + " ".join(f"{bits}:{r}" for bits, r in sorted(v.items())) for k, v in sorted(by.items())))
     assert sum(len(v) for v in by.values()) == 24, by
@@ -2798,24 +3239,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("== 1. device")
+    phase("1. device")
     smi = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {name}; "
         f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
 
-    log("== 2. build")
+    phase("2. build")
     t0 = time.perf_counter()
     lib = codec_cuda.build(force=True)
     log(f"  nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s")
     ptxas_report(str(codec_cuda.BUILD_LOG.get("ptxas", "")))
     philox_result = start_philox_sass(lib)
 
-    log("== 3. kernels against their plain versions (pipelined ones also against the single-stage)")
+    phase("3. kernels against their plain versions (pipelined ones also against the single-stage)")
     max_err = check_kernels(dev, FLAT_N, TAIL_N, SRA_WS)
     torch.cuda.synchronize()
 
-    log("== 4. GPT-2 124M slice (CGX_PALLAS_DB=off, then the pipelined path, then the lowerings, "
+    phase("4. GPT-2 124M slice (CGX_PALLAS_DB=off, then the pipelined path, then the lowerings, "
         "then stochastic rounding)")
     cfg = GPT2Config.small()
     sl = gpt2_slice(dev, cfg, BATCH, SEQ, STEPS)
@@ -2824,9 +3265,13 @@ def main() -> int:
     sr = stochastic_phase(dev, cfg, sl)
     del os.environ["CGX_STOCHASTIC_ROUNDING"]
     torch.cuda.empty_cache()
+    bf = bf16_phase(dev, cfg, sl["tokens"], STEPS)
+    torch.cuda.empty_cache()
 
-    log("== 5. times")
+    phase("5. times")
+    t5 = time.perf_counter()
     philox = philox_result()
+    log(f"  waited {time.perf_counter() - t5:.1f} s for the SASS count")
     kern = time_kernels(dev, FLAT_N, name)
     sr_times = time_stochastic(dev, FLAT_N, name, philox)
     time_step_shapes(dev, name)
@@ -2852,19 +3297,36 @@ def main() -> int:
                  lambda: sr["step"](sr["tokens"]))
     os.environ["CGX_PALLAS_DB"] = "off"
     del os.environ["CGX_STOCHASTIC_ROUNDING"], sr
+    wire16 = time_wire16(dev, name)
+    b_plain, b_codec, b_db, b_plain_step = time_steps(bf)
+    log(f"  train step, GPT-2 124M {BATCH}x{SEQ}, bf16 parameters: {b_plain:.2f} ms without the codec, "
+        f"{b_codec:.2f} ms with it (+{100 * (b_codec - b_plain) / b_plain:.1f}%), {b_db:.2f} ms with it "
+        f"under CGX_PALLAS_DB=on (+{100 * (b_db - b_plain) / b_plain:.1f}%); float32 parameters "
+        f"{plain_ms:.2f} / {codec_ms:.2f} / {db_ms:.2f} ms (above)")
+    for k, b in shapebench_step_bounds(name, "bfloat16").items():
+        log(f"  bf16 parameters, {k} a step: {b['launches']} launches, bound {b['bound_ms']:.4f} ms "
+            f"(step_bounds, {b['bytes']} bytes)")
+    host_split({"float32 parameters": sl, "bf16 parameters": bf})
+    profile_step("bf16-parameter step without the codec", b_plain_step)
+    profile_step("bf16-parameter step with the codec", lambda: bf["step"](bf["tokens"]))
+    os.environ["CGX_PALLAS_DB"] = "on"
+    profile_step("bf16-parameter step with the codec, CGX_PALLAS_DB=on",
+                 lambda: bf["step"](bf["tokens"]))
+    os.environ["CGX_PALLAS_DB"] = "off"
+    del bf, b_plain_step
     launches = dict(sl["launches"])
     for k in DB_KEYS:
         launches[k] = db["launches"][k]
     del sl, plain_step
     torch.cuda.empty_cache()
 
-    log("== 6. qbench: the quantize variants at 128 MB, 4 bits, bucket 512, k = 8 (sra_epilogue ws 8)")
+    phase("6. qbench: the quantize variants at 128 MB, 4 bits, bucket 512, k = 8 (sra_epilogue ws 8)")
     qb = qbench_phase()
     launches["codec_quantize_variant"] = qb["launches"]
     torch.cuda.empty_cache()
 
-    log(f"== 7. multi-rank: {MR_WS} ranks on the card (cross {MR_WS // MR_INTRA} x intra "
-        f"{MR_INTRA}), gloo, GPT-2 124M, {MR_BATCH}x{SEQ} tokens a rank")
+    phase(f"7. multi-rank: {MR_WS} ranks on the card (cross {MR_WS // MR_INTRA} x intra "
+          f"{MR_INTRA}), gloo, GPT-2 124M, {MR_BATCH}x{SEQ} tokens a rank")
     t7 = time.perf_counter()
     mr = multirank_phase(smi=smi)
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s [{smi}]")
@@ -2887,7 +3349,7 @@ def main() -> int:
             "replaces": TPU_KERNELS[r["name"]], "launches": launches[r["name"]],
             "max_abs_err": max_err[r["name"]], "ms": r["ms"], "burst_ms": r["burst_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **sr_times.get(r["name"], {}),
+            **sr_times.get(r["name"], {}), **wire16.get(r["name"], {}),
         })
     assert len(records) == len(TPU_KERNELS), records
     print(json.dumps({"kernels": records}))

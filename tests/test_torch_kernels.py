@@ -37,8 +37,12 @@ def dev(tmp_path, monkeypatch):
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype:
+        return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype in (torch.bfloat16, torch.float16):
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
@@ -101,11 +105,21 @@ def test_launch_counter_counts_only_kernel_launches(dev):
 
 
 def test_cuda_operands_refuse_unported_modes(dev, monkeypatch):
-    """bf16 buffers are still refused; the mul encode runs the kernel's mul
+    """A bf16 buffer runs the kernel (the 16-bit wire dtypes are ported),
+    bit-identical to its plain version, the meta in bf16; the int8 fold is
+    still refused on the card; the mul encode runs the kernel's mul
     lowering, bit-identical to its plain version."""
     x = torch.randn(32 * 512, device=dev)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        codec_cuda.quantize_batch(x.to(torch.bfloat16)[None], 4, 512)
+    codec_cuda.reset_launch_counts()
+    q = codec_cuda.quantize_batch(x.to(torch.bfloat16)[None], 4, 512)
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_quantize"] == 1 and q.meta.dtype == torch.bfloat16
+    w, m = codec_cuda.quantize_chunks_plain(x.cpu().to(torch.bfloat16), 4, 512)
+    assert _bits_equal(q.packed[0], w) and _bits_equal(q.meta[0], m.to(torch.bfloat16))
+    monkeypatch.setenv("CGX_SRA_ACCUM", "int8")
+    with pytest.raises(NotImplementedError, match="int8"):
+        codec_cuda.reduce_rows_batch(codec_cuda.quantize_batch(torch.stack([x, x]), 4, 512))
+    monkeypatch.delenv("CGX_SRA_ACCUM")
     monkeypatch.setenv("CGX_CODEC_ENCODE", "mul")
     q = codec_cuda.quantize_batch(x[None], 4, 512)
     w, m = codec_cuda.quantize_chunks_plain(x.cpu(), 4, 512, encode="mul")
@@ -1240,3 +1254,277 @@ def test_stochastic_fused_epilogue_equals_staged_and_refusals(dev, monkeypatch):
     with pytest.raises(NotImplementedError, match="stochastic"):
         codec_cuda.matmul_quantize_chunks(torch.randn(64, 128, device=dev),
                                           torch.randn(64, 128, device=dev), 2, 4, 512)
+
+
+# ---------------------------------------------------------------------------
+# Sub-f32 wire dtypes: B1/B5 and B7a read a bf16 or f16 input, B3, B7c and
+# B4 a bf16 or f16 raw own row, inside the kernels; B3 and B7c round the
+# folded chunk through the wire dtype before the requantize. Each against
+# its plain version on the card's tensors (NaN payloads and conversions as
+# the card does them), bit for bit, at every width, within and past the
+# register budget, in every lowering, round to nearest and stochastic.
+# ---------------------------------------------------------------------------
+
+SUBF32 = [torch.bfloat16, torch.float16]
+
+
+def _wire_operands(n: int, bucket: int, bits: int, dtype: torch.dtype):
+    """normal, adversarial and special data in ``dtype`` (f16 takes the
+    adversarial ranges' overflow as inf, which both versions see alike).
+    Values below the dtype's range become zeros of their sign, so a bucket
+    can end up holding +0 and -0 as its extreme, whose sign is undefined
+    (torch.amax and the kernels may take either; ``_specials`` keeps its
+    f32 buckets free of such extremes): in a bucket holding both, the -0
+    become +0."""
+    out = []
+    for x in _operands(n, bucket, bits):
+        t = torch.from_numpy(x).to(dtype)
+        b = t.view(-1, bucket)
+        neg = (b == 0) & torch.signbit(b)
+        both = (neg.any(dim=1) & ((b == 0) & ~torch.signbit(b)).any(dim=1))[:, None]
+        b[neg & both] = 0.0
+        out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("bucket", [96, 128, 512, 1760, 4096, 16384])
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("dtype", SUBF32, ids=["bf16", "f16"])
+def test_subf32_quantize_matches_plain(dev, dtype, bits, bucket):
+    """B1 and B7a on a bf16 or f16 input at every width, at buckets of 1-8
+    CTAs a chunk and past the register budget, in every lowering, round to
+    nearest and stochastic, on normal, adversarial and special data: one
+    launch a call, the plain version's bytes, B7a's equal to B1's."""
+    for x in _wire_operands(3 * 32 * bucket, bucket, bits, dtype):
+        x = x.to(dev)
+        for enc, pack in _lowerings():
+            for seed in (None, SR_SEED):
+                codec_cuda.reset_launch_counts()
+                w, m = codec_cuda.quantize_chunks(x, bits, bucket, encode=enc, pack=pack, seed=seed)
+                dw, dm = codec_cuda.quantize_chunks_db(x, bits, bucket, 1, encode=enc, pack=pack,
+                                                       seed=seed)
+                torch.cuda.synchronize()
+                assert codec_cuda.LAUNCHES["codec_quantize"] == 1
+                assert codec_cuda.LAUNCHES["codec_quantize_db"] == 1
+                pw, pm = codec_cuda.quantize_chunks_plain(x, bits, bucket, encode=enc, seed=seed)
+                assert _bits_equal(w, pw) and _bits_equal(m, pm), (enc, pack, seed)
+                assert _bits_equal(dw, pw) and _bits_equal(dm, pm), (enc, pack, seed)
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 1760, 8192])
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("dtype", SUBF32, ids=["bf16", "f16"])
+def test_subf32_epilogue_matches_plain(dev, dtype, bits, bucket):
+    """B3 and B7c in a bf16 or f16 wire dtype at ws 1, 4 and 8, without the
+    raw row and with it (in the wire dtype) at row 0 and in the middle, in
+    every lowering, round to nearest and stochastic; row 0 adversarial, row
+    1 special: the plain version's bytes, B7c's equal to B3's."""
+    n = 3 * 32 * bucket
+    normal, adversarial, special = _wire_operands(n, bucket, bits, dtype)
+    for ws, owns in ((1, [None, 0]), (4, [None, 0, 2]), (8, [None, 5])):
+        rows = torch.stack([(normal.float() * (r + 1)).to(dtype) for r in range(ws)])
+        rows[0] = adversarial
+        if ws > 1:
+            rows[1] = special
+        rows = rows.to(dev)
+        q = codec_cuda.quantize_batch(rows, bits, bucket)
+        meta = q.meta.float()
+        for own in owns:
+            raw, o = (None, -1) if own is None else (rows[own], own)
+            for enc, pack in _lowerings():
+                for seed in (None, SR_SEED):
+                    kw = dict(cast_dtype=dtype, encode=enc, pack=pack, seed=seed)
+                    w, m = codec_cuda.sra_epilogue_chunks(q.packed, meta, raw, o, bits, bucket, **kw)
+                    dw, dm = codec_cuda.sra_epilogue_chunks_db(q.packed, meta, raw, o, bits, bucket,
+                                                               1, **kw)
+                    pw, pm = codec_cuda.sra_epilogue_chunks_plain(
+                        q.packed, meta, raw, o, bits, bucket, dtype, enc, seed=seed)
+                    assert _bits_equal(w, pw) and _bits_equal(m, pm), (ws, own, enc, pack, seed)
+                    assert _bits_equal(dw, pw) and _bits_equal(dm, pm), (ws, own, enc, pack, seed)
+
+
+@pytest.mark.parametrize("bucket,chunks", [(512, 18), (544, 300), (1760, 144), (16384, 5)])
+@pytest.mark.parametrize("dtype", SUBF32, ids=["bf16", "f16"])
+def test_subf32_geometries_tiles_and_rings(dev, dtype, bucket, chunks):
+    """Every cluster size the bucket takes and the wrappers' geometry past
+    the register budget, forced, tiles of one and two chunks (where two
+    divide them), ring depths 1-8 of B7a (slots of 32 x T 16-bit values)
+    and B7c, both packs, round to nearest and stochastic: the bytes do not
+    move."""
+    n = chunks * 32 * bucket
+    rng = np.random.default_rng(bucket)
+    rows = torch.from_numpy(np.stack([rng.standard_normal(n).astype(np.float32) * (r + 1)
+                                      for r in range(4)])).to(dtype).to(dev)
+    q = codec_cuda.quantize_batch(rows, 4, bucket)
+    meta = q.meta.float()
+    geoms = set(codec_cuda.cluster_geometries(bucket)) | {
+        codec_cuda.cluster_geometry(chunks, bucket, 4), codec_cuda.db_geometry(chunks, bucket, 4)}
+    for seed in (None, SR_SEED):
+        pw, pm = codec_cuda.quantize_chunks_plain(rows[0], 4, bucket, seed=seed)
+        ew, em = codec_cuda.sra_epilogue_chunks_plain(q.packed, meta, rows[2], 2, 4, bucket, dtype,
+                                                      seed=seed)
+        for g in geoms:
+            w, m = codec_cuda._launch_quantize(rows[0], 4, bucket, "div", "sum", g, seed=seed)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (g, seed)
+            w, m = codec_cuda._launch_epilogue(q.packed, meta, rows[2], 2, 4, bucket, "div", "sum", g,
+                                               seed=seed, cast_dtype=dtype)
+            assert _bits_equal(w, ew) and _bits_equal(m, em), (g, seed)
+            if (bucket // g.k) % g.threads:
+                continue
+            for tc in (t for t in (1, 2) if chunks % t == 0):  # a tile divides the chunks
+                for slots in (1, 2, 4, 8):
+                    for pack in codec_cuda.PACKS:
+                        if (codec_cuda.DB_BAR_BYTES + slots * 64 * g.threads + 128 * g.threads
+                                + codec_cuda.DB_CLUSTER_STATIC_BYTES <= codec_cuda.SMEM_BLOCK_BYTES):
+                            w, m = codec_cuda._launch_quantize_db(rows[0], 4, bucket, tc, "div",
+                                                                  pack, g, slots, seed=seed)
+                            assert _bits_equal(w, pw) and _bits_equal(m, pm), (g, tc, slots, pack)
+                        w, m = codec_cuda._launch_epilogue_db(q.packed, meta, rows[2], 2, 4, bucket,
+                                                              tc, "div", pack, g, slots, seed=seed,
+                                                              cast_dtype=dtype)
+                        assert _bits_equal(w, ew) and _bits_equal(m, em), (g, tc, slots, pack)
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8, 11])
+@pytest.mark.parametrize("dtype", SUBF32, ids=["bf16", "f16"])
+def test_subf32_reduce_rows_every_row_count_and_width(dev, dtype, rows, bits):
+    """B4 with a bf16 or f16 raw own row at each templated row count and a
+    generic one, in every position, at both widths: the plain version's
+    bytes."""
+    x, words, meta = _reduce_operands(dev, rows, 3, bits, 128, 100 * rows + bits)
+    x = x.to(dtype)
+    for own in range(rows):
+        got, scalar = _reduce_both_widths(words, meta, x[own], own, bits, 128)
+        want = codec_cuda.reduce_rows_chunks_plain(words, meta, x[own], own, bits, 128)
+        assert _bits_equal(got, want) and _bits_equal(scalar, want), own
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+@pytest.mark.parametrize("dtype", SUBF32, ids=["bf16", "f16"])
+def test_subf32_reduce_rows_alignment_by_element_count(dev, dtype, offset):
+    """A 16-bit raw row is read four values (8 bytes) a load at full width:
+    views 0 and 4 values past an aligned start take it, 1 and 2 values past
+    take the scalar width (counted in REDUCE_SCALAR); every result the plain
+    version's; special values in the raw row."""
+    rows, own = 4, 2
+    x, words, meta = _reduce_operands(dev, rows, 3, 4, 512, 40 + offset)
+    raw_val = torch.from_numpy(_specials(x.shape[1], 512, offset)).to(dtype).to(dev)
+    buf = torch.empty(x.shape[1] + 8, dtype=dtype, device=dev)
+    buf[offset:offset + x.shape[1]] = raw_val
+    raw = buf[offset:offset + x.shape[1]]
+    want = codec_cuda.reduce_rows_chunks_plain(words, meta, raw, own, 4, 512)
+    codec_cuda.reset_launch_counts()
+    got = codec_cuda.reduce_rows_chunks(words, meta, raw, own, 4, 512)
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_reduce_rows"] == 1
+    assert codec_cuda.REDUCE_SCALAR["launches"] == int(offset % 4 != 0)
+    assert _bits_equal(got, want)
+    if offset % 4:
+        with pytest.raises(RuntimeError, match="codec_reduce_rows"):
+            codec_cuda._launch_reduce(words, meta, raw, own, 4, 512, torch.empty_like(want), 4)
+
+
+@pytest.mark.parametrize("dtype", SUBF32, ids=["bf16", "f16"])
+def test_subf32_batch_functions_match_the_plain_path(dev, dtype, monkeypatch):
+    """The batch functions on a bf16 or f16 buffer with a dense tail, a
+    residual, a sub-f32 accumulator and the fused epilogue and reduce with
+    a raw row in the wire dtype, on the card and through the plain versions
+    on the CPU: bit for bit; the meta in the tensor's dtype; the kernels
+    read the 16-bit operands themselves (no launch sees an f32 copy)."""
+    monkeypatch.setenv("CGX_SRA_EPILOGUE_MIN_ELEMS", "0")
+    cc = CompressionConfig(bits=4, bucket_size=512)
+    rng = np.random.default_rng(5)
+    n = 32 * 512 + 26 * 512 + 100
+    x = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32)).to(dtype)
+    acc = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32)).to(dtype)
+    q = codec_cuda.quantize_batch(x.to(dev), 4, 512)
+    qc = codec_cuda.quantize_batch(x, 4, 512)
+    assert q.meta.dtype == dtype and _bits_equal(q.packed, qc.packed) and _bits_equal(q.meta, qc.meta)
+    assert _bits_equal(codec_cuda.dequantize_batch(q, add_to=acc.to(dev)),
+                       codec_cuda.dequantize_batch(qc, add_to=acc))
+    rows = torch.from_numpy(rng.standard_normal((4, 4 * 32 * 512)).astype(np.float32)).to(dtype)
+    for seed in (None, SR_SEED):
+        qd, qh = dispatch.quantize_batch(rows.to(dev), cc), dispatch.quantize_batch(rows, cc)
+        assert codec_cuda.supports_reduce(qd)
+        got = codec_cuda.sra_epilogue_batch(qd, raw_row=rows[1].to(dev), own_idx=1, out_dtype=dtype,
+                                            seed=seed)
+        want = codec_cuda.sra_epilogue_batch(qh, raw_row=rows[1], own_idx=1, out_dtype=dtype,
+                                             seed=seed)
+        assert got.meta.dtype == dtype
+        assert _bits_equal(got.packed, want.packed) and _bits_equal(got.meta, want.meta), seed
+        assert _bits_equal(codec_cuda.reduce_rows_batch(qd, raw_row=rows[3].to(dev), own_idx=3),
+                           codec_cuda.reduce_rows_batch(qh, raw_row=rows[3], own_idx=3))
+
+
+def test_subf32_refusals(dev):
+    """Another dtype raises ValueError naming it; an epilogue's raw row in
+    another dtype than the wire dtype is refused on the card; the
+    matmul-quantize (B8) stays float32."""
+    x = torch.randn(32 * 512, device=dev)
+    with pytest.raises(ValueError, match="float64"):
+        codec_cuda.quantize_chunks(x.double(), 4, 512)
+    with pytest.raises(ValueError, match="float64"):
+        codec_cuda.reduce_rows_chunks(torch.zeros(2, 4 * 512, dtype=torch.int32, device=dev),
+                                      torch.zeros(2, 32, 2, device=dev), x.double(), 0, 4, 512)
+    q = codec_cuda.quantize_batch(torch.stack([x, x]).to(torch.bfloat16), 4, 512)
+    with pytest.raises(ValueError, match="wire dtype"):
+        codec_cuda.sra_epilogue_chunks(q.packed, q.meta.float(), x, 0, 4, 512,
+                                       cast_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="int8"):
+        codec_cuda.sra_epilogue_chunks(q.packed, q.meta.float(), None, -1, 4, 512,
+                                       cast_dtype=torch.int8)
+    with pytest.raises(TypeError, match="float32"):
+        codec_cuda.matmul_quantize_chunks(torch.randn(64, 128, device=dev).bfloat16(),
+                                          torch.randn(64, 128, device=dev).bfloat16(), 2, 4, 512)
+
+
+def test_tiny_bf16_param_step_runs_the_kernels(dev, monkeypatch):
+    """GPT-2 tiny with its parameters cast to bf16 on the card: one gradient
+    sync of the bf16 tree bit-identical to the plain versions' on the CPU,
+    the quantize and epilogue kernels launched on bf16 operands, finite
+    losses over three steps."""
+    for k, v in {
+        "CGX_DEBUG_FORCE_CODEC": "1", "CGX_COMPRESSION_QUANTIZATION_BITS": "4",
+        "CGX_COMPRESSION_BUCKET_SIZE": "128", "CGX_STANDALONE_LAYER_ELEMS": "40000",
+        "CGX_SRA_EPILOGUE_MIN_ELEMS": "0",
+    }.items():
+        monkeypatch.setenv(k, v)
+    model = GPT2(GPT2Config.tiny(), device=dev,
+                 generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    tokens = torch.randint(0, 512, (2, 64), generator=torch.Generator().manual_seed(1))
+    lm_loss(model(tokens.to(dev)), tokens.to(dev)).backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    assert {g.dtype for g in grads.values()} == {torch.bfloat16}
+    codec_cuda.reset_launch_counts()
+    synced = gradient_sync(grads)
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_quantize"] > 0 and codec_cuda.LAUNCHES["codec_sra_epilogue"] > 0
+    monkeypatch.setenv("CGX_SRA_EPILOGUE", "fused")
+    plain = gradient_sync({k: v.cpu() for k, v in grads.items()})
+    monkeypatch.delenv("CGX_SRA_EPILOGUE")
+    for k in grads:
+        assert synced[k].dtype == torch.bfloat16 and _bits_equal(synced[k], plain[k]), k
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+    step = make_train_step(model, lambda m, t: lm_loss(m(t), t), opt, device=dev)
+    losses = [float(step(tokens)) for _ in range(3)]
+    assert np.all(np.isfinite(losses)), losses
+
+
+def test_f32_instances_keep_their_registers(dev):
+    """The f32 instances' registers and spills equal those of the source
+    before the 16-bit instances existed (``csrc/ptxas_f32.json``, written
+    by ``tools/ptxas_table.py``): the 16-bit instances add code beside
+    them, not to them. Uses this process's build report, or builds anew."""
+    import json
+    from pathlib import Path
+
+    from torch_cgx_tpu_torch.tools import ptxas_table
+
+    if "ptxas" not in codec_cuda.BUILD_LOG:
+        codec_cuda.build(force=True)
+    table = codec_cuda.ptxas_instances(codec_cuda.BUILD_LOG["ptxas"])
+    baseline = json.loads((Path(codec_cuda.SOURCE).parent / "ptxas_f32.json").read_text())
+    assert len(baseline) > 700
+    assert ptxas_table.compare(table, baseline) == []
+    assert sum(k.endswith(":16") for k in table) == 4 * 128 + 80

@@ -102,9 +102,32 @@
 // the epilogue's, which are only the packed rows. The stochastic
 // instances keep the deterministic ones' registers (64 a thread in the
 // body) and spills (PERF.md, section 6).
+//
+// Wire dtypes (the JAX package syncs a bf16 or f16 leaf in its own dtype,
+// parallel/allreduce.py): B1/B5 and B7a read their input, and B3, B7c and
+// B4 their raw own row, as float32 or as a 16-bit float, and upcast each
+// value exactly in registers (codec_pallas.py _quantize_kernel,
+// _quantize_flat_kernel and _raw4_cast read the tensor's dtype inside the
+// kernel). B3 and B7c round each folded value through the wire dtype
+// (round to nearest even) before the meta and the levels, where the TPU
+// kernels call _requant_cast: the staged path quantizes
+// reduced.astype(x.dtype). The meta, levels and outputs stay f32; the
+// decode side (B2/B6, B7b) stays f32 throughout, its callers upcast the
+// meta and the accumulator, as the JAX package's do (codec.batch_views).
+// The stored element is a template parameter E: float, or uint16_t for
+// both 16-bit formats, whose format (bf16 or f16) is the launch's `wire`
+// argument, uniform across the grid, so one set of 16-bit instances
+// serves both. The f32 instances take `wire` last and never read it: their
+// code is the one they had before the 16-bit instances existed. A 16-bit
+// value costs an integer shift (bf16) or a convert (f16) beside a load of
+// half the bytes; the round trip of B3/B7c two converts a value.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -117,6 +140,39 @@ constexpr int kPackSum = 0;
 constexpr int kPackButterfly = 1;
 constexpr int kMetaPairs = 0;  // chunk_meta stores the (unit, min) pairs
 constexpr int kMetaNone = 1;   // chunk_meta leaves the meta store to its caller
+
+// The wire dtypes by the entry points' `wire` argument
+// (codec_cuda.WIRE_DTYPES).
+constexpr int kWireF32 = 0;
+constexpr int kWireBf16 = 1;
+constexpr int kWireF16 = 2;
+
+// A wire value as the exact float: E = float as it is; E = uint16_t the
+// bits of a bf16 (`wire` kWireBf16: the bits are a float's upper half) or
+// an f16 (kWireF16).
+__device__ __forceinline__ float wire_float(float x, int) { return x; }
+__device__ __forceinline__ float wire_float(uint16_t u, int wire) {
+  return wire == kWireF16 ? __half2float(__ushort_as_half(u)) : __uint_as_float((uint32_t)u << 16);
+}
+
+// One wire value from global memory through the read-only path.
+__device__ __forceinline__ float wire_ldg(const float* p, int) { return __ldg(p); }
+__device__ __forceinline__ float wire_ldg(const uint16_t* p, int wire) {
+  return wire_float(__ldg(reinterpret_cast<const unsigned short*>(p)), wire);
+}
+
+// x rounded to the nearest value of the wire dtype (ties to even; NaN
+// stays NaN, the range's overflow inf), as a float: torch's and XLA's
+// .to(dtype).to(float32). E = float: x itself.
+template <typename E>
+__device__ __forceinline__ float wire_round(float x, int wire) {
+  if constexpr (sizeof(E) == 2) {
+    return wire == kWireF16 ? __half2float(__float2half_rn(x))
+                            : __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
 
 // Max and min that propagate NaN, as torch.amax / amin (and jnp.max / min)
 // do: a bucket holding a NaN has a NaN max and min.
@@ -371,7 +427,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // codec_reduce_rows. Replaces codec_pallas.py _reduce_rows_impl (B4): the
 // epilogue's decode-accumulate without the requantize. Memory-bound: reads
 // the payload of every row but the own one (n*bits/8 + 8n/B each) and the
-// raw own row (4n), writes 4n bytes, n = the reduced chunk's length.
+// raw own row (4n, or 2n in a 16-bit wire dtype: E, upcast as it is
+// loaded), writes 4n bytes of f32, n = the reduced chunk's length.
 //
 // The grid covers values, not chunks. A thread takes VEC consecutive
 // positions l..l+VEC-1 of a group of kReduceBuckets = 8 buckets 8g..8g+7 of
@@ -395,7 +452,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // presence are template parameters, so a launch without the raw row keeps
 // no register for it. Static shared memory, at most 34,816 bytes (8 rows of
 // 8 planes), so no function attribute. VEC = 4 needs every operand 16-byte
-// aligned and B a multiple of 128; VEC = 1 is the same kernel at scalar
+// aligned (a 16-bit raw row: 8-byte, four values, the same element count)
+// and B a multiple of 128; VEC = 1 is the same kernel at scalar
 // width, for a raw row view that is not aligned (or a bucket the fused
 // path's gate never admits), built at the any-count instance alone.
 //
@@ -466,15 +524,28 @@ __device__ __forceinline__ void cp_async_vec(void* dst, const void* src) {
   }
 }
 
-// VEC consecutive values (16-byte aligned when VEC == 4): from global memory,
-// read once (streaming), or from shared memory.
+// VEC consecutive values (VEC == 4: 4 * sizeof(E) bytes, so aligned): from
+// global memory, read once (streaming), the 16-bit ones upcast exactly; or
+// from shared memory.
 template <int VEC>
-__device__ __forceinline__ void ld_stream(const float* p, float (&v)[VEC]) {
+__device__ __forceinline__ void ld_stream(const float* p, float (&v)[VEC], int) {
   if constexpr (VEC == 4) {
     const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   } else {
     v[0] = __ldcs(p);
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void ld_stream(const uint16_t* p, float (&v)[VEC], int wire) {
+  if constexpr (VEC == 4) {
+    const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
+    v[0] = wire_float((uint16_t)(t.x & 0xffffu), wire);
+    v[1] = wire_float((uint16_t)(t.x >> 16), wire);
+    v[2] = wire_float((uint16_t)(t.y & 0xffffu), wire);
+    v[3] = wire_float((uint16_t)(t.y >> 16), wire);
+  } else {
+    v[0] = wire_float((uint16_t)__ldcs(reinterpret_cast<const unsigned short*>(p)), wire);
   }
 }
 template <int VEC>
@@ -496,11 +567,11 @@ __device__ __forceinline__ void st_vec(float* p, const float (&v)[VEC]) {
   }
 }
 
-template <int BITS, int ROWS, int VEC, bool RAW>
+template <int BITS, int ROWS, int VEC, bool RAW, typename E>
 __global__ void __launch_bounds__(kReduceThreads)
     cgx_reduce_rows_kernel(const int32_t* __restrict__ words, const float* __restrict__ meta,
-                           const float* __restrict__ raw, int own, int ws, long long chunks,
-                           int B, float* __restrict__ out) {
+                           const E* __restrict__ raw, int own, int ws, long long chunks,
+                           int B, float* __restrict__ out, int wire) {
   constexpr int G = kReduceBuckets;
   constexpr int STAGE = ROWS > 0 ? ROWS : kReduceStageRows;
   constexpr int P = kReduceVectors * VEC;  // positions a block
@@ -522,7 +593,7 @@ __global__ void __launch_bounds__(kReduceThreads)
   float raw_v[G][VEC];
   if constexpr (RAW) {
 #pragma unroll
-    for (int j = 0; j < G; ++j) ld_stream<VEC>(raw + base + (size_t)j * B, raw_v[j]);
+    for (int j = 0; j < G; ++j) ld_stream<VEC>(raw + base + (size_t)j * B, raw_v[j], wire);
   }
   float acc[G][VEC];
 #pragma unroll 1
@@ -1348,28 +1419,31 @@ __device__ __forceinline__ void cluster_quantize(float (&v)[kChunkBuckets], cons
 }
 
 // B1's values of one chunk: v[s] = src[s*B + l], one load a bucket,
-// coalesced across the warp.
+// coalesced across the warp, upcast from the wire dtype in registers.
+template <typename E>
 struct ChunkValues {
-  const float* src;
-  int B;
+  const E* src;
+  int B, wire;
   __device__ __forceinline__ void operator()(float (&v)[kChunkBuckets], int l) const {
 #pragma unroll
-    for (int s = 0; s < kChunkBuckets; ++s) v[s] = __ldg(src + (size_t)s * B + l);
+    for (int s = 0; s < kChunkBuckets; ++s) v[s] = wire_ldg(src + (size_t)s * B + l, wire);
   }
 };
 
 // codec_quantize (B1, B5) on the cluster geometry: grid chunks*k CTAs in
 // clusters of k, T threads (B/k, or with REREAD fewer: B/k positions in
 // rounds of T); dynamic shared memory the butterfly stage (T/32 * 4096
-// bytes) or none. STOCH: rounded with the stream of `seed`.
-template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH>
+// bytes) or none. STOCH: rounded with the stream of `seed`. x: E values of
+// the wire dtype `wire`.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename E>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
-    cgx_quantize_cluster_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
-                                float* __restrict__ meta, int B, int k, float inv, uint2 seed) {
+    cgx_quantize_cluster_kernel(const E* __restrict__ x, int32_t* __restrict__ words,
+                                float* __restrict__ meta, int B, int k, float inv, uint2 seed,
+                                int wire) {
   extern __shared__ __align__(16) uint32_t cl_smem[];
   const int rank = (int)(blockIdx.x % (unsigned)k);
   const size_t c = blockIdx.x / (unsigned)k;
-  const ChunkValues load{x + c * kChunkBuckets * B, B};
+  const ChunkValues<E> load{x + c * kChunkBuckets * B, B, wire};
   float v[kChunkBuckets];
   load(v, rank * (B / k) + (int)threadIdx.x);
   cluster_quantize<BITS, ENCODE, PACK, REREAD, STOCH>(v, load, k, rank, B, inv,
@@ -1387,16 +1461,17 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[BITS], const int32_t* _
 }
 
 // Fold one row into acc: its decoded values (meta from shared memory), or
-// with `rawc` the raw own row's. FIRST: acc takes the row's values as they
-// are (the plain fold's v0 + v1 + ... starts from v0, not 0 + v0).
-template <int BITS, bool FIRST>
+// with `rawc` the raw own row's (E values of the wire dtype `wire`, upcast
+// in registers). FIRST: acc takes the row's values as they are (the plain
+// fold's v0 + v1 + ... starts from v0, not 0 + v0).
+template <int BITS, bool FIRST, typename E>
 __device__ __forceinline__ void fold_row(float (&acc)[kChunkBuckets], const uint32_t (&w)[BITS],
-                                         const float* s_meta, const float* __restrict__ rawc,
-                                         int B, int l) {
+                                         const float* s_meta, const E* __restrict__ rawc,
+                                         int B, int l, int wire) {
   if (rawc != nullptr) {
 #pragma unroll
     for (int s = 0; s < kChunkBuckets; ++s) {
-      const float v = __ldg(rawc + (size_t)s * B + l);
+      const float v = wire_ldg(rawc + (size_t)s * B + l, wire);
       acc[s] = FIRST ? v : __fadd_rn(acc[s], v);
     }
     return;
@@ -1409,27 +1484,39 @@ __device__ __forceinline__ void fold_row(float (&acc)[kChunkBuckets], const uint
   }
 }
 
+// The folded values of a position rounded through the wire dtype (B3, B7c:
+// codec_pallas.py _requant_cast); nothing for E = float.
+template <typename E>
+__device__ __forceinline__ void requant_cast(float (&acc)[kChunkBuckets], int wire) {
+  if constexpr (sizeof(E) == 2) {
+#pragma unroll
+    for (int s = 0; s < kChunkBuckets; ++s) acc[s] = wire_round<E>(acc[s], wire);
+  }
+}
+
 // B3's values of one chunk: the ws rows at a position, folded in ascending
-// row order, the raw own row (rawc, or null) in place of row `own`. wc:
-// row 0's words of the chunk, rows row_words apart; s_meta: the rows' meta
-// of the chunk, staged in shared memory.
-template <int BITS>
+// row order, the raw own row (rawc, or null) in place of row `own`, then
+// rounded through the wire dtype. wc: row 0's words of the chunk, rows
+// row_words apart; s_meta: the rows' meta of the chunk, staged in shared
+// memory.
+template <int BITS, typename E>
 struct ChunkRows {
   const int32_t* wc;
   size_t row_words;
   const float* s_meta;
-  const float* rawc;
-  int own, ws, B;
+  const E* rawc;
+  int own, ws, B, wire;
 
   // w holds row 0's words at l on entry (unless row 0 is the raw row).
   __device__ __forceinline__ void fold(float (&acc)[kChunkBuckets], uint32_t (&w)[BITS],
                                        int l) const {
-    fold_row<BITS, true>(acc, w, s_meta, own == 0 ? rawc : nullptr, B, l);
+    fold_row<BITS, true, E>(acc, w, s_meta, own == 0 ? rawc : nullptr, B, l, wire);
     for (int r = 1; r < ws; ++r) {
       if (r != own) load_words<BITS>(w, wc + r * row_words, B, l);
-      fold_row<BITS, false>(acc, w, s_meta + r * 2 * kChunkBuckets, r == own ? rawc : nullptr, B,
-                            l);
+      fold_row<BITS, false, E>(acc, w, s_meta + r * 2 * kChunkBuckets, r == own ? rawc : nullptr,
+                               B, l, wire);
     }
+    requant_cast<E>(acc, wire);
   }
 
   __device__ __forceinline__ void operator()(float (&acc)[kChunkBuckets], int l) const {
@@ -1445,15 +1532,16 @@ struct ChunkRows {
 // its position of the ws rows into 32 registers in ascending row order,
 // then requantizes them as B1 does (with REREAD, each further position is
 // folded again for the encode); STOCH: with the stream of `seed`, chunk
-// indices over the output row.
-template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH>
+// indices over the output row. E, `wire`: the wire dtype, the raw row's
+// and the one the folded values round through.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename E>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
     cgx_sra_epilogue_cluster_kernel(const int32_t* __restrict__ words,
                                     const float* __restrict__ meta,
-                                    const float* __restrict__ raw, int own, int ws,
+                                    const E* __restrict__ raw, int own, int ws,
                                     long long chunks, int B, int k, float inv,
                                     int32_t* __restrict__ out_words,
-                                    float* __restrict__ out_meta, uint2 seed) {
+                                    float* __restrict__ out_meta, uint2 seed, int wire) {
   extern __shared__ __align__(16) uint32_t cl_smem[];
   float* s_meta = reinterpret_cast<float*>(cl_smem);  // [ws][32][2]
   uint32_t* stage = cl_smem + (size_t)ws * 2 * kChunkBuckets;
@@ -1461,8 +1549,9 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
   const size_t c = blockIdx.x / (unsigned)k;
   const int l0 = rank * (B / k) + (int)threadIdx.x;
   const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
-  const ChunkRows<BITS> rows{words + c * BITS * B, (size_t)chunks * BITS * B, s_meta,
-                             raw == nullptr ? nullptr : raw + c * kChunkBuckets * B, own, ws, B};
+  const ChunkRows<BITS, E> rows{words + c * BITS * B, (size_t)chunks * BITS * B, s_meta,
+                                raw == nullptr ? nullptr : raw + c * kChunkBuckets * B, own, ws,
+                                B, wire};
   // Row 0's words are in flight while the meta is staged (a raw row 0 is
   // read in the fold).
   uint32_t w[BITS] = {};
@@ -1648,18 +1737,19 @@ __device__ __forceinline__ void issue_next(Cursor* cur, const ShareRing& ring, i
 // loads (rounds 0, 1, ... for the extremes, then again for the encode),
 // position l's 32 values of it. `next`: the item; `issue()`: warp 0
 // issues the ring's next item.
-template <typename Issue>
+template <typename Issue, typename E>
 struct RingValues {
   const ShareRing& ring;
   const Issue& issue;
   mutable int next;
+  int wire;
 
   __device__ __forceinline__ void operator()(float (&v)[kChunkBuckets], int) const {
     const int n = next++;
     ring.wait(n);
-    const float* src = reinterpret_cast<const float*>(ring.slot(n)) + threadIdx.x;
+    const E* src = reinterpret_cast<const E*>(ring.slot(n)) + threadIdx.x;
 #pragma unroll
-    for (int s = 0; s < kChunkBuckets; ++s) v[s] = src[s * (int)blockDim.x];
+    for (int s = 0; s < kChunkBuckets; ++s) v[s] = wire_float(src[s * (int)blockDim.x], wire);
     ring.release(n);
     if ((threadIdx.x >> 5) == 0) issue();
   }
@@ -1667,31 +1757,35 @@ struct RingValues {
 
 // codec_quantize_db (B7a) on the cluster geometry: a persistent grid of G
 // clusters of k CTAs of T threads (see above); dynamic shared memory the
-// ring's barriers, `slots` slots of 32*T*4 bytes, then the butterfly stage
-// (T/32 * 4096 bytes) or nothing. STOCH: rounded with the stream of `seed`
-// at the chunk's global index, as B1.
-template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH>
+// ring's barriers, `slots` slots of 32*T*sizeof(E) bytes, then the
+// butterfly stage (T/32 * 4096 bytes) or nothing. STOCH: rounded with the
+// stream of `seed` at the chunk's global index, as B1. x: E values of the
+// wire dtype `wire`, copied to the slots as they are and upcast where a
+// thread reads them. A segment is T*sizeof(E) bytes at an offset of whole
+// warps of positions (T, B/k and B are multiples of 32), so at 16-bit
+// values too a bulk copy's size and both addresses are multiples of 16.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename E>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
-    cgx_quantize_db_cluster_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
+    cgx_quantize_db_cluster_kernel(const E* __restrict__ x, int32_t* __restrict__ words,
                                    float* __restrict__ meta, int tiles, int tc, int B, int k,
-                                   float inv, int slots, uint2 seed) {
+                                   float inv, int slots, uint2 seed, int wire) {
   extern __shared__ __align__(128) unsigned char db_smem[];
   __shared__ Cursor s_cur;
   const int rank = (int)(blockIdx.x % (unsigned)k);
   const int g = (int)(blockIdx.x / (unsigned)k), G = (int)(gridDim.x / (unsigned)k);
   const Share<REREAD> sh = cta_share<REREAD>(B, k, rank);
-  const uint32_t slot_bytes = (uint32_t)(kChunkBuckets * sh.T * sizeof(float));
+  const uint32_t slot_bytes = (uint32_t)(kChunkBuckets * sh.T * sizeof(E));
   if (threadIdx.x == 0) s_cur = Cursor{0, g, 0, 0, 0};
   const ShareRing ring = share_ring(db_smem, slots, slot_bytes);
   uint32_t* stage = reinterpret_cast<uint32_t*>(db_smem + kBarBytes + (size_t)slots * slot_bytes);
   // An item: 32 segments (bucket s: lane s) of its round of chunk c.
   auto copy = [&](int c, int ri, int, unsigned char* dst, uint64_t* bar) {
     const int p = sh.round_of(ri);
-    const uint32_t seg = (uint32_t)(sh.T * sizeof(float));
+    const uint32_t seg = (uint32_t)(sh.T * sizeof(E));
     const int lane = threadIdx.x & 31;
     if (lane == 0) mbar_expect_tx(bar, kChunkBuckets * seg);
     __syncwarp();
-    bulk_load(dst + (size_t)lane * sh.T * sizeof(float),
+    bulk_load(dst + (size_t)lane * sh.T * sizeof(E),
               x + ((size_t)c * kChunkBuckets + lane) * B + sh.rank * sh.span + p * sh.T, seg, bar);
   };
   auto issue = [&]() { issue_next(&s_cur, ring, tiles, tc, G, sh.round_items(), 1, copy); };
@@ -1701,7 +1795,7 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
   int j = 0;
   for (int t = g; t < tiles; t += G) {
     for (int u = 0; u < tc; ++u, ++j) {
-      const RingValues<decltype(issue)> load{ring, issue, j * sh.round_items()};
+      const RingValues<decltype(issue), E> load{ring, issue, j * sh.round_items(), wire};
       float v[kChunkBuckets];
       load(v, sh.rank * sh.span + (int)threadIdx.x);
       const size_t c = (size_t)t * tc + u;
@@ -1716,20 +1810,21 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
 // B7c's loads: each call folds position l of the ws rows in ascending row
 // order, the peer rows from the chunk's next items (one a peer row, rows
 // ascending, of the round the body loads), the raw own row (rawc, or
-// null) from device memory, as ChunkRows does for B3.
-template <int BITS, typename Issue>
+// null) from device memory, as ChunkRows does for B3, then rounds them
+// through the wire dtype.
+template <int BITS, typename Issue, typename E>
 struct RingRows {
   const ShareRing& ring;
   const Issue& issue;
   mutable int next;
-  const float* rawc;
-  int own, ws, B;
+  const E* rawc;
+  int own, ws, B, wire;
 
   template <bool FIRST>
   __device__ __forceinline__ void row(float (&acc)[kChunkBuckets], uint32_t (&w)[BITS], bool raw,
                                       int l) const {
     if (raw) {
-      fold_row<BITS, FIRST>(acc, w, nullptr, rawc, B, l);
+      fold_row<BITS, FIRST, E>(acc, w, nullptr, rawc, B, l, wire);
       return;
     }
     const int n = next++;
@@ -1738,7 +1833,8 @@ struct RingRows {
     const int T = (int)blockDim.x;
 #pragma unroll
     for (int b = 0; b < BITS; ++b) w[b] = sw[b * T + threadIdx.x];
-    fold_row<BITS, FIRST>(acc, w, reinterpret_cast<const float*>(sw + BITS * T), nullptr, B, l);
+    fold_row<BITS, FIRST, E>(acc, w, reinterpret_cast<const float*>(sw + BITS * T), nullptr, B, l,
+                             wire);
     ring.release(n);
     if ((threadIdx.x >> 5) == 0) issue();
   }
@@ -1747,21 +1843,22 @@ struct RingRows {
     uint32_t w[BITS];
     row<true>(acc, w, own == 0, l);
     for (int r = 1; r < ws; ++r) row<false>(acc, w, r == own, l);
+    requant_cast<E>(acc, wire);
   }
 };
 
 // codec_sra_epilogue_db (B7c) on the cluster geometry: as B7a, the ring's
 // slots each one peer row's round (bits*T*4 bytes of words, then 256 of
 // meta). STOCH: rounded with the stream of `seed` at the output chunk's
-// index, as B3.
-template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH>
+// index, as B3. E, `wire`: the wire dtype, as B3's.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename E>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
     cgx_sra_epilogue_db_cluster_kernel(const int32_t* __restrict__ words,
                                        const float* __restrict__ meta,
-                                       const float* __restrict__ raw, int own, int ws,
+                                       const E* __restrict__ raw, int own, int ws,
                                        int chunks, int tiles, int tc, int B, int k, float inv,
                                        int slots, int32_t* __restrict__ out_words,
-                                       float* __restrict__ out_meta, uint2 seed) {
+                                       float* __restrict__ out_meta, uint2 seed, int wire) {
   extern __shared__ __align__(128) unsigned char db_smem[];
   __shared__ Cursor s_cur;
   const int rank = (int)(blockIdx.x % (unsigned)k);
@@ -1801,9 +1898,9 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
   for (int t = g; t < tiles; t += G) {
     for (int u = 0; u < tc; ++u, ++j) {
       const size_t c = (size_t)t * tc + u;
-      const RingRows<BITS, decltype(issue)> rows{
+      const RingRows<BITS, decltype(issue), E> rows{
           ring, issue, j * chunk_items, raw == nullptr ? nullptr : raw + c * kChunkBuckets * B,
-          own, ws, B};
+          own, ws, B, wire};
       float acc[kChunkBuckets];
       rows(acc, sh.rank * sh.span + (int)threadIdx.x);
       cluster_quantize<BITS, ENCODE, PACK, REREAD, STOCH>(acc, rows, k, rank, B, inv,
@@ -2060,25 +2157,49 @@ bool db_cluster_ok(long long chunks, int tc, int B, int k, int threads, int slot
          chunks * 2 * rounds * rows + kMaxSlots <= 0x7fffffffLL;
 }
 
-// One launch of B4 at row count ROWS (0: any) and width VEC.
-template <int BITS, int ROWS, int VEC>
-void reduce_rows_start(const int32_t* words, const float* meta, const float* raw, int own, int ws,
-                       long long chunks, int B, float* out, long long blocks, cudaStream_t st) {
+// One launch of B4 at row count ROWS (0: any) and width VEC, the raw own
+// row (if any) of element type E; the 16-bit instances exist with the raw
+// row alone (without one the wire dtype plays no part).
+template <int BITS, int ROWS, int VEC, typename E>
+void reduce_rows_start(const int32_t* words, const float* meta, const E* raw, int own, int ws,
+                       long long chunks, int B, float* out, long long blocks, int wire,
+                       cudaStream_t st) {
   if (raw != nullptr) {
-    cgx_reduce_rows_kernel<BITS, ROWS, VEC, true><<<(unsigned)blocks, kReduceThreads, 0, st>>>(
-        words, meta, raw, own, ws, chunks, B, out);
-  } else {
-    cgx_reduce_rows_kernel<BITS, ROWS, VEC, false><<<(unsigned)blocks, kReduceThreads, 0, st>>>(
-        words, meta, raw, own, ws, chunks, B, out);
+    cgx_reduce_rows_kernel<BITS, ROWS, VEC, true, E><<<(unsigned)blocks, kReduceThreads, 0, st>>>(
+        words, meta, raw, own, ws, chunks, B, out, wire);
+  } else if constexpr (sizeof(E) == 4) {
+    cgx_reduce_rows_kernel<BITS, ROWS, VEC, false, E><<<(unsigned)blocks, kReduceThreads, 0, st>>>(
+        words, meta, raw, own, ws, chunks, B, out, wire);
   }
+}
+
+bool aligned_to(const void* p, size_t bytes) { return ((uintptr_t)p % bytes) == 0; }
+
+// An entry body's instance for the launch's rounding and wire dtype:
+// f(Flag<STOCH>{}, (const E*)nullptr) with E float for kWireF32 and
+// uint16_t for the 16-bit dtypes; another wire code is refused.
+template <bool V>
+struct Flag {
+  static constexpr bool value = V;
+};
+template <typename F>
+int by_instance(int stochastic, int wire, const F& f) {
+  if (wire == kWireF32) {
+    return stochastic ? f(Flag<true>{}, (const float*)nullptr) : f(Flag<false>{}, (const float*)nullptr);
+  }
+  if (wire != kWireBf16 && wire != kWireF16) return (int)cudaErrorInvalidValue;
+  return stochastic ? f(Flag<true>{}, (const uint16_t*)nullptr)
+                    : f(Flag<false>{}, (const uint16_t*)nullptr);
 }
 
 }  // namespace
 
 
-// The build compiles this file once per part (-DCGX_PART=0..10), the parts
+// The build compiles this file once per part (-DCGX_PART=0..19), the parts
 // in parallel, and links them into one library; without CGX_PART it
-// compiles every entry point. Parts 7-10 hold the stochastic instances.
+// compiles every entry point. Parts 7-10 hold the stochastic f32
+// instances, parts 11-18 the 16-bit ones (of B1, B3, B7a, B7c, each round
+// to nearest and stochastic), part 19 B4's with a 16-bit raw row.
 #ifdef CGX_PART
 #define CGX_IN_PART(k) (CGX_PART == (k))
 #else
@@ -2087,12 +2208,13 @@ void reduce_rows_start(const int32_t* words, const float* meta, const float* raw
 
 namespace cgx {
 
-// The bodies of the entry points of B1, B3, B7a and B7c, their
-// deterministic (STOCH false; parts 0, 2, 4, 5, with the entry points) and
-// stochastic (STOCH true, the seed's words; parts 7-10) instances.
-template <bool STOCH>
-int quantize_entry(const float* x, int32_t* words, float* meta, long long chunks, int B, int bits,
-                   float inv, int encode, int pack, int k, int threads, uint2 seed,
+// The bodies of the entry points of B1, B3, B7a, B7c and B4 for each
+// instance: B1, B3, B7a, B7c by stochastic rounding (STOCH) and element
+// type E, B4 by E. The f32 round-to-nearest ones build with their entry
+// point (parts 0, 2, 4, 5, 6), the others in parts of their own.
+template <bool STOCH, typename E>
+int quantize_entry(const E* x, int32_t* words, float* meta, long long chunks, int B, int bits,
+                   float inv, int encode, int pack, int k, int threads, uint2 seed, int wire,
                    void* stream) {
   if (chunks < 1 || B < 32 || B % 32 || !cluster_geometry_ok(chunks, B, k, threads)) {
     return (int)cudaErrorInvalidValue;
@@ -2101,19 +2223,21 @@ int quantize_entry(const float* x, int32_t* words, float* meta, long long chunks
   const bool reread = B / k > threads;
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     cudaError_t e = reread
-        ? cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, true, STOCH>, chunks, k,
-                         threads, stage_bytes(PACK, threads), st, x, words, meta, B, k, inv, seed)
-        : cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, false, STOCH>, chunks, k,
-                         threads, stage_bytes(PACK, threads), st, x, words, meta, B, k, inv, seed);
+        ? cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, true, STOCH, E>, chunks,
+                         k, threads, stage_bytes(PACK, threads), st, x, words, meta, B, k, inv,
+                         seed, wire)
+        : cluster_launch(cgx_quantize_cluster_kernel<BITS, ENCODE, PACK, false, STOCH, E>, chunks,
+                         k, threads, stage_bytes(PACK, threads), st, x, words, meta, B, k, inv,
+                         seed, wire);
     if (e != cudaSuccess) return (int)e;
   }));
   return (int)cudaGetLastError();
 }
 
-template <bool STOCH>
-int sra_epilogue_entry(const int32_t* words, const float* meta, const float* raw, int own, int ws,
+template <bool STOCH, typename E>
+int sra_epilogue_entry(const int32_t* words, const float* meta, const E* raw, int own, int ws,
                        long long chunks, int B, int bits, float inv, int encode, int pack, int k,
-                       int threads, uint2 seed, int32_t* out_words, float* out_meta,
+                       int threads, uint2 seed, int32_t* out_words, float* out_meta, int wire,
                        void* stream) {
   if (chunks < 1 || ws < 1 || own >= ws || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
   if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
@@ -2124,47 +2248,47 @@ int sra_epilogue_entry(const int32_t* words, const float* meta, const float* raw
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     const size_t smem = meta_bytes + stage_bytes(PACK, threads);
     cudaError_t e = reread
-        ? cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, true, STOCH>, chunks,
-                         k, threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
-                         out_words, out_meta, seed)
-        : cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, false, STOCH>, chunks,
-                         k, threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
-                         out_words, out_meta, seed);
+        ? cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, true, STOCH, E>,
+                         chunks, k, threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
+                         out_words, out_meta, seed, wire)
+        : cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, false, STOCH, E>,
+                         chunks, k, threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
+                         out_words, out_meta, seed, wire);
     if (e != cudaSuccess) return (int)e;
   }));
   return (int)cudaGetLastError();
 }
 
-template <bool STOCH>
-int quantize_db_entry(const float* x, int32_t* words, float* meta, long long chunks, int tc, int B,
+template <bool STOCH, typename E>
+int quantize_db_entry(const E* x, int32_t* words, float* meta, long long chunks, int tc, int B,
                       int bits, float inv, int encode, int pack, int k, int threads, int slots,
-                      uint2 seed, void* stream) {
+                      uint2 seed, int wire, void* stream) {
   if (!db_cluster_ok(chunks, tc, B, k, threads, slots, 1) || !aligned16(x)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
   const int tiles = (int)(chunks / tc);
   const bool reread = B / k > threads;
-  const size_t ring = kBarBytes + (size_t)slots * kChunkBuckets * threads * sizeof(float);
+  const size_t ring = kBarBytes + (size_t)slots * kChunkBuckets * threads * sizeof(E);
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     const size_t smem = ring + stage_bytes(PACK, threads);
     cudaError_t e =
         reread ? persistent_cluster_launch(
-                     cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, true, STOCH>, tiles, k,
-                     threads, smem, st, x, words, meta, tiles, tc, B, k, inv, slots, seed)
+                     cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, true, STOCH, E>, tiles, k,
+                     threads, smem, st, x, words, meta, tiles, tc, B, k, inv, slots, seed, wire)
                : persistent_cluster_launch(
-                     cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, false, STOCH>, tiles, k,
-                     threads, smem, st, x, words, meta, tiles, tc, B, k, inv, slots, seed);
+                     cgx_quantize_db_cluster_kernel<BITS, ENCODE, PACK, false, STOCH, E>, tiles, k,
+                     threads, smem, st, x, words, meta, tiles, tc, B, k, inv, slots, seed, wire);
     if (e != cudaSuccess) return (int)e;
   }));
   return (int)cudaGetLastError();
 }
 
-template <bool STOCH>
-int sra_epilogue_db_entry(const int32_t* words, const float* meta, const float* raw, int own,
+template <bool STOCH, typename E>
+int sra_epilogue_db_entry(const int32_t* words, const float* meta, const E* raw, int own,
                           int ws, long long chunks, int tc, int B, int bits, float inv, int encode,
                           int pack, int k, int threads, int slots, uint2 seed, int32_t* out_words,
-                          float* out_meta, void* stream) {
+                          float* out_meta, int wire, void* stream) {
   if (!db_cluster_ok(chunks, tc, B, k, threads, slots, ws) || own >= ws) {
     return (int)cudaErrorInvalidValue;
   }
@@ -2181,49 +2305,127 @@ int sra_epilogue_db_entry(const int32_t* words, const float* meta, const float* 
                         stage_bytes(PACK, threads);
     cudaError_t e =
         reread ? persistent_cluster_launch(
-                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, true, STOCH>, tiles,
+                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, true, STOCH, E>, tiles,
                      k, threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv,
-                     slots, out_words, out_meta, seed)
+                     slots, out_words, out_meta, seed, wire)
                : persistent_cluster_launch(
-                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, false, STOCH>, tiles,
+                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, false, STOCH, E>, tiles,
                      k, threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv,
-                     slots, out_words, out_meta, seed);
+                     slots, out_words, out_meta, seed, wire);
     if (e != cudaSuccess) return (int)e;
   }));
   return (int)cudaGetLastError();
 }
 
-// Each stochastic instance is compiled in its part alone; the entry
-// point's part only declares it.
+template <typename E>
+int reduce_rows_entry(const int32_t* words, const float* meta, const E* raw, int own, int ws,
+                      long long chunks, int B, int bits, int vec, float* out, int wire,
+                      void* stream) {
+  if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
+  if (chunks < 1 || ws < 1 || B < 32 || B % (kReduceVectors * vec)) return (int)cudaErrorInvalidValue;
+  if ((raw == nullptr) != (own < 0) || own >= ws) return (int)cudaErrorInvalidValue;
+  // Full width: four values a load, so a raw row aligned to four of them.
+  if (vec == 4 && (!aligned16(words) || !aligned16(meta) || !aligned16(out) ||
+                   (raw != nullptr && !aligned_to(raw, 4 * sizeof(E))))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long blocks = chunks * (B / (kReduceVectors * vec));
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec == 1) {
+    CGX_DISPATCH_BITS(bits, reduce_rows_start<BITS, 0, 1, E>(words, meta, raw, own, ws, chunks, B,
+                                                             out, blocks, wire, st));
+  } else {
+    CGX_DISPATCH_BITS(bits, CGX_DISPATCH_ROWS(ws, reduce_rows_start<BITS, ROWS, 4, E>(
+        words, meta, raw, own, ws, chunks, B, out, blocks, wire, st)));
+  }
+  return (int)cudaGetLastError();
+}
+
+// Each instance but an entry point's f32 round-to-nearest one is compiled
+// in its part alone; the other parts only declare it.
+#define CGX_QUANTIZE_ENTRY(S, E)                                                                \
+  int quantize_entry<S, E>(const E*, int32_t*, float*, long long, int, int, float, int, int,  \
+                           int, int, uint2, int, void*)
+#define CGX_EPILOGUE_ENTRY(S, E)                                                                \
+  int sra_epilogue_entry<S, E>(const int32_t*, const float*, const E*, int, int, long long, int, \
+                               int, float, int, int, int, int, uint2, int32_t*, float*, int,     \
+                               void*)
+#define CGX_QUANTIZE_DB_ENTRY(S, E)                                                             \
+  int quantize_db_entry<S, E>(const E*, int32_t*, float*, long long, int, int, int, float, int, \
+                              int, int, int, int, uint2, int, void*)
+#define CGX_EPILOGUE_DB_ENTRY(S, E)                                                             \
+  int sra_epilogue_db_entry<S, E>(const int32_t*, const float*, const E*, int, int, long long,  \
+                                  int, int, int, float, int, int, int, int, int, uint2, int32_t*, \
+                                  float*, int, void*)
+
 #if CGX_IN_PART(7)
-template
+template CGX_QUANTIZE_ENTRY(true, float);
 #else
-extern template
+extern template CGX_QUANTIZE_ENTRY(true, float);
 #endif
-int quantize_entry<true>(const float*, int32_t*, float*, long long, int, int, float, int, int, int,
-                         int, uint2, void*);
 #if CGX_IN_PART(8)
-template
+template CGX_EPILOGUE_ENTRY(true, float);
 #else
-extern template
+extern template CGX_EPILOGUE_ENTRY(true, float);
 #endif
-int sra_epilogue_entry<true>(const int32_t*, const float*, const float*, int, int, long long, int,
-                             int, float, int, int, int, int, uint2, int32_t*, float*, void*);
 #if CGX_IN_PART(9)
-template
+template CGX_QUANTIZE_DB_ENTRY(true, float);
 #else
-extern template
+extern template CGX_QUANTIZE_DB_ENTRY(true, float);
 #endif
-int quantize_db_entry<true>(const float*, int32_t*, float*, long long, int, int, int, float, int,
-                            int, int, int, int, uint2, void*);
 #if CGX_IN_PART(10)
-template
+template CGX_EPILOGUE_DB_ENTRY(true, float);
 #else
-extern template
+extern template CGX_EPILOGUE_DB_ENTRY(true, float);
 #endif
-int sra_epilogue_db_entry<true>(const int32_t*, const float*, const float*, int, int, long long,
-                                int, int, int, float, int, int, int, int, int, uint2, int32_t*,
-                                float*, void*);
+#if CGX_IN_PART(11)
+template CGX_QUANTIZE_ENTRY(false, uint16_t);
+#else
+extern template CGX_QUANTIZE_ENTRY(false, uint16_t);
+#endif
+#if CGX_IN_PART(12)
+template CGX_QUANTIZE_ENTRY(true, uint16_t);
+#else
+extern template CGX_QUANTIZE_ENTRY(true, uint16_t);
+#endif
+#if CGX_IN_PART(13)
+template CGX_EPILOGUE_ENTRY(false, uint16_t);
+#else
+extern template CGX_EPILOGUE_ENTRY(false, uint16_t);
+#endif
+#if CGX_IN_PART(14)
+template CGX_EPILOGUE_ENTRY(true, uint16_t);
+#else
+extern template CGX_EPILOGUE_ENTRY(true, uint16_t);
+#endif
+#if CGX_IN_PART(15)
+template CGX_QUANTIZE_DB_ENTRY(false, uint16_t);
+#else
+extern template CGX_QUANTIZE_DB_ENTRY(false, uint16_t);
+#endif
+#if CGX_IN_PART(16)
+template CGX_QUANTIZE_DB_ENTRY(true, uint16_t);
+#else
+extern template CGX_QUANTIZE_DB_ENTRY(true, uint16_t);
+#endif
+#if CGX_IN_PART(17)
+template CGX_EPILOGUE_DB_ENTRY(false, uint16_t);
+#else
+extern template CGX_EPILOGUE_DB_ENTRY(false, uint16_t);
+#endif
+#if CGX_IN_PART(18)
+template CGX_EPILOGUE_DB_ENTRY(true, uint16_t);
+#else
+extern template CGX_EPILOGUE_DB_ENTRY(true, uint16_t);
+#endif
+#if CGX_IN_PART(19)
+template int reduce_rows_entry<uint16_t>(const int32_t*, const float*, const uint16_t*, int, int,
+                                         long long, int, int, int, float*, int, void*);
+#else
+extern template int reduce_rows_entry<uint16_t>(const int32_t*, const float*, const uint16_t*, int,
+                                                int, long long, int, int, int, float*, int, void*);
+#endif
 
 }  // namespace cgx
 
@@ -2231,20 +2433,27 @@ extern "C" {
 
 // Every quantizing entry point takes `encode` (0 div, 1 mul), `pack` (0
 // sum, 1 butterfly) and `stochastic` (0: round to nearest; else round
-// stochastically under the seed (k0, k1)).
+// stochastically under the seed (k0, k1)). B1, B3, B7a, B7c and B4 take
+// `wire`, the wire dtype (kWireF32, kWireBf16, kWireF16: codec_cuda.
+// WIRE_DTYPES) of B1's and B7a's input, of the raw own row of B3, B7c and
+// B4, and the dtype B3 and B7c round the folded values through; the
+// other operands and the outputs are f32 (words int32).
 
 #if CGX_IN_PART(0)
-// x: chunks*32*B f32 -> words: chunks*bits*B int32, meta: chunks*32*2 f32.
-// The cluster geometry (codec_cuda.cluster_geometry): clusters of k CTAs of
-// `threads` threads, each thread B/(k*threads) positions (rounded up).
-int cgx_quantize(const float* x, int32_t* words, float* meta, long long chunks,
+// x: chunks*32*B values of the wire dtype -> words: chunks*bits*B int32,
+// meta: chunks*32*2 f32. The cluster geometry (codec_cuda.cluster_geometry):
+// clusters of k CTAs of `threads` threads, each thread B/(k*threads)
+// positions (rounded up).
+int cgx_quantize(const void* x, int32_t* words, float* meta, long long chunks,
                  int B, int bits, float inv, int encode, int pack, int k, int threads,
-                 int stochastic, unsigned k0, unsigned k1, void* stream) {
+                 int stochastic, unsigned k0, unsigned k1, int wire, void* stream) {
   const uint2 seed = make_uint2(k0, k1);
-  return stochastic ? cgx::quantize_entry<true>(x, words, meta, chunks, B, bits, inv, encode, pack,
-                                                k, threads, seed, stream)
-                    : cgx::quantize_entry<false>(x, words, meta, chunks, B, bits, inv, encode,
-                                                 pack, k, threads, seed, stream);
+  return by_instance(stochastic, wire, [&](auto st, auto e) {
+    using E = std::remove_const_t<std::remove_pointer_t<decltype(e)>>;
+    return cgx::quantize_entry<decltype(st)::value, E>(static_cast<const E*>(x), words, meta,
+                                                       chunks, B, bits, inv, encode, pack, k,
+                                                       threads, seed, wire, stream);
+  });
 }
 #endif
 
@@ -2320,22 +2529,22 @@ int cgx_dequantize(const int32_t* words, const float* meta, const float* add,
 
 #if CGX_IN_PART(2)
 // words: ws rows of chunks*bits*B int32, meta: ws rows of chunks*32*2 f32,
-// raw: the own row's chunks*32*B f32 (null with own == -1) -> the
-// requantized reduced chunk: out_words chunks*bits*B, out_meta chunks*32*2.
-// The cluster geometry as cgx_quantize's.
-int cgx_sra_epilogue(const int32_t* words, const float* meta, const float* raw,
+// raw: the own row's chunks*32*B values of the wire dtype (null with own
+// == -1) -> the requantized reduced chunk, rounded through the wire dtype:
+// out_words chunks*bits*B, out_meta chunks*32*2. The cluster geometry as
+// cgx_quantize's.
+int cgx_sra_epilogue(const int32_t* words, const float* meta, const void* raw,
                      int own, int ws, long long chunks, int B, int bits,
                      float inv, int encode, int pack, int k, int threads, int stochastic,
-                     unsigned k0, unsigned k1, int32_t* out_words, float* out_meta,
+                     unsigned k0, unsigned k1, int32_t* out_words, float* out_meta, int wire,
                      void* stream) {
   const uint2 seed = make_uint2(k0, k1);
-  return stochastic
-             ? cgx::sra_epilogue_entry<true>(words, meta, raw, own, ws, chunks, B, bits, inv,
-                                             encode, pack, k, threads, seed, out_words, out_meta,
-                                             stream)
-             : cgx::sra_epilogue_entry<false>(words, meta, raw, own, ws, chunks, B, bits, inv,
-                                              encode, pack, k, threads, seed, out_words, out_meta,
-                                              stream);
+  return by_instance(stochastic, wire, [&](auto st, auto e) {
+    using E = std::remove_const_t<std::remove_pointer_t<decltype(e)>>;
+    return cgx::sra_epilogue_entry<decltype(st)::value, E>(
+        words, meta, static_cast<const E*>(raw), own, ws, chunks, B, bits, inv, encode, pack, k,
+        threads, seed, out_words, out_meta, wire, stream);
+  });
 }
 #endif
 
@@ -2399,18 +2608,21 @@ int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total, int
 // pointer is 16-byte aligned. B7b's slots hold a tile: tc*(bits*B*4 + 256)
 // bytes (+ tc*32*B*4 with add), two of them. B7a and B7c also take their
 // cluster geometry (k, threads: codec_cuda.cluster_geometry) and `slots`,
-// the ring's depth; a B7a slot holds 32*threads*4 bytes, a B7c slot
-// bits*threads*4 + 256, whatever tc is.
+// the ring's depth; a B7a slot holds 32*threads values of the wire dtype
+// (4 or 2 bytes each), a B7c slot bits*threads*4 + 256 bytes, whatever tc
+// is.
 
 #if CGX_IN_PART(4)
-int cgx_quantize_db(const float* x, int32_t* words, float* meta, long long chunks, int tc,
+int cgx_quantize_db(const void* x, int32_t* words, float* meta, long long chunks, int tc,
                     int B, int bits, float inv, int encode, int pack, int k, int threads,
-                    int slots, int stochastic, unsigned k0, unsigned k1, void* stream) {
+                    int slots, int stochastic, unsigned k0, unsigned k1, int wire, void* stream) {
   const uint2 seed = make_uint2(k0, k1);
-  return stochastic ? cgx::quantize_db_entry<true>(x, words, meta, chunks, tc, B, bits, inv,
-                                                   encode, pack, k, threads, slots, seed, stream)
-                    : cgx::quantize_db_entry<false>(x, words, meta, chunks, tc, B, bits, inv,
-                                                    encode, pack, k, threads, slots, seed, stream);
+  return by_instance(stochastic, wire, [&](auto st, auto e) {
+    using E = std::remove_const_t<std::remove_pointer_t<decltype(e)>>;
+    return cgx::quantize_db_entry<decltype(st)::value, E>(static_cast<const E*>(x), words, meta,
+                                                          chunks, tc, B, bits, inv, encode, pack,
+                                                          k, threads, slots, seed, wire, stream);
+  });
 }
 #endif
 
@@ -2446,50 +2658,40 @@ int cgx_dequantize_db(const int32_t* words, const float* meta, const float* add,
 #endif
 
 #if CGX_IN_PART(5)
-int cgx_sra_epilogue_db(const int32_t* words, const float* meta, const float* raw, int own,
+int cgx_sra_epilogue_db(const int32_t* words, const float* meta, const void* raw, int own,
                         int ws, long long chunks, int tc, int B, int bits, float inv,
                         int encode, int pack, int k, int threads, int slots, int stochastic,
-                        unsigned k0, unsigned k1, int32_t* out_words, float* out_meta,
+                        unsigned k0, unsigned k1, int32_t* out_words, float* out_meta, int wire,
                         void* stream) {
   const uint2 seed = make_uint2(k0, k1);
-  return stochastic
-             ? cgx::sra_epilogue_db_entry<true>(words, meta, raw, own, ws, chunks, tc, B, bits,
-                                                inv, encode, pack, k, threads, slots, seed,
-                                                out_words, out_meta, stream)
-             : cgx::sra_epilogue_db_entry<false>(words, meta, raw, own, ws, chunks, tc, B, bits,
-                                                 inv, encode, pack, k, threads, slots, seed,
-                                                 out_words, out_meta, stream);
+  return by_instance(stochastic, wire, [&](auto st, auto e) {
+    using E = std::remove_const_t<std::remove_pointer_t<decltype(e)>>;
+    return cgx::sra_epilogue_db_entry<decltype(st)::value, E>(
+        words, meta, static_cast<const E*>(raw), own, ws, chunks, tc, B, bits, inv, encode, pack,
+        k, threads, slots, seed, out_words, out_meta, wire, stream);
+  });
 }
 #endif
 
 #if CGX_IN_PART(6)
 // words: ws rows of chunks*bits*B int32, meta: ws rows of chunks*32*2 f32,
-// raw: the own row's chunks*32*B f32 (null with own == -1) -> out: the
-// reduced chunk, chunks*32*B f32: B4 at width vec (4: every pointer 16-byte
-// aligned, B a multiple of 128, each row count 1-8 an instance of its own;
-// 1: scalar width, the any-count instance alone), blocks of 128 threads,
+// raw: the own row's chunks*32*B values of the wire dtype (null with own
+// == -1) -> out: the reduced chunk, chunks*32*B f32: B4 at width vec (4:
+// words, meta and out 16-byte aligned, raw aligned to four of its values,
+// B a multiple of 128, each row count 1-8 an instance of its own; 1:
+// scalar width, the any-count instance alone), blocks of 128 threads,
 // B/(32*vec) a chunk. Static shared memory only, at most 34,816 bytes: no
-// attribute to set.
-int cgx_reduce_rows(const int32_t* words, const float* meta, const float* raw, int own, int ws,
-                    long long chunks, int B, int bits, int vec, float* out, void* stream) {
-  if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
-  if (chunks < 1 || ws < 1 || B < 32 || B % (kReduceVectors * vec)) return (int)cudaErrorInvalidValue;
-  if ((raw == nullptr) != (own < 0) || own >= ws) return (int)cudaErrorInvalidValue;
-  if (vec == 4 && (!aligned16(words) || !aligned16(meta) || !aligned16(out) ||
-                   (raw != nullptr && !aligned16(raw)))) {
-    return (int)cudaErrorInvalidValue;
+// attribute to set. Without a raw row `wire` plays no part.
+int cgx_reduce_rows(const int32_t* words, const float* meta, const void* raw, int own, int ws,
+                    long long chunks, int B, int bits, int vec, float* out, int wire,
+                    void* stream) {
+  if (raw == nullptr || wire == kWireF32) {
+    return cgx::reduce_rows_entry<float>(words, meta, static_cast<const float*>(raw), own, ws,
+                                         chunks, B, bits, vec, out, kWireF32, stream);
   }
-  const long long blocks = chunks * (B / (kReduceVectors * vec));
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (vec == 1) {
-    CGX_DISPATCH_BITS(bits, reduce_rows_start<BITS, 0, 1>(words, meta, raw, own, ws, chunks, B,
-                                                          out, blocks, st));
-  } else {
-    CGX_DISPATCH_BITS(bits, CGX_DISPATCH_ROWS(ws, reduce_rows_start<BITS, ROWS, 4>(
-        words, meta, raw, own, ws, chunks, B, out, blocks, st)));
-  }
-  return (int)cudaGetLastError();
+  if (wire != kWireBf16 && wire != kWireF16) return (int)cudaErrorInvalidValue;
+  return cgx::reduce_rows_entry<uint16_t>(words, meta, static_cast<const uint16_t*>(raw), own, ws,
+                                          chunks, B, bits, vec, out, wire, stream);
 }
 #endif
 

@@ -28,11 +28,16 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
-def gpt2_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def gpt2_params_from_jax(
+    params_np: Mapping[str, Any], dtype: torch.dtype = torch.float32
+) -> Dict[str, torch.Tensor]:
     """Flax GPT-2 parameter tree (numpy leaves) -> the port's ``state_dict``
-    (float32 CPU tensors keyed by dotted path)."""
+    (CPU tensors of ``dtype`` keyed by dotted path). Each leaf is carried
+    across in float32 and then cast, so a bf16 or f16 tree (numpy has no
+    bf16: its leaves come as float32 or as ml_dtypes arrays) arrives with
+    the same values: the upcast is exact and the cast back rounds nothing."""
     return {
-        path: torch.from_numpy(np.array(leaf, dtype=np.float32))
+        path: torch.from_numpy(np.array(leaf, dtype=np.float32)).to(dtype)
         for path, leaf in _flatten(params_np).items()
     }
 
@@ -40,8 +45,9 @@ def gpt2_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor
 def gpt2_params_to_numpy(
     model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]]
 ) -> Dict[str, Any]:
-    """Inverse of :func:`gpt2_params_from_jax`: a nested dict of numpy
-    arrays in the flax tree's structure."""
+    """Inverse of :func:`gpt2_params_from_jax`: a nested dict of float32
+    numpy arrays (a bf16 or f16 parameter upcast exactly) in the flax tree's
+    structure."""
     state = (
         model_or_state.state_dict()
         if isinstance(model_or_state, nn.Module)

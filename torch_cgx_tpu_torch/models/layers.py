@@ -104,7 +104,10 @@ class Embed(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Layer normalisation over the last axis in float32, epsilon 1e-6."""
+    """Layer normalisation over the last axis in float32, epsilon 1e-6. The
+    scale and bias are upcast too, so parameters cast to bf16 or f16 still
+    normalise in float32, as flax's ``LayerNorm(dtype=float32)`` promotes
+    them."""
 
     def __init__(self, features: int, *, eps: float = 1e-6):
         super().__init__()
@@ -114,5 +117,6 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(
-            x.to(torch.float32), (x.shape[-1],), self.scale, self.bias, self.eps
+            x.to(torch.float32), (x.shape[-1],), self.scale.to(torch.float32),
+            self.bias.to(torch.float32), self.eps,
         )

@@ -59,9 +59,23 @@ instance; the deterministic ones are unchanged. The matmul-quantize
 (B8) stays deterministic, as the JAX package's is, and refuses
 ``CGX_STOCHASTIC_ROUNDING``.
 
+Wire dtypes: the JAX package syncs a bf16 or f16 leaf in its own dtype.
+On the card the quantize (B1/B5, B7a) reads its input, and the epilogue
+(B3, B7c) and the reduce (B4) their raw own row, as float32, bfloat16 or
+float16 (:data:`WIRE_DTYPES`), each value upcast inside the kernel; the
+epilogue rounds the folded chunk through its ``cast_dtype`` (the wire
+dtype, which a raw row must share) before the requantize, as the staged
+path quantizes ``reduced.to(dtype)``. The kernels' meta, the decode
+(B2/B6, B7b) and every other operand stay float32: the batch functions
+cast the meta to the tensor's dtype after a quantize and upcast sub-f32
+meta and accumulators before a decode, as the JAX package's do outside
+its kernels (``codec.batch_views``). Another dtype raises ``ValueError``.
+The matmul-quantize (B8) stays float32: the port upcasts its bf16 tiles
+before the launch (``ops/fused_producer.py``), where the JAX kernel reads
+them itself (ROADMAP Queue B).
+
 Not in the kernels yet (ROADMAP Queue B), and refused on every device: the
-``CGX_SRA_ACCUM=int8`` fold. A CUDA tensor must be float32: bf16/f16 wire
-dtypes inside the kernels wait too.
+``CGX_SRA_ACCUM=int8`` fold.
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ import ctypes
 import dataclasses
 import functools
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -96,8 +111,15 @@ NVCC_FLAGS = (
 )
 # The source's entry points fall into this many parts (CGX_PART in
 # csrc/codec.cu), compiled by one nvcc each, all at once, then linked:
-# parts 7-10 hold the stochastic instances of B1, B3, B7a and B7c.
-BUILD_PARTS = 11
+# parts 7-10 hold the stochastic f32 instances of B1, B3, B7a and B7c,
+# parts 11-18 their 16-bit instances (round to nearest and stochastic),
+# part 19 B4's with a 16-bit raw row.
+BUILD_PARTS = 20
+
+# The wire dtypes of the quantize's input, the epilogue's and the reduce's
+# raw own row and the epilogue's cast: the entry points' ``wire`` argument,
+# by index (csrc/codec.cu kWireF32, kWireBf16, kWireF16).
+WIRE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # The fused epilogue's bucket gate: a chunk's (32, B) f32 values within a
 # block's 232,448 bytes of shared memory, less 256 of static meta, where
@@ -132,10 +154,23 @@ DB_GATED: Dict[str, int] = {"quantize": 0, "dequantize": 0, "epilogue": 0}
 # are not 16-byte aligned (a raw row view at an odd offset) or a bucket that
 # is not a multiple of 128; a share of LAUNCHES["codec_reduce_rows"].
 REDUCE_SCALAR: Dict[str, int] = {"launches": 0}
+# Launches whose wire operand (B1/B7a's input; B3/B7c's wire dtype, a raw
+# row's included; B4's raw row) was bf16 or f16, read by the kernel
+# itself: a share of LAUNCHES, by kernel.
+WIRE16_LAUNCHES: Dict[str, int] = {
+    "codec_quantize": 0, "codec_quantize_db": 0, "codec_sra_epilogue": 0,
+    "codec_sra_epilogue_db": 0, "codec_reduce_rows": 0,
+}
+
+
+def _count_launch(name: str, wire: int) -> None:
+    LAUNCHES[name] += 1
+    if wire:
+        WIRE16_LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DB_GATED, REDUCE_SCALAR):
+    for counts in (LAUNCHES, DB_GATED, REDUCE_SCALAR, WIRE16_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -207,6 +242,36 @@ def build(force: bool = False) -> Path:
     return LIBRARY
 
 
+def ptxas_instances(ptxas: str) -> Dict[str, Dict[str, int]]:
+    """Each kernel of a build's ptxas report (``BUILD_LOG["ptxas"]``, from
+    ``-Xptxas -v``): ``name<its template's int and bool arguments>``, with
+    ``:16`` appended for an instance whose element type is the 16-bit one
+    (``uint16_t``; a ``float`` instance keeps the plain key, so a build from
+    before the 16-bit instances existed gives the same keys) -> its
+    ``registers``, ``spill_stores`` and ``spill_loads`` (bytes) and ``smem``
+    (static shared memory, bytes)."""
+    out: Dict[str, Dict[str, int]] = {}
+    for block in ptxas.split("Compiling entry function")[1:]:
+        mangled = block.split("'")[1]
+        found = re.search(r"(cgx_\w+?_kernel)I((?:L[ib]\d+E)+)([ft]?)EE", mangled)
+        if found:
+            args = ",".join(re.findall(r"L[ib](\d+)E", found.group(2)))
+            key = f"{found.group(1)}<{args}>" + (":16" if found.group(3) == "t" else "")
+        else:
+            plain = re.search(r"(cgx_\w+?_kernel)", mangled)
+            key = plain.group(1) if plain else mangled
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        out[key] = {
+            "registers": int(regs.group(1)) if regs else 0,
+            "spill_stores": int(spill.group(1)) if spill else 0,
+            "spill_loads": int(spill.group(2)) if spill else 0,
+            "smem": int(smem.group(1)) if smem else 0,
+        }
+    return out
+
+
 def _lib():
     global _LIB
     with _LIB_LOCK:
@@ -214,17 +279,17 @@ def _lib():
             lib = ctypes.CDLL(str(build()))
             vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
             u = ctypes.c_uint
-            lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, i, i, i, i, i, u, u, vp]
+            lib.cgx_quantize.argtypes = [vp, vp, vp, ll, i, i, f, i, i, i, i, i, u, u, i, vp]
             lib.cgx_dequantize.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
             lib.cgx_sra_epilogue.argtypes = [
-                vp, vp, vp, i, i, ll, i, i, f, i, i, i, i, i, u, u, vp, vp, vp]
-            lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp, vp]
+                vp, vp, vp, i, i, ll, i, i, f, i, i, i, i, i, u, u, vp, vp, i, vp]
+            lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp, i, vp]
             lib.cgx_matmul_quantize.argtypes = [
                 vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, vp]
-            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, i, u, u, vp]
+            lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, i, u, u, i, vp]
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
             lib.cgx_sra_epilogue_db.argtypes = [
-                vp, vp, vp, i, i, ll, i, i, i, f, i, i, i, i, i, i, u, u, vp, vp, vp]
+                vp, vp, vp, i, i, ll, i, i, i, f, i, i, i, i, i, i, u, u, vp, vp, i, vp]
             lib.cgx_quantize_variant.argtypes = [vp, vp, vp, ll, i, i, i, f, vp]
             lib.cgx_div_sweep.argtypes = [i, i, i, i, i, vp, vp, vp]
             lib.cgx_div_pairs.argtypes = [vp, vp, i, vp, vp, vp]
@@ -306,12 +371,19 @@ def _device_kind(*ts: Optional[torch.Tensor]) -> str:
     return kind
 
 
+def wire_code(name: str, dtype: torch.dtype) -> int:
+    """The entry points' ``wire`` argument for ``dtype``: its index in
+    :data:`WIRE_DTYPES`; another dtype raises ``ValueError`` naming it."""
+    if dtype not in WIRE_DTYPES:
+        raise ValueError(
+            f"{name}: the codec kernels read float32, bfloat16 or float16, got {dtype}"
+        )
+    return WIRE_DTYPES.index(dtype)
+
+
 def _require_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype, numel: int) -> None:
     if t.dtype != dtype:
-        raise TypeError(
-            f"{name}: expected {dtype}, got {t.dtype} (bf16/f16 wire dtypes are "
-            "not ported into the kernels yet)"
-        )
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: operand must be contiguous")
     if t.numel() != numel:
@@ -454,16 +526,18 @@ def quantize_chunks(
     x: torch.Tensor, bits: int, bucket_size: int,
     encode: Optional[str] = None, pack: Optional[str] = None, seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Quantize a flat buffer of whole chunks: ``x`` f32 ``(C*32*B,)`` ->
-    ``(words int32 (C*bits*B,), meta f32 (C*32, 2))``, in the ``encode`` and
-    ``pack`` lowerings (:func:`_lowering`); with ``seed``, rounding
-    stochastically (chunk indices 0 .. C-1 of ``utils/prng.py``'s layout)."""
+    """Quantize a flat buffer of whole chunks: ``x`` f32, bf16 or f16
+    ``(C*32*B,)`` -> ``(words int32 (C*bits*B,), meta f32 (C*32, 2))``, in
+    the ``encode`` and ``pack`` lowerings (:func:`_lowering`); with
+    ``seed``, rounding stochastically (chunk indices 0 .. C-1 of
+    ``utils/prng.py``'s layout). The kernel reads ``x`` in its dtype."""
     encode, pack = _lowering(encode, pack)
     _check_seed(seed)
+    wire_code("quantize x", x.dtype)
     chunks = _chunk_geometry(x.numel(), bits, bucket_size)
     if _device_kind(x) == "cpu":
         return quantize_chunks_plain(x, bits, bucket_size, encode, pack, seed)
-    _require_cuda_operand("quantize x", x, torch.float32, x.numel())
+    _require_cuda_operand("quantize x", x, x.dtype, x.numel())
     return _launch_quantize(x, bits, bucket_size, encode, pack, seed=seed)
 
 
@@ -482,8 +556,9 @@ def _launch_quantize(
     args = (x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, bucket_size,
             bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack),
             g.k, g.threads)
-    err = lib.cgx_quantize(*args, *_seed_args(seed), _stream(x))
-    LAUNCHES["codec_quantize"] += 1
+    wire = wire_code("quantize x", x.dtype)
+    err = lib.cgx_quantize(*args, *_seed_args(seed), wire, _stream(x))
+    _count_launch("codec_quantize", wire)
     _check_launch("codec_quantize", err)
     return words, meta
 
@@ -616,7 +691,8 @@ def sra_epilogue_chunks_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`sra_epilogue_chunks`. ``cast_dtype`` rounds
     the reduced chunk through the wire dtype before the requantize, as the
-    staged path quantizes ``reduced.to(dtype)``."""
+    staged path quantizes ``reduced.to(dtype)``. The raw row may be of any
+    float dtype here."""
     acc = reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size)
     if cast_dtype != torch.float32:
         acc = acc.to(cast_dtype).to(torch.float32)
@@ -637,16 +713,19 @@ def sra_epilogue_chunks(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused dequantize-accumulate-requantize: ``words`` int32 ``(ws,
     C*bits*B)`` and ``meta`` f32 ``(ws, C*32, 2)`` of the ws peer rows, the
-    raw own chunk ``raw`` f32 ``(C*32*B,)`` replacing row ``own`` (-1 and
-    None: no substitution) -> the stage-2 payload ``(words (C*bits*B,),
-    meta (C*32, 2))`` of the reduced chunk. Rows fold in ascending order.
-    ``cast_dtype``: the wire dtype the reduced chunk rounds through before
-    the requantize (float32 only in the kernel); ``encode`` and ``pack``:
-    the requantize's lowerings (:func:`_lowering`); ``seed``: a stochastic
-    requantize, the output row's chunk indices 0 .. C-1."""
+    raw own chunk ``raw`` ``(C*32*B,)`` replacing row ``own`` (-1 and None:
+    no substitution) -> the stage-2 payload ``(words (C*bits*B,), meta
+    (C*32, 2))`` of the reduced chunk. Rows fold in ascending order.
+    ``cast_dtype``: the wire dtype (of :data:`WIRE_DTYPES`) the reduced
+    chunk rounds through before the requantize; on the card the kernel
+    reads a raw row in that same dtype (another raises ``ValueError``; the
+    plain version takes any). ``encode`` and ``pack``: the requantize's
+    lowerings (:func:`_lowering`); ``seed``: a stochastic requantize, the
+    output row's chunk indices 0 .. C-1."""
     _refuse_unported_fold()
     encode, pack = _lowering(encode, pack)
     _check_seed(seed)
+    wire_code("epilogue cast_dtype", cast_dtype)
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
@@ -655,25 +734,35 @@ def sra_epilogue_chunks(
         return sra_epilogue_chunks_plain(
             words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack, seed
         )
-    if cast_dtype != torch.float32:
-        raise NotImplementedError(
-            f"{cast_dtype} wire dtypes are not ported into the epilogue kernel yet"
-        )
-    _require_cuda_operand("epilogue words", words, torch.int32, ws * chunks * bits * bucket_size)
-    _require_cuda_operand("epilogue meta", meta, torch.float32, ws * 2 * n // bucket_size)
+    _require_epilogue_operands("epilogue", words, meta, raw, cast_dtype, ws, n, bits, bucket_size)
+    return _launch_epilogue(words, meta, raw, own, bits, bucket_size, encode, pack, seed=seed,
+                            cast_dtype=cast_dtype)
+
+
+def _require_epilogue_operands(name: str, words, meta, raw, cast_dtype, ws: int, n: int,
+                               bits: int, bucket_size: int) -> None:
+    """B3's and B7c's CUDA operands: int32 words and f32 meta of ``ws``
+    rows of ``n`` values, a raw row of ``n`` values in the wire dtype
+    ``cast_dtype``."""
+    _require_cuda_operand(f"{name} words", words, torch.int32, ws * n * bits // CHUNK_BUCKETS)
+    _require_cuda_operand(f"{name} meta", meta, torch.float32, ws * 2 * n // bucket_size)
     if raw is not None:
-        _require_cuda_operand("epilogue raw", raw, torch.float32, n)
-    return _launch_epilogue(words, meta, raw, own, bits, bucket_size, encode, pack, seed=seed)
+        if raw.dtype != cast_dtype:
+            raise ValueError(
+                f"{name} raw: the kernel reads the raw own row in the wire dtype {cast_dtype}, "
+                f"got {raw.dtype}"
+            )
+        _require_cuda_operand(f"{name} raw", raw, cast_dtype, n)
 
 
 def _launch_epilogue(
     words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
     bucket_size: int, encode: str, pack: str, g: Optional[ClusterGeometry] = None,
-    seed: Optional[int] = None,
+    seed: Optional[int] = None, cast_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of B3 on checked CUDA operands at geometry ``g`` (None:
     :func:`cluster_geometry`'s on the operands' card), stochastic with
-    ``seed``."""
+    ``seed``, in the wire dtype ``cast_dtype``."""
     lib = _lib()
     ws = words.shape[0]
     chunks = meta.shape[1] // CHUNK_BUCKETS
@@ -683,9 +772,10 @@ def _launch_epilogue(
     args = (words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
             own, ws, chunks, bucket_size, bits, codec.unit_scale(bits),
             ENCODES.index(encode), PACKS.index(pack), g.k, g.threads)
-    outs = (out_words.data_ptr(), out_meta.data_ptr(), _stream(words))
+    wire = wire_code("epilogue cast_dtype", cast_dtype)
+    outs = (out_words.data_ptr(), out_meta.data_ptr(), wire, _stream(words))
     err = lib.cgx_sra_epilogue(*args, *_seed_args(seed), *outs)
-    LAUNCHES["codec_sra_epilogue"] += 1
+    _count_launch("codec_sra_epilogue", wire)
     _check_launch("codec_sra_epilogue", err)
     return out_words, out_meta
 
@@ -704,7 +794,7 @@ def reduce_rows_chunks_plain(
     bucket_size: int,
 ) -> torch.Tensor:
     """Plain version of :func:`reduce_rows_chunks`: decode each row (the
-    raw row in place of row ``own``) and fold ``v0 + v1 + ...``."""
+    raw row, upcast, in place of row ``own``) and fold ``v0 + v1 + ...``."""
     acc = None
     for r in range(words.shape[0]):
         if r == own:
@@ -725,24 +815,27 @@ def reduce_rows_chunks(
 ) -> torch.Tensor:
     """Fused dequantize-accumulate: ``words`` int32 ``(ws, C*bits*B)`` and
     ``meta`` f32 ``(ws, C*32, 2)`` of ws rows of whole chunks, the raw own
-    chunk ``raw`` f32 ``(C*32*B,)`` replacing row ``own`` (-1 and None: no
-    substitution) -> the reduced chunk f32 ``(C*32*B,)``, rows folded in
-    ascending order."""
+    chunk ``raw`` f32, bf16 or f16 ``(C*32*B,)`` (read in its dtype)
+    replacing row ``own`` (-1 and None: no substitution) -> the reduced
+    chunk f32 ``(C*32*B,)``, rows folded in ascending order."""
     _refuse_unported_fold()
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
     _check_own(raw, own, ws)
+    if raw is not None:
+        wire_code("reduce raw", raw.dtype)
     if _device_kind(words, meta, raw) == "cpu":
         return reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size)
     _require_cuda_operand("reduce words", words, torch.int32, ws * chunks * bits * bucket_size)
     _require_cuda_operand("reduce meta", meta, torch.float32, ws * 2 * n // bucket_size)
     if raw is not None:
-        _require_cuda_operand("reduce raw", raw, torch.float32, n)
+        _require_cuda_operand("reduce raw", raw, raw.dtype, n)
     out = torch.empty(n, dtype=torch.float32, device=words.device)
-    # Full width: 16-byte copies of 4 positions, 32 such vectors a block.
+    # Full width: copies of 4 positions (16 bytes, the raw row's 4 values),
+    # 32 such vectors a block.
     wide = bucket_size % 128 == 0 and all(
-        t is None or t.data_ptr() % 16 == 0 for t in (words, meta, raw, out))
+        t is None or t.data_ptr() % (4 * t.element_size()) == 0 for t in (words, meta, raw, out))
     return _launch_reduce(words, meta, raw, own, bits, bucket_size, out, 4 if wide else 1)
 
 
@@ -751,14 +844,15 @@ def _launch_reduce(
     bucket_size: int, out: torch.Tensor, vec: int,
 ) -> torch.Tensor:
     """One launch of B4 on checked CUDA operands at width ``vec`` (4: every
-    operand 16-byte aligned, the bucket a multiple of 128; 1: scalar width,
-    counted in :data:`REDUCE_SCALAR`)."""
+    operand aligned to four of its values, the bucket a multiple of 128; 1:
+    scalar width, counted in :data:`REDUCE_SCALAR`)."""
     chunks = meta.shape[1] // CHUNK_BUCKETS
+    wire = 0 if raw is None else wire_code("reduce raw", raw.dtype)
     err = _lib().cgx_reduce_rows(
         words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
-        own, words.shape[0], chunks, bucket_size, bits, vec, out.data_ptr(), _stream(words),
+        own, words.shape[0], chunks, bucket_size, bits, vec, out.data_ptr(), wire, _stream(words),
     )
-    LAUNCHES["codec_reduce_rows"] += 1
+    _count_launch("codec_reduce_rows", wire)
     if vec == 1:
         REDUCE_SCALAR["launches"] += 1
     _check_launch("codec_reduce_rows", err)
@@ -829,6 +923,8 @@ def matmul_quantize_chunks(
         raise ValueError(f"the matmul-quantize kernel needs o % 4 == 0, got o={o}")
     if CHUNK_BUCKETS * bucket_size * 4 > MAX_EPILOGUE_TILE_BYTES:
         raise ValueError(f"bucket_size {bucket_size} exceeds the kernel's shared-memory tile")
+    # float32 only: the producer upcasts bf16 tiles before the launch
+    # (fused_producer.py), where the JAX kernel reads them (ROADMAP Queue B).
     _require_cuda_operand("matmul x2", x2, torch.float32, x2.numel())
     _require_cuda_operand("matmul g2", g2, torch.float32, g2.numel())
     if g2.data_ptr() % 16:  # the kernel reads g2 four floats at a time
@@ -975,14 +1071,15 @@ def db_geometry(chunks: int, bucket_size: int, bits: int,
 
 
 def db_ring(kernel: str, chunks: int, bits: int, bucket_size: int,
-            sms: int = CLUSTER_SMS) -> DbRing:
+            sms: int = CLUSTER_SMS, elem_size: int = 4) -> DbRing:
     """The ring of the pipelined ``kernel`` ("quantize": B7a, "epilogue":
     B7c) for ``chunks`` chunks on a card of ``sms`` SMs: at
     :func:`db_geometry`, :data:`DB_SLOTS` slots, each holding a CTA's
-    ``threads`` positions of one round: B7a 32 buckets of f32, B7c one peer
-    row's ``bits`` words and its 256 bytes of chunk meta."""
+    ``threads`` positions of one round: B7a 32 buckets of the input's
+    ``elem_size``-byte values (4, or 2 in a 16-bit wire dtype), B7c one
+    peer row's ``bits`` words and its 256 bytes of chunk meta."""
     g = db_geometry(chunks, bucket_size, bits, sms)
-    per = (CHUNK_BUCKETS * g.threads * 4 if kernel == "quantize"
+    per = (CHUNK_BUCKETS * g.threads * elem_size if kernel == "quantize"
            else bits * g.threads * 4 + 2 * CHUNK_BUCKETS * 4)
     return DbRing(g, DB_SLOTS[kernel][g.positions > 1], per)
 
@@ -995,29 +1092,32 @@ def _db_bytes_per_tc(bits: int, bucket_size: int, with_add: bool) -> int:
 
 def db_smem_bytes(
     kernel: str, tc: int, bits: int, bucket_size: int, *, with_add: bool = False,
-    chunks: int = 1, pack: str = "sum", sms: int = CLUSTER_SMS,
+    chunks: int = 1, pack: str = "sum", sms: int = CLUSTER_SMS, elem_size: int = 4,
 ) -> int:
     """Dynamic shared memory the pipelined ``kernel`` launches with
     (``csrc/codec.cu``): the barriers, then for dequantize two slots of
     ``tc`` chunks of words and meta (and of the accumulator ``with_add``);
-    for quantize and the epilogue the :func:`db_ring` of ``chunks`` chunks,
-    whatever ``tc`` is, and the butterfly ``pack``'s stage."""
+    for quantize and the epilogue the :func:`db_ring` of ``chunks`` chunks
+    (B7a's of ``elem_size``-byte values), whatever ``tc`` is, and the
+    butterfly ``pack``'s stage."""
     if kernel == "dequantize":
         return DB_BAR_BYTES + tc * _db_bytes_per_tc(bits, bucket_size, with_add)
-    ring = db_ring(kernel, chunks, bits, bucket_size, sms)
+    ring = db_ring(kernel, chunks, bits, bucket_size, sms, elem_size)
     stage = ring.geometry.threads // 32 * 32 * 32 * 4 if pack == "butterfly" else 0
     return DB_BAR_BYTES + ring.slots * ring.slot_bytes + stage
 
 
 def db_clusters(kernel: str, chunks: int, bits: int, bucket_size: int,
-                sms: int = CLUSTER_SMS) -> int:
+                sms: int = CLUSTER_SMS, elem_size: int = 4) -> int:
     """The clusters of B7a or B7c that ``sms`` SMs hold at once under the
     sum pack, from the per-SM limits of threads, registers (the launch
-    bounds' most), blocks and shared memory; the kernel's own grid comes
-    from the card's occupancy query."""
-    ring = db_ring(kernel, chunks, bits, bucket_size, sms)
+    bounds' most), blocks and shared memory (B7a's ring of
+    ``elem_size``-byte values); the kernel's own grid comes from the card's
+    occupancy query."""
+    ring = db_ring(kernel, chunks, bits, bucket_size, sms, elem_size)
     g = ring.geometry
-    smem = (db_smem_bytes(kernel, 1, bits, bucket_size, chunks=chunks, sms=sms)
+    smem = (db_smem_bytes(kernel, 1, bits, bucket_size, chunks=chunks, sms=sms,
+                          elem_size=elem_size)
             + DB_CLUSTER_STATIC_BYTES + SMEM_BLOCK_RESERVED)
     per_sm = min(SM_THREADS // g.threads,
                  SM_REGISTERS // (CLUSTER_THREAD_REGISTERS[g.positions > 1] * g.threads),
@@ -1026,20 +1126,22 @@ def db_clusters(kernel: str, chunks: int, bits: int, bucket_size: int,
 
 
 def db_tc_cap(kernel: str, bits: int, bucket_size: int, *, with_add: bool = False,
-              chunks: int = 1, sms: int = CLUSTER_SMS) -> int:
+              chunks: int = 1, sms: int = CLUSTER_SMS, elem_size: int = 4) -> int:
     """The most chunks a tile of the pipelined ``kernel`` takes; 0 where
     its ring does not fit a block's shared memory (the single-stage kernel
     runs then: ROADMAP C7). B7b: the chunks its two slots hold. B7a and
     B7c, whose ring does not grow with the tile: ``chunks`` over the
-    clusters the card holds at once (:func:`db_clusters`), so that every
-    cluster has a tile; their ring fits at every geometry."""
+    clusters the card holds at once (:func:`db_clusters`; B7a's ring of
+    ``elem_size``-byte values), so that every cluster has a tile; their
+    ring fits at every geometry."""
     if kernel == "dequantize":
         room = SMEM_BLOCK_BYTES - DB_STATIC_BYTES - DB_BAR_BYTES
         return room // _db_bytes_per_tc(bits, bucket_size, with_add)
-    most = db_smem_bytes(kernel, 1, bits, bucket_size, chunks=chunks, pack="butterfly", sms=sms)
+    most = db_smem_bytes(kernel, 1, bits, bucket_size, chunks=chunks, pack="butterfly", sms=sms,
+                         elem_size=elem_size)
     if most + DB_CLUSTER_STATIC_BYTES > SMEM_BLOCK_BYTES:
         return 0
-    return max(1, chunks // db_clusters(kernel, chunks, bits, bucket_size, sms))
+    return max(1, chunks // db_clusters(kernel, chunks, bits, bucket_size, sms, elem_size))
 
 
 def _require_aligned(name: str, t: Optional[torch.Tensor]) -> None:
@@ -1048,13 +1150,14 @@ def _require_aligned(name: str, t: Optional[torch.Tensor]) -> None:
 
 
 def _db_tile(kernel: str, chunks: int, tc: int, bits: int, bucket_size: int,
-             with_add: bool = False) -> None:
+             with_add: bool = False, elem_size: int = 4) -> None:
     """``tc`` divides the chunks, and the pipelined ``kernel``'s ring holds
     it: B7b's at most :func:`db_tc_cap` chunks a slot; B7a's and B7c's any
     tile, where their ring fits at all."""
     if tc < 1 or chunks % tc:
         raise ValueError(f"tc={tc} must divide the {chunks} chunks")
-    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add, chunks=chunks)
+    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add, chunks=chunks,
+                    elem_size=elem_size)
     if (tc > cap) if kernel == "dequantize" else cap < 1:
         raise ValueError(
             f"{kernel}: tc={tc} chunks of bucket {bucket_size} at {bits} bits exceed the "
@@ -1073,15 +1176,17 @@ def quantize_chunks_db(
     encode: Optional[str] = None, pack: Optional[str] = None, seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`quantize_chunks` through the pipelined kernel (B7a), the
-    clusters sharing out tiles of ``tc`` chunks."""
+    clusters sharing out tiles of ``tc`` chunks; ``x`` f32, bf16 or f16,
+    streamed into the ring in its dtype."""
     encode, pack = _lowering(encode, pack)
     _check_seed(seed)
+    wire_code("quantize_db x", x.dtype)
     chunks = _chunk_geometry(x.numel(), bits, bucket_size)
     if _device_kind(x) == "cpu":
         return quantize_chunks_db_plain(x, bits, bucket_size, encode, pack, seed)
-    _require_cuda_operand("quantize_db x", x, torch.float32, x.numel())
+    _require_cuda_operand("quantize_db x", x, x.dtype, x.numel())
     _require_aligned("quantize_db x", x)
-    _db_tile("quantize", chunks, tc, bits, bucket_size)
+    _db_tile("quantize", chunks, tc, bits, bucket_size, elem_size=x.element_size())
     return _launch_quantize_db(x, bits, bucket_size, tc, encode, pack, seed=seed)
 
 
@@ -1094,15 +1199,17 @@ def _launch_quantize_db(
     ring of ``slots`` (None: :func:`db_ring`'s on the operand's card),
     stochastic with ``seed``."""
     chunks = x.numel() // (CHUNK_BUCKETS * bucket_size)
-    ring = db_ring("quantize", chunks, bits, bucket_size, _sm_count(x.device.index))
+    ring = db_ring("quantize", chunks, bits, bucket_size, _sm_count(x.device.index),
+                   x.element_size())
     g = g or ring.geometry
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
     meta = torch.empty((chunks * CHUNK_BUCKETS, 2), dtype=torch.float32, device=x.device)
     args = (x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, tc, bucket_size,
             bits, codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack),
             g.k, g.threads, slots or DB_SLOTS["quantize"][g.positions > 1])
-    err = _lib().cgx_quantize_db(*args, *_seed_args(seed), _stream(x))
-    LAUNCHES["codec_quantize_db"] += 1
+    wire = wire_code("quantize_db x", x.dtype)
+    err = _lib().cgx_quantize_db(*args, *_seed_args(seed), wire, _stream(x))
+    _count_launch("codec_quantize_db", wire)
     _check_launch("codec_quantize_db", err)
     return words, meta
 
@@ -1154,10 +1261,12 @@ def sra_epilogue_chunks_db(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`sra_epilogue_chunks` through the pipelined kernel (B7c): each
     CTA's ring streams its share of one peer row at a time, rows ascending,
-    the clusters sharing out tiles of ``tc`` chunks."""
+    the clusters sharing out tiles of ``tc`` chunks; the raw row, read in
+    the wire dtype ``cast_dtype``, from device memory."""
     _refuse_unported_fold()
     encode, pack = _lowering(encode, pack)
     _check_seed(seed)
+    wire_code("epilogue_db cast_dtype", cast_dtype)
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
@@ -1166,30 +1275,24 @@ def sra_epilogue_chunks_db(
         return sra_epilogue_chunks_db_plain(
             words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack, seed
         )
-    if cast_dtype != torch.float32:
-        raise NotImplementedError(
-            f"{cast_dtype} wire dtypes are not ported into the epilogue kernel yet"
-        )
-    _require_cuda_operand("epilogue_db words", words, torch.int32, ws * chunks * bits * bucket_size)
-    _require_cuda_operand("epilogue_db meta", meta, torch.float32, ws * 2 * n // bucket_size)
-    if raw is not None:
-        _require_cuda_operand("epilogue_db raw", raw, torch.float32, n)
+    _require_epilogue_operands("epilogue_db", words, meta, raw, cast_dtype, ws, n, bits,
+                               bucket_size)
     for name, t in (("words", words), ("meta", meta), ("raw", raw)):
         _require_aligned(f"epilogue_db {name}", t)
     _db_tile("epilogue", chunks, tc, bits, bucket_size)
     return _launch_epilogue_db(words, meta, raw, own, bits, bucket_size, tc, encode, pack,
-                               seed=seed)
+                               seed=seed, cast_dtype=cast_dtype)
 
 
 def _launch_epilogue_db(
     words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
     bucket_size: int, tc: int, encode: str, pack: str,
     g: Optional[ClusterGeometry] = None, slots: Optional[int] = None,
-    seed: Optional[int] = None,
+    seed: Optional[int] = None, cast_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of B7c on checked CUDA operands at geometry ``g`` with a
     ring of ``slots`` (None: :func:`db_ring`'s on the operands' card),
-    stochastic with ``seed``."""
+    stochastic with ``seed``, in the wire dtype ``cast_dtype``."""
     ws = words.shape[0]
     chunks = meta.shape[1] // CHUNK_BUCKETS
     ring = db_ring("epilogue", chunks, bits, bucket_size, _sm_count(words.device.index))
@@ -1200,9 +1303,10 @@ def _launch_epilogue_db(
             own, ws, chunks, tc, bucket_size, bits, codec.unit_scale(bits),
             ENCODES.index(encode), PACKS.index(pack), g.k, g.threads,
             slots or DB_SLOTS["epilogue"][g.positions > 1])
-    outs = (out_words.data_ptr(), out_meta.data_ptr(), _stream(words))
+    wire = wire_code("epilogue_db cast_dtype", cast_dtype)
+    outs = (out_words.data_ptr(), out_meta.data_ptr(), wire, _stream(words))
     err = _lib().cgx_sra_epilogue_db(*args, *_seed_args(seed), *outs)
-    LAUNCHES["codec_sra_epilogue_db"] += 1
+    _count_launch("codec_sra_epilogue_db", wire)
     _check_launch("codec_sra_epilogue_db", err)
     return out_words, out_meta
 
@@ -1266,12 +1370,14 @@ def _pack_strategy(tuned: Optional[autotune.TunedConfig] = None) -> str:
 def _db_route(
     kernel: str, n_chunks: int, bits: int, bucket_size: int,
     tuned: Optional[autotune.TunedConfig], *, with_add: bool = False, count: bool = False,
-    sms: int = CLUSTER_SMS,
+    sms: int = CLUSTER_SMS, elem_size: int = 4,
 ) -> Optional[int]:
     """``tc`` for the pipelined ``kernel``, or None where the single-stage
     kernel runs. ``count``: count a call that CGX_PALLAS_DB sends to a
-    pipelined kernel whose geometry does not fit (:data:`DB_GATED`)."""
-    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add, chunks=n_chunks, sms=sms)
+    pipelined kernel whose geometry does not fit (:data:`DB_GATED`).
+    ``elem_size``: bytes of a quantize input's value."""
+    cap = db_tc_cap(kernel, bits, bucket_size, with_add=with_add, chunks=n_chunks, sms=sms,
+                    elem_size=elem_size)
     tc = _pipe_tc(n_chunks, cap, tuned)
     if not _use_db(tuned):
         return None
@@ -1292,10 +1398,10 @@ def db_would_run(kernel: str, q: QTensor, *, with_add: bool = False,
                  stochastic: bool = False) -> bool:
     """Whether the batch function of ``kernel`` ("quantize", "dequantize"
     or "epilogue") takes the pipelined kernel for a payload of ``q``'s
-    layout (rows, length, bits, bucket; ``with_add``: a dequantize whose
-    accumulator fuses; ``stochastic``: an epilogue with a seed, which makes
-    no lookup). Consults the autotune cache as the batch function does; the
-    caller checks the dispatcher's own gates."""
+    layout (rows, length, bits, bucket, dtype; ``with_add``: a dequantize
+    whose accumulator fuses; ``stochastic``: an epilogue with a seed, which
+    makes no lookup). Consults the autotune cache as the batch function
+    does; the caller checks the dispatcher's own gates."""
     b = q.bucket_size
     c_r, t_r = divmod(codec.num_buckets(q.numel_main, b), CHUNK_BUCKETS)
     if kernel == "epilogue":
@@ -1308,7 +1414,9 @@ def db_would_run(kernel: str, q: QTensor, *, with_add: bool = False,
     with_add = with_add and not q.residual.shape[-1] and q.numel_main == c_r * CHUNK_BUCKETS * b
     tuned = None if stochastic and kernel == "epilogue" else autotune.lookup(
         kind, n_chunks=n_chunks, bucket_size=b, bits=q.bits, ws=ws)
-    return _db_route(kernel, n_chunks, q.bits, b, tuned, with_add=with_add) is not None
+    elem = torch.empty((), dtype=q.dtype).element_size() if kernel == "quantize" else 4
+    return _db_route(kernel, n_chunks, q.bits, b, tuned, with_add=with_add,
+                     elem_size=elem) is not None
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -1359,12 +1467,9 @@ def supports_reduce(
 
 
 def _as_f32(t: torch.Tensor) -> torch.Tensor:
-    if t.dtype == torch.float32:
-        return t
-    if t.is_cuda:
-        raise NotImplementedError(
-            f"{t.dtype} buffers are not ported into the codec kernels yet"
-        )
+    """A decode's meta or accumulator in float32: the wire carries the meta
+    in the tensor's dtype, the decode kernels read f32 (the JAX package
+    upcasts the same operands outside its kernels, ``codec.batch_views``)."""
     return t.to(torch.float32)
 
 
@@ -1384,26 +1489,30 @@ def quantize_batch(
     "flat" and may take the pipelined kernel; the rest as kind "chunks".
     ``seed``: stochastic rounding, the offsets of
     ``codec.rounding_offsets`` (the kernel's chunk indices row-major over
-    the rows, the tail's from its own stream)."""
+    the rows, the tail's from its own stream). A bf16 or f16 ``xs`` goes to
+    the kernel in its dtype; the meta comes back in it."""
     _check_seed(seed)
     rows, m = xs.shape
     dtype = xs.dtype
     b = bucket_size
     main_n, res_n = codec._split_residual(m, b, skip_incomplete_buckets)
     residual = xs[:, main_n:] if res_n else xs.new_zeros((rows, 0))
-    x = _as_f32(xs[:, :main_n] if res_n else xs)
+    x = xs[:, :main_n] if res_n else xs
     nb_r = codec.num_buckets(main_n, b)
-    pad = nb_r * b - main_n
-    if pad:
-        x = torch.cat([x, x[:, -1:].expand(rows, pad)], dim=1)
     c_r, t_r = divmod(nb_r, CHUNK_BUCKETS)
+    pad = nb_r * b - main_n
+    # The edge padding of a partial last bucket: on the dense tail where
+    # there is one, so the kernel reads the whole chunks where they lie.
+    if pad and not t_r:
+        x = torch.cat([x, x[:, -1:].expand(rows, pad)], dim=1)
     word_parts, meta_parts = [], []
     if c_r:
         head = x[:, : c_r * CHUNK_BUCKETS * b].contiguous().reshape(-1)
         tc = None
         if _flat(c_r, t_r, b):
             tuned = autotune.lookup(autotune.KIND_FLAT, n_chunks=rows * c_r, bucket_size=b, bits=bits)
-            tc = _db_route("quantize", rows * c_r, bits, b, tuned, count=True, sms=_sms(x))
+            tc = _db_route("quantize", rows * c_r, bits, b, tuned, count=True, sms=_sms(x),
+                           elem_size=x.element_size())
         else:
             tuned = autotune.lookup(autotune.KIND_CHUNKS, n_chunks=rows * c_r, bucket_size=b, bits=bits)
             cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
@@ -1416,7 +1525,10 @@ def quantize_batch(
         meta_parts.append(meta.view(rows, c_r * CHUNK_BUCKETS, 2))
     if t_r:
         # The dense tail keeps the div encode (codec_pallas.py:955-972).
-        tail = x[:, c_r * CHUNK_BUCKETS * b :].reshape(rows * t_r, b)
+        tail = x[:, c_r * CHUNK_BUCKETS * b :]
+        if pad:
+            tail = torch.cat([tail, tail[:, -1:].expand(rows, pad)], dim=1)
+        tail = tail.reshape(rows * t_r, b).to(torch.float32)
         unit, bmin = codec.compute_meta(tail, bits)
         rand = None
         if seed is not None:
@@ -1516,10 +1628,12 @@ def sra_epilogue_batch(
     give. The caller checks :func:`supports_reduce`. Consults the autotune
     cache as kind "epilogue" and may take the pipelined kernel. A
     stochastic requantize (``seed``) keeps the heuristic tile and pack and
-    makes no lookup, as the JAX package does."""
+    makes no lookup, as the JAX package does. The reduced chunk rounds
+    through ``out_dtype`` before the requantize; the raw row goes to the
+    kernel in its dtype (on the card, ``out_dtype``)."""
     _check_seed(seed)
     own = -1 if own_idx is None else int(own_idx)
-    raw = None if raw_row is None else _as_f32(raw_row).reshape(-1).contiguous()
+    raw = None if raw_row is None else raw_row.reshape(-1).contiguous()
     nb_r = codec.num_buckets(q.numel_main, q.bucket_size)
     c_r = nb_r // CHUNK_BUCKETS
     tuned = None if seed is not None else autotune.lookup(
@@ -1561,7 +1675,8 @@ def reduce_rows_batch(
     ``own_idx``'s decode before the fold. The caller checks
     :func:`supports_reduce` (``requantize=False``). Looks the shape up as
     kind "epilogue", as the JAX package does; the reduce has no pipelined
-    kernel, so the entry goes unused."""
+    kernel, so the entry goes unused. The raw row goes to the kernel in its
+    dtype."""
     nb_r = codec.num_buckets(q.numel_main, q.bucket_size)
     autotune.lookup(
         autotune.KIND_EPILOGUE, n_chunks=nb_r // CHUNK_BUCKETS, bucket_size=q.bucket_size,
@@ -1569,7 +1684,7 @@ def reduce_rows_batch(
     )
     cfg_mod.pallas_tile_chunks()  # validated on every call, as the JAX tile is
     own = -1 if own_idx is None else int(own_idx)
-    raw = None if raw_row is None else _as_f32(raw_row).reshape(-1).contiguous()
+    raw = None if raw_row is None else raw_row.reshape(-1).contiguous()
     out = reduce_rows_chunks(
         q.packed.contiguous(), _as_f32(q.meta).contiguous(), raw, own,
         q.bits, q.bucket_size,

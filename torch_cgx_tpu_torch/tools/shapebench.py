@@ -94,56 +94,89 @@ REDUCE_SHAPES = (
 )
 
 
+# The 16-bit instances (bf16 and f16 wire dtypes; a seventh field: the
+# dtype's torch name): B1 and B7a at a 64 MB f32 slice's 16,777,216 values
+# and at a 64 MB bf16 slice's 33,554,432 (2,048 chunks: the bf16-parameter
+# step's wte slice), B3 and B7c there with one row (the wire dtype's round
+# trip, no raw row) and at the four-rank flat SRA's 4 x 256 chunks with a
+# 16-bit raw own row, B4 at the bf16-parameter four-rank steps' shapes with
+# a 16-bit raw own row (two-level: half of each bf16 slice) and without
+# (all-to-all).
+WIRE16_SHAPES = (
+    [(k, f"{lab} {d} c={c}", c, 1, -1, BUCKET, d)
+     for d in ("bfloat16", "float16") for k, lab in (("quantize", "B1"), ("quantize_db", "B7a"))
+     for c in (1024, 2048)]
+    + [(k, f"{lab} {d} c={c} rows=1", c, 1, -1, BUCKET, d)
+       for d in ("bfloat16", "float16") for k, lab in (("epilogue", "B3"), ("epilogue_db", "B7c"))
+       for c in (1024, 2048)]
+    + [(k, f"{lab} {d} c=256 ws=4 own=1", 256, 4, 1, BUCKET, d)
+       for d in ("bfloat16", "float16") for k, lab in (("epilogue", "B3"), ("epilogue_db", "B7c"))]
+    + [("reduce", f"B4 bfloat16 two-level c={c} rows=2 own=0", c, 2, 0, BUCKET, "bfloat16")
+       for c in (54, 72, 240, 1024)]
+    + [("reduce", "B4 float16 two-level c=1024 rows=2 own=0", 1024, 2, 0, BUCKET, "float16")]
+)
+
+
 def wire_bytes(n: int, bits: int = BITS, bucket: int = BUCKET) -> int:
     """Bytes of the quantized payload of n values: words and meta."""
     return n * bits // 8 + 8 * n // bucket
 
 
-def shape_bytes(kernel: str, chunks: int, rows: int, own: int, bucket: int = BUCKET) -> int:
+def shape_bytes(kernel: str, chunks: int, rows: int, own: int, bucket: int = BUCKET,
+                elem_size: int = 4) -> int:
     """Bytes a call must move, each input read once and each output written
-    once: the quantize (B1, B7a) reads 4n and writes the payload; the
+    once: the quantize (B1, B7a) reads its input (``elem_size`` bytes a
+    value: 4, or 2 in a 16-bit wire dtype) and writes the payload; the
     epilogue (B3, B7c) reads the payload of every row but the own one, the
-    raw own row (4n), and writes one payload; the reduce (B4) reads as the
-    epilogue does and writes 4n."""
+    raw own row (``elem_size`` a value), and writes one payload; the reduce
+    (B4) reads as the epilogue does and writes 4n (f32)."""
     n = chunks * 32 * bucket
     wire = wire_bytes(n, BITS, bucket)
     if kernel.startswith("quantize"):
-        return 4 * n + wire
+        return elem_size * n + wire
     peers = rows - (1 if own >= 0 else 0)
-    return peers * wire + (4 * n if own >= 0 else 0) + (4 * n if kernel == "reduce" else wire)
+    return (peers * wire + (elem_size * n if own >= 0 else 0)
+            + (4 * n if kernel == "reduce" else wire))
 
 
-def slice_lengths() -> list:
+def slice_lengths(dtype_name: str = "float32") -> list:
     """``(length, compression config)`` of each compressed fusion slice of
     the GPT-2 124M step's gradients, from the port's own grouping
-    (``parallel/allreduce.py``) of a model on the meta device."""
+    (``parallel/allreduce.py``) of a model on the meta device, its
+    parameters in ``dtype_name`` (the 64 MB slices hold 2-byte values
+    twice as many)."""
+    import torch
+
     from torch_cgx_tpu_torch.models import GPT2, GPT2Config
     from torch_cgx_tpu_torch.parallel import allreduce
 
-    pl = allreduce.sorted_items(dict(GPT2(GPT2Config.small(), device="meta").named_parameters()))
+    model = GPT2(GPT2Config.small(), device="meta").to(getattr(torch, dtype_name))
+    pl = allreduce.sorted_items(dict(model.named_parameters()))
     out = []
     for g in allreduce._group_leaves(pl, compress_small=False):
         if g.cc.enabled:
             n = sum(pl[i][1].numel() for i in g.indices)
-            out += [(ln, g.cc) for _, ln in allreduce._fusion_slices(n, 4)]
+            elem = torch.empty(0, dtype=g.dtype).element_size()
+            out += [(ln, g.cc) for _, ln in allreduce._fusion_slices(n, elem)]
     return out
 
 
-def step_slices() -> list:
+def step_slices(dtype_name: str = "float32") -> list:
     """``(whole chunks, tail buckets)`` of each compressed fusion slice of
-    the GPT-2 124M step's gradients at bucket 512."""
+    the GPT-2 124M step's gradients at bucket 512, the parameters in
+    ``dtype_name``."""
     from torch_cgx_tpu_torch.ops import codec
 
-    return [divmod(codec.num_buckets(ln, BUCKET), 32) for ln, _ in slice_lengths()]
+    return [divmod(codec.num_buckets(ln, BUCKET), 32) for ln, _ in slice_lengths(dtype_name)]
 
 
-def reduce_step_shapes(dev="cpu") -> dict:
+def reduce_step_shapes(dev="cpu", dtype_name: str = "float32") -> dict:
     """B4's launches a rank-step of phase 7's two-level scheme (cross 2 x
     intra 2: each slice's intra reduce over ``chunk_layout(slice, 2)``, 2
     rows, the raw own row) and all-to-all (4 ranks: each slice, 4 rows):
     ``{scheme: {(chunks, rows, own): launches}}`` where the dispatcher's
     own gate (``dispatch.fused_reduce_would_run``, on layout stand-ins on
-    ``dev``) takes the fused reduce."""
+    ``dev``) takes the fused reduce; the parameters in ``dtype_name``."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec, dispatch
@@ -157,7 +190,7 @@ def reduce_step_shapes(dev="cpu") -> dict:
             numel=n, bits=cc.bits, bucket_size=cc.bucket_size, dtype=torch.float32)
 
     out = {"two_level": {}, "alltoall": {}}
-    for ln, cc in slice_lengths():
+    for ln, cc in slice_lengths(dtype_name):
         for scheme, rows, n, own in (("two_level", 2, chunk_layout(ln, 2)[0], 0),
                                      ("alltoall", 4, ln, -1)):
             if dispatch.fused_reduce_would_run(stand_in(rows, n, cc)):
@@ -166,12 +199,17 @@ def reduce_step_shapes(dev="cpu") -> dict:
     return out
 
 
-def reduce_step_bounds(rate: float, dev="cpu") -> dict:
+def reduce_step_bounds(rate: float, dev="cpu", dtype_name: str = "float32") -> dict:
     """B4's launches a rank-step of each four-rank scheme and the least
-    device time they could take (bytes at ``rate``, :func:`shape_bytes`)."""
+    device time they could take (bytes at ``rate``, :func:`shape_bytes`:
+    the raw own row in ``dtype_name``)."""
+    import torch
+
+    elem = torch.empty(0, dtype=getattr(torch, dtype_name)).element_size()
     out = {}
-    for scheme, shapes in reduce_step_shapes(dev).items():
-        nbytes = sum(k * shape_bytes("reduce", c, rows, own) for (c, rows, own), k in shapes.items())
+    for scheme, shapes in reduce_step_shapes(dev, dtype_name).items():
+        nbytes = sum(k * shape_bytes("reduce", c, rows, own, elem_size=elem)
+                     for (c, rows, own), k in shapes.items())
         out[scheme] = {"launches": sum(shapes.values()), "bytes": nbytes,
                        "bound_ms": nbytes / rate * 1e3}
     return out
@@ -186,22 +224,26 @@ def reduce_step_ms(shapes: list, counts: dict) -> dict:
             for scheme, c in counts.items()}
 
 
-def step_bounds(rate: float) -> dict:
+def step_bounds(rate: float, dtype_name: str = "float32") -> dict:
     """Launches and the least device time a step of the world-size-1 codec
     proxy (``CGX_PALLAS_DB=off``) could take in each kernel, summed over
     its launch shapes (bytes at ``rate``): a quantize (B1; B5 on the tail
     slice's whole chunks) of every slice; the fused epilogue (B3, one row)
     of every slice of whole chunks, then a decode (B2); the tail slice
-    decoded twice, the second time with the add (B6)."""
+    decoded twice, the second time with the add (B6). ``dtype_name``: the
+    parameters' dtype, the quantize's input's (the decode writes f32)."""
+    import torch
+
+    elem = torch.empty(0, dtype=getattr(torch, dtype_name)).element_size()
     out = {"quantize": [0, 0], "epilogue": [0, 0], "dequantize": [0, 0]}
 
     def add(kernel, nbytes):
         out[kernel][0] += 1
         out[kernel][1] += nbytes
 
-    for c, tail in step_slices():
+    for c, tail in step_slices(dtype_name):
         n = c * 32 * BUCKET
-        add("quantize", shape_bytes("quantize", c, 1, -1))
+        add("quantize", shape_bytes("quantize", c, 1, -1, elem_size=elem))
         if tail:
             add("dequantize", wire_bytes(n) + 4 * n)
             add("dequantize", wire_bytes(n) + 8 * n)
@@ -260,19 +302,24 @@ def plain_ms(fn, iters: int = 3) -> float:
 
 
 def shape_calls(codec_cuda, dev, kernel: str, chunks: int, rows: int, own: int, launches: int,
-                geometry=None, bucket: int = BUCKET):
+                geometry=None, bucket: int = BUCKET, dtype_name: str = "float32"):
     """``(kernel call of buffer i, plain call)`` of one shape on seeded normal
     data, the inputs copied into enough buffers to rotate through. With a
     ``geometry`` (``codec_cuda.ClusterGeometry``) the kernel launches at it
-    rather than at the wrappers' choice (div encode, sum pack)."""
+    rather than at the wrappers' choice (div encode, sum pack).
+    ``dtype_name``: the wire dtype of the quantize's input and of the
+    epilogue's and reduce's raw row (the epilogue's cast too); the payloads'
+    meta goes to the kernels in f32, as the batch functions give it."""
     import torch
 
+    dtype = getattr(torch, dtype_name)
+    elem = torch.empty(0, dtype=dtype).element_size()
     n = chunks * 32 * bucket
     gen = torch.Generator(device=dev).manual_seed(SEED + chunks + rows)
-    per = shape_bytes(kernel, chunks, rows, own, bucket)
+    per = shape_bytes(kernel, chunks, rows, own, bucket, elem)
     copies = max(1, min(launches, -(-ROTATE_BYTES // per)))
     if kernel.startswith("quantize"):
-        xs = [torch.randn(n, generator=gen, device=dev) for _ in range(copies)]
+        xs = [torch.randn(n, generator=gen, device=dev).to(dtype) for _ in range(copies)]
         plain = lambda: codec_cuda.quantize_chunks_plain(xs[0], BITS, bucket)  # noqa: E731
         if kernel == "quantize_db":
             if geometry is not None:
@@ -283,43 +330,50 @@ def shape_calls(codec_cuda, dev, kernel: str, chunks: int, rows: int, own: int, 
             return (lambda i: codec_cuda._launch_quantize(xs[i % copies], BITS, bucket, "div", "sum",
                                                           geometry), None)
         return lambda i: codec_cuda.quantize_chunks(xs[i % copies], BITS, bucket), plain
-    data = torch.randn(rows, n, generator=gen, device=dev) * torch.arange(
-        1, rows + 1, device=dev, dtype=torch.float32)[:, None]
+    data = (torch.randn(rows, n, generator=gen, device=dev) * torch.arange(
+        1, rows + 1, device=dev, dtype=torch.float32)[:, None]).to(dtype)
     q = codec_cuda.quantize_batch(data, BITS, bucket)
     w = [q.packed.contiguous().clone() for _ in range(copies)]
-    m = [q.meta.contiguous().clone() for _ in range(copies)]
+    m = [q.meta.to(torch.float32).contiguous().clone() for _ in range(copies)]
     raw = [data[own].clone() if own >= 0 else None for _ in range(copies)]
     if kernel == "reduce":
         return (lambda i: codec_cuda.reduce_rows_chunks(w[i % copies], m[i % copies], raw[i % copies],
                                                         own, BITS, bucket),
                 lambda: codec_cuda.reduce_rows_chunks_plain(w[0], m[0], raw[0], own, BITS, bucket))
-    plain = lambda: codec_cuda.sra_epilogue_chunks_plain(w[0], m[0], raw[0], own, BITS, bucket)  # noqa: E731
+    # The cast is passed only for a 16-bit wire dtype: a checkout from
+    # before the 16-bit instances takes the float32 calls as they were.
+    cast = {} if dtype == torch.float32 else {"cast_dtype": dtype}
+    plain = lambda: codec_cuda.sra_epilogue_chunks_plain(  # noqa: E731
+        w[0], m[0], raw[0], own, BITS, bucket, **cast)
     if kernel == "epilogue_db":
         if geometry is not None:
             return (lambda i: codec_cuda._launch_epilogue_db(
                 w[i % copies], m[i % copies], raw[i % copies], own, BITS, bucket, 1, "div", "sum",
-                geometry), None)
+                geometry, **cast), None)
         return (lambda i: codec_cuda.sra_epilogue_chunks_db(
-            w[i % copies], m[i % copies], raw[i % copies], own, BITS, bucket, 1), plain)
+            w[i % copies], m[i % copies], raw[i % copies], own, BITS, bucket, 1, **cast), plain)
     if geometry is not None:
         return (lambda i: codec_cuda._launch_epilogue(w[i % copies], m[i % copies], raw[i % copies],
-                                                      own, BITS, bucket, "div", "sum", geometry), None)
+                                                      own, BITS, bucket, "div", "sum", geometry,
+                                                      **cast), None)
     return (lambda i: codec_cuda.sra_epilogue_chunks(w[i % copies], m[i % copies], raw[i % copies],
-                                                     own, BITS, bucket), plain)
+                                                     own, BITS, bucket, **cast), plain)
 
 
 def time_shapes(codec_cuda, dev, rate: float, groups: int = 5, launches: int = 32,
                 shapes=SHAPES) -> list:
     """Each shape's kernel bursts and plain calls in alternating groups (a
-    shape's sixth field, if any, its bucket)."""
+    shape's sixth field, if any, its bucket; its seventh its wire dtype)."""
     import torch
 
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     out = []
     for kernel, label, chunks, rows, own, *rest in shapes:
         bucket = rest[0] if rest else BUCKET
+        dtype_name = rest[1] if len(rest) > 1 else "float32"
+        elem = torch.empty(0, dtype=getattr(torch, dtype_name)).element_size()
         kern, plain = shape_calls(codec_cuda, dev, kernel, chunks, rows, own, launches,
-                                  bucket=bucket)
+                                  bucket=bucket, dtype_name=dtype_name)
         burst_ms(kern, launches, flush)  # warm-up
         ks, ps = [], []
         for g in range(groups):
@@ -330,10 +384,10 @@ def time_shapes(codec_cuda, dev, rate: float, groups: int = 5, launches: int = 3
                 ps.append(plain_ms(plain))
                 ks.append(burst_ms(kern, launches, flush))
         ms = statistics.median(ks)
-        nbytes = shape_bytes(kernel, chunks, rows, own, bucket)
+        nbytes = shape_bytes(kernel, chunks, rows, own, bucket, elem)
         bound = nbytes / rate * 1e3
         out.append({"kernel": kernel, "shape": label, "chunks": chunks, "rows": rows, "own": own,
-                    "bucket": bucket,
+                    "bucket": bucket, "dtype": dtype_name,
                     "ms": ms, "groups_ms": ks, "spread": (max(ks) - min(ks)) / ms,
                     "plain_ms": statistics.median(ps), "bytes": nbytes, "bound_ms": bound,
                     "pct_of_bound": 100 * bound / ms})
