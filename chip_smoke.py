@@ -11,7 +11,9 @@ order, none of whose failures is caught:
    pipelined kernels; every f32 instance's registers, spills and static
    shared memory against ``csrc/ptxas_f32.json`` (the source before the
    16-bit instances existed; differences logged, a card test holds them),
-   the 16-bit instances' beside them;
+   the 16-bit instances' beside them. Then the int8 fold's library
+   (``codec_cuda.build_int8``) builds on a thread beside phases 3-5, its
+   compilers niced;
 3. kernels against their plain PyTorch versions on the card, at the shapes
    the GPT-2 124M train step gives them, the pipelined ones (B7a-c) also
    against the single-stage ones, at 1, 131, 133 and 2053 chunks too, and
@@ -52,9 +54,10 @@ order, none of whose failures is caught:
    128-16384, at every cluster size, tile of one or two chunks and ring
    depth 1-8; every level floor(q) or floor(q) + 1 and the decode's mean
    over 64 seeds unbiased within 4 sigma. Then the 16-bit wire dtypes
-   (:func:`check_subf32`): B1/B5, B7a, B3, B7c and B4 on bf16 and f16
-   operands at the bf16-parameter step's shapes, bit for bit, both
-   roundings, every lowering, and the decode glue;
+   (:func:`check_subf32`): B1/B5, B7a, B3, B7c and B4 on bf16 operands
+   at the bf16-parameter step's shapes (f16, the same instances, in the
+   card tests), bit for bit, both roundings, every lowering, and the
+   decode glue;
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -105,6 +108,23 @@ order, none of whose failures is caught:
    the 16-bit instances alone against their byte bound
    (``shapebench.WIRE16_SHAPES``, :func:`time_wire16`) and the
    bf16-parameter step's time and profile beside the float32 one's;
+5b. the int8 fold (``CGX_SRA_ACCUM=int8``), once its library is built
+   (its instances' registers and spills beside their exact twins'):
+   B3, B7c and B4's int8 instances against the int8 fold's plain versions
+   on the card's tensors, bit for bit (:func:`check_int8`: the step's
+   epilogue shapes, bits 1-8 on adversarial rows, both roundings, every
+   lowering, buckets 512-16,384 past the register budget and the old
+   epilogue gate through the batch functions and forced geometries, tiles
+   and ring depths, bf16 and f16, B4 at phase 7's shapes and rows 1-8, 11
+   at both widths; the one-row epilogue's bytes equal to the exact
+   fold's); then the slice's steps from the seed under int8
+   (:func:`int8_phase`): launches the layout's, every epilogue an int8
+   instance, losses and parameters bit-identical to phase 4's exact steps
+   (at one row every scale is 2^12); then the int8 instances beside the
+   exact ones in turns (:func:`time_int8`: B3 and B7c at one row of the 64
+   MB slice and at ws 4 x 256 chunks, B4 at phase 7's shapes and a
+   rank-step) and a profile of the int8 step under ``CGX_PALLAS_DB`` off
+   and on;
 6. qbench: ``python -m torch_cgx_tpu_torch.tools.qbench`` at its defaults
    (128 MB, 4 bits, bucket 512, k = 8, ``sra_epilogue`` at ws 8) for each
    of its eight variants, in this process: each variant's bytes checked,
@@ -138,22 +158,32 @@ order, none of whose failures is caught:
    3's buckets (captured after the division) reduced again through the
    kernels and through the plain versions on the CPU over the same group,
    bit-identical under SRA with f32 buckets, and every other one (from the
-   first to the last) with bf16 buckets, the Ring and the all-to-all. Then ``ddp_hook_hier``: the same on two faked hosts of two
+   first to the last) with bf16 buckets and under the all-to-all (the
+   hook's Ring runs in ``ddp_hook_hier``'s cross stage). Then ``ddp_hook_hier``: the same on two faked hosts of two
    ranks (``CGX_SHM_HOST_ID=testhost{rank // 2}``) under the default
    two-level scheme (intra SRA, cross Ring, leader scheme): every rank takes
    the two-level path, the launches equal ``LaunchModel.hook`` on the
    leaders and the non-leaders, and step 3's buckets are bit-identical
    between the kernels and the plain CPU path under the default scheme
-   with f32 buckets (every other one with bf16 buckets, under cross SRA,
-   cross all-to-all and ``CGX_INTRA_COMPRESS=0``), and the leaders'
-   stage-3 frames identical. Then ``ddp_hook_sr`` and ``ddp_hook_hier_sr``: both again
+   with f32 buckets (every other one under cross SRA, cross all-to-all and
+   ``CGX_INTRA_COMPRESS=0``; its bf16 buckets are ``ddp_hook``'s codec path),
+   and the leaders' stage-3 frames identical. Then ``ddp_hook_sr`` and ``ddp_hook_hier_sr``: both again
    under ``CGX_STOCHASTIC_ROUNDING=1``, with the same checks (the reruns
    through the kernels and the plain versions drawing the same frame
-   keys). (Before ``ddp_hook``, after ``sra_db``: ``two_level_bf16p`` and
+   keys; every other bucket, from the first to the last). (Before ``ddp_hook``, after ``sra_db``: ``two_level_bf16p`` and
    ``alltoall_bf16p``, GPT-2 124M with its parameters in bf16, one step
    each, launches against the bf16 layout, every quantize and every B4
    launch with a raw own row reading bf16, a 64 MB bf16 slice through the
    kernels bit-identical to the plain CPU path, replicas bit-identical.)
+   The ``_int8`` configurations (``two_level_int8``, ``alltoall_int8`` on
+   the default model, ``sra_int8``, ``sra_db_int8`` on the float32 one)
+   under ``CGX_SRA_ACCUM=int8``: one step each, launches against the
+   layout and their int8 share (``INT8_LAUNCHES``) against
+   :func:`expected_int8`'s, a 64 MB slice through the kernels bit-identical
+   to the plain CPU path's int8 fold, replicas bit-identical. ``ddp_hook``
+   reruns its buckets under ``CGX_SRA_ACCUM=int8`` too: no int8 instance
+   runs and the bytes equal its exact rerun's (the hook folds exactly, as
+   the JAX hook does).
    Gloo stages the wire through host memory: its time is not a card
    number.
 
@@ -234,6 +264,11 @@ SR_FORCED = ((512, 6), (1760, 4), (16384, 2))
 # of 2-byte values: 33,554,432, 2,048 chunks of bucket 512.
 WIRE16 = ("bfloat16", "float16")
 FLAT16_N = 2 * FLAT_N
+# Phase 3's 16-bit checks at the step's shapes run bf16 alone: f16 takes
+# the same instances with another convert, checked at every shape by the
+# card tests (tests/test_torch_kernels.py, the subf32 tests); the script's
+# time.
+PHASE3_WIRE16 = ("bfloat16",)
 
 TPU_KERNELS = {
     "codec_quantize": "torch_cgx_tpu/ops/codec_pallas.py:312,763",
@@ -483,8 +518,8 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         record("codec_sra_epilogue_db", f"{label} tc={tc} meta", dm, m, got.meta[0])
     del qs, rows
 
-    # The multi-row reduce at other widths, recipes, and a bucket too large
-    # for the epilogue's shared-memory tile (phase 7's shapes: check_reduce).
+    # The multi-row reduce at other widths, recipes, and a bucket past the
+    # old epilogue gate (phase 7's shapes: check_reduce).
     cases = [(4, flat_n // 4, b, BUCKET, 0, [2]) for b in (1, 8)]
     cases += [(2, flat_n // 8, BITS, BUCKET, k, [1]) for k in (1, 2)]
     cases += [(3, 4 * 32 * 2048, BITS, 2048, 0, [None, 1])]
@@ -493,7 +528,7 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
             np.stack([fuzz_operand(rng, n, kind) * np.float32(r + 1) for r in range(rows_n)])
         ).to(dev)
         q = codec_cuda.quantize_batch(rows, bits, b)
-        assert codec_cuda.supports_reduce(q, requantize=False)
+        assert codec_cuda.supports_reduce(q)
         for own in owns:
             raw = None if own is None else rows[own]
             got = codec_cuda.reduce_rows_batch(q, raw_row=raw, own_idx=own)
@@ -771,8 +806,9 @@ def check_stochastic(dev, flat_n: int, rng, record, db_tc) -> None:
 
 
 def check_subf32(dev, flat_n: int, tail_n: int, rng, record) -> None:
-    """The 16-bit wire dtypes (bf16, f16) against the plain versions on the
-    card's tensors, bit for bit, at the bf16-parameter step's shapes: B1
+    """The 16-bit wire dtypes (``PHASE3_WIRE16``: bf16) against the plain
+    versions on the card's tensors, bit for bit, at the bf16-parameter
+    step's shapes: B1
     and B7a (B7a's bytes equal to B1's) on a 64 MB slice of 2-byte values
     (``2 * flat_n``) and B5 on the tail slice's 307 chunks, in every
     (encode, pack) lowering, round to nearest and stochastic; B3 and B7c
@@ -793,7 +829,7 @@ def check_subf32(dev, flat_n: int, tail_n: int, rng, record) -> None:
     lowerings = [(e, p) for e in codec_cuda.ENCODES for p in codec_cuda.PACKS]
     chunk_n = 32 * BUCKET
     tail_chunks = tail_n // chunk_n
-    for name in WIRE16:
+    for name in PHASE3_WIRE16:
         dtype = getattr(torch, name)
         t0 = time.perf_counter()
         codec_cuda.reset_launch_counts()
@@ -2493,6 +2529,350 @@ def time_wire16(dev, name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: the int8 fold (CGX_SRA_ACCUM=int8).
+# ---------------------------------------------------------------------------
+
+INT8_KERNELS = ("codec_sra_epilogue", "codec_sra_epilogue_db", "codec_reduce_rows")
+# Buckets with a ws: within the register budget (512, 2,048, 4,096) and
+# past it (1,760: no cluster size splits its 55 warps; 6,144 to 16,384),
+# the multiples of 128 from 2,048 on past the old epilogue gate (a chunk's
+# f32 tile within a block's shared memory, B <= 1,792), each at the largest
+# ws the JAX block budget (ws x 32 x B <= 2^20) takes; 1,760 (no multiple
+# of 128) reaches the chunk wrappers only.
+INT8_BUCKETS = ((512, 8), (1760, 4), (2048, 8), (4096, 8), (6144, 4), (8192, 4), (16384, 2))
+# The step's epilogue launch shapes (chunks of bucket 512, one row), and
+# the multi-row ones: the four-rank flat SRA's and an eight-rank mlp share.
+INT8_STEP_CHUNKS = (108, 144, 307, 480, 1024)
+INT8_ROW_SHAPES = ((256, 4, (None, 0, 1, 2, 3)), (18, 8, (None, 3)))
+INT8_WIRE16_SHAPES = ((256, 4, 1), (2048, 1, None))
+
+
+def start_int8_build():
+    """Build the int8 library (``codec_cuda.build_int8``) on a thread beside
+    phases 3-5, its compilers at niceness 19 so that the phases keep the
+    cores they use (beside the default build it slowed that build by a
+    third). Returns a function that waits for it and returns the build's
+    seconds and the seconds waited."""
+    import threading
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            codec_cuda.build_int8(force=True, nice=19)
+        except BaseException as e:  # re-raised where the caller waits
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=run, name="int8-build", daemon=True)
+    th.start()
+
+    def wait():
+        t0 = time.perf_counter()
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["seconds"], time.perf_counter() - t0
+
+    return wait
+
+
+def expected_int8(counts: dict) -> dict:
+    """The int8 fold's share of the launches ``counts`` (``LaunchModel``'s,
+    the dispatcher's gates as they stand): under ``CGX_SRA_ACCUM=int8``
+    every fused epilogue (B3, B7c) and fused reduce (B4) of the reducers,
+    else none."""
+    from torch_cgx_tpu_torch import config as ccfg
+
+    int8 = ccfg.sra_accum() == "int8"
+    return {k: counts[k] if int8 else 0 for k in INT8_KERNELS}
+
+
+def ptxas_report_int8(ptxas: str) -> None:
+    """The int8 library's instances: their count by kernel and element
+    type, registers and spills, beside their exact twins' (the default
+    build's report)."""
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    table = codec_cuda.ptxas_instances(ptxas)
+    exact = codec_cuda.ptxas_instances(str(codec_cuda.BUILD_LOG.get("ptxas", "")))
+    log(f"  int8 library: {len(table)} kernels")
+    for kernel in ("cgx_sra_epilogue_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel",
+                   "cgx_reduce_rows_kernel"):
+        for wire16 in (False, True):
+            mine = {k: v for k, v in table.items()
+                    if k.startswith(kernel + "<") and k.endswith(":16") == wire16}
+            twins = [exact.get(k.replace(":int8", "")) for k in mine]
+            dreg = [v["registers"] - t["registers"] for (k, v), t in zip(mine.items(), twins) if t]
+            spill = [v for v in mine.values() if v["spill_stores"] or v["spill_loads"]]
+            most = max([v["spill_stores"] for v in spill] or [0])
+            log(f"    {kernel} ({'16-bit' if wire16 else 'f32'}): {len(mine)} instances, "
+                f"{min(v['registers'] for v in mine.values())}-"
+                f"{max(v['registers'] for v in mine.values())} registers a thread "
+                f"({min(dreg)}..{max(dreg)} against the exact twins), {len(spill)} with spills "
+                f"(at most {most} bytes stored)")
+            want = 128 if kernel != "cgx_reduce_rows_kernel" else (16 if wire16 else 32)
+            assert len(mine) == want, (kernel, wire16, len(mine))
+
+
+def check_int8(dev) -> dict:
+    """Phase 5b: B3, B7c and B4's int8 instances against the int8 fold's
+    plain versions on the card's tensors, bit for bit (tolerance 0): at the
+    step's epilogue shapes (one row; the four-rank flat SRA's ws 4 x 256
+    chunks with the raw own row in each place; ws 8 x 18), B7c's bytes equal
+    to B3's; at bits 1-8 on ``qbench.adversarial_operand`` rows at ws 4,
+    round to nearest and stochastic, every lowering at 4 bits; at the
+    buckets 512-16,384 of ``INT8_BUCKETS`` (past the register budget and the
+    old epilogue gate) through the batch functions and forced; at every
+    cluster size of bucket 512, B7c at tiles of one and two chunks and ring
+    depths 1-8; in bf16 and f16 (raw row and cast); B4 at phase 7's launch
+    shapes (``shapebench.REDUCE_SHAPES``), at rows 1-8 and 11 with the raw
+    row first, last and none, f32, bf16 and f16 raw rows, both widths; and
+    the world-size-1 epilogue (one row, no raw row) equal to the exact
+    fold's bytes. Returns each kernel's largest difference (0)."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import qbench, shapebench
+
+    rng = np.random.default_rng(SEED + 8)
+    err = {k: 0.0 for k in INT8_KERNELS}
+    n_checks = {k: 0 for k in INT8_KERNELS}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def record(kernel, label, got, want):
+        e = _max_abs(got, want) if got.shape == want.shape else float("inf")
+        err[kernel] = max(err[kernel], e)
+        n_checks[kernel] += 1
+        if not _same_bits(got, want):
+            raise AssertionError(f"{kernel} int8 {label}: kernel disagrees with its plain version ({e})")
+
+    def epilogues(label, q, raw, own, bits, b, tc=1, **kw):
+        """B3 and B7c (at tile tc) against the plain int8 epilogue, on the
+        payload ``q`` (its meta upcast, as the batch functions give it)."""
+        words, meta = q.packed, q.meta.float()
+        pw, pm = codec_cuda.sra_epilogue_chunks_plain(
+            words, meta, raw, own, bits, b, kw.get("cast_dtype", torch.float32),
+            kw.get("encode"), seed=kw.get("seed"), accum="int8")
+        w, m = codec_cuda.sra_epilogue_chunks(words, meta, raw, own, bits, b, accum="int8", **kw)
+        record("codec_sra_epilogue", label + " words", w, pw)
+        record("codec_sra_epilogue", label + " meta", m, pm)
+        w, m = codec_cuda.sra_epilogue_chunks_db(words, meta, raw, own, bits, b, tc, accum="int8", **kw)
+        record("codec_sra_epilogue_db", f"{label} tc={tc} words", w, pw)
+        record("codec_sra_epilogue_db", f"{label} tc={tc} meta", m, pm)
+        return pw, pm
+
+    def rows_of(ws, n, kind=0, dtype=None):
+        x = torch.from_numpy(np.stack([fuzz_operand(rng, n, kind) * np.float32(r + 1)
+                                       for r in range(ws)])).to(dev)
+        return x if dtype is None else x.to(dtype)
+
+    codec_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # The step's epilogue shapes, and the world-size-1 identity.
+    for c in INT8_STEP_CHUNKS:
+        x = rows_of(1, c * 32 * BUCKET)
+        q = codec_cuda.quantize_batch(x, BITS, BUCKET)
+        pw, pm = epilogues(f"c={c} rows=1", q, None, -1, BITS, BUCKET)
+        ew, em = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, None, -1, BITS, BUCKET, accum="exact")
+        if not (_same_bits(ew, pw) and _same_bits(em, pm)):
+            raise AssertionError(f"c={c} rows=1: the int8 fold's bytes differ from the exact fold's")
+    for c, ws, owns in INT8_ROW_SHAPES:
+        x = rows_of(ws, c * 32 * BUCKET)
+        q = codec_cuda.quantize_batch(x, BITS, BUCKET)
+        for own in owns:
+            raw, o = (None, -1) if own is None else (x[own], own)
+            epilogues(f"c={c} ws={ws} own={own}", q, raw, o, BITS, BUCKET)
+    log(f"  step shapes: B3 and B7c int8 bit-identical to the plain int8 fold at c={INT8_STEP_CHUNKS} "
+        f"rows=1 (and there to the exact fold's bytes), (c, ws) {[r[:2] for r in INT8_ROW_SHAPES]}")
+    # Every width on adversarial rows, both roundings; every lowering.
+    for bits in range(1, 9):
+        n = 3 * 32 * BUCKET
+        x = torch.from_numpy(np.stack([qbench.adversarial_operand(n, BUCKET, bits, seed=bits + r)
+                                       for r in range(4)]).astype(np.float32)).to(dev)
+        q = codec_cuda.quantize_batch(x, bits, BUCKET)
+        for own in (None, 2):
+            raw, o = (None, -1) if own is None else (x[own], own)
+            for seed in (None, SR_SEED):
+                lows = codec_cuda.ENCODES if bits == BITS else ("div",)
+                for enc in lows:
+                    for pack in (codec_cuda.PACKS if bits == BITS else ("sum",)):
+                        epilogues(f"adversarial bits={bits} own={own} {enc}/{pack} seed={seed}", q, raw,
+                                  o, bits, BUCKET, encode=enc, pack=pack, seed=seed)
+    log("  bits 1-8, adversarial rows at ws 4 (raw row none and 2), both roundings, every lowering "
+        "at 4 bits: bit-identical")
+    # Buckets past the register budget and the old gate, through the batch
+    # functions (the dispatcher's routing) and forced geometries.
+    for b, ws in INT8_BUCKETS:
+        chunks = 3
+        x = rows_of(ws, chunks * 32 * b)
+        q = codec_cuda.quantize_batch(x, BITS, b)
+        if codec_cuda.supports_reduce(q) != (b % 128 == 0):
+            raise AssertionError(f"B={b} ws={ws}: the fused epilogue's gate is not the JAX package's")
+        g = codec_cuda.cluster_geometry(chunks, b, BITS, sms)
+        for own in (None, ws - 1):
+            raw, o = (None, -1) if own is None else (x[own], own)
+            pw, pm = epilogues(f"B={b} ws={ws} own={own} k={g.k} T={g.threads} rounds={g.positions}",
+                               q, raw, o, BITS, b)
+            if b % 128:
+                continue
+            got = codec_cuda.sra_epilogue_batch(q, raw_row=raw, own_idx=own, accum="int8")
+            record("codec_sra_epilogue", f"B={b} batch words", got.packed[0], pw)
+            red = codec_cuda.reduce_rows_batch(q, raw_row=raw, own_idx=own, accum="int8")
+            record("codec_reduce_rows", f"B={b} ws={ws} own={own} batch", red,
+                   codec_cuda.reduce_rows_chunks_plain(q.packed, q.meta, raw, o, BITS, b, "int8"))
+        if b == BUCKET:
+            pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, x[1], 1, BITS, b,
+                                                          accum="int8")
+            for g in codec_cuda.cluster_geometries(b):
+                w, m = codec_cuda._launch_epilogue(q.packed, q.meta, x[1], 1, BITS, b, "div", "sum", g,
+                                                   accum="int8")
+                record("codec_sra_epilogue", f"B={b} forced k={g.k}", w, pw)
+                record("codec_sra_epilogue", f"B={b} forced k={g.k} meta", m, pm)
+            dg = codec_cuda.db_geometry(chunks, b, BITS, sms)
+            for tc in (1, 3):
+                for slots in (1, 2, 4, 8):
+                    w, m = codec_cuda._launch_epilogue_db(q.packed, q.meta, x[1], 1, BITS, b, tc, "div",
+                                                          "butterfly", dg, slots=slots, accum="int8")
+                    record("codec_sra_epilogue_db", f"B={b} tc={tc} slots={slots}", w, pw)
+                    record("codec_sra_epilogue_db", f"B={b} tc={tc} slots={slots} meta", m, pm)
+        del x, q
+    log(f"  buckets {[b for b, _ in INT8_BUCKETS]} (ws {[w for _, w in INT8_BUCKETS]}), the batch "
+        f"functions and forced cluster sizes, tiles and ring depths: bit-identical")
+    # The 16-bit wire dtypes: raw row and cast.
+    for name in WIRE16:
+        dtype = getattr(torch, name)
+        for c, ws, own in INT8_WIRE16_SHAPES:
+            x = rows_of(ws, c * 32 * BUCKET, dtype=dtype)
+            q = codec_cuda.quantize_batch(x, BITS, BUCKET)
+            raw, o = (None, -1) if own is None else (x[own], own)
+            for seed in (None, SR_SEED):
+                epilogues(f"{name} c={c} ws={ws} own={own} seed={seed}", q, raw, o, BITS, BUCKET,
+                          cast_dtype=dtype, seed=seed)
+    log(f"  bf16 and f16 (raw row and cast) at ws 4 x 256 and rows=1 x 2048, both roundings: "
+        f"bit-identical")
+    # B4: phase 7's shapes and every row count, raw rows of each wire
+    # dtype, both widths.
+    cases = [(c, rows, [None, 0] if own >= 0 else [None]) for _, _, c, rows, own in shapebench.REDUCE_SHAPES]
+    cases += [(3, rows, [None, 0, rows - 1]) for rows in (1, 2, 3, 4, 5, 6, 7, 8, 11)]
+    for chunks, rows_n, owns in cases:
+        n = chunks * 32 * BUCKET
+        x = rows_of(rows_n, n)
+        q = codec_cuda.quantize_batch(x, BITS, BUCKET)
+        for own in owns:
+            for dtype in ((torch.float32,) if own is None else (torch.float32, torch.bfloat16,
+                                                                 torch.float16)):
+                raw, o = (None, -1) if own is None else (x[own].to(dtype), own)
+                want = codec_cuda.reduce_rows_chunks_plain(q.packed, q.meta, raw, o, BITS, BUCKET,
+                                                           "int8")
+                for vec in (4, 1):
+                    got = codec_cuda._launch_reduce(q.packed, q.meta, raw, o, BITS, BUCKET,
+                                                    torch.empty(n, device=dev), vec, "int8")
+                    record("codec_reduce_rows", f"c={chunks} rows={rows_n} own={own} {dtype} vec={vec}",
+                           got, want)
+        del x, q
+    log("  B4 int8 at the REDUCE_SHAPES and rows 1-8, 11 (raw row first, last, none; f32, bf16, f16), "
+        "both widths: bit-identical")
+    sync(dev)
+    log(f"  int8 checks: {n_checks}; int8 launches {dict(codec_cuda.INT8_LAUNCHES)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for k in INT8_KERNELS:
+        if not codec_cuda.INT8_LAUNCHES[k]:
+            raise AssertionError(f"{k}: no int8 instance ran")
+    return err
+
+
+def int8_phase(dev, cfg, sl: dict, steps: int) -> dict:
+    """Phase 5b: the GPT-2 124M slice under ``CGX_SRA_ACCUM=int8`` through
+    the world-size-1 proxy (its fused epilogue at one row, where every
+    scale is 2^12): ``steps`` steps from the seed with the counters reset,
+    the launches the layout's (``LaunchModel``), every epilogue an int8
+    instance (``INT8_LAUNCHES``), losses and parameters bit-identical to
+    the exact fold's steps (phase 4's). Returns the run for phase 5's
+    profile; ``CGX_SRA_ACCUM`` stays set for the caller to clear."""
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    os.environ["CGX_SRA_ACCUM"] = "int8"
+    model, step = new_run(dev, cfg)
+    codec_cuda.reset_launch_counts()
+    losses = [float(step(sl["tokens"])) for _ in range(steps)]
+    sync(dev)
+    launches, int8 = dict(codec_cuda.LAUNCHES), dict(codec_cuda.INT8_LAUNCHES)
+    want = {k: v * steps for k, v in sl["expected"].items()}
+    same = [n for n, p in model.named_parameters() if _same_bits(p.detach(), sl["params"][n])]
+    log(f"  int8 steps: losses {losses}; launches {launches}; int8 instances {int8}; "
+        f"{len(same)}/{len(sl['params'])} parameters bit-identical to the exact steps'")
+    assert launches == want, (launches, want)
+    assert int8 == expected_int8(want) and int8["codec_sra_epilogue"] > 0, int8
+    assert losses == sl["losses"] and len(same) == len(sl["params"]), (losses, sl["losses"])
+    return {"model": model, "step": step, "tokens": sl["tokens"]}
+
+
+def time_int8(dev, name: str) -> dict:
+    """The int8 instances beside the exact ones, as bursts in turns (exact,
+    int8, int8, exact; ``shapebench``'s cold inputs behind a sleep kernel):
+    B3 and B7c at one row of the 64 MB slice and at the four-rank flat
+    SRA's ws 4 x 256 chunks with the raw own row, B4 at phase 7's launch
+    shapes, summed over a rank-step of the two-level and the all-to-all
+    scheme. The bound (logged): bytes at the card's rate, the exact fold's
+    plus the own row's meta, which the int8 fold reads. Returns, by kernel,
+    the measured int8 burst at its first shape and that shape's label."""
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import shapebench
+    from torch_cgx_tpu_torch.utils.device import mem_rate
+
+    import torch
+
+    rate = mem_rate(name)
+    flush = torch.empty(shapebench.FLUSH_BYTES // 4, device=dev)
+    shapes = [("epilogue", "B3 c=1024 rows=1", 1024, 1, -1), ("epilogue", "B3 c=256 ws=4 own=1", 256, 4, 1),
+              ("epilogue_db", "B7c c=1024 rows=1", 1024, 1, -1),
+              ("epilogue_db", "B7c c=256 ws=4 own=1", 256, 4, 1)] + list(shapebench.REDUCE_SHAPES)
+    out = []
+    launches = 32
+    for kernel, label, chunks, rows, own in shapes:
+        kern, plain = shapebench.shape_calls(codec_cuda, dev, kernel, chunks, rows, own, launches)
+        t = {"exact": [], "int8": []}
+        for accum in ("exact", "int8", "int8", "exact"):
+            os.environ["CGX_SRA_ACCUM"] = accum
+            shapebench.burst_ms(kern, launches, flush)  # warm-up, in this fold
+            t[accum].append(shapebench.burst_ms(kern, launches, flush))
+        os.environ["CGX_SRA_ACCUM"] = "int8"
+        p_ms = shapebench.plain_ms(plain)
+        del os.environ["CGX_SRA_ACCUM"]
+        nbytes = shapebench.shape_bytes(kernel, chunks, rows, own)
+        if own >= 0:
+            nbytes += 8 * chunks * 32  # the own row's meta
+        r = {"kernel": kernel, "shape": label, "chunks": chunks, "rows": rows, "own": own,
+             "ms": statistics.median(t["int8"]), "exact_ms": statistics.median(t["exact"]),
+             "plain_ms": p_ms, "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+        out.append(r)
+        log(f"  int8 {label:36s}: {r['ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in t['int8'])}), exact "
+            f"{r['exact_ms']:.4f} ({', '.join(f'{v:.4f}' for v in t['exact'])}), plain int8 "
+            f"{p_ms:.3f} ms; {nbytes} bytes, bound {r['bound_ms']:.4f} ms = "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound (computed)")
+        del kern, plain
+        torch.cuda.empty_cache()
+    counts = shapebench.reduce_step_shapes(dev)
+    for fold in ("int8", "exact"):
+        key = "ms" if fold == "int8" else "exact_ms"
+        step_ms = shapebench.reduce_step_ms([{**r, "ms": r[key]} for r in out], counts)
+        log(f"  B4 a rank-step, {fold} fold: two-level {step_ms['two_level']:.4f} ms, all-to-all "
+            f"{step_ms['alltoall']:.4f} ms of bursts")
+    for scheme, b in shapebench.reduce_step_bounds(rate, dev).items():
+        own_meta = sum(k * 8 * c * 32 for (c, rows, own), k in counts[scheme].items() if own >= 0)
+        log(f"  B4 int8 a rank-step, {scheme}: bound {(b['bytes'] + own_meta) / rate * 1e3:.4f} ms "
+            f"({b['bytes'] + own_meta} bytes; computed)")
+    pick = {"codec_sra_epilogue": "B3 c=1024 rows=1", "codec_sra_epilogue_db": "B7c c=1024 rows=1",
+            "codec_reduce_rows": "B4 two-level c=512 rows=2 own=0"}
+    by = {r["shape"]: r for r in out}
+    return {k: {"int8_shape": lab, "int8_burst_ms": by[lab]["ms"]} for k, lab in pick.items()}
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: four ranks on the card.
 # ---------------------------------------------------------------------------
 
@@ -2502,15 +2882,23 @@ def time_wire16(dev, name: str) -> dict:
 # float32 one, or one with its parameters cast to bf16 ("bf16p": bf16
 # gradients, synced as bf16 groups, B4 reading the two-level scheme's bf16
 # raw own rows). The producer's payload is an f32 product, so the flat SRA
-# pair trains the float32 model, whose p.grad is that product too.
+# pair trains the float32 model, whose p.grad is that product too. The
+# "_int8" configurations fold under CGX_SRA_ACCUM=int8: the two-level
+# scheme's intra reduce (B4 with the raw own rows), the all-to-all's (B4
+# without), the flat SRA's epilogue (B3) and its pipelined one (B7c).
 MR_CONFIGS = {
     "two_level": ({}, "two_level", "bf16"),
     "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, "world", "bf16"),
     "alltoall": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world", "bf16"),
     "uncompressed_intra": ({"CGX_INTRA_COMPRESS": "0"}, "two_level", "bf16"),
+    "two_level_int8": ({"CGX_SRA_ACCUM": "int8"}, "two_level", "bf16"),
+    "alltoall_int8": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1", "CGX_SRA_ACCUM": "int8"}, "world",
+                      "bf16"),
     "sra": ({}, "world", "f32"),
     "sra_producer": ({"CGX_PRODUCER_FUSE": "on"}, "world", "f32"),
     "sra_db": ({"CGX_PALLAS_DB": "on"}, "world", "f32"),
+    "sra_int8": ({"CGX_SRA_ACCUM": "int8"}, "world", "f32"),
+    "sra_db_int8": ({"CGX_PALLAS_DB": "on", "CGX_SRA_ACCUM": "int8"}, "world", "f32"),
     "two_level_bf16p": ({}, "two_level", "bf16p"),
     "alltoall_bf16p": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world", "bf16p"),
 }
@@ -2588,7 +2976,8 @@ def _plain_cpu(fn, *args, **kw):
 # division) are captured and reduced again by the kernels and by the plain
 # versions on the CPU, under each (name, knobs, bucket dtype) of the
 # configuration's reruns: every bucket under the first, every other one
-# under the rest. ``ddp_hook`` runs the flat SRA over one host;
+# under the rest (and under the ``_sr`` configurations' one rerun, the
+# first and the last among them). ``ddp_hook`` runs the flat SRA over one host;
 # ``ddp_hook_hier`` fakes two hosts of two ranks (CGX_SHM_HOST_ID) under the
 # default two-level scheme (intra SRA, cross Ring, leader scheme on). The
 # ``_sr`` configurations rerun each under CGX_STOCHASTIC_ROUNDING=1, the
@@ -2598,18 +2987,20 @@ def _plain_cpu(fn, *args, **kw):
 # two-level subgroups that ``ddp_hook_hier`` formed.
 HOOK_STEPS = 4
 HOOK_CAPTURE_STEP = 3
+HOOK_INT8_RERUN = "SRA float32 CGX_SRA_ACCUM=int8"
 HOOK_CONFIGS = {
     "ddp_hook": (lambda rank: {"CGX_INNER_REDUCTION_TYPE": "SRA"}, (
         ("SRA float32", {"CGX_INNER_REDUCTION_TYPE": "SRA"}, "float32"),
         ("SRA bfloat16", {"CGX_INNER_REDUCTION_TYPE": "SRA"}, "bfloat16"),
-        ("RING float32", {"CGX_INNER_REDUCTION_TYPE": "RING"}, "float32"),
         ("ALLTOALL float32", {"CGX_INNER_REDUCTION_TYPE": "ALLTOALL"}, "float32"),
+        # The hook folds exactly whatever CGX_SRA_ACCUM says, as the JAX
+        # hook's numpy fold: its buckets' bytes are SRA float32's.
+        (HOOK_INT8_RERUN, {"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_SRA_ACCUM": "int8"}, "float32"),
     )),
     # The cross SRA and cross all-to-all reruns put B3 and B4 inside the
     # leaders' stage, CGX_INTRA_COMPRESS=0 the raw intra frames.
     "ddp_hook_hier": (lambda rank: {"CGX_SHM_HOST_ID": f"testhost{rank // MR_INTRA}"}, (
         ("default scheme float32", {}, "float32"),
-        ("default scheme bfloat16", {}, "bfloat16"),
         ("cross SRA float32", {"CGX_CROSS_REDUCTION_TYPE": "SRA"}, "float32"),
         ("cross ALLTOALL float32", {"CGX_CROSS_REDUCTION_TYPE": "ALLTOALL"}, "float32"),
         ("CGX_INTRA_COMPRESS=0 float32", {"CGX_INTRA_COMPRESS": "0"}, "float32"),
@@ -2622,6 +3013,14 @@ HOOK_CONFIGS = {
         ("default scheme float32 stochastic", {}, "float32"),
     )),
 }
+
+
+def _all_buckets(name: str, ri: int) -> bool:
+    """Whether rerun ``ri`` of the DDP configuration ``name`` reduces every
+    captured bucket again (the first rerun, but under stochastic rounding,
+    which repeats the first two configurations' paths), or every other
+    one."""
+    return ri == 0 and not name.endswith("_sr")
 
 
 def _seed_state(backend, state=None):
@@ -2745,11 +3144,11 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
         # The configuration's own scheme reduces every captured bucket
         # again, each other scheme every other one, from the first to the
         # last (which holds wte and its partial bucket): the script's time.
-        mine = captured if ri == 0 else captured[::2]
+        mine = captured if _all_buckets(name, ri) else captured[::2]
         rr_expected = expected_hook_launches(
             [(key, buf.numel()) for key, buf in mine], MR_WS, rank, dev, hosts)
         t1 = time.perf_counter()
-        same, rr_launches = 0, {k: 0 for k in codec_cuda.LAUNCHES}
+        same, rr_launches, rr_int8, card_digests = 0, {k: 0 for k in codec_cuda.LAUNCHES}, 0, []
         for key, buf in mine:
             x = buf.to(getattr(torch, dtype))
             seeds = _seed_state(backend)
@@ -2758,11 +3157,14 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             sync(dev)
             for k, v in codec_cuda.LAUNCHES.items():
                 rr_launches[k] += v
+            rr_int8 += sum(codec_cuda.INT8_LAUNCHES.values())
+            card_digests.append(hashlib.sha256(card.cpu().view(torch.uint8).numpy().tobytes()).hexdigest())
             _seed_state(backend, seeds)
-            plain = _plain_cpu(inner, x.cpu(), bucket_key=key)
+            plain = _plain_cpu(inner, x.cpu().clone(), bucket_key=key)  # the reduce writes its input
             same += _same_bits(card.cpu(), plain)
         reruns[label] = {"same": same, "buckets": len(mine), "launches": rr_launches,
-                         "values": sum(b.numel() for _, b in mine),
+                         "values": sum(b.numel() for _, b in mine), "int8": rr_int8,
+                         "digests": card_digests,
                          "expected": rr_expected, "seconds": time.perf_counter() - t1}
     _configure(knobs)
     return {"losses": losses, "digests": digests, "hook_s": hook_s, "digest_s": digest_s,
@@ -2850,13 +3252,14 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             layout_grads = grads16 if model_kind == "bf16p" else grads
             expected = (expected_launches(layout_grads, two_level=layout) if kind == "two_level"
                         else expected_launches(layout_grads, ws=MR_WS, dense_k=dense_k))
-            res = {"expected": expected}
+            res = {"expected": expected, "expected_int8": expected_int8(expected)}
             check = {"ring": first, "alltoall": first, "two_level_bf16p": first16,
-                     "alltoall_bf16p": first16}.get(name)
+                     "alltoall_bf16p": first16}.get(name, first if name.endswith("_int8") else None)
             if check is not None:
                 codec_cuda.reset_launch_counts()
                 gpu = allreduce_flat(check, cc, group=group)
                 res["slice_wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
+                res["slice_int8"] = dict(codec_cuda.INT8_LAUNCHES)
                 res["slice_launches"] = dict(codec_cuda.LAUNCHES)
                 cpu = _plain_cpu(allreduce_flat, check.cpu(), cc, group=group)
                 res["slice_same"] = _same_bits(gpu.cpu(), cpu)
@@ -2875,6 +3278,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             res["step_s"] = (time.perf_counter() - t0) / steps
             res["launches"] = dict(codec_cuda.LAUNCHES)
             res["wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
+            res["int8"] = dict(codec_cuda.INT8_LAUNCHES)
             res["reduce_scalar"] = codec_cuda.REDUCE_SCALAR["launches"]
             res["producer"] = dict(fused_producer.COUNTS)
             res["steps"] = steps
@@ -2955,18 +3359,30 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         if name.endswith("_bf16p"):
             log(f"    launches reading a bf16 operand over the step(s) on rank 0: "
                 f"{({k: v for k, v in c0['wire16'].items() if v})}")
+        if name.endswith("_int8"):
+            log(f"    int8 instances over the step(s) on rank 0: {c0['int8']} (the layout's: "
+                f"{c0['expected_int8']}); on the slice {({k: v for k, v in c0['slice_int8'].items() if v})}")
         for r, o in enumerate(res):
             c = o[name]
             assert np.all(np.isfinite(c["losses"])), (name, r, c["losses"])
             assert c["losses"] == c0["losses"], (name, r, c["losses"], c0["losses"])
             want = {k: v * c["steps"] for k, v in c["expected"].items()}
             assert c["launches"] == want, (name, r, c["launches"], want)
+            want8 = {k: v * c["steps"] for k, v in c["expected_int8"].items()}
+            assert c["int8"] == want8, (name, r, c["int8"], want8)
             assert c.get("slice_same", True), (name, r)
             diff = [k for k in c0["digests"] if c["digests"][k] != c0["digests"][k]]
             assert not diff, (name, r, diff[:5])
         log(f"    replicas: all {len(c0['digests'])} parameters bit-identical on the {MR_WS} ranks")
     assert res[0]["two_level"]["launches"]["codec_reduce_rows"] > 0
     assert res[0]["alltoall"]["launches"]["codec_reduce_rows"] > 0
+    # The int8 configurations ran their kernel's int8 instance in the steps
+    # and on the slice, every other one none.
+    for name, kernel in (("two_level_int8", "codec_reduce_rows"), ("alltoall_int8", "codec_reduce_rows"),
+                         ("sra_int8", "codec_sra_epilogue"), ("sra_db_int8", "codec_sra_epilogue_db")):
+        for r, o in enumerate(res):
+            assert o[name]["int8"][kernel] > 0 and o[name]["slice_int8"][kernel] > 0, (name, r, o[name])
+    assert not any(sum(o[n]["int8"].values()) for o in res for n in MR_CONFIGS if not n.endswith("_int8"))
     # The bf16-parameter steps: every quantize and every B4 launch with a
     # raw own row (the two-level scheme's intra reduce) reads bf16 itself;
     # the all-to-all's B4 has no raw row. The same held on the 64 MB slice.
@@ -2986,7 +3402,7 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
     # row, and only there do pipelined kernels run.
     for name in MR_CONFIGS:
         db = {k: v for k, v in res[0][name]["launches"].items() if k.endswith("_db") and v}
-        assert bool(db) == (name == "sra_db"), (name, db)
+        assert bool(db) == name.startswith("sra_db"), (name, db)
     for k in ("codec_quantize_db", "codec_dequantize_db", "codec_sra_epilogue_db"):
         assert res[0]["sra_db"]["launches"][k] > 0, res[0]["sra_db"]["launches"]
 
@@ -3019,7 +3435,10 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         hook_check(res, name, smi)
     launches = dict(res[0]["two_level"]["launches"])
     launches["codec_matmul_quantize"] = res[0]["sra_producer"]["launches"]["codec_matmul_quantize"]
-    return {"launches": launches, "results": res}
+    int8 = {"codec_sra_epilogue": res[0]["sra_int8"]["int8"]["codec_sra_epilogue"],
+            "codec_sra_epilogue_db": res[0]["sra_db_int8"]["int8"]["codec_sra_epilogue_db"],
+            "codec_reduce_rows": res[0]["two_level_int8"]["int8"]["codec_reduce_rows"]}
+    return {"launches": launches, "int8_launches": int8, "results": res}
 
 
 def hook_check(res, name: str, smi: str) -> None:
@@ -3057,9 +3476,14 @@ def hook_check(res, name: str, smi: str) -> None:
             diff = [k for k in d if d[k] != h0["digests"][step][k]]
             assert not diff, (name, "replicas", r, step, diff[:5])
         for ri, (label, rr) in enumerate(h["reruns"].items()):
-            assert rr["buckets"] == (h0["calls"] if ri == 0 else (h0["calls"] + 1) // 2), (name, r, label, rr)
+            want_buckets = h0["calls"] if _all_buckets(name, ri) else (h0["calls"] + 1) // 2
+            assert rr["buckets"] == want_buckets, (name, r, label, rr)
             assert rr["same"] == rr["buckets"], (name, r, label, rr)
             assert rr["launches"] == rr["expected"], (name, r, label, rr["launches"], rr["expected"])
+            assert rr["int8"] == 0, (name, r, label, rr["int8"])
+            if label == HOOK_INT8_RERUN:  # its buckets' bytes are the exact fold's
+                first = next(iter(h["reruns"].values()))
+                assert rr["digests"] == first["digests"][::2], (name, r, label)
     # The path's kernels each ran in the counted steps: the quantizes and
     # requantizes (B1), the decodes (B2), and in the flat SRA the fused
     # epilogue (B3) on the segments of whole chunks. Under the two-level
@@ -3084,6 +3508,9 @@ def hook_check(res, name: str, smi: str) -> None:
     log(f"    replicas: all {len(h0['digests'][0])} parameters bit-identical on the {MR_WS} ranks "
         f"after each of the {HOOK_STEPS} steps")
     for label, rr in h0["reruns"].items():
+        if label == HOOK_INT8_RERUN:
+            log(f"    under {label} the hook's buckets equal its exact ones on every rank (no int8 "
+                f"instance ran: the hook folds exactly)")
         log(f"    step {HOOK_CAPTURE_STEP}'s {rr['buckets']} of {h0['calls']} buckets ({rr['values']} values) "
             f"reduced again under {label}, kernels vs plain CPU: bit-identical on every rank "
             f"({rr['seconds']:.1f} s on rank 0) [{smi}]; launches on each rank as LaunchModel.hook, "
@@ -3249,6 +3676,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = codec_cuda.build(force=True)
     log(f"  nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    int8_build = start_int8_build()
     ptxas_report(str(codec_cuda.BUILD_LOG.get("ptxas", "")))
     philox_result = start_philox_sass(lib)
 
@@ -3317,7 +3745,24 @@ def main() -> int:
     launches = dict(sl["launches"])
     for k in DB_KEYS:
         launches[k] = db["launches"][k]
+
+    phase("5b. the int8 fold (CGX_SRA_ACCUM=int8): B3, B7c and B4 against their plain versions, "
+          "the slice's steps, times")
+    build_s, waited = int8_build()
+    log(f"  nvcc built {codec_cuda.LIBRARY_INT8.name} in {build_s:.1f} s on a thread beside phases "
+        f"3-5; waited {waited:.1f} s for it")
+    ptxas_report_int8(str(codec_cuda.INT8_BUILD_LOG.get("ptxas", "")))
+    int8_err = check_int8(dev)
+    i8 = int8_phase(dev, cfg, sl, STEPS)
     del sl, plain_step
+    int8_times = time_int8(dev, name)
+    os.environ["CGX_SRA_ACCUM"] = "int8"
+    profile_step("step with the codec, CGX_SRA_ACCUM=int8", lambda: i8["step"](i8["tokens"]))
+    os.environ["CGX_PALLAS_DB"] = "on"
+    profile_step("step with the codec, CGX_SRA_ACCUM=int8, CGX_PALLAS_DB=on",
+                 lambda: i8["step"](i8["tokens"]))
+    os.environ["CGX_PALLAS_DB"] = "off"
+    del os.environ["CGX_SRA_ACCUM"], i8
     torch.cuda.empty_cache()
 
     phase("6. qbench: the quantize variants at 128 MB, 4 bits, bucket 512, k = 8 (sra_epilogue ws 8)")
@@ -3332,6 +3777,8 @@ def main() -> int:
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s [{smi}]")
     launches["codec_reduce_rows"] = mr["launches"]["codec_reduce_rows"]
     launches["codec_matmul_quantize"] = mr["launches"]["codec_matmul_quantize"]
+    for k, v in mr["int8_launches"].items():
+        int8_times[k].update(int8_launches=v, int8_max_abs_err=int8_err[k])
     cache.cleanup()
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -3350,6 +3797,7 @@ def main() -> int:
             "max_abs_err": max_err[r["name"]], "ms": r["ms"], "burst_ms": r["burst_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **sr_times.get(r["name"], {}), **wire16.get(r["name"], {}),
+            **int8_times.get(r["name"], {}),
         })
     assert len(records) == len(TPU_KERNELS), records
     print(json.dumps({"kernels": records}))

@@ -297,12 +297,27 @@ def test_epilogue_random_data_within_envelope(ws, bits, monkeypatch):
 
 
 def test_epilogue_refuses_unported_modes(monkeypatch):
+    """Every mode of the epilogue runs (none is refused any more): under
+    ``CGX_SRA_ACCUM=int8`` the fused epilogue folds in the level domain,
+    giving the JAX kernel's bytes on decode-exact rows (unit 1, so every
+    product is exact), an explicit ``accum`` overrides the knob, and a bad
+    value raises ``ValueError``; stochastic rounding runs with a key."""
     cc = CompressionConfig(bits=4, bucket_size=128)
     xs = torch.from_numpy(_grid_rows(2, codec.CHUNK_BUCKETS * 128))
+    xs[0] = torch.from_numpy(np.random.default_rng(3).standard_normal(xs.shape[1]).astype(np.float32))
     q = dispatch.quantize_batch(xs, cc)
+    exact = codec_cuda.sra_epilogue_batch(q, raw_row=xs[0], own_idx=0)
     monkeypatch.setenv(tcfg.SRA_ACCUM, "int8")
-    with pytest.raises(NotImplementedError, match="CGX_SRA_ACCUM"):
-        codec_cuda.sra_epilogue_batch(q, raw_row=xs[0], own_idx=0)
+    got = codec_cuda.sra_epilogue_batch(q, raw_row=xs[0], own_idx=0)
+    jq = jdispatch.quantize_batch(jnp.asarray(xs.numpy()), JCompressionConfig(bits=4, bucket_size=128))
+    want = codec_pallas.sra_epilogue_batch(jq, raw_row=jnp.asarray(xs[0].numpy()),
+                                           own_idx=jnp.int32(0), interpret=True)
+    np.testing.assert_array_equal(_u32(got.packed), np.asarray(want.packed))
+    np.testing.assert_array_equal(got.meta.numpy(), np.asarray(want.meta))
+    pinned = codec_cuda.sra_epilogue_batch(q, raw_row=xs[0], own_idx=0, accum="exact")
+    assert torch.equal(pinned.packed, exact.packed) and torch.equal(pinned.meta, exact.meta)
+    with pytest.raises(ValueError, match="accum"):
+        codec_cuda.sra_epilogue_batch(q, raw_row=xs[0], own_idx=0, accum="int4")
     monkeypatch.delenv(tcfg.SRA_ACCUM)
     # Stochastic rounding is ported: with no key it rounds to nearest (the
     # JAX package's rule), with one it runs, fused epilogue included.
@@ -454,9 +469,14 @@ def test_reduce_rows_refuses_unported_modes_and_bad_rows(monkeypatch):
         codec_cuda.reduce_rows_chunks(q.packed, q.meta, None, 1, 4, 128)
     with pytest.raises(ValueError, match="raw_rows or raw_row"):
         dispatch.reduce_rows(q, raw_rows=xs, raw_row=xs[0], own_idx=0)
+    # CGX_SRA_ACCUM=int8 runs the level-domain fold: the JAX kernel's
+    # values on decode-exact rows (unit 1: every product exact).
     monkeypatch.setenv(tcfg.SRA_ACCUM, "int8")
-    with pytest.raises(NotImplementedError, match="CGX_SRA_ACCUM"):
-        codec_cuda.reduce_rows_batch(q, raw_row=xs[0], own_idx=0)
+    got = codec_cuda.reduce_rows_batch(q, raw_row=xs[0], own_idx=0)
+    jq = jdispatch.quantize_batch(jnp.asarray(xs.numpy()), JCompressionConfig(bits=4, bucket_size=128))
+    jwant = codec_pallas.reduce_rows_batch(jq, raw_row=jnp.asarray(xs[0].numpy()),
+                                           own_idx=jnp.int32(0), interpret=True)
+    np.testing.assert_array_equal(_u32(got), np.asarray(jwant).view(np.uint32))
     monkeypatch.setenv(tcfg.SRA_ACCUM, "exact")
     want = codec_cuda.reduce_rows_batch(q)
     # The reduce has no requantize: under the mul encode it runs unchanged.
@@ -465,18 +485,19 @@ def test_reduce_rows_refuses_unported_modes_and_bad_rows(monkeypatch):
 
 
 def test_supports_reduce_without_requantize_has_no_tile_limit():
-    """The reduce keeps no (32, B) tile: a bucket too large for the
-    epilogue's shared memory still takes the fused reduce, up to the JAX
-    package's gate."""
+    """Neither the reduce nor the epilogue keeps a (32, B) tile: a bucket
+    past a block's shared memory (B >= 1,920) takes the fused kernels, the
+    epilogue included, up to the JAX package's gate (ws x 32 x B within
+    2^20, B at most 16,384)."""
     cc = CompressionConfig(bits=4, bucket_size=2048)
     q = dispatch.quantize_batch(torch.zeros(2, 32 * 2048), cc)
-    assert not codec_cuda.supports_reduce(q)
-    assert codec_cuda.supports_reduce(q, requantize=False)
+    assert 32 * 2048 * 4 > codec_cuda.MAX_EPILOGUE_TILE_BYTES
+    assert codec_cuda.supports_reduce(q)
     jq = jdispatch.quantize_batch(jnp.zeros((2, 32 * 2048)), JCompressionConfig(bits=4, bucket_size=2048))
     assert codec_pallas.supports_reduce(jq)
-    for rows, b in ((2, 16384), (4, 16384), (1, 32768)):
+    for rows, b in ((2, 16384), (4, 16384), (1, 32768), (4, 8192), (8, 4096), (8, 8192)):
         cc, jcc = CompressionConfig(bits=4, bucket_size=b), JCompressionConfig(bits=4, bucket_size=b)
         q = dispatch.quantize_batch(torch.zeros(rows, 32 * b), cc)
         jq = jdispatch.quantize_batch(jnp.zeros((rows, 32 * b)), jcc)
-        assert codec_cuda.supports_reduce(q, requantize=False) == codec_pallas.supports_reduce(jq)
-        assert codec_cuda.supports_reduce(q, requantize=False) == (rows == 2)
+        assert codec_cuda.supports_reduce(q) == codec_pallas.supports_reduce(jq)
+        assert codec_cuda.supports_reduce(q) == (rows * b <= 2**15 and b <= 16384)

@@ -106,9 +106,10 @@ def test_geometry_at_the_step_shapes(chunks, k, threads):
 
 @pytest.mark.parametrize("bucket", range(128, 1793, 128))
 def test_every_epilogue_bucket_has_a_geometry(bucket):
-    """supports_reduce's gate (B a multiple of 128, 32*B*4 bytes within a
-    block's shared memory) leaves B3 inside the register budget: one
-    position a thread, in registers."""
+    """The buckets whose (32, B) f32 tile fits a block's shared memory (the
+    fused epilogue's old gate, B <= 1,792) keep B3 inside the register
+    budget: one position a thread, in registers (larger ones, which the
+    gate now admits, take positions in rounds)."""
     assert 32 * bucket * 4 <= codec_cuda.MAX_EPILOGUE_TILE_BYTES
     for chunks in STEP_CHUNKS:
         assert codec_cuda.cluster_geometry(chunks, bucket, 4).positions == 1

@@ -11,6 +11,8 @@ The tolerance is 0 throughout: words, meta and decoded values are compared
 bit for bit.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -106,9 +108,10 @@ def test_launch_counter_counts_only_kernel_launches(dev):
 
 def test_cuda_operands_refuse_unported_modes(dev, monkeypatch):
     """A bf16 buffer runs the kernel (the 16-bit wire dtypes are ported),
-    bit-identical to its plain version, the meta in bf16; the int8 fold is
-    still refused on the card; the mul encode runs the kernel's mul
-    lowering, bit-identical to its plain version."""
+    bit-identical to its plain version, the meta in bf16; the int8 fold
+    runs B4's int8 instance on the card, bit-identical to its plain
+    version and counted in INT8_LAUNCHES; the mul encode runs the kernel's
+    mul lowering, bit-identical to its plain version."""
     x = torch.randn(32 * 512, device=dev)
     codec_cuda.reset_launch_counts()
     q = codec_cuda.quantize_batch(x.to(torch.bfloat16)[None], 4, 512)
@@ -117,8 +120,12 @@ def test_cuda_operands_refuse_unported_modes(dev, monkeypatch):
     w, m = codec_cuda.quantize_chunks_plain(x.cpu().to(torch.bfloat16), 4, 512)
     assert _bits_equal(q.packed[0], w) and _bits_equal(q.meta[0], m.to(torch.bfloat16))
     monkeypatch.setenv("CGX_SRA_ACCUM", "int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        codec_cuda.reduce_rows_batch(codec_cuda.quantize_batch(torch.stack([x, x]), 4, 512))
+    q2 = codec_cuda.quantize_batch(torch.stack([x, 2 * x]), 4, 512)
+    got = codec_cuda.reduce_rows_batch(q2)
+    torch.cuda.synchronize()
+    assert codec_cuda.INT8_LAUNCHES["codec_reduce_rows"] == 1
+    want = codec_cuda.reduce_rows_chunks_plain(q2.packed.cpu(), q2.meta.cpu(), None, -1, 4, 512)
+    assert _bits_equal(got, want)
     monkeypatch.delenv("CGX_SRA_ACCUM")
     monkeypatch.setenv("CGX_CODEC_ENCODE", "mul")
     q = codec_cuda.quantize_batch(x[None], 4, 512)
@@ -1528,3 +1535,215 @@ def test_f32_instances_keep_their_registers(dev):
     assert len(baseline) > 700
     assert ptxas_table.compare(table, baseline) == []
     assert sum(k.endswith(":16") for k in table) == 4 * 128 + 80
+
+
+# ---------------------------------------------------------------------------
+# The int8 fold (CGX_SRA_ACCUM=int8): B3, B7c and B4's int8 instances (a
+# library of their own, codec_cuda.build_int8) against their plain versions
+# run on the card's tensors, bit for bit: every width, ws 1-8 and 11, the
+# raw row in every place and none, every lowering, round to nearest and
+# stochastic, f32 and 16-bit wire dtypes, buckets inside and past the
+# register budget and past the old epilogue gate (2,048-16,384), every
+# cluster size, tile and ring depth, B4 at both widths.
+# ---------------------------------------------------------------------------
+
+
+def _int8_rows(ws: int, n: int, bucket: int, bits: int, dtype=torch.float32):
+    """ws rows of normal data at different scales, row 0 adversarial (tiny,
+    huge and constant buckets: the int8 scales' edges), row 1 special (NaN,
+    +-inf, +-0, subnormals)."""
+    if dtype == torch.float32:
+        normal, adversarial, special = (torch.from_numpy(x) for x in _operands(n, bucket, bits))
+    else:
+        normal, adversarial, special = _wire_operands(n, bucket, bits, dtype)
+    rows = torch.stack([(normal.float() * (r + 1)).to(dtype) for r in range(ws)])
+    rows[0] = adversarial
+    if ws > 1:
+        rows[1] = special
+    return rows
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 1760, 2048, 8192])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_int8_epilogue_matches_plain(dev, bits, bucket):
+    """B3 and B7c's int8 instances at every width, ws 1, 4 and 8, the raw
+    row none, first and in the middle, every lowering, round to nearest and
+    stochastic: one launch each, counted in INT8_LAUNCHES, the plain int8
+    fold's bytes."""
+    n = 3 * 32 * bucket
+    for ws, owns in ((1, [None, 0]), (4, [None, 0, 2]), (8, [None, 5])):
+        rows = _int8_rows(ws, n, bucket, bits).to(dev)
+        q = codec_cuda.quantize_batch(rows, bits, bucket)
+        for own in owns:
+            raw, o = (None, -1) if own is None else (rows[own], own)
+            for enc, pack in _lowerings():
+                for seed in (None, SR_SEED):
+                    kw = dict(encode=enc, pack=pack, seed=seed, accum="int8")
+                    codec_cuda.reset_launch_counts()
+                    w, m = codec_cuda.sra_epilogue_chunks(q.packed, q.meta, raw, o, bits, bucket, **kw)
+                    dw, dm = codec_cuda.sra_epilogue_chunks_db(q.packed, q.meta, raw, o, bits, bucket,
+                                                               1, **kw)
+                    torch.cuda.synchronize()
+                    assert codec_cuda.INT8_LAUNCHES == {
+                        "codec_sra_epilogue": 1, "codec_sra_epilogue_db": 1, "codec_reduce_rows": 0}
+                    pw, pm = codec_cuda.sra_epilogue_chunks_plain(
+                        q.packed, q.meta, raw, o, bits, bucket, encode=enc, seed=seed, accum="int8")
+                    assert _bits_equal(w, pw) and _bits_equal(m, pm), (ws, own, enc, pack, seed)
+                    assert _bits_equal(dw, pw) and _bits_equal(dm, pm), (ws, own, enc, pack, seed)
+
+
+def _meta_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Meta bit for bit, but a zero min of either sign: a bucket whose
+    folded values hold zeros of both signs as its least has no defined
+    min sign (torch.amin and the kernels may take either; the words do not
+    depend on it)."""
+    a, b = a.cpu().reshape(-1, 2), b.cpu().reshape(-1, 2)
+    both_zero = (a[:, 1] == 0) & (b[:, 1] == 0)
+    a, b = a.clone(), b.clone()
+    a[both_zero, 1] = 0.0
+    b[both_zero, 1] = 0.0
+    return _bits_equal(a, b)
+
+
+@pytest.mark.parametrize("bucket", [128, 1760, 4096])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("dtype", SUBF32, ids=["bf16", "f16"])
+def test_int8_epilogue_subf32_matches_plain(dev, dtype, bits, bucket):
+    """The 16-bit int8 instances of B3 and B7c: the raw row in the wire
+    dtype, the folded chunk rounded through it, both roundings. In the
+    adversarial row's tiny buckets (U below 2^12 / FLT_MAX: the scales
+    saturate, the step is subnormal) the fold's tiny values of both signs
+    round to zeros of both signs in the wire dtype, so a zero min's sign
+    is free there (``_meta_equal``); everything else bit for bit."""
+    n = 3 * 32 * bucket
+    for ws, owns in ((1, [None, 0]), (4, [None, 2])):
+        rows = _int8_rows(ws, n, bucket, bits, dtype).to(dev)
+        q = codec_cuda.quantize_batch(rows, bits, bucket)
+        meta = q.meta.float()
+        for own in owns:
+            raw, o = (None, -1) if own is None else (rows[own], own)
+            for seed in (None, SR_SEED):
+                kw = dict(cast_dtype=dtype, seed=seed, accum="int8")
+                w, m = codec_cuda.sra_epilogue_chunks(q.packed, meta, raw, o, bits, bucket, **kw)
+                dw, dm = codec_cuda.sra_epilogue_chunks_db(q.packed, meta, raw, o, bits, bucket, 1,
+                                                           **kw)
+                pw, pm = codec_cuda.sra_epilogue_chunks_plain(q.packed, meta, raw, o, bits, bucket,
+                                                              dtype, seed=seed, accum="int8")
+                assert _bits_equal(w, pw) and _meta_equal(m, pm), (ws, own, seed)
+                assert _bits_equal(dw, pw) and _meta_equal(dm, pm), (ws, own, seed)
+
+
+@pytest.mark.parametrize("bucket,chunks", [(512, 18), (544, 300), (1760, 144), (16384, 5)])
+def test_int8_geometries_tiles_and_rings(dev, bucket, chunks):
+    """Every cluster size the bucket takes and the wrappers' geometry,
+    forced, for B3 and B7c (tiles of one and two chunks, ring depths 1-8,
+    both packs) in the int8 fold: the bytes do not move."""
+    n = chunks * 32 * bucket
+    rng = np.random.default_rng(bucket)
+    rows = torch.from_numpy(np.stack([rng.standard_normal(n).astype(np.float32) * (r + 1)
+                                      for r in range(4)])).to(dev)
+    q = codec_cuda.quantize_batch(rows, 4, bucket)
+    ew, em = codec_cuda.sra_epilogue_chunks_plain(q.packed, q.meta, rows[2], 2, 4, bucket,
+                                                  accum="int8")
+    geoms = codec_cuda.cluster_geometries(bucket) or [codec_cuda.cluster_geometry(chunks, bucket, 4)]
+    for g in geoms:
+        w, m = codec_cuda._launch_epilogue(q.packed, q.meta, rows[2], 2, 4, bucket, "div", "sum", g,
+                                           accum="int8")
+        assert _bits_equal(w, ew) and _bits_equal(m, em), g
+    dg = codec_cuda.db_geometry(chunks, bucket, 4)
+    for tc in [t for t in (1, 2) if chunks % t == 0]:
+        for slots in (1, 2, 4, 8):
+            for pack in codec_cuda.PACKS:
+                w, m = codec_cuda._launch_epilogue_db(q.packed, q.meta, rows[2], 2, 4, bucket, tc,
+                                                      "div", pack, dg, slots=slots, accum="int8")
+                assert _bits_equal(w, ew) and _bits_equal(m, em), (tc, slots, pack)
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 8, 11])
+def test_int8_reduce_rows_matches_plain(dev, rows, bits):
+    """B4's int8 instance (the any-count one) at every width and row count,
+    full and scalar width, the raw own row (f32, bf16, f16) first, last and
+    none: the plain int8 fold's values, bit for bit."""
+    bucket, n = 512, 3 * 32 * 512
+    x = _int8_rows(rows, n, bucket, bits).to(dev)
+    q = codec_cuda.quantize_batch(x, bits, bucket)
+    for own in sorted({None, 0, rows - 1}, key=lambda o: -1 if o is None else o):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            if own is None and dtype != torch.float32:
+                continue
+            raw, o = (None, -1) if own is None else (x[own].to(dtype), own)
+            want = codec_cuda.reduce_rows_chunks_plain(q.packed, q.meta, raw, o, bits, bucket,
+                                                       accum="int8")
+            for vec in (4, 1):
+                out = torch.empty(n, device=dev)
+                got = codec_cuda._launch_reduce(q.packed, q.meta, raw, o, bits, bucket, out, vec,
+                                                accum="int8")
+                assert _bits_equal(got, want), (own, dtype, vec)
+
+
+@pytest.mark.parametrize("ws,bucket", [(2, 2048), (8, 2048), (4, 4096), (4, 8192), (2, 16384)])
+def test_int8_batch_functions_past_the_old_gate(dev, ws, bucket, monkeypatch):
+    """Buckets of 2,048-16,384 within the JAX package's block budget
+    (ws x 32 x B <= 2^20): the dispatcher fuses the epilogue (B3, and
+    under CGX_PALLAS_DB=on B7c) and the reduce (B4), under both folds, and
+    each equals its plain version on the CPU (the int8 fold's too)."""
+    n = 2 * 32 * bucket
+    rows = torch.from_numpy(np.random.default_rng(bucket).standard_normal((ws, n)).astype(np.float32))
+    cc = CompressionConfig(bits=4, bucket_size=bucket)
+    monkeypatch.setenv("CGX_SRA_EPILOGUE", "fused")
+    for accum in ("exact", "int8"):
+        monkeypatch.setenv("CGX_SRA_ACCUM", accum)
+        for db in ("off", "on"):
+            monkeypatch.setenv("CGX_PALLAS_DB", db)
+            q = dispatch.quantize_batch(rows.to(dev), cc)
+            assert dispatch.fused_epilogue_would_run(q) and dispatch.fused_reduce_would_run(q)
+            codec_cuda.reset_launch_counts()
+            e = dispatch.reduce_rows_requantize(q, cc, raw_rows=rows.to(dev), own_idx=ws - 1)
+            r = dispatch.reduce_rows(q, raw_rows=rows.to(dev), own_idx=0)
+            torch.cuda.synchronize()
+            kernel = "codec_sra_epilogue_db" if db == "on" else "codec_sra_epilogue"
+            assert codec_cuda.LAUNCHES[kernel] == 1 and codec_cuda.LAUNCHES["codec_reduce_rows"] == 1
+            assert sum(codec_cuda.INT8_LAUNCHES.values()) == (2 if accum == "int8" else 0)
+            qc = dispatch.quantize_batch(rows, cc)
+            pe = dispatch.reduce_rows_requantize(qc, cc, raw_rows=rows, own_idx=ws - 1)
+            pr = dispatch.reduce_rows(qc, raw_rows=rows, own_idx=0)
+            assert _bits_equal(e.packed, pe.packed) and _bits_equal(e.meta, pe.meta), (accum, db)
+            assert _bits_equal(r, pr), (accum, db)
+
+
+def test_int8_world_size_one_equals_exact(dev):
+    """One row, no raw row (the world-size-1 proxy's epilogue): every scale
+    is 2^12, so the int8 fold gives the exact fold's bytes, on the card as
+    in the plain version."""
+    for bucket in (512, 2048):
+        x = torch.from_numpy(np.random.default_rng(bucket).standard_normal(
+            (1, 5 * 32 * bucket)).astype(np.float32)).to(dev)
+        q = codec_cuda.quantize_batch(x, 4, bucket)
+        for db in (False, True):
+            run = (functools.partial(codec_cuda.sra_epilogue_chunks_db, tc=1) if db
+                   else codec_cuda.sra_epilogue_chunks)
+            w8, m8 = run(q.packed, q.meta, None, -1, 4, bucket, accum="int8")
+            we, me = run(q.packed, q.meta, None, -1, 4, bucket, accum="exact")
+            assert _bits_equal(w8, we) and _bits_equal(m8, me), (bucket, db)
+
+
+def test_int8_library_instances(dev):
+    """The int8 library holds the int8 instances alone: B3 and B7c 128 each
+    at f32 and 128 each at 16 bits (every bits x lowering x REREAD x
+    rounding), B4 the any-count instance at both widths (8 x 2 with an f32
+    raw row or none, 8 x 2 with a 16-bit one); none in the default
+    library."""
+    codec_cuda._lib_int8()
+    if "ptxas" not in codec_cuda.INT8_BUILD_LOG:
+        codec_cuda.build_int8(force=True)
+    table = codec_cuda.ptxas_instances(codec_cuda.INT8_BUILD_LOG["ptxas"])
+    assert all(":int8" in k for k in table), [k for k in table if ":int8" not in k][:5]
+    for kernel in ("cgx_sra_epilogue_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
+        for wire16 in (False, True):
+            mine = [k for k in table if k.startswith(kernel + "<") and k.endswith(":16") == wire16]
+            assert len(mine) == 128, (kernel, wire16, len(mine))
+    b4 = [k for k in table if k.startswith("cgx_reduce_rows_kernel<")]
+    assert len(b4) == 48 and all(k.split("<")[1].split(",")[1] == "0" for k in b4), b4[:5]
+    if "ptxas" in codec_cuda.BUILD_LOG:
+        assert not any(":int8" in k for k in codec_cuda.ptxas_instances(codec_cuda.BUILD_LOG["ptxas"]))

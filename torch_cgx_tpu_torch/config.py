@@ -34,8 +34,9 @@ SRA_EPILOGUE = "CGX_SRA_EPILOGUE"
 SRA_EPILOGUE_MIN_ELEMS = "CGX_SRA_EPILOGUE_MIN_ELEMS"
 PRODUCER_FUSE = "CGX_PRODUCER_FUSE"
 CODEC_ENCODE = "CGX_CODEC_ENCODE"  # div | mul: the level encode of the quantizing kernels
-# exact | int8: the fold of the reduce kernels. Only "exact" is ported; the
-# wrappers refuse "int8" (ROADMAP Queue B).
+# exact | int8: the fold of the fused reduce kernels (B3, B7c, B4; the
+# staged lowering and the DDP hook always fold exactly, as the JAX
+# package's do).
 SRA_ACCUM = "CGX_SRA_ACCUM"
 # The reference's debug traffic shaping: reduce only the leading fraction of
 # each compressed buffer.

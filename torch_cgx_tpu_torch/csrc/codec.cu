@@ -121,6 +121,23 @@
 // code is the one they had before the 16-bit instances existed. A 16-bit
 // value costs an integer shift (bf16) or a convert (f16) beside a load of
 // half the bytes; the round trip of B3/B7c two converts a value.
+//
+// The int8 fold (CGX_SRA_ACCUM=int8; codec_pallas.py _decode_accumulate,
+// accum="int8"): B3, B7c and B4 take a last template parameter ACCUM,
+// kAccumExact (the f32 fold above, whose instances keep their code) or
+// kAccumInt8, whose instances build into a library of their own
+// (CGX_INT8, below). Per bucket of a chunk, over its ws rows (the own
+// row's meta included, its words never read):
+//   U     the rows' largest unit, NaN-propagating (jnp.maximum);
+//   usafe U > 0 ? U : 1, inv = 2^12 / usafe (IEEE divide);
+//   s_r   rint(unit_r * inv) as int32, saturating, NaN -> 0 (XLA's
+//         f32 -> s32 convert, cvt.rni.s32.f32); 0 for the own row;
+//   bsum  +0, then + min_r (+0 for the own row) for every row ascending;
+// and per value acc_i = sum over rows of level_r * s_r in int32 (wrapping),
+// one integer multiply-add a row, the level decoded as an integer; then
+// bsum + (usafe * 2^-12) * float(acc_i), the product rounded before the
+// add, and the raw own row added last. A per-chunk prologue (one lane a
+// bucket) writes s_r, bsum and usafe * 2^-12 beside the staged meta.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -178,6 +195,48 @@ __device__ __forceinline__ float wire_round(float x, int wire) {
 // do: a bucket holding a NaN has a NaN max and min.
 __device__ __forceinline__ float nan_max(float a, float b) { return (b > a || isnan(b)) ? b : a; }
 __device__ __forceinline__ float nan_min(float a, float b) { return (b < a || isnan(b)) ? b : a; }
+
+// The reduce kernels' fold (ACCUM): f32, or the int8 fold's level domain.
+constexpr int kAccumExact = 0;
+constexpr int kAccumInt8 = 1;
+constexpr float kInt8One = 4096.f;  // 2^12: the unit scales' fixed-point one
+
+// The int8 fold's parameters of one bucket of a chunk (see the head of this
+// file), from its ws rows' pairs: unit at meta[r * stride], min at
+// meta[r * stride + 1]; own: the raw row's index, or -1. Returns (inv,
+// bsum, usafe * 2^-12, -).
+__device__ __forceinline__ float4 int8_bucket(const float* meta, size_t stride, int ws, int own) {
+  float U = meta[0];
+  for (int r = 1; r < ws; ++r) U = nan_max(U, meta[(size_t)r * stride]);
+  const float usafe = U > 0.f ? U : 1.f;
+  float bsum = 0.f;
+  for (int r = 0; r < ws; ++r) bsum = __fadd_rn(bsum, r != own ? meta[(size_t)r * stride + 1] : 0.f);
+  return make_float4(__fdiv_rn(kInt8One, usafe), bsum, __fmul_rn(usafe, 1.f / kInt8One), 0.f);
+}
+
+// A kept row's scale s_r of a bucket from its unit and the bucket's inv.
+__device__ __forceinline__ uint32_t int8_scale(float unit, float inv) {
+  return (uint32_t)__float2int_rn(__fmul_rn(unit, inv));
+}
+
+// The int8 fold's parameters of a chunk in shared memory: par[s] bucket
+// s's int8_bucket, scale[r * 32 + s] row r's s_r (0 for the own row).
+// One lane a bucket (warp 0); the caller makes them visible.
+__device__ __forceinline__ void int8_prologue(const float* meta, size_t stride, int ws, int own,
+                                              float4* par, uint32_t* scale) {
+  const int s = threadIdx.x;
+  const float4 p = int8_bucket(meta + 2 * s, stride, ws, own);
+  par[s] = p;
+  for (int r = 0; r < ws; ++r) {
+    scale[r * kChunkBuckets + s] = r != own ? int8_scale(meta[(size_t)r * stride + 2 * s], p.x) : 0u;
+  }
+}
+
+// A folded value of the int8 fold: bsum + step * float(acc_i), the product
+// rounded before the add.
+__device__ __forceinline__ float int8_value(float4 par, uint32_t acc_i) {
+  return __fadd_rn(par.y, __fmul_rn(par.z, __int2float_rn((int)acc_i)));
+}
 
 // Per-bucket max/min of one chunk. src: 32 buckets of B floats (global or
 // shared memory). Writes (unit, min) to shared memory (under the mul
@@ -513,6 +572,15 @@ __device__ __forceinline__ float nibble_level(uint32_t lo, uint32_t hi, int j) {
   return __fsub_rn(__uint_as_float(q | 0x4B000000u), 8388608.f);  // 2^23 + q, less 2^23
 }
 
+// The level of bucket j (of the 8) as an integer (the int8 fold), from
+// level_nibbles' words as nibble_level reads them.
+template <int BITS>
+__device__ __forceinline__ uint32_t nibble_level_int(uint32_t lo, uint32_t hi, int j) {
+  const int n = reduce_nibble(j);
+  const uint32_t q = (lo >> (4 * n)) & 0xFu;
+  return BITS > 4 ? q | ((hi >> (4 * n)) & 0xFu) << 4 : q;
+}
+
 // VEC consecutive 4-byte values from global to shared memory, asynchronously
 // (16-byte aligned when VEC == 4).
 template <int VEC>
@@ -567,7 +635,7 @@ __device__ __forceinline__ void st_vec(float* p, const float (&v)[VEC]) {
   }
 }
 
-template <int BITS, int ROWS, int VEC, bool RAW, typename E>
+template <int BITS, int ROWS, int VEC, bool RAW, typename E, int ACCUM = kAccumExact>
 __global__ void __launch_bounds__(kReduceThreads)
     cgx_reduce_rows_kernel(const int32_t* __restrict__ words, const float* __restrict__ meta,
                            const E* __restrict__ raw, int own, int ws, long long chunks,
@@ -596,6 +664,24 @@ __global__ void __launch_bounds__(kReduceThreads)
     for (int j = 0; j < G; ++j) ld_stream<VEC>(raw + base + (size_t)j * B, raw_v[j], wire);
   }
   float acc[G][VEC];
+  // The int8 fold: the chunk's bucket parameters from every row's meta
+  // (the own row's unit too), made visible by the first stage's barrier;
+  // each row's s_r from its staged unit where it is folded.
+  constexpr bool INT8 = ACCUM == kAccumInt8;
+  uint32_t acc_i[G][VEC];
+  const float4* i8 = nullptr;
+  if constexpr (INT8) {
+    __shared__ float4 s_i8[kChunkBuckets];
+    if (threadIdx.x < kChunkBuckets) {
+      s_i8[threadIdx.x] = int8_bucket(meta + c * 2 * kChunkBuckets + 2 * threadIdx.x, row_meta, rows, own);
+    }
+    i8 = s_i8 + G * g;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc_i[j][v] = 0u;
+    }
+  }
 #pragma unroll 1
   for (int r0 = 0; r0 < rows; r0 += STAGE) {
     if (r0 > 0) __syncthreads();  // the previous stage is folded
@@ -623,11 +709,13 @@ __global__ void __launch_bounds__(kReduceThreads)
       const int r = r0 + rr;
       if (r >= rows) break;
       if (RAW && r == own) {
+        if constexpr (!INT8) {  // the int8 fold adds the raw row last
 #pragma unroll
-        for (int j = 0; j < G; ++j) {
+          for (int j = 0; j < G; ++j) {
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            acc[j][v] = r == 0 ? raw_v[j][v] : __fadd_rn(acc[j][v], raw_v[j][v]);
+            for (int v = 0; v < VEC; ++v) {
+              acc[j][v] = r == 0 ? raw_v[j][v] : __fadd_rn(acc[j][v], raw_v[j][v]);
+            }
           }
         }
         continue;
@@ -649,6 +737,19 @@ __global__ void __launch_bounds__(kReduceThreads)
           for (int v = 0; v < VEC; ++v) w[k][v] = 0u;
         }
       }
+      if constexpr (INT8) {
+        uint32_t sr[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) sr[j] = int8_scale(unit[j], i8[j].x);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const uint32_t lo = level_nibbles(w[0][v], w[1][v], w[2][v], w[3][v], sel);
+          const uint32_t hi = BITS > 4 ? level_nibbles(w[4][v], w[5][v], w[6][v], w[7][v], sel) : 0u;
+#pragma unroll
+          for (int j = 0; j < G; ++j) acc_i[j][v] += nibble_level_int<BITS>(lo, hi, j) * sr[j];
+        }
+        continue;
+      }
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
         const uint32_t lo = level_nibbles(w[0][v], w[1][v], w[2][v], w[3][v], sel);
@@ -658,6 +759,17 @@ __global__ void __launch_bounds__(kReduceThreads)
           const float val = __fadd_rn(bmin[j], __fmul_rn(unit[j], nibble_level<BITS>(lo, hi, j)));
           acc[j][v] = r == 0 ? val : __fadd_rn(acc[j][v], val);
         }
+      }
+    }
+  }
+  if constexpr (INT8) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const float4 p = i8[j];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        acc[j][v] = int8_value(p, acc_i[j][v]);
+        if constexpr (RAW) acc[j][v] = __fadd_rn(acc[j][v], raw_v[j][v]);
       }
     }
   }
@@ -1484,6 +1596,40 @@ __device__ __forceinline__ void fold_row(float (&acc)[kChunkBuckets], const uint
   }
 }
 
+// Fold one kept row into the int8 fold's sums: each bucket's level, as an
+// integer, times the row's scale (one integer multiply-add a value).
+template <int BITS>
+__device__ __forceinline__ void fold_row_int8(uint32_t (&acc_i)[kChunkBuckets],
+                                              const uint32_t (&w)[BITS], const uint32_t* scale) {
+#pragma unroll
+  for (int s = 0; s < kChunkBuckets; ++s) {
+    uint32_t q = 0u;
+#pragma unroll
+    for (int k = 0; k < BITS; ++k) q |= ((w[k] >> s) & 1u) << k;
+    acc_i[s] += q * scale[s];
+  }
+}
+
+// The int8 fold's values of a position from its sums (par: the buckets'
+// int8_bucket), the raw own row (rawc, or null) added last.
+template <typename E>
+__device__ __forceinline__ void int8_finish(float (&acc)[kChunkBuckets],
+                                            const uint32_t (&acc_i)[kChunkBuckets],
+                                            const float4* par, const E* __restrict__ rawc, int B,
+                                            int l, int wire) {
+#pragma unroll
+  for (int s = 0; s < kChunkBuckets; ++s) {
+    acc[s] = int8_value(par[s], acc_i[s]);
+    if (rawc != nullptr) acc[s] = __fadd_rn(acc[s], wire_ldg(rawc + (size_t)s * B + l, wire));
+  }
+}
+
+// The int8 fold's shared memory of a chunk of ws rows: the buckets'
+// parameters (32 float4), then each row's scales (ws x 32 words).
+__host__ __device__ constexpr size_t int8_smem_bytes(int ws) {
+  return kChunkBuckets * 16 + (size_t)ws * kChunkBuckets * 4;
+}
+
 // The folded values of a position rounded through the wire dtype (B3, B7c:
 // codec_pallas.py _requant_cast); nothing for E = float.
 template <typename E>
@@ -1499,22 +1645,36 @@ __device__ __forceinline__ void requant_cast(float (&acc)[kChunkBuckets], int wi
 // rounded through the wire dtype. wc: row 0's words of the chunk, rows
 // row_words apart; s_meta: the rows' meta of the chunk, staged in shared
 // memory.
-template <int BITS, typename E>
+template <int BITS, typename E, int ACCUM = kAccumExact>
 struct ChunkRows {
   const int32_t* wc;
   size_t row_words;
   const float* s_meta;
   const E* rawc;
   int own, ws, B, wire;
+  const float4* i8_par;  // the int8 fold's parameters and scales (int8_prologue)
+  const uint32_t* i8_scale;
 
   // w holds row 0's words at l on entry (unless row 0 is the raw row).
   __device__ __forceinline__ void fold(float (&acc)[kChunkBuckets], uint32_t (&w)[BITS],
                                        int l) const {
-    fold_row<BITS, true, E>(acc, w, s_meta, own == 0 ? rawc : nullptr, B, l, wire);
-    for (int r = 1; r < ws; ++r) {
-      if (r != own) load_words<BITS>(w, wc + r * row_words, B, l);
-      fold_row<BITS, false, E>(acc, w, s_meta + r * 2 * kChunkBuckets, r == own ? rawc : nullptr,
-                               B, l, wire);
+    if constexpr (ACCUM == kAccumInt8) {
+      uint32_t acc_i[kChunkBuckets];
+#pragma unroll
+      for (int s = 0; s < kChunkBuckets; ++s) acc_i[s] = 0u;
+      for (int r = 0; r < ws; ++r) {
+        if (r == own) continue;
+        if (r > 0) load_words<BITS>(w, wc + r * row_words, B, l);
+        fold_row_int8<BITS>(acc_i, w, i8_scale + r * kChunkBuckets);
+      }
+      int8_finish<E>(acc, acc_i, i8_par, rawc, B, l, wire);
+    } else {
+      fold_row<BITS, true, E>(acc, w, s_meta, own == 0 ? rawc : nullptr, B, l, wire);
+      for (int r = 1; r < ws; ++r) {
+        if (r != own) load_words<BITS>(w, wc + r * row_words, B, l);
+        fold_row<BITS, false, E>(acc, w, s_meta + r * 2 * kChunkBuckets, r == own ? rawc : nullptr,
+                                 B, l, wire);
+      }
     }
     requant_cast<E>(acc, wire);
   }
@@ -1534,7 +1694,8 @@ struct ChunkRows {
 // folded again for the encode); STOCH: with the stream of `seed`, chunk
 // indices over the output row. E, `wire`: the wire dtype, the raw row's
 // and the one the folded values round through.
-template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename E>
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename E,
+          int ACCUM = kAccumExact>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
     cgx_sra_epilogue_cluster_kernel(const int32_t* __restrict__ words,
                                     const float* __restrict__ meta,
@@ -1543,15 +1704,20 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
                                     int32_t* __restrict__ out_words,
                                     float* __restrict__ out_meta, uint2 seed, int wire) {
   extern __shared__ __align__(16) uint32_t cl_smem[];
+  constexpr bool INT8 = ACCUM == kAccumInt8;
   float* s_meta = reinterpret_cast<float*>(cl_smem);  // [ws][32][2]
-  uint32_t* stage = cl_smem + (size_t)ws * 2 * kChunkBuckets;
+  // The int8 fold's parameters and scales (int8_smem_bytes) follow the
+  // meta; then the butterfly stage.
+  float4* i8_par = reinterpret_cast<float4*>(cl_smem + (size_t)ws * 2 * kChunkBuckets);
+  uint32_t* i8_scale = reinterpret_cast<uint32_t*>(i8_par + kChunkBuckets);
+  uint32_t* stage = cl_smem + (size_t)ws * 2 * kChunkBuckets + (INT8 ? int8_smem_bytes(ws) / 4 : 0);
   const int rank = (int)(blockIdx.x % (unsigned)k);
   const size_t c = blockIdx.x / (unsigned)k;
   const int l0 = rank * (B / k) + (int)threadIdx.x;
   const size_t row_meta = (size_t)chunks * 2 * kChunkBuckets;
-  const ChunkRows<BITS, E> rows{words + c * BITS * B, (size_t)chunks * BITS * B, s_meta,
-                                raw == nullptr ? nullptr : raw + c * kChunkBuckets * B, own, ws,
-                                B, wire};
+  const ChunkRows<BITS, E, ACCUM> rows{words + c * BITS * B, (size_t)chunks * BITS * B, s_meta,
+                                       raw == nullptr ? nullptr : raw + c * kChunkBuckets * B, own,
+                                       ws, B, wire, i8_par, i8_scale};
   // Row 0's words are in flight while the meta is staged (a raw row 0 is
   // read in the fold).
   uint32_t w[BITS] = {};
@@ -1561,6 +1727,10 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
     s_meta[i] = meta[r * row_meta + c * 2 * kChunkBuckets + i % (2 * kChunkBuckets)];
   }
   __syncthreads();
+  if constexpr (INT8) {
+    if (threadIdx.x < kChunkBuckets) int8_prologue(s_meta, 2 * kChunkBuckets, ws, own, i8_par, i8_scale);
+    __syncthreads();
+  }
   float acc[kChunkBuckets];
   rows.fold(acc, w, l0);
   cluster_quantize<BITS, ENCODE, PACK, REREAD, STOCH>(acc, rows, k, rank, B, inv,
@@ -1812,13 +1982,15 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
 // ascending, of the round the body loads), the raw own row (rawc, or
 // null) from device memory, as ChunkRows does for B3, then rounds them
 // through the wire dtype.
-template <int BITS, typename Issue, typename E>
+template <int BITS, typename Issue, typename E, int ACCUM = kAccumExact>
 struct RingRows {
   const ShareRing& ring;
   const Issue& issue;
   mutable int next;
   const E* rawc;
   int own, ws, B, wire;
+  const float4* i8_par;  // the int8 fold's parameters and scales (int8_prologue)
+  const uint32_t* i8_scale;
 
   template <bool FIRST>
   __device__ __forceinline__ void row(float (&acc)[kChunkBuckets], uint32_t (&w)[BITS], bool raw,
@@ -1841,8 +2013,27 @@ struct RingRows {
 
   __device__ __forceinline__ void operator()(float (&acc)[kChunkBuckets], int l) const {
     uint32_t w[BITS];
-    row<true>(acc, w, own == 0, l);
-    for (int r = 1; r < ws; ++r) row<false>(acc, w, r == own, l);
+    if constexpr (ACCUM == kAccumInt8) {
+      uint32_t acc_i[kChunkBuckets];
+#pragma unroll
+      for (int s = 0; s < kChunkBuckets; ++s) acc_i[s] = 0u;
+      const int T = (int)blockDim.x;
+      for (int r = 0; r < ws; ++r) {
+        if (r == own) continue;
+        const int n = next++;
+        ring.wait(n);
+        const uint32_t* sw = reinterpret_cast<const uint32_t*>(ring.slot(n));
+#pragma unroll
+        for (int b = 0; b < BITS; ++b) w[b] = sw[b * T + threadIdx.x];
+        fold_row_int8<BITS>(acc_i, w, i8_scale + r * kChunkBuckets);
+        ring.release(n);
+        if ((threadIdx.x >> 5) == 0) issue();
+      }
+      int8_finish<E>(acc, acc_i, i8_par, rawc, B, l, wire);
+    } else {
+      row<true>(acc, w, own == 0, l);
+      for (int r = 1; r < ws; ++r) row<false>(acc, w, r == own, l);
+    }
     requant_cast<E>(acc, wire);
   }
 };
@@ -1851,7 +2042,8 @@ struct RingRows {
 // slots each one peer row's round (bits*T*4 bytes of words, then 256 of
 // meta). STOCH: rounded with the stream of `seed` at the output chunk's
 // index, as B3. E, `wire`: the wire dtype, as B3's.
-template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename E>
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename E,
+          int ACCUM = kAccumExact>
 __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
     cgx_sra_epilogue_db_cluster_kernel(const int32_t* __restrict__ words,
                                        const float* __restrict__ meta,
@@ -1870,6 +2062,11 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
   if (threadIdx.x == 0) s_cur = Cursor{0, peers > 0 ? g : tiles, 0, 0, 0};
   const ShareRing ring = share_ring(db_smem, slots, slot_bytes);
   uint32_t* stage = reinterpret_cast<uint32_t*>(db_smem + kBarBytes + (size_t)slots * slot_bytes);
+  // The int8 fold's parameters and scales of the chunk (int8_smem_bytes)
+  // after the butterfly stage.
+  float4* i8_par = reinterpret_cast<float4*>(
+      stage + (PACK == kPackButterfly ? (size_t)(sh.T / 32) * 32 * 32 : 0));
+  uint32_t* i8_scale = reinterpret_cast<uint32_t*>(i8_par + kChunkBuckets);
   // An item: peer row pr (ascending, the own row skipped) of round item ri
   // of chunk c, `bits` segments of its round (plane b: lane b) and the
   // row's meta of the chunk (lane bits).
@@ -1898,9 +2095,20 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
   for (int t = g; t < tiles; t += G) {
     for (int u = 0; u < tc; ++u, ++j) {
       const size_t c = (size_t)t * tc + u;
-      const RingRows<BITS, decltype(issue), E> rows{
+      if constexpr (ACCUM == kAccumInt8) {
+        // Every thread is done with the last chunk's parameters (with
+        // REREAD its encode folds again) before warp 0 writes this one's,
+        // from every row's meta in device memory (the own row's too).
+        __syncthreads();
+        if (threadIdx.x < kChunkBuckets) {
+          int8_prologue(meta + c * 2 * kChunkBuckets, (size_t)chunks * 2 * kChunkBuckets, ws, own,
+                        i8_par, i8_scale);
+        }
+        __syncthreads();
+      }
+      const RingRows<BITS, decltype(issue), E, ACCUM> rows{
           ring, issue, j * chunk_items, raw == nullptr ? nullptr : raw + c * kChunkBuckets * B,
-          own, ws, B, wire};
+          own, ws, B, wire, i8_par, i8_scale};
       float acc[kChunkBuckets];
       rows(acc, sh.rank * sh.span + (int)threadIdx.x);
       cluster_quantize<BITS, ENCODE, PACK, REREAD, STOCH>(acc, rows, k, rank, B, inv,
@@ -2160,16 +2368,18 @@ bool db_cluster_ok(long long chunks, int tc, int B, int k, int threads, int slot
 // One launch of B4 at row count ROWS (0: any) and width VEC, the raw own
 // row (if any) of element type E; the 16-bit instances exist with the raw
 // row alone (without one the wire dtype plays no part).
-template <int BITS, int ROWS, int VEC, typename E>
+template <int BITS, int ROWS, int VEC, typename E, int ACCUM = kAccumExact>
 void reduce_rows_start(const int32_t* words, const float* meta, const E* raw, int own, int ws,
                        long long chunks, int B, float* out, long long blocks, int wire,
                        cudaStream_t st) {
   if (raw != nullptr) {
-    cgx_reduce_rows_kernel<BITS, ROWS, VEC, true, E><<<(unsigned)blocks, kReduceThreads, 0, st>>>(
-        words, meta, raw, own, ws, chunks, B, out, wire);
+    cgx_reduce_rows_kernel<BITS, ROWS, VEC, true, E, ACCUM>
+        <<<(unsigned)blocks, kReduceThreads, 0, st>>>(words, meta, raw, own, ws, chunks, B, out,
+                                                      wire);
   } else if constexpr (sizeof(E) == 4) {
-    cgx_reduce_rows_kernel<BITS, ROWS, VEC, false, E><<<(unsigned)blocks, kReduceThreads, 0, st>>>(
-        words, meta, raw, own, ws, chunks, B, out, wire);
+    cgx_reduce_rows_kernel<BITS, ROWS, VEC, false, E, ACCUM>
+        <<<(unsigned)blocks, kReduceThreads, 0, st>>>(words, meta, raw, own, ws, chunks, B, out,
+                                                      wire);
   }
 }
 
@@ -2199,7 +2409,8 @@ int by_instance(int stochastic, int wire, const F& f) {
 // in parallel, and links them into one library; without CGX_PART it
 // compiles every entry point. Parts 7-10 hold the stochastic f32
 // instances, parts 11-18 the 16-bit ones (of B1, B3, B7a, B7c, each round
-// to nearest and stochastic), part 19 B4's with a 16-bit raw row.
+// to nearest and stochastic), part 19 B4's with a 16-bit raw row. With
+// -DCGX_INT8 it compiles the int8 fold's library instead (parts 0-9).
 #ifdef CGX_PART
 #define CGX_IN_PART(k) (CGX_PART == (k))
 #else
@@ -2234,7 +2445,7 @@ int quantize_entry(const E* x, int32_t* words, float* meta, long long chunks, in
   return (int)cudaGetLastError();
 }
 
-template <bool STOCH, typename E>
+template <bool STOCH, typename E, int ACCUM = kAccumExact>
 int sra_epilogue_entry(const int32_t* words, const float* meta, const E* raw, int own, int ws,
                        long long chunks, int B, int bits, float inv, int encode, int pack, int k,
                        int threads, uint2 seed, int32_t* out_words, float* out_meta, int wire,
@@ -2243,15 +2454,16 @@ int sra_epilogue_entry(const int32_t* words, const float* meta, const E* raw, in
   if ((raw == nullptr) != (own < 0)) return (int)cudaErrorInvalidValue;
   if (!cluster_geometry_ok(chunks, B, k, threads)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t meta_bytes = (size_t)ws * 2 * kChunkBuckets * sizeof(float);
+  const size_t meta_bytes = (size_t)ws * 2 * kChunkBuckets * sizeof(float) +
+                            (ACCUM == kAccumInt8 ? int8_smem_bytes(ws) : 0);
   const bool reread = B / k > threads;
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     const size_t smem = meta_bytes + stage_bytes(PACK, threads);
     cudaError_t e = reread
-        ? cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, true, STOCH, E>,
+        ? cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, true, STOCH, E, ACCUM>,
                          chunks, k, threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
                          out_words, out_meta, seed, wire)
-        : cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, false, STOCH, E>,
+        : cluster_launch(cgx_sra_epilogue_cluster_kernel<BITS, ENCODE, PACK, false, STOCH, E, ACCUM>,
                          chunks, k, threads, smem, st, words, meta, raw, own, ws, chunks, B, k, inv,
                          out_words, out_meta, seed, wire);
     if (e != cudaSuccess) return (int)e;
@@ -2284,7 +2496,7 @@ int quantize_db_entry(const E* x, int32_t* words, float* meta, long long chunks,
   return (int)cudaGetLastError();
 }
 
-template <bool STOCH, typename E>
+template <bool STOCH, typename E, int ACCUM = kAccumExact>
 int sra_epilogue_db_entry(const int32_t* words, const float* meta, const E* raw, int own,
                           int ws, long long chunks, int tc, int B, int bits, float inv, int encode,
                           int pack, int k, int threads, int slots, uint2 seed, int32_t* out_words,
@@ -2302,22 +2514,23 @@ int sra_epilogue_db_entry(const int32_t* words, const float* meta, const E* raw,
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     const size_t smem = kBarBytes +
                         (size_t)slots * ((size_t)BITS * threads + 2 * kChunkBuckets) * 4 +
-                        stage_bytes(PACK, threads);
+                        stage_bytes(PACK, threads) +
+                        (ACCUM == kAccumInt8 ? int8_smem_bytes(ws) : 0);
     cudaError_t e =
         reread ? persistent_cluster_launch(
-                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, true, STOCH, E>, tiles,
-                     k, threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv,
-                     slots, out_words, out_meta, seed, wire)
+                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, true, STOCH, E, ACCUM>,
+                     tiles, k, threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k,
+                     inv, slots, out_words, out_meta, seed, wire)
                : persistent_cluster_launch(
-                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, false, STOCH, E>, tiles,
-                     k, threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k, inv,
-                     slots, out_words, out_meta, seed, wire);
+                     cgx_sra_epilogue_db_cluster_kernel<BITS, ENCODE, PACK, false, STOCH, E, ACCUM>,
+                     tiles, k, threads, smem, st, words, meta, raw, own, ws, n, tiles, tc, B, k,
+                     inv, slots, out_words, out_meta, seed, wire);
     if (e != cudaSuccess) return (int)e;
   }));
   return (int)cudaGetLastError();
 }
 
-template <typename E>
+template <typename E, int ACCUM = kAccumExact>
 int reduce_rows_entry(const int32_t* words, const float* meta, const E* raw, int own, int ws,
                       long long chunks, int B, int bits, int vec, float* out, int wire,
                       void* stream) {
@@ -2333,8 +2546,15 @@ int reduce_rows_entry(const int32_t* words, const float* meta, const E* raw, int
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (vec == 1) {
-    CGX_DISPATCH_BITS(bits, reduce_rows_start<BITS, 0, 1, E>(words, meta, raw, own, ws, chunks, B,
-                                                             out, blocks, wire, st));
+    CGX_DISPATCH_BITS(bits, reduce_rows_start<BITS, 0, 1, E, ACCUM>(words, meta, raw, own, ws,
+                                                                    chunks, B, out, blocks, wire,
+                                                                    st));
+  } else if constexpr (ACCUM == kAccumInt8) {
+    // The int8 fold takes one integer multiply-add a row: the any-count
+    // instance serves every row count.
+    CGX_DISPATCH_BITS(bits, reduce_rows_start<BITS, 0, 4, E, ACCUM>(words, meta, raw, own, ws,
+                                                                    chunks, B, out, blocks, wire,
+                                                                    st));
   } else {
     CGX_DISPATCH_BITS(bits, CGX_DISPATCH_ROWS(ws, reduce_rows_start<BITS, ROWS, 4, E>(
         words, meta, raw, own, ws, chunks, B, out, blocks, wire, st)));
@@ -2342,6 +2562,7 @@ int reduce_rows_entry(const int32_t* words, const float* meta, const E* raw, int
   return (int)cudaGetLastError();
 }
 
+#ifndef CGX_INT8
 // Each instance but an entry point's f32 round-to-nearest one is compiled
 // in its part alone; the other parts only declare it.
 #define CGX_QUANTIZE_ENTRY(S, E)                                                                \
@@ -2426,11 +2647,79 @@ template int reduce_rows_entry<uint16_t>(const int32_t*, const float*, const uin
 extern template int reduce_rows_entry<uint16_t>(const int32_t*, const float*, const uint16_t*, int,
                                                 int, long long, int, int, int, float*, int, void*);
 #endif
+#else  // CGX_INT8
+// The int8 library (-DCGX_INT8, codec_cuda.build_int8): the int8 fold's
+// instances of B3, B7c and B4 and their entry points alone, in parts of
+// their own (-DCGX_PART=0..9, CGX_IN_INT8_PART): part 0 the entry points
+// and B4 with an f32 raw row or none, parts 1-4 B3, 5-8 B7c (f32 round to
+// nearest, f32 stochastic, 16-bit round to nearest, 16-bit stochastic),
+// part 9 B4 with a 16-bit raw row. The default build leaves them out.
+#define CGX_IN_INT8_PART(k) CGX_IN_PART(k)
+#define CGX_EPILOGUE_INT8_ENTRY(S, E)                                                           \
+  int sra_epilogue_entry<S, E, kAccumInt8>(const int32_t*, const float*, const E*, int, int,    \
+                                           long long, int, int, float, int, int, int, int, uint2, \
+                                           int32_t*, float*, int, void*)
+#define CGX_EPILOGUE_DB_INT8_ENTRY(S, E)                                                        \
+  int sra_epilogue_db_entry<S, E, kAccumInt8>(const int32_t*, const float*, const E*, int, int, \
+                                              long long, int, int, int, float, int, int, int,   \
+                                              int, int, uint2, int32_t*, float*, int, void*)
+
+#if CGX_IN_INT8_PART(1)
+template CGX_EPILOGUE_INT8_ENTRY(false, float);
+#else
+extern template CGX_EPILOGUE_INT8_ENTRY(false, float);
+#endif
+#if CGX_IN_INT8_PART(2)
+template CGX_EPILOGUE_INT8_ENTRY(true, float);
+#else
+extern template CGX_EPILOGUE_INT8_ENTRY(true, float);
+#endif
+#if CGX_IN_INT8_PART(3)
+template CGX_EPILOGUE_INT8_ENTRY(false, uint16_t);
+#else
+extern template CGX_EPILOGUE_INT8_ENTRY(false, uint16_t);
+#endif
+#if CGX_IN_INT8_PART(4)
+template CGX_EPILOGUE_INT8_ENTRY(true, uint16_t);
+#else
+extern template CGX_EPILOGUE_INT8_ENTRY(true, uint16_t);
+#endif
+#if CGX_IN_INT8_PART(5)
+template CGX_EPILOGUE_DB_INT8_ENTRY(false, float);
+#else
+extern template CGX_EPILOGUE_DB_INT8_ENTRY(false, float);
+#endif
+#if CGX_IN_INT8_PART(6)
+template CGX_EPILOGUE_DB_INT8_ENTRY(true, float);
+#else
+extern template CGX_EPILOGUE_DB_INT8_ENTRY(true, float);
+#endif
+#if CGX_IN_INT8_PART(7)
+template CGX_EPILOGUE_DB_INT8_ENTRY(false, uint16_t);
+#else
+extern template CGX_EPILOGUE_DB_INT8_ENTRY(false, uint16_t);
+#endif
+#if CGX_IN_INT8_PART(8)
+template CGX_EPILOGUE_DB_INT8_ENTRY(true, uint16_t);
+#else
+extern template CGX_EPILOGUE_DB_INT8_ENTRY(true, uint16_t);
+#endif
+#if CGX_IN_INT8_PART(9)
+template int reduce_rows_entry<uint16_t, kAccumInt8>(const int32_t*, const float*, const uint16_t*,
+                                                     int, int, long long, int, int, int, float*, int,
+                                                     void*);
+#else
+extern template int reduce_rows_entry<uint16_t, kAccumInt8>(const int32_t*, const float*,
+                                                            const uint16_t*, int, int, long long,
+                                                            int, int, int, float*, int, void*);
+#endif
+#endif  // CGX_INT8
 
 }  // namespace cgx
 
 extern "C" {
 
+#ifndef CGX_INT8
 // Every quantizing entry point takes `encode` (0 div, 1 mul), `pack` (0
 // sum, 1 butterfly) and `stochastic` (0: round to nearest; else round
 // stochastically under the seed (k0, k1)). B1, B3, B7a, B7c and B4 take
@@ -2694,5 +2983,54 @@ int cgx_reduce_rows(const int32_t* words, const float* meta, const void* raw, in
                                           chunks, B, bits, vec, out, wire, stream);
 }
 #endif
+
+#else  // CGX_INT8
+// The int8 fold's entry points: the arguments of cgx_sra_epilogue,
+// cgx_sra_epilogue_db and cgx_reduce_rows, the fold in the level domain.
+// Every combination the f32 fold's entry points take is built (B4 at the
+// any-count instance, whatever the row count).
+#if CGX_IN_INT8_PART(0)
+int cgx_sra_epilogue_int8(const int32_t* words, const float* meta, const void* raw, int own,
+                          int ws, long long chunks, int B, int bits, float inv, int encode,
+                          int pack, int k, int threads, int stochastic, unsigned k0, unsigned k1,
+                          int32_t* out_words, float* out_meta, int wire, void* stream) {
+  const uint2 seed = make_uint2(k0, k1);
+  return by_instance(stochastic, wire, [&](auto st, auto e) {
+    using E = std::remove_const_t<std::remove_pointer_t<decltype(e)>>;
+    return cgx::sra_epilogue_entry<decltype(st)::value, E, kAccumInt8>(
+        words, meta, static_cast<const E*>(raw), own, ws, chunks, B, bits, inv, encode, pack, k,
+        threads, seed, out_words, out_meta, wire, stream);
+  });
+}
+
+int cgx_sra_epilogue_db_int8(const int32_t* words, const float* meta, const void* raw, int own,
+                             int ws, long long chunks, int tc, int B, int bits, float inv,
+                             int encode, int pack, int k, int threads, int slots, int stochastic,
+                             unsigned k0, unsigned k1, int32_t* out_words, float* out_meta,
+                             int wire, void* stream) {
+  const uint2 seed = make_uint2(k0, k1);
+  return by_instance(stochastic, wire, [&](auto st, auto e) {
+    using E = std::remove_const_t<std::remove_pointer_t<decltype(e)>>;
+    return cgx::sra_epilogue_db_entry<decltype(st)::value, E, kAccumInt8>(
+        words, meta, static_cast<const E*>(raw), own, ws, chunks, tc, B, bits, inv, encode, pack,
+        k, threads, slots, seed, out_words, out_meta, wire, stream);
+  });
+}
+
+int cgx_reduce_rows_int8(const int32_t* words, const float* meta, const void* raw, int own,
+                         int ws, long long chunks, int B, int bits, int vec, float* out, int wire,
+                         void* stream) {
+  if (raw == nullptr || wire == kWireF32) {
+    return cgx::reduce_rows_entry<float, kAccumInt8>(words, meta, static_cast<const float*>(raw),
+                                                     own, ws, chunks, B, bits, vec, out, kWireF32,
+                                                     stream);
+  }
+  if (wire != kWireBf16 && wire != kWireF16) return (int)cudaErrorInvalidValue;
+  return cgx::reduce_rows_entry<uint16_t, kAccumInt8>(words, meta,
+                                                      static_cast<const uint16_t*>(raw), own, ws,
+                                                      chunks, B, bits, vec, out, wire, stream);
+}
+#endif
+#endif  // CGX_INT8
 
 }  // extern "C"

@@ -74,8 +74,16 @@ The matmul-quantize (B8) stays float32: the port upcasts its bf16 tiles
 before the launch (``ops/fused_producer.py``), where the JAX kernel reads
 them itself (ROADMAP Queue B).
 
-Not in the kernels yet (ROADMAP Queue B), and refused on every device: the
-``CGX_SRA_ACCUM=int8`` fold.
+The int8 fold (``CGX_SRA_ACCUM=int8``): the reduce kernels (B3, B7c, B4)
+and their plain versions take ``accum`` ("exact", the f32 fold, or "int8";
+None: the knob, read on every call). Under "int8" the peer rows fold in the
+level domain, as the JAX package's ``_decode_accumulate`` does: per bucket
+the rows' units snap to 12-bit fixed-point multiples ``s_r`` of their
+largest ``U`` (the own row's included), ``sum_r level_r * s_r`` accumulates
+in int32, and ``bsum + (usafe * 2^-12) * float(acc)`` (the product rounded
+first) plus the raw own row gives the value. The int8 instances build into
+a library of their own (:func:`build_int8`) at the first call that asks for
+one; their launches are counted again in :data:`INT8_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -105,6 +113,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "codec.cu"
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libcgx_codec.so"
+# The int8 fold's instances of B3, B7c and B4 (csrc/codec.cu, CGX_INT8).
+LIBRARY_INT8 = BUILD_DIR / "libcgx_codec_int8.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -115,18 +125,18 @@ NVCC_FLAGS = (
 # parts 11-18 their 16-bit instances (round to nearest and stochastic),
 # part 19 B4's with a 16-bit raw row.
 BUILD_PARTS = 20
+# The int8 library's parts: its entry points and B4 (0), B3 (1-4), B7c
+# (5-8), B4 with a 16-bit raw row (9).
+INT8_BUILD_PARTS = 10
 
 # The wire dtypes of the quantize's input, the epilogue's and the reduce's
 # raw own row and the epilogue's cast: the entry points' ``wire`` argument,
 # by index (csrc/codec.cu kWireF32, kWireBf16, kWireF16).
 WIRE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
-# The fused epilogue's bucket gate: a chunk's (32, B) f32 values within a
-# block's 232,448 bytes of shared memory, less 256 of static meta, where
-# the one-block-per-chunk epilogue staged them. The cluster kernel keeps
-# them in registers and takes any bucket; the gate stays so that the
-# routing (supports_reduce, the launch counts) does not move. Larger
-# buckets take the staged path.
+# A chunk's (32, B) f32 values within a block's 232,448 bytes of shared
+# memory, less 256 of static meta: the matmul-quantize's (B8) tile, and
+# the producer's gate (ops/fused_producer.py, ROADMAP C3).
 MAX_EPILOGUE_TILE_BYTES = 232448 - 256
 # The JAX package's fused-reduce gate (codec_pallas.MAX_BUCKET_ELEMS,
 # MAX_REDUCE_BLOCK_ELEMS), kept so both packages route the same batches.
@@ -161,16 +171,23 @@ WIRE16_LAUNCHES: Dict[str, int] = {
     "codec_quantize": 0, "codec_quantize_db": 0, "codec_sra_epilogue": 0,
     "codec_sra_epilogue_db": 0, "codec_reduce_rows": 0,
 }
+# Launches of the int8 fold's instances (CGX_SRA_ACCUM=int8): a share of
+# LAUNCHES, by kernel.
+INT8_LAUNCHES: Dict[str, int] = {
+    "codec_sra_epilogue": 0, "codec_sra_epilogue_db": 0, "codec_reduce_rows": 0,
+}
 
 
-def _count_launch(name: str, wire: int) -> None:
+def _count_launch(name: str, wire: int, accum: str = "exact") -> None:
     LAUNCHES[name] += 1
     if wire:
         WIRE16_LAUNCHES[name] += 1
+    if accum == "int8":
+        INT8_LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DB_GATED, REDUCE_SCALAR, WIRE16_LAUNCHES):
+    for counts in (LAUNCHES, DB_GATED, REDUCE_SCALAR, WIRE16_LAUNCHES, INT8_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -182,6 +199,9 @@ def reset_launch_counts() -> None:
 _LIB = None
 _LIB_LOCK = threading.Lock()
 BUILD_LOG: Dict[str, object] = {}
+_LIB_INT8 = None
+_INT8_LOCK = threading.RLock()
+INT8_BUILD_LOG: Dict[str, object] = {}
 
 
 def _nvcc() -> str:
@@ -213,50 +233,69 @@ def _run_nvcc(procs) -> str:
     return "".join(out)
 
 
-def build(force: bool = False) -> Path:
-    """Compile ``csrc/codec.cu`` into ``_build/libcgx_codec.so`` unless an
-    up-to-date build exists: one nvcc for each of the source's
-    ``BUILD_PARTS`` parts, all started together, then one link. Returns the
-    library path; the compiler's output (registers, shared memory, spills)
-    lands in ``BUILD_LOG``."""
-    if (
-        not force
-        and LIBRARY.exists()
-        and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime
-    ):
-        return LIBRARY
+def _build(library: Path, parts: int, defines: Tuple[str, ...], log: Dict[str, object],
+           force: bool, nice: int = 0) -> Path:
+    """Compile ``csrc/codec.cu`` into ``library`` unless an up-to-date build
+    exists: one nvcc for each of ``parts`` parts, all started together
+    (at niceness ``nice``), then one link. The compiler's output
+    (registers, shared memory, spills) lands in ``log``."""
+    if not force and library.exists() and library.stat().st_mtime >= SOURCE.stat().st_mtime:
+        return library
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        objs = [os.path.join(work, f"part{k}.o") for k in range(BUILD_PARTS)]
+        objs = [os.path.join(work, f"part{k}.o") for k in range(parts)]
         ptxas = _run_nvcc([
-            subprocess.Popen([_nvcc(), *NVCC_FLAGS, f"-DCGX_PART={k}", "-c", "-o", obj, str(SOURCE)],
+            subprocess.Popen([*(("nice", "-n", str(nice)) if nice else ()), _nvcc(), *NVCC_FLAGS,
+                              *defines, f"-DCGX_PART={k}", "-c", "-o", obj, str(SOURCE)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for k, obj in enumerate(objs)
         ])
-        tmp = os.path.join(work, LIBRARY.name)
+        tmp = os.path.join(work, library.name)
         _run_nvcc([subprocess.Popen([_nvcc(), "-shared", "-o", tmp, *objs],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
-        os.replace(tmp, LIBRARY)
-    BUILD_LOG.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
-    return LIBRARY
+        os.replace(tmp, library)
+    log.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
+    return library
+
+
+def build(force: bool = False) -> Path:
+    """Compile ``csrc/codec.cu`` into ``_build/libcgx_codec.so`` (its
+    ``BUILD_PARTS`` parts) unless an up-to-date build exists. Returns the
+    library path; the compiler's output lands in ``BUILD_LOG``."""
+    return _build(LIBRARY, BUILD_PARTS, (), BUILD_LOG, force)
+
+
+def build_int8(force: bool = False, nice: int = 0) -> Path:
+    """Compile the int8 fold's instances (``-DCGX_INT8``, its
+    ``INT8_BUILD_PARTS`` parts) into ``_build/libcgx_codec_int8.so`` unless
+    an up-to-date build exists; the compiler's output lands in
+    ``INT8_BUILD_LOG``. ``nice``: the compilers' niceness, so that a build
+    started beside other work takes the cores that work leaves idle. Holds
+    the int8 library's lock, so a caller of the int8 kernels waits for a
+    build started on another thread."""
+    with _INT8_LOCK:
+        return _build(LIBRARY_INT8, INT8_BUILD_PARTS, ("-DCGX_INT8",), INT8_BUILD_LOG, force, nice)
 
 
 def ptxas_instances(ptxas: str) -> Dict[str, Dict[str, int]]:
     """Each kernel of a build's ptxas report (``BUILD_LOG["ptxas"]``, from
     ``-Xptxas -v``): ``name<its template's int and bool arguments>``, with
-    ``:16`` appended for an instance whose element type is the 16-bit one
+    ``:int8`` appended for an instance of the int8 fold (the ``ACCUM``
+    argument after the element type: 1; the f32 fold's 0 adds nothing) and
+    then ``:16`` for an instance whose element type is the 16-bit one
     (``uint16_t``; a ``float`` instance keeps the plain key, so a build from
-    before the 16-bit instances existed gives the same keys) -> its
-    ``registers``, ``spill_stores`` and ``spill_loads`` (bytes) and ``smem``
-    (static shared memory, bytes)."""
+    before the 16-bit instances or the ``ACCUM`` argument existed gives the
+    same keys) -> its ``registers``, ``spill_stores`` and ``spill_loads``
+    (bytes) and ``smem`` (static shared memory, bytes)."""
     out: Dict[str, Dict[str, int]] = {}
     for block in ptxas.split("Compiling entry function")[1:]:
         mangled = block.split("'")[1]
-        found = re.search(r"(cgx_\w+?_kernel)I((?:L[ib]\d+E)+)([ft]?)EE", mangled)
+        found = re.search(r"(cgx_\w+?_kernel)I((?:L[ib]\d+E)+)([ft]?)((?:Li\d+E)?)EE", mangled)
         if found:
             args = ",".join(re.findall(r"L[ib](\d+)E", found.group(2)))
-            key = f"{found.group(1)}<{args}>" + (":16" if found.group(3) == "t" else "")
+            key = (f"{found.group(1)}<{args}>" + (":int8" if found.group(4) == "Li1E" else "")
+                   + (":16" if found.group(3) == "t" else ""))
         else:
             plain = re.search(r"(cgx_\w+?_kernel)", mangled)
             key = plain.group(1) if plain else mangled
@@ -305,6 +344,33 @@ def _lib():
     return _LIB
 
 
+def _lib_int8():
+    """The int8 fold's library (:func:`build_int8` at first use): its
+    entry points take the arguments of the f32 fold's."""
+    global _LIB_INT8
+    with _INT8_LOCK:
+        if _LIB_INT8 is None:
+            lib = ctypes.CDLL(str(build_int8()))
+            vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+            u = ctypes.c_uint
+            lib.cgx_sra_epilogue_int8.argtypes = [
+                vp, vp, vp, i, i, ll, i, i, f, i, i, i, i, i, u, u, vp, vp, i, vp]
+            lib.cgx_reduce_rows_int8.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp, i, vp]
+            lib.cgx_sra_epilogue_db_int8.argtypes = [
+                vp, vp, vp, i, i, ll, i, i, i, f, i, i, i, i, i, i, u, u, vp, vp, i, vp]
+            for fn in (lib.cgx_sra_epilogue_int8, lib.cgx_reduce_rows_int8,
+                       lib.cgx_sra_epilogue_db_int8):
+                fn.restype = ctypes.c_int
+            _LIB_INT8 = lib
+    return _LIB_INT8
+
+
+def _entry(name: str, accum: str):
+    """The entry point ``name`` of the fold ``accum``: the default
+    library's, or the int8 library's ``name_int8``."""
+    return getattr(_lib(), name) if accum == "exact" else getattr(_lib_int8(), name + "_int8")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -349,11 +415,16 @@ def _check_seed(seed: Optional[int]) -> None:
         raise ValueError(f"seed must be a 64-bit unsigned integer or None, got {seed!r}")
 
 
-def _refuse_unported_fold() -> None:
-    if cfg_mod.sra_accum() != "exact":
-        raise NotImplementedError(
-            "CGX_SRA_ACCUM=int8 is not ported: the reduce kernels fold in f32"
-        )
+ACCUMS = ("exact", "int8")  # the reduce kernels' ACCUM template argument, by index
+
+
+def _accum(accum: Optional[str]) -> str:
+    """The fold a reduce wrapper or plain version runs: an explicit
+    argument, else ``CGX_SRA_ACCUM`` (read on every call)."""
+    accum = cfg_mod.sra_accum() if accum is None else accum
+    if accum not in ACCUMS:
+        raise ValueError(f"accum must be one of {ACCUMS}, got {accum!r}")
+    return accum
 
 
 def _check_own(raw: Optional[torch.Tensor], own: int, ws: int) -> None:
@@ -688,12 +759,13 @@ def sra_epilogue_chunks_plain(
     encode: Optional[str] = None,
     pack: Optional[str] = None,
     seed: Optional[int] = None,
+    accum: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`sra_epilogue_chunks`. ``cast_dtype`` rounds
     the reduced chunk through the wire dtype before the requantize, as the
     staged path quantizes ``reduced.to(dtype)``. The raw row may be of any
     float dtype here."""
-    acc = reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size)
+    acc = reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size, accum)
     if cast_dtype != torch.float32:
         acc = acc.to(cast_dtype).to(torch.float32)
     return quantize_chunks_plain(acc, bits, bucket_size, encode, pack, seed)
@@ -710,19 +782,20 @@ def sra_epilogue_chunks(
     encode: Optional[str] = None,
     pack: Optional[str] = None,
     seed: Optional[int] = None,
+    accum: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused dequantize-accumulate-requantize: ``words`` int32 ``(ws,
     C*bits*B)`` and ``meta`` f32 ``(ws, C*32, 2)`` of the ws peer rows, the
     raw own chunk ``raw`` ``(C*32*B,)`` replacing row ``own`` (-1 and None:
     no substitution) -> the stage-2 payload ``(words (C*bits*B,), meta
-    (C*32, 2))`` of the reduced chunk. Rows fold in ascending order.
-    ``cast_dtype``: the wire dtype (of :data:`WIRE_DTYPES`) the reduced
-    chunk rounds through before the requantize; on the card the kernel
-    reads a raw row in that same dtype (another raises ``ValueError``; the
-    plain version takes any). ``encode`` and ``pack``: the requantize's
-    lowerings (:func:`_lowering`); ``seed``: a stochastic requantize, the
-    output row's chunk indices 0 .. C-1."""
-    _refuse_unported_fold()
+    (C*32, 2))`` of the reduced chunk. Rows fold in ascending order, in the
+    fold ``accum`` (:func:`_accum`). ``cast_dtype``: the wire dtype (of
+    :data:`WIRE_DTYPES`) the reduced chunk rounds through before the
+    requantize; on the card the kernel reads a raw row in that same dtype
+    (another raises ``ValueError``; the plain version takes any). ``encode``
+    and ``pack``: the requantize's lowerings (:func:`_lowering`); ``seed``:
+    a stochastic requantize, the output row's chunk indices 0 .. C-1."""
+    accum = _accum(accum)
     encode, pack = _lowering(encode, pack)
     _check_seed(seed)
     wire_code("epilogue cast_dtype", cast_dtype)
@@ -732,11 +805,11 @@ def sra_epilogue_chunks(
     _check_own(raw, own, ws)
     if _device_kind(words, meta, raw) == "cpu":
         return sra_epilogue_chunks_plain(
-            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack, seed
+            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack, seed, accum
         )
     _require_epilogue_operands("epilogue", words, meta, raw, cast_dtype, ws, n, bits, bucket_size)
     return _launch_epilogue(words, meta, raw, own, bits, bucket_size, encode, pack, seed=seed,
-                            cast_dtype=cast_dtype)
+                            cast_dtype=cast_dtype, accum=accum)
 
 
 def _require_epilogue_operands(name: str, words, meta, raw, cast_dtype, ws: int, n: int,
@@ -758,12 +831,11 @@ def _require_epilogue_operands(name: str, words, meta, raw, cast_dtype, ws: int,
 def _launch_epilogue(
     words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
     bucket_size: int, encode: str, pack: str, g: Optional[ClusterGeometry] = None,
-    seed: Optional[int] = None, cast_dtype: torch.dtype = torch.float32,
+    seed: Optional[int] = None, cast_dtype: torch.dtype = torch.float32, accum: str = "exact",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of B3 on checked CUDA operands at geometry ``g`` (None:
     :func:`cluster_geometry`'s on the operands' card), stochastic with
-    ``seed``, in the wire dtype ``cast_dtype``."""
-    lib = _lib()
+    ``seed``, in the wire dtype ``cast_dtype``, folding by ``accum``."""
     ws = words.shape[0]
     chunks = meta.shape[1] // CHUNK_BUCKETS
     g = g or _geometry(words, chunks, bucket_size, bits)
@@ -774,8 +846,8 @@ def _launch_epilogue(
             ENCODES.index(encode), PACKS.index(pack), g.k, g.threads)
     wire = wire_code("epilogue cast_dtype", cast_dtype)
     outs = (out_words.data_ptr(), out_meta.data_ptr(), wire, _stream(words))
-    err = lib.cgx_sra_epilogue(*args, *_seed_args(seed), *outs)
-    _count_launch("codec_sra_epilogue", wire)
+    err = _entry("cgx_sra_epilogue", accum)(*args, *_seed_args(seed), *outs)
+    _count_launch("codec_sra_epilogue", wire, accum)
     _check_launch("codec_sra_epilogue", err)
     return out_words, out_meta
 
@@ -785,6 +857,49 @@ def _launch_epilogue(
 # ---------------------------------------------------------------------------
 
 
+INT8_ONE = 4096.0  # 2^12: the int8 fold's fixed-point one (codec_pallas._INT8_FRAC_BITS)
+
+
+def round_i32(v: torch.Tensor) -> torch.Tensor:
+    """float -> int32 to nearest, ties to even, saturating, NaN -> 0: XLA's
+    f32 -> s32 convert of ``jnp.round`` (on the card ``__float2int_rn``)."""
+    d = torch.nan_to_num(torch.round(v).to(torch.float64), nan=0.0)
+    return d.clamp(-(2.0**31), 2.0**31 - 1).to(torch.int32)
+
+
+def _fold_int8(words, meta, raw, own: int, bits: int, bucket_size: int) -> torch.Tensor:
+    """The int8 fold of the rows (``codec_pallas._decode_accumulate``,
+    ``accum="int8"``): per bucket, ``U`` the rows' largest unit (NaN
+    propagating, the own row's included), ``usafe`` U or 1, each kept row's
+    scale ``s_r = round_i32(unit_r * (4096 / usafe))``, ``bsum`` the kept
+    rows' mins summed ascending from +0 (+0 in the own row's place); per
+    value ``acc = sum_r level_r * s_r`` wrapping in int32, then ``bsum +
+    (usafe * 2^-12) * float(acc)`` and the raw own row last."""
+    ws = words.shape[0]
+    m = meta.to(torch.float32).reshape(ws, -1, 2)
+    units, mins = m[..., 0], m[..., 1]
+    umax = units[0]
+    for r in range(1, ws):
+        umax = torch.maximum(umax, units[r])
+    usafe = torch.where(umax > 0, umax, torch.ones_like(umax))
+    # Tensor by tensor: an IEEE divide (a scalar over a tensor multiplies by
+    # the tensor's reciprocal).
+    inv = torch.full_like(usafe, INT8_ONE) / usafe
+    nb = units.shape[1]
+    bsum = torch.zeros_like(umax)
+    acc = torch.zeros((nb, bucket_size), dtype=torch.int64, device=words.device)
+    for r in range(ws):
+        bsum = bsum + (torch.zeros_like(umax) if r == own else mins[r])
+        if r != own:
+            lvl = codec.unpack_levels_bucketed(words[r], bits, nb, bucket_size).to(torch.int64)
+            acc += lvl * round_i32(units[r] * inv).to(torch.int64)[:, None]
+    acc = (torch.remainder(acc + 2**31, 2**32) - 2**31).to(torch.int32)
+    vals = bsum[:, None] + (usafe * (1.0 / INT8_ONE))[:, None] * acc.to(torch.float32)
+    if raw is not None:
+        vals = vals + raw.to(torch.float32).reshape(nb, bucket_size)
+    return vals.reshape(-1)
+
+
 def reduce_rows_chunks_plain(
     words: torch.Tensor,
     meta: torch.Tensor,
@@ -792,9 +907,13 @@ def reduce_rows_chunks_plain(
     own: int,
     bits: int,
     bucket_size: int,
+    accum: Optional[str] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`reduce_rows_chunks`: decode each row (the
-    raw row, upcast, in place of row ``own``) and fold ``v0 + v1 + ...``."""
+    raw row, upcast, in place of row ``own``) and fold ``v0 + v1 + ...``;
+    under ``accum="int8"`` :func:`_fold_int8`."""
+    if _accum(accum) == "int8":
+        return _fold_int8(words, meta, raw, own, bits, bucket_size)
     acc = None
     for r in range(words.shape[0]):
         if r == own:
@@ -812,13 +931,15 @@ def reduce_rows_chunks(
     own: int,
     bits: int,
     bucket_size: int,
+    accum: Optional[str] = None,
 ) -> torch.Tensor:
     """Fused dequantize-accumulate: ``words`` int32 ``(ws, C*bits*B)`` and
     ``meta`` f32 ``(ws, C*32, 2)`` of ws rows of whole chunks, the raw own
     chunk ``raw`` f32, bf16 or f16 ``(C*32*B,)`` (read in its dtype)
     replacing row ``own`` (-1 and None: no substitution) -> the reduced
-    chunk f32 ``(C*32*B,)``, rows folded in ascending order."""
-    _refuse_unported_fold()
+    chunk f32 ``(C*32*B,)``, rows folded in ascending order, in the fold
+    ``accum`` (:func:`_accum`)."""
+    accum = _accum(accum)
     ws = words.shape[0]
     n = meta.shape[1] * bucket_size
     chunks = _chunk_geometry(n, bits, bucket_size)
@@ -826,7 +947,7 @@ def reduce_rows_chunks(
     if raw is not None:
         wire_code("reduce raw", raw.dtype)
     if _device_kind(words, meta, raw) == "cpu":
-        return reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size)
+        return reduce_rows_chunks_plain(words, meta, raw, own, bits, bucket_size, accum)
     _require_cuda_operand("reduce words", words, torch.int32, ws * chunks * bits * bucket_size)
     _require_cuda_operand("reduce meta", meta, torch.float32, ws * 2 * n // bucket_size)
     if raw is not None:
@@ -836,23 +957,23 @@ def reduce_rows_chunks(
     # 32 such vectors a block.
     wide = bucket_size % 128 == 0 and all(
         t is None or t.data_ptr() % (4 * t.element_size()) == 0 for t in (words, meta, raw, out))
-    return _launch_reduce(words, meta, raw, own, bits, bucket_size, out, 4 if wide else 1)
+    return _launch_reduce(words, meta, raw, own, bits, bucket_size, out, 4 if wide else 1, accum)
 
 
 def _launch_reduce(
     words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
-    bucket_size: int, out: torch.Tensor, vec: int,
+    bucket_size: int, out: torch.Tensor, vec: int, accum: str = "exact",
 ) -> torch.Tensor:
     """One launch of B4 on checked CUDA operands at width ``vec`` (4: every
     operand aligned to four of its values, the bucket a multiple of 128; 1:
-    scalar width, counted in :data:`REDUCE_SCALAR`)."""
+    scalar width, counted in :data:`REDUCE_SCALAR`), folding by ``accum``."""
     chunks = meta.shape[1] // CHUNK_BUCKETS
     wire = 0 if raw is None else wire_code("reduce raw", raw.dtype)
-    err = _lib().cgx_reduce_rows(
+    err = _entry("cgx_reduce_rows", accum)(
         words.data_ptr(), meta.data_ptr(), None if raw is None else raw.data_ptr(),
         own, words.shape[0], chunks, bucket_size, bits, vec, out.data_ptr(), wire, _stream(words),
     )
-    _count_launch("codec_reduce_rows", wire)
+    _count_launch("codec_reduce_rows", wire, accum)
     if vec == 1:
         REDUCE_SCALAR["launches"] += 1
     _check_launch("codec_reduce_rows", err)
@@ -1258,12 +1379,14 @@ def sra_epilogue_chunks_db(
     encode: Optional[str] = None,
     pack: Optional[str] = None,
     seed: Optional[int] = None,
+    accum: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`sra_epilogue_chunks` through the pipelined kernel (B7c): each
     CTA's ring streams its share of one peer row at a time, rows ascending,
     the clusters sharing out tiles of ``tc`` chunks; the raw row, read in
-    the wire dtype ``cast_dtype``, from device memory."""
-    _refuse_unported_fold()
+    the wire dtype ``cast_dtype``, from device memory. Under the int8 fold
+    each chunk's scales come from every row's meta in device memory."""
+    accum = _accum(accum)
     encode, pack = _lowering(encode, pack)
     _check_seed(seed)
     wire_code("epilogue_db cast_dtype", cast_dtype)
@@ -1273,7 +1396,7 @@ def sra_epilogue_chunks_db(
     _check_own(raw, own, ws)
     if _device_kind(words, meta, raw) == "cpu":
         return sra_epilogue_chunks_db_plain(
-            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack, seed
+            words, meta, raw, own, bits, bucket_size, cast_dtype, encode, pack, seed, accum
         )
     _require_epilogue_operands("epilogue_db", words, meta, raw, cast_dtype, ws, n, bits,
                                bucket_size)
@@ -1281,18 +1404,19 @@ def sra_epilogue_chunks_db(
         _require_aligned(f"epilogue_db {name}", t)
     _db_tile("epilogue", chunks, tc, bits, bucket_size)
     return _launch_epilogue_db(words, meta, raw, own, bits, bucket_size, tc, encode, pack,
-                               seed=seed, cast_dtype=cast_dtype)
+                               seed=seed, cast_dtype=cast_dtype, accum=accum)
 
 
 def _launch_epilogue_db(
     words: torch.Tensor, meta: torch.Tensor, raw: Optional[torch.Tensor], own: int, bits: int,
     bucket_size: int, tc: int, encode: str, pack: str,
     g: Optional[ClusterGeometry] = None, slots: Optional[int] = None,
-    seed: Optional[int] = None, cast_dtype: torch.dtype = torch.float32,
+    seed: Optional[int] = None, cast_dtype: torch.dtype = torch.float32, accum: str = "exact",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of B7c on checked CUDA operands at geometry ``g`` with a
     ring of ``slots`` (None: :func:`db_ring`'s on the operands' card),
-    stochastic with ``seed``, in the wire dtype ``cast_dtype``."""
+    stochastic with ``seed``, in the wire dtype ``cast_dtype``, folding by
+    ``accum``."""
     ws = words.shape[0]
     chunks = meta.shape[1] // CHUNK_BUCKETS
     ring = db_ring("epilogue", chunks, bits, bucket_size, _sm_count(words.device.index))
@@ -1305,8 +1429,8 @@ def _launch_epilogue_db(
             slots or DB_SLOTS["epilogue"][g.positions > 1])
     wire = wire_code("epilogue_db cast_dtype", cast_dtype)
     outs = (out_words.data_ptr(), out_meta.data_ptr(), wire, _stream(words))
-    err = _lib().cgx_sra_epilogue_db(*args, *_seed_args(seed), *outs)
-    _count_launch("codec_sra_epilogue_db", wire)
+    err = _entry("cgx_sra_epilogue_db", accum)(*args, *_seed_args(seed), *outs)
+    _count_launch("codec_sra_epilogue_db", wire, accum)
     _check_launch("codec_sra_epilogue_db", err)
     return out_words, out_meta
 
@@ -1440,23 +1564,20 @@ def supports(n: int, bits: int, bucket_size: int, skip_incomplete: bool) -> bool
     )
 
 
-def supports_reduce(
-    q: QTensor, ws: Optional[int] = None, *, requantize: bool = True
-) -> bool:
-    """Fused-reduce eligibility. The geometry is the JAX package's
-    (``codec_pallas.supports_reduce``: every row whole 32-bucket chunks of
-    128-aligned buckets, no residual, ws x chunk tile within its budget) so
-    both packages route the same batches to the fused kernels. With
-    ``requantize`` (the epilogue) the reduced (32, B) f32 tile must also fit
-    the kernel's shared memory; the reduce alone keeps no tile."""
+def supports_reduce(q: QTensor, ws: Optional[int] = None) -> bool:
+    """Fused-reduce eligibility, of the epilogue and the reduce alike: the
+    JAX package's (``codec_pallas.supports_reduce``: every row whole
+    32-bucket chunks of 128-aligned buckets up to 16,384, no residual, ws x
+    chunk within its budget), so both packages route the same batches to
+    the fused kernels, whose fold (``CGX_SRA_ACCUM``) is where the two
+    lowerings can differ. The kernels take any such bucket: B3 past the
+    register budget in rounds (REREAD), B7c's ring at every geometry."""
     rows = q.packed.shape[0] if q.packed.dim() == 2 else 0
     ws = rows if ws is None else ws
     b = q.bucket_size
     if not q.bits or not (1 <= q.bits <= 8) or rows < 1:
         return False
     if not b or b % 128 or b > MAX_BUCKET_ELEMS:
-        return False
-    if requantize and CHUNK_BUCKETS * b * 4 > MAX_EPILOGUE_TILE_BYTES:
         return False
     if q.residual.shape[-1]:
         return False
@@ -1621,6 +1742,7 @@ def sra_epilogue_batch(
     own_idx: Optional[int] = None,
     out_dtype: torch.dtype = torch.float32,
     seed: Optional[int] = None,
+    accum: Optional[str] = None,
 ) -> QTensor:
     """Fused dequantize-accumulate-requantize of a ws-row QTensor -> a
     rows=1 QTensor holding the stage-2 (all-gather) payload of the reduced
@@ -1630,7 +1752,8 @@ def sra_epilogue_batch(
     stochastic requantize (``seed``) keeps the heuristic tile and pack and
     makes no lookup, as the JAX package does. The reduced chunk rounds
     through ``out_dtype`` before the requantize; the raw row goes to the
-    kernel in its dtype (on the card, ``out_dtype``)."""
+    kernel in its dtype (on the card, ``out_dtype``). ``accum``: the fold
+    (:func:`_accum`)."""
     _check_seed(seed)
     own = -1 if own_idx is None else int(own_idx)
     raw = None if raw_row is None else raw_row.reshape(-1).contiguous()
@@ -1646,12 +1769,12 @@ def sra_epilogue_batch(
     if tc is None:
         words, meta = sra_epilogue_chunks(
             words, meta, raw, own, q.bits, q.bucket_size, cast_dtype=out_dtype, pack=pack,
-            seed=seed,
+            seed=seed, accum=accum,
         )
     else:
         words, meta = sra_epilogue_chunks_db(
             _aligned(words), _aligned(meta), None if raw is None else _aligned(raw), own,
-            q.bits, q.bucket_size, tc, cast_dtype=out_dtype, pack=pack, seed=seed,
+            q.bits, q.bucket_size, tc, cast_dtype=out_dtype, pack=pack, seed=seed, accum=accum,
         )
     return QTensor(
         packed=words.view(1, -1),
@@ -1669,12 +1792,13 @@ def reduce_rows_batch(
     *,
     raw_row: Optional[torch.Tensor] = None,
     own_idx: Optional[int] = None,
+    accum: Optional[str] = None,
 ) -> torch.Tensor:
     """Fused dequantize-accumulate of a row-batched QTensor -> flat f32
     ``(numel,)``: ``raw_row`` (the flat raw own chunk) replaces row
-    ``own_idx``'s decode before the fold. The caller checks
-    :func:`supports_reduce` (``requantize=False``). Looks the shape up as
-    kind "epilogue", as the JAX package does; the reduce has no pipelined
+    ``own_idx``'s decode before the fold (``accum``: :func:`_accum`). The
+    caller checks :func:`supports_reduce`. Looks the shape up as kind
+    "epilogue", as the JAX package does; the reduce has no pipelined
     kernel, so the entry goes unused. The raw row goes to the kernel in its
     dtype."""
     nb_r = codec.num_buckets(q.numel_main, q.bucket_size)
@@ -1687,6 +1811,6 @@ def reduce_rows_batch(
     raw = None if raw_row is None else raw_row.reshape(-1).contiguous()
     out = reduce_rows_chunks(
         q.packed.contiguous(), _as_f32(q.meta).contiguous(), raw, own,
-        q.bits, q.bucket_size,
+        q.bits, q.bucket_size, accum,
     )
     return out[: q.numel]

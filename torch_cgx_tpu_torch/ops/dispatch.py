@@ -9,10 +9,14 @@ leaves them to XLA. Both give the same wire bytes.
 ``CGX_SRA_EPILOGUE`` picks the epilogue lowering: "auto" takes the fused
 kernel for CUDA payloads at or above ``CGX_SRA_EPILOGUE_MIN_ELEMS`` and the
 staged decode/sum/quantize otherwise, "fused" and "staged" force one. Both
-lowerings give the same bytes. ``reduce_rows`` (the reduce without the
-requantize: the all-to-all reduction and the reduce-scatter half of SRA)
-takes the fused reduce kernel under the same rule, by the JAX package's
-eligibility gate with no shared-memory limit.
+lowerings give the same bytes under the default ``CGX_SRA_ACCUM=exact``.
+``reduce_rows`` (the reduce without the requantize: the all-to-all
+reduction and the reduce-scatter half of SRA) takes the fused reduce kernel
+under the same rule; both gates are the JAX package's eligibility.
+
+``CGX_SRA_ACCUM=int8`` (or an explicit ``accum``) folds in the level domain
+where the fused kernels run; the staged lowering folds exactly whatever it
+says, as the JAX package's does.
 
 Inside the batch functions ``CGX_PALLAS_DB`` and the autotune cache pick
 the single-stage or the pipelined kernel (same bytes);
@@ -105,9 +109,9 @@ def dequantize_batch(
     ])
 
 
-def _use_fused_reduce(q: QTensor, *, requantize: bool = True) -> bool:
+def _use_fused_reduce(q: QTensor) -> bool:
     mode = cfg_mod.sra_epilogue()
-    if mode == "staged" or not codec_cuda.supports_reduce(q, requantize=requantize):
+    if mode == "staged" or not codec_cuda.supports_reduce(q):
         return False
     if mode == "fused":
         return True
@@ -144,7 +148,7 @@ def db_would_run(q: QTensor, kernel: str, *, with_add: bool = False,
 def fused_reduce_would_run(q: QTensor) -> bool:
     """True when :func:`reduce_rows` takes the fused reduce kernel for this
     QTensor (rows > 1, no accumulator)."""
-    return q.batch_rows > 1 and _use_fused_reduce(q, requantize=False)
+    return q.batch_rows > 1 and _use_fused_reduce(q)
 
 
 def ordered_rowsum(vals: torch.Tensor) -> torch.Tensor:
@@ -163,20 +167,23 @@ def reduce_rows(
     raw_row: Optional[torch.Tensor] = None,
     own_idx: Optional[int] = None,
     add_to: Optional[torch.Tensor] = None,
+    accum: Optional[str] = None,
 ) -> torch.Tensor:
     """Dequantize-accumulate a row-batched QTensor -> flat f32 ``(numel,)``:
     decode every row, substitute the raw own chunk (``raw_rows[own_idx]``,
     or the pre-sliced ``raw_row``) for its decode, sum in ascending order.
     ``add_to`` (flat) is a pre-accumulator: the Ring hop's decode-add. The
     fused reduce kernel where :func:`fused_reduce_would_run` and there is
-    no accumulator, the staged decode/select/sum otherwise; same values."""
+    no accumulator, folding by ``accum`` (None: ``CGX_SRA_ACCUM``); the
+    staged decode/select/sum otherwise, always exact: the same values
+    under the exact fold."""
     if raw_rows is not None and raw_row is not None:
         raise ValueError("pass raw_rows or raw_row, not both")
     rows = q.batch_rows
     have_raw = raw_rows is not None or raw_row is not None
     if add_to is None and fused_reduce_would_run(q):
         rr = raw_rows[own_idx] if raw_rows is not None else raw_row
-        return codec_cuda.reduce_rows_batch(q, raw_row=rr, own_idx=own_idx)
+        return codec_cuda.reduce_rows_batch(q, raw_row=rr, own_idx=own_idx, accum=accum)
     if rows == 1 and not have_raw:
         return dequantize_batch(
             q, add_to=None if add_to is None else add_to[None], out_dtype=torch.float32
@@ -201,19 +208,21 @@ def reduce_rows_requantize(
     own_idx: Optional[int] = None,
     out_dtype: torch.dtype = torch.float32,
     key: Optional[prng.Key] = None,
+    accum: Optional[str] = None,
 ) -> QTensor:
     """The SRA epilogue: :func:`reduce_rows` + requantize of the reduced
     chunk into a rows=1 QTensor (the stage-2 payload), stochastic iff
     ``cc.stochastic`` and a key is given. One fused kernel where
-    :func:`fused_epilogue_would_run`, the staged ops otherwise; the same
-    bytes either way. ``raw_row`` is the pre-sliced own chunk of a
+    :func:`fused_epilogue_would_run`, folding by ``accum`` (None:
+    ``CGX_SRA_ACCUM``), the staged ops otherwise; the same bytes either way
+    under the exact fold. ``raw_row`` is the pre-sliced own chunk of a
     producer-staged caller, in place of ``raw_rows[own_idx]``."""
     if raw_rows is not None and raw_row is not None:
         raise ValueError("pass raw_rows or raw_row, not both")
     if _use_fused_reduce(q):
         return codec_cuda.sra_epilogue_batch(
             q, raw_row=raw_rows[own_idx] if raw_rows is not None else raw_row,
-            own_idx=own_idx, out_dtype=out_dtype, seed=_seed(cc, key),
+            own_idx=own_idx, out_dtype=out_dtype, seed=_seed(cc, key), accum=accum,
         )
-    reduced = reduce_rows(q, raw_rows=raw_rows, raw_row=raw_row, own_idx=own_idx)
+    reduced = reduce_rows(q, raw_rows=raw_rows, raw_row=raw_row, own_idx=own_idx, accum=accum)
     return quantize_batch(reduced.to(out_dtype)[None], cc, key)

@@ -308,9 +308,12 @@ def _sra_fold_chunk(fused: torch.Tensor, segs_me: Sequence[_Segment],
             parts.append(sl.contiguous().view(torch.uint8).clone())
             continue
         q = _stack_frames(peer, s, wdt)
-        # An aligned raw row keeps the reduce kernel at its full width.
+        # An aligned raw row keeps the reduce kernel at its full width. The
+        # fold stays exact whatever CGX_SRA_ACCUM says: the JAX hook folds
+        # in numpy (torch_cgx_tpu/torch_backend/backend.py _sra_fold_chunk).
         qo = dispatch.reduce_rows_requantize(
-            q, _cc(s), raw_row=codec_cuda._aligned(sl), own_idx=me, key=_frame_key(rng))
+            q, _cc(s), raw_row=codec_cuda._aligned(sl), own_idx=me, key=_frame_key(rng),
+            accum="exact")
         frame = codec.to_bytes(dispatch._row(qo, 0), wdt)
         sl.copy_(_decode(frame, s, wdt, dummy))
         parts.append(frame)
@@ -428,7 +431,9 @@ def _qreduce_alltoall(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.d
         if dummy:
             sl.copy_(dispatch.ordered_rowsum(torch.stack([r.view(torch.float32) for r in rows])))
         else:
-            sl.copy_(dispatch.reduce_rows(_stack_frames(rows, s, wdt)))
+            # Exact whatever CGX_SRA_ACCUM says, as the JAX hook's numpy
+            # fold (torch_cgx_tpu/torch_backend/backend.py _qreduce_alltoall).
+            sl.copy_(dispatch.reduce_rows(_stack_frames(rows, s, wdt), accum="exact"))
 
 
 def _qreduce_flat(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype, algo: str,
