@@ -157,7 +157,7 @@ order, none of whose failures is caught:
    hook's launches over steps 2-3 against ``LaunchModel.hook``, and step
    3's buckets (captured after the division) reduced again through the
    kernels and through the plain versions on the CPU over the same group,
-   bit-identical under SRA with f32 buckets, and every other one (from the
+   bit-identical under SRA with f32 buckets, and every fourth one (from the
    first to the last) with bf16 buckets and under the all-to-all (the
    hook's Ring runs in ``ddp_hook_hier``'s cross stage). Then ``ddp_hook_hier``: the same on two faked hosts of two
    ranks (``CGX_SHM_HOST_ID=testhost{rank // 2}``) under the default
@@ -165,12 +165,12 @@ order, none of whose failures is caught:
    the two-level path, the launches equal ``LaunchModel.hook`` on the
    leaders and the non-leaders, and step 3's buckets are bit-identical
    between the kernels and the plain CPU path under the default scheme
-   with f32 buckets (every other one under cross SRA, cross all-to-all and
+   with f32 buckets (every fourth one under cross SRA, cross all-to-all and
    ``CGX_INTRA_COMPRESS=0``; its bf16 buckets are ``ddp_hook``'s codec path),
    and the leaders' stage-3 frames identical. Then ``ddp_hook_sr`` and ``ddp_hook_hier_sr``: both again
    under ``CGX_STOCHASTIC_ROUNDING=1``, with the same checks (the reruns
    through the kernels and the plain versions drawing the same frame
-   keys; every other bucket, from the first to the last). (Before ``ddp_hook``, after ``sra_db``: ``two_level_bf16p`` and
+   keys; every fourth bucket, from the first to the last). (Before ``ddp_hook``, after ``sra_db``: ``two_level_bf16p`` and
    ``alltoall_bf16p``, GPT-2 124M with its parameters in bf16, one step
    each, launches against the bf16 layout, every quantize and every B4
    launch with a raw own row reading bf16, a 64 MB bf16 slice through the
@@ -184,6 +184,23 @@ order, none of whose failures is caught:
    reruns its buckets under ``CGX_SRA_ACCUM=int8`` too: no int8 instance
    runs and the bytes equal its exact rerun's (the hook folds exactly, as
    the JAX hook does).
+   Error feedback and the nonfinite guard (:func:`ef_guard_check`):
+   ``sra_ef`` (float32 model) and ``two_level_ef`` (default model), three
+   steps of ``make_train_step(error_feedback=True)`` each, launches against
+   the layout's with the round trip's (``LaunchModel.roundtrip``: the flat
+   SRA one more B2 a fusion slice, the two-level leader scheme one more B1
+   and B2), ``allreduce_flat(..., return_roundtrip=True)`` of a 64 MB slice
+   through the kernels bit-identical to the plain CPU path, reduced and
+   round trip, the slice's residual within half a unit of its bucket of
+   the wire layout and 0 on the own row, the residuals after the steps
+   nonzero, finite, float32; ``sra_guard_skip`` and ``sra_guard_exact``
+   (float32 model, :func:`guard_run`): rank 2's loss scaled by NaN at step
+   1 of three, the clean step 0 bit-identical to one unguarded step from
+   the same snapshot, "skip" keeping the parameters and Adam's state bit
+   for bit, "exact" changing them, finite, the counter 1 on rank 0 alone;
+   replicas bit-identical throughout. ``sra``, ``sra_ef``, ``two_level`` and
+   ``two_level_ef`` each profile one step on rank 0 (codec kernels, device
+   busy).
    Gloo stages the wire through host memory: its time is not a card
    number.
 
@@ -1423,6 +1440,47 @@ class LaunchModel:
         if intra:
             self._each(segs, "codec_quantize", "codec_dequantize")
 
+    def roundtrip(self, m: int, ws: int, cc, reduction: str, mirror: bool = False) -> None:
+        """What ``return_roundtrip`` adds to a flat reduction of ``m`` values
+        (error feedback): SRA and the all-to-all decode the rows they sent
+        (one B2 of ws rows, of one row); the Ring quantizes and decodes its
+        hop-0 segment again. ``mirror``: the two-level scheme's mirror of a
+        level's stage 1 (``allreduce._roundtrip_wire_1axis``), which also
+        quantizes the rows again (one B1). Exact wires add nothing."""
+        from torch_cgx_tpu_torch import config as cfg
+        from torch_cgx_tpu_torch.parallel import chunk_layout
+
+        if ws == 1 or not cc.enabled or cfg.dummy_compression() or reduction == cfg.REDUCTION_PSUM:
+            return
+        c = chunk_layout(m, ws)[0]
+        if reduction == cfg.REDUCTION_RING:
+            self.codec("codec_quantize", c, cc)
+            self.codec("codec_dequantize", c, cc)
+            return
+        rows, n = (1, m) if reduction == cfg.REDUCTION_ALLTOALL else (ws, c)
+        if mirror:
+            self.codec("codec_quantize", n, cc, rows)
+        self.codec("codec_dequantize", n, cc, rows)
+
+    def roundtrip_two_level(self, m: int, wi: int, wc: int, cc, topo) -> None:
+        """``allreduce._stage1_roundtrip_piece``: the mirror of the first
+        quantized stage (the leader scheme's intra reduce-scatter, an SRA
+        stage 1 whatever the intra reduction; nothing when the intra level
+        is uncompressed)."""
+        from torch_cgx_tpu_torch import config as cfg
+        from torch_cgx_tpu_torch.config import CompressionConfig
+
+        if cfg.dummy_compression() or (wi == 1 and wc == 1):
+            return
+        intra_cc = cc if topo.intra_compress else CompressionConfig(bits=32)
+        cross_cc = cc if topo.cross_compress else CompressionConfig(bits=32)
+        if wi == 1:
+            return self.roundtrip(m, wc, cross_cc, topo.cross_reduction, mirror=True)
+        if wc == 1 or not topo.intra_broadcast:
+            return self.roundtrip(m, wi, intra_cc, topo.intra_reduction, mirror=True)
+        if intra_cc.enabled:
+            self.roundtrip(m, wi, intra_cc, cfg.REDUCTION_SRA, mirror=True)
+
     def two_level(self, m: int, wi: int, wc: int, cc, topo) -> None:
         """``reducers.hierarchical_allreduce``."""
         from torch_cgx_tpu_torch import config as cfg
@@ -1452,7 +1510,7 @@ class LaunchModel:
 
 
 def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
-                      stochastic: bool = False) -> dict:
+                      stochastic: bool = False, roundtrip: bool = False) -> dict:
     """Launches of one compressed gradient sync per rank, from the layout:
     each compressed fusion slice through ``quantized_allreduce`` over a
     group of ``ws`` ranks (the env's reduction type), or through the
@@ -1462,12 +1520,17 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
     whose layer ``fused_producer.decide`` sends to the kernel gets its
     stage-1 payload from the backward's matmul-quantize. ``stochastic``: the
     sync rounds stochastically (a key under ``CGX_STOCHASTIC_ROUNDING``).
-    Each group's fusion slices hold 64 MB of its dtype's values."""
+    ``roundtrip``: the error-feedback sync, ``allreduce_tree(...,
+    return_roundtrip=True)`` of the float32 ``g / ws + e`` (every group
+    float32), with the round trip's launches. Each group's fusion slices
+    hold 64 MB of its dtype's values."""
     from torch_cgx_tpu_torch import config as cfg
     from torch_cgx_tpu_torch.ops import fused_producer
     from torch_cgx_tpu_torch.parallel import allreduce
 
     model = LaunchModel(next(iter(named_grads.values())).device, stochastic)
+    if roundtrip:
+        named_grads = {k: v.float() for k, v in named_grads.items()}
     paths_leaves = allreduce.sorted_items(named_grads)
     for g in allreduce._group_leaves(paths_leaves, compress_small=False):
         if not g.cc.enabled:
@@ -1485,8 +1548,12 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
                 model.sra(ln, ws, g.cc, produced=True)
             elif two_level is None:
                 model.flat(ln, ws, g.cc, cfg.intra_reduction())
+                if roundtrip:
+                    model.roundtrip(ln, ws, g.cc, cfg.intra_reduction())
             else:
                 model.two_level(ln, *two_level, g.cc, cfg.topology_from_env())
+                if roundtrip:
+                    model.roundtrip_two_level(ln, *two_level, g.cc, cfg.topology_from_env())
     return model.counts
 
 
@@ -2886,6 +2953,11 @@ def time_int8(dev, name: str) -> dict:
 # "_int8" configurations fold under CGX_SRA_ACCUM=int8: the two-level
 # scheme's intra reduce (B4 with the raw own rows), the all-to-all's (B4
 # without), the flat SRA's epilogue (B3) and its pipelined one (B7c).
+# "_ef": make_train_step(error_feedback=True), MR_STEPS steps: the flat SRA
+# decodes the stage-1 rows it sent (one more B2 a slice), the two-level
+# leader scheme mirrors its intra stage 1 (one more B1 and B2 a slice).
+# "sra_guard_*": the nonfinite guard under CGX_NONFINITE_GUARD, rank
+# GUARD_RANK's loss scaled by NaN at step GUARD_STEP (:func:`guard_run`).
 MR_CONFIGS = {
     "two_level": ({}, "two_level", "bf16"),
     "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, "world", "bf16"),
@@ -2899,9 +2971,16 @@ MR_CONFIGS = {
     "sra_db": ({"CGX_PALLAS_DB": "on"}, "world", "f32"),
     "sra_int8": ({"CGX_SRA_ACCUM": "int8"}, "world", "f32"),
     "sra_db_int8": ({"CGX_PALLAS_DB": "on", "CGX_SRA_ACCUM": "int8"}, "world", "f32"),
+    "sra_ef": ({}, "world", "f32"),
+    "sra_guard_skip": ({"CGX_NONFINITE_GUARD": "skip"}, "world", "f32"),
+    "sra_guard_exact": ({"CGX_NONFINITE_GUARD": "exact"}, "world", "f32"),
+    "two_level_ef": ({}, "two_level", "bf16"),
     "two_level_bf16p": ({}, "two_level", "bf16p"),
     "alltoall_bf16p": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world", "bf16p"),
 }
+MR_MULTISTEP = ("two_level", "sra", "sra_ef", "two_level_ef")  # MR_STEPS steps; the rest one
+MR_PROFILED = ("sra", "sra_ef", "two_level", "two_level_ef")  # one profiled step on rank 0
+GUARD_RANK, GUARD_STEP = 2, 1
 PRODUCED_LAYERS = 12 * len(MM_SHAPES)  # 36 payloads a rank and step
 PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused group
 
@@ -2975,9 +3054,9 @@ def _plain_cpu(fn, *args, **kw):
 # so steps 2 and 3 run the per-layer configs; step 3's buckets (after the
 # division) are captured and reduced again by the kernels and by the plain
 # versions on the CPU, under each (name, knobs, bucket dtype) of the
-# configuration's reruns: every bucket under the first, every other one
-# under the rest (and under the ``_sr`` configurations' one rerun, the
-# first and the last among them). ``ddp_hook`` runs the flat SRA over one host;
+# configuration's reruns: every bucket under the first, every fourth one
+# (HOOK_RERUN_STRIDE) under the rest and under the ``_sr`` configurations'
+# one rerun: of the 13 buckets, the first, the last and two between. ``ddp_hook`` runs the flat SRA over one host;
 # ``ddp_hook_hier`` fakes two hosts of two ranks (CGX_SHM_HOST_ID) under the
 # default two-level scheme (intra SRA, cross Ring, leader scheme on). The
 # ``_sr`` configurations rerun each under CGX_STOCHASTIC_ROUNDING=1, the
@@ -2987,6 +3066,7 @@ def _plain_cpu(fn, *args, **kw):
 # two-level subgroups that ``ddp_hook_hier`` formed.
 HOOK_STEPS = 4
 HOOK_CAPTURE_STEP = 3
+HOOK_RERUN_STRIDE = 4
 HOOK_INT8_RERUN = "SRA float32 CGX_SRA_ACCUM=int8"
 HOOK_CONFIGS = {
     "ddp_hook": (lambda rank: {"CGX_INNER_REDUCTION_TYPE": "SRA"}, (
@@ -3018,8 +3098,8 @@ HOOK_CONFIGS = {
 def _all_buckets(name: str, ri: int) -> bool:
     """Whether rerun ``ri`` of the DDP configuration ``name`` reduces every
     captured bucket again (the first rerun, but under stochastic rounding,
-    which repeats the first two configurations' paths), or every other
-    one."""
+    which repeats the first two configurations' paths), or every
+    HOOK_RERUN_STRIDE-th one."""
     return ri == 0 and not name.endswith("_sr")
 
 
@@ -3142,9 +3222,10 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
     for ri, (label, rk, dtype) in enumerate(reruns_of):
         _configure({**knobs, **rk})
         # The configuration's own scheme reduces every captured bucket
-        # again, each other scheme every other one, from the first to the
-        # last (which holds wte and its partial bucket): the script's time.
-        mine = captured if _all_buckets(name, ri) else captured[::2]
+        # again, each other scheme every HOOK_RERUN_STRIDE-th one, from the
+        # first to the last (which holds wte and its partial bucket): the
+        # script's time.
+        mine = captured if _all_buckets(name, ri) else captured[::HOOK_RERUN_STRIDE]
         rr_expected = expected_hook_launches(
             [(key, buf.numel()) for key, buf in mine], MR_WS, rank, dev, hosts)
         t1 = time.perf_counter()
@@ -3176,6 +3257,116 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             "stage3": stage3, "seconds": time.perf_counter() - t_cfg}
 
 
+def compressed_slices(named) -> int:
+    """The compressed fusion slices of a gradient sync of ``named`` (64 MB
+    of float32 values a slice)."""
+    from torch_cgx_tpu_torch.parallel import allreduce
+
+    pl = allreduce.sorted_items(named)
+    return sum(len(allreduce._fusion_slices(sum(pl[i][1].numel() for i in g.indices), 4))
+               for g in allreduce._group_leaves(pl, False) if g.cc.enabled)
+
+
+def roundtrip_bound(x, rt, ws: int, own: int) -> dict:
+    """The residual ``x - rt`` of a fusion slice against half a unit of its
+    bucket of the stage-1 wire layout: ``x`` edge-padded to ``(ws, chunk)``
+    rows, buckets of ``BUCKET`` restarting at each row (a row's partial
+    bucket padded with its last value), ``unit = (max - min) / (2^BITS -
+    1)``, plus the decode's rounding (2^-22 of the bucket's magnitude). The
+    own row, folded raw, must be exactly 0."""
+    import torch
+
+    from torch_cgx_tpu_torch.parallel import chunk_layout
+
+    n = x.numel()
+    chunk = chunk_layout(n, ws)[0]
+    e = (x.double() - rt.double())
+    pad = ws * chunk - n
+    xs = torch.cat([x.double(), x[-1:].double().expand(pad)]).view(ws, chunk)
+    es = torch.cat([e, torch.zeros(pad, dtype=torch.float64)]).view(ws, chunk)
+    nb = -(-chunk // BUCKET)
+    bpad = nb * BUCKET - chunk
+    xb = torch.cat([xs, xs[:, -1:].expand(ws, bpad)], dim=1).view(ws, nb, BUCKET)
+    eb = torch.cat([es, torch.zeros(ws, bpad, dtype=torch.float64)], dim=1).view(ws, nb, BUCKET)
+    hi, lo = xb.amax(dim=2, keepdim=True), xb.amin(dim=2, keepdim=True)
+    bound = (hi - lo) / ((1 << BITS) - 1) / 2 + 2.0**-22 * torch.maximum(hi.abs(), lo.abs())
+    ratio = (eb.abs() / bound.clamp(min=1e-300)).amax()
+    return {"nonzero": int((e != 0).sum()), "own_zero": not bool(es[own].any()),
+            "within": bool((eb.abs() <= bound).all()), "max_ratio": float(ratio)}
+
+
+def _adam_state(opt) -> list:
+    return [{k: (v.clone() if hasattr(v, "clone") else v) for k, v in st.items()}
+            for st in opt.state.values()]
+
+
+def _same_state(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(torch.equal(x[k], y[k]) if hasattr(x[k], "dtype") else x[k] == y[k]
+                                     for k in x)
+        for x, y in zip(a, b))
+
+
+def guard_run(rank: int, mdl, optim, tokens, dev) -> dict:
+    """One ``sra_guard_*`` configuration on the flat world: from a snapshot
+    of the model and Adam, one step of the unguarded path (built under
+    "off"); from the snapshot again, MR_STEPS steps of a step built under
+    the configuration's ``CGX_NONFINITE_GUARD``, rank GUARD_RANK's loss
+    scaled by NaN at step GUARD_STEP (the batch carries the scale). Returns
+    whether step 0 equals the unguarded step bit for bit, whether the
+    poisoned step kept the parameters and Adam ("skip") or changed them,
+    finite ("exact"), the counter, and the launches over the steps."""
+    import copy
+
+    import torch
+
+    from torch_cgx_tpu_torch.models import lm_loss
+    from torch_cgx_tpu_torch.ops import codec_cuda, fused_producer
+    from torch_cgx_tpu_torch.parallel import grad_sync, make_train_step
+
+    def scaled(m, b):
+        return lm_loss(m(b[0]), b[0]) * b[1]
+
+    one, nan = torch.ones((), device=dev), torch.full((), float("nan"), device=dev)
+    snap_m = {k: v.detach().clone() for k, v in mdl.state_dict().items()}
+    snap_o = copy.deepcopy(optim.state_dict())
+    guard = os.environ.pop("CGX_NONFINITE_GUARD")
+    make_train_step(mdl, scaled, optim, device=dev)((tokens, one))
+    os.environ["CGX_NONFINITE_GUARD"] = guard
+    ref = [p.detach().clone() for p in mdl.parameters()]
+    mdl.load_state_dict(snap_m)
+    optim.load_state_dict(snap_o)
+    del snap_m, snap_o
+    step = make_train_step(mdl, scaled, optim, device=dev)
+    sync(dev)
+    grad_sync.reset_counts()
+    codec_cuda.reset_launch_counts()
+    fused_producer.reset_counts()
+    out = {"losses": [], "step_times": []}
+    for i in range(MR_STEPS):
+        if i == GUARD_STEP:
+            pre_p = [p.detach().clone() for p in mdl.parameters()]
+            pre_o = _adam_state(optim)
+        t0 = time.perf_counter()
+        out["losses"].append(float(step((tokens, nan if i == GUARD_STEP and rank == GUARD_RANK else one))))
+        sync(dev)
+        out["step_times"].append(time.perf_counter() - t0)
+        if i == 0:
+            out["clean_equals_off"] = all(torch.equal(p, r) for p, r in zip(mdl.parameters(), ref))
+            del ref
+        if i == GUARD_STEP:
+            out["kept_params"] = all(torch.equal(p, q) for p, q in zip(mdl.parameters(), pre_p))
+            out["kept_adam"] = _same_state(_adam_state(optim), pre_o)
+            out["finite"] = all(bool(torch.isfinite(p).all()) for p in mdl.parameters())
+            del pre_p, pre_o
+    out["step_s"] = sum(out["step_times"]) / MR_STEPS
+    out["count"] = grad_sync.COUNTS["nonfinite_steps"]
+    out["steps"] = MR_STEPS - 1  # the poisoned step launches no codec kernel
+    return out
+
+
 def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: int) -> None:
     """One of phase 7's ranks: a gloo group over the FileStore ``store``,
     the two-level layout, GPT-2 from the seed on ``dev_name`` and the
@@ -3196,6 +3387,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         from torch_cgx_tpu_torch.parallel import (
             allreduce_flat, gradient_sync, hierarchical_groups, make_train_step,
         )
+        from torch_cgx_tpu_torch.tools import shapebench
         from torch_cgx_tpu_torch.tools.hookprof import rank_tokens
 
         timeout = timedelta(seconds=MR_TIMEOUT_S // 2)
@@ -3250,9 +3442,28 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             dense_k = {m.kernel_path: MR_BATCH * seq for m in mdl.modules() if isinstance(m, Dense)}
             group = tl if kind == "two_level" else None
             layout_grads = grads16 if model_kind == "bf16p" else grads
-            expected = (expected_launches(layout_grads, two_level=layout) if kind == "two_level"
-                        else expected_launches(layout_grads, ws=MR_WS, dense_k=dense_k))
-            res = {"expected": expected, "expected_int8": expected_int8(expected)}
+            ef = name.endswith("_ef")
+            expected = (expected_launches(layout_grads, two_level=layout, roundtrip=ef)
+                        if kind == "two_level"
+                        else expected_launches(layout_grads, ws=MR_WS, dense_k=dense_k, roundtrip=ef))
+            res = {"expected": expected, "expected_int8": expected_int8(expected),
+                   "slices": compressed_slices(layout_grads)}
+            t_cfg = time.perf_counter()
+            if ef:
+                # The round trip through the layout, kernels against plain,
+                # and the slice's residual against the wire layout's units.
+                codec_cuda.reset_launch_counts()
+                gpu, gpu_rt = allreduce_flat(first, cc, group=group, return_roundtrip=True)
+                res["slice_launches"] = dict(codec_cuda.LAUNCHES)
+                res["slice_wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
+                res["slice_int8"] = dict(codec_cuda.INT8_LAUNCHES)
+                cpu, cpu_rt = _plain_cpu(allreduce_flat, first.cpu(), cc, group=group,
+                                         return_roundtrip=True)
+                res["slice_same"] = _same_bits(gpu.cpu(), cpu) and _same_bits(gpu_rt.cpu(), cpu_rt)
+                res["slice_n"], res["slice_dtype"] = first.numel(), str(first.dtype)
+                ws_rt, own = (MR_INTRA, rank % MR_INTRA) if kind == "two_level" else (MR_WS, rank)
+                res["residual"] = roundtrip_bound(first.cpu(), gpu_rt.cpu(), ws_rt, own)
+                del gpu, gpu_rt, cpu, cpu_rt
             check = {"ring": first, "alltoall": first, "two_level_bf16p": first16,
                      "alltoall_bf16p": first16}.get(name, first if name.endswith("_int8") else None)
             if check is not None:
@@ -3267,21 +3478,42 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                 res["slice_dtype"] = str(check.dtype)
             if name == "sra_producer" and rank == 0:
                 res["check"] = producer_check(mdl, loss_fn, tokens)
-            steps = MR_STEPS if name == "two_level" else 1
-            step = make_train_step(mdl, loss_fn, optim, group=group, device=dev)
-            sync(dev)
-            codec_cuda.reset_launch_counts()
-            fused_producer.reset_counts()
-            t0 = time.perf_counter()
-            res["losses"] = [float(step(tokens)) for _ in range(steps)]
-            sync(dev)
-            res["step_s"] = (time.perf_counter() - t0) / steps
+            if "CGX_NONFINITE_GUARD" in knobs:
+                res.update(guard_run(rank, mdl, optim, tokens, dev))
+            else:
+                steps = MR_STEPS if name in MR_MULTISTEP else 1
+                step = make_train_step(mdl, loss_fn, optim, group=group, device=dev,
+                                       error_feedback=ef)
+                sync(dev)
+                codec_cuda.reset_launch_counts()
+                fused_producer.reset_counts()
+                res["step_times"] = []
+                res["losses"] = []
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    res["losses"].append(float(step(tokens)))
+                    sync(dev)
+                    res["step_times"].append(time.perf_counter() - t0)
+                res["step_s"] = sum(res["step_times"]) / steps
+                res["steps"] = steps
             res["launches"] = dict(codec_cuda.LAUNCHES)
             res["wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
             res["int8"] = dict(codec_cuda.INT8_LAUNCHES)
             res["reduce_scalar"] = codec_cuda.REDUCE_SCALAR["launches"]
             res["producer"] = dict(fused_producer.COUNTS)
-            res["steps"] = steps
+            if ef:
+                e = step.ef_state.e
+                res["ef"] = {"n": len(e), "nonzero": sum(int((v != 0).sum()) for v in e.values()),
+                             "finite": all(bool(torch.isfinite(v).all()) for v in e.values()),
+                             "f32": all(v.dtype == torch.float32 for v in e.values()),
+                             "absmax": max(float(v.abs().max()) for v in e.values())}
+            if name in MR_PROFILED:  # every rank takes profile_codec's two steps
+                if rank == 0:
+                    res["profile"] = shapebench.profile_codec(lambda: step(tokens))
+                else:
+                    step(tokens)
+                    step(tokens)
+            res["seconds"] = time.perf_counter() - t_cfg
             res["digests"] = _digests(mdl)
             out[name] = res
         models.clear()
@@ -3350,7 +3582,9 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         c0 = res[0][name]
         log(f"  {name}: launches per rank and step derived from the layout: {c0['expected']}")
         log(f"    losses {c0['losses']}; launches on rank 0 over {c0['steps']} step(s): "
-            f"{c0['launches']}; host-clock step {c0['step_s']:.2f} s (gloo, wire through host memory)")
+            f"{c0['launches']}; host-clock step {c0['step_s']:.2f} s (gloo, wire through host memory; "
+            f"each step {[round(t, 3) for t in c0['step_times']]} s); the configuration "
+            f"{c0['seconds']:.1f} s")
         if "slice_same" in c0:
             log(f"    kernels vs plain CPU on a {c0['slice_n']}-value {c0['slice_dtype']} fusion slice: "
                 f"{'bit-identical' if all(o[name]['slice_same'] for o in res) else 'DIFFERENT'} on every "
@@ -3364,8 +3598,9 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
                 f"{c0['expected_int8']}); on the slice {({k: v for k, v in c0['slice_int8'].items() if v})}")
         for r, o in enumerate(res):
             c = o[name]
-            assert np.all(np.isfinite(c["losses"])), (name, r, c["losses"])
-            assert c["losses"] == c0["losses"], (name, r, c["losses"], c0["losses"])
+            clean = [x for i, x in enumerate(c["losses"]) if "guard" not in name or i != GUARD_STEP]
+            assert np.all(np.isfinite(clean)), (name, r, c["losses"])
+            assert np.array_equal(c["losses"], c0["losses"], equal_nan=True), (name, r, c["losses"])
             want = {k: v * c["steps"] for k, v in c["expected"].items()}
             assert c["launches"] == want, (name, r, c["launches"], want)
             want8 = {k: v * c["steps"] for k, v in c["expected_int8"].items()}
@@ -3374,6 +3609,7 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
             diff = [k for k in c0["digests"] if c["digests"][k] != c0["digests"][k]]
             assert not diff, (name, r, diff[:5])
         log(f"    replicas: all {len(c0['digests'])} parameters bit-identical on the {MR_WS} ranks")
+    ef_guard_check(res)
     assert res[0]["two_level"]["launches"]["codec_reduce_rows"] > 0
     assert res[0]["alltoall"]["launches"]["codec_reduce_rows"] > 0
     # The int8 configurations ran their kernel's int8 instance in the steps
@@ -3441,6 +3677,61 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
     return {"launches": launches, "int8_launches": int8, "results": res}
 
 
+def ef_guard_check(res) -> None:
+    """Phase 7's checks of the error-feedback and guard configurations, each
+    failing the phase: the EF launches equal the plain configuration's plus
+    the round trip's (``LaunchModel.roundtrip``: the flat SRA one B2 a
+    slice, the two-level leader scheme one B1 and one B2), the round trip
+    of a 64 MB slice equal to the plain CPU path's, its residual within half
+    a unit of its bucket of the wire layout and 0 on the own row; the
+    residuals after the steps nonzero, finite, float32; under "skip" the
+    poisoned step kept the parameters and Adam, under "exact" it changed
+    them, finite; the clean step equal to the unguarded one; the counter 1
+    on rank 0."""
+    for name, base, extra in (("sra_ef", "sra", {"codec_dequantize": 1}),
+                              ("two_level_ef", "two_level", {"codec_quantize": 1, "codec_dequantize": 1})):
+        c0 = res[0][name]
+        slices = c0["slices"]
+        want = {k: v + extra.get(k, 0) * slices for k, v in res[0][base]["expected"].items()}
+        p = c0.get("profile", {})
+        log(f"  {name}: the round trip adds {({k: v - res[0][base]['expected'][k] for k, v in c0['expected'].items() if v != res[0][base]['expected'][k]})} "
+            f"launches a rank-step over {base}'s ({slices} fusion slices); host-clock step "
+            f"{c0['step_s']:.3f} s against {base}'s {res[0][base]['step_s']:.3f} s; rank 0's profiled step: "
+            f"codec kernels {p.get('codec_ms', 0.0):.3f} ms ({', '.join(f'{k} {v:.3f}' for k, v in sorted(p.get('codec_by_kernel', {}).items()))}), "
+            f"device busy {p.get('busy_ms', 0.0):.2f} ms of {p.get('wall_ms', 0.0):.1f} ms; {base}'s codec "
+            f"{res[0][base].get('profile', {}).get('codec_ms', 0.0):.3f} ms, busy "
+            f"{res[0][base].get('profile', {}).get('busy_ms', 0.0):.2f} ms")
+        for label in (base, name):
+            top = res[0][label].get("profile", {}).get("top", [])
+            log(f"    {label} profile's largest device entries: " + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+        rb = c0["residual"]
+        log(f"    64 MB slice round trip: residual nonzero in {rb['nonzero']} values, within half a unit "
+            f"of its bucket everywhere: {rb['within']} (largest share of the bound {rb['max_ratio']:.4f}), "
+            f"own row 0: {rb['own_zero']}; residuals after the steps: {c0['ef']}")
+        assert c0["expected"] == want and slices > 0, (name, c0["expected"], want)
+        for r, o in enumerate(res):
+            c = o[name]
+            rb, ef = c["residual"], c["ef"]
+            assert rb["within"] and rb["own_zero"] and rb["nonzero"] > 0, (name, r, rb)
+            assert ef["nonzero"] > 0 and ef["finite"] and ef["f32"] and ef["n"] == len(c["digests"]), (name, r, ef)
+            assert c["slice_same"], (name, r)
+    for name in ("sra_guard_skip", "sra_guard_exact"):
+        c0 = res[0][name]
+        log(f"  {name}: rank {GUARD_RANK}'s loss NaN at step {GUARD_STEP}: losses {c0['losses']}, steps "
+            f"{[round(t, 3) for t in c0['step_times']]} s; the clean step equals the unguarded one: "
+            f"{c0['clean_equals_off']}; the poisoned step kept the parameters {c0['kept_params']}, Adam "
+            f"{c0['kept_adam']}, finite {c0['finite']}; counter {[o[name]['count'] for o in res]}")
+        for r, o in enumerate(res):
+            c = o[name]
+            assert c["count"] == (1 if r == 0 else 0), (name, r, c["count"])
+            assert c["clean_equals_off"] and c["finite"], (name, r, c)
+            assert np.isnan(c["losses"][GUARD_STEP]), (name, r, c["losses"])
+            if name.endswith("skip"):
+                assert c["kept_params"] and c["kept_adam"], (name, r)
+            else:
+                assert not c["kept_params"], (name, r)
+
+
 def hook_check(res, name: str, smi: str) -> None:
     """Phase 7's checks of the DDP configuration ``name``, each failing the
     run: the registry against ``should_compress_``, the bucket allreduces
@@ -3476,14 +3767,15 @@ def hook_check(res, name: str, smi: str) -> None:
             diff = [k for k in d if d[k] != h0["digests"][step][k]]
             assert not diff, (name, "replicas", r, step, diff[:5])
         for ri, (label, rr) in enumerate(h["reruns"].items()):
-            want_buckets = h0["calls"] if _all_buckets(name, ri) else (h0["calls"] + 1) // 2
+            want_buckets = (h0["calls"] if _all_buckets(name, ri)
+                            else -(-h0["calls"] // HOOK_RERUN_STRIDE))
             assert rr["buckets"] == want_buckets, (name, r, label, rr)
             assert rr["same"] == rr["buckets"], (name, r, label, rr)
             assert rr["launches"] == rr["expected"], (name, r, label, rr["launches"], rr["expected"])
             assert rr["int8"] == 0, (name, r, label, rr["int8"])
             if label == HOOK_INT8_RERUN:  # its buckets' bytes are the exact fold's
                 first = next(iter(h["reruns"].values()))
-                assert rr["digests"] == first["digests"][::2], (name, r, label)
+                assert rr["digests"] == first["digests"][::HOOK_RERUN_STRIDE], (name, r, label)
     # The path's kernels each ran in the counted steps: the quantizes and
     # requantizes (B1), the decodes (B2), and in the flat SRA the fused
     # epilogue (B3) on the segments of whole chunks. Under the two-level

@@ -191,7 +191,7 @@ def test_reduce_rows_matches_plain(dev, rows, n, bits, bucket, owns):
         * np.arange(1, rows + 1, dtype=np.float32)[:, None]
     ).to(dev)
     q = codec_cuda.quantize_batch(x, bits, bucket)
-    assert codec_cuda.supports_reduce(q, requantize=False)
+    assert codec_cuda.supports_reduce(q)
     for own in owns:
         raw = None if own is None else x[own]
         codec_cuda.reset_launch_counts()
@@ -1747,3 +1747,125 @@ def test_int8_library_instances(dev):
     assert len(b4) == 48 and all(k.split("<")[1].split(",")[1] == "0" for k in b4), b4[:5]
     if "ptxas" in codec_cuda.BUILD_LOG:
         assert not any(":int8" in k for k in codec_cuda.ptxas_instances(codec_cuda.BUILD_LOG["ptxas"]))
+
+
+# ---------------------------------------------------------------------------
+# Error feedback's round trip: the ``*_with_wire`` reducers through
+# ``allreduce_flat(..., return_roundtrip=True)`` on four gloo ranks sharing
+# the card, against the same reducers on the CPU tensors (the plain
+# versions, fused lowering) over the same group.
+# ---------------------------------------------------------------------------
+
+WIRE_WS = 4
+WIRE_CASES = {
+    "sra": ({}, False),
+    "alltoall": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, False),
+    "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, False),
+    "two_level_leader": ({}, True),
+    "two_level_two_pass": ({"CGX_INTRA_BROADCAST": "0"}, True),
+}
+
+
+def _wire_rank(rank, store, result_q):
+    import os
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from torch_cgx_tpu_torch.parallel import allreduce_flat, hierarchical_groups
+    from torch_cgx_tpu_torch.utils import prng
+
+    for k in [k for k in os.environ if k.startswith("CGX_")]:
+        del os.environ[k]
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    out = {}
+    try:
+        timeout = timedelta(seconds=120)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=WIRE_WS, timeout=timeout)
+        tl = hierarchical_groups(intra_size=2, timeout=timeout)
+        dev = torch.device("cuda", 0)
+        n = WIRE_WS * (3 * 32 + 5) * 512 + 77  # chunks, tail buckets, a partial bucket
+        x32 = torch.from_numpy(np.random.default_rng(rank).standard_normal(n).astype(np.float32))
+        for name, (knobs, two) in WIRE_CASES.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                for stochastic in (False, True):
+                    os.environ.update({"CGX_SRA_EPILOGUE": "fused", **knobs})
+                    if stochastic:
+                        os.environ["CGX_STOCHASTIC_ROUNDING"] = "1"
+                    cc = CompressionConfig(bits=4, bucket_size=512, stochastic=stochastic)
+                    key = prng.key(5) if stochastic else None
+                    group = tl if two else None
+                    x = x32.to(dtype)
+                    codec_cuda.reset_launch_counts()
+                    card, card_rt = allreduce_flat(x.to(dev), cc, group=group, key=key,
+                                                   return_roundtrip=True)
+                    torch.cuda.synchronize()
+                    launches = sum(codec_cuda.LAUNCHES.values())
+                    plain, plain_rt = allreduce_flat(x, cc, group=group, key=key,
+                                                     return_roundtrip=True)
+                    out[(name, str(dtype), stochastic)] = (
+                        _bits_equal(card, plain), _bits_equal(card_rt, plain_rt),
+                        launches, not _bits_equal(card_rt, x),
+                    )
+                    for k in list(knobs) + ["CGX_SRA_EPILOGUE", "CGX_STOCHASTIC_ROUNDING"]:
+                        os.environ.pop(k, None)
+        dist.barrier()
+    except Exception:  # reported to the parent, which fails the test
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    result_q.put((rank, out))
+
+
+@pytest.fixture(scope="module")
+def wire_world(tmp_path_factory):
+    import multiprocessing as mp
+    import queue
+    import time
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    codec_cuda._lib()  # built once here, before the ranks load it
+    ctx = mp.get_context("spawn")
+    result_q = ctx.Queue()
+    store = str(tmp_path_factory.mktemp("wire_world") / "store")
+    procs = [ctx.Process(target=_wire_rank, args=(r, store, result_q)) for r in range(WIRE_WS)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + 300
+    try:
+        while len(results) < WIRE_WS and time.monotonic() < deadline:
+            try:
+                r, out = result_q.get(timeout=2.0)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            results[r] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    assert len(results) == WIRE_WS, f"only ranks {sorted(results)} reported"
+    errors = {r: o["error"] for r, o in results.items() if "error" in o}
+    assert not errors, "\n".join(f"rank {r}:\n{e}" for r, e in errors.items())
+    return [results[r] for r in range(WIRE_WS)]
+
+
+@pytest.mark.parametrize("stochastic", [False, True], ids=["nearest", "stochastic"])
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+@pytest.mark.parametrize("name", list(WIRE_CASES))
+def test_roundtrip_reducers_match_plain(wire_world, name, dtype, stochastic):
+    """``(reduced, rt)`` of the flat SRA, all-to-all and Ring and of the
+    two-level scheme with and without the leader scheme, on the card
+    against the plain versions, bit for bit, on every rank; the kernels
+    launched and the round trip moved the values."""
+    for r, o in enumerate(wire_world):
+        same, same_rt, launches, moved = o[(name, dtype, stochastic)]
+        assert same and same_rt, (r, same, same_rt)
+        assert launches > 0 and moved, (r, launches)

@@ -8,11 +8,15 @@ buffer in ``allreduce_flat`` (so also ``allreduce_tree`` and
 the JAX package's ``allreduce_flat`` / ``allreduce_tree`` on a one-device
 mesh under ``CGX_DEBUG_FORCE_CODEC=1`` (the prefix quantized and decoded,
 the tail as it was), on decode-exact data. ``CGX_NONFINITE_GUARD`` (the
-train step's NaN/Inf policy) is not ported, so a value other than "off"
-raises ``NotImplementedError`` naming it in ``gradient_sync`` and
-``make_train_step``. At their defaults (the ratio unset, 0 or 1; the guard
-"off") everything runs as before. Both accessors parse as the JAX
-package's do, which the tests check value by value.
+NaN/Inf gradient guard) runs under "skip" and "exact": on a clean tree
+``gradient_sync`` equals the JAX package's ``gradient_sync`` under the same
+knob bit for bit and the step trains; ``make_train_step`` resolves the
+policy when it is built, so a guard set afterwards does not change that
+step (a poisoned batch then poisons the parameters, as in the JAX
+package). At their defaults (the ratio unset, 0 or 1; the guard "off")
+everything runs as before. Both accessors parse as the JAX package's do,
+which the tests check value by value. The guard's own behaviour on
+poisoned steps is in ``tests/test_torch_nonfinite_guard.py``.
 """
 
 import numpy as np
@@ -151,24 +155,60 @@ def test_fake_ratio_garbage_names_the_knob(_env):
 
 
 @pytest.mark.parametrize("guard", ["skip", "exact", "SKIP"])
-def test_nonfinite_guard_is_refused(_env, guard):
+def test_nonfinite_guard_runs_and_matches_jax(_env, guard):
+    """The knob is read by ``gradient_sync`` and ``make_train_step`` as by
+    the JAX package's: on a clean tree the sync equals JAX
+    ``gradient_sync`` (one-device mesh, the knob read there too) bit for
+    bit, counts no bad step, and the step trains."""
+    from torch_cgx_tpu.parallel import gradient_sync as jgradient_sync
+    from torch_cgx_tpu_torch.parallel import grad_sync
+
     _env.setenv("CGX_NONFINITE_GUARD", guard)
     assert tcfg.nonfinite_guard() == jcfg.nonfinite_guard() == guard.lower()
-    with pytest.raises(NotImplementedError, match="CGX_NONFINITE_GUARD"):
-        gradient_sync(_grads())
-    with pytest.raises(NotImplementedError, match="CGX_NONFINITE_GUARD"):
-        _model_and_step()
+    grads = _grads()
+    grad_sync.reset_counts()
+    got = gradient_sync(grads)
+    want = _jax_on_one_device(lambda mesh, g: jgradient_sync(g, mesh=mesh),
+                              {"a": {k.split(".")[1]: v.numpy() for k, v in grads.items()}})
+    for k, v in got.items():
+        np.testing.assert_array_equal(v.numpy().view(np.uint32), want["a"][k.split(".")[1]].view(np.uint32))
+    model, step, tokens = _model_and_step()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    assert np.isfinite(float(step(tokens)))
+    assert any(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    assert grad_sync.COUNTS["nonfinite_steps"] == 0
 
 
 @pytest.mark.parametrize("guard", ["skip", "exact"])
 def test_nonfinite_guard_set_after_the_step_is_built(_env, guard):
-    """The knob is re-read on every call: a step built under "off" raises
-    once the guard is set."""
-    _, step, tokens = _model_and_step()
-    assert np.isfinite(float(step(tokens)))
+    """The step resolves the policy when it is built, as the JAX step does:
+    a step built under "off" stays unguarded once the knob is set, so a
+    poisoned batch (the loss scaled by NaN) poisons the parameters and no
+    bad step is counted; a step built afterwards guards."""
+    from torch_cgx_tpu_torch.parallel import grad_sync
+
+    model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+    def scaled(m, b):
+        return lm_loss(m(b[0]), b[0]) * b[1]
+
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 512, size=(2, 16)))
+    step = make_train_step(model, scaled, opt, device="cpu")
+    assert np.isfinite(float(step((tokens, torch.tensor(1.0)))))
     _env.setenv("CGX_NONFINITE_GUARD", guard)
-    with pytest.raises(NotImplementedError, match="CGX_NONFINITE_GUARD"):
-        step(tokens)
+    grad_sync.reset_counts()
+    guarded = make_train_step(model, scaled, opt, device="cpu")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    guarded((tokens, torch.tensor(float("nan"))))
+    assert grad_sync.COUNTS["nonfinite_steps"] == 1
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    if guard == "skip":
+        assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    step((tokens, torch.tensor(float("nan"))))
+    assert grad_sync.COUNTS["nonfinite_steps"] == 1
+    assert not all(torch.isfinite(p).all() for p in model.parameters())
 
 
 @pytest.mark.parametrize("guard", [None, "off", "OFF"])

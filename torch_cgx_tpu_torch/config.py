@@ -41,9 +41,7 @@ SRA_ACCUM = "CGX_SRA_ACCUM"
 # The reference's debug traffic shaping: reduce only the leading fraction of
 # each compressed buffer.
 COMPRESSION_FAKE_RATIO = "CGX_COMPRESSION_FAKE_RATIO"
-# Read only to refuse a value other than the default: the nonfinite guard is
-# not ported (ROADMAP Queue A).
-NONFINITE_GUARD = "CGX_NONFINITE_GUARD"
+NONFINITE_GUARD = "CGX_NONFINITE_GUARD"  # off | skip | exact: the NaN/Inf gradient guard
 PALLAS_DB = "CGX_PALLAS_DB"  # auto | on | off: the pipelined (DB) codec kernels
 PALLAS_PACK = "CGX_PALLAS_PACK"  # sum | butterfly: the bit-plane pack lowering
 PALLAS_TILE_CHUNKS = "CGX_PALLAS_TILE_CHUNKS"  # explicit tile override
@@ -197,23 +195,18 @@ NONFINITE_POLICIES = ("off", "skip", "exact")
 
 
 def nonfinite_guard() -> str:
-    """CGX_NONFINITE_GUARD: what the JAX package's train step does when a
-    rank's gradients hold NaN or Inf: "off" (default), "skip" or "exact";
-    anything else is a ``ValueError``. The port implements only "off":
-    ``gradient_sync`` and ``make_train_step`` raise under the other two."""
+    """CGX_NONFINITE_GUARD: what the gradient sync does when any rank's
+    gradients hold NaN or Inf (detected before the quantize, agreed over the
+    whole world): "off" (default: the NaN is quantized and poisons every
+    bucket it shares a chunk with, on every rank), "skip" (drop the step:
+    ``make_train_step`` keeps the parameters, the optimizer state and the
+    error-feedback residual; ``gradient_sync`` returns zeros) or "exact"
+    (sum the sanitized gradients, NaN/Inf zeroed, uncompressed for that
+    step). Anything else is a ``ValueError``."""
     v = _env.get_str_env_or_default(NONFINITE_GUARD, "off").lower()
     if v not in NONFINITE_POLICIES:
         raise ValueError(f"{NONFINITE_GUARD} must be one of {NONFINITE_POLICIES}, got {v!r}")
     return v
-
-
-def refuse_nonfinite_guard() -> None:
-    guard = nonfinite_guard()
-    if guard != "off":
-        raise NotImplementedError(
-            f"{NONFINITE_GUARD}={guard} is not ported (the port quantizes NaN/Inf "
-            f"gradients as they are); unset it or set it to off"
-        )
 
 
 def _reduction_from_env(name: str, default: str) -> str:

@@ -2119,6 +2119,7 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
   }
 }
 
+#ifndef CGX_INT8  // the divide check runs from the default library alone
 // The divide check (not a codec kernel): for divisors d = (1 + m/2^23) *
 // 2^e2 with m = m0, m0 + m_step, ... < 2^23, numerators around every
 // level boundary and level of the domain (RN((t/2) * d) and its `ulps`
@@ -2189,6 +2190,7 @@ __global__ void cgx_div_pairs_kernel(const float* __restrict__ a, const float* _
     q_ref[i] = __fdiv_rn(a[i], d[i]);
   }
 }
+#endif  // CGX_INT8
 
 #define CGX_DISPATCH_BITS(bits, ...)        \
   switch (bits) {                           \

@@ -2,7 +2,7 @@
 one group or two levels (cross x intra)."""
 
 from .allreduce import allreduce_flat, allreduce_tree
-from .grad_sync import gradient_sync, make_train_step
+from .grad_sync import ErrorFeedbackState, gradient_sync, init_error_feedback, make_train_step
 from .mesh import TwoLevelGroup, hierarchical_groups
 from .reducers import (
     alltoall_allreduce,
@@ -15,6 +15,7 @@ from .reducers import (
 from .topology import two_level_config
 
 __all__ = [
+    "ErrorFeedbackState",
     "TwoLevelGroup",
     "allreduce_flat",
     "allreduce_tree",
@@ -23,6 +24,7 @@ __all__ = [
     "gradient_sync",
     "hierarchical_allreduce",
     "hierarchical_groups",
+    "init_error_feedback",
     "make_train_step",
     "quantized_allreduce",
     "ring_allreduce",

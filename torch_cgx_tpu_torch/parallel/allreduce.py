@@ -17,6 +17,12 @@ JAX package stay out: off the TPU they are inert at their default settings.
 Leaves are taken in the order JAX flattens a nested dict (keys sorted level
 by level: ``h_10`` before ``h_2``), so fused groups concatenate in the same
 order and carry the same wire bytes as the reference.
+
+``return_roundtrip=True`` (error feedback) also returns what the peers
+decode from this rank's contribution, through the same layout: the flat
+reducers' ``*_with_wire`` variants, the two-level scheme's stage-1 mirror
+(:func:`_stage1_roundtrip_piece`), and the input itself where the wire is
+exact (uncompressed groups, the fake ratio's tail).
 """
 
 from __future__ import annotations
@@ -35,7 +41,14 @@ from ..utils.tree import sorted_items
 from . import group as group_mod
 from .group import ProcessGroup
 from .mesh import TwoLevelGroup
-from .reducers import hierarchical_allreduce, quantized_allreduce
+from .reducers import (
+    _ring_hop0_wire,
+    alltoall_stage1_wire,
+    hierarchical_allreduce,
+    quantized_allreduce,
+    quantized_allreduce_with_wire,
+    sra_stage1_wire,
+)
 
 GroupLike = Union[ProcessGroup, TwoLevelGroup]
 
@@ -123,7 +136,8 @@ def allreduce_flat(
     group: GroupLike = None,
     pre=None,
     key: Optional[prng.Key] = None,
-) -> torch.Tensor:
+    return_roundtrip: bool = False,
+):
     """Allreduce one flat buffer, fusion slice by fusion slice: over a
     :class:`TwoLevelGroup` with the env's two-level scheme
     (``topology_from_env``), over a plain group with its reduction type
@@ -134,7 +148,12 @@ def allreduce_flat(
     Under ``CGX_COMPRESSION_FAKE_RATIO`` a compressed buffer reduces only its
     leading ``ceil(ratio * n)`` values; the tail comes back un-reduced, as
     in the JAX package. ``key``: stochastic rounding where ``cc.stochastic``,
-    the slice at offset ``off`` with ``fold_in(key, off)``."""
+    the slice at offset ``off`` with ``fold_in(key, off)``.
+
+    ``return_roundtrip=True`` returns ``(reduced, rt)``, ``rt`` this rank's
+    wire round trip slice by slice: the flat reducers' own payload
+    (``quantized_allreduce_with_wire``), the two-level stage-1 mirror
+    (:func:`_stage1_roundtrip_piece`), the fake ratio's tail as it is."""
     if pre is not None:
         reason = fused_producer.consume_reason(
             pre.key, cc=cc, ws=flat_world(group)[1], divisor=pre.divisor, n=flat.shape[0],
@@ -156,21 +175,92 @@ def allreduce_flat(
     def slice_key(off: int) -> Optional[prng.Key]:
         return None if key is None else prng.fold_in(key, off)
 
+    pieces, rt_pieces = [], []
     if isinstance(group, TwoLevelGroup):
         topo = cfg_mod.topology_from_env()
-        pieces = [
-            hierarchical_allreduce(flat[off : off + ln], group, cc, topo, key=slice_key(off))
-            for off, ln in slices
-        ]
+        for off, ln in slices:
+            piece, k = flat[off : off + ln], slice_key(off)
+            pieces.append(hierarchical_allreduce(piece, group, cc, topo, key=k))
+            if return_roundtrip:
+                rt_pieces.append(_stage1_roundtrip_piece(piece, cc, group, topo, k))
     else:
         ws, red = group_mod.world_size(group), cfg_mod.intra_reduction()
-        pieces = [
-            quantized_allreduce(flat[off : off + ln], group, ws, cc, red, pre, key=slice_key(off))
-            for off, ln in slices
-        ]
+        for off, ln in slices:
+            piece, k = flat[off : off + ln], slice_key(off)
+            if return_roundtrip:
+                out, rt = quantized_allreduce_with_wire(piece, group, ws, cc, red, pre, key=k)
+                pieces.append(out)
+                rt_pieces.append(rt)
+            else:
+                pieces.append(quantized_allreduce(piece, group, ws, cc, red, pre, key=k))
     if tail is not None:
         pieces.append(tail)
-    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+        rt_pieces.append(tail)  # never travels: exact
+    out = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+    if not return_roundtrip:
+        return out
+    return out, rt_pieces[0] if len(rt_pieces) == 1 else torch.cat(rt_pieces)
+
+
+def _roundtrip_wire_1axis(
+    piece: torch.Tensor,
+    cc: CompressionConfig,
+    group: ProcessGroup,
+    ws: int,
+    red: str,
+    key: Optional[prng.Key],
+    leader_rs: bool = False,
+) -> torch.Tensor:
+    """What this rank's contribution to one level's reduction (of ``ws`` >
+    1 ranks) decodes to on the wire: a mirror of ``quantized_allreduce``'s
+    stage-1 layout and keys (with ``leader_rs``, of
+    ``reduce_scatter_quantized``'s, an SRA stage 1 whatever the level's
+    reduction type)."""
+    if not cc.enabled:
+        return piece
+    if leader_rs:
+        red = cfg_mod.REDUCTION_SRA
+    if red == cfg_mod.REDUCTION_PSUM:
+        return piece
+    if red == cfg_mod.REDUCTION_ALLTOALL:
+        return alltoall_stage1_wire(piece, group, cc, key)
+    if red == cfg_mod.REDUCTION_RING:
+        return _ring_hop0_wire(piece, group, ws, cc, key)
+    return sra_stage1_wire(piece, group, ws, cc, key)
+
+
+def _stage1_roundtrip_piece(
+    piece: torch.Tensor,
+    cc: CompressionConfig,
+    groups: TwoLevelGroup,
+    topo: cfg_mod.TopologyConfig,
+    key: Optional[prng.Key],
+) -> torch.Tensor:
+    """One two-level fusion slice's round trip, following
+    ``hierarchical_allreduce``'s decision tree with its per-level configs
+    and keys (``fold_in(key, 3)`` intra, ``fold_in(key, 5)`` cross). Only
+    the first quantized stage is attributed to this rank: under the leader
+    scheme the intra reduce-scatter, and nothing (``rt = piece``) when the
+    intra level is uncompressed, since the cross stage then quantizes a
+    chunk the node shares (the JAX package's approximation)."""
+    if cfg_mod.dummy_compression():
+        return piece
+    wi, wc = groups.intra_size, groups.cross_size
+    ki = prng.fold_in(key, 3) if key is not None else None
+    kc = prng.fold_in(key, 5) if key is not None else None
+    intra_cc = cc if topo.intra_compress else CompressionConfig(bits=32)
+    cross_cc = cc if topo.cross_compress else CompressionConfig(bits=32)
+    if wi == 1 and wc == 1:
+        return piece
+    if wi == 1:
+        return _roundtrip_wire_1axis(piece, cross_cc, groups.cross, wc, topo.cross_reduction, kc)
+    if wc == 1 or not topo.intra_broadcast:
+        return _roundtrip_wire_1axis(piece, intra_cc, groups.intra, wi, topo.intra_reduction, ki)
+    if not intra_cc.enabled:
+        return piece
+    return _roundtrip_wire_1axis(
+        piece, intra_cc, groups.intra, wi, topo.intra_reduction, ki, leader_rs=True
+    )
 
 
 def allreduce_tree(
@@ -180,10 +270,15 @@ def allreduce_tree(
     average: bool = False,
     compress_small: bool = False,
     key: Optional[prng.Key] = None,
-) -> Dict[str, torch.Tensor]:
+    return_roundtrip: bool = False,
+):
     """Quantized allreduce of named gradients -> a dict with the same keys.
     ``key``: stochastic rounding where a group's config says so, group
     ``gi`` (in :func:`_group_leaves` order) with ``fold_in(key, gi)``.
+    ``return_roundtrip=True`` returns ``(reduced, rt)``, ``rt`` a dict of
+    this rank's contributions as the wire decodes them (``allreduce_flat``'s
+    round trip over the same layout; an uncompressed group's is its input):
+    the error-feedback residual's base.
 
     ``average=True`` divides by the world size before quantization, the
     reference hook's order. Uncompressed groups sum exactly over the whole
@@ -222,6 +317,7 @@ def allreduce_tree(
     ):
         fp = fused_producer
     out: Dict[str, torch.Tensor] = {}
+    rt_out: Dict[str, torch.Tensor] = {}
     for gi, g in enumerate(_group_leaves(paths_leaves, compress_small)):
         pre = None
         path, leaf = paths_leaves[g.indices[0]]
@@ -253,11 +349,15 @@ def allreduce_tree(
             if len(members) > 1
             else members[0].reshape(-1)
         )
+        rt_flat = fused  # an uncompressed group's wire is exact
         if g.cc.enabled:
             reduced = allreduce_flat(
                 fused, g.cc, group=group, pre=pre,
                 key=None if key is None else prng.fold_in(key, gi),
+                return_roundtrip=return_roundtrip,
             )
+            if return_roundtrip:
+                reduced, rt_flat = reduced
             if pre is not None and pre.consumed:
                 fused_producer.claim(pre.name)
         elif ws > 1:
@@ -268,7 +368,9 @@ def allreduce_tree(
         for i, t in zip(g.indices, members):
             n = t.numel()
             out[paths_leaves[i][0]] = reduced[off : off + n].view(t.shape)
+            if return_roundtrip:
+                rt_out[paths_leaves[i][0]] = rt_flat[off : off + n].view(t.shape)
             off += n
     if fp is not None or skipped:
         fused_producer.drain()
-    return out
+    return (out, rt_out) if return_roundtrip else out

@@ -7,13 +7,33 @@ the sync and the optimizer update. Stochastic rounding
 (``CGX_STOCHASTIC_ROUNDING``) takes a key: ``gradient_sync(key=)``, and
 in ``make_train_step(stochastic_seed=)`` step ``i`` rounds with
 ``fold_in(key(stochastic_seed), i)``, as the JAX package's step does.
-Error feedback, the nonfinite guard and the alternative compressors
-(PowerSGD, top-k) wait (ROADMAP Queue A).
+
+Error feedback (``make_train_step(error_feedback=True)``): each rank keeps
+a float32 residual a parameter (:class:`ErrorFeedbackState`), adds it to
+its divided gradient before the sync and keeps, as the next residual, what
+the wire lost of that sum: the sum less its round trip
+(``allreduce_tree(..., return_roundtrip=True)``). Exact on the flat SRA
+and all-to-all; the Ring's covers its hop 0 and the two-level scheme's its
+first quantized stage, the JAX package's approximations.
+
+The nonfinite guard (``CGX_NONFINITE_GUARD`` or ``nonfinite_guard=``):
+whether any rank's floating gradients hold NaN or Inf, a 0/1 flag summed
+over the whole world, so that every rank takes the same branch. The JAX
+step is jitted and selects with ``where``; this eager one branches on the
+host (one ``.item()`` a step, only with the guard on; ROADMAP C19): a
+fault-free step runs the unguarded path, "skip" runs neither the sync nor
+the optimizer, "exact" sums the sanitized gradients uncompressed
+(:func:`~.reducers.psum_tree`). The values are the JAX package's.
+``COUNTS["nonfinite_steps"]`` counts the bad steps on the world's rank 0.
+
+The other compressors (PowerSGD, top-k) wait (ROADMAP Queue A); the optax
+wrapper ``compressed_allreduce_transform`` is not queued.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -22,9 +42,104 @@ from .. import config as cfg_mod
 from ..ops import fused_producer
 from ..utils import prng
 from ..utils.device import DeviceLike, resolve_device
+from . import group as group_mod
 from .allreduce import GroupLike, allreduce_tree, flat_world
-from .group import all_reduce_sum
 from .mesh import TwoLevelGroup
+from .reducers import psum_tree
+
+# The guard's execution counter (the JAX package's ``cgx.nonfinite_steps``).
+COUNTS: Dict[str, int] = {"nonfinite_steps": 0}
+
+
+def reset_counts() -> None:
+    COUNTS["nonfinite_steps"] = 0
+
+
+@dataclasses.dataclass
+class ErrorFeedbackState:
+    """One rank's residuals of the quantized transport: float32, shaped like
+    the parameters, keyed by name. They differ from rank to rank (each is
+    what that rank's own contribution lost on the wire), so they are never
+    synced; a checkpoint keeps each rank's."""
+
+    e: Dict[str, torch.Tensor]
+
+
+def init_error_feedback(
+    params: Union[nn.Module, Mapping[str, torch.Tensor]],
+) -> ErrorFeedbackState:
+    """Zero residuals for ``params``: a module's trainable named parameters,
+    or a mapping of names to tensors, each on its tensor's device."""
+    if isinstance(params, nn.Module):
+        items = [(n, p) for n, p in params.named_parameters() if p.requires_grad]
+    else:
+        items = list(params.items())
+    return ErrorFeedbackState(
+        e={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in items}
+    )
+
+
+def _ef_sync(grads, e, *, group, key, divisor):
+    """The error-feedback sync: ``g_eff = g / divisor + e`` in float32,
+    quantized-summed, and the new residual ``g_eff - rt`` against the sync's
+    own round trip. Returns ``(reduced_f32, e_new)``."""
+    g_eff = {n: g.to(torch.float32) / divisor + e[n] for n, g in grads.items()}
+    reduced, rt = allreduce_tree(
+        g_eff, group=group, key=key, average=False, return_roundtrip=True
+    )
+    return reduced, {n: g_eff[n] - rt[n].to(torch.float32) for n in g_eff}
+
+
+def _guard_policy(explicit: Optional[str]) -> str:
+    p = explicit if explicit is not None else cfg_mod.nonfinite_guard()
+    if p not in cfg_mod.NONFINITE_POLICIES:
+        raise ValueError(f"nonfinite_guard must be one of {cfg_mod.NONFINITE_POLICIES}, got {p!r}")
+    return p
+
+
+def _global_nonfinite(grads: Mapping[str, torch.Tensor], group: GroupLike) -> bool:
+    """Whether any rank's floating gradients hold a NaN or Inf: a per-rank
+    0/1 float32 flag summed over the whole world (exact, so every rank
+    reads the same answer), read on the host."""
+    if not grads:
+        return False
+    world, ws = flat_world(group)
+    floats = [g for g in grads.values() if g.is_floating_point()]
+    if floats:
+        flag = torch.stack([~torch.isfinite(g).all() for g in floats]).any()
+    else:
+        flag = torch.zeros((), dtype=torch.bool, device=next(iter(grads.values())).device)
+    f = flag.to(torch.float32).reshape(1)
+    if ws > 1:
+        f = group_mod.all_reduce_sum(f, world)
+    return bool(f.item() > 0)
+
+
+def _nonfinite_step(grads, group) -> bool:
+    """:func:`_global_nonfinite`, counted once a bad step on the world's
+    rank 0."""
+    bad = _global_nonfinite(grads, group)
+    if bad and group_mod.rank(flat_world(group)[0]) == 0:
+        COUNTS["nonfinite_steps"] += 1
+    return bad
+
+
+def _sanitize(t: torch.Tensor) -> torch.Tensor:
+    """NaN and Inf zeroed, every finite value's bits kept."""
+    if not t.is_floating_point():
+        return t
+    return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+
+
+def _guarded(grads, group, policy: str, divisor: int) -> Dict[str, torch.Tensor]:
+    """A bad step's reduced gradients: under "skip" zeros (what the JAX
+    package's sync of the zeroed tree gives), under "exact" the exact sum of
+    the sanitized gradients divided by ``divisor``, in each gradient's
+    dtype."""
+    if policy == "skip":
+        return {n: torch.zeros_like(g) for n, g in grads.items()}
+    exact = psum_tree({n: _sanitize(g) for n, g in grads.items()}, flat_world(group)[0])
+    return {n: (v / divisor if divisor > 1 else v).to(grads[n].dtype) for n, v in exact.items()}
 
 
 def gradient_sync(
@@ -34,13 +149,22 @@ def gradient_sync(
     average: bool = True,
     compress_small: bool = False,
     key: Optional[prng.Key] = None,
+    nonfinite_guard: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Quantized allreduce of named gradients over a group, or over two
     levels with a ``TwoLevelGroup``. Averaging divides before quantization,
     the reference hook's order. Rounding is stochastic where a layer's
-    config says so and ``key`` is given. ``CGX_NONFINITE_GUARD`` other than
-    "off" is refused (not ported)."""
-    cfg_mod.refuse_nonfinite_guard()
+    config says so and ``key`` is given.
+
+    ``nonfinite_guard`` (None: ``CGX_NONFINITE_GUARD``, read on each call):
+    on a step where any rank's gradients hold NaN or Inf, "skip" returns
+    zeros (for a rollback of the parameters and the optimizer, use
+    ``make_train_step``) and "exact" the uncompressed sum of the sanitized
+    gradients (averaged if ``average``); each counts the step in
+    ``COUNTS["nonfinite_steps"]``."""
+    policy = _guard_policy(nonfinite_guard)
+    if policy != "off" and _nonfinite_step(grads, group):
+        return _guarded(grads, group, policy, flat_world(group)[1] if average else 1)
     return allreduce_tree(
         grads, group=group, average=average, compress_small=compress_small, key=key
     )
@@ -65,6 +189,9 @@ def make_train_step(
     device: DeviceLike = None,
     average: bool = True,
     stochastic_seed: Optional[int] = None,
+    error_feedback: bool = False,
+    ef_state: Optional[ErrorFeedbackState] = None,
+    nonfinite_guard: Optional[str] = None,
 ) -> Callable[[Any], torch.Tensor]:
     """Build ``step(batch) -> loss``: forward and backward of
     ``loss_fn(model, batch)``, :func:`gradient_sync` over the named
@@ -79,9 +206,23 @@ def make_train_step(
     layer is written from the decoded allreduce output, as every synced
     gradient is. With ``stochastic_seed`` the step's ``i``-th call (from 0)
     syncs with the key ``fold_in(key(stochastic_seed), i)``, which rounds
-    stochastically under ``CGX_STOCHASTIC_ROUNDING``. ``CGX_NONFINITE_GUARD``
-    other than "off" is refused (not ported)."""
-    cfg_mod.refuse_nonfinite_guard()
+    stochastically under ``CGX_STOCHASTIC_ROUNDING``.
+
+    ``error_feedback=True`` carries this rank's residuals from step to step
+    (``ef_state``, else zeros from :func:`init_error_feedback`), as an
+    optimizer keeps its state; ``step.ef_state`` holds them. The synced
+    float32 gradients are cast back to each parameter's dtype.
+
+    ``nonfinite_guard`` (None: ``CGX_NONFINITE_GUARD``), resolved here, when
+    the step is built: on a step where any rank's gradients hold NaN or Inf,
+    "skip" keeps the parameters, the optimizer state and the residuals as
+    they were, and "exact" applies the update from the uncompressed sum of
+    the sanitized gradients (divided by the world size if ``average``) and
+    keeps the residuals. A fault-free step is the unguarded one, bit for
+    bit."""
+    guard = _guard_policy(nonfinite_guard)
+    if ef_state is not None and not error_feedback:
+        raise ValueError("make_train_step: ef_state is given but error_feedback is off")
     dev = resolve_device(device)
     params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     wrong = [n for n, p in params if p.device.type != dev.type]
@@ -90,6 +231,9 @@ def make_train_step(
             f"make_train_step: parameters {wrong[:3]} are not on {dev}; move the model first"
         )
     world, ws = flat_world(group)
+    divisor = ws if average else 1
+    if error_feedback and ef_state is None:
+        ef_state = init_error_feedback(dict(params))
     fused_producer.deconfigure()  # a rebuilt step drops the previous context
     base = None if stochastic_seed is None else prng.key(stochastic_seed)
     step_idx = [0]
@@ -99,14 +243,14 @@ def make_train_step(
         # payload for this group. Only a plain group of more than one rank
         # consumes payloads (the two-level scheme never does); a layer
         # whose payload it will consume skips its dw. Error feedback and the
-        # nonfinite guard, once ported, rewrite gradients before the sync
-        # and must deactivate the plane here, as the JAX package's
-        # active=(guard == "off" and not error_feedback ...) does; until
-        # then both raise (error feedback is not in the port, the guard is
-        # refused above and in gradient_sync).
+        # nonfinite guard rewrite the gradients before the sync, so the
+        # plane is inactive under either, as the JAX package's
+        # active=(guard == "off" and not error_feedback ...) is.
         fused_producer.configure(
-            group, divisor=ws if average else 1,
-            active=not isinstance(group, TwoLevelGroup) and ws > 1, skip_dw=True,
+            group, divisor=divisor,
+            active=(not isinstance(group, TwoLevelGroup) and ws > 1
+                    and guard == "off" and not error_feedback),
+            skip_dw=True,
         )
         fused_producer.begin_step()
         optimizer.zero_grad(set_to_none=True)
@@ -115,14 +259,28 @@ def make_train_step(
         grads = {n: p.grad for n, p in params if p.grad is not None}
         key = None if base is None else prng.fold_in(base, step_idx[0])
         step_idx[0] += 1
-        synced = gradient_sync(grads, group=group, average=average, key=key)
-        for n, p in params:
-            if n in synced:
-                p.grad = synced[n]
-        optimizer.step()
+        bad = guard != "off" and _nonfinite_step(grads, group)
+        if not (bad and guard == "skip"):
+            if bad:  # "exact"; the residuals stay as they were
+                synced = _guarded(grads, group, guard, divisor)
+            elif error_feedback:
+                reduced, e_new = _ef_sync(
+                    grads, ef_state.e, group=group, key=key, divisor=divisor
+                )
+                ef_state.e.update(e_new)
+                synced = {n: reduced[n].to(g.dtype) for n, g in grads.items()}
+            else:
+                synced = gradient_sync(
+                    grads, group=group, average=average, key=key, nonfinite_guard="off"
+                )
+            for n, p in params:
+                if n in synced:
+                    p.grad = synced[n]
+            optimizer.step()
         loss = loss.detach()
         if ws > 1:
-            loss = all_reduce_sum(loss, world) / ws
+            loss = group_mod.all_reduce_sum(loss, world) / ws
         return loss
 
+    step.ef_state = ef_state
     return step

@@ -31,11 +31,19 @@ each scatter hop and ``fold_in(fold_in(key, ws), rank)`` for the
 all-gather quantize, the all-to-all ``fold_in(key, rank)``, the two levels
 ``fold_in(key, 3)`` intra and ``fold_in(key, 5)`` cross. Every rank
 decodes the same bytes, so the replicas stay identical.
+
+Error feedback needs what the peers decode from this rank's contribution
+(its wire round trip ``rt``): the ``*_with_wire`` reducers return
+``(reduced, rt)``. SRA and the all-to-all decode the very payload they send
+(quantize once); the Ring mirrors its hop 0 (:func:`_ring_hop0_wire`) and
+the two levels their stage 1 (:func:`sra_stage1_wire`), as the JAX package
+does; exact wires give ``rt = x``. :func:`psum_tree` is the exact sum of a
+tree, the nonfinite guard's fallback.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -172,12 +180,52 @@ def sra_wire_frames(
     """:func:`sra_allreduce` with both wire payloads: ``(out, q_sent,
     q_own)`` — the reduced buffer, the stage-1 ``(ws, chunk)`` QTensor this
     rank sent and the stage-2 requantized chunk it all-gathered."""
+    out, q, q_own, _ = _sra(x, group, ws, cc, pre, key)
+    return out, q, q_own
+
+
+def sra_allreduce_with_wire(
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None, key=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sra_allreduce` and this rank's wire round trip: ``(reduced,
+    rt)``, ``rt`` what the peers decode from the stage-1 payload this rank
+    sent (one decode of those very rows), the own chunk raw, since the
+    epilogue folds the raw own row in place of its decode."""
+    out, _, _, rt = _sra(x, group, ws, cc, pre, key, roundtrip=True)
+    return out, rt
+
+
+def _sra(x, group, ws, cc, pre, key, roundtrip: bool = False):
+    """The one SRA wire: ``(out, q_sent, q_own, rt)``, ``rt`` None unless
+    ``roundtrip``."""
     n = x.shape[0]
     q, q_recv, xs, own_idx = _sra_exchange(x, group, ws, cc, pre, key)
+    rt = None
+    if roundtrip:
+        rt_rows = _dequantize_rows(q)
+        own = (torch.arange(ws, device=rt_rows.device) == own_idx)[:, None]
+        raw_b = xs if pre is None else pre.raw_row[None]
+        rt = torch.where(own, raw_b.to(rt_rows.dtype), rt_rows).reshape(-1)[:n].to(x.dtype)
     q_own = _sra_epilogue_q(
         q_recv, xs, own_idx, cc, x.dtype, raw_row=None if pre is None else pre.raw_row, key=key
     )
-    return _sra_gather_decode(q_own, group, ws, n, x.dtype), q, q_own
+    return _sra_gather_decode(q_own, group, ws, n, x.dtype), q, q_own, rt
+
+
+def sra_stage1_wire(
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, key=None
+) -> torch.Tensor:
+    """A mirror of SRA's stage-1 round trip that runs no collective: the
+    ``(ws, chunk)`` rows quantized with the phase-1 key and decoded, the own
+    row raw. For the two-level scheme, whose wire runs inside
+    :func:`hierarchical_allreduce`; a flat group shares the payload
+    (:func:`sra_allreduce_with_wire`)."""
+    n = x.shape[0]
+    rows = _pad_rows(x, ws, _chunk_size(n, ws))
+    me = group_mod.rank(group)
+    vals = _dequantize_rows(dispatch.quantize_batch(rows, cc, _phase_key(key, 1, me)))
+    own = (torch.arange(ws, device=vals.device) == me)[:, None]
+    return torch.where(own, rows.to(vals.dtype), vals).reshape(-1)[:n].to(x.dtype)
 
 
 def _shift_right(q: QTensor, group: ProcessGroup) -> QTensor:
@@ -217,17 +265,59 @@ def ring_allreduce(
     return out.reshape(-1)[:n].to(dtype)
 
 
+def _ring_hop0_wire(
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, key=None
+) -> torch.Tensor:
+    """The Ring's round trip for error feedback: ``x`` with its own segment
+    (row ``rank`` of the padded rows, what hop 0 sends) quantized with hop
+    0's key ``fold_in(fold_in(key, 0), rank)`` and decoded. The later hops
+    requantize partial sums and count as exact (the JAX package's
+    approximation). A mirror: it quantizes 1/ws of the buffer again."""
+    n = x.shape[0]
+    me = group_mod.rank(group)
+    rows = _pad_rows(x, ws, _chunk_size(n, ws)).clone()
+    k = prng.fold_in(prng.fold_in(key, 0), me) if key is not None and cc.stochastic else None
+    q = dispatch.quantize_batch(rows[me : me + 1], cc, k)
+    rows[me] = dispatch.dequantize_batch(q, out_dtype=x.dtype)[0]
+    return rows.reshape(-1)[:n]
+
+
+def _alltoall_q(x: torch.Tensor, group: ProcessGroup, cc: CompressionConfig, key=None) -> QTensor:
+    k = None
+    if key is not None and cc.stochastic:
+        k = prng.fold_in(key, group_mod.rank(group))
+    return _quantize_1d(x, cc, k)
+
+
+def _alltoall_fold(q: QTensor, group: ProcessGroup, ws: int, dtype) -> torch.Tensor:
+    gathered = _map_q(q, lambda t: group_mod.all_gather_rows(t, ws, group))
+    return dispatch.reduce_rows(gathered).to(dtype)
+
+
 def alltoall_allreduce(
     x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, key=None
 ) -> torch.Tensor:
     """Quantize once, all-gather every rank's payload, decode and fold the
     rows in rank order. O(ws * n) traffic: the debug path."""
-    k = None
-    if key is not None and cc.stochastic:
-        k = prng.fold_in(key, group_mod.rank(group))
-    q = _quantize_1d(x, cc, k)
-    gathered = _map_q(q, lambda t: group_mod.all_gather_rows(t, ws, group))
-    return dispatch.reduce_rows(gathered).to(x.dtype)
+    return _alltoall_fold(_alltoall_q(x, group, cc, key), group, ws, x.dtype)
+
+
+def alltoall_allreduce_with_wire(
+    x: torch.Tensor, group: ProcessGroup, ws: int, cc: CompressionConfig, key=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`alltoall_allreduce` and this rank's round trip, the decode of
+    the one row every peer decodes."""
+    q = _alltoall_q(x, group, cc, key)
+    return _alltoall_fold(q, group, ws, x.dtype), _dequantize_1d(q).to(x.dtype)
+
+
+def alltoall_stage1_wire(
+    x: torch.Tensor, group: ProcessGroup, cc: CompressionConfig, key=None
+) -> torch.Tensor:
+    """The all-to-all's round trip without the collective (the two-level
+    scheme's mirror): the row quantized with ``fold_in(key, rank)`` and
+    decoded."""
+    return _dequantize_1d(_alltoall_q(x, group, cc, key)).to(x.dtype)
 
 
 def _force_codec_proxy(x: torch.Tensor, cc: CompressionConfig, key=None) -> torch.Tensor:
@@ -247,6 +337,19 @@ def _force_codec_proxy(x: torch.Tensor, cc: CompressionConfig, key=None) -> torc
     return ((dec_assign + dec_acc) * 0.5).to(x.dtype)
 
 
+def _check_pre(pre, reduction: str, ws: int, cc: CompressionConfig) -> None:
+    if pre is not None and (
+        reduction != cfg_mod.REDUCTION_SRA
+        or ws == 1
+        or not cc.enabled
+        or cfg_mod.dummy_compression()
+    ):
+        raise ValueError(
+            "producer-staged payloads route only to the multi-rank SRA "
+            f"transport (got reduction={reduction!r}, ws={ws})"
+        )
+
+
 def quantized_allreduce(
     x: torch.Tensor,
     group: ProcessGroup,
@@ -259,16 +362,7 @@ def quantized_allreduce(
     """Allreduce (sum) of a flat buffer, dispatched on the reduction type.
     ``pre`` (a producer-staged stage-1 payload) is for the multi-rank SRA
     only; ``key`` rounds stochastically where ``cc.stochastic``."""
-    if pre is not None and (
-        reduction != cfg_mod.REDUCTION_SRA
-        or ws == 1
-        or not cc.enabled
-        or cfg_mod.dummy_compression()
-    ):
-        raise ValueError(
-            "producer-staged payloads route only to the multi-rank SRA "
-            f"transport (got reduction={reduction!r}, ws={ws})"
-        )
+    _check_pre(pre, reduction, ws, cc)
     if ws == 1:
         if cc.enabled and cfg_mod.force_codec():
             return _force_codec_proxy(x, cc, key)
@@ -287,6 +381,59 @@ def quantized_allreduce(
     if reduction == cfg_mod.REDUCTION_ALLTOALL:
         return alltoall_allreduce(x, group, ws, cc, key)
     raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def quantized_allreduce_with_wire(
+    x: torch.Tensor,
+    group: ProcessGroup,
+    ws: int,
+    cc: CompressionConfig,
+    reduction: str = cfg_mod.REDUCTION_SRA,
+    pre=None,
+    key: Optional[prng.Key] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantized_allreduce` and this rank's wire round trip ``rt``
+    (``(reduced, rt)``), for error feedback. The exact wires (PSUM,
+    compression off, the dummy codec, one rank without the force-codec
+    knob) give ``rt = x``; the world-size-1 force-codec proxy gives ``rt =
+    reduced``. SRA and the all-to-all decode the payload they send, the
+    Ring mirrors its hop 0. ``pre`` is for the multi-rank SRA only."""
+    _check_pre(pre, reduction, ws, cc)
+    if ws == 1:
+        out = quantized_allreduce(x, group, ws, cc, reduction, key=key)
+        return out, out
+    if cfg_mod.dummy_compression() or not cc.enabled or reduction == cfg_mod.REDUCTION_PSUM:
+        return quantized_allreduce(x, group, ws, cc, reduction, key=key), x
+    if reduction == cfg_mod.REDUCTION_SRA:
+        return sra_allreduce_with_wire(x, group, ws, cc, pre, key)
+    if reduction == cfg_mod.REDUCTION_ALLTOALL:
+        return alltoall_allreduce_with_wire(x, group, ws, cc, key)
+    if reduction == cfg_mod.REDUCTION_RING:
+        return ring_allreduce(x, group, ws, cc, key), _ring_hop0_wire(x, group, ws, cc, key)
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def psum_tree(tree: Mapping[str, torch.Tensor], group: ProcessGroup = None) -> Dict[str, torch.Tensor]:
+    """The exact (uncompressed) sum of named tensors over ``group``, the
+    nonfinite guard's fallback: the leaves of each dtype concatenated,
+    all-gathered once, and folded in ascending rank order in that dtype
+    (``dispatch.ordered_rowsum``), so every rank holds the same bits."""
+    ws = group_mod.world_size(group)
+    if ws == 1:
+        return dict(tree)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for name, t in tree.items():
+        by_dtype.setdefault(t.dtype, []).append(name)
+    out: Dict[str, torch.Tensor] = {}
+    for names in by_dtype.values():
+        flat = torch.cat([tree[n].reshape(-1) for n in names])
+        total = dispatch.ordered_rowsum(group_mod.all_gather_rows(flat[None], ws, group))
+        off = 0
+        for n in names:
+            k = tree[n].numel()
+            out[n] = total[off : off + k].view(tree[n].shape)
+            off += k
+    return {n: out[n] for n in tree}
 
 
 def hierarchical_allreduce(
