@@ -57,7 +57,12 @@ order, none of whose failures is caught:
    (:func:`check_subf32`): B1/B5, B7a, B3, B7c and B4 on bf16 operands
    at the bf16-parameter step's shapes (f16, the same instances, in the
    card tests), bit for bit, both roundings, every lowering, and the
-   decode glue;
+   decode glue. Last B8's 16-bit instance (:func:`check_mm16`) on bf16
+   and f16 operands at the three dense-layer shapes: bit for bit against
+   the plain version on integer operands, within the f32 check's tolerance
+   on normal ones, and bit for bit against the upcast route (the f32
+   instance on the operands cast to f32; the raw row that route's sums
+   rounded to the operand dtype, then divided);
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -106,8 +111,10 @@ order, none of whose failures is caught:
    (:func:`time_stochastic`, bound also by the Philox's integer work) and
    a profile of the stochastic step under ``CGX_PALLAS_DB`` off and on;
    the 16-bit instances alone against their byte bound
-   (``shapebench.WIRE16_SHAPES``, :func:`time_wire16`) and the
-   bf16-parameter step's time and profile beside the float32 one's;
+   (``shapebench.WIRE16_SHAPES``, :func:`time_wire16`), B8's bf16 instance
+   in turns with the f32 one, the upcast route and ``torch.matmul`` on the
+   bf16 operands (:func:`time_mm16`), and the bf16-parameter step's time
+   and profile beside the float32 one's;
 5b. the int8 fold (``CGX_SRA_ACCUM=int8``), once its library is built
    (its instances' registers and spills beside their exact twins'):
    B3, B7c and B4's int8 instances against the int8 fold's plain versions
@@ -148,7 +155,11 @@ order, none of whose failures is caught:
    holds each of the 36 staged payloads (the
    ``attn_qkv``, ``mlp_in`` and ``mlp_out`` kernels of the 12 blocks) to a
    quantize of that layer's ``p.grad / 4`` within ``payload_close``'s
-   tolerance. Then the flat SRA under ``CGX_PALLAS_DB=on``: the pipelined
+   tolerance. Then ``sra_producer_bf16``: the same on the default model
+   (bf16 compute, f32 parameters): 36 B8 launches a rank, every one reading
+   bf16 operands itself, 36 ``dw`` skipped a rank, and rank 0's 36 payloads
+   bit for bit against the upcast route on the operands of the same
+   backward (:func:`producer_checks`). Then the flat SRA under ``CGX_PALLAS_DB=on``: the pipelined
    epilogue folds the four ranks' rows. Then ``ddp_hook``: the DDP comm
    hook (``torch_backend``) under ``DistributedDataParallel`` on a float32
    GPT-2 124M, four steps under SRA with the layers registered at step 2,
@@ -157,8 +168,8 @@ order, none of whose failures is caught:
    hook's launches over steps 2-3 against ``LaunchModel.hook``, and step
    3's buckets (captured after the division) reduced again through the
    kernels and through the plain versions on the CPU over the same group,
-   bit-identical under SRA with f32 buckets, and every fourth one (from the
-   first to the last) with bf16 buckets and under the all-to-all (the
+   bit-identical under SRA with f32 buckets, and every fourth one of all
+   but the last (``wte``'s) with bf16 buckets and under the all-to-all (the
    hook's Ring runs in ``ddp_hook_hier``'s cross stage). Then ``ddp_hook_hier``: the same on two faked hosts of two
    ranks (``CGX_SHM_HOST_ID=testhost{rank // 2}``) under the default
    two-level scheme (intra SRA, cross Ring, leader scheme): every rank takes
@@ -170,7 +181,7 @@ order, none of whose failures is caught:
    and the leaders' stage-3 frames identical. Then ``ddp_hook_sr`` and ``ddp_hook_hier_sr``: both again
    under ``CGX_STOCHASTIC_ROUNDING=1``, with the same checks (the reruns
    through the kernels and the plain versions drawing the same frame
-   keys; every fourth bucket, from the first to the last). (Before ``ddp_hook``, after ``sra_db``: ``two_level_bf16p`` and
+   keys; every fourth bucket of all but the last). (Before ``ddp_hook``, after ``sra_db``: ``two_level_bf16p`` and
    ``alltoall_bf16p``, GPT-2 124M with its parameters in bf16, one step
    each, launches against the bf16 layout, every quantize and every B4
    launch with a raw own row reading bf16, a 64 MB bf16 slice through the
@@ -198,9 +209,9 @@ order, none of whose failures is caught:
    1 of three, the clean step 0 bit-identical to one unguarded step from
    the same snapshot, "skip" keeping the parameters and Adam's state bit
    for bit, "exact" changing them, finite, the counter 1 on rank 0 alone;
-   replicas bit-identical throughout. ``sra``, ``sra_ef``, ``two_level`` and
-   ``two_level_ef`` each profile one step on rank 0 (codec kernels, device
-   busy).
+   replicas bit-identical throughout. ``sra``, ``sra_ef``, ``two_level``,
+   ``two_level_ef``, ``sra_producer`` and ``sra_producer_bf16`` each profile
+   one step on rank 0 (codec kernels, B8's device time, device busy).
    Gloo stages the wire through host memory: its time is not a card
    number.
 
@@ -242,6 +253,9 @@ MR_TIMEOUT_S = 600
 
 # float32 outside the tensor cores, operations/s (H100 SXM data sheet).
 F32_RATE = 67e12
+# bf16 and f16 on the tensor cores, dense, operations/s (the same sheet):
+# the least time the card needs for a product of 16-bit operands.
+BF16_RATE = 989e12
 # Stochastic rounding (phases 3, 4, 5 and 7): the seed of the kernels'
 # checks and of the stochastic step.
 SR_SEED = 0x0123456789ABCDEF
@@ -320,6 +334,11 @@ MM_EDGE_CASES = [
 META_RTOL = 1e-5
 RAW_RTOL = 1e-5
 SOURCE = "torch_cgx_tpu_torch/csrc/codec.cu"
+# B8's 16-bit instance (bf16 or f16 operands read by the kernel): a record
+# of its own in the kernels line, beside the f32 one. The JAX kernel reads
+# its operands in the layer's compute dtype (fused_producer.py:573-576).
+MM16 = "codec_matmul_quantize_bf16"
+MM16_REPLACES = "torch_cgx_tpu/ops/fused_producer.py:537 (bf16/f16 x2, g2: :573-576)"
 
 
 _PHASE: dict = {}
@@ -433,7 +452,7 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     from torch_cgx_tpu_torch.ops import codec, codec_cuda
 
     rng = np.random.default_rng(SEED)
-    max_err = {k: 0.0 for k in TPU_KERNELS}
+    max_err = {k: 0.0 for k in (*TPU_KERNELS, MM16)}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def record(kernel: str, label: str, got, want, single=None, quiet: bool = False) -> None:
@@ -600,7 +619,73 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     check_reduce(dev, rng, record)
     check_stochastic(dev, flat_n, rng, record, db_tc)
     check_subf32(dev, flat_n, tail_n, rng, record)
+    max_err[MM16] = max(max_err[MM16], check_mm16(dev, rng, record))
     return max_err
+
+
+def _ulp16(v, dtype):
+    """One unit in the last place of ``dtype`` (bf16 or f16) at each
+    magnitude of ``v`` (float64; the smallest normal's below it)."""
+    import torch
+
+    fi = torch.finfo(dtype)
+    mant = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+    _, e = torch.frexp(v.abs().clamp(min=fi.tiny))
+    return torch.ldexp(torch.ones_like(v), e - 1 - mant)
+
+
+def check_mm16(dev, rng, record) -> float:
+    """B8's 16-bit instance at phase 7's three dense-layer shapes (K =
+    MM_K, divisor MR_WS, the own raw row of rank 1 of MR_WS), bf16 and f16
+    operands: on small-integer operands (every sum exact) words, meta and
+    raw row bit-identical to the plain version; on normal operands words
+    and meta within ``payload_close``'s tolerance of it (the f32 check's),
+    the raw row within the f32 check's RAW_RTOL of the row's largest
+    magnitude plus one unit in the last place of the operand dtype (both
+    round an f32 sum, summed in two orders), and bit-identical to the
+    upcast route: the f32 instance on ``x2.float()`` and ``g2.float()``
+    (words, meta) and that route's sums at divisor 1 rounded to the operand
+    dtype, then divided (the raw row). Returns the largest decoded
+    difference from the plain version on normal operands."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    worst = 0.0
+    own = (1, MR_WS)
+    for dtype_name in WIRE16:
+        dt = getattr(torch, dtype_name)
+        for layer, (din, o) in MM_SHAPES.items():
+            label = f"{layer} K={MM_K} {din}x{o} {dtype_name}"
+            xi, gi = (torch.from_numpy(rng.integers(-3, 4, (MM_K, c)).astype(np.float32)).to(dt).to(dev)
+                      for c in (din, o))
+            w, m, raw = codec_cuda.matmul_quantize_chunks(xi, gi, MR_WS, BITS, BUCKET, own_row=own)
+            pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(xi, gi, MR_WS, BITS, BUCKET, own_row=own)
+            record(MM16, f"{label} integer words", w, pw, quiet=True)
+            record(MM16, f"{label} integer meta", m, pm, quiet=True)
+            record(MM16, f"{label} integer raw row", raw, praw, quiet=True)
+            xn, gn = (torch.from_numpy(rng.standard_normal((MM_K, c)).astype(np.float32)).to(dt).to(dev)
+                      for c in (din, o))
+            w, m, raw = codec_cuda.matmul_quantize_chunks(xn, gn, MR_WS, BITS, BUCKET, own_row=own)
+            pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(xn, gn, MR_WS, BITS, BUCKET, own_row=own)
+            ok, meta_rel, abs_err, steps = payload_close(w, m, pw, pm, BITS, BUCKET)
+            r64, p64 = raw.double(), praw.double()
+            tol = _ulp16(torch.maximum(r64.abs(), p64.abs()), dt) + RAW_RTOL * float(p64.abs().max())
+            raw_ulps = float(((r64 - p64).abs() / _ulp16(p64, dt)).max())
+            raw_ok = bool(((r64 - p64).abs() <= tol).all())
+            worst = max(worst, abs_err)
+            uw, um = codec_cuda.matmul_quantize_chunks(xn.float(), gn.float(), MR_WS, BITS, BUCKET)
+            _, _, sums = codec_cuda.matmul_quantize_chunks(xn.float(), gn.float(), 1, BITS, BUCKET, own_row=own)
+            record(MM16, f"{label} words vs the upcast route", w, uw, quiet=True)
+            record(MM16, f"{label} meta vs the upcast route", m, um, quiet=True)
+            record(MM16, f"{label} raw row vs the upcast route", raw, sums.to(dt).float() / MR_WS, quiet=True)
+            log(f"  {MM16:21s} {label:44s} integer words, meta, raw row bit-identical to the plain "
+                f"version; normal: words, meta, raw row bit-identical to the upcast route, against the "
+                f"plain version meta {meta_rel:.2e} rel, decoded within {steps:.3f} level steps "
+                f"({abs_err:.3e}), raw row within {raw_ulps:.2f} units of {dtype_name}")
+            if not ok or not raw_ok:
+                raise AssertionError(f"{MM16} {label}: outside the tolerance of the plain version")
+    return worst
 
 
 def check_stochastic(dev, flat_n: int, rng, record, db_tc) -> None:
@@ -2204,6 +2289,83 @@ def time_kernels(dev, n: int, name: str) -> list:
     return out
 
 
+def time_mm16(dev, name: str) -> dict:
+    """B8's bf16 instance at phase 7's three dense-layer shapes (K = MM_K,
+    divisor MR_WS, the own raw row of rank 1 of MR_WS, as the producer
+    calls it), as bursts in turns with the f32 instance on operands cast
+    beforehand, the whole upcast route (both operands cast to f32, then the
+    f32 kernel), and ``torch.matmul``
+    of the bf16 operands (the library call: tensor cores, a bf16 product,
+    no divide and no quantize): 16-bit, f32, upcast, library, library,
+    upcast, f32, 16-bit. Then one timed call of the kernel and of its plain
+    version in turns. Bound: the larger of the bytes (2-byte operands read
+    once, the payload and the f32 raw row written once) over the memory
+    rate and the operations (a multiply and an add a product) over the
+    card's bf16 tensor-core rate; the design's FFMA ceiling (the same
+    operations at the f32 rate) beside it. Returns the record of the
+    kernels line (``mlp_in``'s, the first shape)."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.utils.device import mem_rate
+
+    rate = mem_rate(name)
+    rng = np.random.default_rng(SEED + 3)
+    own = (1, MR_WS)
+    out = []
+    for layer, (din, o) in MM_SHAPES.items():
+        x2, g2 = (torch.from_numpy(rng.standard_normal((MM_K, c)).astype(np.float32)).to(dev).bfloat16()
+                  for c in (din, o))
+        xf, gf = x2.float(), g2.float()
+
+        def kern(x2=x2, g2=g2):
+            return codec_cuda.matmul_quantize_chunks(x2, g2, MR_WS, BITS, BUCKET, own_row=own)
+
+        def f32(xf=xf, gf=gf):
+            return codec_cuda.matmul_quantize_chunks(xf, gf, MR_WS, BITS, BUCKET, own_row=own)
+
+        def upcast(x2=x2, g2=g2):
+            return codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), MR_WS, BITS, BUCKET,
+                                                     own_row=own)
+
+        def library(x2=x2, g2=g2):
+            return torch.matmul(x2.t(), g2)
+
+        def plain(x2=x2, g2=g2):
+            return codec_cuda.matmul_quantize_chunks_plain(x2, g2, MR_WS, BITS, BUCKET, own_row=own)
+
+        fns = {"kern": kern, "f32": f32, "upcast": upcast, "library": library}
+        burst = {k: [] for k in fns}
+        for k in ("kern", "f32", "upcast", "library", "library", "upcast", "f32", "kern"):
+            burst[k].append(time_burst(fns[k]))
+        burst = {k: min(v) for k, v in burst.items()}
+        k1 = time_cuda(kern)
+        p1 = time_cuda(plain, iters=5)
+        l1 = time_cuda(library)
+        l2 = time_cuda(library)
+        p2 = time_cuda(plain, iters=5)
+        k2 = time_cuda(kern)
+        n = din * o
+        nbytes = 2 * MM_K * (din + o) + n * BITS // 8 + 8 * n // BUCKET + 4 * n // MR_WS
+        ops = 2 * MM_K * n
+        t_bytes, t_ops = nbytes / rate * 1e3, ops / BF16_RATE * 1e3
+        bound, ffma = max(t_bytes, t_ops), ops / F32_RATE * 1e3
+        r = {"shape": f"{layer} K={MM_K} {din}x{o} bfloat16", "ms": min(k1, k2), "burst_ms": burst["kern"],
+             "plain_ms": min(p1, p2), "library_ms": min(l1, l2), "bound_ms": bound,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "ffma_bound_ms": ffma,
+             "f32_burst_ms": burst["f32"], "upcast_burst_ms": burst["upcast"],
+             "library_burst_ms": burst["library"], "bytes": nbytes}
+        log(f"  {MM16:27s} {r['shape']}: burst {r['burst_ms']:.4f} ms (f32 instance on cast operands "
+            f"{r['f32_burst_ms']:.4f}, upcast route {r['upcast_burst_ms']:.4f}, torch.matmul bf16 "
+            f"{r['library_burst_ms']:.4f}: {r['burst_ms'] / r['library_burst_ms']:.1f}x the library); "
+            f"per call {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}); "
+            f"{nbytes} bytes, {ops} operations, bound {bound:.4f} ms by {r['bound_by']} "
+            f"({100 * bound / r['burst_ms']:.1f}% of it a burst), FFMA ceiling {ffma:.4f} ms "
+            f"({100 * ffma / r['burst_ms']:.1f}%)")
+        out.append(r)
+    return out[0]
+
+
 def time_stochastic(dev, n: int, name: str, per: dict) -> dict:
     """B1, B7a, B3 and B7c under stochastic rounding beside their
     round-to-nearest selves, at the main path's flat slice (the epilogues
@@ -2968,6 +3130,7 @@ MR_CONFIGS = {
                       "bf16"),
     "sra": ({}, "world", "f32"),
     "sra_producer": ({"CGX_PRODUCER_FUSE": "on"}, "world", "f32"),
+    "sra_producer_bf16": ({"CGX_PRODUCER_FUSE": "on"}, "world", "bf16"),
     "sra_db": ({"CGX_PALLAS_DB": "on"}, "world", "f32"),
     "sra_int8": ({"CGX_SRA_ACCUM": "int8"}, "world", "f32"),
     "sra_db_int8": ({"CGX_PALLAS_DB": "on", "CGX_SRA_ACCUM": "int8"}, "world", "f32"),
@@ -2979,7 +3142,8 @@ MR_CONFIGS = {
     "alltoall_bf16p": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world", "bf16p"),
 }
 MR_MULTISTEP = ("two_level", "sra", "sra_ef", "two_level_ef")  # MR_STEPS steps; the rest one
-MR_PROFILED = ("sra", "sra_ef", "two_level", "two_level_ef")  # one profiled step on rank 0
+MR_PROFILED = ("sra", "sra_ef", "two_level", "two_level_ef", "sra_producer",
+               "sra_producer_bf16")  # one profiled step on rank 0
 GUARD_RANK, GUARD_STEP = 2, 1
 PRODUCED_LAYERS = 12 * len(MM_SHAPES)  # 36 payloads a rank and step
 PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused group
@@ -2987,36 +3151,62 @@ PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused gr
 
 def producer_check(model, loss_fn, tokens) -> dict:
     """One backward of ``model`` with producer fusion engaged over the flat
-    world: each staged payload against the dispatcher's quantize of its
-    layer's ``p.grad / MR_WS`` (the rows the allreduce would otherwise
-    quantize), held to ``payload_close``'s tolerance. Both come from the
-    same backward."""
+    world. A float32 model: each staged payload against the dispatcher's
+    quantize of its layer's ``p.grad / MR_WS`` (the rows the allreduce would
+    otherwise quantize), held to ``payload_close``'s tolerance; both come
+    from the same backward. A bf16-compute model: the operands each layer's
+    backward handed the kernel (``fused_producer._stash``'s) must be bf16,
+    and each payload bit-identical to the upcast route on them: the f32
+    instance on ``x2.float()`` and ``g2.float()`` (words, meta) and that
+    route's sums at divisor 1 rounded to bf16, then divided (the raw row)."""
     from torch_cgx_tpu_torch.config import default_compression_config
-    from torch_cgx_tpu_torch.ops import dispatch, fused_producer
+    from torch_cgx_tpu_torch.ops import codec_cuda, dispatch, fused_producer
+
+    operands = {}
+    real = fused_producer._stash
+
+    def stash(name, cc, w_shape, w_dtype, x2, g2, dw):
+        operands[name] = (x2, g2)
+        return real(name, cc, w_shape, w_dtype, x2, g2, dw)
 
     fused_producer.configure(None, divisor=MR_WS, active=True)
     fused_producer.begin_step()
     fused_producer.reset_counts()
     model.zero_grad(set_to_none=True)
-    loss_fn(model, tokens).backward()
+    fused_producer._stash = stash
+    try:
+        loss_fn(model, tokens).backward()
+    finally:
+        fused_producer._stash = real
     counts = dict(fused_producer.COUNTS)
     cc = default_compression_config()
-    checked, worst_meta, worst_steps, failed = 0, 0.0, 0.0, []
+    own = (fused_producer._CFG["rank"], MR_WS)
+    checked, worst_meta, worst_steps, failed, dtypes = 0, 0.0, 0.0, [], set()
     for n, p in model.named_parameters():
         ent = fused_producer.lookup(n, p.grad)
         if ent is None:
+            continue
+        x2, g2 = operands[n]
+        dtypes.add(str(x2.dtype).replace("torch.", ""))
+        checked += 1
+        if x2.dtype != p.dtype:  # a lower-precision product: the upcast route, bit for bit
+            w, m = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), MR_WS, cc.bits, cc.bucket_size)
+            _, _, sums = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), 1, cc.bits,
+                                                           cc.bucket_size, own_row=own)
+            if not (_same_bits(ent.q.packed.reshape(-1), w) and _same_bits(ent.q.meta.reshape(-1, 2), m)
+                    and _same_bits(ent.raw_row, sums.to(x2.dtype).float() / MR_WS)):
+                failed.append(n)
             continue
         want = dispatch.quantize_batch((p.grad.reshape(-1) / MR_WS).view(MR_WS, -1), cc)
         ok, meta_rel, _, steps = payload_close(
             ent.q.packed, ent.q.meta, want.packed, want.meta, cc.bits, cc.bucket_size
         )
-        checked += 1
         worst_meta, worst_steps = max(worst_meta, meta_rel), max(worst_steps, steps)
         if not ok:
             failed.append(n)
     fused_producer.deconfigure()
     model.zero_grad(set_to_none=True)
-    return {"counts": counts, "checked": checked, "failed": failed,
+    return {"counts": counts, "checked": checked, "failed": failed, "dtypes": sorted(dtypes),
             "meta_rel": worst_meta, "steps": worst_steps,
             "identity_misses": fused_producer.COUNTS["producer_fallback_identity"]}
 
@@ -3055,8 +3245,9 @@ def _plain_cpu(fn, *args, **kw):
 # division) are captured and reduced again by the kernels and by the plain
 # versions on the CPU, under each (name, knobs, bucket dtype) of the
 # configuration's reruns: every bucket under the first, every fourth one
-# (HOOK_RERUN_STRIDE) under the rest and under the ``_sr`` configurations'
-# one rerun: of the 13 buckets, the first, the last and two between. ``ddp_hook`` runs the flat SRA over one host;
+# (HOOK_RERUN_STRIDE) of all but the last under the rest and under the
+# ``_sr`` configurations' one rerun (:func:`_rerun_buckets`): of the 13
+# buckets, the first and two between. ``ddp_hook`` runs the flat SRA over one host;
 # ``ddp_hook_hier`` fakes two hosts of two ranks (CGX_SHM_HOST_ID) under the
 # default two-level scheme (intra SRA, cross Ring, leader scheme on). The
 # ``_sr`` configurations rerun each under CGX_STOCHASTIC_ROUNDING=1, the
@@ -3098,9 +3289,19 @@ HOOK_CONFIGS = {
 def _all_buckets(name: str, ri: int) -> bool:
     """Whether rerun ``ri`` of the DDP configuration ``name`` reduces every
     captured bucket again (the first rerun, but under stochastic rounding,
-    which repeats the first two configurations' paths), or every
-    HOOK_RERUN_STRIDE-th one."""
+    which repeats the first two configurations' paths)."""
     return ri == 0 and not name.endswith("_sr")
+
+
+def _rerun_buckets(items: list, name: str, ri: int) -> list:
+    """Of the captured buckets (or anything listed a bucket), those rerun
+    ``ri`` of the DDP configuration ``name`` reduces again: all under
+    :func:`_all_buckets`, else every HOOK_RERUN_STRIDE-th of all but the
+    last. The last holds ``wte`` and its partial bucket, nearly two thirds
+    of the rerun values; the configuration's first rerun covers it (the
+    ``_sr`` ones rerun the first two configurations' paths): the script's
+    time."""
+    return items if _all_buckets(name, ri) else items[:-1][::HOOK_RERUN_STRIDE]
 
 
 def _seed_state(backend, state=None):
@@ -3221,11 +3422,7 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
     reruns = {}
     for ri, (label, rk, dtype) in enumerate(reruns_of):
         _configure({**knobs, **rk})
-        # The configuration's own scheme reduces every captured bucket
-        # again, each other scheme every HOOK_RERUN_STRIDE-th one, from the
-        # first to the last (which holds wte and its partial bucket): the
-        # script's time.
-        mine = captured if _all_buckets(name, ri) else captured[::HOOK_RERUN_STRIDE]
+        mine = _rerun_buckets(captured, name, ri)
         rr_expected = expected_hook_launches(
             [(key, buf.numel()) for key, buf in mine], MR_WS, rank, dev, hosts)
         t1 = time.perf_counter()
@@ -3476,7 +3673,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                 res["slice_same"] = _same_bits(gpu.cpu(), cpu)
                 res["slice_n"] = check.numel()
                 res["slice_dtype"] = str(check.dtype)
-            if name == "sra_producer" and rank == 0:
+            if name.startswith("sra_producer") and rank == 0:
                 res["check"] = producer_check(mdl, loss_fn, tokens)
             if "CGX_NONFINITE_GUARD" in knobs:
                 res.update(guard_run(rank, mdl, optim, tokens, dev))
@@ -3642,6 +3839,22 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
     for k in ("codec_quantize_db", "codec_dequantize_db", "codec_sra_epilogue_db"):
         assert res[0]["sra_db"]["launches"][k] > 0, res[0]["sra_db"]["launches"]
 
+    producer_checks(res)
+    for name in HOOK_CONFIGS:
+        hook_check(res, name, smi)
+    launches = dict(res[0]["two_level"]["launches"])
+    launches["codec_matmul_quantize"] = res[0]["sra_producer"]["launches"]["codec_matmul_quantize"]
+    int8 = {"codec_sra_epilogue": res[0]["sra_int8"]["int8"]["codec_sra_epilogue"],
+            "codec_sra_epilogue_db": res[0]["sra_db_int8"]["int8"]["codec_sra_epilogue_db"],
+            "codec_reduce_rows": res[0]["two_level_int8"]["int8"]["codec_reduce_rows"]}
+    return {"launches": launches, "int8_launches": int8, "results": res,
+            "mm16_launches": res[0]["sra_producer_bf16"]["wire16"]["codec_matmul_quantize"]}
+
+
+def producer_checks(res) -> None:
+    """Phase 7's checks of producer fusion, each failing the phase:
+    ``sra_producer`` on the float32 model and ``sra_producer_bf16`` on the
+    default one (bf16 compute, f32 parameters), and both profiled steps."""
     # Producer fusion: the layout-derived counts trade 36 stage-1 quantizes
     # for 36 matmul-quantizes, every rank consumed the 36 payloads, and the
     # only fallbacks are the attn_proj layers, which stay in the fused group
@@ -3663,18 +3876,38 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         f"p.grad / {MR_WS}: meta within {chk['meta_rel']:.2e} relative, decoded within "
         f"{chk['steps']:.3f} level steps; {len(chk['failed'])} outside the tolerance; "
         f"backward counters {({k: v for k, v in chk['counts'].items() if v})}")
-    assert chk["checked"] == PRODUCED_LAYERS and not chk["failed"], chk
-    assert chk["identity_misses"] == 0, chk
-    assert chk["counts"]["producer_kernel_slices"] == PRODUCED_LAYERS, chk
-    assert chk["counts"]["producer_fallbacks"] == chk["counts"]["producer_fallback_fused_group"], chk
-    for name in HOOK_CONFIGS:
-        hook_check(res, name, smi)
-    launches = dict(res[0]["two_level"]["launches"])
-    launches["codec_matmul_quantize"] = res[0]["sra_producer"]["launches"]["codec_matmul_quantize"]
-    int8 = {"codec_sra_epilogue": res[0]["sra_int8"]["int8"]["codec_sra_epilogue"],
-            "codec_sra_epilogue_db": res[0]["sra_db_int8"]["int8"]["codec_sra_epilogue_db"],
-            "codec_reduce_rows": res[0]["two_level_int8"]["int8"]["codec_reduce_rows"]}
-    return {"launches": launches, "int8_launches": int8, "results": res}
+    for name in ("sra_producer", "sra_producer_bf16"):
+        chk = res[0][name]["check"]
+        assert chk["checked"] == PRODUCED_LAYERS and not chk["failed"], (name, chk)
+        assert chk["identity_misses"] == 0, (name, chk)
+        assert chk["counts"]["producer_kernel_slices"] == PRODUCED_LAYERS, (name, chk)
+        assert chk["counts"]["producer_fallbacks"] == chk["counts"]["producer_fallback_fused_group"], chk
+    # The default model (bf16 compute, f32 parameters): the same layout and
+    # launches as the float32 model's, every B8 launch on bf16 operands read
+    # by the kernel (no upcast), every consumed layer's dw skipped.
+    assert res[0]["sra_producer_bf16"]["expected"] == prod, (res[0]["sra_producer_bf16"]["expected"], prod)
+    for r, o in enumerate(res):
+        c = o["sra_producer_bf16"]
+        pc = c["producer"]
+        assert (pc["producer_consumed_slices"] == pc["producer_kernel_slices"] == pc["producer_dw_skipped"]
+                == PRODUCED_LAYERS), (r, pc)
+        assert c["launches"]["codec_matmul_quantize"] == c["wire16"]["codec_matmul_quantize"] == PRODUCED_LAYERS, (r, c)
+        assert pc["producer_fallbacks"] == pc["producer_fallback_fused_group"] == PROJ_LAYERS, (r, pc)
+    chk = res[0]["sra_producer_bf16"]["check"]
+    c0 = res[0]["sra_producer_bf16"]
+    log(f"  sra_producer_bf16: {c0['launches']['codec_matmul_quantize']} B8 launches a rank, "
+        f"{c0['wire16']['codec_matmul_quantize']} of them on 16-bit operands, dw skipped "
+        f"{[o['sra_producer_bf16']['producer']['producer_dw_skipped'] for o in res]} by rank; rank 0: "
+        f"{chk['checked']} staged payloads on {chk['dtypes']} operands bit-identical to the upcast route "
+        f"(words, meta, raw row): {chk['checked'] - len(chk['failed'])}")
+    assert chk["dtypes"] == ["bfloat16"], chk
+    for name in ("sra", "sra_producer", "sra_producer_bf16"):
+        p = res[0][name].get("profile", {})
+        mm = p.get("codec_by_kernel", {}).get("cgx_matmul_quantize_kernel", 0.0)
+        log(f"  {name}, rank 0's profiled step: B8 {mm:.3f} ms, codec kernels {p.get('codec_ms', 0.0):.3f} ms "
+            f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(p.get('codec_by_kernel', {}).items()))}), device "
+            f"busy {p.get('busy_ms', 0.0):.2f} ms of {p.get('wall_ms', 0.0):.1f} ms; largest device entries: "
+            + "; ".join(f"{k[:50]} {v:.3f}" for k, v in p.get("top", [])[:5]))
 
 
 def ef_guard_check(res) -> None:
@@ -3767,15 +4000,14 @@ def hook_check(res, name: str, smi: str) -> None:
             diff = [k for k in d if d[k] != h0["digests"][step][k]]
             assert not diff, (name, "replicas", r, step, diff[:5])
         for ri, (label, rr) in enumerate(h["reruns"].items()):
-            want_buckets = (h0["calls"] if _all_buckets(name, ri)
-                            else -(-h0["calls"] // HOOK_RERUN_STRIDE))
+            want_buckets = len(_rerun_buckets(list(range(h0["calls"])), name, ri))
             assert rr["buckets"] == want_buckets, (name, r, label, rr)
             assert rr["same"] == rr["buckets"], (name, r, label, rr)
             assert rr["launches"] == rr["expected"], (name, r, label, rr["launches"], rr["expected"])
             assert rr["int8"] == 0, (name, r, label, rr["int8"])
             if label == HOOK_INT8_RERUN:  # its buckets' bytes are the exact fold's
                 first = next(iter(h["reruns"].values()))
-                assert rr["digests"] == first["digests"][::HOOK_RERUN_STRIDE], (name, r, label)
+                assert rr["digests"] == _rerun_buckets(first["digests"], name, ri), (name, r, label)
     # The path's kernels each ran in the counted steps: the quantizes and
     # requantizes (B1), the decodes (B2), and in the flat SRA the fused
     # epilogue (B3) on the segments of whole chunks. Under the two-level
@@ -3885,6 +4117,14 @@ def ptxas_report(ptxas: str) -> None:
             f"{k} {min(v)[0]}-{max(v)[0]} registers, {max(s for _, s in v)} bytes static"
             for k, v in sorted(by.items())))
         assert len(by) == 4, (kernel, sorted(by))
+    mm16, mm32 = of("cgx_matmul_quantize_kernel", True), of("cgx_matmul_quantize_kernel")
+    delta = [v["registers"] - mm32[k[:-3]]["registers"] for k, v in mm16.items()]
+    log(f"  cgx_matmul_quantize_kernel (16-bit operands): {len(mm16)} instances, "
+        f"{min(v['registers'] for v in mm16.values())}-{max(v['registers'] for v in mm16.values())} "
+        f"registers a thread ({min(delta):+d} to {max(delta):+d} against the f32 twins), "
+        f"{sum(1 for v in mm16.values() if v['spill_stores'] or v['spill_loads'])} with spills, "
+        f"{max(v['smem'] for v in mm16.values())} bytes static shared memory")
+    assert len(mm16) == 32, len(mm16)  # bits 1-8 x the four lowerings
     for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
                    "cgx_quantize_db_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
         for wire16 in (False, True):
@@ -4018,6 +4258,7 @@ def main() -> int:
     os.environ["CGX_PALLAS_DB"] = "off"
     del os.environ["CGX_STOCHASTIC_ROUNDING"], sr
     wire16 = time_wire16(dev, name)
+    mm16 = time_mm16(dev, name)
     b_plain, b_codec, b_db, b_plain_step = time_steps(bf)
     log(f"  train step, GPT-2 124M {BATCH}x{SEQ}, bf16 parameters: {b_plain:.2f} ms without the codec, "
         f"{b_codec:.2f} ms with it (+{100 * (b_codec - b_plain) / b_plain:.1f}%), {b_db:.2f} ms with it "
@@ -4091,7 +4332,14 @@ def main() -> int:
             **sr_times.get(r["name"], {}), **wire16.get(r["name"], {}),
             **int8_times.get(r["name"], {}),
         })
-    assert len(records) == len(TPU_KERNELS), records
+    records.append({
+        "name": MM16, "route": "cuda", "source": SOURCE, "replaces": MM16_REPLACES,
+        "launches": mr["mm16_launches"], "max_abs_err": max_err[MM16],
+        **{k: mm16[k] for k in ("ms", "burst_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "shape", "ffma_bound_ms", "f32_burst_ms", "upcast_burst_ms",
+                                "library_burst_ms")},
+    })
+    assert len(records) == len(TPU_KERNELS) + 1, records
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

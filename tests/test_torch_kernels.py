@@ -465,6 +465,159 @@ def test_skipped_backward_on_cuda_launches_one_kernel(dev, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# B8 on 16-bit operands: the layer's compute dtype read by the kernel itself.
+# ---------------------------------------------------------------------------
+
+# GPT-2 124M's produced layers (din, o), at K = 2 x 512 tokens.
+MM16_SHAPES = [(768, 3072), (768, 2304), (3072, 768)]
+MM16_K = 1024
+
+
+def _mm16_operands(seed, k, din, o, dtype, integer, dev):
+    rng = np.random.default_rng(seed)
+    if integer:
+        x, g = rng.integers(-3, 4, (k, din)), rng.integers(-3, 4, (k, o))
+    else:
+        x, g = rng.standard_normal((k, din)), rng.standard_normal((k, o))
+    return (torch.from_numpy(x.astype(np.float32)).to(dtype).to(dev),
+            torch.from_numpy(g.astype(np.float32)).to(dtype).to(dev))
+
+
+def _upcast_route(x2, g2, div, bits, bucket, own_row):
+    """The f32 instance on the upcast operands: its words and meta, and the
+    raw row its sums give at divisor 1, rounded to the operands' dtype and
+    then divided (the 16-bit instance's raw row)."""
+    w, m = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), div, bits, bucket)
+    _, _, sums = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), 1, bits, bucket,
+                                                   own_row=own_row)
+    return w, m, sums.to(x2.dtype).float() / div
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("din,o", MM16_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_matmul_quantize16_matches_plain_and_upcast_route(dev, dtype, din, o, bits):
+    """At GPT-2 124M's shapes: on small-integer operands (every sum exact)
+    words, meta and raw own row bit-identical to the plain version; on
+    normal operands words and meta bit-identical to the f32 instance on the
+    upcast operands (a product of two 16-bit values is exact in f32 and the
+    two instances sum in one order), and the raw row to that route's sums
+    rounded to the operand dtype, then divided. Every launch reads 16 bits."""
+    bucket, div, ws = 512, 4, 4
+    codec_cuda.reset_launch_counts()
+    x2, g2 = _mm16_operands(din + o + bits, MM16_K, din, o, dtype, True, dev)
+    for own in (0, ws - 1):
+        w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(own, ws))
+        pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(
+            x2.cpu(), g2.cpu(), div, bits, bucket, own_row=(own, ws))
+        assert _bits_equal(w, pw) and _bits_equal(m, pm), own
+        assert _bits_equal(raw, praw), own
+    x2, g2 = _mm16_operands(din * o + bits, MM16_K, din, o, dtype, False, dev)
+    w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(1, ws))
+    uw, um, uraw = _upcast_route(x2, g2, div, bits, bucket, (1, ws))
+    assert _bits_equal(w, uw) and _bits_equal(m, um)
+    assert _bits_equal(raw, uraw)
+    torch.cuda.synchronize()
+    assert codec_cuda.WIRE16_LAUNCHES["codec_matmul_quantize"] == 3
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 5
+
+
+# (K, din, o, divisor, bits, bucket, offset): the tiles and chunks end at
+# different places as in MM_EDGES; din not a multiple of 8 and o = 4 mod 8
+# take the 16-bit ring's plain 2-byte fill, and an operand view 2 bytes off
+# its 16-byte alignment (offset 1) takes it for both operands.
+MM16_EDGES = [
+    (96, 64, 448, 2, 1, 128, 0), (77, 256, 1344, 4, 8, 512, 0), (33, 13, 4096, 2, 3, 128, 0),
+    (50, 100, 4096, 4, 1, 128, 0), (40, 1024, 1036, 2, 4, 128, 0), (64, 256, 512, 2, 4, 512, 1),
+    (40, 768, 2304, 4, 4, 512, 1),
+]
+
+
+@pytest.mark.parametrize("k,din,o,div,bits,bucket,offset", MM16_EDGES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_matmul_quantize16_edges_and_own_row(dev, dtype, k, din, o, div, bits, bucket, offset):
+    """Words, meta and the own raw row (each row position) bit-identical to
+    the plain version on small-integer operands at the edge geometries and
+    fill paths of the 16-bit ring, one launch a call."""
+    rng = np.random.default_rng(k * din + o + offset)
+
+    def operand(rows, cols):
+        v = torch.from_numpy(rng.integers(-3, 4, (rows, cols)).astype(np.float32)).to(dtype)
+        buf = torch.empty(rows * cols + offset, dtype=dtype, device=dev)
+        t = buf[offset:].view(rows, cols)
+        t.copy_(v)
+        return t
+
+    x2, g2 = operand(k, din), operand(k, o)
+    assert (x2.data_ptr() % 16 == 0) == (offset == 0)
+    ws = 4 if din % 4 == 0 else 1
+    codec_cuda.reset_launch_counts()
+    for own in range(ws):
+        w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(own, ws))
+        pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(
+            x2.cpu(), g2.cpu(), div, bits, bucket, own_row=(own, ws))
+        assert _bits_equal(w, pw) and _bits_equal(m, pm), own
+        assert raw.shape == (din * o // ws,) and _bits_equal(raw, praw), own
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == ws
+    assert codec_cuda.WIRE16_LAUNCHES["codec_matmul_quantize"] == ws
+
+
+def test_matmul_quantize16_refuses_mixed_dtypes(dev):
+    """The two operands share one dtype of the three, or the wrapper raises
+    before any launch."""
+    x = torch.randn(64, 128, device=dev)
+    g = torch.randn(64, 512, device=dev)
+    codec_cuda.reset_launch_counts()
+    for a, b in ((x.bfloat16(), g.half()), (x.bfloat16(), g), (x, g.half())):
+        with pytest.raises(TypeError, match="one dtype"):
+            codec_cuda.matmul_quantize_chunks(a, b, 2, 4, 512)
+    with pytest.raises(ValueError, match="float64"):
+        codec_cuda.matmul_quantize_chunks(x.double(), g.double(), 2, 4, 512)
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_skipped_backward16_on_cuda_launches_one_kernel(dev, monkeypatch, dtype):
+    """A bf16 or f16 layer configured as ``make_train_step`` does returns no
+    weight gradient: one 16-bit launch on the uncast operands makes its
+    payload and raw own row, and no plain product runs."""
+    from torch_cgx_tpu_torch.models import Dense
+    from torch_cgx_tpu_torch.ops import fused_producer as fp
+
+    for k, v in {"CGX_PRODUCER_FUSE": "on", "CGX_COMPRESSION_QUANTIZATION_BITS": "4",
+                 "CGX_COMPRESSION_BUCKET_SIZE": "128", "CGX_STANDALONE_LAYER_ELEMS": "32768"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(fp, "_CFG", dict(fp._CFG))
+    fp.configure(None, divisor=2, active=True, skip_dw=True)
+    fp._CFG.update(ws=2, rank=1)
+    fp.begin_step()
+    fp.reset_counts()
+    seen = []
+    real = fp._plain_dw
+    monkeypatch.setattr(fp, "_plain_dw", lambda name, *a: seen.append(name) or real(name, *a))
+    layer = Dense(256, 512, dtype=dtype, generator=torch.Generator().manual_seed(0)).to(dev)
+    layer.kernel_path = "big.kernel"
+    x = torch.randn(4, 32, 256, device=dev)
+    codec_cuda.reset_launch_counts()
+    layer(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert layer.kernel.grad is None and seen == []
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 1
+    assert codec_cuda.WIRE16_LAUNCHES["codec_matmul_quantize"] == 1
+    assert fp.COUNTS["producer_dw_skipped"] == 1
+    ent = fp.skipped_entries()["big.kernel"]
+    x2 = x.to(dtype).reshape(-1, 256)
+    g2 = (2 * layer(x).float()).to(dtype).detach().reshape(-1, 512)  # d(y^2)/dy in the compute dtype
+    w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 128, own_row=(1, 2))
+    assert _bits_equal(ent.q.packed.reshape(-1), w) and _bits_equal(ent.q.meta.reshape(-1, 2), m)
+    assert _bits_equal(ent.raw_row, raw)
+    uw, um, uraw = _upcast_route(x2, g2, 2, 4, 128, (1, 2))
+    assert _bits_equal(w, uw) and _bits_equal(m, um) and _bits_equal(raw, uraw)
+    fp.deconfigure()
+
+
+# ---------------------------------------------------------------------------
 # The pipelined kernels (B7a-c) against the single-stage kernels and the
 # plain versions.
 # ---------------------------------------------------------------------------
@@ -1467,7 +1620,7 @@ def test_subf32_batch_functions_match_the_plain_path(dev, dtype, monkeypatch):
 def test_subf32_refusals(dev):
     """Another dtype raises ValueError naming it; an epilogue's raw row in
     another dtype than the wire dtype is refused on the card; the
-    matmul-quantize (B8) stays float32."""
+    matmul-quantize (B8) refuses operands of two dtypes."""
     x = torch.randn(32 * 512, device=dev)
     with pytest.raises(ValueError, match="float64"):
         codec_cuda.quantize_chunks(x.double(), 4, 512)
@@ -1481,9 +1634,9 @@ def test_subf32_refusals(dev):
     with pytest.raises(ValueError, match="int8"):
         codec_cuda.sra_epilogue_chunks(q.packed, q.meta.float(), None, -1, 4, 512,
                                        cast_dtype=torch.int8)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="one dtype"):
         codec_cuda.matmul_quantize_chunks(torch.randn(64, 128, device=dev).bfloat16(),
-                                          torch.randn(64, 128, device=dev).bfloat16(), 2, 4, 512)
+                                          torch.randn(64, 128, device=dev), 2, 4, 512)
 
 
 def test_tiny_bf16_param_step_runs_the_kernels(dev, monkeypatch):
@@ -1534,7 +1687,7 @@ def test_f32_instances_keep_their_registers(dev):
     baseline = json.loads((Path(codec_cuda.SOURCE).parent / "ptxas_f32.json").read_text())
     assert len(baseline) > 700
     assert ptxas_table.compare(table, baseline) == []
-    assert sum(k.endswith(":16") for k in table) == 4 * 128 + 80
+    assert sum(k.endswith(":16") for k in table) == 4 * 128 + 80 + 32  # B8's: 8 bits x 4 lowerings
 
 
 # ---------------------------------------------------------------------------

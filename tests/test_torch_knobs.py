@@ -17,7 +17,18 @@ package). At their defaults (the ratio unset, 0 or 1; the guard "off")
 everything runs as before. Both accessors parse as the JAX package's do,
 which the tests check value by value. The guard's own behaviour on
 poisoned steps is in ``tests/test_torch_nonfinite_guard.py``.
+
+``CGX_SCHEDULE=on`` and ``CGX_PLANNER=on`` (the JAX package's pipelined SRA)
+are refused before any collective wherever a flat group's SRA would run,
+as the DDP hook refuses them; "auto" and "off" change nothing, and
+``CGX_XLA_ALLREDUCE`` changes no group the port can form (ROADMAP C21).
 """
+
+import multiprocessing as mp
+import os
+import queue
+import time
+from datetime import timedelta
 
 import numpy as np
 import pytest
@@ -28,6 +39,8 @@ from torch_cgx_tpu_torch import config as tcfg
 from torch_cgx_tpu_torch.models import GPT2, GPT2Config, lm_loss
 from torch_cgx_tpu_torch.config import CompressionConfig
 from torch_cgx_tpu_torch.parallel import allreduce_flat, allreduce_tree, gradient_sync, make_train_step
+from torch_cgx_tpu_torch.parallel import group as group_mod
+from torch_cgx_tpu_torch.parallel.mesh import TwoLevelGroup
 
 ENV = {"CGX_COMPRESSION_QUANTIZATION_BITS": "4", "CGX_COMPRESSION_BUCKET_SIZE": "128"}
 
@@ -239,3 +252,249 @@ def test_invalid_nonfinite_guard_is_a_value_error_as_in_jax(_env, guard):
         gradient_sync(_grads())
     with pytest.raises(ValueError, match="CGX_NONFINITE_GUARD"):
         _model_and_step()
+
+
+# ---------------------------------------------------------------------------
+# CGX_SCHEDULE and CGX_PLANNER on the train-step path (C21): "on" selects the
+# JAX package's pipelined SRA (or its re-planned bits), which the port does
+# not have; a flat group's SRA refuses it before any collective, as the DDP
+# hook does, and "auto" and "off" run the monolithic SRA unchanged.
+# CGX_XLA_ALLREDUCE is not read by the port: under "on" the JAX router
+# changes the result only for a MIXED group (a process holding several of
+# its devices), and a rank of the port holds one device.
+# ---------------------------------------------------------------------------
+
+COLLECTIVES = ("all_to_all_rows", "all_gather_rows", "shift_right", "all_reduce_sum",
+               "reduce_scatter_sum")
+
+
+class _Collective(Exception):
+    """Raised by a stand-in collective: the call got as far as the wire."""
+
+
+@pytest.fixture
+def two_ranks(_env):
+    """This process stands in for a rank of a 2-rank flat group whose every
+    collective raises ``_Collective`` (recorded by name)."""
+    called = []
+
+    def stand_in(name):
+        def fn(*a, **kw):
+            called.append(name)
+            raise _Collective(name)
+        return fn
+
+    _env.setattr(group_mod, "world_size", lambda group=None: 2)
+    _env.setattr(group_mod, "rank", lambda group=None: 0)
+    for name in COLLECTIVES:
+        _env.setattr(group_mod, name, stand_in(name))
+    return called
+
+
+def _entry_points(model, step, tokens):
+    grads = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    cc = CompressionConfig(bits=4, bucket_size=128)
+    return {
+        "allreduce_tree": lambda: allreduce_tree(grads, average=True),
+        "allreduce_flat": lambda: allreduce_flat(torch.zeros(32 * 128 * 2), cc),
+        "gradient_sync": lambda: gradient_sync(grads),
+        "make_train_step": lambda: step(tokens),
+    }
+
+
+@pytest.mark.parametrize("entry", ["allreduce_tree", "allreduce_flat", "gradient_sync",
+                                   "make_train_step"])
+@pytest.mark.parametrize("knob", ["CGX_SCHEDULE", "CGX_PLANNER"])
+def test_pipelined_sra_knobs_refused_before_any_collective(two_ranks, knob, entry):
+    """Under "on" every entry point raises NotImplementedError naming the
+    knob, with the hook's message, before any collective; the train step
+    before its forward (the parameters untouched)."""
+    called = two_ranks
+    forwards = []
+    model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    step = make_train_step(model, lambda m, b: forwards.append(1) or lm_loss(m(b), b), opt, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 512, size=(2, 16)))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    with pytest.MonkeyPatch.context() as mp_:
+        mp_.setenv(knob, "on")
+        with pytest.raises(NotImplementedError, match=f"pipelined SRA .*{knob}=on"):
+            _entry_points(model, step, tokens)[entry]()
+    assert called == [] and forwards == []
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+
+
+@pytest.mark.parametrize("case", ["ring", "alltoall", "two_level", "uncompressed", "auto", "off"])
+def test_pipelined_sra_knobs_leave_other_paths_running(two_ranks, case):
+    """Where no flat-group SRA of compressed values runs (the Ring, the
+    all-to-all, a TwoLevelGroup, an all-uncompressed tree) "on" is not
+    refused, and "auto" / "off" never are: the sync goes on to the wire."""
+    knobs = {"CGX_SCHEDULE": "on", "CGX_PLANNER": "on"}
+    group = None
+    if case == "ring":
+        knobs["CGX_INNER_REDUCTION_TYPE"] = "RING"
+    elif case == "alltoall":
+        knobs["CGX_DEBUG_ALL_TO_ALL_REDUCTION"] = "1"
+    elif case == "two_level":
+        group = TwoLevelGroup(intra=None, intra_size=2, cross=None, cross_size=1)
+    elif case == "uncompressed":
+        knobs["CGX_COMPRESSION_QUANTIZATION_BITS"] = "32"
+    else:
+        knobs = {"CGX_SCHEDULE": case, "CGX_PLANNER": case}
+    grads = {"a.kernel": torch.ones(64, 128)}
+    with pytest.MonkeyPatch.context() as mp_:
+        for k, v in knobs.items():
+            mp_.setenv(k, v)
+        for fn in (lambda: allreduce_tree(grads, group=group), lambda: gradient_sync(grads, group=group)):
+            with pytest.raises(_Collective):
+                fn()
+    assert two_ranks
+
+
+def test_xla_allreduce_on_changes_no_port_group():
+    """The JAX router under CGX_XLA_ALLREDUCE=on (``topology.route``, slice
+    ids from each device's process): it sends a group to its two-level
+    override (uncompressed intra) only when the group is MIXED, some
+    process holding several of its devices. Every group the port forms has
+    one device a process (one rank, one card): the flat world and the
+    (cross, intra) grid of a TwoLevelGroup classify as cross-slice and keep
+    their path, whatever the world size; only a layout the port cannot
+    form, two processes of two devices, is rerouted."""
+    from torch_cgx_tpu.parallel import topology as jtopo
+
+    class Dev:
+        def __init__(self, process):
+            self.process_index = process
+            self.slice_index = None
+
+    class Mesh:
+        def __init__(self, procs, shape, names):
+            self.devices = np.array([Dev(p) for p in procs], dtype=object).reshape(shape)
+            self.axis_names = names
+            self.shape = dict(zip(names, shape))
+
+    with pytest.MonkeyPatch.context() as mp_:
+        mp_.setenv("CGX_XLA_ALLREDUCE", "on")
+        for ws in (2, 4, 8):
+            flat = Mesh(range(ws), (ws,), ("dp",))
+            assert jtopo.route(flat, ("dp",), allow_remesh=True).route != jtopo.ROUTE_TWO_LEVEL
+            if ws >= 4:
+                grid = Mesh(range(ws), (2, ws // 2), ("cross", "intra"))
+                d = jtopo.route(grid, ("cross", "intra"))
+                assert d.topo.kind == jtopo.TOPO_CROSS and d.route != jtopo.ROUTE_TWO_LEVEL
+        mixed = Mesh([0, 0, 1, 1], (2, 2), ("cross", "intra"))
+        assert jtopo.route(mixed, ("cross", "intra")).route == jtopo.ROUTE_TWO_LEVEL
+    assert "CGX_XLA_ALLREDUCE" not in open(tcfg.__file__).read()  # the port reads no such knob
+
+
+# The same on two spawned gloo ranks: a tiny float32 GPT-2's make_train_step
+# under each setting, the parameters after two steps against the knobs
+# unset; "on" raises on both ranks (no rank is left in a collective).
+KNOB_RUNS = [
+    ("unset", {}), ("schedule_auto", {"CGX_SCHEDULE": "auto"}), ("schedule_off", {"CGX_SCHEDULE": "off"}),
+    ("planner_auto", {"CGX_PLANNER": "auto"}), ("planner_off", {"CGX_PLANNER": "off"}),
+    ("xla_on", {"CGX_XLA_ALLREDUCE": "on"}), ("xla_off", {"CGX_XLA_ALLREDUCE": "off"}),
+]
+KNOB_WS = 2
+
+
+def _knob_rank(rank, init_file, result_q):
+    import torch.distributed as dist
+
+    from torch_cgx_tpu_torch.parallel import hierarchical_groups
+
+    for k in [k for k in os.environ if k.startswith("CGX_")]:
+        del os.environ[k]
+    os.environ.update(ENV)
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=KNOB_WS, timeout=timedelta(seconds=120))
+        tokens = torch.from_numpy(np.random.default_rng(rank).integers(0, 512, size=(2, 16)))
+        for name, knobs in KNOB_RUNS + [("schedule_on", {"CGX_SCHEDULE": "on"}),
+                                        ("planner_on", {"CGX_PLANNER": "on"})]:
+            os.environ.update(knobs)
+            model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+            step = make_train_step(model, lambda m, b: lm_loss(m(b), b),
+                                   torch.optim.Adam(model.parameters(), lr=1e-4), device="cpu")
+            try:
+                losses = [float(step(tokens)) for _ in range(2)]
+                out[name] = {"losses": losses,
+                             "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()}}
+            except NotImplementedError as e:
+                out[name] = {"refused": str(e)}
+            for k in knobs:
+                del os.environ[k]
+        # A TwoLevelGroup (intra 2 x cross 1) is not refused: its sync under
+        # CGX_SCHEDULE=on equals the sync unset.
+        tl = hierarchical_groups(intra_size=KNOB_WS)
+        g = {"a.kernel": torch.from_numpy(np.random.default_rng(10 + rank).standard_normal((64, 128))
+                                          .astype(np.float32))}
+        base = gradient_sync(g, group=tl)["a.kernel"]
+        os.environ["CGX_SCHEDULE"] = "on"
+        out["two_level_on_same"] = bool(torch.equal(gradient_sync(g, group=tl)["a.kernel"], base))
+        del os.environ["CGX_SCHEDULE"]
+        dist.barrier()
+    except Exception:
+        import traceback
+
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    result_q.put((rank, out))
+
+
+@pytest.fixture(scope="module")
+def knob_world(tmp_path_factory):
+    init_file = str(tmp_path_factory.mktemp("gloo_knobs") / "store")
+    ctx = mp.get_context("spawn")
+    result_q = ctx.Queue()
+    procs = [ctx.Process(target=_knob_rank, args=(r, init_file, result_q), daemon=True)
+             for r in range(KNOB_WS)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + 300.0
+    try:
+        while len(results) < KNOB_WS and time.monotonic() < deadline:
+            try:
+                rank, out = result_q.get(timeout=2.0)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    assert len(results) == KNOB_WS, f"only ranks {sorted(results)} reported"
+    errors = {r: o["error"] for r, o in results.items() if "error" in o}
+    assert not errors, errors
+    return [results[r] for r in range(KNOB_WS)]
+
+
+@pytest.mark.parametrize("name", [n for n, _ in KNOB_RUNS[1:]])
+def test_knob_settings_leave_the_step_bit_identical(knob_world, name):
+    """"auto" and "off" of CGX_SCHEDULE and CGX_PLANNER, and either setting
+    of CGX_XLA_ALLREDUCE: two train steps on two gloo ranks bit-identical
+    to the knobs unset, on every rank."""
+    for r, res in enumerate(knob_world):
+        assert res[name]["losses"] == res["unset"]["losses"], (name, r)
+        for p, v in res["unset"]["params"].items():
+            np.testing.assert_array_equal(res[name]["params"][p].view(np.uint32), v.view(np.uint32),
+                                          err_msg=f"{name} rank {r} {p}")
+
+
+def test_knobs_on_refused_on_every_rank(knob_world):
+    """Under "on" both ranks raise (no rank waits in a collective), and a
+    TwoLevelGroup's sync runs unchanged."""
+    for res in knob_world:
+        assert "CGX_SCHEDULE=on" in res["schedule_on"]["refused"]
+        assert "CGX_PLANNER=on" in res["planner_on"]["refused"]
+        assert res["two_level_on_same"]

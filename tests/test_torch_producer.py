@@ -78,6 +78,13 @@ PRODUCER_ENV = {
 # The one-layer sync case: a (256, 512) dense layer whose input is the
 # identity, so its weight gradient is the loss's cotangent, an integer grid.
 SYNC_DIN, SYNC_O, SYNC_BITS = 256, 512, 2
+# Its bf16-compute case keeps the cotangent's first 16 rows: the bias
+# gradient (a column sum, at most 16 x 15) stays an integer below 2^8, exact
+# in bf16 whatever order either framework sums in.
+SYNC16_ROWS = 16
+# The bf16 tiny GPT-2 against the JAX package (see its test).
+BF16_LOSS_RTOL = 1e-3
+BF16_FAR_SHARE = 0.01
 
 
 def _sync_cotangent(rank):
@@ -255,6 +262,116 @@ def test_plain_matches_jax_quantize_batch(bits, bucket, div):
         w.numpy().view(np.uint32), np.asarray(q.packed).reshape(-1).view(np.uint32)
     )
     np.testing.assert_array_equal(m.numpy(), np.asarray(q.meta).reshape(-1, 2))
+
+
+# The 16-bit operand form of B8: the JAX kernel reads x2 and g2 in the
+# layer's compute dtype and contracts them with preferred_element_type=f32
+# (fused_producer.py:573-576); its raw own row is the compute-dtype product
+# dw_own.astype(w.dtype) / div (fused_producer.py:395-400).
+DTYPES16 = [(torch.bfloat16, "bfloat16"), (torch.float16, "float16")]
+
+
+def _operands16(seed, k, din, o, integer, jdtype):
+    """``_operands`` rounded to the 16-bit dtype (integers stay exact), as
+    numpy arrays of that dtype for JAX and torch tensors for the port."""
+    import jax.numpy as jnp
+
+    x2, g2 = _operands(seed, k, din, o, integer)
+    jx, jg = jnp.asarray(x2, getattr(jnp, jdtype)), jnp.asarray(g2, getattr(jnp, jdtype))
+    tdt = dict((j, t) for t, j in DTYPES16)[jdtype]
+    return jx, jg, torch.from_numpy(x2).to(tdt), torch.from_numpy(g2).to(tdt)
+
+
+def _jax_kernel_q16(jx, jg, bits, bucket, div, ws=WS):
+    from torch_cgx_tpu.config import CompressionConfig as JCC
+    from torch_cgx_tpu.ops import fused_producer as jfp
+
+    cc = JCC(bits=bits, bucket_size=bucket)
+    k, din = jx.shape
+    o = jg.shape[1]
+    chunk = din * o // ws
+    tm, tk = jfp._kernel_geometry(k, din, o, ws, chunk, cc)
+    q = jfp._matmul_quantize_q(jx, jg, cc, ws=ws, chunk=chunk, div=div, tm=tm, tk=tk, interpret=True)
+    return np.asarray(q.packed).reshape(-1), np.asarray(q.meta).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("div", [1, 2])
+@pytest.mark.parametrize("bits,bucket", [(2, 128), (4, 512), (8, 128)])
+@pytest.mark.parametrize("tdt,jdt", DTYPES16, ids=["bf16", "f16"])
+def test_plain16_matches_jax_kernel_on_integers(tdt, jdt, bits, bucket, div):
+    """Integer-valued 16-bit operands: every product and sum exact in f32,
+    so the plain version's words and meta equal the JAX kernel's (interpret
+    mode, bf16 or f16 operands) bit for bit."""
+    jx, jg, x2, g2 = _operands16(bits * bucket + div, 64, 256, 512, True, jdt)
+    jw, jm = _jax_kernel_q16(jx, jg, bits, bucket, div)
+    w, m = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket)  # CPU: the plain version
+    assert x2.dtype == tdt
+    np.testing.assert_array_equal(w.numpy().view(np.uint32), jw.view(np.uint32))
+    np.testing.assert_array_equal(m.numpy().view(np.uint32), jm.view(np.uint32))
+
+
+@pytest.mark.parametrize("bits,bucket", [(4, 512), (8, 128)])
+@pytest.mark.parametrize("tdt,jdt", DTYPES16, ids=["bf16", "f16"])
+def test_plain16_matches_jax_kernel_on_normal_operands(tdt, jdt, bits, bucket):
+    """Normal 16-bit operands: the f32 sums differ by their order only, so
+    the bytes are held to the f32 test's tolerance (``_close``)."""
+    jx, jg, x2, g2 = _operands16(11 * bits + bucket, 64, 256, 512, False, jdt)
+    jw, jm = _jax_kernel_q16(jx, jg, bits, bucket, WS)
+    w, m = codec_cuda.matmul_quantize_chunks_plain(x2, g2, WS, bits, bucket)
+    _close(w.numpy(), m.numpy(), jw, jm, bits, bucket)
+
+
+@pytest.mark.parametrize("div", [1, 2])
+@pytest.mark.parametrize("tdt,jdt", DTYPES16, ids=["bf16", "f16"])
+def test_plain16_raw_row_matches_jax_dw_own(tdt, jdt, div):
+    """The raw own row of each rank position against the JAX package's
+    route (``_maybe_stash``): the 1/ws-sized dot of the own columns of x2
+    in the compute dtype, ``.astype(f32)``, then ``/ div``, on exact-sum
+    data (integer operands: the f32 sums are exact, and both round them
+    once to the compute dtype; sums past 2^8 round in bf16, past 2^11 in
+    f16, and both occur)."""
+    from jax import lax
+
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(17 + div)
+    xn, gn = (rng.integers(-15, 16, (256, c)).astype(np.float32) for c in (256, 512))
+    jx, jg = jnp.asarray(xn, getattr(jnp, jdt)), jnp.asarray(gn, getattr(jnp, jdt))
+    x2, g2 = torch.from_numpy(xn).to(tdt), torch.from_numpy(gn).to(tdt)
+    rows_per = 256 // WS
+    for own in range(WS):
+        x_own = lax.dynamic_slice(jx, (0, own * rows_per), (jx.shape[0], rows_per))
+        dw_own = lax.dot_general(x_own, jg, (((0,), (0,)), ((), ())), precision=None).astype(jnp.float32)
+        want = np.asarray(dw_own.reshape(-1) / div if div != 1 else dw_own.reshape(-1))
+        _, _, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, 4, 128, own_row=(own, WS))
+        np.testing.assert_array_equal(raw.numpy().view(np.uint32), want.view(np.uint32), err_msg=str(own))
+    sums = (torch.from_numpy(np.asarray(jx, np.float32)).t() @ torch.from_numpy(np.asarray(jg, np.float32)))
+    assert bool((sums.to(tdt).float() != sums).any())  # the compute dtype's rounding is exercised
+
+
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_16bit_operands_reach_the_kernel_uncast(engaged, tdt):
+    """An engaged 16-bit dense backward hands the kernel wrapper its
+    operands in the compute dtype, uncast, and stages the wrapper's own
+    words, meta and raw row; the wrapper refuses operands of two dtypes."""
+    seen = []
+    real = codec_cuda.matmul_quantize_chunks
+
+    def spy(x2, g2, *a, **kw):
+        seen.append((x2.dtype, g2.dtype))
+        out = real(x2, g2, *a, **kw)
+        seen.append(out)
+        return out
+
+    engaged.setattr(codec_cuda, "matmul_quantize_chunks", spy)
+    *_, layer = _dense_run(tdt)
+    assert seen[0] == (tdt, tdt) and len(seen) == 2
+    ent = fp.lookup("big.kernel", layer.kernel.grad)
+    w, m, raw = seen[1]
+    assert torch.equal(ent.q.packed.reshape(-1), w) and torch.equal(ent.q.meta.reshape(-1, 2), m)
+    assert _same(ent.raw_row, raw)
+    with pytest.raises(TypeError, match="one dtype"):
+        real(torch.zeros(8, 128, dtype=tdt), torch.zeros(8, 128), 2, 4, 128)
 
 
 def test_kernel_wrapper_refuses_unported_modes(monkeypatch):
@@ -522,16 +639,23 @@ def _skip_configure():
     fp.begin_step()
 
 
-@pytest.mark.parametrize("dtype,skips", [(torch.float32, True), (torch.bfloat16, False)])
+@pytest.mark.parametrize("dtype,skips", [
+    (torch.float32, True), (torch.bfloat16, True), (torch.float16, True),
+])
 def test_skip_returns_no_dw_and_stages_by_name(engaged, dtype, skips):
-    """A float32 layer whose payload the sync will consume returns no
-    ``dw``; ``dx`` stays exact, and the staged payload and raw own row are
-    the plain product's. A bf16 product never skips (the kernel sums in
-    float32)."""
+    """A layer whose payload the sync will consume returns no ``dw``;
+    ``dx`` stays exact, and the staged payload and raw own row are the
+    plain product's. A bf16 or f16 product skips too: the kernel reads its
+    operands in the compute dtype, its payload quantizes the float32 sums
+    of their products (exact in float32), and its raw own row is those sums
+    rounded to the compute dtype, as the JAX package's ``dw_own``."""
     _skip_configure()
-    seen = []
+    seen, operands = [], []
     real = fp._plain_dw
     engaged.setattr(fp, "_plain_dw", lambda name, *a: seen.append(name) or real(name, *a))
+    real_mq = codec_cuda.matmul_quantize_chunks
+    engaged.setattr(codec_cuda, "matmul_quantize_chunks",
+                    lambda x2, g2, *a, **kw: operands.append((x2, g2)) or real_mq(x2, g2, *a, **kw))
     _, x_grad, w_grad, b_grad, layer = _dense_run(dtype)
     _, want_x, want_w, want_b = _plain_expression(dtype)
     assert _same(x_grad, want_x) and _same(b_grad, want_b)
@@ -543,8 +667,11 @@ def test_skip_returns_no_dw_and_stages_by_name(engaged, dtype, skips):
         return
     assert w_grad is None and seen == []
     ent = fp.skipped_entries()["big.kernel"]
-    rows = (want_w.reshape(-1) / WS).view(WS, -1)
-    assert _same(ent.raw_row, rows[0])
+    (x2, g2), = operands
+    assert x2.dtype == g2.dtype == dtype
+    sums = want_w if dtype == torch.float32 else torch.matmul(x2.float().t(), g2.float())
+    rows = (sums.reshape(-1) / WS).view(WS, -1)
+    assert _same(ent.raw_row, (sums.to(dtype).float().reshape(-1) / WS).view(WS, -1)[0])
     want = dispatch.quantize_batch(rows, ent.cc)
     assert torch.equal(ent.q.packed, want.packed) and torch.equal(ent.q.meta, want.meta)
     assert ent.shape == (256, 512) and ent.dtype == torch.float32
@@ -651,6 +778,21 @@ def _rank_main(rank, init_file, params, tokens, result_q):
                 "counts": dict(fused_producer.COUNTS),
                 "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()},
             }
+        # The default model: bf16 compute, f32 parameters; the producer on,
+        # its 16-bit products skipping their dw.
+        os.environ["CGX_PRODUCER_FUSE"] = "on"
+        model = GPT2(GPT2Config.tiny(), device="cpu")
+        model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in params.items()})
+        opt = torch.optim.Adam(model.parameters(), lr=LR, eps=1e-8)
+        step = make_train_step(model, lambda m, b: lm_loss(m(b), b), opt, device="cpu")
+        res16 = {"losses": [], "consumed": [], "skipped": []}
+        for _ in range(STEPS):
+            fused_producer.reset_counts()
+            res16["losses"].append(float(step(t)))
+            res16["consumed"].append(fused_producer.COUNTS["producer_consumed_slices"])
+            res16["skipped"].append(fused_producer.COUNTS["producer_dw_skipped"])
+        res16["params"] = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+        out["bf16_on"] = res16
         # One backward of a single layer and one gradient_sync, fed exact
         # integer gradients (see _sync_cotangent).
         os.environ["CGX_COMPRESSION_QUANTIZATION_BITS"] = str(SYNC_BITS)
@@ -684,6 +826,36 @@ def _rank_main(rank, init_file, params, tokens, result_q):
         out["sync_step"] = {
             "synced": {"big.kernel": one.big.kernel.grad.numpy().copy(),
                        "big.bias": one.big.bias.grad.numpy().copy()},
+            "consumed": fused_producer.COUNTS["producer_consumed_slices"],
+            "skipped": fused_producer.COUNTS["producer_dw_skipped"],
+        }
+        # The bf16-compute layer (f32 parameters): the producer on through a
+        # direct gradient_sync, then through make_train_step with the skip.
+        layer16 = Dense(SYNC_DIN, SYNC_O, dtype=torch.bfloat16)
+        layer16.load_state_dict(layer.state_dict())
+        layer16.kernel_path = "big.kernel"
+        c16 = c.clone()
+        c16[SYNC16_ROWS:] = 0
+        fused_producer.configure(None, divisor=WS, active=True)
+        fused_producer.begin_step()
+        fused_producer.reset_counts()
+        (layer16(x) * c16).sum().backward()
+        synced = gradient_sync({"big.kernel": layer16.kernel.grad, "big.bias": layer16.bias.grad})
+        out["sync16_on"] = {
+            "synced": {k: v.numpy().copy() for k, v in synced.items()},
+            "consumed": fused_producer.COUNTS["producer_consumed_slices"],
+            "skipped": fused_producer.COUNTS["producer_dw_skipped"],
+        }
+        one16 = _OneLayer()
+        one16.big = layer16
+        layer16.zero_grad(set_to_none=True)
+        step = make_train_step(one16, lambda m, b: (m(b[0]) * b[1]).sum(),
+                               torch.optim.SGD(one16.parameters(), lr=0.0), device="cpu")
+        fused_producer.reset_counts()
+        step((x, c16))
+        out["sync16_step"] = {
+            "synced": {"big.kernel": layer16.kernel.grad.numpy().copy(),
+                       "big.bias": layer16.bias.grad.numpy().copy()},
             "consumed": fused_producer.COUNTS["producer_consumed_slices"],
             "skipped": fused_producer.COUNTS["producer_dw_skipped"],
         }
@@ -864,6 +1036,134 @@ def test_two_ranks_sync_matches_jax_producer_on(world, monkeypatch):
                 np.testing.assert_array_equal(res[f"sync_{fuse}"]["synced"][p].view(np.uint32),
                                               v.view(np.uint32), err_msg=f"rank {r} {fuse} {p}")
     assert np.abs(want["big.kernel"] - mean).max() > 0
+
+
+def test_two_ranks_bf16_gpt2_matches_jax_producer_on(world, monkeypatch):
+    """The tiny GPT-2 at its default bf16 compute (f32 parameters) on the
+    two gloo ranks, producer on, every eligible 16-bit product skipping its
+    dw, against the JAX ``make_train_step`` with the producer on (its bf16
+    matmul-quantize in interpret mode) from the same weights: the consumed
+    counts equal; losses within BF16_LOSS_RTOL; the produced kernels
+    (qkv, mlp_in, mlp_out) within 3 x LR of JAX's but for a share
+    BF16_FAR_SHARE of their entries. The float32 test's tolerances (1e-4,
+    every entry within 3 x LR) do not hold for a bf16 model with or without
+    the producer: the two frameworks round the bf16 forward at different
+    places (step 0's loss, before any sync, differs by 1.4e-4 relative), and
+    the tiny bf16 gradients whose sign that flips move Adam's first steps up
+    to 2 x LR a step apart in every layer, produced or not (0.1-0.5 % of the
+    entries). A wrong payload would move most of a produced kernel's
+    entries."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jax.sharding import Mesh
+
+    from torch_cgx_tpu.models import GPT2 as JGPT2
+    from torch_cgx_tpu.models import GPT2Config as JGPT2Config
+    from torch_cgx_tpu.models import lm_loss as jlm_loss
+    from torch_cgx_tpu.parallel import make_train_step as jmake_train_step
+    from torch_cgx_tpu.parallel import replicate, shard_batch
+    from torch_cgx_tpu.utils.logging import metrics
+    from torch_cgx_tpu.utils.tree import leaf_paths
+
+    (_, jparams, tokens), results = world
+    n_layer = GPT2Config.tiny().n_layer
+    for r, res in enumerate(results):
+        assert res["bf16_on"]["consumed"] == res["bf16_on"]["skipped"] == [3 * n_layer] * STEPS, r
+    for k, v in PRODUCER_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("CGX_PRODUCER_FUSE", "on")
+    jmodel = JGPT2(JGPT2Config.tiny())
+    assert jmodel.cfg.dtype == jnp.bfloat16
+    mesh = Mesh(np.asarray(jax.devices()[:WS]), ("dp",))
+    opt = optax.adam(LR)
+    p = replicate(jax.tree.map(jnp.asarray, jparams), mesh)
+    s = replicate(opt.init(p), mesh)
+    step = jmake_train_step(
+        lambda pp, t: jlm_loss(jmodel.apply({"params": pp}, t), t), opt, mesh, donate=False
+    )
+    before = metrics.get("cgx.codec.producer_consumed_slices") or 0.0
+    losses = []
+    for i in range(STEPS):
+        p, s, loss = step(p, s, shard_batch(jnp.asarray(tokens), mesh), jnp.int32(i))
+        losses.append(float(loss))
+    consumed = (metrics.get("cgx.codec.producer_consumed_slices") or 0.0) - before
+    assert consumed == results[0]["bf16_on"]["consumed"][0]
+    np.testing.assert_allclose(results[0]["bf16_on"]["losses"], losses, rtol=BF16_LOSS_RTOL)
+    got = results[0]["bf16_on"]["params"]
+    far, total = 0, 0
+    for path, v in leaf_paths(jax.tree.map(np.asarray, p)):
+        if path.endswith(("attn_qkv.kernel", "mlp_in.kernel", "mlp_out.kernel")):
+            far += int((np.abs(got[path] - v) > 3 * LR).sum())
+            total += v.size
+    assert total and far <= BF16_FAR_SHARE * total, (far, total)
+
+
+def test_two_ranks_sync_matches_jax_producer_on_bf16(world, monkeypatch):
+    """The one-layer sync of ``test_two_ranks_sync_matches_jax_producer_on``
+    with the layer computing in bf16 (``CgxDense(dtype=jnp.bfloat16)``, f32
+    parameters; the JAX kernel reads bf16 operands in interpret mode): the
+    synced gradients bit-identical to the JAX ones on the exact integer
+    gradients, through a direct ``gradient_sync`` (p.grad kept) and through
+    ``make_train_step`` (the 16-bit product's dw skipped), one payload
+    consumed on each side, and the codec really ran. The cotangent keeps
+    its first SYNC16_ROWS rows, so that the bf16 bias gradient is exact in
+    both frameworks."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from torch_cgx_tpu.models.layers import CgxDense
+    from torch_cgx_tpu.ops import fused_producer as jfp
+    from torch_cgx_tpu.parallel import gradient_sync as jgradient_sync
+    from torch_cgx_tpu.utils.compat import shard_map
+    from torch_cgx_tpu.utils.logging import metrics
+    from torch_cgx_tpu.utils.tree import leaf_paths
+
+    class _One(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            return CgxDense(SYNC_O, dtype=jnp.bfloat16, name="big")(x)
+
+    _, results = world
+    for k, v in PRODUCER_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("CGX_COMPRESSION_QUANTIZATION_BITS", str(SYNC_BITS))
+    monkeypatch.setenv("CGX_PRODUCER_FUSE", "on")
+    monkeypatch.setenv("CGX_PRODUCER_KERNEL", "on")
+    mesh = Mesh(np.asarray(jax.devices()[:WS]), ("dp",))
+    model = _One()
+    x = np.tile(np.eye(SYNC_DIN, dtype=np.float32), (WS, 1))
+    cs = [_sync_cotangent(r) for r in range(WS)]
+    for cr in cs:
+        cr[SYNC16_ROWS:] = 0
+    c = np.concatenate(cs)
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]))["params"]
+    assert params["big"]["kernel"].dtype == jnp.float32
+
+    def body(p, xb, cb):
+        jfp.begin_step()
+        g = jax.grad(lambda pp: jnp.sum(model.apply({"params": pp}, xb) * cb))(p)
+        return jgradient_sync(g, mesh=mesh, axes=("dp",))
+
+    fn = shard_map(body, mesh=mesh, in_specs=(P(), P("dp"), P("dp")), out_specs=P(),
+                   check_vma=False)
+    before = metrics.get("cgx.codec.producer_consumed_slices") or 0.0
+    jfp.configure(mesh, ("dp",), divisor=WS, active=True)
+    try:
+        want = dict(leaf_paths(jax.tree.map(np.asarray, jax.jit(fn)(params, x, c))))
+    finally:
+        jfp.deconfigure()
+    assert (metrics.get("cgx.codec.producer_consumed_slices") or 0.0) - before == 1
+    for r, res in enumerate(results):
+        assert res["sync16_on"]["consumed"] == 1 and res["sync16_on"]["skipped"] == 0
+        assert res["sync16_step"]["consumed"] == res["sync16_step"]["skipped"] == 1
+        for p, v in want.items():
+            for case in ("sync16_on", "sync16_step"):
+                np.testing.assert_array_equal(res[case]["synced"][p].view(np.uint32),
+                                              v.view(np.uint32), err_msg=f"rank {r} {case} {p}")
+    assert np.abs(want["big.kernel"] - sum(cs) / WS).max() > 0
 
 
 # ---------------------------------------------------------------------------

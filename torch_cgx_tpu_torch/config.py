@@ -157,16 +157,32 @@ def _tri_state(name: str) -> str:
 
 def schedule_mode() -> str:
     """CGX_SCHEDULE: auto | on | off. "on" selects the JAX package's
-    pipelined bucket SRA, which the port does not have: the DDP hook's SRA
-    raises under it. "auto" and "off" run the monolithic SRA, as the JAX
-    package's bucket side does off the TPU."""
+    pipelined SRA, which the port does not have: the DDP hook's SRA and the
+    flat group's SRA of ``allreduce_tree`` raise under it
+    (:func:`refuse_pipelined_sra`). "auto" and "off" run the monolithic SRA,
+    as the JAX package does off the TPU."""
     return _tri_state(SCHEDULE)
 
 
 def planner_mode() -> str:
-    """CGX_PLANNER: auto | on | off. "on" also selects the pipelined
-    bucket SRA (refused, as under ``CGX_SCHEDULE=on``)."""
+    """CGX_PLANNER: auto | on | off. "on" also selects the pipelined SRA
+    (and re-plans the bits), refused as under ``CGX_SCHEDULE=on``."""
     return _tri_state(PLANNER)
+
+
+def refuse_pipelined_sra(reduction: str) -> None:
+    """Raise ``NotImplementedError`` where an SRA (any reduction but the
+    Ring and the all-to-all) would run under ``CGX_SCHEDULE=on`` or
+    ``CGX_PLANNER=on``: the JAX package pipelines that SRA chunk by chunk
+    or re-plans its bits, a different wire and a different result. Callers
+    check before any collective, on every rank alike."""
+    if reduction not in (REDUCTION_RING, REDUCTION_ALLTOALL) and (
+        schedule_mode() == "on" or planner_mode() == "on"
+    ):
+        raise NotImplementedError(
+            f"the pipelined SRA ({SCHEDULE}=on or {PLANNER}=on) is not ported; "
+            f"unset both or set them to auto or off"
+        )
 
 
 def async_mode() -> str:

@@ -787,7 +787,7 @@ constexpr int kMmBM = 64;        // rows of dw (columns of x2) a tile covers
 constexpr int kMmBN = 128;       // columns of dw (of g2) a tile covers
 constexpr int kMmBK = 16;        // contraction steps one ring stage holds
 constexpr int kMmStages = 4;     // stages of the shared-memory ring
-constexpr int kMmStageFloats = kMmBK * (kMmBM + kMmBN);
+constexpr int kMmStageElems = kMmBK * (kMmBM + kMmBN);  // operand values a stage holds
 
 // A load that acquires at device scope: the writes released before the
 // store or atomic it reads are visible after it.
@@ -799,17 +799,23 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 
 // Fill one ring stage: contraction rows k0 .. k0+15 of x2's columns
 // i0 .. i0+63 (xs, 16 x 64) and of g2's columns j0 .. j0+127 (gs, 16 x 128),
-// each a coalesced row segment. Rows past K and columns past din or o are
-// zero-filled and never summed. x_vec: x2's rows are 16-byte aligned
-// (din % 4 == 0), so x moves in 16-byte copies like g2 (o % 4 == 0).
-__device__ __forceinline__ void mm_fill(float* st, const float* x2, const float* g2,
-                                        long long k_total, int din, int o, long long k0,
-                                        int i0, int j0, bool x_vec) {
-  float* xs = st;
-  float* gs = st + kMmBK * kMmBM;
+// each a coalesced row segment, in the operands' element type E. Rows past
+// K and columns past din or o are zero-filled and never summed. x_vec:
+// x2's rows are whole 16-byte copies (din a multiple of 16/sizeof(E), x2
+// 16-byte aligned), so x moves in 16-byte copies like g2; else in 4-byte
+// copies (f32) or plain 2-byte loads and stores (16-bit), which the ring's
+// barrier orders like the copies. g_vec: the same of g2, whose f32 rows
+// are always whole copies (o % 4 == 0, g2 aligned: the entry's checks).
+template <typename E>
+__device__ __forceinline__ void mm_fill(E* st, const E* x2, const E* g2, long long k_total, int din,
+                                        int o, long long k0, int i0, int j0, bool x_vec,
+                                        bool g_vec) {
+  constexpr int V = 16 / (int)sizeof(E);  // values a 16-byte copy moves
+  E* xs = st;
+  E* gs = st + kMmBK * kMmBM;
   if (x_vec) {
-    for (int e = threadIdx.x; e < kMmBK * (kMmBM / 4); e += kMmThreads) {
-      const int u = e / (kMmBM / 4), q = 4 * (e % (kMmBM / 4));
+    for (int e = threadIdx.x; e < kMmBK * (kMmBM / V); e += kMmThreads) {
+      const int u = e / (kMmBM / V), q = V * (e % (kMmBM / V));
       const bool in = k0 + u < k_total && i0 + q < din;
       cp_async16(xs + u * kMmBM + q, in ? x2 + (k0 + u) * din + i0 + q : x2, in ? 16 : 0);
     }
@@ -817,13 +823,25 @@ __device__ __forceinline__ void mm_fill(float* st, const float* x2, const float*
     for (int e = threadIdx.x; e < kMmBK * kMmBM; e += kMmThreads) {
       const int u = e / kMmBM, q = e % kMmBM;
       const bool in = k0 + u < k_total && i0 + q < din;
-      cp_async4(xs + u * kMmBM + q, in ? x2 + (k0 + u) * din + i0 + q : x2, in ? 4 : 0);
+      if constexpr (sizeof(E) == 4) {
+        cp_async4(xs + u * kMmBM + q, in ? x2 + (k0 + u) * din + i0 + q : x2, in ? 4 : 0);
+      } else {
+        xs[u * kMmBM + q] = in ? x2[(k0 + u) * din + i0 + q] : E(0);
+      }
     }
   }
-  for (int e = threadIdx.x; e < kMmBK * (kMmBN / 4); e += kMmThreads) {
-    const int u = e / (kMmBN / 4), q = 4 * (e % (kMmBN / 4));
-    const bool in = k0 + u < k_total && j0 + q < o;
-    cp_async16(gs + u * kMmBN + q, in ? g2 + (k0 + u) * o + j0 + q : g2, in ? 16 : 0);
+  if (sizeof(E) == 4 || g_vec) {
+    for (int e = threadIdx.x; e < kMmBK * (kMmBN / V); e += kMmThreads) {
+      const int u = e / (kMmBN / V), q = V * (e % (kMmBN / V));
+      const bool in = k0 + u < k_total && j0 + q < o;
+      cp_async16(gs + u * kMmBN + q, in ? g2 + (k0 + u) * o + j0 + q : g2, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kMmBK * kMmBN; e += kMmThreads) {
+      const int u = e / kMmBN, q = e % kMmBN;
+      const bool in = k0 + u < k_total && j0 + q < o;
+      gs[u * kMmBN + q] = in ? g2[(k0 + u) * o + j0 + q] : E(0);
+    }
   }
 }
 
@@ -847,16 +865,72 @@ __device__ __forceinline__ void mm_step(float (&acc)[8][8], const float* xs, con
   }
 }
 
+// The two 16-bit values of a 32-bit shared word as their exact floats, the
+// lower address first: bf16 by a shift (its bits are a float's upper
+// half), f16 (F16) by __half2float.
+template <bool F16>
+__device__ __forceinline__ void wire_pair(uint32_t w, float& lo, float& hi) {
+  if constexpr (F16) {
+    lo = __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+    hi = __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+  } else {
+    lo = __uint_as_float(w << 16);
+    hi = __uint_as_float(w & 0xffff0000u);
+  }
+}
+
+// mm_step on 16-bit operands: four 8-byte shared loads, each value
+// converted exactly to f32 where it is read, then the same 64 __fmaf_rn in
+// the same order. A product of two bf16 (or two f16) values is exact in
+// f32, so the sums are those of the f32 instance on the upcast operands.
+template <bool F16>
+__device__ __forceinline__ void mm_step16(float (&acc)[8][8], const uint16_t* xs,
+                                          const uint16_t* gs, int tx, int ty) {
+  const uint2 a0 = *reinterpret_cast<const uint2*>(xs + 4 * ty);
+  const uint2 a1 = *reinterpret_cast<const uint2*>(xs + 32 + 4 * ty);
+  const uint2 b0 = *reinterpret_cast<const uint2*>(gs + 4 * tx);
+  const uint2 b1 = *reinterpret_cast<const uint2*>(gs + 64 + 4 * tx);
+  float a[8], b[8];
+  wire_pair<F16>(a0.x, a[0], a[1]);
+  wire_pair<F16>(a0.y, a[2], a[3]);
+  wire_pair<F16>(a1.x, a[4], a[5]);
+  wire_pair<F16>(a1.y, a[6], a[7]);
+  wire_pair<F16>(b0.x, b[0], b[1]);
+  wire_pair<F16>(b0.y, b[2], b[3]);
+  wire_pair<F16>(b1.x, b[4], b[5]);
+  wire_pair<F16>(b1.y, b[6], b[7]);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = __fmaf_rn(a[r], b[c], acc[r][c]);
+  }
+}
+
+// The sums of one ring stage of 16-bit operands: `left` contraction steps
+// (at most 16) in the format F16 says.
+template <bool F16>
+__device__ __forceinline__ void mm_stage16(float (&acc)[8][8], const uint16_t* xs,
+                                           const uint16_t* gs, int tx, int ty, long long left) {
+  if (left >= kMmBK) {
+#pragma unroll
+    for (int u = 0; u < kMmBK; ++u) mm_step16<F16>(acc, xs + u * kMmBM, gs + u * kMmBN, tx, ty);
+  } else {
+    for (int u = 0; u < (int)left; ++u) mm_step16<F16>(acc, xs + u * kMmBM, gs + u * kMmBN, tx, ty);
+  }
+}
+
 // codec_matmul_quantize. Replaces fused_producer.py _matmul_quantize_impl
-// (B8): dw = x2^T g2 (x2 f32 (K, din), g2 f32 (K, o), row-major), divided by
-// div and quantized into the wire layout of the flat dw (din*o values, row
-// major), plus the f32 values of dw / div at flat [raw_lo, raw_lo + raw_n)
-// (the own raw row of the SRA; raw_n 0: none).
+// (B8): dw = x2^T g2 (x2 (K, din), g2 (K, o), row-major, both of element
+// type E), divided by div and quantized into the wire layout of the flat
+// dw (din*o values, row major), plus the f32 values of dw / div at flat
+// [raw_lo, raw_lo + raw_n) (the own raw row of the SRA; raw_n 0: none).
 //
-// Bound: operations, 2*K*din*o f32 (a multiply and an add per product)
-// against 4*K*(din + o) bytes read once and n*bits/8 + 8n/B written. The
-// design: no tensor cores (TF32 would round the operands and break parity
-// with the plain version), so it is an FFMA GEMM like cuBLAS's f32 kernels:
+// Bound: operations, 2*K*din*o (a multiply and an add per product, f32
+// FFMA) against sizeof(E)*K*(din + o) bytes read once and n*bits/8 + 8n/B
+// written. The design: no tensor cores (TF32 would round the f32 operands,
+// and an MMA's accumulation order would change the sums of the 16-bit
+// ones, breaking parity with the plain version), so it is an FFMA GEMM like
+// cuBLAS's f32 kernels:
 //  - the GEMM tiling is the output's, not the quantize chunk's: 64 x 128
 //    tiles of dw, every value computed exactly once (288 tiles at GPT-2
 //    124M's mlp_in), walked by a persistent grid of as many blocks as the
@@ -869,6 +943,18 @@ __device__ __forceinline__ void mm_step(float (&acc)[8][8], const float* xs, con
 //    one __fmaf_rn chain from 0 with k ascending, then __fdiv_rn(acc, div):
 //    the order of the one-block-per-chunk kernel this design replaced, so
 //    the bytes equal its bytes; no split-K.
+// The 16-bit operands of a bf16 or f16 layer (E = uint16_t, the format the
+// launch's `wire` argument, uniform across the grid; the JAX kernel reads
+// its operands in the layer's compute dtype and contracts them with
+// preferred_element_type=float32): the ring holds 2-byte values, so a
+// stage is half as large, and each value becomes its exact f32 at the
+// shared-memory read (mm_step16); the sums, the workspace and the quantize
+// are the f32 instance's on the upcast operands, bit for bit. The own raw
+// row is the layer's product in its compute dtype, as the JAX package
+// takes it (dw_own.astype(w.dtype), then / div): each sum rounded to the
+// wire dtype (round to nearest even) before the divide. The workspace
+// keeps __fdiv_rn of the f32 sum, which the JAX kernel quantizes. The f32
+// instances take `g_vec` and `wire` and never read them.
 // The quantize needs each 32-bucket chunk whole, and a chunk spans the
 // tiles of several blocks. Chunk completion through the L2 (chosen over a
 // cluster holding whole chunks in distributed shared memory, whose group
@@ -885,17 +971,19 @@ __device__ __forceinline__ void mm_step(float (&acc)[8][8], const float* xs, con
 // rather than the block whose arrival completes it: all tiles of a band of
 // rows finish together, so that block would quantize every chunk of its
 // band in turn (12 at mlp_in).
-template <int BITS, int ENCODE, int PACK>
+template <int BITS, int ENCODE, int PACK, typename E>
 __global__ void __launch_bounds__(kMmThreads, 3)
-    cgx_matmul_quantize_kernel(const float* __restrict__ x2, const float* __restrict__ g2,
+    cgx_matmul_quantize_kernel(const E* __restrict__ x2, const E* __restrict__ g2,
                                long long k_total, int din, int o, int tiles_n, long long tiles,
                                float div, int B, float inv, int x_vec,
                                float* __restrict__ work, int* __restrict__ arrivals,
                                float* __restrict__ raw, long long raw_lo, long long raw_n,
-                               int32_t* __restrict__ words, float* __restrict__ meta) {
+                               int32_t* __restrict__ words, float* __restrict__ meta, int g_vec,
+                               int wire) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_unit[kChunkBuckets];
   __shared__ float s_min[kChunkBuckets];
+  E* ring = reinterpret_cast<E*>(smem);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long chunk_n = (long long)kChunkBuckets * B;
   const long long nk = (k_total + kMmBK - 1) / kMmBK;
@@ -912,8 +1000,8 @@ __global__ void __launch_bounds__(kMmThreads, 3)
 #pragma unroll
     for (int st = 0; st < kMmStages - 1; ++st) {
       if (st < nk) {
-        mm_fill(smem + st * kMmStageFloats, x2, g2, k_total, din, o, (long long)st * kMmBK, i0, j0,
-                x_vec);
+        mm_fill<E>(ring + st * kMmStageElems, x2, g2, k_total, din, o, (long long)st * kMmBK, i0,
+                   j0, x_vec, g_vec);
       }
       cp_async_commit();
     }
@@ -922,14 +1010,20 @@ __global__ void __launch_bounds__(kMmThreads, 3)
       __syncthreads();                  // and everyone's; stage kt - 1 is summed
       const long long next = kt + kMmStages - 1;
       if (next < nk) {
-        mm_fill(smem + (next % kMmStages) * kMmStageFloats, x2, g2, k_total, din, o,
-                next * kMmBK, i0, j0, x_vec);
+        mm_fill<E>(ring + (next % kMmStages) * kMmStageElems, x2, g2, k_total, din, o,
+                   next * kMmBK, i0, j0, x_vec, g_vec);
       }
       cp_async_commit();  // possibly empty: keeps the group count uniform
-      const float* xs = smem + (kt % kMmStages) * kMmStageFloats;
-      const float* gs = xs + kMmBK * kMmBM;
+      const E* xs = ring + (kt % kMmStages) * kMmStageElems;
+      const E* gs = xs + kMmBK * kMmBM;
       const long long left = k_total - kt * kMmBK;
-      if (left >= kMmBK) {
+      if constexpr (sizeof(E) == 2) {
+        if (wire == kWireF16) {
+          mm_stage16<true>(acc, xs, gs, tx, ty, left);
+        } else {
+          mm_stage16<false>(acc, xs, gs, tx, ty, left);
+        }
+      } else if (left >= kMmBK) {
 #pragma unroll
         for (int u = 0; u < kMmBK; ++u) mm_step(acc, xs + u * kMmBM, gs + u * kMmBN, tx, ty);
       } else {  // the last stage of a K that is not a multiple of 16: exactly K sums
@@ -954,6 +1048,12 @@ __global__ void __launch_bounds__(kMmThreads, 3)
           const long long flat = (long long)i * o + j;
           __stcg(reinterpret_cast<float4*>(work + flat), v);
           if (flat >= raw_lo && flat < raw_lo + raw_n) {
+            if constexpr (sizeof(E) == 2) {  // the product in the compute dtype, then / div
+              v.x = __fdiv_rn(wire_round<E>(acc[r][4 * h], wire), div);
+              v.y = __fdiv_rn(wire_round<E>(acc[r][4 * h + 1], wire), div);
+              v.z = __fdiv_rn(wire_round<E>(acc[r][4 * h + 2], wire), div);
+              v.w = __fdiv_rn(wire_round<E>(acc[r][4 * h + 3], wire), div);
+            }
             *reinterpret_cast<float4*>(raw + (flat - raw_lo)) = v;
           }
         }
@@ -2407,12 +2507,13 @@ int by_instance(int stochastic, int wire, const F& f) {
 }  // namespace
 
 
-// The build compiles this file once per part (-DCGX_PART=0..19), the parts
+// The build compiles this file once per part (-DCGX_PART=0..20), the parts
 // in parallel, and links them into one library; without CGX_PART it
 // compiles every entry point. Parts 7-10 hold the stochastic f32
 // instances, parts 11-18 the 16-bit ones (of B1, B3, B7a, B7c, each round
-// to nearest and stochastic), part 19 B4's with a 16-bit raw row. With
-// -DCGX_INT8 it compiles the int8 fold's library instead (parts 0-9).
+// to nearest and stochastic), part 19 B4's with a 16-bit raw row, part 20
+// B8's 16-bit operands. With -DCGX_INT8 it compiles the int8 fold's
+// library instead (parts 0-9).
 #ifdef CGX_PART
 #define CGX_IN_PART(k) (CGX_PART == (k))
 #else
@@ -2564,6 +2665,57 @@ int reduce_rows_entry(const int32_t* words, const float* meta, const E* raw, int
   return (int)cudaGetLastError();
 }
 
+// B8's body for element type E (float, or uint16_t for both 16-bit wire
+// dtypes, whose format is `wire`): one cooperative launch of the
+// persistent grid.
+template <typename E>
+int matmul_quantize_entry(const E* x2, const E* g2, long long k_total, int din, int o, float div,
+                          float* work, int* arrivals, float* raw, long long raw_lo,
+                          long long raw_n, int32_t* words, float* meta, int B, int bits,
+                          float inv, int encode, int pack, int wire, void* stream) {
+  constexpr int V = 16 / (int)sizeof(E);  // values a 16-byte copy moves
+  const long long n = (long long)din * o;
+  const long long chunk_n = (long long)kChunkBuckets * B;
+  if (k_total < 1 || din < 1 || o < 4 || o % 4 || B < 32 || B % 32 || n % chunk_n ||
+      (sizeof(E) == 4 && !aligned16(g2)) || !aligned16(work) || arrivals == nullptr ||
+      raw_lo < 0 || raw_n < 0 || raw_lo % 4 || raw_n % 4 || raw_lo + raw_n > n ||
+      (raw_n > 0 && (raw == nullptr || !aligned16(raw)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int x_vec = din % V == 0 && aligned16(x2);
+  int g_vec = o % V == 0 && aligned16(g2);
+  int tiles_n = (o + kMmBN - 1) / kMmBN;
+  long long tiles = (long long)((din + kMmBM - 1) / kMmBM) * tiles_n;
+  cudaStream_t st = (cudaStream_t)stream;
+  // The ring, or a whole chunk while the block quantizes it.
+  const size_t ring = (size_t)kMmStages * kMmStageElems * sizeof(E);
+  const size_t tile = (size_t)chunk_n * sizeof(float);
+  const size_t smem = ring > tile ? ring : tile;
+  void* args[] = {&x2, &g2, &k_total, &din, &o, &tiles_n, &tiles, &div, &B, &inv, &x_vec,
+                  &work, &arrivals, &raw, &raw_lo, &raw_n, &words, &meta, &g_vec, &wire};
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    auto kernel = cgx_matmul_quantize_kernel<BITS, ENCODE, PACK, E>;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    }
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmThreads, smem);
+    }
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long most = (long long)per_sm * sms;
+    const long long want = tiles > n / chunk_n ? tiles : n / chunk_n;
+    const unsigned grid = (unsigned)(want < most ? want : most);
+    e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kMmThreads), args, smem,
+                                    st);
+    if (e != cudaSuccess) return (int)e;
+  }));
+  return (int)cudaGetLastError();
+}
+
 #ifndef CGX_INT8
 // Each instance but an entry point's f32 round-to-nearest one is compiled
 // in its part alone; the other parts only declare it.
@@ -2648,6 +2800,17 @@ template int reduce_rows_entry<uint16_t>(const int32_t*, const float*, const uin
 #else
 extern template int reduce_rows_entry<uint16_t>(const int32_t*, const float*, const uint16_t*, int,
                                                 int, long long, int, int, int, float*, int, void*);
+#endif
+#if CGX_IN_PART(20)
+template int matmul_quantize_entry<uint16_t>(const uint16_t*, const uint16_t*, long long, int, int,
+                                             float, float*, int*, float*, long long, long long,
+                                             int32_t*, float*, int, int, float, int, int, int,
+                                             void*);
+#else
+extern template int matmul_quantize_entry<uint16_t>(const uint16_t*, const uint16_t*, long long,
+                                                    int, int, float, float*, int*, float*,
+                                                    long long, long long, int32_t*, float*, int,
+                                                    int, float, int, int, int, void*);
 #endif
 #else  // CGX_INT8
 // The int8 library (-DCGX_INT8, codec_cuda.build_int8): the int8 fold's
@@ -2841,56 +3004,29 @@ int cgx_sra_epilogue(const int32_t* words, const float* meta, const void* raw,
 
 
 #if CGX_IN_PART(3)
-// x2: k_total*din f32, g2: k_total*o f32 (row-major; g2 16-byte aligned) ->
-// the flat dw = x2^T g2 / div quantized: words (din*o/(32*B))*bits*B int32,
-// meta (din*o/B)*2 f32, and raw: the f32 dw / div at flat [raw_lo, raw_lo +
-// raw_n) (raw_n 0 and raw null: none; both multiples of 4, raw 16-byte
-// aligned). din*o must be whole 32-bucket chunks, o % 4 == 0. work: din*o
-// f32 of scratch (16-byte aligned); arrivals: one int32 a chunk, zero
-// before the launch.
-int cgx_matmul_quantize(const float* x2, const float* g2, long long k_total, int din, int o,
+// x2: k_total*din, g2: k_total*o values of the wire dtype (row-major; f32:
+// g2 16-byte aligned) -> the flat dw = x2^T g2 / div quantized: words
+// (din*o/(32*B))*bits*B int32, meta (din*o/B)*2 f32, and raw: the f32 dw /
+// div at flat [raw_lo, raw_lo + raw_n), for 16-bit operands each sum
+// rounded to the wire dtype before the divide (raw_n 0 and raw null: none;
+// both multiples of 4, raw 16-byte aligned). din*o must be whole 32-bucket
+// chunks, o % 4 == 0. work: din*o f32 of scratch (16-byte aligned);
+// arrivals: one int32 a chunk, zero before the launch.
+int cgx_matmul_quantize(const void* x2, const void* g2, long long k_total, int din, int o,
                         float div, float* work, int* arrivals, float* raw, long long raw_lo,
                         long long raw_n, int32_t* words, float* meta, int B, int bits, float inv,
-                        int encode, int pack, void* stream) {
-  const long long n = (long long)din * o;
-  const long long chunk_n = (long long)kChunkBuckets * B;
-  if (k_total < 1 || din < 1 || o < 4 || o % 4 || B < 32 || B % 32 || n % chunk_n ||
-      !aligned16(g2) || !aligned16(work) || arrivals == nullptr || raw_lo < 0 || raw_n < 0 ||
-      raw_lo % 4 || raw_n % 4 || raw_lo + raw_n > n ||
-      (raw_n > 0 && (raw == nullptr || !aligned16(raw)))) {
-    return (int)cudaErrorInvalidValue;
+                        int encode, int pack, int wire, void* stream) {
+  if (wire == kWireF32) {
+    return cgx::matmul_quantize_entry<float>(static_cast<const float*>(x2),
+                                             static_cast<const float*>(g2), k_total, din, o, div,
+                                             work, arrivals, raw, raw_lo, raw_n, words, meta, B,
+                                             bits, inv, encode, pack, wire, stream);
   }
-  int x_vec = din % 4 == 0 && aligned16(x2);
-  int tiles_n = (o + kMmBN - 1) / kMmBN;
-  long long tiles = (long long)((din + kMmBM - 1) / kMmBM) * tiles_n;
-  cudaStream_t st = (cudaStream_t)stream;
-  // The ring, or a whole chunk while the block quantizes it.
-  const size_t ring = (size_t)kMmStages * kMmStageFloats * sizeof(float);
-  const size_t tile = (size_t)chunk_n * sizeof(float);
-  const size_t smem = ring > tile ? ring : tile;
-  void* args[] = {&x2, &g2, &k_total, &din, &o, &tiles_n, &tiles, &div, &B, &inv, &x_vec,
-                  &work, &arrivals, &raw, &raw_lo, &raw_n, &words, &meta};
-  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
-    auto kernel = cgx_matmul_quantize_kernel<BITS, ENCODE, PACK>;
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    }
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmThreads, smem);
-    }
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const long long most = (long long)per_sm * sms;
-    const long long want = tiles > n / chunk_n ? tiles : n / chunk_n;
-    const unsigned grid = (unsigned)(want < most ? want : most);
-    e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kMmThreads), args, smem,
-                                    st);
-    if (e != cudaSuccess) return (int)e;
-  }));
-  return (int)cudaGetLastError();
+  if (wire != kWireBf16 && wire != kWireF16) return (int)cudaErrorInvalidValue;
+  return cgx::matmul_quantize_entry<uint16_t>(static_cast<const uint16_t*>(x2),
+                                              static_cast<const uint16_t*>(g2), k_total, din, o,
+                                              div, work, arrivals, raw, raw_lo, raw_n, words, meta,
+                                              B, bits, inv, encode, pack, wire, stream);
 }
 #endif
 

@@ -70,9 +70,12 @@ path quantizes ``reduced.to(dtype)``. The kernels' meta, the decode
 cast the meta to the tensor's dtype after a quantize and upcast sub-f32
 meta and accumulators before a decode, as the JAX package's do outside
 its kernels (``codec.batch_views``). Another dtype raises ``ValueError``.
-The matmul-quantize (B8) stays float32: the port upcasts its bf16 tiles
-before the launch (``ops/fused_producer.py``), where the JAX kernel reads
-them itself (ROADMAP Queue B).
+The matmul-quantize (B8) reads its two operands in one dtype of the
+three, as the JAX kernel reads them in the layer's compute dtype: a
+16-bit product's sums (and so its words and meta) are those of the
+float32 kernel on the upcast operands, bit for bit, since the product of
+two bf16 (or two f16) values is exact in float32; its own raw row is the
+product rounded to the operand dtype, then divided.
 
 The int8 fold (``CGX_SRA_ACCUM=int8``): the reduce kernels (B3, B7c, B4)
 and their plain versions take ``accum`` ("exact", the f32 fold, or "int8";
@@ -123,8 +126,8 @@ NVCC_FLAGS = (
 # csrc/codec.cu), compiled by one nvcc each, all at once, then linked:
 # parts 7-10 hold the stochastic f32 instances of B1, B3, B7a and B7c,
 # parts 11-18 their 16-bit instances (round to nearest and stochastic),
-# part 19 B4's with a 16-bit raw row.
-BUILD_PARTS = 20
+# part 19 B4's with a 16-bit raw row, part 20 B8's with 16-bit operands.
+BUILD_PARTS = 21
 # The int8 library's parts: its entry points and B4 (0), B3 (1-4), B7c
 # (5-8), B4 with a 16-bit raw row (9).
 INT8_BUILD_PARTS = 10
@@ -165,11 +168,11 @@ DB_GATED: Dict[str, int] = {"quantize": 0, "dequantize": 0, "epilogue": 0}
 # is not a multiple of 128; a share of LAUNCHES["codec_reduce_rows"].
 REDUCE_SCALAR: Dict[str, int] = {"launches": 0}
 # Launches whose wire operand (B1/B7a's input; B3/B7c's wire dtype, a raw
-# row's included; B4's raw row) was bf16 or f16, read by the kernel
-# itself: a share of LAUNCHES, by kernel.
+# row's included; B4's raw row; B8's two operands) was bf16 or f16, read
+# by the kernel itself: a share of LAUNCHES, by kernel.
 WIRE16_LAUNCHES: Dict[str, int] = {
     "codec_quantize": 0, "codec_quantize_db": 0, "codec_sra_epilogue": 0,
-    "codec_sra_epilogue_db": 0, "codec_reduce_rows": 0,
+    "codec_sra_epilogue_db": 0, "codec_reduce_rows": 0, "codec_matmul_quantize": 0,
 }
 # Launches of the int8 fold's instances (CGX_SRA_ACCUM=int8): a share of
 # LAUNCHES, by kernel.
@@ -324,7 +327,7 @@ def _lib():
                 vp, vp, vp, i, i, ll, i, i, f, i, i, i, i, i, u, u, vp, vp, i, vp]
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp, i, vp]
             lib.cgx_matmul_quantize.argtypes = [
-                vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, vp]
+                vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, i, vp]
             lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, i, u, u, i, vp]
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
             lib.cgx_sra_epilogue_db.argtypes = [
@@ -1001,15 +1004,17 @@ def matmul_quantize_chunks_plain(
     encode: Optional[str] = None, pack: Optional[str] = None,
     own_row: Optional[Tuple[int, int]] = None,
 ):
-    """Plain version of :func:`matmul_quantize_chunks`: the product, the
-    divide, then :func:`quantize_chunks_plain` of the flat result (and the
-    own row's values of the same quotient)."""
-    dw = (torch.matmul(x2.t(), g2) / div).reshape(-1)
-    words, meta = quantize_chunks_plain(dw, bits, bucket_size, encode, pack)
+    """Plain version of :func:`matmul_quantize_chunks`: the float32 product
+    of the (upcast) operands, the divide, then :func:`quantize_chunks_plain`
+    of the flat result; the own row's values are the product rounded to the
+    operands' dtype (the layer's compute dtype; float32: itself), then
+    divided."""
+    dw = torch.matmul(x2.float().t(), g2.float()).reshape(-1)
+    words, meta = quantize_chunks_plain(dw / div, bits, bucket_size, encode, pack)
     if own_row is None:
         return words, meta
     lo, ln = _own_span(dw.numel(), own_row)
-    return words, meta, dw[lo : lo + ln].clone()
+    return words, meta, dw[lo : lo + ln].to(x2.dtype).float() / div
 
 
 def matmul_quantize_chunks(
@@ -1018,14 +1023,16 @@ def matmul_quantize_chunks(
     own_row: Optional[Tuple[int, int]] = None,
 ):
     """The weight gradient of a dense layer, divided and quantized:
-    ``x2`` f32 ``(K, din)`` and ``g2`` f32 ``(K, o)`` -> ``(words int32
-    (C*bits*B,), meta f32 (C*32, 2))`` of the flat ``x2^T g2 / div``
-    (``din*o`` values, row-major, ``C = din*o / (32*B)`` chunks) in the
-    wire layout, in the ``encode`` and ``pack`` lowerings
-    (:func:`_lowering`). With ``own_row=(own, ws)`` also the f32 values of
-    row ``own`` of the ``(ws, din*o/ws)`` view of the same quotient, from
-    the same sums. On the card the quotient goes only to an L2-sized
-    workspace the kernel quantizes from; one launch."""
+    ``x2`` ``(K, din)`` and ``g2`` ``(K, o)``, both float32, bfloat16 or
+    float16 (one dtype, else ``TypeError``) -> ``(words int32 (C*bits*B,),
+    meta f32 (C*32, 2))`` of the flat float32 ``x2^T g2 / div`` (``din*o``
+    values, row-major, ``C = din*o / (32*B)`` chunks) in the wire layout, in
+    the ``encode`` and ``pack`` lowerings (:func:`_lowering`). With
+    ``own_row=(own, ws)`` also the f32 values of row ``own`` of the ``(ws,
+    din*o/ws)`` view of the product in the operands' dtype, divided, from
+    the same sums. On the card the kernel reads 16-bit operands itself
+    (counted in :data:`WIRE16_LAUNCHES`); the quotient goes only to an
+    L2-sized workspace the kernel quantizes from; one launch."""
     encode, pack = _lowering(encode, pack)
     if cfg_mod.stochastic_rounding():
         raise NotImplementedError(
@@ -1034,6 +1041,9 @@ def matmul_quantize_chunks(
         )
     if x2.dim() != 2 or g2.dim() != 2 or x2.shape[0] != g2.shape[0]:
         raise ValueError(f"expected x2 (K, din) and g2 (K, o), got {tuple(x2.shape)}, {tuple(g2.shape)}")
+    if x2.dtype != g2.dtype:
+        raise TypeError(f"matmul-quantize operands must share one dtype, got {x2.dtype} and {g2.dtype}")
+    wire = wire_code("matmul-quantize operands", x2.dtype)
     k_total, din = x2.shape
     o = g2.shape[1]
     chunks = _chunk_geometry(din * o, bits, bucket_size)
@@ -1044,11 +1054,9 @@ def matmul_quantize_chunks(
         raise ValueError(f"the matmul-quantize kernel needs o % 4 == 0, got o={o}")
     if CHUNK_BUCKETS * bucket_size * 4 > MAX_EPILOGUE_TILE_BYTES:
         raise ValueError(f"bucket_size {bucket_size} exceeds the kernel's shared-memory tile")
-    # float32 only: the producer upcasts bf16 tiles before the launch
-    # (fused_producer.py), where the JAX kernel reads them (ROADMAP Queue B).
-    _require_cuda_operand("matmul x2", x2, torch.float32, x2.numel())
-    _require_cuda_operand("matmul g2", g2, torch.float32, g2.numel())
-    if g2.data_ptr() % 16:  # the kernel reads g2 four floats at a time
+    _require_cuda_operand("matmul x2", x2, x2.dtype, x2.numel())
+    _require_cuda_operand("matmul g2", g2, x2.dtype, g2.numel())
+    if not wire and g2.data_ptr() % 16:  # the f32 kernel reads g2 four floats at a time
         g2 = g2.clone()
     dev = x2.device
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=dev)
@@ -1061,9 +1069,9 @@ def matmul_quantize_chunks(
         work.data_ptr(), arrivals.data_ptr(),
         None if raw is None or raw_n == 0 else raw.data_ptr(), raw_lo, raw_n,
         words.data_ptr(), meta.data_ptr(), bucket_size, bits,
-        codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), _stream(x2),
+        codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), wire, _stream(x2),
     )
-    LAUNCHES["codec_matmul_quantize"] += 1
+    _count_launch("codec_matmul_quantize", wire)
     _check_launch("codec_matmul_quantize", err)
     return (words, meta) if raw is None else (words, meta, raw)
 

@@ -21,7 +21,9 @@ The payload and the raw own row come from one launch of the
 matmul-quantize kernel (``codec_cuda.matmul_quantize_chunks``, B8: a
 register-tiled f32 GEMM whose tiles complete the quantize chunks through
 the L2; only the words, the meta and the own row are returned), which
-takes its plain version for CPU operands.
+reads the operands in the layer's compute dtype (float32, bfloat16 or
+float16), as the JAX kernel does, and takes its plain version for CPU
+operands.
 
 Where this differs from the JAX package:
 
@@ -33,7 +35,7 @@ Where this differs from the JAX package:
 * Eager PyTorch has no dead-code elimination, and XLA's is what lets the
   JAX package drop the plain ``dw`` of an engaged layer. The port decides
   it in the backward instead (C4): inside ``make_train_step``, which owns
-  the backward and the sync (``configure(skip_dw=True)``), a float32 layer
+  the backward and the sync (``configure(skip_dw=True)``), a layer
   applied once in the step's forward whose payload the sync will consume
   (:func:`consume_reason`, the predicate the allreduce applies too)
   returns no ``dw``, counted as ``producer_dw_skipped``; the allreduce
@@ -42,12 +44,12 @@ Where this differs from the JAX package:
   consume raises ``RuntimeError``. A ``gradient_sync`` called directly
   keeps ``dw``. ``CGX_PRODUCER_FUSE=auto`` resolves to off (see
   ``config.producer_fuse``); "on" engages on any device.
-* The raw own row is row ``own`` of the kernel's own ``dw / divisor``,
-  from the same sums as the quantized rows (as the unfused path takes both
-  from one ``dw``); the JAX package computes it with a separate 1/ws-sized
-  dot. A lower-precision product takes the returned ``dw``'s row, the JAX
-  package's own-row product in the compute dtype, and never skips (the
-  kernel sums in float32).
+* The raw own row is row ``own`` of the kernel's own product, from the
+  same sums as the quantized rows, rounded to the compute dtype (the JAX
+  package's ``dw_own.astype(w.dtype)``) and divided; the JAX package
+  computes it with a separate 1/ws-sized dot in the compute dtype. The
+  quantized rows are the float32 sums divided, which the JAX kernel
+  quantizes too (its ``preferred_element_type=float32`` accumulator).
 * The stash cannot match on the identity of the gradient object:
   ``AccumulateGrad`` may steal the returned tensor or copy it. An entry
   holds no strong reference to ``dw``; it matches a gradient by the storage
@@ -430,12 +432,15 @@ def _plan(
     ``(cc, skip)`` when every gate passes, ``skip`` when the backward must
     not return ``dw`` (the sync of this step, ``make_train_step``'s, will
     consume the payload in its place); else None, the fallback counted.
-    Only a float32 product skips: the kernel sums in float32, which is the
-    layer's own product only when it computes in float32."""
+    A product in a dtype the kernel does not read (not float32, bfloat16 or
+    float16) falls back (``config``)."""
     if not _CFG["active"]:
         return None
     if not _CFG["configured"]:
         fallback("unconfigured")
+        return None
+    if x_dtype not in codec_cuda.WIRE_DTYPES:
+        fallback("config")
         return None
     ws, div = int(_CFG["ws"]), int(_CFG["divisor"])
     cc, reason = decide(name, w_shape, k_total, ws, dtype=w_dtype)
@@ -453,7 +458,6 @@ def _plan(
     n = math.prod(w_shape)
     skip = (
         bool(_CFG["skip_dw"])
-        and x_dtype == torch.float32
         and _FORWARDS.get(name, 0) == 1
         and consume_reason(
             (cc, ws, div, n), cc=cc, ws=ws, divisor=div, n=n,
@@ -465,17 +469,11 @@ def _plan(
 
 def _stash(name: str, cc: CompressionConfig, w_shape, w_dtype, x2, g2, dw) -> None:
     """Stage the layer's payload: the kernel's quantized rows and raw own
-    row, matched later to ``dw`` (None: a skipped gradient, taken by name).
-    The raw own row comes from the kernel's sums, as the quantized rows,
-    for a float32 product; for a lower-precision one it is the returned
-    ``dw``'s row (the JAX package's own-row product in the compute dtype)."""
+    row, both from one launch on the operands as the backward holds them,
+    matched later to ``dw`` (None: a skipped gradient, taken by name)."""
     ws, div, own = int(_CFG["ws"]), int(_CFG["divisor"]), int(_CFG["rank"])
     n = math.prod(w_shape)
-    if x2.dtype == torch.float32:
-        q, raw_row = _matmul_quantize_q(x2, g2, cc, ws=ws, chunk=n // ws, div=div, own=own)
-    else:
-        q = _matmul_quantize_q(x2, g2, cc, ws=ws, chunk=n // ws, div=div)
-        raw_row = dw.view(ws, n // ws)[own] / div
+    q, raw_row = _matmul_quantize_q(x2, g2, cc, ws=ws, chunk=n // ws, div=div, own=own)
     count("producer_kernel_slices")
     count("producer_staged")
     if dw is None:
@@ -540,17 +538,16 @@ def _matmul_quantize_q(x2, g2, cc, *, ws, chunk, div, own=None):
     """Run the matmul-quantize kernel over the whole ``dw`` and lay its
     words and meta out as the ``(ws, chunk)`` row-batched QTensor
     ``dispatch.quantize_batch`` gives (each row is whole chunks, so the
-    flat wire layout splits into rows by a view). With ``own``, returns
-    ``(q, raw_row)``: also row ``own`` of ``dw / div``, from the same
-    launch's sums."""
+    flat wire layout splits into rows by a view). The operands go to the
+    kernel in their own dtype, uncast. With ``own``, returns ``(q,
+    raw_row)``: also row ``own`` of the product in that dtype, divided,
+    from the same launch's sums."""
     b, bits = cc.bucket_size, cc.bits
-    x2f = x2.to(torch.float32).contiguous()
-    g2f = g2.to(torch.float32).contiguous()
     # The lowerings of fused_producer.py:512-513: the env's pack (no tuned
     # entry) and the encode.
     out = codec_cuda.matmul_quantize_chunks(
-        x2f, g2f, div, bits, b, encode=cfg_mod.codec_encode(), pack=codec_cuda._pack_strategy(),
-        own_row=None if own is None else (own, ws),
+        x2.contiguous(), g2.contiguous(), div, bits, b, encode=cfg_mod.codec_encode(),
+        pack=codec_cuda._pack_strategy(), own_row=None if own is None else (own, ws),
     )
     words, meta = out[0], out[1]
     q = QTensor(

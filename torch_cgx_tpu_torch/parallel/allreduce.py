@@ -12,7 +12,12 @@ default) and every slice is reduced, over two levels by
 backward already quantized (``ops/fused_producer.py``, producer fusion)
 hands that payload to the multi-rank SRA in place of its own quantize. The
 schedule compiler, the step planner and the staged-program routes of the
-JAX package stay out: off the TPU they are inert at their default settings.
+JAX package stay out: off the TPU they are inert at their default settings,
+and ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on``, which would pipeline a flat
+group's SRA or re-plan its bits there, raise (:func:`refuse_unported`).
+``CGX_XLA_ALLREDUCE`` is not read: under "on" the JAX router changes the
+result only for a group whose processes each hold several devices, and a
+rank of the port holds one.
 
 Leaves are taken in the order JAX flattens a nested dict (keys sorted level
 by level: ``h_10`` before ``h_2``), so fused groups concatenate in the same
@@ -129,6 +134,27 @@ def flat_world(group: GroupLike) -> Tuple[ProcessGroup, int]:
     return group, group_mod.world_size(group)
 
 
+def refuse_unported(group: GroupLike, compressed: bool) -> None:
+    """Raise ``NotImplementedError`` (``config.refuse_pipelined_sra``) where
+    a flat group of more than one rank would reduce ``compressed`` values by
+    an SRA under ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on``, as the DDP hook
+    does. Every rank reaches the same verdict from the same knobs and
+    layout, before any collective. A ``TwoLevelGroup`` runs as it would
+    unset: the JAX package consults the schedule and the planner only on
+    one-axis calls (its two-axis sync keeps the monolithic stages)."""
+    if not compressed or isinstance(group, TwoLevelGroup) or cfg_mod.dummy_compression():
+        return
+    if group_mod.world_size(group) > 1:
+        cfg_mod.refuse_pipelined_sra(cfg_mod.intra_reduction())
+
+
+def any_compressed(tree: Mapping[str, torch.Tensor], *, compress_small: bool = False) -> bool:
+    """Whether ``allreduce_tree`` would reduce any leaf of ``tree``
+    compressed."""
+    return any(resolve_leaf_config(p, t, compress_small=compress_small).enabled
+               for p, t in tree.items())
+
+
 def allreduce_flat(
     flat: torch.Tensor,
     cc: CompressionConfig,
@@ -153,7 +179,11 @@ def allreduce_flat(
     ``return_roundtrip=True`` returns ``(reduced, rt)``, ``rt`` this rank's
     wire round trip slice by slice: the flat reducers' own payload
     (``quantized_allreduce_with_wire``), the two-level stage-1 mirror
-    (:func:`_stage1_roundtrip_piece`), the fake ratio's tail as it is."""
+    (:func:`_stage1_roundtrip_piece`), the fake ratio's tail as it is.
+
+    Under ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on`` a compressed buffer on a
+    flat group raises ``NotImplementedError`` (:func:`refuse_unported`)."""
+    refuse_unported(group, cc.enabled)
     if pre is not None:
         reason = fused_producer.consume_reason(
             pre.key, cc=cc, ws=flat_world(group)[1], divisor=pre.divisor, n=flat.shape[0],
@@ -290,7 +320,9 @@ def allreduce_tree(
     tensor: it is taken from the stash by name, its payload (already
     divided) must be consumed, and its averaged gradient is returned under
     its name; that it cannot be is a ``RuntimeError``. The stash is drained
-    after the sweep."""
+    after the sweep. Under ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on`` a tree
+    with a compressed leaf on a flat group raises ``NotImplementedError``
+    before any collective (:func:`refuse_unported`)."""
     world, ws = flat_world(group)
     skipped = fused_producer.skipped_entries()
     if skipped:
@@ -316,9 +348,11 @@ def allreduce_tree(
         and fused_producer.stash_size()
     ):
         fp = fused_producer
+    groups = _group_leaves(paths_leaves, compress_small)
+    refuse_unported(group, any(g.cc.enabled for g in groups))
     out: Dict[str, torch.Tensor] = {}
     rt_out: Dict[str, torch.Tensor] = {}
-    for gi, g in enumerate(_group_leaves(paths_leaves, compress_small)):
+    for gi, g in enumerate(groups):
         pre = None
         path, leaf = paths_leaves[g.indices[0]]
         if len(g.indices) == 1 and (path in skipped or (fp is not None and g.cc.enabled)):

@@ -43,7 +43,7 @@ from ..ops import fused_producer
 from ..utils import prng
 from ..utils.device import DeviceLike, resolve_device
 from . import group as group_mod
-from .allreduce import GroupLike, allreduce_tree, flat_world
+from .allreduce import GroupLike, allreduce_tree, any_compressed, flat_world, refuse_unported
 from .mesh import TwoLevelGroup
 from .reducers import psum_tree
 
@@ -161,8 +161,11 @@ def gradient_sync(
     zeros (for a rollback of the parameters and the optimizer, use
     ``make_train_step``) and "exact" the uncompressed sum of the sanitized
     gradients (averaged if ``average``); each counts the step in
-    ``COUNTS["nonfinite_steps"]``."""
+    ``COUNTS["nonfinite_steps"]``. ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on``
+    raises ``NotImplementedError`` before any collective where a flat
+    group's SRA would run (``allreduce.refuse_unported``)."""
     policy = _guard_policy(nonfinite_guard)
+    refuse_unported(group, any_compressed(grads, compress_small=compress_small))
     if policy != "off" and _nonfinite_step(grads, group):
         return _guarded(grads, group, policy, flat_world(group)[1] if average else 1)
     return allreduce_tree(
@@ -219,7 +222,11 @@ def make_train_step(
     they were, and "exact" applies the update from the uncompressed sum of
     the sanitized gradients (divided by the world size if ``average``) and
     keeps the residuals. A fault-free step is the unguarded one, bit for
-    bit."""
+    bit.
+
+    Under ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on`` a step whose flat-group
+    sync would run an SRA raises ``NotImplementedError`` before its forward
+    (``allreduce.refuse_unported``), so no rank enters a collective."""
     guard = _guard_policy(nonfinite_guard)
     if ef_state is not None and not error_feedback:
         raise ValueError("make_train_step: ef_state is given but error_feedback is off")
@@ -239,6 +246,7 @@ def make_train_step(
     step_idx = [0]
 
     def step(batch: Any) -> torch.Tensor:
+        refuse_unported(group, any_compressed(dict(params)))
         # Producer fusion: the backward of a wrapped dense layer stages its
         # payload for this group. Only a plain group of more than one rank
         # consumes payloads (the two-level scheme never does); a layer

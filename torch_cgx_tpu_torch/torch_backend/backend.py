@@ -742,14 +742,7 @@ def _stage3_rng(group: ProcessGroup) -> Rng:
 def _refuse_unported(topo: cfg.TopologyConfig, hier: bool) -> None:
     """Raise, on every rank alike and before any collective of the bucket,
     for what the JAX backend would run and the port does not have."""
-    algo = topo.cross_reduction if hier else topo.intra_reduction
-    if algo not in (cfg.REDUCTION_RING, cfg.REDUCTION_ALLTOALL) and (
-        cfg.schedule_mode() == "on" or cfg.planner_mode() == "on"
-    ):
-        raise NotImplementedError(
-            f"the pipelined bucket SRA ({cfg.SCHEDULE}=on or {cfg.PLANNER}=on) is not ported; "
-            f"unset both or set them to auto or off"
-        )
+    cfg.refuse_pipelined_sra(topo.cross_reduction if hier else topo.intra_reduction)
     if hier and cfg.async_mode() == "on":
         raise NotImplementedError(
             f"{cfg.ASYNC}=on (the two-level scheme without its cross stage, for the "
