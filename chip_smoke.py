@@ -57,12 +57,16 @@ order, none of whose failures is caught:
    (:func:`check_subf32`): B1/B5, B7a, B3, B7c and B4 on bf16 operands
    at the bf16-parameter step's shapes (f16, the same instances, in the
    card tests), bit for bit, both roundings, every lowering, and the
-   decode glue. Last B8's 16-bit instance (:func:`check_mm16`) on bf16
-   and f16 operands at the three dense-layer shapes: bit for bit against
-   the plain version on integer operands, within the f32 check's tolerance
-   on normal ones, and bit for bit against the upcast route (the f32
-   instance on the operands cast to f32; the raw row that route's sums
-   rounded to the operand dtype, then divided);
+   decode glue. Last B8 on 16-bit operands (:func:`check_mm16`), bf16 and
+   f16 at the three dense-layer shapes, where its tensor-core kernel runs:
+   bit for bit against the plain version on integer operands, within the
+   f32 check's tolerance on normal ones; its FFMA kernel forced there, bit
+   for bit against the plain version and against the upcast route (the
+   f32 instance on the operands cast to f32; the raw row that route's sums
+   rounded to the operand dtype, then divided); the edge shapes on the
+   route their shape takes (tensor cores where TMA can describe them,
+   FFMA for din 13 and 100 and a misaligned view), asserted by
+   ``MM_TC_LAUNCHES``;
 4. the GPT-2 124M slice: three compressed train steps through
    ``make_train_step`` (4 bits, bucket 512, ``CGX_DEBUG_FORCE_CODEC=1``) with
    the launch counters reset just before and read just after, held against
@@ -111,9 +115,10 @@ order, none of whose failures is caught:
    (:func:`time_stochastic`, bound also by the Philox's integer work) and
    a profile of the stochastic step under ``CGX_PALLAS_DB`` off and on;
    the 16-bit instances alone against their byte bound
-   (``shapebench.WIRE16_SHAPES``, :func:`time_wire16`), B8's bf16 instance
-   in turns with the f32 one, the upcast route and ``torch.matmul`` on the
-   bf16 operands (:func:`time_mm16`), and the bf16-parameter step's time
+   (``shapebench.WIRE16_SHAPES``, :func:`time_wire16`), B8's tensor-core
+   kernel in turns with its FFMA 16-bit instance, the f32 one and
+   ``torch.matmul`` on the bf16 operands (:func:`time_mm16`), and the
+   bf16-parameter step's time
    and profile beside the float32 one's;
 5b. the int8 fold (``CGX_SRA_ACCUM=int8``), once its library is built
    (its instances' registers and spills beside their exact twins'):
@@ -157,9 +162,10 @@ order, none of whose failures is caught:
    quantize of that layer's ``p.grad / 4`` within ``payload_close``'s
    tolerance. Then ``sra_producer_bf16``: the same on the default model
    (bf16 compute, f32 parameters): 36 B8 launches a rank, every one reading
-   bf16 operands itself, 36 ``dw`` skipped a rank, and rank 0's 36 payloads
-   bit for bit against the upcast route on the operands of the same
-   backward (:func:`producer_checks`). Then the flat SRA under ``CGX_PALLAS_DB=on``: the pipelined
+   bf16 operands itself on the tensor-core kernel (``MM_TC_LAUNCHES``), 36
+   ``dw`` skipped a rank, and rank 0's 36 payloads bit for bit against a
+   direct launch on the operands of the same backward and within the
+   payload tolerance of the plain version (:func:`producer_checks`). Then the flat SRA under ``CGX_PALLAS_DB=on``: the pipelined
    epilogue folds the four ranks' rows. Then ``ddp_hook``: the DDP comm
    hook (``torch_backend``) under ``DistributedDataParallel`` on a float32
    GPT-2 124M, four steps under SRA with the layers registered at step 2,
@@ -334,9 +340,11 @@ MM_EDGE_CASES = [
 META_RTOL = 1e-5
 RAW_RTOL = 1e-5
 SOURCE = "torch_cgx_tpu_torch/csrc/codec.cu"
-# B8's 16-bit instance (bf16 or f16 operands read by the kernel): a record
-# of its own in the kernels line, beside the f32 one. The JAX kernel reads
-# its operands in the layer's compute dtype (fused_producer.py:573-576).
+# B8 on 16-bit operands (bf16 or f16 read by the kernel; at GPT-2 124M's
+# shapes the tensor-core kernel, cgx_matmul_quantize_tc_kernel): a record of
+# its own in the kernels line, beside the f32 one, its launches those of the
+# tensor-core kernel (MM_TC_LAUNCHES). The JAX kernel reads its operands in
+# the layer's compute dtype (fused_producer.py:573-576).
 MM16 = "codec_matmul_quantize_bf16"
 MM16_REPLACES = "torch_cgx_tpu/ops/fused_producer.py:537 (bf16/f16 x2, g2: :573-576)"
 
@@ -635,21 +643,36 @@ def _ulp16(v, dtype):
 
 
 def check_mm16(dev, rng, record) -> float:
-    """B8's 16-bit instance at phase 7's three dense-layer shapes (K =
-    MM_K, divisor MR_WS, the own raw row of rank 1 of MR_WS), bf16 and f16
-    operands: on small-integer operands (every sum exact) words, meta and
-    raw row bit-identical to the plain version; on normal operands words
-    and meta within ``payload_close``'s tolerance of it (the f32 check's),
-    the raw row within the f32 check's RAW_RTOL of the row's largest
+    """B8's 16-bit operands at phase 7's three dense-layer shapes (K =
+    MM_K, divisor MR_WS, the own raw row of rank 1 of MR_WS), bf16 and f16,
+    where the tensor-core kernel runs (every launch counted in
+    ``MM_TC_LAUNCHES``): on small-integer operands (every partial sum
+    exact) words, meta and raw row bit-identical to the plain version; on
+    normal operands words and meta within ``payload_close``'s tolerance of
+    it (the f32 check's), the raw row within RAW_RTOL of the row's largest
     magnitude plus one unit in the last place of the operand dtype (both
-    round an f32 sum, summed in two orders), and bit-identical to the
-    upcast route: the f32 instance on ``x2.float()`` and ``g2.float()``
-    (words, meta) and that route's sums at divisor 1 rounded to the operand
-    dtype, then divided (the raw row). Returns the largest decoded
-    difference from the plain version on normal operands."""
+    round an f32 sum, summed in two orders). The FFMA kernel, forced with
+    ``_route="ffma"``, on the same operands: bit-identical to the plain
+    version on integer ones, and to the upcast route on normal ones (the
+    f32 instance on ``x2.float()`` and ``g2.float()`` for words and meta,
+    that route's sums at divisor 1 rounded to the operand dtype, then
+    divided, for the raw row). Then bf16 operands at MM_EDGE_CASES and in a
+    view 2 bytes off its alignment: integer ones bit-identical to the plain
+    version, the tensor-core kernel where din and o are multiples of 8 and
+    the operands aligned, the FFMA kernel elsewhere (din 13 and 100, the
+    view). Returns the largest decoded difference from the plain version on
+    normal operands."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec_cuda
+
+    def routed(fn, route):
+        before = codec_cuda.MM_TC_LAUNCHES["launches"]
+        out = fn()
+        took = "tc" if codec_cuda.MM_TC_LAUNCHES["launches"] > before else "ffma"
+        if took != route:
+            raise AssertionError(f"{MM16}: expected the {route} route, the launch took {took}")
+        return out
 
     worst = 0.0
     own = (1, MR_WS)
@@ -657,16 +680,20 @@ def check_mm16(dev, rng, record) -> float:
         dt = getattr(torch, dtype_name)
         for layer, (din, o) in MM_SHAPES.items():
             label = f"{layer} K={MM_K} {din}x{o} {dtype_name}"
+            tiles = codec_cuda.mm_tc_tiles(din, o)
             xi, gi = (torch.from_numpy(rng.integers(-3, 4, (MM_K, c)).astype(np.float32)).to(dt).to(dev)
                       for c in (din, o))
-            w, m, raw = codec_cuda.matmul_quantize_chunks(xi, gi, MR_WS, BITS, BUCKET, own_row=own)
             pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(xi, gi, MR_WS, BITS, BUCKET, own_row=own)
-            record(MM16, f"{label} integer words", w, pw, quiet=True)
-            record(MM16, f"{label} integer meta", m, pm, quiet=True)
-            record(MM16, f"{label} integer raw row", raw, praw, quiet=True)
+            for force, route in ((None, "tc"), ("ffma", "ffma")):
+                w, m, raw = routed(lambda: codec_cuda.matmul_quantize_chunks(
+                    xi, gi, MR_WS, BITS, BUCKET, own_row=own, _route=force), route)
+                record(MM16, f"{label} integer words ({route})", w, pw, quiet=True)
+                record(MM16, f"{label} integer meta ({route})", m, pm, quiet=True)
+                record(MM16, f"{label} integer raw row ({route})", raw, praw, quiet=True)
             xn, gn = (torch.from_numpy(rng.standard_normal((MM_K, c)).astype(np.float32)).to(dt).to(dev)
                       for c in (din, o))
-            w, m, raw = codec_cuda.matmul_quantize_chunks(xn, gn, MR_WS, BITS, BUCKET, own_row=own)
+            w, m, raw = routed(lambda: codec_cuda.matmul_quantize_chunks(
+                xn, gn, MR_WS, BITS, BUCKET, own_row=own), "tc")
             pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(xn, gn, MR_WS, BITS, BUCKET, own_row=own)
             ok, meta_rel, abs_err, steps = payload_close(w, m, pw, pm, BITS, BUCKET)
             r64, p64 = raw.double(), praw.double()
@@ -674,17 +701,47 @@ def check_mm16(dev, rng, record) -> float:
             raw_ulps = float(((r64 - p64).abs() / _ulp16(p64, dt)).max())
             raw_ok = bool(((r64 - p64).abs() <= tol).all())
             worst = max(worst, abs_err)
+            fw, fm, fraw = routed(lambda: codec_cuda.matmul_quantize_chunks(
+                xn, gn, MR_WS, BITS, BUCKET, own_row=own, _route="ffma"), "ffma")
             uw, um = codec_cuda.matmul_quantize_chunks(xn.float(), gn.float(), MR_WS, BITS, BUCKET)
             _, _, sums = codec_cuda.matmul_quantize_chunks(xn.float(), gn.float(), 1, BITS, BUCKET, own_row=own)
-            record(MM16, f"{label} words vs the upcast route", w, uw, quiet=True)
-            record(MM16, f"{label} meta vs the upcast route", m, um, quiet=True)
-            record(MM16, f"{label} raw row vs the upcast route", raw, sums.to(dt).float() / MR_WS, quiet=True)
-            log(f"  {MM16:21s} {label:44s} integer words, meta, raw row bit-identical to the plain "
-                f"version; normal: words, meta, raw row bit-identical to the upcast route, against the "
-                f"plain version meta {meta_rel:.2e} rel, decoded within {steps:.3f} level steps "
-                f"({abs_err:.3e}), raw row within {raw_ulps:.2f} units of {dtype_name}")
+            record(MM16, f"{label} FFMA words vs the upcast route", fw, uw, quiet=True)
+            record(MM16, f"{label} FFMA meta vs the upcast route", fm, um, quiet=True)
+            record(MM16, f"{label} FFMA raw row vs the upcast route", fraw, sums.to(dt).float() / MR_WS,
+                   quiet=True)
+            log(f"  {MM16:21s} {label:40s} tensor cores ({tiles[0]} x {tiles[1]} = {tiles[0] * tiles[1]} "
+                f"tiles of {codec_cuda.MM_TC_TILE}): integer words, meta, raw row bit-identical to the "
+                f"plain version; normal: meta {meta_rel:.2e} rel, decoded within {steps:.3f} level steps "
+                f"({abs_err:.3e}), raw row within {raw_ulps:.2f} units of {dtype_name}; FFMA: integer "
+                f"bit-identical to the plain version, normal bit-identical to the upcast route")
             if not ok or not raw_ok:
                 raise AssertionError(f"{MM16} {label}: outside the tolerance of the plain version")
+    # The edge shapes: K, din and o tails on the tensor cores (TMA's zero
+    # fill), the FFMA kernel where TMA cannot describe the operands.
+    dt = torch.bfloat16
+    edges = [(k, din, o, div, bits, b, 0) for k, din, o, div, bits, b in MM_EDGE_CASES]
+    edges.append((64, 256, 512, 2, 4, 512, 1))  # both operands 2 bytes off their 16-byte alignment
+    routes = []
+    for k, din, o, div, bits, b, offset in edges:
+        def operand(rows, cols):
+            v = torch.from_numpy(rng.integers(-3, 4, (rows, cols)).astype(np.float32)).to(dt).to(dev)
+            buf = torch.empty(rows * cols + offset, dtype=dt, device=dev)
+            buf[offset:].view(rows, cols).copy_(v)
+            return buf[offset:].view(rows, cols)
+
+        x2, g2 = operand(k, din), operand(k, o)
+        route = "tc" if din % 8 == 0 and o % 8 == 0 and offset == 0 else "ffma"
+        ws = MR_WS if din % MR_WS == 0 else 1
+        w, m, raw = routed(lambda: codec_cuda.matmul_quantize_chunks(
+            x2, g2, div, bits, b, own_row=(ws - 1, ws)), route)
+        pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(x2, g2, div, bits, b, own_row=(ws - 1, ws))
+        label = f"edge K={k} {din}x{o} div={div} bits={bits} B={b} offset={offset} bfloat16 ({route})"
+        record(MM16, f"{label} integer words", w, pw, quiet=True)
+        record(MM16, f"{label} integer meta", m, pm, quiet=True)
+        record(MM16, f"{label} integer raw row", raw, praw, quiet=True)
+        routes.append(f"{din}x{o}{'+' if offset else ''} {route}")
+    log(f"  {MM16:21s} edge shapes bit-identical to the plain version on integer operands, on the "
+        f"route their shape takes: {', '.join(routes)}")
     return worst
 
 
@@ -2290,20 +2347,20 @@ def time_kernels(dev, n: int, name: str) -> list:
 
 
 def time_mm16(dev, name: str) -> dict:
-    """B8's bf16 instance at phase 7's three dense-layer shapes (K = MM_K,
-    divisor MR_WS, the own raw row of rank 1 of MR_WS, as the producer
-    calls it), as bursts in turns with the f32 instance on operands cast
-    beforehand, the whole upcast route (both operands cast to f32, then the
-    f32 kernel), and ``torch.matmul``
-    of the bf16 operands (the library call: tensor cores, a bf16 product,
-    no divide and no quantize): 16-bit, f32, upcast, library, library,
-    upcast, f32, 16-bit. Then one timed call of the kernel and of its plain
-    version in turns. Bound: the larger of the bytes (2-byte operands read
-    once, the payload and the f32 raw row written once) over the memory
-    rate and the operations (a multiply and an add a product) over the
-    card's bf16 tensor-core rate; the design's FFMA ceiling (the same
-    operations at the f32 rate) beside it. Returns the record of the
-    kernels line (``mlp_in``'s, the first shape)."""
+    """B8 on bf16 operands at phase 7's three dense-layer shapes (K =
+    MM_K, divisor MR_WS, the own raw row of rank 1 of MR_WS, as the producer
+    calls it), as bursts in turns: the tensor-core kernel (the route these
+    shapes take), the FFMA 16-bit instance (``_route="ffma"``), the f32
+    instance on operands cast beforehand, and ``torch.matmul`` of the bf16
+    operands (the library call: tensor cores, a bf16 product, no divide and
+    no quantize): tc, ffma, f32, library, library, f32, ffma, tc. Then one
+    timed call of the kernel and of its plain version in turns. Bound: the
+    larger of the bytes (2-byte operands read once, the payload and the f32
+    raw row written once) over the memory rate and the operations (a
+    multiply and an add a product) over the card's bf16 tensor-core rate;
+    the FFMA ceiling (the same operations at the f32 rate) beside it.
+    Returns the record of the kernels line (``mlp_in``'s, the first
+    shape)."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec_cuda
@@ -2321,12 +2378,12 @@ def time_mm16(dev, name: str) -> dict:
         def kern(x2=x2, g2=g2):
             return codec_cuda.matmul_quantize_chunks(x2, g2, MR_WS, BITS, BUCKET, own_row=own)
 
+        def ffma(x2=x2, g2=g2):
+            return codec_cuda.matmul_quantize_chunks(x2, g2, MR_WS, BITS, BUCKET, own_row=own,
+                                                     _route="ffma")
+
         def f32(xf=xf, gf=gf):
             return codec_cuda.matmul_quantize_chunks(xf, gf, MR_WS, BITS, BUCKET, own_row=own)
-
-        def upcast(x2=x2, g2=g2):
-            return codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), MR_WS, BITS, BUCKET,
-                                                     own_row=own)
 
         def library(x2=x2, g2=g2):
             return torch.matmul(x2.t(), g2)
@@ -2334,9 +2391,12 @@ def time_mm16(dev, name: str) -> dict:
         def plain(x2=x2, g2=g2):
             return codec_cuda.matmul_quantize_chunks_plain(x2, g2, MR_WS, BITS, BUCKET, own_row=own)
 
-        fns = {"kern": kern, "f32": f32, "upcast": upcast, "library": library}
+        before = codec_cuda.MM_TC_LAUNCHES["launches"]
+        kern()
+        assert codec_cuda.MM_TC_LAUNCHES["launches"] == before + 1, "the timed shape left the tensor cores"
+        fns = {"kern": kern, "ffma": ffma, "f32": f32, "library": library}
         burst = {k: [] for k in fns}
-        for k in ("kern", "f32", "upcast", "library", "library", "upcast", "f32", "kern"):
+        for k in ("kern", "ffma", "f32", "library", "library", "f32", "ffma", "kern"):
             burst[k].append(time_burst(fns[k]))
         burst = {k: min(v) for k, v in burst.items()}
         k1 = time_cuda(kern)
@@ -2349,19 +2409,20 @@ def time_mm16(dev, name: str) -> dict:
         nbytes = 2 * MM_K * (din + o) + n * BITS // 8 + 8 * n // BUCKET + 4 * n // MR_WS
         ops = 2 * MM_K * n
         t_bytes, t_ops = nbytes / rate * 1e3, ops / BF16_RATE * 1e3
-        bound, ffma = max(t_bytes, t_ops), ops / F32_RATE * 1e3
+        bound, ffma_ceiling = max(t_bytes, t_ops), ops / F32_RATE * 1e3
+        tiles = codec_cuda.mm_tc_tiles(din, o)
         r = {"shape": f"{layer} K={MM_K} {din}x{o} bfloat16", "ms": min(k1, k2), "burst_ms": burst["kern"],
              "plain_ms": min(p1, p2), "library_ms": min(l1, l2), "bound_ms": bound,
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "ffma_bound_ms": ffma,
-             "f32_burst_ms": burst["f32"], "upcast_burst_ms": burst["upcast"],
-             "library_burst_ms": burst["library"], "bytes": nbytes}
-        log(f"  {MM16:27s} {r['shape']}: burst {r['burst_ms']:.4f} ms (f32 instance on cast operands "
-            f"{r['f32_burst_ms']:.4f}, upcast route {r['upcast_burst_ms']:.4f}, torch.matmul bf16 "
-            f"{r['library_burst_ms']:.4f}: {r['burst_ms'] / r['library_burst_ms']:.1f}x the library); "
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "ffma_bound_ms": ffma_ceiling,
+             "ffma_burst_ms": burst["ffma"], "f32_burst_ms": burst["f32"],
+             "library_burst_ms": burst["library"], "bytes": nbytes, "tiles": tiles[0] * tiles[1]}
+        log(f"  {MM16:27s} {r['shape']}: tensor cores ({r['tiles']} tiles) burst {r['burst_ms']:.4f} ms, "
+            f"FFMA 16-bit instance {r['ffma_burst_ms']:.4f} ({r['ffma_burst_ms'] / r['burst_ms']:.1f}x the "
+            f"tensor cores' time), f32 instance on cast operands {r['f32_burst_ms']:.4f}, torch.matmul "
+            f"bf16 {r['library_burst_ms']:.4f} ({r['burst_ms'] / r['library_burst_ms']:.1f}x the library); "
             f"per call {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}); "
             f"{nbytes} bytes, {ops} operations, bound {bound:.4f} ms by {r['bound_by']} "
-            f"({100 * bound / r['burst_ms']:.1f}% of it a burst), FFMA ceiling {ffma:.4f} ms "
-            f"({100 * ffma / r['burst_ms']:.1f}%)")
+            f"({100 * bound / r['burst_ms']:.1f}% of it a burst), FFMA ceiling {ffma_ceiling:.4f} ms")
         out.append(r)
     return out[0]
 
@@ -3156,9 +3217,13 @@ def producer_check(model, loss_fn, tokens) -> dict:
     otherwise quantize), held to ``payload_close``'s tolerance; both come
     from the same backward. A bf16-compute model: the operands each layer's
     backward handed the kernel (``fused_producer._stash``'s) must be bf16,
-    and each payload bit-identical to the upcast route on them: the f32
-    instance on ``x2.float()`` and ``g2.float()`` (words, meta) and that
-    route's sums at divisor 1 rounded to bf16, then divided (the raw row)."""
+    and each payload (words, meta, raw row) bit-identical to a direct
+    launch of the kernel on them (the tensor-core one at these shapes) and
+    within the payload tolerance of the plain version on them
+    (``payload_close``; the raw row within RAW_RTOL of its largest
+    magnitude plus one unit of bf16)."""
+    import torch
+
     from torch_cgx_tpu_torch.config import default_compression_config
     from torch_cgx_tpu_torch.ops import codec_cuda, dispatch, fused_producer
 
@@ -3189,12 +3254,19 @@ def producer_check(model, loss_fn, tokens) -> dict:
         x2, g2 = operands[n]
         dtypes.add(str(x2.dtype).replace("torch.", ""))
         checked += 1
-        if x2.dtype != p.dtype:  # a lower-precision product: the upcast route, bit for bit
-            w, m = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), MR_WS, cc.bits, cc.bucket_size)
-            _, _, sums = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), 1, cc.bits,
-                                                           cc.bucket_size, own_row=own)
-            if not (_same_bits(ent.q.packed.reshape(-1), w) and _same_bits(ent.q.meta.reshape(-1, 2), m)
-                    and _same_bits(ent.raw_row, sums.to(x2.dtype).float() / MR_WS)):
+        if x2.dtype != p.dtype:  # a lower-precision product: the kernel's bytes, near the plain version's
+            x2, g2 = x2.contiguous(), g2.contiguous()  # as the producer hands them over
+            w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, MR_WS, cc.bits, cc.bucket_size,
+                                                          own_row=own)
+            pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(x2, g2, MR_WS, cc.bits,
+                                                                   cc.bucket_size, own_row=own)
+            ok, meta_rel, _, steps = payload_close(w, m, pw, pm, cc.bits, cc.bucket_size)
+            worst_meta, worst_steps = max(worst_meta, meta_rel), max(worst_steps, steps)
+            r64, p64 = raw.double(), praw.double()
+            tol = _ulp16(torch.maximum(r64.abs(), p64.abs()), x2.dtype) + RAW_RTOL * float(p64.abs().max())
+            if not (ok and bool(((r64 - p64).abs() <= tol).all())
+                    and _same_bits(ent.q.packed.reshape(-1), w) and _same_bits(ent.q.meta.reshape(-1, 2), m)
+                    and _same_bits(ent.raw_row, raw)):
                 failed.append(n)
             continue
         want = dispatch.quantize_batch((p.grad.reshape(-1) / MR_WS).view(MR_WS, -1), cc)
@@ -3697,6 +3769,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             res["wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
             res["int8"] = dict(codec_cuda.INT8_LAUNCHES)
             res["reduce_scalar"] = codec_cuda.REDUCE_SCALAR["launches"]
+            res["mm_tc"] = codec_cuda.MM_TC_LAUNCHES["launches"]
             res["producer"] = dict(fused_producer.COUNTS)
             if ef:
                 e = step.ef_state.e
@@ -3848,7 +3921,7 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
             "codec_sra_epilogue_db": res[0]["sra_db_int8"]["int8"]["codec_sra_epilogue_db"],
             "codec_reduce_rows": res[0]["two_level_int8"]["int8"]["codec_reduce_rows"]}
     return {"launches": launches, "int8_launches": int8, "results": res,
-            "mm16_launches": res[0]["sra_producer_bf16"]["wire16"]["codec_matmul_quantize"]}
+            "mm16_launches": res[0]["sra_producer_bf16"]["mm_tc"]}
 
 
 def producer_checks(res) -> None:
@@ -3870,6 +3943,7 @@ def producer_checks(res) -> None:
         # The step skipped the plain dw of every consumed layer (C4).
         assert pc["producer_dw_skipped"] == PRODUCED_LAYERS, (r, pc)
         assert o["sra_producer"]["launches"]["codec_matmul_quantize"] == PRODUCED_LAYERS, (r, o)
+        assert o["sra_producer"]["mm_tc"] == 0, (r, o["sra_producer"]["mm_tc"])  # f32: the FFMA kernel
         assert pc["producer_fallbacks"] == pc["producer_fallback_fused_group"] == PROJ_LAYERS, (r, pc)
     chk = res[0]["sra_producer"]["check"]
     log(f"  sra_producer, rank 0: {chk['checked']} staged payloads against a quantize of "
@@ -3884,7 +3958,8 @@ def producer_checks(res) -> None:
         assert chk["counts"]["producer_fallbacks"] == chk["counts"]["producer_fallback_fused_group"], chk
     # The default model (bf16 compute, f32 parameters): the same layout and
     # launches as the float32 model's, every B8 launch on bf16 operands read
-    # by the kernel (no upcast), every consumed layer's dw skipped.
+    # by the tensor-core kernel (no upcast), every consumed layer's dw
+    # skipped.
     assert res[0]["sra_producer_bf16"]["expected"] == prod, (res[0]["sra_producer_bf16"]["expected"], prod)
     for r, o in enumerate(res):
         c = o["sra_producer_bf16"]
@@ -3892,18 +3967,23 @@ def producer_checks(res) -> None:
         assert (pc["producer_consumed_slices"] == pc["producer_kernel_slices"] == pc["producer_dw_skipped"]
                 == PRODUCED_LAYERS), (r, pc)
         assert c["launches"]["codec_matmul_quantize"] == c["wire16"]["codec_matmul_quantize"] == PRODUCED_LAYERS, (r, c)
+        assert c["mm_tc"] == PRODUCED_LAYERS, (r, c["mm_tc"])
         assert pc["producer_fallbacks"] == pc["producer_fallback_fused_group"] == PROJ_LAYERS, (r, pc)
     chk = res[0]["sra_producer_bf16"]["check"]
     c0 = res[0]["sra_producer_bf16"]
     log(f"  sra_producer_bf16: {c0['launches']['codec_matmul_quantize']} B8 launches a rank, "
-        f"{c0['wire16']['codec_matmul_quantize']} of them on 16-bit operands, dw skipped "
+        f"{c0['wire16']['codec_matmul_quantize']} of them on 16-bit operands, on the tensor cores "
+        f"{[o['sra_producer_bf16']['mm_tc'] for o in res]} by rank, dw skipped "
         f"{[o['sra_producer_bf16']['producer']['producer_dw_skipped'] for o in res]} by rank; rank 0: "
-        f"{chk['checked']} staged payloads on {chk['dtypes']} operands bit-identical to the upcast route "
-        f"(words, meta, raw row): {chk['checked'] - len(chk['failed'])}")
+        f"{chk['checked']} staged payloads on {chk['dtypes']} operands, each bit-identical to a "
+        f"direct launch on its operands and within the payload tolerance of the plain version (meta "
+        f"within {chk['meta_rel']:.2e} relative, decoded within {chk['steps']:.3f} level steps, raw "
+        f"row within RAW_RTOL + one unit of bf16): {chk['checked'] - len(chk['failed'])}")
     assert chk["dtypes"] == ["bfloat16"], chk
     for name in ("sra", "sra_producer", "sra_producer_bf16"):
         p = res[0][name].get("profile", {})
-        mm = p.get("codec_by_kernel", {}).get("cgx_matmul_quantize_kernel", 0.0)
+        mm = sum(p.get("codec_by_kernel", {}).get(k, 0.0)
+                 for k in ("cgx_matmul_quantize_kernel", "cgx_matmul_quantize_tc_kernel"))
         log(f"  {name}, rank 0's profiled step: B8 {mm:.3f} ms, codec kernels {p.get('codec_ms', 0.0):.3f} ms "
             f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(p.get('codec_by_kernel', {}).items()))}), device "
             f"busy {p.get('busy_ms', 0.0):.2f} ms of {p.get('wall_ms', 0.0):.1f} ms; largest device entries: "
@@ -4125,6 +4205,17 @@ def ptxas_report(ptxas: str) -> None:
         f"{sum(1 for v in mm16.values() if v['spill_stores'] or v['spill_loads'])} with spills, "
         f"{max(v['smem'] for v in mm16.values())} bytes static shared memory")
     assert len(mm16) == 32, len(mm16)  # bits 1-8 x the four lowerings
+    # B8's tensor-core kernel: bits 1-8 x the four lowerings x bf16, f16.
+    tc = of("cgx_matmul_quantize_tc_kernel", True)
+    for fmt, fname in ((1, "bf16"), (2, "f16")):
+        mine = [v for k, v in tc.items() if args(k)[3] == fmt]
+        r = [v["registers"] for v in mine]
+        spill = [v for v in mine if v["spill_stores"] or v["spill_loads"]]
+        log(f"  cgx_matmul_quantize_tc_kernel ({fname}): {len(mine)} instances, {min(r)}-{max(r)} "
+            f"registers a thread (288 threads, one block an SM), {len(spill)} with spills (at most "
+            f"{max([v['spill_stores'] for v in spill] or [0])} bytes stored), "
+            f"{max(v['smem'] for v in mine)} bytes static shared memory")
+        assert len(mine) == 32, (fname, len(mine))
     for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
                    "cgx_quantize_db_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
         for wire16 in (False, True):
@@ -4336,7 +4427,7 @@ def main() -> int:
         "name": MM16, "route": "cuda", "source": SOURCE, "replaces": MM16_REPLACES,
         "launches": mr["mm16_launches"], "max_abs_err": max_err[MM16],
         **{k: mm16[k] for k in ("ms", "burst_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "shape", "ffma_bound_ms", "f32_burst_ms", "upcast_burst_ms",
+                                "shape", "tiles", "ffma_bound_ms", "ffma_burst_ms", "f32_burst_ms",
                                 "library_burst_ms")},
     })
     assert len(records) == len(TPU_KERNELS) + 1, records

@@ -486,46 +486,121 @@ def _mm16_operands(seed, k, din, o, dtype, integer, dev):
 def _upcast_route(x2, g2, div, bits, bucket, own_row):
     """The f32 instance on the upcast operands: its words and meta, and the
     raw row its sums give at divisor 1, rounded to the operands' dtype and
-    then divided (the 16-bit instance's raw row)."""
+    then divided (the FFMA 16-bit instance's raw row)."""
     w, m = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), div, bits, bucket)
     _, _, sums = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), 1, bits, bucket,
                                                    own_row=own_row)
     return w, m, sums.to(x2.dtype).float() / div
 
 
+# The tolerance of one product summed in two orders (chip_smoke.py's
+# payload_close and RAW_RTOL): the tensor-core kernel's sums against the
+# plain version's float32 ones.
+META_RTOL = 1e-5
+RAW_RTOL = 1e-5
+
+
+def _payload_close(words, meta, want_words, want_meta, bits, bucket):
+    """Every meta value within META_RTOL relative to the larger of its
+    magnitude and its bucket's level step; every decoded value within one
+    level step of the other's, plus what the meta's difference moves it."""
+    m, wm = meta.reshape(-1, 2).double().cpu(), want_meta.reshape(-1, 2).double().cpu()
+    unit = wm[:, 0]
+    dm = (m - wm).abs()
+    if not bool((dm <= META_RTOL * torch.maximum(wm.abs(), unit[:, None])).all()):
+        return False
+
+    def decode(w, mt):
+        return codec_cuda.dequantize_chunks_plain(
+            w.reshape(-1).cpu(), mt.reshape(-1, 2).float().cpu(), bits, bucket
+        ).double().view(-1, bucket)
+
+    a, b = decode(words, meta), decode(want_words, want_meta)
+    tol = (unit + dm[:, 1] + ((1 << bits) - 1) * dm[:, 0])[:, None]
+    tol = tol + 2 * np.finfo(np.float32).eps * torch.maximum(a.abs(), b.abs())
+    return bool(((a - b).abs() <= tol).all())
+
+
+def _raw_close(raw, want, dtype):
+    """The raw own row within RAW_RTOL of the row's largest magnitude plus
+    one unit in the last place of the operand dtype."""
+    r, p = raw.double().cpu(), want.double().cpu()
+    mant = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+    _, e = torch.frexp(torch.maximum(r.abs(), p.abs()).clamp(min=torch.finfo(dtype).tiny))
+    ulp = torch.ldexp(torch.ones_like(r), e - 1 - mant)
+    return bool(((r - p).abs() <= ulp + RAW_RTOL * float(p.abs().max())).all())
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("din,o", MM16_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_matmul_quantize16_matches_plain_and_upcast_route(dev, dtype, din, o, bits):
-    """At GPT-2 124M's shapes: on small-integer operands (every sum exact)
-    words, meta and raw own row bit-identical to the plain version; on
-    normal operands words and meta bit-identical to the f32 instance on the
-    upcast operands (a product of two 16-bit values is exact in f32 and the
-    two instances sum in one order), and the raw row to that route's sums
-    rounded to the operand dtype, then divided. Every launch reads 16 bits."""
+    """At GPT-2 124M's shapes, where the tensor-core kernel runs: on
+    small-integer operands (every partial sum exact) words, meta and raw own
+    row bit-identical to the plain version, from both kernels; on normal
+    operands the tensor-core kernel's words and meta within the payload
+    tolerance of the plain version and its raw row within RAW_RTOL plus one
+    unit of the dtype, and the FFMA kernel (``_route="ffma"``) bit-identical
+    to the f32 instance on the upcast operands (a product of two 16-bit
+    values is exact in f32 and the two instances sum in one order), its raw
+    row to that route's sums rounded to the operand dtype, then divided."""
     bucket, div, ws = 512, 4, 4
     codec_cuda.reset_launch_counts()
     x2, g2 = _mm16_operands(din + o + bits, MM16_K, din, o, dtype, True, dev)
+    assert codec_cuda.mm_tc_eligible(x2, g2)
     for own in (0, ws - 1):
-        w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(own, ws))
         pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(
             x2.cpu(), g2.cpu(), div, bits, bucket, own_row=(own, ws))
-        assert _bits_equal(w, pw) and _bits_equal(m, pm), own
-        assert _bits_equal(raw, praw), own
+        for route in (None, "ffma"):
+            w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket,
+                                                          own_row=(own, ws), _route=route)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (own, route)
+            assert _bits_equal(raw, praw), (own, route)
     x2, g2 = _mm16_operands(din * o + bits, MM16_K, din, o, dtype, False, dev)
     w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(1, ws))
+    pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(x2, g2, div, bits, bucket, own_row=(1, ws))
+    assert _payload_close(w, m, pw, pm, bits, bucket)
+    assert _raw_close(raw, praw, dtype)
+    fw, fm, fraw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(1, ws),
+                                                     _route="ffma")
     uw, um, uraw = _upcast_route(x2, g2, div, bits, bucket, (1, ws))
-    assert _bits_equal(w, uw) and _bits_equal(m, um)
-    assert _bits_equal(raw, uraw)
+    assert _bits_equal(fw, uw) and _bits_equal(fm, um)
+    assert _bits_equal(fraw, uraw)
     torch.cuda.synchronize()
-    assert codec_cuda.WIRE16_LAUNCHES["codec_matmul_quantize"] == 3
-    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 5
+    assert codec_cuda.WIRE16_LAUNCHES["codec_matmul_quantize"] == 6
+    assert codec_cuda.MM_TC_LAUNCHES["launches"] == 3
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 8
+
+
+def test_matmul_quantize_tc_back_to_back_launches_repeat_their_bytes(dev):
+    """Tensor-core launches of several geometries (K, din and o tails, a
+    GPT-2 layer), back to back on one stream, each on arrival counters of
+    its own: every repeat gives the first launch's bytes, one launch a
+    call, every one on the tensor-core kernel."""
+    ops = []
+    for i, (k, din, o, div, bits, bucket) in enumerate([
+        (96, 64, 448, 2, 1, 128), (77, 256, 1344, 4, 8, 512), (130, 128, 672, 4, 4, 896),
+        (MM16_K, 768, 3072, 4, 4, 512),
+    ]):
+        dtype = (torch.bfloat16, torch.float16)[i % 2]
+        ops.append(_mm16_operands(k + din, k, din, o, dtype, False, dev) + (div, bits, bucket))
+    codec_cuda.reset_launch_counts()
+    first = [codec_cuda.matmul_quantize_chunks(*a) for a in ops]
+    for _ in range(3):
+        for a, (w0, m0) in zip(ops, first):
+            w, m = codec_cuda.matmul_quantize_chunks(*a)
+            assert _bits_equal(w, w0) and _bits_equal(m, m0)
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 4 * len(ops)
+    assert codec_cuda.MM_TC_LAUNCHES["launches"] == 4 * len(ops)
 
 
 # (K, din, o, divisor, bits, bucket, offset): the tiles and chunks end at
 # different places as in MM_EDGES; din not a multiple of 8 and o = 4 mod 8
-# take the 16-bit ring's plain 2-byte fill, and an operand view 2 bytes off
-# its 16-byte alignment (offset 1) takes it for both operands.
+# take the FFMA kernel and its 16-bit ring's plain 2-byte fill, and an
+# operand view 2 bytes off its 16-byte alignment (offset 1) takes them for
+# both operands; the others take the tensor-core kernel (TMA's zero fill
+# past K, din and o).
 MM16_EDGES = [
     (96, 64, 448, 2, 1, 128, 0), (77, 256, 1344, 4, 8, 512, 0), (33, 13, 4096, 2, 3, 128, 0),
     (50, 100, 4096, 4, 1, 128, 0), (40, 1024, 1036, 2, 4, 128, 0), (64, 256, 512, 2, 4, 512, 1),
@@ -533,12 +608,15 @@ MM16_EDGES = [
 ]
 
 
+@pytest.mark.parametrize("route", [None, "ffma"])
 @pytest.mark.parametrize("k,din,o,div,bits,bucket,offset", MM16_EDGES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_matmul_quantize16_edges_and_own_row(dev, dtype, k, din, o, div, bits, bucket, offset):
+def test_matmul_quantize16_edges_and_own_row(dev, dtype, k, din, o, div, bits, bucket, offset,
+                                             route):
     """Words, meta and the own raw row (each row position) bit-identical to
     the plain version on small-integer operands at the edge geometries and
-    fill paths of the 16-bit ring, one launch a call."""
+    fill paths, one launch a call, on the kernel the shape routes to (or
+    the FFMA one, forced)."""
     rng = np.random.default_rng(k * din + o + offset)
 
     def operand(rows, cols):
@@ -550,10 +628,13 @@ def test_matmul_quantize16_edges_and_own_row(dev, dtype, k, din, o, div, bits, b
 
     x2, g2 = operand(k, din), operand(k, o)
     assert (x2.data_ptr() % 16 == 0) == (offset == 0)
+    tc = route is None and din % 8 == 0 and o % 8 == 0 and offset == 0
+    assert codec_cuda.mm_tc_eligible(x2, g2) is (din % 8 == 0 and o % 8 == 0 and offset == 0)
     ws = 4 if din % 4 == 0 else 1
     codec_cuda.reset_launch_counts()
     for own in range(ws):
-        w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(own, ws))
+        w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(own, ws),
+                                                      _route=route)
         pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(
             x2.cpu(), g2.cpu(), div, bits, bucket, own_row=(own, ws))
         assert _bits_equal(w, pw) and _bits_equal(m, pm), own
@@ -561,6 +642,7 @@ def test_matmul_quantize16_edges_and_own_row(dev, dtype, k, din, o, div, bits, b
     torch.cuda.synchronize()
     assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == ws
     assert codec_cuda.WIRE16_LAUNCHES["codec_matmul_quantize"] == ws
+    assert codec_cuda.MM_TC_LAUNCHES["launches"] == (ws if tc else 0)
 
 
 def test_matmul_quantize16_refuses_mixed_dtypes(dev):
@@ -580,8 +662,10 @@ def test_matmul_quantize16_refuses_mixed_dtypes(dev):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_skipped_backward16_on_cuda_launches_one_kernel(dev, monkeypatch, dtype):
     """A bf16 or f16 layer configured as ``make_train_step`` does returns no
-    weight gradient: one 16-bit launch on the uncast operands makes its
-    payload and raw own row, and no plain product runs."""
+    weight gradient: one 16-bit launch on the uncast operands, on the
+    tensor-core kernel, makes its payload and raw own row, and no plain
+    product runs. The payload is within the payload tolerance of the FFMA
+    kernel's, which is bit-identical to the upcast route."""
     from torch_cgx_tpu_torch.models import Dense
     from torch_cgx_tpu_torch.ops import fused_producer as fp
 
@@ -605,6 +689,7 @@ def test_skipped_backward16_on_cuda_launches_one_kernel(dev, monkeypatch, dtype)
     assert layer.kernel.grad is None and seen == []
     assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 1
     assert codec_cuda.WIRE16_LAUNCHES["codec_matmul_quantize"] == 1
+    assert codec_cuda.MM_TC_LAUNCHES["launches"] == 1
     assert fp.COUNTS["producer_dw_skipped"] == 1
     ent = fp.skipped_entries()["big.kernel"]
     x2 = x.to(dtype).reshape(-1, 256)
@@ -612,8 +697,10 @@ def test_skipped_backward16_on_cuda_launches_one_kernel(dev, monkeypatch, dtype)
     w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 128, own_row=(1, 2))
     assert _bits_equal(ent.q.packed.reshape(-1), w) and _bits_equal(ent.q.meta.reshape(-1, 2), m)
     assert _bits_equal(ent.raw_row, raw)
+    fw, fm, fraw = codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 128, own_row=(1, 2), _route="ffma")
     uw, um, uraw = _upcast_route(x2, g2, 2, 4, 128, (1, 2))
-    assert _bits_equal(w, uw) and _bits_equal(m, um) and _bits_equal(raw, uraw)
+    assert _bits_equal(fw, uw) and _bits_equal(fm, um) and _bits_equal(fraw, uraw)
+    assert _payload_close(w, m, fw, fm, 4, 128) and _raw_close(raw, fraw, dtype)
     fp.deconfigure()
 
 
@@ -1687,7 +1774,10 @@ def test_f32_instances_keep_their_registers(dev):
     baseline = json.loads((Path(codec_cuda.SOURCE).parent / "ptxas_f32.json").read_text())
     assert len(baseline) > 700
     assert ptxas_table.compare(table, baseline) == []
-    assert sum(k.endswith(":16") for k in table) == 4 * 128 + 80 + 32  # B8's: 8 bits x 4 lowerings
+    # B8's 16-bit instances: 8 bits x 4 lowerings on the FFMA kernel, and
+    # x 2 formats on the tensor-core kernel.
+    assert sum(k.endswith(":16") for k in table) == 4 * 128 + 80 + 32 + 64
+    assert sum(k.startswith("cgx_matmul_quantize_tc_kernel<") for k in table) == 64
 
 
 # ---------------------------------------------------------------------------

@@ -48,8 +48,10 @@
 // global loads, neighbouring threads on neighbouring positions l of one
 // bucket, one block per chunk. The pipelined (*_db) kernels run persistent
 // grids that stream their inputs through a ring of shared-memory slots
-// filled by bulk asynchronous copies (see their section below). No tensor
-// cores.
+// filled by bulk asynchronous copies (see their section below). The
+// matmul-quantize's bf16 and f16 operands go to the tensor cores (wgmma,
+// fed by TMA: cgx_matmul_quantize_tc_kernel) wherever TMA can describe
+// them; no other kernel uses tensor cores.
 //
 // Arithmetic is fixed to the plain PyTorch version in
 // torch_cgx_tpu_torch/ops/codec.py, bit for bit: the meta multiplies by
@@ -139,11 +141,13 @@
 // add, and the raw own row added last. A per-chunk prologue (one lane a
 // bucket) writes s_r, bsum and usafe * 2^-12 beside the staged meta.
 
+#include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstring>
 #include <type_traits>
 
 namespace {
@@ -927,10 +931,12 @@ __device__ __forceinline__ void mm_stage16(float (&acc)[8][8], const uint16_t* x
 //
 // Bound: operations, 2*K*din*o (a multiply and an add per product, f32
 // FFMA) against sizeof(E)*K*(din + o) bytes read once and n*bits/8 + 8n/B
-// written. The design: no tensor cores (TF32 would round the f32 operands,
-// and an MMA's accumulation order would change the sums of the 16-bit
-// ones, breaking parity with the plain version), so it is an FFMA GEMM like
-// cuBLAS's f32 kernels:
+// written. The design: no tensor cores (TF32 would round the f32 operands;
+// the 16-bit operands of a shape TMA can describe go to the tensor-core
+// kernel, cgx_matmul_quantize_tc_kernel below, and only the others, din or
+// o not a multiple of 8 or an operand not 16-byte aligned, come here, where
+// their sums are the f32 instance's on the upcast operands, bit for bit),
+// so it is an FFMA GEMM like cuBLAS's f32 kernels:
 //  - the GEMM tiling is the output's, not the quantize chunk's: 64 x 128
 //    tiles of dw, every value computed exactly once (288 tiles at GPT-2
 //    124M's mlp_in), walked by a persistent grid of as many blocks as the
@@ -2219,6 +2225,326 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
   }
 }
 
+// ---------------------------------------------------------------------------
+// The matmul-quantize on tensor cores (B8's 16-bit operands).
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBM = 128;  // rows of dw (columns of x2) a tile covers: 64 a consumer warpgroup
+constexpr int kTcBN = 192;  // columns of dw (of g2) a tile covers: one m64n192k16 wide
+constexpr int kTcBK = 64;   // contraction steps a ring stage holds: four k16 steps
+constexpr int kTcStages = 5;
+constexpr int kTcBox = 64;  // a TMA box's columns: 128 bytes, the 128-byte swizzle's width
+constexpr int kTcBoxBytes = kTcBK * kTcBox * 2;                 // one box: 64 rows of 128 bytes
+constexpr int kTcStageBytes = (kTcBM + kTcBN) / kTcBox * kTcBoxBytes;  // x2's 2 boxes, g2's 3
+constexpr int kTcConsumers = 256;                // two warpgroups
+constexpr int kTcThreads = kTcConsumers + 32;    // and the producer warp
+constexpr int kTcSwizzleBytes = 1024;            // 8 rows of 128 bytes: the swizzle's period
+
+// A wgmma shared-memory descriptor of an MN-major operand in the 128-byte
+// swizzle at shared address `addr` (a multiple of 1,024): 8 contraction
+// rows of 128 bytes (64 values along M or N) an atom; the leading byte
+// offset steps to the next 64 values along M or N (the next TMA box), the
+// stride byte offset to the next 8 contraction rows.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(kTcBoxBytes >> 4) << 16) |
+         ((uint64_t)(kTcSwizzleBytes >> 4) << 32) | (1ull << 62);
+}
+
+// d += A B over 16 contraction steps for a warpgroup's 64 x 192 sums
+// (d = A B with scale_d 0), A and B both MN-major (the transpose flags
+// 1), bf16 or f16 (WIRE) in, f32 sums.
+#define CGX_WGMMA_M64N192K16(T)                                                               \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32." T "." T " {"                             \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                                    \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "                          \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "                          \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                          \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                          \
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "                          \
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "                          \
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "                         \
+      "%96, %97, p, 1, 1, 1, 1;\n}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),         \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),         \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),         \
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),         \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),         \
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),         \
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),         \
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),         \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),         \
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])                       \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+template <int WIRE>
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  if constexpr (WIRE == kWireF16) {
+    CGX_WGMMA_M64N192K16("f16");
+  } else {
+    CGX_WGMMA_M64N192K16("bf16");
+  }
+}
+#undef CGX_WGMMA_M64N192K16
+
+// Keeps the compiler from moving reads or writes of the sums across the
+// wgmma fences and waits (the asynchronous product owns the registers).
+__device__ __forceinline__ void wgmma_fence_sums(float (&d)[96]) {
+#pragma unroll
+  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// x / div correctly rounded, bit for bit __fdiv_rn(x, div): the product
+// with rdiv = 1/div where div is a power of two (the product is then the
+// exact quotient rounded once), else the IEEE divide (rdiv 0).
+__device__ __forceinline__ float div_by(float x, float div, float rdiv) {
+  return rdiv != 0.f ? __fmul_rn(x, rdiv) : __fdiv_rn(x, div);
+}
+
+// One TMA box of the 2-D tensor `map` at (column c0, row c1) into shared
+// memory at dst, completing on `bar` (its bytes announced beforehand).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// codec_matmul_quantize on tensor cores. Replaces fused_producer.py
+// _matmul_quantize_impl (B8) for bf16 and f16 operands (WIRE, the launch's
+// format, a template parameter: the two formats are different wgmma
+// instructions) wherever TMA can describe them: din and o multiples of 8,
+// both operands 16-byte aligned (codec_cuda.mm_tc_eligible; other 16-bit
+// shapes take cgx_matmul_quantize_kernel above). The function is that
+// kernel's: dw = x2^T g2 summed in f32, __fdiv_rn by div, quantized in the
+// wire layout of the flat dw, the own raw row each sum rounded to the
+// operand dtype, then divided.
+//
+// Bound: operations, 2*K*din*o at the bf16 tensor-core rate (989 TFLOP/s
+// dense), against 2*K*(din + o) bytes read once and n*bits/8 + 8n/B (+
+// 4n/ws of the raw row) written: 0.0049 ms at GPT-2 124M's mlp_in (K =
+// 1,024), the bytes alone about 3.4 us. The FFMA design reached 2 % of
+// that, issue-bound on its f32 FMAs and the converts at the shared-memory
+// read. The design:
+//  - the mainloop is wgmma.mma_async m64n192k16, both operands read from
+//    shared memory. x2^T (din contiguous) and g2 (o contiguous) are both
+//    MN-major, which the 16-bit wgmma takes through its transpose flags, so
+//    no pass transposes them; gmma_desc describes them;
+//  - a tile is 128 x 192 of dw: two consumer warpgroups, 64 rows each, 96
+//    sums a thread (96, 72 and 96 tiles at GPT-2 124M's mlp_in, attn_qkv
+//    and mlp_out: one wave of the persistent grid on 132 SMs);
+//  - one producer warp keeps a 5-stage ring of 64 contraction rows full:
+//    per stage two TMA boxes of x2 and three of g2, 64 values x 64 rows
+//    each in the 128-byte swizzle wgmma reads, one full and one empty
+//    mbarrier a stage. TMA fills the parts of a box past K, din or o with
+//    zeros, so the tails cost the mainloop nothing; only the workspace
+//    stores are masked. The consumers keep one stage's products in flight
+//    (wgmma.wait_group 1) and release the stage before it;
+//  - no setmaxnreg: the consumers' 96 sums fit the 224 registers a thread
+//    that one block of 288 threads an SM allows, and every warp, the
+//    producer's too, runs the chunk quantize after the tiles;
+//  - the sums are the tensor cores': every product is exact in f32 and
+//    the sums are f32, in the tensor cores' order, so on small-integer
+//    operands (every partial sum exact) the bytes equal the plain
+//    version's, and on others words and meta agree within the tolerance
+//    the f32 kernel keeps with cuBLAS (chip_smoke.py payload_close);
+//  - the epilogue is cgx_matmul_quantize_kernel's completion through the
+//    L2 unchanged: each tile stores sum / div into the workspace (__stcg)
+//    and the raw own row where it falls, fences, and adds to the chunks'
+//    arrival counters; chunk c's block (c % gridDim.x) waits for its
+//    arrivals, stages it in the ring's space and runs chunk_meta and
+//    chunk_encode on it. The wire bytes of a given f32 dw are B1's. The
+//    quotient is __fdiv_rn's, by a multiply where div is a power of two
+//    (div_by; the IEEE divide's call is a sixth of the stores' time);
+//  - where the rest goes (tools/mmtc_split.py times the kernel without its
+//    quantize, and without its stores too; PERF.md): the mainloop (96
+//    tiles on 132 SMs at mlp_in), the stores, and the chunk quantize, whose
+//    encode is latency-bound at 9 warps an SM and takes two rounds where
+//    the chunks (144 at mlp_in) outnumber the blocks.
+template <int BITS, int ENCODE, int PACK, int WIRE, typename E>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    cgx_matmul_quantize_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                                  const __grid_constant__ CUtensorMap g_map, long long k_total,
+                                  int din, int o, int tiles_n, long long tiles, float div,
+                                  float rdiv, int B, float inv, float* __restrict__ work,
+                                  int* __restrict__ arrivals,
+                                  float* __restrict__ raw, long long raw_lo, long long raw_n,
+                                  int32_t* __restrict__ words, float* __restrict__ meta) {
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  __shared__ uint64_t full[kTcStages], empty[kTcStages];
+  __shared__ float s_unit[kChunkBuckets];
+  __shared__ float s_min[kChunkBuckets];
+  // The swizzle's period is 1,024 bytes: the ring starts on one (the
+  // launch asks for that much more).
+  uint8_t* ring = tc_smem + ((kTcSwizzleBytes - (smem_addr(tc_smem) & (kTcSwizzleBytes - 1))) &
+                             (kTcSwizzleBytes - 1));
+  const int nk = (int)((k_total + kTcBK - 1) / kTcBK);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init_count(&full[s], 1);
+      mbar_init_count(&empty[s], kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kTcConsumers) {
+    // The producer warp: lane 0 walks the block's tiles' stages.
+    if (threadIdx.x == kTcConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int i0 = (int)(t / tiles_n) * kTcBM;
+        const int j0 = (int)(t % tiles_n) * kTcBN;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);  // a fresh ring's first pass does not wait
+          uint8_t* st = ring + stage * kTcStageBytes;
+          mbar_expect_tx(&full[stage], kTcStageBytes);
+#pragma unroll
+          for (int b = 0; b < kTcBM / kTcBox; ++b) {
+            tma_load_2d(st + b * kTcBoxBytes, &x_map, i0 + b * kTcBox, kb * kTcBK, &full[stage]);
+          }
+#pragma unroll
+          for (int b = 0; b < kTcBN / kTcBox; ++b) {
+            tma_load_2d(st + (kTcBM / kTcBox + b) * kTcBoxBytes, &g_map, j0 + b * kTcBox,
+                        kb * kTcBK, &full[stage]);
+          }
+          if (++stage == kTcStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // The consumers: warpgroup wg sums rows 64wg .. 64wg + 63 of the tile.
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    float acc[96];
+#pragma unroll
+    for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int i0 = (int)(t / tiles_n) * kTcBM;
+      const int j0 = (int)(t % tiles_n) * kTcBN;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a = smem_addr(ring + stage * kTcStageBytes + wg * kTcBoxBytes);
+        const uint32_t b = smem_addr(ring + stage * kTcStageBytes + kTcBM / kTcBox * kTcBoxBytes);
+        wgmma_fence_sums(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kTcBK / 16; ++s) {  // 16 rows of 128 bytes a step
+          wgmma_m64n192k16<WIRE>(acc, gmma_desc(a + s * 2048), gmma_desc(b + s * 2048),
+                                 kb > 0 || s > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        wgmma_fence_sums(acc);
+        if (kb > 0) mbar_arrive_count(&empty[prev], 1);
+        prev = stage;
+        if (++stage == kTcStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      wgmma_fence_sums(acc);
+      mbar_arrive_count(&empty[prev], 1);
+
+      // The tile's values of dw / div into the workspace (and the raw
+      // row): sum 4j + 2h + e of a thread is row 16 warp + lane/4 + 8h,
+      // column 8j + 2 (lane % 4) + e of its warpgroup's 64 x 192.
+      const int row0 = i0 + 64 * wg + 16 * warp + lane / 4;
+#pragma unroll
+      for (int j = 0; j < kTcBN / 8; ++j) {
+        const int col = j0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row < din && col < o) {  // o is even: col + 1 < o too
+            const float s0 = acc[4 * j + 2 * h], s1 = acc[4 * j + 2 * h + 1];
+            const long long flat = (long long)row * o + col;
+            __stcg(reinterpret_cast<float2*>(work + flat),
+                   make_float2(div_by(s0, div, rdiv), div_by(s1, div, rdiv)));
+            if (flat >= raw_lo && flat < raw_lo + raw_n) {  // the product in the compute dtype, then / div
+              *reinterpret_cast<float2*>(raw + (flat - raw_lo)) =
+                  make_float2(div_by(wire_round<E>(s0, WIRE), div, rdiv),
+                              div_by(wire_round<E>(s1, WIRE), div, rdiv));
+            }
+          }
+        }
+      }
+      __threadfence();  // the values are visible device-wide before any arrival counts them
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kTcConsumers) : "memory");  // every consumer's values
+      // One arrival per row of the tile, as cgx_matmul_quantize_kernel's.
+      const int j1 = min(j0 + kTcBN, o);
+      if (threadIdx.x < kTcBM && i0 + (int)threadIdx.x < din) {
+        const int i = i0 + threadIdx.x;
+        const long long chunk_n = (long long)kChunkBuckets * B;
+        long long lo = (long long)i * o + j0;
+        const long long hi = (long long)i * o + j1;
+        while (lo < hi) {
+          const long long c = lo / chunk_n;
+          const long long end = min(hi, (c + 1) * chunk_n);
+          atomicAdd(arrivals + c, (int)(end - lo));
+          lo = end;
+        }
+      }
+    }
+  }
+
+  // Every warp: this block's chunks, as cgx_matmul_quantize_kernel's. The
+  // ring is free (every stage was consumed) and becomes the chunk's tile.
+  __syncthreads();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  float* tile = reinterpret_cast<float*>(ring);
+  const long long chunk_n = (long long)kChunkBuckets * B;
+  const long long chunks = (long long)din * o / chunk_n;
+  for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
+    if (threadIdx.x == 0) {
+      while (ld_acquire(arrivals + c) < chunk_n) __nanosleep(128);
+    }
+    __syncthreads();
+    const float* src = work + c * chunk_n;
+    for (long long e = threadIdx.x; e < chunk_n / 4; e += kTcThreads) {
+      cp_async16(tile + 4 * e, src + 4 * e, 16);  // from the L2, where the values are
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    chunk_meta<ENCODE>(tile, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
+    __syncthreads();
+    chunk_encode<BITS, ENCODE, PACK>(tile, B, s_unit, s_min, words + c * BITS * B);
+    __syncthreads();  // the tile and the meta are free for the next chunk
+  }
+}
+
 #ifndef CGX_INT8  // the divide check runs from the default library alone
 // The divide check (not a codec kernel): for divisors d = (1 + m/2^23) *
 // 2^e2 with m = m0, m0 + m_step, ... < 2^23, numerators around every
@@ -2507,12 +2833,13 @@ int by_instance(int stochastic, int wire, const F& f) {
 }  // namespace
 
 
-// The build compiles this file once per part (-DCGX_PART=0..20), the parts
+// The build compiles this file once per part (-DCGX_PART=0..21), the parts
 // in parallel, and links them into one library; without CGX_PART it
 // compiles every entry point. Parts 7-10 hold the stochastic f32
 // instances, parts 11-18 the 16-bit ones (of B1, B3, B7a, B7c, each round
 // to nearest and stochastic), part 19 B4's with a 16-bit raw row, part 20
-// B8's 16-bit operands. With -DCGX_INT8 it compiles the int8 fold's
+// B8's 16-bit operands on the FFMA kernel, part 21 the tensor-core kernel
+// (bf16 and f16) and its entry point. With -DCGX_INT8 it compiles the int8 fold's
 // library instead (parts 0-9).
 #ifdef CGX_PART
 #define CGX_IN_PART(k) (CGX_PART == (k))
@@ -2715,6 +3042,111 @@ int matmul_quantize_entry(const E* x2, const E* g2, long long k_total, int din, 
   }));
   return (int)cudaGetLastError();
 }
+
+#if CGX_IN_PART(21)
+// cuTensorMapEncodeTiled from the driver the runtime loaded, so that the
+// library links no libcuda; null where the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major (rows, cols) operand of 16-bit values in
+// boxes of kTcBox columns x kTcBK rows, 128-byte swizzled, zero-filled
+// past its edges.
+cudaError_t tc_map(CUtensorMap* map, const uint16_t* base, long long rows, int cols, int wire) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {kTcBox, kTcBK};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, wire == kWireF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<uint16_t*>(base), dim, stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// B8's tensor-core body (bf16 or f16 operands, `wire`): the operands' TMA
+// maps, then one cooperative launch of the persistent grid. Takes what
+// codec_cuda.mm_tc_eligible admits: din and o multiples of 8, both
+// operands 16-byte aligned.
+int matmul_quantize_tc_entry(const uint16_t* x2, const uint16_t* g2, long long k_total, int din,
+                             int o, float div, float* work, int* arrivals, float* raw,
+                             long long raw_lo, long long raw_n, int32_t* words, float* meta, int B,
+                             int bits, float inv, int encode, int pack, int wire, void* stream) {
+  const long long n = (long long)din * o;
+  const long long chunk_n = (long long)kChunkBuckets * B;
+  if (k_total < 1 || k_total > 0x7fffffffLL || din < 8 || din % 8 || o < 8 || o % 8 || B < 32 ||
+      B % 32 || n % chunk_n || !aligned16(x2) || !aligned16(g2) || !aligned16(work) ||
+      arrivals == nullptr || raw_lo < 0 || raw_n < 0 || raw_lo % 4 || raw_n % 4 ||
+      raw_lo + raw_n > n || (raw_n > 0 && (raw == nullptr || !aligned16(raw))) ||
+      (wire != kWireBf16 && wire != kWireF16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap x_map, g_map;
+  cudaError_t e = tc_map(&x_map, x2, k_total, din, wire);
+  if (e == cudaSuccess) e = tc_map(&g_map, g2, k_total, o, wire);
+  if (e != cudaSuccess) return (int)e;
+  int tiles_n = (o + kTcBN - 1) / kTcBN;
+  long long tiles = (long long)((din + kTcBM - 1) / kTcBM) * tiles_n;
+  const size_t ring = (size_t)kTcStages * kTcStageBytes;
+  const size_t tile = (size_t)chunk_n * sizeof(float);
+  const size_t smem = (ring > tile ? ring : tile) + kTcSwizzleBytes;  // and the ring's alignment
+  // 1/div where div is a power of two whose reciprocal is a normal float.
+  uint32_t div_bits;
+  memcpy(&div_bits, &div, sizeof div_bits);
+  const uint32_t div_exp = (div_bits >> 23) & 0xff;
+  float rdiv = (div_bits & 0x807fffffu) == 0 && div_exp >= 1 && div_exp <= 253 ? 1.f / div : 0.f;
+  void* args[] = {&x_map, &g_map, &k_total, &din, &o, &tiles_n, &tiles, &div, &rdiv, &B,
+                  &inv, &work, &arrivals, &raw, &raw_lo, &raw_n, &words, &meta};
+  auto launch = [&](auto kernel) -> int {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTcThreads, smem);
+    }
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long most = (long long)per_sm * sms;
+    const long long want = tiles > n / chunk_n ? tiles : n / chunk_n;
+    const unsigned grid = (unsigned)(want < most ? want : most);
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kTcThreads), args,
+                                      smem, (cudaStream_t)stream);
+    if (err != cudaSuccess) (void)cudaGetLastError();
+    return (int)err;
+  };
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    const int err = wire == kWireF16
+        ? launch(cgx_matmul_quantize_tc_kernel<BITS, ENCODE, PACK, kWireF16, uint16_t>)
+        : launch(cgx_matmul_quantize_tc_kernel<BITS, ENCODE, PACK, kWireBf16, uint16_t>);
+    if (err != cudaSuccess) return err;
+  }));
+  return (int)cudaGetLastError();
+}
+#endif
 
 #ifndef CGX_INT8
 // Each instance but an entry point's f32 round-to-nearest one is compiled
@@ -3027,6 +3459,20 @@ int cgx_matmul_quantize(const void* x2, const void* g2, long long k_total, int d
                                               static_cast<const uint16_t*>(g2), k_total, din, o,
                                               div, work, arrivals, raw, raw_lo, raw_n, words, meta,
                                               B, bits, inv, encode, pack, wire, stream);
+}
+#endif
+
+#if CGX_IN_PART(21)
+// cgx_matmul_quantize on tensor cores: the same arguments, x2 and g2 bf16
+// or f16 (`wire`), din and o multiples of 8, x2 and g2 16-byte aligned.
+int cgx_matmul_quantize_tc(const void* x2, const void* g2, long long k_total, int din, int o,
+                           float div, float* work, int* arrivals, float* raw, long long raw_lo,
+                           long long raw_n, int32_t* words, float* meta, int B, int bits,
+                           float inv, int encode, int pack, int wire, void* stream) {
+  return cgx::matmul_quantize_tc_entry(static_cast<const uint16_t*>(x2),
+                                       static_cast<const uint16_t*>(g2), k_total, din, o, div,
+                                       work, arrivals, raw, raw_lo, raw_n, words, meta, B, bits,
+                                       inv, encode, pack, wire, stream);
 }
 #endif
 

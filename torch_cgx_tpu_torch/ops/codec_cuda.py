@@ -2,9 +2,11 @@
 
 Counterpart of ``torch_cgx_tpu/ops/codec_pallas.py``, of the kernel of
 ``torch_cgx_tpu/ops/fused_producer.py`` and of the quantize diagnostics of
-``tools/qbench.py``. Nine hand-written kernels in ``csrc/codec.cu`` (built
+``tools/qbench.py``. Ten hand-written kernels in ``csrc/codec.cu`` (built
 for ``sm_90a`` with ``nvcc`` into a plain C shared library at first use,
-loaded with ``ctypes``) replace the eleven Pallas kernels:
+loaded with ``ctypes``) replace the eleven Pallas kernels, the
+matmul-quantize with two (an FFMA one, and a tensor-core one for 16-bit
+operands):
 
 ============================  =================================================
 wrapper                       TPU kernels replaced
@@ -71,11 +73,16 @@ cast the meta to the tensor's dtype after a quantize and upcast sub-f32
 meta and accumulators before a decode, as the JAX package's do outside
 its kernels (``codec.batch_views``). Another dtype raises ``ValueError``.
 The matmul-quantize (B8) reads its two operands in one dtype of the
-three, as the JAX kernel reads them in the layer's compute dtype: a
-16-bit product's sums (and so its words and meta) are those of the
+three, as the JAX kernel reads them in the layer's compute dtype. 16-bit
+operands whose shape TMA can describe (:func:`mm_tc_eligible`) go to a
+tensor-core kernel (``wgmma`` fed by a TMA ring, :data:`MM_TC_LAUNCHES`),
+whose float32 sums come in the tensor cores' order: bit-identical to the
+plain version where every partial sum is exact (small integers), within
+``chip_smoke.py``'s payload tolerance otherwise. The other 16-bit shapes
+take the FFMA kernel, whose sums (and so words and meta) are those of the
 float32 kernel on the upcast operands, bit for bit, since the product of
-two bf16 (or two f16) values is exact in float32; its own raw row is the
-product rounded to the operand dtype, then divided.
+two bf16 (or two f16) values is exact in float32. Either way the own raw
+row is the product rounded to the operand dtype, then divided.
 
 The int8 fold (``CGX_SRA_ACCUM=int8``): the reduce kernels (B3, B7c, B4)
 and their plain versions take ``accum`` ("exact", the f32 fold, or "int8";
@@ -126,8 +133,9 @@ NVCC_FLAGS = (
 # csrc/codec.cu), compiled by one nvcc each, all at once, then linked:
 # parts 7-10 hold the stochastic f32 instances of B1, B3, B7a and B7c,
 # parts 11-18 their 16-bit instances (round to nearest and stochastic),
-# part 19 B4's with a 16-bit raw row, part 20 B8's with 16-bit operands.
-BUILD_PARTS = 21
+# part 19 B4's with a 16-bit raw row, part 20 B8's with 16-bit operands on
+# the FFMA kernel, part 21 B8's tensor-core kernel (bf16 and f16).
+BUILD_PARTS = 22
 # The int8 library's parts: its entry points and B4 (0), B3 (1-4), B7c
 # (5-8), B4 with a 16-bit raw row (9).
 INT8_BUILD_PARTS = 10
@@ -179,6 +187,10 @@ WIRE16_LAUNCHES: Dict[str, int] = {
 INT8_LAUNCHES: Dict[str, int] = {
     "codec_sra_epilogue": 0, "codec_sra_epilogue_db": 0, "codec_reduce_rows": 0,
 }
+# Launches of the matmul-quantize's tensor-core kernel (bf16 or f16
+# operands that TMA can describe, :func:`mm_tc_eligible`): a share of
+# WIRE16_LAUNCHES["codec_matmul_quantize"].
+MM_TC_LAUNCHES: Dict[str, int] = {"launches": 0}
 
 
 def _count_launch(name: str, wire: int, accum: str = "exact") -> None:
@@ -190,7 +202,8 @@ def _count_launch(name: str, wire: int, accum: str = "exact") -> None:
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DB_GATED, REDUCE_SCALAR, WIRE16_LAUNCHES, INT8_LAUNCHES):
+    for counts in (LAUNCHES, DB_GATED, REDUCE_SCALAR, WIRE16_LAUNCHES, INT8_LAUNCHES,
+                   MM_TC_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -328,6 +341,7 @@ def _lib():
             lib.cgx_reduce_rows.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp, i, vp]
             lib.cgx_matmul_quantize.argtypes = [
                 vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, i, vp]
+            lib.cgx_matmul_quantize_tc.argtypes = lib.cgx_matmul_quantize.argtypes
             lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, i, u, u, i, vp]
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
             lib.cgx_sra_epilogue_db.argtypes = [
@@ -338,9 +352,9 @@ def _lib():
             lib.cgx_error_name.argtypes = [i]
             lib.cgx_error_name.restype = ctypes.c_char_p
             fns = (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue,
-                   lib.cgx_reduce_rows, lib.cgx_matmul_quantize, lib.cgx_quantize_db,
-                   lib.cgx_dequantize_db, lib.cgx_sra_epilogue_db, lib.cgx_quantize_variant,
-                   lib.cgx_div_sweep, lib.cgx_div_pairs)
+                   lib.cgx_reduce_rows, lib.cgx_matmul_quantize, lib.cgx_matmul_quantize_tc,
+                   lib.cgx_quantize_db, lib.cgx_dequantize_db, lib.cgx_sra_epilogue_db,
+                   lib.cgx_quantize_variant, lib.cgx_div_sweep, lib.cgx_div_pairs)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _LIB = lib
@@ -999,6 +1013,39 @@ def _own_span(n: int, own_row: Optional[Tuple[int, int]]) -> Tuple[int, int]:
     return own * (n // ws), n // ws
 
 
+# The tensor-core kernel's output tile (rows of dw, columns of dw): two
+# warpgroups of 64 rows, one m64n192k16 wide (csrc/codec.cu kTcBM, kTcBN).
+MM_TC_TILE = (128, 192)
+
+
+def mm_tc_eligible(x2: torch.Tensor, g2: torch.Tensor) -> bool:
+    """Whether the matmul-quantize's tensor-core kernel takes these
+    operands: both bfloat16 or both float16, 2-D, ``din = x2.shape[1]`` and
+    ``o = g2.shape[1]`` multiples of 8 (TMA's row strides are multiples of
+    16 bytes), both base pointers 16-byte aligned. float32 never is. Pure:
+    the wrapper decides the route with it before the launch."""
+    return (x2.dtype == g2.dtype and x2.dtype in (torch.bfloat16, torch.float16)
+            and x2.dim() == 2 and g2.dim() == 2 and x2.shape[1] % 8 == 0
+            and g2.shape[1] % 8 == 0 and x2.data_ptr() % 16 == 0 and g2.data_ptr() % 16 == 0)
+
+
+def mm_tc_tiles(din: int, o: int) -> Tuple[int, int]:
+    """The tensor-core kernel's tiles of a ``(din, o)`` dw: ``(rows of
+    tiles, columns of tiles)``, :data:`MM_TC_TILE` each; the persistent
+    grid walks their product (at most one block an SM)."""
+    bm, bn = MM_TC_TILE
+    return -(-din // bm), -(-o // bn)
+
+
+def _mm_route(x2: torch.Tensor, g2: torch.Tensor, route: Optional[str]) -> str:
+    """The kernel a matmul-quantize launch takes: "tc" (the tensor cores)
+    where :func:`mm_tc_eligible` admits the operands, else "ffma";
+    ``route="ffma"`` forces the FFMA kernel for any operands."""
+    if route not in (None, "ffma"):
+        raise ValueError(f"_route must be None or 'ffma', got {route!r}")
+    return route or ("tc" if mm_tc_eligible(x2, g2) else "ffma")
+
+
 def matmul_quantize_chunks_plain(
     x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int,
     encode: Optional[str] = None, pack: Optional[str] = None,
@@ -1020,7 +1067,7 @@ def matmul_quantize_chunks_plain(
 def matmul_quantize_chunks(
     x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int,
     encode: Optional[str] = None, pack: Optional[str] = None,
-    own_row: Optional[Tuple[int, int]] = None,
+    own_row: Optional[Tuple[int, int]] = None, *, _route: Optional[str] = None,
 ):
     """The weight gradient of a dense layer, divided and quantized:
     ``x2`` ``(K, din)`` and ``g2`` ``(K, o)``, both float32, bfloat16 or
@@ -1032,7 +1079,14 @@ def matmul_quantize_chunks(
     din*o/ws)`` view of the product in the operands' dtype, divided, from
     the same sums. On the card the kernel reads 16-bit operands itself
     (counted in :data:`WIRE16_LAUNCHES`); the quotient goes only to an
-    L2-sized workspace the kernel quantizes from; one launch."""
+    L2-sized workspace the kernel quantizes from; one launch. 16-bit
+    operands that :func:`mm_tc_eligible` admits go to the tensor-core
+    kernel (counted in :data:`MM_TC_LAUNCHES`; its sums are the tensor
+    cores', so on data whose partial sums are not exact its bytes agree
+    with the plain version within a tolerance, not bit for bit), all others
+    to the FFMA kernel, whose sums are the float32 ones of the upcast
+    operands. ``_route="ffma"`` forces the FFMA kernel, for tests and
+    timings; it leaves the CPU's plain version alone."""
     encode, pack = _lowering(encode, pack)
     if cfg_mod.stochastic_rounding():
         raise NotImplementedError(
@@ -1048,6 +1102,7 @@ def matmul_quantize_chunks(
     o = g2.shape[1]
     chunks = _chunk_geometry(din * o, bits, bucket_size)
     raw_lo, raw_n = _own_span(din * o, own_row)
+    route = _mm_route(x2, g2, _route)
     if _device_kind(x2, g2) == "cpu":
         return matmul_quantize_chunks_plain(x2, g2, div, bits, bucket_size, encode, pack, own_row)
     if o % 4:
@@ -1064,7 +1119,8 @@ def matmul_quantize_chunks(
     work = torch.empty(din * o, dtype=torch.float32, device=dev)
     arrivals = torch.zeros(chunks, dtype=torch.int32, device=dev)  # the launch's own
     raw = torch.empty(raw_n, dtype=torch.float32, device=dev) if own_row is not None else None
-    err = _lib().cgx_matmul_quantize(
+    entry = _lib().cgx_matmul_quantize_tc if route == "tc" else _lib().cgx_matmul_quantize
+    err = entry(
         x2.data_ptr(), g2.data_ptr(), k_total, din, o, float(div),
         work.data_ptr(), arrivals.data_ptr(),
         None if raw is None or raw_n == 0 else raw.data_ptr(), raw_lo, raw_n,
@@ -1072,6 +1128,8 @@ def matmul_quantize_chunks(
         codec.unit_scale(bits), ENCODES.index(encode), PACKS.index(pack), wire, _stream(x2),
     )
     _count_launch("codec_matmul_quantize", wire)
+    if route == "tc":
+        MM_TC_LAUNCHES["launches"] += 1
     _check_launch("codec_matmul_quantize", err)
     return (words, meta) if raw is None else (words, meta, raw)
 
