@@ -20,13 +20,16 @@ order, none of whose failures is caught:
    at phase 7's flat-SRA epilogue (the multi-row reduce at the
    two-level and the all-to-all shapes of phase 7, the matmul-quantize at
    the three dense-layer shapes of phase 7's flat SRA step and at edge
-   geometries where its 64 x 128 tiles and the 32-bucket chunks end at
-   different places): words, meta and decoded values must be bit-identical
-   (tolerance 0), the matmul-quantize's own raw row too, and the
-   matmul-quantize on normal operands, whose sums the kernel and cuBLAS
-   associate differently, within ``payload_close``'s tolerance (meta within
-   1e-5 relative, every decoded value within one level step; the raw row
-   within 1e-5 of the row's largest magnitude). Then B9's
+   geometries where its tiles and the 32-bucket chunks end at different
+   places, on float32 operands on the tensor cores as split TF32 (the
+   split pass bit for bit against its plain version too) and on its FFMA
+   kernel, forced: :func:`check_mm32`): words, meta and decoded values
+   must be bit-identical (tolerance 0), the matmul-quantize's own raw row
+   too, and the matmul-quantize on normal operands, whose sums the kernels
+   and cuBLAS associate differently, within ``payload_close``'s tolerance
+   (meta within 1e-5 relative, every decoded value within one level step;
+   the raw row within 1e-5 of the row's largest magnitude; the meta error
+   of each route printed). Then B9's
    variant kernel (``nometa``, ``metalane``, ``read``) at bits 1, 2, 4 and 8
    on the 64 MB slice and at 1, 131, 133 and 2053 chunks, and every
    quantizing kernel (B1, B7a, B3, B7c, B8) in each (encode, pack) lowering:
@@ -97,9 +100,11 @@ order, none of whose failures is caught:
    queued behind a sleep kernel, ``burst_ms``, which leaves out the host's
    time between launches), each pipelined kernel beside its
    single-stage sibling, the
-   matmul-quantize also against ``torch.matmul`` of the same product (which
-   lacks the quantize) and against the unfused route for the same payload
-   (that product, the divide and the stage-1 quantize: what
+   matmul-quantize on float32 operands (:func:`time_mm32`) as bursts in
+   turns with its FFMA kernel, its split pass alone and float32
+   ``torch.matmul`` of the same product (which lacks the quantize), per
+   call also against the unfused route for the same payload (that
+   product, the divide and the stage-1 quantize: what
    ``CGX_PRODUCER_FUSE=auto`` is decided by), a device-to-device copy as
    the yardstick, the train step without the codec and with it under
    ``CGX_PALLAS_DB`` off and on,
@@ -155,12 +160,17 @@ order, none of whose failures is caught:
    path on a 64 MB fusion slice. Then the flat SRA on a float32 GPT-2 124M,
    one step without producer fusion and one with it
    (``CGX_PRODUCER_FUSE=on``), whose step skips the 36 plain weight
-   gradients (``producer_dw_skipped``): before it, rank 0 runs one backward
+   gradients (``producer_dw_skipped``) and runs its 36 B8 launches on the
+   tensor cores as split TF32 (``MM_TC_LAUNCHES``), each after a split
+   pass (``LAUNCHES["codec_tf32_split"]``): before it, rank 0 runs one backward
    outside ``make_train_step`` with the plane engaged (``p.grad`` kept) and
    holds each of the 36 staged payloads (the
    ``attn_qkv``, ``mlp_in`` and ``mlp_out`` kernels of the 12 blocks) to a
-   quantize of that layer's ``p.grad / 4`` within ``payload_close``'s
-   tolerance. Then ``sra_producer_bf16``: the same on the default model
+   quantize of the exact (float64) product of the operands the layer's
+   backward handed the kernel, ``/ 4``, within ``payload_close``'s
+   tolerance, that product to the layer's ``p.grad`` within 1e-5 of its
+   largest magnitude (cuBLAS's float32 ``p.grad`` itself moves the meta
+   past 1e-5 there; its distances are logged). Then ``sra_producer_bf16``: the same on the default model
    (bf16 compute, f32 parameters): 36 B8 launches a rank, every one reading
    bf16 operands itself on the tensor-core kernel (``MM_TC_LAUNCHES``), 36
    ``dw`` skipped a rank, and rank 0's 36 payloads bit for bit against a
@@ -262,6 +272,9 @@ F32_RATE = 67e12
 # bf16 and f16 on the tensor cores, dense, operations/s (the same sheet):
 # the least time the card needs for a product of 16-bit operands.
 BF16_RATE = 989e12
+# TF32 on the tensor cores, dense (the same sheet): B8's float32 operands
+# run as split TF32, three tf32 products for each f32 one.
+TF32_RATE = 495e12
 # Stochastic rounding (phases 3, 4, 5 and 7): the seed of the kernels'
 # checks and of the stochastic step.
 SR_SEED = 0x0123456789ABCDEF
@@ -317,6 +330,9 @@ TPU_KERNELS = {
     "codec_dequantize_db": "torch_cgx_tpu/ops/codec_pallas.py:618",
     "codec_sra_epilogue_db": "torch_cgx_tpu/ops/codec_pallas.py:1473",
     "codec_quantize_variant": "tools/qbench.py:44,148",
+    # B8's float32 operands split into TF32 planes for its tensor-core
+    # kernel: part of the same TPU kernel.
+    "codec_tf32_split": "torch_cgx_tpu/ops/fused_producer.py:537",
 }
 # The pipelined kernel of each single-stage one, by the batch functions'
 # kernel names (``dispatch.db_would_run``).
@@ -441,10 +457,13 @@ def payload_close(words, meta, want_words, want_meta, bits: int, bucket: int) ->
 
     a, b = decode(words, meta), decode(want_words, want_meta)
     err = (a - b).abs()
-    # One level step, the meta's difference, and a float32 rounding of each
-    # decoded value.
+    # One level step, the meta's difference, and the float32 roundings of
+    # each decode, min + unit * level: the product's and the sum's, at most
+    # eps (|value| + |min|) a value (the product is near |min| where the
+    # value is near 0).
     tol = (unit + dm[:, 1] + ((1 << bits) - 1) * dm[:, 0])[:, None]
-    tol = tol + 2 * np.finfo(np.float32).eps * torch.maximum(a.abs(), b.abs())
+    mins = torch.maximum(m[:, 1].abs(), wm[:, 1].abs())[:, None]
+    tol = tol + 2 * np.finfo(np.float32).eps * (torch.maximum(a.abs(), b.abs()) + mins)
     ok = meta_rel <= META_RTOL and bool((err <= tol).all())
     steps = float((err / unit.clamp_min(1e-30)[:, None]).max())
     return ok, meta_rel, float(err.max()), steps
@@ -584,43 +603,20 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
         del rows, q
 
     # The matmul-quantize at the dense-layer shapes of phase 7's flat SRA
-    # step, divisor 4, then at geometries whose tiles (64 x 128 values of
-    # dw) and 32-bucket chunks end at different places: o not a multiple of
-    # 128, din not a multiple of 64 (or of 4: x2 moves in 4-byte copies), K
-    # not a multiple of the 16-step stage, chunks that cross rows. Small-
-    # integer operands make every sum exact in f32, so the kernel's and
-    # cuBLAS's orders agree and the bytes must too, the own raw row's
-    # values included; normal operands are held to payload_close's
-    # tolerance, their raw row to RAW_RTOL relative to the row's largest
-    # magnitude (one product summed in two orders).
-    mm_cases = [(layer, MM_K, din, o, MR_WS, BITS, BUCKET) for layer, (din, o) in MM_SHAPES.items()]
-    mm_cases += [("edge", *c) for c in MM_EDGE_CASES]
-    for layer, k, din, o, div, bits, b in mm_cases:
-        label = f"{layer} K={k} {din}x{o} div={div} bits={bits} B={b}"
-        ws = MR_WS if din % MR_WS == 0 else 1
-        for kind in ("integer", "normal"):
-            if kind == "integer":
-                xm = rng.integers(-3, 4, (k, din)).astype(np.float32)
-                gm = rng.integers(-3, 4, (k, o)).astype(np.float32)
-            else:
-                xm = rng.standard_normal((k, din)).astype(np.float32)
-                gm = rng.standard_normal((k, o)).astype(np.float32)
-            x2, g2 = torch.from_numpy(xm).to(dev), torch.from_numpy(gm).to(dev)
-            own = (din // 3) * ws // din if ws > 1 else 0  # a row inside the layer
-            w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, b, own_row=(own, ws))
-            pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(x2, g2, div, bits, b, own_row=(own, ws))
-            if kind == "integer":
-                record("codec_matmul_quantize", f"{label} integer words", w, pw)
-                record("codec_matmul_quantize", f"{label} integer meta", m, pm)
-                record("codec_matmul_quantize", f"{label} integer raw row {own}/{ws}", raw, praw)
-                continue
-            ok, meta_rel, abs_err, steps = payload_close(w, m, pw, pm, bits, b)
-            raw_rel = _max_abs(raw, praw) / max(float(praw.abs().max()), 1e-30)
-            max_err["codec_matmul_quantize"] = max(max_err["codec_matmul_quantize"], abs_err)
-            log(f"  {'codec_matmul_quantize':20s} {label + ' normal':44s} meta {meta_rel:.2e} rel, "
-                f"decoded within {steps:.3f} level steps ({abs_err:.3e}); raw row {raw_rel:.2e} rel")
-            if not ok or raw_rel > RAW_RTOL:
-                raise AssertionError(f"codec_matmul_quantize {label}: outside the tolerance")
+    # step, divisor 4, then at geometries whose tiles (128 x 192 values of
+    # dw on the tensor cores, 64 x 128 on the FFMA kernel) and 32-bucket
+    # chunks end at different places: o not a multiple of the tile's
+    # width, din not a multiple of its height (or of 4), K not a multiple
+    # of the stage, chunks that cross rows. float32 operands take the
+    # tensor cores as split TF32 (the split pass, then three tf32 products
+    # a step: check_mm32), and the FFMA kernel, forced, keeps its anchor.
+    # Small-integer operands make every sum exact in f32 (and every lo
+    # plane 0), so the kernels' and cuBLAS's orders agree and the bytes
+    # must too, the own raw row's values included; normal operands are
+    # held to payload_close's tolerance, their raw row to RAW_RTOL
+    # relative to the row's largest magnitude (one product summed in two
+    # orders).
+    max_err["codec_matmul_quantize"] = max(max_err["codec_matmul_quantize"], check_mm32(dev, rng, record))
     check_b9(dev, flat_n, record)
     check_lowerings(dev, flat_n, ws, rng, record, db_tc)
     check_cluster(dev, rng, record)
@@ -629,6 +625,85 @@ def check_kernels(dev, flat_n: int, tail_n: int, ws: int) -> dict:
     check_subf32(dev, flat_n, tail_n, rng, record)
     max_err[MM16] = max(max_err[MM16], check_mm16(dev, rng, record))
     return max_err
+
+
+def check_mm32(dev, rng, record) -> float:
+    """B8's float32 operands at phase 7's three dense-layer shapes (K =
+    MM_K, divisor MR_WS) and at MM_EDGE_CASES, the own raw row of one rank:
+    on the tensor cores (split TF32; each launch counted in
+    ``MM_TC_LAUNCHES`` and its split pass in ``LAUNCHES["codec_tf32_split"]``)
+    and on the FFMA kernel (``_route="ffma"``). Integer operands: words,
+    meta and raw row bit-identical to the plain version on both routes.
+    Normal operands: both within ``payload_close``'s tolerance of it and
+    the raw row within RAW_RTOL of its largest magnitude; the tensor
+    cores' meta error is printed beside the FFMA kernel's. The split pass
+    against its plain version, bit for bit, at the three shapes. Returns
+    the largest decoded difference of the tensor-core route from the plain
+    version on normal operands."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+
+    def routed(fn, route):
+        tc, split = codec_cuda.MM_TC_LAUNCHES["launches"], codec_cuda.LAUNCHES["codec_tf32_split"]
+        out = fn()
+        took = (codec_cuda.MM_TC_LAUNCHES["launches"] - tc, codec_cuda.LAUNCHES["codec_tf32_split"] - split)
+        if took != ((1, 1) if route == "tc" else (0, 0)):
+            raise AssertionError(f"codec_matmul_quantize: expected the {route} route, the launches were {took}")
+        return out
+
+    worst = 0.0
+    errs = {"tc": [], "ffma": []}
+    cases = [(layer, MM_K, din, o, MR_WS, BITS, BUCKET) for layer, (din, o) in MM_SHAPES.items()]
+    cases += [("edge", *c) for c in MM_EDGE_CASES]
+    for layer, k, din, o, div, bits, b in cases:
+        label = f"{layer} K={k} {din}x{o} div={div} bits={bits} B={b}"
+        ws = MR_WS if din % MR_WS == 0 else 1
+        own = ((din // 3) * ws // din if ws > 1 else 0, ws)  # a row inside the layer
+        for kind in ("integer", "normal"):
+            if kind == "integer":
+                xm = rng.integers(-3, 4, (k, din)).astype(np.float32)
+                gm = rng.integers(-3, 4, (k, o)).astype(np.float32)
+            else:
+                xm = rng.standard_normal((k, din)).astype(np.float32)
+                gm = rng.standard_normal((k, o)).astype(np.float32)
+            x2, g2 = torch.from_numpy(xm).to(dev), torch.from_numpy(gm).to(dev)
+            pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(x2, g2, div, bits, b, own_row=own)
+            if kind == "integer" and layer != "edge":
+                xs, gs = codec_cuda.tf32_split_transpose(x2, g2)
+                pxs, pgs = codec_cuda.tf32_split_transpose_plain(x2, g2)
+                record("codec_tf32_split", f"{label} integer x2 planes", xs, pxs, quiet=True)
+                record("codec_tf32_split", f"{label} integer g2 planes", gs, pgs, quiet=True)
+                xn = torch.from_numpy(rng.standard_normal((k, din)).astype(np.float32)).to(dev)
+                gn = torch.from_numpy(rng.standard_normal((k, o)).astype(np.float32)).to(dev)
+                xs, gs = codec_cuda.tf32_split_transpose(xn, gn)
+                pxs, pgs = codec_cuda.tf32_split_transpose_plain(xn, gn)
+                record("codec_tf32_split", f"{label} normal x2 planes", xs, pxs, quiet=True)
+                record("codec_tf32_split", f"{label} normal g2 planes", gs, pgs, quiet=True)
+            for route in ("tc", "ffma"):
+                w, m, raw = routed(lambda: codec_cuda.matmul_quantize_chunks(
+                    x2, g2, div, bits, b, own_row=own, _route=None if route == "tc" else "ffma"), route)
+                if kind == "integer":
+                    record("codec_matmul_quantize", f"{label} integer words ({route})", w, pw, quiet=True)
+                    record("codec_matmul_quantize", f"{label} integer meta ({route})", m, pm, quiet=True)
+                    record("codec_matmul_quantize", f"{label} integer raw row {own[0]}/{ws} ({route})", raw,
+                           praw, quiet=True)
+                    continue
+                ok, meta_rel, abs_err, steps = payload_close(w, m, pw, pm, bits, b)
+                raw_rel = _max_abs(raw, praw) / max(float(praw.abs().max()), 1e-30)
+                errs[route].append(meta_rel)
+                if route == "tc":
+                    worst = max(worst, abs_err)
+                log(f"  {'codec_matmul_quantize':20s} {label + ' normal (' + route + ')':50s} meta {meta_rel:.2e} "
+                    f"rel, decoded within {steps:.3f} level steps ({abs_err:.3e}); raw row {raw_rel:.2e} rel")
+                if not ok or raw_rel > RAW_RTOL:
+                    raise AssertionError(f"codec_matmul_quantize {label} ({route}): outside the tolerance")
+    log(f"  codec_matmul_quantize float32: integer words, meta, raw row bit-identical to the plain version "
+        f"on both routes at {len(cases)} shapes; normal meta error on the tensor cores (split TF32) "
+        f"{min(errs['tc']):.2e}-{max(errs['tc']):.2e} relative, on the FFMA kernel "
+        f"{min(errs['ffma']):.2e}-{max(errs['ffma']):.2e} (META_RTOL {META_RTOL:g}); the split pass "
+        f"bit-identical to its plain version at the three shapes")
+    return worst
 
 
 def _ulp16(v, dtype):
@@ -654,7 +729,8 @@ def check_mm16(dev, rng, record) -> float:
     round an f32 sum, summed in two orders). The FFMA kernel, forced with
     ``_route="ffma"``, on the same operands: bit-identical to the plain
     version on integer ones, and to the upcast route on normal ones (the
-    f32 instance on ``x2.float()`` and ``g2.float()`` for words and meta,
+    FFMA f32 instance, forced, on ``x2.float()`` and ``g2.float()`` for
+    words and meta,
     that route's sums at divisor 1 rounded to the operand dtype, then
     divided, for the raw row). Then bf16 operands at MM_EDGE_CASES and in a
     view 2 bytes off its alignment: integer ones bit-identical to the plain
@@ -703,8 +779,10 @@ def check_mm16(dev, rng, record) -> float:
             worst = max(worst, abs_err)
             fw, fm, fraw = routed(lambda: codec_cuda.matmul_quantize_chunks(
                 xn, gn, MR_WS, BITS, BUCKET, own_row=own, _route="ffma"), "ffma")
-            uw, um = codec_cuda.matmul_quantize_chunks(xn.float(), gn.float(), MR_WS, BITS, BUCKET)
-            _, _, sums = codec_cuda.matmul_quantize_chunks(xn.float(), gn.float(), 1, BITS, BUCKET, own_row=own)
+            uw, um = codec_cuda.matmul_quantize_chunks(xn.float(), gn.float(), MR_WS, BITS, BUCKET,
+                                                       _route="ffma")
+            _, _, sums = codec_cuda.matmul_quantize_chunks(xn.float(), gn.float(), 1, BITS, BUCKET,
+                                                           own_row=own, _route="ffma")
             record(MM16, f"{label} FFMA words vs the upcast route", fw, uw, quiet=True)
             record(MM16, f"{label} FFMA meta vs the upcast route", fm, um, quiet=True)
             record(MM16, f"{label} FFMA raw row vs the upcast route", fraw, sums.to(dt).float() / MR_WS,
@@ -1446,14 +1524,19 @@ class LaunchModel:
             self.codec("codec_dequantize", m, cc)
             self.codec("codec_dequantize", m, cc, add=True)
 
-    def sra(self, m: int, ws: int, cc, produced: bool = False) -> None:
-        """``produced``: the backward's matmul-quantize made the stage-1
-        payload, in place of the quantize."""
+    def sra(self, m: int, ws: int, cc, produced=None) -> None:
+        """``produced``: the dtype of the operands of the backward's
+        matmul-quantize that made the stage-1 payload, in place of the
+        quantize (float32 operands run the split pass before it), or
+        None."""
+        import torch
+
         from torch_cgx_tpu_torch.parallel import chunk_layout
 
         c = chunk_layout(m, ws)[0]
-        if produced:
+        if produced is not None:
             self.counts["codec_matmul_quantize"] += 1
+            self.counts["codec_tf32_split"] += produced == torch.float32
         else:
             self.codec("codec_quantize", c, cc, ws)
         if not self.epilogue(ws, c, cc):
@@ -1652,7 +1735,7 @@ class LaunchModel:
 
 
 def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
-                      stochastic: bool = False, roundtrip: bool = False) -> dict:
+                      stochastic: bool = False, roundtrip: bool = False, dense_dtype=None) -> dict:
     """Launches of one compressed gradient sync per rank, from the layout:
     each compressed fusion slice through ``quantized_allreduce`` over a
     group of ``ws`` ranks (the env's reduction type), or through the
@@ -1660,7 +1743,9 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
     ``(intra, cross)`` sizes. ``dense_k`` maps each dense kernel's path to
     its contraction length: with producer fusion engaged, a standalone group
     whose layer ``fused_producer.decide`` sends to the kernel gets its
-    stage-1 payload from the backward's matmul-quantize. ``stochastic``: the
+    stage-1 payload from the backward's matmul-quantize, on operands of
+    ``dense_dtype`` (the model's compute dtype; float32 adds the split
+    pass's launch). ``stochastic``: the
     sync rounds stochastically (a key under ``CGX_STOCHASTIC_ROUNDING``).
     ``roundtrip``: the error-feedback sync, ``allreduce_tree(...,
     return_roundtrip=True)`` of the float32 ``g / ws + e`` (every group
@@ -1687,7 +1772,7 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
         model.dtype = g.dtype
         for _, ln in allreduce._fusion_slices(n, leaf.element_size()):
             if produced:
-                model.sra(ln, ws, g.cc, produced=True)
+                model.sra(ln, ws, g.cc, produced=dense_dtype)
             elif two_level is None:
                 model.flat(ln, ws, g.cc, cfg.intra_reduction())
                 if roundtrip:
@@ -2173,8 +2258,7 @@ def time_kernels(dev, n: int, name: str) -> list:
     first."""
     import torch
 
-    from torch_cgx_tpu_torch.config import default_compression_config
-    from torch_cgx_tpu_torch.ops import codec_cuda, dispatch
+    from torch_cgx_tpu_torch.ops import codec_cuda
     from torch_cgx_tpu_torch.tools import shapebench
     from torch_cgx_tpu_torch.utils.device import mem_rate
 
@@ -2281,69 +2365,122 @@ def time_kernels(dev, n: int, name: str) -> list:
             shapebench.shape_bytes("reduce", m // (32 * BUCKET), rows_n, o, BUCKET),
             (2 * (rows_n - (own is not None)) + rows_n - 1) * m, None,
         ))
-    # The matmul-quantize at phase 7's three dense-layer shapes, mlp_in first
-    # (its record goes into the JSON line), as the producer calls it (with
-    # the own raw row of rank 1 of 4): a multiply and an add per product.
-    # The library call is torch.matmul of the same product in float32 (TF32
-    # off), which lacks the divide and the quantize. The unfused route is
-    # what the sync does for the same payload without producer fusion: that
-    # product, the divide, and the dispatcher's quantize of the (ws, chunk)
-    # rows (B1), as one timed call: the yardstick of CGX_PRODUCER_FUSE=auto.
-    cc = dataclasses.replace(default_compression_config(), bits=BITS, bucket_size=BUCKET)
-    for layer, (din, o) in MM_SHAPES.items():
-        x2 = torch.from_numpy(rng.standard_normal((MM_K, din)).astype(np.float32)).to(dev)
-        g2 = torch.from_numpy(rng.standard_normal((MM_K, o)).astype(np.float32)).to(dev)
-        runs.append((
-            "codec_matmul_quantize", f"{layer} K={MM_K} {din}x{o}",
-            lambda x2=x2, g2=g2: codec_cuda.matmul_quantize_chunks(
-                x2, g2, MR_WS, BITS, BUCKET, own_row=(1, MR_WS)),
-            lambda x2=x2, g2=g2: codec_cuda.matmul_quantize_chunks_plain(
-                x2, g2, MR_WS, BITS, BUCKET, own_row=(1, MR_WS)),
-            4 * MM_K * (din + o) + wire(din * o) + 4 * din * o // MR_WS, 2 * MM_K * din * o,
-            lambda x2=x2, g2=g2: torch.matmul(x2.t(), g2),
-            lambda x2=x2, g2=g2: dispatch.quantize_batch(
-                (torch.matmul(x2.t(), g2) / MR_WS).view(MR_WS, -1), cc),
-        ))
     out = []
-    for k, shape, kern, plain, nbytes, ops, library, *unfused in runs:
-        # Alternate kernel and plain version (and the library call, and the
-        # unfused route): kernel, plain, library, unfused, unfused, library,
-        # plain, kernel; then the kernel's burst time.
-        unf = unfused[0] if unfused else None
+    for k, shape, kern, plain, nbytes, ops, library in runs:
+        # Alternate kernel and plain version: kernel, plain, plain, kernel;
+        # then the kernel's burst time.
         k1 = time_cuda(kern)
         p1 = time_cuda(plain, iters=5)
-        l1 = time_cuda(library) if library else None
-        u1 = time_cuda(unf) if unf else None
-        u2 = time_cuda(unf) if unf else None
-        l2 = time_cuda(library) if library else None
         p2 = time_cuda(plain, iters=5)
         k2 = time_cuda(kern)
         burst_ms = time_burst(kern)
         ms, plain_ms = min(k1, k2), min(p1, p2)
-        library_ms = min(l1, l2) if library else None
-        unfused_ms = min(u1, u2) if unf else None
         t_bytes = nbytes / rate * 1e3
         t_ops = ops / F32_RATE * 1e3
         bound = max(t_bytes, t_ops)
-        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-        lib += "" if unfused_ms is None else f", unfused route {unfused_ms:.4f} ms"
-        log(f"  {k:20s} {shape}: {ms:.4f} ms, burst {burst_ms:.4f} ms (plain {plain_ms:.3f} ms"
-            f"{lib}); {nbytes} bytes, {ops} operations, bound {bound:.4f} ms by "
+        log(f"  {k:20s} {shape}: {ms:.4f} ms, burst {burst_ms:.4f} ms (plain {plain_ms:.3f} ms); "
+            f"{nbytes} bytes, {ops} operations, bound {bound:.4f} ms by "
             f"{'bytes' if t_bytes >= t_ops else 'operations'} = {100 * bound / ms:.1f}% of bound")
         out.append({"name": k, "shape": shape, "ms": ms, "burst_ms": burst_ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "unfused_ms": unfused_ms, "bound_ms": bound,
+                    "library_ms": library, "bound_ms": bound,
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes})
-    mm = [r for r in out if r["unfused_ms"] is not None]
-    log(f"  matmul-quantize no slower than the unfused route at all {len(mm)} shapes: "
-        f"{all(r['ms'] <= r['unfused_ms'] for r in mm)} "
-        f"(kernel / unfused {[round(r['ms'] / r['unfused_ms'], 3) for r in mm]})")
     src = torch.empty(n, device=dev)
     dst = torch.empty_like(src)
     copy_ms = time_cuda(lambda: dst.copy_(src))
     log(f"  yardstick: device-to-device copy_ of {4 * n} bytes: {copy_ms:.4f} ms, "
         f"{8 * n / copy_ms / 1e6:.1f} GB/s read+write")
     return out
+
+
+def time_mm32(dev, name: str) -> list:
+    """B8 on float32 operands at phase 7's three dense-layer shapes (K =
+    MM_K, divisor MR_WS, the own raw row of rank 1 of MR_WS, as the producer
+    calls it), as bursts in turns: the route these operands take (the split
+    pass and the split-TF32 kernel on the tensor cores), the FFMA kernel
+    (``_route="ffma"``), the split pass alone, and float32 ``torch.matmul``
+    of the same product (TF32 off: the library call, without the divide and
+    the quantize): tc, ffma, split, library, library, split, ffma, tc. Then
+    one timed call of each, and of the plain versions and the unfused route
+    (that product, the divide and the dispatcher's quantize of the (ws,
+    chunk) rows: the yardstick of ``CGX_PRODUCER_FUSE=auto``), in turns.
+    Bounds: the larger of the bytes (f32 operands read once, the payload
+    and the raw row written once) over the memory rate and the operations
+    over the rate of the route: three tf32 products a product at the TF32
+    tensor-core rate (the kernel's), a multiply and an add at the f32 rate
+    (the FFMA kernel's, beside it); the split pass's bytes (the operands
+    read, the hi and lo planes written). Returns the kernels line's records
+    of ``codec_matmul_quantize`` and ``codec_tf32_split`` (``mlp_in``'s,
+    the first shape)."""
+    import torch
+
+    from torch_cgx_tpu_torch.config import default_compression_config
+    from torch_cgx_tpu_torch.ops import codec_cuda, dispatch
+    from torch_cgx_tpu_torch.utils.device import mem_rate
+
+    rate = mem_rate(name)
+    rng = np.random.default_rng(SEED + 4)
+    own = (1, MR_WS)
+    cc = dataclasses.replace(default_compression_config(), bits=BITS, bucket_size=BUCKET)
+    out = []
+    for layer, (din, o) in MM_SHAPES.items():
+        x2, g2 = (torch.from_numpy(rng.standard_normal((MM_K, c)).astype(np.float32)).to(dev)
+                  for c in (din, o))
+        fns = {
+            "kern": lambda: codec_cuda.matmul_quantize_chunks(x2, g2, MR_WS, BITS, BUCKET, own_row=own),
+            "ffma": lambda: codec_cuda.matmul_quantize_chunks(x2, g2, MR_WS, BITS, BUCKET, own_row=own,
+                                                              _route="ffma"),
+            "split": lambda: codec_cuda.tf32_split_transpose(x2, g2),
+            "library": lambda: torch.matmul(x2.t(), g2),
+            "plain": lambda: codec_cuda.matmul_quantize_chunks_plain(x2, g2, MR_WS, BITS, BUCKET, own_row=own),
+            "split_plain": lambda: codec_cuda.tf32_split_transpose_plain(x2, g2),
+            "unfused": lambda: dispatch.quantize_batch((torch.matmul(x2.t(), g2) / MR_WS).view(MR_WS, -1), cc),
+        }
+        before = codec_cuda.MM_TC_LAUNCHES["launches"]
+        fns["kern"]()
+        assert codec_cuda.MM_TC_LAUNCHES["launches"] == before + 1, "the timed shape left the tensor cores"
+        burst = {k: [] for k in ("kern", "ffma", "split", "library")}
+        for k in ("kern", "ffma", "split", "library", "library", "split", "ffma", "kern"):
+            burst[k].append(time_burst(fns[k]))
+        burst = {k: min(v) for k, v in burst.items()}
+        order = ("kern", "ffma", "split", "library", "unfused", "plain", "split_plain")
+        call = {k: [] for k in order}
+        for k in order + order[::-1]:
+            call[k].append(time_cuda(fns[k], iters=5 if "plain" in k else 20))
+        call = {k: min(v) for k, v in call.items()}
+        n = din * o
+        kp = -(-MM_K // codec_cuda.MM_TF32_BK) * codec_cuda.MM_TF32_BK
+        nbytes = 4 * MM_K * (din + o) + n * BITS // 8 + 8 * n // BUCKET + 4 * n // MR_WS
+        ops = 2 * MM_K * n
+        t_bytes = nbytes / rate * 1e3
+        bound = max(t_bytes, 3 * ops / TF32_RATE * 1e3)
+        ffma_bound = max(t_bytes, ops / F32_RATE * 1e3)
+        split_bytes = 4 * MM_K * (din + o) + 8 * kp * (din + o)
+        split_bound = split_bytes / rate * 1e3
+        tiles = codec_cuda.mm_tc_tiles(din, o)
+        shape = f"{layer} K={MM_K} {din}x{o} float32"
+        r = {"name": "codec_matmul_quantize", "shape": shape, "ms": call["kern"], "burst_ms": burst["kern"],
+             "plain_ms": call["plain"], "library_ms": call["library"], "bound_ms": bound,
+             "bound_by": "bytes" if t_bytes >= 3 * ops / TF32_RATE * 1e3 else "operations",
+             "ffma_ms": call["ffma"], "ffma_burst_ms": burst["ffma"], "ffma_bound_ms": ffma_bound,
+             "library_burst_ms": burst["library"], "unfused_ms": call["unfused"],
+             "split_burst_ms": burst["split"], "bytes": nbytes, "tiles": tiles[0] * tiles[1]}
+        sp = {"name": "codec_tf32_split", "shape": shape, "ms": call["split"], "burst_ms": burst["split"],
+              "plain_ms": call["split_plain"], "library_ms": None, "bound_ms": split_bound,
+              "bound_by": "bytes", "bytes": split_bytes}
+        log(f"  codec_matmul_quantize {shape}: tensor cores (split TF32, {r['tiles']} tiles) burst "
+            f"{r['burst_ms']:.4f} ms, of it the split pass {burst['split']:.4f}; FFMA kernel "
+            f"{r['ffma_burst_ms']:.4f} ({r['ffma_burst_ms'] / r['burst_ms']:.2f}x the tensor cores' time); "
+            f"torch.matmul f32 {r['library_burst_ms']:.4f} ({r['burst_ms'] / r['library_burst_ms']:.2f}x the "
+            f"library); per call {r['ms']:.4f} ms (FFMA {r['ffma_ms']:.4f}, library {r['library_ms']:.4f}, "
+            f"unfused route {r['unfused_ms']:.4f}, plain {r['plain_ms']:.3f}); {nbytes} bytes, {ops} "
+            f"operations, bound {bound:.4f} ms split TF32 ({100 * bound / r['burst_ms']:.1f}% of it a burst), "
+            f"{ffma_bound:.4f} ms FFMA")
+        log(f"  codec_tf32_split      {shape}: burst {sp['burst_ms']:.4f} ms, per call {sp['ms']:.4f} (plain "
+            f"{sp['plain_ms']:.3f}); {split_bytes} bytes, bound {split_bound:.4f} ms "
+            f"({100 * split_bound / sp['burst_ms']:.1f}% of it a burst)")
+        out += [r, sp]
+    return out[:2]
 
 
 def time_mm16(dev, name: str) -> dict:
@@ -2383,7 +2520,8 @@ def time_mm16(dev, name: str) -> dict:
                                                      _route="ffma")
 
         def f32(xf=xf, gf=gf):
-            return codec_cuda.matmul_quantize_chunks(xf, gf, MR_WS, BITS, BUCKET, own_row=own)
+            return codec_cuda.matmul_quantize_chunks(xf, gf, MR_WS, BITS, BUCKET, own_row=own,
+                                                     _route="ffma")
 
         def library(x2=x2, g2=g2):
             return torch.matmul(x2.t(), g2)
@@ -2418,7 +2556,7 @@ def time_mm16(dev, name: str) -> dict:
              "library_burst_ms": burst["library"], "bytes": nbytes, "tiles": tiles[0] * tiles[1]}
         log(f"  {MM16:27s} {r['shape']}: tensor cores ({r['tiles']} tiles) burst {r['burst_ms']:.4f} ms, "
             f"FFMA 16-bit instance {r['ffma_burst_ms']:.4f} ({r['ffma_burst_ms'] / r['burst_ms']:.1f}x the "
-            f"tensor cores' time), f32 instance on cast operands {r['f32_burst_ms']:.4f}, torch.matmul "
+            f"tensor cores' time), FFMA f32 instance on cast operands {r['f32_burst_ms']:.4f}, torch.matmul "
             f"bf16 {r['library_burst_ms']:.4f} ({r['burst_ms'] / r['library_burst_ms']:.1f}x the library); "
             f"per call {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}); "
             f"{nbytes} bytes, {ops} operations, bound {bound:.4f} ms by {r['bound_by']} "
@@ -3213,9 +3351,13 @@ PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused gr
 def producer_check(model, loss_fn, tokens) -> dict:
     """One backward of ``model`` with producer fusion engaged over the flat
     world. A float32 model: each staged payload against the dispatcher's
-    quantize of its layer's ``p.grad / MR_WS`` (the rows the allreduce would
-    otherwise quantize), held to ``payload_close``'s tolerance; both come
-    from the same backward. A bf16-compute model: the operands each layer's
+    quantize of the exact product (float64, rounded once) of the operands
+    its layer's backward handed the kernel, ``/ MR_WS``, held to
+    ``payload_close``'s tolerance, and that product within RAW_RTOL of the
+    layer's ``p.grad`` (the rows the allreduce would otherwise quantize,
+    from the same backward) relative to its largest magnitude; the
+    payload's distance from the quantize of ``p.grad / MR_WS`` is logged
+    (``cublas_meta_rel``). A bf16-compute model: the operands each layer's
     backward handed the kernel (``fused_producer._stash``'s) must be bf16,
     and each payload (words, meta, raw row) bit-identical to a direct
     launch of the kernel on them (the tensor-core one at these shapes) and
@@ -3247,6 +3389,7 @@ def producer_check(model, loss_fn, tokens) -> dict:
     cc = default_compression_config()
     own = (fused_producer._CFG["rank"], MR_WS)
     checked, worst_meta, worst_steps, failed, dtypes = 0, 0.0, 0.0, [], set()
+    worst_cublas, worst_cublas_exact, worst_grad = 0.0, 0.0, 0.0
     for n, p in model.named_parameters():
         ent = fused_producer.lookup(n, p.grad)
         if ent is None:
@@ -3269,17 +3412,33 @@ def producer_check(model, loss_fn, tokens) -> dict:
                     and _same_bits(ent.raw_row, raw)):
                 failed.append(n)
             continue
-        want = dispatch.quantize_batch((p.grad.reshape(-1) / MR_WS).view(MR_WS, -1), cc)
+        # The exact product of the operands the backward handed the kernel
+        # (float64, rounded once), which must be p.grad's within RAW_RTOL
+        # of its largest magnitude (the layer's own operands); the payload
+        # against its quantize. cuBLAS's float32 p.grad is no reference at
+        # META_RTOL here: on the attn_qkv layers after phase 7's earlier
+        # steps its own meta strays past 1e-5 from the exact product's
+        # (PERF.md); both distances are logged.
+        exact = (x2.double().t() @ g2.double()).reshape(-1)
+        grad_rel = float((p.grad.reshape(-1).double() - exact).abs().max() / exact.abs().max())
+        want = dispatch.quantize_batch((exact / MR_WS).float().view(MR_WS, -1), cc)
         ok, meta_rel, _, steps = payload_close(
             ent.q.packed, ent.q.meta, want.packed, want.meta, cc.bits, cc.bucket_size
         )
+        cub = dispatch.quantize_batch((p.grad.reshape(-1) / MR_WS).view(MR_WS, -1), cc)
+        worst_cublas = max(worst_cublas, payload_close(ent.q.packed, ent.q.meta, cub.packed, cub.meta,
+                                                       cc.bits, cc.bucket_size)[1])
+        worst_cublas_exact = max(worst_cublas_exact, payload_close(cub.packed, cub.meta, want.packed,
+                                                                   want.meta, cc.bits, cc.bucket_size)[1])
         worst_meta, worst_steps = max(worst_meta, meta_rel), max(worst_steps, steps)
-        if not ok:
+        worst_grad = max(worst_grad, grad_rel)
+        if not ok or grad_rel > RAW_RTOL:
             failed.append(n)
     fused_producer.deconfigure()
     model.zero_grad(set_to_none=True)
     return {"counts": counts, "checked": checked, "failed": failed, "dtypes": sorted(dtypes),
-            "meta_rel": worst_meta, "steps": worst_steps,
+            "meta_rel": worst_meta, "steps": worst_steps, "cublas_meta_rel": worst_cublas,
+            "cublas_exact_meta_rel": worst_cublas_exact, "grad_rel": worst_grad,
             "identity_misses": fused_producer.COUNTS["producer_fallback_identity"]}
 
 
@@ -3709,12 +3868,14 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                 models[model_kind] = (m32, torch.optim.Adam(m32.parameters(), lr=1e-4, eps=1e-8))
             mdl, optim = models[model_kind]
             dense_k = {m.kernel_path: MR_BATCH * seq for m in mdl.modules() if isinstance(m, Dense)}
+            dense_dtype = next(m.dtype for m in mdl.modules() if isinstance(m, Dense))
             group = tl if kind == "two_level" else None
             layout_grads = grads16 if model_kind == "bf16p" else grads
             ef = name.endswith("_ef")
             expected = (expected_launches(layout_grads, two_level=layout, roundtrip=ef)
                         if kind == "two_level"
-                        else expected_launches(layout_grads, ws=MR_WS, dense_k=dense_k, roundtrip=ef))
+                        else expected_launches(layout_grads, ws=MR_WS, dense_k=dense_k, roundtrip=ef,
+                                               dense_dtype=dense_dtype))
             res = {"expected": expected, "expected_int8": expected_int8(expected),
                    "slices": compressed_slices(layout_grads)}
             t_cfg = time.perf_counter()
@@ -3916,7 +4077,8 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
     for name in HOOK_CONFIGS:
         hook_check(res, name, smi)
     launches = dict(res[0]["two_level"]["launches"])
-    launches["codec_matmul_quantize"] = res[0]["sra_producer"]["launches"]["codec_matmul_quantize"]
+    for k in ("codec_matmul_quantize", "codec_tf32_split"):
+        launches[k] = res[0]["sra_producer"]["launches"][k]
     int8 = {"codec_sra_epilogue": res[0]["sra_int8"]["int8"]["codec_sra_epilogue"],
             "codec_sra_epilogue_db": res[0]["sra_db_int8"]["int8"]["codec_sra_epilogue_db"],
             "codec_reduce_rows": res[0]["two_level_int8"]["int8"]["codec_reduce_rows"]}
@@ -3933,8 +4095,8 @@ def producer_checks(res) -> None:
     # only fallbacks are the attn_proj layers, which stay in the fused group
     # (as in the JAX package).
     plain_sra, prod = res[0]["sra"]["expected"], res[0]["sra_producer"]["expected"]
-    assert plain_sra["codec_matmul_quantize"] == 0, plain_sra
-    assert prod["codec_matmul_quantize"] == PRODUCED_LAYERS, prod
+    assert plain_sra["codec_matmul_quantize"] == plain_sra["codec_tf32_split"] == 0, plain_sra
+    assert prod["codec_matmul_quantize"] == prod["codec_tf32_split"] == PRODUCED_LAYERS, prod
     assert plain_sra["codec_quantize"] - prod["codec_quantize"] == PRODUCED_LAYERS, (plain_sra, prod)
     for r, o in enumerate(res):
         pc = o["sra_producer"]["producer"]
@@ -3943,12 +4105,21 @@ def producer_checks(res) -> None:
         # The step skipped the plain dw of every consumed layer (C4).
         assert pc["producer_dw_skipped"] == PRODUCED_LAYERS, (r, pc)
         assert o["sra_producer"]["launches"]["codec_matmul_quantize"] == PRODUCED_LAYERS, (r, o)
-        assert o["sra_producer"]["mm_tc"] == 0, (r, o["sra_producer"]["mm_tc"])  # f32: the FFMA kernel
+        # float32 operands: every launch on the tensor cores, after its split pass.
+        assert o["sra_producer"]["mm_tc"] == PRODUCED_LAYERS, (r, o["sra_producer"]["mm_tc"])
+        assert o["sra_producer"]["launches"]["codec_tf32_split"] == PRODUCED_LAYERS, (r, o)
         assert pc["producer_fallbacks"] == pc["producer_fallback_fused_group"] == PROJ_LAYERS, (r, pc)
     chk = res[0]["sra_producer"]["check"]
-    log(f"  sra_producer, rank 0: {chk['checked']} staged payloads against a quantize of "
-        f"p.grad / {MR_WS}: meta within {chk['meta_rel']:.2e} relative, decoded within "
-        f"{chk['steps']:.3f} level steps; {len(chk['failed'])} outside the tolerance; "
+    log(f"  sra_producer: {res[0]['sra_producer']['launches']['codec_matmul_quantize']} B8 launches a rank on "
+        f"float32 operands, on the tensor cores {[o['sra_producer']['mm_tc'] for o in res]} by rank, split "
+        f"passes {[o['sra_producer']['launches']['codec_tf32_split'] for o in res]}, dw skipped "
+        f"{[o['sra_producer']['producer']['producer_dw_skipped'] for o in res]}")
+    log(f"  sra_producer, rank 0: {chk['checked']} staged payloads against a quantize of the exact "
+        f"product / {MR_WS}: meta within {chk['meta_rel']:.2e} relative, decoded within "
+        f"{chk['steps']:.3f} level steps; {len(chk['failed'])} outside the tolerance; p.grad within "
+        f"{chk['grad_rel']:.2e} of the exact product (of its largest magnitude); against a quantize of "
+        f"p.grad / {MR_WS} (cuBLAS, not gated) meta within {chk['cublas_meta_rel']:.2e}, that quantize's "
+        f"own meta within {chk['cublas_exact_meta_rel']:.2e} of the exact product's; "
         f"backward counters {({k: v for k, v in chk['counts'].items() if v})}")
     for name in ("sra_producer", "sra_producer_bf16"):
         chk = res[0][name]["check"]
@@ -3957,10 +4128,11 @@ def producer_checks(res) -> None:
         assert chk["counts"]["producer_kernel_slices"] == PRODUCED_LAYERS, (name, chk)
         assert chk["counts"]["producer_fallbacks"] == chk["counts"]["producer_fallback_fused_group"], chk
     # The default model (bf16 compute, f32 parameters): the same layout and
-    # launches as the float32 model's, every B8 launch on bf16 operands read
-    # by the tensor-core kernel (no upcast), every consumed layer's dw
-    # skipped.
-    assert res[0]["sra_producer_bf16"]["expected"] == prod, (res[0]["sra_producer_bf16"]["expected"], prod)
+    # launches as the float32 model's but the split passes, every B8 launch
+    # on bf16 operands read by the tensor-core kernel (no upcast), every
+    # consumed layer's dw skipped.
+    assert res[0]["sra_producer_bf16"]["expected"] == dict(prod, codec_tf32_split=0), (
+        res[0]["sra_producer_bf16"]["expected"], prod)
     for r, o in enumerate(res):
         c = o["sra_producer_bf16"]
         pc = c["producer"]
@@ -3982,9 +4154,11 @@ def producer_checks(res) -> None:
     assert chk["dtypes"] == ["bfloat16"], chk
     for name in ("sra", "sra_producer", "sra_producer_bf16"):
         p = res[0][name].get("profile", {})
-        mm = sum(p.get("codec_by_kernel", {}).get(k, 0.0)
-                 for k in ("cgx_matmul_quantize_kernel", "cgx_matmul_quantize_tc_kernel"))
-        log(f"  {name}, rank 0's profiled step: B8 {mm:.3f} ms, codec kernels {p.get('codec_ms', 0.0):.3f} ms "
+        by = p.get("codec_by_kernel", {})
+        mm = sum(by.get(k, 0.0) for k in ("cgx_matmul_quantize_kernel", "cgx_matmul_quantize_tc_kernel",
+                                          "cgx_matmul_quantize_tf32_kernel", "cgx_tf32_split_kernel"))
+        log(f"  {name}, rank 0's profiled step: B8 {mm:.3f} ms (of it the split pass "
+            f"{by.get('cgx_tf32_split_kernel', 0.0):.3f}), codec kernels {p.get('codec_ms', 0.0):.3f} ms "
             f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(p.get('codec_by_kernel', {}).items()))}), device "
             f"busy {p.get('busy_ms', 0.0):.2f} ms of {p.get('wall_ms', 0.0):.1f} ms; largest device entries: "
             + "; ".join(f"{k[:50]} {v:.3f}" for k, v in p.get("top", [])[:5]))
@@ -4138,9 +4312,9 @@ def ptxas_report(ptxas: str) -> None:
     from torch_cgx_tpu_torch.tools import ptxas_table
 
     table = codec_cuda.ptxas_instances(ptxas)
-    f32 = {k: v for k, v in table.items() if not k.endswith(":16")}
+    f32 = ptxas_table.f32_table(table)
     spilled = {k: v for k, v in f32.items() if v["spill_stores"] or v["spill_loads"]}
-    log(f"  ptxas: {len(table)} kernels ({len(table) - len(f32)} 16-bit), at most "
+    log(f"  ptxas: {len(table)} kernels ({len(table) - len(f32)} 16-bit or split TF32), at most "
         f"{max(v['registers'] for v in table.values())} registers a thread; {len(spilled)} f32 "
         f"instances with spills")
     for k, v in spilled.items():
@@ -4216,6 +4390,19 @@ def ptxas_report(ptxas: str) -> None:
             f"{max([v['spill_stores'] for v in spill] or [0])} bytes stored), "
             f"{max(v['smem'] for v in mine)} bytes static shared memory")
         assert len(mine) == 32, (fname, len(mine))
+    # B8's float32 operands on the tensor cores: the split-TF32 kernel (bits
+    # 1-8 x the four lowerings) and the split pass.
+    mine = list(of("cgx_matmul_quantize_tf32_kernel").values())
+    r = [v["registers"] for v in mine]
+    spill = [v for v in mine if v["spill_stores"] or v["spill_loads"]]
+    split = table["cgx_tf32_split_kernel"]
+    log(f"  cgx_matmul_quantize_tf32_kernel: {len(mine)} instances, {min(r)}-{max(r)} registers a thread "
+        f"(288 threads, one block an SM), {len(spill)} with spills (at most "
+        f"{max([v['spill_stores'] for v in spill] or [0])} bytes stored, "
+        f"{max([v['spill_loads'] for v in spill] or [0])} loaded), {max(v['smem'] for v in mine)} bytes "
+        f"static shared memory; cgx_tf32_split_kernel {split['registers']} registers, {split['smem']} "
+        f"bytes static shared memory")
+    assert len(mine) == 32, len(mine)
     for kernel in ("cgx_quantize_cluster_kernel", "cgx_sra_epilogue_cluster_kernel",
                    "cgx_quantize_db_cluster_kernel", "cgx_sra_epilogue_db_cluster_kernel"):
         for wire16 in (False, True):
@@ -4324,6 +4511,7 @@ def main() -> int:
     philox = philox_result()
     log(f"  waited {time.perf_counter() - t5:.1f} s for the SASS count")
     kern = time_kernels(dev, FLAT_N, name)
+    kern += time_mm32(dev, name)
     sr_times = time_stochastic(dev, FLAT_N, name, philox)
     time_step_shapes(dev, name)
     plain_ms, codec_ms, db_ms, plain_step = time_steps(sl)
@@ -4400,7 +4588,8 @@ def main() -> int:
     mr = multirank_phase(smi=smi)
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s [{smi}]")
     launches["codec_reduce_rows"] = mr["launches"]["codec_reduce_rows"]
-    launches["codec_matmul_quantize"] = mr["launches"]["codec_matmul_quantize"]
+    for k in ("codec_matmul_quantize", "codec_tf32_split"):
+        launches[k] = mr["launches"][k]
     for k, v in mr["int8_launches"].items():
         int8_times[k].update(int8_launches=v, int8_max_abs_err=int8_err[k])
     cache.cleanup()
@@ -4410,7 +4599,8 @@ def main() -> int:
     # for the three of the world-size-1 slice and, from its forced run, the
     # three pipelined ones; phase 6 for the variant kernel; phase 7's
     # two-level steps for the reduce, its producer-fused flat SRA step for
-    # the matmul-quantize) and its time at that path's (first) shape.
+    # the matmul-quantize and its split pass) and its time at that path's
+    # (first) shape.
     records = []
     for r in kern:
         if any(x["name"] == r["name"] for x in records):
@@ -4420,6 +4610,8 @@ def main() -> int:
             "replaces": TPU_KERNELS[r["name"]], "launches": launches[r["name"]],
             "max_abs_err": max_err[r["name"]], "ms": r["ms"], "burst_ms": r["burst_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("shape", "tiles", "ffma_ms", "ffma_burst_ms", "ffma_bound_ms",
+                                 "library_burst_ms", "unfused_ms", "split_burst_ms") if k in r},
             **sr_times.get(r["name"], {}), **wire16.get(r["name"], {}),
             **int8_times.get(r["name"], {}),
         })

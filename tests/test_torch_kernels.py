@@ -103,6 +103,7 @@ def test_launch_counter_counts_only_kernel_launches(dev):
         "codec_quantize": 1, "codec_dequantize": 1, "codec_sra_epilogue": 0,
         "codec_reduce_rows": 0, "codec_matmul_quantize": 1, "codec_quantize_db": 0,
         "codec_dequantize_db": 0, "codec_sra_epilogue_db": 0, "codec_quantize_variant": 0,
+        "codec_tf32_split": 1,  # float32 operands: the split pass before the tensor cores
     }
 
 
@@ -166,7 +167,7 @@ def test_tiny_train_step_runs_the_kernels(dev, monkeypatch):
         "codec_quantize": True, "codec_dequantize": True, "codec_sra_epilogue": True,
         "codec_reduce_rows": False, "codec_matmul_quantize": False,
         "codec_quantize_db": False, "codec_dequantize_db": False, "codec_sra_epilogue_db": False,
-        "codec_quantize_variant": False,
+        "codec_quantize_variant": False, "codec_tf32_split": False,
     }, codec_cuda.LAUNCHES
 
 
@@ -407,6 +408,29 @@ def test_matmul_quantize_edges_and_own_row(dev, k, din, o, div, bits, bucket):
         assert raw.shape == (din * o // ws,) and _bits_equal(raw, praw), own
     torch.cuda.synchronize()
     assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == ws
+    # float32 operands of every shape take the tensor cores, after the split pass.
+    assert codec_cuda.MM_TC_LAUNCHES["launches"] == codec_cuda.LAUNCHES["codec_tf32_split"] == ws
+
+
+@pytest.mark.parametrize("k,din,o,div,bits,bucket", MM_EDGES)
+def test_matmul_quantize_ffma_edges_and_own_row(dev, k, din, o, div, bits, bucket):
+    """The FFMA kernel, forced (``_route="ffma"``), keeps its anchor:
+    words, meta and the own raw row bit-identical to the plain version on
+    small-integer operands, no split pass and no tensor-core launch."""
+    rng = np.random.default_rng(k * din + o + 1)
+    x2 = torch.from_numpy(rng.integers(-3, 4, (k, din)).astype(np.float32)).to(dev)
+    g2 = torch.from_numpy(rng.integers(-3, 4, (k, o)).astype(np.float32)).to(dev)
+    ws = 4 if din % 4 == 0 else 1
+    codec_cuda.reset_launch_counts()
+    for own in range(ws):
+        w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(own, ws),
+                                                      _route="ffma")
+        pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(
+            x2.cpu(), g2.cpu(), div, bits, bucket, own_row=(own, ws))
+        assert _bits_equal(w, pw) and _bits_equal(m, pm) and _bits_equal(raw, praw), own
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == ws
+    assert codec_cuda.MM_TC_LAUNCHES["launches"] == codec_cuda.LAUNCHES["codec_tf32_split"] == 0
 
 
 def test_matmul_quantize_back_to_back_launches_repeat_their_bytes(dev):
@@ -484,12 +508,14 @@ def _mm16_operands(seed, k, din, o, dtype, integer, dev):
 
 
 def _upcast_route(x2, g2, div, bits, bucket, own_row):
-    """The f32 instance on the upcast operands: its words and meta, and the
-    raw row its sums give at divisor 1, rounded to the operands' dtype and
-    then divided (the FFMA 16-bit instance's raw row)."""
-    w, m = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), div, bits, bucket)
+    """The FFMA f32 instance (forced: float32 operands take the tensor
+    cores) on the upcast operands: its words and meta, and the raw row its
+    sums give at divisor 1, rounded to the operands' dtype and then divided
+    (the FFMA 16-bit instance's raw row)."""
+    w, m = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), div, bits, bucket,
+                                             _route="ffma")
     _, _, sums = codec_cuda.matmul_quantize_chunks(x2.float(), g2.float(), 1, bits, bucket,
-                                                   own_row=own_row)
+                                                   own_row=own_row, _route="ffma")
     return w, m, sums.to(x2.dtype).float() / div
 
 
@@ -517,7 +543,10 @@ def _payload_close(words, meta, want_words, want_meta, bits, bucket):
 
     a, b = decode(words, meta), decode(want_words, want_meta)
     tol = (unit + dm[:, 1] + ((1 << bits) - 1) * dm[:, 0])[:, None]
-    tol = tol + 2 * np.finfo(np.float32).eps * torch.maximum(a.abs(), b.abs())
+    # The float32 roundings of each decode, min + unit * level (the
+    # product's and the sum's): at most eps (|value| + |min|) a value.
+    mins = torch.maximum(m[:, 1].abs(), wm[:, 1].abs())[:, None]
+    tol = tol + 2 * np.finfo(np.float32).eps * (torch.maximum(a.abs(), b.abs()) + mins)
     return bool(((a - b).abs() <= tol).all())
 
 
@@ -657,6 +686,93 @@ def test_matmul_quantize16_refuses_mixed_dtypes(dev):
     with pytest.raises(ValueError, match="float64"):
         codec_cuda.matmul_quantize_chunks(x.double(), g.double(), 2, 4, 512)
     assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 0
+
+
+# ---------------------------------------------------------------------------
+# B8 on float32 operands on the tensor cores: the split pass (hi and lo
+# TF32 planes of both transposes) and the split-TF32 kernel.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k,din,o,offset", [(1024, 768, 3072, 0), (1024, 3072, 768, 0),
+                                            (1000, 100, 196, 0), (33, 13, 4, 0), (1, 3, 8, 0),
+                                            (40, 256, 512, 1)])
+def test_tf32_split_matches_plain(dev, k, din, o, offset):
+    """The split pass against its plain version, bit for bit: normal,
+    tiny (down to subnormal), huge and tie values in x2, integers in g2
+    (whose lo planes are 0); K padded with zeros to a multiple of 32; rows
+    read 16 bytes at a time and, where a width is not a multiple of 4 or
+    an operand view sits 4 bytes off its alignment (offset 1), 4 at a
+    time; one launch a call."""
+    rng = np.random.default_rng(k + din + o)
+    xm = rng.standard_normal((k, din)) * np.exp2(rng.integers(-140, 120, (k, din)))
+    xm.reshape(-1)[:4] = [1 + 2.0**-11, -(1 + 3 * 2.0**-11), 2.0**-140, -0.0][: xm.size]
+    buf = torch.empty(k * din + offset, device=dev)
+    x2 = buf[offset:].view(k, din)
+    x2.copy_(torch.from_numpy(xm.astype(np.float32)))
+    assert (x2.data_ptr() % 16 == 0) == (offset == 0)
+    g2 = torch.from_numpy(rng.integers(-2047, 2048, (k, o)).astype(np.float32)).to(dev)
+    codec_cuda.reset_launch_counts()
+    xs, gs = codec_cuda.tf32_split_transpose(x2, g2)
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_tf32_split"] == 1
+    pxs, pgs = codec_cuda.tf32_split_transpose_plain(x2.cpu(), g2.cpu())
+    assert _bits_equal(xs, pxs) and _bits_equal(gs, pgs)
+    assert xs.shape[2] % codec_cuda.MM_TF32_BK == 0 and not gs[1].any()
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("din,o", MM16_SHAPES)
+def test_matmul_quantize_tf32_matches_plain(dev, din, o, bits):
+    """At GPT-2 124M's shapes (K = 2 x 512 tokens): on small-integer
+    operands (lo planes 0, every partial sum exact) words, meta and raw own
+    row bit-identical to the plain version on the tensor cores and on the
+    FFMA kernel; on normal operands both routes' words and meta within the
+    payload tolerance of the plain version (meta within 1e-5 relative) and
+    their raw rows within RAW_RTOL of the row's largest magnitude. Each
+    tensor-core launch runs one split pass."""
+    bucket, div, ws = 512, 4, 4
+    codec_cuda.reset_launch_counts()
+    x2, g2 = _mm16_operands(din + o + bits, MM16_K, din, o, torch.float32, True, dev)
+    for own in (0, ws - 1):
+        pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(
+            x2.cpu(), g2.cpu(), div, bits, bucket, own_row=(own, ws))
+        for route in (None, "ffma"):
+            w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket,
+                                                          own_row=(own, ws), _route=route)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (own, route)
+            assert _bits_equal(raw, praw), (own, route)
+    x2, g2 = _mm16_operands(din * o + bits, MM16_K, din, o, torch.float32, False, dev)
+    pw, pm, praw = codec_cuda.matmul_quantize_chunks_plain(x2, g2, div, bits, bucket, own_row=(1, ws))
+    for route in (None, "ffma"):
+        w, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, div, bits, bucket, own_row=(1, ws),
+                                                      _route=route)
+        assert _payload_close(w, m, pw, pm, bits, bucket), route
+        assert float((raw - praw).abs().max()) <= RAW_RTOL * float(praw.abs().max()), route
+    torch.cuda.synchronize()
+    assert codec_cuda.LAUNCHES["codec_matmul_quantize"] == 6
+    assert codec_cuda.MM_TC_LAUNCHES["launches"] == codec_cuda.LAUNCHES["codec_tf32_split"] == 3
+    assert codec_cuda.WIRE16_LAUNCHES["codec_matmul_quantize"] == 0
+
+
+def test_matmul_quantize_tf32_nonfinite_operands(dev):
+    """A nonfinite float32 operand gives nonfinite sums on both routes (the
+    split gives NaN, lo = inf - inf, where the FFMA kernel may give +-inf):
+    the payload's meta is nonfinite in the buckets it reaches either way,
+    and finite elsewhere."""
+    rng = np.random.default_rng(9)
+    x2 = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32)).to(dev)
+    g2 = torch.from_numpy(rng.standard_normal((64, 512)).astype(np.float32)).to(dev)
+    x2[3, 5] = float("inf")
+    rows = {}
+    for route in (None, "ffma"):
+        _, m, raw = codec_cuda.matmul_quantize_chunks(x2, g2, 2, 4, 128, own_row=(0, 2), _route=route)
+        torch.cuda.synchronize()
+        bad = (~torch.isfinite(m).all(dim=1)).nonzero().reshape(-1).tolist()
+        rows[route] = bad
+        assert bad == [20, 21, 22, 23], (route, bad)  # row 5 of dw: buckets 20-23 of 128 values
+        assert not bool(torch.isfinite(raw).all()), route
+    assert rows[None] == rows["ffma"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -1778,6 +1894,10 @@ def test_f32_instances_keep_their_registers(dev):
     # x 2 formats on the tensor-core kernel.
     assert sum(k.endswith(":16") for k in table) == 4 * 128 + 80 + 32 + 64
     assert sum(k.startswith("cgx_matmul_quantize_tc_kernel<") for k in table) == 64
+    # B8's float32 operands on the tensor cores: 8 bits x 4 lowerings, and
+    # the split pass; outside the f32 table.
+    assert sum(k.startswith("cgx_matmul_quantize_tf32_kernel<") for k in table) == 32
+    assert "cgx_tf32_split_kernel" in table
 
 
 # ---------------------------------------------------------------------------

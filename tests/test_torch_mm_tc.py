@@ -1,12 +1,14 @@
-"""The matmul-quantize's (B8) route to its tensor-core kernel, on the CPU.
+"""The matmul-quantize's (B8) route to its tensor-core kernels, on the CPU.
 
 On the card, bf16 and f16 operands whose shape TMA can describe go to
-``cgx_matmul_quantize_tc_kernel`` (``wgmma`` fed by a TMA ring) and every
-other launch to the FFMA kernel; the wrapper decides before the launch with
-one pure function, ``codec_cuda.mm_tc_eligible``, and a private ``_route``
+``cgx_matmul_quantize_tc_kernel`` (``wgmma`` fed by a TMA ring), every
+float32 pair to the split-TF32 kernel (``cgx_matmul_quantize_tf32_kernel``
+after the split pass; ``tests/test_torch_mm_tf32.py``), and every other
+launch to the FFMA kernel; the wrapper decides before the launch with one
+pure function, ``codec_cuda.mm_tc_eligible``, and a private ``_route``
 keyword forces the FFMA kernel. Here:
 
-* ``mm_tc_eligible`` over the dtypes (float32 never), ``din`` and ``o``
+* ``mm_tc_eligible`` over the dtypes (float32 always), ``din`` and ``o``
   residues mod 8, and operand views off their 16-byte alignment;
 * the tile geometry (``mm_tc_tiles``) at GPT-2 124M's three produced
   layers and at the card checks' edge shapes;
@@ -49,10 +51,11 @@ def _view(rows, cols, dtype, offset):
 @pytest.mark.parametrize("din,o", [(64, 512), (768, 3072), (100, 512), (64, 1036), (13, 4),
                                    (72, 8), (4, 16)])
 def test_eligible_by_dtype_and_width(dtype, din, o):
-    """16-bit operands with din and o multiples of 8, aligned: eligible;
-    float32 never; a width that is not a multiple of 8 never."""
+    """16-bit operands with din and o multiples of 8, aligned: eligible, a
+    16-bit width that is not a multiple of 8 never; float32 at every width
+    (the split pass writes TMA-describable planes)."""
     x2, g2 = _view(32, din, dtype, 0), _view(32, o, dtype, 0)
-    want = dtype != torch.float32 and din % 8 == 0 and o % 8 == 0
+    want = dtype == torch.float32 or (din % 8 == 0 and o % 8 == 0)
     assert codec_cuda.mm_tc_eligible(x2, g2) is want
 
 
@@ -99,10 +102,11 @@ def test_tiles_at_edge_shapes(shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("route", [None, "ffma"])
 def test_route_resolution(route, dtype, x_off):
-    """None picks the tensor cores where the operands are eligible and the
-    FFMA kernel elsewhere; "ffma" takes any operands."""
+    """None picks the tensor cores where the operands are eligible (float32
+    at any alignment) and the FFMA kernel elsewhere; "ffma" takes any
+    operands."""
     x2, g2 = _view(16, 64, dtype, x_off), _view(16, 128, dtype, 0)
-    eligible = dtype != torch.float32 and x_off == 0
+    eligible = dtype == torch.float32 or x_off == 0
     assert codec_cuda._mm_route(x2, g2, route) == (route or ("tc" if eligible else "ffma"))
 
 

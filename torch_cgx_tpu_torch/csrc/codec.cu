@@ -9,7 +9,10 @@
 //   cgx_dequantize       <- _dequantize_flat_impl (B2) and _dequantize_chunks_impl (B6)
 //   cgx_sra_epilogue     <- _sra_epilogue_impl (B3)
 //   cgx_reduce_rows      <- _reduce_rows_impl (B4)
-//   cgx_matmul_quantize  <- fused_producer.py _matmul_quantize_impl (B8)
+//   cgx_matmul_quantize  <- fused_producer.py _matmul_quantize_impl (B8;
+//                           with cgx_matmul_quantize_tc for 16-bit and
+//                           cgx_tf32_split + cgx_matmul_quantize_tf32 for
+//                           float32 operands on the tensor cores)
 //   cgx_quantize_db      <- _quantize_flat_db_impl (B7a)
 //   cgx_dequantize_db    <- _dequantize_flat_db_impl (B7b)
 //   cgx_sra_epilogue_db  <- _sra_epilogue_db_impl (B7c)
@@ -49,9 +52,14 @@
 // bucket, one block per chunk. The pipelined (*_db) kernels run persistent
 // grids that stream their inputs through a ring of shared-memory slots
 // filled by bulk asynchronous copies (see their section below). The
-// matmul-quantize's bf16 and f16 operands go to the tensor cores (wgmma,
-// fed by TMA: cgx_matmul_quantize_tc_kernel) wherever TMA can describe
-// them; no other kernel uses tensor cores.
+// matmul-quantize runs on the tensor cores (wgmma, fed by TMA): its bf16
+// and f16 operands wherever TMA can describe them
+// (cgx_matmul_quantize_tc_kernel), its float32 operands as split TF32,
+// three tf32 products a step on the hi and lo planes a split-transpose
+// pass writes first (cgx_tf32_split_kernel, then
+// cgx_matmul_quantize_tf32_kernel); its FFMA kernel takes the 16-bit
+// shapes TMA cannot describe, and any operands forced to it. No other
+// kernel uses tensor cores.
 //
 // Arithmetic is fixed to the plain PyTorch version in
 // torch_cgx_tpu_torch/ops/codec.py, bit for bit: the meta multiplies by
@@ -931,12 +939,17 @@ __device__ __forceinline__ void mm_stage16(float (&acc)[8][8], const uint16_t* x
 //
 // Bound: operations, 2*K*din*o (a multiply and an add per product, f32
 // FFMA) against sizeof(E)*K*(din + o) bytes read once and n*bits/8 + 8n/B
-// written. The design: no tensor cores (TF32 would round the f32 operands;
-// the 16-bit operands of a shape TMA can describe go to the tensor-core
-// kernel, cgx_matmul_quantize_tc_kernel below, and only the others, din or
-// o not a multiple of 8 or an operand not 16-byte aligned, come here, where
-// their sums are the f32 instance's on the upcast operands, bit for bit),
-// so it is an FFMA GEMM like cuBLAS's f32 kernels:
+// written. The design: no tensor cores (one TF32 pass would round the f32
+// operands to 11 significant bits), so it is an FFMA GEMM like cuBLAS's
+// f32 kernels. The wrapper routes every float32 pair to the split-TF32
+// kernel on the tensor cores (cgx_matmul_quantize_tf32_kernel below, whose
+// three products a step keep f32 accuracy), and the 16-bit operands of a
+// shape TMA can describe to cgx_matmul_quantize_tc_kernel; only the other
+// 16-bit shapes (din or o not a multiple of 8, an operand not 16-byte
+// aligned) come here, where their sums are the f32 instance's on the
+// upcast operands, bit for bit, and any operands forced here
+// (codec_cuda's _route="ffma"): the f32 instance keeps its bytes, the old
+// anchor. The design:
 //  - the GEMM tiling is the output's, not the quantize chunk's: 64 x 128
 //    tiles of dw, every value computed exactly once (288 tiles at GPT-2
 //    124M's mlp_in), walked by a persistent grid of as many blocks as the
@@ -2226,12 +2239,13 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
 }
 
 // ---------------------------------------------------------------------------
-// The matmul-quantize on tensor cores (B8's 16-bit operands).
+// The matmul-quantize on tensor cores: B8's 16-bit operands, and its
+// float32 operands as split TF32 fed by a split-transpose pass.
 // ---------------------------------------------------------------------------
 
 constexpr int kTcBM = 128;  // rows of dw (columns of x2) a tile covers: 64 a consumer warpgroup
-constexpr int kTcBN = 192;  // columns of dw (of g2) a tile covers: one m64n192k16 wide
-constexpr int kTcBK = 64;   // contraction steps a ring stage holds: four k16 steps
+constexpr int kTcBN = 192;  // columns of dw (of g2) a tile covers: one m64n192 wgmma wide
+constexpr int kTcBK = 64;   // 16-bit contraction steps a ring stage holds: four k16 steps
 constexpr int kTcStages = 5;
 constexpr int kTcBox = 64;  // a TMA box's columns: 128 bytes, the 128-byte swizzle's width
 constexpr int kTcBoxBytes = kTcBK * kTcBox * 2;                 // one box: 64 rows of 128 bytes
@@ -2239,6 +2253,30 @@ constexpr int kTcStageBytes = (kTcBM + kTcBN) / kTcBox * kTcBoxBytes;  // x2's 2
 constexpr int kTcConsumers = 256;                // two warpgroups
 constexpr int kTcThreads = kTcConsumers + 32;    // and the producer warp
 constexpr int kTcSwizzleBytes = 1024;            // 8 rows of 128 bytes: the swizzle's period
+// The float32 operands' ring: K-major planes (hi, then lo) of the split
+// operands, 32 contraction steps (128 bytes) a row, so a stage holds
+// 2 x (128 + 192) rows of 128 bytes: 80 KB, two stages.
+constexpr int kTf32BK = 32;
+constexpr int kTf32Stages = 2;
+constexpr int kTf32XBytes = kTcBM * kTf32BK * 4;  // one plane of x2's tile: 16 KB
+constexpr int kTf32GBytes = kTcBN * kTf32BK * 4;  // one plane of g2's tile: 24 KB
+constexpr int kTf32StageBytes = 2 * (kTf32XBytes + kTf32GBytes);
+// The split-TF32 kernel's k8 steps whose three products a partial sums
+// before the CUDA cores add it to the sums (16 contraction steps).
+constexpr int kTf32PartialSteps = 2;
+constexpr int kSplitTile = 32;   // the split pass's tile: contraction rows
+constexpr int kSplitCols = 128;  // and columns
+
+// The ring of one operand form: E = uint16_t, MN-major 16-bit boxes; E =
+// float, the K-major split-TF32 planes.
+template <typename E>
+struct TcRing {
+  static constexpr int kBK = kTcBK, kStages = kTcStages, kStageBytes = kTcStageBytes;
+};
+template <>
+struct TcRing<float> {
+  static constexpr int kBK = kTf32BK, kStages = kTf32Stages, kStageBytes = kTf32StageBytes;
+};
 
 // A wgmma shared-memory descriptor of an MN-major operand in the 128-byte
 // swizzle at shared address `addr` (a multiple of 1,024): 8 contraction
@@ -2250,13 +2288,23 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
          ((uint64_t)(kTcSwizzleBytes >> 4) << 32) | (1ull << 62);
 }
 
-// d += A B over 16 contraction steps for a warpgroup's 64 x 192 sums
-// (d = A B with scale_d 0), A and B both MN-major (the transpose flags
-// 1), bf16 or f16 (WIRE) in, f32 sums.
-#define CGX_WGMMA_M64N192K16(T)                                                               \
+// The descriptor of a K-major operand in the 128-byte swizzle: rows of 128
+// bytes (32 tf32 values along K), 8 rows an atom of 1,024 bytes; the
+// stride byte offset steps to the next 8 rows along M or N, the leading
+// one is unused (1) in a swizzled K-major layout. A k8 step 32 bytes into
+// the row is `addr` + 32 (the swizzle is a function of the address).
+__device__ __forceinline__ uint64_t gmma_desc_kmajor(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | (1ull << 16) |
+         ((uint64_t)(kTcSwizzleBytes >> 4) << 32) | (1ull << 62);
+}
+
+// d += A B for a warpgroup's 64 x 192 f32 sums (d = A B with scale_d 0):
+// SHAPE names the contraction and the operand types, TAIL the immediate
+// scales (and, for 16-bit operands, the transpose flags).
+#define CGX_WGMMA_M64N192(SHAPE, TAIL)                                                        \
   asm volatile(                                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"                                            \
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32." T "." T " {"                             \
+      "wgmma.mma_async.sync.aligned." SHAPE " {"                                              \
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                                    \
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "                          \
       "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "                          \
@@ -2265,7 +2313,7 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
       "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "                          \
       "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "                          \
       "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "                         \
-      "%96, %97, p, 1, 1, 1, 1;\n}\n"                                                         \
+      "%96, %97, p" TAIL ";\n}\n"                                                             \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
@@ -2284,22 +2332,52 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
         "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])                       \
       : "l"(da), "l"(db), "r"(scale_d))
 
+// 16 contraction steps of bf16 or f16 (WIRE), A and B both MN-major (the
+// transpose flags 1).
 template <int WIRE>
 __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da, uint64_t db,
                                                  int scale_d) {
   if constexpr (WIRE == kWireF16) {
-    CGX_WGMMA_M64N192K16("f16");
+    CGX_WGMMA_M64N192("m64n192k16.f32.f16.f16", ", 1, 1, 1, 1");
   } else {
-    CGX_WGMMA_M64N192K16("bf16");
+    CGX_WGMMA_M64N192("m64n192k16.f32.bf16.bf16", ", 1, 1, 1, 1");
   }
 }
-#undef CGX_WGMMA_M64N192K16
+
+#define CGX_WGMMA_M64N96(SHAPE, TAIL)                                                         \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned." SHAPE " {"                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                                    \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "                          \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "                          \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "                          \
+      "%48, %49, p" TAIL ";\n}\n"                                                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),         \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),         \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])                       \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+// d += A B for a warpgroup's 64 x 96 f32 sums over 8 contraction steps of
+// tf32, A and B both K-major (the tf32 form takes no transpose flags).
+__device__ __forceinline__ void wgmma_m64n96k8_tf32(float (&d)[48], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  CGX_WGMMA_M64N96("m64n96k8.f32.tf32.tf32", ", 1, 1");
+}
+#undef CGX_WGMMA_M64N96
+#undef CGX_WGMMA_M64N192
 
 // Keeps the compiler from moving reads or writes of the sums across the
 // wgmma fences and waits (the asynchronous product owns the registers).
-__device__ __forceinline__ void wgmma_fence_sums(float (&d)[96]) {
+template <int N>
+__device__ __forceinline__ void wgmma_fence_sums(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -2333,44 +2411,178 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// The same for a 3-D tensor, at (c0, c1, plane c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero
+// (cvt.rna.tf32.f32), its 13 low bits cleared so that the bytes are the
+// plain version's (codec_cuda.tf32_round_plain) whatever the convert
+// leaves there; the tensor cores ignore them.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// codec_tf32_split: the float32 operands of the split-TF32 matmul-quantize
+// (part of B8, fused_producer.py _matmul_quantize_impl; no TPU kernel of
+// its own: the TPU kernel reads its float32 operands as they are). x2 (K,
+// din) and g2 (K, o), row-major, become K-major planes of their transposes,
+// K padded with zeros to kp (a multiple of the ring stage, kTf32BK):
+// xs[0] = hi(x2^T), xs[1] = lo(x2^T), (din, kp) each, and gs likewise
+// (o, kp), with hi = tf32_rna(x) and lo = tf32_rna(x - hi) (x - hi is
+// exact in f32). So hi + lo is x within 2^-22 |x|, and an integer below
+// 2^11 in magnitude has lo = 0.
+//
+// Bound: bytes, 4K(din + o) read once and 8kp(din + o) written (15.7 MB
+// and 31.5 MB at GPT-2 124M's mlp_in, 0.014 ms at 3.35 TB/s). The design:
+// a tile of 32 contraction rows x 128 columns a block, 256 threads; a
+// warp reads a row's 128 columns as 16-byte loads (512 contiguous bytes;
+// 4-byte loads where the row is not 16-byte aligned or the columns not a
+// multiple of 4), through a shared tile padded to 129 columns (no bank
+// conflict on the transposed read), and writes each column's 32
+// contraction steps, 128 contiguous bytes a warp a plane. One launch
+// serves both operands: blocks [0, x_tiles) take x2's column tiles, the
+// rest g2's; blockIdx.y walks the contraction tiles. Its output stays in
+// the L2 (31.5 MB of 50) for the GEMM that reads it next.
+#if !defined(CGX_PART) || CGX_PART == 22  // built with its entry point alone
+__global__ void __launch_bounds__(256)
+    cgx_tf32_split_kernel(const float* __restrict__ x2, const float* __restrict__ g2,
+                          long long k_total, int din, int o, long long kp, int x_tiles, int x_vec,
+                          int g_vec, float* __restrict__ xs, float* __restrict__ gs) {
+  __shared__ float tile[kSplitTile][kSplitCols + 1];
+  int ct = blockIdx.x;
+  const float* src = x2;
+  float* dst = xs;
+  int cols = din, vec = x_vec;
+  if (ct >= x_tiles) {
+    ct -= x_tiles;
+    src = g2;
+    dst = gs;
+    cols = o;
+    vec = g_vec;
+  }
+  const int c0 = ct * kSplitCols;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t plane = (size_t)cols * kp;
+  for (long long k0 = (long long)blockIdx.y * kSplitTile; k0 < kp;
+       k0 += (long long)gridDim.y * kSplitTile) {
+#pragma unroll
+    for (int r = warp; r < kSplitTile; r += 8) {  // row k0 + r, columns c0 + 4 lane ..
+      const long long k = k0 + r;
+      const int c = c0 + 4 * lane;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k < k_total) {
+        const float* row = src + k * cols;
+        if (vec && c < cols) {  // cols % 4 == 0: the four lie in the row
+          const float4 q = *reinterpret_cast<const float4*>(row + c);
+          v[0] = q.x;
+          v[1] = q.y;
+          v[2] = q.z;
+          v[3] = q.w;
+        } else if (!vec) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = c + e < cols ? row[c + e] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tile[r][4 * lane + e] = v[e];
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = warp; j < kSplitCols; j += 8) {  // column c0 + j, contraction step k0 + lane
+      const int c = c0 + j;
+      if (c < cols) {
+        const float v = tile[lane][j];
+        const float hi = tf32_rna(v);
+        const size_t at = (size_t)c * kp + k0 + lane;
+        dst[at] = hi;
+        dst[plane + at] = tf32_rna(__fsub_rn(v, hi));
+      }
+    }
+    __syncthreads();  // the tile is free for the next contraction tile
+  }
+}
+#endif
+
 // codec_matmul_quantize on tensor cores. Replaces fused_producer.py
-// _matmul_quantize_impl (B8) for bf16 and f16 operands (WIRE, the launch's
-// format, a template parameter: the two formats are different wgmma
-// instructions) wherever TMA can describe them: din and o multiples of 8,
-// both operands 16-byte aligned (codec_cuda.mm_tc_eligible; other 16-bit
-// shapes take cgx_matmul_quantize_kernel above). The function is that
-// kernel's: dw = x2^T g2 summed in f32, __fdiv_rn by div, quantized in the
-// wire layout of the flat dw, the own raw row each sum rounded to the
-// operand dtype, then divided.
+// _matmul_quantize_impl (B8) for bf16 and f16 operands wherever TMA can
+// describe them (din and o multiples of 8, both operands 16-byte aligned:
+// codec_cuda.mm_tc_eligible; other 16-bit shapes take
+// cgx_matmul_quantize_kernel above), and for every float32 operand pair
+// the FFMA kernel takes, as split TF32 (cgx_matmul_quantize_tf32_kernel,
+// below). The function is the FFMA kernel's: dw = x2^T g2 summed in f32,
+// __fdiv_rn by div, quantized in the wire layout of the flat dw, the own
+// raw row each sum rounded to the operand dtype (float32: the sum
+// itself), then divided. Both kernels are this body, E the operand type
+// (WIRE the 16-bit format, a template parameter: the two formats are
+// different wgmma instructions).
 //
 // Bound: operations, 2*K*din*o at the bf16 tensor-core rate (989 TFLOP/s
 // dense), against 2*K*(din + o) bytes read once and n*bits/8 + 8n/B (+
 // 4n/ws of the raw row) written: 0.0049 ms at GPT-2 124M's mlp_in (K =
 // 1,024), the bytes alone about 3.4 us. The FFMA design reached 2 % of
 // that, issue-bound on its f32 FMAs and the converts at the shared-memory
-// read. The design:
-//  - the mainloop is wgmma.mma_async m64n192k16, both operands read from
-//    shared memory. x2^T (din contiguous) and g2 (o contiguous) are both
-//    MN-major, which the 16-bit wgmma takes through its transpose flags, so
-//    no pass transposes them; gmma_desc describes them;
+// read. For float32 operands: three products a step at the TF32 rate (495
+// TFLOP/s), 3 x 4.83 GFLOP in 0.0293 ms at mlp_in, against the FFMA
+// ceiling's 0.0721 (67 TFLOP/s). The design:
+//  - the mainloop is wgmma.mma_async m64n192, both operands read from
+//    shared memory. 16-bit: k16 steps; x2^T (din contiguous) and g2 (o
+//    contiguous) are both MN-major, which the 16-bit wgmma takes through
+//    its transpose flags, so no pass transposes them; gmma_desc describes
+//    them. float32: the tf32 wgmma (k8) takes no transpose flags, both
+//    operands K-major, so cgx_tf32_split_kernel writes the K-major hi and
+//    lo planes of x2^T and g2^T first, and each k8 step runs three
+//    wgmma, the small terms first: lo(x) hi(g), hi(x) lo(g), then hi(x)
+//    hi(g); lo lo (about 2^-22 of a product) is dropped. Each wgmma
+//    rounds its sum into the accumulator once, and a first version's
+//    three a k8 step into one accumulator over all of K moved the meta past
+//    chip_smoke.py's META_RTOL (1e-5) at K = 1,024, more the longer K.
+//    So the 6 wgmma of 16 contraction steps of a 96-column half of the
+//    tile (m64n96k8) sum into a partial from zero, and the CUDA cores add
+//    it to the 96 sums a thread keeps, rounded to nearest (__fadd_rn): 64
+//    rounded adds at K = 1,024, each partial's roundings relative to its
+//    own magnitude (tools/tf32_accuracy.py holds 8, 16 and 32 steps a
+//    partial to the float64 product on phase 7's operands; PERF.md). It
+//    costs 48 registers for the partial (the instances use 168 a thread
+//    and spill a little: PERF.md), a drain of the wgmma queue a partial (the
+//    other warpgroup keeps the tensor cores busy), and 96 adds a thread
+//    16 steps. gmma_desc_kmajor describes the planes;
 //  - a tile is 128 x 192 of dw: two consumer warpgroups, 64 rows each, 96
 //    sums a thread (96, 72 and 96 tiles at GPT-2 124M's mlp_in, attn_qkv
-//    and mlp_out: one wave of the persistent grid on 132 SMs);
-//  - one producer warp keeps a 5-stage ring of 64 contraction rows full:
-//    per stage two TMA boxes of x2 and three of g2, 64 values x 64 rows
-//    each in the 128-byte swizzle wgmma reads, one full and one empty
-//    mbarrier a stage. TMA fills the parts of a box past K, din or o with
-//    zeros, so the tails cost the mainloop nothing; only the workspace
-//    stores are masked. The consumers keep one stage's products in flight
-//    (wgmma.wait_group 1) and release the stage before it;
+//    and mlp_out: one wave of the persistent grid on 132 SMs; 128 x 128
+//    tiles would give 144, 108 and 144, two waves at mlp_in and mlp_out);
+//  - one producer warp keeps the ring full, one full and one empty
+//    mbarrier a stage, in the 128-byte swizzle wgmma reads. 16-bit: 5
+//    stages of 64 contraction rows, per stage two TMA boxes of x2 and
+//    three of g2, 64 values x 64 rows each. float32: 2 stages of 32
+//    contraction steps (the 128-byte swizzle's row), per stage the hi and
+//    lo boxes of x2's 128 rows and g2's 192 (80 KB; two stages, 160 KB,
+//    fit the block's 227 KB beside a chunk's tile, three would not). TMA
+//    fills the parts of a box past din or o (and, 16-bit, K) with zeros,
+//    and the split pass pads K with zeros, so the tails cost the mainloop
+//    nothing; only the workspace stores are masked. The consumers keep
+//    one stage's products in flight (wgmma.wait_group 1) and release the
+//    stage before it (float32: every wgmma of a stage is done before the
+//    last adds, and the stage is released after them);
 //  - no setmaxnreg: the consumers' 96 sums fit the 224 registers a thread
 //    that one block of 288 threads an SM allows, and every warp, the
 //    producer's too, runs the chunk quantize after the tiles;
-//  - the sums are the tensor cores': every product is exact in f32 and
-//    the sums are f32, in the tensor cores' order, so on small-integer
-//    operands (every partial sum exact) the bytes equal the plain
-//    version's, and on others words and meta agree within the tolerance
-//    the f32 kernel keeps with cuBLAS (chip_smoke.py payload_close);
+//  - the sums are the tensor cores': every product is exact in f32 (a
+//    split plane's value has 11 significant bits) and the sums are f32, in
+//    the tensor cores' order, so on small-integer operands (every partial
+//    sum exact; below 2^11 the lo planes are zero) the bytes equal the
+//    plain version's, and on others words and meta agree within the
+//    tolerance the f32 kernel keeps with cuBLAS (chip_smoke.py
+//    payload_close). A nonfinite float32 operand gives NaN sums where the
+//    FFMA kernel's may be +-inf (lo = inf - inf);
 //  - the epilogue is cgx_matmul_quantize_kernel's completion through the
 //    L2 unchanged: each tile stores sum / div into the workspace (__stcg)
 //    and the raw own row where it falls, fences, and adds to the chunks'
@@ -2383,27 +2595,28 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
 //    quantize, and without its stores too; PERF.md): the mainloop (96
 //    tiles on 132 SMs at mlp_in), the stores, and the chunk quantize, whose
 //    encode is latency-bound at 9 warps an SM and takes two rounds where
-//    the chunks (144 at mlp_in) outnumber the blocks.
+//    the chunks (144 at mlp_in) outnumber the blocks. The float32
+//    mainloop reads four planes, 2.5 MB of tiles from the L2 a tile at
+//    mlp_in (252 MB a launch): the L2, not the tensor cores, bounds it.
 template <int BITS, int ENCODE, int PACK, int WIRE, typename E>
-__global__ void __launch_bounds__(kTcThreads, 1)
-    cgx_matmul_quantize_tc_kernel(const __grid_constant__ CUtensorMap x_map,
-                                  const __grid_constant__ CUtensorMap g_map, long long k_total,
-                                  int din, int o, int tiles_n, long long tiles, float div,
-                                  float rdiv, int B, float inv, float* __restrict__ work,
-                                  int* __restrict__ arrivals,
-                                  float* __restrict__ raw, long long raw_lo, long long raw_n,
-                                  int32_t* __restrict__ words, float* __restrict__ meta) {
+__device__ __forceinline__ void matmul_quantize_tc_body(
+    const CUtensorMap* x_map, const CUtensorMap* g_map, long long k_total, int din, int o,
+    int tiles_n, long long tiles, float div, float rdiv, int B, float inv, float* __restrict__ work,
+    int* __restrict__ arrivals, float* __restrict__ raw, long long raw_lo, long long raw_n,
+    int32_t* __restrict__ words, float* __restrict__ meta) {
+  using Ring = TcRing<E>;
+  constexpr bool kTf32 = sizeof(E) == 4;
   extern __shared__ __align__(16) uint8_t tc_smem[];
-  __shared__ uint64_t full[kTcStages], empty[kTcStages];
+  __shared__ uint64_t full[Ring::kStages], empty[Ring::kStages];
   __shared__ float s_unit[kChunkBuckets];
   __shared__ float s_min[kChunkBuckets];
   // The swizzle's period is 1,024 bytes: the ring starts on one (the
   // launch asks for that much more).
   uint8_t* ring = tc_smem + ((kTcSwizzleBytes - (smem_addr(tc_smem) & (kTcSwizzleBytes - 1))) &
                              (kTcSwizzleBytes - 1));
-  const int nk = (int)((k_total + kTcBK - 1) / kTcBK);
+  const int nk = (int)((k_total + Ring::kBK - 1) / Ring::kBK);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < Ring::kStages; ++s) {
       mbar_init_count(&full[s], 1);
       mbar_init_count(&empty[s], kTcConsumers);
     }
@@ -2421,18 +2634,27 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int j0 = (int)(t % tiles_n) * kTcBN;
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);  // a fresh ring's first pass does not wait
-          uint8_t* st = ring + stage * kTcStageBytes;
-          mbar_expect_tx(&full[stage], kTcStageBytes);
+          uint8_t* st = ring + stage * Ring::kStageBytes;
+          mbar_expect_tx(&full[stage], Ring::kStageBytes);
+          if constexpr (kTf32) {
 #pragma unroll
-          for (int b = 0; b < kTcBM / kTcBox; ++b) {
-            tma_load_2d(st + b * kTcBoxBytes, &x_map, i0 + b * kTcBox, kb * kTcBK, &full[stage]);
-          }
+            for (int p = 0; p < 2; ++p) {  // the hi plane, then the lo plane
+              tma_load_3d(st + p * kTf32XBytes, x_map, kb * kTf32BK, i0, p, &full[stage]);
+              tma_load_3d(st + 2 * kTf32XBytes + p * kTf32GBytes, g_map, kb * kTf32BK, j0, p,
+                          &full[stage]);
+            }
+          } else {
 #pragma unroll
-          for (int b = 0; b < kTcBN / kTcBox; ++b) {
-            tma_load_2d(st + (kTcBM / kTcBox + b) * kTcBoxBytes, &g_map, j0 + b * kTcBox,
-                        kb * kTcBK, &full[stage]);
+            for (int b = 0; b < kTcBM / kTcBox; ++b) {
+              tma_load_2d(st + b * kTcBoxBytes, x_map, i0 + b * kTcBox, kb * kTcBK, &full[stage]);
+            }
+#pragma unroll
+            for (int b = 0; b < kTcBN / kTcBox; ++b) {
+              tma_load_2d(st + (kTcBM / kTcBox + b) * kTcBoxBytes, g_map, j0 + b * kTcBox,
+                          kb * kTcBK, &full[stage]);
+            }
           }
-          if (++stage == kTcStages) {
+          if (++stage == Ring::kStages) {
             stage = 0;
             phase ^= 1;
           }
@@ -2447,35 +2669,77 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     int stage = 0, prev = 0;
     uint32_t phase = 0;
     float acc[96];
+    float part[kTf32 ? 48 : 1];  // float32: the stage's sums of 96 columns
 #pragma unroll
     for (int i = 0; i < 96; ++i) acc[i] = 0.f;
     for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int i0 = (int)(t / tiles_n) * kTcBM;
       const int j0 = (int)(t % tiles_n) * kTcBN;
+      if constexpr (kTf32) {
+#pragma unroll
+        for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+      }
       for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(&full[stage], phase);
-        const uint32_t a = smem_addr(ring + stage * kTcStageBytes + wg * kTcBoxBytes);
-        const uint32_t b = smem_addr(ring + stage * kTcStageBytes + kTcBM / kTcBox * kTcBoxBytes);
-        wgmma_fence_sums(acc);
-        wgmma_fence();
+        if constexpr (kTf32) {
+          // wg's 64 rows of x2's planes (128 bytes a row), g2's 192 rows,
+          // 96 columns of dw at a time: each 16 contraction steps' 6
+          // products into `part` from zero, then added to the sums with
+          // one rounding.
+          const uint32_t xh = smem_addr(ring + stage * Ring::kStageBytes) + wg * 64 * 128;
+          const uint32_t xl = xh + kTf32XBytes;
+          const uint32_t gh = smem_addr(ring + stage * Ring::kStageBytes) + 2 * kTf32XBytes;
+          const uint32_t gl = gh + kTf32GBytes;
 #pragma unroll
-        for (int s = 0; s < kTcBK / 16; ++s) {  // 16 rows of 128 bytes a step
-          wgmma_m64n192k16<WIRE>(acc, gmma_desc(a + s * 2048), gmma_desc(b + s * 2048),
-                                 kb > 0 || s > 0);
+          for (int half = 0; half < 2; ++half) {
+            const uint32_t ghh = gh + half * 96 * 128, glh = gl + half * 96 * 128;
+#pragma unroll
+            for (int s0 = 0; s0 < kTf32BK / 8; s0 += kTf32PartialSteps) {
+              wgmma_fence_sums(part);
+              wgmma_fence();
+#pragma unroll
+              for (int s = s0; s < s0 + kTf32PartialSteps; ++s) {  // 8 steps (32 bytes) a wgmma
+                wgmma_m64n96k8_tf32(part, gmma_desc_kmajor(xl + 32 * s),
+                                    gmma_desc_kmajor(ghh + 32 * s), s > s0);
+                wgmma_m64n96k8_tf32(part, gmma_desc_kmajor(xh + 32 * s),
+                                    gmma_desc_kmajor(glh + 32 * s), 1);
+                wgmma_m64n96k8_tf32(part, gmma_desc_kmajor(xh + 32 * s),
+                                    gmma_desc_kmajor(ghh + 32 * s), 1);
+              }
+              wgmma_commit();
+              wgmma_wait<0>();
+              wgmma_fence_sums(part);
+#pragma unroll
+              for (int i = 0; i < 48; ++i) acc[48 * half + i] = __fadd_rn(acc[48 * half + i], part[i]);
+            }
+          }
+          mbar_arrive_count(&empty[stage], 1);
+        } else {
+          wgmma_fence_sums(acc);
+          wgmma_fence();
+          const uint32_t a = smem_addr(ring + stage * kTcStageBytes + wg * kTcBoxBytes);
+          const uint32_t b = smem_addr(ring + stage * kTcStageBytes + kTcBM / kTcBox * kTcBoxBytes);
+#pragma unroll
+          for (int s = 0; s < kTcBK / 16; ++s) {  // 16 rows of 128 bytes a step
+            wgmma_m64n192k16<WIRE>(acc, gmma_desc(a + s * 2048), gmma_desc(b + s * 2048),
+                                   kb > 0 || s > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's products are done: release it
+          wgmma_fence_sums(acc);
+          if (kb > 0) mbar_arrive_count(&empty[prev], 1);
+          prev = stage;
         }
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products are done: release it
-        wgmma_fence_sums(acc);
-        if (kb > 0) mbar_arrive_count(&empty[prev], 1);
-        prev = stage;
-        if (++stage == kTcStages) {
+        if (++stage == Ring::kStages) {
           stage = 0;
           phase ^= 1;
         }
       }
-      wgmma_wait<0>();
-      wgmma_fence_sums(acc);
-      mbar_arrive_count(&empty[prev], 1);
+      if constexpr (!kTf32) {
+        wgmma_wait<0>();
+        wgmma_fence_sums(acc);
+        mbar_arrive_count(&empty[prev], 1);
+      }
 
       // The tile's values of dw / div into the workspace (and the raw
       // row): sum 4j + 2h + e of a thread is row 16 warp + lane/4 + 8h,
@@ -2543,6 +2807,37 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     chunk_encode<BITS, ENCODE, PACK>(tile, B, s_unit, s_min, words + c * BITS * B);
     __syncthreads();  // the tile and the meta are free for the next chunk
   }
+}
+
+// B8's 16-bit operands: x_map and g_map the row-major operands' 2-D maps.
+template <int BITS, int ENCODE, int PACK, int WIRE, typename E>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    cgx_matmul_quantize_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                                  const __grid_constant__ CUtensorMap g_map, long long k_total,
+                                  int din, int o, int tiles_n, long long tiles, float div,
+                                  float rdiv, int B, float inv, float* __restrict__ work,
+                                  int* __restrict__ arrivals,
+                                  float* __restrict__ raw, long long raw_lo, long long raw_n,
+                                  int32_t* __restrict__ words, float* __restrict__ meta) {
+  matmul_quantize_tc_body<BITS, ENCODE, PACK, WIRE, E>(&x_map, &g_map, k_total, din, o, tiles_n,
+                                                       tiles, div, rdiv, B, inv, work, arrivals,
+                                                       raw, raw_lo, raw_n, words, meta);
+}
+
+// B8's float32 operands as split TF32: x_map and g_map the 3-D maps of the
+// split pass's (2, din, kp) and (2, o, kp) planes, k_total = kp.
+template <int BITS, int ENCODE, int PACK>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    cgx_matmul_quantize_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
+                                    const __grid_constant__ CUtensorMap g_map, long long k_total,
+                                    int din, int o, int tiles_n, long long tiles, float div,
+                                    float rdiv, int B, float inv, float* __restrict__ work,
+                                    int* __restrict__ arrivals, float* __restrict__ raw,
+                                    long long raw_lo, long long raw_n,
+                                    int32_t* __restrict__ words, float* __restrict__ meta) {
+  matmul_quantize_tc_body<BITS, ENCODE, PACK, kWireF32, float>(
+      &x_map, &g_map, k_total, din, o, tiles_n, tiles, div, rdiv, B, inv, work, arrivals, raw,
+      raw_lo, raw_n, words, meta);
 }
 
 #ifndef CGX_INT8  // the divide check runs from the default library alone
@@ -2833,14 +3128,16 @@ int by_instance(int stochastic, int wire, const F& f) {
 }  // namespace
 
 
-// The build compiles this file once per part (-DCGX_PART=0..21), the parts
+// The build compiles this file once per part (-DCGX_PART=0..22), the parts
 // in parallel, and links them into one library; without CGX_PART it
 // compiles every entry point. Parts 7-10 hold the stochastic f32
 // instances, parts 11-18 the 16-bit ones (of B1, B3, B7a, B7c, each round
 // to nearest and stochastic), part 19 B4's with a 16-bit raw row, part 20
 // B8's 16-bit operands on the FFMA kernel, part 21 the tensor-core kernel
-// (bf16 and f16) and its entry point. With -DCGX_INT8 it compiles the int8 fold's
-// library instead (parts 0-9).
+// (bf16 and f16) and its entry point, part 22 B8's float32 operands on the
+// tensor cores (the split pass, the split-TF32 kernel and their entry
+// points). With -DCGX_INT8 it compiles the int8 fold's library instead
+// (parts 0-9).
 #ifdef CGX_PART
 #define CGX_IN_PART(k) (CGX_PART == (k))
 #else
@@ -3043,7 +3340,7 @@ int matmul_quantize_entry(const E* x2, const E* g2, long long k_total, int din, 
   return (int)cudaGetLastError();
 }
 
-#if CGX_IN_PART(21)
+#if CGX_IN_PART(21) || CGX_IN_PART(22)
 // cuTensorMapEncodeTiled from the driver the runtime loaded, so that the
 // library links no libcuda; null where the driver has none.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -3051,7 +3348,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-EncodeTiled encode_tiled() {
+static EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
@@ -3067,6 +3364,63 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The arguments of B8's tensor-core bodies beside the two maps, and the
+// checks they share: dw (din, o) in whole 32-bucket chunks, the
+// workspace, counters and raw row as cgx_matmul_quantize's.
+static bool tc_args_ok(long long k_total, int din, int o, int B, float* work, int* arrivals,
+                       float* raw, long long raw_lo, long long raw_n) {
+  const long long n = (long long)din * o;
+  const long long chunk_n = (long long)kChunkBuckets * B;
+  return k_total >= 1 && k_total <= 0x7fffffffLL && din >= 1 && o >= 4 && o % 4 == 0 && B >= 32 &&
+         B % 32 == 0 && n % chunk_n == 0 && aligned16(work) && arrivals != nullptr && raw_lo >= 0 &&
+         raw_n >= 0 && raw_lo % 4 == 0 && raw_n % 4 == 0 && raw_lo + raw_n <= n &&
+         (raw_n == 0 || (raw != nullptr && aligned16(raw)));
+}
+
+// One cooperative launch of a tensor-core body's persistent grid (at most
+// one block an SM, as many as the tiles or the chunks ask) with the ring
+// (`ring` bytes) or a whole chunk in dynamic shared memory.
+template <typename K>
+static int tc_launch(K kernel, const CUtensorMap& x_map, const CUtensorMap& g_map,
+                     long long k_total, int din, int o, float div, float* work, int* arrivals,
+                     float* raw, long long raw_lo, long long raw_n, int32_t* words, float* meta,
+                     int B, float inv, size_t ring, void* stream) {
+  const long long n = (long long)din * o;
+  const long long chunk_n = (long long)kChunkBuckets * B;
+  int tiles_n = (o + kTcBN - 1) / kTcBN;
+  long long tiles = (long long)((din + kTcBM - 1) / kTcBM) * tiles_n;
+  const size_t tile = (size_t)chunk_n * sizeof(float);
+  const size_t smem = (ring > tile ? ring : tile) + kTcSwizzleBytes;  // and the ring's alignment
+  // 1/div where div is a power of two whose reciprocal is a normal float.
+  uint32_t div_bits;
+  memcpy(&div_bits, &div, sizeof div_bits);
+  const uint32_t div_exp = (div_bits >> 23) & 0xff;
+  float rdiv = (div_bits & 0x807fffffu) == 0 && div_exp >= 1 && div_exp <= 253 ? 1.f / div : 0.f;
+  CUtensorMap xm = x_map, gm = g_map;
+  void* args[] = {&xm, &gm, &k_total, &din, &o, &tiles_n, &tiles, &div, &rdiv, &B,
+                  &inv, &work, &arrivals, &raw, &raw_lo, &raw_n, &words, &meta};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTcThreads, smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long most = (long long)per_sm * sms;
+  const long long want = tiles > n / chunk_n ? tiles : n / chunk_n;
+  const unsigned grid = (unsigned)(want < most ? want : most);
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kTcThreads), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) (void)cudaGetLastError();
+  return (int)err;
+}
+#endif
+
+#if CGX_IN_PART(21)
 // The TMA map of a row-major (rows, cols) operand of 16-bit values in
 // boxes of kTcBox columns x kTcBK rows, 128-byte swizzled, zero-filled
 // past its edges.
@@ -3093,57 +3447,88 @@ int matmul_quantize_tc_entry(const uint16_t* x2, const uint16_t* g2, long long k
                              int o, float div, float* work, int* arrivals, float* raw,
                              long long raw_lo, long long raw_n, int32_t* words, float* meta, int B,
                              int bits, float inv, int encode, int pack, int wire, void* stream) {
-  const long long n = (long long)din * o;
-  const long long chunk_n = (long long)kChunkBuckets * B;
-  if (k_total < 1 || k_total > 0x7fffffffLL || din < 8 || din % 8 || o < 8 || o % 8 || B < 32 ||
-      B % 32 || n % chunk_n || !aligned16(x2) || !aligned16(g2) || !aligned16(work) ||
-      arrivals == nullptr || raw_lo < 0 || raw_n < 0 || raw_lo % 4 || raw_n % 4 ||
-      raw_lo + raw_n > n || (raw_n > 0 && (raw == nullptr || !aligned16(raw))) ||
-      (wire != kWireBf16 && wire != kWireF16)) {
+  if (!tc_args_ok(k_total, din, o, B, work, arrivals, raw, raw_lo, raw_n) || din % 8 || o % 8 ||
+      !aligned16(x2) || !aligned16(g2) || (wire != kWireBf16 && wire != kWireF16)) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap x_map, g_map;
   cudaError_t e = tc_map(&x_map, x2, k_total, din, wire);
   if (e == cudaSuccess) e = tc_map(&g_map, g2, k_total, o, wire);
   if (e != cudaSuccess) return (int)e;
-  int tiles_n = (o + kTcBN - 1) / kTcBN;
-  long long tiles = (long long)((din + kTcBM - 1) / kTcBM) * tiles_n;
   const size_t ring = (size_t)kTcStages * kTcStageBytes;
-  const size_t tile = (size_t)chunk_n * sizeof(float);
-  const size_t smem = (ring > tile ? ring : tile) + kTcSwizzleBytes;  // and the ring's alignment
-  // 1/div where div is a power of two whose reciprocal is a normal float.
-  uint32_t div_bits;
-  memcpy(&div_bits, &div, sizeof div_bits);
-  const uint32_t div_exp = (div_bits >> 23) & 0xff;
-  float rdiv = (div_bits & 0x807fffffu) == 0 && div_exp >= 1 && div_exp <= 253 ? 1.f / div : 0.f;
-  void* args[] = {&x_map, &g_map, &k_total, &din, &o, &tiles_n, &tiles, &div, &rdiv, &B,
-                  &inv, &work, &arrivals, &raw, &raw_lo, &raw_n, &words, &meta};
-  auto launch = [&](auto kernel) -> int {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTcThreads, smem);
-    }
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const long long most = (long long)per_sm * sms;
-    const long long want = tiles > n / chunk_n ? tiles : n / chunk_n;
-    const unsigned grid = (unsigned)(want < most ? want : most);
-    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kTcThreads), args,
-                                      smem, (cudaStream_t)stream);
-    if (err != cudaSuccess) (void)cudaGetLastError();
-    return (int)err;
-  };
   CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
     const int err = wire == kWireF16
-        ? launch(cgx_matmul_quantize_tc_kernel<BITS, ENCODE, PACK, kWireF16, uint16_t>)
-        : launch(cgx_matmul_quantize_tc_kernel<BITS, ENCODE, PACK, kWireBf16, uint16_t>);
+        ? tc_launch(cgx_matmul_quantize_tc_kernel<BITS, ENCODE, PACK, kWireF16, uint16_t>, x_map,
+                    g_map, k_total, din, o, div, work, arrivals, raw, raw_lo, raw_n, words, meta,
+                    B, inv, ring, stream)
+        : tc_launch(cgx_matmul_quantize_tc_kernel<BITS, ENCODE, PACK, kWireBf16, uint16_t>, x_map,
+                    g_map, k_total, din, o, div, work, arrivals, raw, raw_lo, raw_n, words, meta,
+                    B, inv, ring, stream);
     if (err != cudaSuccess) return err;
   }));
+  return (int)cudaGetLastError();
+}
+#endif
+
+#if CGX_IN_PART(22)
+// The 3-D TMA map of the split pass's planes (2, rows, kp) of f32 values in
+// boxes of kTf32BK contraction steps x box_rows rows x one plane, 128-byte
+// swizzled (a box row is the swizzle's 128 bytes), zero-filled past the
+// rows.
+static cudaError_t tf32_map(CUtensorMap* map, const float* planes, int rows, long long kp,
+                            int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[3] = {(cuuint64_t)kp, (cuuint64_t)rows, 2};
+  const cuuint64_t stride[2] = {(cuuint64_t)kp * 4, (cuuint64_t)rows * kp * 4};
+  const cuuint32_t box[3] = {kTf32BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(planes),
+                            dim, stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// B8's float32 body on the split pass's planes xs (2, din, kp) and gs (2,
+// o, kp): their TMA maps, then one cooperative launch. kp a multiple of
+// kTf32BK; any din, o % 4 == 0 (the FFMA kernel's condition).
+int matmul_quantize_tf32_entry(const float* xs, const float* gs, long long kp, int din, int o,
+                               float div, float* work, int* arrivals, float* raw,
+                               long long raw_lo, long long raw_n, int32_t* words, float* meta,
+                               int B, int bits, float inv, int encode, int pack, void* stream) {
+  if (!tc_args_ok(kp, din, o, B, work, arrivals, raw, raw_lo, raw_n) || kp % kTf32BK ||
+      !aligned16(xs) || !aligned16(gs)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap x_map, g_map;
+  cudaError_t e = tf32_map(&x_map, xs, din, kp, kTcBM);
+  if (e == cudaSuccess) e = tf32_map(&g_map, gs, o, kp, kTcBN);
+  if (e != cudaSuccess) return (int)e;
+  const size_t ring = (size_t)kTf32Stages * kTf32StageBytes;
+  CGX_DISPATCH_BITS(bits, CGX_DISPATCH_LOWERING(encode, pack, {
+    const int err = tc_launch(cgx_matmul_quantize_tf32_kernel<BITS, ENCODE, PACK>, x_map, g_map, kp,
+                              din, o, div, work, arrivals, raw, raw_lo, raw_n, words, meta, B, inv,
+                              ring, stream);
+    if (err != cudaSuccess) return err;
+  }));
+  return (int)cudaGetLastError();
+}
+
+// The split pass of both operands, one launch.
+int tf32_split_entry(const float* x2, const float* g2, long long k_total, int din, int o,
+                     long long kp, float* xs, float* gs, void* stream) {
+  if (k_total < 1 || din < 1 || o < 1 || kp < k_total || kp % kTf32BK || kp > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int x_tiles = (din + kSplitCols - 1) / kSplitCols;
+  const long long cols = (long long)x_tiles + (o + kSplitCols - 1) / kSplitCols;
+  const long long ky = kp / kSplitTile;
+  if (cols > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int x_vec = din % 4 == 0 && aligned16(x2), g_vec = o % 4 == 0 && aligned16(g2);
+  const dim3 grid((unsigned)cols, (unsigned)(ky < 65535 ? ky : 65535));
+  cgx_tf32_split_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(x2, g2, k_total, din, o, kp,
+                                                                  x_tiles, x_vec, g_vec, xs, gs);
   return (int)cudaGetLastError();
 }
 #endif
@@ -3473,6 +3858,31 @@ int cgx_matmul_quantize_tc(const void* x2, const void* g2, long long k_total, in
                                        static_cast<const uint16_t*>(g2), k_total, din, o, div,
                                        work, arrivals, raw, raw_lo, raw_n, words, meta, B, bits,
                                        inv, encode, pack, wire, stream);
+}
+#endif
+
+#if CGX_IN_PART(22)
+// B8's float32 operands as split TF32: the split pass, x2 (k_total, din)
+// and g2 (k_total, o) f32 row-major -> xs (2, din, kp) and gs (2, o, kp),
+// the hi and lo planes of their transposes, K padded with zeros to kp (a
+// multiple of 32; all four 16-byte aligned).
+int cgx_tf32_split(const float* x2, const float* g2, long long k_total, int din, int o,
+                   long long kp, float* xs, float* gs, void* stream) {
+  return cgx::tf32_split_entry(x2, g2, k_total, din, o, kp, xs, gs, stream);
+}
+
+// Then the product on the tensor cores: cgx_matmul_quantize's arguments
+// with the planes in place of x2 and g2 and kp in place of k_total; any
+// din, o % 4 == 0; `wire` must be 0 (float32).
+int cgx_matmul_quantize_tf32(const void* xs, const void* gs, long long kp, int din, int o,
+                             float div, float* work, int* arrivals, float* raw, long long raw_lo,
+                             long long raw_n, int32_t* words, float* meta, int B, int bits,
+                             float inv, int encode, int pack, int wire, void* stream) {
+  if (wire != kWireF32) return (int)cudaErrorInvalidValue;
+  return cgx::matmul_quantize_tf32_entry(static_cast<const float*>(xs),
+                                         static_cast<const float*>(gs), kp, din, o, div, work,
+                                         arrivals, raw, raw_lo, raw_n, words, meta, B, bits, inv,
+                                         encode, pack, stream);
 }
 #endif
 

@@ -74,15 +74,20 @@ meta and accumulators before a decode, as the JAX package's do outside
 its kernels (``codec.batch_views``). Another dtype raises ``ValueError``.
 The matmul-quantize (B8) reads its two operands in one dtype of the
 three, as the JAX kernel reads them in the layer's compute dtype. 16-bit
-operands whose shape TMA can describe (:func:`mm_tc_eligible`) go to a
-tensor-core kernel (``wgmma`` fed by a TMA ring, :data:`MM_TC_LAUNCHES`),
-whose float32 sums come in the tensor cores' order: bit-identical to the
-plain version where every partial sum is exact (small integers), within
-``chip_smoke.py``'s payload tolerance otherwise. The other 16-bit shapes
-take the FFMA kernel, whose sums (and so words and meta) are those of the
-float32 kernel on the upcast operands, bit for bit, since the product of
-two bf16 (or two f16) values is exact in float32. Either way the own raw
-row is the product rounded to the operand dtype, then divided.
+operands whose shape TMA can describe and every float32 pair
+(:func:`mm_tc_eligible`) go to the tensor cores (``wgmma`` fed by a TMA
+ring, :data:`MM_TC_LAUNCHES`): float32 operands as split TF32, a
+split-transpose pass (:func:`tf32_split_transpose`, its own launch count)
+writing the K-major ``hi`` and ``lo`` planes (:func:`tf32_split_plain`)
+and three tf32 products a step (``lo hi + hi lo + hi hi``), which keeps
+float32 accuracy. Their float32 sums come in the tensor cores' order:
+bit-identical to the plain version where every partial sum is exact
+(small integers, whose ``lo`` is 0), within ``chip_smoke.py``'s payload
+tolerance otherwise. The other 16-bit shapes take the FFMA kernel, whose
+sums (and so words and meta) are those of the float32 FFMA instance on the
+upcast operands, bit for bit, since the product of two bf16 (or two f16)
+values is exact in float32. Either way the own raw row is the product
+rounded to the operand dtype, then divided.
 
 The int8 fold (``CGX_SRA_ACCUM=int8``): the reduce kernels (B3, B7c, B4)
 and their plain versions take ``accum`` ("exact", the f32 fold, or "int8";
@@ -134,8 +139,9 @@ NVCC_FLAGS = (
 # parts 7-10 hold the stochastic f32 instances of B1, B3, B7a and B7c,
 # parts 11-18 their 16-bit instances (round to nearest and stochastic),
 # part 19 B4's with a 16-bit raw row, part 20 B8's with 16-bit operands on
-# the FFMA kernel, part 21 B8's tensor-core kernel (bf16 and f16).
-BUILD_PARTS = 22
+# the FFMA kernel, part 21 B8's tensor-core kernel (bf16 and f16), part 22
+# B8's float32 operands on the tensor cores (split pass, split TF32).
+BUILD_PARTS = 23
 # The int8 library's parts: its entry points and B4 (0), B3 (1-4), B7c
 # (5-8), B4 with a 16-bit raw row (9).
 INT8_BUILD_PARTS = 10
@@ -166,6 +172,7 @@ LAUNCHES: Dict[str, int] = {
     "codec_dequantize_db": 0,
     "codec_sra_epilogue_db": 0,
     "codec_quantize_variant": 0,
+    "codec_tf32_split": 0,
 }
 # Calls that CGX_PALLAS_DB sent to a pipelined kernel whose ring (or tile)
 # does not fit a block's shared memory at this geometry, so the
@@ -187,9 +194,9 @@ WIRE16_LAUNCHES: Dict[str, int] = {
 INT8_LAUNCHES: Dict[str, int] = {
     "codec_sra_epilogue": 0, "codec_sra_epilogue_db": 0, "codec_reduce_rows": 0,
 }
-# Launches of the matmul-quantize's tensor-core kernel (bf16 or f16
-# operands that TMA can describe, :func:`mm_tc_eligible`): a share of
-# WIRE16_LAUNCHES["codec_matmul_quantize"].
+# Launches of the matmul-quantize's tensor-core kernels (bf16 or f16
+# operands that TMA can describe, and float32 operands as split TF32:
+# :func:`mm_tc_eligible`): a share of LAUNCHES["codec_matmul_quantize"].
 MM_TC_LAUNCHES: Dict[str, int] = {"launches": 0}
 
 
@@ -342,6 +349,8 @@ def _lib():
             lib.cgx_matmul_quantize.argtypes = [
                 vp, vp, ll, i, i, f, vp, vp, vp, ll, ll, vp, vp, i, i, f, i, i, i, vp]
             lib.cgx_matmul_quantize_tc.argtypes = lib.cgx_matmul_quantize.argtypes
+            lib.cgx_matmul_quantize_tf32.argtypes = lib.cgx_matmul_quantize.argtypes
+            lib.cgx_tf32_split.argtypes = [vp, vp, ll, i, i, ll, vp, vp, vp]
             lib.cgx_quantize_db.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, i, i, i, i, u, u, i, vp]
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
             lib.cgx_sra_epilogue_db.argtypes = [
@@ -353,6 +362,7 @@ def _lib():
             lib.cgx_error_name.restype = ctypes.c_char_p
             fns = (lib.cgx_quantize, lib.cgx_dequantize, lib.cgx_sra_epilogue,
                    lib.cgx_reduce_rows, lib.cgx_matmul_quantize, lib.cgx_matmul_quantize_tc,
+                   lib.cgx_matmul_quantize_tf32, lib.cgx_tf32_split,
                    lib.cgx_quantize_db, lib.cgx_dequantize_db, lib.cgx_sra_epilogue_db,
                    lib.cgx_quantize_variant, lib.cgx_div_sweep, lib.cgx_div_pairs)
             for fn in fns:
@@ -1014,23 +1024,32 @@ def _own_span(n: int, own_row: Optional[Tuple[int, int]]) -> Tuple[int, int]:
 
 
 # The tensor-core kernel's output tile (rows of dw, columns of dw): two
-# warpgroups of 64 rows, one m64n192k16 wide (csrc/codec.cu kTcBM, kTcBN).
+# warpgroups of 64 rows, one m64n192 wgmma wide (csrc/codec.cu kTcBM, kTcBN).
 MM_TC_TILE = (128, 192)
+# The split-TF32 kernel's ring stage, in contraction steps: the split pass
+# pads K to a multiple of it (csrc/codec.cu kTf32BK).
+MM_TF32_BK = 32
 
 
 def mm_tc_eligible(x2: torch.Tensor, g2: torch.Tensor) -> bool:
-    """Whether the matmul-quantize's tensor-core kernel takes these
-    operands: both bfloat16 or both float16, 2-D, ``din = x2.shape[1]`` and
-    ``o = g2.shape[1]`` multiples of 8 (TMA's row strides are multiples of
-    16 bytes), both base pointers 16-byte aligned. float32 never is. Pure:
-    the wrapper decides the route with it before the launch."""
-    return (x2.dtype == g2.dtype and x2.dtype in (torch.bfloat16, torch.float16)
-            and x2.dim() == 2 and g2.dim() == 2 and x2.shape[1] % 8 == 0
+    """Whether the matmul-quantize's tensor cores take these operands: both
+    2-D and of one dtype; float32 always (the split pass reads any width
+    and alignment and writes TMA-describable planes, so every float32 pair
+    the FFMA kernel takes, ``o % 4 == 0``, runs as split TF32); bfloat16
+    or float16 where ``din = x2.shape[1]`` and ``o = g2.shape[1]`` are
+    multiples of 8 (TMA's row strides are multiples of 16 bytes) and both
+    base pointers 16-byte aligned. Pure: the wrapper decides the route with
+    it before the launch."""
+    if x2.dtype != g2.dtype or x2.dim() != 2 or g2.dim() != 2:
+        return False
+    if x2.dtype == torch.float32:
+        return True
+    return (x2.dtype in (torch.bfloat16, torch.float16) and x2.shape[1] % 8 == 0
             and g2.shape[1] % 8 == 0 and x2.data_ptr() % 16 == 0 and g2.data_ptr() % 16 == 0)
 
 
 def mm_tc_tiles(din: int, o: int) -> Tuple[int, int]:
-    """The tensor-core kernel's tiles of a ``(din, o)`` dw: ``(rows of
+    """The tensor-core kernels' tiles of a ``(din, o)`` dw: ``(rows of
     tiles, columns of tiles)``, :data:`MM_TC_TILE` each; the persistent
     grid walks their product (at most one block an SM)."""
     bm, bn = MM_TC_TILE
@@ -1038,12 +1057,79 @@ def mm_tc_tiles(din: int, o: int) -> Tuple[int, int]:
 
 
 def _mm_route(x2: torch.Tensor, g2: torch.Tensor, route: Optional[str]) -> str:
-    """The kernel a matmul-quantize launch takes: "tc" (the tensor cores)
-    where :func:`mm_tc_eligible` admits the operands, else "ffma";
-    ``route="ffma"`` forces the FFMA kernel for any operands."""
+    """The kernel a matmul-quantize launch takes: "tc" (the tensor cores;
+    split TF32 for float32) where :func:`mm_tc_eligible` admits the
+    operands, else "ffma"; ``route="ffma"`` forces the FFMA kernel for any
+    operands."""
     if route not in (None, "ffma"):
         raise ValueError(f"_route must be None or 'ffma', got {route!r}")
     return route or ("tc" if mm_tc_eligible(x2, g2) else "ffma")
+
+
+def tf32_round_plain(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, the 13 low bits zero (PTX ``cvt.rna.tf32.f32``, as the
+    split kernel clears them): half a unit of the 13 bits added to the
+    magnitude, then cut. A value past TF32's largest rounds to inf;
+    infinities and NaNs stay as they are."""
+    b = x.contiguous().view(torch.int32)
+    finite = (b & 0x7FFFFFFF) < 0x7F800000
+    r = torch.where(finite, (b + 0x1000) & -0x2000, b)
+    return r.view(torch.float32).reshape(x.shape)
+
+
+def tf32_split_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split of float32 ``x`` into ``hi = tf32(x)`` and ``lo = tf32(x -
+    hi)`` (``x - hi`` is exact): ``hi + lo`` is ``x`` within ``2^-22 |x|``,
+    and an integer below ``2^11`` in magnitude has ``lo = 0``. A nonfinite
+    ``x`` gives ``lo`` NaN."""
+    hi = tf32_round_plain(x)
+    return hi, tf32_round_plain(x - hi)
+
+
+def _k_pad(k_total: int) -> int:
+    return -(-k_total // MM_TF32_BK) * MM_TF32_BK
+
+
+def tf32_split_transpose_plain(x2: torch.Tensor, g2: torch.Tensor):
+    """Plain version of :func:`tf32_split_transpose`: ``(xs, gs)``, the
+    ``(2, din, kp)`` and ``(2, o, kp)`` float32 planes ``[hi, lo]`` of
+    ``x2^T`` and ``g2^T``, K padded with zeros to ``kp``, a multiple of
+    :data:`MM_TF32_BK`."""
+    kp = _k_pad(x2.shape[0])
+
+    def planes(t):
+        hi, lo = tf32_split_plain(t.t())
+        out = torch.zeros((2, t.shape[1], kp), dtype=torch.float32, device=t.device)
+        out[0, :, : t.shape[0]] = hi
+        out[1, :, : t.shape[0]] = lo
+        return out
+
+    return planes(x2), planes(g2)
+
+
+def tf32_split_transpose(x2: torch.Tensor, g2: torch.Tensor):
+    """The split-TF32 matmul-quantize's pass over its float32 operands
+    ``x2`` ``(K, din)`` and ``g2`` ``(K, o)``: the K-major planes of
+    :func:`tf32_split_transpose_plain`, written by one launch of
+    ``cgx_tf32_split_kernel`` on the card (counted in
+    ``LAUNCHES["codec_tf32_split"]``), the plain version for CPU tensors."""
+    if x2.dim() != 2 or g2.dim() != 2 or x2.shape[0] != g2.shape[0]:
+        raise ValueError(f"expected x2 (K, din) and g2 (K, o), got {tuple(x2.shape)}, {tuple(g2.shape)}")
+    if _device_kind(x2, g2) == "cpu":
+        return tf32_split_transpose_plain(x2.float(), g2.float())
+    _require_cuda_operand("split x2", x2, torch.float32, x2.numel())
+    _require_cuda_operand("split g2", g2, torch.float32, g2.numel())
+    k_total, din = x2.shape
+    o = g2.shape[1]
+    kp = _k_pad(k_total)
+    xs = torch.empty((2, din, kp), dtype=torch.float32, device=x2.device)
+    gs = torch.empty((2, o, kp), dtype=torch.float32, device=x2.device)
+    err = _lib().cgx_tf32_split(x2.data_ptr(), g2.data_ptr(), k_total, din, o, kp, xs.data_ptr(),
+                                gs.data_ptr(), _stream(x2))
+    _count_launch("codec_tf32_split", 0)
+    _check_launch("codec_tf32_split", err)
+    return xs, gs
 
 
 def matmul_quantize_chunks_plain(
@@ -1057,11 +1143,33 @@ def matmul_quantize_chunks_plain(
     operands' dtype (the layer's compute dtype; float32: itself), then
     divided."""
     dw = torch.matmul(x2.float().t(), g2.float()).reshape(-1)
+    return _quantize_dw(dw, x2.dtype, div, bits, bucket_size, encode, pack, own_row)
+
+
+def _quantize_dw(dw, dtype, div, bits, bucket_size, encode, pack, own_row):
     words, meta = quantize_chunks_plain(dw / div, bits, bucket_size, encode, pack)
     if own_row is None:
         return words, meta
     lo, ln = _own_span(dw.numel(), own_row)
-    return words, meta, dw[lo : lo + ln].to(x2.dtype).float() / div
+    return words, meta, dw[lo : lo + ln].to(dtype).float() / div
+
+
+def matmul_quantize_chunks_tf32_plain(
+    x2: torch.Tensor, g2: torch.Tensor, div: int, bits: int, bucket_size: int,
+    encode: Optional[str] = None, pack: Optional[str] = None,
+    own_row: Optional[Tuple[int, int]] = None,
+):
+    """The split-TF32 scheme's function, in plain PyTorch, for float32
+    operands: ``dw = lo(x)^T hi(g) + hi(x)^T lo(g) + hi(x)^T hi(g)``
+    (:func:`tf32_split_plain`; ``lo lo`` dropped), each product exact,
+    summed in float64 and rounded once to float32 (an order-free value the
+    tensor cores' float32 sums approach), then divided and quantized as
+    :func:`matmul_quantize_chunks_plain` does. Equal to it bit for bit
+    where every ``lo`` is 0 and every partial sum exact (small integers)."""
+    (xh, xl), (gh, gl) = tf32_split_plain(x2.float()), tf32_split_plain(g2.float())
+    xh, xl, gh, gl = (t.double() for t in (xh, xl, gh, gl))
+    dw = (xl.t() @ gh + xh.t() @ gl + xh.t() @ gh).float().reshape(-1)
+    return _quantize_dw(dw, torch.float32, div, bits, bucket_size, encode, pack, own_row)
 
 
 def matmul_quantize_chunks(
@@ -1079,13 +1187,16 @@ def matmul_quantize_chunks(
     din*o/ws)`` view of the product in the operands' dtype, divided, from
     the same sums. On the card the kernel reads 16-bit operands itself
     (counted in :data:`WIRE16_LAUNCHES`); the quotient goes only to an
-    L2-sized workspace the kernel quantizes from; one launch. 16-bit
-    operands that :func:`mm_tc_eligible` admits go to the tensor-core
-    kernel (counted in :data:`MM_TC_LAUNCHES`; its sums are the tensor
-    cores', so on data whose partial sums are not exact its bytes agree
-    with the plain version within a tolerance, not bit for bit), all others
-    to the FFMA kernel, whose sums are the float32 ones of the upcast
-    operands. ``_route="ffma"`` forces the FFMA kernel, for tests and
+    L2-sized workspace the kernel quantizes from; one launch (float32 on
+    the tensor cores: two, the split pass first). Operands
+    that :func:`mm_tc_eligible` admits (every float32 pair; 16-bit ones
+    TMA can describe) go to the tensor cores (counted in
+    :data:`MM_TC_LAUNCHES`; float32 as split TF32, after one launch of the
+    split pass, :func:`tf32_split_transpose`; the sums are the tensor
+    cores', so on data whose partial sums are not exact the bytes agree
+    with the plain version within a tolerance, not bit for bit), the other
+    16-bit ones to the FFMA kernel, whose sums are the float32 ones of the
+    upcast operands. ``_route="ffma"`` forces the FFMA kernel, for tests and
     timings; it leaves the CPU's plain version alone."""
     encode, pack = _lowering(encode, pack)
     if cfg_mod.stochastic_rounding():
@@ -1111,7 +1222,8 @@ def matmul_quantize_chunks(
         raise ValueError(f"bucket_size {bucket_size} exceeds the kernel's shared-memory tile")
     _require_cuda_operand("matmul x2", x2, x2.dtype, x2.numel())
     _require_cuda_operand("matmul g2", g2, x2.dtype, g2.numel())
-    if not wire and g2.data_ptr() % 16:  # the f32 kernel reads g2 four floats at a time
+    tf32 = route == "tc" and not wire
+    if not wire and route == "ffma" and g2.data_ptr() % 16:  # it reads g2 four floats at a time
         g2 = g2.clone()
     dev = x2.device
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=dev)
@@ -1119,7 +1231,12 @@ def matmul_quantize_chunks(
     work = torch.empty(din * o, dtype=torch.float32, device=dev)
     arrivals = torch.zeros(chunks, dtype=torch.int32, device=dev)  # the launch's own
     raw = torch.empty(raw_n, dtype=torch.float32, device=dev) if own_row is not None else None
-    entry = _lib().cgx_matmul_quantize_tc if route == "tc" else _lib().cgx_matmul_quantize
+    if tf32:  # the split pass's planes in place of the operands, kp of K
+        x2, g2 = tf32_split_transpose(x2, g2)
+        k_total = x2.shape[2]
+        entry = _lib().cgx_matmul_quantize_tf32
+    else:
+        entry = _lib().cgx_matmul_quantize_tc if route == "tc" else _lib().cgx_matmul_quantize
     err = entry(
         x2.data_ptr(), g2.data_ptr(), k_total, din, o, float(div),
         work.data_ptr(), arrivals.data_ptr(),

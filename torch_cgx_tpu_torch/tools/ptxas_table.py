@@ -5,7 +5,7 @@ own ``ops/codec_cuda.build``, in a subprocess, into its own ``_build/``),
 parses the compiler's report with :func:`codec_cuda.ptxas_instances` and
 prints one JSON record: the root, the build's seconds, the kernel count and
 the table. With ``--out FILE`` the table of the f32 instances (every key
-without ``:16``) is also written there, the form of
+without ``:16`` and without ``tf32``) is also written there, the form of
 ``csrc/ptxas_f32.json``: the instances the 16-bit wire dtypes left alone,
 as the source built before those instances existed. ``--compare FILE``
 holds this build's f32 instances to such a table and exits 1 on any
@@ -42,7 +42,9 @@ def build_report(root: Path) -> Dict[str, object]:
 
 
 def f32_table(table: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
-    return {k: v for k, v in sorted(table.items()) if not k.endswith(":16")}
+    """The f32 instances: every key but the 16-bit ones (``:16``) and B8's
+    split-TF32 kernels (``tf32`` in the name), which came after the table."""
+    return {k: v for k, v in sorted(table.items()) if not k.endswith(":16") and "tf32" not in k}
 
 
 def compare(table: Dict[str, Dict[str, int]], baseline: Dict[str, Dict[str, int]]) -> list:
