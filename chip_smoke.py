@@ -30,8 +30,10 @@ order, none of whose failures is caught:
    (meta within 1e-5 relative, every decoded value within one level step;
    the raw row within 1e-5 of the row's largest magnitude; the meta error
    of each route printed). Then B9's
-   variant kernel (``nometa``, ``metalane``, ``read``) at bits 1, 2, 4 and 8
-   on the 64 MB slice and at 1, 131, 133 and 2053 chunks, and every
+   variant kernel (``nometa``, ``metalane``, ``read``; B1's cluster body) at
+   bits 1, 2, 4 and 8 on the 64 MB slice and at 1, 131, 133, 2053 and 144
+   chunks, and at each cluster geometry of the bucket forced on normal and
+   adversarial data, and every
    quantizing kernel (B1, B7a, B3, B7c, B8) in each (encode, pack) lowering:
    bit-identical to the plain version of its encode, the butterfly pack's
    bytes equal to the sum pack's, and on ``qbench.tie_operand`` the mul
@@ -110,7 +112,7 @@ order, none of whose failures is caught:
    ``CGX_PALLAS_DB`` off and on,
    and a ``torch.profiler`` breakdown of one step of each; B5 and B6 are
    B1's and B2's kernels on the 307 chunks of the tail slice, B9 the
-   variant kernel at 128 MB; B1/B5 and B3 also at each launch shape of the
+   variant kernel at 128 MB and at 144 chunks; B1/B5 and B3 also at each launch shape of the
    step, alone, B7a and B7c at the shapes the step gives them under
    ``CGX_PALLAS_DB=on``, and B4 at phase 7's launch shapes, with its time
    and bound a rank-step of the two-level and the all-to-all scheme
@@ -145,7 +147,10 @@ order, none of whose failures is caught:
 6. qbench: ``python -m torch_cgx_tpu_torch.tools.qbench`` at its defaults
    (128 MB, 4 bits, bucket 512, k = 8, ``sra_epilogue`` at ws 8) for each
    of its eight variants, in this process: each variant's bytes checked,
-   then its time, GB/s and share of the bytes bound;
+   then its time, GB/s and share of the bytes bound; ``current``,
+   ``nometa``, ``metalane`` and ``read`` again at ``--mb 9`` (144 chunks,
+   the step's mlp_in launch), then those four as bursts at both sizes, and
+   B1's split (meta store, encode and pack, the rest) from both;
 7. multi-rank: four spawned ranks share the card over a gloo group (NCCL
    refuses two ranks on one device), as a cross 2 x intra 2 layout, each
    with full-width GPT-2 124M and its own 2 x 512 token shard. The
@@ -303,6 +308,11 @@ SASS_PIPES = {
     "issue": (128, None),
 }
 PHILOX_SASS_KERNEL = re.compile(r"cgx_quantize_cluster_kernelILi4ELi0ELi0ELb0ELb([01])EfE")
+# B1's instance that B9's bodies are cut from (4 bits, div, sum, one
+# position, round to nearest, f32) and those bodies, for variant_sass.
+VARIANT_SASS_B1 = "cgx_quantize_cluster_kernelILi4ELi0ELi0ELb0ELb0EfE"
+VARIANT_SASS_KERNELS = re.compile(
+    rf"({VARIANT_SASS_B1}|cgx_quantize_variant_cluster_kernelILi4ELi[012]ELb0EE)")
 # An H100 SXM: 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper
 # architecture white paper).
 SM_CLOCK_RATE = 132 * 1.98e9
@@ -339,6 +349,17 @@ TPU_KERNELS = {
 DB_OF = {"codec_quantize": "quantize", "codec_dequantize": "dequantize",
          "codec_sra_epilogue": "epilogue"}
 DB_CHUNKS = (1, 131, 133, 2053)  # around the persistent grid (132 SMs) and far above it
+# Phase 6's second qbench size: ``--mb 9`` is 144 chunks of bucket 512, the
+# step's mlp_in launch of B1 (a cluster of 4 CTAs a chunk), beside the
+# default 128 MB (2,048 chunks, one CTA a chunk). The variants run at both
+# split B1's time: current - nometa its meta store, nometa - read its encode
+# and pack.
+QBENCH_MB = 128  # qbench's default
+QBENCH_STEP_MB = 9
+QBENCH_STEP_CHUNKS = QBENCH_STEP_MB * 2**20 // (4 * 32 * BUCKET)
+QBENCH_SPLIT = ("current", "nometa", "metalane", "read")
+QBENCH_GROUPS = 5  # burst groups a variant and size, in turns
+QBENCH_LAUNCHES = 32  # launches a burst
 # The dense layers of GPT-2 124M whose weight gradients producer fusion
 # quantizes in phase 7 (weight shape (din, o)), with the contraction of a
 # rank's 2 x 512 tokens. attn_proj (768 x 768) is below
@@ -1342,22 +1363,43 @@ def check_db_cluster(dev, kernel, rows, raw, own, chunks, label, lowerings, reco
 
 
 def check_b9(dev, flat_n: int, record) -> None:
-    """B9's three bodies against their plain versions on the card."""
+    """B9's three bodies against their plain versions on the card (run on
+    the card's tensors): at B1's own geometry for the slice, the DB_CHUNKS
+    sizes and the 144 chunks of phase 6's ``--mb 9``, and at each cluster
+    geometry of the bucket forced, on normal and adversarial data."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.tools import qbench
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    for n in [flat_n] + [c * 32 * BUCKET for c in DB_CHUNKS]:
+    for n in [flat_n] + [c * 32 * BUCKET for c in DB_CHUNKS + (QBENCH_STEP_CHUNKS,)]:
         x = torch.randn(n, generator=gen, device=dev) * 40
+        g = codec_cuda._geometry(x, n // (32 * BUCKET), BUCKET, BITS)
         for bits in (1, 2, 4, 8):
             for variant in codec_cuda.VARIANTS:
                 w, m = codec_cuda.quantize_variant_chunks(x, variant, bits, BUCKET)
                 pw, pm = codec_cuda.quantize_variant_chunks_plain(x, variant, bits, BUCKET)
-                label = f"{variant} n={n} bits={bits}"
+                label = f"{variant} n={n} bits={bits} k={g.k}"
                 record("codec_quantize_variant", label + " words", w, pw)
                 record("codec_quantize_variant", label + " meta", m, pm)
         del x
+    n = DB_CHUNKS[1] * 32 * BUCKET
+    operands = (("normal", torch.randn(n, generator=gen, device=dev) * 40),
+                ("adversarial", torch.from_numpy(
+                    qbench.adversarial_operand(n, BUCKET, BITS, seed=SEED)).to(dev)))
+    for kind, x in operands:
+        tried = []
+        for g in codec_cuda.cluster_geometries(BUCKET):
+            for variant in codec_cuda.VARIANTS:
+                w, m = codec_cuda.quantize_variant_chunks(x, variant, BITS, BUCKET, g)
+                pw, pm = codec_cuda.quantize_variant_chunks_plain(x, variant, BITS, BUCKET)
+                label = f"{variant} {kind} n={n} k={g.k}"
+                record("codec_quantize_variant", label + " words", w, pw, quiet=True)
+                record("codec_quantize_variant", label + " meta", m, pm, quiet=True)
+            tried.append(f"k={g.k} x {g.threads}")
+        log(f"  {'codec_quantize_variant':21s} {kind} n={n}, each variant forced to "
+            f"{', '.join(tried)}: bit-identical")
 
 
 def check_lowerings(dev, flat_n: int, ws: int, rng, record, db_tc) -> None:
@@ -2189,31 +2231,110 @@ def lowering_phase(dev, cfg, sl: dict, steps: int) -> dict:
     return {"butterfly": launches, "mul": mul["launches"]}
 
 
-def qbench_phase() -> dict:
+def variant_sass(lib) -> None:
+    """Log the SASS of B9's three bodies (4 bits, one position a thread)
+    against B1's instance they are cut from (div, sum, round to nearest,
+    f32): each one's instructions and the opcodes whose counts differ
+    from B1's (:func:`sass_opcodes`)."""
+    t0 = time.perf_counter()
+    counts, how = sass_opcodes(lib, VARIANT_SASS_KERNELS)
+    b1 = counts.pop(VARIANT_SASS_B1)
+    assert len(counts) == 3, sorted(counts)
+    parts = [f"B1 {sum(b1.values())}"]
+    for key, c in sorted(counts.items()):
+        variant = ("nometa", "metalane", "read")[int(re.search(r"ILi4ELi(\d)E", key).group(1))]
+        diff = {k: c[k] - b1[k] for k in set(c) | set(b1) if c[k] != b1[k]}
+        parts.append(f"{variant} {sum(c.values())} (" + ", ".join(
+            f"{k} {v:+d}" for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1]))) + ")")
+    log(f"  SASS instructions, 4 bits, one position a thread (cuobjdump of {how}, "
+        f"{time.perf_counter() - t0:.1f} s): " + "; ".join(parts))
+
+
+def qbench_phase(dev, copy_gbps: float) -> dict:
     """Phase 6: the port's qbench at its defaults, each of its eight
-    variants in this process, the launch counters reset just before and
-    read just after. Returns the records and the variant kernel's
+    variants in this process, then ``current``, ``nometa``, ``metalane`` and
+    ``read`` at ``--mb 9`` (the step's 144-chunk launch), the launch
+    counters reset just before and read just after. Then B1's split at both
+    sizes and at phase 5's 64 MB slice, from qbench's slopes and from bursts
+    (the kernels alone, behind a sleep kernel, on cold inputs as
+    ``shapebench`` times the step's shapes: at 144 chunks a slope counts the
+    host's time a call), and the three bodies' SASS beside B1's:
+    the meta store is current - nometa, the encode and pack nometa - read,
+    and read's GB/s stands beside phase 5's copy yardstick (``copy_gbps``).
+    The bursts' current is B1's kernel (``quantize_chunks``), qbench's the
+    batch function. Returns the records and the variant kernel's
     launches."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec_cuda
-    from torch_cgx_tpu_torch.tools import qbench
+    from torch_cgx_tpu_torch.tools import qbench, shapebench
 
     codec_cuda.reset_launch_counts()
     records = {}
     for variant in qbench.VARIANTS:
-        records[variant] = qbench.main([variant])
+        records[variant] = qbench.main([variant, "--mb", str(QBENCH_MB)])
+        torch.cuda.empty_cache()
+    for variant in QBENCH_SPLIT:
+        records[f"{variant} --mb {QBENCH_STEP_MB}"] = qbench.main(
+            [variant, "--mb", str(QBENCH_STEP_MB)])
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     launches = codec_cuda.LAUNCHES["codec_quantize_variant"]
-    log(f"  {'variant':12s} {'t_ms':>8s} {'GB/s in':>8s} {'bound_ms':>9s} {'% of bound':>10s}  bytes")
+    log(f"  {'variant':16s} {'t_ms':>8s} {'GB/s in':>8s} {'bound_ms':>9s} {'% of bound':>10s}  bytes")
     for variant, r in records.items():
         assert r["t_ms"] is not None, r
-        log(f"  {variant:12s} {r['t_ms']:8.4f} {r['gbps_in']:8.1f} {r['bound_ms']:9.4f} "
+        log(f"  {variant:16s} {r['t_ms']:8.4f} {r['gbps_in']:8.1f} {r['bound_ms']:9.4f} "
             f"{r['pct_of_bound']:10.1f}  {r['bytes']}")
     log(f"  variant kernel launches in the phase: {launches}")
     assert launches > 0
-    return {"records": records, "launches": launches}
+
+    # Bursts as shapebench times the step's shapes: each launch on its own
+    # input (rotating through ROTATE_BYTES of them) after an L2 flush, so a
+    # 9 MB input is not read from the L2; groups in turns, the order
+    # reversed every other group.
+    flush = torch.empty(shapebench.FLUSH_BYTES // 4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bursts, spread = {}, {}
+    for mb in (QBENCH_MB, 4 * FLAT_N // 2**20, QBENCH_STEP_MB):
+        n = mb * 2**20 // 4
+        copies = -(-shapebench.ROTATE_BYTES // qbench.variant_bytes("current", n, BITS, BUCKET, 8))
+        xs = [torch.randn(n, generator=gen, device=dev) for _ in range(copies)]
+        runs = {"current": lambda i: codec_cuda.quantize_chunks(xs[i % copies], BITS, BUCKET)}
+        for variant in QBENCH_SPLIT[1:]:
+            runs[variant] = lambda i, v=variant: codec_cuda.quantize_variant_chunks(
+                xs[i % copies], v, BITS, BUCKET)
+        t = {v: [] for v in runs}
+        for g in range(QBENCH_GROUPS):
+            for v in (list(runs) if g % 2 == 0 else list(reversed(runs))):
+                t[v].append(shapebench.burst_ms(runs[v], QBENCH_LAUNCHES, flush))
+        bursts[mb] = {v: statistics.median(ts) for v, ts in t.items()}
+        spread[mb] = {v: max(ts) - min(ts) for v, ts in t.items()}
+        del xs, runs
+    del flush
+    torch.cuda.empty_cache()
+    for mb, b in bursts.items():
+        n = mb * 2**20 // 4
+        g = codec_cuda.cluster_geometry(n // (32 * BUCKET), BUCKET, BITS,
+                                        codec_cuda._sm_count(dev.index or 0))
+        slope = None
+        if mb in (QBENCH_MB, QBENCH_STEP_MB):
+            slope = {v: records[v if mb == QBENCH_MB else f"{v} --mb {mb}"]["t_ms"]
+                     for v in QBENCH_SPLIT}
+        read_bytes = qbench.variant_bytes("read", n, BITS, BUCKET, 8)
+        log(f"  {mb} MB ({n // (32 * BUCKET)} chunks, k = {g.k} x {g.threads} threads), burst ms "
+            f"(median of {QBENCH_GROUPS} groups, max - min): "
+            + ", ".join(f"{v} {b[v]:.4f} ({spread[mb][v]:.4f})" for v in QBENCH_SPLIT)
+            + ("; slope ms: " + ", ".join(f"{v} {slope[v]:.4f}" for v in QBENCH_SPLIT) if slope
+               else " (phase 5's slice; no qbench run)"))
+        splits = (("burst", b), ("slope", slope)) if slope else (("burst", b),)
+        for how, t in splits:
+            log(f"    B1's split ({how}): meta store (current - nometa) {t['current'] - t['nometa']:.4f} ms, "
+                f"encode + pack (nometa - read) {t['nometa'] - t['read']:.4f} ms, loads + reduce + "
+                f"word stores (read) {t['read']:.4f} ms; metalane - nometa "
+                f"{t['metalane'] - t['nometa']:+.4f} ms; read moves {read_bytes / t['read'] / 1e6:.1f} "
+                f"GB/s against the copy's {copy_gbps:.1f} GB/s (phase 5)")
+    variant_sass(codec_cuda.LIBRARY)
+    return {"records": records, "launches": launches, "bursts": bursts}
 
 
 # ---------------------------------------------------------------------------
@@ -2250,12 +2371,13 @@ def time_burst(fn, iters: int = 20, groups: int = 3) -> float:
     return statistics.median(shapebench.burst_ms(lambda i: fn(), iters) for _ in range(groups))
 
 
-def time_kernels(dev, n: int, name: str) -> list:
+def time_kernels(dev, n: int, name: str) -> tuple:
     """Each kernel and its plain version at the main path's flat slice, each
     pipelined kernel right after its single-stage sibling at the tile the
     forced run gives it (and the epilogues again at phase 7's flat-SRA
     shape); the multi-row reduce at phase 7's two shapes, the two-level one
-    first."""
+    first. Returns the records and the yardstick: a device-to-device copy's
+    GB/s, read and write."""
     import torch
 
     from torch_cgx_tpu_torch.ops import codec_cuda
@@ -2318,14 +2440,16 @@ def time_kernels(dev, n: int, name: str) -> list:
          lambda: codec_cuda.dequantize_chunks_plain(wt, mtail, BITS, BUCKET),
          wire(head) + 4 * head, 4 * head, None),
     ]
-    # B9: the variant kernel's nometa body at qbench's 128 MB (phase 6).
+    # B9: the variant kernel's nometa body at qbench's 128 MB and at its
+    # --mb 9, the step's 144-chunk mlp_in launch (phase 6).
     xv = torch.from_numpy(fuzz_operand(rng, 2 * n, 0)).to(dev)
-    runs.append((
-        "codec_quantize_variant", f"nometa n={2 * n}",
-        lambda: codec_cuda.quantize_variant_chunks(xv, "nometa", BITS, BUCKET),
-        lambda: codec_cuda.quantize_variant_chunks_plain(xv, "nometa", BITS, BUCKET),
-        8 * n + wire(2 * n), 16 * n, None,
-    ))
+    for m in (2 * n, QBENCH_STEP_CHUNKS * 32 * BUCKET):
+        runs.append((
+            "codec_quantize_variant", f"nometa n={m}",
+            lambda m=m: codec_cuda.quantize_variant_chunks(xv[:m], "nometa", BITS, BUCKET),
+            lambda m=m: codec_cuda.quantize_variant_chunks_plain(xv[:m], "nometa", BITS, BUCKET),
+            4 * m + wire(m), 8 * m, None,
+        ))
     # Phase 7's flat-SRA epilogue: ws rows of a rank's chunk, the raw own
     # row in place of row 1; the own row's words are not read.
     c = n // SRA_WS
@@ -2390,7 +2514,7 @@ def time_kernels(dev, n: int, name: str) -> list:
     copy_ms = time_cuda(lambda: dst.copy_(src))
     log(f"  yardstick: device-to-device copy_ of {4 * n} bytes: {copy_ms:.4f} ms, "
         f"{8 * n / copy_ms / 1e6:.1f} GB/s read+write")
-    return out
+    return out, 8 * n / copy_ms / 1e6
 
 
 def time_mm32(dev, name: str) -> list:
@@ -2674,27 +2798,24 @@ def start_philox_sass(lib):
     return result
 
 
-def philox_sass(lib) -> tuple:
-    """The Philox's instructions a stochastically rounded value by pipe of
-    :data:`SASS_PIPES`, from ``cuobjdump -sass`` of the built library: the
-    opcodes of B1's stochastic instance of :data:`PHILOX_SASS_KERNEL` less
-    the deterministic one's, over the 32 values a thread. cuobjdump
-    disassembles only those two functions (``-fun``, their mangled names
-    from the build's ptxas report); where that does not give both, the
-    whole library. Returns them and the log lines (the opcodes that differ,
-    the time); raises if either instance is missing."""
+def sass_opcodes(lib, pattern) -> tuple:
+    """Opcode counts (NOPs left out) of each function of the built library
+    whose mangled name ``pattern`` (a compiled regex) matches, keyed by the
+    pattern's first group, from ``cuobjdump -sass``: of those functions
+    alone (``-fun``, their mangled names from the build's ptxas report)
+    where that finds them all, else of the whole library. Returns the
+    counts and how they were dumped; raises if cuobjdump fails."""
     import atexit
     import subprocess
     from collections import Counter
 
     from torch_cgx_tpu_torch.ops import codec_cuda
 
-    t0 = time.perf_counter()
     tool = os.path.join(os.path.dirname(codec_cuda._nvcc()), "cuobjdump")
     op = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
     names = sorted({m for m in re.findall(r"Compiling entry function '(\w+)'",
                                           str(codec_cuda.BUILD_LOG.get("ptxas", "")))
-                    if PHILOX_SASS_KERNEL.search(m)})
+                    if pattern.search(m)})
 
     def dump(args) -> tuple:
         counts, cur = {}, None
@@ -2703,8 +2824,8 @@ def philox_sass(lib) -> tuple:
         atexit.register(proc.kill)  # no dump outlives a run that failed
         for line in proc.stdout:
             if "Function :" in line:
-                found = PHILOX_SASS_KERNEL.search(line)
-                cur = counts.setdefault(found.group(1) == "1", Counter()) if found else None
+                found = pattern.search(line)
+                cur = counts.setdefault(found.group(1), Counter()) if found else None
             elif cur is not None:
                 m = op.match(line)
                 if m and m.group(1) != "NOP":
@@ -2712,14 +2833,29 @@ def philox_sass(lib) -> tuple:
         return counts, proc.wait()
 
     counts, rc, how = {}, None, "the whole library"
-    if len(names) == 2:
+    if names:
         counts, rc = dump(["-fun", ",".join(names)])
-        how = "-fun, two functions"
-    if rc != 0 or set(counts) != {False, True}:
+        how = f"-fun, {len(names)} functions"
+    if rc != 0 or len(counts) != len(names):
         counts, rc = dump([])
         how = "the whole library"
-    if rc != 0 or set(counts) != {False, True}:
-        raise RuntimeError(f"cuobjdump found {len(counts)} of B1's two instances (rc {rc})")
+    if rc != 0:
+        raise RuntimeError(f"cuobjdump failed (rc {rc})")
+    return counts, how
+
+
+def philox_sass(lib) -> tuple:
+    """The Philox's instructions a stochastically rounded value by pipe of
+    :data:`SASS_PIPES`, from ``cuobjdump -sass`` of the built library
+    (:func:`sass_opcodes`): the opcodes of B1's stochastic instance of
+    :data:`PHILOX_SASS_KERNEL` less the deterministic one's, over the 32
+    values a thread. Returns them and the log lines (the opcodes that
+    differ, the time); raises if either instance is missing."""
+    t0 = time.perf_counter()
+    found, how = sass_opcodes(lib, PHILOX_SASS_KERNEL)
+    if set(found) != {"0", "1"}:
+        raise RuntimeError(f"cuobjdump found {len(found)} of B1's two instances")
+    counts = {k == "1": v for k, v in found.items()}
     diff = {k: counts[True][k] - counts[False][k] for k in set(counts[True]) | set(counts[False])}
     diff = {k: v for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1])) if v}
     per = {}
@@ -4438,13 +4574,22 @@ def ptxas_report(ptxas: str) -> None:
     assert sum(len(v) for k, v in by.items() if k[0] == 4) == 216, by
     assert sorted(k for k in by if k[0] == 1) == [(1, "16-bit", 0), (1, "f32", 0), (1, "no", 0)], sorted(by)
     assert all(len(by[k]) == 8 for k in by if k[0] == 1), by
+    # B9 on B1's cluster body: bits 1-8 x 3 variants x REREAD, beside B1's
+    # div/sum round-to-nearest f32 twins.
+    mine = of("cgx_quantize_variant_cluster_kernel")
+    b1 = of("cgx_quantize_cluster_kernel")
     by = {}
-    for k, v in of("cgx_quantize_variant_kernel").items():
-        bits, variant = args(k)
-        by.setdefault(("nometa", "metalane", "read")[variant], {})[bits] = v["registers"]
-    log("  cgx_quantize_variant_kernel registers by bits: " + "; ".join(
-        f"{k} " + " ".join(f"{bits}:{r}" for bits, r in sorted(v.items())) for k, v in sorted(by.items())))
-    assert sum(len(v) for v in by.values()) == 24, by
+    for k, v in mine.items():
+        bits, variant, reread = args(k)
+        twin = b1[f"cgx_quantize_cluster_kernel<{bits},0,0,{reread},0>"]
+        by.setdefault((("nometa", "metalane", "read")[variant], reread), []).append(
+            (v["registers"], v["registers"] - twin["registers"], v["spill_stores"], v["smem"]))
+    log("  cgx_quantize_variant_cluster_kernel, by variant (and REREAD): registers over bits 1-8 "
+        "(against B1's twin), spill stores, static shared memory: " + "; ".join(
+            f"{var}{' reread' if rr else ''} {min(v)[0]}-{max(v)[0]} ({min(d for _, d, _, _ in v):+d}.."
+            f"{max(d for _, d, _, _ in v):+d}), {max(sp for _, _, sp, _ in v)} B, "
+            f"{max(sm for _, _, _, sm in v)} B" for (var, rr), v in sorted(by.items())))
+    assert len(mine) == 48 and not of("cgx_quantize_variant_kernel"), sorted(mine)
 
 
 def main() -> int:
@@ -4486,6 +4631,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = codec_cuda.build(force=True)
     log(f"  nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    parts = codec_cuda.BUILD_LOG["part_seconds"]
+    slow = max(range(len(parts)), key=parts.__getitem__)
+    log(f"  part 1 (B2/B6, B7b, B9) compiled in {parts[1]:.1f} s, the slowest (part {slow}) in "
+        f"{parts[slow]:.1f} s, all at once; by part: "
+        + " ".join(f"{k}:{t:.1f}" for k, t in enumerate(parts)))
     int8_build = start_int8_build()
     ptxas_report(str(codec_cuda.BUILD_LOG.get("ptxas", "")))
     philox_result = start_philox_sass(lib)
@@ -4510,7 +4660,7 @@ def main() -> int:
     t5 = time.perf_counter()
     philox = philox_result()
     log(f"  waited {time.perf_counter() - t5:.1f} s for the SASS count")
-    kern = time_kernels(dev, FLAT_N, name)
+    kern, copy_gbps = time_kernels(dev, FLAT_N, name)
     kern += time_mm32(dev, name)
     sr_times = time_stochastic(dev, FLAT_N, name, philox)
     time_step_shapes(dev, name)
@@ -4577,8 +4727,9 @@ def main() -> int:
     del os.environ["CGX_SRA_ACCUM"], i8
     torch.cuda.empty_cache()
 
-    phase("6. qbench: the quantize variants at 128 MB, 4 bits, bucket 512, k = 8 (sra_epilogue ws 8)")
-    qb = qbench_phase()
+    phase(f"6. qbench: the quantize variants at 128 MB, 4 bits, bucket 512, k = 8 (sra_epilogue ws 8); "
+          f"{', '.join(QBENCH_SPLIT)} also at {QBENCH_STEP_MB} MB; B1's split")
+    qb = qbench_phase(dev, copy_gbps)
     launches["codec_quantize_variant"] = qb["launches"]
     torch.cuda.empty_cache()
 

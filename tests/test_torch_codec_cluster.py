@@ -177,6 +177,134 @@ def test_quantize_hands_its_geometry_to_the_kernel(fake_card, chunks, bucket, wa
     assert codec_cuda.LAUNCHES["codec_quantize"] == 1
 
 
+@pytest.mark.parametrize("variant", codec_cuda.VARIANTS)
+@pytest.mark.parametrize("chunks,bucket,want", [
+    (144, 512, (4, 128)), (1024, 512, (1, 512)), (1, 8192, (8, 512)),
+])
+def test_quantize_variant_hands_b1s_geometry_to_the_kernel(fake_card, chunks, bucket, want, variant):
+    """B9 runs at B1's geometry: the (k, threads) cgx_quantize gets reach
+    cgx_quantize_variant after the variant's index and the unit scale, at
+    the step's mlp_in launch (a cluster of 4), at 1,024 chunks (one CTA a
+    chunk) and past the register budget (positions in rounds); one counted
+    launch."""
+    x = torch.zeros(chunks * 32 * bucket)
+    codec_cuda.quantize_chunks(x, 4, bucket)
+    codec_cuda.reset_launch_counts()
+    codec_cuda.quantize_variant_chunks(x, variant, 4, bucket)
+    (_, qa), (name, args) = fake_card.calls
+    assert name == "cgx_quantize_variant" and tuple(args[8:10]) == tuple(qa[9:11]) == want
+    assert args[3:8] == (chunks, bucket, 4, codec_cuda.VARIANTS.index(variant),
+                         codec.unit_scale(4))
+    assert codec_cuda.LAUNCHES["codec_quantize_variant"] == 1
+    assert sum(codec_cuda.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("variant", codec_cuda.VARIANTS)
+def test_quantize_variant_takes_a_forced_geometry(fake_card, variant):
+    """A geometry given as ``g`` reaches the kernel as given, in rounds too
+    (256 threads for 512 positions); one counted launch a call."""
+    x = torch.zeros(6 * 32 * 512)
+    for i, g in enumerate((codec_cuda.ClusterGeometry(2, 256), codec_cuda.ClusterGeometry(1, 256, 2))):
+        codec_cuda.quantize_variant_chunks(x, variant, 4, 512, g)
+        name, args = fake_card.calls[-1]
+        assert name == "cgx_quantize_variant" and tuple(args[8:10]) == (g.k, g.threads)
+        assert codec_cuda.LAUNCHES["codec_quantize_variant"] == i + 1 == len(fake_card.calls)
+
+
+class _FakeFunction:
+    """An entry point of the stand-in library: takes its argtypes."""
+
+
+class _FakeCDLL:
+    """Stands in for ``ctypes.CDLL`` of the built library."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, name):
+        fn = _FakeFunction()
+        setattr(self, name, fn)
+        return fn
+
+
+# The default library's entry points, each bound with its argtypes.
+ENTRY_POINTS = (
+    "cgx_quantize", "cgx_dequantize", "cgx_sra_epilogue", "cgx_reduce_rows", "cgx_matmul_quantize",
+    "cgx_matmul_quantize_tc", "cgx_matmul_quantize_tf32", "cgx_tf32_split", "cgx_quantize_db",
+    "cgx_dequantize_db", "cgx_sra_epilogue_db", "cgx_quantize_variant", "cgx_div_sweep",
+    "cgx_div_pairs", "cgx_error_name",
+)
+C_TYPES = {"int": "c_int", "long long": "c_longlong", "float": "c_float", "unsigned": "c_uint"}
+
+
+@pytest.fixture
+def bound_argtypes(monkeypatch):
+    """Each entry point's argtypes as ``codec_cuda._lib`` binds them, on a
+    stand-in library (nothing is built or loaded)."""
+    import ctypes
+
+    monkeypatch.setattr(codec_cuda, "build", lambda force=False: Path("libcgx_codec.so"))
+    monkeypatch.setattr(ctypes, "CDLL", _FakeCDLL)
+    monkeypatch.setattr(codec_cuda, "_LIB", None)
+    lib = codec_cuda._lib()
+    return {name: fn.argtypes for name, fn in vars(lib).items() if hasattr(fn, "argtypes")}
+
+
+def test_every_entry_point_is_bound(bound_argtypes):
+    assert sorted(bound_argtypes) == sorted(ENTRY_POINTS)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_argtypes_match_the_c_signature(bound_argtypes, name):
+    """ctypes passes each argument as the entry point's C definition in
+    ``csrc/codec.cu`` takes it: a pointer as ``c_void_p``, ``long long`` as
+    ``c_longlong`` and so on, in order (a mismatch shifts every argument
+    after it)."""
+    import ctypes
+
+    found = re.findall(rf"\n(?:int|const char\*) {name}\(([^)]*)\)\s*\{{", SOURCE)
+    assert len(found) == 1, found
+    want = []
+    for param in found[0].split(","):
+        decl = " ".join(param.split())
+        if "*" in decl:
+            want.append(ctypes.c_void_p)
+        else:
+            want.append(getattr(ctypes, C_TYPES[decl.rsplit(" ", 1)[0]]))
+    assert list(bound_argtypes[name]) == want
+
+
+def test_build_parts_are_timed_each_in_order():
+    """The build waits on its parts' compilers together and records each
+    one's seconds in the order of the parts, not of their ends; their
+    diagnostics come back in that order too."""
+    import subprocess
+    import sys
+
+    procs = [subprocess.Popen([sys.executable, "-c", f"import sys, time; time.sleep({t}); "
+                               f"sys.stderr.write('{k}')"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for k, t in enumerate((1.2, 0.0, 0.6))]
+    seconds = []
+    assert codec_cuda._run_nvcc(procs, seconds) == "012"
+    assert len(seconds) == 3 and seconds[1] < seconds[2] < seconds[0]
+
+
+def test_build_stops_every_part_at_the_first_failure():
+    import subprocess
+    import sys
+    import time
+
+    slow = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    bad = subprocess.Popen([sys.executable, "-c", "import sys; sys.exit(3)"],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        codec_cuda._run_nvcc([slow, bad])
+    assert time.perf_counter() - t0 < 30 and slow.poll() is not None
+
+
 def test_seed_reaches_the_kernels_as_its_key_words(fake_card):
     """A seed reaches cgx_quantize and cgx_sra_epilogue as (1, its high
     word, its low word), after the geometry; one launch each."""

@@ -1092,19 +1092,82 @@ def test_db_cluster_ring_depths(dev, bucket, chunks):
 # quantizing kernel (B1, B3, B7a, B7c, B8).
 # ---------------------------------------------------------------------------
 
-VARIANT_CHUNKS = (1, 131, 133)
+VARIANT_BUCKETS = [128, 512, 896, 8192]
 
 
-@pytest.mark.parametrize("bucket", [128, 512, 896])
+def _variant_edges(bucket: int, bits: int) -> np.ndarray:
+    """Four chunks at the edges of ``read``'s word (the largest unit of a
+    chunk's 32 buckets, toward zero): every bucket constant (units 0, the
+    encode's divisor 1: the word 0), a NaN in one bucket (the word 0), one
+    bucket's unit past 2^31 (the word saturates), units below 1 (the word 0
+    by truncation)."""
+    x = np.random.default_rng(bits + bucket).standard_normal((4, 32, bucket)).astype(np.float32)
+    x[0] = np.arange(32, dtype=np.float32)[:, None] - np.float32(7.25)
+    x[1, 5, 3] = np.nan
+    x[2, 9] *= np.float32(1e13)
+    x[3] *= np.float32(1e-3)
+    return x.reshape(-1)
+
+
+def _forced_geometries(bucket: int) -> list:
+    """Every geometry within the register budget, and for each k that splits
+    the bucket's warps one with positions in rounds (REREAD): half of B/k
+    threads, at most 512, so a thread takes two positions or more."""
+    out = list(codec_cuda.cluster_geometries(bucket))
+    for k in codec_cuda.CLUSTER_SIZES:
+        span = bucket // k
+        if bucket % (32 * k) == 0 and span >= 64:
+            out.append(codec_cuda.ClusterGeometry(k, min(512, 32 * (span // 64))))
+    return out
+
+
+@pytest.mark.parametrize("bucket", VARIANT_BUCKETS)
 @pytest.mark.parametrize("bits", range(1, 9))
 def test_quantize_variant_matches_plain(dev, bits, bucket):
+    """B9 on B1's cluster body: at B1's own geometry for one chunk, chunk
+    counts at which the rule picks k = 8, 4 and 1 on this card, and 144 (the step's
+    mlp_in launch; bucket 8192 is past the register budget: positions in
+    rounds), then at every geometry of the bucket forced (in registers and
+    in rounds) on normal, ``qbench.adversarial_operand`` and the word's edge
+    data: one launch a call, bytes equal the plain version's run on the
+    card's tensors."""
     rng = np.random.default_rng(100 * bits + bucket)
-    for chunks in VARIANT_CHUNKS:
-        x = torch.from_numpy(rng.standard_normal(chunks * 32 * bucket).astype(np.float32) * 40).to(dev)
+    sms = codec_cuda._sm_count(dev.index or 0)
+
+    def check(x, g, label):
         for variant in codec_cuda.VARIANTS:
-            w, m = codec_cuda.quantize_variant_chunks(x, variant, bits, bucket)
-            pw, pm = codec_cuda.quantize_variant_chunks_plain(x.cpu(), variant, bits, bucket)
-            assert _bits_equal(w, pw) and _bits_equal(m, pm), (chunks, variant)
+            codec_cuda.reset_launch_counts()
+            w, m = codec_cuda.quantize_variant_chunks(x, variant, bits, bucket, g)
+            torch.cuda.synchronize()
+            assert codec_cuda.LAUNCHES["codec_quantize_variant"] == 1
+            pw, pm = _plain_on(dev, codec_cuda.quantize_variant_chunks_plain, x, variant, bits, bucket)
+            assert _bits_equal(w, pw) and _bits_equal(m, pm), (label, g, variant)
+
+    picked = set()
+    for chunks in (1, sms // 8, sms // 4, 144, 2 * sms):
+        x = torch.from_numpy(rng.standard_normal(chunks * 32 * bucket).astype(np.float32) * 40).to(dev)
+        g = codec_cuda._geometry(x, chunks, bucket, bits)
+        picked.add(g.k)
+        check(x, None, f"chunks={chunks}")
+    if bucket == 512:
+        assert picked == {1, 4, 8}, picked
+    n = 3 * 32 * bucket
+    for label, x in (("normal", rng.standard_normal(n).astype(np.float32)),
+                     ("adversarial", qbench.adversarial_operand(n, bucket, bits, seed=bits)),
+                     ("edges", _variant_edges(bucket, bits))):
+        x = torch.from_numpy(x).to(dev)
+        for g in _forced_geometries(bucket):
+            check(x, g, label)
+
+
+def test_quantize_variant_read_word_edges(dev):
+    """read's word on the edge chunks, against the numbers: 0 for the
+    constant chunk and the NaN one, 2^31 - 1 where a unit passes 2^31, 0
+    below 1."""
+    x = torch.from_numpy(_variant_edges(512, 8)).to(dev)
+    w, _ = codec_cuda.quantize_variant_chunks(x, "read", 8, 512)
+    assert w.view(4, -1)[:, 0].tolist() == [0, 0, 2**31 - 1, 0]
+    assert bool((w.view(4, -1) == w.view(4, -1)[:, :1]).all())
 
 
 def _lowerings():
@@ -1878,7 +1941,8 @@ def test_f32_instances_keep_their_registers(dev):
     """The f32 instances' registers and spills equal those of the source
     before the 16-bit instances existed (``csrc/ptxas_f32.json``, written
     by ``tools/ptxas_table.py``): the 16-bit instances add code beside
-    them, not to them. Uses this process's build report, or builds anew."""
+    them, not to them. B9's instances on B1's cluster body are in the
+    table. Uses this process's build report, or builds anew."""
     import json
     from pathlib import Path
 
@@ -1898,6 +1962,10 @@ def test_f32_instances_keep_their_registers(dev):
     # the split pass; outside the f32 table.
     assert sum(k.startswith("cgx_matmul_quantize_tf32_kernel<") for k in table) == 32
     assert "cgx_tf32_split_kernel" in table
+    # B9 on B1's cluster body: 8 bits x 3 variants x REREAD, inside the f32
+    # table.
+    assert sum(k.startswith("cgx_quantize_variant_cluster_kernel<") for k in baseline) == 48
+    assert not any(k.startswith("cgx_quantize_variant_kernel<") for k in table)
 
 
 # ---------------------------------------------------------------------------

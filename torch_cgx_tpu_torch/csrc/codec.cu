@@ -23,12 +23,12 @@
 // and the bucket-row geometry of each TPU pair: every codec kernel works on
 // whole chunks of 32 buckets. B1/B5 and B3 give each chunk a thread-block
 // cluster whose threads hold the chunk's values in registers (see their
-// section), and B7a and B7c walk the chunks with the same clusters on a
-// persistent grid; the multi-row reduce (B4) spreads its grid over the
-// values, 8 buckets of 4 positions a thread; the others take one thread
-// block per chunk (or, B7b, a tile of chunks). The matmul-quantize tiles
-// its output instead, and its tiles complete the chunks through the L2
-// (see its section).
+// section), B9 runs B1's cluster body with one store changed, and B7a and
+// B7c walk the chunks with the same clusters on a persistent grid; the
+// multi-row reduce (B4) spreads its grid over the values, 8 buckets of 4
+// positions a thread; the others take one thread block per chunk (or,
+// B7b, a tile of chunks). The matmul-quantize tiles its output instead, and
+// its tiles complete the chunks through the L2 (see its section).
 //
 // Wire layout (torch_cgx_tpu/ops/codec.py): chunk c holds buckets
 // 32c..32c+31; value (c, s, l) is x[c*32*B + s*B + l]; word (c, w, l) at
@@ -167,8 +167,6 @@ constexpr int kEncodeDiv = 0;
 constexpr int kEncodeMul = 1;
 constexpr int kPackSum = 0;
 constexpr int kPackButterfly = 1;
-constexpr int kMetaPairs = 0;  // chunk_meta stores the (unit, min) pairs
-constexpr int kMetaNone = 1;   // chunk_meta leaves the meta store to its caller
 
 // The wire dtypes by the entry points' `wire` argument
 // (codec_cuda.WIRE_DTYPES).
@@ -253,8 +251,8 @@ __device__ __forceinline__ float int8_value(float4 par, uint32_t acc_i) {
 // Per-bucket max/min of one chunk. src: 32 buckets of B floats (global or
 // shared memory). Writes (unit, min) to shared memory (under the mul
 // encode s_unit holds the reciprocal 1/safe instead, correctly rounded)
-// and, with META == kMetaPairs, the pairs to meta_out.
-template <int ENCODE = kEncodeDiv, int META = kMetaPairs>
+// and the pairs to meta_out.
+template <int ENCODE = kEncodeDiv>
 __device__ void chunk_meta(const float* src, int B, float inv, float* s_unit,
                            float* s_min, float* meta_out) {
   const int warp = threadIdx.x >> 5;
@@ -281,10 +279,8 @@ __device__ void chunk_meta(const float* src, int B, float inv, float* s_unit,
         s_unit[s] = unit;
       }
       s_min[s] = mn;
-      if (META == kMetaPairs) {
-        meta_out[2 * s] = unit;
-        meta_out[2 * s + 1] = mn;
-      }
+      meta_out[2 * s] = unit;
+      meta_out[2 * s + 1] = mn;
     }
   }
 }
@@ -384,56 +380,6 @@ __device__ __forceinline__ void load_chunk_meta(const float* meta, float* s_unit
   if (threadIdx.x < kChunkBuckets) {
     s_unit[threadIdx.x] = meta[2 * threadIdx.x];
     s_min[threadIdx.x] = meta[2 * threadIdx.x + 1];
-  }
-}
-
-// codec_quantize_variant. Replaces tools/qbench.py make_variant_kernel
-// (B9), the quantize diagnostics, on B1's geometry and chunk_meta:
-//   kVariantNoMeta   B1's words, the meta zero-filled (the pairs' store
-//                    dropped);
-//   kVariantMetaLane B1's words, per chunk one 128-float meta row
-//                    [32 units | 32 mins | 64 zeros] (a full-width store);
-//   kVariantRead     per chunk, the int32 (toward zero, saturating, NaN ->
-//                    0) of the largest unit of its 32 buckets in each of its
-//                    bits*B words, and the usual meta: the input read and
-//                    the output written with no encode and no pack.
-// Memory-bound like B1: reads 4n bytes, writes n*bits/8 + 8n/B (metalane
-// 16n/B of meta).
-constexpr int kVariantNoMeta = 0;
-constexpr int kVariantMetaLane = 1;
-constexpr int kVariantRead = 2;
-
-template <int BITS, int VARIANT>
-__global__ void __launch_bounds__(kThreads)
-    cgx_quantize_variant_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
-                                float* __restrict__ meta, int B, float inv) {
-  __shared__ float s_unit[kChunkBuckets];
-  __shared__ float s_min[kChunkBuckets];
-  const size_t c = blockIdx.x;
-  const float* src = x + c * kChunkBuckets * B;
-  int32_t* wout = words + c * BITS * B;
-  if (VARIANT == kVariantRead) {
-    chunk_meta<kEncodeDiv, kMetaPairs>(src, B, inv, s_unit, s_min, meta + c * 2 * kChunkBuckets);
-    __syncthreads();
-    float m = s_unit[0];
-    bool nan = false;
-    for (int s = 0; s < kChunkBuckets; ++s) {
-      const float u = s_unit[s];
-      nan = nan || isnan(u);
-      m = u > m ? u : m;
-    }
-    const int32_t v = nan ? 0 : __float2int_rz(m);
-    for (int i = threadIdx.x; i < BITS * B; i += blockDim.x) wout[i] = v;
-    return;
-  }
-  chunk_meta<kEncodeDiv, kMetaNone>(src, B, inv, s_unit, s_min, nullptr);
-  __syncthreads();
-  chunk_encode<BITS, kEncodeDiv, kPackSum>(src, B, s_unit, s_min, wout);
-  const int t = threadIdx.x;
-  if (VARIANT == kVariantNoMeta) {
-    if (t < 2 * kChunkBuckets) meta[c * 2 * kChunkBuckets + t] = 0.f;
-  } else if (t < 128) {
-    meta[c * 128 + t] = t < kChunkBuckets ? s_unit[t] : t < 2 * kChunkBuckets ? s_min[t - kChunkBuckets] : 0.f;
   }
 }
 
@@ -983,7 +929,7 @@ __device__ __forceinline__ void mm_stage16(float (&acc)[8][8], const uint16_t* x
 // chunk's arrival counter. Chunk c belongs to block c % gridDim.x: once
 // the block's tiles are done it waits for the chunk's 32*B arrivals, copies
 // the chunk from the L2 into shared memory (the ring's space) and runs
-// chunk_meta and chunk_encode on it as B9's variant kernel does. The
+// chunk_meta and chunk_encode on it (one block a chunk's body). The
 // counters are the launch's own, zeroed on its stream before it.
 // The launch is cooperative, so every block is resident and the waits
 // cannot block a tile that is not running. Each chunk has its own block
@@ -1501,15 +1447,33 @@ __device__ __forceinline__ float ld_cluster(const float* p, int rank) {
   return v;
 }
 
+// What a cluster body stores besides its words: B1's (unit, min) pairs, or
+// one of B9's diagnostic variants (tools/qbench.py make_variant_kernel; the
+// entry point's `variant` argument, codec_cuda.VARIANTS by index):
+//   kVariantNoMeta   B1's words, zero pairs where B1 stores (unit, min);
+//   kVariantMetaLane B1's words, per chunk one 128-float meta row
+//                    [32 units | 32 mins | 64 zeros] (a full-width store);
+//   kVariantRead     no encode and no pack: each of the chunk's bits*B words
+//                    holds the int32 (toward zero, saturating, NaN -> 0) of
+//                    the largest unit of its 32 buckets, and the usual pairs.
+constexpr int kVariantNone = -1;
+constexpr int kVariantNoMeta = 0;
+constexpr int kVariantMetaLane = 1;
+constexpr int kVariantRead = 2;
+
 // Each bucket's encode parameters from this warp's extremes (lane s: the
 // max and min of bucket s over the warp's positions): across the CTA's
 // warps in shared memory, then across the cluster through distributed
-// shared memory. CTA rank 0 stores the chunk's meta (mout). s_par[s] gets
-// bucket s's parameters for level_cluster. With k > 1 this CTA has arrived at
-// the cluster barrier's second phase on return; cluster_quantize waits.
-template <int ENCODE>
+// shared memory. CTA rank 0 stores the chunk's meta (mout) as VARIANT says.
+// s_par[s] gets bucket s's parameters for level_cluster; under kVariantRead
+// *s_word gets the chunk's word (every CTA reduces the same 32 units, so
+// each has it without a read of its peers'). With k > 1 this CTA has
+// arrived at the cluster barrier's second phase on return; cluster_quantize
+// waits.
+template <int ENCODE, int VARIANT = kVariantNone>
 __device__ __forceinline__ void cluster_bucket_params(float wmx, float wmn, int k, int rank,
-                                                      float inv, float* mout, float4* s_par) {
+                                                      float inv, float* mout, float4* s_par,
+                                                      int32_t* s_word = nullptr) {
   __shared__ float s_red[2][kClusterMaxWarps][kChunkBuckets];  // each warp's max, min
   __shared__ float s_part[2][kChunkBuckets];                   // this CTA's, read by its peers
   const int warp = threadIdx.x >> 5;
@@ -1546,7 +1510,26 @@ __device__ __forceinline__ void cluster_bucket_params(float wmx, float wmn, int 
     s_par[lane] = ENCODE == kEncodeMul ? make_float4(__fdiv_rn(1.f, safe), 0.f, mn, 0.f)
                                        : make_float4(safe, div_reciprocal(safe), mn,
                                                      __uint_as_float(div_slow_bits(safe)));
-    if (rank == 0) reinterpret_cast<float2*>(mout)[lane] = make_float2(unit, mn);
+    if constexpr (VARIANT == kVariantNoMeta) {
+      if (rank == 0) reinterpret_cast<float2*>(mout)[lane] = make_float2(0.f, 0.f);
+    } else if constexpr (VARIANT == kVariantMetaLane) {
+      if (rank == 0) {
+        mout[lane] = unit;
+        mout[kChunkBuckets + lane] = mn;
+        mout[2 * kChunkBuckets + lane] = 0.f;
+        mout[3 * kChunkBuckets + lane] = 0.f;
+      }
+    } else {
+      if (rank == 0) reinterpret_cast<float2*>(mout)[lane] = make_float2(unit, mn);
+    }
+    if constexpr (VARIANT == kVariantRead) {
+      // The unit, not safe: a constant bucket's unit is 0, its safe 1.
+      const bool nan = __any_sync(0xffffffffu, isnan(unit));
+      float top = unit;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, o));
+      if (lane == 0) *s_word = nan ? 0 : __float2int_rz(top);
+    }
   }
   if (k > 1) cluster_arrive();  // this CTA has read its peers' partials
   __syncthreads();
@@ -1618,11 +1601,17 @@ __device__ __forceinline__ void cluster_encode(const float (&v)[kChunkBuckets],
 // L2) for the encode. wout, mout: the chunk's words and meta; stage
 // (butterfly pack only): 32 x 32 words a warp of dynamic shared memory;
 // rs: the chunk's stochastic-rounding stream (read with STOCH only).
-template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename Load>
+// VARIANT (B9; cluster_bucket_params): the meta store it names, and under
+// kVariantRead, in place of the encode, each thread stores the chunk's word
+// (from s_word, a shared int) in its BITS words at each of its positions,
+// with nothing read again.
+template <int BITS, int ENCODE, int PACK, bool REREAD, bool STOCH, typename Load,
+          int VARIANT = kVariantNone>
 __device__ __forceinline__ void cluster_quantize(float (&v)[kChunkBuckets], const Load& load, int k,
                                                  int rank, int B, float inv, int32_t* wout,
                                                  float* mout, uint32_t* stage,
-                                                 const ChunkStream& rs) {
+                                                 const ChunkStream& rs,
+                                                 int32_t* s_word = nullptr) {
   __shared__ float4 s_par[kChunkBuckets];
   const int lane = threadIdx.x & 31;
   const int T = blockDim.x;
@@ -1637,8 +1626,14 @@ __device__ __forceinline__ void cluster_quantize(float (&v)[kChunkBuckets], cons
       wmn = nan_min(wmn, warp_bucket_extreme<false>(v, lane));
     }
   }
-  cluster_bucket_params<ENCODE>(wmx, wmn, k, rank, inv, mout, s_par);
-  if constexpr (REREAD) {
+  cluster_bucket_params<ENCODE, VARIANT>(wmx, wmn, k, rank, inv, mout, s_par, s_word);
+  if constexpr (VARIANT == kVariantRead) {
+    const int32_t word = *s_word;
+    for (int off = 0; off < room; off += T) {
+#pragma unroll
+      for (int b = 0; b < BITS; ++b) wout[(size_t)b * B + l0 + off] = word;
+    }
+  } else if constexpr (REREAD) {
     for (int off = 0; off < room; off += T) {
       if (room > T) load(v, l0 + off);  // else v still holds position l0
       cluster_encode<BITS, ENCODE, PACK, STOCH>(v, s_par, B, l0 + off, wout, stage, rs);
@@ -1681,6 +1676,29 @@ __global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBl
                                                       words + c * BITS * B,
                                                       meta + c * 2 * kChunkBuckets, cl_smem,
                                                       chunk_stream(seed, c));
+}
+
+// codec_quantize_variant (B9) on B1's cluster body and geometry:
+// cgx_quantize_cluster_kernel at the JAX variants' fixed lowering (the div
+// encode, the sum pack, round to nearest, f32 input) with the store VARIANT
+// names (cluster_bucket_params). The loads, the warp's transpose-reduce
+// and the cluster reduce are B1's, so the variants less B1 split B1's time
+// into its meta store, its encode and pack, and the rest. meta: the chunks'
+// pairs (chunks*32*2 f32), or under kVariantMetaLane their 128-float rows.
+template <int BITS, int VARIANT, bool REREAD>
+__global__ void __launch_bounds__(kClusterMaxThreads, REREAD ? 1 : kClusterMinBlocks)
+    cgx_quantize_variant_cluster_kernel(const float* __restrict__ x, int32_t* __restrict__ words,
+                                        float* __restrict__ meta, int B, int k, float inv) {
+  __shared__ int32_t s_word;  // kVariantRead: the chunk's word
+  const int rank = (int)(blockIdx.x % (unsigned)k);
+  const size_t c = blockIdx.x / (unsigned)k;
+  const ChunkValues<float> load{x + c * kChunkBuckets * B, B, kWireF32};
+  float v[kChunkBuckets];
+  load(v, rank * (B / k) + (int)threadIdx.x);
+  cluster_quantize<BITS, kEncodeDiv, kPackSum, REREAD, false, ChunkValues<float>, VARIANT>(
+      v, load, k, rank, B, inv, words + c * BITS * B,
+      meta + c * (VARIANT == kVariantMetaLane ? 128 : 2 * kChunkBuckets), nullptr,
+      chunk_stream(make_uint2(0u, 0u), c), &s_word);
 }
 
 // The BITS words of one row at this thread's position.
@@ -3172,6 +3190,22 @@ int quantize_entry(const E* x, int32_t* words, float* meta, long long chunks, in
   return (int)cudaGetLastError();
 }
 
+// One launch of B9's VARIANT body on a checked cluster geometry.
+template <int VARIANT>
+int quantize_variant_entry(const float* x, int32_t* words, float* meta, long long chunks, int B,
+                           int bits, float inv, int k, int threads, cudaStream_t st) {
+  const bool reread = B / k > threads;
+  CGX_DISPATCH_BITS(bits, {
+    cudaError_t e = reread
+        ? cluster_launch(cgx_quantize_variant_cluster_kernel<BITS, VARIANT, true>, chunks, k,
+                         threads, 0, st, x, words, meta, B, k, inv)
+        : cluster_launch(cgx_quantize_variant_cluster_kernel<BITS, VARIANT, false>, chunks, k,
+                         threads, 0, st, x, words, meta, B, k, inv);
+    if (e != cudaSuccess) return (int)e;
+  });
+  return (int)cudaGetLastError();
+}
+
 template <bool STOCH, typename E, int ACCUM = kAccumExact>
 int sra_epilogue_entry(const int32_t* words, const float* meta, const E* raw, int own, int ws,
                        long long chunks, int B, int bits, float inv, int encode, int pack, int k,
@@ -3755,29 +3789,29 @@ int cgx_div_pairs(const float* a, const float* d, int n, float* q_fast, float* q
 #endif
 
 #if CGX_IN_PART(1)
-// B9's bodies. x: chunks*32*B f32 -> words: chunks*bits*B int32; meta:
-// chunks*32*2 f32 (variant 0 nometa, 2 read) or chunks*128 f32 (1 metalane).
+// B9's bodies on B1's cluster geometry (k, threads as cgx_quantize's). x:
+// chunks*32*B f32 -> words: chunks*bits*B int32; meta: chunks*32*2 f32
+// (variant 0 nometa, 2 read) or chunks*128 f32 (1 metalane).
 int cgx_quantize_variant(const float* x, int32_t* words, float* meta, long long chunks,
-                         int B, int bits, int variant, float inv, void* stream) {
-  if (chunks < 1 || B < 32 || B % 32) return (int)cudaErrorInvalidValue;
+                         int B, int bits, int variant, float inv, int k, int threads,
+                         void* stream) {
+  if (chunks < 1 || B < 32 || B % 32 || !cluster_geometry_ok(chunks, B, k, threads)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
   switch (variant) {
     case kVariantNoMeta:
-      CGX_DISPATCH_BITS(bits, cgx_quantize_variant_kernel<BITS, kVariantNoMeta>
-                              <<<(unsigned)chunks, kThreads, 0, st>>>(x, words, meta, B, inv));
-      break;
+      return cgx::quantize_variant_entry<kVariantNoMeta>(x, words, meta, chunks, B, bits, inv, k,
+                                                         threads, st);
     case kVariantMetaLane:
-      CGX_DISPATCH_BITS(bits, cgx_quantize_variant_kernel<BITS, kVariantMetaLane>
-                              <<<(unsigned)chunks, kThreads, 0, st>>>(x, words, meta, B, inv));
-      break;
+      return cgx::quantize_variant_entry<kVariantMetaLane>(x, words, meta, chunks, B, bits, inv, k,
+                                                           threads, st);
     case kVariantRead:
-      CGX_DISPATCH_BITS(bits, cgx_quantize_variant_kernel<BITS, kVariantRead>
-                              <<<(unsigned)chunks, kThreads, 0, st>>>(x, words, meta, B, inv));
-      break;
+      return cgx::quantize_variant_entry<kVariantRead>(x, words, meta, chunks, B, bits, inv, k,
+                                                       threads, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 #endif
 

@@ -22,10 +22,11 @@ wrapper                       TPU kernels replaced
 ``quantize_variant_chunks``   ``tools/qbench.make_variant_kernel`` (nometa, metalane, read)
 ============================  =================================================
 
-Each wrapper works on whole 32-bucket chunks. ``quantize_chunks`` and
-``sra_epilogue_chunks`` launch on a thread-block cluster a chunk, the
-chunk's values in registers (:func:`cluster_geometry`; past the register
-budget a thread takes several positions, re-read from the L2);
+Each wrapper works on whole 32-bucket chunks. ``quantize_chunks``,
+``quantize_variant_chunks`` and ``sra_epilogue_chunks`` launch on a
+thread-block cluster a chunk, the chunk's values in registers
+(:func:`cluster_geometry`; past the register budget a thread takes several
+positions, re-read from the L2);
 ``quantize_chunks_db`` and ``sra_epilogue_chunks_db`` run the same body on a
 persistent grid of such clusters fed by a bulk-copy ring (:func:`db_ring`);
 ``reduce_rows_chunks`` spreads its grid over the values, 8 buckets of 4
@@ -103,6 +104,7 @@ one; their launches are counted again in :data:`INT8_LAUNCHES`.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -238,22 +240,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA codec kernels are built at first use")
 
 
-def _run_nvcc(procs) -> str:
-    """Wait for each started nvcc; raise on the first failure (after
-    stopping the rest). Returns their diagnostics, concatenated."""
-    out = []
-    try:
-        for proc in procs:
-            stdout, stderr = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{stdout}{stderr}")
-            out.append(stderr)
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return "".join(out)
+def _run_nvcc(procs, seconds: Optional[list] = None) -> str:
+    """Wait for each started nvcc, a thread each; raise on the first failure
+    (after stopping the rest). Returns their diagnostics, concatenated in
+    the order of ``procs``; ``seconds``, if given, gets each one's seconds
+    from this call to its end, in that order."""
+    t0 = time.perf_counter()
+
+    def wait(proc):
+        stdout, stderr = proc.communicate(timeout=600)
+        return proc.returncode, stdout, stderr, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        futures = [pool.submit(wait, proc) for proc in procs]
+        try:
+            for f in concurrent.futures.as_completed(futures):
+                rc, stdout, stderr, _ = f.result()
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{stdout}{stderr}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    done = [f.result() for f in futures]
+    if seconds is not None:
+        seconds.extend(d[3] for d in done)
+    return "".join(d[2] for d in done)
 
 
 def _build(library: Path, parts: int, defines: Tuple[str, ...], log: Dict[str, object],
@@ -261,24 +274,26 @@ def _build(library: Path, parts: int, defines: Tuple[str, ...], log: Dict[str, o
     """Compile ``csrc/codec.cu`` into ``library`` unless an up-to-date build
     exists: one nvcc for each of ``parts`` parts, all started together
     (at niceness ``nice``), then one link. The compiler's output
-    (registers, shared memory, spills) lands in ``log``."""
+    (registers, shared memory, spills) lands in ``log``, with the build's
+    seconds and each part's (``part_seconds``, by part: its nvcc's)."""
     if not force and library.exists() and library.stat().st_mtime >= SOURCE.stat().st_mtime:
         return library
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [os.path.join(work, f"part{k}.o") for k in range(parts)]
+        part_seconds: list = []
         ptxas = _run_nvcc([
             subprocess.Popen([*(("nice", "-n", str(nice)) if nice else ()), _nvcc(), *NVCC_FLAGS,
                               *defines, f"-DCGX_PART={k}", "-c", "-o", obj, str(SOURCE)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for k, obj in enumerate(objs)
-        ])
+        ], part_seconds)
         tmp = os.path.join(work, library.name)
         _run_nvcc([subprocess.Popen([_nvcc(), "-shared", "-o", tmp, *objs],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
         os.replace(tmp, library)
-    log.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
+    log.update(seconds=time.perf_counter() - t0, ptxas=ptxas, part_seconds=part_seconds)
     return library
 
 
@@ -355,7 +370,7 @@ def _lib():
             lib.cgx_dequantize_db.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
             lib.cgx_sra_epilogue_db.argtypes = [
                 vp, vp, vp, i, i, ll, i, i, i, f, i, i, i, i, i, i, u, u, vp, vp, i, vp]
-            lib.cgx_quantize_variant.argtypes = [vp, vp, vp, ll, i, i, i, f, vp]
+            lib.cgx_quantize_variant.argtypes = [vp, vp, vp, ll, i, i, i, f, i, i, vp]
             lib.cgx_div_sweep.argtypes = [i, i, i, i, i, vp, vp, vp]
             lib.cgx_div_pairs.argtypes = [vp, vp, i, vp, vp, vp]
             lib.cgx_error_name.argtypes = [i]
@@ -1253,8 +1268,9 @@ def matmul_quantize_chunks(
 
 # ---------------------------------------------------------------------------
 # Quantize diagnostics (B9): the bodies of tools/qbench.py's variant kernel
-# that change what is stored. Its "mul" and "butterfly" variants are
-# quantize_chunks' lowerings (encode="mul", pack="butterfly").
+# that change what is stored, on B1's cluster body and geometry. Its "mul"
+# and "butterfly" variants are quantize_chunks' lowerings (encode="mul",
+# pack="butterfly").
 # ---------------------------------------------------------------------------
 
 VARIANTS = ("nometa", "metalane", "read")  # the kernel's VARIANT argument, by index
@@ -1288,7 +1304,8 @@ def quantize_variant_chunks_plain(
 
 
 def quantize_variant_chunks(
-    x: torch.Tensor, variant: str, bits: int, bucket_size: int
+    x: torch.Tensor, variant: str, bits: int, bucket_size: int,
+    g: Optional[ClusterGeometry] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B9's diagnostic bodies on a flat buffer of whole chunks: ``x`` f32
     ``(C*32*B,)`` -> words int32 ``(C*bits*B,)`` and meta f32:
@@ -1300,19 +1317,22 @@ def quantize_variant_chunks(
       unit of its 32 buckets, the meta the usual ``(C*32, 2)`` pairs.
 
     The div encode and the sum pack, whatever the knobs say, as the JAX
-    variant kernels."""
+    variant kernels. On the card the kernel runs B1's cluster body at B1's
+    geometry ``g`` (None: :func:`cluster_geometry`'s on the operand's card,
+    as :func:`quantize_chunks` launches B1)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     chunks = _chunk_geometry(x.numel(), bits, bucket_size)
     if _device_kind(x) == "cpu":
         return quantize_variant_chunks_plain(x, variant, bits, bucket_size)
     _require_cuda_operand("quantize_variant x", x, torch.float32, x.numel())
+    g = g or _geometry(x, chunks, bucket_size, bits)
     words = torch.empty(chunks * bits * bucket_size, dtype=torch.int32, device=x.device)
     shape = (chunks, 128) if variant == "metalane" else (chunks * CHUNK_BUCKETS, 2)
     meta = torch.empty(shape, dtype=torch.float32, device=x.device)
     err = _lib().cgx_quantize_variant(
         x.data_ptr(), words.data_ptr(), meta.data_ptr(), chunks, bucket_size, bits,
-        VARIANTS.index(variant), codec.unit_scale(bits), _stream(x),
+        VARIANTS.index(variant), codec.unit_scale(bits), g.k, g.threads, _stream(x),
     )
     LAUNCHES["codec_quantize_variant"] += 1
     _check_launch("codec_quantize_variant", err)

@@ -17,7 +17,12 @@ record fields). The five kernel variants (``butterfly``, ``mul``,
 ``(C*32, 2)`` f32 (``metalane``: ``(C, 128)``) for ``C*32*B`` values.
 ``mul`` and ``butterfly`` are the quantize kernel with one lowering
 swapped; ``nometa``, ``metalane`` and ``read`` are the variant kernel
-(``codec_cuda.quantize_variant_chunks``).
+(``codec_cuda.quantize_variant_chunks``): B1's cluster body at B1's
+geometry with one store changed, so that ``current`` less ``nometa`` is
+B1's meta store and ``nometa`` less ``read`` its encode and pack. At the
+default 128 MB B1 launches on 2,048 chunks (one CTA a chunk); ``--mb 9``
+gives 144 chunks, the ``mlp_in`` launch of a GPT-2 124M step, where a
+chunk takes a cluster of 4 CTAs.
 
 The operands (k sets of ``--mb`` MB of normal floats) are drawn on the card
 from a seeded generator. Before timing, each variant's bytes are checked on
@@ -92,8 +97,9 @@ def run_variant(name: str, x: torch.Tensor, bits: int, bucket: int, tc: int, *,
     on ``device`` (the card unless given; with no card and no device it
     raises) -> ``(words int32 (C*bits*B/128, 128), meta f32 (C*32, 2)``, or
     ``(C, 128)`` for "metalane"``)``. ``tc`` must divide C: the kernel runs
-    one block a chunk, so the tile is checked for shape parity with the
-    JAX tool and recorded, not staged."""
+    B1's cluster geometry (a cluster of CTAs a chunk,
+    ``codec_cuda.cluster_geometry``), not tiles, so the tile is checked for
+    shape parity with the JAX tool and recorded, not staged."""
     dev = resolve_device(device)
     flat = x.reshape(-1).to(dev, torch.float32).contiguous()
     _chunk_count(flat.numel(), bits, bucket, tc)
