@@ -1575,6 +1575,18 @@ class LaunchModel:
 
         from torch_cgx_tpu_torch.parallel import chunk_layout
 
+        sched = self._schedule(m, ws, cc)
+        if sched is not None:
+            # The pipelined SRA: each column block quantized (under producer
+            # fusion by the backward, from dw, with the same B1), folded and
+            # requantized, gathered and decoded.
+            for _, w in sched.table:
+                self.codec("codec_quantize", w, cc, ws)
+                if not self.epilogue(ws, w, cc):
+                    self.reduce(ws, w, cc)
+                    self.codec("codec_quantize", w, cc)
+                self.codec("codec_dequantize", w, cc, ws)
+            return
         c = chunk_layout(m, ws)[0]
         if produced is not None:
             self.counts["codec_matmul_quantize"] += 1
@@ -1585,6 +1597,13 @@ class LaunchModel:
             self.reduce(ws, c, cc)
             self.codec("codec_quantize", c, cc)
         self.codec("codec_dequantize", c, cc, ws)
+
+    def _schedule(self, m: int, ws: int, cc):
+        """``allreduce_flat``'s pipeline plan of a flat SRA slice of ``m``
+        values (None: monolithic)."""
+        from torch_cgx_tpu_torch.parallel import schedule
+
+        return schedule.compiled_schedule(m, ws, cc)
 
     def ring(self, m: int, ws: int, cc) -> None:
         from torch_cgx_tpu_torch.parallel import chunk_layout
@@ -1669,18 +1688,26 @@ class LaunchModel:
             for step in range(ws - 1):
                 each(segs[(me - step) % ws], "codec_dequantize")
             return
-        for j in range(ws):  # stage 1: every peer's chunk
-            if j != me:
-                each(segs[j], "codec_quantize")
-        for s in segs[me]:  # the fold and requantize, then the self-decode
-            cc = CompressionConfig(bits=s.bits, bucket_size=s.bucket_size)
-            if not self.epilogue(ws, s.numel, cc):
-                self.reduce(ws, s.numel, cc)
-                self.codec("codec_quantize", s.numel, cc)
-            self.codec("codec_dequantize", s.numel, cc)
-        for j in range(ws):  # stage 2: every peer's reduced chunk
-            if j != me:
-                each(segs[j], "codec_dequantize")
+        tables = (backend._sched_tables(sizes, fl) if ws > 1 and cfg.schedule_mode() == "on"
+                  else None)
+        if tables is not None:  # the pipelined SRA: the same, sub-chunk by sub-chunk
+            segs = [[backend._segments_in(fl, offs[r] + o, offs[r] + o + w) for o, w in tables[r]]
+                    for r in range(ws)]
+        else:
+            segs = [[sg] for sg in segs]
+        for c in range(len(segs[0])):
+            for j in range(ws):  # stage 1: every peer's chunk
+                if j != me:
+                    each(segs[j][c], "codec_quantize")
+            for s in segs[me][c]:  # the fold and requantize, then the self-decode
+                cc = CompressionConfig(bits=s.bits, bucket_size=s.bucket_size)
+                if not self.epilogue(ws, s.numel, cc):
+                    self.reduce(ws, s.numel, cc)
+                    self.codec("codec_quantize", s.numel, cc)
+                self.codec("codec_dequantize", s.numel, cc)
+            for j in range(ws):  # stage 2: every peer's reduced chunk
+                if j != me:
+                    each(segs[j][c], "codec_dequantize")
 
     def hook_hier(self, fl, total: int, hosts, me: int, topo) -> None:
         """``backend._qreduce_hier``: a non-leader quantizes its whole
@@ -1718,6 +1745,11 @@ class LaunchModel:
         from torch_cgx_tpu_torch.parallel import chunk_layout
 
         if ws == 1 or not cc.enabled or cfg.dummy_compression() or reduction == cfg.REDUCTION_PSUM:
+            return
+        sched = None if mirror or reduction != cfg.REDUCTION_SRA else self._schedule(m, ws, cc)
+        if sched is not None:  # the pipelined SRA decodes each block it sent
+            for _, w in sched.table:
+                self.codec("codec_dequantize", w, cc, ws)
             return
         c = chunk_layout(m, ws)[0]
         if reduction == cfg.REDUCTION_RING:
@@ -3472,13 +3504,20 @@ MR_CONFIGS = {
     "sra_ef": ({}, "world", "f32"),
     "sra_guard_skip": ({"CGX_NONFINITE_GUARD": "skip"}, "world", "f32"),
     "sra_guard_exact": ({"CGX_NONFINITE_GUARD": "exact"}, "world", "f32"),
+    # The pipelined SRA (CGX_SCHEDULE=on, CGX_SCHED_CHUNKS unset: 4 blocks)
+    # on a float32 model fresh from the seed ("f32s"): after MR_STEPS steps
+    # its parameters must equal sra's after its MR_STEPS steps on every
+    # rank; then error feedback and producer fusion under it, one step each.
+    "sra_sched": ({"CGX_SCHEDULE": "on"}, "world", "f32s"),
+    "sra_sched_ef": ({"CGX_SCHEDULE": "on"}, "world", "f32s"),
+    "sra_producer_sched": ({"CGX_PRODUCER_FUSE": "on", "CGX_SCHEDULE": "on"}, "world", "f32s"),
     "two_level_ef": ({}, "two_level", "bf16"),
     "two_level_bf16p": ({}, "two_level", "bf16p"),
     "alltoall_bf16p": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world", "bf16p"),
 }
-MR_MULTISTEP = ("two_level", "sra", "sra_ef", "two_level_ef")  # MR_STEPS steps; the rest one
+MR_MULTISTEP = ("two_level", "sra", "sra_ef", "two_level_ef", "sra_sched")  # MR_STEPS steps; the rest one
 MR_PROFILED = ("sra", "sra_ef", "two_level", "two_level_ef", "sra_producer",
-               "sra_producer_bf16")  # one profiled step on rank 0
+               "sra_producer_bf16", "sra_sched")  # one profiled step on rank 0
 GUARD_RANK, GUARD_STEP = 2, 1
 PRODUCED_LAYERS = 12 * len(MM_SHAPES)  # 36 payloads a rank and step
 PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused group
@@ -3508,9 +3547,9 @@ def producer_check(model, loss_fn, tokens) -> dict:
     operands = {}
     real = fused_producer._stash
 
-    def stash(name, cc, w_shape, w_dtype, x2, g2, dw):
+    def stash(name, cc, w_shape, w_dtype, x2, g2, dw, *rest):
         operands[name] = (x2, g2)
-        return real(name, cc, w_shape, w_dtype, x2, g2, dw)
+        return real(name, cc, w_shape, w_dtype, x2, g2, dw, *rest)
 
     fused_producer.configure(None, divisor=MR_WS, active=True)
     fused_producer.begin_step()
@@ -3578,6 +3617,90 @@ def producer_check(model, loss_fn, tokens) -> dict:
             "identity_misses": fused_producer.COUNTS["producer_fallback_identity"]}
 
 
+def producer_sched_check(model, loss_fn, tokens) -> dict:
+    """One backward of ``model`` with producer fusion engaged over the flat
+    world under ``CGX_SCHEDULE=on``: each staged layer's payload is per
+    column block of the schedule's table (no monolithic payload, no B8
+    launch), its ``dw`` is kept in ``p.grad``, and each block's payload and
+    the raw own row equal the dispatcher's quantize of that block of
+    ``p.grad / MR_WS`` bit for bit."""
+    import torch
+
+    from torch_cgx_tpu_torch.config import default_compression_config
+    from torch_cgx_tpu_torch.ops import codec_cuda, dispatch, fused_producer
+    from torch_cgx_tpu_torch.parallel import schedule
+
+    fused_producer.configure(None, divisor=MR_WS, active=True)
+    fused_producer.begin_step()
+    fused_producer.reset_counts()
+    model.zero_grad(set_to_none=True)
+    mm = codec_cuda.LAUNCHES["codec_matmul_quantize"]
+    loss_fn(model, tokens).backward()
+    mm = codec_cuda.LAUNCHES["codec_matmul_quantize"] - mm
+    counts = dict(fused_producer.COUNTS)
+    cc = default_compression_config()
+    own = fused_producer._CFG["rank"]
+    checked, failed, depths = 0, [], set()
+    for n, p in model.named_parameters():
+        ent = fused_producer.lookup(n, p.grad)
+        if ent is None:
+            continue
+        checked += 1
+        sched = schedule.compiled_schedule(ent.n, MR_WS, cc)
+        xs = (p.grad.reshape(-1).float() / MR_WS).view(MR_WS, -1)
+        depths.add(len(ent.q_blocks or ()))
+        ok = ent.q is None and sched is not None and ent.table == sched.table and _same_bits(ent.raw_row, xs[own])
+        for q, (off, w) in zip(ent.q_blocks or (), ent.table or ()):
+            want = dispatch.quantize_batch(xs[:, off : off + w].contiguous(), cc)
+            ok = ok and _same_bits(q.packed, want.packed) and _same_bits(q.meta, want.meta)
+        if not ok:
+            failed.append(n)
+    fused_producer.deconfigure()
+    model.zero_grad(set_to_none=True)
+    return {"counts": counts, "checked": checked, "failed": failed, "depths": sorted(depths), "b8": mm}
+
+
+def block_copy_ms(named_grads, dev) -> dict:
+    """The pipelined SRA's glue copies of one rank-step of ``named_grads``
+    over MR_WS ranks: the block copies before each quantize
+    (``schedule.block_rows``) and the join of each slice's decoded blocks
+    (``schedule.join_blocks``). For each kind: their count, the sum over
+    them of one timed call's median (CUDA events, 20 calls, the host's
+    launch included: ``ms``) and of a burst's (the copy alone:
+    ``burst_ms``), each timed once a distinct shape, and the bytes they
+    move (read and written once)."""
+    import torch
+
+    from torch_cgx_tpu_torch.parallel import allreduce, schedule
+
+    pl = allreduce.sorted_items(named_grads)
+    shapes, tables = {}, {}
+    for g in allreduce._group_leaves(pl, compress_small=False):
+        if not g.cc.enabled:
+            continue
+        n = sum(pl[i][1].numel() for i in g.indices)
+        for _, ln in allreduce._fusion_slices(n, 4):
+            sched = schedule.compiled_schedule(ln, MR_WS, g.cc)
+            if sched is None:
+                continue
+            tables[sched.table] = tables.get(sched.table, 0) + 1
+            for _, w in sched.table:
+                shapes[(sched.chunk, w)] = shapes.get((sched.chunk, w), 0) + 1
+    out = {"copies": sum(shapes.values()), "ms": 0.0, "burst_ms": 0.0, "bytes": 0,
+           "joins": sum(tables.values()), "join_ms": 0.0, "join_burst_ms": 0.0, "join_bytes": 0}
+    for (chunk, w), count in shapes.items():
+        xs = torch.randn(MR_WS, chunk, device=dev)
+        out["ms"] += count * time_cuda(lambda: schedule.block_rows(xs, 0, w))
+        out["burst_ms"] += count * time_burst(lambda: schedule.block_rows(xs, 0, w))
+        out["bytes"] += count * 2 * MR_WS * w * 4
+    for table, count in tables.items():
+        blocks = [torch.randn(MR_WS, w, device=dev) for _, w in table]
+        out["join_ms"] += count * time_cuda(lambda: schedule.join_blocks(blocks))
+        out["join_burst_ms"] += count * time_burst(lambda: schedule.join_blocks(blocks))
+        out["join_bytes"] += count * 2 * MR_WS * sum(w for _, w in table) * 4
+    return out
+
+
 def _configure(knobs: dict) -> None:
     """Every CGX_* knob unset but the cache directory, then ``knobs``."""
     for k in [k for k in os.environ if k.startswith("CGX_") and k != "CGX_AUTOTUNE_DIR"]:
@@ -3626,6 +3749,11 @@ HOOK_STEPS = 4
 HOOK_CAPTURE_STEP = 3
 HOOK_RERUN_STRIDE = 4
 HOOK_INT8_RERUN = "SRA float32 CGX_SRA_ACCUM=int8"
+# The CGX_SCHEDULE=on reruns, by configuration, and the rerun whose bucket
+# bytes each must equal.
+HOOK_SCHED_RERUNS = {"ddp_hook": "SRA float32 scheduled", "ddp_hook_hier": "cross SRA float32 scheduled"}
+HOOK_SCHED_OF = {"SRA float32 scheduled": "SRA float32", "cross SRA float32 scheduled": "cross SRA float32"}
+HOOK_SCHED_DEPTH = 4  # CGX_SCHED_CHUNKS unset: the sub-chunks of a pipelined SRA
 HOOK_CONFIGS = {
     "ddp_hook": (lambda rank: {"CGX_INNER_REDUCTION_TYPE": "SRA"}, (
         ("SRA float32", {"CGX_INNER_REDUCTION_TYPE": "SRA"}, "float32"),
@@ -3634,6 +3762,11 @@ HOOK_CONFIGS = {
         # The hook folds exactly whatever CGX_SRA_ACCUM says, as the JAX
         # hook's numpy fold: its buckets' bytes are SRA float32's.
         (HOOK_INT8_RERUN, {"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_SRA_ACCUM": "int8"}, "float32"),
+        # The pipelined bucket SRA: its buckets' bytes are SRA float32's
+        # (every sub-chunk boundary of GPT-2's buckets lies on its
+        # segment's bucket grid).
+        (HOOK_SCHED_RERUNS["ddp_hook"], {"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_SCHEDULE": "on"},
+         "float32"),
     )),
     # The cross SRA and cross all-to-all reruns put B3 and B4 inside the
     # leaders' stage, CGX_INTRA_COMPRESS=0 the raw intra frames.
@@ -3642,6 +3775,9 @@ HOOK_CONFIGS = {
         ("cross SRA float32", {"CGX_CROSS_REDUCTION_TYPE": "SRA"}, "float32"),
         ("cross ALLTOALL float32", {"CGX_CROSS_REDUCTION_TYPE": "ALLTOALL"}, "float32"),
         ("CGX_INTRA_COMPRESS=0 float32", {"CGX_INTRA_COMPRESS": "0"}, "float32"),
+        # The leaders' cross SRA pipelined: its bytes are cross SRA's.
+        (HOOK_SCHED_RERUNS["ddp_hook_hier"], {"CGX_CROSS_REDUCTION_TYPE": "SRA", "CGX_SCHEDULE": "on"},
+         "float32"),
     )),
     "ddp_hook_sr": (lambda rank: {"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_STOCHASTIC_ROUNDING": "1"}, (
         ("SRA float32 stochastic", {}, "float32"),
@@ -3672,16 +3808,18 @@ def _rerun_buckets(items: list, name: str, ri: int) -> list:
 
 
 def _seed_state(backend, state=None):
-    """The DDP hook's frame-seed generators and two-level collective counts
-    (``state`` None: returned), or put back as ``state`` holds them, so that
+    """The DDP hook's frame-seed generators and collective counts (``state``
+    None: returned), or put back as ``state`` holds them, so that
     a bucket reduced through the kernels and again through the plain
     versions draws the same frame keys."""
     if state is None:
-        return {k: g.bit_generator.state for k, g in backend._RNGS.items()}, dict(backend._SEQ)
+        return ({k: g.bit_generator.state for k, g in backend._RNGS.items()}, dict(backend._SEQ),
+                dict(backend._QSEQ))
     for k, st in state[0].items():
         backend._RNGS[k].bit_generator.state = st
-    backend._SEQ.clear()
-    backend._SEQ.update(state[1])
+    for counts, saved in ((backend._SEQ, state[1]), (backend._QSEQ, state[2])):
+        counts.clear()
+        counts.update(saved)
 
 
 def expected_hook_launches(calls, ws: int, me: int, dev, hosts=None) -> dict:
@@ -3794,12 +3932,25 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             [(key, buf.numel()) for key, buf in mine], MR_WS, rank, dev, hosts)
         t1 = time.perf_counter()
         same, rr_launches, rr_int8, card_digests = 0, {k: 0 for k in codec_cuda.LAUNCHES}, 0, []
+        pipelined, card_s = [], []
+        real_tables = backend._sched_tables
+
+        def tables(*a):  # the depth of every SRA that pipelines
+            t = real_tables(*a)
+            if t is not None:
+                pipelined.append(len(t[0]))
+            return t
+
+        backend._sched_tables = tables
         for key, buf in mine:
             x = buf.to(getattr(torch, dtype))
             seeds = _seed_state(backend)
             codec_cuda.reset_launch_counts()
+            sync(dev)
+            t_card = time.perf_counter()
             card = inner(x.clone(), bucket_key=key)
             sync(dev)
+            card_s.append(time.perf_counter() - t_card)
             for k, v in codec_cuda.LAUNCHES.items():
                 rr_launches[k] += v
             rr_int8 += sum(codec_cuda.INT8_LAUNCHES.values())
@@ -3807,7 +3958,9 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             _seed_state(backend, seeds)
             plain = _plain_cpu(inner, x.cpu().clone(), bucket_key=key)  # the reduce writes its input
             same += _same_bits(card.cpu(), plain)
+        backend._sched_tables = real_tables
         reruns[label] = {"same": same, "buckets": len(mine), "launches": rr_launches,
+                         "pipelined": pipelined, "card_s": card_s,
                          "values": sum(b.numel() for _, b in mine), "int8": rr_int8,
                          "digests": card_digests,
                          "expected": rr_expected, "seconds": time.perf_counter() - t1}
@@ -3949,7 +4102,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         from torch_cgx_tpu_torch.models import GPT2, Dense, GPT2Config, lm_loss
         from torch_cgx_tpu_torch.ops import codec_cuda, fused_producer
         from torch_cgx_tpu_torch.parallel import (
-            allreduce_flat, gradient_sync, hierarchical_groups, make_train_step,
+            allreduce_flat, gradient_sync, hierarchical_groups, make_train_step, schedule,
         )
         from torch_cgx_tpu_torch.tools import shapebench
         from torch_cgx_tpu_torch.tools.hookprof import rank_tokens
@@ -3993,9 +4146,11 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         for name, (knobs, kind, model_kind) in MR_CONFIGS.items():
             _configure(knobs)
             if model_kind not in models:
-                if model_kind == "bf16p":
-                    models.pop("f32", None)  # the float32 configurations are done
+                if model_kind in ("bf16p", "f32s"):
+                    models.pop("f32", None)  # the float32 configurations before are done
+                    models.pop("f32s", None)
                     torch.cuda.empty_cache()
+                if model_kind == "bf16p":
                     m32 = GPT2(cfg, device=dev,
                                generator=torch.Generator().manual_seed(SEED)).to(torch.bfloat16)
                 else:
@@ -4042,7 +4197,9 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                 res["slice_same"] = _same_bits(gpu.cpu(), cpu)
                 res["slice_n"] = check.numel()
                 res["slice_dtype"] = str(check.dtype)
-            if name.startswith("sra_producer") and rank == 0:
+            if name == "sra_producer_sched" and rank == 0:
+                res["check"] = producer_sched_check(mdl, loss_fn, tokens)
+            elif name.startswith("sra_producer") and rank == 0:
                 res["check"] = producer_check(mdl, loss_fn, tokens)
             if "CGX_NONFINITE_GUARD" in knobs:
                 res.update(guard_run(rank, mdl, optim, tokens, dev))
@@ -4053,6 +4210,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                 sync(dev)
                 codec_cuda.reset_launch_counts()
                 fused_producer.reset_counts()
+                schedule.reset_counts()
                 res["step_times"] = []
                 res["losses"] = []
                 for _ in range(steps):
@@ -4062,12 +4220,20 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                     res["step_times"].append(time.perf_counter() - t0)
                 res["step_s"] = sum(res["step_times"]) / steps
                 res["steps"] = steps
+                if name in ("sra", "sra_sched"):  # the parameters after the same steps from the seed
+                    res["step_digests"] = _digests(mdl)
             res["launches"] = dict(codec_cuda.LAUNCHES)
             res["wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
             res["int8"] = dict(codec_cuda.INT8_LAUNCHES)
             res["reduce_scalar"] = codec_cuda.REDUCE_SCALAR["launches"]
             res["mm_tc"] = codec_cuda.MM_TC_LAUNCHES["launches"]
             res["producer"] = dict(fused_producer.COUNTS)
+            res["sched"] = dict(schedule.COUNTS)
+            if name == "sra_sched":  # rank 0 times the copies alone: the others wait at a barrier
+                dist.barrier()
+                if rank == 0:
+                    res["copies"] = block_copy_ms(grads, dev)
+                dist.barrier()
             if ef:
                 e = step.ef_state.e
                 res["ef"] = {"n": len(e), "nonzero": sum(int((v != 0).sum()) for v in e.values()),
@@ -4210,6 +4376,7 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
         assert res[0]["sra_db"]["launches"][k] > 0, res[0]["sra_db"]["launches"]
 
     producer_checks(res)
+    sched_checks(res, smi)
     for name in HOOK_CONFIGS:
         hook_check(res, name, smi)
     launches = dict(res[0]["two_level"]["launches"])
@@ -4298,6 +4465,81 @@ def producer_checks(res) -> None:
             f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(p.get('codec_by_kernel', {}).items()))}), device "
             f"busy {p.get('busy_ms', 0.0):.2f} ms of {p.get('wall_ms', 0.0):.1f} ms; largest device entries: "
             + "; ".join(f"{k[:50]} {v:.3f}" for k, v in p.get("top", [])[:5]))
+
+
+def sched_checks(res, smi: str) -> None:
+    """Phase 7's checks of the pipelined SRA (CGX_SCHEDULE=on), each
+    failing the phase: ``sra_sched``'s parameters and losses after its
+    MR_STEPS steps from the seed equal ``sra``'s on every rank, every
+    compressed slice pipelined in four blocks; ``sra_sched_ef``'s round
+    trip adds one B2 a block (of a whole chunk or more), its 64 MB slice
+    (card against plain CPU) and
+    residuals as ``sra_ef``'s checks hold them; ``sra_producer_sched``
+    consumed the per-block payloads of every produced layer, kept its
+    ``dw`` and launched no B8, its launches those of ``sra_sched``. Logs the
+    launches, the block copies and rank 0's profiles beside ``sra``'s."""
+    base, sched = res[0]["sra"], res[0]["sra_sched"]
+    slices = sched["slices"]
+    for r, o in enumerate(res):
+        c = o["sra_sched"]
+        diff = [k for k in c["step_digests"] if c["step_digests"][k] != o["sra"]["step_digests"][k]]
+        assert not diff, ("sra_sched against sra", r, diff[:5])
+        assert c["losses"] == o["sra"]["losses"], (r, c["losses"], o["sra"]["losses"])
+        assert c["sched"]["pipelined_slices"] == slices * c["steps"], (r, c["sched"])
+        assert c["sched"]["blocks"] == 4 * c["sched"]["pipelined_slices"], (r, c["sched"])
+        assert c["sched"]["block_copies"] == c["sched"]["blocks"], (r, c["sched"])
+        assert c["sched"]["join_copies"] == c["sched"]["pipelined_slices"], (r, c["sched"])
+        assert o["sra"]["sched"]["pipelined_slices"] == 0, (r, o["sra"]["sched"])
+    ef = res[0]["sra_sched_ef"]
+    rt_b2 = ef["expected"]["codec_dequantize"] - sched["expected"]["codec_dequantize"]
+    assert ef["expected"] == dict(sched["expected"], codec_dequantize=ef["expected"]["codec_dequantize"])
+    assert 0 < rt_b2 <= 4 * slices, (rt_b2, slices)  # one B2 a block that holds a whole chunk
+    for r, o in enumerate(res):
+        c = o["sra_sched_ef"]
+        rb, e = c["residual"], c["ef"]
+        assert c["slice_same"] and rb["within"] and rb["own_zero"] and rb["nonzero"] > 0, (r, rb)
+        assert e["nonzero"] > 0 and e["finite"] and e["f32"], (r, e)
+        assert c["sched"]["pipelined_slices"] == slices, (r, c["sched"])
+        assert c["sched"]["join_copies"] == 2 * slices, (r, c["sched"])  # the round trip's too
+    prod = res[0]["sra_producer_sched"]
+    assert prod["expected"] == sched["expected"], (prod["expected"], sched["expected"])
+    for r, o in enumerate(res):
+        c = o["sra_producer_sched"]
+        pc = c["producer"]
+        assert pc["producer_consumed_slices"] == pc["producer_staged"] == PRODUCED_LAYERS, (r, pc)
+        assert pc["producer_dw_skipped"] == pc["producer_kernel_slices"] == 0, (r, pc)
+        assert pc["producer_fallbacks"] == pc["producer_fallback_fused_group"] == PROJ_LAYERS, (r, pc)
+        assert c["launches"]["codec_matmul_quantize"] == c["launches"]["codec_tf32_split"] == 0, (r, c)
+    chk = prod["check"]
+    assert chk["checked"] == PRODUCED_LAYERS and not chk["failed"] and chk["depths"] == [4], chk
+    assert chk["b8"] == 0 and chk["counts"]["producer_dw_skipped"] == 0, chk
+    exp, mono = sched["expected"], base["expected"]
+    log(f"  sra_sched: launches a rank-step {({k: v for k, v in exp.items() if v})} against sra's "
+        f"{({k: v for k, v in mono.items() if v})}; {slices} slices pipelined in 4 blocks; parameters and "
+        f"losses after {sched['steps']} steps equal sra's on every rank")
+    cp = sched["copies"]
+    assert cp["copies"] * sched["steps"] == sched["sched"]["block_copies"], (cp, sched["sched"])
+    assert cp["joins"] * sched["steps"] == sched["sched"]["join_copies"], (cp, sched["sched"])
+    log(f"    block copies a rank-step: {cp['copies']}, summed per-call medians {cp['ms']:.3f} ms (host launch "
+        f"included), bursts {cp['burst_ms']:.3f} ms ({cp['bytes'] / 2**20:.1f} MiB read and written, "
+        f"{cp['bytes'] / cp['burst_ms'] / 1e6:.0f} GB/s in bursts) [{smi}]")
+    log(f"    joins of the decoded blocks a rank-step: {cp['joins']}, summed per-call medians {cp['join_ms']:.3f} ms "
+        f"(host launch included), bursts {cp['join_burst_ms']:.3f} ms ({cp['join_bytes'] / 2**20:.1f} MiB read "
+        f"and written, {cp['join_bytes'] / cp['join_burst_ms'] / 1e6:.0f} GB/s in bursts); glue copies in all "
+        f"{cp['burst_ms'] + cp['join_burst_ms']:.3f} ms in bursts [{smi}]")
+    for name in ("sra", "sra_sched"):
+        p = res[0][name].get("profile", {})
+        log(f"    {name}, rank 0's profiled step: codec kernels {p.get('codec_ms', 0.0):.3f} ms "
+            f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(p.get('codec_by_kernel', {}).items()))}), "
+            f"device busy {p.get('busy_ms', 0.0):.2f} ms of {p.get('wall_ms', 0.0):.1f} ms; host-clock "
+            f"step {res[0][name]['step_s']:.3f} s (each {[round(t, 3) for t in res[0][name]['step_times']]}) "
+            f"[{smi}]; largest device entries: " + "; ".join(f"{k[:50]} {v:.3f}" for k, v in p.get("top", [])[:6]))
+    log(f"  sra_sched_ef: the round trip adds {rt_b2} B2 launches a rank-step (one a block; {4 * slices} blocks); host-clock "
+        f"step {ef['step_s']:.3f} s; 64 MB slice card vs plain CPU bit-identical on every rank")
+    log(f"  sra_producer_sched: {chk['checked']} layers staged per-block payloads (4 blocks, B1 from the "
+        f"kept dw, no B8), each bit-identical to the quantize of its block of p.grad / {MR_WS}; consumed "
+        f"{[o['sra_producer_sched']['producer']['producer_consumed_slices'] for o in res]} by rank; host-clock "
+        f"step {prod['step_s']:.3f} s")
 
 
 def ef_guard_check(res) -> None:
@@ -4398,6 +4640,20 @@ def hook_check(res, name: str, smi: str) -> None:
             if label == HOOK_INT8_RERUN:  # its buckets' bytes are the exact fold's
                 first = next(iter(h["reruns"].values()))
                 assert rr["digests"] == _rerun_buckets(first["digests"], name, ri), (name, r, label)
+            # The pipelined SRA ran (on a leader only, under the two-level
+            # scheme: the leaders' cross stage) and its buckets' bytes are
+            # the monolithic SRA's.
+            assert bool(rr["pipelined"]) == (label in HOOK_SCHED_OF and (not hier or r % MR_INTRA == 0)), (
+                name, r, label, rr["pipelined"])
+            # Where it ran, every bucket pipelined, in the card's reduce and
+            # the plain one, each at the default depth.
+            assert not rr["pipelined"] or rr["pipelined"] == [HOOK_SCHED_DEPTH] * (2 * rr["buckets"]), (
+                name, r, label, rr["pipelined"])
+            if label in HOOK_SCHED_OF:
+                mono_ri = list(h["reruns"]).index(HOOK_SCHED_OF[label])
+                mono = h["reruns"][HOOK_SCHED_OF[label]]["digests"]
+                want = _rerun_buckets(mono, name, ri) if _all_buckets(name, mono_ri) else mono
+                assert rr["digests"] == want, (name, r, label)
     # The path's kernels each ran in the counted steps: the quantizes and
     # requantizes (B1), the decodes (B2), and in the flat SRA the fused
     # epilogue (B3) on the segments of whole chunks. Under the two-level
@@ -4422,6 +4678,16 @@ def hook_check(res, name: str, smi: str) -> None:
     log(f"    replicas: all {len(h0['digests'][0])} parameters bit-identical on the {MR_WS} ranks "
         f"after each of the {HOOK_STEPS} steps")
     for label, rr in h0["reruns"].items():
+        if label in HOOK_SCHED_OF:
+            mono = h0["reruns"][HOOK_SCHED_OF[label]]
+            same = _rerun_buckets(mono["card_s"], name, list(h0["reruns"]).index(label)) if (
+                len(mono["card_s"]) > len(rr["card_s"])) else mono["card_s"]
+            log(f"    under {label} (CGX_SCHEDULE=on) the hook's buckets equal {HOOK_SCHED_OF[label]}'s on every "
+                f"rank; pipelined SRAs on rank 0 {len(rr['pipelined'])} (sub-chunks {sorted(set(rr['pipelined']))}); "
+                f"the card's reduce of its {rr['buckets']} buckets on rank 0 {1e3 * sum(rr['card_s']):.1f} ms "
+                f"(each {[round(1e3 * t, 1) for t in rr['card_s']]}) against {HOOK_SCHED_OF[label]}'s "
+                f"{1e3 * sum(same):.1f} ms on the same buckets (each {[round(1e3 * t, 1) for t in same]}; host "
+                f"clock, gloo) [{smi}]")
         if label == HOOK_INT8_RERUN:
             log(f"    under {label} the hook's buckets equal its exact ones on every rank (no int8 "
                 f"instance ran: the hook folds exactly)")

@@ -14,9 +14,9 @@ DDP level: the same model, seeds, data and SGD steps under
 module's first DDP test asks for them. The final parameters are compared
 bit for bit:
 
-* world size 2, 8 steps, under SRA, Ring and all-to-all; under the dummy
-  codec; with per-layer bits and buckets changed after registration; with
-  f16 and bf16 buckets;
+* world size 2, 8 steps, under SRA, Ring and all-to-all; under the SRA
+  pipelined by ``CGX_SCHEDULE=on``; under the dummy codec; with per-layer
+  bits and buckets changed after registration; with f16 and bf16 buckets;
 * world size 4, 8 steps, a bias-free model whose layers are all compressed;
 * world size 4, one step with raw (bias) layers: every port rank equals
   JAX ranks 0 and 1, and the port's replicas equal each other (the JAX
@@ -25,7 +25,8 @@ bit for bit:
 
 Also in the port's ranks: registration at step 2 and its compressed/raw
 split, the stale-registry and ambiguous-bucket errors, each refused knob
-(``NotImplementedError`` naming it), the two-level path of a group on two
+(``NotImplementedError`` naming it), ``CGX_SCHEDULE=on`` running through
+and equal to the monolithic SRA on one layer, the two-level path of a group on two
 faked hosts, and ``chip_smoke.LaunchModel.hook`` against the codec
 wrappers' calls counted on the CPU. The hook runs every bucket on the
 group's worker thread (``backend.allreduce_async``); the two-level scheme
@@ -303,6 +304,7 @@ def _registration(cfg):
 # Scenarios run in both packages' ranks: name -> (env, train kwargs).
 COMMON = {
     "sra": ({"CGX_INNER_REDUCTION_TYPE": "SRA"}, {}),
+    "sra_sched": ({"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_SCHEDULE": "on"}, {}),
     "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, {}),
     "alltoall": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, {}),
     "dummy": ({"CGX_DEBUG_DUMMY_COMPRESSION": "1"}, {}),
@@ -316,9 +318,10 @@ COMMON = {
     "raw1": ({}, {"steps": 1, "register_first": True}),
 }
 WORLDS = {
-    ("port", 2): ["sra", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16", "registration", "errors",
-                  "refusals"],
-    ("jax", 2): ["sra", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16", "registration"],
+    ("port", 2): ["sra", "sra_sched", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16",
+                  "registration", "errors", "refusals"],
+    ("jax", 2): ["sra", "sra_sched", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16",
+                 "registration"],
     ("port", 4): ["nobias", "raw1", "launches", "hierarchy"],
     ("jax", 4): ["nobias", "raw1"],
 }
@@ -334,9 +337,25 @@ def _common(name, tb, cfg, rank):
         def before(step, state):  # noqa: F811
             state.step = 2
 
-    params, _ = _train(tb, rank, kw.get("steps", STEPS), bias=kw.get("bias", True),
-                       dtype=kw.get("dtype", torch.float32), before=before)
-    return {"params": params, "bits": _layer_bits(cfg)}
+    depths = []
+    patched = tb.__name__.startswith("torch_cgx_tpu_torch") and "CGX_SCHEDULE" in env
+    if patched:  # record the depth of every SRA that pipelined
+        real = pb._sched_tables
+
+        def tables(*a):
+            t = real(*a)
+            if t is not None:
+                depths.append(len(t[0]))
+            return t
+
+        pb._sched_tables = tables
+    try:
+        params, _ = _train(tb, rank, kw.get("steps", STEPS), bias=kw.get("bias", True),
+                           dtype=kw.get("dtype", torch.float32), before=before)
+    finally:
+        if patched:
+            pb._sched_tables = real
+    return {"params": params, "bits": _layer_bits(cfg), "depths": depths}
 
 
 def _registration_scenario(tb, cfg, rank):
@@ -375,7 +394,7 @@ def _errors_scenario(rank, ws):
 
 
 REFUSED = [
-    ({"CGX_SCHEDULE": "on"}, NotImplementedError, "CGX_SCHEDULE"),
+    ({"CGX_SCHEDULE": "on"}, None, "CGX_SCHEDULE"),  # runs: the pipelined SRA
     ({"CGX_PLANNER": "on"}, NotImplementedError, "CGX_PLANNER"),
     ({"CGX_SCHEDULE": "bogus"}, ValueError, "CGX_SCHEDULE"),
 ]
@@ -383,9 +402,16 @@ REFUSED = [
 
 def _refusals_scenario(rank, ws):
     out = []
+    x = np.random.default_rng(rank).standard_normal(4096).astype(np.float32)
+    os.environ["CGX_COMPRESSION_QUANTIZATION_BITS"] = "4"
+    unset = pb.allreduce(torch.from_numpy(x.copy())).numpy()
     for env, exc, _ in REFUSED:
-        os.environ.update({"CGX_COMPRESSION_QUANTIZATION_BITS": "4", **env})
-        out.append(_raises(lambda: pb.allreduce(torch.ones(4096)), exc))
+        os.environ.update(env)
+        if exc is None:  # runs and equals the monolithic SRA of one layer bit for bit
+            got = pb.allreduce(torch.from_numpy(x.copy())).numpy()
+            out.append(bool(np.array_equal(got.view(np.int32), unset.view(np.int32))))
+        else:
+            out.append(_raises(lambda: pb.allreduce(torch.ones(4096)), exc))
         for k in env:
             del os.environ[k]
     # The Ring has no pipelined variant: CGX_SCHEDULE=on runs it unchanged.
@@ -427,7 +453,7 @@ def _hierarchy_scenario(rank, ws):
 def _launches_scenario(rank, ws):
     """The codec wrappers' calls on the CPU (each one launch on the card)
     against ``chip_smoke.LaunchModel.hook``, for two buckets under each
-    reduction: whole layers of whole 32-bucket chunks a rank (the fused
+    reduction and the pipelined SRA: whole layers of whole 32-bucket chunks a rank (the fused
     epilogue and reduce), and a bucket of tails, short layers, a raw layer
     and a bucket that is not a multiple of 128."""
     sys.path.insert(0, _REPO)
@@ -456,8 +482,10 @@ def _launches_scenario(rank, ws):
             cfg.register_layer(key, i, n, bits, b)
     rng = np.random.default_rng(rank)
     out = {}
-    for algo in ("SRA", "RING", "ALLTOALL"):
-        os.environ["CGX_INNER_REDUCTION_TYPE"] = algo
+    for algo in ("SRA", "RING", "ALLTOALL", "SRA CGX_SCHEDULE=on"):
+        os.environ["CGX_INNER_REDUCTION_TYPE"] = algo.split()[0]
+        if algo.endswith("=on"):
+            os.environ["CGX_SCHEDULE"] = "on"
         for key, layers in buckets.items():
             n = sum(x[0] for x in layers)
             model = chip_smoke.LaunchModel(torch.device("cpu"))
@@ -566,13 +594,23 @@ def _assert_params_equal(a, b, what):
         np.testing.assert_array_equal(x, y, err_msg=f"{what}: parameter {i}")
 
 
-@pytest.mark.parametrize("name", ["sra", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16"])
+@pytest.mark.parametrize("name", ["sra", "sra_sched", "ring", "alltoall", "dummy", "per_layer", "f16",
+                                  "bf16"])
 def test_ddp_ws2_bit_identical_to_jax(worlds, name):
     port, jax_ = worlds[("port", 2)], worlds[("jax", 2)]
     for r in range(2):
         _assert_params_equal(port[r][name]["params"], jax_[r][name]["params"], f"{name} rank {r}")
         assert port[r][name]["bits"] == jax_[r][name]["bits"]
     _assert_params_equal(port[0][name]["params"], port[1][name]["params"], f"{name} replicas")
+
+
+def test_ddp_scheduled_sra_ran_pipelined(worlds):
+    """Under CGX_SCHEDULE=on every compressed bucket of the registered
+    steps took the pipelined SRA (two sub-chunks a rank: 1,344 values
+    against the 512-value alignment), on both ranks."""
+    for o in worlds[("port", 2)]:
+        depths = o["sra_sched"]["depths"]
+        assert depths and set(depths) == {2}, depths
 
 
 def test_ddp_per_layer_setters_applied(worlds):
@@ -621,8 +659,11 @@ def test_stale_and_ambiguous_registry_errors(worlds):
 def test_unported_knobs_refused(worlds):
     for o in worlds[("port", 2)]:
         got = o["refusals"]
-        for (env, _, knob), msg in zip(REFUSED, got["refused"]):
-            assert msg is not None and knob in msg, (env, msg)
+        for (env, exc, knob), msg in zip(REFUSED, got["refused"]):
+            if exc is None:
+                assert msg is True, (env, msg)
+            else:
+                assert msg is not None and knob in msg, (env, msg)
         assert got["ring"] == [1.0, 1.0]
         assert got["stochastic"] == [3.0, 3.0]
 

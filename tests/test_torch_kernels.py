@@ -2300,3 +2300,214 @@ def test_roundtrip_reducers_match_plain(wire_world, name, dtype, stochastic):
         same, same_rt, launches, moved = o[(name, dtype, stochastic)]
         assert same and same_rt, (r, same, same_rt)
         assert launches > 0 and moved, (r, launches)
+
+
+# ---------------------------------------------------------------------------
+# The pipelined SRA (CGX_SCHEDULE=on, parallel/schedule.py): each column
+# block's quantize (B1), epilogue (B3) and decode (B2) on the card against
+# the plain versions, in one process (a one-rank world, the schedule built
+# by hand: compiled_schedule plans none at ws 1) and on two gloo ranks
+# sharing the card.
+# ---------------------------------------------------------------------------
+
+
+def test_column_block_quantize_equals_contiguous(dev):
+    """A column block of the (ws, chunk) rows, copied (``block_rows``) or
+    handed over strided, quantizes to the same bytes as the same values
+    made contiguous from scratch, and as the plain version."""
+    from torch_cgx_tpu_torch.parallel import schedule
+
+    ws, chunk, bucket = 4, 27 * 32 * 512, 512
+    xs = torch.randn(ws, chunk, device=dev)
+    for off, w in schedule.chunk_table(chunk, 4, bucket):
+        fresh = torch.tensor(xs[:, off : off + w].cpu().numpy(), device=dev)
+        want = codec_cuda.quantize_batch(fresh, 4, bucket)
+        for got in (codec_cuda.quantize_batch(schedule.block_rows(xs, off, w), 4, bucket),
+                    codec_cuda.quantize_batch(xs[:, off : off + w], 4, bucket)):
+            assert _bits_equal(got.packed, want.packed) and _bits_equal(got.meta, want.meta), (off, w)
+        plain = dispatch.quantize_batch(fresh.cpu(), CompressionConfig(bits=4, bucket_size=bucket))
+        assert _bits_equal(want.packed, plain.packed) and _bits_equal(want.meta, plain.meta), (off, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bucket,chunks,n", [(512, 4, 16 * 32 * 512), (128, 7, 8 * 32 * 512 - 37)],
+                         ids=["whole_chunks", "tails"])
+def test_pipelined_sra_ws1_matches_plain(dev, monkeypatch, bucket, chunks, n, dtype):
+    """The pipeline at world size 1 (the own row alone, raw): output and
+    round trip on the card bit-identical to the plain versions on the CPU
+    and to the monolithic SRA on the card. Blocks of whole chunks launch
+    one B1, B3 and B2 each and one more B2 for the round trip; blocks with
+    tails fold staged (B2, then B1). Under ``CGX_DEBUG_FORCE_CODEC`` the
+    sync of one rank runs its proxy, never the pipeline, under ``on``."""
+    from torch_cgx_tpu_torch.parallel import reducers, schedule
+
+    monkeypatch.setenv("CGX_SRA_EPILOGUE", "fused")
+    cc = CompressionConfig(bits=4, bucket_size=bucket)
+    chunk = reducers.chunk_layout(n, 1)[0]
+    sched = schedule.CompiledSchedule(table=schedule.chunk_table(chunk, chunks, bucket), n=n, ws=1,
+                                      chunk=chunk, cc=cc)
+    assert sched.depth == chunks
+    x = torch.randn(n, generator=torch.Generator().manual_seed(3)).to(dtype)
+    codec_cuda.reset_launch_counts()
+    card, card_rt = schedule.pipelined_quantized_allreduce(x.to(dev), None, 1, cc, "SRA", None, sched,
+                                                           with_wire=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in codec_cuda.LAUNCHES.items() if v}
+    plain, plain_rt = schedule.pipelined_quantized_allreduce(x, None, 1, cc, "SRA", None, sched,
+                                                             with_wire=True)
+    assert _bits_equal(card, plain) and _bits_equal(card_rt, plain_rt)
+    assert _bits_equal(card, reducers.sra_allreduce(x.to(dev), None, 1, cc))
+    if n % (32 * bucket) == 0:
+        assert launches == {"codec_quantize": chunks, "codec_sra_epilogue": chunks,
+                            "codec_dequantize": 2 * chunks}, launches
+    else:
+        assert launches == {"codec_quantize": 2 * chunks, "codec_dequantize": 3 * chunks}, launches
+    monkeypatch.setenv("CGX_SCHEDULE", "on")
+    monkeypatch.setenv("CGX_DEBUG_FORCE_CODEC", "1")
+    schedule.reset_counts()
+    got = gradient_sync({"w.kernel": x.to(dev).view(-1, 1)}, average=False)["w.kernel"]
+    assert schedule.COUNTS["pipelined_slices"] == 0
+    want = gradient_sync({"w.kernel": x.view(-1, 1)}, average=False)["w.kernel"]
+    assert _bits_equal(got, want)
+
+
+SCHED_WS = 2
+
+
+def _sched_rank(rank, store, result_q):
+    import hashlib
+    import os
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from torch_cgx_tpu_torch import config as tcfg
+    from torch_cgx_tpu_torch.parallel import allreduce_flat, schedule
+    from torch_cgx_tpu_torch.torch_backend import backend
+    from torch_cgx_tpu_torch.utils import prng
+
+    for k in [k for k in os.environ if k.startswith("CGX_")]:
+        del os.environ[k]
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=SCHED_WS, timeout=timedelta(seconds=120))
+        dev = torch.device("cuda", 0)
+        n = SCHED_WS * (27 * 32 + 5) * 512 - 77  # blocks of chunks and tails, a partial bucket
+        x32 = torch.from_numpy(np.random.default_rng(rank).standard_normal(n).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            for stochastic in (False, True):
+                os.environ.update({"CGX_SRA_EPILOGUE": "fused", "CGX_SCHEDULE": "on"})
+                if stochastic:
+                    os.environ["CGX_STOCHASTIC_ROUNDING"] = "1"
+                cc = CompressionConfig(bits=4, bucket_size=512, stochastic=stochastic)
+                key = prng.key(5) if stochastic else None
+                x = x32.to(dtype)
+                codec_cuda.reset_launch_counts()
+                schedule.reset_counts()
+                card, card_rt = allreduce_flat(x.to(dev), cc, key=key, return_roundtrip=True)
+                torch.cuda.synchronize()
+                launches = dict(codec_cuda.LAUNCHES)
+                blocks = schedule.COUNTS["blocks"]
+                plain, plain_rt = allreduce_flat(x, cc, key=key, return_roundtrip=True)
+                os.environ["CGX_SCHEDULE"] = "off"
+                mono = allreduce_flat(x.to(dev), cc, key=key)
+                out[(str(dtype), stochastic)] = (
+                    _bits_equal(card, plain), _bits_equal(card_rt, plain_rt), launches, blocks,
+                    _bits_equal(card, mono),
+                )
+                for k in ("CGX_SRA_EPILOGUE", "CGX_STOCHASTIC_ROUNDING", "CGX_SCHEDULE"):
+                    os.environ.pop(k, None)
+        # The DDP hook's pipelined bucket SRA: a bucket of three layers, on
+        # the card against the plain versions, under both schedules.
+        os.environ.update({"CGX_SRA_EPILOGUE": "fused", "CGX_COMPRESSION_QUANTIZATION_BITS": "4"})
+        sizes = [33 * 32 * 512 + 100, 7 * 512, 40 * 32 * 512]
+        for i, size in enumerate(sizes):
+            tcfg.register_layer(("b", 0), i, size, 4, 512)
+        bucket = torch.from_numpy(np.random.default_rng(10 + rank).standard_normal(sum(sizes))
+                                  .astype(np.float32))
+        for mode in ("off", "on"):
+            os.environ["CGX_SCHEDULE"] = mode
+            codec_cuda.reset_launch_counts()
+            card = backend.allreduce(bucket.to(dev), bucket_key=("b", 0))
+            torch.cuda.synchronize()
+            launches = dict(codec_cuda.LAUNCHES)
+            plain = backend.allreduce(bucket.clone(), bucket_key=("b", 0))
+            digest = hashlib.sha256(card.cpu().numpy().tobytes()).hexdigest()
+            out[("hook", mode)] = (_bits_equal(card, plain), launches, digest)
+        backend.release(None)
+        dist.barrier()
+    except Exception:  # reported to the parent, which fails the test
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    result_q.put((rank, out))
+
+
+@pytest.fixture(scope="module")
+def sched_world(tmp_path_factory):
+    import multiprocessing as mp
+    import queue
+    import time
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    codec_cuda._lib()  # built once here, before the ranks load it
+    ctx = mp.get_context("spawn")
+    result_q = ctx.Queue()
+    store = str(tmp_path_factory.mktemp("sched_world") / "store")
+    procs = [ctx.Process(target=_sched_rank, args=(r, store, result_q)) for r in range(SCHED_WS)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + 300
+    try:
+        while len(results) < SCHED_WS and time.monotonic() < deadline:
+            try:
+                r, out = result_q.get(timeout=2.0)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            results[r] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    assert len(results) == SCHED_WS, f"only ranks {sorted(results)} reported"
+    errors = {r: o["error"] for r, o in results.items() if "error" in o}
+    assert not errors, "\n".join(f"rank {r}:\n{e}" for r, e in errors.items())
+    return [results[r] for r in range(SCHED_WS)]
+
+
+@pytest.mark.parametrize("stochastic", [False, True], ids=["nearest", "stochastic"])
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+def test_pipelined_sra_ws2_matches_plain(sched_world, dtype, stochastic):
+    """Two gloo ranks on the card (the asynchronous all-to-all and
+    all-gather through host memory): ``(reduced, rt)`` of the pipelined SRA
+    bit for bit against the plain versions (blocks of 217 buckets a row, six
+    chunks and a tail of 25 each, so their epilogues are staged: B2, then
+    B1), and equal to the monolithic SRA when it rounds to nearest."""
+    for r, o in enumerate(sched_world):
+        same, same_rt, launches, blocks, mono = o[(dtype, stochastic)]
+        assert same and same_rt, (r, same, same_rt)
+        assert blocks == 4, blocks
+        assert launches["codec_quantize"] > 0 and launches["codec_dequantize"] > 0, launches
+        assert mono or stochastic, r
+
+
+def test_pipelined_hook_matches_plain(sched_world):
+    """The DDP hook's bucket SRA under ``CGX_SCHEDULE=on`` on the card,
+    bit for bit against the plain versions, and the same replicas on both
+    ranks under both schedules (digests: the result queue carries no
+    tensor, whose shared storage dies with its rank)."""
+    for r, o in enumerate(sched_world):
+        for mode in ("off", "on"):
+            same, launches, _ = o[("hook", mode)]
+            assert same and launches["codec_quantize"] > 0, (r, mode, launches)
+    for mode in ("off", "on"):
+        assert sched_world[0][("hook", mode)][2] == sched_world[1][("hook", mode)][2], mode

@@ -255,17 +255,19 @@ def test_invalid_nonfinite_guard_is_a_value_error_as_in_jax(_env, guard):
 
 
 # ---------------------------------------------------------------------------
-# CGX_SCHEDULE and CGX_PLANNER on the train-step path (C21): "on" selects the
-# JAX package's pipelined SRA (or its re-planned bits), which the port does
-# not have; a flat group's SRA refuses it before any collective, as the DDP
-# hook does, and "auto" and "off" run the monolithic SRA unchanged.
+# CGX_SCHEDULE and CGX_PLANNER on the train-step path (C21): CGX_SCHEDULE=on
+# runs the pipelined SRA (parallel/schedule.py), which goes on to the wire as
+# the unset run does; CGX_PLANNER=on selects the JAX package's step planner
+# (re-planned depth and bits), which the port does not have: a flat group's
+# SRA refuses it before any collective, as the DDP hook does. "auto" and
+# "off" run the monolithic SRA unchanged.
 # CGX_XLA_ALLREDUCE is not read by the port: under "on" the JAX router
 # changes the result only for a MIXED group (a process holding several of
 # its devices), and a rank of the port holds one device.
 # ---------------------------------------------------------------------------
 
 COLLECTIVES = ("all_to_all_rows", "all_gather_rows", "shift_right", "all_reduce_sum",
-               "reduce_scatter_sum")
+               "reduce_scatter_sum", "all_to_all_rows_async", "all_gather_rows_async")
 
 
 class _Collective(Exception):
@@ -306,9 +308,13 @@ def _entry_points(model, step, tokens):
                                    "make_train_step"])
 @pytest.mark.parametrize("knob", ["CGX_SCHEDULE", "CGX_PLANNER"])
 def test_pipelined_sra_knobs_refused_before_any_collective(two_ranks, knob, entry):
-    """Under "on" every entry point raises NotImplementedError naming the
-    knob, with the hook's message, before any collective; the train step
-    before its forward (the parameters untouched)."""
+    """Under CGX_PLANNER=on every entry point raises NotImplementedError
+    naming the knob, with the hook's message, before any collective; the
+    train step before its forward (the parameters untouched). Under
+    CGX_SCHEDULE=on every entry point goes on to the wire as the unset run
+    does (a tree's groups in reverse order), a flat buffer through the
+    pipelined SRA's asynchronous all-to-all in place of the monolithic
+    one's."""
     called = two_ranks
     forwards = []
     model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
@@ -317,6 +323,22 @@ def test_pipelined_sra_knobs_refused_before_any_collective(two_ranks, knob, entr
     step = make_train_step(model, lambda m, b: forwards.append(1) or lm_loss(m(b), b), opt, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 512, size=(2, 16)))
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if knob == "CGX_SCHEDULE":
+        runs = []
+        for mode in (None, "on"):
+            with pytest.MonkeyPatch.context() as mp_:
+                if mode:
+                    mp_.setenv(knob, mode)
+                with pytest.raises(_Collective):
+                    _entry_points(model, step, tokens)[entry]()
+            runs.append((list(called), len(forwards)))
+            called.clear()
+            forwards.clear()
+        assert runs[0][1] == runs[1][1]  # the same forwards: none, or one before the sync
+        assert runs[0][0] and runs[1][0], runs  # both reached the wire
+        if entry == "allreduce_flat":  # one buffer: the pipeline's all-to-all first
+            assert runs == [(["all_to_all_rows"], 0), (["all_to_all_rows_async"], 0)], runs
+        return
     with pytest.MonkeyPatch.context() as mp_:
         mp_.setenv(knob, "on")
         with pytest.raises(NotImplementedError, match=f"pipelined SRA .*{knob}=on"):
@@ -390,7 +412,8 @@ def test_xla_allreduce_on_changes_no_port_group():
 
 # The same on two spawned gloo ranks: a tiny float32 GPT-2's make_train_step
 # under each setting, the parameters after two steps against the knobs
-# unset; "on" raises on both ranks (no rank is left in a collective).
+# unset; CGX_SCHEDULE=on runs the pipelined SRA, CGX_PLANNER=on raises on
+# both ranks (no rank is left in a collective).
 KNOB_RUNS = [
     ("unset", {}), ("schedule_auto", {"CGX_SCHEDULE": "auto"}), ("schedule_off", {"CGX_SCHEDULE": "off"}),
     ("planner_auto", {"CGX_PLANNER": "auto"}), ("planner_off", {"CGX_PLANNER": "off"}),
@@ -402,7 +425,7 @@ KNOB_WS = 2
 def _knob_rank(rank, init_file, result_q):
     import torch.distributed as dist
 
-    from torch_cgx_tpu_torch.parallel import hierarchical_groups
+    from torch_cgx_tpu_torch.parallel import hierarchical_groups, schedule
 
     for k in [k for k in os.environ if k.startswith("CGX_")]:
         del os.environ[k]
@@ -420,9 +443,10 @@ def _knob_rank(rank, init_file, result_q):
                          generator=torch.Generator().manual_seed(0))
             step = make_train_step(model, lambda m, b: lm_loss(m(b), b),
                                    torch.optim.Adam(model.parameters(), lr=1e-4), device="cpu")
+            schedule.reset_counts()
             try:
                 losses = [float(step(tokens)) for _ in range(2)]
-                out[name] = {"losses": losses,
+                out[name] = {"losses": losses, "pipelined_slices": schedule.COUNTS["pipelined_slices"],
                              "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()}}
             except NotImplementedError as e:
                 out[name] = {"refused": str(e)}
@@ -492,9 +516,16 @@ def test_knob_settings_leave_the_step_bit_identical(knob_world, name):
 
 
 def test_knobs_on_refused_on_every_rank(knob_world):
-    """Under "on" both ranks raise (no rank waits in a collective), and a
-    TwoLevelGroup's sync runs unchanged."""
-    for res in knob_world:
-        assert "CGX_SCHEDULE=on" in res["schedule_on"]["refused"]
+    """Under CGX_PLANNER=on both ranks raise (no rank waits in a
+    collective); under CGX_SCHEDULE=on the two steps run the pipelined SRA
+    and equal the unset run bit for bit on both ranks; a TwoLevelGroup's
+    sync under CGX_SCHEDULE=on runs unchanged."""
+    for r, res in enumerate(knob_world):
+        assert "refused" not in res["schedule_on"], res["schedule_on"]
+        assert res["schedule_on"]["pipelined_slices"] > 0
+        assert res["schedule_on"]["losses"] == res["unset"]["losses"]
+        for p, v in res["unset"]["params"].items():
+            np.testing.assert_array_equal(res["schedule_on"]["params"][p].view(np.uint32),
+                                          v.view(np.uint32), err_msg=f"rank {r} {p}")
         assert "CGX_PLANNER=on" in res["planner_on"]["refused"]
         assert res["two_level_on_same"]

@@ -48,9 +48,12 @@ PALLAS_TILE_CHUNKS = "CGX_PALLAS_TILE_CHUNKS"  # explicit tile override
 AUTOTUNE = "CGX_AUTOTUNE"  # auto | on | off: the per-chip codec autotuner
 AUTOTUNE_DIR = "CGX_AUTOTUNE_DIR"  # where the autotune cache lives
 LAYER_ALIGNED_SPLIT = "CGX_LAYER_ALIGNED_SPLIT"  # the DDP hook's greedy chunk split
-# Read only to refuse "on": the pipelined bucket SRA they select in the JAX
-# package's c10d backend is not ported (ROADMAP A9).
+# auto | on | off: the column-block pipelined SRA (parallel/schedule.py and
+# the DDP hook's pipelined bucket SRA), and its target depth.
 SCHEDULE = "CGX_SCHEDULE"
+SCHED_CHUNKS = "CGX_SCHED_CHUNKS"
+# Read only to refuse "on": the JAX package's step planner is not ported
+# (ROADMAP A9).
 PLANNER = "CGX_PLANNER"
 # Read only to refuse "on": the JAX package's asynchronous cross-slice plane,
 # which skips the two-level scheme's cross stage, is not ported (ROADMAP A14).
@@ -156,32 +159,42 @@ def _tri_state(name: str) -> str:
 
 
 def schedule_mode() -> str:
-    """CGX_SCHEDULE: auto | on | off. "on" selects the JAX package's
-    pipelined SRA, which the port does not have: the DDP hook's SRA and the
-    flat group's SRA of ``allreduce_tree`` raise under it
-    (:func:`refuse_pipelined_sra`). "auto" and "off" run the monolithic SRA,
-    as the JAX package does off the TPU."""
+    """CGX_SCHEDULE: auto | on | off. "on" pipelines the SRA of a flat
+    group column block by column block (``parallel/schedule.py``, and the
+    DDP hook's pipelined bucket SRA) wherever a slice sustains two blocks.
+    "auto" and "off" run the monolithic SRA: the JAX package engages "auto"
+    only on the staged in-XLA plane of a real TPU, which the port does not
+    have, and runs the monolithic path everywhere else."""
     return _tri_state(SCHEDULE)
 
 
+DEFAULT_SCHED_CHUNKS = 4
+
+
+def sched_chunks() -> int:
+    """CGX_SCHED_CHUNKS: the target pipeline depth, column blocks a fusion
+    slice (default 4, floored at 1). A row too narrow for it gets fewer
+    blocks, down to one: the monolithic SRA."""
+    return max(_env.get_int_env_or_default(SCHED_CHUNKS, DEFAULT_SCHED_CHUNKS), 1)
+
+
 def planner_mode() -> str:
-    """CGX_PLANNER: auto | on | off. "on" also selects the pipelined SRA
-    (and re-plans the bits), refused as under ``CGX_SCHEDULE=on``."""
+    """CGX_PLANNER: auto | on | off. "on" re-plans the pipeline depth and
+    the bits of each slice in the JAX package, which the port does not
+    have (:func:`refuse_planner`)."""
     return _tri_state(PLANNER)
 
 
-def refuse_pipelined_sra(reduction: str) -> None:
+def refuse_planner(reduction: str) -> None:
     """Raise ``NotImplementedError`` where an SRA (any reduction but the
-    Ring and the all-to-all) would run under ``CGX_SCHEDULE=on`` or
-    ``CGX_PLANNER=on``: the JAX package pipelines that SRA chunk by chunk
-    or re-plans its bits, a different wire and a different result. Callers
-    check before any collective, on every rank alike."""
-    if reduction not in (REDUCTION_RING, REDUCTION_ALLTOALL) and (
-        schedule_mode() == "on" or planner_mode() == "on"
-    ):
+    Ring and the all-to-all) would run under ``CGX_PLANNER=on``: the JAX
+    package re-plans that SRA's depth and bits, a different wire and a
+    different result. Callers check before any collective, on every rank
+    alike."""
+    if reduction not in (REDUCTION_RING, REDUCTION_ALLTOALL) and planner_mode() == "on":
         raise NotImplementedError(
-            f"the pipelined SRA ({SCHEDULE}=on or {PLANNER}=on) is not ported; "
-            f"unset both or set them to auto or off"
+            f"the step planner's pipelined SRA ({PLANNER}=on: depth and bits re-planned "
+            f"slice by slice) is not ported; unset {PLANNER} or set it to auto or off"
         )
 
 
@@ -441,6 +454,18 @@ LayerId = Tuple[Hashable, int]  # (bucket key, layer_idx)
 _layer_configs: Dict[LayerId, CompressionConfig] = {}
 _layer_sizes: Dict[Hashable, List[int]] = {}
 _pattern_configs: Dict[str, CompressionConfig] = {}
+_registry_version = 0
+
+
+def registry_version() -> int:
+    """A count of the registries' changes: the layout cache's key reads it,
+    so a change between two calls never hits a stale layout."""
+    return _registry_version
+
+
+def _bump_registry_version() -> None:
+    global _registry_version
+    _registry_version += 1
 
 
 def register_layer(
@@ -465,16 +490,19 @@ def register_layer(
     _layer_configs[(bucket_idx, layer_idx)] = CompressionConfig(
         bits=bits, bucket_size=bucket_size
     )
+    _bump_registry_version()
 
 
 def set_quantization_bits(layer_id: LayerId, bits: int) -> None:
     cfg = _layer_configs.get(layer_id, CompressionConfig(bits=0, bucket_size=0))
     _layer_configs[layer_id] = dataclasses.replace(cfg, bits=bits)
+    _bump_registry_version()
 
 
 def set_quantization_bucket_size(layer_id: LayerId, bucket_size: int) -> None:
     cfg = _layer_configs.get(layer_id, CompressionConfig(bits=0, bucket_size=0))
     _layer_configs[layer_id] = dataclasses.replace(cfg, bucket_size=bucket_size)
+    _bump_registry_version()
 
 
 def get_layer_config(layer_id: LayerId) -> CompressionConfig:
@@ -497,6 +525,7 @@ def set_layer_pattern_config(pattern: str, config: CompressionConfig) -> None:
     ``r".*kernel$"``). Later registrations win."""
     re.compile(pattern)
     _pattern_configs[pattern] = config
+    _bump_registry_version()
 
 
 def resolve_pattern_config(path: str) -> Optional[CompressionConfig]:
@@ -513,3 +542,4 @@ def clear_registry() -> None:
     _layer_configs.clear()
     _layer_sizes.clear()
     _pattern_configs.clear()
+    _bump_registry_version()

@@ -63,9 +63,14 @@ Where this differs from the JAX package:
   memory, so buckets whose tile exceeds
   ``codec_cuda.MAX_EPILOGUE_TILE_BYTES`` fall back with the port-only
   reason ``tile`` where the JAX package would launch its kernel.
-* The JAX schedule, planner and topology-router lookups are inert off the
-  TPU with their knobs unset; only the monolithic payload is ported (the
-  per-block ``q_blocks`` waits for the schedule compiler).
+* Under ``CGX_SCHEDULE=on``, where the sync will pipeline the layer's
+  slice (``parallel/schedule.py``), the backward stages one payload per
+  column block of the schedule's table (``Produced.q_blocks``,
+  ``Produced.table``), each quantized from the float32 ``dw / divisor``
+  by the quantize kernel (B1), not by the matmul-quantize, as the JAX
+  package does; the layer keeps its ``dw`` then, which the blocks are made
+  from. The planner and topology-router lookups are inert off the TPU
+  with their knobs unset.
 
 Deterministic rounding only: stochastic configs fall back (``config``).
 """
@@ -138,7 +143,7 @@ class Produced:
     ``skipped`` entry stands for a gradient the backward never made (no
     ``p.grad``): the allreduce takes it by name and must consume it."""
 
-    q: QTensor  # the (ws, chunk) stage-1 rows of dw / divisor
+    q: Optional[QTensor]  # the (ws, chunk) stage-1 rows of dw / divisor (None: per block)
     raw_row: torch.Tensor  # this rank's raw own chunk, divided
     cc: CompressionConfig
     ws: int
@@ -153,6 +158,10 @@ class Produced:
     dtype: torch.dtype
     skipped: bool = False
     consumed: bool = False
+    # Under the schedule: the stage-1 payload of each column block of
+    # ``table`` (q is None then); else both None.
+    q_blocks: Optional[Tuple[QTensor, ...]] = None
+    table: Optional[Tuple[Tuple[int, int], ...]] = None
 
     @property
     def key(self) -> Tuple[CompressionConfig, int, int, int]:
@@ -281,6 +290,16 @@ def placeholder(ent: Produced) -> torch.Tensor:
     return torch.zeros((), dtype=ent.dtype, device=ent.raw_row.device).expand(ent.shape)
 
 
+def _schedule_table(cc: CompressionConfig, ws: int, n: int):
+    """The column-block table the sync's SRA of a standalone slice of ``n``
+    values will pipeline with (``schedule.compiled_schedule``), or None
+    where it stays monolithic."""
+    from ..parallel import schedule as sched_mod
+
+    sched = sched_mod.compiled_schedule(n, ws, cc, reduction=cfg_mod.intra_reduction())
+    return None if sched is None else sched.table
+
+
 def consume_reason(
     key: Tuple[CompressionConfig, int, int, int],
     *,
@@ -290,14 +309,15 @@ def consume_reason(
     n: int,
     elem_size: int,
     group,
+    table=None,
 ) -> str:
     """The consumption predicate, one for both sides: "" when
     ``allreduce_tree`` hands a payload staged at ``key`` (config, ranks,
-    divisor, length) to the multi-rank SRA of a standalone group of ``n``
-    values at ``cc`` over ``group`` (``ws`` ranks, averaging ``divisor``),
-    else the fallback reason. The allreduce consumes only where it holds;
-    the backward skips ``dw`` only where it holds for the arguments the
-    sync will pass."""
+    divisor, length) and block ``table`` (None: monolithic) to the
+    multi-rank SRA of a standalone group of ``n`` values at ``cc`` over
+    ``group`` (``ws`` ranks, averaging ``divisor``), else the fallback
+    reason. The allreduce consumes only where it holds; the backward skips
+    ``dw`` only where it holds for the arguments the sync will pass."""
     from ..parallel.mesh import TwoLevelGroup
 
     if isinstance(group, TwoLevelGroup) or not engaged() or cfg_mod.fake_ratio() is not None:
@@ -309,8 +329,9 @@ def consume_reason(
         or not cc.enabled
         or cfg_mod.intra_reduction() != cfg_mod.REDUCTION_SRA
         or cfg_mod.dummy_compression()
+        or table != _schedule_table(cc, ws, n)
     ):
-        return "plan"  # only the multi-rank SRA consumes a payload
+        return "plan"  # only the multi-rank SRA consumes a payload, with its block plan
     return ""
 
 
@@ -353,7 +374,7 @@ class _ProducedMatmul(torch.autograd.Function):
             if plan is None or not plan[1]:
                 dw = _plain_dw(ctx.name, x2, g2, ctx.w_dtype)
             if plan is not None:
-                _stash(ctx.name, plan[0], w_shape, ctx.w_dtype, x2, g2, dw)
+                _stash(ctx.name, plan[0], w_shape, ctx.w_dtype, x2, g2, dw, plan[2])
         return dx, dw, None, None
 
 
@@ -394,7 +415,8 @@ def decide(
 ) -> Tuple[Optional[CompressionConfig], str]:
     """How the backward of the layer at ``name`` (weight ``w_shape``,
     contraction ``k_total``) stages its payload over ``ws`` ranks: ``(cc,
-    "")`` when the kernel produces it, ``(None, reason)`` for a fallback.
+    "")`` when the kernel produces it (or, where the sync will pipeline the
+    slice, the per-block quantizes), ``(None, reason)`` for a fallback.
     The gates of the JAX ``_maybe_stash``, in its order; a geometry the
     kernel cannot take falls back (``layout``, or ``tile`` when only the
     port's shared-memory tile is too large)."""
@@ -417,6 +439,8 @@ def decide(
         return None, "layout"  # padding or a split row would misalign
     if cfg_mod.intra_reduction() != cfg_mod.REDUCTION_SRA:
         return None, "reduction"
+    if _schedule_table(cc, ws, n) is not None:
+        return cc, ""  # per-block payloads from dw: no kernel geometry to meet
     din, o = w_shape
     if _kernel_geometry(k_total, din, o, ws, chunk, cc, check_tile=False) is None:
         return None, "layout"
@@ -427,13 +451,16 @@ def decide(
 
 def _plan(
     name: str, w_shape, w_dtype, k_total: int, x_dtype: torch.dtype
-) -> Optional[Tuple[CompressionConfig, bool]]:
+) -> Optional[Tuple[CompressionConfig, bool, Optional[tuple]]]:
     """Whether the backward of the layer at ``name`` stages its payload:
-    ``(cc, skip)`` when every gate passes, ``skip`` when the backward must
-    not return ``dw`` (the sync of this step, ``make_train_step``'s, will
-    consume the payload in its place); else None, the fallback counted.
-    A product in a dtype the kernel does not read (not float32, bfloat16 or
-    float16) falls back (``config``)."""
+    ``(cc, skip, table)`` when every gate passes, ``skip`` when the
+    backward must not return ``dw`` (the sync of this step,
+    ``make_train_step``'s, will consume the payload in its place), ``table``
+    the schedule's column blocks where the sync will pipeline the slice
+    (the payload is then per block, made from ``dw``, which is never
+    skipped); else None, the fallback counted. A product in a dtype the
+    kernel does not read (not float32, bfloat16 or float16) falls back
+    (``config``)."""
     if not _CFG["active"]:
         return None
     if not _CFG["configured"]:
@@ -456,25 +483,34 @@ def _plan(
         _STASH[name] = None
         return None
     n = math.prod(w_shape)
+    table = _schedule_table(cc, ws, n)
     skip = (
         bool(_CFG["skip_dw"])
+        and table is None
         and _FORWARDS.get(name, 0) == 1
         and consume_reason(
             (cc, ws, div, n), cc=cc, ws=ws, divisor=div, n=n,
             elem_size=torch.empty((), dtype=w_dtype).element_size(), group=_CFG["group"],
         ) == ""
     )
-    return cc, skip
+    return cc, skip, table
 
 
-def _stash(name: str, cc: CompressionConfig, w_shape, w_dtype, x2, g2, dw) -> None:
-    """Stage the layer's payload: the kernel's quantized rows and raw own
-    row, both from one launch on the operands as the backward holds them,
-    matched later to ``dw`` (None: a skipped gradient, taken by name)."""
+def _stash(name: str, cc: CompressionConfig, w_shape, w_dtype, x2, g2, dw, table=None) -> None:
+    """Stage the layer's payload, matched later to ``dw`` (None: a skipped
+    gradient, taken by name): the matmul-quantize kernel's quantized rows
+    and raw own row, both from one launch on the operands as the backward
+    holds them; or, with a schedule ``table``, one quantize (B1) of each
+    column block of the rows of ``dw / divisor`` in float32 and the own row
+    of those rows."""
     ws, div, own = int(_CFG["ws"]), int(_CFG["divisor"]), int(_CFG["rank"])
     n = math.prod(w_shape)
-    q, raw_row = _matmul_quantize_q(x2, g2, cc, ws=ws, chunk=n // ws, div=div, own=own)
-    count("producer_kernel_slices")
+    q = q_blocks = None
+    if table is None:
+        q, raw_row = _matmul_quantize_q(x2, g2, cc, ws=ws, chunk=n // ws, div=div, own=own)
+        count("producer_kernel_slices")
+    else:
+        q_blocks, raw_row = _block_payloads(dw, cc, ws=ws, div=div, own=own, table=table)
     count("producer_staged")
     if dw is None:
         count("producer_dw_skipped")
@@ -485,7 +521,26 @@ def _stash(name: str, cc: CompressionConfig, w_shape, w_dtype, x2, g2, dw) -> No
         data_ptr=0 if dw is None else dw.data_ptr(),
         version=0 if dw is None else dw._version,
         shape=tuple(w_shape), dtype=w_dtype, skipped=dw is None,
+        q_blocks=q_blocks, table=table,
     )
+
+
+def _block_payloads(dw, cc, *, ws, div, own, table):
+    """The per-block stage-1 payloads of ``dw`` (the JAX ``_maybe_stash``
+    under a schedule): the ``(ws, chunk)`` rows of ``dw / div`` in float32,
+    each column block of ``table`` copied contiguous and quantized, and the
+    raw own row."""
+    from ..parallel import reducers
+    from ..parallel import schedule as sched_mod
+
+    flat = dw.reshape(-1).to(torch.float32)
+    if div != 1:
+        flat = flat / div
+    xs = flat.view(ws, -1)
+    blocks = tuple(
+        reducers._quantize_rows(sched_mod.block_rows(xs, off, w), cc) for off, w in table
+    )
+    return blocks, xs[own]
 
 
 # ---------------------------------------------------------------------------

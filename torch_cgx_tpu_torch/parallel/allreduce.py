@@ -10,14 +10,21 @@ concatenated, each group's flat buffer is cut into fusion slices (64 MB by
 default) and every slice is reduced, over two levels by
 ``hierarchical_allreduce``. A standalone group whose gradient the
 backward already quantized (``ops/fused_producer.py``, producer fusion)
-hands that payload to the multi-rank SRA in place of its own quantize. The
-schedule compiler, the step planner and the staged-program routes of the
-JAX package stay out: off the TPU they are inert at their default settings,
-and ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on``, which would pipeline a flat
-group's SRA or re-plan its bits there, raise (:func:`refuse_unported`).
+hands that payload to the multi-rank SRA in place of its own quantize.
+Under ``CGX_SCHEDULE=on`` a flat group's SRA runs each fusion slice as the
+column-block pipeline of ``parallel/schedule.py`` and the groups are
+reduced in reverse order, each keeping its own key. The step planner and
+the staged-program routes of the JAX package stay out: off the TPU they are
+inert at their default settings, and ``CGX_PLANNER=on``, which would
+re-plan a flat group's SRA, raises (:func:`refuse_unported`).
 ``CGX_XLA_ALLREDUCE`` is not read: under "on" the JAX router changes the
 result only for a group whose processes each hold several devices, and a
 rank of the port holds one.
+
+The grouping of a tree (its groups, their members' offsets and their fusion
+slices) is a function of the leaves' names, shapes and dtypes and of the
+knobs and registry it reads; it is kept in a bounded LRU
+(:func:`layout_cache_stats`, :func:`invalidate_layout_cache`).
 
 Leaves are taken in the order JAX flattens a nested dict (keys sorted level
 by level: ``h_10`` before ``h_2``), so fused groups concatenate in the same
@@ -34,7 +41,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from collections import OrderedDict
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -44,6 +52,7 @@ from ..ops import fused_producer
 from ..utils import prng
 from ..utils.tree import sorted_items
 from . import group as group_mod
+from . import schedule as sched_mod
 from .group import ProcessGroup
 from .mesh import TwoLevelGroup
 from .reducers import (
@@ -135,17 +144,105 @@ def flat_world(group: GroupLike) -> Tuple[ProcessGroup, int]:
 
 
 def refuse_unported(group: GroupLike, compressed: bool) -> None:
-    """Raise ``NotImplementedError`` (``config.refuse_pipelined_sra``) where
-    a flat group of more than one rank would reduce ``compressed`` values by
-    an SRA under ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on``, as the DDP hook
-    does. Every rank reaches the same verdict from the same knobs and
-    layout, before any collective. A ``TwoLevelGroup`` runs as it would
-    unset: the JAX package consults the schedule and the planner only on
-    one-axis calls (its two-axis sync keeps the monolithic stages)."""
+    """Raise ``NotImplementedError`` (``config.refuse_planner``) where a
+    flat group of more than one rank would reduce ``compressed`` values by
+    an SRA under ``CGX_PLANNER=on``, as the DDP hook does. Every rank
+    reaches the same verdict from the same knobs and layout, before any
+    collective. A ``TwoLevelGroup`` runs as it would unset: the JAX package
+    consults the planner only on one-axis calls."""
     if not compressed or isinstance(group, TwoLevelGroup) or cfg_mod.dummy_compression():
         return
     if group_mod.world_size(group) > 1:
-        cfg_mod.refuse_pipelined_sra(cfg_mod.intra_reduction())
+        cfg_mod.refuse_planner(cfg_mod.intra_reduction())
+
+
+# ---------------------------------------------------------------------------
+# The layout cache: a tree's grouping, kept per (leaves, knobs, registry).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _GroupLayout:
+    """One fused group's plan: its members (positions in the ordered leaf
+    list), their offsets in the fused buffer, and its fusion slices."""
+
+    cc: CompressionConfig
+    dtype: torch.dtype
+    indices: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    fused_n: int
+    slices: Tuple[Tuple[int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class _TreeLayout:
+    groups: Tuple[_GroupLayout, ...]
+
+
+_LAYOUT_CACHE: "OrderedDict" = OrderedDict()
+_LAYOUT_CACHE_MAX = 64
+_LAYOUT_STATS = {"hits": 0, "misses": 0, "invalidations": 0}
+
+
+def layout_cache_stats() -> Dict[str, int]:
+    """A copy of the cache's hits, misses and invalidations."""
+    return dict(_LAYOUT_STATS)
+
+
+def layout_cache_clear() -> None:
+    _LAYOUT_CACHE.clear()
+    _LAYOUT_STATS.update(hits=0, misses=0)
+
+
+def invalidate_layout_cache() -> None:
+    """Drop every cached layout and, with them, every compiled schedule
+    (``schedule.invalidate_schedule_cache``): both were derived for one world,
+    and a schedule of another would frame its blocks differently from its
+    peers'. Counted in :func:`layout_cache_stats`."""
+    layout_cache_clear()
+    _LAYOUT_STATS["invalidations"] += 1
+    sched_mod.invalidate_schedule_cache()
+
+
+def _layout_key(paths_leaves, compress_small: bool) -> Tuple:
+    """Everything the grouping reads: the leaves' names, shapes and dtypes
+    in order, ``compress_small``, the registry's version (the pattern
+    configs), the env default config and the size thresholds."""
+    return (
+        tuple((p, tuple(t.shape), t.dtype) for p, t in paths_leaves),
+        bool(compress_small),
+        cfg_mod.registry_version(),
+        cfg_mod.default_compression_config(),
+        cfg_mod.minimal_size(),
+        cfg_mod.standalone_layer_elems(),
+        cfg_mod.fusion_threshold_elems(1),
+    )
+
+
+def _tree_layout(paths_leaves, compress_small: bool) -> _TreeLayout:
+    key = _layout_key(paths_leaves, compress_small)
+    hit = _LAYOUT_CACHE.get(key)
+    if hit is not None:
+        _LAYOUT_CACHE.move_to_end(key)
+        _LAYOUT_STATS["hits"] += 1
+        return hit
+    _LAYOUT_STATS["misses"] += 1
+    groups = []
+    for g in _group_leaves(paths_leaves, compress_small):
+        offsets, off = [], 0
+        for i in g.indices:
+            offsets.append(off)
+            off += paths_leaves[i][1].numel()
+        elem = torch.empty((), dtype=g.dtype).element_size()
+        groups.append(_GroupLayout(
+            cc=g.cc, dtype=g.dtype, indices=g.indices, offsets=tuple(offsets), fused_n=off,
+            slices=tuple(_fusion_slices(off, elem)),
+        ))
+    layout = _TreeLayout(groups=tuple(groups))
+    _LAYOUT_CACHE[key] = layout
+    if len(_LAYOUT_CACHE) > _LAYOUT_CACHE_MAX:
+        _LAYOUT_CACHE.popitem(last=False)
+    return layout
 
 
 def any_compressed(tree: Mapping[str, torch.Tensor], *, compress_small: bool = False) -> bool:
@@ -163,6 +260,7 @@ def allreduce_flat(
     pre=None,
     key: Optional[prng.Key] = None,
     return_roundtrip: bool = False,
+    slices: Optional[Sequence[Tuple[int, int]]] = None,
 ):
     """Allreduce one flat buffer, fusion slice by fusion slice: over a
     :class:`TwoLevelGroup` with the env's two-level scheme
@@ -181,13 +279,20 @@ def allreduce_flat(
     (``quantized_allreduce_with_wire``), the two-level stage-1 mirror
     (:func:`_stage1_roundtrip_piece`), the fake ratio's tail as it is.
 
-    Under ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on`` a compressed buffer on a
-    flat group raises ``NotImplementedError`` (:func:`refuse_unported`)."""
+    Under ``CGX_SCHEDULE=on`` each slice of a flat group's SRA whose rows
+    sustain two column blocks runs the pipelined SRA
+    (``schedule.pipelined_quantized_allreduce``); a producer-staged payload
+    is consumed there only if it was quantized per block against the same
+    table (``consume_reason``: else "plan"). ``slices``: the buffer's
+    fusion slices where the caller has them (the layout cache); the fake
+    ratio's shaped prefix recomputes them. Under ``CGX_PLANNER=on`` a
+    compressed buffer on a flat group raises ``NotImplementedError``
+    (:func:`refuse_unported`)."""
     refuse_unported(group, cc.enabled)
     if pre is not None:
         reason = fused_producer.consume_reason(
             pre.key, cc=cc, ws=flat_world(group)[1], divisor=pre.divisor, n=flat.shape[0],
-            elem_size=flat.element_size(), group=group,
+            elem_size=flat.element_size(), group=group, table=pre.table,
         )
         if reason:
             fused_producer.fallback(reason)
@@ -200,7 +305,9 @@ def allreduce_flat(
     if ratio is not None and cc.enabled and flat.shape[0] > 1:
         m = max(1, math.ceil(ratio * flat.shape[0]))
         flat, tail = flat[:m], flat[m:]
-    slices = _fusion_slices(flat.shape[0], flat.element_size())
+        slices = None
+    if slices is None:
+        slices = _fusion_slices(flat.shape[0], flat.element_size())
 
     def slice_key(off: int) -> Optional[prng.Key]:
         return None if key is None else prng.fold_in(key, off)
@@ -217,12 +324,19 @@ def allreduce_flat(
         ws, red = group_mod.world_size(group), cfg_mod.intra_reduction()
         for off, ln in slices:
             piece, k = flat[off : off + ln], slice_key(off)
-            if return_roundtrip:
-                out, rt = quantized_allreduce_with_wire(piece, group, ws, cc, red, pre, key=k)
-                pieces.append(out)
-                rt_pieces.append(rt)
+            sched = sched_mod.compiled_schedule(ln, ws, cc, reduction=red)
+            if sched is not None:
+                out = sched_mod.pipelined_quantized_allreduce(
+                    piece, group, ws, cc, red, k, sched, with_wire=return_roundtrip, pre=pre
+                )
+            elif return_roundtrip:
+                out = quantized_allreduce_with_wire(piece, group, ws, cc, red, pre, key=k)
             else:
-                pieces.append(quantized_allreduce(piece, group, ws, cc, red, pre, key=k))
+                out = quantized_allreduce(piece, group, ws, cc, red, pre, key=k)
+            if return_roundtrip:
+                out, rt = out
+                rt_pieces.append(rt)
+            pieces.append(out)
     if tail is not None:
         pieces.append(tail)
         rt_pieces.append(tail)  # never travels: exact
@@ -320,9 +434,12 @@ def allreduce_tree(
     tensor: it is taken from the stash by name, its payload (already
     divided) must be consumed, and its averaged gradient is returned under
     its name; that it cannot be is a ``RuntimeError``. The stash is drained
-    after the sweep. Under ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on`` a tree
-    with a compressed leaf on a flat group raises ``NotImplementedError``
-    before any collective (:func:`refuse_unported`)."""
+    after the sweep. The grouping comes from the layout cache. Under
+    ``CGX_SCHEDULE=on`` the groups are reduced last first
+    (``schedule.dispatch_order``), each keyed with its own index ``gi``, so
+    the order changes no byte. Under ``CGX_PLANNER=on`` a tree with a
+    compressed leaf on a flat group raises ``NotImplementedError`` before
+    any collective (:func:`refuse_unported`)."""
     world, ws = flat_world(group)
     skipped = fused_producer.skipped_entries()
     if skipped:
@@ -348,11 +465,13 @@ def allreduce_tree(
         and fused_producer.stash_size()
     ):
         fp = fused_producer
-    groups = _group_leaves(paths_leaves, compress_small)
+    groups = _tree_layout(paths_leaves, compress_small).groups
     refuse_unported(group, any(g.cc.enabled for g in groups))
     out: Dict[str, torch.Tensor] = {}
     rt_out: Dict[str, torch.Tensor] = {}
-    for gi, g in enumerate(groups):
+    order = sched_mod.dispatch_order(len(groups)) if sched_mod.engaged() else range(len(groups))
+    for gi in order:
+        g = groups[gi]
         pre = None
         path, leaf = paths_leaves[g.indices[0]]
         if len(g.indices) == 1 and (path in skipped or (fp is not None and g.cc.enabled)):
@@ -360,7 +479,7 @@ def allreduce_tree(
             if ent is not None:
                 reason = fused_producer.consume_reason(
                     ent.key, cc=g.cc, ws=ws, divisor=div, n=leaf.numel(),
-                    elem_size=leaf.element_size(), group=group,
+                    elem_size=leaf.element_size(), group=group, table=ent.table,
                 )
                 if not reason:
                     pre = ent
@@ -388,7 +507,7 @@ def allreduce_tree(
             reduced = allreduce_flat(
                 fused, g.cc, group=group, pre=pre,
                 key=None if key is None else prng.fold_in(key, gi),
-                return_roundtrip=return_roundtrip,
+                return_roundtrip=return_roundtrip, slices=g.slices,
             )
             if return_roundtrip:
                 reduced, rt_flat = reduced
@@ -398,13 +517,16 @@ def allreduce_tree(
             reduced = group_mod.all_reduce_sum(fused, world)
         else:
             reduced = fused
-        off = 0
-        for i, t in zip(g.indices, members):
+        for i, t, off in zip(g.indices, members, g.offsets):
             n = t.numel()
             out[paths_leaves[i][0]] = reduced[off : off + n].view(t.shape)
             if return_roundtrip:
                 rt_out[paths_leaves[i][0]] = rt_flat[off : off + n].view(t.shape)
-            off += n
     if fp is not None or skipped:
         fused_producer.drain()
-    return (out, rt_out) if return_roundtrip else out
+    # The keys in group order, whatever order the groups ran in.
+    names = [paths_leaves[i][0] for g in groups for i in g.indices]
+    out = {p: out[p] for p in names}
+    if not return_roundtrip:
+        return out
+    return out, {p: rt_out[p] for p in names}

@@ -161,9 +161,11 @@ def gradient_sync(
     zeros (for a rollback of the parameters and the optimizer, use
     ``make_train_step``) and "exact" the uncompressed sum of the sanitized
     gradients (averaged if ``average``); each counts the step in
-    ``COUNTS["nonfinite_steps"]``. ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on``
-    raises ``NotImplementedError`` before any collective where a flat
-    group's SRA would run (``allreduce.refuse_unported``)."""
+    ``COUNTS["nonfinite_steps"]``. Under ``CGX_SCHEDULE=on`` a flat group's
+    SRA runs pipelined (``parallel/schedule.py``), bit-identical to the
+    monolithic SRA where it rounds to nearest. ``CGX_PLANNER=on`` raises
+    ``NotImplementedError`` before any collective where a flat group's SRA
+    would run (``allreduce.refuse_unported``)."""
     policy = _guard_policy(nonfinite_guard)
     refuse_unported(group, any_compressed(grads, compress_small=compress_small))
     if policy != "off" and _nonfinite_step(grads, group):
@@ -224,8 +226,14 @@ def make_train_step(
     keeps the residuals. A fault-free step is the unguarded one, bit for
     bit.
 
-    Under ``CGX_SCHEDULE=on`` or ``CGX_PLANNER=on`` a step whose flat-group
-    sync would run an SRA raises ``NotImplementedError`` before its forward
+    ``CGX_SCHEDULE`` and ``CGX_SCHED_CHUNKS`` are read on each call, as
+    every knob of the sync is: the step keeps no state built for one
+    schedule (the JAX step keys its trace by them). Under
+    ``CGX_SCHEDULE=on`` the sync pipelines a flat group's SRA, the error
+    feedback round trip included (``with_wire``), and producer fusion
+    stages per-block payloads from a ``dw`` it keeps. Under
+    ``CGX_PLANNER=on`` a step whose flat-group sync would run an SRA raises
+    ``NotImplementedError`` before its forward
     (``allreduce.refuse_unported``), so no rank enters a collective."""
     guard = _guard_policy(nonfinite_guard)
     if ef_state is not None and not error_feedback:

@@ -15,7 +15,7 @@ while the codec kernels run on the card.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -35,23 +35,55 @@ def rank(group: ProcessGroup = None) -> int:
     return dist.get_rank(group)
 
 
+Pending = Optional["dist.Work"]  # an asynchronous collective's handle, None: nothing moved
+
+
 def all_to_all_rows(t: torch.Tensor, group: ProcessGroup = None) -> torch.Tensor:
     """Row ``j`` of ``t (ws, ...)`` goes to rank ``j``; row ``j`` of the
     result came from rank ``j``."""
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    if t.numel():
-        dist.all_to_all_single(out, t, group=group)
+    out, work = all_to_all_rows_async(t, group)
+    wait(work)
     return out
+
+
+def all_to_all_rows_async(t: torch.Tensor, group: ProcessGroup = None) -> Tuple[torch.Tensor, Pending]:
+    """:func:`all_to_all_rows` posted without waiting: ``(out, work)``.
+    ``out`` may be read only after :func:`wait` of ``work`` (on the card
+    the wait orders the current stream after the receive). In a one-rank
+    world (no process group) ``out`` is a copy of ``t``."""
+    t = t.contiguous()
+    if world_size(group) == 1:
+        return t.clone(), None
+    out = torch.empty_like(t)
+    if not t.numel():
+        return out, None
+    return out, dist.all_to_all_single(out, t, group=group, async_op=True)
 
 
 def all_gather_rows(t: torch.Tensor, ws: int, group: ProcessGroup = None) -> torch.Tensor:
     """Stack ``t (1, ...)`` from every rank -> ``(ws, ...)``."""
-    t = t.contiguous()
-    out = torch.empty((ws,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
-    if t.numel():
-        dist.all_gather_into_tensor(out, t, group=group)
+    out, work = all_gather_rows_async(t, ws, group)
+    wait(work)
     return out
+
+
+def all_gather_rows_async(t: torch.Tensor, ws: int,
+                          group: ProcessGroup = None) -> Tuple[torch.Tensor, Pending]:
+    """:func:`all_gather_rows` posted without waiting: ``(out, work)``; in
+    a one-rank world a copy of ``t``."""
+    t = t.contiguous()
+    if world_size(group) == 1:
+        return t.clone(), None
+    out = torch.empty((ws,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    if not t.numel():
+        return out, None
+    return out, dist.all_gather_into_tensor(out, t, group=group, async_op=True)
+
+
+def wait(work: Pending) -> None:
+    """Wait for an asynchronous collective (None: nothing to wait for)."""
+    if work is not None:
+        work.wait()
 
 
 def shift_right(t: torch.Tensor, group: ProcessGroup = None) -> torch.Tensor:

@@ -105,6 +105,42 @@ def _map_q(q: QTensor, fn) -> QTensor:
     )
 
 
+def _quantize_rows(xs: torch.Tensor, cc: CompressionConfig, key=None) -> QTensor:
+    """Stage 1's quantize of ``(ws, m)`` rows (``key``: the phase-1 key)."""
+    return dispatch.quantize_batch(xs, cc, key)
+
+
+def _exchange_async(q: QTensor, group: ProcessGroup) -> Tuple[QTensor, list]:
+    """Stage 1's all-to-all of the rows of ``q``, posted without waiting:
+    ``(q_recv, works)``; read ``q_recv`` after :func:`_wait_all`."""
+    works = []
+
+    def post(t):
+        out, work = group_mod.all_to_all_rows_async(t, group)
+        works.append(work)
+        return out
+
+    return _map_q(q, post), works
+
+
+def _gather_async(q_own: QTensor, group: ProcessGroup, ws: int) -> Tuple[QTensor, list]:
+    """Stage 2's all-gather of the requantized chunk, posted without
+    waiting: ``(gathered (ws, ...), works)``."""
+    works = []
+
+    def post(t):
+        out, work = group_mod.all_gather_rows_async(t, ws, group)
+        works.append(work)
+        return out
+
+    return _map_q(q_own, post), works
+
+
+def _wait_all(works) -> None:
+    for work in works:
+        group_mod.wait(work)
+
+
 def _sra_exchange(x, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=None, key=None):
     """Stage 1: ``(q, q_recv, xs, own_idx)`` — the sent ``(ws, chunk)``
     payload (quantized with the phase-1 key), the received one (row j =
@@ -121,7 +157,7 @@ def _sra_exchange(x, group: ProcessGroup, ws: int, cc: CompressionConfig, pre=No
         xs = None
     else:
         xs = _pad_rows(x, ws, _chunk_size(x.shape[0], ws))
-        q = dispatch.quantize_batch(xs, cc, _phase_key(key, 1, group_mod.rank(group)))
+        q = _quantize_rows(xs, cc, _phase_key(key, 1, group_mod.rank(group)))
     q_recv = _map_q(q, lambda t: group_mod.all_to_all_rows(t, group))
     return q, q_recv, xs, group_mod.rank(group)
 

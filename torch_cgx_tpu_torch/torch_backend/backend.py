@@ -44,9 +44,23 @@ scheme's stage 3, which every leader requantizes from the same values,
 draws from a generator common to the leaders, seeded from the collective's
 name (:func:`_qreduce_hier`), so the hosts stay bit-identical.
 
-Not ported, refused with ``NotImplementedError``: the pipelined SRA of
-``CGX_SCHEDULE=on`` / ``CGX_PLANNER=on`` (ROADMAP A9) and the two-level
-scheme's asynchronous cross stage (``CGX_ASYNC=on``).
+Under ``CGX_SCHEDULE=on`` an SRA (the flat one and the leaders' cross one
+of the two-level scheme) whose rank chunks sustain two sub-chunks runs
+pipelined (:func:`_qreduce_sra`): each rank's chunk is cut into
+the sub-chunks of a group-global table (:func:`_sched_tables`), and the
+frames of sub-chunk c+1 are compressed and their all-to-all posted
+(``async_op=True``) before sub-chunk c is folded, requantized, gathered and
+decoded: the JAX backend's in-flight window of two, with asynchronous
+collectives in place of its encoder thread. Frames restart their buckets at
+each sub-chunk, so where a sub-chunk boundary cuts a layer whose segment
+does not start on the boundaries' grid the bytes differ from the
+monolithic SRA's, as in the JAX backend. Stochastic frame keys come from a
+generator per (collective, sub-chunk, stage), so they never depend on
+timing.
+
+Not ported, refused with ``NotImplementedError``: the step planner's depth
+(``CGX_PLANNER=on``, ROADMAP A9) and the two-level scheme's asynchronous
+cross stage (``CGX_ASYNC=on``).
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ from ..config import CompressionConfig
 from ..ops import codec, codec_cuda, dispatch
 from ..ops.codec import QTensor
 from ..parallel import group as group_mod
+from ..parallel import schedule as sched_mod
 from ..parallel.group import ProcessGroup
 from ..utils import prng
 
@@ -331,14 +346,25 @@ def _alltoallv(send: Sequence[Optional[torch.Tensor]], recv_sizes: Sequence[int]
     from rank ``j`` -> the received parts. ``moves``: whether any rank of
     the group sends anything in this exchange, which every rank knows from
     the layout; without it no collective runs, on every rank alike."""
+    parts, work = _alltoallv_async(send, recv_sizes, moves, group, device)
+    group_mod.wait(work)
+    return parts
+
+
+def _alltoallv_async(send: Sequence[Optional[torch.Tensor]], recv_sizes: Sequence[int],
+                     moves: bool, group: ProcessGroup,
+                     device: torch.device) -> Tuple[List[torch.Tensor], group_mod.Pending]:
+    """:func:`_alltoallv` posted without waiting: ``(parts, work)``; read
+    the parts after ``group_mod.wait(work)``."""
     empty = torch.empty((0,), dtype=torch.uint8, device=device)
     send = [empty if t is None else t for t in send]
     if not moves:
-        return [empty] * len(recv_sizes)
+        return [empty] * len(recv_sizes), None
     inp = torch.cat(send)
     out = torch.empty((sum(recv_sizes),), dtype=torch.uint8, device=device)
-    dist.all_to_all_single(out, inp, list(recv_sizes), [t.numel() for t in send], group=group)
-    return list(out.split(list(recv_sizes)))
+    work = dist.all_to_all_single(out, inp, list(recv_sizes), [t.numel() for t in send],
+                                  group=group, async_op=True)
+    return list(out.split(list(recv_sizes))), work
 
 
 def _shift(frame: torch.Tensor, recv_n: int, me: int, ws: int, moves: bool,
@@ -364,26 +390,97 @@ def _layout(n: int, ws: int, layers: Sequence[Layer], wdt: torch.dtype, dummy: b
 
 
 def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
-                 group: ProcessGroup, force_raw: bool = False, rng: Rng = None) -> None:
+                 group: ProcessGroup, force_raw: bool = False, rng: Rng = None,
+                 pfx: str = "") -> None:
     """Scatter-Reduce-AllGather: each rank posts each peer's chunk as
     frames, folds the arrivals into its raw own chunk and requantizes it
     (:func:`_sra_fold_chunk`), then every rank gathers and decodes every
-    other rank's reduced chunk."""
+    other rank's reduced chunk, sub-chunk by sub-chunk. Without the
+    schedule every chunk is one sub-chunk. Under ``CGX_SCHEDULE=on``, where
+    the chunks sustain two, rank r's chunk is cut into the sub-chunks
+    ``tables[r]`` (:func:`_sched_tables`), and sub-chunk c+1's frames are
+    compressed and their all-to-all posted before sub-chunk c is folded,
+    requantized, gathered and decoded: at most two sub-chunks in flight,
+    the JAX backend's window of two (its ``_SCHED_WINDOW``). Its stochastic
+    frame keys then come from :func:`_sched_rng` (``pfx`` names the
+    collective), else from the rank's ``rng``."""
     ws, me = group_mod.world_size(group), group_mod.rank(group)
     dummy = cfg.dummy_compression() or force_raw
-    segs, fsize = _layout(fused.shape[0], ws, layers, wdt, dummy)
-    moves = sum(fsize) > 0
-    sent = [None if j == me else _compress_frames(fused, segs[j], dummy, wdt, rng)
-            for j in range(ws)]
-    recv = [0 if j == me else fsize[me] for j in range(ws)]
-    frames = _alltoallv(sent, recv, moves, group, fused.device)
-    wire = _sra_fold_chunk(fused, segs[me], frames, me, ws, dummy, wdt, rng)
-    recv = [0 if j == me else fsize[j] for j in range(ws)]
-    bufs = _alltoallv([None if j == me else wire for j in range(ws)], recv, moves, group,
-                      fused.device)
-    for j in range(ws):
-        if j != me:
-            _decompress_frames(bufs[j], segs[j], fused, dummy, add=False, wdt=wdt)
+    sizes, offs = _chunk_split(fused.shape[0], ws, layers)
+    tables = _sched_tables(sizes, layers) if ws > 1 and cfg.schedule_mode() == "on" else None
+    pipelined = tables is not None
+    if not pipelined:
+        tables = [[(0, sz)] for sz in sizes]
+
+    def rng_of(c: int, stage: str) -> Rng:
+        return _sched_rng(pfx, c, stage) if pipelined else rng
+
+    depth = len(tables[0])
+    segs = [[_segments_in(layers, offs[r] + o, offs[r] + o + w) for o, w in tables[r]]
+            for r in range(ws)]
+    fsize = [[frames_bytes(segs[r][c], wdt, dummy) for c in range(depth)] for r in range(ws)]
+    pending: List = [None] * depth
+
+    def start(c: int) -> None:
+        sent = [None if j == me else _compress_frames(fused, segs[j][c], dummy, wdt,
+                                                      rng_of(c, "enc"))
+                for j in range(ws)]
+        recv = [0 if j == me else fsize[me][c] for j in range(ws)]
+        moves = any(fsize[r][c] for r in range(ws))
+        pending[c] = _alltoallv_async(sent, recv, moves, group, fused.device) + (moves,)
+
+    def finish(c: int) -> None:
+        frames, work, moves = pending[c]
+        pending[c] = None
+        group_mod.wait(work)
+        wire = _sra_fold_chunk(fused, segs[me][c], frames, me, ws, dummy, wdt, rng_of(c, "req"))
+        recv = [0 if j == me else fsize[j][c] for j in range(ws)]
+        bufs = _alltoallv([None if j == me else wire for j in range(ws)], recv, moves, group,
+                          fused.device)
+        for j in range(ws):
+            if j != me:
+                _decompress_frames(bufs[j], segs[j][c], fused, dummy, add=False, wdt=wdt)
+
+    start(0)
+    for c in range(depth):
+        if c + 1 < depth:
+            start(c + 1)
+        finish(c)
+
+
+def _sched_tables(sizes: Sequence[int], layers: Sequence[Layer]) -> Optional[List[List[Tuple[int, int]]]]:
+    """Every rank's sub-chunk plan (``schedule.chunk_table``,
+    ``CGX_SCHED_CHUNKS`` deep, aligned to the lcm of the layers' buckets
+    and 32), or None where no chunk sustains two (the JAX backend's copy of
+    the table, ``_sched_chunk_table``, is the same function).
+    Group-global: every rank derives every rank's table from the chunk
+    sizes, the layers and the knobs, and the tables are padded to one depth
+    with empty sub-chunks, whose empty frames travel like empty chunks."""
+    align = 1
+    for b in [c.bucket_size for (_o, _n, c) in layers] or [1]:
+        align = math.lcm(align, max(1, b))
+    chunks = cfg.sched_chunks()
+    tables = [list(sched_mod.chunk_table(s, chunks, align)) for s in sizes]
+    depth = max((len(t) for t in tables), default=1)
+    if depth < 2:
+        return None
+    for t in tables:
+        while len(t) < depth:
+            end = t[-1][0] + t[-1][1] if t else 0
+            t.append((end, 0))
+    return tables
+
+
+def _sched_rng(pfx: str, c: int, salt: str) -> Rng:
+    """The frame-seed generator of sub-chunk ``c``'s stage ``salt`` ("enc":
+    the stage-1 frames, "req": the requantize) of the collective ``pfx``
+    under stochastic rounding (else None): the JAX backend's
+    ``default_rng((CGX_SEED << 16) ^ (rank + 1) ^ crc32(f"{pfx}/c{c}/{salt}"))``,
+    ``rank`` the process's rank in the default group."""
+    if not cfg.stochastic_rounding():
+        return None
+    mix = zlib.crc32(f"{pfx}/c{c}/{salt}".encode())
+    return np.random.default_rng((cfg.global_seed() << 16) ^ (group_mod.rank() + 1) ^ mix)
 
 
 def _qreduce_ring(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
@@ -437,13 +534,19 @@ def _qreduce_alltoall(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.d
 
 
 def _qreduce_flat(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype, algo: str,
-                  group: ProcessGroup, force_raw: bool = False, rng: Rng = None) -> None:
+                  group: ProcessGroup, force_raw: bool = False, rng: Rng = None,
+                  pfx: str = "") -> None:
     """One level's reduction over ``group``. ``force_raw``: pass-through
     frames whatever the layers' configs (the two-level scheme's
     uncompressed cross stage). ``rng``: the rank's frame-seed generator
-    under stochastic rounding."""
-    reduce = {cfg.REDUCTION_ALLTOALL: _qreduce_alltoall, cfg.REDUCTION_RING: _qreduce_ring}
-    reduce.get(algo, _qreduce_sra)(fused, layers, wdt, group, force_raw, rng)
+    under stochastic rounding. ``pfx``: the collective's name, for the
+    pipelined SRA's streams."""
+    if algo == cfg.REDUCTION_ALLTOALL:
+        _qreduce_alltoall(fused, layers, wdt, group, force_raw, rng)
+    elif algo == cfg.REDUCTION_RING:
+        _qreduce_ring(fused, layers, wdt, group, force_raw, rng)
+    else:
+        _qreduce_sra(fused, layers, wdt, group, force_raw, rng, pfx)
 
 
 def _sum_alltoall(part: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
@@ -658,7 +761,7 @@ def _use_hierarchy(group: ProcessGroup, topo: cfg.TopologyConfig) -> bool:
 
 def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
                   topo: cfg.TopologyConfig, hm: HostMap, rng: Rng = None,
-                  rng3: Rng = None) -> None:
+                  rng3: Rng = None, pfx: str = "") -> None:
     """The two-level leader reduction:
 
     1. each non-leader frames its whole buffer once (pass-through frames
@@ -675,7 +778,8 @@ def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
     bit for bit. Under stochastic rounding stages 1 and 2 draw their frame
     keys from this rank's ``rng``, stage 3 from ``rng3``, a generator that
     every leader seeds alike, so that the leaders' stage-3 frames stay
-    identical."""
+    identical. ``pfx``: the collective's name; the leaders' cross stage is
+    ``{pfx}/hx``."""
     me = dist.get_rank(hm.intra)  # this rank's local index
     nl = len(hm.local)
     raw = cfg.dummy_compression() or not topo.intra_compress
@@ -693,7 +797,7 @@ def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
         for idx in range(1, nl):
             _decompress_frames(bufs[idx], segs, fused, raw, add=True, wdt=wdt)
     _qreduce_flat(fused, layers, wdt, topo.cross_reduction, hm.cross,
-                  force_raw=not topo.cross_compress, rng=rng)
+                  force_raw=not topo.cross_compress, rng=rng, pfx=f"{pfx}/hx")
     wire = _requantize_frames(fused, segs, raw, wdt, rng3)
     if nl > 1:
         _alltoallv([None] + [wire] * (nl - 1), [0] * nl, size > 0, hm.intra, dev)
@@ -705,6 +809,7 @@ def _qreduce_hier(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype
 
 _RNGS: Dict[object, np.random.Generator] = {}
 _SEQ: Dict[object, int] = {}  # two-level allreduces a group has run
+_QSEQ: Dict[object, int] = {}  # quantized allreduces a group has run
 
 
 def _stochastic_rng(group: ProcessGroup) -> Rng:
@@ -718,6 +823,15 @@ def _stochastic_rng(group: ProcessGroup) -> Rng:
     if key not in _RNGS:
         _RNGS[key] = np.random.default_rng((cfg.global_seed() << 16) ^ (group_mod.rank(group) + 1))
     return _RNGS[key]
+
+
+def _collective_name(group: ProcessGroup) -> str:
+    """The name of this quantized allreduce of ``group``, ``cgx{n}q`` for
+    the group's n-th one (every rank runs them in one order): the pipelined
+    SRA's streams are keyed by it."""
+    key = _group_key(group)
+    _QSEQ[key] = _QSEQ.get(key, 0) + 1
+    return f"cgx{_QSEQ[key]}q"
 
 
 def _stage3_rng(group: ProcessGroup) -> Rng:
@@ -742,7 +856,7 @@ def _stage3_rng(group: ProcessGroup) -> Rng:
 def _refuse_unported(topo: cfg.TopologyConfig, hier: bool) -> None:
     """Raise, on every rank alike and before any collective of the bucket,
     for what the JAX backend would run and the port does not have."""
-    cfg.refuse_pipelined_sra(topo.cross_reduction if hier else topo.intra_reduction)
+    cfg.refuse_planner(topo.cross_reduction if hier else topo.intra_reduction)
     if hier and cfg.async_mode() == "on":
         raise NotImplementedError(
             f"{cfg.ASYNC}=on (the two-level scheme without its cross stage, for the "
@@ -824,10 +938,11 @@ def _allreduce_quantized(t: torch.Tensor, group: ProcessGroup,
             off += n
         wdt = _wire_dtype(t.dtype)
         rng = _stochastic_rng(group)
+        pfx = _collective_name(group)
         if hier:
-            _qreduce_hier(fused, fl, wdt, topo, _hosts(group), rng, _stage3_rng(group))
+            _qreduce_hier(fused, fl, wdt, topo, _hosts(group), rng, _stage3_rng(group), pfx)
         else:
-            _qreduce_flat(fused, fl, wdt, topo.intra_reduction, group, rng=rng)
+            _qreduce_flat(fused, fl, wdt, topo.intra_reduction, group, rng=rng, pfx=pfx)
         off = 0
         for (o, n) in spans:
             arr[o : o + n] = fused[off : off + n]
@@ -939,6 +1054,7 @@ def release(group: ProcessGroup = None, timeout: float = 60.0) -> None:
         raise RuntimeError(f"the bucket worker {worker.thread.name} did not stop within {timeout} s")
     _RNGS.pop(key, None)
     _SEQ.pop(key, None)
+    _QSEQ.pop(key, None)
     hm = _HOSTS.pop(key, None)
     if hm is not None and hm.intra is not None:
         _RETIRED.setdefault(_retired_key(group, hm.hosts), []).append((hm.intra, hm.cross))
