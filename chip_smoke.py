@@ -246,6 +246,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import multiprocessing as mp
 import os
 import queue
@@ -1566,16 +1567,17 @@ class LaunchModel:
             self.codec("codec_dequantize", m, cc)
             self.codec("codec_dequantize", m, cc, add=True)
 
-    def sra(self, m: int, ws: int, cc, produced=None) -> None:
+    def sra(self, m: int, ws: int, cc, produced=None, chunks=None) -> None:
         """``produced``: the dtype of the operands of the backward's
         matmul-quantize that made the stage-1 payload, in place of the
         quantize (float32 operands run the split pass before it), or
-        None."""
+        None. ``chunks``: the step planner's depth for the slice (None: the
+        schedule's knobs)."""
         import torch
 
         from torch_cgx_tpu_torch.parallel import chunk_layout
 
-        sched = self._schedule(m, ws, cc)
+        sched = self._schedule(m, ws, cc, chunks)
         if sched is not None:
             # The pipelined SRA: each column block quantized (under producer
             # fusion by the backward, from dw, with the same B1), folded and
@@ -1598,12 +1600,13 @@ class LaunchModel:
             self.codec("codec_quantize", c, cc)
         self.codec("codec_dequantize", c, cc, ws)
 
-    def _schedule(self, m: int, ws: int, cc):
+    def _schedule(self, m: int, ws: int, cc, chunks=None):
         """``allreduce_flat``'s pipeline plan of a flat SRA slice of ``m``
-        values (None: monolithic)."""
+        values (None: monolithic), at the planner's depth ``chunks`` where
+        it plans the slice."""
         from torch_cgx_tpu_torch.parallel import schedule
 
-        return schedule.compiled_schedule(m, ws, cc)
+        return schedule.compiled_schedule(m, ws, cc, chunks=chunks)
 
     def ring(self, m: int, ws: int, cc) -> None:
         from torch_cgx_tpu_torch.parallel import chunk_layout
@@ -1620,16 +1623,18 @@ class LaunchModel:
         self.codec("codec_quantize", m, cc)
         self.reduce(ws, m, cc)
 
-    def flat(self, m: int, ws: int, cc, reduction: str) -> None:
-        """``reducers.quantized_allreduce``."""
+    def flat(self, m: int, ws: int, cc, reduction: str, chunks=None) -> None:
+        """``reducers.quantized_allreduce`` (``chunks``: the planner's depth
+        of an SRA slice)."""
         from torch_cgx_tpu_torch import config as cfg
 
         if ws == 1:
             if cc.enabled and cfg.force_codec():
                 self.proxy(m, cc)
         elif cc.enabled and not cfg.dummy_compression() and reduction != cfg.REDUCTION_PSUM:
-            {cfg.REDUCTION_SRA: self.sra, cfg.REDUCTION_RING: self.ring,
-             cfg.REDUCTION_ALLTOALL: self.alltoall}[reduction](m, ws, cc)
+            if reduction == cfg.REDUCTION_SRA:
+                return self.sra(m, ws, cc, chunks=chunks)
+            {cfg.REDUCTION_RING: self.ring, cfg.REDUCTION_ALLTOALL: self.alltoall}[reduction](m, ws, cc)
 
     def hook(self, layers, ws: int, me: int, reduction: str, hosts=None) -> None:
         """``torch_backend.backend.allreduce`` of one DDP bucket on rank
@@ -1688,8 +1693,7 @@ class LaunchModel:
             for step in range(ws - 1):
                 each(segs[(me - step) % ws], "codec_dequantize")
             return
-        tables = (backend._sched_tables(sizes, fl) if ws > 1 and cfg.schedule_mode() == "on"
-                  else None)
+        tables = backend._sched_tables(sizes, fl) if ws > 1 and backend._pipelines() else None
         if tables is not None:  # the pipelined SRA: the same, sub-chunk by sub-chunk
             segs = [[backend._segments_in(fl, offs[r] + o, offs[r] + o + w) for o, w in tables[r]]
                     for r in range(ws)]
@@ -1734,7 +1738,8 @@ class LaunchModel:
         if intra:
             self._each(segs, "codec_quantize", "codec_dequantize")
 
-    def roundtrip(self, m: int, ws: int, cc, reduction: str, mirror: bool = False) -> None:
+    def roundtrip(self, m: int, ws: int, cc, reduction: str, mirror: bool = False,
+                  chunks=None) -> None:
         """What ``return_roundtrip`` adds to a flat reduction of ``m`` values
         (error feedback): SRA and the all-to-all decode the rows they sent
         (one B2 of ws rows, of one row); the Ring quantizes and decodes its
@@ -1746,7 +1751,7 @@ class LaunchModel:
 
         if ws == 1 or not cc.enabled or cfg.dummy_compression() or reduction == cfg.REDUCTION_PSUM:
             return
-        sched = None if mirror or reduction != cfg.REDUCTION_SRA else self._schedule(m, ws, cc)
+        sched = None if mirror or reduction != cfg.REDUCTION_SRA else self._schedule(m, ws, cc, chunks)
         if sched is not None:  # the pipelined SRA decodes each block it sent
             for _, w in sched.table:
                 self.codec("codec_dequantize", w, cc, ws)
@@ -1824,16 +1829,28 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
     ``roundtrip``: the error-feedback sync, ``allreduce_tree(...,
     return_roundtrip=True)`` of the float32 ``g / ws + e`` (every group
     float32), with the round trip's launches. Each group's fusion slices
-    hold 64 MB of its dtype's values."""
+    hold 64 MB of its dtype's values. Under ``CGX_PLANNER=on`` a flat sync
+    takes the step planner's plan of the layout (``planner.plan_for_layout``):
+    each slice at its decision's depth and bits; a produced layer whose
+    width (or, at the same width, depth) the plan moved stages its payload
+    in the backward all the same (per block, B1, where the producer's own
+    view of the slice pipelines) and falls back to the quantize at the
+    planned width and depth."""
+    import torch
+
     from torch_cgx_tpu_torch import config as cfg
     from torch_cgx_tpu_torch.ops import fused_producer
-    from torch_cgx_tpu_torch.parallel import allreduce
+    from torch_cgx_tpu_torch.parallel import allreduce, planner
 
     model = LaunchModel(next(iter(named_grads.values())).device, stochastic)
     if roundtrip:
         named_grads = {k: v.float() for k, v in named_grads.items()}
     paths_leaves = allreduce.sorted_items(named_grads)
-    for g in allreduce._group_leaves(paths_leaves, compress_small=False):
+    groups = allreduce._tree_layout(paths_leaves, False).groups
+    plan = None
+    if two_level is None and planner.engaged():
+        plan = planner.plan_for_layout(groups, ws, reduction=cfg.intra_reduction())
+    for gi, g in enumerate(groups):
         if not g.cc.enabled:
             continue
         path, leaf = paths_leaves[g.indices[0]]
@@ -1842,15 +1859,28 @@ def expected_launches(named_grads, ws: int = 1, two_level=None, dense_k=None,
             and path in dense_k and fused_producer.engaged()
             and fused_producer.decide(path, tuple(leaf.shape), dense_k[path], ws)[0] is not None
         )
-        n = sum(paths_leaves[i][1].numel() for i in g.indices)
         model.dtype = g.dtype
-        for _, ln in allreduce._fusion_slices(n, leaf.element_size()):
-            if produced:
-                model.sra(ln, ws, g.cc, produced=dense_dtype)
+        for si, (_, ln) in enumerate(g.slices):
+            dec = plan.decisions[gi][si] if plan is not None else None
+            cc = allreduce.planned_config(g.cc, dec)
+            chunks = dec.chunks if dec is not None else None
+            table = fused_producer._schedule_table(g.cc, ws, ln) if produced else None
+            if produced and dec is not None and (
+                    cc is not g.cc or table != fused_producer._schedule_table(g.cc, ws, ln, dec)):
+                # Staged in the backward at the producer's own view of the
+                # slice, refused by the sync (``plan``).
+                if table is None:
+                    model.counts["codec_matmul_quantize"] += 1
+                    model.counts["codec_tf32_split"] += dense_dtype == torch.float32
+                for _, w in table or ():
+                    model.codec("codec_quantize", w, g.cc, ws)
+                model.sra(ln, ws, cc, chunks=chunks)
+            elif produced:
+                model.sra(ln, ws, cc, produced=dense_dtype, chunks=chunks)
             elif two_level is None:
-                model.flat(ln, ws, g.cc, cfg.intra_reduction())
+                model.flat(ln, ws, cc, cfg.intra_reduction(), chunks)
                 if roundtrip:
-                    model.roundtrip(ln, ws, g.cc, cfg.intra_reduction())
+                    model.roundtrip(ln, ws, cc, cfg.intra_reduction(), chunks=chunks)
             else:
                 model.two_level(ln, *two_level, g.cc, cfg.topology_from_env())
                 if roundtrip:
@@ -2169,8 +2199,10 @@ def db_phase(dev, cfg, sl: dict, steps: int) -> dict:
     ``off``; (a) the autotune sweep over the step's shapes into a fresh
     cache directory; (c) one step under ``auto`` over that cache, which must
     hit it and launch the pipelined kernels exactly where the winners say.
-    The cache directory is removed at the end."""
+    The cache directory is removed at the end. Returns the step planner's
+    model calibrated from the sweep (``CostModel.from_telemetry``) too."""
     from torch_cgx_tpu_torch.ops import autotune, codec_cuda
+    from torch_cgx_tpu_torch.parallel import planner
 
     tokens = sl["tokens"]
     log("  (b) forced: CGX_PALLAS_DB=on, the same steps from the seed")
@@ -2216,10 +2248,14 @@ def db_phase(dev, cfg, sl: dict, steps: int) -> dict:
         assert np.isfinite(loss) and hits > 0, (loss, hits)
         assert tuned == tuned_expected, (tuned, tuned_expected)
         assert any(tuned[k] for k in DB_KEYS) == bool(on), (tuned, on)
+        # The step planner's model from the card's own rates: the sweep's
+        # entries in the memo (phase 7 writes it to its model file).
+        planner_model = planner.CostModel.from_telemetry()
+        log(f"  the planner's model from the swept cache: {planner_model.as_dict()}")
     os.environ["CGX_AUTOTUNE_DIR"] = home
     os.environ["CGX_PALLAS_DB"] = "off"
     autotune.invalidate("sweep done")
-    return {"launches": launches, "winners": winners}
+    return {"launches": launches, "winners": winners, "planner_model": planner_model}
 
 
 def lowering_phase(dev, cfg, sl: dict, steps: int) -> dict:
@@ -3487,6 +3523,11 @@ def time_int8(dev, name: str) -> dict:
 # leader scheme mirrors its intra stage 1 (one more B1 and B2 a slice).
 # "sra_guard_*": the nonfinite guard under CGX_NONFINITE_GUARD, rank
 # GUARD_RANK's loss scaled by NaN at step GUARD_STEP (:func:`guard_run`).
+# The planner's model file: written by multirank_phase beside the ranks'
+# store before they start (every rank reads the same bytes); the ranks put
+# its path in place of this name.
+PLANNER_MODEL = "planner-model.json"
+PLANNED_AVG_BITS = "3.5"
 MR_CONFIGS = {
     "two_level": ({}, "two_level", "bf16"),
     "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, "world", "bf16"),
@@ -3511,13 +3552,27 @@ MR_CONFIGS = {
     "sra_sched": ({"CGX_SCHEDULE": "on"}, "world", "f32s"),
     "sra_sched_ef": ({"CGX_SCHEDULE": "on"}, "world", "f32s"),
     "sra_producer_sched": ({"CGX_PRODUCER_FUSE": "on", "CGX_SCHEDULE": "on"}, "world", "f32s"),
+    # The step planner (CGX_PLANNER=on, CGX_SCHEDULE unset): "sra_planned"
+    # under the default model on a float32 model fresh from the seed
+    # ("f32p"), whose parameters and losses after MR_STEPS steps must equal
+    # sra's; then on that model one step each: a 3.5-bit budget under the
+    # model file the parent wrote from the autotune sweep (PLANNER_MODEL),
+    # and producer fusion under the planner, without and with the budget.
+    "sra_planned": ({"CGX_PLANNER": "on"}, "world", "f32p"),
+    "sra_planned_bits": ({"CGX_PLANNER": "on", "CGX_PLANNER_AVG_BITS": PLANNED_AVG_BITS,
+                          "CGX_PLANNER_MODEL": PLANNER_MODEL}, "world", "f32p"),
+    "sra_planned_producer": ({"CGX_PLANNER": "on", "CGX_PRODUCER_FUSE": "on"}, "world", "f32p"),
+    "sra_planned_producer_bits": ({"CGX_PLANNER": "on", "CGX_PRODUCER_FUSE": "on",
+                                   "CGX_PLANNER_AVG_BITS": PLANNED_AVG_BITS,
+                                   "CGX_PLANNER_MODEL": PLANNER_MODEL}, "world", "f32p"),
     "two_level_ef": ({}, "two_level", "bf16"),
     "two_level_bf16p": ({}, "two_level", "bf16p"),
     "alltoall_bf16p": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, "world", "bf16p"),
 }
-MR_MULTISTEP = ("two_level", "sra", "sra_ef", "two_level_ef", "sra_sched")  # MR_STEPS steps; the rest one
+MR_MULTISTEP = ("two_level", "sra", "sra_ef", "two_level_ef", "sra_sched",
+                "sra_planned")  # MR_STEPS steps; the rest one
 MR_PROFILED = ("sra", "sra_ef", "two_level", "two_level_ef", "sra_producer",
-               "sra_producer_bf16", "sra_sched")  # one profiled step on rank 0
+               "sra_producer_bf16", "sra_sched", "sra_planned")  # one profiled step on rank 0
 GUARD_RANK, GUARD_STEP = 2, 1
 PRODUCED_LAYERS = 12 * len(MM_SHAPES)  # 36 payloads a rank and step
 PROJ_LAYERS = 12  # attn_proj: below CGX_STANDALONE_LAYER_ELEMS, in the fused group
@@ -3660,6 +3715,92 @@ def producer_sched_check(model, loss_fn, tokens) -> dict:
     return {"counts": counts, "checked": checked, "failed": failed, "depths": sorted(depths), "b8": mm}
 
 
+def _planned_layout(named_grads):
+    """The flat world's layout of ``named_grads`` and the step planner's
+    plan of it under the knobs as they stand."""
+    from torch_cgx_tpu_torch import config as cfg
+    from torch_cgx_tpu_torch.parallel import allreduce, planner
+
+    groups = allreduce._tree_layout(allreduce.sorted_items(named_grads), False).groups
+    return groups, planner.plan_for_layout(groups, MR_WS, reduction=cfg.intra_reduction())
+
+
+def plan_record(named_grads) -> dict:
+    """The plan a step of ``named_grads`` runs under: each compressed
+    slice's (group, slice, length, bits, depth), the predicted step and its
+    parts, and the model's terms."""
+    from torch_cgx_tpu_torch.parallel import planner
+
+    _, plan = _planned_layout(named_grads)
+    return {"slices": [(gi, si, d.n, d.bits, d.chunks) for gi, g in enumerate(plan.decisions)
+                       for si, d in enumerate(g) if d.bits <= 8],
+            "predicted_s": plan.predicted_s, "components": dict(plan.pred_components),
+            "model": planner.cost_model().as_dict()}
+
+
+def planned_producer_moves(named_grads, dense_k) -> dict:
+    """Of the layers whose backward stages a payload
+    (``fused_producer.decide``), those the plan moved: its width differs
+    from the layer's config (``bits``), or at the same width its depth
+    differs from the producer's own one-slice view (``depth``); the sync
+    falls back (``plan``) for exactly these."""
+    from torch_cgx_tpu_torch.ops import fused_producer
+    from torch_cgx_tpu_torch.parallel import allreduce
+
+    groups, plan = _planned_layout(named_grads)
+    pl = allreduce.sorted_items(named_grads)
+    out = {"bits": [], "depth": [], "staged": 0}
+    for gi, g in enumerate(groups):
+        path, leaf = pl[g.indices[0]]
+        if len(g.indices) != 1 or path not in dense_k or not g.cc.enabled:
+            continue
+        if fused_producer.decide(path, tuple(leaf.shape), dense_k[path], MR_WS)[0] is None:
+            continue
+        out["staged"] += 1
+        dec = plan.decisions[gi][0]
+        n = leaf.numel()
+        if dec.bits != g.cc.bits:
+            out["bits"].append(path)
+        elif fused_producer._schedule_table(g.cc, MR_WS, n) != fused_producer._schedule_table(
+                g.cc, MR_WS, n, dec):
+            out["depth"].append(path)
+    return out
+
+
+def planned_width_checks(named_grads, dev) -> list:
+    """For the smallest planned slice of each width: its values reduced by
+    ``allreduce_flat`` over the flat world at its decision (depth and bits)
+    on the card, and by the plain versions on the CPU (:func:`_plain_cpu`),
+    bit for bit; the card's launches against the :class:`LaunchModel`'s."""
+    import torch
+
+    from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.parallel import allreduce
+
+    groups, plan = _planned_layout(named_grads)
+    pl = allreduce.sorted_items(named_grads)
+    best = {}
+    for gi, g in enumerate(groups):
+        for si, (off, ln) in enumerate(g.slices):
+            d = plan.decisions[gi][si]
+            if d.bits <= 8 and (d.bits not in best or ln < best[d.bits][2]):
+                best[d.bits] = (gi, si, ln, off)
+    out = []
+    for bits, (gi, si, ln, off) in sorted(best.items()):
+        g, dec = groups[gi], plan.decisions[gi][si]
+        piece = torch.cat([pl[i][1].reshape(-1) for i in g.indices])[off : off + ln].contiguous()
+        model = LaunchModel(dev)
+        model.sra(ln, MR_WS, allreduce.planned_config(g.cc, dec), chunks=dec.chunks)
+        codec_cuda.reset_launch_counts()
+        card = allreduce.allreduce_flat(piece, g.cc, plan=[dec])
+        sync(dev)
+        launches = dict(codec_cuda.LAUNCHES)
+        plain = _plain_cpu(allreduce.allreduce_flat, piece.cpu(), g.cc, plan=[dec])
+        out.append({"bits": bits, "n": ln, "chunks": dec.chunks, "group": gi, "same": _same_bits(card.cpu(), plain),
+                    "launches": launches, "expected": model.counts})
+    return out
+
+
 def block_copy_ms(named_grads, dev) -> dict:
     """The pipelined SRA's glue copies of one rank-step of ``named_grads``
     over MR_WS ranks: the block copies before each quantize
@@ -3752,7 +3893,12 @@ HOOK_INT8_RERUN = "SRA float32 CGX_SRA_ACCUM=int8"
 # The CGX_SCHEDULE=on reruns, by configuration, and the rerun whose bucket
 # bytes each must equal.
 HOOK_SCHED_RERUNS = {"ddp_hook": "SRA float32 scheduled", "ddp_hook_hier": "cross SRA float32 scheduled"}
-HOOK_SCHED_OF = {"SRA float32 scheduled": "SRA float32", "cross SRA float32 scheduled": "cross SRA float32"}
+# The CGX_PLANNER=on rerun: the pipelined bucket SRA at the planner's depth
+# (planner.bridge_chunks, the default model), on the scheduled rerun's
+# buckets; its bytes too must equal SRA float32's.
+HOOK_PLANNED_RERUN = "SRA float32 planned"
+HOOK_SCHED_OF = {"SRA float32 scheduled": "SRA float32", "cross SRA float32 scheduled": "cross SRA float32",
+                 HOOK_PLANNED_RERUN: "SRA float32"}
 HOOK_SCHED_DEPTH = 4  # CGX_SCHED_CHUNKS unset: the sub-chunks of a pipelined SRA
 HOOK_CONFIGS = {
     "ddp_hook": (lambda rank: {"CGX_INNER_REDUCTION_TYPE": "SRA"}, (
@@ -3767,6 +3913,7 @@ HOOK_CONFIGS = {
         # segment's bucket grid).
         (HOOK_SCHED_RERUNS["ddp_hook"], {"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_SCHEDULE": "on"},
          "float32"),
+        (HOOK_PLANNED_RERUN, {"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_PLANNER": "on"}, "float32"),
     )),
     # The cross SRA and cross all-to-all reruns put B3 and B4 inside the
     # leaders' stage, CGX_INTRA_COMPRESS=0 the raw intra frames.
@@ -3855,6 +4002,7 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
 
     from torch_cgx_tpu_torch import config as ccfg
     from torch_cgx_tpu_torch.ops import codec_cuda
+    from torch_cgx_tpu_torch.parallel import planner
     from torch_cgx_tpu_torch.tools.hookprof import ddp_setup
     from torch_cgx_tpu_torch.torch_backend import backend
     from torch_cgx_tpu_torch.torch_backend.hooks import REGISTRATION_STEP
@@ -3932,13 +4080,17 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             [(key, buf.numel()) for key, buf in mine], MR_WS, rank, dev, hosts)
         t1 = time.perf_counter()
         same, rr_launches, rr_int8, card_digests = 0, {k: 0 for k in codec_cuda.LAUNCHES}, 0, []
-        pipelined, card_s = [], []
+        pipelined, card_s, bridge = [], [], []
         real_tables = backend._sched_tables
 
-        def tables(*a):  # the depth of every SRA that pipelines
-            t = real_tables(*a)
+        def tables(sizes, layers):  # the depth of every SRA that pipelines
+            t = real_tables(sizes, layers)
             if t is not None:
                 pipelined.append(len(t[0]))
+            if ccfg.planner_mode() == "on":  # and the planner's depth for it
+                align = math.lcm(*[c.bucket_size for _, _, c in layers])
+                bits = next((c.bits for _, _, c in layers if c.enabled), 32)
+                bridge.append(planner.bridge_chunks(max(sizes), align, len(sizes), bits, 0))
             return t
 
         backend._sched_tables = tables
@@ -3960,7 +4112,7 @@ def ddp_hook_rank(rank: int, dev, gcfg, tokens, loss_fn, name: str) -> dict:
             same += _same_bits(card.cpu(), plain)
         backend._sched_tables = real_tables
         reruns[label] = {"same": same, "buckets": len(mine), "launches": rr_launches,
-                         "pipelined": pipelined, "card_s": card_s,
+                         "pipelined": pipelined, "bridge": bridge, "card_s": card_s,
                          "values": sum(b.numel() for _, b in mine), "int8": rr_int8,
                          "digests": card_digests,
                          "expected": rr_expected, "seconds": time.perf_counter() - t1}
@@ -4102,7 +4254,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         from torch_cgx_tpu_torch.models import GPT2, Dense, GPT2Config, lm_loss
         from torch_cgx_tpu_torch.ops import codec_cuda, fused_producer
         from torch_cgx_tpu_torch.parallel import (
-            allreduce_flat, gradient_sync, hierarchical_groups, make_train_step, schedule,
+            allreduce_flat, gradient_sync, hierarchical_groups, make_train_step, planner, schedule,
         )
         from torch_cgx_tpu_torch.tools import shapebench
         from torch_cgx_tpu_torch.tools.hookprof import rank_tokens
@@ -4143,12 +4295,14 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
         # the wte gradient for the kernels-vs-plain check.
         grads16 = {k: v.to(torch.bfloat16) for k, v in grads.items()}
         first16 = grads16["wte.embedding"].reshape(-1)[:FLAT16_N].contiguous()
+        model_file = os.path.join(os.path.dirname(store), PLANNER_MODEL)
         for name, (knobs, kind, model_kind) in MR_CONFIGS.items():
+            knobs = {k: model_file if v == PLANNER_MODEL else v for k, v in knobs.items()}
             _configure(knobs)
             if model_kind not in models:
-                if model_kind in ("bf16p", "f32s"):
-                    models.pop("f32", None)  # the float32 configurations before are done
-                    models.pop("f32s", None)
+                if model_kind in ("bf16p", "f32s", "f32p"):
+                    for done in ("f32", "f32s", "f32p"):  # the float32 configurations before are done
+                        models.pop(done, None)
                     torch.cuda.empty_cache()
                 if model_kind == "bf16p":
                     m32 = GPT2(cfg, device=dev,
@@ -4197,6 +4351,11 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                 res["slice_same"] = _same_bits(gpu.cpu(), cpu)
                 res["slice_n"] = check.numel()
                 res["slice_dtype"] = str(check.dtype)
+            if name.startswith("sra_planned"):
+                res["plan"] = plan_record(grads)
+                res["moved"] = planned_producer_moves(grads, dense_k)
+            if name == "sra_planned_bits":
+                res["widths"] = planned_width_checks(grads, dev)
             if name == "sra_producer_sched" and rank == 0:
                 res["check"] = producer_sched_check(mdl, loss_fn, tokens)
             elif name.startswith("sra_producer") and rank == 0:
@@ -4211,6 +4370,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                 codec_cuda.reset_launch_counts()
                 fused_producer.reset_counts()
                 schedule.reset_counts()
+                planner.reset_counts()
                 res["step_times"] = []
                 res["losses"] = []
                 for _ in range(steps):
@@ -4220,7 +4380,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
                     res["step_times"].append(time.perf_counter() - t0)
                 res["step_s"] = sum(res["step_times"]) / steps
                 res["steps"] = steps
-                if name in ("sra", "sra_sched"):  # the parameters after the same steps from the seed
+                if name in ("sra", "sra_sched", "sra_planned"):  # the parameters after the same steps from the seed
                     res["step_digests"] = _digests(mdl)
             res["launches"] = dict(codec_cuda.LAUNCHES)
             res["wire16"] = dict(codec_cuda.WIRE16_LAUNCHES)
@@ -4229,6 +4389,7 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
             res["mm_tc"] = codec_cuda.MM_TC_LAUNCHES["launches"]
             res["producer"] = dict(fused_producer.COUNTS)
             res["sched"] = dict(schedule.COUNTS)
+            res["planner"] = dict(planner.COUNTS)
             if name == "sra_sched":  # rank 0 times the copies alone: the others wait at a barrier
                 dist.barrier()
                 if rank == 0:
@@ -4266,13 +4427,26 @@ def _rank_main(rank: int, store: str, result_q, dev_name: str, size: str, seq: i
 
 
 def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SEQ,
-                    smi: str = "") -> dict:
+                    smi: str = "", planner_model=None) -> dict:
     """Spawn the ranks, collect their results within ``MR_TIMEOUT_S``, stop
     every process, and hold the results to the phase's checks. ``smi``: the
-    card's name and power limit, printed beside the ``ddp_hook`` times."""
+    card's name and power limit, printed beside the ``ddp_hook`` times.
+    ``planner_model``: the step planner's model (``planner.CostModel``)
+    written to the ranks' PLANNER_MODEL file before they start; where it is
+    None or not calibrated by the autotune cache, the default model's
+    stated rates."""
+    from torch_cgx_tpu_torch.parallel import planner
+
+    if planner_model is None or "autotune" not in planner_model.source:
+        log(f"  the autotune memo held no measured rate ({planner_model and planner_model.source}): the "
+            f"planner's model file holds the default model's stated rates")
+        planner_model = planner.CostModel.default()
     ctx = mp.get_context("spawn")
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
+        planner_model.save(os.path.join(tmp, PLANNER_MODEL))
+        log(f"  the planner's model file for {', '.join(n for n in MR_CONFIGS if PLANNER_MODEL in MR_CONFIGS[n][0].values())}: "
+            f"{planner_model.as_dict()}")
         result_q = ctx.Queue()
         procs = [
             ctx.Process(target=_rank_main,
@@ -4377,6 +4551,7 @@ def multirank_phase(dev_name: str = "cuda:0", size: str = "small", seq: int = SE
 
     producer_checks(res)
     sched_checks(res, smi)
+    planner_checks(res, smi)
     for name in HOOK_CONFIGS:
         hook_check(res, name, smi)
     launches = dict(res[0]["two_level"]["launches"])
@@ -4542,6 +4717,99 @@ def sched_checks(res, smi: str) -> None:
         f"step {prod['step_s']:.3f} s")
 
 
+def planner_checks(res, smi: str) -> None:
+    """Phase 7's checks of the step planner (CGX_PLANNER=on), each failing
+    the phase: ``sra_planned``'s parameters and losses after its MR_STEPS
+    steps from the seed equal ``sra``'s on every rank, every rank ran the
+    same plan, and each slice of depth two or more pipelined in its planned
+    blocks; ``sra_planned_bits``' checked slices (one of each width) equal
+    the plain versions on the CPU, with the launches the model derives;
+    ``sra_planned_producer`` consumed every produced layer's payload;
+    ``sra_planned_producer_bits`` fell back (``plan``) for exactly the
+    layers the plan moved and consumed the rest. Logs the plans, the
+    launches and rank 0's profile beside ``sra_sched``'s and ``sra``'s."""
+    base, sched, pl = res[0]["sra"], res[0]["sra_sched"], res[0]["sra_planned"]
+    plan = pl["plan"]
+    deep = [x for x in plan["slices"] if x[4] >= 2]
+    blocks = sum(x[4] for x in deep)
+    for r, o in enumerate(res):
+        c = o["sra_planned"]
+        diff = [k for k in c["step_digests"] if c["step_digests"][k] != o["sra"]["step_digests"][k]]
+        assert not diff, ("sra_planned against sra", r, diff[:5])
+        assert c["losses"] == o["sra"]["losses"], (r, c["losses"], o["sra"]["losses"])
+        assert c["plan"] == plan, (r, "another plan")
+        assert c["sched"]["pipelined_slices"] == len(deep) * c["steps"], (r, c["sched"], len(deep))
+        assert c["sched"]["blocks"] == blocks * c["steps"], (r, c["sched"], blocks)
+        assert c["sched"]["block_copies"] == c["sched"]["blocks"], (r, c["sched"])
+        assert c["sched"]["join_copies"] == c["sched"]["pipelined_slices"], (r, c["sched"])
+        assert c["planner"]["compiled"] + c["planner"]["cache_hits"] >= c["steps"], (r, c["planner"])
+    depths = {}
+    for _, _, n, bits, chunks in plan["slices"]:
+        depths.setdefault((n, bits, chunks), 0)
+        depths[(n, bits, chunks)] += 1
+    log(f"  sra_planned (default model): {len(plan['slices'])} compressed slices, {sum(x[4] for x in plan['slices'])} "
+        f"blocks a rank-step; (length, bits, depth) x slices: "
+        + ", ".join(f"({n}, {b}, {c}) x {k}" for (n, b, c), k in sorted(depths.items()))
+        + f"; predicted step {1e3 * plan['predicted_s']:.3f} ms ("
+        + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in sorted(plan["components"].items())) + " ms)")
+    exp = pl["expected"]
+    log(f"    launches a rank-step {({k: v for k, v in exp.items() if v})} against sra_sched's "
+        f"{({k: v for k, v in sched['expected'].items() if v})} and sra's "
+        f"{({k: v for k, v in base['expected'].items() if v})}; parameters and losses after {pl['steps']} steps equal "
+        f"sra's on every rank; block copies {pl['sched']['block_copies'] // pl['steps']} and joins "
+        f"{pl['sched']['join_copies'] // pl['steps']} a rank-step")
+    for name in ("sra", "sra_sched", "sra_planned"):
+        p = res[0][name].get("profile", {})
+        log(f"    {name}, rank 0's profiled step: codec kernels {p.get('codec_ms', 0.0):.3f} ms "
+            f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(p.get('codec_by_kernel', {}).items()))}), "
+            f"device busy {p.get('busy_ms', 0.0):.2f} ms of {p.get('wall_ms', 0.0):.1f} ms; host-clock "
+            f"step {res[0][name]['step_s']:.3f} s (each {[round(t, 3) for t in res[0][name]['step_times']]}) "
+            f"[{smi}]")
+    bits = res[0]["sra_planned_bits"]
+    bp = bits["plan"]
+    m = bp["model"]
+    log(f"  sra_planned_bits (CGX_PLANNER_AVG_BITS={PLANNED_AVG_BITS}, the file's model, source "
+        f"{m['source']!r}: quantize {m['quantize_gbps']:.3f} GB/s, dequantize {m['dequantize_gbps']:.3f} GB/s, "
+        f"wire {m['wire_gbps']} GB/s, {1e6 * m['chunk_overhead_s']:.1f} us a block): (group, slice, length, "
+        f"bits, depth) {bp['slices']}; predicted step {1e3 * bp['predicted_s']:.3f} ms; host-clock step "
+        f"{bits['step_s']:.3f} s [{smi}]")
+    comp = [(n, b) for _, _, n, b, _ in bp["slices"]]
+    assert sum(n * b for n, b in comp) <= float(PLANNED_AVG_BITS) * sum(n for n, _ in comp), comp
+    widths = sorted({b for _, b in comp})
+    assert len(widths) > 1, widths
+    for r, o in enumerate(res):
+        c = o["sra_planned_bits"]
+        assert c["plan"] == bp, (r, "another plan")
+        assert [w["bits"] for w in c["widths"]] == widths, (r, c["widths"])
+        for w in c["widths"]:
+            assert w["same"] and w["launches"] == w["expected"], (r, w)
+    for w in bits["widths"]:
+        log(f"    {w['bits']}-bit slice of group {w['group']} ({w['n']} values, depth {w['chunks']}): card vs plain "
+            f"CPU bit-identical on every rank; rank 0's launches {({k: v for k, v in w['launches'].items() if v})} "
+            f"as the launch model's")
+    for name in ("sra_planned_producer", "sra_planned_producer_bits"):
+        for r, o in enumerate(res):
+            c = o[name]
+            pc, mv = c["producer"], c["moved"]
+            moved = len(mv["bits"]) + len(mv["depth"])
+            assert mv["staged"] == PRODUCED_LAYERS, (name, r, mv)
+            assert pc["producer_staged"] == PRODUCED_LAYERS, (name, r, pc)
+            assert pc["producer_fallback_plan"] == moved, (name, r, pc, mv)
+            assert pc["producer_consumed_slices"] == PRODUCED_LAYERS - moved, (name, r, pc, mv)
+            assert pc["producer_fallbacks"] == PROJ_LAYERS + moved, (name, r, pc)
+            assert pc["producer_fallback_fused_group"] == PROJ_LAYERS, (name, r, pc)
+            assert pc["producer_dw_skipped"] == 0, (name, r, pc)
+            assert (moved == 0) == (name == "sra_planned_producer"), (name, r, mv)
+        c = res[0][name]
+        log(f"  {name}: {c['producer']['producer_staged']} payloads staged a rank-step, "
+            f"{c['producer']['producer_consumed_slices']} consumed, "
+            f"{c['producer']['producer_fallback_plan']} fell back as 'plan' (the plan moved the width of "
+            f"{len(c['moved']['bits'])} and the depth of {len(c['moved']['depth'])}), "
+            f"{c['producer']['producer_kernel_slices']} from the matmul-quantize (B8 launches "
+            f"{c['launches']['codec_matmul_quantize']}); launches {({k: v for k, v in c['launches'].items() if v})} "
+            f"as the launch model's; host-clock step {c['step_s']:.3f} s [{smi}]")
+
+
 def ef_guard_check(res) -> None:
     """Phase 7's checks of the error-feedback and guard configurations, each
     failing the phase: the EF launches equal the plain configuration's plus
@@ -4646,9 +4914,14 @@ def hook_check(res, name: str, smi: str) -> None:
             assert bool(rr["pipelined"]) == (label in HOOK_SCHED_OF and (not hier or r % MR_INTRA == 0)), (
                 name, r, label, rr["pipelined"])
             # Where it ran, every bucket pipelined, in the card's reduce and
-            # the plain one, each at the default depth.
-            assert not rr["pipelined"] or rr["pipelined"] == [HOOK_SCHED_DEPTH] * (2 * rr["buckets"]), (
-                name, r, label, rr["pipelined"])
+            # the plain one, each at the default depth (under the planner:
+            # at planner.bridge_chunks', the buckets all deep enough for two).
+            if label == HOOK_PLANNED_RERUN:
+                assert len(rr["bridge"]) == 2 * rr["buckets"] and min(rr["bridge"]) >= 2, (name, r, rr["bridge"])
+                assert rr["pipelined"] == rr["bridge"], (name, r, label, rr["pipelined"], rr["bridge"])
+            else:
+                assert not rr["pipelined"] or rr["pipelined"] == [HOOK_SCHED_DEPTH] * (2 * rr["buckets"]), (
+                    name, r, label, rr["pipelined"])
             if label in HOOK_SCHED_OF:
                 mono_ri = list(h["reruns"]).index(HOOK_SCHED_OF[label])
                 mono = h["reruns"][HOOK_SCHED_OF[label]]["digests"]
@@ -4682,7 +4955,8 @@ def hook_check(res, name: str, smi: str) -> None:
             mono = h0["reruns"][HOOK_SCHED_OF[label]]
             same = _rerun_buckets(mono["card_s"], name, list(h0["reruns"]).index(label)) if (
                 len(mono["card_s"]) > len(rr["card_s"])) else mono["card_s"]
-            log(f"    under {label} (CGX_SCHEDULE=on) the hook's buckets equal {HOOK_SCHED_OF[label]}'s on every "
+            knob = "CGX_PLANNER=on" if label == HOOK_PLANNED_RERUN else "CGX_SCHEDULE=on"
+            log(f"    under {label} ({knob}) the hook's buckets equal {HOOK_SCHED_OF[label]}'s on every "
                 f"rank; pipelined SRAs on rank 0 {len(rr['pipelined'])} (sub-chunks {sorted(set(rr['pipelined']))}); "
                 f"the card's reduce of its {rr['buckets']} buckets on rank 0 {1e3 * sum(rr['card_s']):.1f} ms "
                 f"(each {[round(1e3 * t, 1) for t in rr['card_s']]}) against {HOOK_SCHED_OF[label]}'s "
@@ -5002,7 +5276,7 @@ def main() -> int:
     phase(f"7. multi-rank: {MR_WS} ranks on the card (cross {MR_WS // MR_INTRA} x intra "
           f"{MR_INTRA}), gloo, GPT-2 124M, {MR_BATCH}x{SEQ} tokens a rank")
     t7 = time.perf_counter()
-    mr = multirank_phase(smi=smi)
+    mr = multirank_phase(smi=smi, planner_model=db["planner_model"])
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s [{smi}]")
     launches["codec_reduce_rows"] = mr["launches"]["codec_reduce_rows"]
     for k in ("codec_matmul_quantize", "codec_tf32_split"):

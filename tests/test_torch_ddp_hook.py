@@ -15,7 +15,8 @@ module's first DDP test asks for them. The final parameters are compared
 bit for bit:
 
 * world size 2, 8 steps, under SRA, Ring and all-to-all; under the SRA
-  pipelined by ``CGX_SCHEDULE=on``; under the dummy codec; with per-layer
+  pipelined by ``CGX_SCHEDULE=on``, and by ``CGX_PLANNER=on`` at the step
+  planner's depth from a ``CGX_PLANNER_MODEL`` file; under the dummy codec; with per-layer
   bits and buckets changed after registration; with f16 and bf16 buckets;
 * world size 4, 8 steps, a bias-free model whose layers are all compressed;
 * world size 4, one step with raw (bias) layers: every port rank equals
@@ -25,8 +26,10 @@ bit for bit:
 
 Also in the port's ranks: registration at step 2 and its compressed/raw
 split, the stale-registry and ambiguous-bucket errors, each refused knob
-(``NotImplementedError`` naming it), ``CGX_SCHEDULE=on`` running through
-and equal to the monolithic SRA on one layer, the two-level path of a group on two
+(``NotImplementedError`` naming it), ``CGX_SCHEDULE=on`` and
+``CGX_PLANNER=on`` (with and without ``CGX_MEMLEDGER``, whose staging
+budget the hook's depth never reads) running through and equal to the
+monolithic SRA on one layer, the two-level path of a group on two
 faked hosts, and ``chip_smoke.LaunchModel.hook`` against the codec
 wrappers' calls counted on the CPU. The hook runs every bucket on the
 group's worker thread (``backend.allreduce_async``); the two-level scheme
@@ -305,6 +308,10 @@ def _registration(cfg):
 COMMON = {
     "sra": ({"CGX_INNER_REDUCTION_TYPE": "SRA"}, {}),
     "sra_sched": ({"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_SCHEDULE": "on"}, {}),
+    # CGX_PLANNER_MODEL: a file (PLANNED_MODEL) written by each rank before
+    # it trains, whose negligible cost a block makes the planner pipeline as
+    # deep as the rank chunks allow.
+    "sra_planned": ({"CGX_INNER_REDUCTION_TYPE": "SRA", "CGX_PLANNER": "on"}, {}),
     "ring": ({"CGX_INNER_REDUCTION_TYPE": "RING"}, {}),
     "alltoall": ({"CGX_DEBUG_ALL_TO_ALL_REDUCTION": "1"}, {}),
     "dummy": ({"CGX_DEBUG_DUMMY_COMPRESSION": "1"}, {}),
@@ -317,10 +324,12 @@ COMMON = {
     "nobias": ({"CGX_COMPRESSION_QUANTIZATION_BITS": "4"}, {"bias": False}),
     "raw1": ({}, {"steps": 1, "register_first": True}),
 }
+PLANNED_MODEL = {"quantize_gbps": 8.0, "dequantize_gbps": 16.0, "wire_gbps": 1.0, "overlap_frac": 0.0,
+                 "chunk_overhead_s": 1e-12, "compute_s": 0.0, "dcn_gbps": 0.25, "source": "test"}
 WORLDS = {
-    ("port", 2): ["sra", "sra_sched", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16",
+    ("port", 2): ["sra", "sra_sched", "sra_planned", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16",
                   "registration", "errors", "refusals"],
-    ("jax", 2): ["sra", "sra_sched", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16",
+    ("jax", 2): ["sra", "sra_sched", "sra_planned", "ring", "alltoall", "dummy", "per_layer", "f16", "bf16",
                  "registration"],
     ("port", 4): ["nobias", "raw1", "launches", "hierarchy"],
     ("jax", 4): ["nobias", "raw1"],
@@ -330,6 +339,14 @@ WORLDS = {
 def _common(name, tb, cfg, rank):
     env, kw = COMMON[name]
     os.environ.update(env)
+    if env.get("CGX_PLANNER") == "on":
+        import json
+        import tempfile
+
+        path = os.path.join(tempfile.gettempdir(), f"cgx_hook_model_{tb.__name__}_{rank}.json")
+        with open(path, "w") as f:
+            json.dump(PLANNED_MODEL, f)
+        os.environ["CGX_PLANNER_MODEL"] = path
     before = _per_layer(cfg) if kw.get("per_layer") else None
     if kw.get("register_first"):
         # Register at the first step, so that the one step compared sums the
@@ -338,7 +355,8 @@ def _common(name, tb, cfg, rank):
             state.step = 2
 
     depths = []
-    patched = tb.__name__.startswith("torch_cgx_tpu_torch") and "CGX_SCHEDULE" in env
+    patched = tb.__name__.startswith("torch_cgx_tpu_torch") and (
+        "CGX_SCHEDULE" in env or "CGX_PLANNER" in env)
     if patched:  # record the depth of every SRA that pipelined
         real = pb._sched_tables
 
@@ -355,6 +373,8 @@ def _common(name, tb, cfg, rank):
     finally:
         if patched:
             pb._sched_tables = real
+        if "CGX_PLANNER_MODEL" in os.environ:
+            os.remove(os.environ["CGX_PLANNER_MODEL"])
     return {"params": params, "bits": _layer_bits(cfg), "depths": depths}
 
 
@@ -395,7 +415,11 @@ def _errors_scenario(rank, ws):
 
 REFUSED = [
     ({"CGX_SCHEDULE": "on"}, None, "CGX_SCHEDULE"),  # runs: the pipelined SRA
-    ({"CGX_PLANNER": "on"}, NotImplementedError, "CGX_PLANNER"),
+    # Runs: the planned SRA (at the default model's depth for one layer).
+    ({"CGX_PLANNER": "on"}, None, "CGX_PLANNER"),
+    # Runs too: the hook's depth reads no staging budget, in the JAX
+    # backend either.
+    ({"CGX_PLANNER": "on", "CGX_MEMLEDGER": "1"}, None, "CGX_MEMLEDGER"),
     ({"CGX_SCHEDULE": "bogus"}, ValueError, "CGX_SCHEDULE"),
 ]
 
@@ -594,8 +618,8 @@ def _assert_params_equal(a, b, what):
         np.testing.assert_array_equal(x, y, err_msg=f"{what}: parameter {i}")
 
 
-@pytest.mark.parametrize("name", ["sra", "sra_sched", "ring", "alltoall", "dummy", "per_layer", "f16",
-                                  "bf16"])
+@pytest.mark.parametrize("name", ["sra", "sra_sched", "sra_planned", "ring", "alltoall", "dummy",
+                                  "per_layer", "f16", "bf16"])
 def test_ddp_ws2_bit_identical_to_jax(worlds, name):
     port, jax_ = worlds[("port", 2)], worlds[("jax", 2)]
     for r in range(2):
@@ -611,6 +635,27 @@ def test_ddp_scheduled_sra_ran_pipelined(worlds):
     for o in worlds[("port", 2)]:
         depths = o["sra_sched"]["depths"]
         assert depths and set(depths) == {2}, depths
+
+
+def test_ddp_planned_sra_took_the_planners_depth(worlds, monkeypatch):
+    """Under CGX_PLANNER=on with the model file every compressed bucket took
+    the pipelined SRA at ``planner.bridge_chunks``' depth (two sub-chunks:
+    the file's cost a block is negligible, and a 1,344-value rank chunk
+    holds two 512-value units), on both ranks; the parameters equal the JAX
+    "cgx" ranks' (``test_ddp_ws2_bit_identical_to_jax``)."""
+    from torch_cgx_tpu_torch.parallel import planner
+
+    monkeypatch.setenv("CGX_PLANNER", "on")
+    planner.set_cost_model(planner.CostModel.from_dict(PLANNED_MODEL))
+    try:
+        want = planner.bridge_chunks(1344, 512, 2, 4, 4)
+    finally:
+        planner.set_cost_model(None)
+    default = planner.bridge_chunks(1344, 512, 2, 4, 4)
+    assert want == 2 and default == 1, (want, default)  # the default model keeps it monolithic
+    for o in worlds[("port", 2)]:
+        depths = o["sra_planned"]["depths"]
+        assert depths and set(depths) == {want}, depths
 
 
 def test_ddp_per_layer_setters_applied(worlds):

@@ -2371,6 +2371,55 @@ def test_pipelined_sra_ws1_matches_plain(dev, monkeypatch, bucket, chunks, n, dt
     assert _bits_equal(got, want)
 
 
+# The step planner's block shapes on GPT-2 124M at ws 4 (CGX_PLANNER=on,
+# the default model, and CGX_PLANNER_AVG_BITS=3.5): (ws, block width, bits).
+PLANNED_BLOCKS = {
+    # A depth-16 block of a 64 MB wte slice: ws x w is exactly the fused
+    # epilogue's 2^20-value gate, so B3 runs.
+    "wte_depth16": (4, 262_144, 4),
+    # The tail slice's last depth-8 block, which takes the remainder, and
+    # the attention projection group's at 3 bits.
+    "wte_tail_depth8": (4, 160_448, 4),
+    "proj_3bit_depth8": (4, 245_760, 3),
+    # The MLP slices' depth-4 blocks at 3 bits, the first QKV slice's at 5.
+    "mlp_3bit": (4, 147_456, 3),
+    "qkv_5bit": (4, 110_592, 5),
+}
+
+
+@pytest.mark.parametrize("name", list(PLANNED_BLOCKS))
+def test_planned_block_shapes_match_plain(dev, monkeypatch, name):
+    """One planned block's stage-1 quantize (B1), fold and requantize (B3
+    at and above the 2^20-value gate, the staged B2 + B1 below it) and
+    decode (B2) on the card against the plain versions on the CPU, bit for
+    bit; the fused epilogue runs exactly where ws x w >= 2^20."""
+    from torch_cgx_tpu_torch.parallel import reducers
+
+    ws, w, bits = PLANNED_BLOCKS[name]
+    cc = CompressionConfig(bits=bits, bucket_size=512)
+    g = torch.Generator().manual_seed(w + bits)
+    xs = torch.randn(ws, w, generator=g)
+    peers = torch.randn(ws, w, generator=g) * 3.0
+    codec_cuda.reset_launch_counts()
+    q = reducers._quantize_rows(peers.to(dev), cc)
+    fused = dispatch.fused_epilogue_would_run(q)
+    assert fused == (ws * w >= 2**20), (name, fused)
+    own = q_own = None
+    for own in range(ws):
+        q_own = reducers._sra_epilogue_q(q, xs.to(dev), own, cc, torch.float32)
+    out = reducers._dequantize_rows(q)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in codec_cuda.LAUNCHES.items() if v}
+    monkeypatch.setenv("CGX_SRA_EPILOGUE", "fused" if fused else "staged")
+    q_p = reducers._quantize_rows(peers, cc)
+    assert _bits_equal(q.packed, q_p.packed) and _bits_equal(q.meta, q_p.meta), name
+    want = reducers._sra_epilogue_q(q_p, xs, own, cc, torch.float32)
+    assert _bits_equal(q_own.packed, want.packed) and _bits_equal(q_own.meta, want.meta), name
+    assert _bits_equal(out, reducers._dequantize_rows(q_p)), name
+    assert launches.get("codec_sra_epilogue", 0) == (ws if fused else 0), launches
+    assert launches["codec_quantize"] >= 1 and launches["codec_dequantize"] >= 1, launches
+
+
 SCHED_WS = 2
 
 

@@ -18,10 +18,12 @@ everything runs as before. Both accessors parse as the JAX package's do,
 which the tests check value by value. The guard's own behaviour on
 poisoned steps is in ``tests/test_torch_nonfinite_guard.py``.
 
-``CGX_SCHEDULE=on`` and ``CGX_PLANNER=on`` (the JAX package's pipelined SRA)
-are refused before any collective wherever a flat group's SRA would run,
-as the DDP hook refuses them; "auto" and "off" change nothing, and
-``CGX_XLA_ALLREDUCE`` changes no group the port can form (ROADMAP C21).
+``CGX_SCHEDULE=on`` (the pipelined SRA) and ``CGX_PLANNER=on`` (the step
+planner, which pipelines each slice at its planned depth) run on every
+entry point and equal the knobs unset; ``CGX_MEMLEDGER`` under the planner
+is refused before any collective wherever the planner would plan; "auto"
+and "off" change nothing, and ``CGX_XLA_ALLREDUCE`` changes no group the
+port can form (ROADMAP C21).
 """
 
 import multiprocessing as mp
@@ -256,11 +258,11 @@ def test_invalid_nonfinite_guard_is_a_value_error_as_in_jax(_env, guard):
 
 # ---------------------------------------------------------------------------
 # CGX_SCHEDULE and CGX_PLANNER on the train-step path (C21): CGX_SCHEDULE=on
-# runs the pipelined SRA (parallel/schedule.py), which goes on to the wire as
-# the unset run does; CGX_PLANNER=on selects the JAX package's step planner
-# (re-planned depth and bits), which the port does not have: a flat group's
-# SRA refuses it before any collective, as the DDP hook does. "auto" and
-# "off" run the monolithic SRA unchanged.
+# runs the pipelined SRA (parallel/schedule.py) and CGX_PLANNER=on the step
+# planner (parallel/planner.py), each going on to the wire as the unset run
+# does; the planner under CGX_MEMLEDGER (whose staging budget the port does
+# not have) is refused before any collective. "auto" and "off" run the
+# monolithic SRA unchanged.
 # CGX_XLA_ALLREDUCE is not read by the port: under "on" the JAX router
 # changes the result only for a MIXED group (a process holding several of
 # its devices), and a rank of the port holds one device.
@@ -308,13 +310,15 @@ def _entry_points(model, step, tokens):
                                    "make_train_step"])
 @pytest.mark.parametrize("knob", ["CGX_SCHEDULE", "CGX_PLANNER"])
 def test_pipelined_sra_knobs_refused_before_any_collective(two_ranks, knob, entry):
-    """Under CGX_PLANNER=on every entry point raises NotImplementedError
-    naming the knob, with the hook's message, before any collective; the
-    train step before its forward (the parameters untouched). Under
-    CGX_SCHEDULE=on every entry point goes on to the wire as the unset run
-    does (a tree's groups in reverse order), a flat buffer through the
-    pipelined SRA's asynchronous all-to-all in place of the monolithic
-    one's."""
+    """Under CGX_SCHEDULE=on and under CGX_PLANNER=on every entry point goes
+    on to the wire as the unset run does (a tree's groups in reverse
+    order); under CGX_SCHEDULE=on a flat buffer through the pipelined SRA's
+    asynchronous all-to-all in place of the monolithic one's, under the
+    planner (which plans only a tree's slices) through the monolithic one.
+    With CGX_MEMLEDGER set beside the knob, the tree, the sync and the
+    train step raise NotImplementedError naming it before any collective,
+    the step before its forward (the parameters untouched), where the
+    planner would plan; a flat buffer and the schedule alone run."""
     called = two_ranks
     forwards = []
     model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
@@ -323,36 +327,45 @@ def test_pipelined_sra_knobs_refused_before_any_collective(two_ranks, knob, entr
     step = make_train_step(model, lambda m, b: forwards.append(1) or lm_loss(m(b), b), opt, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 512, size=(2, 16)))
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    if knob == "CGX_SCHEDULE":
-        runs = []
-        for mode in (None, "on"):
-            with pytest.MonkeyPatch.context() as mp_:
-                if mode:
-                    mp_.setenv(knob, mode)
-                with pytest.raises(_Collective):
-                    _entry_points(model, step, tokens)[entry]()
-            runs.append((list(called), len(forwards)))
-            called.clear()
-            forwards.clear()
-        assert runs[0][1] == runs[1][1]  # the same forwards: none, or one before the sync
-        assert runs[0][0] and runs[1][0], runs  # both reached the wire
-        if entry == "allreduce_flat":  # one buffer: the pipeline's all-to-all first
-            assert runs == [(["all_to_all_rows"], 0), (["all_to_all_rows_async"], 0)], runs
-        return
+    runs = []
+    for mode in (None, "on"):
+        with pytest.MonkeyPatch.context() as mp_:
+            if mode:
+                mp_.setenv(knob, mode)
+            with pytest.raises(_Collective):
+                _entry_points(model, step, tokens)[entry]()
+        runs.append((list(called), len(forwards)))
+        called.clear()
+        forwards.clear()
+    assert runs[0][1] == runs[1][1]  # the same forwards: none, or one before the sync
+    assert runs[0][0] and runs[1][0], runs  # both reached the wire
+    if entry == "allreduce_flat":  # one buffer: the pipeline's all-to-all first
+        first = "all_to_all_rows_async" if knob == "CGX_SCHEDULE" else "all_to_all_rows"
+        assert runs == [(["all_to_all_rows"], 0), ([first], 0)], runs
+    refused = knob == "CGX_PLANNER" and entry != "allreduce_flat"
     with pytest.MonkeyPatch.context() as mp_:
         mp_.setenv(knob, "on")
-        with pytest.raises(NotImplementedError, match=f"pipelined SRA .*{knob}=on"):
-            _entry_points(model, step, tokens)[entry]()
-    assert called == [] and forwards == []
-    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+        mp_.setenv("CGX_MEMLEDGER", "1")
+        if refused:
+            with pytest.raises(NotImplementedError, match="CGX_PLANNER=on with CGX_MEMLEDGER"):
+                _entry_points(model, step, tokens)[entry]()
+        else:
+            with pytest.raises(_Collective):
+                _entry_points(model, step, tokens)[entry]()
+    if refused:
+        assert called == [] and forwards == []
+        assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    else:
+        assert called
 
 
 @pytest.mark.parametrize("case", ["ring", "alltoall", "two_level", "uncompressed", "auto", "off"])
 def test_pipelined_sra_knobs_leave_other_paths_running(two_ranks, case):
     """Where no flat-group SRA of compressed values runs (the Ring, the
-    all-to-all, a TwoLevelGroup, an all-uncompressed tree) "on" is not
-    refused, and "auto" / "off" never are: the sync goes on to the wire."""
-    knobs = {"CGX_SCHEDULE": "on", "CGX_PLANNER": "on"}
+    all-to-all, a TwoLevelGroup, an all-uncompressed tree) the planner under
+    CGX_MEMLEDGER is not refused, and "auto" / "off" never are: the sync
+    goes on to the wire."""
+    knobs = {"CGX_SCHEDULE": "on", "CGX_PLANNER": "on", "CGX_MEMLEDGER": "1"}
     group = None
     if case == "ring":
         knobs["CGX_INNER_REDUCTION_TYPE"] = "RING"
@@ -363,7 +376,7 @@ def test_pipelined_sra_knobs_leave_other_paths_running(two_ranks, case):
     elif case == "uncompressed":
         knobs["CGX_COMPRESSION_QUANTIZATION_BITS"] = "32"
     else:
-        knobs = {"CGX_SCHEDULE": case, "CGX_PLANNER": case}
+        knobs = {"CGX_SCHEDULE": case, "CGX_PLANNER": case, "CGX_MEMLEDGER": "1"}
     grads = {"a.kernel": torch.ones(64, 128)}
     with pytest.MonkeyPatch.context() as mp_:
         for k, v in knobs.items():
@@ -412,41 +425,49 @@ def test_xla_allreduce_on_changes_no_port_group():
 
 # The same on two spawned gloo ranks: a tiny float32 GPT-2's make_train_step
 # under each setting, the parameters after two steps against the knobs
-# unset; CGX_SCHEDULE=on runs the pipelined SRA, CGX_PLANNER=on raises on
-# both ranks (no rank is left in a collective).
+# unset; CGX_SCHEDULE=on runs the pipelined SRA, CGX_PLANNER=on the planned
+# one, and CGX_PLANNER=on with CGX_MEMLEDGER raises on both ranks (no rank
+# is left in a collective).
 KNOB_RUNS = [
     ("unset", {}), ("schedule_auto", {"CGX_SCHEDULE": "auto"}), ("schedule_off", {"CGX_SCHEDULE": "off"}),
     ("planner_auto", {"CGX_PLANNER": "auto"}), ("planner_off", {"CGX_PLANNER": "off"}),
     ("xla_on", {"CGX_XLA_ALLREDUCE": "on"}), ("xla_off", {"CGX_XLA_ALLREDUCE": "off"}),
 ]
 KNOB_WS = 2
+MODEL = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"cgx_knob_model_{os.getpid()}.json")
 
 
 def _knob_rank(rank, init_file, result_q):
     import torch.distributed as dist
 
-    from torch_cgx_tpu_torch.parallel import hierarchical_groups, schedule
+    from torch_cgx_tpu_torch.parallel import hierarchical_groups, planner, schedule
 
     for k in [k for k in os.environ if k.startswith("CGX_")]:
         del os.environ[k]
     os.environ.update(ENV)
     torch.set_num_threads(1)
     out = {}
+    # A model file whose fixed cost a block is negligible: the planner then
+    # pipelines every compressed slice as deep as its row allows.
+    planner.CostModel(chunk_overhead_s=1e-12).save(MODEL)
     try:
         dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                                 world_size=KNOB_WS, timeout=timedelta(seconds=120))
         tokens = torch.from_numpy(np.random.default_rng(rank).integers(0, 512, size=(2, 16)))
         for name, knobs in KNOB_RUNS + [("schedule_on", {"CGX_SCHEDULE": "on"}),
-                                        ("planner_on", {"CGX_PLANNER": "on"})]:
+                                        ("planner_on", {"CGX_PLANNER": "on", "CGX_PLANNER_MODEL": MODEL}),
+                                        ("memledger", {"CGX_PLANNER": "on", "CGX_MEMLEDGER": "1"})]:
             os.environ.update(knobs)
             model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
                          generator=torch.Generator().manual_seed(0))
             step = make_train_step(model, lambda m, b: lm_loss(m(b), b),
                                    torch.optim.Adam(model.parameters(), lr=1e-4), device="cpu")
             schedule.reset_counts()
+            planner.reset_counts()
             try:
                 losses = [float(step(tokens)) for _ in range(2)]
                 out[name] = {"losses": losses, "pipelined_slices": schedule.COUNTS["pipelined_slices"],
+                             "plans": planner.COUNTS["compiled"],
                              "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()}}
             except NotImplementedError as e:
                 out[name] = {"refused": str(e)}
@@ -460,7 +481,9 @@ def _knob_rank(rank, init_file, result_q):
         base = gradient_sync(g, group=tl)["a.kernel"]
         os.environ["CGX_SCHEDULE"] = "on"
         out["two_level_on_same"] = bool(torch.equal(gradient_sync(g, group=tl)["a.kernel"], base))
-        del os.environ["CGX_SCHEDULE"]
+        os.environ.update({"CGX_PLANNER": "on", "CGX_MEMLEDGER": "1"})
+        out["two_level_planner_same"] = bool(torch.equal(gradient_sync(g, group=tl)["a.kernel"], base))
+        del os.environ["CGX_SCHEDULE"], os.environ["CGX_PLANNER"], os.environ["CGX_MEMLEDGER"]
         dist.barrier()
     except Exception:
         import traceback
@@ -469,6 +492,7 @@ def _knob_rank(rank, init_file, result_q):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+        os.remove(MODEL)
     result_q.put((rank, out))
 
 
@@ -516,16 +540,19 @@ def test_knob_settings_leave_the_step_bit_identical(knob_world, name):
 
 
 def test_knobs_on_refused_on_every_rank(knob_world):
-    """Under CGX_PLANNER=on both ranks raise (no rank waits in a
-    collective); under CGX_SCHEDULE=on the two steps run the pipelined SRA
-    and equal the unset run bit for bit on both ranks; a TwoLevelGroup's
-    sync under CGX_SCHEDULE=on runs unchanged."""
+    """Under CGX_SCHEDULE=on and under CGX_PLANNER=on (a model file that
+    pipelines every compressed slice) the two steps run the pipelined SRA
+    and equal the unset run bit for bit on both ranks; the planner under
+    CGX_MEMLEDGER raises on both ranks (no rank waits in a collective); a
+    TwoLevelGroup's sync under either knob runs unchanged."""
     for r, res in enumerate(knob_world):
-        assert "refused" not in res["schedule_on"], res["schedule_on"]
-        assert res["schedule_on"]["pipelined_slices"] > 0
-        assert res["schedule_on"]["losses"] == res["unset"]["losses"]
-        for p, v in res["unset"]["params"].items():
-            np.testing.assert_array_equal(res["schedule_on"]["params"][p].view(np.uint32),
-                                          v.view(np.uint32), err_msg=f"rank {r} {p}")
-        assert "CGX_PLANNER=on" in res["planner_on"]["refused"]
-        assert res["two_level_on_same"]
+        for name in ("schedule_on", "planner_on"):
+            assert "refused" not in res[name], res[name]
+            assert res[name]["pipelined_slices"] > 0, (name, res[name]["pipelined_slices"])
+            assert res[name]["losses"] == res["unset"]["losses"]
+            for p, v in res["unset"]["params"].items():
+                np.testing.assert_array_equal(res[name]["params"][p].view(np.uint32),
+                                              v.view(np.uint32), err_msg=f"{name} rank {r} {p}")
+        assert res["planner_on"]["plans"] > 0 and res["schedule_on"]["plans"] == 0
+        assert "CGX_MEMLEDGER" in res["memledger"]["refused"]
+        assert res["two_level_on_same"] and res["two_level_planner_same"]

@@ -52,9 +52,16 @@ LAYER_ALIGNED_SPLIT = "CGX_LAYER_ALIGNED_SPLIT"  # the DDP hook's greedy chunk s
 # the DDP hook's pipelined bucket SRA), and its target depth.
 SCHEDULE = "CGX_SCHEDULE"
 SCHED_CHUNKS = "CGX_SCHED_CHUNKS"
-# Read only to refuse "on": the JAX package's step planner is not ported
-# (ROADMAP A9).
+# auto | on | off: the step planner (parallel/planner.py), its average-bits
+# budget, its persisted cost model and the span directory it calibrates from.
 PLANNER = "CGX_PLANNER"
+PLANNER_AVG_BITS = "CGX_PLANNER_AVG_BITS"
+PLANNER_MODEL = "CGX_PLANNER_MODEL"
+METRICS_DIR = "CGX_METRICS_DIR"
+# Read only to refuse it under CGX_PLANNER=on: the JAX package's memory
+# ledger, whose staging budget vetoes the planner's depths, is not ported
+# (ROADMAP A14).
+MEMLEDGER = "CGX_MEMLEDGER"
 # Read only to refuse "on": the JAX package's asynchronous cross-slice plane,
 # which skips the two-level scheme's cross stage, is not ported (ROADMAP A14).
 ASYNC = "CGX_ASYNC"
@@ -179,22 +186,64 @@ def sched_chunks() -> int:
 
 
 def planner_mode() -> str:
-    """CGX_PLANNER: auto | on | off. "on" re-plans the pipeline depth and
-    the bits of each slice in the JAX package, which the port does not
-    have (:func:`refuse_planner`)."""
+    """CGX_PLANNER: auto | on | off, the step planner
+    (``parallel/planner.py``), which sees every fusion slice of a step at
+    once and picks each slice's pipeline depth (and, under
+    ``CGX_PLANNER_AVG_BITS``, its bits) and the groups' order against a
+    cost model. "on" plans every flat SRA and lets the DDP hook take the
+    planner's depth too; "off" never plans. "auto" never plans in the port:
+    the JAX package engages it only on a real TPU backend, and plans
+    nowhere else."""
     return _tri_state(PLANNER)
 
 
-def refuse_planner(reduction: str) -> None:
-    """Raise ``NotImplementedError`` where an SRA (any reduction but the
-    Ring and the all-to-all) would run under ``CGX_PLANNER=on``: the JAX
-    package re-plans that SRA's depth and bits, a different wire and a
-    different result. Callers check before any collective, on every rank
-    alike."""
-    if reduction not in (REDUCTION_RING, REDUCTION_ALLTOALL) and planner_mode() == "on":
+def planner_avg_bits() -> float:
+    """CGX_PLANNER_AVG_BITS: the payload-weighted average bit width of the
+    planner's joint solve. Set, the planner re-allocates bits across a
+    step's fusion slices (``adaptive.solve_bit_allocation``) in place of
+    each slice's resolved width; 0 (the default) keeps the resolved widths,
+    so a plan changes only the depths and the order, never the values."""
+    v = _env.get_float_env_or_default(PLANNER_AVG_BITS, 0.0)
+    if v and not 1.0 <= v <= float(MAX_BITS):
+        raise ValueError(
+            f"{PLANNER_AVG_BITS} must be 0 (off) or in [1, {MAX_BITS}], got {v}"
+        )
+    return v
+
+
+def planner_model_path() -> Optional[str]:
+    """CGX_PLANNER_MODEL: path of a persisted cost model
+    (``planner.CostModel.save``'s JSON) that every rank reads at decision
+    time, so that every rank of a group plans from the same bytes. Unset:
+    the built-in default model, or one installed in the process
+    (``planner.set_cost_model``)."""
+    return _env.get_optional_str_env(PLANNER_MODEL)
+
+
+def metrics_dir() -> Optional[str]:
+    """CGX_METRICS_DIR: the directory of the ``spans-rank*.jsonl`` span
+    files that ``planner.CostModel.from_telemetry`` calibrates from (unset:
+    no span calibration). The port writes no span files itself yet."""
+    return _env.get_optional_str_env(METRICS_DIR)
+
+
+def memledger_enabled() -> bool:
+    """CGX_MEMLEDGER, parsed as the JAX package does. The port has no memory
+    ledger; under the planner the JAX ledger's staging budget can veto
+    pipeline depths, so the planner refuses it (:func:`refuse_memledger`)."""
+    return _env.get_bool_env_or_default(MEMLEDGER, False)
+
+
+def refuse_memledger() -> None:
+    """Raise ``NotImplementedError`` where the planner would plan under
+    ``CGX_MEMLEDGER``: the JAX planner then filters depths by the ledger's
+    staging budget, which the port does not have, and a plan without the
+    filter could differ from the JAX package's without saying so. Callers
+    check before any collective, on every rank alike."""
+    if planner_mode() == "on" and memledger_enabled():
         raise NotImplementedError(
-            f"the step planner's pipelined SRA ({PLANNER}=on: depth and bits re-planned "
-            f"slice by slice) is not ported; unset {PLANNER} or set it to auto or off"
+            f"the step planner's staging-budget filter ({PLANNER}=on with {MEMLEDGER} set) "
+            f"is not ported; unset {MEMLEDGER}, or unset {PLANNER} or set it to auto or off"
         )
 
 

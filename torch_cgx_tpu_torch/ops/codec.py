@@ -343,6 +343,13 @@ def packed_words(n: int, bits: int) -> int:
     return -(-n // LANE_GROUP) * bits
 
 
+def wire_bytes(n: int, bits: int, bucket_size: int, elem_size: int) -> int:
+    """The stage-1 wire footprint of ``n`` values: each bucket's meta pair
+    in ``elem_size``-byte values and the bit-plane words (the JAX package's
+    ``ops/codec.py`` formula, which the step planner's cost model prices)."""
+    return 2 * num_buckets(n, bucket_size) * elem_size + packed_words(n, bits) * 4
+
+
 def wire_layout(
     n: int, bits: int, bucket_size: int, dtype: torch.dtype, skip_incomplete: bool = False
 ) -> Tuple[int, int, int, int]:

@@ -69,8 +69,12 @@ Where this differs from the JAX package:
   ``Produced.table``), each quantized from the float32 ``dw / divisor``
   by the quantize kernel (B1), not by the matmul-quantize, as the JAX
   package does; the layer keeps its ``dw`` then, which the blocks are made
-  from. The planner and topology-router lookups are inert off the TPU
-  with their knobs unset.
+  from. Under ``CGX_PLANNER=on`` the table is the one at the step planner's
+  depth for the layer's slice (``planner.decide_slice``, only the depth
+  adopted, as in the JAX package); under ``CGX_PLANNER_AVG_BITS`` a payload
+  whose width the plan moved falls back (``plan``), and the backward never
+  skips ``dw``, since it cannot see the whole layout's bit allocation. The
+  topology-router lookup is inert off the TPU with its knob unset.
 
 Deterministic rounding only: stochastic configs fall back (``config``).
 """
@@ -290,13 +294,19 @@ def placeholder(ent: Produced) -> torch.Tensor:
     return torch.zeros((), dtype=ent.dtype, device=ent.raw_row.device).expand(ent.shape)
 
 
-def _schedule_table(cc: CompressionConfig, ws: int, n: int):
+def _schedule_table(cc: CompressionConfig, ws: int, n: int, plan=None):
     """The column-block table the sync's SRA of a standalone slice of ``n``
-    values will pipeline with (``schedule.compiled_schedule``), or None
-    where it stays monolithic."""
+    values will pipeline with (``schedule.compiled_schedule``, at the step
+    planner's depth for it: ``plan``, the layout's decision for the slice,
+    else ``planner.decide_slice``'s), or None where it stays monolithic."""
+    from ..parallel import planner as planner_mod
     from ..parallel import schedule as sched_mod
 
-    sched = sched_mod.compiled_schedule(n, ws, cc, reduction=cfg_mod.intra_reduction())
+    red = cfg_mod.intra_reduction()
+    dec = plan if plan is not None else planner_mod.decide_slice(n, ws, cc, red)
+    sched = sched_mod.compiled_schedule(
+        n, ws, cc, reduction=red, chunks=dec.chunks if dec is not None else None
+    )
     return None if sched is None else sched.table
 
 
@@ -310,6 +320,7 @@ def consume_reason(
     elem_size: int,
     group,
     table=None,
+    plan=None,
 ) -> str:
     """The consumption predicate, one for both sides: "" when
     ``allreduce_tree`` hands a payload staged at ``key`` (config, ranks,
@@ -317,7 +328,10 @@ def consume_reason(
     multi-rank SRA of a standalone group of ``n`` values at ``cc`` over
     ``group`` (``ws`` ranks, averaging ``divisor``), else the fallback
     reason. The allreduce consumes only where it holds; the backward skips
-    ``dw`` only where it holds for the arguments the sync will pass."""
+    ``dw`` only where it holds for the arguments the sync will pass.
+    ``plan``: the step planner's decision for the slice, whose depth sets
+    the table and whose bits, where they differ from ``cc``'s, refuse the
+    payload (``plan``)."""
     from ..parallel.mesh import TwoLevelGroup
 
     if isinstance(group, TwoLevelGroup) or not engaged() or cfg_mod.fake_ratio() is not None:
@@ -329,7 +343,8 @@ def consume_reason(
         or not cc.enabled
         or cfg_mod.intra_reduction() != cfg_mod.REDUCTION_SRA
         or cfg_mod.dummy_compression()
-        or table != _schedule_table(cc, ws, n)
+        or (plan is not None and plan.bits != cc.bits)
+        or table != _schedule_table(cc, ws, n, plan)
     ):
         return "plan"  # only the multi-rank SRA consumes a payload, with its block plan
     return ""
@@ -484,9 +499,12 @@ def _plan(
         return None
     n = math.prod(w_shape)
     table = _schedule_table(cc, ws, n)
+    from ..parallel import planner as planner_mod
+
     skip = (
         bool(_CFG["skip_dw"])
         and table is None
+        and not (planner_mod.engaged() and cfg_mod.planner_avg_bits())
         and _FORWARDS.get(name, 0) == 1
         and consume_reason(
             (cc, ws, div, n), cc=cc, ws=ws, divisor=div, n=n,

@@ -13,11 +13,12 @@ backward already quantized (``ops/fused_producer.py``, producer fusion)
 hands that payload to the multi-rank SRA in place of its own quantize.
 Under ``CGX_SCHEDULE=on`` a flat group's SRA runs each fusion slice as the
 column-block pipeline of ``parallel/schedule.py`` and the groups are
-reduced in reverse order, each keeping its own key. The step planner and
-the staged-program routes of the JAX package stay out: off the TPU they are
-inert at their default settings, and ``CGX_PLANNER=on``, which would
-re-plan a flat group's SRA, raises (:func:`refuse_unported`).
-``CGX_XLA_ALLREDUCE`` is not read: under "on" the JAX router changes the
+reduced in reverse order, each keeping its own key. Under
+``CGX_PLANNER=on`` the step planner (``parallel/planner.py``) plans a flat
+group's SRA slices: each its own depth and, under ``CGX_PLANNER_AVG_BITS``,
+its own bits, and the groups in the plan's order. The staged-program routes
+of the JAX package stay out: off the TPU they are inert at their default
+settings. ``CGX_XLA_ALLREDUCE`` is not read: under "on" the JAX router changes the
 result only for a group whose processes each hold several devices, and a
 rank of the port holds one.
 
@@ -52,6 +53,7 @@ from ..ops import fused_producer
 from ..utils import prng
 from ..utils.tree import sorted_items
 from . import group as group_mod
+from . import planner as planner_mod
 from . import schedule as sched_mod
 from .group import ProcessGroup
 from .mesh import TwoLevelGroup
@@ -144,16 +146,16 @@ def flat_world(group: GroupLike) -> Tuple[ProcessGroup, int]:
 
 
 def refuse_unported(group: GroupLike, compressed: bool) -> None:
-    """Raise ``NotImplementedError`` (``config.refuse_planner``) where a
-    flat group of more than one rank would reduce ``compressed`` values by
-    an SRA under ``CGX_PLANNER=on``, as the DDP hook does. Every rank
+    """Raise ``NotImplementedError`` (``config.refuse_memledger``) where the
+    step planner would plan a flat group of more than one rank reducing
+    ``compressed`` values by an SRA under ``CGX_MEMLEDGER``. Every rank
     reaches the same verdict from the same knobs and layout, before any
     collective. A ``TwoLevelGroup`` runs as it would unset: the JAX package
     consults the planner only on one-axis calls."""
     if not compressed or isinstance(group, TwoLevelGroup) or cfg_mod.dummy_compression():
         return
-    if group_mod.world_size(group) > 1:
-        cfg_mod.refuse_planner(cfg_mod.intra_reduction())
+    if group_mod.world_size(group) > 1 and cfg_mod.intra_reduction() == cfg_mod.REDUCTION_SRA:
+        cfg_mod.refuse_memledger()
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +198,14 @@ def layout_cache_clear() -> None:
 
 def invalidate_layout_cache() -> None:
     """Drop every cached layout and, with them, every compiled schedule
-    (``schedule.invalidate_schedule_cache``): both were derived for one world,
+    (``schedule.invalidate_schedule_cache``) and every step plan
+    (``planner.invalidate_plan_cache``): all were derived for one world,
     and a schedule of another would frame its blocks differently from its
     peers'. Counted in :func:`layout_cache_stats`."""
     layout_cache_clear()
     _LAYOUT_STATS["invalidations"] += 1
     sched_mod.invalidate_schedule_cache()
+    planner_mod.invalidate_plan_cache()
 
 
 def _layout_key(paths_leaves, compress_small: bool) -> Tuple:
@@ -261,6 +265,7 @@ def allreduce_flat(
     key: Optional[prng.Key] = None,
     return_roundtrip: bool = False,
     slices: Optional[Sequence[Tuple[int, int]]] = None,
+    plan: Optional[Sequence[planner_mod.SliceDecision]] = None,
 ):
     """Allreduce one flat buffer, fusion slice by fusion slice: over a
     :class:`TwoLevelGroup` with the env's two-level scheme
@@ -285,14 +290,20 @@ def allreduce_flat(
     is consumed there only if it was quantized per block against the same
     table (``consume_reason``: else "plan"). ``slices``: the buffer's
     fusion slices where the caller has them (the layout cache); the fake
-    ratio's shaped prefix recomputes them. Under ``CGX_PLANNER=on`` a
-    compressed buffer on a flat group raises ``NotImplementedError``
-    (:func:`refuse_unported`)."""
-    refuse_unported(group, cc.enabled)
+    ratio's shaped prefix recomputes them.
+
+    ``plan``: the step planner's decisions for ``slices`` on a flat group
+    (``allreduce_tree`` hands a group's in): each slice runs at its
+    decision's depth (``schedule.compiled_schedule(chunks=)``) and bits. A
+    producer-staged payload of a slice whose bits the plan moved falls back
+    (``plan``). None: the knobs decide, as unplanned."""
+    if isinstance(group, TwoLevelGroup):
+        plan = None  # the JAX package plans one-axis calls only
     if pre is not None:
         reason = fused_producer.consume_reason(
             pre.key, cc=cc, ws=flat_world(group)[1], divisor=pre.divisor, n=flat.shape[0],
             elem_size=flat.element_size(), group=group, table=pre.table,
+            plan=plan[0] if plan else None,
         )
         if reason:
             fused_producer.fallback(reason)
@@ -305,7 +316,7 @@ def allreduce_flat(
     if ratio is not None and cc.enabled and flat.shape[0] > 1:
         m = max(1, math.ceil(ratio * flat.shape[0]))
         flat, tail = flat[:m], flat[m:]
-        slices = None
+        slices = plan = None  # the plan was solved for the unshaped slices
     if slices is None:
         slices = _fusion_slices(flat.shape[0], flat.element_size())
 
@@ -322,17 +333,21 @@ def allreduce_flat(
                 rt_pieces.append(_stage1_roundtrip_piece(piece, cc, group, topo, k))
     else:
         ws, red = group_mod.world_size(group), cfg_mod.intra_reduction()
-        for off, ln in slices:
+        for si, (off, ln) in enumerate(slices):
             piece, k = flat[off : off + ln], slice_key(off)
-            sched = sched_mod.compiled_schedule(ln, ws, cc, reduction=red)
+            dec = plan[si] if plan is not None and si < len(plan) else None
+            cc_s = planned_config(cc, dec)
+            sched = sched_mod.compiled_schedule(
+                ln, ws, cc_s, reduction=red, chunks=dec.chunks if dec is not None else None
+            )
             if sched is not None:
                 out = sched_mod.pipelined_quantized_allreduce(
-                    piece, group, ws, cc, red, k, sched, with_wire=return_roundtrip, pre=pre
+                    piece, group, ws, cc_s, red, k, sched, with_wire=return_roundtrip, pre=pre
                 )
             elif return_roundtrip:
-                out = quantized_allreduce_with_wire(piece, group, ws, cc, red, pre, key=k)
+                out = quantized_allreduce_with_wire(piece, group, ws, cc_s, red, pre, key=k)
             else:
-                out = quantized_allreduce(piece, group, ws, cc, red, pre, key=k)
+                out = quantized_allreduce(piece, group, ws, cc_s, red, pre, key=k)
             if return_roundtrip:
                 out, rt = out
                 rt_pieces.append(rt)
@@ -344,6 +359,15 @@ def allreduce_flat(
     if not return_roundtrip:
         return out
     return out, rt_pieces[0] if len(rt_pieces) == 1 else torch.cat(rt_pieces)
+
+
+def planned_config(cc: CompressionConfig, dec) -> CompressionConfig:
+    """A slice's config under the step planner's decision ``dec`` (None:
+    ``cc``): the decision's bits where it moved a compressed slice's width
+    (``CGX_PLANNER_AVG_BITS``), else ``cc`` itself."""
+    if dec is not None and cc.enabled and 1 <= dec.bits <= cfg_mod.MAX_BITS and dec.bits != cc.bits:
+        return dataclasses.replace(cc, bits=dec.bits)
+    return cc
 
 
 def _roundtrip_wire_1axis(
@@ -437,9 +461,12 @@ def allreduce_tree(
     after the sweep. The grouping comes from the layout cache. Under
     ``CGX_SCHEDULE=on`` the groups are reduced last first
     (``schedule.dispatch_order``), each keyed with its own index ``gi``, so
-    the order changes no byte. Under ``CGX_PLANNER=on`` a tree with a
-    compressed leaf on a flat group raises ``NotImplementedError`` before
-    any collective (:func:`refuse_unported`)."""
+    the order changes no byte. Under ``CGX_PLANNER=on`` a flat group's
+    layout is planned (``planner.plan_for_layout``, from its LRU): the
+    groups go in the plan's order and each group's fusion slices take their
+    decisions (:func:`allreduce_flat`'s ``plan``). ``CGX_MEMLEDGER`` under
+    the planner raises ``NotImplementedError`` before any collective
+    (:func:`refuse_unported`)."""
     world, ws = flat_world(group)
     skipped = fused_producer.skipped_entries()
     if skipped:
@@ -467,11 +494,20 @@ def allreduce_tree(
         fp = fused_producer
     groups = _tree_layout(paths_leaves, compress_small).groups
     refuse_unported(group, any(g.cc.enabled for g in groups))
+    plan = None
+    if not isinstance(group, TwoLevelGroup) and planner_mod.engaged():
+        plan = planner_mod.plan_for_layout(groups, ws, reduction=cfg_mod.intra_reduction())
     out: Dict[str, torch.Tensor] = {}
     rt_out: Dict[str, torch.Tensor] = {}
-    order = sched_mod.dispatch_order(len(groups)) if sched_mod.engaged() else range(len(groups))
+    if plan is not None:
+        order = plan.order
+    elif sched_mod.engaged():
+        order = sched_mod.dispatch_order(len(groups))
+    else:
+        order = range(len(groups))
     for gi in order:
         g = groups[gi]
+        g_plan = plan.decisions[gi] if plan is not None else None
         pre = None
         path, leaf = paths_leaves[g.indices[0]]
         if len(g.indices) == 1 and (path in skipped or (fp is not None and g.cc.enabled)):
@@ -480,6 +516,7 @@ def allreduce_tree(
                 reason = fused_producer.consume_reason(
                     ent.key, cc=g.cc, ws=ws, divisor=div, n=leaf.numel(),
                     elem_size=leaf.element_size(), group=group, table=ent.table,
+                    plan=g_plan[0] if g_plan else None,
                 )
                 if not reason:
                     pre = ent
@@ -507,7 +544,7 @@ def allreduce_tree(
             reduced = allreduce_flat(
                 fused, g.cc, group=group, pre=pre,
                 key=None if key is None else prng.fold_in(key, gi),
-                return_roundtrip=return_roundtrip, slices=g.slices,
+                return_roundtrip=return_roundtrip, slices=g.slices, plan=g_plan,
             )
             if return_roundtrip:
                 reduced, rt_flat = reduced

@@ -163,9 +163,10 @@ def gradient_sync(
     gradients (averaged if ``average``); each counts the step in
     ``COUNTS["nonfinite_steps"]``. Under ``CGX_SCHEDULE=on`` a flat group's
     SRA runs pipelined (``parallel/schedule.py``), bit-identical to the
-    monolithic SRA where it rounds to nearest. ``CGX_PLANNER=on`` raises
-    ``NotImplementedError`` before any collective where a flat group's SRA
-    would run (``allreduce.refuse_unported``)."""
+    monolithic SRA where it rounds to nearest. Under ``CGX_PLANNER=on`` the
+    step planner plans a flat group's SRA slices (``allreduce_tree``);
+    ``CGX_MEMLEDGER`` then raises ``NotImplementedError`` before any
+    collective (``allreduce.refuse_unported``)."""
     policy = _guard_policy(nonfinite_guard)
     refuse_unported(group, any_compressed(grads, compress_small=compress_small))
     if policy != "off" and _nonfinite_step(grads, group):
@@ -231,10 +232,15 @@ def make_train_step(
     schedule (the JAX step keys its trace by them). Under
     ``CGX_SCHEDULE=on`` the sync pipelines a flat group's SRA, the error
     feedback round trip included (``with_wire``), and producer fusion
-    stages per-block payloads from a ``dw`` it keeps. Under
-    ``CGX_PLANNER=on`` a step whose flat-group sync would run an SRA raises
-    ``NotImplementedError`` before its forward
-    (``allreduce.refuse_unported``), so no rank enters a collective."""
+    stages per-block payloads from a ``dw`` it keeps. ``CGX_PLANNER``,
+    ``CGX_PLANNER_AVG_BITS`` and ``CGX_PLANNER_MODEL`` are read on each call
+    too, and the plan comes from the planner's LRU, which keys the model and
+    the plan version (the JAX step keys its trace by
+    ``planner.cache_key_component()``; this step keeps no per-build state
+    that a plan feeds). Under ``CGX_PLANNER=on`` with ``CGX_MEMLEDGER`` set a
+    step whose flat-group sync would plan raises ``NotImplementedError``
+    before its forward (``allreduce.refuse_unported``), so no rank enters a
+    collective."""
     guard = _guard_policy(nonfinite_guard)
     if ef_state is not None and not error_feedback:
         raise ValueError("make_train_step: ef_state is given but error_feedback is off")

@@ -28,11 +28,14 @@ reads: the slice's length, the world size, the config and the depth
 (:func:`compiled_schedule`), cleared together with the layout cache
 (``allreduce.invalidate_layout_cache``).
 
+The step planner (``parallel/planner.py``) hands each slice its own depth
+(``compiled_schedule(chunks=)``), which replaces ``CGX_SCHED_CHUNKS`` and
+the mode gate.
+
 Where this differs from the JAX package: "auto" never engages (the JAX
 package engages it only on the staged in-XLA plane of a real TPU, which the
-port does not have), the step planner's depth (``chunks=``) is not ported
-(``CGX_PLANNER=on`` is refused), and the JAX trace-time metrics are the
-counters of :data:`COUNTS`.
+port does not have), and the JAX trace-time metrics are the counters of
+:data:`COUNTS`.
 """
 
 from __future__ import annotations
@@ -147,18 +150,26 @@ def compiled_schedule(
     cc: CompressionConfig,
     *,
     reduction: str = cfg_mod.REDUCTION_SRA,
+    chunks: Optional[int] = None,
 ) -> Optional[CompiledSchedule]:
     """The pipeline plan of one fusion slice of ``n`` values over ``ws``
     ranks, or None where the SRA stays monolithic: the schedule not
     engaged, ``ws`` 1, compression off, the dummy codec, a reduction other
     than SRA (the Ring pipelines hop by hop already, the all-to-all is the
     debug path), or a row too narrow for two blocks. Plans (and the
-    negative results) come from the bounded LRU."""
+    negative results) come from the bounded LRU.
+
+    ``chunks``: the step planner's depth for this slice. Given, it replaces
+    both ``CGX_SCHED_CHUNKS`` and the mode gate (the planner's own gate
+    decided); every other gate holds, and a depth of 1 is None."""
     if ws <= 1 or not cc.enabled or cfg_mod.dummy_compression():
         return None
-    if reduction != cfg_mod.REDUCTION_SRA or not engaged():
+    if reduction != cfg_mod.REDUCTION_SRA:
         return None
-    chunks = cfg_mod.sched_chunks()
+    if chunks is None:
+        if not engaged():
+            return None
+        chunks = cfg_mod.sched_chunks()
     key = _schedule_key(n, ws, cc, chunks)
     hit = _SCHED_CACHE.get(key)
     if hit is not None:

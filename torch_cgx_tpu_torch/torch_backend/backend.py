@@ -58,9 +58,13 @@ monolithic SRA's, as in the JAX backend. Stochastic frame keys come from a
 generator per (collective, sub-chunk, stage), so they never depend on
 timing.
 
-Not ported, refused with ``NotImplementedError``: the step planner's depth
-(``CGX_PLANNER=on``, ROADMAP A9) and the two-level scheme's asynchronous
-cross stage (``CGX_ASYNC=on``).
+Under ``CGX_PLANNER=on`` the SRA pipelines as under ``CGX_SCHEDULE=on``,
+at the step planner's depth for the bucket (``planner.bridge_chunks``, from
+the default model or the ``CGX_PLANNER_MODEL`` file) in place of
+``CGX_SCHED_CHUNKS``; a depth of 1 keeps it monolithic.
+
+Not ported, refused with ``NotImplementedError``: the two-level scheme's
+asynchronous cross stage (``CGX_ASYNC=on``).
 """
 
 from __future__ import annotations
@@ -84,6 +88,7 @@ from ..config import CompressionConfig
 from ..ops import codec, codec_cuda, dispatch
 from ..ops.codec import QTensor
 from ..parallel import group as group_mod
+from ..parallel import planner as planner_mod
 from ..parallel import schedule as sched_mod
 from ..parallel.group import ProcessGroup
 from ..utils import prng
@@ -403,11 +408,12 @@ def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
     requantized, gathered and decoded: at most two sub-chunks in flight,
     the JAX backend's window of two (its ``_SCHED_WINDOW``). Its stochastic
     frame keys then come from :func:`_sched_rng` (``pfx`` names the
-    collective), else from the rank's ``rng``."""
+    collective), else from the rank's ``rng``. Under ``CGX_PLANNER=on`` it
+    pipelines too, at the planner's depth (:func:`_sched_tables`)."""
     ws, me = group_mod.world_size(group), group_mod.rank(group)
     dummy = cfg.dummy_compression() or force_raw
     sizes, offs = _chunk_split(fused.shape[0], ws, layers)
-    tables = _sched_tables(sizes, layers) if ws > 1 and cfg.schedule_mode() == "on" else None
+    tables = _sched_tables(sizes, layers) if ws > 1 and _pipelines() else None
     pipelined = tables is not None
     if not pipelined:
         tables = [[(0, sz)] for sz in sizes]
@@ -448,18 +454,31 @@ def _qreduce_sra(fused: torch.Tensor, layers: Sequence[Layer], wdt: torch.dtype,
         finish(c)
 
 
+def _pipelines() -> bool:
+    """Whether the bucket SRA may pipeline: ``CGX_SCHEDULE=on`` or
+    ``CGX_PLANNER=on``, read from the environment alone, so every rank
+    answers alike."""
+    return cfg.schedule_mode() == "on" or cfg.planner_mode() == "on"
+
+
 def _sched_tables(sizes: Sequence[int], layers: Sequence[Layer]) -> Optional[List[List[Tuple[int, int]]]]:
     """Every rank's sub-chunk plan (``schedule.chunk_table``,
     ``CGX_SCHED_CHUNKS`` deep, aligned to the lcm of the layers' buckets
     and 32), or None where no chunk sustains two (the JAX backend's copy of
-    the table, ``_sched_chunk_table``, is the same function).
-    Group-global: every rank derives every rank's table from the chunk
-    sizes, the layers and the knobs, and the tables are padded to one depth
-    with empty sub-chunks, whose empty frames travel like empty chunks."""
+    the table, ``_sched_chunk_table``, is the same function). Under
+    ``CGX_PLANNER=on`` the depth is ``planner.bridge_chunks``' for the
+    largest chunk at the first compressed layer's bits (the JAX backend's
+    rule). Group-global: every rank derives every rank's table from the
+    chunk sizes, the layers and the knobs, and the tables are padded to one
+    depth with empty sub-chunks, whose empty frames travel like empty
+    chunks."""
     align = 1
     for b in [c.bucket_size for (_o, _n, c) in layers] or [1]:
         align = math.lcm(align, max(1, b))
     chunks = cfg.sched_chunks()
+    if cfg.planner_mode() == "on" and sizes:
+        bits = next((c.bits for (_o, _n, c) in layers if c.enabled), 32)
+        chunks = planner_mod.bridge_chunks(max(sizes), align, len(sizes), bits, chunks)
     tables = [list(sched_mod.chunk_table(s, chunks, align)) for s in sizes]
     depth = max((len(t) for t in tables), default=1)
     if depth < 2:
@@ -856,7 +875,6 @@ def _stage3_rng(group: ProcessGroup) -> Rng:
 def _refuse_unported(topo: cfg.TopologyConfig, hier: bool) -> None:
     """Raise, on every rank alike and before any collective of the bucket,
     for what the JAX backend would run and the port does not have."""
-    cfg.refuse_planner(topo.cross_reduction if hier else topo.intra_reduction)
     if hier and cfg.async_mode() == "on":
         raise NotImplementedError(
             f"{cfg.ASYNC}=on (the two-level scheme without its cross stage, for the "
